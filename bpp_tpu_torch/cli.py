@@ -62,7 +62,10 @@ def cmd_run(args) -> int:
     writer = McmcWriter(mcmc_path, cfg, run.stree)
 
     def on_sample(gen, row):
-        writer.write_sample(gen, row["theta"], row["tau"], float(row["lnl"]))
+        mubar_h = row.get("mubar_h")
+        writer.write_sample(
+            gen, row["theta"], row["tau"], float(row["lnl"]),
+            mubar_h=None if mubar_h is None else float(mubar_h))
 
     t0 = time.time()
     log = eng.run_mcmc(progress_every=0 if args.quiet else 1000,

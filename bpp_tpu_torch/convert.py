@@ -1,12 +1,14 @@
 """Carry sampler state across from flat numpy arrays.
 
 :func:`state_from_numpy` builds the port's :class:`McmcState` from
-``{"gt": {...}, "sp": {...}, "subst": {...}}`` dictionaries of numpy
-arrays keyed by the field names of ``bpp_tpu``'s ``GTrees``,
-``SpeciesArrays`` and ``SubstState`` (as ``state.gt._asdict()`` with
-``np.asarray`` on each value gives them), so a test can hand a JAX
-chain's state to the port and compare densities on the same trees.
-Fields the port does not carry (MSC-I network arrays) must be None.
+``{"gt": {...}, "sp": {...}, "subst": {...}, "clock": {...}}``
+dictionaries of numpy arrays keyed by the field names of ``bpp_tpu``'s
+``GTrees``, ``SpeciesArrays``, ``SubstState`` and ``ClockState`` (as
+``state.gt._asdict()`` with ``np.asarray`` on each value gives them), so
+a test can hand a JAX chain's state to the port and compare densities on
+the same trees.  ``"clock"`` is optional (the strict clock without
+estimated locus rates carries none).  Fields the port does not carry
+(MSC-I network arrays) must be None.
 """
 
 from __future__ import annotations
@@ -14,7 +16,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .mcmc.state import N_FINETUNE, McmcState, SubstState, finetune_array
+from .mcmc.state import (
+    N_FINETUNE, ClockState, McmcState, SubstState, finetune_array,
+)
 from .trees.gtree import GTrees, SpeciesArrays
 
 _INT_FIELDS = {"left", "right", "parent", "mrca"}
@@ -55,8 +59,11 @@ def state_from_numpy(arrays: dict[str, dict[str, np.ndarray]], device="cpu",
     gt = _build(GTrees, arrays["gt"], dtype, device)
     sp = _build(SpeciesArrays, arrays["sp"], dtype, device)
     subst = _build(SubstState, arrays["subst"], dtype, device)
+    clock = None
+    if arrays.get("clock") is not None:
+        clock = _build(ClockState, arrays["clock"], dtype, device)
     zeros = torch.zeros((gt.n_loci,), dtype=dtype, device=device)
     ft = (finetune_array(cfg, dtype, device) if cfg is not None
           else torch.zeros((N_FINETUNE,), dtype=dtype, device=device))
     return McmcState(gt=gt, sp=sp, subst=subst, logl=zeros, logpr=zeros,
-                     finetune=ft)
+                     finetune=ft, clock=clock)

@@ -2,9 +2,10 @@
 
 Each ``csrc/*.cu`` source becomes a shared library with a plain C
 interface (loaded with ctypes), compiled for ``sm_90a`` into
-``bpp_tpu_torch/_build/<name>-<hash>.so``.  The hash covers the source
-and the flags, so an edited source rebuilds and an unchanged one loads
-from the cache.  A failed build raises with nvcc's stderr.
+``bpp_tpu_torch/_build/<name>-<hash>.so``.  The hash covers the source,
+the shared headers (``csrc/*.cuh``) and the flags, so an edited source
+rebuilds and an unchanged one loads from the cache.  A failed build
+raises with nvcc's stderr.
 """
 
 from __future__ import annotations
@@ -39,29 +40,46 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        src += header.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD / f"{name}-{digest[:16]}.so"
 
 
+def build_all(names, verbose: bool = False) -> list[Path]:
+    """Compile every ``csrc/<name>.cu`` whose hashed library is missing,
+    one nvcc process per source, all started together."""
+    outs = [library_path(name) for name in names]
+    jobs = []
+    for name, out in zip(names, outs):
+        if out.exists():
+            continue
+        BUILD.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
+        os.close(fd)
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp,
+               str(CSRC / f"{name}.cu")]
+        jobs.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for name, out, tmp, proc in jobs:
+        _, stderr = proc.communicate()
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"nvcc failed to build {name}.cu "
+                          f"(exit {proc.returncode}):\n{stderr}")
+            continue
+        if verbose:
+            print(stderr, end="")
+        os.replace(tmp, out)          # atomic: concurrent builds agree
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
+
+
 def build(name: str, verbose: bool = False) -> Path:
     """Compile ``csrc/<name>.cu`` unless the hashed library exists."""
-    out = library_path(name)
-    if out.exists():
-        return out
-    BUILD.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp,
-           str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed to build {name}.cu "
-                           f"(exit {proc.returncode}):\n{proc.stderr}")
-    if verbose:
-        print(proc.stderr, end="")
-    os.replace(tmp, out)          # atomic: concurrent builders agree
-    return out
+    return build_all([name], verbose)[0]
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,11 +1,11 @@
 """Batched Felsenstein pruning over ``[loci, sites, cats, states]`` (PyTorch).
 
-Port of ``bpp_tpu/core/felsenstein.py`` without the diploid resolution
-map.  All loci are processed together by an age-ordered loop: step ``k``
-updates inner node ``order[l, k]`` of every locus ``l`` at once, and
-every level is rescaled by the per-site max (log-scale accumulator).
-This is the CPU path and the plain version that kernel K1
-(``core/pack.py``) is held against.
+Port of ``bpp_tpu/core/felsenstein.py``.  All loci are processed
+together by an age-ordered loop: step ``k`` updates inner node
+``order[l, k]`` of every locus ``l`` at once, and every level is rescaled
+by the per-site max (log-scale accumulator).  This is the CPU path and
+the plain version that kernels K1 (``core/pack.py``) and K2
+(``core/fels.py``) are held against.
 """
 
 from __future__ import annotations
@@ -35,28 +35,42 @@ def tip_partials_from_codes(codes, dtype=torch.float32, n_states=4):
 
 
 def reduce_root(site_logl, weights, res_map=None, res_count=None):
-    """Weighted per-site reduction ``[L]``: a flat per-locus sum.
+    """Weighted per-site reduction ``[L]`` with diploid resolution
+    averaging: a flat per-locus sum.
 
-    ``site_logl`` may be wider than ``weights``; the tail is padding."""
-    if res_map is not None:
-        raise NotImplementedError(
-            "diploid resolution maps are not ported yet "
-            "(ROADMAP Queue 1 item 10i)")
-    return torch.sum(weights * site_logl[:, :weights.shape[1]], dim=1)
+    ``site_logl [L, S]`` are per-likelihood-pattern log-likelihoods; with
+    ``res_map [L, W, R]`` / ``res_count [L, W]`` each weight pattern
+    averages its resolution columns (locus.c:2587-2614), in log space by
+    a masked log-mean-exp so that per-pattern scaling is respected.
+    Without a map ``site_logl`` may be wider than ``weights``; the tail
+    is padding."""
+    if res_map is None:
+        return torch.sum(weights * site_logl[:, :weights.shape[1]], dim=1)
+    L, W, R = res_map.shape
+    if R == 1:
+        gathered = torch.gather(site_logl, 1, res_map[..., 0])
+        return torch.sum(weights * gathered, dim=1)
+    vals = torch.gather(site_logl, 1, res_map.reshape(L, W * R))
+    vals = vals.reshape(L, W, R)
+    valid = torch.arange(R, device=vals.device) < res_count[..., None]
+    vals = torch.where(valid, vals, torch.full_like(vals, -1e30))
+    m = torch.amax(vals, dim=-1)
+    sumexp = torch.sum(torch.where(valid, torch.exp(vals - m[..., None]),
+                                   torch.zeros_like(vals)), dim=-1)
+    logmean = m + torch.log(sumexp) - torch.log(res_count.to(vals.dtype))
+    return torch.sum(weights * logmean, dim=1)
 
 
-def loglikelihood(
+def site_loglikelihood(
     gt: GTrees,
     tip_partials,      # [L, T, S, A]
-    weights,           # [L, W]
     n_seq,             # [L]
     pmats,             # [L, N, C, A, A] P(branch above node i)
     freqs,             # [L, A]
     cat_weights,       # [C] or [L, C]
     order=None,        # [L, T-1] precomputed schedule (optional)
-    return_site=False,
 ):
-    """Log-likelihood of every locus: ``[L]``."""
+    """Log-likelihood of every likelihood pattern: ``[L, S]``."""
     L, T, S, A = tip_partials.shape
     N = 2 * T - 1
     C = pmats.shape[2]
@@ -95,8 +109,26 @@ def loglikelihood(
     cw = cw.expand(L, C)
     site_lik = torch.sum(root_clv * freqs[:, None, None, :]
                          * cw[:, None, :, None], dim=(2, 3))
-    site_logl = torch.log(torch.clamp(site_lik, min=tiny)) + logscale
-    logl = reduce_root(site_logl, weights)
+    return torch.log(torch.clamp(site_lik, min=tiny)) + logscale
+
+
+def loglikelihood(
+    gt: GTrees,
+    tip_partials,      # [L, T, S, A]
+    weights,           # [L, W]
+    n_seq,             # [L]
+    pmats,             # [L, N, C, A, A] P(branch above node i)
+    freqs,             # [L, A]
+    cat_weights,       # [C] or [L, C]
+    order=None,        # [L, T-1] precomputed schedule (optional)
+    return_site=False,
+    res_map=None,      # [L, W, R] resolution columns per weight pattern
+    res_count=None,    # [L, W]
+):
+    """Log-likelihood of every locus: ``[L]``."""
+    site_logl = site_loglikelihood(gt, tip_partials, n_seq, pmats, freqs,
+                                   cat_weights, order=order)
+    logl = reduce_root(site_logl, weights, res_map, res_count)
     if return_site:
         return logl, site_logl
     return logl

@@ -28,7 +28,10 @@ LAUNCHES = 0
 _FAM_CODE = {"jc69": 0, "tn93": 1, "gtr": 2}
 
 
-def _t_eff(order, left, right, parent, age, mu, rates_kappa, n_cats, blen):
+def scaled_lengths(order, left, right, parent, age, mu, rates_kappa, n_cats,
+                   blen):
+    """Rate-scaled branch lengths ``[L, N, C]`` of every (node, category);
+    ``blen`` overrides the strict-clock lengths."""
     if blen is None:
         blen = fe.branch_lengths(GTrees(left, right, parent, age), mu)
     return blen[:, :, None] * rates_kappa[:, None, :n_cats]
@@ -45,7 +48,8 @@ def site_logl_packed_ref(order, left, right, parent, n_seq, age, mu,
     counts, ``rates_kappa [L, C+2]`` category rates with kappa1, kappa2
     appended."""
     C = n_cats
-    t_eff = _t_eff(order, left, right, parent, age, mu, rates_kappa, C, blen)
+    t_eff = scaled_lengths(order, left, right, parent, age, mu, rates_kappa,
+                           C, blen)
     pmats = pmatrix_model(model, t_eff, freqs, rates_kappa[:, C],
                           rates_kappa[:, C + 1], eigw, eigT, eigTi)
     cw = torch.full((C,), 1.0 / C, dtype=tips.dtype, device=tips.device)
@@ -53,18 +57,64 @@ def site_logl_packed_ref(order, left, right, parent, n_seq, age, mu,
                             n_seq, pmats, freqs, cw, order=order)
 
 
-def _check(name, t, dtype, shape, device):
+def check_tensor(who, name, t, dtype, shape, device):
     if t.device != device:
-        raise ValueError(f"site_logl_packed: {name} is on {t.device}, "
+        raise ValueError(f"{who}: {name} is on {t.device}, "
                          f"expected {device}")
     if t.dtype != dtype:
-        raise TypeError(f"site_logl_packed: {name} has dtype {t.dtype}, "
+        raise TypeError(f"{who}: {name} has dtype {t.dtype}, "
                         f"the kernel takes {dtype}")
     if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"site_logl_packed: {name} has shape "
+        raise ValueError(f"{who}: {name} has shape "
                          f"{tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
-        raise ValueError(f"site_logl_packed: {name} is not contiguous")
+        raise ValueError(f"{who}: {name} is not contiguous")
+
+
+def tree_tensors(who, max_cats, order, left, right, parent, n_seq, age, mu,
+                 rates_kappa, freqs, eigw, eigT, eigTi, tips, *,
+                 model: SubstModel, n_cats: int, blen=None):
+    """What kernels K1 and K2 both read, checked and prepared on the card:
+    (tips, efac, coefs, eigT, eigTi, freqs, order, left, right, n_seq,
+    CLV scratch) and the model family's code.  ``max_cats()`` asks the
+    built kernel for the most rate categories it takes."""
+    if tips.device.type != "cuda":
+        raise ValueError(f"{who}: the kernel takes CUDA tensors, "
+                         f"got {tips.device}")
+    dev = tips.device
+    L, T, S, A = tips.shape
+    N = 2 * T - 1
+    C = n_cats
+    f32 = torch.float32
+    if A != 4:
+        raise ValueError(f"{who}: the kernel takes 4-state data")
+    if not 1 <= C <= max_cats():
+        raise ValueError(f"{who}: {C} rate categories; the kernel "
+                         f"takes 1..{max_cats()}")
+    check_tensor(who, "tips", tips, f32, (L, T, S, 4), dev)
+    for nm, t in (("order", order), ("left", left), ("right", right)):
+        check_tensor(who, nm, t, torch.int64,
+                     (L, T - 1) if nm == "order" else (L, N), dev)
+    check_tensor(who, "n_seq", n_seq, torch.int64, (L,), dev)
+    for nm, t in (("age", age), ("mu", mu), ("rates_kappa", rates_kappa),
+                  ("freqs", freqs), ("eigw", eigw), ("eigT", eigT),
+                  ("eigTi", eigTi)):
+        if t.dtype != f32 or t.device != dev:
+            raise TypeError(f"{who}: {nm} must be float32 on "
+                            f"{dev}, got {t.dtype} on {t.device}")
+
+    t_eff = scaled_lengths(order, left, right, parent, age, mu, rates_kappa,
+                           C, blen)
+    efac, coefs = efactors(model, t_eff, freqs, rates_kappa[:, C],
+                           rates_kappa[:, C + 1], eigw)
+    if coefs is None:
+        coefs = torch.zeros((L, 10), dtype=f32, device=dev)
+    tensors = (tips, efac.contiguous(), coefs.contiguous(),
+               eigT.reshape(L, 16).contiguous(),
+               eigTi.reshape(L, 16).contiguous(), freqs[:, :4].contiguous(),
+               order, left, right, n_seq,
+               torch.empty((L, T - 1, C, S, 4), dtype=f32, device=dev))
+    return tensors, _FAM_CODE[model_family(model)]
 
 
 def _kernel_lib():
@@ -112,48 +162,20 @@ def kernel_args(order, left, right, parent, n_seq, age, mu, rates_kappa,
                 model: SubstModel, n_cats: int, blen=None) -> KernelArgs:
     """Check the inputs of one K1 launch and prepare its factors, scratch
     and output on the card."""
-    if tips.device.type != "cuda":
-        raise ValueError(f"site_logl_packed: the kernel takes CUDA tensors, "
-                         f"got {tips.device}")
-    dev = tips.device
-    L, T, S, A = tips.shape
-    N = 2 * T - 1
-    C = n_cats
-    f32 = torch.float32
-    if A != 4:
-        raise ValueError("site_logl_packed: the kernel takes 4-state data")
-    lib = _kernel_lib()
-    if not 1 <= C <= lib.bpp_pack_max_cats():
-        raise ValueError(f"site_logl_packed: {C} rate categories; the kernel "
-                         f"takes 1..{lib.bpp_pack_max_cats()}")
-    _check("tips", tips, f32, (L, T, S, 4), dev)
-    _check("weights", weights, f32, (L, weights.shape[1]), dev)
-    if weights.shape[1] > S:
-        raise ValueError("site_logl_packed: more weights than patterns")
-    for nm, t in (("order", order), ("left", left), ("right", right)):
-        _check(nm, t, torch.int64, (L, T - 1) if nm == "order" else (L, N),
-               dev)
-    _check("n_seq", n_seq, torch.int64, (L,), dev)
-    for nm, t in (("age", age), ("mu", mu), ("rates_kappa", rates_kappa),
-                  ("freqs", freqs), ("eigw", eigw), ("eigT", eigT),
-                  ("eigTi", eigTi)):
-        if t.dtype != f32 or t.device != dev:
-            raise TypeError(f"site_logl_packed: {nm} must be float32 on "
-                            f"{dev}, got {t.dtype} on {t.device}")
-
-    t_eff = _t_eff(order, left, right, parent, age, mu, rates_kappa, C, blen)
-    efac, coefs = efactors(model, t_eff, freqs, rates_kappa[:, C],
-                           rates_kappa[:, C + 1], eigw)
-    if coefs is None:
-        coefs = torch.zeros((L, 10), dtype=f32, device=dev)
-    tensors = (tips, efac.contiguous(), coefs.contiguous(),
-               eigT.reshape(L, 16).contiguous(),
-               eigTi.reshape(L, 16).contiguous(), freqs[:, :4].contiguous(),
-               weights, order, left, right, n_seq,
-               torch.empty((L, T - 1, C, S, 4), dtype=f32, device=dev),
-               torch.empty((L,), dtype=f32, device=dev))
-    dims = (L, T, S, weights.shape[1], C, _FAM_CODE[model_family(model)])
-    return KernelArgs(tensors, dims)
+    who = "site_logl_packed"
+    tree, fam = tree_tensors(
+        who, lambda: _kernel_lib().bpp_pack_max_cats(), order, left, right,
+        parent, n_seq, age, mu, rates_kappa, freqs, eigw, eigT, eigTi, tips,
+        model=model, n_cats=n_cats, blen=blen)
+    L, T, S, _ = tips.shape
+    W = weights.shape[1]
+    check_tensor(who, "weights", weights, torch.float32, (L, W), tips.device)
+    if W > S:
+        raise ValueError(f"{who}: more weights than patterns")
+    out = torch.empty((L,), dtype=torch.float32, device=tips.device)
+    # the C signature's order: ..., freqs, weights, order, ..., scratch, out
+    tensors = tree[:6] + (weights,) + tree[6:] + (out,)
+    return KernelArgs(tensors, (L, T, S, W, n_cats, fam))
 
 
 def launch(args: KernelArgs):

@@ -126,4 +126,5 @@ def pmatrix_model(model: SubstModel, t_eff, freqs, kappa1, kappa2, eigw,
                              eigT[:, None, None, :, :],
                              eigTi[:, None, None, :, :])
     raise NotImplementedError(
-        f"model {model.name} is not ported yet (ROADMAP Queue 1 item 10a)")
+        f"model {model.name} is not ported yet "
+        "(ROADMAP Queue 1 item 10a-custom)")

@@ -9,25 +9,15 @@
 // Design (first, simple version):
 //   * one block per locus, one thread per site pattern (a thread loops
 //     over patterns when a locus has more than the block holds);
-//   * a thread walks its locus's age-sorted inner nodes k < n_seq - 1,
-//     reading the node's two children by node id: tips from the
-//     [L, T, S, 4] partials, inner nodes from a global CLV scratch
-//     [L, T-1, C, S, 4].  Both are float4 per (node, cat, pattern), so
-//     neighbouring threads touch neighbouring 16-byte words;
-//   * P(t)·x is applied by model family with the algebra of
-//     bpp_tpu/core/pallas_fels.py (JC69 `e·x + ¼(1−e)Σx`; TN93 class
-//     eigen-factors; GTR `x + T(em ⊙ T⁻¹x)`), every factor passed as
-//     m = e − 1 = expm1(λt) from one elementwise pass in PyTorch, so
-//     that P(t)·x = x + (terms in m).  The literal `1 − e` loses up to
-//     1e-3 of its relative precision in f32 on branches of ~1e-5, and
-//     at the bench's 1000 loci that cost 0.024 lnL on one locus
-//     against the f64 plain version;
-//   * every level is rescaled by the per-site max over categories and
-//     states, floored at 1e-30, and the log scale accumulates per site;
-//   * the root value log(Σ_c Σ_a π_a clv / C) + Σ log scale is weighted
-//     by the pattern count and summed per locus in the same block by a
-//     fixed-order tree reduction (in double): a flat per-locus sum, no
-//     floating-point atomics, so a chain is reproducible.
+//   * a thread walks its pattern up the locus's gene tree with
+//     `Locus::site_logl` of contract.cuh, which this kernel shares with
+//     the per-pattern kernel K2 (fels_kernel.cu): children by node id,
+//     CLVs as float4 in a global scratch, P(t)·x by model family from
+//     expm1 factors, a rescale at every level;
+//   * the site value is weighted by the pattern count and summed per
+//     locus in the same block by a fixed-order tree reduction (in
+//     double): a flat per-locus sum, no floating-point atomics, so a
+//     chain is reproducible.
 //
 // What bounds it on an H100: at the bench shapes (1000 loci, 16 tips,
 // 32 patterns) one pass moves ~9 MB (the tip partials dominate) and does
@@ -42,104 +32,11 @@
 // from bpp_tpu_torch/core/pack.py): bpp_pack_logl returns the value of
 // cudaGetLastError() right after the launch.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "contract.cuh"
 
 namespace {
 
-constexpr float kTiny = 1e-30f;
-
-enum { FAM_JC69 = 0, FAM_TN93 = 1, FAM_GTR = 2 };
-
-template <int FAM> struct Coefs;
-
-template <> struct Coefs<FAM_JC69> {
-  static constexpr int K = 1;
-  __device__ void load(const float*, const float*, const float*, int64_t) {}
-  // y = e x + (1-e)/4 Σx, as x + m (x - Σx/4) with m = e - 1
-  __device__ float4 apply(float4 x, const float* e) const {
-    const float m = e[0];
-    const float q = 0.25f * ((x.x + x.y) + (x.z + x.w));
-    return make_float4(x.x + m * (x.x - q), x.y + m * (x.y - q),
-                       x.z + m * (x.z - q), x.w + m * (x.w - q));
-  }
-};
-
-template <> struct Coefs<FAM_TN93> {
-  static constexpr int K = 3;
-  float pa, pc, pg, pt, rR, rY, cA, cG, cC, cT;
-  __device__ void load(const float* coefs, const float*, const float*,
-                       int64_t l) {
-    const float* c = coefs + l * 10;
-    pa = c[0]; pc = c[1]; pg = c[2]; pt = c[3]; rR = c[4]; rY = c[5];
-    cA = c[6]; cG = c[7]; cC = c[8]; cT = c[9];
-  }
-  // pallas_fels's UR + cA e3 (xA - xG) etc., with every e = 1 + m so
-  // that the t = 0 identity cancels algebraically: y = x + corrections
-  __device__ float4 apply(float4 x, const float* e) const {
-    const float m2 = e[0], m3 = e[1], m4 = e[2];
-    const float WR = pa * x.x + pg * x.z;
-    const float WY = pc * x.y + pt * x.w;
-    const float uR = m2 * (rR * WR - WY);
-    const float uY = m2 * (rY * WY - WR);
-    const float dRG = m3 * (x.x - x.z);
-    const float dCT = m4 * (x.y - x.w);
-    return make_float4(x.x + (uR + cA * dRG), x.y + (uY + cC * dCT),
-                       x.z + (uR - cG * dRG), x.w + (uY - cT * dCT));
-  }
-};
-
-template <> struct Coefs<FAM_GTR> {
-  static constexpr int K = 4;
-  float T[16], Ti[16];
-  __device__ void load(const float*, const float* eigT, const float* eigTi,
-                       int64_t l) {
-    for (int i = 0; i < 16; ++i) {
-      T[i] = eigT[l * 16 + i];
-      Ti[i] = eigTi[l * 16 + i];
-    }
-  }
-  __device__ float4 apply(float4 x, const float* e) const {
-    float z[4];
-    for (int k = 0; k < 4; ++k)
-      z[k] = e[k] * (Ti[k * 4 + 0] * x.x + Ti[k * 4 + 1] * x.y +
-                     Ti[k * 4 + 2] * x.z + Ti[k * 4 + 3] * x.w);
-    float y[4];
-    for (int i = 0; i < 4; ++i)
-      y[i] = T[i * 4 + 0] * z[0] + T[i * 4 + 1] * z[1] +
-             T[i * 4 + 2] * z[2] + T[i * 4 + 3] * z[3];
-    return make_float4(x.x + y[0], x.y + y[1], x.z + y[2], x.w + y[3]);
-  }
-};
-
-struct Args {
-  const float4* tips;      // [L, T, S] float4
-  const float* efac;       // [L, N, C, K]
-  const float* coefs;      // [L, 10] (TN93 class)
-  const float* eigT;       // [L, 16] (GTR)
-  const float* eigTi;      // [L, 16] (GTR)
-  const float* freqs;      // [L, 4]
-  const float* weights;    // [L, W]
-  const int64_t* order;    // [L, T-1]
-  const int64_t* left;     // [L, N]
-  const int64_t* right;    // [L, N]
-  const int64_t* n_seq;    // [L]
-  float4* scratch;         // [L, T-1, C, S] float4
-  float* out;              // [L]
-  int T, S, W;
-};
-
-__device__ __forceinline__ float4 mul4(float4 a, float4 b) {
-  return make_float4(a.x * b.x, a.y * b.y, a.z * b.z, a.w * b.w);
-}
-
-__device__ __forceinline__ float4 div4(float4 a, float m) {
-  return make_float4(a.x / m, a.y / m, a.z / m, a.w / m);
-}
-
-__device__ __forceinline__ float max4(float4 a) {
-  return fmaxf(fmaxf(a.x, a.y), fmaxf(a.z, a.w));
-}
+using namespace bpp;
 
 __device__ __forceinline__ double warp_sum(double v) {
   for (int off = 16; off > 0; off >>= 1)
@@ -148,59 +45,16 @@ __device__ __forceinline__ double warp_sum(double v) {
 }
 
 template <int FAM, int C>
-__global__ void pack_logl_kernel(Args a) {
-  using Cf = Coefs<FAM>;
-  constexpr int K = Cf::K;
+__global__ void pack_logl_kernel(TreeArgs a, const float* weights, int W,
+                                 float* out) {
   const int64_t l = blockIdx.x;
-  const int T = a.T, S = a.S, N = 2 * T - 1;
-  const int64_t ns = a.n_seq[l];
-  const int nlev = ns >= 2 ? static_cast<int>(ns - 1) : 0;
-  Cf cf;
-  cf.load(a.coefs, a.eigT, a.eigTi, l);
-  const float f0 = a.freqs[l * 4 + 0], f1 = a.freqs[l * 4 + 1];
-  const float f2 = a.freqs[l * 4 + 2], f3 = a.freqs[l * 4 + 3];
-  const float4* tips = a.tips + l * T * S;
-  float4* scr = a.scratch + l * (T - 1) * C * S;
-  const int64_t* order = a.order + l * (T - 1);
-  const int64_t* left = a.left + l * N;
-  const int64_t* right = a.right + l * N;
-  const float* efac = a.efac + l * N * C * K;
+  Locus<FAM, C> loc;
+  loc.load(a, l);
 
   double acc = 0.0;
-  for (int s = threadIdx.x; s < S; s += blockDim.x) {
-    float logscale = 0.0f;
-    float4 root[C];
-    const float4 tip0 = tips[s];
-    for (int c = 0; c < C; ++c) root[c] = tip0;   // single-sequence locus
-    for (int k = 0; k < nlev; ++k) {
-      const int64_t node = order[k];
-      const int64_t lc = left[node];
-      const int64_t rc = right[node];
-      float4 y[C];
-      float m = 0.0f;
-      for (int c = 0; c < C; ++c) {
-        const float4 xl = lc < T ? tips[lc * S + s]
-                                 : scr[((lc - T) * C + c) * S + s];
-        const float4 xr = rc < T ? tips[rc * S + s]
-                                 : scr[((rc - T) * C + c) * S + s];
-        y[c] = mul4(cf.apply(xl, efac + (lc * C + c) * K),
-                    cf.apply(xr, efac + (rc * C + c) * K));
-        m = fmaxf(m, max4(y[c]));
-      }
-      m = fmaxf(m, kTiny);
-      for (int c = 0; c < C; ++c) {
-        y[c] = div4(y[c], m);
-        scr[((node - T) * C + c) * S + s] = y[c];
-        root[c] = y[c];
-      }
-      logscale += logf(m);
-    }
-    float lik = 0.0f;
-    for (int c = 0; c < C; ++c)
-      lik += (1.0f / C) * (f0 * root[c].x + f1 * root[c].y +
-                           f2 * root[c].z + f3 * root[c].w);
-    const float site = logf(fmaxf(lik, kTiny)) + logscale;
-    const float w = s < a.W ? a.weights[l * a.W + s] : 0.0f;
+  for (int s = threadIdx.x; s < a.S; s += blockDim.x) {
+    const float site = loc.site_logl(s);
+    const float w = s < W ? weights[l * W + s] : 0.0f;
     acc += static_cast<double>(w) * static_cast<double>(site);
   }
 
@@ -215,34 +69,21 @@ __global__ void pack_logl_kernel(Args a) {
     const int nw = (blockDim.x + 31) >> 5;
     double v = lane < nw ? part[lane] : 0.0;
     v = warp_sum(v);
-    if (lane == 0) a.out[l] = static_cast<float>(v);
+    if (lane == 0) out[l] = static_cast<float>(v);
   }
 }
 
 template <int FAM, int C>
-void launch(const Args& a, int L, int threads, cudaStream_t st) {
-  pack_logl_kernel<FAM, C><<<L, threads, 0, st>>>(a);
-}
-
-template <int FAM>
-int launch_c(const Args& a, int L, int C, int threads, cudaStream_t st) {
-  switch (C) {
-    case 1: launch<FAM, 1>(a, L, threads, st); break;
-    case 2: launch<FAM, 2>(a, L, threads, st); break;
-    case 3: launch<FAM, 3>(a, L, threads, st); break;
-    case 4: launch<FAM, 4>(a, L, threads, st); break;
-    case 5: launch<FAM, 5>(a, L, threads, st); break;
-    case 6: launch<FAM, 6>(a, L, threads, st); break;
-    case 7: launch<FAM, 7>(a, L, threads, st); break;
-    case 8: launch<FAM, 8>(a, L, threads, st); break;
-    default: return -1;
+struct Launch {
+  static void run(const TreeArgs& a, const float* weights, int W, float* out,
+                  int L, int threads, cudaStream_t st) {
+    pack_logl_kernel<FAM, C><<<L, threads, 0, st>>>(a, weights, W, out);
   }
-  return 0;
-}
+};
 
 }  // namespace
 
-extern "C" int bpp_pack_max_cats() { return 8; }
+extern "C" int bpp_pack_max_cats() { return bpp::kMaxCats; }
 
 extern "C" int bpp_pack_logl(
     const void* tips, const void* efac, const void* coefs, const void* eigT,
@@ -251,34 +92,15 @@ extern "C" int bpp_pack_logl(
     const void* n_seq, void* scratch, void* out, int L, int T, int S, int W,
     int C, int fam, void* stream) {
   if (L <= 0) return 0;
-  Args a;
-  a.tips = static_cast<const float4*>(tips);
-  a.efac = static_cast<const float*>(efac);
-  a.coefs = static_cast<const float*>(coefs);
-  a.eigT = static_cast<const float*>(eigT);
-  a.eigTi = static_cast<const float*>(eigTi);
-  a.freqs = static_cast<const float*>(freqs);
-  a.weights = static_cast<const float*>(weights);
-  a.order = static_cast<const int64_t*>(order);
-  a.left = static_cast<const int64_t*>(left);
-  a.right = static_cast<const int64_t*>(right);
-  a.n_seq = static_cast<const int64_t*>(n_seq);
-  a.scratch = static_cast<float4*>(scratch);
-  a.out = static_cast<float*>(out);
-  a.T = T;
-  a.S = S;
-  a.W = W;
+  const TreeArgs a = tree_args(tips, efac, coefs, eigT, eigTi, freqs, order,
+                               left, right, n_seq, scratch, T, S);
   int threads = ((S + 31) / 32) * 32;
   if (threads > 256) threads = 256;
   if (threads < 32) threads = 32;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int rc;
-  switch (fam) {
-    case FAM_JC69: rc = launch_c<FAM_JC69>(a, L, C, threads, st); break;
-    case FAM_TN93: rc = launch_c<FAM_TN93>(a, L, C, threads, st); break;
-    case FAM_GTR: rc = launch_c<FAM_GTR>(a, L, C, threads, st); break;
-    default: rc = -1;
-  }
+  const int rc = dispatch<Launch>(
+      fam, C, a, static_cast<const float*>(weights), W,
+      static_cast<float*>(out), L, threads,
+      static_cast<cudaStream_t>(stream));
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,11 +1,14 @@
 """MCMC driver: the cmd_run equivalent (src/method.c:4939), PyTorch.
 
-Port of ``bpp_tpu/mcmc/driver.py`` cut to the first slice: A00 on a
-fixed species tree, JC69 without Γ, strict clock, haploid/phased DNA.
-Every combination outside the slice raises ``NotImplementedError``
-naming the ROADMAP item that brings it.  The jitted ``lax.scan`` chunk
-becomes a Python loop over :meth:`Engine._step`; a step reads nothing
-back to the host, and a chunk synchronises once, at its end.
+Port of ``bpp_tpu/mcmc/driver.py`` cut to what is ported so far: A00 on
+a fixed species tree with a strict clock, on haploid, phased or unphased
+diploid DNA, with any DNA substitution model for all loci, Γ rates,
+locus rates and heredity scalars.  Every combination outside that raises
+``NotImplementedError`` naming the ROADMAP item that brings it.  The
+jitted ``lax.scan`` chunk becomes a Python loop over
+:meth:`Engine._step`; a step reads nothing back to the host (but for the
+Gamma-Dirichlet locus-rate prior's serial accept chain, one copy each
+way per iteration), and a chunk synchronises once, at its end.
 """
 
 from __future__ import annotations
@@ -19,13 +22,16 @@ import torch
 
 from ..config import BppConfig, Clock, PriorDist, SubstModel
 from ..core import felsenstein as fe
+from ..core.gammarates import discrete_gamma_rates
 from ..loader import RunData, init_tau_theta
 from ..trees.gtree import init_gtrees, species_arrays
-from . import moves
+from . import clock_moves, moves, subst_moves
 from .state import (
-    FT_GTAGE, FT_GTSPR, FT_MIX, FT_TAU, FT_THETA, MV_GTAGE, MV_GTSPR,
-    MV_MIX, MV_TAU, MV_THETA, N_MOVES, Ctx, McmcState, SubstState,
-    finetune_array, make_logl_fn, make_logpr_fn, refresh_eigen,
+    FT_ALPHA, FT_FREQS, FT_GTAGE, FT_GTSPR, FT_LRHT, FT_MIX, FT_MUBAR,
+    FT_MUI, FT_QRATES, FT_TAU, FT_THETA, MV_ALPHA, MV_FREQS, MV_GTAGE,
+    MV_GTSPR, MV_LRHT, MV_MIX, MV_MUBAR, MV_MUI, MV_QRATES, MV_TAU,
+    MV_THETA, N_MOVES, Ctx, McmcState, SubstState, finetune_array,
+    make_logl_fn, make_logpr_fn, refresh_eigen,
 )
 
 PJ_OPTIMUM = 0.30     # method.c:45 target pjump
@@ -38,6 +44,12 @@ MOVE_TO_FT = {
     MV_THETA: FT_THETA,
     MV_TAU: FT_TAU,
     MV_MIX: FT_MIX,
+    MV_LRHT: FT_LRHT,
+    MV_FREQS: FT_FREQS,
+    MV_QRATES: FT_QRATES,
+    MV_ALPHA: FT_ALPHA,
+    MV_MUI: FT_MUI,
+    MV_MUBAR: FT_MUBAR,
 }
 
 
@@ -124,14 +136,14 @@ def _slice_guards(cfg: BppConfig, run: RunData):
             f"{what} is not ported to bpp_tpu_torch yet "
             f"(ROADMAP Queue 1 item {item})")
 
-    if cfg.model != SubstModel.JC69 or cfg.alphaprior is not None:
-        refuse(f"model {cfg.model.name}"
-               + (" with alphaprior" if cfg.alphaprior is not None else ""),
-               "10a, subst_moves")
+    if cfg.model == SubstModel.CUSTOM or run.locus_models is not None:
+        refuse("per-locus models (model = custom)", "10a-custom")
+    if cfg.model.is_aa:
+        refuse(f"the amino-acid model {cfg.model.name}", "10a-custom")
     if cfg.clock != Clock.GLOBAL:
         refuse("a relaxed clock", "10c")
-    if cfg.est_locusrate or cfg.est_heredity:
-        refuse("locus rates and heredity scalars", "10a")
+    if cfg.est_locusrate == 3:
+        refuse("locusrate = 3 (tip dating)", "10c")
     if cfg.est_delimit:
         refuse("species delimitation (A10/A11)", "10e")
     if cfg.est_stree:
@@ -148,8 +160,6 @@ def _slice_guards(cfg: BppConfig, run: RunData):
         refuse("integrated-out thetas", "10b")
     if cfg.linked_theta:
         refuse("linked thetas (thetamodel)", "10b")
-    if cfg.phase is not None and any(cfg.phase):
-        refuse("unphased diploid data", "10i")
     if cfg.checkpoint:
         refuse("checkpoint/resume", "9")
     if cfg.n_chains > 1:
@@ -192,14 +202,15 @@ class Engine:
                 "float64 on the GPU: the pruning kernel is float32 only "
                 "(an f64 kernel is on the ROADMAP)")
         batch = run.batch
-        rm = batch.res_map
-        ident = (rm.shape[2] == 1 and rm.shape[1] == batch.tip_codes.shape[-1]
-                 and ((rm[..., 0] == np.arange(rm.shape[1])[None, :])
-                      | (batch.weights == 0)).all())
-        if not ident:
-            raise NotImplementedError(
-                "diploid resolution maps are not ported to bpp_tpu_torch "
-                "yet (ROADMAP Queue 1 item 10i)")
+        # non-diploid batches carry an identity resolution map (one
+        # column per weight pattern): drop it, so that they take the
+        # per-locus kernel K1; any other map sends the whole batch through
+        # the per-pattern kernel K2 and reduce_root
+        rm, rcnt = batch.res_map, batch.res_count
+        if (rm.shape[2] == 1 and rm.shape[1] == batch.tip_codes.shape[-1]
+                and ((rm[..., 0] == np.arange(rm.shape[1])[None, :])
+                     | (batch.weights == 0)).all()):
+            rm = rcnt = None
 
         def t(a, dtype=None):
             return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
@@ -211,6 +222,9 @@ class Engine:
             n_seq=t(batch.n_seq, torch.int64),
             tip_pop=t(batch.tip_pop, torch.int64),
             locus_mask=t(batch.locus_mask, torch.bool),
+            res_map=None if rm is None else t(rm, torch.int64),
+            res_count=None if rcnt is None else t(rcnt, torch.int64),
+            n_pat=t(batch.n_pat, torch.int64),
         )
         self._logl_fn = make_logl_fn(self.ctx, cfg)
         self._logpr_fn = make_logpr_fn(self.ctx)
@@ -219,9 +233,44 @@ class Engine:
 
     # --- state construction ---------------------------------------------------
 
+    def _parse_doubles_file(self, path: str, what: str) -> np.ndarray:
+        """Whitespace-separated per-locus doubles (parsefile_doubles,
+        method.c:3942/3986); must match the real locus count exactly."""
+        with open(path) as fh:
+            vals = np.asarray([float(tok) for tok in fh.read().split()])
+        n_real = int(np.asarray(self.run.batch.locus_mask).sum())
+        if len(vals) != n_real:
+            raise ValueError(
+                f"{path} contains {'more' if len(vals) > n_real else 'fewer'}"
+                f" {what} ({len(vals)}) than loci ({n_real})")
+        return vals
+
+    def _init_mu(self, L: int) -> np.ndarray:
+        cfg = self.cfg
+        out = np.ones(L)
+        if cfg.est_locusrate == 2 and cfg.locusrate_file:
+            # fixed rates from file, normalized to mean 1
+            # (MUTRATE_FROMFILE, method.c:3984-4008)
+            vals = self._parse_doubles_file(cfg.locusrate_file, "rates")
+            out[:len(vals)] = vals / vals.mean()
+        elif cfg.est_locusrate == 1:
+            out[:] = cfg.locusrate_mubar
+        return out
+
+    def _init_heredity(self, L: int) -> np.ndarray:
+        cfg = self.cfg
+        out = np.ones(L)
+        if cfg.est_heredity == 2 and cfg.heredity_file:
+            # fixed heredity scalars (HEREDITY_FROMFILE, method.c:3938)
+            vals = self._parse_doubles_file(cfg.heredity_file, "scalars")
+            out[:len(vals)] = vals
+        return out
+
     def init_state(self) -> McmcState:
-        """Initial tau/theta from the priors and gene trees from the MSC
-        prior, drawn from the same numpy stream as ``bpp_tpu``."""
+        """Initial tau/theta from the priors, gene trees from the MSC
+        prior, near-uniform frequencies and exchangeabilities and the rate
+        hierarchy, all drawn from the same numpy stream, in the same
+        order, as ``bpp_tpu``."""
         cfg, run = self.cfg, self.run
         dev, dt = self.device, self.dtype
         rng = np.random.default_rng(self.seed)
@@ -232,21 +281,47 @@ class Engine:
         L = run.batch.n_loci
         C = cfg.gamma_cats
 
+        # near-uniform random starting freqs/qrates (locus.c:961-975)
+        if cfg.model in subst_moves.FREQS_MODELS:
+            f = 0.8 + 0.4 * rng.random((L, 4))
+            freqs = f / f.sum(1, keepdims=True)
+        else:
+            freqs = np.full((L, 4), 0.25)
+        qrates = np.ones((L, 6))
+        if cfg.model in subst_moves.QRATES_COUNT:
+            cnt, _ = subst_moves.QRATES_COUNT[cfg.model]
+            q = 0.8 + 0.4 * rng.random((L, cnt))
+            qrates[:, :cnt] = q / q.sum(1, keepdims=True)
+        alpha0 = cfg.alphaprior.mean() if cfg.alphaprior else 0.0
+        if cfg.alphaprior and C > 1:
+            rates0 = discrete_gamma_rates(
+                torch.tensor(alpha0, dtype=torch.float64), C).expand(L, C)
+        else:
+            rates0 = np.ones((L, C))
+        mu0 = self._init_mu(L)
+
+        def t(a):
+            return torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
+
         def full(shape, v):
             return torch.full(shape, v, dtype=dt, device=dev)
 
         subst = SubstState(
-            freqs=full((L, 4), 0.25), kappa1=full((L,), 1.0),
-            kappa2=full((L,), 1.0), qrates=full((L, 6), 1.0),
-            alpha=full((L,), 0.0), rates=full((L, C), 1.0),
-            mu=full((L,), 1.0), heredity=full((L,), 1.0),
+            freqs=t(freqs), kappa1=full((L,), 1.0), kappa2=full((L,), 1.0),
+            qrates=t(qrates), alpha=full((L,), alpha0), rates=t(rates0),
+            mu=t(mu0), heredity=t(self._init_heredity(L)),
             eigw=full((L, 4), 0.0), eigT=full((L, 4, 4), 0.0),
             eigTi=full((L, 4, 4), 0.0))
+        subst = subst_moves._derive_kappas(subst, cfg.model)
         subst = refresh_eigen(subst, cfg.model)
-        logl = self._logl_fn(gt, subst, sp, None)
+        clock = None
+        if cfg.est_locusrate == 1 and cfg.locusrate_prior in (0, 1):
+            clock = clock_moves.init_clock_state(
+                cfg, run.stree.n_nodes, mu0, rng, dt, dev)
+        logl = self._logl_fn(gt, subst, sp, clock)
         logpr, _, _ = self._logpr_fn(gt, sp, subst.heredity)
         return McmcState(gt=gt, sp=sp, subst=subst, logl=logl, logpr=logpr,
-                         finetune=finetune_array(cfg, dt, dev))
+                         finetune=finetune_array(cfg, dt, dev), clock=clock)
 
     # --- one iteration --------------------------------------------------------
 
@@ -276,12 +351,43 @@ class Engine:
             count(MV_TAU, pa)
             state, pa = moves.mixing_move(ctx, cfg, state, gen)
             count(MV_MIX, pa)
+
+        # substitution and rate moves (method.c:5616-5736); inclusion is
+        # static per cfg.  The Dirichlet prior (3) uses the compensating-
+        # pair move; Gamma-Dirichlet (0) and hierarchical (1) use the mu_i
+        # log-slide (prop_locusrate_mui, method.c:5745)
+        if cfg.est_locusrate == 1 and cfg.locusrate_prior == 3:
+            state, pa = subst_moves.locusrate_move(ctx, cfg, state, gen)
+            count(MV_LRHT, pa)
+        if cfg.est_heredity == 1:
+            state, pa = subst_moves.heredity_move(ctx, cfg, state, gen)
+            count(MV_LRHT, pa)
+        if cfg.model in subst_moves.FREQS_MODELS:
+            state, pa = subst_moves.freqs_move(ctx, cfg, state, gen)
+            count(MV_FREQS, pa)
+        if cfg.model in subst_moves.QRATES_COUNT:
+            state, pa = subst_moves.qrates_move(ctx, cfg, state, gen)
+            count(MV_QRATES, pa)
+        if cfg.alphaprior is not None:
+            state, pa = subst_moves.alpha_move(ctx, cfg, state, gen)
+            count(MV_ALPHA, pa)
+        if cfg.est_locusrate == 1 and cfg.locusrate_prior in (0, 1):
+            state, pa = clock_moves.mui_move(ctx, cfg, state, gen)
+            count(MV_MUI, pa)
+            if cfg.locusrate_prior == 1 and cfg.locusrate_mubar_est:
+                state, pa = clock_moves.mubar_move(ctx, cfg, state, gen)
+                count(MV_MUBAR, pa)
         return state, stats
 
     def _trace_of(self, state: McmcState):
         """Per-iteration sample record, kept on the device."""
-        return {"theta": state.sp.theta, "tau": state.sp.tau,
-                "lnl": torch.sum(state.logl), "logpr": torch.sum(state.logpr)}
+        tr = {"theta": state.sp.theta, "tau": state.sp.tau,
+              "lnl": torch.sum(state.logl), "logpr": torch.sum(state.logpr)}
+        if (self.cfg.est_locusrate == 1 and self.cfg.locusrate_prior == 1
+                and self.cfg.locusrate_mubar_est):
+            # the mu_bar column of mcmc.txt under the hierarchical prior
+            tr["mubar_h"] = state.clock.mubar
+        return tr
 
     def _chunk(self, state: McmcState, n: int):
         """n iterations; returns (state, stats, trace) with trace leaves
@@ -304,7 +410,8 @@ class Engine:
     def run_mcmc(self, progress_every: int = 1000, log_fp=None,
                  on_sample=None) -> SampleLog:
         """Run the chain.  ``on_sample(gen, row)`` receives each sample as
-        a dict of host values (theta, tau, lnl, logpr) when its chunk
+        a dict of host values (theta, tau, lnl, logpr and, under the
+        hierarchical locus-rate prior, mubar_h) when its chunk
         ends; chunks end at the finetune marks, at it = 0 and at most
         every 500 iterations, each with one device-to-host copy."""
         cfg = self.cfg

@@ -15,6 +15,7 @@ import torch
 
 from ..config import BppConfig, SubstModel
 from ..core import felsenstein as fe
+from ..core.fels import site_logl_fels
 from ..core.pack import site_logl_packed
 from ..core.pmatrix import gtr_eigen, pmatrix_model
 from ..trees import coalescent as coal
@@ -50,6 +51,12 @@ MV_GTSPR = 1
 MV_THETA = 2
 MV_TAU = 3
 MV_MIX = 4
+MV_LRHT = 5
+MV_FREQS = 6
+MV_QRATES = 7
+MV_ALPHA = 8
+MV_MUI = 14
+MV_MUBAR = 16
 N_MOVES = 23
 
 
@@ -78,14 +85,16 @@ def refresh_eigen(subst: SubstState, model: SubstModel) -> SubstState:
 
 
 class ClockState(NamedTuple):
-    """Relaxed-clock state (not in this slice: the strict clock carries
-    ``None``; kept so that function signatures match ``bpp_tpu``)."""
+    """Rate-hierarchy state.  Under the strict clock it exists only with
+    estimated locus rates (Gamma-Dirichlet or hierarchical prior), and
+    only ``mubar`` is read; the relaxed clocks' fields are carried so
+    that the starting state matches ``bpp_tpu``'s."""
 
-    brate: torch.Tensor
-    nu: torch.Tensor
-    mubar: torch.Tensor
-    nubar: torch.Tensor
-    lnrates: torch.Tensor
+    brate: torch.Tensor     # [L, H] per-(locus, species-branch) rates
+    nu: torch.Tensor        # [L] per-locus rate variances
+    mubar: torch.Tensor     # [] mean locus rate
+    nubar: torch.Tensor     # [] mean rate variance
+    lnrates: torch.Tensor   # [L] cached branch-rate log prior
 
 
 class McmcState(NamedTuple):
@@ -103,10 +112,15 @@ class Ctx:
     """Static per-run tensors."""
 
     tip_partials: torch.Tensor   # [L, T, S, 4]
-    weights: torch.Tensor        # [L, S]
+    weights: torch.Tensor        # [L, W]
     n_seq: torch.Tensor          # [L] int64
     tip_pop: torch.Tensor        # [L, T] int64
     locus_mask: torch.Tensor     # [L] bool
+    # diploid resolution map: weight pattern -> its likelihood patterns;
+    # None for a batch whose map is the identity
+    res_map: torch.Tensor | None = None     # [L, W, R] int64
+    res_count: torch.Tensor | None = None   # [L, W] int64
+    n_pat: torch.Tensor | None = None       # [L] int64 likelihood patterns
 
 
 def compute_pmats(gt: GTrees, subst: SubstState, model: SubstModel,
@@ -122,8 +136,12 @@ def compute_pmats(gt: GTrees, subst: SubstState, model: SubstModel,
 def make_logl_fn(ctx: Ctx, cfg: BppConfig):
     """Returns logl(gt, subst, sp=None, clock=None) -> [L] (strict clock).
 
-    Every pass goes through ``core.pack.site_logl_packed``: kernel K1 on
-    CUDA tensors, its plain version on CPU tensors."""
+    A batch whose resolution map is the identity goes through
+    ``core.pack.site_logl_packed`` (kernel K1).  A batch with a diploid
+    resolution map goes wholly through ``core.fels.site_logl_fels``
+    (kernel K2), then ``felsenstein.reduce_root`` averages the phase
+    resolutions.  Either wrapper launches its kernel on CUDA tensors and
+    computes its plain version on CPU tensors."""
     usedata = cfg.usedata
     model = cfg.model
     bfbeta = cfg.bfbeta
@@ -133,11 +151,18 @@ def make_logl_fn(ctx: Ctx, cfg: BppConfig):
             return torch.zeros_like(ctx.weights[:, 0])
         rk = torch.cat([subst.rates, subst.kappa1[:, None],
                         subst.kappa2[:, None]], dim=1)
-        ll = site_logl_packed(
-            inner_order(gt), gt.left, gt.right, gt.parent, ctx.n_seq,
-            gt.age, subst.mu, rk, subst.freqs, subst.eigw, subst.eigT,
-            subst.eigTi, ctx.tip_partials, ctx.weights, model=model,
-            n_cats=subst.rates.shape[1])
+        tree = (inner_order(gt), gt.left, gt.right, gt.parent, ctx.n_seq,
+                gt.age, subst.mu, rk, subst.freqs, subst.eigw, subst.eigT,
+                subst.eigTi, ctx.tip_partials)
+        n_cats = subst.rates.shape[1]
+        if ctx.res_map is None:
+            ll = site_logl_packed(*tree, ctx.weights, model=model,
+                                  n_cats=n_cats)
+        else:
+            site = site_logl_fels(*tree, model=model, n_cats=n_cats,
+                                  n_pat=ctx.n_pat)
+            ll = fe.reduce_root(site.to(ctx.weights.dtype), ctx.weights,
+                                ctx.res_map, ctx.res_count)
         if bfbeta != 1.0:
             ll = ll * bfbeta
         return torch.where(ctx.locus_mask, ll, torch.zeros_like(ll))

@@ -2,8 +2,9 @@
 
 ``synthetic_run`` is a copy of ``bpp_tpu/testing.py``'s (numpy; the same
 seed gives the same data) that also takes per-locus sequence counts.
-``write_simulated_run`` simulates a 4-species dataset with the port's
-simulator and writes a run control file for it; ``fixed_subst`` builds
+``write_simulated_run`` simulates a 4-species dataset (haploid, or with
+unphased diploid species) with the port's simulator and writes a run
+control file for it; ``fixed_subst`` builds
 a substitution state per DNA model family with fixed parameters.
 """
 
@@ -30,8 +31,7 @@ species&tree = 4 A B C D
                  {seqs}
                 ((A #0.01, B #0.01) :0.01 #0.01, (C #0.01, D #0.01) :0.012 #0.01) :0.02 #0.01;
 loci&length = {nloci} {nsites}
-model = 0
-"""
+{extra}"""
 
 RUN_CTL = """\
 seed = 11
@@ -50,7 +50,7 @@ finetune = 1
 burnin = {burnin}
 sampfreq = 1
 nsample = {nsample}
-"""
+{extra}"""
 
 
 def synthetic_species_tree(n_species: int, rng: np.random.Generator,
@@ -126,33 +126,50 @@ def synthetic_run(n_loci: int = 8, n_seq=6, n_patterns=16,
     return RunData(cfg=cfg, batch=batch, stree=st, loci=loci)
 
 
+def _lines(*items) -> str:
+    return "".join(f"{line}\n" for line in items if line)
+
+
 def write_simulated_run(directory, n_loci: int, seqs=(2, 2, 2, 2),
                         n_sites: int = 200, seed: int = 137,
                         job: str = "out", usedata: int = 1,
                         thetaprior: str = "3 0.03",
                         tauprior: str = "3 0.06", burnin: int = 10,
-                        nsample: int = 10) -> str:
-    """Simulate a JC69 dataset on ((A,B),(C,D)) into ``directory`` and
-    write ``run.ctl`` for it; returns the control file's path."""
+                        nsample: int = 10, diploid=None,
+                        sim_model: str = "model = 0", model: str = "JC69",
+                        priors=()) -> str:
+    """Simulate a dataset on ((A,B),(C,D)) into ``directory`` and write
+    ``<job>.ctl`` for it; returns the control file's path.
+
+    ``seqs`` counts individuals per species; ``diploid`` (one 0/1 per
+    species) makes a species' individuals unphased diploids, and becomes
+    the run's ``phase`` line.  ``sim_model`` holds the simulator's model
+    lines (``model``, ``kappa``, ``basefreqs``, ``locusrate`` ...);
+    ``model`` and ``priors`` (``alphaprior``, ``locusrate``, ``heredity``
+    ... lines) go into the run control file."""
     from .sim.simulate import run_simulation
 
     directory = os.path.abspath(str(directory))
     seq_line = " ".join(str(s) for s in seqs)
+    flags = " ".join(str(int(d)) for d in diploid) if diploid else ""
     cwd = os.getcwd()
     os.chdir(directory)
     try:
         with open("sim.ctl", "w") as f:
-            f.write(SIM_CTL.format(seed=seed, seqs=seq_line, nloci=n_loci,
-                                   nsites=n_sites))
+            f.write(SIM_CTL.format(
+                seed=seed, seqs=seq_line, nloci=n_loci, nsites=n_sites,
+                extra=_lines(sim_model, flags and f"diploid = {flags}")))
         run_simulation("sim.ctl")
     finally:
         os.chdir(cwd)
     path = os.path.join(directory, f"{job}.ctl")
     with open(path, "w") as f:
-        f.write(RUN_CTL.format(dir=directory, job=job, seqs=seq_line,
-                               usedata=usedata, nloci=n_loci,
-                               thetaprior=thetaprior, tauprior=tauprior,
-                               burnin=burnin, nsample=nsample))
+        f.write(RUN_CTL.format(
+            dir=directory, job=job, seqs=seq_line, usedata=usedata,
+            nloci=n_loci, thetaprior=thetaprior, tauprior=tauprior,
+            burnin=burnin, nsample=nsample,
+            extra=_lines(f"model = {model}", flags and f"phase = {flags}",
+                         *priors)))
     return path
 
 

@@ -5,28 +5,52 @@
 
 Phases, in order; any failure exits non-zero:
 
-1. device  — torch version, the card's name and power limit;
-2. build   — nvcc builds kernel K1 (``bpp_tpu_torch/csrc/pack_kernel.cu``);
-3. data    — the port's simulator writes the bench dataset (4 species x
-             4 sequences, 500 sites, JC69, 1000 loci, seed 137);
-4. kernel  — on gene trees from the JC69 engine, K1 (float32) is held
-             against its plain PyTorch version (float64, on the card)
-             for JC69, HKY+G4, TN93 and GTR+G4 (max per-locus |dlnL| <
-             0.02); K1's device time comes from a torch.profiler
-             trace (median of 30 launches), and one launch, the whole
-             wrapper (factors + launch) and the plain version (float32)
-             from CUDA events (median of 30 / 30 / 20 after warm-up);
-             a profiler trace of 3 engine iterations gives the device
-             kernels, busy time and idle share per iteration;
-5. main    — ``bpp_tpu_torch.cli.main(["--cfile", "run.ctl"])`` runs the
-             1000-locus A00 chain (burnin 20, nsample 80); the launch
-             count of K1 must grow by 8 per iteration (age 2 + SPR 3 +
-             tau 2 + mixing 1) plus 1 for the initial state, and
-             mcmc.txt must hold 80 finite samples with moving theta/tau.
+1. device   — torch version, the card's name and power limit;
+2. build    — nvcc builds kernels K1 (``bpp_tpu_torch/csrc/pack_kernel.cu``)
+              and K2 (``csrc/fels_kernel.cu``), one process each, started
+              together;
+3. data 1   — the port's simulator writes the haploid bench dataset (4
+              species x 4 sequences, 500 sites, JC69, 1000 loci, seed 137);
+4. kernel 1 — on gene trees from the JC69 engine, K1 (float32) is held
+              against its plain PyTorch version (float64, on the card)
+              for JC69, HKY+G4, TN93 and GTR+G4 (max per-locus |dlnL| <
+              0.02); K1's device time comes from a torch.profiler
+              trace (median of 30 launches), and one launch, the whole
+              wrapper (factors + launch) and the plain version (float32)
+              from CUDA events (median of 30 / 30 / 20 after warm-up);
+              a profiler trace of 3 engine iterations gives the device
+              kernels, busy time and idle share per iteration;
+5. main 1   — ``bpp_tpu_torch.cli.main(["--cfile", "run.ctl"])`` runs the
+              1000-locus A00 JC69 chain (burnin 10, nsample 40); the launch
+              count of K1 must grow by 8 per iteration (age 2 + SPR 3 +
+              tau 2 + mixing 1) plus 1 for the initial state, K2's must
+              stay 0, and mcmc.txt must hold 40 finite samples with
+              moving theta/tau;
+6. data 2   — the simulator writes the diploid dataset (4 species x 2
+              unphased diploid individuals = 16 haplotype tips, 500 sites,
+              HKY, 1000 loci with Gamma(5, 5) locus rates, seed 137);
+7. kernel 2 — on gene trees from a short run of the diploid engine, K2
+              (float32) against its plain version (float64, on the card)
+              for the same four models, per pattern and per locus after
+              ``reduce_root`` (max per-locus |dlnL| < 0.02); timed as K1
+              is; the ``[profile]`` line of the diploid HKY+G4 step; and
+              ``[moves]``: the wall time of each substitution and rate
+              move, of the Gamma-Dirichlet mu_i move with its host loop,
+              and of GTR's eigendecomposition and the discrete-gamma
+              quantiles on the card;
+8. main 2   — ``cli.main(["--cfile", "run2.ctl"])`` runs the 1000-locus
+              diploid chain (phase = 1 1 1 1, HKY, alphaprior with 4
+              categories, hierarchical locus rates, heredity; burnin 10,
+              nsample 40); K2 must be launched 12 times per iteration (the
+              8 passes of the base moves + freqs 1 + qrates 1 + alpha 1 +
+              mu_i 1; heredity and mubar touch no likelihood) plus 1 for
+              the initial state, K1 never, and mcmc.txt must hold 40
+              finite samples with moving theta/tau/mu_bar.
 
-The line before the last is the card's name and power limit from
-nvidia-smi; the last line is ``{"ok": true, "device": {...}}``.  Without
-a CUDA device the script exits non-zero and prints no result.
+Then one JSON line ``{"kernels": [...]}`` (K1 at JC69, K2 at HKY+G4: the
+models of their chains), the card's name and power limit from nvidia-smi,
+and the last line ``{"ok": true, "device": {...}}``.  Without a CUDA
+device the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -72,9 +96,54 @@ sampfreq = 1
 nsample = {nsample}
 """
 
+SIM2_CTL = """\
+seed = 137
+seqfile = sim2.phy
+treefile = sim2.tre
+Imapfile = sim2.Imap.txt
+modelparafile = sim2.para.txt
+species&tree = 4 A B C D
+                 2 2 2 2
+                ((A #0.01, B #0.01) :0.01 #0.01, (C #0.01, D #0.01) :0.012 #0.01) :0.02 #0.01;
+diploid = 1 1 1 1
+loci&length = {nloci} 500
+model = 3
+kappa = 2
+basefreqs = 0.3 0.2 0.2 0.3
+locusrate = 1 5
+"""
+
+RUN2_CTL = """\
+seed = 11
+seqfile = sim2.phy
+Imapfile = sim2.Imap.txt
+jobname = out2
+species&tree = 4 A B C D
+                 2 2 2 2
+                ((A, B), (C, D));
+phase = 1 1 1 1
+usedata = 1
+nloci = {nloci}
+cleandata = 0
+model = HKY
+alphaprior = 1 1 4
+locusrate = 1 10 10 5 iid
+heredity = 1 4 4
+thetaprior = 3 0.03
+tauprior = 3 0.06
+finetune = 1
+print = 1 0 0 0
+burnin = {burnin}
+sampfreq = 1
+nsample = {nsample}
+"""
+
 N_LOCI = 1000
-BURNIN, NSAMPLE = 20, 80
-PASSES_PER_ITER = 8
+BURNIN, NSAMPLE = 10, 40
+PASSES_PER_ITER = 8        # age 2 + SPR 3 + tau 2 + mixing 1
+# the diploid HKY+G4 chain adds freqs 1 + qrates 1 + alpha 1 + mu_i 1
+PASSES_PER_ITER_2 = PASSES_PER_ITER + 4
+TOL_SITE = 2e-3           # per-pattern |dlnL| of K2, float32
 TOL_LNL = 0.02            # f32 bound of tests/test_kernel_consistency.py
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS = 67e12          # H100 SXM, float32 outside the tensor cores
@@ -111,7 +180,8 @@ def cuda_ms(fn, reps=30, warmup=3):
 
 
 def pass_args(state, subst, ctx, dtype):
-    """Positional arguments of site_logl_packed for one state."""
+    """Positional arguments of site_logl_packed for one state (all but
+    the last are site_logl_fels's)."""
     import torch
 
     from bpp_tpu_torch.trees.gtree import inner_order
@@ -124,11 +194,13 @@ def pass_args(state, subst, ctx, dtype):
             ctx.weights.to(dtype))
 
 
-def bound_ms(batch, model_name, n_cats):
+def bound_ms(batch, model_name, n_cats, per_pattern=False):
     """Least time the card could take for one pass on this run's data:
     the larger of the bytes it must move over the HBM rate and the
     operations it must do over the f32 rate.  Only real patterns, real
-    tips and real levels count."""
+    tips and real levels count.  K1 reads the pattern weights and writes
+    one value per locus; K2 (``per_pattern``) reads no weights, reads the
+    pattern counts and writes the whole ``[L, S]`` output."""
     import numpy as np
 
     from bpp_tpu_torch.config import SubstModel
@@ -140,16 +212,18 @@ def bound_ms(batch, model_name, n_cats):
     L = float(m.sum())
     C, K = n_cats, _KFAC[fam]
     nbytes = (16.0 * (ns * npat).sum()            # tip partials (f32 x 4)
-              + 4.0 * npat.sum()                   # pattern weights
               + 8.0 * 3 * (ns - 1).sum()           # order, left, right
               + 12.0 * (2 * ns - 1).sum()          # ages (f32), parents
-              + 4.0 * L * (4 + 1 + C + 2)          # freqs, mu, rates, kappas
-              + 4.0 * L)                           # per-locus output
+              + 4.0 * L * (4 + 1 + C + 2))         # freqs, mu, rates, kappas
+    if per_pattern:
+        nbytes += 8.0 * L + 4.0 * L * batch.max_patterns   # n_pat; [L, S] out
+    else:
+        nbytes += 4.0 * npat.sum() + 4.0 * L       # weights; [L] out
     if fam == "gtr":
         nbytes += 4.0 * L * (4 + 32)               # eigensystem
     site_levels = (npat * (ns - 1)).sum()
     ops = (site_levels * (C * (2 * CONTRACT_OPS[fam] + 4 + 4 + 4) + 2)
-           + npat.sum() * (C * 8 + 4)
+           + npat.sum() * (C * 8 + (2 if per_pattern else 4))
            + K * C * (2 * ns - 1).sum())
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_FLOPS * 1e3
@@ -170,32 +244,218 @@ def device_kernels(fn):
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-def k1_device_ms(launch, reps=30):
-    """Median device time of one K1 launch, from the profiler trace."""
+def kernel_device_ms(launch, kernel_name, reps=30):
+    """Median device time of one launch of the named kernel, from the
+    profiler trace of ``reps`` launches.  The trace may miss a few of the
+    first launches; two thirds of them must be there."""
     def run():
         for _ in range(reps):
             launch()
     times = [e.time_range.elapsed_us() / 1e3 for e in device_kernels(run)
-             if "pack_logl_kernel" in e.name]
-    if len(times) != reps:
-        raise AssertionError(f"profiler saw {len(times)} of {reps} K1 "
-                             "launches")
+             if kernel_name in e.name]
+    if not 2 * reps <= 3 * len(times) <= 3 * reps:
+        raise AssertionError(f"profiler saw {len(times)} of {reps} "
+                             f"{kernel_name} launches")
     return statistics.median(times)
 
 
-def profile_step(eng, state, wall_ms, smi, iters=3):
+def profile_step(eng, state, step_ms, smi, kernel_name, label, iters=3):
     """Device time per iteration from a profiler trace: kernels launched,
-    busy milliseconds (all kernels, and K1's) and the idle share of the
-    untraced wall time per iteration."""
+    busy milliseconds (all kernels, and the pruning kernel's) and the idle
+    share of the untraced wall time per iteration."""
     kern = device_kernels(lambda: eng.chunk_step(state, iters))
     if not kern:
         raise AssertionError("no device events in the profiler trace")
     busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3 / iters
-    k1 = sum(e.time_range.elapsed_us() for e in kern
-             if "pack_logl_kernel" in e.name) / 1e3 / iters
-    print(f"[profile] {len(kern) / iters:.0f} device kernels/iter | device "
-          f"busy {busy:.3f} ms/iter (K1 {k1:.3f}) | wall {wall_ms:.2f} "
-          f"ms/iter untraced | idle share {1 - busy / wall_ms:.3f} | {smi}")
+    mine = [e for e in kern if kernel_name in e.name]
+    k_ms = sum(e.time_range.elapsed_us() for e in mine) / 1e3 / iters
+    print(f"[profile] {label}: {len(kern) / iters:.0f} device kernels/iter "
+          f"| device busy {busy:.3f} ms/iter ({kernel_name} {k_ms:.3f} in "
+          f"{len(mine) / iters:.0f} launches) | wall {step_ms:.2f} ms/iter "
+          f"untraced | idle share {1 - busy / step_ms:.3f} | {smi}")
+
+
+def warm_engine(run, dev):
+    """(engine, warmed state, iterations/s after warm-up)."""
+    import torch
+
+    from bpp_tpu_torch.mcmc.driver import Engine
+    eng = Engine(run, seed=1, device=dev)
+    state = eng.init_state()
+    state, _ = eng.chunk_step(state, 5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = eng.chunk_step(state, 10)
+    torch.cuda.synchronize()
+    return eng, state, 10 / (time.perf_counter() - t0)
+
+
+def wall_ms(fn, reps=5):
+    """Median host milliseconds of ``fn()``, synchronised (a move's cost
+    as the step sees it: launches, device time and host work)."""
+    import torch
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def check_chain_output(job, nsample, moving):
+    """mcmc.txt of ``job``: ``nsample`` finite rows whose ``moving``
+    columns moved; the summary and the tree file exist.  Returns the
+    samples."""
+    import numpy as np
+    with open(f"{job}.mcmc.txt") as f:
+        header = f.readline().split()
+        data = np.loadtxt(f, ndmin=2)
+    if data.shape != (nsample, len(header)):
+        raise AssertionError(f"{job}.mcmc.txt shape {data.shape}")
+    if not np.isfinite(data).all():
+        raise AssertionError(f"non-finite values in {job}.mcmc.txt")
+    sd = data.std(axis=0)
+    seen = set()
+    for j, col in enumerate(header):
+        for prefix in moving:
+            if col.startswith(prefix):
+                seen.add(prefix)
+                if not sd[j] > 0:
+                    raise AssertionError(f"{job}: column {col} never moved")
+    if seen != set(moving):
+        raise AssertionError(f"{job}: no column of {set(moving) - seen}")
+    for fn in (f"{job}.txt", f"{job}.FigTree.tre"):
+        if not os.path.getsize(fn):
+            raise AssertionError(f"{fn} is empty")
+    return data
+
+
+def run_chain(ctl, job, iters, expect, moving, label, smi):
+    """Drive one chain through the CLI with both launch counts set to 0
+    just before and read just after; ``expect`` = (K1, K2) launches."""
+    import torch
+
+    from bpp_tpu_torch import cli
+    from bpp_tpu_torch.core import fels, pack
+    pack.LAUNCHES = fels.LAUNCHES = 0
+    t0 = time.perf_counter()
+    rc = cli.main(["--cfile", ctl, "--quiet"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = (pack.LAUNCHES, fels.LAUNCHES)
+    if rc != 0:
+        raise AssertionError(f"cli.main returned {rc}")
+    if got != expect:
+        raise AssertionError(
+            f"{label}: (K1, K2) launched {got} times on the main path, "
+            f"expected {expect} over {iters} iterations + the initial state")
+    data = check_chain_output(job, NSAMPLE, moving)
+    print(f"[{label}] cli --cfile {ctl}: {iters} iterations, wall {wall:.1f} "
+          f"s (load + init + chain + summary), {iters / wall:.2f} iters/s "
+          f"overall | K1 launches {got[0]} | K2 launches {got[1]} | mean lnL "
+          f"{data[:, -1].mean():.3f} | {smi}")
+    return got
+
+
+def time_moves(eng, state, dev, smi):
+    """``[moves]``: wall time of each new move on the diploid chain's
+    state, and of the pieces the issue singles out."""
+    import torch
+
+    from bpp_tpu_torch.config import SubstModel
+    from bpp_tpu_torch.core.gammarates import discrete_gamma_rates
+    from bpp_tpu_torch.core.pmatrix import gtr_eigen
+    from bpp_tpu_torch.mcmc import clock_moves, subst_moves
+    from bpp_tpu_torch.testing import fixed_subst
+    ctx, cfg, gen = eng.ctx, eng.cfg, eng.gen
+    L = state.gt.n_loci
+    rows = []
+    for name, fn in (("heredity", subst_moves.heredity_move),
+                     ("freqs", subst_moves.freqs_move),
+                     ("qrates(HKY)", subst_moves.qrates_move),
+                     ("alpha", subst_moves.alpha_move),
+                     ("mu_i(hierarchical)", clock_moves.mui_move),
+                     ("mubar", clock_moves.mubar_move)):
+        rows.append((name, wall_ms(lambda: fn(ctx, cfg, state, gen))))
+    # the Gamma-Dirichlet prior's serial accept chain runs on the host
+    cfg0 = cfg.replace(locusrate_prior=0)
+    rows.append(("mu_i(gamma-dirichlet, host loop)", wall_ms(
+        lambda: clock_moves.mui_move(ctx, cfg0, state, gen))))
+    # the Dirichlet prior's compensating pairs
+    rows.append(("locusrate(dirichlet pairs)", wall_ms(
+        lambda: subst_moves.locusrate_move(ctx, cfg, state, gen))))
+    # GTR: 5 likelihood passes, each with a batched eigendecomposition
+    cfg_g = cfg.replace(model=SubstModel.GTR)
+    _, s_g = fixed_subst("GTR", 4, L, torch.float32, dev)
+    s_g = s_g._replace(mu=state.subst.mu, heredity=state.subst.heredity)
+    from bpp_tpu_torch.mcmc.state import make_logl_fn
+    st_g = state._replace(subst=s_g, logl=make_logl_fn(ctx, cfg_g)(
+        state.gt, s_g, state.sp, state.clock))
+    rows.append(("qrates(GTR, 5 passes)", wall_ms(
+        lambda: subst_moves.qrates_move(ctx, cfg_g, st_g, gen))))
+    rows.append(("gtr_eigen[L]", cuda_ms(
+        lambda: gtr_eigen(s_g.freqs, s_g.qrates), reps=10)))
+    rows.append(("discrete_gamma_rates[L,4]", cuda_ms(
+        lambda: discrete_gamma_rates(state.subst.alpha, 4), reps=10)))
+    print("[moves] wall ms per call at " + f"{L} loci: "
+          + " | ".join(f"{n} {t:.2f}" for n, t in rows) + f" | {smi}")
+
+
+def hold_kernel(label, kernel_name, state, ctx, batch, dev, smi, got_want,
+                make_launch, wrapper, plain, per_pattern):
+    """Hold one kernel against its plain version on the four model
+    families and time it; returns ({model: max per-locus err}, {model:
+    (device ms, plain ms, bound ms, bound by)}).
+
+    ``got_want(a32, a64, kw)`` gives the kernel's per-locus lnL in float32
+    inputs, the plain version's in float64 and the per-pattern maximum
+    difference (or None); ``make_launch(a32, kw)`` prepares one bare
+    launch; ``wrapper`` / ``plain`` run one whole float32 pass."""
+    import numpy as np
+    import torch
+
+    from bpp_tpu_torch.testing import fixed_subst
+    mask = torch.as_tensor(np.asarray(batch.locus_mask), device=dev)
+    L = batch.n_loci
+    errs, rows = {}, {}
+    for model_name, n_cats in MODELS:
+        model, s32 = fixed_subst(model_name, n_cats, L, torch.float32, dev)
+        _, s64 = fixed_subst(model_name, n_cats, L, torch.float64, dev)
+        a32 = pass_args(state, s32, ctx, torch.float32)
+        a64 = pass_args(state, s64, ctx, torch.float64)
+        kw = dict(model=model, n_cats=n_cats)
+        got, want, site_err = got_want(a32, a64, kw)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(got[mask]).all()):
+            raise AssertionError(f"{label} {model_name}: non-finite lnL")
+        err = float((got - want)[mask].abs().max())
+        errs[model_name] = err
+        launch = make_launch(a32, kw)
+        ms = kernel_device_ms(launch, kernel_name)
+        launch_ms = cuda_ms(launch)
+        wrap = cuda_ms(lambda: wrapper(a32, kw))
+        plain_ms = cuda_ms(lambda: plain(a32, kw), reps=20)
+        bms, by = bound_ms(batch, model_name, n_cats, per_pattern)
+        rows[model_name] = (ms, plain_ms, bms, by)
+        site = "" if site_err is None else (
+            f" | max per-pattern |dlnL| {site_err:.3e} (tol {TOL_SITE})")
+        print(f"[{label}] {model_name}+C{n_cats}: max per-locus |dlnL| "
+              f"{err:.3e} (tol {TOL_LNL}){site} | device {ms:.4f} ms | one "
+              f"launch {launch_ms:.4f} ms | wrapper {wrap:.4f} ms/pass | "
+              f"plain {plain_ms:.4f} ms/pass | bound {bms:.5f} ms ({by}) | "
+              f"{smi}")
+        if not err < TOL_LNL:
+            raise AssertionError(
+                f"{label} {model_name}: kernel and plain version differ by "
+                f"{err} lnL > {TOL_LNL}")
+        if site_err is not None and not site_err < TOL_SITE:
+            raise AssertionError(
+                f"{label} {model_name}: per-pattern difference {site_err} > "
+                f"{TOL_SITE}")
+    return errs, rows
 
 
 def main() -> int:
@@ -205,12 +465,10 @@ def main() -> int:
         return 1
     import numpy as np
 
-    from bpp_tpu_torch import cli
-    from bpp_tpu_torch.core import _build, pack
+    from bpp_tpu_torch.core import _build, fels, pack
+    from bpp_tpu_torch.core import felsenstein as fe
     from bpp_tpu_torch.loader import load_run_from_ctl
-    from bpp_tpu_torch.mcmc.driver import Engine
     from bpp_tpu_torch.sim.simulate import run_simulation
-    from bpp_tpu_torch.testing import fixed_subst
 
     # 1. device
     dev = torch.device("cuda")
@@ -219,16 +477,18 @@ def main() -> int:
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} | "
           f"{name} | nvidia-smi: {smi}")
 
-    # 2. build
+    # 2. build: one nvcc per source, started together
     t0 = time.perf_counter()
-    lib_path = _build.build("pack_kernel", verbose=True)
-    print(f"[build] {lib_path.name} in {time.perf_counter() - t0:.2f} s")
+    libs = _build.build_all(["pack_kernel", "fels_kernel"], verbose=True)
+    print(f"[build] {', '.join(p.name for p in libs)} in "
+          f"{time.perf_counter() - t0:.2f} s")
 
+    iters = BURNIN + NSAMPLE
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory(prefix="bpp_smoke_") as work:
         os.chdir(work)
         try:
-            # 3. data
+            # 3. data 1
             t0 = time.perf_counter()
             with open("sim.ctl", "w") as f:
                 f.write(SIM_CTL.format(nloci=N_LOCI))
@@ -236,110 +496,122 @@ def main() -> int:
             with open("run.ctl", "w") as f:
                 f.write(RUN_CTL.format(nloci=N_LOCI, burnin=BURNIN,
                                        nsample=NSAMPLE))
-            print(f"[data] {N_LOCI} loci simulated in "
+            print(f"[data 1] {N_LOCI} haploid loci simulated in "
                   f"{time.perf_counter() - t0:.1f} s")
 
-            # 4. kernel against its plain version
+            # 4. kernel 1 against its plain version
             run = load_run_from_ctl("run.ctl")
-            eng = Engine(run, seed=1, device=dev)
-            state = eng.init_state()
-            state, _ = eng.chunk_step(state, 5)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            state, _ = eng.chunk_step(state, 10)
-            torch.cuda.synchronize()
-            step_ips = 10 / (time.perf_counter() - t0)
-            profile_step(eng, state, 1e3 / step_ips, smi)
+            eng, state, step_ips = warm_engine(run, dev)
+            profile_step(eng, state, 1e3 / step_ips, smi,
+                         "pack_logl_kernel", "JC69 step")
             b = run.batch
-            mask = torch.as_tensor(np.asarray(b.locus_mask), device=dev)
-            print(f"[kernel] L={b.n_loci} T={b.max_tips} S={b.max_patterns} "
-                  f"real patterns {int(np.asarray(b.n_pat).sum())}")
-            L = b.n_loci
-            errs, rows = {}, {}
-            for model_name, n_cats in MODELS:
-                model, s32 = fixed_subst(model_name, n_cats, L,
-                                         torch.float32, dev)
-                _, s64 = fixed_subst(model_name, n_cats, L, torch.float64,
-                                     dev)
-                a32 = pass_args(state, s32, eng.ctx, torch.float32)
-                a64 = pass_args(state, s64, eng.ctx, torch.float64)
-                kw = dict(model=model, n_cats=n_cats)
-                got = pack.site_logl_packed(*a32, **kw)
-                want = pack.site_logl_packed_ref(*a64, **kw)
-                torch.cuda.synchronize()
-                got64 = got.double()
-                if not bool(torch.isfinite(got64[mask]).all()):
-                    raise AssertionError(f"{model_name}: non-finite lnL")
-                err = float((got64 - want)[mask].abs().max())
-                errs[model_name] = err
-                kargs = pack.kernel_args(*a32, **kw)
-                ms = k1_device_ms(lambda: pack.launch(kargs))
-                launch_ms = cuda_ms(lambda: pack.launch(kargs))
-                wrap = cuda_ms(lambda: pack.site_logl_packed(*a32, **kw))
-                plain = cuda_ms(lambda: pack.site_logl_packed_ref(*a32, **kw),
-                                reps=20)
-                bms, by = bound_ms(b, model_name, n_cats)
-                rows[model_name] = (ms, plain, bms, by)
-                print(f"[kernel] {model_name}+C{n_cats}: max per-locus "
-                      f"|dlnL| {err:.3e} (tol {TOL_LNL}) | K1 device "
-                      f"{ms:.4f} ms | one launch {launch_ms:.4f} ms | "
-                      f"wrapper {wrap:.4f} ms/pass | plain {plain:.4f} "
-                      f"ms/pass | bound {bms:.5f} ms ({by}) | {smi}")
-                if not err < TOL_LNL:
-                    raise AssertionError(
-                        f"{model_name}: kernel and plain version differ by "
-                        f"{err} lnL > {TOL_LNL}")
-            print(f"[kernel] engine step (JC69, 1000 loci): {step_ips:.2f} "
-                  f"iters/s after warm-up | {smi}")
+            print(f"[kernel 1] L={b.n_loci} T={b.max_tips} "
+                  f"S={b.max_patterns} real patterns "
+                  f"{int(np.asarray(b.n_pat).sum())}")
 
-            # 5. main path, through the CLI
-            iters = BURNIN + NSAMPLE
-            pack.LAUNCHES = 0
+            def k1_got_want(a32, a64, kw):
+                return (pack.site_logl_packed(*a32, **kw).double(),
+                        pack.site_logl_packed_ref(*a64, **kw), None)
+
+            def k1_launch(a32, kw):
+                kargs = pack.kernel_args(*a32, **kw)
+                return lambda: pack.launch(kargs)
+
+            errs1, rows1 = hold_kernel(
+                "kernel 1", "pack_logl_kernel", state, eng.ctx, b, dev, smi,
+                k1_got_want, k1_launch,
+                lambda a, kw: pack.site_logl_packed(*a, **kw),
+                lambda a, kw: pack.site_logl_packed_ref(*a, **kw), False)
+            print(f"[kernel 1] engine step (JC69, {N_LOCI} loci): "
+                  f"{step_ips:.2f} iters/s after warm-up | {smi}")
+            del eng, state
+
+            # 5. main path 1, through the CLI
+            launches1, _ = run_chain(
+                "run.ctl", "out", iters, (PASSES_PER_ITER * iters + 1, 0),
+                ("theta", "tau"), "main 1", smi)
+
+            # 6. data 2
             t0 = time.perf_counter()
-            rc = cli.main(["--cfile", "run.ctl", "--quiet"])
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = pack.LAUNCHES
-            if rc != 0:
-                raise AssertionError(f"cli.main returned {rc}")
-            expect = PASSES_PER_ITER * iters + 1
-            if launches != expect:
-                raise AssertionError(
-                    f"K1 launched {launches} times on the main path, "
-                    f"expected {expect} (8 x {iters} iterations + 1)")
-            with open("out.mcmc.txt") as f:
-                header = f.readline().split()
-                data = np.loadtxt(f, ndmin=2)
-            if data.shape != (NSAMPLE, len(header)):
-                raise AssertionError(f"mcmc.txt shape {data.shape}")
-            if not np.isfinite(data).all():
-                raise AssertionError("non-finite values in mcmc.txt")
-            sd = data.std(axis=0)
-            for j, col in enumerate(header):
-                if col.startswith(("theta", "tau")) and not sd[j] > 0:
-                    raise AssertionError(f"column {col} never moved")
-            for fn in ("out.txt", "out.FigTree.tre"):
-                if not os.path.getsize(fn):
-                    raise AssertionError(f"{fn} is empty")
-            print(f"[main] cli --cfile: {iters} iterations, wall {wall:.1f} s "
-                  f"(load + init + chain + summary), {iters / wall:.2f} "
-                  f"iters/s overall | K1 launches {launches} | "
-                  f"mean lnL {data[:, -1].mean():.3f} | {smi}")
+            with open("sim2.ctl", "w") as f:
+                f.write(SIM2_CTL.format(nloci=N_LOCI))
+            run_simulation("sim2.ctl")
+            with open("run2.ctl", "w") as f:
+                f.write(RUN2_CTL.format(nloci=N_LOCI, burnin=BURNIN,
+                                        nsample=NSAMPLE))
+            run2 = load_run_from_ctl("run2.ctl")
+            b2 = run2.batch
+            print(f"[data 2] {N_LOCI} diploid loci simulated and loaded in "
+                  f"{time.perf_counter() - t0:.1f} s | L={b2.n_loci} "
+                  f"T={b2.max_tips} S={b2.max_patterns} "
+                  f"W={b2.weights.shape[1]} R={b2.res_map.shape[2]} | real "
+                  f"likelihood patterns {int(b2.n_pat.sum())} | real weight "
+                  f"patterns {int((b2.weights > 0).sum())}")
+
+            # 7. kernel 2 against its plain version
+            eng2, state2, step_ips2 = warm_engine(run2, dev)
+            ctx2 = eng2.ctx
+            if ctx2.res_map is None:
+                raise AssertionError("the diploid batch carries no "
+                                     "resolution map")
+            profile_step(eng2, state2, 1e3 / step_ips2, smi,
+                         "fels_site_logl_kernel", "diploid HKY+G4 step")
+            w64 = ctx2.weights.double()
+
+            def k2_got_want(a32, a64, kw):
+                got = fels.site_logl_fels(*a32[:-1], n_pat=ctx2.n_pat,
+                                          **kw).double()
+                want = fels.site_logl_fels_ref(*a64[:-1], n_pat=ctx2.n_pat,
+                                               **kw)
+                return (fe.reduce_root(got, w64, ctx2.res_map,
+                                       ctx2.res_count),
+                        fe.reduce_root(want, w64, ctx2.res_map,
+                                       ctx2.res_count),
+                        float((got - want).abs().max()))
+
+            def k2_launch(a32, kw):
+                kargs = fels.kernel_args(*a32[:-1], n_pat=ctx2.n_pat, **kw)
+                return lambda: fels.launch(kargs)
+
+            errs2, rows2 = hold_kernel(
+                "kernel 2", "fels_site_logl_kernel", state2, ctx2, b2, dev,
+                smi, k2_got_want, k2_launch,
+                lambda a, kw: fels.site_logl_fels(*a[:-1], n_pat=ctx2.n_pat,
+                                                  **kw),
+                lambda a, kw: fels.site_logl_fels_ref(
+                    *a[:-1], n_pat=ctx2.n_pat, **kw), True)
+            print(f"[kernel 2] engine step (diploid HKY+G4, {N_LOCI} loci): "
+                  f"{step_ips2:.2f} iters/s after warm-up | {smi}")
+            time_moves(eng2, state2, dev, smi)
+            del eng2, state2, ctx2, w64
+            torch.cuda.empty_cache()
+
+            # 8. main path 2, through the CLI
+            _, launches2 = run_chain(
+                "run2.ctl", "out2", iters,
+                (0, PASSES_PER_ITER_2 * iters + 1),
+                ("theta", "tau", "mu_bar"), "main 2", smi)
         finally:
             os.chdir(cwd)
 
-    ms, plain, bms, by = rows["JC69"]
-    kernels = {"kernels": [{
-        "name": "K1 pallas_pack._make_kernel -> pack_logl_kernel",
-        "route": "cuda",
-        "source": "bpp_tpu_torch/csrc/pack_kernel.cu",
-        "replaces": "bpp_tpu/core/pallas_pack.py:315",
-        "launches": launches,
-        "max_abs_err": max(errs.values()),
-        "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-        "library_ms": None,
-    }]}
-    print(json.dumps(kernels))
+    def entry(kname, source, replaces, launches, errs, row):
+        ms, plain, bms, by = row
+        return {"name": kname, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": max(errs.values()), "ms": ms,
+                "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+                "library_ms": None}
+
+    print(json.dumps({"kernels": [
+        entry("K1 pallas_pack._make_kernel -> pack_logl_kernel",
+              "bpp_tpu_torch/csrc/pack_kernel.cu",
+              "bpp_tpu/core/pallas_pack.py:315", launches1, errs1,
+              rows1["JC69"]),
+        entry("K2 pallas_fels._make_kernel -> fels_site_logl_kernel",
+              "bpp_tpu_torch/csrc/fels_kernel.cu",
+              "bpp_tpu/core/pallas_fels.py:92", launches2, errs2,
+              rows2["HKY"]),
+    ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,5 +1,8 @@
-"""The port's main path end to end on the CPU (4 species x 2 sequences,
-12 loci of 200 sites, JC69, A00).
+"""The port's main paths end to end on the CPU: 4 species x 2 sequences,
+12 loci of 200 sites, JC69, A00; and unphased diploid data (species A, B
+with one diploid individual each, C, D with two haploid sequences, 6 loci
+of 120 sites) under HKY+G4 with hierarchical locus rates and heredity
+scalars.
 
 * ``python -m bpp_tpu_torch --cfile x.ctl --device cpu`` writes an
   mcmc.txt with bpp_tpu's header, finite lnL and moving theta/tau
@@ -7,6 +10,9 @@
 * The theta/tau posterior means of a port chain agree with a bpp_tpu
   chain on the same data within 4 combined Monte Carlo standard errors
   (batch means).
+* The diploid chain, run through ``cli.main([... "--device", "cpu"])``,
+  writes bpp_tpu's mcmc.txt header, ``mu_bar`` included, and its
+  theta/tau means agree with a bpp_tpu chain in the same way.
 """
 
 import subprocess
@@ -87,3 +93,67 @@ def test_posterior_means_match_bpp_tpu(ctl):
         mp, sp = _means_and_se(xp)
         se = np.hypot(sj, sp)
         assert abs(mj - mp) < 4 * se, (kind, i, mj, mp, se)
+
+
+DIPLOID_PRIORS = ("alphaprior = 1 1 4", "locusrate = 1 10 10 5 iid",
+                  "heredity = 1 4 4")
+
+
+@pytest.fixture(scope="module")
+def diploid_run(tmp_path_factory):
+    """The diploid HKY+G4 chain through the CLI, in float64 on the CPU:
+    (control file, header, samples)."""
+    from bpp_tpu_torch import cli
+    from bpp_tpu_torch.testing import write_simulated_run
+    tmp = tmp_path_factory.mktemp("torchdipengine")
+    ctl = write_simulated_run(
+        tmp, n_loci=6, n_sites=120, seqs=(1, 1, 2, 2), diploid=(1, 1, 0, 0),
+        sim_model="model = 3\nkappa = 2\nbasefreqs = 0.3 0.2 0.2 0.3\n"
+        "locusrate = 1 5", model="HKY", priors=DIPLOID_PRIORS, burnin=100,
+        nsample=600)
+    rc = cli.main(["--cfile", ctl, "--device", "cpu", "--x64", "--quiet"])
+    assert rc == 0
+    lines = Path(ctl).with_name("out.mcmc.txt").read_text().splitlines()
+    data = np.array([[float(x) for x in ln.split("\t")] for ln in lines[1:]])
+    return ctl, lines[0], data
+
+
+def test_diploid_cli_writes_bpp_tpu_header_with_mu_bar(diploid_run):
+    from bpp_tpu.loader import load_run_from_ctl
+    from bpp_tpu.output import McmcWriter
+    ctl, header, data = diploid_run
+    run = load_run_from_ctl(ctl)
+    assert run.batch.res_map.shape[2] >= 2
+    ref = Path(ctl).with_name("ref_header.txt")
+    McmcWriter(str(ref), run.cfg, run.stree).close()
+    assert header == ref.read_text().rstrip("\n")
+    cols = header.split("\t")
+    assert "mu_bar" in cols
+    assert data.shape == (600, len(cols))
+    assert np.isfinite(data).all()
+    for j, col in enumerate(cols):
+        if col.startswith(("theta", "tau", "mu_bar")):
+            assert data[:, j].std() > 0, col
+
+
+def test_diploid_posterior_means_match_bpp_tpu(diploid_run):
+    from bpp_tpu.loader import load_run_from_ctl as load_jax
+    from bpp_tpu.mcmc.driver import Engine as EngineJ
+    from bpp_tpu.output import McmcWriter
+    ctl, header, data = diploid_run
+    rj = load_jax(ctl)
+    rj.cfg = rj.cfg.replace(dtype="float64", burnin=200, nsample=4000)
+    _, th_j, tau_j, _, _ = EngineJ(rj, seed=5).run_mcmc(
+        progress_every=0).arrays()
+    w = McmcWriter(str(Path(ctl).with_name("cols.txt")), rj.cfg, rj.stree)
+    w.close()
+    # mcmc.txt: Gen, thetas, taus, mu_bar, lnL
+    cols = [(th_j, i) for i in w.theta_nodes] + [(tau_j, i)
+                                                 for i in w.tau_nodes]
+    names = header.split("\t")
+    for j, (xj, i) in enumerate(cols, start=1):
+        assert names[j].startswith(("theta", "tau")), names[j]
+        mj, sj = _means_and_se(xj[:, i])
+        mp, sp = _means_and_se(data[:, j])
+        se = np.hypot(sj, sp)
+        assert abs(mj - mp) < 4 * se, (names[j], mj, mp, se)

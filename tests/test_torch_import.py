@@ -28,7 +28,9 @@ def _port_modules():
 
 def test_import_loads_no_jax_and_no_bpp_tpu():
     mods = _port_modules()
-    assert "bpp_tpu_torch.core.pack" in mods
+    for mod in ("core.pack", "core.fels", "mcmc.subst_moves",
+                "mcmc.clock_moves"):
+        assert f"bpp_tpu_torch.{mod}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -58,6 +60,50 @@ def test_source_imports_nothing_of_jax_or_bpp_tpu(path):
     assert not hits, f"{path} imports {hits}"
 
 
+CSRC = PORT / "csrc"
+# names that exist only in JAX / Pallas code for the TPU
+_TPU_NAMES = re.compile(
+    r"\b(pltpu|pallas_call|BlockSpec|program_id|make_async_copy|VMEM|SMEM"
+    r"|vreg|jnp|jax|lax)\b")
+_OUTSIDE_PATH = re.compile(r"(?<![\w.])/(root|opt|usr|home|tmp|mnt|var)/")
+_INCLUDE = re.compile(r'^\s*#\s*include\s*([<"])([^>"]+)[>"]', re.M)
+
+
+def _csrc_faults(name: str, text: str) -> list[str]:
+    """What a CUDA source must not hold: a TPU intrinsic's name, a path
+    outside the repository, or an include that is neither a toolkit header
+    nor a file of ``csrc/``."""
+    faults = [f"{name} names {m}" for m in _TPU_NAMES.findall(text)]
+    faults += [f"{name} holds the path /{m}/..."
+               for m in _OUTSIDE_PATH.findall(text)]
+    for kind, target in _INCLUDE.findall(text):
+        if target.startswith("/") or ".." in target.split("/"):
+            faults.append(f"{name} includes {target}")
+        elif kind == '"' and not (CSRC / target).is_file():
+            faults.append(f"{name} includes {target}, not in csrc/")
+    return faults
+
+
+@pytest.mark.parametrize("path", sorted(
+    p.name for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh")))
+def test_cuda_source_stands_alone(path):
+    assert not _csrc_faults(path, (CSRC / path).read_text())
+
+
+@pytest.mark.parametrize("line", [
+    "  live = pl.program_id(1) * 128 < npat;",
+    "// the scratch lives in VMEM",
+    '#include "/home/me/cutlass/include/cute/tensor.hpp"',
+    '#include "../../bpp_tpu/core/pallas_fels.h"',
+    '#include "missing.cuh"',
+    "// see /tmp/notes/kernel.txt",
+])
+def test_cuda_source_scan_catches(line):
+    good = '#include "contract.cuh"\n#include <cuda_runtime.h>\n'
+    assert not _csrc_faults("x.cu", good)
+    assert _csrc_faults("x.cu", good + line + "\n")
+
+
 def test_cli_without_cuda_refuses(tmp_path):
     import torch
     if torch.cuda.is_available():
@@ -68,3 +114,15 @@ def test_cli_without_cuda_refuses(tmp_path):
     assert out.returncode != 0
     assert "no CUDA device" in out.stderr
     assert "--device cpu" in out.stderr
+
+
+def test_chip_smoke_without_cuda_fails_and_prints_no_result(tmp_path):
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the refusal cannot be shown")
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         cwd=tmp_path, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+    assert "no CUDA device" in out.stderr
