@@ -1,9 +1,11 @@
 """Per-family exponential factors for the pruning kernel (PyTorch).
 
 Port of ``_KFAC``, ``model_family`` and ``efactors`` from
-``bpp_tpu/core/pallas_fels.py``: the transcendentals of P(t) are taken
-out of the kernel into one elementwise pass, and the kernel applies
-P(t)·x by the spectral structure of the model family.
+``bpp_tpu/core/pallas_fels.py``.  The kernels apply P(t)·x by the spectral
+structure of the model family, from these factors; they compute them in
+their own prologue (``csrc/contract.cuh``), and :func:`efactors` is the
+plain statement of that prologue, which the CPU tests hold against
+``bpp_tpu``'s and walk a tree with.
 """
 
 from __future__ import annotations

@@ -7,27 +7,31 @@ argument convention, with the tips as the port lays them out
 axis to 128 lanes were TPU tiling).  This is the likelihood pass of
 batches with a diploid resolution map: the ``[L, S]`` output goes through
 ``felsenstein.reduce_root``, which averages each weight pattern's phase
-resolutions.  On a CUDA tensor :func:`site_logl_fels` launches the
-hand-written kernel in ``csrc/fels_kernel.cu`` or raises; it never falls
+resolutions.  On a CUDA tensor :func:`site_logl_fels` checks its inputs and
+launches the hand-written kernel in ``csrc/fels_kernel.cu``, which computes
+branch lengths and exponential factors itself, or raises; it never falls
 back.  On a CPU tensor it computes the same function with
 :func:`site_logl_fels_ref`.
 """
 
 from __future__ import annotations
 
-import ctypes
-from typing import NamedTuple
-
 import torch
 
 from ..config import SubstModel
 from ..trees.gtree import GTrees
 from . import felsenstein as fe
-from .pack import check_tensor, scaled_lengths, tree_tensors
+from .pack import (
+    BLOCK_THREADS, KernelArgs, check_tensor, data_ptrs, kernel_lib,
+    scaled_lengths, tree_tensors,
+)
 from .pmatrix import pmatrix_model
+from .units import Units
 
 # kernel launches since import (reset by callers that count a run)
 LAUNCHES = 0
+# the CLV store of the last launch: "shared" or "global"
+CLV_STORE = None
 
 
 def site_logl_fels_ref(order, left, right, parent, n_seq, age, mu,
@@ -55,34 +59,26 @@ def site_logl_fels_ref(order, left, right, parent, n_seq, age, mu,
 
 
 def _kernel_lib():
-    """The built K2 library, with its C signature declared."""
-    from ._build import load
-    lib = load("fels_kernel")
-    fn = lib.bpp_fels_site_logl
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 \
-            + [ctypes.c_void_p]
-    return lib
-
-
-class KernelArgs(NamedTuple):
-    """Everything one launch of K2 reads and writes (tensors on the card)."""
-
-    tensors: tuple          # tips, efac, coefs, eigT, eigTi, freqs, order,
-    #                         left, right, n_seq, n_pat, scratch, out
-    dims: tuple             # L, T, S, C, family code
+    """The built K2 library."""
+    return kernel_lib("fels_kernel", "bpp_fels", "bpp_fels_site_logl", 16, 7)
 
 
 def site_logl_fels(order, left, right, parent, n_seq, age, mu, rates_kappa,
                    freqs, eigw, eigT, eigTi, tips, *, model: SubstModel,
-                   n_cats: int, blen=None, n_pat=None):
+                   n_cats: int, blen=None, n_pat=None,
+                   units: Units | None = None, clv_store=None):
     """Per-pattern log-likelihoods ``[L, S]`` of 4-state data.
 
-    CUDA tensors: f32 state, int64 indices; the rate-scaled branch
-    lengths and exponential factors are one elementwise pass here, the
-    pruning, rescaling and root value of every pattern are one kernel
-    launch.  CPU tensors: the plain version."""
+    CUDA tensors: f32 state, int64 indices; checks and one kernel launch,
+    which computes branch lengths, exponential factors, pruning, rescaling
+    and the root value of every real pattern, and writes 0 to the columns
+    past ``n_pat``.  ``units`` is the batch's static unit table
+    (:class:`core.units.Units`, built once per run from the same
+    ``n_pat``); without it the wrapper builds one from ``n_pat``, which
+    copies ``n_pat`` to the host.  ``clv_store`` forces the kernel's
+    ``"shared"`` or ``"global"`` CLV store; by default the wrapper takes
+    the shared one where the tree fits (``pack.plan_launch``).  CPU
+    tensors: the plain version."""
     if tips.device.type == "cpu":
         return site_logl_fels_ref(
             order, left, right, parent, n_seq, age, mu, rates_kappa, freqs,
@@ -91,38 +87,46 @@ def site_logl_fels(order, left, right, parent, n_seq, age, mu, rates_kappa,
     return launch(kernel_args(
         order, left, right, parent, n_seq, age, mu, rates_kappa, freqs,
         eigw, eigT, eigTi, tips, model=model, n_cats=n_cats, blen=blen,
-        n_pat=n_pat))
+        n_pat=n_pat, units=units, clv_store=clv_store))
 
 
 def kernel_args(order, left, right, parent, n_seq, age, mu, rates_kappa,
                 freqs, eigw, eigT, eigTi, tips, *, model: SubstModel,
-                n_cats: int, blen=None, n_pat=None) -> KernelArgs:
-    """Check the inputs of one K2 launch and prepare its factors, scratch
-    and output on the card."""
+                n_cats: int, blen=None, n_pat=None,
+                units: Units | None = None, clv_store=None,
+                threads: int | None = None) -> KernelArgs:
+    """Check the inputs of one K2 launch, plan it and allocate its output
+    (and, under the global CLV store only, its scratch).  ``threads``
+    overrides the block size."""
     who = "site_logl_fels"
-    tree, fam = tree_tensors(
-        who, lambda: _kernel_lib().bpp_fels_max_cats(), order, left, right,
-        parent, n_seq, age, mu, rates_kappa, freqs, eigw, eigT, eigTi, tips,
-        model=model, n_cats=n_cats, blen=blen)
+    if units is None and tips.device.type == "cuda":
+        L, _, S, _ = tips.shape
+        if n_pat is not None:
+            check_tensor(who, "n_pat", n_pat, torch.int64, (L,), tips.device)
+        units = Units([S] * L if n_pat is None else n_pat.cpu().numpy(), S,
+                      tips.device)
+    tree, fam, plan = tree_tensors(
+        who, "bpp_fels", _kernel_lib(), order, left, right, parent, n_seq,
+        age, mu, rates_kappa, freqs, eigw, eigT, eigTi, tips, units,
+        model=model, n_cats=n_cats, blen=blen, clv_store=clv_store,
+        threads=threads or BLOCK_THREADS)
     L, T, S, _ = tips.shape
-    if n_pat is None:
-        n_pat = torch.full((L,), S, dtype=torch.int64, device=tips.device)
-    check_tensor(who, "n_pat", n_pat, torch.int64, (L,), tips.device)
     out = torch.empty((L, S), dtype=torch.float32, device=tips.device)
-    # the C signature's order: ..., n_seq, n_pat, scratch, out
-    tensors = tree[:-1] + (n_pat, tree[-1], out)
-    return KernelArgs(tensors, (L, T, S, n_cats, fam))
+    dims = (T, S, units.n_units, n_cats, fam,
+            int(plan.clv_store == "shared"), plan.threads)
+    return KernelArgs(tree + (out,), dims, plan)
 
 
 def launch(args: KernelArgs):
     """One launch of K2 on the current stream; returns the ``[L, S]``
     output."""
-    global LAUNCHES
+    global LAUNCHES, CLV_STORE
     out = args.tensors[-1]
     stream = torch.cuda.current_stream(out.device).cuda_stream
-    rc = _kernel_lib().bpp_fels_site_logl(
-        *(t.data_ptr() for t in args.tensors), *args.dims, stream)
+    rc = _kernel_lib().bpp_fels_site_logl(*data_ptrs(args.tensors),
+                                          *args.dims, stream)
     if rc != 0:
         raise RuntimeError(f"fels_kernel launch failed: cudaError {rc}")
     LAUNCHES += 1
+    CLV_STORE = args.plan.clv_store
     return out

@@ -21,10 +21,13 @@ def _gamma_quantile(p, a):
     x = (2.0 * a) * (1.0 - g + z * torch.sqrt(g)) ** 3 / 2.0
     x = torch.clamp(x, min=1e-10)
     lgam = torch.lgamma(a)
+    # the smallest density Newton divides by: 1e-300 as bpp_tpu has it in
+    # float64, and the smallest normal number where that is 0 (float32)
+    floor = max(1e-300, torch.finfo(x.dtype).tiny)
     for _ in range(40):
         f = torch.special.gammainc(a, x) - p
         dfdx = torch.exp((a - 1.0) * torch.log(x) - x - lgam)
-        step = f / torch.clamp(dfdx, min=1e-300)
+        step = f / torch.clamp(dfdx, min=floor)
         step = torch.minimum(torch.maximum(step, -0.9 * x), 10.0 * x)
         x = torch.clamp(x - step, min=1e-12)
     return x

@@ -3,10 +3,12 @@ PyTorch version.
 
 Port of ``bpp_tpu/core/pallas_pack.py`` ``site_logl_packed``: the same
 argument convention minus the TPU lane-packing layout.  On a CUDA
-tensor :func:`site_logl_packed` launches the hand-written kernel in
-``csrc/pack_kernel.cu`` or raises; it never falls back.  On a CPU
-tensor it computes the same function with :func:`site_logl_packed_ref`,
-the port's ``felsenstein.loglikelihood`` over ``compute_pmats``.
+tensor :func:`site_logl_packed` checks its inputs and launches the
+hand-written kernel in ``csrc/pack_kernel.cu``, which computes branch
+lengths and exponential factors itself, or raises; it never falls back.
+On a CPU tensor it computes the same function with
+:func:`site_logl_packed_ref`, the port's ``felsenstein.loglikelihood``
+over ``compute_pmats``.
 """
 
 from __future__ import annotations
@@ -19,11 +21,21 @@ import torch
 from ..config import SubstModel
 from ..trees.gtree import GTrees
 from . import felsenstein as fe
-from .efactors import efactors, model_family
+from .efactors import model_family
 from .pmatrix import pmatrix_model
+from .units import Units
 
 # kernel launches since import (reset by callers that count a run)
 LAUNCHES = 0
+# the CLV store of the last launch: "shared" or "global"
+CLV_STORE = None
+# threads per block of both kernels.  Shared memory sets how many warps an SM holds, and
+# small blocks pack it best: measured on an H100, 64 and 128 threads tie up
+# to 4 rate categories and 64 wins at 8 (three 70 KB blocks an SM against
+# one of 140 KB); 256 loses from 4 categories on (PERF.md)
+BLOCK_THREADS = 64
+# shared memory a block may use on sm_90 (227 KB), less K1's partials
+BLOCK_SHARED = 232448 - 256
 
 _FAM_CODE = {"jc69": 0, "tn93": 1, "gtr": 2}
 
@@ -71,13 +83,50 @@ def check_tensor(who, name, t, dtype, shape, device):
         raise ValueError(f"{who}: {name} is not contiguous")
 
 
-def tree_tensors(who, max_cats, order, left, right, parent, n_seq, age, mu,
-                 rates_kappa, freqs, eigw, eigT, eigTi, tips, *,
-                 model: SubstModel, n_cats: int, blen=None):
-    """What kernels K1 and K2 both read, checked and prepared on the card:
-    (tips, efac, coefs, eigT, eigTi, freqs, order, left, right, n_seq,
-    CLV scratch) and the model family's code.  ``max_cats()`` asks the
-    built kernel for the most rate categories it takes."""
+class LaunchPlan(NamedTuple):
+    """How one launch is laid out on the card."""
+
+    clv_store: str          # "shared" or "global"
+    threads: int            # per block
+    shared_bytes: int       # dynamic shared memory per block
+
+
+def plan_launch(who, warp_bytes, T, C, fam, clv_store, threads) -> LaunchPlan:
+    """Lay out one launch.  ``warp_bytes(T, C, family, shared)`` asks the
+    built kernel for one warp's shared memory under either store.
+
+    The CLVs go to shared memory where one warp's CLV slots, factors and
+    plan fit a block's shared memory, else to the device scratch; the
+    block shrinks to the warps that fit; a tree too large even for the
+    global store's factors and plan is refused."""
+    if clv_store not in (None, "shared", "global"):
+        raise ValueError(f"{who}: clv_store is {clv_store!r}; 'shared', "
+                         "'global' or None")
+    if threads % 32 or not 32 <= threads <= 1024:
+        raise ValueError(f"{who}: {threads} threads per block; a multiple "
+                         "of 32 up to 1024")
+    if clv_store is None:
+        clv_store = ("shared" if warp_bytes(T, C, fam, 1) <= BLOCK_SHARED
+                     else "global")
+    per_warp = warp_bytes(T, C, fam, int(clv_store == "shared"))
+    warps = min(threads // 32, BLOCK_SHARED // per_warp)
+    if warps < 1:
+        raise ValueError(
+            f"{who}: a tree of {T} tips with {C} rate categories needs "
+            f"{per_warp} B of shared memory per warp under the {clv_store} "
+            f"CLV store; a block has {BLOCK_SHARED}")
+    return LaunchPlan(clv_store, 32 * warps, warps * per_warp)
+
+
+def tree_tensors(who, lib_prefix, lib, order, left, right, parent, n_seq, age,
+                 mu, rates_kappa, freqs, eigw, eigT, eigTi, tips, units, *,
+                 model: SubstModel, n_cats: int, blen, clv_store, threads):
+    """What kernels K1 and K2 both read, checked: the tensors in the order
+    of the C signature up to the CLV scratch (tips, age, blen, mu,
+    rates_kappa, freqs, eigw, eigT, eigTi, order, left, right, n_seq,
+    units, scratch), the model family's code and the launch plan.  Nothing
+    is computed here: branch lengths and factors are the kernel's
+    prologue.  The scratch exists only under the global CLV store."""
     if tips.device.type != "cuda":
         raise ValueError(f"{who}: the kernel takes CUDA tensors, "
                          f"got {tips.device}")
@@ -88,64 +137,105 @@ def tree_tensors(who, max_cats, order, left, right, parent, n_seq, age, mu,
     f32 = torch.float32
     if A != 4:
         raise ValueError(f"{who}: the kernel takes 4-state data")
-    if not 1 <= C <= max_cats():
+    if T < 2:
+        raise ValueError(f"{who}: the kernel takes a tip capacity >= 2")
+    max_cats = getattr(lib, f"{lib_prefix}_max_cats")()
+    if not 1 <= C <= max_cats:
         raise ValueError(f"{who}: {C} rate categories; the kernel "
-                         f"takes 1..{max_cats()}")
+                         f"takes 1..{max_cats}")
     check_tensor(who, "tips", tips, f32, (L, T, S, 4), dev)
-    for nm, t in (("order", order), ("left", left), ("right", right)):
-        check_tensor(who, nm, t, torch.int64,
-                     (L, T - 1) if nm == "order" else (L, N), dev)
-    check_tensor(who, "n_seq", n_seq, torch.int64, (L,), dev)
-    for nm, t in (("age", age), ("mu", mu), ("rates_kappa", rates_kappa),
-                  ("freqs", freqs), ("eigw", eigw), ("eigT", eigT),
-                  ("eigTi", eigTi)):
-        if t.dtype != f32 or t.device != dev:
-            raise TypeError(f"{who}: {nm} must be float32 on "
-                            f"{dev}, got {t.dtype} on {t.device}")
+    for nm, t, shape in (("order", order, (L, T - 1)), ("left", left, (L, N)),
+                         ("right", right, (L, N)), ("parent", parent, (L, N)),
+                         ("n_seq", n_seq, (L,))):
+        check_tensor(who, nm, t, torch.int64, shape, dev)
 
-    t_eff = scaled_lengths(order, left, right, parent, age, mu, rates_kappa,
-                           C, blen)
-    efac, coefs = efactors(model, t_eff, freqs, rates_kappa[:, C],
-                           rates_kappa[:, C + 1], eigw)
-    if coefs is None:
-        coefs = torch.zeros((L, 10), dtype=f32, device=dev)
-    tensors = (tips, efac.contiguous(), coefs.contiguous(),
-               eigT.reshape(L, 16).contiguous(),
-               eigTi.reshape(L, 16).contiguous(), freqs[:, :4].contiguous(),
-               order, left, right, n_seq,
-               torch.empty((L, T - 1, C, S, 4), dtype=f32, device=dev))
-    return tensors, _FAM_CODE[model_family(model)]
+    def param(name, t, shape):
+        # a view (an expanded prior mean, say) is copied; a contiguous
+        # tensor is passed as it is
+        t = t.contiguous()
+        check_tensor(who, name, t, f32, shape, dev)
+        return t
+
+    age = param("age", age, (L, N))
+    mu = param("mu", mu, (L,))
+    rates_kappa = param("rates_kappa", rates_kappa, (L, C + 2))
+    freqs = param("freqs", freqs, (L, 4))
+    eigw = param("eigw", eigw, (L, 4))
+    eigT = param("eigT", eigT, (L, 4, 4))
+    eigTi = param("eigTi", eigTi, (L, 4, 4))
+    if blen is not None:
+        blen = param("blen", blen, (L, N))
+    if (units.n_loci, units.n_cols, units.units.device) != (L, S, dev):
+        raise ValueError(
+            f"{who}: the unit table is for {units.n_loci} loci of "
+            f"{units.n_cols} columns on {units.units.device}, the tips have "
+            f"{L} loci of {S} columns on {dev}")
+    fam = _FAM_CODE[model_family(model)]
+    plan = plan_launch(who, getattr(lib, f"{lib_prefix}_warp_bytes"), T, C,
+                       fam, clv_store, threads)
+    scratch = None
+    if plan.clv_store == "global":
+        scratch = torch.empty((units.n_units, T // 2, C, 32, 4), dtype=f32,
+                              device=dev)
+    tensors = (tips, age, blen, mu, rates_kappa, freqs, eigw, eigT, eigTi,
+               order, left, right, n_seq, units.units, scratch)
+    return tensors, fam, plan
+
+
+def kernel_lib(name, prefix, entry, n_ptrs, n_ints):
+    """The built library ``name`` of one pruning kernel, with its C
+    signatures declared: ``entry`` takes ``n_ptrs`` pointers, ``n_ints``
+    ints and the stream; ``<prefix>_warp_bytes`` and ``<prefix>_max_cats``
+    are the same in both libraries."""
+    from ._build import load
+    lib = load(name)
+    fn = getattr(lib, entry)
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints \
+            + [ctypes.c_void_p]
+        warp_bytes = getattr(lib, f"{prefix}_warp_bytes")
+        warp_bytes.restype = ctypes.c_longlong
+        warp_bytes.argtypes = [ctypes.c_int] * 4
+        max_cats = getattr(lib, f"{prefix}_max_cats")
+        max_cats.restype = ctypes.c_int
+        max_cats.argtypes = []
+    return lib
 
 
 def _kernel_lib():
-    """The built K1 library, with its C signature declared."""
-    from ._build import load
-    lib = load("pack_kernel")
-    fn = lib.bpp_pack_logl
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 \
-            + [ctypes.c_void_p]
+    """The built K1 library."""
+    lib = kernel_lib("pack_kernel", "bpp_pack", "bpp_pack_logl", 19, 9)
+    if lib.bpp_pack_empty.argtypes is None:
+        lib.bpp_pack_empty.restype = ctypes.c_int
+        lib.bpp_pack_empty.argtypes = [ctypes.c_void_p]
     return lib
 
 
 class KernelArgs(NamedTuple):
-    """Everything one launch of K1 reads and writes (tensors on the card)."""
+    """Everything one launch of K1 or K2 reads and writes (tensors on the
+    card; ``None`` for an absent ``blen`` or scratch)."""
 
-    tensors: tuple          # tips, efac, coefs, eigT, eigTi, freqs, weights,
-    #                         order, left, right, n_seq, scratch, out
-    dims: tuple             # L, T, S, W, C, family code
+    tensors: tuple          # tree_tensors' 15, then the kernel's own; the
+    #                         output last
+    dims: tuple             # the C signature's ints
+    plan: LaunchPlan
 
 
 def site_logl_packed(order, left, right, parent, n_seq, age, mu,
                      rates_kappa, freqs, eigw, eigT, eigTi, tips, weights,
-                     *, model: SubstModel, n_cats: int, blen=None):
+                     *, model: SubstModel, n_cats: int, blen=None,
+                     units: Units | None = None, clv_store=None):
     """Per-locus log-likelihoods ``[L]`` of 4-state, non-diploid data.
 
-    CUDA tensors: f32 state, int64 indices; the rate-scaled branch
-    lengths and exponential factors are one elementwise pass here, the
-    pruning, rescaling, root reduction and pattern weighting are one
-    kernel launch.  CPU tensors: the plain version."""
+    CUDA tensors: f32 state, int64 indices; checks and one kernel launch,
+    which computes branch lengths, exponential factors, pruning, rescaling,
+    root reduction and pattern weighting.  ``units`` is the batch's static
+    unit table (:class:`core.units.Units`, built once per run from
+    ``n_pat``); without it every column counts as a real pattern.
+    ``clv_store`` forces the kernel's ``"shared"`` or ``"global"`` CLV
+    store; by default the wrapper takes the shared one where the tree
+    fits (:func:`plan_launch`).  CPU tensors: the plain version."""
     if tips.device.type == "cpu":
         return site_logl_packed_ref(
             order, left, right, parent, n_seq, age, mu, rates_kappa, freqs,
@@ -154,38 +244,61 @@ def site_logl_packed(order, left, right, parent, n_seq, age, mu,
     return launch(kernel_args(
         order, left, right, parent, n_seq, age, mu, rates_kappa, freqs,
         eigw, eigT, eigTi, tips, weights, model=model, n_cats=n_cats,
-        blen=blen))
+        blen=blen, units=units, clv_store=clv_store))
 
 
 def kernel_args(order, left, right, parent, n_seq, age, mu, rates_kappa,
                 freqs, eigw, eigT, eigTi, tips, weights, *,
-                model: SubstModel, n_cats: int, blen=None) -> KernelArgs:
-    """Check the inputs of one K1 launch and prepare its factors, scratch
-    and output on the card."""
+                model: SubstModel, n_cats: int, blen=None,
+                units: Units | None = None, clv_store=None,
+                threads: int | None = None) -> KernelArgs:
+    """Check the inputs of one K1 launch, plan it and allocate its output
+    (and, under the global CLV store only, its scratch).  ``threads``
+    overrides the block size."""
     who = "site_logl_packed"
-    tree, fam = tree_tensors(
-        who, lambda: _kernel_lib().bpp_pack_max_cats(), order, left, right,
-        parent, n_seq, age, mu, rates_kappa, freqs, eigw, eigT, eigTi, tips,
-        model=model, n_cats=n_cats, blen=blen)
+    if units is None and tips.device.type == "cuda":
+        units = Units([tips.shape[2]] * tips.shape[0], tips.shape[2],
+                      tips.device)
+    tree, fam, plan = tree_tensors(
+        who, "bpp_pack", _kernel_lib(), order, left, right, parent, n_seq,
+        age, mu, rates_kappa, freqs, eigw, eigT, eigTi, tips, units,
+        model=model, n_cats=n_cats, blen=blen, clv_store=clv_store,
+        threads=threads or BLOCK_THREADS)
     L, T, S, _ = tips.shape
     W = weights.shape[1]
     check_tensor(who, "weights", weights, torch.float32, (L, W), tips.device)
     if W > S:
         raise ValueError(f"{who}: more weights than patterns")
     out = torch.empty((L,), dtype=torch.float32, device=tips.device)
-    # the C signature's order: ..., freqs, weights, order, ..., scratch, out
-    tensors = tree[:6] + (weights,) + tree[6:] + (out,)
-    return KernelArgs(tensors, (L, T, S, W, n_cats, fam))
+    blocks = units.blocks(plan.threads // 32)
+    tensors = tree + (weights, blocks, units.locus_unit0, out)
+    dims = (T, S, units.n_units, W, blocks.shape[0], n_cats, fam,
+            int(plan.clv_store == "shared"), plan.threads)
+    return KernelArgs(tensors, dims, plan)
+
+
+def data_ptrs(tensors):
+    return [None if t is None else t.data_ptr() for t in tensors]
 
 
 def launch(args: KernelArgs):
     """One launch of K1 on the current stream; returns the ``[L]`` output."""
-    global LAUNCHES
+    global LAUNCHES, CLV_STORE
     out = args.tensors[-1]
     stream = torch.cuda.current_stream(out.device).cuda_stream
-    rc = _kernel_lib().bpp_pack_logl(
-        *(t.data_ptr() for t in args.tensors), *args.dims, stream)
+    rc = _kernel_lib().bpp_pack_logl(*data_ptrs(args.tensors), *args.dims,
+                                     stream)
     if rc != 0:
         raise RuntimeError(f"pack_kernel launch failed: cudaError {rc}")
     LAUNCHES += 1
+    CLV_STORE = args.plan.clv_store
     return out
+
+
+def launch_empty(device):
+    """Launch a kernel that does nothing: the card's launch floor, timed
+    beside K1.  Not counted in ``LAUNCHES``."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = _kernel_lib().bpp_pack_empty(stream)
+    if rc != 0:
+        raise RuntimeError(f"empty kernel launch failed: cudaError {rc}")

@@ -1,23 +1,71 @@
 // Device code shared by the two pruning kernels (pack_kernel.cu, K1, and
-// fels_kernel.cu, K2): the per-family contraction P(t)·x and the walk of
-// one site pattern up its locus's gene tree.
+// fels_kernel.cu, K2): the per-family contraction P(t)·x, the per-locus
+// prologue (branch lengths, exponential factors, CLV slot plan) and the
+// walk of up to 32 site patterns of one locus up its gene tree by one warp.
 //
-// P(t)·x is applied by model family with the algebra of
-// bpp_tpu/core/pallas_fels.py (JC69 `e·x + ¼(1−e)Σx`; TN93 class
-// eigen-factors; GTR `x + T(em ⊙ T⁻¹x)`), but every factor arrives as
-// m = e − 1 = expm1(λt) from one elementwise pass in PyTorch
-// (core/efactors.py), so that P(t)·x = x + (terms in m).  The literal
-// `1 − e` keeps few digits in f32 on branches of ~1e-5; at 1000 loci that
-// cost 0.024 lnL on one locus against the f64 plain version.
+// Replaces the pruning core of the TPU kernels in
+// bpp_tpu/core/pallas_pack.py and bpp_tpu/core/pallas_fels.py.  The
+// function needs few bytes (each tip partial once, a few indices and
+// parameters per locus, one value per pattern or locus out) and fewer
+// operations still, so on an H100 its bound is bytes; what it costs
+// beyond that is latency: a pattern's walk is T-1 dependent levels.  The
+// design keeps what a walk re-reads on the SM, and leaves the SM room for
+// many warps to hide the waits that remain:
 //
-// site_logl() is one thread's work for one (locus, pattern): it walks the
-// locus's age-sorted inner nodes k < n_seq − 1, reading each node's two
-// children by node id (tips from the [T, S] float4 partials, inner nodes
-// from a global CLV scratch [T−1, C, S] float4, so neighbouring threads
-// touch neighbouring 16-byte words), rescales every level by the per-site
-// max over categories and states (floored at 1e-30, the log scale
-// accumulates), and returns log(Σ_c Σ_a π_a clv / C) + Σ log scale at the
-// root.  A locus with one sequence is rooted at tip 0.
+//   * Unit of work: one warp on one (locus, chunk of up to 32 real
+//     patterns), from a table built once per run (core/units.py).  No
+//     warp is launched on padding.
+//   * Prologue, per (warp, locus), into shared memory: one level per
+//     lane reads the schedule (order, left, right) and the ages and forms
+//     max(age[node] - age[child], 0) * mu for both children (the parent of
+//     a scheduled child is that level's node; with `blen` given it is read
+//     instead of ages and mu); the lanes assign CLV slots; all lanes compute
+//     expm1(lambda_f * t * rate_c) per (level, child, category, factor),
+//     which core/efactors.py states in PyTorch.  Factors stay m = e - 1
+//     and P(t)·x is written as x + (terms in m): the literal 1 - e keeps
+//     few digits in float32 on branches of ~1e-5 (0.024 lnL on one locus
+//     of 1000).
+//   * CLV slots: an inner CLV is dead once its parent has consumed it.
+//     A node writes into the slot of its left inner child, else of its
+//     right inner child, else into a slot of its own; so the nodes that
+//     share a slot form a chain up the tree, a chain starts at a node
+//     with two tips below it, and there are at most floor(T/2) chains.  A
+//     level reads both children for every category before it writes, so
+//     writing over a child is safe.  Which chain a node is on is found
+//     for all nodes at once by pointer jumping, not by a walk in schedule
+//     order.  core/units.py `slot_plan` is the same plan in numpy, tested
+//     on the CPU.
+//   * CLV store, a template parameter: SHARED keeps the slots
+//     [slot][category][32] as float4 in the warp's shared memory (a warp
+//     reads 32 consecutive 16-byte words: no bank conflicts); the other
+//     store keeps the same slots in a device scratch
+//     [unit][slot][category][32], for trees whose slots do not fit in a
+//     block's 227 KB.  The wrapper chooses from T and C.
+//   * Tips are read once each, from device memory, two levels before the
+//     level that consumes them, into registers.  Staging all of a
+//     pattern's tips in shared memory first (one wait instead of several)
+//     was tried and dropped: it was no faster where a pass is one wave of
+//     warps and slower where it is several, because the staged tips take
+//     the shared memory that more resident warps would use.
+//   * Every level is rescaled by the per-pattern max over categories and
+//     states (floored at 1e-30), with one reciprocal per level; the scale
+//     factors are multiplied up and their log is taken only when the
+//     product nears the bottom of float32's range, and at the root.  Levels k >= n_seq - 1 are never entered; a
+//     one-sequence locus is rooted at tip 0.  The value is
+//     log(sum_c sum_a pi_a clv / C) + sum log scale.
+//
+// Shared memory per warp with the SHARED store, in bytes:
+//   512 C floor(T/2) (CLVs) + 8 (T-1) C K (factors) + 8 (T-1) (branch
+//   lengths) + 4 C (rates) + 10 (T-1) (plan), rounded
+//   up to 16.
+// At T = 16 (K = 1 JC69, 3 TN93 class, 4 GTR) a warp / a 64-thread block,
+// the wrappers' block size:
+//   C = 1:  4,496 ..  4,864 B /  8.8 ..  9.5 KB (23-25 blocks an SM)
+//   C = 4: 17,152 .. 18,592 B / 33.5 .. 36.3 KB (6 blocks an SM)
+//   C = 8: 34,032 .. 36,912 B / 66.5 .. 72.1 KB (3 blocks an SM)
+// Small blocks pack an SM's 227 KB best: at C = 8 a 128-thread block takes
+// 133 .. 144 KB and an SM holds one (4 warps, not 6).
+// The other store needs only the factors, lengths and plan: 0.4 .. 4 KB.
 
 #pragma once
 
@@ -27,14 +75,42 @@
 namespace bpp {
 
 constexpr float kTiny = 1e-30f;
+constexpr int kLanes = 32;
+constexpr int kMaxCats = 8;
+// dynamic shared memory one block may ask for on sm_90
+constexpr int kMaxBlockShared = 232448;
 
 enum { FAM_JC69 = 0, FAM_TN93 = 1, FAM_GTR = 2 };
+
+// What both kernels take (tensors of the whole batch, on the card).
+struct TreeArgs {
+  const float4* tips;      // [L, T, S] float4
+  const float* age;        // [L, N]
+  const float* blen;       // [L, N] or null: branch lengths, mu included
+  const float* mu;         // [L]
+  const float* rates;      // [L, C + 2]: category rates, kappa1, kappa2
+  const float* freqs;      // [L, 4]
+  const float* eigw;       // [L, 4] (GTR)
+  const float* eigT;       // [L, 16] (GTR)
+  const float* eigTi;      // [L, 16] (GTR)
+  const int64_t* order;    // [L, T-1]
+  const int64_t* left;     // [L, N]
+  const int64_t* right;    // [L, N]
+  const int64_t* n_seq;    // [L]
+  const int4* units;       // [U]: locus, first pattern, real patterns, last
+  float4* scratch;         // [U, T/2, C, 32] float4 (global store) or null
+  int T, S, U;
+};
 
 template <int FAM> struct Coefs;
 
 template <> struct Coefs<FAM_JC69> {
   static constexpr int K = 1;
-  __device__ void load(const float*, const float*, const float*, int64_t) {}
+  __device__ void load(const TreeArgs&, int64_t, int) {}
+  __device__ void prepare() {}
+  __device__ void factors(float t, float* e) const {
+    e[0] = expm1f(-4.0f / 3.0f * t);
+  }
   // y = e x + (1-e)/4 Σx, as x + m (x - Σx/4) with m = e - 1
   __device__ float4 apply(float4 x, const float* e) const {
     const float m = e[0];
@@ -46,12 +122,29 @@ template <> struct Coefs<FAM_JC69> {
 
 template <> struct Coefs<FAM_TN93> {
   static constexpr int K = 3;
-  float pa, pc, pg, pt, rR, rY, cA, cG, cC, cT;
-  __device__ void load(const float* coefs, const float*, const float*,
-                       int64_t l) {
-    const float* c = coefs + l * 10;
-    pa = c[0]; pc = c[1]; pg = c[2]; pt = c[3]; rR = c[4]; rY = c[5];
-    cA = c[6]; cG = c[7]; cC = c[8]; cT = c[9];
+  float pa, pc, pg, pt, k1, k2, rR, rY, cA, cG, cC, cT, m, b3, b4;
+  // load() only asks device memory for the parameters; prepare() uses
+  // them, and so waits for them
+  __device__ void load(const TreeArgs& a, int64_t l, int C) {
+    const float* f = a.freqs + l * 4;
+    pa = f[0]; pc = f[1]; pg = f[2]; pt = f[3];
+    k1 = a.rates[l * (C + 2) + C];
+    k2 = a.rates[l * (C + 2) + C + 1];
+  }
+  __device__ void prepare() {
+    const float R = pa + pg, Y = pc + pt;
+    m = 2.0f * (pa * pg * k1 + pc * pt * k2 + R * Y);
+    b3 = R * k1 + Y;
+    b4 = Y * k2 + R;
+    rR = (1.0f - R) / R; rY = (1.0f - Y) / Y;
+    cA = pg / R; cG = pa / R; cC = pt / Y; cT = pc / Y;
+  }
+  // e2 (any substitution), e3 (purine), e4 (pyrimidine), each minus 1
+  __device__ void factors(float t, float* e) const {
+    const float ts = t / m;
+    e[0] = expm1f(-ts);
+    e[1] = expm1f(-b3 * ts);
+    e[2] = expm1f(-b4 * ts);
   }
   // pallas_fels's UR + cA e3 (xA - xG) etc., with every e = 1 + m so
   // that the t = 0 identity cancels algebraically: y = x + corrections
@@ -70,13 +163,17 @@ template <> struct Coefs<FAM_TN93> {
 
 template <> struct Coefs<FAM_GTR> {
   static constexpr int K = 4;
-  float T[16], Ti[16];
-  __device__ void load(const float*, const float* eigT, const float* eigTi,
-                       int64_t l) {
+  float w[4], T[16], Ti[16];
+  __device__ void load(const TreeArgs& a, int64_t l, int) {
+    for (int i = 0; i < 4; ++i) w[i] = a.eigw[l * 4 + i];
     for (int i = 0; i < 16; ++i) {
-      T[i] = eigT[l * 16 + i];
-      Ti[i] = eigTi[l * 16 + i];
+      T[i] = a.eigT[l * 16 + i];
+      Ti[i] = a.eigTi[l * 16 + i];
     }
+  }
+  __device__ void prepare() {}
+  __device__ void factors(float t, float* e) const {
+    for (int f = 0; f < 4; ++f) e[f] = expm1f(w[f] * t);
   }
   __device__ float4 apply(float4 x, const float* e) const {
     float z[4];
@@ -91,155 +188,348 @@ template <> struct Coefs<FAM_GTR> {
   }
 };
 
+__host__ __device__ inline int family_factors(int fam) {
+  return fam == FAM_JC69 ? 1 : (fam == FAM_TN93 ? 3 : 4);
+}
+
 __device__ __forceinline__ float4 mul4(float4 a, float4 b) {
   return make_float4(a.x * b.x, a.y * b.y, a.z * b.z, a.w * b.w);
 }
 
-__device__ __forceinline__ float4 div4(float4 a, float m) {
-  return make_float4(a.x / m, a.y / m, a.z / m, a.w / m);
+__device__ __forceinline__ float4 scale4(float4 a, float r) {
+  return make_float4(a.x * r, a.y * r, a.z * r, a.w * r);
 }
 
 __device__ __forceinline__ float max4(float4 a) {
   return fmaxf(fmaxf(a.x, a.y), fmaxf(a.z, a.w));
 }
 
-// What both kernels take (tensors of the whole batch, on the card).
-struct TreeArgs {
-  const float4* tips;      // [L, T, S] float4
-  const float* efac;       // [L, N, C, K]
-  const float* coefs;      // [L, 10] (TN93 class)
-  const float* eigT;       // [L, 16] (GTR)
-  const float* eigTi;      // [L, 16] (GTR)
-  const float* freqs;      // [L, 4]
-  const int64_t* order;    // [L, T-1]
-  const int64_t* left;     // [L, N]
-  const int64_t* right;    // [L, N]
-  const int64_t* n_seq;    // [L]
-  float4* scratch;         // [L, T-1, C, S] float4
-  int T, S;
+// Byte offsets of one warp's state in its block's dynamic shared memory.
+struct WarpLayout {
+  int clv;      // float4 [slots][C][32]     (SHARED store only)
+  int fac;      // float  [T-1][2][C][K]     expm1 factors, by level, child
+  int blen;     // float  [T-1][2]           mu-scaled branch lengths
+  int rate;     // float  [C]                the locus's category rates
+  int plan;     // short  srcL, srcR, dst, down, chain [T-1]
+  int slots;    // CLV slots a pattern needs: floor(T/2)
+  long long bytes;
 };
 
-// One locus's slices of TreeArgs, with its contraction coefficients.
-template <int FAM, int C>
-struct Locus {
-  Coefs<FAM> cf;
-  const float4* tips;
-  float4* scr;
-  const int64_t* order;
-  const int64_t* left;
-  const int64_t* right;
-  const float* efac;
-  float f0, f1, f2, f3;
-  int T, S, nlev;
+__host__ __device__ inline WarpLayout warp_layout(int T, int C, int K,
+                                                  bool shared) {
+  WarpLayout w;
+  const long long nlev = T - 1;
+  w.slots = T / 2;
+  long long off = 0;
+  w.clv = static_cast<int>(off);
+  if (shared) off += 16LL * kLanes * C * w.slots;
+  w.fac = static_cast<int>(off);
+  off += 4LL * 2 * nlev * C * K;
+  w.blen = static_cast<int>(off);
+  off += 4LL * 2 * nlev;
+  w.rate = static_cast<int>(off);
+  off += 4LL * C;
+  w.plan = static_cast<int>(off);
+  off += 2LL * 5 * nlev;
+  w.bytes = (off + 15) & ~15LL;
+  return w;
+}
 
-  __device__ void load(const TreeArgs& a, int64_t l) {
-    constexpr int K = Coefs<FAM>::K;
-    T = a.T;
-    S = a.S;
-    const int N = 2 * T - 1;
-    const int64_t ns = a.n_seq[l];
-    nlev = ns >= 2 ? static_cast<int>(ns - 1) : 0;
-    cf.load(a.coefs, a.eigT, a.eigTi, l);
-    f0 = a.freqs[l * 4 + 0];
-    f1 = a.freqs[l * 4 + 1];
-    f2 = a.freqs[l * 4 + 2];
-    f3 = a.freqs[l * 4 + 3];
-    tips = a.tips + l * T * S;
-    scr = a.scratch + l * (T - 1) * C * S;
-    order = a.order + l * (T - 1);
-    left = a.left + l * N;
-    right = a.right + l * N;
-    efac = a.efac + l * N * C * K;
-  }
+// One warp's walk of one unit.  Every lane of the warp calls run(); lanes
+// past the unit's real patterns take part in the prologue and skip the
+// walk.  `region` is the warp's slice of the block's dynamic shared
+// memory, free for reuse once every lane has returned.
+template <int FAM, int C, bool SHARED>
+struct UnitWalk {
+  static constexpr int K = Coefs<FAM>::K;
 
-  // log-likelihood of pattern s
-  __device__ float site_logl(int s) const {
-    constexpr int K = Coefs<FAM>::K;
-    float logscale = 0.0f;
-    float4 root[C];
-    const float4 tip0 = tips[s];
-    for (int c = 0; c < C; ++c) root[c] = tip0;   // single-sequence locus
-    for (int k = 0; k < nlev; ++k) {
-      const int64_t node = order[k];
-      const int64_t lc = left[node];
-      const int64_t rc = right[node];
-      float4 y[C];
-      float m = 0.0f;
-      for (int c = 0; c < C; ++c) {
-        const float4 xl = lc < T ? tips[lc * S + s]
-                                 : scr[((lc - T) * C + c) * S + s];
-        const float4 xr = rc < T ? tips[rc * S + s]
-                                 : scr[((rc - T) * C + c) * S + s];
-        y[c] = mul4(cf.apply(xl, efac + (lc * C + c) * K),
-                    cf.apply(xr, efac + (rc * C + c) * K));
-        m = fmaxf(m, max4(y[c]));
+  static __device__ float run(const TreeArgs& a, unsigned char* region,
+                              int u, int4 unit, int lane) {
+    const int T = a.T, S = a.S, N = 2 * T - 1;
+    const int64_t l = unit.x;
+    const bool active = lane < unit.z;
+    const WarpLayout w = warp_layout(T, C, K, SHARED);
+    float* fac = reinterpret_cast<float*>(region + w.fac);
+    float* bl = reinterpret_cast<float*>(region + w.blen);
+    float* rate = reinterpret_cast<float*>(region + w.rate);
+    short* srcL = reinterpret_cast<short*>(region + w.plan);
+    short* srcR = srcL + (T - 1);
+    short* dst = srcR + (T - 1);
+    short* down = dst + (T - 1);
+    short* chain = down + (T - 1);
+
+    // this lane's column of the tips, and of the CLV slots
+    const float4* tp = a.tips + (l * T) * S + (unit.y + lane);
+    float4* cv;
+    if constexpr (SHARED)
+      cv = reinterpret_cast<float4*>(region + w.clv) + lane;
+    else
+      cv = a.scratch + static_cast<int64_t>(u) * w.slots * C * kLanes + lane;
+
+    // prologue 1: the schedule and both children's branch lengths, one
+    // level per lane (the parent of a scheduled child is the level's
+    // node).  Everything the locus needs from device memory is asked for
+    // here, in as few dependent rounds as the indices allow; the levels
+    // past n_seq - 1 are read too (they are padding, never walked, and
+    // may hold anything), so that the schedule's reads do not wait for
+    // n_seq.  The clamps are for those padding levels: whatever node one
+    // names, and whatever that node's child entries hold, every index stays
+    // inside the arrays and the warp's region.  The real levels need none:
+    // the schedule names each inner node once, children before parents,
+    // and 0 <= n_seq <= T (the batch's tip capacity is its largest locus).
+    const int nlev = static_cast<int>(a.n_seq[l]) - 1;
+    const float mu = a.blen != nullptr ? 1.0f : a.mu[l];
+    const float* len = (a.blen != nullptr ? a.blen : a.age) + l * N;
+    const float* fq = a.freqs + l * 4;
+    const float f0 = fq[0], f1 = fq[1], f2 = fq[2], f3 = fq[3];
+    Coefs<FAM> cf;
+    cf.load(a, l, C);
+    const float my_rate = lane < C ? a.rates[l * (C + 2) + lane] : 0.0f;
+    const int64_t* order = a.order + l * (T - 1);
+    const int64_t* left = a.left + l * N;
+    const int64_t* right = a.right + l * N;
+    for (int k = lane; k < T - 1; k += kLanes) {
+      int node = static_cast<int>(order[k]);
+      node = node < T ? T : (node >= N ? N - 1 : node);
+      int lc = static_cast<int>(left[node]);
+      int rc = static_cast<int>(right[node]);
+      lc = lc < 0 ? 0 : (lc >= N ? N - 1 : lc);
+      rc = rc < 0 ? 0 : (rc >= N ? N - 1 : rc);
+      float tl = len[lc], tr = len[rc];
+      if (a.blen == nullptr) {
+        const float an = len[node];
+        tl = fmaxf(an - tl, 0.0f) * mu;
+        tr = fmaxf(an - tr, 0.0f) * mu;
       }
-      m = fmaxf(m, kTiny);
-      for (int c = 0; c < C; ++c) {
-        y[c] = div4(y[c], m);
-        scr[((node - T) * C + c) * S + s] = y[c];
-        root[c] = y[c];
-      }
-      logscale += logf(m);
+      srcL[k] = static_cast<short>(lc);
+      srcR[k] = static_cast<short>(rc);
+      dst[k] = static_cast<short>(node);
+      // down the chain: the left inner child, else the right, else itself
+      // (a padding level that names a real node writes what its level does)
+      down[node - T] =
+          static_cast<short>((lc >= T ? lc : (rc >= T ? rc : node)) - T);
+      chain[k] = 0;
+      bl[2 * k] = tl;
+      bl[2 * k + 1] = tr;
     }
-    float lik = 0.0f;
-    for (int c = 0; c < C; ++c)
-      lik += (1.0f / C) * (f0 * root[c].x + f1 * root[c].y +
-                           f2 * root[c].z + f3 * root[c].w);
-    return logf(fmaxf(lik, kTiny)) + logscale;
+    if (lane < C) rate[lane] = my_rate;
+    cf.prepare();
+    __syncwarp();
+
+    // prologue 2: node ids become CLV slots (a child source >= 0 is a tip,
+    // < 0 is slot -1 - source).  Every inner node points down its chain
+    // (prologue 1); the chains' bottoms, which have two tips below them,
+    // are numbered in schedule order; pointer jumping takes every node to
+    // its bottom in log2 rounds; a node's slot is its bottom's number.
+    int n_chains = 0;
+    for (int base = 0; base < nlev; base += kLanes) {
+      const int k = base + lane;
+      const bool bottom = k < nlev && srcL[k] < T && srcR[k] < T;
+      const unsigned mask = __ballot_sync(0xffffffffu, bottom);
+      if (bottom) {
+        // a tree of n_seq tips has at most floor(n_seq / 2) bottoms
+        chain[dst[k] - T] = static_cast<short>(
+            n_chains + __popc(mask & ((1u << lane) - 1u)));
+      }
+      n_chains += __popc(mask);
+    }
+    for (int span = 1; span < nlev; span <<= 1) {
+      for (int base = 0; base < T - 1; base += kLanes) {
+        const int j = base + lane;
+        const int v = j < T - 1 ? down[inner(down[j], T)] : 0;
+        __syncwarp();
+        if (j < T - 1) down[j] = static_cast<short>(v);
+        __syncwarp();
+      }
+    }
+    __syncwarp();
+    for (int k = lane; k < nlev; k += kLanes) {
+      const int lc = srcL[k], rc = srcR[k];
+      if (lc >= T)
+        srcL[k] = static_cast<short>(-1 - chain[inner(down[lc - T], T)]);
+      if (rc >= T)
+        srcR[k] = static_cast<short>(-1 - chain[inner(down[rc - T], T)]);
+      dst[k] = chain[inner(down[dst[k] - T], T)];
+    }
+    // the K factors of one (level, child, category) per lane and round:
+    // K independent expm1 chains, stored once all are there
+    for (int p = lane; p < 2 * nlev * C; p += kLanes) {
+      float e[K];
+      cf.factors(bl[p / C] * rate[p % C], e);
+      for (int f = 0; f < K; ++f) fac[p * K + f] = e[f];
+    }
+    __syncwarp();
+
+    float value = 0.0f;
+    if (active) {
+      // A level's plan entry and tip children are read two levels before
+      // it is walked, so that a tip's fetch from device memory overlaps
+      // two levels and the plan is never waited for.
+      const float4 tip0 = tp[0];
+      float4 a0 = tip0, b0 = tip0, a1 = tip0, b1 = tip0;
+      int sl0 = 0, sr0 = 0, sl1 = 0, sr1 = 0;
+      if (0 < nlev) {
+        sl0 = srcL[0];
+        sr0 = srcR[0];
+        fetch_tips(tp, S, sl0, sr0, &a0, &b0);
+      }
+      if (1 < nlev) {
+        sl1 = srcL[1];
+        sr1 = srcR[1];
+        fetch_tips(tp, S, sl1, sr1, &a1, &b1);
+      }
+      float4 y[C];
+      for (int c = 0; c < C; ++c) y[c] = tip0;   // single-sequence locus
+      // the scale factors are multiplied up and their log is taken when
+      // the product nears the bottom of float32's range, and at the root
+      float logscale = 0.0f, scale = 1.0f;
+      for (int k = 0; k < nlev; ++k) {
+        const int sl = sl0, sr = sr0;
+        const float4 ta = a0, tb = b0;
+        sl0 = sl1;
+        sr0 = sr1;
+        a0 = a1;
+        b0 = b1;
+        if (k + 2 < nlev) {
+          sl1 = srcL[k + 2];
+          sr1 = srcR[k + 2];
+          fetch_tips(tp, S, sl1, sr1, &a1, &b1);
+        }
+        const int d = dst[k];
+        const float* eL = fac + 2 * k * C * K;
+        const float* eR = eL + C * K;
+        float m = 0.0f;
+        for (int c = 0; c < C; ++c) {
+          const float4 xl = sl >= 0 ? ta : cv[((-1 - sl) * C + c) * kLanes];
+          const float4 xr = sr >= 0 ? tb : cv[((-1 - sr) * C + c) * kLanes];
+          y[c] = mul4(cf.apply(xl, eL + c * K), cf.apply(xr, eR + c * K));
+          m = fmaxf(m, max4(y[c]));
+        }
+        m = fmaxf(m, kTiny);
+        const float inv = __frcp_rn(m);   // one reciprocal a level, not 4 C
+        for (int c = 0; c < C; ++c) y[c] = scale4(y[c], inv);
+        if (k + 1 < nlev)
+          for (int c = 0; c < C; ++c) cv[(d * C + c) * kLanes] = y[c];
+        const float sm = scale * m;
+        if (sm < 1e-25f) {
+          logscale += logf(scale) + logf(m);
+          scale = 1.0f;
+        } else {
+          scale = sm;
+        }
+      }
+      float lik = 0.0f;
+      for (int c = 0; c < C; ++c)
+        lik += (1.0f / C) * (f0 * y[c].x + f1 * y[c].y + f2 * y[c].z +
+                             f3 * y[c].w);
+      value = logf(fmaxf(lik, kTiny)) + (logscale + logf(scale));
+    }
+    return value;
+  }
+
+  // an index into the T - 1 inner nodes, clamped: an inner node that no
+  // level names (a locus of fewer than T tips) has no `down` entry written
+  static __device__ __forceinline__ int inner(int j, int T) {
+    return j < 0 ? 0 : (j > T - 2 ? T - 2 : j);
+  }
+
+  // the tip children of one level (a source >= 0) from this lane's column
+  static __device__ __forceinline__ void fetch_tips(const float4* tp, int S,
+                                                    int sl, int sr,
+                                                    float4* xa, float4* xb) {
+    if (sl >= 0) *xa = tp[static_cast<int64_t>(sl) * S];
+    if (sr >= 0) *xb = tp[static_cast<int64_t>(sr) * S];
   }
 };
 
-// Run `Launch<FAM, C>::run(args...)` for the runtime family and category
-// count; -1 for a combination the kernels do not take.
-constexpr int kMaxCats = 8;
-
-template <template <int, int> class Launch, int FAM, typename... A>
+// Run `Launch<FAM, C, SHARED>::run(args...)` (an int: 0 or a cudaError)
+// for the runtime family, category count and CLV store; -1 for a
+// combination the kernels do not take.
+template <template <int, int, bool> class Launch, int FAM, bool SHARED,
+          typename... A>
 int dispatch_cats(int C, A&&... args) {
   switch (C) {
-    case 1: Launch<FAM, 1>::run(args...); break;
-    case 2: Launch<FAM, 2>::run(args...); break;
-    case 3: Launch<FAM, 3>::run(args...); break;
-    case 4: Launch<FAM, 4>::run(args...); break;
-    case 5: Launch<FAM, 5>::run(args...); break;
-    case 6: Launch<FAM, 6>::run(args...); break;
-    case 7: Launch<FAM, 7>::run(args...); break;
-    case 8: Launch<FAM, 8>::run(args...); break;
+    case 1: return Launch<FAM, 1, SHARED>::run(args...);
+    case 2: return Launch<FAM, 2, SHARED>::run(args...);
+    case 3: return Launch<FAM, 3, SHARED>::run(args...);
+    case 4: return Launch<FAM, 4, SHARED>::run(args...);
+    case 5: return Launch<FAM, 5, SHARED>::run(args...);
+    case 6: return Launch<FAM, 6, SHARED>::run(args...);
+    case 7: return Launch<FAM, 7, SHARED>::run(args...);
+    case 8: return Launch<FAM, 8, SHARED>::run(args...);
     default: return -1;
   }
+}
+
+template <template <int, int, bool> class Launch, bool SHARED, typename... A>
+int dispatch_family(int fam, int C, A&&... args) {
+  switch (fam) {
+    case FAM_JC69:
+      return dispatch_cats<Launch, FAM_JC69, SHARED>(C, args...);
+    case FAM_TN93:
+      return dispatch_cats<Launch, FAM_TN93, SHARED>(C, args...);
+    case FAM_GTR:
+      return dispatch_cats<Launch, FAM_GTR, SHARED>(C, args...);
+    default: return -1;
+  }
+}
+
+template <template <int, int, bool> class Launch, typename... A>
+int dispatch(int fam, int C, bool shared, A&&... args) {
+  return shared ? dispatch_family<Launch, true>(fam, C, args...)
+                : dispatch_family<Launch, false>(fam, C, args...);
+}
+
+// Dynamic shared memory of a block of `threads` for this tree size.
+inline long long block_shared_bytes(int T, int C, int fam, bool shared,
+                                    int threads) {
+  return warp_layout(T, C, family_factors(fam), shared).bytes *
+         (threads / kLanes);
+}
+
+// Raise a kernel's dynamic shared memory limit to `bytes` where that is
+// above `*allowed` (48 KB until raised); 0 or the cudaError.
+template <typename Kernel>
+int allow_shared(Kernel kernel, long long bytes, long long* allowed) {
+  if (bytes <= *allowed) return 0;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (e != cudaSuccess) {
+    cudaGetLastError();   // reported here, not by the next launch
+    return static_cast<int>(e);
+  }
+  *allowed = bytes;
   return 0;
 }
 
-template <template <int, int> class Launch, typename... A>
-int dispatch(int fam, int C, A&&... args) {
-  switch (fam) {
-    case FAM_JC69: return dispatch_cats<Launch, FAM_JC69>(C, args...);
-    case FAM_TN93: return dispatch_cats<Launch, FAM_TN93>(C, args...);
-    case FAM_GTR: return dispatch_cats<Launch, FAM_GTR>(C, args...);
-    default: return -1;
-  }
-}
-
-inline TreeArgs tree_args(const void* tips, const void* efac,
-                          const void* coefs, const void* eigT,
-                          const void* eigTi, const void* freqs,
-                          const void* order, const void* left,
-                          const void* right, const void* n_seq,
-                          void* scratch, int T, int S) {
+inline TreeArgs tree_args(const void* tips, const void* age,
+                          const void* blen, const void* mu,
+                          const void* rates, const void* freqs,
+                          const void* eigw, const void* eigT,
+                          const void* eigTi, const void* order,
+                          const void* left, const void* right,
+                          const void* n_seq, const void* units,
+                          void* scratch, int T, int S, int U) {
   TreeArgs a;
   a.tips = static_cast<const float4*>(tips);
-  a.efac = static_cast<const float*>(efac);
-  a.coefs = static_cast<const float*>(coefs);
+  a.age = static_cast<const float*>(age);
+  a.blen = static_cast<const float*>(blen);
+  a.mu = static_cast<const float*>(mu);
+  a.rates = static_cast<const float*>(rates);
+  a.freqs = static_cast<const float*>(freqs);
+  a.eigw = static_cast<const float*>(eigw);
   a.eigT = static_cast<const float*>(eigT);
   a.eigTi = static_cast<const float*>(eigTi);
-  a.freqs = static_cast<const float*>(freqs);
   a.order = static_cast<const int64_t*>(order);
   a.left = static_cast<const int64_t*>(left);
   a.right = static_cast<const int64_t*>(right);
   a.n_seq = static_cast<const int64_t*>(n_seq);
+  a.units = static_cast<const int4*>(units);
   a.scratch = static_cast<float4*>(scratch);
   a.T = T;
   a.S = S;
+  a.U = U;
   return a;
 }
 

@@ -7,29 +7,35 @@
 // (launched by `site_logl_pallas`).  It computes what K2 computes, not
 // K2's layout: there each grid cell was one (locus, 128-pattern tile)
 // holding the whole CLV table in the core's fast memory, with A-major
-// tips padded to 128 lanes; here there are no tiles and no padding of
-// the pattern axis.
+// tips padded to 128 lanes and the exponential factors precomputed by a
+// separate elementwise pass.
 //
-// Design (first, simple version):
-//   * one thread per (locus, pattern); a block is 128 neighbouring
-//     patterns of one locus, the grid is L * ceil(S / 128) blocks;
-//   * a thread walks its pattern up the locus's gene tree with
-//     `Locus::site_logl` of contract.cuh, shared with kernel K1
-//     (pack_kernel.cu): children by node id, CLVs as float4 in a global
-//     scratch [L, T-1, C, S], P(t)·x by model family from expm1 factors,
-//     a rescale at every level, levels k >= n_seq - 1 skipped, a
-//     one-sequence locus rooted at tip 0;
-//   * patterns s >= n_pat[l] write exactly 0 and do no work; a block
-//     whose 128 patterns all lie past n_pat[l] returns after its store.
+// What bounds it on an H100: bytes.  A pass must read each real tip
+// partial once (16 B per tip and pattern: ~20 MB at 1000 loci of 16 tips
+// and ~79 real patterns) and write 4 B per column of [L, S]; the
+// operations take less time than that.  What it costs beyond the bound is
+// latency (T-1 dependent levels per pattern) and, with 4 or more rate
+// categories, instruction throughput at the few warps an SM then holds.
 //
-// What bounds it on an H100: a pass reads the tip partials once (16 B
-// per tip and pattern) and writes 4 B per pattern, a few tens of MB at
-// 1000 loci of 16 tips and some hundreds of patterns, so the byte bound
-// is tens of microseconds and the operation bound is below it.  This
-// version also writes and re-reads every inner CLV through the scratch
-// (16 B x C per inner node and pattern, several times the tips), so its
-// own traffic, not the function's, sets its time.  Keeping the CLVs of a
-// pattern in registers or shared memory is later work.
+// Design, with the device code of contract.cuh (shared with K1):
+//   * one warp per unit = (locus, chunk of up to 32 real patterns), from
+//     the unit table of core/units.py; a block is 2, 4 or 8 consecutive
+//     units, so no lane is launched on the padded part of the pattern
+//     axis;
+//   * the warp computes its locus's branch lengths, expm1 factors and CLV
+//     slot plan into shared memory, keeps its patterns' CLVs in shared
+//     memory (SHARED store) or in a device scratch (for trees whose CLVs
+//     do not fit in 227 KB), reads each tip once two levels ahead of its
+//     use, and walks the tree;
+//   * lanes of real patterns write their value; the last unit of a locus
+//     also writes exactly 0 to every column s >= n_pat[l], so the whole
+//     [L, S] output is written by the kernel (every locus has at least
+//     one unit, with no real pattern when n_pat[l] = 0).
+//
+// Shared memory per block: warps x the per-warp bytes listed in
+// contract.cuh; at T = 16 and 64 threads, the wrapper's block size, about
+// 9 KB (C = 1), 35 KB (C = 4, HKY: six blocks an SM) and 70 KB (C = 8:
+// three).
 //
 // C interface (built with nvcc into a shared library, loaded by ctypes
 // from bpp_tpu_torch/core/fels.py): bpp_fels_site_logl returns the value
@@ -41,32 +47,36 @@ namespace {
 
 using namespace bpp;
 
-constexpr int kThreads = 128;
-
-template <int FAM, int C>
-__global__ void fels_site_logl_kernel(TreeArgs a, const int64_t* n_pat,
-                                      float* out) {
-  const int tiles = (a.S + kThreads - 1) / kThreads;
-  const int64_t l = blockIdx.x / tiles;
-  const int s = (blockIdx.x % tiles) * kThreads + threadIdx.x;
-  if (s >= a.S) return;
-  float* dst = out + l * a.S + s;
-  if (s >= n_pat[l]) {
-    *dst = 0.0f;
-    return;
-  }
-  Locus<FAM, C> loc;
-  loc.load(a, l);
-  *dst = loc.site_logl(s);
+template <int FAM, int C, bool SHARED>
+__global__ void fels_site_logl_kernel(TreeArgs a, float* out) {
+  extern __shared__ __align__(16) unsigned char block_state[];
+  const int lane = threadIdx.x & (kLanes - 1);
+  const int warp = threadIdx.x / kLanes;
+  const int u = blockIdx.x * (blockDim.x / kLanes) + warp;
+  if (u >= a.U) return;
+  const int4 unit = a.units[u];
+  const long long stride =
+      warp_layout(a.T, C, Coefs<FAM>::K, SHARED).bytes;
+  const float v = UnitWalk<FAM, C, SHARED>::run(
+      a, block_state + warp * stride, u, unit, lane);
+  float* row = out + static_cast<int64_t>(unit.x) * a.S;
+  if (lane < unit.z) row[unit.y + lane] = v;
+  if (unit.w)
+    for (int s = unit.y + unit.z + lane; s < a.S; s += kLanes) row[s] = 0.0f;
 }
 
-template <int FAM, int C>
+template <int FAM, int C, bool SHARED>
 struct Launch {
-  static void run(const TreeArgs& a, const int64_t* n_pat, float* out, int L,
-                  cudaStream_t st) {
-    const int tiles = (a.S + kThreads - 1) / kThreads;
-    fels_site_logl_kernel<FAM, C><<<L * tiles, kThreads, 0, st>>>(a, n_pat,
-                                                                 out);
+  static int run(const TreeArgs& a, float* out, int threads,
+                 long long shared_bytes, cudaStream_t st) {
+    static long long allowed = 48 * 1024;
+    const int rc = allow_shared(fels_site_logl_kernel<FAM, C, SHARED>, shared_bytes,
+                                &allowed);
+    if (rc != 0) return rc;
+    const int warps = threads / kLanes;
+    fels_site_logl_kernel<FAM, C, SHARED>
+        <<<(a.U + warps - 1) / warps, threads, shared_bytes, st>>>(a, out);
+    return 0;
   }
 };
 
@@ -74,18 +84,29 @@ struct Launch {
 
 extern "C" int bpp_fels_max_cats() { return bpp::kMaxCats; }
 
+// Shared memory one warp needs for this tree size under either store.
+extern "C" long long bpp_fels_warp_bytes(int T, int C, int fam, int shared) {
+  return bpp::block_shared_bytes(T, C, fam, shared != 0, bpp::kLanes);
+}
+
 extern "C" int bpp_fels_site_logl(
-    const void* tips, const void* efac, const void* coefs, const void* eigT,
-    const void* eigTi, const void* freqs, const void* order,
-    const void* left, const void* right, const void* n_seq,
-    const void* n_pat, void* scratch, void* out, int L, int T, int S, int C,
-    int fam, void* stream) {
-  if (L <= 0 || S <= 0) return 0;
-  const TreeArgs a = tree_args(tips, efac, coefs, eigT, eigTi, freqs, order,
-                               left, right, n_seq, scratch, T, S);
-  const int rc = dispatch<Launch>(
-      fam, C, a, static_cast<const int64_t*>(n_pat),
-      static_cast<float*>(out), L, static_cast<cudaStream_t>(stream));
+    const void* tips, const void* age, const void* blen, const void* mu,
+    const void* rates, const void* freqs, const void* eigw, const void* eigT,
+    const void* eigTi, const void* order, const void* left,
+    const void* right, const void* n_seq, const void* units, void* scratch,
+    void* out, int T, int S, int U, int C, int fam, int shared, int threads,
+    void* stream) {
+  if (U <= 0 || S <= 0) return 0;
+  const TreeArgs a = tree_args(tips, age, blen, mu, rates, freqs, eigw, eigT,
+                               eigTi, order, left, right, n_seq, units,
+                               scratch, T, S, U);
+  const long long bytes =
+      block_shared_bytes(T, C, fam, shared != 0, threads);
+  if (threads < kLanes || threads % kLanes || bytes > kMaxBlockShared)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int rc = dispatch<Launch>(fam, C, shared != 0, a,
+                                  static_cast<float*>(out), threads, bytes,
+                                  static_cast<cudaStream_t>(stream));
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,31 +6,38 @@
 // sublane rolls and one-hot level-slot select chains existed for the
 // TPU's vector registers and are gone.
 //
-// Design (first, simple version):
-//   * one block per locus, one thread per site pattern (a thread loops
-//     over patterns when a locus has more than the block holds);
-//   * a thread walks its pattern up the locus's gene tree with
-//     `Locus::site_logl` of contract.cuh, which this kernel shares with
-//     the per-pattern kernel K2 (fels_kernel.cu): children by node id,
-//     CLVs as float4 in a global scratch, P(t)·x by model family from
-//     expm1 factors, a rescale at every level;
-//   * the site value is weighted by the pattern count and summed per
-//     locus in the same block by a fixed-order tree reduction (in
-//     double): a flat per-locus sum, no floating-point atomics, so a
-//     chain is reproducible.
+// What bounds it on an H100: bytes (each real tip partial once: ~6 MB at
+// 1000 loci of 16 tips and ~21 real patterns, a few microseconds), and in
+// practice latency: the whole pass is one wave of about 1000 warps, each a
+// chain of table, schedule and tip reads and T-1 dependent levels.
 //
-// What bounds it on an H100: at the bench shapes (1000 loci, 16 tips,
-// 32 patterns) one pass moves ~9 MB (the tip partials dominate) and does
-// a few MFLOP, so the byte bound is a few microseconds.  The kernel is
-// bound by latency instead: each thread runs 15 dependent levels, each
-// waiting on two child reads from L2 (the 16 MB scratch stays in the
-// 50 MB L2), and 1000 one-warp blocks fill a small share of the card's
-// warp slots.  Packing several loci per block and keeping the CLVs in
-// shared memory or registers is later work.
+// Design, with the device code of contract.cuh (shared with K2):
+//   * one warp per unit = (locus, chunk of up to 32 real patterns); the
+//     warp computes its locus's branch lengths, expm1 factors and CLV
+//     slot plan into shared memory, keeps its patterns' CLVs there
+//     (SHARED store; a device scratch for trees whose CLVs do not fit in
+//     227 KB), reads each tip once two levels ahead of its use, and walks
+//     the tree;
+//   * a block is 2, 4 or 8 warps and owns a run of whole loci (a table
+//     from core/units.py: units u0..u1 of loci l0..l1), so several small
+//     loci share a block and a locus never spans two; a locus with more
+//     units than the block has warps is walked in rounds;
+//   * the per-locus sum stays flat, ordered and in double, without
+//     floating-point atomics: a lane's weight x value is reduced over the
+//     warp by a fixed shuffle tree, the unit's partial goes to shared
+//     memory, and the thread that owns a locus adds its units' partials
+//     in unit order, round after round.  The result does not depend on
+//     the block size or the CLV store, and a chain is reproducible run to
+//     run.
+//
+// Shared memory per block: warps x the per-warp bytes listed in
+// contract.cuh, plus 256 B of partials; at T = 16 and 64 threads, the
+// wrapper's block size, about 9 KB (C = 1), 35 KB (C = 4) and 70 KB (C = 8).
 //
 // C interface (built with nvcc into a shared library, loaded by ctypes
 // from bpp_tpu_torch/core/pack.py): bpp_pack_logl returns the value of
-// cudaGetLastError() right after the launch.
+// cudaGetLastError() right after the launch.  bpp_pack_empty launches a
+// kernel that does nothing, for timing the launch floor beside K1.
 
 #include "contract.cuh"
 
@@ -38,46 +45,74 @@ namespace {
 
 using namespace bpp;
 
+constexpr int kMaxWarps = 32;
+
 __device__ __forceinline__ double warp_sum(double v) {
   for (int off = 16; off > 0; off >>= 1)
     v += __shfl_down_sync(0xffffffffu, v, off);
   return v;
 }
 
-template <int FAM, int C>
+template <int FAM, int C, bool SHARED>
 __global__ void pack_logl_kernel(TreeArgs a, const float* weights, int W,
+                                 const int4* blocks, const int* locus_unit0,
                                  float* out) {
-  const int64_t l = blockIdx.x;
-  Locus<FAM, C> loc;
-  loc.load(a, l);
+  extern __shared__ __align__(16) unsigned char block_state[];
+  __shared__ double part[kMaxWarps];
+  const int lane = threadIdx.x & (kLanes - 1);
+  const int warp = threadIdx.x / kLanes;
+  const int warps = blockDim.x / kLanes;
+  const int4 blk = blocks[blockIdx.x];     // units u0..u1 of loci l0..l1
+  const int u1 = blk.y;
+  const long long stride =
+      warp_layout(a.T, C, Coefs<FAM>::K, SHARED).bytes;
 
+  // the locus this thread sums: its units are ulo..uhi
+  const int l = blk.z + threadIdx.x;
+  const bool owner = l < blk.w;
+  const int ulo = owner ? locus_unit0[l] : 0;
+  const int uhi = owner ? locus_unit0[l + 1] : 0;
   double acc = 0.0;
-  for (int s = threadIdx.x; s < a.S; s += blockDim.x) {
-    const float site = loc.site_logl(s);
-    const float w = s < W ? weights[l * W + s] : 0.0f;
-    acc += static_cast<double>(w) * static_cast<double>(site);
-  }
 
-  // fixed-order block reduction: warp shuffles, then one warp over the
-  // per-warp partials
-  __shared__ double part[32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  acc = warp_sum(acc);
-  if (lane == 0) part[warp] = acc;
-  __syncthreads();
-  if (warp == 0) {
-    const int nw = (blockDim.x + 31) >> 5;
-    double v = lane < nw ? part[lane] : 0.0;
-    v = warp_sum(v);
-    if (lane == 0) out[l] = static_cast<float>(v);
+  for (int base = blk.x; base < u1; base += warps) {
+    const int u = base + warp;
+    if (u < u1) {
+      const int4 unit = a.units[u];
+      // asked for before the walk, so that it does not wait after it
+      const int s = unit.y + lane;
+      const float w = (lane < unit.z && s < W)
+                          ? weights[static_cast<int64_t>(unit.x) * W + s]
+                          : 0.0f;
+      const float site = UnitWalk<FAM, C, SHARED>::run(
+          a, block_state + warp * stride, u, unit, lane);
+      const double p =
+          warp_sum(static_cast<double>(w) * static_cast<double>(site));
+      if (lane == 0) part[warp] = p;
+    }
+    __syncthreads();
+    const int lo = ulo > base ? ulo : base;
+    const int hi = uhi < base + warps ? uhi : base + warps;
+    for (int v = lo; v < hi; ++v) acc += part[v - base];
+    __syncthreads();
   }
+  if (owner) out[l] = static_cast<float>(acc);
 }
 
-template <int FAM, int C>
+__global__ void empty_kernel() {}
+
+template <int FAM, int C, bool SHARED>
 struct Launch {
-  static void run(const TreeArgs& a, const float* weights, int W, float* out,
-                  int L, int threads, cudaStream_t st) {
-    pack_logl_kernel<FAM, C><<<L, threads, 0, st>>>(a, weights, W, out);
+  static int run(const TreeArgs& a, const float* weights, int W,
+                 const int4* blocks, const int* locus_unit0, float* out,
+                 int B, int threads, long long shared_bytes,
+                 cudaStream_t st) {
+    static long long allowed = 48 * 1024;
+    const int rc = allow_shared(pack_logl_kernel<FAM, C, SHARED>, shared_bytes,
+                                &allowed);
+    if (rc != 0) return rc;
+    pack_logl_kernel<FAM, C, SHARED><<<B, threads, shared_bytes, st>>>(
+        a, weights, W, blocks, locus_unit0, out);
+    return 0;
   }
 };
 
@@ -85,21 +120,38 @@ struct Launch {
 
 extern "C" int bpp_pack_max_cats() { return bpp::kMaxCats; }
 
+// Shared memory one warp needs for this tree size under either store.
+extern "C" long long bpp_pack_warp_bytes(int T, int C, int fam, int shared) {
+  return bpp::block_shared_bytes(T, C, fam, shared != 0, bpp::kLanes);
+}
+
+extern "C" int bpp_pack_empty(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" int bpp_pack_logl(
-    const void* tips, const void* efac, const void* coefs, const void* eigT,
-    const void* eigTi, const void* freqs, const void* weights,
-    const void* order, const void* left, const void* right,
-    const void* n_seq, void* scratch, void* out, int L, int T, int S, int W,
-    int C, int fam, void* stream) {
-  if (L <= 0) return 0;
-  const TreeArgs a = tree_args(tips, efac, coefs, eigT, eigTi, freqs, order,
-                               left, right, n_seq, scratch, T, S);
-  int threads = ((S + 31) / 32) * 32;
-  if (threads > 256) threads = 256;
-  if (threads < 32) threads = 32;
+    const void* tips, const void* age, const void* blen, const void* mu,
+    const void* rates, const void* freqs, const void* eigw, const void* eigT,
+    const void* eigTi, const void* order, const void* left,
+    const void* right, const void* n_seq, const void* units, void* scratch,
+    const void* weights, const void* blocks, const void* locus_unit0,
+    void* out, int T, int S, int U, int W, int B, int C, int fam, int shared,
+    int threads, void* stream) {
+  if (B <= 0) return 0;
+  const TreeArgs a = tree_args(tips, age, blen, mu, rates, freqs, eigw, eigT,
+                               eigTi, order, left, right, n_seq, units,
+                               scratch, T, S, U);
+  const long long bytes =
+      block_shared_bytes(T, C, fam, shared != 0, threads);
+  if (threads < kLanes || threads % kLanes ||
+      threads > kMaxWarps * kLanes ||
+      bytes + kMaxWarps * 8 > kMaxBlockShared)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
   const int rc = dispatch<Launch>(
-      fam, C, a, static_cast<const float*>(weights), W,
-      static_cast<float*>(out), L, threads,
+      fam, C, shared != 0, a, static_cast<const float*>(weights), W,
+      static_cast<const int4*>(blocks), static_cast<const int*>(locus_unit0),
+      static_cast<float*>(out), B, threads, bytes,
       static_cast<cudaStream_t>(stream));
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());

@@ -23,6 +23,7 @@ import torch
 from ..config import BppConfig, Clock, PriorDist, SubstModel
 from ..core import felsenstein as fe
 from ..core.gammarates import discrete_gamma_rates
+from ..core.units import Units
 from ..loader import RunData, init_tau_theta
 from ..trees.gtree import init_gtrees, species_arrays
 from . import clock_moves, moves, subst_moves
@@ -202,6 +203,13 @@ class Engine:
                 "float64 on the GPU: the pruning kernel is float32 only "
                 "(an f64 kernel is on the ROADMAP)")
         batch = run.batch
+        # static data, checked once: the pruning kernels walk n_seq - 1
+        # levels of a tree of at most tip_codes.shape[1] tips unchecked
+        n_seq = np.asarray(batch.n_seq)
+        if n_seq.min() < 0 or n_seq.max() > batch.tip_codes.shape[1]:
+            raise ValueError(
+                f"n_seq spans {n_seq.min()}..{n_seq.max()}; the batch holds "
+                f"{batch.tip_codes.shape[1]} tips a locus")
         # non-diploid batches carry an identity resolution map (one
         # column per weight pattern): drop it, so that they take the
         # per-locus kernel K1; any other map sends the whole batch through
@@ -225,6 +233,8 @@ class Engine:
             res_map=None if rm is None else t(rm, torch.int64),
             res_count=None if rcnt is None else t(rcnt, torch.int64),
             n_pat=t(batch.n_pat, torch.int64),
+            units=Units(batch.n_pat, batch.max_patterns, dev)
+            if dev.type == "cuda" else None,
         )
         self._logl_fn = make_logl_fn(self.ctx, cfg)
         self._logpr_fn = make_logpr_fn(self.ctx)

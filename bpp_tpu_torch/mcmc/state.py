@@ -18,6 +18,7 @@ from ..core import felsenstein as fe
 from ..core.fels import site_logl_fels
 from ..core.pack import site_logl_packed
 from ..core.pmatrix import gtr_eigen, pmatrix_model
+from ..core.units import Units
 from ..trees import coalescent as coal
 from ..trees.gtree import (
     BIG_AGE, GTrees, SpeciesArrays, assign_populations, inner_order,
@@ -121,6 +122,8 @@ class Ctx:
     res_map: torch.Tensor | None = None     # [L, W, R] int64
     res_count: torch.Tensor | None = None   # [L, W] int64
     n_pat: torch.Tensor | None = None       # [L] int64 likelihood patterns
+    # the pruning kernels' static unit table (CUDA runs only)
+    units: Units | None = None
 
 
 def compute_pmats(gt: GTrees, subst: SubstState, model: SubstModel,
@@ -157,10 +160,10 @@ def make_logl_fn(ctx: Ctx, cfg: BppConfig):
         n_cats = subst.rates.shape[1]
         if ctx.res_map is None:
             ll = site_logl_packed(*tree, ctx.weights, model=model,
-                                  n_cats=n_cats)
+                                  n_cats=n_cats, units=ctx.units)
         else:
             site = site_logl_fels(*tree, model=model, n_cats=n_cats,
-                                  n_pat=ctx.n_pat)
+                                  n_pat=ctx.n_pat, units=ctx.units)
             ll = fe.reduce_root(site.to(ctx.weights.dtype), ctx.weights,
                                 ctx.res_map, ctx.res_count)
         if bfbeta != 1.0:

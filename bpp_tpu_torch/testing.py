@@ -203,3 +203,52 @@ def fixed_subst(model_name: str, n_cats: int, L: int, dtype, device="cpu"):
         eigTi=full((L, 4, 4), 0.0))
     subst = refresh_eigen(subst, model)
     return model, type(subst)(*(x.to(dtype).contiguous() for x in subst))
+
+
+def shaped_batch(n_tips: int = 16, n_cols: int = 200, seed: int = 0,
+                 dtype=torch.float32, device="cpu"):
+    """A batch of fixed gene trees that simulated data lacks: for every
+    sequence count 1..``n_tips`` one caterpillar and one balanced tree in
+    a capacity of ``n_tips`` tips, with pattern counts that run through 0,
+    1, 31, 32, 33, 130 and ``n_cols``.
+
+    Returns ``(gt, n_seq [L], n_pat [L], tips [L, T, S, 4], weights
+    [L, S])``; columns past ``n_pat`` are all-ambiguous with weight 0."""
+    from .trees.gtree import BIG_AGE, GTrees
+
+    rng = np.random.default_rng(seed)
+    T, N, S = n_tips, 2 * n_tips - 1, n_cols
+    L = 2 * T
+    left = np.zeros((L, N), np.int64)
+    right = np.zeros((L, N), np.int64)
+    parent = np.full((L, N), -1, np.int64)
+    age = np.zeros((L, N))
+    age[:, T:] = BIG_AGE
+    n_seq = np.repeat(np.arange(1, T + 1), 2)
+    counts = [0, 1, 31, 32, 33, 130, S, 7]
+    n_pat = np.asarray([counts[i % len(counts)] for i in range(L)])
+    for l in range(L):
+        roots = list(range(n_seq[l]))
+        for k in range(n_seq[l] - 1):
+            # even loci: join the newest node with the next tip; odd
+            # loci: join the two oldest roots
+            a, b = (roots[-1], roots[0]) if l % 2 == 0 and k else roots[:2]
+            node = T + k
+            left[l, node], right[l, node] = a, b
+            parent[l, a] = parent[l, b] = node
+            age[l, node] = 0.002 * (k + 1 + 0.5 * rng.random())
+            roots = [r for r in roots if r not in (a, b)] + [node]
+    codes = rng.choice(np.array([1, 2, 4, 8, 15]), size=(L, T, S),
+                       p=[0.24, 0.24, 0.24, 0.24, 0.04])
+    live = np.arange(S) < n_pat[:, None]
+    codes = np.where(live[:, None, :], codes, 15)
+    tips = ((codes[..., None] >> np.arange(4)) & 1).astype(np.float64)
+    weights = np.where(live, rng.integers(1, 30, size=(L, S)), 0)
+
+    def t(a, dt):
+        return torch.as_tensor(a, dtype=dt, device=device)
+
+    gt = GTrees(t(left, torch.int64), t(right, torch.int64),
+                t(parent, torch.int64), t(age, dtype))
+    return (gt, t(n_seq, torch.int64), t(n_pat, torch.int64),
+            t(tips, dtype), t(weights, dtype))

@@ -14,12 +14,18 @@ Phases, in order; any failure exits non-zero:
 4. kernel 1 — on gene trees from the JC69 engine, K1 (float32) is held
               against its plain PyTorch version (float64, on the card)
               for JC69, HKY+G4, TN93 and GTR+G4 (max per-locus |dlnL| <
-              0.02); K1's device time comes from a torch.profiler
-              trace (median of 30 launches), and one launch, the whole
-              wrapper (factors + launch) and the plain version (float32)
-              from CUDA events (median of 30 / 30 / 20 after warm-up);
-              a profiler trace of 3 engine iterations gives the device
-              kernels, busy time and idle share per iteration;
+              0.02), under both CLV stores (shared memory, which the
+              wrapper picks at these shapes, and the device scratch,
+              forced); K1's device time comes from torch.profiler
+              traces (the median over 3 traces of each trace's median
+              over 20-30 launches; also at 64, 128 and 256 threads a
+              block, and under the global store), and one
+              launch, the whole wrapper (checks + launch) and the plain
+              version (float32) from CUDA events (median of 30 / 30 / 20
+              after warm-up); two launches on the same inputs must be
+              bit-equal; an empty kernel is timed beside it (the launch
+              floor); a profiler trace of 3 engine iterations gives the
+              device kernels, busy time and idle share per iteration;
 5. main 1   — ``bpp_tpu_torch.cli.main(["--cfile", "run.ctl"])`` runs the
               1000-locus A00 JC69 chain (burnin 10, nsample 40); the launch
               count of K1 must grow by 8 per iteration (age 2 + SPR 3 +
@@ -46,6 +52,14 @@ Phases, in order; any failure exits non-zero:
               mu_i 1; heredity and mubar touch no likelihood) plus 1 for
               the initial state, K1 never, and mcmc.txt must hold 40
               finite samples with moving theta/tau/mu_bar.
+
+9. shapes   — both kernels against their plain versions (float64) on what
+              the bench data lacks: 1..16 sequences per locus in one batch,
+              caterpillar and balanced trees, 0 to 200 patterns a locus
+              (K1 sums loci of more than 128 patterns in rounds), HKY+G4;
+              and on 12 loci of 64 and of 128 tips, where the wrappers pick
+              the CLV store themselves (shared at 64 tips with 4
+              categories, the device scratch at 128 tips with 8).
 
 Then one JSON line ``{"kernels": [...]}`` (K1 at JC69, K2 at HKY+G4: the
 models of their chains), the card's name and power limit from nvidia-smi,
@@ -198,7 +212,10 @@ def bound_ms(batch, model_name, n_cats, per_pattern=False):
     """Least time the card could take for one pass on this run's data:
     the larger of the bytes it must move over the HBM rate and the
     operations it must do over the f32 rate.  Only real patterns, real
-    tips and real levels count.  K1 reads the pattern weights and writes
+    tips and real levels count, and of the tree only what the kernels
+    read: the schedule, the children and the ages (the parent of a
+    scheduled child is its level's node, so ``parent`` is not read).  K1
+    reads the pattern weights and writes
     one value per locus; K2 (``per_pattern``) reads no weights, reads the
     pattern counts and writes the whole ``[L, S]`` output."""
     import numpy as np
@@ -213,7 +230,7 @@ def bound_ms(batch, model_name, n_cats, per_pattern=False):
     C, K = n_cats, _KFAC[fam]
     nbytes = (16.0 * (ns * npat).sum()            # tip partials (f32 x 4)
               + 8.0 * 3 * (ns - 1).sum()           # order, left, right
-              + 12.0 * (2 * ns - 1).sum()          # ages (f32), parents
+              + 4.0 * (2 * ns - 1).sum()           # ages (f32)
               + 4.0 * L * (4 + 1 + C + 2))         # freqs, mu, rates, kappas
     if per_pattern:
         nbytes += 8.0 * L + 4.0 * L * batch.max_patterns   # n_pat; [L, S] out
@@ -244,30 +261,51 @@ def device_kernels(fn):
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-def kernel_device_ms(launch, kernel_name, reps=30):
-    """Median device time of one launch of the named kernel, from the
-    profiler trace of ``reps`` launches.  The trace may miss a few of the
-    first launches; two thirds of them must be there."""
+def kernel_device_ms(launch, kernel_name, reps=30, windows=3, attempts=6):
+    """Median device time of one launch of the named kernel, from profiler
+    traces of ``reps`` launches: the median over ``windows`` traces of each
+    trace's median.  A trace may miss launches (a few of the first, or now
+    and then all of a short window), and now and then one reads every
+    launch at half its time: a trace must hold two thirds of the launches,
+    one that holds fewer is taken again (``attempts`` traces in all), and
+    the median over the windows drops the odd one out."""
     def run():
         for _ in range(reps):
             launch()
-    times = [e.time_range.elapsed_us() / 1e3 for e in device_kernels(run)
-             if kernel_name in e.name]
-    if not 2 * reps <= 3 * len(times) <= 3 * reps:
-        raise AssertionError(f"profiler saw {len(times)} of {reps} "
-                             f"{kernel_name} launches")
-    return statistics.median(times)
+    medians = []
+    for _ in range(attempts):
+        times = [e.time_range.elapsed_us() / 1e3
+                 for e in device_kernels(run) if kernel_name in e.name]
+        if 2 * reps <= 3 * len(times) <= 3 * reps:
+            medians.append(statistics.median(times))
+            if len(medians) == windows:
+                return statistics.median(medians)
+    raise AssertionError(f"profiler held {kernel_name}'s launches in "
+                         f"{len(medians)} of {attempts} traces; {windows} "
+                         "are needed")
 
 
-def profile_step(eng, state, step_ms, smi, kernel_name, label, iters=3):
+def profile_step(eng, state, step_ms, smi, kernel_name, label, passes,
+                 iters=3, attempts=6):
     """Device time per iteration from a profiler trace: kernels launched,
     busy milliseconds (all kernels, and the pruning kernel's) and the idle
-    share of the untraced wall time per iteration."""
-    kern = device_kernels(lambda: eng.chunk_step(state, iters))
-    if not kern:
-        raise AssertionError("no device events in the profiler trace")
+    share of the untraced wall time per iteration.  A trace that misses
+    some of the ``passes`` pruning launches per iteration has missed other
+    kernels too and is taken again; if none of the ``attempts`` is whole,
+    the run fails, since its kernel count would read low."""
+    for _ in range(attempts):
+        kern = device_kernels(lambda: eng.chunk_step(state, iters))
+        if not kern:
+            raise AssertionError("no device events in the profiler trace")
+        mine = [e for e in kern if kernel_name in e.name]
+        if len(mine) == passes * iters:
+            break
+    else:
+        raise AssertionError(
+            f"{label}: no profiler trace of {attempts} held all "
+            f"{passes * iters} launches of {kernel_name} (the last held "
+            f"{len(mine)})")
     busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3 / iters
-    mine = [e for e in kern if kernel_name in e.name]
     k_ms = sum(e.time_range.elapsed_us() for e in mine) / 1e3 / iters
     print(f"[profile] {label}: {len(kern) / iters:.0f} device kernels/iter "
           f"| device busy {busy:.3f} ms/iter ({kernel_name} {k_ms:.3f} in "
@@ -352,17 +390,22 @@ def run_chain(ctl, job, iters, expect, moving, label, smi):
         raise AssertionError(
             f"{label}: (K1, K2) launched {got} times on the main path, "
             f"expected {expect} over {iters} iterations + the initial state")
+    store = pack.CLV_STORE if got[0] else fels.CLV_STORE
+    if store != "shared":
+        raise AssertionError(f"{label}: the main path ran the {store} CLV "
+                             "store; at 16 tips it keeps its CLVs in shared "
+                             "memory and allocates no scratch")
     data = check_chain_output(job, NSAMPLE, moving)
     print(f"[{label}] cli --cfile {ctl}: {iters} iterations, wall {wall:.1f} "
           f"s (load + init + chain + summary), {iters / wall:.2f} iters/s "
-          f"overall | K1 launches {got[0]} | K2 launches {got[1]} | mean lnL "
-          f"{data[:, -1].mean():.3f} | {smi}")
+          f"overall | K1 launches {got[0]} | K2 launches {got[1]} | CLV store "
+          f"{store} | mean lnL {data[:, -1].mean():.3f} | {smi}")
     return got
 
 
 def time_moves(eng, state, dev, smi):
     """``[moves]``: wall time of each new move on the diploid chain's
-    state, and of the pieces the issue singles out."""
+    state, and of GTR's eigendecomposition and the Gamma quantiles."""
     import torch
 
     from bpp_tpu_torch.config import SubstModel
@@ -404,16 +447,19 @@ def time_moves(eng, state, dev, smi):
           + " | ".join(f"{n} {t:.2f}" for n, t in rows) + f" | {smi}")
 
 
-def hold_kernel(label, kernel_name, state, ctx, batch, dev, smi, got_want,
-                make_launch, wrapper, plain, per_pattern):
+def hold_kernel(label, kernel_name, mod, state, ctx, batch, dev, smi,
+                got_want, make_args, wrapper, plain, per_pattern):
     """Hold one kernel against its plain version on the four model
-    families and time it; returns ({model: max per-locus err}, {model:
-    (device ms, plain ms, bound ms, bound by)}).
+    families, under both CLV stores, and time it; returns ({model: max
+    per-locus err over both stores}, {model: (device ms, plain ms, bound
+    ms, bound by)}).
 
-    ``got_want(a32, a64, kw)`` gives the kernel's per-locus lnL in float32
-    inputs, the plain version's in float64 and the per-pattern maximum
-    difference (or None); ``make_launch(a32, kw)`` prepares one bare
-    launch; ``wrapper`` / ``plain`` run one whole float32 pass."""
+    ``got_want(a32, a64, kw, kkw)`` gives the kernel's per-locus lnL in
+    float32 inputs, the plain version's in float64 and the per-pattern
+    maximum difference (or None); ``make_args(a32, kw, kkw)`` prepares one
+    bare launch of ``mod`` (``core.pack`` or ``core.fels``); ``wrapper`` /
+    ``plain`` run one whole float32 pass.  ``kw`` holds the model, ``kkw``
+    what only the kernel's wrapper takes (unit table, store, threads)."""
     import numpy as np
     import torch
 
@@ -427,35 +473,160 @@ def hold_kernel(label, kernel_name, state, ctx, batch, dev, smi, got_want,
         a32 = pass_args(state, s32, ctx, torch.float32)
         a64 = pass_args(state, s64, ctx, torch.float64)
         kw = dict(model=model, n_cats=n_cats)
-        got, want, site_err = got_want(a32, a64, kw)
-        torch.cuda.synchronize()
-        if not bool(torch.isfinite(got[mask]).all()):
-            raise AssertionError(f"{label} {model_name}: non-finite lnL")
-        err = float((got - want)[mask].abs().max())
-        errs[model_name] = err
-        launch = make_launch(a32, kw)
-        ms = kernel_device_ms(launch, kernel_name)
-        launch_ms = cuda_ms(launch)
-        wrap = cuda_ms(lambda: wrapper(a32, kw))
+        err_of = {}
+        for store in (None, "global"):
+            kkw = dict(units=ctx.units, clv_store=store)
+            got, want, site_err = got_want(a32, a64, kw, kkw)
+            torch.cuda.synchronize()
+            ran = mod.CLV_STORE
+            if ran != (store or "shared"):
+                raise AssertionError(
+                    f"{label} {model_name}: asked for the {store or 'default'}"
+                    f" store, the {ran} store ran")
+            if not bool(torch.isfinite(got[mask]).all()):
+                raise AssertionError(f"{label} {model_name}: non-finite lnL")
+            err = float((got - want)[mask].abs().max())
+            err_of[ran] = (err, site_err)
+            if not err < TOL_LNL:
+                raise AssertionError(
+                    f"{label} {model_name} ({ran} store): kernel and plain "
+                    f"version differ by {err} lnL > {TOL_LNL}")
+            if site_err is not None and not site_err < TOL_SITE:
+                raise AssertionError(
+                    f"{label} {model_name} ({ran} store): per-pattern "
+                    f"difference {site_err} > {TOL_SITE}")
+        errs[model_name] = max(e for e, _ in err_of.values())
+
+        def timed(**kkw):
+            targs = make_args(a32, kw, dict(units=ctx.units, **kkw))
+            return targs.plan, kernel_device_ms(lambda: mod.launch(targs),
+                                                kernel_name, reps=20)
+
+        # two launches on the same inputs are bit-equal, and so are the
+        # two stores: they differ in where the CLVs wait, not in the
+        # arithmetic
+        kargs = make_args(a32, kw, dict(units=ctx.units))
+        plan = kargs.plan
+        first = mod.launch(kargs).clone()
+        if not torch.equal(first, mod.launch(kargs)):
+            raise AssertionError(f"{label} {model_name}: two launches on "
+                                 "the same inputs differ")
+        gargs = make_args(a32, kw, dict(units=ctx.units, clv_store="global"))
+        if not torch.equal(first, mod.launch(gargs)):
+            raise AssertionError(f"{label} {model_name}: the global store "
+                                 "differs from the shared one")
+        gplan, gms = timed(clv_store="global")
+        by_threads = {t: timed(threads=t)[1] for t in (64, 128, 256)}
+        ms = by_threads.get(plan.threads) or timed()[1]
+        launch_ms = cuda_ms(lambda: mod.launch(kargs))
+        kkw = dict(units=ctx.units)
+        wrap = cuda_ms(lambda: wrapper(a32, kw, kkw))
         plain_ms = cuda_ms(lambda: plain(a32, kw), reps=20)
         bms, by = bound_ms(batch, model_name, n_cats, per_pattern)
         rows[model_name] = (ms, plain_ms, bms, by)
+        err, site_err = err_of["shared"]
+        gerr, gsite = err_of["global"]
         site = "" if site_err is None else (
-            f" | max per-pattern |dlnL| {site_err:.3e} (tol {TOL_SITE})")
+            f" | max per-pattern |dlnL| {site_err:.3e} / {gsite:.3e} (tol "
+            f"{TOL_SITE})")
         print(f"[{label}] {model_name}+C{n_cats}: max per-locus |dlnL| "
-              f"{err:.3e} (tol {TOL_LNL}){site} | device {ms:.4f} ms | one "
-              f"launch {launch_ms:.4f} ms | wrapper {wrap:.4f} ms/pass | "
-              f"plain {plain_ms:.4f} ms/pass | bound {bms:.5f} ms ({by}) | "
+              f"shared / global store {err:.3e} / {gerr:.3e} (tol "
+              f"{TOL_LNL}){site} | device {ms:.4f} ms ({plan.clv_store} "
+              f"store, {plan.threads} threads, {plan.shared_bytes} B shared "
+              f"a block) | at 64 / 128 / 256 threads "
+              + " / ".join(f"{by_threads[t]:.4f}" for t in (64, 128, 256))
+              + f" ms | global store {gms:.4f} ms ({gplan.threads} threads, "
+              f"{gplan.shared_bytes} B) | stores and repeat launch bit-equal "
+              f"| one launch {launch_ms:.4f} ms | wrapper {wrap:.4f} ms/pass "
+              f"| plain {plain_ms:.4f} ms/pass | bound {bms:.5f} ms ({by}) | "
               f"{smi}")
-        if not err < TOL_LNL:
-            raise AssertionError(
-                f"{label} {model_name}: kernel and plain version differ by "
-                f"{err} lnL > {TOL_LNL}")
-        if site_err is not None and not site_err < TOL_SITE:
-            raise AssertionError(
-                f"{label} {model_name}: per-pattern difference {site_err} > "
-                f"{TOL_SITE}")
     return errs, rows
+
+
+def launch_floor(dev, smi):
+    """``[floor]``: an empty kernel's device time (profiler) and one launch
+    of it seen from the host (CUDA events): what no kernel goes below."""
+    from bpp_tpu_torch.core import pack
+    dev_ms = kernel_device_ms(lambda: pack.launch_empty(dev), "empty_kernel")
+    ev_ms = cuda_ms(lambda: pack.launch_empty(dev))
+    print(f"[floor] empty kernel: device {dev_ms:.4f} ms | one launch "
+          f"{ev_ms:.4f} ms (CUDA events) | {smi}")
+
+
+def hold_shapes(dev, smi):
+    """``[shapes]``: both kernels against their float64 plain versions on
+    trees and pattern counts the bench data lacks, and on trees large
+    enough that the wrappers must choose the CLV store."""
+    import torch
+
+    from bpp_tpu_torch.core import fels, pack
+    from bpp_tpu_torch.core.units import Units
+    from bpp_tpu_torch.testing import fixed_subst, shaped_batch
+    from bpp_tpu_torch.trees.gtree import inner_order
+
+    def args(gt, n_seq, subst, tips, dtype):
+        rk = torch.cat([subst.rates, subst.kappa1[:, None],
+                        subst.kappa2[:, None]], dim=1)
+        return (inner_order(gt), gt.left, gt.right, gt.parent, n_seq,
+                gt.age.to(dtype), subst.mu, rk, subst.freqs, subst.eigw,
+                subst.eigT, subst.eigTi, tips.to(dtype))
+
+    def hold(name, gt, n_seq, n_pat, tips, weights, model_name, n_cats,
+             want_store, scale):
+        L = gt.n_loci
+        model, s32 = fixed_subst(model_name, n_cats, L, torch.float32, dev)
+        _, s64 = fixed_subst(model_name, n_cats, L, torch.float64, dev)
+        a32 = args(gt, n_seq, s32, tips, torch.float32)
+        a64 = args(gt, n_seq, s64, tips, torch.float64)
+        kw = dict(model=model, n_cats=n_cats)
+        units = Units(n_pat.cpu().numpy(), tips.shape[2], dev)
+        site = fels.site_logl_fels(*a32, n_pat=n_pat, units=units, **kw)
+        logl = pack.site_logl_packed(*a32, weights, units=units, **kw)
+        torch.cuda.synchronize()
+        stores = (pack.CLV_STORE, fels.CLV_STORE)
+        if stores != (want_store, want_store):
+            raise AssertionError(f"[shapes] {name}: the wrappers picked the "
+                                 f"{stores} stores, expected {want_store}")
+        want = fels.site_logl_fels_ref(*a64, n_pat=n_pat, **kw)
+        want_l = pack.site_logl_packed_ref(*a64, weights.double(), **kw)
+        # a one-sequence locus: the kernels root it at tip 0, the plain
+        # version at an unused inner slot
+        one = n_seq < 2
+        tip0 = (tips[:, 0].double() * s64.freqs[:, None, :]).sum(-1).log()
+        live = torch.arange(tips.shape[2], device=dev) < n_pat[:, None]
+        tip0 = torch.where(live, tip0, torch.zeros_like(tip0))
+        want = torch.where(one[:, None], tip0, want)
+        want_l = torch.where(one, (weights.double() * tip0).sum(1), want_l)
+        if not bool(torch.isfinite(site).all() & torch.isfinite(logl).all()):
+            raise AssertionError(f"[shapes] {name}: non-finite lnL")
+        if not bool((site[~live] == 0).all()):
+            raise AssertionError(f"[shapes] {name}: K2 left a column past "
+                                 "n_pat that is not 0")
+        site_err = float((site.double() - want).abs().max())
+        err = float((logl.double() - want_l).abs().max())
+        print(f"[shapes] {name}: {L} loci, {model_name}+C{n_cats}, "
+              f"{want_store} store picked | K2 max per-pattern |dlnL| "
+              f"{site_err:.3e} (tol {TOL_SITE * scale:.1e}) | K1 max "
+              f"per-locus |dlnL| {err:.3e} (tol {TOL_LNL * scale:.2f}) | "
+              f"{smi}")
+        if not (site_err < TOL_SITE * scale and err < TOL_LNL * scale):
+            raise AssertionError(f"[shapes] {name}: kernel and plain "
+                                 "version differ")
+
+    gt, n_seq, n_pat, tips, weights = shaped_batch(16, 200, seed=3,
+                                                   device=dev)
+    hold("1..16 sequences, caterpillar and balanced, 0..200 patterns", gt,
+         n_seq, n_pat, tips, weights, "HKY", 4, "shared", 1.0)
+    # float32 roundoff grows with the T - 1 levels: the 16-tip tolerances,
+    # scaled by T / 16
+    for T, model_name, n_cats, store in ((64, "HKY", 4, "shared"),
+                                         (128, "GTR", 8, "global")):
+        gt, n_seq, n_pat, tips, weights = shaped_batch(T, 72, seed=T,
+                                                       device=dev)
+        keep = slice(2 * T - 12, 2 * T)       # the 12 loci of most tips
+        hold(f"{T} tips", type(gt)(*(x[keep].contiguous() for x in gt)),
+             n_seq[keep], n_pat[keep], tips[keep].contiguous(),
+             weights[keep].contiguous(), model_name, n_cats, store, T / 16)
 
 
 def main() -> int:
@@ -503,25 +674,23 @@ def main() -> int:
             run = load_run_from_ctl("run.ctl")
             eng, state, step_ips = warm_engine(run, dev)
             profile_step(eng, state, 1e3 / step_ips, smi,
-                         "pack_logl_kernel", "JC69 step")
+                         "pack_logl_kernel", "JC69 step", PASSES_PER_ITER)
             b = run.batch
             print(f"[kernel 1] L={b.n_loci} T={b.max_tips} "
                   f"S={b.max_patterns} real patterns "
                   f"{int(np.asarray(b.n_pat).sum())}")
 
-            def k1_got_want(a32, a64, kw):
-                return (pack.site_logl_packed(*a32, **kw).double(),
+            def k1_got_want(a32, a64, kw, kkw):
+                return (pack.site_logl_packed(*a32, **kw, **kkw).double(),
                         pack.site_logl_packed_ref(*a64, **kw), None)
 
-            def k1_launch(a32, kw):
-                kargs = pack.kernel_args(*a32, **kw)
-                return lambda: pack.launch(kargs)
-
             errs1, rows1 = hold_kernel(
-                "kernel 1", "pack_logl_kernel", state, eng.ctx, b, dev, smi,
-                k1_got_want, k1_launch,
-                lambda a, kw: pack.site_logl_packed(*a, **kw),
+                "kernel 1", "pack_logl_kernel", pack, state, eng.ctx, b, dev,
+                smi, k1_got_want,
+                lambda a, kw, kkw: pack.kernel_args(*a, **kw, **kkw),
+                lambda a, kw, kkw: pack.site_logl_packed(*a, **kw, **kkw),
                 lambda a, kw: pack.site_logl_packed_ref(*a, **kw), False)
+            launch_floor(dev, smi)
             print(f"[kernel 1] engine step (JC69, {N_LOCI} loci): "
                   f"{step_ips:.2f} iters/s after warm-up | {smi}")
             del eng, state
@@ -555,12 +724,13 @@ def main() -> int:
                 raise AssertionError("the diploid batch carries no "
                                      "resolution map")
             profile_step(eng2, state2, 1e3 / step_ips2, smi,
-                         "fels_site_logl_kernel", "diploid HKY+G4 step")
+                         "fels_site_logl_kernel", "diploid HKY+G4 step",
+                         PASSES_PER_ITER_2)
             w64 = ctx2.weights.double()
 
-            def k2_got_want(a32, a64, kw):
-                got = fels.site_logl_fels(*a32[:-1], n_pat=ctx2.n_pat,
-                                          **kw).double()
+            def k2_got_want(a32, a64, kw, kkw):
+                got = fels.site_logl_fels(*a32[:-1], n_pat=ctx2.n_pat, **kw,
+                                          **kkw).double()
                 want = fels.site_logl_fels_ref(*a64[:-1], n_pat=ctx2.n_pat,
                                                **kw)
                 return (fe.reduce_root(got, w64, ctx2.res_map,
@@ -569,15 +739,13 @@ def main() -> int:
                                        ctx2.res_count),
                         float((got - want).abs().max()))
 
-            def k2_launch(a32, kw):
-                kargs = fels.kernel_args(*a32[:-1], n_pat=ctx2.n_pat, **kw)
-                return lambda: fels.launch(kargs)
-
             errs2, rows2 = hold_kernel(
-                "kernel 2", "fels_site_logl_kernel", state2, ctx2, b2, dev,
-                smi, k2_got_want, k2_launch,
-                lambda a, kw: fels.site_logl_fels(*a[:-1], n_pat=ctx2.n_pat,
-                                                  **kw),
+                "kernel 2", "fels_site_logl_kernel", fels, state2, ctx2, b2,
+                dev, smi, k2_got_want,
+                lambda a, kw, kkw: fels.kernel_args(
+                    *a[:-1], n_pat=ctx2.n_pat, **kw, **kkw),
+                lambda a, kw, kkw: fels.site_logl_fels(
+                    *a[:-1], n_pat=ctx2.n_pat, **kw, **kkw),
                 lambda a, kw: fels.site_logl_fels_ref(
                     *a[:-1], n_pat=ctx2.n_pat, **kw), True)
             print(f"[kernel 2] engine step (diploid HKY+G4, {N_LOCI} loci): "
@@ -591,6 +759,9 @@ def main() -> int:
                 "run2.ctl", "out2", iters,
                 (0, PASSES_PER_ITER_2 * iters + 1),
                 ("theta", "tau", "mu_bar"), "main 2", smi)
+
+            # 9. shapes the bench data lacks; stores picked by the wrappers
+            hold_shapes(dev, smi)
         finally:
             os.chdir(cwd)
 

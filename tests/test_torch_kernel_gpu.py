@@ -1,9 +1,13 @@
 """Kernels K1 (``bpp_tpu_torch/csrc/pack_kernel.cu``) and K2
 (``csrc/fels_kernel.cu``) on the card against their plain PyTorch
-versions, over the model grid of test_kernel_consistency.py: max
-per-locus |dlnL| < 0.02, the float32 bound used there; K2 on haploid and
-on unphased diploid tips, per pattern (max |dlnL| < 2e-3) and per locus
-after ``reduce_root``.  Needs a CUDA device and nvcc; skips without them.
+versions, over the model grid of test_kernel_consistency.py and both CLV
+stores (shared memory, device scratch): max per-locus |dlnL| < 0.02, the
+float32 bound used there; K2 on haploid and on unphased diploid tips, per
+pattern (max |dlnL| < 2e-3) and per locus after ``reduce_root``.  Also:
+trees of 64 and 128 tips (the wrapper picks the store), 8 rate categories,
+``blen=`` against the strict clock, bit-equal repeat launches and block
+sizes, junk in the schedule's padding levels, refused shapes.  Needs a
+CUDA device and nvcc; skips without them.
 
     python -m pytest tests/test_torch_kernel_gpu.py -q
 """
@@ -64,8 +68,12 @@ def _args(state, ctx, subst, dtype):
             ctx.weights.to(dtype))
 
 
-@pytest.mark.parametrize("model_name,n_cats", MODELS)
-def test_kernel_matches_plain_version(cuda_state, model_name, n_cats):
+STORES = ["shared", "global"]
+
+
+@pytest.mark.parametrize("store", STORES)
+@pytest.mark.parametrize("model_name,n_cats", MODELS + [("HKY", 8)])
+def test_kernel_matches_plain_version(cuda_state, model_name, n_cats, store):
     from bpp_tpu_torch.core import pack
     eng, state = cuda_state
     L = state.gt.n_loci
@@ -73,9 +81,11 @@ def test_kernel_matches_plain_version(cuda_state, model_name, n_cats):
     _, s64 = fixed_subst(model_name, n_cats, L, torch.float64, "cuda")
     before = pack.LAUNCHES
     got = pack.site_logl_packed(*_args(state, eng.ctx, s32, torch.float32),
-                                model=model, n_cats=n_cats)
+                                model=model, n_cats=n_cats,
+                                units=eng.ctx.units, clv_store=store)
     torch.cuda.synchronize()
     assert pack.LAUNCHES == before + 1
+    assert pack.CLV_STORE == store
     want = pack.site_logl_packed_ref(
         *_args(state, eng.ctx, s64, torch.float64), model=model,
         n_cats=n_cats)
@@ -86,10 +96,11 @@ def test_kernel_matches_plain_version(cuda_state, model_name, n_cats):
     assert err < 0.02, err
 
 
+@pytest.mark.parametrize("store", STORES)
 @pytest.mark.parametrize("data", ["cuda_state", "cuda_diploid"])
-@pytest.mark.parametrize("model_name,n_cats", MODELS)
+@pytest.mark.parametrize("model_name,n_cats", MODELS + [("HKY", 8)])
 def test_fels_kernel_matches_plain_version(request, data, model_name,
-                                           n_cats):
+                                           n_cats, store):
     from bpp_tpu_torch.core import fels
     from bpp_tpu_torch.core import felsenstein as fe
     eng, state = request.getfixturevalue(data)
@@ -99,10 +110,16 @@ def test_fels_kernel_matches_plain_version(request, data, model_name,
     _, s64 = fixed_subst(model_name, n_cats, L, torch.float64, "cuda")
     kw = dict(model=model, n_cats=n_cats, n_pat=ctx.n_pat)
     before = fels.LAUNCHES
+    # without `units` the wrapper builds the table from n_pat itself
     got = fels.site_logl_fels(*_args(state, ctx, s32, torch.float32)[:-1],
-                              **kw)
+                              clv_store=store, **kw)
     torch.cuda.synchronize()
     assert fels.LAUNCHES == before + 1
+    assert fels.CLV_STORE == store
+    with_units = fels.site_logl_fels(
+        *_args(state, ctx, s32, torch.float32)[:-1], clv_store=store,
+        units=ctx.units, **kw)
+    assert torch.equal(got, with_units)
     want = fels.site_logl_fels_ref(
         *_args(state, ctx, s64, torch.float64)[:-1], **kw)
     assert got.shape == want.shape == ctx.tip_partials.shape[:1] \
@@ -171,8 +188,185 @@ def test_single_sequence_and_padded_loci_finite():
         eng.ctx.tip_partials, model=eng.cfg.model, n_cats=1,
         n_pat=eng.ctx.n_pat)
     assert np.isfinite(site.cpu().numpy()).all()
+    live = torch.arange(site.shape[1], device="cuda") < eng.ctx.n_pat[:, None]
+    assert bool((site[~live] == 0).all())
     # the per-locus kernel is the weighted sum of the per-pattern one
     W = eng.ctx.weights.shape[1]
     np.testing.assert_allclose(
         (eng.ctx.weights * site[:, :W]).sum(1).cpu().numpy(),
         out.cpu().numpy(), rtol=1e-4, atol=1e-3)
+
+
+def _big_trees(n_tips):
+    """The 12 loci of most sequences of ``shaped_batch``: fixed caterpillar
+    and balanced trees of up to ``n_tips`` tips, 0..72 patterns."""
+    from bpp_tpu_torch.core.units import Units
+    from bpp_tpu_torch.testing import shaped_batch
+    gt, n_seq, n_pat, tips, weights = (
+        type(x)(*(y[-12:].contiguous() for y in x)) if isinstance(x, tuple)
+        else x[-12:].contiguous()
+        for x in shaped_batch(n_tips, 72, seed=n_tips, device="cuda"))
+    return gt, n_seq, n_pat, tips, weights, Units(n_pat.cpu().numpy(), 72,
+                                                  "cuda")
+
+
+def _tree_args(gt, n_seq, subst, tips, dtype):
+    from bpp_tpu_torch.trees.gtree import inner_order
+    rk = torch.cat([subst.rates, subst.kappa1[:, None],
+                    subst.kappa2[:, None]], dim=1)
+    return (inner_order(gt), gt.left, gt.right, gt.parent, n_seq,
+            gt.age.to(dtype), subst.mu, rk, subst.freqs, subst.eigw,
+            subst.eigT, subst.eigTi, tips.to(dtype))
+
+
+@pytest.mark.parametrize("n_tips,model_name,n_cats,picked", [
+    (64, "HKY", 4, "shared"),      # 3 warps of 71 KB a block
+    (128, "GTR", 8, "global"),     # 256 KB of CLVs a warp: over a block's
+                                   # 227 KB
+])
+def test_large_trees_pick_their_store(n_tips, model_name, n_cats, picked):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from bpp_tpu_torch.core import fels, pack
+    gt, n_seq, n_pat, tips, weights, units = _big_trees(n_tips)
+    L = gt.n_loci
+    model, s32 = fixed_subst(model_name, n_cats, L, torch.float32, "cuda")
+    _, s64 = fixed_subst(model_name, n_cats, L, torch.float64, "cuda")
+    a32 = _tree_args(gt, n_seq, s32, tips, torch.float32) + (weights,)
+    a64 = _tree_args(gt, n_seq, s64, tips, torch.float64) \
+        + (weights.double(),)
+    kw = dict(model=model, n_cats=n_cats)
+    # float32 roundoff grows with the T - 1 levels: the 16-tip bounds,
+    # scaled by T / 16
+    scale = n_tips / 16
+    site = fels.site_logl_fels(*a32[:-1], n_pat=n_pat, units=units, **kw)
+    assert fels.CLV_STORE == picked
+    want = fels.site_logl_fels_ref(*a64[:-1], n_pat=n_pat, **kw)
+    assert float((site.double() - want).abs().max()) < 2e-3 * scale
+    logl = pack.site_logl_packed(*a32, units=units, **kw)
+    assert pack.CLV_STORE == picked
+    want_l = pack.site_logl_packed_ref(*a64, **kw)
+    assert float((logl.double() - want_l).abs().max()) < 0.02 * scale
+    if picked == "shared":
+        # the global store computes the same arithmetic in the same order
+        assert torch.equal(site, fels.site_logl_fels(
+            *a32[:-1], n_pat=n_pat, units=units, clv_store="global", **kw))
+        assert torch.equal(logl, pack.site_logl_packed(
+            *a32, units=units, clv_store="global", **kw))
+
+
+def test_blen_given_equals_the_strict_clock(cuda_diploid):
+    from bpp_tpu_torch.core import fels, pack
+    from bpp_tpu_torch.core import felsenstein as fe
+    eng, state = cuda_diploid
+    ctx = eng.ctx
+    L = state.gt.n_loci
+    model, s32 = fixed_subst("HKY", 4, L, torch.float32, "cuda")
+    s32 = s32._replace(mu=torch.linspace(0.5, 2.0, L, device="cuda"))
+    a32 = _args(state, ctx, s32, torch.float32)
+    blen = fe.branch_lengths(state.gt, s32.mu)
+    kw = dict(model=model, n_cats=4, units=ctx.units)
+    assert torch.equal(
+        fels.site_logl_fels(*a32[:-1], n_pat=ctx.n_pat, **kw),
+        fels.site_logl_fels(*a32[:-1], n_pat=ctx.n_pat, blen=blen, **kw))
+    assert torch.equal(pack.site_logl_packed(*a32, **kw),
+                       pack.site_logl_packed(*a32, blen=blen, **kw))
+    # and it is read: other lengths give another answer
+    assert not torch.equal(
+        pack.site_logl_packed(*a32, **kw),
+        pack.site_logl_packed(*a32, blen=2.0 * blen, **kw))
+
+
+def test_repeat_launches_and_block_sizes_are_bit_equal():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from bpp_tpu_torch.core import fels, pack
+    from bpp_tpu_torch.mcmc.driver import Engine
+    from bpp_tpu_torch.testing import synthetic_run
+    run = synthetic_run(n_loci=9, n_seq=[6, 1, 3, 2, 5, 6, 6, 4, 2],
+                        n_patterns=[12, 5, 300, 9, 7, 33, 64, 1, 2], seed=2,
+                        pad_loci_to=12)
+    eng = Engine(run, seed=3, device="cuda")
+    state = eng.init_state()
+    ctx = eng.ctx
+    L = state.gt.n_loci
+    model, s32 = fixed_subst("TN93", 3, L, torch.float32, "cuda")
+    a32 = _args(state, ctx, s32, torch.float32)
+    kw = dict(model=model, n_cats=3, units=ctx.units)
+    first = pack.launch(pack.kernel_args(*a32, **kw))
+    site = fels.launch(fels.kernel_args(*a32[:-1], n_pat=ctx.n_pat, **kw))
+    for threads in (None, 64, 128, 256):
+        for store in STORES:
+            k1 = pack.kernel_args(*a32, threads=threads, clv_store=store,
+                                  **kw)
+            assert k1.plan.clv_store == store
+            assert torch.equal(first, pack.launch(k1)), (threads, store)
+            k2 = fels.kernel_args(*a32[:-1], n_pat=ctx.n_pat,
+                                  threads=threads, clv_store=store, **kw)
+            assert torch.equal(site, fels.launch(k2)), (threads, store)
+            assert fels.CLV_STORE == store
+    # one sum in double per locus, in pattern order
+    W = ctx.weights.shape[1]
+    np.testing.assert_allclose(
+        first.cpu().numpy(),
+        (ctx.weights.double() * site[:, :W].double()).sum(1).cpu().numpy(),
+        rtol=1e-6, atol=1e-6)
+
+
+def test_padding_levels_of_the_schedule_may_hold_anything():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from bpp_tpu_torch.core import fels, pack
+    from bpp_tpu_torch.mcmc.driver import Engine
+    from bpp_tpu_torch.testing import synthetic_run
+    run = synthetic_run(n_loci=6, n_seq=[6, 1, 3, 2, 5, 4],
+                        n_patterns=[12, 5, 70, 9, 7, 33], seed=5,
+                        pad_loci_to=8)
+    eng = Engine(run, seed=3, device="cuda")
+    state = eng.init_state()
+    ctx = eng.ctx
+    L, T = ctx.tip_partials.shape[:2]
+    model, s32 = fixed_subst("HKY", 4, L, torch.float32, "cuda")
+    a32 = _args(state, ctx, s32, torch.float32)
+    kw = dict(model=model, n_cats=4, units=ctx.units)
+    # levels k >= n_seq - 1 are never entered: any node id may stand there
+    junk = torch.randint(0, 2 * T - 1, a32[0].shape, device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(1))
+    padding = torch.arange(T - 1, device="cuda") >= ctx.n_seq[:, None] - 1
+    b32 = (torch.where(padding, junk, a32[0]),) + a32[1:]
+    assert not torch.equal(a32[0], b32[0])
+    for store in STORES:
+        assert torch.equal(pack.site_logl_packed(*a32, clv_store=store, **kw),
+                           pack.site_logl_packed(*b32, clv_store=store, **kw))
+        assert torch.equal(
+            fels.site_logl_fels(*a32[:-1], n_pat=ctx.n_pat, clv_store=store,
+                                **kw),
+            fels.site_logl_fels(*b32[:-1], n_pat=ctx.n_pat, clv_store=store,
+                                **kw))
+
+
+def test_refused_shapes_raise(cuda_state):
+    from bpp_tpu_torch.core import fels, pack
+    from bpp_tpu_torch.core.units import Units
+    eng, state = cuda_state
+    ctx = eng.ctx
+    L = state.gt.n_loci
+    before = pack.LAUNCHES, fels.LAUNCHES
+    model, s9 = fixed_subst("HKY", 9, L, torch.float32, "cuda")
+    with pytest.raises(ValueError, match="rate categories"):
+        pack.site_logl_packed(*_args(state, ctx, s9, torch.float32),
+                              model=model, n_cats=9)
+    model, s4 = fixed_subst("HKY", 4, L, torch.float32, "cuda")
+    a32 = _args(state, ctx, s4, torch.float32)
+    kw = dict(model=model, n_cats=4)
+    with pytest.raises(ValueError, match="clv_store"):
+        fels.site_logl_fels(*a32[:-1], clv_store="registers", **kw)
+    with pytest.raises(ValueError, match="unit table"):
+        fels.site_logl_fels(*a32[:-1], units=Units([3] * (L + 1), 8, "cuda"),
+                            **kw)
+    with pytest.raises(ValueError, match="not contiguous"):
+        pack.site_logl_packed(a32[0], a32[1].t().contiguous().t(), *a32[2:],
+                              **kw)
+    with pytest.raises(ValueError, match="threads"):
+        pack.kernel_args(*a32, threads=48, **kw)
+    assert (pack.LAUNCHES, fels.LAUNCHES) == before

@@ -359,6 +359,16 @@ def test_discrete_gamma_rates_float32_over_the_slide_range():
     np.testing.assert_allclose(got, want, rtol=2e-3, atol=1e-5)
     got64 = dp(torch.as_tensor(alpha), 4).numpy()
     np.testing.assert_allclose(got64, want, rtol=1e-9, atol=1e-14)
+    # shapes whose density at the Wilson-Hilferty start underflows float32:
+    # Newton's divisor is floored at the dtype's smallest normal number
+    for a in (1e-3, 500.0):
+        edge = dp(torch.as_tensor([a], dtype=torch.float32), 4).numpy()
+        assert np.isfinite(edge).all(), (a, edge)
+        assert (edge >= 0).all() and (edge[:, -1] > 0).all(), (a, edge)
+        np.testing.assert_allclose(edge.mean(1), 1.0, rtol=1e-4)
+        np.testing.assert_allclose(
+            dp(torch.as_tensor([a], dtype=torch.float64), 4).numpy(),
+            np.asarray(dj(jnp.float64(a), 4))[None], rtol=1e-9, atol=1e-14)
 
 
 @pytest.mark.parametrize("line,item", [
