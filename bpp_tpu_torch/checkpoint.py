@@ -1,0 +1,119 @@
+"""Checkpoint / resume (reference src/dump.c, src/load.c), PyTorch.
+
+Port of ``bpp_tpu/checkpoint.py`` (``save_checkpoint``,
+``load_checkpoint``, ``restore_state``, ``truncate_file``).  One ``.npz``
+holds:
+
+* ``__meta__``: JSON with the format version, the iteration ``it``, the
+  seed, ``mcmc_offset`` (the byte length of the sample file when the
+  checkpoint was taken) and ``extra``;
+* ``__ctl__``: the control file's text;
+* one array per leaf of the state, named by its path
+  (``state.gt.left``, ``state.clock.brate``, ...; absent fields have no
+  leaf);
+* ``rng_state``: the bytes of the run's ``torch.Generator``
+  (``get_state()``; on CUDA, Philox's seed and offset), where ``bpp_tpu``
+  stores its JAX PRNG key;
+* ``stats_acc``: the move statistics since the last finetune reset.
+
+CLVs are never stored: they are derived state.  The sequence files must
+still be where the control file names them on resume.  A checkpoint of
+the port does not load in ``bpp_tpu``, nor one of ``bpp_tpu`` here: the
+random number generators differ.  ``save_checkpoint_multi`` and
+``restore_logs`` (``chains = K``) come with ROADMAP item 10j.
+"""
+
+from __future__ import annotations
+
+import json
+
+import numpy as np
+import torch
+
+FORMAT_VERSION = 1
+
+
+def _leaves(state, prefix="state"):
+    """(name, tensor) of every tensor of a NamedTuple tree, by path."""
+    for name, value in zip(state._fields, state):
+        if value is None:
+            continue
+        path = f"{prefix}.{name}"
+        if isinstance(value, tuple):
+            yield from _leaves(value, path)
+        else:
+            yield path, value
+
+
+def save_checkpoint(path, state, gen, it, stats_acc, *, cfg_text, seed,
+                    mcmc_offset, extra=None):
+    meta = {
+        "version": FORMAT_VERSION,
+        "it": int(it),
+        "seed": int(seed),
+        "mcmc_offset": int(mcmc_offset),
+        "extra": extra or {},
+    }
+    arrays = {name: t.detach().cpu().numpy() for name, t in _leaves(state)}
+    arrays["rng_state"] = gen.get_state().numpy()
+    arrays["stats_acc"] = np.asarray(stats_acc)
+    # np.savez appends ".npz" to a name without it: write where asked
+    with open(path, "wb") as fh:
+        np.savez_compressed(fh, __meta__=json.dumps(meta),
+                            __ctl__=cfg_text, **arrays)
+
+
+def load_checkpoint(path):
+    """(meta, control-file text, named arrays)."""
+    with np.load(path, allow_pickle=False) as z:
+        meta = json.loads(str(z["__meta__"]))
+        if meta["version"] != FORMAT_VERSION:
+            raise ValueError(
+                f"unsupported checkpoint version {meta['version']}")
+        arrays = {k: z[k] for k in z.files
+                  if k not in ("__meta__", "__ctl__")}
+        return meta, str(z["__ctl__"]), arrays
+
+
+def restore_state(template_state, arrays):
+    """Rebuild the state from named arrays, on the template's device and in
+    its dtypes; the template comes from ``Engine.init_state()`` under the
+    same control file.  A missing leaf or a leaf of another shape raises."""
+
+    def build(tmpl, prefix):
+        out = []
+        for name, value in zip(tmpl._fields, tmpl):
+            path = f"{prefix}.{name}"
+            if value is None:
+                out.append(None)
+            elif isinstance(value, tuple):
+                out.append(build(value, path))
+            else:
+                if path not in arrays:
+                    raise ValueError(f"checkpoint missing leaf {path}")
+                arr = arrays[path]
+                if tuple(arr.shape) != tuple(value.shape):
+                    raise ValueError(
+                        f"checkpoint leaf {path} shape {arr.shape} != "
+                        f"expected {tuple(value.shape)} (different "
+                        "data/config?)")
+                out.append(torch.as_tensor(arr).to(device=value.device,
+                                                   dtype=value.dtype))
+        return type(tmpl)(*out)
+
+    return build(template_state, "state")
+
+
+def rng_state(arrays) -> torch.Tensor:
+    """The generator bytes to hand ``torch.Generator.set_state``."""
+    return torch.as_tensor(arrays["rng_state"], dtype=torch.uint8)
+
+
+def truncate_file(path, offset):
+    """Exactly-once logging: cut the sample file back to the offset the
+    checkpoint was taken at (load.c:2319)."""
+    try:
+        with open(path, "r+b") as fh:
+            fh.truncate(offset)
+    except FileNotFoundError:
+        pass

@@ -2,19 +2,25 @@
 
 Usage:
   python -m bpp_tpu_torch --cfile run.ctl [--seed N] [--device cpu]
+  python -m bpp_tpu_torch --resume out.chk.npz [--extend N] [--device cpu]
   python -m bpp_tpu_torch --simulate sim.ctl [--seed N]
 
 ``--cfile`` runs on the GPU (``cuda``) unless ``--device cpu`` is given;
 with no CUDA device it exits with an error.  It writes
-``<jobname>.mcmc.txt``, the ``<jobname>.txt`` summary and
-``<jobname>.FigTree.tre`` (port of ``bpp_tpu/cli.py`` ``cmd_run``; the
-conditional a1b1 log, the species-tree PDF, checkpoints, chains and the
-per-locus print files are later work).
+``<jobname>.mcmc.txt``, the ``<jobname>.txt`` summary,
+``<jobname>.FigTree.tre`` and, with ``checkpoint = initial [step]``,
+``<jobname>.chk.npz`` (port of ``bpp_tpu/cli.py`` ``cmd_run``).
+``--resume`` continues a run from its checkpoint: the sample file is cut
+back to the checkpoint's offset and appended to, so every sample is
+written once, and the summary reads all of them back.  ``--extend N``
+adds N samples to the resumed run.  The conditional a1b1 log, the
+species-tree PDF, chains and the per-locus print files are later work.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
@@ -27,6 +33,11 @@ def build_argparser() -> argparse.ArgumentParser:
         description="Bayesian multispecies-coalescent inference "
         "(PyTorch/CUDA port)")
     ap.add_argument("--cfile", help="inference control file")
+    ap.add_argument("--resume", metavar="CHK",
+                    help="continue the run checkpointed in CHK "
+                    "(<jobname>.chk.npz)")
+    ap.add_argument("--extend", type=int, default=0, metavar="N",
+                    help="with --resume: take N more samples")
     ap.add_argument("--simulate", help="simulation control file")
     ap.add_argument("--seed", type=int, default=None, help="override seed")
     ap.add_argument("--device", default="cuda",
@@ -38,41 +49,97 @@ def build_argparser() -> argparse.ArgumentParser:
     return ap
 
 
+def _column(path: str, name: str) -> np.ndarray:
+    """One named column of a sample file."""
+    with open(path) as fh:
+        j = fh.readline().rstrip("\n").split("\t").index(name)
+        return np.asarray([float(ln.split("\t")[j]) for ln in fh
+                           if ln.strip()])
+
+
 def cmd_run(args) -> int:
-    from .io.ctl import parse_ctl
+    from . import checkpoint as ckpt
+    from .io.ctl import parse_ctl_text
     from .loader import load_run
     from .mcmc.driver import Engine, resolve_device
-    from .output import McmcWriter, a00_summary, figtree_export
+    from .output import (
+        McmcWriter, a00_summary, figtree_export, read_mcmc_samples,
+    )
     from .summary.allfixed import hpd_interval
 
     device = resolve_device(args.device)
-    cfg = parse_ctl(args.cfile)
+    if args.resume:
+        meta, cfg_text, arrays = ckpt.load_checkpoint(args.resume)
+        extra = meta["extra"]
+        ctl_dir = extra["ctl_dir"]
+        cfg = parse_ctl_text(cfg_text, ctl_dir)
+        seed = meta["seed"]
+        # method.c:3194-3200: --extend lengthens a (finished) run
+        cfg = cfg.replace(nsample=extra["nsample"] + args.extend)
+    else:
+        with open(args.cfile) as fh:
+            cfg_text = fh.read()
+        ctl_dir = os.path.dirname(os.path.abspath(args.cfile))
+        cfg = parse_ctl_text(cfg_text, ctl_dir)
+        seed = args.seed
     if args.x64:
         cfg = cfg.replace(dtype="float64")
     run = load_run(cfg)
-    eng = Engine(run, seed=args.seed, device=device)
+    eng = Engine(run, seed=seed, device=device)
     if not args.quiet:
         b = run.batch
         print(f"bpp_tpu_torch: {len(run.loci)} loci | max seqs {b.max_tips} "
               f"| max patterns {b.max_patterns} | species {run.stree.n_tips}"
               f" | method {cfg.method.name} | seed {eng.seed} | device "
-              f"{device}", file=sys.stderr)
+              f"{device}" + (f" | RESUMED at it {meta['it']}"
+                             if args.resume else ""), file=sys.stderr)
 
     mcmc_path = cfg.mcmcfile or f"{cfg.jobname}.mcmc.txt"
-    writer = McmcWriter(mcmc_path, cfg, run.stree)
+    resume = None
+    if args.resume:
+        # exactly-once logging: cut back to the checkpointed offset
+        ckpt.truncate_file(mcmc_path, meta["mcmc_offset"])
+        state = ckpt.restore_state(eng.init_state(), arrays)
+        resume = (state, ckpt.rng_state(arrays), meta["it"],
+                  arrays["stats_acc"])
+    writer = McmcWriter(mcmc_path, cfg, run.stree, append=bool(args.resume))
 
     def on_sample(gen, row):
-        mubar_h = row.get("mubar_h")
+        def opt(key):
+            v = row.get(key)
+            return None if v is None else float(v)
+
         writer.write_sample(
             gen, row["theta"], row["tau"], float(row["lnl"]),
-            mubar_h=None if mubar_h is None else float(mubar_h))
+            mubar=opt("mubar"), mubar_h=opt("mubar_h"),
+            nu_col=opt("nu_col"), brate0=row.get("brate0"))
+
+    chk_path = f"{cfg.jobname}.chk.npz"
+
+    def on_checkpoint(state, gen, it, stats_acc):
+        writer.fp.flush()
+        ckpt.save_checkpoint(
+            chk_path, state, gen, it, stats_acc, cfg_text=cfg_text,
+            seed=eng.seed, mcmc_offset=writer.fp.tell(),
+            extra={"ctl_dir": ctl_dir, "nsample": cfg.nsample})
+        if not args.quiet:
+            print(f"  checkpoint -> {chk_path} (it {it})", file=sys.stderr)
 
     t0 = time.time()
     log = eng.run_mcmc(progress_every=0 if args.quiet else 1000,
-                       on_sample=on_sample)
+                       on_sample=on_sample, resume=resume,
+                       on_checkpoint=on_checkpoint if cfg.checkpoint
+                       else None)
     writer.close()
-    gen, theta, tau, lnl, _ = log.arrays()
-    report = a00_summary(cfg, run.stree, gen, theta, tau, lnl)
+    if args.resume:
+        # the summary covers the samples from before the checkpoint too
+        gen, theta, tau, lnl, _, _ = read_mcmc_samples(cfg, run.stree,
+                                                       mcmc_path)
+        mubar = _column(mcmc_path, "mu_bar") if writer.dated else None
+    else:
+        gen, theta, tau, lnl, _ = log.arrays()
+        mubar = log.mubar
+    report = a00_summary(cfg, run.stree, gen, theta, tau, lnl, mubar=mubar)
 
     # FigTree.tre (allfixed.c:571): A00 fixed multi-species tree
     if run.stree.n_tips > 1 and len(gen):
@@ -103,7 +170,13 @@ def cmd_simulate(args) -> int:
 
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
-    if args.cfile:
+    if args.extend and not args.resume:
+        print("--extend can only be used with --resume", file=sys.stderr)
+        return 1
+    if args.extend < 0:
+        print("--extend must not be negative", file=sys.stderr)
+        return 1
+    if args.cfile or args.resume:
         import torch
 
         from .mcmc.driver import NO_CUDA

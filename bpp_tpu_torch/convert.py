@@ -7,8 +7,9 @@ dictionaries of numpy arrays keyed by the field names of ``bpp_tpu``'s
 ``state.gt._asdict()`` with ``np.asarray`` on each value gives them), so
 a test can hand a JAX chain's state to the port and compare densities on
 the same trees.  ``"clock"`` is optional (the strict clock without
-estimated locus rates carries none).  Fields the port does not carry
-(MSC-I network arrays) must be None.
+estimated locus rates carries none), and so are the arrays ``"coal"``
+and ``"t2h"`` (integrated-out thetas) and ``"mubar"`` (tip dating).
+Fields the port does not carry (MSC-I network arrays) must be None.
 """
 
 from __future__ import annotations
@@ -65,5 +66,13 @@ def state_from_numpy(arrays: dict[str, dict[str, np.ndarray]], device="cpu",
     zeros = torch.zeros((gt.n_loci,), dtype=dtype, device=device)
     ft = (finetune_array(cfg, dtype, device) if cfg is not None
           else torch.zeros((N_FINETUNE,), dtype=dtype, device=device))
+
+    def opt(name, dt):
+        a = arrays.get(name)
+        return None if a is None else torch.as_tensor(
+            np.array(a), dtype=dt, device=device)
+
     return McmcState(gt=gt, sp=sp, subst=subst, logl=zeros, logpr=zeros,
-                     finetune=ft, clock=clock)
+                     finetune=ft, clock=clock,
+                     coal=opt("coal", torch.int64), t2h=opt("t2h", dtype),
+                     mubar=opt("mubar", dtype))

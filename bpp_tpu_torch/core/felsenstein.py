@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from ..trees.gtree import GTrees, inner_order
+from ..trees.gtree import BIG_AGE, GTrees, inner_order
 
 
 def branch_lengths(gt: GTrees, rate):
@@ -24,6 +24,45 @@ def branch_lengths(gt: GTrees, rate):
     blen = torch.where(gt.parent >= 0, torch.clamp(page - gt.age, min=0.0),
                        torch.zeros_like(page))
     return blen * rate[:, None]
+
+
+def relaxed_segments(gt: GTrees, sp, pops):
+    """Time each gene-tree edge spends in each population, ``[L, N, H]``.
+
+    The edge of node u spans ``[age_u, age_parent_u)`` and ascends from
+    population ``pops[u]``; its overlap with an ancestor-or-self population
+    h is ``max(0, min(t_parent, tau_top(h)) - max(t_u, tau_h))`` and 0 for
+    every other population (``visits = pptable[pops]``).  Depends on the
+    gene trees, the taus and the populations only, so a sweep over branch
+    rates computes it once."""
+    tau = sp.tau
+    par = sp.parent
+    partau = torch.where(par >= 0, tau[par.clamp(min=0)],
+                         torch.full_like(tau, BIG_AGE))
+    page = torch.gather(gt.age, 1, gt.parent.clamp(min=0))      # [L, N]
+    visits = sp.pptable[pops]                                   # [L, N, H]
+    lo = torch.maximum(gt.age[..., None], tau[None, None, :])
+    hi = torch.minimum(page[..., None], partau[None, None, :])
+    seg = torch.clamp(hi - lo, min=0.0)
+    return torch.where(visits, seg, torch.zeros_like(seg))
+
+
+def relaxed_branch_lengths(gt: GTrees, sp, pops, brate):
+    """Per-node branch lengths under a relaxed clock ``[L, N]``.
+
+    Port of ``bpp_tpu/core/felsenstein.py`` ``relaxed_branch_lengths`` for
+    plain species trees (src/locus.c:1151): the rate-weighted sum of an
+    edge's overlap with every population it crosses,
+
+      len_u = sum_h visits[u, h] * brate[l, h] * overlap(u, h)."""
+    return segment_lengths(gt, relaxed_segments(gt, sp, pops), brate)
+
+
+def segment_lengths(gt: GTrees, seg, brate):
+    """:func:`relaxed_branch_lengths` from the segments ``seg`` of
+    :func:`relaxed_segments`: the same numbers, bit for bit."""
+    blen = torch.sum(seg * brate[:, None, :], dim=-1)
+    return torch.where(gt.parent >= 0, blen, torch.zeros_like(blen))
 
 
 def tip_partials_from_codes(codes, dtype=torch.float32, n_states=4):

@@ -1,5 +1,7 @@
 """Copied from ``bpp_tpu/io/ctl.py`` (numpy / pure Python, unchanged but for
-its imports) so that the PyTorch port never loads that package.
+its imports and :func:`parse_ctl_text`, which parses the control-file
+text a checkpoint carries) so that the PyTorch port never loads that
+package.
 
 Inference control-file parser.
 
@@ -126,11 +128,17 @@ def _parse_finetune(value: str) -> Finetune:
 
 def parse_ctl(path: str) -> BppConfig:
     with open(path) as fh:
-        lines = fh.readlines()
-    cfg = parse_ctl_lines(lines)
+        text = fh.read()
     # resolve file paths relative to the ctl file's directory, like the C
     # binary run from that directory would
-    base = os.path.dirname(os.path.abspath(path))
+    return parse_ctl_text(text, os.path.dirname(os.path.abspath(path)))
+
+
+def parse_ctl_text(text: str, base: str) -> BppConfig:
+    """A control file's text, its file paths resolved against ``base``
+    (the control file's directory; a resumed run takes its text from the
+    checkpoint)."""
+    cfg = parse_ctl_lines(text.splitlines(True))
 
     def resolve(p: str | None) -> str | None:
         if p is None or os.path.isabs(p):

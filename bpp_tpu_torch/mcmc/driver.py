@@ -1,14 +1,17 @@
 """MCMC driver: the cmd_run equivalent (src/method.c:4939), PyTorch.
 
 Port of ``bpp_tpu/mcmc/driver.py`` cut to what is ported so far: A00 on
-a fixed species tree with a strict clock, on haploid, phased or unphased
-diploid DNA, with any DNA substitution model for all loci, Γ rates,
-locus rates and heredity scalars.  Every combination outside that raises
-``NotImplementedError`` naming the ROADMAP item that brings it.  The
-jitted ``lax.scan`` chunk becomes a Python loop over
-:meth:`Engine._step`; a step reads nothing back to the host (but for the
-Gamma-Dirichlet locus-rate prior's serial accept chain, one copy each
-way per iteration), and a chunk synchronises once, at its end.
+a fixed species tree, on haploid, phased or unphased diploid DNA, with
+any DNA substitution model for all loci, Γ rates, locus rates and
+heredity scalars, the strict or a relaxed clock (2, 3, 4), estimated or
+integrated-out thetas, tip dating, and checkpoint/resume.  Every
+combination outside that raises ``NotImplementedError`` naming the
+ROADMAP item that brings it.  The jitted ``lax.scan`` chunk becomes a
+Python loop over :meth:`Engine._step`; a step reads nothing back to the
+host but for the serial accept chains (the Gamma-Dirichlet priors of
+mu_i and nu_i, and every per-locus gene-tree move under integrated-out
+thetas: one copy each way per chain), and a chunk synchronises once, at
+its end.
 """
 
 from __future__ import annotations
@@ -28,11 +31,12 @@ from ..loader import RunData, init_tau_theta
 from ..trees.gtree import init_gtrees, species_arrays
 from . import clock_moves, moves, subst_moves
 from .state import (
-    FT_ALPHA, FT_FREQS, FT_GTAGE, FT_GTSPR, FT_LRHT, FT_MIX, FT_MUBAR,
-    FT_MUI, FT_QRATES, FT_TAU, FT_THETA, MV_ALPHA, MV_FREQS, MV_GTAGE,
-    MV_GTSPR, MV_LRHT, MV_MIX, MV_MUBAR, MV_MUI, MV_QRATES, MV_TAU,
-    MV_THETA, N_MOVES, Ctx, McmcState, SubstState, finetune_array,
-    make_logl_fn, make_logpr_fn, refresh_eigen,
+    FT_ALPHA, FT_BRATE, FT_FREQS, FT_GTAGE, FT_GTSPR, FT_LRHT, FT_MIX,
+    FT_MUBAR, FT_MUI, FT_NUBAR, FT_NUI, FT_QRATES, FT_TAU, FT_THETA,
+    MV_ALPHA, MV_BRATE, MV_FREQS, MV_GTAGE, MV_GTSPR, MV_LRHT, MV_MIX,
+    MV_MUBAR, MV_MUI, MV_NUBAR, MV_NUI, MV_QRATES, MV_TAU, MV_THETA,
+    N_MOVES, Ctx, McmcState, SubstState, finetune_array, make_logl_fn,
+    make_logpr_fn, refresh_eigen,
 )
 
 PJ_OPTIMUM = 0.30     # method.c:45 target pjump
@@ -50,7 +54,10 @@ MOVE_TO_FT = {
     MV_QRATES: FT_QRATES,
     MV_ALPHA: FT_ALPHA,
     MV_MUI: FT_MUI,
+    MV_NUI: FT_NUI,
     MV_MUBAR: FT_MUBAR,
+    MV_NUBAR: FT_NUBAR,
+    MV_BRATE: FT_BRATE,
 }
 
 
@@ -127,6 +134,33 @@ def _reference_guards(cfg: BppConfig, run: RunData):
             "theta integration ('e' flag) requires an inverse-"
             "gamma thetaprior (the conjugate form the analytic "
             "marginalization uses)")
+    if cfg.datefile:
+        # reference restrictions (cfile.c:2878-2891, 3486-3490): A00
+        # only, global clock, locusrate = 3 (MUTRATE_ONLY)
+        if cfg.est_stree or cfg.est_delimit:
+            raise NotImplementedError(
+                "tip dating (datefile) requires a fixed species tree (A00)")
+        if cfg.clock != Clock.GLOBAL:
+            raise NotImplementedError(
+                "tip dating requires the strict molecular clock")
+        if cfg.est_locusrate != 3:
+            raise ValueError(
+                "tip dating requires 'locusrate = 3 a_mubar b_mubar' "
+                "(mutation-rate-only mode)")
+        if st.n_hybrids > 0 or cfg.migration:
+            raise NotImplementedError(
+                "tip dating with MSC-I/MSC-M not yet supported")
+        if st.n_tips < 2:
+            # stree.c:9426 "Mu proposal not yet implemented for single
+            # population"
+            raise NotImplementedError(
+                "tip dating needs at least two species")
+        if run.tip_dates is None:
+            raise ValueError("datefile given but no dates were loaded")
+    if cfg.linked_theta and cfg.theta_integrated:
+        raise NotImplementedError(
+            "thetamodel cannot be combined with analytically "
+            "integrated-out thetas")
 
 
 def _slice_guards(cfg: BppConfig, run: RunData):
@@ -141,10 +175,6 @@ def _slice_guards(cfg: BppConfig, run: RunData):
         refuse("per-locus models (model = custom)", "10a-custom")
     if cfg.model.is_aa:
         refuse(f"the amino-acid model {cfg.model.name}", "10a-custom")
-    if cfg.clock != Clock.GLOBAL:
-        refuse("a relaxed clock", "10c")
-    if cfg.est_locusrate == 3:
-        refuse("locusrate = 3 (tip dating)", "10c")
     if cfg.est_delimit:
         refuse("species delimitation (A10/A11)", "10e")
     if cfg.est_stree:
@@ -155,14 +185,8 @@ def _slice_guards(cfg: BppConfig, run: RunData):
         refuse("MSC-M migration", "10g")
     if cfg.traitfile:
         refuse("morphological traits", "10h")
-    if cfg.datefile:
-        refuse("tip dating", "10c")
-    if cfg.theta_integrated:
-        refuse("integrated-out thetas", "10b")
     if cfg.linked_theta:
-        refuse("linked thetas (thetamodel)", "10b")
-    if cfg.checkpoint:
-        refuse("checkpoint/resume", "9")
+        refuse("linked thetas (thetamodel)", "10b-linked")
     if cfg.n_chains > 1:
         refuse("chains > 1", "10j")
     if cfg.check_every:
@@ -178,6 +202,7 @@ class SampleLog:
     tau: list = field(default_factory=list)       # [H]
     lnL: list = field(default_factory=list)
     logpr: list = field(default_factory=list)
+    mubar: list = field(default_factory=list)     # scalar; tip dating only
 
     def arrays(self):
         return (np.asarray(self.gen), np.stack(self.theta),
@@ -235,6 +260,11 @@ class Engine:
             n_pat=t(batch.n_pat, torch.int64),
             units=Units(batch.n_pat, batch.max_patterns, dev)
             if dev.type == "cuda" else None,
+            tip_dates=None if run.tip_dates is None
+            else t(run.tip_dates, self.dtype),
+            date_lmax=None if run.date_lmax is None
+            else t(run.date_lmax, self.dtype),
+            integrated=bool(cfg.theta_integrated),
         )
         self._logl_fn = make_logl_fn(self.ctx, cfg)
         self._logpr_fn = make_logpr_fn(self.ctx)
@@ -280,13 +310,25 @@ class Engine:
         """Initial tau/theta from the priors, gene trees from the MSC
         prior, near-uniform frequencies and exchangeabilities and the rate
         hierarchy, all drawn from the same numpy stream, in the same
-        order, as ``bpp_tpu``."""
+        order, as ``bpp_tpu``.  (``bpp_tpu`` also carries the hierarchical
+        start's mean rate in ``state.mubar`` under a relaxed clock, where
+        its summary then reports a constant ``mu_bar``; the port keeps
+        ``mubar`` for tip dating only.)"""
         cfg, run = self.cfg, self.run
         dev, dt = self.device, self.dtype
         rng = np.random.default_rng(self.seed)
-        init_tau_theta(cfg, run.stree, rng)
+        mubar0 = tip_ages0 = None
+        if run.tip_dates is not None:
+            # dated tips: ages date * mubar, every tau above its oldest
+            # dated descendant
+            mubar0 = cfg.locusrate_mubar_a / cfg.locusrate_mubar_b
+            tip_ages0 = run.tip_dates * mubar0
+            init_tau_theta(cfg, run.stree, rng,
+                           lconstraint=run.date_lmax * mubar0)
+        else:
+            init_tau_theta(cfg, run.stree, rng)
         gt = init_gtrees(int(rng.integers(2**31)), run.batch, run.stree,
-                         dtype=dt, device=dev)
+                         dtype=dt, device=dev, tip_ages=tip_ages0)
         sp = species_arrays(run.stree, dtype=dt, device=dev)
         L = run.batch.n_loci
         C = cfg.gamma_cats
@@ -325,13 +367,25 @@ class Engine:
         subst = subst_moves._derive_kappas(subst, cfg.model)
         subst = refresh_eigen(subst, cfg.model)
         clock = None
-        if cfg.est_locusrate == 1 and cfg.locusrate_prior in (0, 1):
-            clock = clock_moves.init_clock_state(
-                cfg, run.stree.n_nodes, mu0, rng, dt, dev)
+        if cfg.clock != Clock.GLOBAL or (
+                cfg.est_locusrate == 1 and cfg.locusrate_prior in (0, 1)):
+            if (cfg.clock != Clock.GLOBAL and cfg.est_locusrate == 1
+                    and cfg.locusrate_prior == 1):
+                # hierarchical start: mu_i jittered around mubar
+                # (method.c:4212-4214)
+                mub = (cfg.locusrate_mubar_a / cfg.locusrate_mubar_b
+                       if cfg.locusrate_mubar_b > 0 else cfg.locusrate_mubar)
+                mu0 = mub * (0.9 + 0.2 * rng.random(L))
+                subst = subst._replace(mu=t(mu0))
+            clock = clock_moves.init_clock_state(cfg, sp, mu0, rng)
         logl = self._logl_fn(gt, subst, sp, clock)
-        logpr, _, _ = self._logpr_fn(gt, sp, subst.heredity)
+        logpr, c0, t20 = self._logpr_fn(gt, sp, subst.heredity)
+        integ = cfg.theta_integrated
         return McmcState(gt=gt, sp=sp, subst=subst, logl=logl, logpr=logpr,
-                         finetune=finetune_array(cfg, dt, dev), clock=clock)
+                         finetune=finetune_array(cfg, dt, dev), clock=clock,
+                         coal=c0 if integ else None,
+                         t2h=t20 if integ else None,
+                         mubar=None if mubar0 is None else t(mubar0))
 
     # --- one iteration --------------------------------------------------------
 
@@ -354,13 +408,21 @@ class Engine:
             for _ in range(3):
                 state, pa = moves.spr_round_move(ctx, cfg, state, gen)
                 count(MV_GTSPR, pa)
-        state, pa = moves.theta_move(ctx, cfg, state, gen)
-        count(MV_THETA, pa)
+        if not cfg.theta_integrated:
+            state, pa = moves.theta_move(ctx, cfg, state, gen)
+            count(MV_THETA, pa)
         if not cfg.usedata_fix_gtree:
             state, pa = moves.tau_move(ctx, cfg, state, gen)
             count(MV_TAU, pa)
-            state, pa = moves.mixing_move(ctx, cfg, state, gen)
-            count(MV_MIX, pa)
+            # mixing would move the fixed tip dates (method.c:5600); the
+            # tip-dating mubar move takes its global-rescaling role
+            if ctx.tip_dates is None:
+                state, pa = moves.mixing_move(ctx, cfg, state, gen)
+                count(MV_MIX, pa)
+            else:
+                state, pa = clock_moves.tipdate_mubar_move(ctx, cfg, state,
+                                                           gen)
+                count(MV_MUBAR, pa)
 
         # substitution and rate moves (method.c:5616-5736); inclusion is
         # static per cfg.  The Dirichlet prior (3) uses the compensating-
@@ -387,16 +449,42 @@ class Engine:
             if cfg.locusrate_prior == 1 and cfg.locusrate_mubar_est:
                 state, pa = clock_moves.mubar_move(ctx, cfg, state, gen)
                 count(MV_MUBAR, pa)
+        # relaxed clocks: nu_i, nubar and the branch rates
+        # (method.c:5745-5835 order)
+        if cfg.clock not in (Clock.GLOBAL, Clock.SIMPLE):
+            state, pa = clock_moves.nui_move(ctx, cfg, state, gen)
+            count(MV_NUI, pa)
+            if cfg.locusrate_prior == 1:
+                state, pa = clock_moves.nubar_move(ctx, cfg, state, gen)
+                count(MV_NUBAR, pa)
+            state, pa = clock_moves.brate_move(ctx, cfg, state, gen)
+            count(MV_BRATE, pa)
+        elif cfg.clock == Clock.SIMPLE:
+            state, pa = clock_moves.brate_simple_move(ctx, cfg, state, gen)
+            count(MV_BRATE, pa)
         return state, stats
 
     def _trace_of(self, state: McmcState):
-        """Per-iteration sample record, kept on the device."""
+        """Per-iteration sample record, kept on the device: what the
+        columns of mcmc.txt need (``bpp_tpu/cli.py:232-281``)."""
+        cfg = self.cfg
         tr = {"theta": state.sp.theta, "tau": state.sp.tau,
               "lnl": torch.sum(state.logl), "logpr": torch.sum(state.logpr)}
-        if (self.cfg.est_locusrate == 1 and self.cfg.locusrate_prior == 1
-                and self.cfg.locusrate_mubar_est):
-            # the mu_bar column of mcmc.txt under the hierarchical prior
+        if state.mubar is not None:
+            # tip dating: mu_bar and the calendar-unit taus
+            tr["mubar"] = state.mubar
+        if (cfg.est_locusrate == 1 and cfg.locusrate_prior == 1
+                and cfg.locusrate_mubar_est):
+            # the mu_bar column under the hierarchical locus-rate prior
             tr["mubar_h"] = state.clock.mubar
+        if cfg.clock == Clock.SIMPLE:
+            tr["brate0"] = state.clock.brate[0]
+        elif cfg.clock != Clock.GLOBAL:
+            # one nu_bar (hierarchical) or nu (mean nu_i) column
+            nu, m = state.clock.nu, self.ctx.locus_mask
+            tr["nu_col"] = (state.clock.nubar if cfg.locusrate_prior == 1
+                            else torch.where(m, nu, torch.zeros_like(nu))
+                            .sum() / m.sum())
         return tr
 
     def _chunk(self, state: McmcState, n: int):
@@ -418,17 +506,34 @@ class Engine:
     # --- full run -------------------------------------------------------------
 
     def run_mcmc(self, progress_every: int = 1000, log_fp=None,
-                 on_sample=None) -> SampleLog:
+                 on_sample=None, resume=None,
+                 on_checkpoint=None) -> SampleLog:
         """Run the chain.  ``on_sample(gen, row)`` receives each sample as
-        a dict of host values (theta, tau, lnl, logpr and, under the
-        hierarchical locus-rate prior, mubar_h) when its chunk
-        ends; chunks end at the finetune marks, at it = 0 and at most
-        every 500 iterations, each with one device-to-host copy."""
+        a dict of host values (theta, tau, lnl, logpr and what
+        :meth:`_trace_of` adds for the run's columns) when its chunk
+        ends; chunks end at the finetune marks, at it = 0, at the
+        checkpoint generations and at most every 500 iterations, each
+        with one device-to-host copy.
+
+        ``resume = (state, rng_state, it, stats_acc)`` continues from a
+        checkpoint: the state as :meth:`init_state`'s template restored
+        it (so init_state has run), the generator's bytes, the iteration
+        and the move statistics.  ``on_checkpoint(state, gen, it,
+        stats_acc)`` fires at the generations ``checkpoint = initial
+        [step]`` schedules (method.c:6183-6188; generation 1 is the first
+        iteration after burn-in); each is a chunk bound, so a resumed
+        chain lands on them and draws exactly what the uninterrupted one
+        draws."""
         cfg = self.cfg
-        state = self.init_state()
-        self.gen.manual_seed(int(self.seed))
-        it = -cfg.burnin
-        stats_acc = np.zeros((N_MOVES, 2), np.float64)
+        if resume is None:
+            state = self.init_state()
+            self.gen.manual_seed(int(self.seed))
+            it = -cfg.burnin
+            stats_acc = np.zeros((N_MOVES, 2), np.float64)
+        else:
+            state, rng_state, it, stats_acc = resume
+            self.gen.set_state(rng_state)
+            stats_acc = np.array(stats_acc, np.float64)
         log = SampleLog()
         t0 = time.time()
         last_print = [0]
@@ -452,9 +557,14 @@ class Engine:
         quarter = max(1, total_burn // 4)
         marks = sorted({-total_burn + q * quarter for q in (1, 2, 3)}
                        | {0}) if auto_ft else [0]
+        next_ck = 1 << 60
+        if cfg.checkpoint and on_checkpoint is not None:
+            ck_initial, ck_step = cfg.checkpoint
+            next_ck = (ck_initial if it < ck_initial else
+                       it + ck_step if ck_step > 0 else 1 << 60)
 
         while it < total_main:
-            bounds = [m for m in marks if m > it] + [total_main]
+            bounds = [m for m in marks if m > it] + [total_main, next_ck]
             n = max(1, min(500, min(bounds) - it))
             state, stats, trace = self._chunk(state, n)
             stats_acc += stats.cpu().numpy()
@@ -474,8 +584,14 @@ class Engine:
                     log.tau.append(row["tau"])
                     log.lnL.append(float(row["lnl"]))
                     log.logpr.append(float(row["logpr"]))
+                    if "mubar" in row:
+                        log.mubar.append(float(row["mubar"]))
                     if on_sample is not None:
                         on_sample(g, row)
+            if it >= next_ck:
+                on_checkpoint(state, self.gen, it, stats_acc)
+                ck_step = cfg.checkpoint[1]
+                next_ck = it + ck_step if ck_step > 0 else 1 << 60
         return log
 
     def _reset_finetune(self, state: McmcState, stats_acc) -> McmcState:

@@ -1,7 +1,7 @@
 """MCMC moves, batched over loci (PyTorch).
 
-Port of ``bpp_tpu/mcmc/moves.py`` for the main path (plain species
-tree, strict clock, estimated and unlinked thetas):
+Port of ``bpp_tpu/mcmc/moves.py`` for plain species trees, with
+estimated (unlinked) or integrated-out thetas, any clock and dated tips:
 
   * gene-node ages    — gtree.c:4585 ``propose_ages`` (blocked by depth
                         parity: two jointly proposed phases)
@@ -14,23 +14,26 @@ tree, strict clock, estimated and unlinked thetas):
 Per-locus moves take independent accept decisions per locus with
 ``torch.where``; global moves sum per-locus terms and take one decision.
 No move reads a device value on the host, so a step runs without a
-synchronisation.
+synchronisation, but for integrated-out thetas: their density couples
+the loci, and the per-locus moves then take their decisions in a serial
+chain on the host (``notheta.scan_accept``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..config import BppConfig, PriorDist
+from ..config import BppConfig, Clock, PriorDist
 from ..trees.gtree import (
     BIG_AGE, GTrees, lift_population, mrca_and_leaves, mrca_species,
     node_depths,
 )
-from . import rng
+from . import notheta, rng
+from .clock_moves import lnprior_rates
 from .gibbs import gamma_conditional_approx
 from .state import (
     FT_GTAGE, FT_GTSPR, FT_MIX, FT_TAU, FT_THETA, Ctx, McmcState,
-    make_logl_fn, make_logpr_fn,
+    make_logl_fn, make_logpr_fn, tree_where,
 )
 
 MAXAGE_CAP = 999.0  # reference's "999 for compatibility" upper bound
@@ -50,6 +53,25 @@ def _suff_stats(ctx: Ctx, c, t2, heredity):
     csum = _psum_if_sharded(torch.where(
         mask_l, t2 / heredity[:, None], torch.zeros_like(t2)).sum(0))
     return ksum, csum
+
+
+def _corr_ln(cfg: BppConfig, state: McmcState) -> bool:
+    """The correlated clock's lognormal rate prior depends on the taus
+    (branch midpoints), so moves that change taus carry its delta
+    (stree.c:4763-4768, prop_mixing.c:189-194)."""
+    return (state.clock is not None and cfg.clock == Clock.CORRELATED
+            and cfg.clock_rate_prior == 0)
+
+
+def _integrated_delta(ctx: Ctx, cfg: BppConfig, state: McmcState, c_new,
+                      t2_new):
+    """Change of the coupled integrated-theta density when the caches move
+    from the state's to (c_new, t2_new)."""
+    hered = state.subst.heredity
+    return (notheta.total_integrated(cfg, c_new, t2_new, hered,
+                                     ctx.locus_mask)
+            - notheta.total_integrated(cfg, state.coal, state.t2h, hered,
+                                       ctx.locus_mask))
 
 
 # --------------------------------------------------------------------------
@@ -147,6 +169,10 @@ def tau_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
     age, tau = gt.age, sp0.tau
     dt = tau.dtype
     logl, logpr = state.logl, state.logpr
+    integ = cfg.theta_integrated
+    corr_ln = _corr_ln(cfg, state)
+    coal_c, t2_c = state.coal, state.t2h
+    lnrates = state.clock.lnrates if corr_ln else None
     nprop = zero
     nacc = zero
     par = sp0.parent
@@ -159,6 +185,10 @@ def tau_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
     for phase in range(n_phases):
         prop = is_inner_sp & (parity == phase) & (tau > 0.0)
         minage = torch.maximum(tau[lh], tau[rh])
+        if ctx.date_lmax is not None:
+            # tip dating: tau stays above the oldest dated sample below
+            # it (stree.c:5619 l_constraint check)
+            minage = torch.maximum(minage, ctx.date_lmax * state.mubar)
         maxage = torch.where(par >= 0, tau[par_s],
                              torch.full_like(tau, MAXAGE_CAP))
         # a degenerate window would make reflect() divide by zero
@@ -208,10 +238,14 @@ def tau_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
 
         gtn = gt._replace(age=age_new)
         logl_new = logl_fn(gtn, state.subst, sp_new, state.clock)
-        logpr_new, _, _ = logpr_fn(gtn, sp_new, state.subst.heredity,
-                                   msp=msp)
+        logpr_new, c_new, t2_new = logpr_fn(gtn, sp_new,
+                                            state.subst.heredity, msp=msp)
         lnacc = jac + _psum_if_sharded(torch.sum(logl_new - logl)) \
             + _psum_if_sharded(torch.sum(logpr_new - logpr))
+        if integ:
+            lnacc = lnacc + _integrated_delta(
+                ctx, cfg, state._replace(coal=coal_c, t2h=t2_c), c_new,
+                t2_new)
         # root-tau prior term (only when the root proposes this phase)
         cand = torch.sum(tau[NS:] > 0).to(dt)
         t_r, tn_r = tau[root], tau_new[root]
@@ -225,19 +259,30 @@ def tau_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
                 - b * (1.0 / tn_rs - 1.0 / t_rs)
         lnacc = lnacc + torch.where(prop[root], root_term,
                                     torch.zeros_like(root_term))
+        if corr_ln:
+            lnr_new = lnprior_rates(cfg, sp_new, state.subst.mu, state.clock)
+            lnacc = lnacc + _psum_if_sharded(torch.sum(lnr_new - lnrates))
 
         accept = rng.mh_accept(gen, lnacc) & prop.any()
         age = torch.where(accept, age_new, age)
         tau = torch.where(accept, tau_new, tau)
         logl = torch.where(accept, logl_new, logl)
         logpr = torch.where(accept, logpr_new, logpr)
+        if integ:
+            coal_c = torch.where(accept, c_new, coal_c)
+            t2_c = torch.where(accept, t2_new, t2_c)
+        if corr_ln:
+            lnrates = torch.where(accept, lnr_new, lnrates)
         np_ = prop.sum()
         nprop = nprop + np_
         nacc = nacc + torch.where(accept, np_, zero)
 
     new_state = state._replace(
         gt=gt._replace(age=age), sp=sp0._replace(tau=tau),
-        logl=logl, logpr=logpr)
+        logl=logl, logpr=logpr, coal=coal_c, t2h=t2_c)
+    if corr_ln:
+        new_state = new_state._replace(
+            clock=state.clock._replace(lnrates=lnrates))
     return new_state, (nprop, nacc)
 
 
@@ -293,42 +338,50 @@ def mixing_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
         lnacc = lnacc + torch.where(rt_old > 0, root_term,
                                     torch.zeros_like(root_term))
 
-    # Gibbs-style theta refresh at the scaled waiting times
-    _, cc, t2 = logpr_fn(gt, sp, state.subst.heredity, msp=msp)
-    ksum, csum = _suff_stats(ctx, cc, t2, state.subst.heredity)
-    cstar = csum * c
-    if gamma_prior:
-        a1, b1 = gamma_conditional_approx(a, b, ksum, cstar)
-        a1o, b1o = gamma_conditional_approx(a, b, ksum, csum)
+    if cfg.theta_integrated:
+        # no thetas to refresh (prop_mixing.c:339, gated on opt_est_theta)
+        th_new = sp.theta
     else:
-        a1, b1 = a + ksum, b + cstar
-        a1o, b1o = a + ksum, b + csum
-    th_new = b1 / rng.gamma(gen, a1)
-    th_old = sp.theta
-    lnacc = lnacc + torch.sum(rng.log_pdf_invgamma(th_old, a1o, b1o)
-                              - rng.log_pdf_invgamma(th_new, a1, b1))
-    if gamma_prior:
-        lnacc = lnacc + torch.sum((a - 1.0) * torch.log(th_new / th_old)
-                                  - b * (th_new - th_old))
-    else:
-        lnacc = lnacc + torch.sum((-a - 1.0) * torch.log(th_new / th_old)
-                                  - b * (1.0 / th_new - 1.0 / th_old))
+        # Gibbs-style theta refresh at the scaled waiting times
+        _, cc, t2 = logpr_fn(gt, sp, state.subst.heredity, msp=msp)
+        ksum, csum = _suff_stats(ctx, cc, t2, state.subst.heredity)
+        cstar = csum * c
+        if gamma_prior:
+            a1, b1 = gamma_conditional_approx(a, b, ksum, cstar)
+            a1o, b1o = gamma_conditional_approx(a, b, ksum, csum)
+        else:
+            a1, b1 = a + ksum, b + cstar
+            a1o, b1o = a + ksum, b + csum
+        th_new = b1 / rng.gamma(gen, a1)
+        th_old = sp.theta
+        lnacc = lnacc + torch.sum(rng.log_pdf_invgamma(th_old, a1o, b1o)
+                                  - rng.log_pdf_invgamma(th_new, a1, b1))
+        if gamma_prior:
+            lnacc = lnacc + torch.sum((a - 1.0) * torch.log(th_new / th_old)
+                                      - b * (th_new - th_old))
+        else:
+            lnacc = lnacc + torch.sum((-a - 1.0) * torch.log(th_new / th_old)
+                                      - b * (1.0 / th_new - 1.0 / th_old))
 
     gtn = gt._replace(age=age_new)
     spn = sp._replace(tau=tau_new, theta=th_new)
     logl_new = logl_fn(gtn, state.subst, spn, state.clock)
-    logpr_new, _, _ = logpr_fn(gtn, spn, state.subst.heredity, msp=msp)
+    logpr_new, c_new, t2_new = logpr_fn(gtn, spn, state.subst.heredity,
+                                        msp=msp)
     lnacc = lnacc + _psum_if_sharded(torch.sum(logl_new - state.logl))
     lnacc = lnacc + _psum_if_sharded(torch.sum(logpr_new - state.logpr))
+    cand = state._replace(gt=gtn, sp=spn, logl=logl_new, logpr=logpr_new)
+    if cfg.theta_integrated:
+        lnacc = lnacc + _integrated_delta(ctx, cfg, state, c_new, t2_new)
+        cand = cand._replace(coal=c_new, t2h=t2_new)
+    if _corr_ln(cfg, state):
+        lnr_new = lnprior_rates(cfg, spn, state.subst.mu, state.clock)
+        lnacc = lnacc + _psum_if_sharded(
+            torch.sum(lnr_new - state.clock.lnrates))
+        cand = cand._replace(clock=state.clock._replace(lnrates=lnr_new))
 
     accept = rng.mh_accept(gen, lnacc)
-    new_state = state._replace(
-        gt=gt._replace(age=torch.where(accept, age_new, gt.age)),
-        sp=sp._replace(tau=torch.where(accept, tau_new, sp.tau),
-                       theta=torch.where(accept, th_new, sp.theta)),
-        logl=torch.where(accept, logl_new, state.logl),
-        logpr=torch.where(accept, logpr_new, state.logpr))
-    return new_state, (1, accept.to(torch.int64))
+    return tree_where(accept, cand, state), (1, accept.to(torch.int64))
 
 
 # --------------------------------------------------------------------------
@@ -354,6 +407,8 @@ def age_block_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
     age = gt.age
     dt = age.dtype
     logl, logpr = state.logl, state.logpr
+    integ = cfg.theta_integrated
+    coal_c, t2_c = state.coal, state.t2h
     hered = state.subst.heredity
     nprop = torch.zeros((), dtype=torch.int64, device=dev)
     nacc = torch.zeros((), dtype=torch.int64, device=dev)
@@ -380,10 +435,17 @@ def age_block_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
         age_new = torch.where(mask, tnew, age)
         gtn = gt._replace(age=age_new)
         logl_new = logl_fn(gtn, state.subst, sp, state.clock)
-        logpr_new, _, _ = logpr_fn(gtn, sp, hered, msp=msp)
+        logpr_new, c_new, t2_new = logpr_fn(gtn, sp, hered, msp=msp)
         amask = ctx.locus_mask & mask.any(1)
         lnacc = (logl_new - logl) + (logpr_new - logpr)
-        accept = rng.mh_accept(gen, lnacc) & amask
+        if integ:
+            accept = notheta.scan_accept(
+                gen, cfg, lnacc, coal_c, t2_c, hered, c_new, t2_new, hered,
+                amask, ctx.locus_mask)
+            coal_c = torch.where(accept[:, None], c_new, coal_c)
+            t2_c = torch.where(accept[:, None], t2_new, t2_c)
+        else:
+            accept = rng.mh_accept(gen, lnacc) & amask
         logpr = torch.where(accept, logpr_new, logpr)
         age = torch.where(accept[:, None], age_new, age)
         logl = torch.where(accept, logl_new, logl)
@@ -391,7 +453,7 @@ def age_block_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
         nacc = nacc + accept.sum()
 
     new_state = state._replace(gt=gt._replace(age=age), logl=logl,
-                               logpr=logpr)
+                               logpr=logpr, coal=coal_c, t2h=t2_c)
     return new_state, (nprop, nacc)
 
 
@@ -523,13 +585,23 @@ def spr_round_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
 
     gtn = GTrees(nl, nr, np_, na)
     logl_new = logl_fn(gtn, state.subst, sp, state.clock)
-    logpr_new, _, _ = logpr_fn(gtn, sp, state.subst.heredity)
+    logpr_new, c_new, t2_new = logpr_fn(gtn, sp, state.subst.heredity)
     dprop = torch.log(torch.clamp(tcount, min=1).to(dt)
                       / torch.clamp(scount, min=1).to(dt))
     lnacc = (logl_new - logl) + (logpr_new - logpr) + dprop
-    accept = rng.mh_accept(gen, lnacc) & ok
+    new_state = state
+    if cfg.theta_integrated:
+        hered = state.subst.heredity
+        accept = notheta.scan_accept(
+            gen, cfg, lnacc, state.coal, state.t2h, hered, c_new, t2_new,
+            hered, ok, ctx.locus_mask)
+        new_state = state._replace(
+            coal=torch.where(accept[:, None], c_new, state.coal),
+            t2h=torch.where(accept[:, None], t2_new, state.t2h))
+    else:
+        accept = rng.mh_accept(gen, lnacc) & ok
     am = accept[:, None]
-    new_state = state._replace(
+    new_state = new_state._replace(
         gt=GTrees(torch.where(am, nl, left), torch.where(am, nr, right),
                   torch.where(am, np_, parent), torch.where(am, na, age)),
         logl=torch.where(accept, logl_new, logl),

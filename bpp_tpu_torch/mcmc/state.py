@@ -1,8 +1,9 @@
 """MCMC state and likelihood glue (PyTorch).
 
-Port of ``bpp_tpu/mcmc/state.py`` for the strict-clock, plain-tree main
-path.  The sampler state is one NamedTuple of tensors; moves return a
-new state and reject by ``torch.where(accept, new, old)``.
+Port of ``bpp_tpu/mcmc/state.py`` for plain species trees: the strict
+and the relaxed clocks, estimated or integrated-out thetas, tip dating.
+The sampler state is one NamedTuple of tensors; moves return a new state
+and reject by ``torch.where(accept, new, old)``.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..config import BppConfig, SubstModel
+from ..config import BppConfig, Clock, SubstModel
 from ..core import felsenstein as fe
 from ..core.fels import site_logl_fels
 from ..core.pack import site_logl_packed
@@ -57,7 +58,10 @@ MV_FREQS = 6
 MV_QRATES = 7
 MV_ALPHA = 8
 MV_MUI = 14
+MV_NUI = 15
 MV_MUBAR = 16
+MV_NUBAR = 17
+MV_BRATE = 18
 N_MOVES = 23
 
 
@@ -86,16 +90,17 @@ def refresh_eigen(subst: SubstState, model: SubstModel) -> SubstState:
 
 
 class ClockState(NamedTuple):
-    """Rate-hierarchy state.  Under the strict clock it exists only with
-    estimated locus rates (Gamma-Dirichlet or hierarchical prior), and
-    only ``mubar`` is read; the relaxed clocks' fields are carried so
-    that the starting state matches ``bpp_tpu``'s."""
+    """Rate-hierarchy state (clock = 2 IID / 3 CORR / 4 SIMPLE, or the
+    strict clock with estimated locus rates, where only ``mubar`` is
+    read).  ``brate[l, h]`` is the rate of species branch h at locus l;
+    under the SIMPLE clock the leading axis is 1 (one shared rate per
+    branch, scaled by mu_i)."""
 
-    brate: torch.Tensor     # [L, H] per-(locus, species-branch) rates
+    brate: torch.Tensor     # [L, H] (or [1, H] for SIMPLE)
     nu: torch.Tensor        # [L] per-locus rate variances
     mubar: torch.Tensor     # [] mean locus rate
     nubar: torch.Tensor     # [] mean rate variance
-    lnrates: torch.Tensor   # [L] cached branch-rate log prior
+    lnrates: torch.Tensor   # [L] (or [1]) cached branch-rate log prior
 
 
 class McmcState(NamedTuple):
@@ -106,6 +111,25 @@ class McmcState(NamedTuple):
     logpr: torch.Tensor      # [L] cached MSC log-density
     finetune: torch.Tensor   # [N_FINETUNE]
     clock: ClockState | None = None
+    # theta-integrated-out caches (None with estimated thetas): per-locus
+    # coalescent counts and waiting-time sums per population, the tensors
+    # behind notheta.total_integrated
+    coal: torch.Tensor | None = None    # [L, H] int64
+    t2h: torch.Tensor | None = None     # [L, H]
+    # tip dating (locusrate = 3): the mutation rate that turns calendar
+    # dates into substitution units; tip ages are tip_dates * mubar
+    mubar: torch.Tensor | None = None   # []
+
+
+def tree_where(cond, new, old):
+    """``torch.where(cond, new, old)`` over every tensor of two states of
+    the same structure (NamedTuples of tensors); ``None`` stays ``None``
+    and a field the candidate shares with the old state is kept as is."""
+    if new is old or new is None:
+        return old
+    if isinstance(new, tuple):
+        return type(new)(*(tree_where(cond, n, o) for n, o in zip(new, old)))
+    return torch.where(cond, new, old)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,6 +148,14 @@ class Ctx:
     n_pat: torch.Tensor | None = None       # [L] int64 likelihood patterns
     # the pruning kernels' static unit table (CUDA runs only)
     units: Units | None = None
+    # tip dating (datefile): calendar sample dates per sequence (tip age =
+    # date * mubar) and the oldest date below each species node
+    tip_dates: torch.Tensor | None = None   # [L, T]
+    date_lmax: torch.Tensor | None = None   # [H]
+    # thetas integrated out: logpr_fn's per-locus value is 0 (plain
+    # trees have no theta-free terms) and the density lives in
+    # notheta.total_integrated over the (coal, t2h) caches
+    integrated: bool = False
 
 
 def compute_pmats(gt: GTrees, subst: SubstState, model: SubstModel,
@@ -137,21 +169,41 @@ def compute_pmats(gt: GTrees, subst: SubstState, model: SubstModel,
 
 
 def make_logl_fn(ctx: Ctx, cfg: BppConfig):
-    """Returns logl(gt, subst, sp=None, clock=None) -> [L] (strict clock).
+    """Returns logl(gt, subst, sp=None, clock=None, seg=None) -> [L].
 
     A batch whose resolution map is the identity goes through
     ``core.pack.site_logl_packed`` (kernel K1).  A batch with a diploid
     resolution map goes wholly through ``core.fels.site_logl_fels``
     (kernel K2), then ``felsenstein.reduce_root`` averages the phase
     resolutions.  Either wrapper launches its kernel on CUDA tensors and
-    computes its plain version on CPU tensors."""
+    computes its plain version on CPU tensors.
+
+    Under a relaxed clock (``cfg.clock != GLOBAL``) ``sp`` and ``clock``
+    are required: the branch lengths ``relaxed_branch_lengths`` (times
+    mu_i under the SIMPLE clock) go to the same kernels as ``blen``.
+    ``seg`` is ``felsenstein.relaxed_segments`` of (gt, sp), for callers
+    that hold it across several rate proposals."""
     usedata = cfg.usedata
     model = cfg.model
     bfbeta = cfg.bfbeta
+    relaxed = cfg.clock != Clock.GLOBAL
+    simple = cfg.clock == Clock.SIMPLE
 
-    def logl_fn(gt: GTrees, subst: SubstState, sp=None, clock=None):
+    def logl_fn(gt: GTrees, subst: SubstState, sp=None, clock=None,
+                seg=None):
         if not usedata:
             return torch.zeros_like(ctx.weights[:, 0])
+        blen = None
+        if relaxed:
+            if sp is None or clock is None:
+                raise ValueError("relaxed clock: logl_fn requires (sp, clock)")
+            brate = clock.brate
+            if simple:
+                brate = brate * subst.mu[:, None]       # locus.c:1142
+            if seg is None:
+                seg = fe.relaxed_segments(
+                    gt, sp, assign_populations(gt, sp, ctx.tip_pop))
+            blen = fe.segment_lengths(gt, seg, brate)
         rk = torch.cat([subst.rates, subst.kappa1[:, None],
                         subst.kappa2[:, None]], dim=1)
         tree = (inner_order(gt), gt.left, gt.right, gt.parent, ctx.n_seq,
@@ -160,10 +212,11 @@ def make_logl_fn(ctx: Ctx, cfg: BppConfig):
         n_cats = subst.rates.shape[1]
         if ctx.res_map is None:
             ll = site_logl_packed(*tree, ctx.weights, model=model,
-                                  n_cats=n_cats, units=ctx.units)
+                                  n_cats=n_cats, blen=blen, units=ctx.units)
         else:
             site = site_logl_fels(*tree, model=model, n_cats=n_cats,
-                                  n_pat=ctx.n_pat, units=ctx.units)
+                                  blen=blen, n_pat=ctx.n_pat,
+                                  units=ctx.units)
             ll = fe.reduce_root(site.to(ctx.weights.dtype), ctx.weights,
                                 ctx.res_map, ctx.res_count)
         if bfbeta != 1.0:
@@ -178,7 +231,12 @@ def make_logpr_fn(ctx: Ctx):
     T2h [L,H]) for plain species trees.
 
     ``msp`` is the optional [L, N] species-MRCA of every gene node, a
-    topology-only quantity that moves fixing the topology compute once."""
+    topology-only quantity that moves fixing the topology compute once.
+    Dated tips take ``per_pop_stats_dated``.  With integrated thetas the
+    per-locus value is 0 (plain trees have no theta-free terms) and the
+    density is ``notheta.total_integrated`` of the returned stats."""
+    stats = (coal.per_pop_stats if ctx.tip_dates is None
+             else coal.per_pop_stats_dated)
 
     def logpr_fn(gt: GTrees, sp: SpeciesArrays, heredity, msp=None):
         if msp is not None:
@@ -186,7 +244,9 @@ def make_logpr_fn(ctx: Ctx):
                                    gt.age.clamp(0.0, BIG_AGE * 0.5))
         else:
             pops = assign_populations(gt, sp, ctx.tip_pop)
-        c, t2, _ = coal.per_pop_stats(gt, sp, pops, ctx.n_seq)
+        c, t2, _ = stats(gt, sp, pops, ctx.n_seq)
+        if ctx.integrated:
+            return torch.zeros_like(t2[:, 0]), c, t2
         lp = coal.msc_contrib(c, t2, sp.theta, heredity).sum(dim=1)
         lp = torch.where(ctx.locus_mask, lp, torch.zeros_like(lp))
         return lp, c, t2

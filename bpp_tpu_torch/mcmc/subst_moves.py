@@ -22,8 +22,9 @@ model for all loci:
 Every likelihood-touching proposal recomputes the full batched
 likelihood pass (one kernel launch on the card) and accepts or rejects
 per locus with ``torch.where`` over the ``SubstState`` tuple; nothing is
-read back to the host.  Per-locus models (``model = custom``) and
-integrated-out thetas are not ported yet.
+read back to the host (but for the heredity move with integrated-out
+thetas, whose serial accept chain runs on the host, ``notheta``).
+Per-locus models (``model = custom``) are not ported yet.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ import torch
 
 from ..config import BppConfig, SubstModel
 from ..core.gammarates import discrete_gamma_rates
-from . import rng
+from . import notheta, rng
 from .state import (
     FT_ALPHA, FT_FREQS, FT_LRHT, FT_QRATES, Ctx, McmcState, SubstState,
     make_logl_fn, make_logpr_fn, refresh_eigen,
@@ -218,6 +219,14 @@ def heredity_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
     h_new = torch.where(ctx.locus_mask, h_new, h)
     dprior = (cfg.heredity_alpha - 1.0) * torch.log(h_new / h) \
         - cfg.heredity_beta * (h_new - h)
+    if cfg.theta_integrated:
+        # the gene trees stay: only the heredity scaling of C_h moves
+        accept = notheta.scan_accept(
+            gen, cfg, dprior, state.coal, state.t2h, h, state.coal,
+            state.t2h, h_new, ctx.locus_mask, ctx.locus_mask)
+        return (state._replace(subst=state.subst._replace(
+            heredity=torch.where(accept, h_new, h))),
+            (ctx.locus_mask.sum(), accept.sum()))
     logpr_new, _, _ = make_logpr_fn(ctx)(state.gt, state.sp, h_new)
     lnacc = dprior + (logpr_new - state.logpr)
     accept = rng.mh_accept(gen, lnacc) & ctx.locus_mask

@@ -1,5 +1,7 @@
 """Copied from ``bpp_tpu/output.py`` (numpy / pure Python, unchanged but for
-its imports) so that the PyTorch port never loads that package.
+its imports and the SIMPLE clock's rate columns, which are every node of a
+plain species tree here) so that the PyTorch port never loads that
+package.
 
 Run outputs: mcmc.txt sample log and the A00 summary report.
 
@@ -178,13 +180,9 @@ class McmcWriter:
         self._nu_bar_col = cfg.locusrate_prior == 1
         self.rate_nodes = []
         if self.clock_simple:
-            from .trees.gtree import species_arrays
-            sp = species_arrays(st)
-            rn = np.asarray(sp.rate_nodes) if sp.rate_nodes is not None \
-                else np.ones(st.n_nodes, bool)
-            order = (list(range(st.n_tips)) + self.inner
-                     + list(range(st.n_tips + st.n_inner, st.n_nodes)))
-            self.rate_nodes = [i for i in order if rn[i]]
+            # every population of a plain species tree carries a rate (the
+            # zero-length MSC-I segments that do not wait for item 10f)
+            self.rate_nodes = list(range(st.n_tips)) + self.inner
         if not append:
             self._write_header()
         else:

@@ -1,7 +1,8 @@
 """MSC (multispecies coalescent) log-density, batched over loci (PyTorch).
 
 Port of ``bpp_tpu/trees/coalescent.py`` (``per_pop_stats``,
-``msc_contrib``, ``msc_logprob``) for plain species trees.  Per
+``per_pop_stats_dated``, ``msc_contrib``, ``msc_logprob``,
+``msc_logprob_integrated``) for plain species trees.  Per
 population h with n_in entering lineages and k coalescences at sorted
 times t_1..t_k inside [tau_h, tau_parent_h):
 
@@ -93,6 +94,49 @@ def per_pop_stats(gt: GTrees, sp: SpeciesArrays, pops, n_seq):
     return coal, T2h, n_in
 
 
+def per_pop_stats_dated(gt: GTrees, sp: SpeciesArrays, pops, n_seq):
+    """Serial-sampling (dated tips) variant of :func:`per_pop_stats`.
+
+    A dated tip enters its population at its own age, not at ``tau_h``,
+    so the count does not only decrease and the Abel form does not hold.
+    T2h is the summed pairwise coexistence time of distinct lineage
+    edges inside ``[tau_h, end_h)`` instead (O(N^2 H)); equal to
+    :func:`per_pop_stats` when every tip age is 0."""
+    L, N = pops.shape
+    T = gt.n_tips
+    H = sp.n_nodes
+    dev = pops.device
+    node_idx = torch.arange(N, device=dev)[None, :]
+    is_tip = node_idx < n_seq[:, None]
+    is_inner = (node_idx >= T) & (node_idx < T + n_seq[:, None] - 1)
+    valid = is_tip | is_inner
+
+    tau = sp.tau
+    end = _pop_end(sp)
+    page = _parent_age(gt)
+    pres = sp.pptable[pops] & valid[..., None]                 # [L, N, H]
+
+    inh = pres & (gt.age[..., None] <= tau) & (tau < page[..., None])
+    n_in = inh.sum(dim=1)                                      # [L, H]
+    ev_in_h = (torch.where(is_inner, pops, -1)[..., None]
+               == torch.arange(H, device=dev))                  # [L, N, H]
+    coal = ev_in_h.sum(dim=1)                                  # [L, H]
+
+    # presence interval of edge u inside pop h (empty: lo == hi == end)
+    lo = torch.minimum(torch.maximum(gt.age[..., None], tau), end)
+    hi = torch.minimum(torch.maximum(page[..., None], tau), end)
+    lo = torch.where(pres, lo, end.expand_as(lo))
+    hi = torch.where(pres, hi, end.expand_as(hi))
+    ov = torch.clamp(
+        torch.minimum(hi[:, :, None], hi[:, None, :])
+        - torch.maximum(lo[:, :, None], lo[:, None, :]), min=0.0)
+    # the diagonal is excluded, not subtracted: root intervals reach 1e12
+    # and a subtraction would cancel catastrophically in float32
+    off = 1.0 - torch.eye(N, dtype=ov.dtype, device=dev)
+    T2h = (ov * off[None, :, :, None]).sum((1, 2))             # [L, H]
+    return coal, T2h, n_in
+
+
 def msc_contrib(coal, T2h, theta, heredity):
     """Per-(locus, population) MSC log-density contributions ``[L, H]``."""
     th = torch.clamp(theta[None, :] * heredity[:, None], min=1e-300)
@@ -103,3 +147,21 @@ def msc_logprob(gt: GTrees, sp: SpeciesArrays, pops, n_seq, heredity):
     """Total MSC log-density per locus ``[L]`` (theta-estimated path)."""
     coal, T2h, _ = per_pop_stats(gt, sp, pops, n_seq)
     return msc_contrib(coal, T2h, sp.theta, heredity).sum(dim=1)
+
+
+def msc_logprob_integrated(coal, T2h, heredity, a, b, locus_mask):
+    """The theta-integrated-out total log density over all loci (scalar).
+
+    Each population's theta is marginalized under InvGamma(a, b):
+      2^K b^a Gamma(a+K) / (Gamma(a) (b+C)^(a+K)) * prod_l h_l^(-k_l)
+    with K = sum_l k_l and C = sum_l T2_l / h_l over the real loci."""
+    mask = locus_mask[:, None]
+    zero = torch.zeros_like(T2h)
+    K = torch.where(mask, coal.to(T2h.dtype), zero).sum(0)          # [H]
+    C = torch.where(mask, T2h / heredity[:, None], zero).sum(0)     # [H]
+    hterm = torch.where(
+        mask, coal * torch.log(2.0 / heredity[:, None]), zero).sum(0)
+    a_t = torch.full_like(C, a)
+    lg = (a * torch.log(torch.full_like(C, b)) - torch.lgamma(a_t)
+          + torch.lgamma(a + K) - (a + K) * torch.log(b + C))
+    return torch.sum(hterm + lg)

@@ -373,9 +373,10 @@ def simulate_gtree_host(
 
 
 def init_gtrees(seed: int, batch, st, dtype=torch.float64,
-                device="cpu") -> GTrees:
+                device="cpu", tip_ages=None) -> GTrees:
     """Simulate starting gene trees for every locus (incl. padded ones)
-    on the host, with the same numpy stream as ``bpp_tpu``."""
+    on the host, with the same numpy stream as ``bpp_tpu``.  ``tip_ages``
+    ``[L, T]`` are the ages of dated tips (tip dating)."""
     if st.n_hybrids > 0:
         raise NotImplementedError(
             "MSC-I networks are not ported yet (ROADMAP Queue 1 item 10f)")
@@ -386,13 +387,14 @@ def init_gtrees(seed: int, batch, st, dtype=torch.float64,
     right = np.zeros((L, N), np.int64)
     parent = np.full((L, N), -1, np.int64)
     age = np.full((L, N), BIG_AGE, np.float64)
-    age[:, :T] = 0.0
+    age[:, :T] = 0.0 if tip_ages is None else tip_ages
     theta = np.maximum(st.theta, 1e-6)
     for li in range(L):
         n = int(batch.n_seq[li])
         gl, gr, gp, ga, _ = simulate_gtree_host(
             rng, batch.tip_pop[li, :n], st.left, st.right, st.parent,
-            st.tau, theta)
+            st.tau, theta,
+            tip_ages=None if tip_ages is None else tip_ages[li, :n])
         # local inner ids n..2n-2 -> global T..T+n-2
         local = np.arange(2 * n - 1)
         gmap = np.where(local < n, local, local - n + T)

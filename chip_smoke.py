@@ -52,8 +52,35 @@ Phases, in order; any failure exits non-zero:
               mu_i 1; heredity and mubar touch no likelihood) plus 1 for
               the initial state, K1 never, and mcmc.txt must hold 40
               finite samples with moving theta/tau/mu_bar.
+9. given    — the kernels on inputs only a relaxed clock or tip dating
+              gives them, each against its float64 plain version on the
+              four model families under both CLV stores: K1 with the
+              branch lengths (``blen``) of a relaxed-clock chain's state
+              (the haploid data, clock = 2) and on the dated gene trees
+              of a tip-dating chain (nonzero tip ages, no ``blen``); K2
+              with the ``blen`` of a SIMPLE-clock chain on the diploid
+              data (per pattern and per locus); and ``[profile]`` lines of
+              those three steps;
+10. main 3  — ``cli.main`` runs the haploid JC69 data with hierarchical
+              locus rates and an IID relaxed clock (``clock = 2 10 100 5
+              iid G``): K1 launched 8 + H = 15 times per iteration (the
+              branch-rate sweep adds one pass per species branch; mu_i, nu_i
+              and nubar touch no likelihood under clock 2) plus 1, K2
+              never; mcmc.txt moving theta/tau/mu_bar/nu_bar;
+11. main 4  — the diploid chain of main 2 with ``clock = 4 2.0``: K2
+              launched 12 + H = 19 times per iteration plus 1, K1 never;
+              moving theta/tau/mu_bar and the r: rate columns;
+12. main 5  — the haploid data with integrated-out thetas (``thetaprior =
+              invgamma 3 0.06 int``), dates in [0, 1] from a datefile the
+              script writes, ``locusrate = 3 10 10000`` and ``checkpoint =
+              25 0``: run whole, then ``--resume`` from its checkpoint; the
+              resumed mcmc.txt must equal the whole run's byte for byte,
+              with no theta column and a moving mu_bar, and the summary
+              must count every sample; K1 launched 8 times per iteration
+              (the tip-dating mubar move replaces mixing) plus 1 at init,
+              in each run.
 
-9. shapes   — both kernels against their plain versions (float64) on what
+13. shapes  — both kernels against their plain versions (float64) on what
               the bench data lacks: 1..16 sequences per locus in one batch,
               caterpillar and balanced trees, 0 to 200 patterns a locus
               (K1 sums loci of more than 128 patterns in rounds), HKY+G4;
@@ -94,7 +121,7 @@ RUN_CTL = """\
 seed = 11
 seqfile = sim.phy
 Imapfile = sim.Imap.txt
-jobname = out
+jobname = {job}
 species&tree = 4 A B C D
                  4 4 4 4
                 ((A, B), (C, D));
@@ -108,7 +135,7 @@ print = 1 0 0 0
 burnin = {burnin}
 sampfreq = 1
 nsample = {nsample}
-"""
+{extra}"""
 
 SIM2_CTL = """\
 seed = 137
@@ -131,7 +158,7 @@ RUN2_CTL = """\
 seed = 11
 seqfile = sim2.phy
 Imapfile = sim2.Imap.txt
-jobname = out2
+jobname = {job}
 species&tree = 4 A B C D
                  2 2 2 2
                 ((A, B), (C, D));
@@ -150,13 +177,24 @@ print = 1 0 0 0
 burnin = {burnin}
 sampfreq = 1
 nsample = {nsample}
-"""
+{extra}"""
+
+# the new configurations' lines (main 3, main 4, main 5)
+RELAXED = "locusrate = 1 10 10 5 iid\nclock = 2 10 100 5 iid G\n"
+SIMPLE = "clock = 4 2.0\n"
+DATED = ("thetaprior = invgamma 3 0.06 int\ndatefile = dates.txt\n"
+         "locusrate = 3 10 10000\ncheckpoint = {ck} 0\n")
+CHECKPOINT_AT = 25
 
 N_LOCI = 1000
 BURNIN, NSAMPLE = 10, 40
 PASSES_PER_ITER = 8        # age 2 + SPR 3 + tau 2 + mixing 1
 # the diploid HKY+G4 chain adds freqs 1 + qrates 1 + alpha 1 + mu_i 1
 PASSES_PER_ITER_2 = PASSES_PER_ITER + 4
+H_BRANCHES = 7             # species branches of ((A,B),(C,D)): one pass each
+PASSES_PER_ITER_3 = PASSES_PER_ITER + H_BRANCHES
+PASSES_PER_ITER_4 = PASSES_PER_ITER_2 + H_BRANCHES
+PASSES_PER_ITER_5 = PASSES_PER_ITER     # tipdate mubar replaces mixing
 TOL_SITE = 2e-3           # per-pattern |dlnL| of K2, float32
 TOL_LNL = 0.02            # f32 bound of tests/test_kernel_consistency.py
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -371,16 +409,17 @@ def check_chain_output(job, nsample, moving):
     return data
 
 
-def run_chain(ctl, job, iters, expect, moving, label, smi):
-    """Drive one chain through the CLI with both launch counts set to 0
-    just before and read just after; ``expect`` = (K1, K2) launches."""
+def run_chain(argv, job, iters, expect, moving, label, smi):
+    """Drive one chain through the CLI (``argv``) with both launch counts
+    set to 0 just before and read just after; ``expect`` = (K1, K2)
+    launches over ``iters`` iterations and the initial state."""
     import torch
 
     from bpp_tpu_torch import cli
     from bpp_tpu_torch.core import fels, pack
     pack.LAUNCHES = fels.LAUNCHES = 0
     t0 = time.perf_counter()
-    rc = cli.main(["--cfile", ctl, "--quiet"])
+    rc = cli.main(argv + ["--quiet"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     got = (pack.LAUNCHES, fels.LAUNCHES)
@@ -396,7 +435,8 @@ def run_chain(ctl, job, iters, expect, moving, label, smi):
                              "store; at 16 tips it keeps its CLVs in shared "
                              "memory and allocates no scratch")
     data = check_chain_output(job, NSAMPLE, moving)
-    print(f"[{label}] cli --cfile {ctl}: {iters} iterations, wall {wall:.1f} "
+    print(f"[{label}] cli {' '.join(argv)}: {iters} iterations, wall "
+          f"{wall:.1f} "
           f"s (load + init + chain + summary), {iters / wall:.2f} iters/s "
           f"overall | K1 launches {got[0]} | K2 launches {got[1]} | CLV store "
           f"{store} | mean lnL {data[:, -1].mean():.3f} | {smi}")
@@ -543,6 +583,89 @@ def hold_kernel(label, kernel_name, mod, state, ctx, batch, dev, smi,
     return errs, rows
 
 
+def relaxed_blen(eng, state, dtype):
+    """The relaxed-clock branch lengths ``[L, N]`` of ``state`` in
+    ``dtype``: what the engine hands the kernels as ``blen``."""
+    from bpp_tpu_torch.config import Clock
+    from bpp_tpu_torch.core import felsenstein as fe
+    from bpp_tpu_torch.trees.gtree import assign_populations
+    gt = state.gt._replace(age=state.gt.age.to(dtype))
+    sp = state.sp._replace(tau=state.sp.tau.to(dtype))
+    brate = state.clock.brate.to(dtype)
+    if eng.cfg.clock == Clock.SIMPLE:
+        brate = brate * state.subst.mu.to(dtype)[:, None]
+    pops = assign_populations(gt, sp, eng.ctx.tip_pop)
+    return fe.relaxed_branch_lengths(gt, sp, pops, brate)
+
+
+def hold_given(label, eng, state, smi, blen_of=None):
+    """``[given]``: the kernel of ``eng``'s batch (K1, or K2 and
+    ``reduce_root`` with a diploid map) against its float64 plain version
+    on ``state``'s gene trees, for the four model families under both CLV
+    stores.  ``blen_of(dtype)`` gives the branch lengths both get (None:
+    the ages, dated tips included).  Returns (max per-locus |dlnL|, max
+    per-pattern |dlnL| or None)."""
+    import torch
+
+    from bpp_tpu_torch.core import fels, pack
+    from bpp_tpu_torch.core import felsenstein as fe
+    from bpp_tpu_torch.testing import fixed_subst
+    ctx = eng.ctx
+    L = state.gt.n_loci
+    k2 = ctx.res_map is not None
+    mod = fels if k2 else pack
+    b32 = None if blen_of is None else blen_of(torch.float32).contiguous()
+    b64 = None if blen_of is None else blen_of(torch.float64)
+    w64 = ctx.weights.double()
+    worst, site_worst = 0.0, 0.0
+    for model_name, n_cats in MODELS:
+        model, s32 = fixed_subst(model_name, n_cats, L, torch.float32,
+                                 ctx.weights.device)
+        _, s64 = fixed_subst(model_name, n_cats, L, torch.float64,
+                             ctx.weights.device)
+        a32 = pass_args(state, s32, ctx, torch.float32)
+        a64 = pass_args(state, s64, ctx, torch.float64)
+        kw = dict(model=model, n_cats=n_cats)
+        for store in ("shared", "global"):
+            if k2:
+                got_s = fels.site_logl_fels(
+                    *a32[:-1], blen=b32, n_pat=ctx.n_pat, units=ctx.units,
+                    clv_store=store, **kw).double()
+                want_s = fels.site_logl_fels_ref(*a64[:-1], blen=b64,
+                                                 n_pat=ctx.n_pat, **kw)
+                site = float((got_s - want_s).abs().max())
+                site_worst = max(site_worst, site)
+                got = fe.reduce_root(got_s, w64, ctx.res_map, ctx.res_count)
+                want = fe.reduce_root(want_s, w64, ctx.res_map,
+                                      ctx.res_count)
+            else:
+                site = 0.0
+                got = pack.site_logl_packed(*a32, blen=b32, units=ctx.units,
+                                            clv_store=store, **kw).double()
+                want = pack.site_logl_packed_ref(*a64, blen=b64, **kw)
+            torch.cuda.synchronize()
+            if mod.CLV_STORE != store:
+                raise AssertionError(f"[given] {label}: the {mod.CLV_STORE}"
+                                     f" store ran, {store} was asked for")
+            mask = ctx.locus_mask
+            if not bool(torch.isfinite(got[mask]).all()):
+                raise AssertionError(f"[given] {label} {model_name}: "
+                                     "non-finite lnL")
+            err = float((got - want)[mask].abs().max())
+            if not (err < TOL_LNL and site < TOL_SITE):
+                raise AssertionError(
+                    f"[given] {label} {model_name} ({store} store): kernel "
+                    f"and plain version differ by {err} lnL a locus, "
+                    f"{site} a pattern")
+            worst = max(worst, err)
+    site_txt = (f" | max per-pattern |dlnL| {site_worst:.3e} (tol "
+                f"{TOL_SITE})" if k2 else "")
+    print(f"[given] {label}: {'K2' if k2 else 'K1'} vs its float64 plain "
+          f"version on JC69, HKY+G4, TN93, GTR+G4 x shared/global store: max "
+          f"per-locus |dlnL| {worst:.3e} (tol {TOL_LNL}){site_txt} | {smi}")
+    return worst, (site_worst if k2 else None)
+
+
 def launch_floor(dev, smi):
     """``[floor]``: an empty kernel's device time (profiler) and one launch
     of it seen from the host (CUDA events): what no kernel goes below."""
@@ -664,9 +787,18 @@ def main() -> int:
             with open("sim.ctl", "w") as f:
                 f.write(SIM_CTL.format(nloci=N_LOCI))
             run_simulation("sim.ctl")
-            with open("run.ctl", "w") as f:
-                f.write(RUN_CTL.format(nloci=N_LOCI, burnin=BURNIN,
-                                       nsample=NSAMPLE))
+            rng = np.random.default_rng(137)
+            with open("dates.txt", "w") as f:
+                for sp_name in "abcd":
+                    for k in range(1, 5):
+                        f.write(f"{sp_name}{k} {rng.uniform(0, 1):.3f}\n")
+            for ctl, job, extra in (
+                    ("run.ctl", "out", ""), ("run3.ctl", "out3", RELAXED),
+                    ("run5.ctl", "out5", DATED.format(ck=CHECKPOINT_AT))):
+                with open(ctl, "w") as f:
+                    f.write(RUN_CTL.format(nloci=N_LOCI, burnin=BURNIN,
+                                           nsample=NSAMPLE, job=job,
+                                           extra=extra))
             print(f"[data 1] {N_LOCI} haploid loci simulated in "
                   f"{time.perf_counter() - t0:.1f} s")
 
@@ -697,17 +829,93 @@ def main() -> int:
 
             # 5. main path 1, through the CLI
             launches1, _ = run_chain(
-                "run.ctl", "out", iters, (PASSES_PER_ITER * iters + 1, 0),
-                ("theta", "tau"), "main 1", smi)
+                ["--cfile", "run.ctl"], "out", iters,
+                (PASSES_PER_ITER * iters + 1, 0), ("theta", "tau"), "main 1",
+                smi)
+
+            # 9. K1 on relaxed-clock branch lengths and on dated tips
+            run3 = load_run_from_ctl("run3.ctl")
+            eng3, state3, ips3 = warm_engine(run3, dev)
+            profile_step(eng3, state3, 1e3 / ips3, smi, "pack_logl_kernel",
+                         "JC69 relaxed clock 2 step", PASSES_PER_ITER_3)
+            strict = fe.branch_lengths(state3.gt, torch.ones_like(
+                state3.subst.mu))
+            relaxed = relaxed_blen(eng3, state3, torch.float32)
+            if bool(torch.isclose(relaxed, strict).all()):
+                raise AssertionError("the relaxed clock's branch lengths "
+                                     "equal the strict clock's")
+            err_k1_blen, _ = hold_given(
+                "K1, blen of the clock = 2 chain", eng3, state3, smi,
+                lambda dt: relaxed_blen(eng3, state3, dt))
+            print(f"[kernel 1] engine step (JC69, clock = 2, {N_LOCI} "
+                  f"loci): {ips3:.2f} iters/s after warm-up | {smi}")
+            del eng3, state3
+            run5 = load_run_from_ctl("run5.ctl")
+            eng5, state5, ips5 = warm_engine(run5, dev)
+            T = state5.gt.n_tips
+            if not bool((state5.gt.age[:, :T] > 0).any()):
+                raise AssertionError("the dated chain has no dated tip")
+            profile_step(eng5, state5, 1e3 / ips5, smi, "pack_logl_kernel",
+                         "JC69 dated tips, integrated thetas step",
+                         PASSES_PER_ITER_5)
+            err_k1_dated, _ = hold_given("K1, dated tips", eng5, state5,
+                                         smi)
+            print(f"[kernel 1] engine step (JC69, dated, thetas integrated "
+                  f"out, {N_LOCI} loci): {ips5:.2f} iters/s after warm-up | "
+                  f"{smi}")
+            del eng5, state5
+
+            # 10. main path 3: the IID relaxed clock
+            launches3, _ = run_chain(
+                ["--cfile", "run3.ctl"], "out3", iters,
+                (PASSES_PER_ITER_3 * iters + 1, 0),
+                ("theta", "tau", "mu_bar", "nu_bar"), "main 3", smi)
+
+            # 12. main path 5: integrated thetas, dated tips, checkpoint,
+            # resume
+            launches5, _ = run_chain(
+                ["--cfile", "run5.ctl"], "out5", iters,
+                (PASSES_PER_ITER_5 * iters + 1, 0), ("tau", "mu_bar"),
+                "main 5", smi)
+            os.replace("out5.mcmc.txt", "out5.whole.txt")
+            with open("out5.whole.txt", "rb") as f:
+                whole = f.read()
+            with open("out5.mcmc.txt", "wb") as f:
+                f.write(whole)
+            rest = NSAMPLE - CHECKPOINT_AT
+            resumed, _ = run_chain(
+                ["--resume", "out5.chk.npz"], "out5", rest,
+                (PASSES_PER_ITER_5 * rest + 1, 0), ("tau", "mu_bar"),
+                "main 5 resumed", smi)
+            with open("out5.mcmc.txt", "rb") as f:
+                again = f.read()
+            if again != whole:
+                raise AssertionError("main 5: the resumed mcmc.txt differs "
+                                     "from the uninterrupted run's")
+            with open("out5.txt") as f:
+                summary = f.read()
+            if f"({NSAMPLE} samples" not in summary:
+                raise AssertionError("main 5: the resumed summary does not "
+                                     f"count all {NSAMPLE} samples")
+            if "theta" in whole.split(b"\n")[0].decode():
+                raise AssertionError("main 5: theta columns with thetas "
+                                     "integrated out")
+            print(f"[main 5] --resume at it {CHECKPOINT_AT}: mcmc.txt "
+                  f"byte-identical to the whole run's ({len(whole)} bytes), "
+                  f"summary over {NSAMPLE} samples, no theta column | {smi}")
+            launches5 += resumed
 
             # 6. data 2
             t0 = time.perf_counter()
             with open("sim2.ctl", "w") as f:
                 f.write(SIM2_CTL.format(nloci=N_LOCI))
             run_simulation("sim2.ctl")
-            with open("run2.ctl", "w") as f:
-                f.write(RUN2_CTL.format(nloci=N_LOCI, burnin=BURNIN,
-                                        nsample=NSAMPLE))
+            for ctl, job, extra in (("run2.ctl", "out2", ""),
+                                    ("run4.ctl", "out4", SIMPLE)):
+                with open(ctl, "w") as f:
+                    f.write(RUN2_CTL.format(nloci=N_LOCI, burnin=BURNIN,
+                                            nsample=NSAMPLE, job=job,
+                                            extra=extra))
             run2 = load_run_from_ctl("run2.ctl")
             b2 = run2.batch
             print(f"[data 2] {N_LOCI} diploid loci simulated and loaded in "
@@ -756,11 +964,31 @@ def main() -> int:
 
             # 8. main path 2, through the CLI
             _, launches2 = run_chain(
-                "run2.ctl", "out2", iters,
+                ["--cfile", "run2.ctl"], "out2", iters,
                 (0, PASSES_PER_ITER_2 * iters + 1),
                 ("theta", "tau", "mu_bar"), "main 2", smi)
 
-            # 9. shapes the bench data lacks; stores picked by the wrappers
+            # 9. K2 on the SIMPLE clock's branch lengths
+            run4 = load_run_from_ctl("run4.ctl")
+            eng4, state4, ips4 = warm_engine(run4, dev)
+            profile_step(eng4, state4, 1e3 / ips4, smi,
+                         "fels_site_logl_kernel",
+                         "diploid HKY+G4 clock 4 step", PASSES_PER_ITER_4)
+            err_k2_blen, _ = hold_given(
+                "K2, blen of the clock = 4 chain", eng4, state4, smi,
+                lambda dt: relaxed_blen(eng4, state4, dt))
+            print(f"[kernel 2] engine step (diploid HKY+G4, clock = 4, "
+                  f"{N_LOCI} loci): {ips4:.2f} iters/s after warm-up | {smi}")
+            del eng4, state4
+            torch.cuda.empty_cache()
+
+            # 11. main path 4: the SIMPLE relaxed clock on diploid data
+            _, launches4 = run_chain(
+                ["--cfile", "run4.ctl"], "out4", iters,
+                (0, PASSES_PER_ITER_4 * iters + 1),
+                ("theta", "tau", "mu_bar", "r:"), "main 4", smi)
+
+            # 13. shapes the bench data lacks; stores picked by the wrappers
             hold_shapes(dev, smi)
         finally:
             os.chdir(cwd)
@@ -769,19 +997,22 @@ def main() -> int:
         ms, plain, bms, by = row
         return {"name": kname, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
-                "max_abs_err": max(errs.values()), "ms": ms,
+                "max_abs_err": max(errs), "ms": ms,
                 "plain_ms": plain, "bound_ms": bms, "bound_by": by,
                 "library_ms": None}
 
+    # launches: every main path's run; errors: the bench models' holds and
+    # those on relaxed-clock lengths and dated tips
     print(json.dumps({"kernels": [
         entry("K1 pallas_pack._make_kernel -> pack_logl_kernel",
               "bpp_tpu_torch/csrc/pack_kernel.cu",
-              "bpp_tpu/core/pallas_pack.py:315", launches1, errs1,
-              rows1["JC69"]),
+              "bpp_tpu/core/pallas_pack.py:315",
+              launches1 + launches3 + launches5,
+              [*errs1.values(), err_k1_blen, err_k1_dated], rows1["JC69"]),
         entry("K2 pallas_fels._make_kernel -> fels_site_logl_kernel",
               "bpp_tpu_torch/csrc/fels_kernel.cu",
-              "bpp_tpu/core/pallas_fels.py:92", launches2, errs2,
-              rows2["HKY"]),
+              "bpp_tpu/core/pallas_fels.py:92", launches2 + launches4,
+              [*errs2.values(), err_k2_blen], rows2["HKY"]),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,10 @@ float32 bound used there; K2 on haploid and on unphased diploid tips, per
 pattern (max |dlnL| < 2e-3) and per locus after ``reduce_root``.  Also:
 trees of 64 and 128 tips (the wrapper picks the store), 8 rate categories,
 ``blen=`` against the strict clock, bit-equal repeat launches and block
-sizes, junk in the schedule's padding levels, refused shapes.  Needs a
-CUDA device and nvcc; skips without them.
+sizes, junk in the schedule's padding levels, refused shapes; the
+relaxed-clock branch lengths of clock = 2 and clock = 4 chains and the
+dated tips of a tip-dating chain, and the caches of those chains on the
+card.  Needs a CUDA device and nvcc; skips without them.
 
     python -m pytest tests/test_torch_kernel_gpu.py -q
 """
@@ -370,3 +372,129 @@ def test_refused_shapes_raise(cuda_state):
     with pytest.raises(ValueError, match="threads"):
         pack.kernel_args(*a32, threads=48, **kw)
     assert (pack.LAUNCHES, fels.LAUNCHES) == before
+
+
+def _chain_engine(tmp, priors, diploid=False, dates=False):
+    """A CUDA engine after a short chain of a relaxed-clock or tip-dating
+    run: (engine, state)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from bpp_tpu_torch.loader import load_run_from_ctl
+    from bpp_tpu_torch.mcmc.driver import Engine
+    from bpp_tpu_torch.testing import write_simulated_run
+    if dates:
+        rng = np.random.default_rng(8)
+        (tmp / "dates.txt").write_text("".join(
+            f"{s}{k} {rng.uniform(0, 1):.3f}\n" for s in "abcd"
+            for k in (1, 2)))
+        priors = priors + (f"datefile = {tmp / 'dates.txt'}",)
+    run = load_run_from_ctl(write_simulated_run(
+        tmp, n_loci=12, seqs=(2, 2, 2, 2),
+        diploid=(1, 1, 0, 0) if diploid else None,
+        model="HKY" if diploid else "JC69", priors=priors,
+        thetaprior="invgamma 3 0.03 int" if dates else "3 0.03"))
+    eng = Engine(run, seed=1, device="cuda")
+    state = eng.init_state()
+    state, _ = eng.chunk_step(state, 5)
+    return eng, state
+
+
+@pytest.fixture(scope="module")
+def cuda_relaxed(tmp_path_factory):
+    return _chain_engine(tmp_path_factory.mktemp("gpurelaxed"), (
+        "locusrate = 1 10 10 5 iid", "clock = 2 10 100 5 iid G"))
+
+
+@pytest.fixture(scope="module")
+def cuda_simple_diploid(tmp_path_factory):
+    return _chain_engine(tmp_path_factory.mktemp("gpusimple"), (
+        "locusrate = 1 10 10 5 iid", "clock = 4 2.0"), diploid=True)
+
+
+@pytest.fixture(scope="module")
+def cuda_dated(tmp_path_factory):
+    return _chain_engine(tmp_path_factory.mktemp("gpudated"), (
+        "locusrate = 3 10 10000",), dates=True)
+
+
+def _relaxed_blen(eng, state, dtype):
+    from bpp_tpu_torch.config import Clock
+    from bpp_tpu_torch.core import felsenstein as fe
+    from bpp_tpu_torch.trees.gtree import assign_populations
+    gt = state.gt._replace(age=state.gt.age.to(dtype))
+    sp = state.sp._replace(tau=state.sp.tau.to(dtype))
+    brate = state.clock.brate.to(dtype)
+    if eng.cfg.clock == Clock.SIMPLE:
+        brate = brate * state.subst.mu.to(dtype)[:, None]
+    return fe.relaxed_branch_lengths(
+        gt, sp, assign_populations(gt, sp, eng.ctx.tip_pop), brate)
+
+
+@pytest.mark.parametrize("store", STORES)
+@pytest.mark.parametrize("data", ["cuda_relaxed", "cuda_simple_diploid",
+                                  "cuda_dated"])
+@pytest.mark.parametrize("model_name,n_cats", MODELS)
+def test_kernels_on_relaxed_lengths_and_dated_tips(request, data,
+                                                  model_name, n_cats, store):
+    """K1 on a clock = 2 chain's branch lengths and on a tip-dating
+    chain's gene trees (nonzero tip ages), K2 on a clock = 4 diploid
+    chain's branch lengths, each against its float64 plain version."""
+    from bpp_tpu_torch.core import fels, pack
+    from bpp_tpu_torch.core import felsenstein as fe
+    eng, state = request.getfixturevalue(data)
+    ctx = eng.ctx
+    L = state.gt.n_loci
+    model, s32 = fixed_subst(model_name, n_cats, L, torch.float32, "cuda")
+    _, s64 = fixed_subst(model_name, n_cats, L, torch.float64, "cuda")
+    a32 = _args(state, ctx, s32, torch.float32)
+    a64 = _args(state, ctx, s64, torch.float64)
+    b32 = b64 = None
+    if data == "cuda_dated":
+        assert bool((state.gt.age[:, :state.gt.n_tips] > 0).any())
+    else:
+        b32 = _relaxed_blen(eng, state, torch.float32).contiguous()
+        b64 = _relaxed_blen(eng, state, torch.float64)
+        strict = fe.branch_lengths(state.gt, state.subst.mu)
+        assert not bool(torch.isclose(b32, strict).all())
+    kw = dict(model=model, n_cats=n_cats)
+    mask = ctx.locus_mask
+    if ctx.res_map is None:
+        got = pack.site_logl_packed(*a32, blen=b32, units=ctx.units,
+                                    clv_store=store, **kw).double()
+        want = pack.site_logl_packed_ref(*a64, blen=b64, **kw)
+        assert pack.CLV_STORE == store
+    else:
+        site = fels.site_logl_fels(*a32[:-1], blen=b32, n_pat=ctx.n_pat,
+                                   units=ctx.units, clv_store=store,
+                                   **kw).double()
+        want_s = fels.site_logl_fels_ref(*a64[:-1], blen=b64,
+                                         n_pat=ctx.n_pat, **kw)
+        assert fels.CLV_STORE == store
+        assert float((site - want_s).abs().max()) < 2e-3
+        w = ctx.weights.double()
+        got = fe.reduce_root(site, w, ctx.res_map, ctx.res_count)
+        want = fe.reduce_root(want_s, w, ctx.res_map, ctx.res_count)
+    assert bool(torch.isfinite(got[mask]).all())
+    err = float((got - want)[mask].abs().max())
+    assert err < 0.02, err
+
+
+@pytest.mark.parametrize("data", ["cuda_relaxed", "cuda_simple_diploid",
+                                  "cuda_dated"])
+def test_new_chains_keep_their_caches_on_the_card(request, data):
+    """A few more iterations of each chain on the card: the cached logl
+    stays within float32 roundoff of a fresh pass, lnrates of a fresh
+    rate prior, and the integrated-theta caches equal fresh ones."""
+    from bpp_tpu_torch.mcmc import clock_moves
+    eng, state = request.getfixturevalue(data)
+    state, _ = eng.chunk_step(state, 3)
+    logl = eng._logl_fn(state.gt, state.subst, state.sp, state.clock)
+    assert float((state.logl - logl).abs().max()) < 0.02
+    if state.clock is not None:
+        lnr = clock_moves.lnprior_rates(eng.cfg, state.sp, state.subst.mu,
+                                        state.clock)
+        assert torch.allclose(state.clock.lnrates, lnr, rtol=1e-5, atol=1e-3)
+    if state.coal is not None:
+        _, c, t2 = eng._logpr_fn(state.gt, state.sp, state.subst.heredity)
+        assert torch.equal(state.coal, c)
+        assert torch.allclose(state.t2h, t2, rtol=1e-5, atol=1e-7)

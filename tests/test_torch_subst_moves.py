@@ -374,9 +374,9 @@ def test_discrete_gamma_rates_float32_over_the_slide_range():
 @pytest.mark.parametrize("line,item", [
     ("model = custom parts.txt", "10a-custom"),
     ("model = LG", "10a-custom"),
-    ("clock = 2 10 100 5", "10c"),
-    ("locusrate = 3 10 10", "10c"),
-    ("checkpoint = 100 100", "9"),
+    ("thetamodel = linked-all", "10b-linked"),
+    ("chains = 2", "10j"),
+    ("check = 10", "10k"),
 ])
 def test_other_combinations_stay_refused(tmp_path, line, item):
     from bpp_tpu_torch.io.ctl import parse_ctl
