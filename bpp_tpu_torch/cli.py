@@ -9,12 +9,15 @@ Usage:
 with no CUDA device it exits with an error.  It writes
 ``<jobname>.mcmc.txt``, the ``<jobname>.txt`` summary,
 ``<jobname>.FigTree.tre`` and, with ``checkpoint = initial [step]``,
-``<jobname>.chk.npz`` (port of ``bpp_tpu/cli.py`` ``cmd_run``).
+``<jobname>.chk.npz`` (port of ``bpp_tpu/cli.py`` ``cmd_run``).  A01
+and A11 runs write one species tree (newick) per sample, and the A01,
+A10 and A11 reports replace the A00 summary and FigTree.tre.
 ``--resume`` continues a run from its checkpoint: the sample file is cut
 back to the checkpoint's offset and appended to, so every sample is
 written once, and the summary reads all of them back.  ``--extend N``
 adds N samples to the resumed run.  The conditional a1b1 log, the
-species-tree PDF, chains and the per-locus print files are later work.
+species-tree PDF, chains, ``--summary`` and the per-locus print files
+are later work.
 """
 
 from __future__ import annotations
@@ -63,7 +66,8 @@ def cmd_run(args) -> int:
     from .loader import load_run
     from .mcmc.driver import Engine, resolve_device
     from .output import (
-        McmcWriter, a00_summary, figtree_export, read_mcmc_samples,
+        A01McmcWriter, McmcWriter, a00_summary, figtree_export,
+        read_mcmc_samples,
     )
     from .summary.allfixed import hpd_interval
 
@@ -102,17 +106,26 @@ def cmd_run(args) -> int:
         state = ckpt.restore_state(eng.init_state(), arrays)
         resume = (state, ckpt.rng_state(arrays), meta["it"],
                   arrays["stats_acc"])
-    writer = McmcWriter(mcmc_path, cfg, run.stree, append=bool(args.resume))
+    if cfg.est_stree:
+        writer = A01McmcWriter(mcmc_path, cfg, run.stree,
+                               append=bool(args.resume))
 
-    def on_sample(gen, row):
-        def opt(key):
-            v = row.get(key)
-            return None if v is None else float(v)
+        def on_sample(gen, row):
+            writer.write_sample(gen, row["sp_left"], row["sp_right"],
+                                row["sp_parent"], row["tau"])
+    else:
+        writer = McmcWriter(mcmc_path, cfg, run.stree,
+                            append=bool(args.resume))
 
-        writer.write_sample(
-            gen, row["theta"], row["tau"], float(row["lnl"]),
-            mubar=opt("mubar"), mubar_h=opt("mubar_h"),
-            nu_col=opt("nu_col"), brate0=row.get("brate0"))
+        def on_sample(gen, row):
+            def opt(key):
+                v = row.get(key)
+                return None if v is None else float(v)
+
+            writer.write_sample(
+                gen, row["theta"], row["tau"], float(row["lnl"]),
+                mubar=opt("mubar"), mubar_h=opt("mubar_h"),
+                nu_col=opt("nu_col"), brate0=row.get("brate0"))
 
     chk_path = f"{cfg.jobname}.chk.npz"
 
@@ -133,16 +146,37 @@ def cmd_run(args) -> int:
     writer.close()
     if args.resume:
         # the summary covers the samples from before the checkpoint too
-        gen, theta, tau, lnl, _, _ = read_mcmc_samples(cfg, run.stree,
-                                                       mcmc_path)
-        mubar = _column(mcmc_path, "mu_bar") if writer.dated else None
+        gen, theta, tau, lnl, sptrees, _ = read_mcmc_samples(
+            cfg, run.stree, mcmc_path)
+        mubar = (_column(mcmc_path, "mu_bar")
+                 if not cfg.est_stree and writer.dated else None)
     else:
         gen, theta, tau, lnl, _ = log.arrays()
+        sptrees = log.sptrees
         mubar = log.mubar
-    report = a00_summary(cfg, run.stree, gen, theta, tau, lnl, mubar=mubar)
+    a00 = not (cfg.est_stree or cfg.est_delimit)
+    if cfg.est_stree and cfg.est_delimit:
+        from .summary.mixed_summary import format_a11_summary, summarize_mixed
+        trees, nsp = summarize_mixed(sptrees, tau, run.stree.names)
+        report = format_a11_summary(trees, nsp, len(gen))
+    elif cfg.est_stree:
+        from .summary.stree_summary import (
+            format_a01_summary, summarize_sptrees,
+        )
+        topo, clades, n = summarize_sptrees(sptrees, run.stree.names)
+        report = format_a01_summary(topo, clades, n, run.stree.names)
+    elif cfg.est_delimit:
+        from .summary.delimit_summary import (
+            format_a10_summary, summarize_delimitations,
+        )
+        models, nsp = summarize_delimitations(tau, run.stree)
+        report = format_a10_summary(models, nsp, len(gen), run.stree)
+    else:
+        report = a00_summary(cfg, run.stree, gen, theta, tau, lnl,
+                             mubar=mubar)
 
-    # FigTree.tre (allfixed.c:571): A00 fixed multi-species tree
-    if run.stree.n_tips > 1 and len(gen):
+    # FigTree.tre (allfixed.c:571): A00 fixed multi-species tree only
+    if a00 and run.stree.n_tips > 1 and len(gen):
         H = run.stree.n_nodes
         lo = np.zeros(H)
         hi = np.zeros(H)

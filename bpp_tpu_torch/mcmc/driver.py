@@ -1,17 +1,20 @@
 """MCMC driver: the cmd_run equivalent (src/method.c:4939), PyTorch.
 
 Port of ``bpp_tpu/mcmc/driver.py`` cut to what is ported so far: A00 on
-a fixed species tree, on haploid, phased or unphased diploid DNA, with
-any DNA substitution model for all loci, Γ rates, locus rates and
-heredity scalars, the strict or a relaxed clock (2, 3, 4), estimated or
+a fixed species tree, species-tree search (A01: SPR and SNL, topology
+constraints), species delimitation on a guide tree (A10) and both
+together (A11), on haploid, phased or unphased diploid DNA, with any DNA
+substitution model for all loci, Γ rates, locus rates and heredity
+scalars, the strict or a relaxed clock (2, 3, 4), estimated or
 integrated-out thetas, tip dating, and checkpoint/resume.  Every
 combination outside that raises ``NotImplementedError`` naming the
 ROADMAP item that brings it.  The jitted ``lax.scan`` chunk becomes a
 Python loop over :meth:`Engine._step`; a step reads nothing back to the
 host but for the serial accept chains (the Gamma-Dirichlet priors of
 mu_i and nu_i, and every per-locus gene-tree move under integrated-out
-thetas: one copy each way per chain), and a chunk synchronises once, at
-its end.
+thetas: one copy each way per chain) and, with SNL on, the SNL-or-SPR
+draw together with the species arrays (one copy), and a chunk
+synchronises once, at its end.
 """
 
 from __future__ import annotations
@@ -27,22 +30,25 @@ from ..config import BppConfig, Clock, PriorDist, SubstModel
 from ..core import felsenstein as fe
 from ..core.gammarates import discrete_gamma_rates
 from ..core.units import Units
+from ..io.constraints import build_constraint_ids
 from ..loader import RunData, init_tau_theta
 from ..trees.gtree import init_gtrees, species_arrays
-from . import clock_moves, moves, subst_moves
+from . import clock_moves, moves, rj_moves, rng, stree_moves, subst_moves
 from .state import (
     FT_ALPHA, FT_BRATE, FT_FREQS, FT_GTAGE, FT_GTSPR, FT_LRHT, FT_MIX,
     FT_MUBAR, FT_MUI, FT_NUBAR, FT_NUI, FT_QRATES, FT_TAU, FT_THETA,
     MV_ALPHA, MV_BRATE, MV_FREQS, MV_GTAGE, MV_GTSPR, MV_LRHT, MV_MIX,
-    MV_MUBAR, MV_MUI, MV_NUBAR, MV_NUI, MV_QRATES, MV_TAU, MV_THETA,
-    N_MOVES, Ctx, McmcState, SubstState, finetune_array, make_logl_fn,
-    make_logpr_fn, refresh_eigen,
+    MV_MUBAR, MV_MUI, MV_NUBAR, MV_NUI, MV_QRATES, MV_RJ, MV_SNL, MV_SSPR,
+    MV_TAU, MV_THETA, N_MOVES, Ctx, McmcState, SubstState, finetune_array,
+    make_logl_fn, make_logpr_fn, refresh_eigen,
 )
 
 PJ_OPTIMUM = 0.30     # method.c:45 target pjump
 NO_CUDA = ("no CUDA device: bpp_tpu_torch runs on the GPU by default; "
            "pass --device cpu (or device='cpu') to run on the CPU")
 
+# the species moves (MV_RJ, MV_SSPR, MV_SNL) have no step length to tune,
+# in bpp_tpu as in the reference
 MOVE_TO_FT = {
     MV_GTAGE: FT_GTAGE,
     MV_GTSPR: FT_GTSPR,
@@ -59,6 +65,122 @@ MOVE_TO_FT = {
     MV_NUBAR: FT_NUBAR,
     MV_BRATE: FT_BRATE,
 }
+
+
+def _root_age_scale(cfg: BppConfig, run: RunData) -> float:
+    """Beta-proposal scale for rjMCMC at the root (stree.c:7534-7642);
+    copied from ``bpp_tpu/mcmc/driver.py`` (numpy).
+
+    Prior-based: 0.9 gamma quantile, or 4*beta/(alpha-1) for invgamma.
+    With data: mean cross-root pairwise divergence md minus theta/2, where
+    theta solves the within-population diversity from the across-locus
+    variance vd of the divergences.
+    """
+    tp = cfg.tauprior
+    if tp.dist == PriorDist.INVGAMMA:
+        prior_age = tp.beta / (tp.alpha - 1.0) * 4.0
+    else:
+        from scipy.stats import gamma as sgamma
+        prior_age = float(sgamma.ppf(0.9, tp.alpha, scale=1.0 / tp.beta))
+    if not cfg.usedata:
+        return prior_age
+    st, batch = run.stree, run.batch
+    anc = st.pptable()
+    lroot = st.left[st.root]
+    md = vd = 0.0
+    used = 0
+    for li in range(batch.n_loci):
+        if not batch.locus_mask[li]:
+            continue
+        ns = int(batch.n_seq[li])
+        codes = batch.tip_codes[li, :ns]               # [T, S] masks
+        w = batch.weights[li]
+        # diploid data: the weight patterns index expanded code columns
+        # through res_map; take each weight pattern's first resolution
+        if codes.shape[1] != w.shape[0]:
+            codes = codes[:, batch.res_map[li, :, 0]]
+        pops = batch.tip_pop[li, :ns]
+        on_left = anc[pops, lroot]                     # [T] bool
+        # weighted mismatch of the cross-root upper-triangle pairs
+        cross = np.triu(on_left[:, None] != on_left[None, :], 1)
+        diff_count = int(cross.sum())
+        if not diff_count:
+            continue
+        w64 = np.asarray(w, np.float64)
+        if codes.shape[0] * codes.shape[0] * codes.shape[1] <= 5e7:
+            D = (codes[:, None, :] != codes[None, :, :]) @ w64
+        else:
+            D = np.empty((ns, ns))
+            step = max(1, int(5e7 // (ns * codes.shape[1])))
+            for j0 in range(0, ns, step):
+                D[j0:j0 + step] = (codes[j0:j0 + step, None, :]
+                                   != codes[None, :, :]) @ w64
+        diff_locus = float(D[cross].sum()) / float(batch.n_sites[li])
+        used += 1
+        diff_locus /= 2 * diff_count
+        vd += (diff_locus - md) ** 2 * (used - 1) / used
+        md = (md * (used - 1) + diff_locus) / used
+    if not used:
+        return prior_age
+    n_real = int(batch.locus_mask.sum())
+    vd /= max(n_real, 1)
+    if used >= 2:
+        theta = (2 * np.sqrt(vd) + np.sqrt(vd * 4 + 1) - 1) / 2
+        if md - theta / 2 > 0:
+            return float(md - theta / 2)
+    return float(md)
+
+
+def prior_a11_masses(n: int, delimit_prior: int) -> np.ndarray:
+    """Normalized per-species-count prior masses for A11
+    (partition_fast + print_pinfo, delimit.c:88-215); copied from
+    ``bpp_tpu/mcmc/driver.py``.
+
+    masses[k-1] = sum over integer partitions a of n with k parts of
+      nd(a) * #rooted_trees(k) * prod_{a_i>2} #rooted_trees(a_i) * wlh
+    where nd(a) = n! / prod a_i! / prod mult(a)! (#set partitions of
+    that shape), and wlh = mean labeled histories per k-taxon tree for
+    the SLH prior (delimit.c:118-123, prior 2 only, k > 3).
+    """
+    from math import factorial
+
+    def trees(k):       # rooted labeled topologies: (2k-3)!!
+        if k < 3:
+            return 1.0
+        out = 1.0
+        for i in range(3, 2 * k - 2, 2):
+            out *= i
+        return out
+
+    def lh(k):          # total labeled histories: k! (k-1)! / 2^(k-1)
+        return factorial(k) * factorial(k - 1) / 2.0 ** (k - 1)
+
+    masses = np.zeros(n)
+
+    def partitions(total, maxpart):
+        if total == 0:
+            yield []
+            return
+        for first in range(min(total, maxpart), 0, -1):
+            for rest in partitions(total - first, first):
+                yield [first] + rest
+
+    for a in partitions(n, n):
+        k = len(a)
+        nd = float(factorial(n))
+        for ai in a:
+            nd /= factorial(ai)
+        for v in set(a):
+            nd /= factorial(a.count(v))
+        guide = 1.0
+        for ai in a:
+            if ai > 2:
+                guide *= trees(ai)
+        wlh = 1.0
+        if k > 3 and delimit_prior == 2:
+            wlh = lh(k) / trees(k)
+        masses[k - 1] += nd * trees(k) * guide * wlh
+    return masses / masses.sum()
 
 
 def reset_finetune_onestep(pjump: float, val: float) -> float:
@@ -161,6 +283,16 @@ def _reference_guards(cfg: BppConfig, run: RunData):
         raise NotImplementedError(
             "thetamodel cannot be combined with analytically "
             "integrated-out thetas")
+    if (cfg.linked_theta and (cfg.est_stree or cfg.est_delimit)
+            and cfg.linked_theta not in (1, 2)):
+        raise NotImplementedError(
+            "species-tree search / delimitation support "
+            "thetamodel = linked-all / linked-inner only")
+    if cfg.constraintfile and cfg.est_stree and cfg.prob_snl > 0:
+        # stree.c:11395: SNL has no constraint support
+        raise NotImplementedError(
+            "constraints are not implemented for the SNL move; "
+            "use 'speciestree = 1 0' to disable SNL")
 
 
 def _slice_guards(cfg: BppConfig, run: RunData):
@@ -175,10 +307,6 @@ def _slice_guards(cfg: BppConfig, run: RunData):
         refuse("per-locus models (model = custom)", "10a-custom")
     if cfg.model.is_aa:
         refuse(f"the amino-acid model {cfg.model.name}", "10a-custom")
-    if cfg.est_delimit:
-        refuse("species delimitation (A10/A11)", "10e")
-    if cfg.est_stree:
-        refuse("species-tree search (A01)", "10d")
     if run.stree.n_hybrids > 0:
         refuse("MSC-I networks", "10f")
     if cfg.migration:
@@ -203,6 +331,8 @@ class SampleLog:
     lnL: list = field(default_factory=list)
     logpr: list = field(default_factory=list)
     mubar: list = field(default_factory=list)     # scalar; tip dating only
+    sptrees: list = field(default_factory=list)   # (left, right, parent) per
+                                                  # sample; A01/A11 only
 
     def arrays(self):
         return (np.asarray(self.gen), np.stack(self.theta),
@@ -223,6 +353,7 @@ class Engine:
             cfg.seed if cfg.seed > 0
             else np.random.SeedSequence().entropy % (2**31))
         self.dtype = torch.float64 if cfg.dtype == "float64" else torch.float32
+        self.root_age0 = None         # rjMCMC root-age scale (init_state)
         if dev.type == "cuda" and self.dtype != torch.float32:
             raise NotImplementedError(
                 "float64 on the GPU: the pruning kernel is float32 only "
@@ -265,6 +396,13 @@ class Engine:
             date_lmax=None if run.date_lmax is None
             else t(run.date_lmax, self.dtype),
             integrated=bool(cfg.theta_integrated),
+            sp_constraint=None if not (cfg.constraintfile and cfg.est_stree)
+            else t(build_constraint_ids(run.stree, cfg.constraintfile),
+                   torch.int64),
+            prior_a11_log=None if not (cfg.est_delimit and cfg.est_stree
+                                       and cfg.delimit_prior >= 2)
+            else t(np.log(prior_a11_masses(run.stree.n_tips,
+                                           cfg.delimit_prior)), self.dtype),
         )
         self._logl_fn = make_logl_fn(self.ctx, cfg)
         self._logpr_fn = make_logpr_fn(self.ctx)
@@ -327,6 +465,8 @@ class Engine:
                            lconstraint=run.date_lmax * mubar0)
         else:
             init_tau_theta(cfg, run.stree, rng)
+        # the rjMCMC Beta proposal's scale at the root (prop_rj.c:431-435)
+        self.root_age0 = _root_age_scale(cfg, run)
         gt = init_gtrees(int(rng.integers(2**31)), run.batch, run.stree,
                          dtype=dt, device=dev, tip_ages=tip_ages0)
         sp = species_arrays(run.stree, dtype=dt, device=dev)
@@ -400,6 +540,17 @@ class Engine:
             stats[mv, 0] += pa[0]
             stats[mv, 1] += pa[1]
 
+        # rjMCMC split/join (A10/A11; method.c:5420-5435)
+        if cfg.est_delimit:
+            state, pa = rj_moves.rj_move(ctx, cfg, state, gen, self.root_age0)
+            count(MV_RJ, pa)
+        # species-tree SPR or SNL (A01/A11; method.c:5438-5477 picks SNL
+        # with probability pSNL); with < 3 species there is no other
+        # rooted topology
+        if cfg.est_stree and self.run.stree.n_tips >= 3:
+            state, pa, mv = self._species_move(state)
+            count(mv, pa)
+
         # usedata = 2 freezes the gene trees and taus (method.c:5490,
         # 5524, 5572, 5600)
         if not cfg.usedata_fix_gtree:
@@ -464,6 +615,26 @@ class Engine:
             count(MV_BRATE, pa)
         return state, stats
 
+    def _species_move(self, state: McmcState):
+        """One species SPR or SNL; returns (state, stats, move slot).  With
+        SNL on, the choice is read on the host, with one copy that also
+        carries the species arrays and the uniforms SNL's species-level
+        part needs, so only the chosen move runs."""
+        cfg, ctx, gen = self.cfg, self.ctx, self.gen
+        if cfg.prob_snl <= 0:
+            state, pa = stree_moves.species_spr_move(ctx, cfg, state, gen)
+            return state, pa, MV_SSPR
+        H = state.sp.n_nodes
+        u = rng.uniform(gen, (1 + stree_moves.snl_uniform_count(H),),
+                        torch.float64, self.device)
+        host = stree_moves.species_to_host(state.sp, u)
+        if host[0][0] < cfg.prob_snl:
+            state, pa = stree_moves.snl_move(
+                ctx, cfg, state, gen, host=(host[0][1:],) + host[1:])
+            return state, pa, MV_SNL
+        state, pa = stree_moves.species_spr_move(ctx, cfg, state, gen)
+        return state, pa, MV_SSPR
+
     def _trace_of(self, state: McmcState):
         """Per-iteration sample record, kept on the device: what the
         columns of mcmc.txt need (``bpp_tpu/cli.py:232-281``)."""
@@ -485,6 +656,10 @@ class Engine:
             tr["nu_col"] = (state.clock.nubar if cfg.locusrate_prior == 1
                             else torch.where(m, nu, torch.zeros_like(nu))
                             .sum() / m.sum())
+        if cfg.est_stree:
+            tr["sp_left"] = state.sp.left
+            tr["sp_right"] = state.sp.right
+            tr["sp_parent"] = state.sp.parent
         return tr
 
     def _chunk(self, state: McmcState, n: int):
@@ -586,6 +761,9 @@ class Engine:
                     log.logpr.append(float(row["logpr"]))
                     if "mubar" in row:
                         log.mubar.append(float(row["mubar"]))
+                    if "sp_left" in row:
+                        log.sptrees.append((row["sp_left"], row["sp_right"],
+                                            row["sp_parent"]))
                     if on_sample is not None:
                         on_sample(g, row)
             if it >= next_ck:

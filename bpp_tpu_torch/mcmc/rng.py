@@ -9,6 +9,8 @@ reference math: the Bactrian-Laplace symmetric kernel
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 M_BACTRIAN = 0.90
@@ -71,3 +73,10 @@ def gamma(gen, alpha):
 def log_pdf_invgamma(x, a, b):
     """Inverse-gamma log density; ``a``, ``b`` are tensors like ``x``."""
     return a * torch.log(b) - torch.lgamma(a) - (a + 1.0) * torch.log(x) - b / x
+
+
+def log_pdf_gamma(x, a: float, b):
+    """Gamma(a, rate b) log density; ``b`` is a float or a tensor like
+    ``x``."""
+    lb = torch.log(b) if torch.is_tensor(b) else math.log(b)
+    return a * lb - math.lgamma(a) + (a - 1.0) * torch.log(x) - b * x

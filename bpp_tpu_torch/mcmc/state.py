@@ -1,7 +1,8 @@
 """MCMC state and likelihood glue (PyTorch).
 
 Port of ``bpp_tpu/mcmc/state.py`` for plain species trees: the strict
-and the relaxed clocks, estimated or integrated-out thetas, tip dating.
+and the relaxed clocks, estimated or integrated-out thetas, tip dating,
+species-tree search and species delimitation.
 The sampler state is one NamedTuple of tensors; moves return a new state
 and reject by ``torch.where(accept, new, old)``.
 """
@@ -57,6 +58,9 @@ MV_LRHT = 5
 MV_FREQS = 6
 MV_QRATES = 7
 MV_ALPHA = 8
+MV_RJ = 10           # rjMCMC split/join (A10/A11)
+MV_SSPR = 11         # species-tree SPR (A01/A11)
+MV_SNL = 12          # species-tree SNL (A01/A11)
 MV_MUI = 14
 MV_NUI = 15
 MV_MUBAR = 16
@@ -156,6 +160,12 @@ class Ctx:
     # trees have no theta-free terms) and the density lives in
     # notheta.total_integrated over the (coal, t2h) caches
     integrated: bool = False
+    # A01/A11 topology constraints: a group id per species node (SPR only
+    # regrafts within a group; io.constraints.build_constraint_ids)
+    sp_constraint: torch.Tensor | None = None    # [H] int64
+    # A11 under speciesmodelprior 2/3: log prior mass per species count
+    # minus one (driver.prior_a11_masses)
+    prior_a11_log: torch.Tensor | None = None    # [NS]
 
 
 def compute_pmats(gt: GTrees, subst: SubstState, model: SubstModel,

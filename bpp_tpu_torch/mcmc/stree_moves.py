@@ -1,0 +1,855 @@
+"""Species-tree topology moves (A01/A11): species SPR and SNL (PyTorch).
+
+Port of ``bpp_tpu/mcmc/stree_moves.py`` (``stree_propose_spr``
+src/stree.c:7747 and ``stree_propose_stree_snl`` stree.c:11354).
+Populations are derived from ages and the species tree, so a move is
+the species-level choice, the gene-tree surgery batched over loci, one
+likelihood pass and one MSC-density pass on the proposed trees, and one
+accept decision; an infeasible proposal still runs its pass and is
+rejected, so a move launches the pruning kernel exactly once.
+
+What the eager step changes against ``bpp_tpu``:
+
+  * no device value is read on the host inside SPR.  The per-inner-node
+    identification scans are one batched pass over all inner nodes at
+    once (each node's targets and counts depend on the original trees
+    only); the application pass stays a loop over the inner nodes in
+    node order (each prune and regraft sees the topology the earlier ones
+    left), and its ``while_loop`` that lifts a receiver up the evolving
+    tree is pointer jumping over ``ceil(log2 N)`` gathers (the fixed
+    point of the same one-step map, the no-lift case included);
+  * SNL's species-level part (focal choice, the delta walk of at most
+    4H + 16 steps, the proposal densities and the new species arrays)
+    runs on the host, in float64, from one copy of the species arrays and
+    of uniforms drawn beforehand from the run's generator; the driver
+    makes that copy together with its SNL-or-SPR draw, so an iteration
+    with a species move synchronises once.  The walk keeps
+    ``bpp_tpu``'s bookkeeping but for one fault: ``bpp_tpu`` goes on
+    checking for an invalid tip landing after the walk has stopped, which
+    rejects every landing on a tip branch (ROADMAP Queue 3).  And SNL's
+    gene-tree part counts the branch above each gene tree's root among
+    the targets, where ``bpp_tpu`` rejects a proposal that lifts a gene
+    node above its tree's root (Queue 3; the prior is recovered only with
+    both fixes);
+  * when SNL moves the species root off index H - 1, the proposal swaps
+    the labels of the old and the new root, so the root stays the last
+    node, where ``tau_move``, ``mixing_move`` and the clock moves read
+    it (``bpp_tpu`` keeps reading index H - 1).  Under the correlated
+    clock the rate column stays with the index, so the root keeps mu_i.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..config import BppConfig, Clock, PriorDist
+from ..trees.gtree import assign_populations, inner_order, topo_scan
+from . import rng
+from .clock_moves import lnprior_rates
+from .moves import _integrated_delta
+from .state import Ctx, McmcState, make_logl_fn, make_logpr_fn, tree_where
+
+NEG = -1e30
+
+
+def _at(x, i, dim=0):
+    """``x`` at the 0-dim index tensor ``i`` along ``dim``, with no host
+    read (plain indexing by a 0-dim tensor reads it on the host)."""
+    return torch.index_select(x, dim, i.reshape(1)).squeeze(dim)
+
+
+def _sp_depth(pptable):
+    """#ancestors per species node from the ancestor-or-self table."""
+    return pptable.sum(-1) - 1
+
+
+def _recompute_pptable(parent, H: int):
+    """Ancestor-or-self table by repeated squaring (stree.c:2840 analog)."""
+    dev = parent.device
+    hidx = torch.arange(H, device=dev)
+    P = hidx[None, :] == torch.where(parent < 0, H, parent)[:, None]
+    reach = torch.eye(H, dtype=torch.bool, device=dev) | P
+    for _ in range(max(1, H.bit_length())):
+        r = reach.to(torch.float32)
+        reach = reach | (r @ r > 0)
+    return reach
+
+
+def _recompute_mrca(pptable):
+    depth = _sp_depth(pptable)
+    common = pptable[:, None, :] & pptable[None, :, :]
+    score = torch.where(common, depth[None, None, :], -1)
+    return torch.argmax(score, dim=-1)
+
+
+def log_histories_tau(sp) -> torch.Tensor:
+    """log #labeled histories of the (possibly partially collapsed)
+    species tree, counting only ACTIVE inner nodes (tau > 0), like
+    ``histories`` (delimit.c:729): the product over active inner nodes v
+    of C(e_l + e_r, e_l), e_* the active-event counts of the child
+    subtrees; float64."""
+    H = sp.tau.shape[0]
+    NS = (H + 1) // 2
+    act = (torch.arange(H, device=sp.tau.device) >= NS) & (sp.tau > 0)
+    e = (sp.pptable & act[:, None]).sum(0).to(torch.float64)
+    el = e[sp.left.clamp(min=0)]
+    er = e[sp.right.clamp(min=0)]
+    lc = (torch.lgamma(el + er + 1.0) - torch.lgamma(el + 1.0)
+          - torch.lgamma(er + 1.0))
+    return torch.where(act, lc, torch.zeros_like(lc)).sum()
+
+
+def log_species_model_prior(cfg, sp, prior_a11_log=None) -> torch.Tensor:
+    """lnprior_species_model (delimit.c:709): 0 for the LH/SLH priors
+    (0/2), -log(histories) for the uniform-tree priors (1/3), plus the
+    A11 species-count normalization -log prior_A11[tau_count] for
+    priors >= 2; float64."""
+    lp = torch.zeros((), dtype=torch.float64, device=sp.tau.device)
+    if cfg.delimit_prior in (1, 3):
+        lp = lp - log_histories_tau(sp)
+    if prior_a11_log is not None and cfg.delimit_prior >= 2:
+        NS = (sp.tau.shape[0] + 1) // 2
+        tau_count = (sp.tau[NS:] > 0).sum()
+        lp = lp - _at(prior_a11_log, tau_count).to(torch.float64)
+    return lp
+
+
+def _log_histories(pptable, tips_mask):
+    """log #labeled histories = log (n-1)! - sum_v log(#inner below v)
+    (delimit.c ``histories``); the uniform-tree priors 2/3."""
+    ntips_below = (pptable.to(torch.float64).T
+                   @ tips_mask.to(torch.float64))
+    inner_below = torch.clamp(ntips_below - 1, min=0)
+    inner_mask = ~tips_mask & (inner_below > 0)
+    n = tips_mask.sum().to(torch.float64)
+    return (torch.lgamma(n) - torch.where(
+        inner_mask, torch.log(torch.clamp(inner_below, min=1)),
+        torch.zeros_like(inner_below)).sum())
+
+
+def _pick_categorical(gen, logw, mask):
+    """One index drawn with probability softmax(logw) over ``mask``
+    (inverse CDF of one uniform), and its log probability."""
+    logits = torch.where(mask, logw, torch.full_like(logw, NEG))
+    cdf = torch.cumsum(torch.softmax(logits.to(torch.float64), 0), 0)
+    u = rng.uniform(gen, (1,), torch.float64, logw.device)
+    idx = torch.searchsorted(cdf, u * cdf[-1], right=True)
+    idx = idx.clamp(max=logw.shape[0] - 1)[0]
+    return idx, _at(logits, idx) - torch.logsumexp(logits, 0)
+
+
+def _constraint_feasible(cids, sp, partau, is_inner):
+    """Per-node Y-feasibility under topology constraints
+    (fill_feasible_flags stree.c:7697): Y's children and sister share
+    Y's group, and some branch with Y's group spans tau_Y."""
+    H = cids.shape[0]
+    hidx = torch.arange(H, device=cids.device)
+    x = sp.parent.clamp(min=0)
+    lc = sp.left.clamp(min=0)
+    rc = sp.right.clamp(min=0)
+    sib = torch.where(sp.left[x] == hidx, sp.right[x], sp.left[x])
+    sib = sib.clamp(min=0)
+    neigh = (cids == cids[lc]) & (cids == cids[rc]) & (cids == cids[sib])
+    # any same-group branch (c, parent(c)) spanning tau_y, c not a
+    # descendant-or-self of y (check_age_feasibility_recursive
+    # stree.c:7676; group regions are connected)
+    spans = ((sp.tau[None, :] < sp.tau[:, None])
+             & (partau[None, :] > sp.tau[:, None]))         # [y, c]
+    ok_c = spans & (cids[None, :] == cids[:, None]) & ~sp.pptable.T
+    return is_inner & neigh & ok_c.any(dim=1)
+
+
+def _select_rows(mask, r):
+    """Uniformly select one True index along the last axis of ``mask``
+    with the uniforms ``r`` (one per row)."""
+    count = mask.sum(-1)
+    sel = torch.minimum(torch.floor(r * count).to(torch.int64),
+                        torch.clamp(count - 1, min=0))
+    mi = mask.to(torch.int64)
+    cum = torch.cumsum(mi, dim=-1) - mi
+    hit = mask & (cum == sel[..., None])
+    return torch.argmax(hit.to(torch.uint8), dim=-1), count
+
+
+def _branch_frame(gt, ctx, age, with_root=False):
+    """(parent age [L, N] (inf at roots), valid branch mask [L, N], valid
+    inner-node mask [L, N]) for the ages ``age``; ``with_root`` counts the
+    branch above each gene tree's root (up to infinity) as a branch."""
+    N, T = gt.n_nodes, gt.n_tips
+    nodes_idx = torch.arange(N, device=age.device)[None, :]
+    valid_inner = (nodes_idx >= T) & (nodes_idx < T + ctx.n_seq[:, None] - 1)
+    page = torch.where(gt.parent >= 0,
+                       torch.gather(age, 1, gt.parent.clamp(min=0)),
+                       torch.full_like(age, float("inf")))
+    valid_branch = (nodes_idx < ctx.n_seq[:, None]) | valid_inner
+    if not with_root:
+        valid_branch = valid_branch & (gt.parent >= 0)
+    return page, valid_branch, valid_inner
+
+
+def _identify(gen, moved, tmask, smask, T, dtype):
+    """Targets and the Hastings ratio of every inner node at once: one
+    target drawn uniformly from ``tmask`` ``[L, T-1, N]`` per moved node,
+    log(#targets / #sources) summed per locus, and the loci where a moved
+    node has no target.  Returns (lnhr [L], bad [L], targets [L, N])."""
+    L, K, N = tmask.shape
+    is_m = moved[:, T:]
+    r = rng.uniform(gen, (L, K), torch.float64, moved.device)
+    tgt, tcount = _select_rows(tmask, r)
+    scount = smask.sum(-1) + 1
+    ok = is_m & (tcount > 0)
+    term = torch.log(tcount.to(dtype)) - torch.log(scount.to(dtype))
+    lnhr = torch.where(ok, term, torch.zeros_like(term)).sum(1)
+    bad = (is_m & (tcount == 0)).any(1)
+    targets = torch.full((L, N), -1, dtype=torch.int64, device=moved.device)
+    targets[:, T:] = torch.where(is_m, tgt, torch.full_like(tgt, -1))
+    return lnhr, bad, targets
+
+
+def _jump(nxt, rounds):
+    """Fixed point of the map ``nxt`` [L, N] (node -> node) by pointer
+    jumping: ``rounds`` squarings cover chains of up to 2**rounds steps."""
+    for _ in range(rounds):
+        nxt = torch.gather(nxt, 1, nxt)
+    return nxt
+
+
+def _prune_regraft(gt, is_m_all, pruned, targets, lift_age, mtime_all):
+    """Sequential prune + regraft of every moved inner node, in node
+    order, on the evolving topology (stree.c:8208-8290).  A moved node
+    keeps its pruned child; its current other child takes its place
+    under its parent; the stored target lifts up the current tree while
+    its parent is no older than the node's time ``mtime_all``; the node
+    then sits between the receiver and the receiver's parent."""
+    L, N = gt.left.shape
+    T = gt.n_tips
+    dev = gt.left.device
+    lidx = torch.arange(L, device=dev)
+    nodes = torch.arange(N, device=dev)[None, :].expand(L, N)
+    rounds = max(1, (N - 1).bit_length())
+    left, right, parent = gt.left.clone(), gt.right.clone(), gt.parent.clone()
+    for k in range(T - 1):
+        node = T + k
+        is_m = is_m_all[:, node]
+        prn = pruned[:, node]
+        lcur = left[:, node]
+        itc = torch.where(lcur == prn, right[:, node], lcur)
+        par = parent[:, node].clone()
+        par_s = par.clamp(min=0)
+        # prune: the current other child replaces the node under its parent
+        lval = left[lidx, par_s]
+        left[lidx, par_s] = torch.where(is_m & (lval == node), itc, lval)
+        rval = right[lidx, par_s]
+        right[lidx, par_s] = torch.where(is_m & (rval == node), itc, rval)
+        parent[lidx, itc] = torch.where(is_m, par, parent[lidx, itc])
+        # receiver: lift the target while its parent is no older than the
+        # node's time
+        up = (is_m[:, None] & (parent >= 0)
+              & (torch.gather(lift_age, 1, parent.clamp(min=0))
+                 <= mtime_all[:, node, None]))
+        top = _jump(torch.where(up, parent, nodes), rounds)
+        t0 = targets[:, node]
+        rcv = torch.where(is_m, torch.gather(top, 1, t0.clamp(min=0)[:, None])
+                          [:, 0], t0)
+        rcv_s = rcv.clamp(min=0)
+        # regraft: the node replaces the receiver under its parent
+        rp = parent[lidx, rcv_s]
+        rp_s = rp.clamp(min=0)
+        ok = is_m & (rp >= 0)
+        lval = left[lidx, rp_s]
+        left[lidx, rp_s] = torch.where(ok & (lval == rcv), node, lval)
+        rval = right[lidx, rp_s]
+        right[lidx, rp_s] = torch.where(ok & (rval == rcv), node, rval)
+        parent[:, node] = torch.where(is_m, rp, parent[:, node])
+        # the node's other slot takes the receiver; the pruned slot stays
+        lval = left[:, node].clone()
+        rval = right[:, node].clone()
+        keep_l = lval == prn
+        left[:, node] = torch.where(is_m & ~keep_l, rcv, lval)
+        right[:, node] = torch.where(is_m & keep_l, rcv, rval)
+        parent[lidx, rcv_s] = torch.where(is_m, node, parent[lidx, rcv_s])
+    return left, right, parent
+
+
+def _masked_sum(ctx, x):
+    return torch.where(ctx.locus_mask, x, torch.zeros_like(x)).sum()
+
+
+def species_spr_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
+    """Species-tree SPR with gene-tree surgery (stree.c:7747): prune the
+    focal node Y (weight 1/sqrt(branch length)) with its child A and
+    regraft it on a branch C spanning tau_Y (weight 1/path length);
+    gene lineages of A that coalesce with non-A lineages between Y and
+    Z = LCA(X, C) move to branches of the C..Z populations."""
+    gt, sp = state.gt, state.sp
+    L, N, T = gt.n_loci, gt.n_nodes, gt.n_tips
+    H = sp.n_nodes
+    NS = (H + 1) // 2
+    dev = gt.age.device
+    hidx = torch.arange(H, device=dev)
+    nodes_idx = torch.arange(N, device=dev)[None, :]
+    dt = sp.tau.dtype
+    logl_fn = make_logl_fn(ctx, cfg)
+    logpr_fn = make_logpr_fn(ctx)
+    inf = torch.full_like(sp.tau, float("inf"))
+
+    partau = torch.where(sp.parent >= 0, sp.tau[sp.parent.clamp(min=0)], inf)
+    depth = _sp_depth(sp.pptable)
+    is_inner = hidx >= NS
+
+    # --- focal node Y (init_weights: 1/sqrt(branch length)) ----------------
+    feas_y = is_inner & (sp.parent >= 0) & (sp.tau > 0)
+    cids = ctx.sp_constraint
+    if cids is not None:
+        feas_y = feas_y & _constraint_feasible(cids, sp, partau, is_inner)
+    w = torch.where(feas_y, 1.0 / torch.sqrt(torch.clamp(partau - sp.tau,
+                                                          min=1e-30)),
+                    torch.zeros_like(sp.tau))
+    y, logp_y = _pick_categorical(gen, torch.log(torch.clamp(w, min=1e-300)),
+                                  feas_y)
+    x = _at(sp.parent, y).clamp(min=0)
+    swap = rng.uniform(gen, (), dt, dev) < 0.5
+    ly, ry = _at(sp.left, y), _at(sp.right, y)
+    a = torch.where(swap, ry, ly).clamp(min=0)
+    b = torch.where(swap, ly, ry).clamp(min=0)
+    tau_y = _at(sp.tau, y)
+
+    # --- target C (weight 1/path length) ------------------------------------
+    # candidates: not a descendant-or-self of Y, tau < tau_Y < parent tau
+    cand = ~_at(sp.pptable, y, 1) & (sp.tau < tau_y) & (partau > tau_y)
+    if cids is not None:
+        cand = cand & (cids == _at(cids, y))        # stree.c:7847
+    # z(c) = LCA(x, c): deepest common ancestor
+    common = _at(sp.pptable, x)[None, :] & sp.pptable
+    zc = torch.argmax(torch.where(common, depth[None, :], -1), dim=-1)
+    pathlen = 1 + (_at(depth, y) - depth[zc]) + (depth - depth[zc])
+    c, logp_c = _pick_categorical(
+        gen, -torch.log(torch.clamp(pathlen, min=1).to(dt)), cand)
+    z = _at(zc, c)
+
+    # --- new species topology ------------------------------------------------
+    def replace_child(left, right, par, old, new):
+        at = hidx == par
+        return (torch.where(at & (left == old), new, left),
+                torch.where(at & (right == old), new, right))
+
+    cp = _at(sp.parent, c)
+    # detach: B replaces Y under X
+    nleft, nright = replace_child(sp.left, sp.right, x, y, b)
+    nparent = torch.where(hidx == b, x, sp.parent)
+    # regraft: Y replaces C under C's parent; Y's B-slot takes C
+    nleft, nright = replace_child(nleft, nright, cp, c, y)
+    nparent = torch.where(hidx == y, cp, nparent)
+    nleft = torch.where((hidx == y) & (ly == b), c, nleft)
+    nright = torch.where((hidx == y) & (ry == b), c, nright)
+    nparent = torch.where(hidx == c, y, nparent)
+    npptable = _recompute_pptable(nparent, H)
+    sp_new = sp._replace(left=nleft, right=nright, parent=nparent,
+                         pptable=npptable, mrca=_recompute_mrca(npptable))
+
+    # --- gene-tree marks on the current state --------------------------------
+    order = inner_order(gt)
+    pops = assign_populations(gt, sp, ctx.tip_pop)
+    age = gt.age
+    col_z = _at(sp.pptable, z, 1)
+    path_yz = _at(sp.pptable, y) & col_z & (hidx != z)      # y..z exclusive
+    path_cz = _at(sp.pptable, c) & col_z & (hidx != z)      # c..z exclusive
+    tip_under_a = _at(sp.pptable, a, 1)[ctx.tip_pop]        # [L, T]
+    ge_zmask = _at(sp.pptable, z)[pops]                     # pop >= z
+    hasA = topo_scan(gt, tip_under_a, torch.logical_or, order)
+    markA = hasA & ~ge_zmask
+    tip_qual = ~tip_under_a & (sp.pptable[ctx.tip_pop]
+                               & path_yz[None, None, :]).any(-1)
+    hasO = topo_scan(gt, tip_qual, torch.logical_or, order)
+    markO = hasO & ~ge_zmask
+    pureA = markA & ~markO
+    page, valid_branch, valid_inner = _branch_frame(gt, ctx, age)
+    lc = gt.left.clamp(min=0)
+    rc = gt.right.clamp(min=0)
+    lA, rA = torch.gather(pureA, 1, lc), torch.gather(pureA, 1, rc)
+    lO, rO = torch.gather(markO, 1, lc), torch.gather(markO, 1, rc)
+    square = (pops == y) & lO & rO
+    moved = (valid_inner & path_yz[pops] & (lA ^ rA) & ~square
+             & ctx.locus_mask[:, None])
+    pruned = torch.where(lA, gt.left, gt.right)
+    intact = torch.where(lA, gt.right, gt.left)
+    # pop_cz per node: the highest c..z-path node with tau < age
+    elig = path_cz[None, None, :] & (sp.tau[None, None, :] < age[..., None])
+    pop_cz = torch.argmax(torch.where(elig, sp.tau[None, None, :],
+                                      torch.full_like(elig, -1.0, dtype=dt)),
+                          dim=-1)
+
+    # identification: every inner node's target and Hastings term at once
+    mtime = age[:, T:, None]
+    spans = (valid_branch[:, None, :] & (age[:, None, :] < mtime)
+             & (page[:, None, :] > mtime))                       # [L, K, N]
+    tmask = spans & sp.pptable[pops[:, None, :], pop_cz[:, T:, None]]
+    smask = (spans & sp.pptable[pops[:, None, :], pops[:, T:, None]]
+             & ~pureA[:, None, :]
+             & (nodes_idx[:, None, :] != intact[:, T:, None]))
+    lnhr, badmask, targets = _identify(gen, moved, tmask, smask, T, dt)
+
+    # application: sequential prune + regraft on the evolving topology
+    gl, gr, gp = _prune_regraft(gt, moved & ~badmask[:, None], pruned,
+                                targets, age, age)
+    gt_new = gt._replace(left=gl, right=gr, parent=gp)
+
+    # --- full re-evaluation --------------------------------------------------
+    logl_new = logl_fn(gt_new, state.subst, sp_new, state.clock)
+    logpr_new, c_new, t2_new = logpr_fn(gt_new, sp_new, state.subst.heredity)
+
+    # --- reverse species-level weights ---------------------------------------
+    npartau = torch.where(nparent >= 0, sp.tau[nparent.clamp(min=0)], inf)
+    ndepth = _sp_depth(npptable)
+    feas2 = is_inner & (nparent >= 0) & (sp.tau > 0)
+    if cids is not None:
+        feas2 = feas2 & _constraint_feasible(cids, sp_new, npartau, is_inner)
+    w2 = torch.where(feas2, 1.0 / torch.sqrt(torch.clamp(npartau - sp.tau,
+                                                          min=1e-30)),
+                     torch.zeros_like(sp.tau))
+    logits2 = torch.where(feas2, torch.log(torch.clamp(w2, min=1e-300)),
+                          torch.full_like(w2, NEG))
+    logp_y_rev = _at(logits2, y) - torch.logsumexp(logits2, 0)
+    cand2 = ~_at(npptable, y, 1) & (sp.tau < tau_y) & (npartau > tau_y)
+    if cids is not None:
+        cand2 = cand2 & (cids == _at(cids, y))
+    nx = _at(nparent, y).clamp(min=0)
+    common2 = _at(npptable, nx)[None, :] & npptable
+    zc2 = torch.argmax(torch.where(common2, ndepth[None, :], -1), dim=-1)
+    pathlen2 = 1 + (_at(ndepth, y) - ndepth[zc2]) + (ndepth - ndepth[zc2])
+    logits3 = torch.where(cand2,
+                          -torch.log(torch.clamp(pathlen2, min=1).to(dt)),
+                          torch.full_like(sp.tau, NEG))
+    logp_b_rev = _at(logits3, b) - torch.logsumexp(logits3, 0)
+
+    # species-model prior ratio (stree.c:8630; tau_count is unchanged by
+    # SPR, so the A11 prior_A11 term cancels)
+    prior_ratio = (log_species_model_prior(cfg, sp_new)
+                   - log_species_model_prior(cfg, sp)).to(dt)
+
+    # no feasible focal node or target (e.g. A11 states with everything
+    # collapsed): the picks are garbage; reject outright
+    bad_any = ((badmask & ctx.locus_mask).any() | ~feas_y.any()
+               | ~cand.any())
+    if cfg.theta_integrated:
+        dpr = _integrated_delta(ctx, cfg, state, c_new, t2_new)
+    else:
+        dpr = _masked_sum(ctx, logpr_new - state.logpr)
+    lnacc = (logp_y_rev - logp_y + logp_b_rev - logp_c
+             + _masked_sum(ctx, lnhr) + _masked_sum(ctx, logl_new - state.logl)
+             + dpr + prior_ratio)
+    cand_state = state._replace(gt=gt_new, sp=sp_new, logl=logl_new,
+                                logpr=logpr_new)
+    if cfg.theta_integrated:
+        cand_state = cand_state._replace(coal=c_new, t2h=t2_new)
+    # the correlated clock's rate prior depends on the species topology
+    # and taus (stree.c:8839-8844)
+    if state.clock is not None and cfg.clock == Clock.CORRELATED:
+        lnr_new = lnprior_rates(cfg, sp_new, state.subst.mu, state.clock)
+        lnacc = lnacc + _masked_sum(ctx, lnr_new - state.clock.lnrates)
+        cand_state = cand_state._replace(
+            clock=state.clock._replace(lnrates=lnr_new))
+    lnacc = torch.where(bad_any, torch.full_like(lnacc, -float("inf")), lnacc)
+    accept = rng.mh_accept(gen, lnacc)
+    return (tree_where(accept, cand_state, state),
+            (1, accept.to(torch.int64)))
+
+
+# --------------------------------------------------------------------------
+# SNL: SubNet Leap (stree_propose_stree_snl, stree.c:11354; core
+# snl_expand_and_shrink:10597).  An SPR of Y (keeping child A) onto a
+# branch found by a delta walk from the attachment point, combined with
+# rescaling clade A's species taus and pure-A gene subtrees by
+# taufactor = tau_Y_new / tau_Y_old.
+# --------------------------------------------------------------------------
+
+
+def _logpdf_power(y, b, lam):
+    """pdf of delta = b(1-u^(1/lam)) (stree.c:10496)."""
+    return np.log(lam / b) + (lam - 1.0) * np.log(max(1.0 - y / b, 1e-300))
+
+
+def snl_uniform_count(H: int) -> int:
+    """Uniforms an SNL proposal consumes: move type, focal node, child
+    split, delta, and two a walk step over 4H + 16 steps."""
+    return 4 + 2 * (4 * H + 16)
+
+
+def species_to_host(sp, u):
+    """One device-to-host copy of the species arrays and of the uniforms
+    ``u`` (float64 [n]); returns (u, left, right, parent, tau, pptable) as
+    numpy arrays."""
+    H = sp.n_nodes
+    packed = torch.cat([u.to(torch.float64), sp.left.to(torch.float64),
+                        sp.right.to(torch.float64),
+                        sp.parent.to(torch.float64),
+                        sp.tau.to(torch.float64),
+                        sp.pptable.reshape(-1).to(torch.float64)]).cpu()
+    packed = packed.numpy()
+    n = u.shape[0]
+    ints = packed[n:n + 3 * H].astype(np.int64)
+    return (packed[:n], ints[:H], ints[H:2 * H], ints[2 * H:],
+            packed[n + 3 * H:n + 4 * H],
+            packed[n + 4 * H:].reshape(H, H) > 0.5)
+
+
+def _pick_categorical_host(u, logw, mask):
+    logits = np.where(mask, logw, NEG)
+    m = logits.max()
+    cdf = np.cumsum(np.exp(logits - m))
+    idx = min(int(np.searchsorted(cdf, u * cdf[-1], side="right")),
+              len(logits) - 1)
+    return idx, logits[idx] - (m + np.log(cdf[-1]))
+
+
+def _snl_species(cfg, u, left, right, parent, tau, pp):
+    """SNL's species-level part on the host (stree.c:10406-11110, as in
+    ``bpp_tpu``): returns a dict with the focal nodes, the landing branch,
+    the new species arrays, taufactor, the count of rescaled species
+    taus, the host part of the log acceptance and whether the proposal is
+    invalid."""
+    H = len(tau)
+    NS = (H + 1) // 2
+    hidx = np.arange(H)
+    lam_e, lam_s = cfg.snl_lambda_expand, cfg.snl_lambda_shrink
+    p_shrink = cfg.prob_snl_shrink
+    partau = np.where(parent >= 0, tau[np.maximum(parent, 0)], np.inf)
+    is_inner = hidx >= NS
+
+    # --- weights + focal selection (init_weights, stree.c:10406) ------------
+    feas = is_inner & (parent >= 0) & (tau > 0)
+    w = np.where(feas, 1.0 / np.sqrt(np.maximum(partau - tau, 1e-30)), 0.0)
+    wnorm = w / max(w.sum(), 1e-300)
+    sel, logp_sel = _pick_categorical_host(
+        u[1], np.log(np.maximum(wnorm, 1e-300)), feas)
+    shrink = bool(u[0] < p_shrink)
+
+    # EXPAND: y = sel, x = parent(y), (a, b) random child split,
+    #         delta ~ power(x.tau, lam_e), walk starts at x
+    # SHRINK: c0 = sel, y = parent(c0), a = other child of y,
+    #         delta ~ power(c0.tau, lam_s), walk starts at c0, downward
+    y = int(parent[sel]) if shrink else sel
+    x = int(parent[y])                # -1 possible for a shrink at the root
+    swap = bool(u[2] < 0.5)
+    a_exp = right[y] if swap else left[y]
+    a_shr = right[y] if left[y] == sel else left[y]
+    a = int(a_shr if shrink else a_exp)
+    start = sel if shrink else x
+    dscale = tau[sel] if shrink else tau[max(x, 0)]
+    delta0 = dscale * (1.0 - u[3] ** (1.0 / (lam_s if shrink else lam_e)))
+
+    # --- delta walk (stree.c:11450-11510), bounded at 4H + 16 steps ------
+    walk = u[4:].reshape(-1, 2)
+    done, target, prevnode, down = False, start, y, shrink
+    delta, tau_new, lca, wbad = delta0, 0.0, -1, False
+    for u_up, u_child in walk:
+        go_up = (not down) and u_up < 0.5
+        par = int(parent[target])
+        up_has_par = par >= 0
+        dist_up = tau[max(par, 0)] - tau[target] if up_has_par else np.inf
+        up_fits = dist_up > delta
+        first_down = not down
+        other = right[target] if left[target] == prevnode else left[target]
+        rand_child = left[target] if u_child < 0.5 else right[target]
+        nxt = max(int(other if first_down else rand_child), 0)
+        dist_dn = tau[target] - tau[nxt]
+        if done:
+            continue
+        # in exact arithmetic the remaining delta is always smaller than
+        # the distance to any tip below; rounding can break it: stop on a
+        # tip edge and flag the landing.  (bpp_tpu keeps making this check
+        # after the walk has stopped, so it flags, and rejects, every
+        # landing on a tip branch: from a tip, the "child" it reads is
+        # tip 0 at distance 0.)
+        dn_fits = (dist_dn > delta) or nxt < NS
+        wbad = wbad or ((not go_up) and nxt < NS and dist_dn <= delta)
+        if go_up:
+            stop = up_fits or not up_has_par
+            tau_new = tau[target] + delta
+            target_next = target if stop else max(par, 0)
+            prevnode = target
+            delta = 0.0 if up_fits else delta - dist_up
+        else:
+            stop = dn_fits
+            tau_new = tau[target] - delta
+            if first_down:
+                lca = target
+            target_next = prevnode = nxt
+            delta = 0.0 if dn_fits else delta - dist_dn
+        down = down or not go_up
+        target = target_next
+        done = stop
+    went_down = down
+    c = target
+    tpar = int(parent[c])
+    tpar_s = max(tpar, 0)
+
+    # A11 guard: SNL needs >= 3 delimited species and a feasible focal
+    # node (method.c:5438 ndspecies > 2); degenerate landings (c == y)
+    ndsp_cur = int((tau[NS:] > 0).sum()) + 1
+    bad = (not done) or wbad or not feas.any() or ndsp_cur <= 2 or c == y
+
+    # --- proposal-density corrections (stree.c:11512-11552) ------------------
+    tau_y = tau[y]
+    xs = max(x, 0)
+    with np.errstate(all="ignore"):
+        if shrink:
+            d_rev = tau_y - tau[tpar_s]
+            bad = bad or d_rev >= tau[tpar_s] or tpar < 0
+            term = (_logpdf_power(max(d_rev, 1e-300), max(tau[tpar_s], 1e-300),
+                                  lam_e) + np.log(0.5)
+                    - _logpdf_power(tau[sel] - tau_new, tau[sel], lam_s)
+                    + np.log((1 - p_shrink) / p_shrink))
+        elif not went_down:           # pure expand (++)
+            d_rev = tau[c] - tau_y
+            bad = bad or d_rev >= tau[c]
+            term = (_logpdf_power(max(d_rev, 1e-300), tau[c], lam_s)
+                    - np.log(0.5)
+                    - _logpdf_power(tau_new - tau[xs], tau[xs], lam_e)
+                    + np.log(p_shrink / (1 - p_shrink)))
+        else:                         # expand with downward steps (+-)
+            lca_s = max(lca, 0)
+            dist_fw = tau[lca_s] - tau[xs] + tau[lca_s] - tau_new
+            dist_rev = tau[lca_s] - tau_y + tau[lca_s] - tau[tpar_s]
+            bad = bad or dist_rev >= tau[tpar_s] or tpar < 0
+            term = (_logpdf_power(max(dist_rev, 1e-300),
+                                  max(tau[tpar_s], 1e-300), lam_e)
+                    - _logpdf_power(max(dist_fw, 1e-300), tau[xs], lam_e))
+        lnacc = -logp_sel + term
+        taufactor = tau_new / tau_y
+
+    # --- species-tree surgery (stree.c:11000-11060) --------------------------
+    b_node = int(right[y] if left[y] == a else left[y])
+    nleft, nright, nparent = left.copy(), right.copy(), parent.copy()
+
+    def replace_child(par, old, new):
+        if par >= 0:
+            if nleft[par] == old:
+                nleft[par] = new
+            if nright[par] == old:
+                nright[par] = new
+
+    replace_child(x, y, b_node)
+    nparent[b_node] = x
+    replace_child(tpar, c, y)
+    nparent[y] = tpar
+    if left[y] == a:
+        nright[y] = c
+    else:
+        nleft[y] = c
+    nparent[c] = y
+    # taus: y at tau_new, clade-A species taus scaled
+    in_a = pp[:, a]
+    with np.errstate(all="ignore"):
+        ntau = np.where(in_a & (tau > 0), tau * taufactor, tau)
+    ntau[y] = tau_new
+    sp_scaled = int((in_a & (tau > 0) & is_inner).sum())
+
+    # reverse-weight term (new tree): expand-down -> weight of the
+    # target's new parent (y), pure expand -> the target's, shrink -> y's
+    with np.errstate(all="ignore"):
+        npartau = np.where(nparent >= 0, ntau[np.maximum(nparent, 0)],
+                           np.inf)
+        feas2 = is_inner & (nparent >= 0) & (ntau > 0)
+        w2 = np.where(feas2, 1.0 / np.sqrt(np.maximum(npartau - ntau, 1e-30)),
+                      0.0)
+        w2 = w2 / max(w2.sum(), 1e-300)
+        rev_node = y if (shrink or went_down) else c
+        lnacc += np.log(max(w2[rev_node], 1e-300))
+        lnacc += sp_scaled * np.log(taufactor)
+        # root-tau prior (stree.c:11090-11110); the root is node H - 1
+        tau0 = tau[H - 1]
+        root_new = int(np.argmax(nparent < 0))
+        tau0n = ntau[root_new]
+        ta, tb = cfg.tauprior.alpha, cfg.tauprior.beta
+        if cfg.tauprior.dist == PriorDist.INVGAMMA:
+            rt = ((-ta - 1 - (ndsp_cur - 2)) * np.log(tau0n / tau0)
+                  - tb * (1 / tau0n - 1 / tau0))
+        else:
+            rt = ((ta - 1 - (ndsp_cur - 2)) * np.log(tau0n / tau0)
+                  - tb * (tau0n - tau0))
+        if abs(tau0n - tau0) > 1e-20:
+            lnacc += rt
+    return dict(y=y, a=a, b_node=b_node, c=c, tau_new=tau_new,
+                taufactor=taufactor, left=nleft, right=nright,
+                parent=nparent, tau=ntau, root_new=root_new,
+                lnacc=float(lnacc), bad=bool(bad) or not np.isfinite(lnacc))
+
+
+def _upload(arr, dtype, dev):
+    """A host array on ``dev`` in ``dtype``; to a GPU through pinned
+    memory without waiting for the device."""
+    np_dtype = {torch.int64: np.int64, torch.float32: np.float32,
+                torch.float64: np.float64}[dtype]
+    t = torch.from_numpy(np.ascontiguousarray(arr, dtype=np_dtype))
+    if dev.type == "cuda":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t
+
+
+def _root_last(spc):
+    """Label permutation (an involution) that brings the new root to
+    index H - 1; applied to the host species arrays in place."""
+    H = len(spc["tau"])
+    perm = np.arange(H)
+    r = spc["root_new"]
+    if r == H - 1:
+        return None
+    perm[[r, H - 1]] = perm[[H - 1, r]]
+    for key in ("left", "right", "parent"):
+        arr = spc[key][perm]
+        spc[key] = np.where(arr >= 0, perm[np.maximum(arr, 0)], arr)
+    spc["tau"] = spc["tau"][perm]
+    return perm
+
+
+def snl_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen, host=None):
+    """SNL proposal.  ``host`` is ``species_to_host(state.sp, u)`` with
+    ``u`` of ``snl_uniform_count`` uniforms, made by the caller with the
+    read it needs anyway; without it the move draws and reads them
+    itself."""
+    gt, sp = state.gt, state.sp
+    L, N, T = gt.n_loci, gt.n_nodes, gt.n_tips
+    H = sp.n_nodes
+    dev = gt.age.device
+    dt = sp.tau.dtype
+    hidx = torch.arange(H, device=dev)
+    nodes_idx = torch.arange(N, device=dev)[None, :]
+    logl_fn = make_logl_fn(ctx, cfg)
+    logpr_fn = make_logpr_fn(ctx)
+    if host is None:
+        host = species_to_host(sp, rng.uniform(gen, (snl_uniform_count(H),),
+                                               torch.float64, dev))
+    spc = _snl_species(cfg, *host)
+    y, a, b_node, c = spc["y"], spc["a"], spc["b_node"], spc["c"]
+    bad = spc["bad"]
+    # a degenerate factor only comes with a rejected proposal
+    taufactor = spc["taufactor"]
+    if bad or not (np.isfinite(taufactor) and taufactor > 0):
+        taufactor = 1.0
+    # the new tree in the current labels (the gene-tree part reads them),
+    # then relabelled so that the root stays last; one upload each of the
+    # integer and the float arrays, without a host wait
+    pre = (spc["parent"], spc["tau"])
+    perm = _root_last(spc)
+    ints = _upload(np.concatenate([
+        pre[0], spc["left"], spc["right"], spc["parent"],
+        np.arange(H) if perm is None else perm]), torch.int64, dev)
+    taus = _upload(np.concatenate([pre[1], spc["tau"]]), dt, dev)
+    nparent, ntau = ints[:H], taus[:H]
+    npptable = _recompute_pptable(nparent, H)
+
+    # --- gene-tree painting --------------------------------------------------
+    order = inner_order(gt)
+    pops = assign_populations(gt, sp, ctx.tip_pop)
+    age = gt.age
+    tip_under_a = sp.pptable[ctx.tip_pop, a]                # [L, T]
+    pureA = topo_scan(gt, tip_under_a, torch.logical_and, order)
+    # the branch above a gene tree's root is a target (and a source) too:
+    # a rescaled node may rise above its tree's root (bpp_tpu rejects
+    # those proposals, whose reverse moves it accepts: ROADMAP Queue 3)
+    page, valid_branch, valid_inner = _branch_frame(gt, ctx, age,
+                                                    with_root=True)
+    lc = gt.left.clamp(min=0)
+    rc = gt.right.clamp(min=0)
+    lA, rA = torch.gather(pureA, 1, lc), torch.gather(pureA, 1, rc)
+    moved = valid_inner & (lA ^ rA) & ctx.locus_mask[:, None]
+    pruned = torch.where(lA, gt.left, gt.right)
+    intact = torch.where(lA, gt.right, gt.left)
+    # new ages: pure-A inner and moved nodes scale by taufactor
+    scale_mask = (pureA | moved) & valid_inner
+    tnew_all = age * taufactor
+    age_new = torch.where(scale_mask, tnew_all, age)
+    g_scaled = (scale_mask & ctx.locus_mask[:, None]).sum()
+
+    # newpop of every node at its new age (stree.c:10680-10700): y and the
+    # target's new ancestors, the deepest with tau <= tnew, mapped back to
+    # the current labels (y -> c, b -> y)
+    anc_t_new = npptable[c] & (hidx != c)
+    inf = torch.full_like(ntau, float("inf"))
+    rway_tau = torch.where(anc_t_new, ntau, inf)
+    below = rway_tau[None, None, :] <= tnew_all[..., None]
+    score = torch.where(below, torch.where(rway_tau == float("inf"), -inf,
+                                           rway_tau)[None, None, :],
+                        -float("inf"))
+    npop_new = torch.argmax(score, dim=-1)
+    npop_new = torch.where(below.any(-1), npop_new, y)
+    npop_old = torch.where(npop_new == y, c,
+                           torch.where(npop_new == b_node, y, npop_new))
+
+    # --- identification: targets at the new times, sources at the old ----
+    page_new, _, _ = _branch_frame(gt, ctx, age_new, with_root=True)
+    tnew = tnew_all[:, T:, None]
+    spans = (valid_branch[:, None, :] & (age_new[:, None, :] < tnew)
+             & (page_new[:, None, :] > tnew))
+    tmask = (spans & ~pureA[:, None, :]
+             & sp.pptable[pops[:, None, :], npop_old[:, T:, None]])
+    otime = age[:, T:, None]
+    spans_o = (valid_branch[:, None, :] & (age[:, None, :] < otime)
+               & (page[:, None, :] > otime))
+    inner_ids = torch.arange(T, N, device=dev)[None, :, None]
+    smask = (spans_o & ~pureA[:, None, :]
+             & sp.pptable[pops[:, None, :], pops[:, T:, None]]
+             & (nodes_idx[:, None, :] != intact[:, T:, None])
+             & (nodes_idx[:, None, :] != inner_ids))
+    lnhr, badmask, targets = _identify(gen, moved, tmask, smask, T, dt)
+    # targets that are themselves moved nodes resolve down to their
+    # intact child (stree.c:10725 "trace towards tips until BLACK")
+    down = _jump(torch.where(moved, intact, nodes_idx.expand(L, N)),
+                 max(1, (N - 1).bit_length()))
+    targets = torch.where(targets >= 0,
+                          torch.gather(down, 1, targets.clamp(min=0)),
+                          targets)
+
+    # --- application: sequential prune + regraft with the new ages ----------
+    if bad:
+        gl, gr, gp = gt.left, gt.right, gt.parent
+    else:
+        gl, gr, gp = _prune_regraft(gt, moved & ~badmask[:, None], pruned,
+                                    targets, age_new, tnew_all)
+    gt_new = gt._replace(left=gl, right=gr, parent=gp, age=age_new)
+
+    # keep the root at index H - 1 (see the module docstring)
+    clock = state.clock
+    theta = sp.theta
+    if perm is not None:
+        p = ints[4 * H:]
+        theta = theta[p]
+        if clock is not None and cfg.clock != Clock.CORRELATED:
+            clock = clock._replace(brate=clock.brate[:, p])
+    nparent = ints[3 * H:4 * H]
+    npptable = _recompute_pptable(nparent, H)
+    sp_new = sp._replace(left=ints[H:2 * H], right=ints[2 * H:3 * H],
+                         parent=nparent, tau=taus[H:], theta=theta,
+                         pptable=npptable, mrca=_recompute_mrca(npptable))
+
+    # --- full re-evaluation + remaining acceptance terms ---------------------
+    logl_new = logl_fn(gt_new, state.subst, sp_new, clock)
+    logpr_new, c_new, t2_new = logpr_fn(gt_new, sp_new, state.subst.heredity)
+    # Jacobian of the gene-node rescaling + species-model prior
+    lnacc = (spc["lnacc"] + g_scaled.to(dt) * float(np.log(taufactor))
+             + (log_species_model_prior(cfg, sp_new)
+                - log_species_model_prior(cfg, sp)).to(dt)
+             + lnhr.sum()
+             + _masked_sum(ctx, (logl_new - state.logl)
+                           + (logpr_new - state.logpr)))
+    cand_state = state._replace(gt=gt_new, sp=sp_new, logl=logl_new,
+                                logpr=logpr_new, clock=clock)
+    if cfg.theta_integrated:
+        lnacc = (lnacc + _integrated_delta(ctx, cfg, state, c_new, t2_new)
+                 - _masked_sum(ctx, logpr_new - state.logpr))
+        cand_state = cand_state._replace(coal=c_new, t2h=t2_new)
+    # the correlated clock's rate prior (stree.c:11314-11318)
+    if clock is not None and cfg.clock == Clock.CORRELATED:
+        lnr_new = lnprior_rates(cfg, sp_new, state.subst.mu, clock)
+        lnacc = lnacc + _masked_sum(ctx, lnr_new - state.clock.lnrates)
+        cand_state = cand_state._replace(
+            clock=clock._replace(lnrates=lnr_new))
+    bad_any = badmask.any() | ~torch.isfinite(lnacc)
+    if bad:
+        bad_any = torch.ones_like(bad_any)
+    lnacc = torch.where(bad_any, torch.full_like(lnacc, -float("inf")), lnacc)
+    accept = rng.mh_accept(gen, lnacc)
+    return (tree_where(accept, cand_state, state),
+            (1, accept.to(torch.int64)))

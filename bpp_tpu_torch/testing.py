@@ -2,9 +2,9 @@
 
 ``synthetic_run`` is a copy of ``bpp_tpu/testing.py``'s (numpy; the same
 seed gives the same data) that also takes per-locus sequence counts.
-``write_simulated_run`` simulates a 4-species dataset (haploid, or with
-unphased diploid species) with the port's simulator and writes a run
-control file for it; ``fixed_subst`` builds
+``write_simulated_run`` simulates a dataset (4 species by default,
+haploid, or with unphased diploid species) with the port's simulator and
+writes a run control file for it; ``fixed_subst`` builds
 a substitution state per DNA model family with fixed parameters.
 """
 
@@ -27,9 +27,9 @@ seqfile = sim.phy
 treefile = sim.tre
 Imapfile = sim.Imap.txt
 modelparafile = sim.para.txt
-species&tree = 4 A B C D
+species&tree = {n_sp} {names}
                  {seqs}
-                ((A #0.01, B #0.01) :0.01 #0.01, (C #0.01, D #0.01) :0.012 #0.01) :0.02 #0.01;
+                {sim_tree};
 loci&length = {nloci} {nsites}
 {extra}"""
 
@@ -38,9 +38,9 @@ seed = 11
 seqfile = {dir}/sim.phy
 Imapfile = {dir}/sim.Imap.txt
 jobname = {dir}/{job}
-species&tree = 4 A B C D
+species&tree = {n_sp} {names}
                  {seqs}
-                ((A, B), (C, D));
+                {guide};
 usedata = {usedata}
 nloci = {nloci}
 cleandata = 0
@@ -130,6 +130,10 @@ def _lines(*items) -> str:
     return "".join(f"{line}\n" for line in items if line)
 
 
+SIM_TREE4 = ("((A #0.01, B #0.01) :0.01 #0.01, (C #0.01, D #0.01) :0.012 "
+             "#0.01) :0.02 #0.01")
+
+
 def write_simulated_run(directory, n_loci: int, seqs=(2, 2, 2, 2),
                         n_sites: int = 200, seed: int = 137,
                         job: str = "out", usedata: int = 1,
@@ -137,9 +141,12 @@ def write_simulated_run(directory, n_loci: int, seqs=(2, 2, 2, 2),
                         tauprior: str = "3 0.06", burnin: int = 10,
                         nsample: int = 10, diploid=None,
                         sim_model: str = "model = 0", model: str = "JC69",
-                        priors=()) -> str:
-    """Simulate a dataset on ((A,B),(C,D)) into ``directory`` and write
-    ``<job>.ctl`` for it; returns the control file's path.
+                        priors=(), names: str = "ABCD",
+                        sim_tree: str = SIM_TREE4,
+                        guide: str = "((A, B), (C, D))") -> str:
+    """Simulate a dataset on ``sim_tree`` (by default ((A,B),(C,D))) into
+    ``directory`` and write ``<job>.ctl`` for it, with the species tree
+    ``guide``; returns the control file's path.
 
     ``seqs`` counts individuals per species; ``diploid`` (one 0/1 per
     species) makes a species' individuals unphased diploids, and becomes
@@ -158,6 +165,7 @@ def write_simulated_run(directory, n_loci: int, seqs=(2, 2, 2, 2),
         with open("sim.ctl", "w") as f:
             f.write(SIM_CTL.format(
                 seed=seed, seqs=seq_line, nloci=n_loci, nsites=n_sites,
+                n_sp=len(names), names=" ".join(names), sim_tree=sim_tree,
                 extra=_lines(sim_model, flags and f"diploid = {flags}")))
         run_simulation("sim.ctl")
     finally:
@@ -166,6 +174,7 @@ def write_simulated_run(directory, n_loci: int, seqs=(2, 2, 2, 2),
     with open(path, "w") as f:
         f.write(RUN_CTL.format(
             dir=directory, job=job, seqs=seq_line, usedata=usedata,
+            n_sp=len(names), names=" ".join(names), guide=guide,
             nloci=n_loci, thetaprior=thetaprior, tauprior=tauprior,
             burnin=burnin, nsample=nsample,
             extra=_lines(f"model = {model}", flags and f"phase = {flags}",
@@ -252,3 +261,32 @@ def shaped_batch(n_tips: int = 16, n_cols: int = 200, seed: int = 0,
                 t(parent, torch.int64), t(age, dtype))
     return (gt, t(n_seq, torch.int64), t(n_pat, torch.int64),
             t(tips, dtype), t(weights, dtype))
+
+
+def gene_tree_faults(gt, n_seq) -> list:
+    """What is wrong with a batch of gene trees (empty when nothing is):
+    each valid inner node's children name it as their parent, each valid
+    node but one root is a child of its parent, and no child is older
+    than its parent."""
+    L, N = gt.left.shape
+    T = (N + 1) // 2
+    left, right, parent, age = (x.detach().cpu().numpy() for x in gt)
+    n_seq = np.asarray(n_seq.cpu() if torch.is_tensor(n_seq) else n_seq)
+    faults = []
+    for li in range(L):
+        n = int(n_seq[li])
+        nodes = list(range(n)) + list(range(T, T + n - 1))
+        roots = [v for v in nodes if parent[li, v] < 0]
+        if n > 1 and len(roots) != 1:
+            faults.append((li, "roots", roots))
+        for v in range(T, T + n - 1):
+            for ch in (left[li, v], right[li, v]):
+                if parent[li, ch] != v:
+                    faults.append((li, "child", v, int(ch)))
+                elif not age[li, ch] <= age[li, v]:
+                    faults.append((li, "age", v, int(ch)))
+        for v in nodes:
+            p = parent[li, v]
+            if p >= 0 and v not in (left[li, p], right[li, p]):
+                faults.append((li, "parent", v, int(p)))
+    return faults

@@ -87,9 +87,27 @@ Phases, in order; any failure exits non-zero:
               and on 12 loci of 64 and of 128 tips, where the wrappers pick
               the CLV store themselves (shared at 64 tips with 4
               categories, the device scratch at 128 tips with 8).
+14. main 6  — A01 on the haploid data (``speciestree = 1 0.5 0.33 0.1
+              0.2``: SPR and SNL, pSNL 0.5): K1 launched 8 + 1 = 9 times per
+              iteration (the species move adds one pass) plus 1, K2 never;
+              mcmc.txt holds 40 newick samples, the A01 report's topology
+              probabilities sum to 1, and both SPR and SNL were proposed;
+15. main 7  — A11 on the diploid data of main 2 (``speciesdelimitation = 1
+              0 2``, ``speciestree = 1`` (pSNL 0.2), ``speciesmodelprior =
+              1``): K2 launched 12 + 2 = 14 times per iteration (rj 1 +
+              species move 1) plus 1, K1 never; 40 newick samples, a well
+              formed A11 report whose probabilities sum to 1;
+16. topo    — 20 iterations each of main 6's and main 7's engines: K1 and K2
+              held against their float64 plain versions on the four model
+              families under both CLV stores on every gene-tree batch a
+              species SPR, SNL or rj move proposed (the trees the kernel
+              was launched on inside the move) and on the state after each
+              accepted one; ``[profile]`` of both steps and ``[moves]`` wall
+              ms of species_spr_move, snl_move and rj_move.
 
 Then one JSON line ``{"kernels": [...]}`` (K1 at JC69, K2 at HKY+G4: the
-models of their chains), the card's name and power limit from nvidia-smi,
+models of their chains; launches summed over main 1-7, errors the largest
+of every hold), the card's name and power limit from nvidia-smi,
 and the last line ``{"ok": true, "device": {...}}``.  Without a CUDA
 device the script exits non-zero and prints no result.
 """
@@ -185,6 +203,10 @@ SIMPLE = "clock = 4 2.0\n"
 DATED = ("thetaprior = invgamma 3 0.06 int\ndatefile = dates.txt\n"
          "locusrate = 3 10 10000\ncheckpoint = {ck} 0\n")
 CHECKPOINT_AT = 25
+A01 = "speciestree = 1 0.5 0.33 0.1 0.2\n"
+A11 = ("speciesdelimitation = 1 0 2\nspeciestree = 1\n"
+       "speciesmodelprior = 1\n")
+TOPO_ITERS = 20
 
 N_LOCI = 1000
 BURNIN, NSAMPLE = 10, 40
@@ -195,6 +217,8 @@ H_BRANCHES = 7             # species branches of ((A,B),(C,D)): one pass each
 PASSES_PER_ITER_3 = PASSES_PER_ITER + H_BRANCHES
 PASSES_PER_ITER_4 = PASSES_PER_ITER_2 + H_BRANCHES
 PASSES_PER_ITER_5 = PASSES_PER_ITER     # tipdate mubar replaces mixing
+PASSES_PER_ITER_6 = PASSES_PER_ITER + 1   # + species SPR or SNL
+PASSES_PER_ITER_7 = PASSES_PER_ITER_2 + 2  # + rj + species SPR or SNL
 TOL_SITE = 2e-3           # per-pattern |dlnL| of K2, float32
 TOL_LNL = 0.02            # f32 bound of tests/test_kernel_consistency.py
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -412,7 +436,9 @@ def check_chain_output(job, nsample, moving):
 def run_chain(argv, job, iters, expect, moving, label, smi):
     """Drive one chain through the CLI (``argv``) with both launch counts
     set to 0 just before and read just after; ``expect`` = (K1, K2)
-    launches over ``iters`` iterations and the initial state."""
+    launches over ``iters`` iterations and the initial state.  ``moving``
+    names the mcmc.txt columns that must move, or is "A01" / "A11" for a
+    run that writes species trees."""
     import torch
 
     from bpp_tpu_torch import cli
@@ -434,13 +460,116 @@ def run_chain(argv, job, iters, expect, moving, label, smi):
         raise AssertionError(f"{label}: the main path ran the {store} CLV "
                              "store; at 16 tips it keeps its CLVs in shared "
                              "memory and allocates no scratch")
-    data = check_chain_output(job, NSAMPLE, moving)
+    if moving in ("A01", "A11"):
+        result = check_species_output(job, NSAMPLE, moving)
+    else:
+        data = check_chain_output(job, NSAMPLE, moving)
+        result = f"mean lnL {data[:, -1].mean():.3f}"
     print(f"[{label}] cli {' '.join(argv)}: {iters} iterations, wall "
           f"{wall:.1f} "
           f"s (load + init + chain + summary), {iters / wall:.2f} iters/s "
           f"overall | K1 launches {got[0]} | K2 launches {got[1]} | CLV store "
-          f"{store} | mean lnL {data[:, -1].mean():.3f} | {smi}")
+          f"{store} | {result} | {smi}")
     return got
+
+
+def _prob_rows(lines, header):
+    """The rows of the probability table under the line whose words are
+    ``header``, up to a blank line."""
+    i = next(k for k, ln in enumerate(lines) if ln.split() == header)
+    rows = []
+    for ln in lines[i + 1:]:
+        if not ln.strip() or ln.strip().startswith("..."):
+            break
+        rows.append(ln.split())
+    return rows
+
+
+def check_species_output(job, nsample, method):
+    """mcmc.txt of an A01/A11 run: ``nsample`` species trees in newick;
+    the report's probability tables (topologies, or delimited trees and
+    species counts) sum to 1.  Returns a line on the posterior."""
+    from bpp_tpu_torch.io.newick import parse_newick
+    with open(f"{job}.mcmc.txt") as f:
+        trees = [ln.strip() for ln in f if ln.strip()]
+    if len(trees) != nsample:
+        raise AssertionError(f"{job}.mcmc.txt holds {len(trees)} trees, "
+                             f"expected {nsample}")
+    for t in trees:
+        parse_newick(t)
+    with open(f"{job}.txt") as f:
+        lines = f.read().splitlines()
+    tables = ([["P", "cum", "tree"]] if method == "A01" else
+              [["P", "cum", "delimited", "tree"], ["P", "#species"]])
+    first = None
+    for header in tables:
+        rows = _prob_rows(lines, header)
+        total = sum(float(r[0]) for r in rows)
+        if not rows or abs(total - 1.0) > 1e-4:
+            raise AssertionError(f"{job}.txt: the {' '.join(header)} table "
+                                 f"sums to {total} over {len(rows)} rows")
+        first = first or f"{len(rows)} rows, top {rows[0][0]} {rows[0][-1]}"
+    return f"{nsample} species trees | {method} report {first}"
+
+
+class MoveTally:
+    """While active, counts the species moves' proposals (by name) and,
+    with ``record``, their acceptances (one host read a move), keeping
+    each gene-tree batch the pruning kernel was launched on inside a move
+    and the gene trees after each accepted move."""
+
+    MOVES = (("stree_moves", "species_spr_move"),
+             ("stree_moves", "snl_move"), ("rj_moves", "rj_move"))
+
+    def __init__(self, record=False):
+        self.record = record
+        self.counts = {name: [0, 0] for _, name in self.MOVES}
+        self.trees = []          # (label, GTrees)
+        self._inside = None
+        self._saved = []
+
+    def __enter__(self):
+        from bpp_tpu_torch.mcmc import rj_moves, stree_moves
+        from bpp_tpu_torch.mcmc import state as state_mod
+        mods = {"stree_moves": stree_moves, "rj_moves": rj_moves}
+        for mod_name, name in self.MOVES:
+            self._patch(mods[mod_name], name, self._move)
+        for name in ("site_logl_packed", "site_logl_fels"):
+            self._patch(state_mod, name, self._pass)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, orig in reversed(self._saved):
+            setattr(mod, name, orig)
+
+    def _patch(self, mod, name, wrap):
+        orig = getattr(mod, name)
+        self._saved.append((mod, name, orig))
+        setattr(mod, name, wrap(name, orig))
+
+    def _move(self, name, fn):
+        def move(*args, **kw):
+            self._inside = name
+            try:
+                state, (prop, acc) = fn(*args, **kw)
+            finally:
+                self._inside = None
+            self.counts[name][0] += 1
+            if self.record and bool(acc):
+                self.counts[name][1] += 1
+                self.trees.append((f"{name} accepted", state.gt))
+            return state, (prop, acc)
+        return move
+
+    def _pass(self, name, fn):
+        def wrapper(*args, **kw):
+            if self.record and self._inside:
+                from bpp_tpu_torch.trees.gtree import GTrees
+                self.trees.append((f"{self._inside} proposal", GTrees(
+                    *(x.clone() for x in (args[1], args[2], args[3],
+                                          args[5])))))
+            return fn(*args, **kw)
+        return wrapper
 
 
 def time_moves(eng, state, dev, smi):
@@ -598,12 +727,14 @@ def relaxed_blen(eng, state, dtype):
     return fe.relaxed_branch_lengths(gt, sp, pops, brate)
 
 
-def hold_given(label, eng, state, smi, blen_of=None):
+def hold_given(label, eng, state, smi, blen_of=None, report=True,
+               mask=None):
     """``[given]``: the kernel of ``eng``'s batch (K1, or K2 and
     ``reduce_root`` with a diploid map) against its float64 plain version
     on ``state``'s gene trees, for the four model families under both CLV
     stores.  ``blen_of(dtype)`` gives the branch lengths both get (None:
-    the ages, dated tips included).  Returns (max per-locus |dlnL|, max
+    the ages, dated tips included); ``mask`` [L] bool narrows the loci
+    compared (default: the real loci).  Returns (max per-locus |dlnL|, max
     per-pattern |dlnL| or None)."""
     import torch
 
@@ -633,8 +764,6 @@ def hold_given(label, eng, state, smi, blen_of=None):
                     clv_store=store, **kw).double()
                 want_s = fels.site_logl_fels_ref(*a64[:-1], blen=b64,
                                                  n_pat=ctx.n_pat, **kw)
-                site = float((got_s - want_s).abs().max())
-                site_worst = max(site_worst, site)
                 got = fe.reduce_root(got_s, w64, ctx.res_map, ctx.res_count)
                 want = fe.reduce_root(want_s, w64, ctx.res_map,
                                       ctx.res_count)
@@ -647,11 +776,16 @@ def hold_given(label, eng, state, smi, blen_of=None):
             if mod.CLV_STORE != store:
                 raise AssertionError(f"[given] {label}: the {mod.CLV_STORE}"
                                      f" store ran, {store} was asked for")
-            mask = ctx.locus_mask
+            if mask is None:
+                mask = ctx.locus_mask
             if not bool(torch.isfinite(got[mask]).all()):
                 raise AssertionError(f"[given] {label} {model_name}: "
                                      "non-finite lnL")
             err = float((got - want)[mask].abs().max())
+            if k2:
+                # per pattern over the compared loci only
+                site = float((got_s - want_s)[mask].abs().max())
+                site_worst = max(site_worst, site)
             if not (err < TOL_LNL and site < TOL_SITE):
                 raise AssertionError(
                     f"[given] {label} {model_name} ({store} store): kernel "
@@ -660,10 +794,79 @@ def hold_given(label, eng, state, smi, blen_of=None):
             worst = max(worst, err)
     site_txt = (f" | max per-pattern |dlnL| {site_worst:.3e} (tol "
                 f"{TOL_SITE})" if k2 else "")
-    print(f"[given] {label}: {'K2' if k2 else 'K1'} vs its float64 plain "
-          f"version on JC69, HKY+G4, TN93, GTR+G4 x shared/global store: max "
-          f"per-locus |dlnL| {worst:.3e} (tol {TOL_LNL}){site_txt} | {smi}")
+    if report:
+        print(f"[given] {label}: {'K2' if k2 else 'K1'} vs its float64 "
+              f"plain version on JC69, HKY+G4, TN93, GTR+G4 x shared/global "
+              f"store: max per-locus |dlnL| {worst:.3e} (tol {TOL_LNL})"
+              f"{site_txt} | {smi}")
     return worst, (site_worst if k2 else None)
+
+
+def species_phase(label, ctl, dev, smi, kernel_name, passes):
+    """``[profile]``, ``[moves]`` and ``[topo]`` on the engine of the
+    control file ``ctl`` (A01 or A11): the step's device profile, the wall
+    time of each species move, and the pruning kernel against its float64
+    plain version on every gene-tree batch the species moves of
+    ``TOPO_ITERS`` iterations proposed and on each accepted one.  Returns
+    the largest per-locus error."""
+    import torch
+
+    from bpp_tpu_torch.loader import load_run_from_ctl
+    from bpp_tpu_torch.mcmc import rj_moves, stree_moves
+    from bpp_tpu_torch.testing import gene_tree_faults
+    eng, state, ips = warm_engine(load_run_from_ctl(ctl), dev)
+    profile_step(eng, state, 1e3 / ips, smi, kernel_name, f"{label} step",
+                 passes)
+    print(f"[{label}] engine step: {ips:.2f} iters/s after warm-up | {smi}")
+    ctx, cfg, gen = eng.ctx, eng.cfg, eng.gen
+    rows = [("species_spr_move", wall_ms(lambda: stree_moves.species_spr_move(
+        ctx, cfg, state, gen))),
+        ("snl_move (with its host read)", wall_ms(
+            lambda: stree_moves.snl_move(ctx, cfg, state, gen)))]
+    if cfg.est_delimit:
+        rows.append(("rj_move", wall_ms(lambda: rj_moves.rj_move(
+            ctx, cfg, state, gen, eng.root_age0))))
+    rows.append(("whole step", wall_ms(lambda: eng._step(state))))
+    print(f"[moves] {label}, wall ms per call at {state.gt.n_loci} loci: "
+          + " | ".join(f"{n} {t:.2f}" for n, t in rows) + f" | {smi}")
+    with MoveTally(record=True) as tally:
+        state, _ = eng.chunk_step(state, TOPO_ITERS)
+    torch.cuda.synchronize()
+    worst = site = 0.0
+    held = left_out = 0
+    for what, gt in tally.trees:
+        # a proposal the move rejects by its own checks (a moved gene node
+        # with no target branch keeps its rescaled age unregrafted) can
+        # hold loci whose trees are not trees: the likelihood of those
+        # loci is never used; they are left out and counted
+        bad = {f[0] for f in gene_tree_faults(gt, ctx.n_seq)}
+        ok = torch.tensor([li not in bad for li in range(gt.n_loci)],
+                          device=dev)
+        if what.endswith("accepted") and not bool(ok[ctx.locus_mask].all()):
+            raise AssertionError(f"[topo] {label}: an accepted move left an "
+                                 "invalid gene tree")
+        mask = ok & ctx.locus_mask
+        held += int(mask.sum())
+        left_out += int((~ok & ctx.locus_mask).sum())
+        if bool(mask.any()):
+            err, serr = hold_given(f"{label} {what}", eng,
+                                   state._replace(gt=gt), smi, report=False,
+                                   mask=mask)
+            worst, site = max(worst, err), max(site, serr or 0.0)
+    if not held:
+        raise AssertionError(f"[topo] {label}: no gene tree was held")
+    kinds = ", ".join(f"{n} {c[0]} proposed / {c[1]} accepted"
+                      for n, c in tally.counts.items() if c[0])
+    print(f"[topo] {label}: {TOPO_ITERS} iterations ({kinds}); "
+          f"{len(tally.trees)} gene-tree batches, {held} locus trees held "
+          f"({left_out} of rejected proposals left out: a child older than "
+          f"its parent), "
+          f"{'K2' if ctx.res_map is not None else 'K1'} vs its float64 plain "
+          f"version on JC69, HKY+G4, TN93, GTR+G4 x shared/global store: max "
+          f"per-locus |dlnL| {worst:.3e} (tol {TOL_LNL})"
+          + (f", per pattern {site:.3e}" if ctx.res_map is not None else "")
+          + f" | {smi}")
+    return worst
 
 
 def launch_floor(dev, smi):
@@ -794,7 +997,8 @@ def main() -> int:
                         f.write(f"{sp_name}{k} {rng.uniform(0, 1):.3f}\n")
             for ctl, job, extra in (
                     ("run.ctl", "out", ""), ("run3.ctl", "out3", RELAXED),
-                    ("run5.ctl", "out5", DATED.format(ck=CHECKPOINT_AT))):
+                    ("run5.ctl", "out5", DATED.format(ck=CHECKPOINT_AT)),
+                    ("run6.ctl", "out6", A01)):
                 with open(ctl, "w") as f:
                     f.write(RUN_CTL.format(nloci=N_LOCI, burnin=BURNIN,
                                            nsample=NSAMPLE, job=job,
@@ -905,13 +1109,31 @@ def main() -> int:
                   f"summary over {NSAMPLE} samples, no theta column | {smi}")
             launches5 += resumed
 
+            # 14. main path 6: A01 (SPR and SNL) through the CLI
+            with MoveTally() as tally6:
+                launches6, _ = run_chain(
+                    ["--cfile", "run6.ctl"], "out6", iters,
+                    (PASSES_PER_ITER_6 * iters + 1, 0), "A01", "main 6", smi)
+            proposed = {n: c[0] for n, c in tally6.counts.items()}
+            if not (proposed["species_spr_move"] and proposed["snl_move"]):
+                raise AssertionError(f"main 6: species moves proposed "
+                                     f"{proposed}; SPR and SNL must both run")
+            print(f"[main 6] species moves proposed: SPR "
+                  f"{proposed['species_spr_move']}, SNL "
+                  f"{proposed['snl_move']} | {smi}")
+            # 16. the kernels on the trees the species moves make
+            err_topo1 = species_phase("A01 JC69", "run6.ctl", dev, smi,
+                                      "pack_logl_kernel", PASSES_PER_ITER_6)
+            torch.cuda.empty_cache()
+
             # 6. data 2
             t0 = time.perf_counter()
             with open("sim2.ctl", "w") as f:
                 f.write(SIM2_CTL.format(nloci=N_LOCI))
             run_simulation("sim2.ctl")
             for ctl, job, extra in (("run2.ctl", "out2", ""),
-                                    ("run4.ctl", "out4", SIMPLE)):
+                                    ("run4.ctl", "out4", SIMPLE),
+                                    ("run7.ctl", "out7", A11)):
                 with open(ctl, "w") as f:
                     f.write(RUN2_CTL.format(nloci=N_LOCI, burnin=BURNIN,
                                             nsample=NSAMPLE, job=job,
@@ -988,6 +1210,22 @@ def main() -> int:
                 (0, PASSES_PER_ITER_4 * iters + 1),
                 ("theta", "tau", "mu_bar", "r:"), "main 4", smi)
 
+            # 15. main path 7: A11 on the diploid data through the CLI
+            with MoveTally() as tally7:
+                _, launches7 = run_chain(
+                    ["--cfile", "run7.ctl"], "out7", iters,
+                    (0, PASSES_PER_ITER_7 * iters + 1), "A11", "main 7", smi)
+            print("[main 7] moves proposed: " + ", ".join(
+                f"{n} {c[0]}" for n, c in tally7.counts.items()) + f" | {smi}")
+            if tally7.counts["rj_move"][0] != iters:
+                raise AssertionError("main 7: the rj move did not run once "
+                                     "an iteration")
+            # 16. K2 on the trees the species and rj moves make
+            err_topo2 = species_phase("A11 diploid HKY+G4", "run7.ctl", dev,
+                                      smi, "fels_site_logl_kernel",
+                                      PASSES_PER_ITER_7)
+            torch.cuda.empty_cache()
+
             # 13. shapes the bench data lacks; stores picked by the wrappers
             hold_shapes(dev, smi)
         finally:
@@ -1001,18 +1239,21 @@ def main() -> int:
                 "plain_ms": plain, "bound_ms": bms, "bound_by": by,
                 "library_ms": None}
 
-    # launches: every main path's run; errors: the bench models' holds and
-    # those on relaxed-clock lengths and dated tips
+    # launches: every main path's run; errors: the bench models' holds,
+    # those on relaxed-clock lengths and dated tips, and those on the trees
+    # of the species and rj moves
     print(json.dumps({"kernels": [
         entry("K1 pallas_pack._make_kernel -> pack_logl_kernel",
               "bpp_tpu_torch/csrc/pack_kernel.cu",
               "bpp_tpu/core/pallas_pack.py:315",
-              launches1 + launches3 + launches5,
-              [*errs1.values(), err_k1_blen, err_k1_dated], rows1["JC69"]),
+              launches1 + launches3 + launches5 + launches6,
+              [*errs1.values(), err_k1_blen, err_k1_dated, err_topo1],
+              rows1["JC69"]),
         entry("K2 pallas_fels._make_kernel -> fels_site_logl_kernel",
               "bpp_tpu_torch/csrc/fels_kernel.cu",
-              "bpp_tpu/core/pallas_fels.py:92", launches2 + launches4,
-              [*errs2.values(), err_k2_blen], rows2["HKY"]),
+              "bpp_tpu/core/pallas_fels.py:92",
+              launches2 + launches4 + launches7,
+              [*errs2.values(), err_k2_blen, err_topo2], rows2["HKY"]),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

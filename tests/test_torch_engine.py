@@ -14,6 +14,16 @@ scalars.
   writes bpp_tpu's mcmc.txt header, ``mu_bar`` included, and its
   theta/tau means agree with a bpp_tpu chain in the same way.
 * So do those of a relaxed-clock chain (clock = 2, 5 loci of 120 sites).
+* A01 (species SPR + SNL) and A10 chains through ``cli.main([...,
+  "--device", "cpu"])`` on 3 species x 4 sequences, 10 loci of 200 sites
+  simulated on ((A,B),C): every mcmc.txt line is what ``bpp_tpu``'s
+  writers print for the same sample (A10: the same header too); the
+  posterior probability of the true topology / of three species agrees
+  with a ``bpp_tpu`` chain on the same data (both >= 0.9, else within 4
+  combined Monte Carlo standard errors); the A01 and A10 reports equal
+  ``bpp_tpu``'s ``format_a01_summary`` / ``format_a10_summary`` of the
+  same samples byte for byte; an A01 run resumed from its checkpoint
+  writes an mcmc.txt byte-identical to the uninterrupted run's.
 """
 
 import subprocess
@@ -191,3 +201,135 @@ def test_relaxed_clock_posterior_means_match_bpp_tpu(tmp_path):
         mp, sp = _means_and_se(xp)
         se = np.hypot(sj, sp)
         assert abs(mj - mp) < 4 * se, (kind, i, mj, mp, se)
+
+
+SIM3 = dict(names="ABC", seqs=(4, 4, 4), n_loci=10, n_sites=200,
+            sim_tree="((A #0.01, B #0.01) :0.01 #0.01, C #0.01) :0.03 #0.01",
+            guide="((A, B), C)")
+
+
+@pytest.fixture(scope="module")
+def species_runs(tmp_path_factory):
+    """A01 and A10 chains through the CLI on the CPU, float64: {method:
+    (control file, mcmc.txt lines, report text)}."""
+    from bpp_tpu_torch import cli, output
+    from bpp_tpu_torch.testing import write_simulated_run
+    out = {}
+    written = []
+    orig = output.A01McmcWriter.write_sample
+
+    def record(self, gen, left, right, parent, tau):
+        written.append((left, right, parent, tau))
+        return orig(self, gen, left, right, parent, tau)
+
+    output.A01McmcWriter.write_sample = record
+    try:
+        for method, prior in (("A01", "speciestree = 1 0.5 0.33 0.1 0.2"),
+                              ("A10", "speciesdelimitation = 1 0 2")):
+            tmp = tmp_path_factory.mktemp(f"torch{method}")
+            ctl = write_simulated_run(tmp, burnin=20, nsample=100,
+                                      priors=(prior, "checkpoint = 60 0"),
+                                      **SIM3)
+            assert cli.main(["--cfile", ctl, "--device", "cpu", "--x64",
+                             "--quiet"]) == 0
+            job = Path(ctl).with_name("out")
+            out[method] = (ctl,
+                           Path(f"{job}.mcmc.txt").read_text().splitlines(),
+                           Path(f"{job}.txt").read_text())
+    finally:
+        output.A01McmcWriter.write_sample = orig
+    out["A01 samples"] = written
+    return out
+
+
+def test_a01_lines_and_report_match_bpp_tpu(species_runs):
+    from bpp_tpu.loader import load_run_from_ctl
+    from bpp_tpu.output import read_mcmc_samples, species_newick
+    from bpp_tpu.summary.stree_summary import (
+        format_a01_summary, summarize_sptrees,
+    )
+    ctl, lines, report = species_runs["A01"]
+    run = load_run_from_ctl(ctl)
+    samples = species_runs["A01 samples"]
+    assert len(lines) == len(samples) == 100
+    for line, sample in zip(lines, samples):
+        assert species_newick(*sample, run.stree.names) == line
+    _, _, tau, _, sptrees, _ = read_mcmc_samples(
+        run.cfg, run.stree, str(Path(ctl).with_name("out.mcmc.txt")))
+    topo, clades, n = summarize_sptrees(sptrees, run.stree.names)
+    want = format_a01_summary(topo, clades, n, run.stree.names)
+    assert want + "\n" in report
+    assert report.split("\n", 2)[2] == want + "\n"
+
+
+def test_a10_lines_and_report_match_bpp_tpu(species_runs):
+    from bpp_tpu.loader import load_run_from_ctl
+    from bpp_tpu.output import McmcWriter, read_mcmc_samples
+    from bpp_tpu.summary.delimit_summary import (
+        format_a10_summary, summarize_delimitations,
+    )
+    ctl, lines, report = species_runs["A10"]
+    run = load_run_from_ctl(ctl)
+    ref = Path(ctl).with_name("ref.mcmc.txt")
+    gen, theta, tau, lnl, _, _ = read_mcmc_samples(
+        run.cfg, run.stree, str(Path(ctl).with_name("out.mcmc.txt")))
+    w = McmcWriter(str(ref), run.cfg, run.stree)
+    for k, g in enumerate(gen):
+        w.write_sample(int(g), theta[k], tau[k], float(lnl[k]))
+    w.close()
+    assert ref.read_text().splitlines() == lines
+    assert len(lines) == 101
+    models, nsp = summarize_delimitations(tau, run.stree)
+    want = format_a10_summary(models, nsp, len(gen), run.stree)
+    assert report.split("\n", 2)[2] == want + "\n"
+
+
+def _true_share(method, run, log_or_samples):
+    """Per-sample indicator of the true topology ((A,B),C) (A01) or of
+    three species (A10)."""
+    if method == "A01":
+        ns = run.stree.n_tips
+        out = []
+        for left, right, parent in log_or_samples:
+            root = int(np.nonzero(np.asarray(parent) < 0)[0][0])
+            kids = {int(left[root]), int(right[root])}
+            out.append(2 in kids)          # C joins at the root
+        return np.asarray(out, float)
+    return (np.asarray(log_or_samples)[:, run.stree.n_tips:] > 0).all(1) \
+        .astype(float)
+
+
+@pytest.mark.parametrize("method", ["A01", "A10"])
+def test_species_posterior_matches_bpp_tpu(species_runs, method):
+    from bpp_tpu.loader import load_run_from_ctl as load_jax
+    from bpp_tpu.mcmc.driver import Engine as EngineJ
+    from bpp_tpu.output import read_mcmc_samples
+    ctl, _, _ = species_runs[method]
+    rj = load_jax(ctl)
+    rj.cfg = rj.cfg.replace(dtype="float64", burnin=50, nsample=200,
+                            checkpoint=None)
+    log = EngineJ(rj, seed=5).run_mcmc(progress_every=0)
+    _, _, tau_p, _, sptrees_p, _ = read_mcmc_samples(
+        rj.cfg, rj.stree, str(Path(ctl).with_name("out.mcmc.txt")))
+    if method == "A01":
+        xj = _true_share(method, rj, log.sptrees)
+        xp = _true_share(method, rj, sptrees_p)
+    else:
+        xj = _true_share(method, rj, np.stack(log.tau))
+        xp = _true_share(method, rj, tau_p)
+    if xj.mean() >= 0.9 and xp.mean() >= 0.9:
+        return
+    mj, sj = _means_and_se(xj)
+    mp, sp = _means_and_se(xp)
+    assert abs(mj - mp) < 4 * np.hypot(sj, sp), (mj, mp, sj, sp)
+
+
+def test_a01_resume_is_byte_identical(species_runs):
+    from bpp_tpu_torch import cli
+    ctl, lines, _ = species_runs["A01"]
+    job = Path(ctl).with_name("out")
+    whole = Path(f"{job}.mcmc.txt").read_bytes()
+    assert cli.main(["--resume", f"{job}.chk.npz", "--device", "cpu",
+                     "--x64", "--quiet"]) == 0
+    assert Path(f"{job}.mcmc.txt").read_bytes() == whole
+    assert "(100 samples" in Path(f"{job}.txt").read_text()

@@ -29,7 +29,10 @@ def _port_modules():
 def test_import_loads_no_jax_and_no_bpp_tpu():
     mods = _port_modules()
     for mod in ("core.pack", "core.fels", "mcmc.subst_moves",
-                "mcmc.clock_moves", "mcmc.notheta", "checkpoint"):
+                "mcmc.clock_moves", "mcmc.notheta", "checkpoint",
+                "mcmc.stree_moves", "mcmc.rj_moves", "io.constraints",
+                "summary.stree_summary", "summary.delimit_summary",
+                "summary.mixed_summary"):
         assert f"bpp_tpu_torch.{mod}" in mods
     code = (
         "import importlib, sys\n"

@@ -9,7 +9,9 @@ trees of 64 and 128 tips (the wrapper picks the store), 8 rate categories,
 sizes, junk in the schedule's padding levels, refused shapes; the
 relaxed-clock branch lengths of clock = 2 and clock = 4 chains and the
 dated tips of a tip-dating chain, and the caches of those chains on the
-card.  Needs a CUDA device and nvcc; skips without them.
+card; the gene trees a species SPR, an SNL and an rj move propose (K1 on
+haploid A01 data, K2 on diploid A11 data), and the caches of those chains
+on the card.  Needs a CUDA device and nvcc; skips without them.
 
     python -m pytest tests/test_torch_kernel_gpu.py -q
 """
@@ -498,3 +500,126 @@ def test_new_chains_keep_their_caches_on_the_card(request, data):
         _, c, t2 = eng._logpr_fn(state.gt, state.sp, state.subst.heredity)
         assert torch.equal(state.coal, c)
         assert torch.allclose(state.t2h, t2, rtol=1e-5, atol=1e-7)
+
+
+def _species_engine(tmp, priors, diploid=False):
+    from bpp_tpu_torch.loader import load_run_from_ctl
+    from bpp_tpu_torch.mcmc.driver import Engine
+    from bpp_tpu_torch.testing import write_simulated_run
+    kw = dict(seqs=(2, 2, 2, 2), diploid=(1, 1, 0, 0)) if diploid else {}
+    run = load_run_from_ctl(write_simulated_run(
+        tmp, n_loci=12, n_sites=60, priors=priors, **kw))
+    eng = Engine(run, seed=2, device="cuda")
+    state = eng.init_state()
+    state, _ = eng.chunk_step(state, 5)
+    return eng, state
+
+
+@pytest.fixture(scope="module")
+def cuda_a01(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return _species_engine(tmp_path_factory.mktemp("gpua01"),
+                           ("speciestree = 1 0.5 0.33 0.1 0.2",))
+
+
+@pytest.fixture(scope="module")
+def cuda_a11(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return _species_engine(tmp_path_factory.mktemp("gpua11"), (
+        "speciesdelimitation = 1 0 2", "speciestree = 1"), diploid=True)
+
+
+def _proposed_trees(eng, state, move_name):
+    """The gene trees the pruning kernel was launched on inside one call of
+    the move, and the loci whose trees are valid (a proposal the move
+    rejects by its own checks may hold loci that are not trees)."""
+    from bpp_tpu_torch.mcmc import rj_moves, stree_moves
+    from bpp_tpu_torch.mcmc import state as state_mod
+    from bpp_tpu_torch.testing import gene_tree_faults
+    from bpp_tpu_torch.trees.gtree import GTrees
+    seen = []
+    name = ("site_logl_fels" if eng.ctx.res_map is not None
+            else "site_logl_packed")
+    orig = getattr(state_mod, name)
+
+    def spy(*args, **kw):
+        seen.append(GTrees(*(x.clone() for x in (args[1], args[2], args[3],
+                                                  args[5]))))
+        return orig(*args, **kw)
+
+    setattr(state_mod, name, spy)
+    try:
+        if move_name == "rj":
+            rj_moves.rj_move(eng.ctx, eng.cfg, state, eng.gen, eng.root_age0)
+        else:
+            getattr(stree_moves, move_name)(eng.ctx, eng.cfg, state, eng.gen)
+    finally:
+        setattr(state_mod, name, orig)
+    assert len(seen) == 1
+    gt = seen[0]
+    bad = {f[0] for f in gene_tree_faults(gt, eng.ctx.n_seq)}
+    ok = torch.tensor([i not in bad for i in range(gt.n_loci)],
+                      device="cuda") & eng.ctx.locus_mask
+    return state._replace(gt=gt), ok
+
+
+@pytest.mark.parametrize("store", STORES)
+@pytest.mark.parametrize("data,move", [
+    ("cuda_a01", "species_spr_move"), ("cuda_a01", "snl_move"),
+    ("cuda_a11", "species_spr_move"), ("cuda_a11", "snl_move"),
+    ("cuda_a11", "rj")])
+@pytest.mark.parametrize("model_name,n_cats", MODELS)
+def test_kernels_on_species_move_trees(request, data, move, model_name,
+                                       n_cats, store):
+    from bpp_tpu_torch.core import fels, pack
+    from bpp_tpu_torch.core import felsenstein as fe
+    eng, state = request.getfixturevalue(data)
+    ctx = eng.ctx
+    for _ in range(3):
+        st, ok = _proposed_trees(eng, state, move)
+        L = st.gt.n_loci
+        model, s32 = fixed_subst(model_name, n_cats, L, torch.float32,
+                                 "cuda")
+        _, s64 = fixed_subst(model_name, n_cats, L, torch.float64, "cuda")
+        kw = dict(model=model, n_cats=n_cats)
+        a32 = _args(st, ctx, s32, torch.float32)
+        a64 = _args(st, ctx, s64, torch.float64)
+        if ctx.res_map is None:
+            got = pack.site_logl_packed(*a32, units=ctx.units,
+                                        clv_store=store, **kw).double()
+            want = pack.site_logl_packed_ref(*a64, **kw)
+        else:
+            w64 = ctx.weights.double()
+            gs = fels.site_logl_fels(*a32[:-1], n_pat=ctx.n_pat,
+                                     units=ctx.units, clv_store=store,
+                                     **kw).double()
+            ws = fels.site_logl_fels_ref(*a64[:-1], n_pat=ctx.n_pat, **kw)
+            assert float((gs - ws)[ok].abs().max()) < 2e-3
+            got = fe.reduce_root(gs, w64, ctx.res_map, ctx.res_count)
+            want = fe.reduce_root(ws, w64, ctx.res_map, ctx.res_count)
+        torch.cuda.synchronize()
+        assert (pack if ctx.res_map is None else fels).CLV_STORE == store
+        assert bool(ok.any())
+        assert bool(torch.isfinite(got[ok]).all())
+        assert float((got - want)[ok].abs().max()) < 0.02
+
+
+@pytest.mark.parametrize("data", ["cuda_a01", "cuda_a11"])
+def test_species_chains_keep_their_caches_on_the_card(request, data):
+    from bpp_tpu_torch.mcmc.stree_moves import (
+        _recompute_mrca, _recompute_pptable,
+    )
+    from bpp_tpu_torch.testing import gene_tree_faults
+    eng, state = request.getfixturevalue(data)
+    state, stats = eng.chunk_step(state, 10)
+    assert gene_tree_faults(state.gt, eng.ctx.n_seq) == []
+    logl = eng._logl_fn(state.gt, state.subst, state.sp, state.clock)
+    logpr, _, _ = eng._logpr_fn(state.gt, state.sp, state.subst.heredity)
+    m = eng.ctx.locus_mask
+    assert float((logl - state.logl)[m].abs().max()) < 1e-3
+    assert float((logpr - state.logpr)[m].abs().max()) < 1e-3
+    pp = _recompute_pptable(state.sp.parent, state.sp.n_nodes)
+    assert torch.equal(pp, state.sp.pptable)
+    assert torch.equal(_recompute_mrca(pp), state.sp.mrca)
