@@ -9,15 +9,21 @@ Usage:
 with no CUDA device it exits with an error.  It writes
 ``<jobname>.mcmc.txt``, the ``<jobname>.txt`` summary,
 ``<jobname>.FigTree.tre`` and, with ``checkpoint = initial [step]``,
-``<jobname>.chk.npz`` (port of ``bpp_tpu/cli.py`` ``cmd_run``).  A01
-and A11 runs write one species tree (newick) per sample, and the A01,
-A10 and A11 reports replace the A00 summary and FigTree.tre.
-``--resume`` continues a run from its checkpoint: the sample file is cut
-back to the checkpoint's offset and appended to, so every sample is
-written once, and the summary reads all of them back.  ``--extend N``
-adds N samples to the resumed run.  The conditional a1b1 log, the
-species-tree PDF, chains, ``--summary`` and the per-locus print files
-are later work.
+``<jobname>.chk.npz`` (port of ``bpp_tpu/cli.py`` ``cmd_run``).  An A00
+run also writes the species-tree PDF ``<jobname>.pdf`` and, with data
+and estimated thetas (not resumed), the conditional
+``<jobname>.conditional_a1b1.txt`` log, whose Rao-Blackwellized summary
+is appended to ``<jobname>.txt``.  The print flags (``print = s r h g
+b``, ``printlocus``) write ``<jobname>.gtree.L<i>`` and
+``<jobname>.locus_<i>_params_sample.txt`` for the real loci.  A01 and
+A11 runs write one species tree (newick) per sample, and the A01, A10
+and A11 reports replace the A00 summary and FigTree.tre.  ``--resume``
+continues a run from its checkpoint: the sample file is cut back to the
+checkpoint's offset and appended to, so every sample is written once,
+and the summary reads all of them back.  ``--extend N`` adds N samples
+to the resumed run.  ``--check N`` (``check = N`` in the control file)
+recomputes the cached likelihoods and densities every N iterations and
+stops on drift.  Chains and ``--summary`` are later work.
 """
 
 from __future__ import annotations
@@ -28,6 +34,8 @@ import sys
 import time
 
 import numpy as np
+
+from .config import PriorDist
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -48,6 +56,12 @@ def build_argparser() -> argparse.ArgumentParser:
                     "runs the plain PyTorch path)")
     ap.add_argument("--x64", action="store_true",
                     help="run in float64 (CPU only in this version)")
+    ap.add_argument("--check", type=int, default=None, metavar="N",
+                    help="every N iterations recompute the cached logl/"
+                    "logpr (and integrated-theta caches) from scratch and "
+                    "stop on drift (the reference's CHECK_LOGL/"
+                    "CHECK_LOGPR, method.c:4699; as 'check = N' in the "
+                    "control file)")
     ap.add_argument("--quiet", action="store_true")
     return ap
 
@@ -58,6 +72,56 @@ def _column(path: str, name: str) -> np.ndarray:
         j = fh.readline().rstrip("\n").split("\t").index(name)
         return np.asarray([float(ln.split("\t")[j]) for ln in fh
                            if ln.strip()])
+
+
+class LocusFiles:
+    """The per-locus print files of ``print = s r h g b`` (method.c:2933
+    ``%s.gtree.L%d``, method.c:59 ``%s.locus_%d_params_sample.txt``) for
+    the real loci, or those ``printlocus`` names (1-based; cfile.c:2169):
+    one gene tree, and one row of the heredity scalar, locus rate, nu_i
+    and branch rates, a sample.  Port of ``bpp_tpu/cli.py``'s
+    ``log_locus_files``; the engine's ``record_samples`` brings the
+    values with each sample's trace row."""
+
+    def __init__(self, cfg, run):
+        b = run.batch
+        loci = [i for i in range(b.n_loci) if b.locus_mask[i]]
+        if cfg.print_locus:
+            loci = [i for i in loci if i + 1 in cfg.print_locus]
+        self.cfg, self.run = cfg, run
+        want_params = ((cfg.print_locusrate and cfg.est_locusrate)
+                       or (cfg.print_hscalars and cfg.est_heredity)
+                       or cfg.print_rates)
+        self.gtree_fps = {i: open(f"{cfg.jobname}.gtree.L{i + 1}", "w")
+                          for i in loci} if cfg.print_genetrees else {}
+        self.param_fps = {i: open(
+            f"{cfg.jobname}.locus_{i + 1}_params_sample.txt", "w")
+            for i in loci} if want_params else {}
+        self.loci = loci if (self.gtree_fps or self.param_fps) else []
+
+    def write(self, row):
+        from .output import gene_tree_newick
+        cfg, b = self.cfg, self.run.batch
+        for k, i in enumerate(self.loci):
+            if self.gtree_fps:
+                self.gtree_fps[i].write(gene_tree_newick(
+                    row["gt_left"][k], row["gt_right"][k],
+                    row["gt_parent"][k], row["gt_age"][k], b.labels[i],
+                    int(b.n_seq[i])) + "\n")
+            if self.param_fps:
+                vals = []
+                if cfg.print_hscalars and cfg.est_heredity:
+                    vals.append(f"{row['heredity'][k]:.6f}")
+                if cfg.print_locusrate and cfg.est_locusrate:
+                    vals.append(f"{row['mu'][k]:.6f}")
+                if cfg.print_rates and "nu" in row:
+                    vals.append(f"{row['nu'][k]:.6f}")
+                    vals += [f"{x:.6f}" for x in row["brate"][k]]
+                self.param_fps[i].write("\t".join(vals) + "\n")
+
+    def close(self):
+        for fp in (*self.gtree_fps.values(), *self.param_fps.values()):
+            fp.close()
 
 
 def cmd_run(args) -> int:
@@ -88,6 +152,8 @@ def cmd_run(args) -> int:
         seed = args.seed
     if args.x64:
         cfg = cfg.replace(dtype="float64")
+    if args.check is not None:
+        cfg = cfg.replace(check_every=args.check)
     run = load_run(cfg)
     eng = Engine(run, seed=seed, device=device)
     if not args.quiet:
@@ -106,6 +172,8 @@ def cmd_run(args) -> int:
         state = ckpt.restore_state(eng.init_state(), arrays)
         resume = (state, ckpt.rng_state(arrays), meta["it"],
                   arrays["stats_acc"])
+    a1b1 = None
+    locus_files = None
     if cfg.est_stree:
         writer = A01McmcWriter(mcmc_path, cfg, run.stree,
                                append=bool(args.resume))
@@ -116,6 +184,25 @@ def cmd_run(args) -> int:
     else:
         writer = McmcWriter(mcmc_path, cfg, run.stree,
                             append=bool(args.resume))
+        # conditional (a1, b1) log and Rao-Blackwellized summary
+        # (method.c:3838 opt_print_a1b1: A00, data, estimated thetas)
+        if (cfg.usedata and not cfg.theta_integrated
+                and not cfg.est_delimit and not args.resume):
+            from .summary.a1b1 import DIST_GAMMA, DIST_INVGAMMA, A1b1Writer
+            tdist = (DIST_GAMMA if cfg.thetaprior.dist == PriorDist.GAMMA
+                     else DIST_INVGAMMA)
+            labels = [(c, tdist) for c in writer.columns
+                      if c.startswith("theta")]
+            if labels:
+                a1b1 = A1b1Writer(f"{cfg.jobname}.conditional_a1b1.txt",
+                                  labels)
+        if not args.resume:
+            locus_files = LocusFiles(cfg, run)
+        eng.record_samples(
+            a1b1=a1b1 is not None,
+            loci=locus_files.loci if locus_files else (),
+            gtrees=bool(locus_files and locus_files.gtree_fps),
+            params=bool(locus_files and locus_files.param_fps))
 
         def on_sample(gen, row):
             def opt(key):
@@ -126,6 +213,12 @@ def cmd_run(args) -> int:
                 gen, row["theta"], row["tau"], float(row["lnl"]),
                 mubar=opt("mubar"), mubar_h=opt("mubar_h"),
                 nu_col=opt("nu_col"), brate0=row.get("brate0"))
+            if locus_files is not None:
+                locus_files.write(row)
+            if a1b1 is not None:
+                a1b1.write_sample(gen, [row["a1"][i] for i in
+                                        writer.theta_nodes],
+                                  [row["b1"][i] for i in writer.theta_nodes])
 
     chk_path = f"{cfg.jobname}.chk.npz"
 
@@ -144,6 +237,8 @@ def cmd_run(args) -> int:
                        on_checkpoint=on_checkpoint if cfg.checkpoint
                        else None)
     writer.close()
+    if locus_files is not None:
+        locus_files.close()
     if args.resume:
         # the summary covers the samples from before the checkpoint too
         gen, theta, tau, lnl, sptrees, _ = read_mcmc_samples(
@@ -185,11 +280,24 @@ def cmd_run(args) -> int:
         with open(f"{cfg.jobname}.FigTree.tre", "w") as fh:
             fh.write(figtree_export(run.stree, tau.mean(0), lo, hi,
                                     theta.mean(0)))
+    # species-tree PDF (visual.c stree_export_pdf, method.c:6528): A00
+    if a00 and run.stree.n_tips > 1 and len(gen):
+        from .visual import stree_export_pdf
+        stree_export_pdf(
+            run.stree, f"{cfg.jobname}.pdf",
+            tau=tau.mean(0) if tau.size else None,
+            theta=theta.mean(0) if theta.size else None,
+            cmdline="bpp_tpu_torch --cfile " + (args.cfile or ""))
     out_path = f"{cfg.jobname}.txt"
     with open(out_path, "w") as fh:
         fh.write(f"bpp_tpu_torch {cfg.method.name} run summary ({len(gen)} "
                  f"samples, {time.time()-t0:.1f}s, device {device})\n\n")
         fh.write(report + "\n")
+        if a1b1 is not None:
+            a1b1.close()
+            fh.write("\nSummarizing parameter estimates using file "
+                     f"{cfg.jobname}.conditional_a1b1.txt ...\n\n")
+            fh.write(a1b1.summary() + "\n")
     if not args.quiet:
         print(report)
         print(f"\nwrote {mcmc_path}, {out_path}", file=sys.stderr)

@@ -19,9 +19,15 @@ _KFAC = {"jc69": 1, "tn93": 3, "gtr": 4}
 
 
 def model_family(model: SubstModel) -> str:
+    """The kernels' family of a 4-state model.  Per-locus models
+    (CUSTOM) read the per-locus eigensystem through the GTR family; a
+    partition with an amino-acid locus has 20 states and no family (the
+    wrappers refuse its tips)."""
+    if model.is_aa:
+        raise ValueError(f"{model.name} has 20 states; the kernels take 4")
     if model == SubstModel.JC69:
         return "jc69"
-    if model == SubstModel.GTR:
+    if model in (SubstModel.GTR, SubstModel.CUSTOM):
         return "gtr"
     return "tn93"           # K80/F81/HKY/T92/F84/TN93 closed form
 

@@ -39,9 +39,10 @@ def site_logl_fels_ref(order, left, right, parent, n_seq, age, mu,
                        model: SubstModel, n_cats: int, blen=None,
                        n_pat=None):
     """Plain PyTorch per-pattern log-likelihoods ``[L, S]`` (same signature
-    as :func:`site_logl_fels`).
+    as :func:`site_logl_fels`); also the likelihood pass of 20-state
+    batches on any device, which no kernel takes.
 
-    ``tips [L, T, S, 4]`` tip partials, ``rates_kappa [L, C+2]`` category
+    ``tips [L, T, S, A]`` tip partials (A = 4, or 20), ``rates_kappa [L, C+2]`` category
     rates with kappa1, kappa2 appended, ``n_pat [L]`` real patterns per
     locus: columns ``s >= n_pat[l]`` are exactly 0."""
     C = n_cats

@@ -1,11 +1,12 @@
 """Batched Felsenstein pruning over ``[loci, sites, cats, states]`` (PyTorch).
 
-Port of ``bpp_tpu/core/felsenstein.py``.  All loci are processed
-together by an age-ordered loop: step ``k`` updates inner node
-``order[l, k]`` of every locus ``l`` at once, and every level is rescaled
-by the per-site max (log-scale accumulator).  This is the CPU path and
-the plain version that kernels K1 (``core/pack.py``) and K2
-(``core/fels.py``) are held against.
+Port of ``bpp_tpu/core/felsenstein.py``, at 4 or 20 states.  All loci
+are processed together by an age-ordered loop: step ``k`` updates inner
+node ``order[l, k]`` of every locus ``l`` at once, and every level is
+rescaled by the per-site max (log-scale accumulator).  This is the CPU
+path, the plain version that kernels K1 (``core/pack.py``) and K2
+(``core/fels.py``) are held against, and the 20-state pass on any
+device.
 """
 
 from __future__ import annotations
@@ -100,6 +101,15 @@ def reduce_root(site_logl, weights, res_map=None, res_count=None):
     return torch.sum(weights * logmean, dim=1)
 
 
+def _pclv(P, x):
+    """Parent partial ``sum_b P[l,c,a,b] x[l,s,c,b] -> [L, S, C, A]``: a
+    broadcast multiply-sum at 4 states, a batched matmul at 20 (full
+    float32 on the card: ``driver.resolve_device`` turns TF32 off)."""
+    if P.shape[-1] >= 20:
+        return torch.einsum("lcab,lscb->lsca", P, x)
+    return torch.sum(P[:, None] * x[:, :, :, None, :], dim=-1)
+
+
 def site_loglikelihood(
     gt: GTrees,
     tip_partials,      # [L, T, S, A]
@@ -127,12 +137,8 @@ def site_loglikelihood(
         node = order[:, k]
         lc = gt.left[lidx, node]
         rc = gt.right[lidx, node]
-        # sum_b P[l,c,a,b] x[l,s,c,b]
-        yl = torch.sum(pmats[lidx, lc][:, None] * clv[lidx, lc][:, :, :, None, :],
-                       dim=-1)
-        yr = torch.sum(pmats[lidx, rc][:, None] * clv[lidx, rc][:, :, :, None, :],
-                       dim=-1)
-        y = yl * yr
+        y = _pclv(pmats[lidx, lc], clv[lidx, lc]) \
+            * _pclv(pmats[lidx, rc], clv[lidx, rc])
         m = torch.amax(y, dim=(2, 3), keepdim=True)
         msafe = torch.clamp(m, min=tiny)
         y = y / msafe

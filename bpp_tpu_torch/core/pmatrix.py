@@ -1,14 +1,18 @@
-"""Batched transition-probability matrices P(t) for DNA models (PyTorch).
+"""Batched transition-probability matrices P(t) (PyTorch).
 
-Port of ``bpp_tpu/core/pmatrix.py`` without the amino-acid models:
-closed forms for JC69/K80/F81/HKY/TN93 vectorized over arbitrary leading
-batch dims, and the eigendecomposition path for GTR
-(``P = T expm1(Λt) T⁻¹ + I``).  State order is A, C, G, T; matrices are
-rate-normalized so that ``-Σ π_i Q_ii = 1``.
+Port of ``bpp_tpu/core/pmatrix.py``: closed forms for JC69/K80/F81/HKY/
+TN93 vectorized over arbitrary leading batch dims, the eigendecomposition
+path for GTR and per-locus models (``P = T expm1(Λt) T⁻¹ + I``), and the
+empirical amino-acid models over their constant eigensystems.  DNA state
+order is A, C, G, T; matrices are rate-normalized so that
+``-Σ π_i Q_ii = 1``.
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from ..config import SubstModel
@@ -91,20 +95,71 @@ def gtr_eigen(freqs, rates):
     # B = diag(sqrt(pi)) Q diag(1/sqrt(pi)) is symmetric
     sq = torch.sqrt(freqs)
     B = sq[..., :, None] * Q / sq[..., None, :]
-    w, V = torch.linalg.eigh(B)
+    # a float32 proposal can leave the parameter space (a reference rate
+    # or a frequency of 0 after a reflection onto its bound): its
+    # eigensystem is NaN, as XLA's is, so the move rejects it, and the
+    # solver, which refuses a non-finite matrix, sees the identity there
+    bad = ~torch.isfinite(B).all(-1).all(-1)
+    eye = torch.eye(S, dtype=B.dtype, device=B.device)
+    w, V = torch.linalg.eigh(torch.where(bad[..., None, None], eye, B))
+    nan = torch.full_like(w[..., :1], float("nan"))
+    w = torch.where(bad[..., None], nan, w)
+    V = torch.where(bad[..., None, None], nan[..., None], V)
     T = V / sq[..., :, None]
     Tinv = V.transpose(-1, -2) * sq[..., None, :]
     return w, T, Tinv
 
 
 def pmatrix_eigen(t, eigvals, T, Tinv):
-    """P(t) = T expm1(Λt) Tinv + I (elementwise broadcast-sum, full
-    precision whatever the matmul settings)."""
+    """P(t) = T expm1(Λt) Tinv + I: an elementwise broadcast-sum at 4
+    states (full precision whatever the matmul settings), a matmul at 20
+    (full float32 on the card: ``driver.resolve_device`` turns TF32 off)."""
     em1 = torch.expm1(eigvals[..., None, :] * t[..., None, None])
-    P = torch.sum(T[..., :, None, :] * em1[..., 0, None, None, :]
-                  * Tinv.transpose(-1, -2)[..., None, :, :], dim=-1)
     S = T.shape[-1]
+    if S >= 20:
+        P = torch.matmul(T * em1, Tinv)
+    else:
+        P = torch.sum(T[..., :, None, :] * em1[..., 0, None, None, :]
+                      * Tinv.transpose(-1, -2)[..., None, :, :], dim=-1)
     return P + torch.eye(S, dtype=P.dtype, device=P.device)
+
+
+# --- empirical amino-acid models (locus.c:985-1110 model table) --------------
+
+@functools.lru_cache(maxsize=None)
+def aa_eigen(model_name: str):
+    """Constant eigensystem of an empirical AA model (float64 numpy).
+
+    Returns (w, T, Tinv, freqs) with Q = T diag(w) Tinv, mean rate 1.
+    Symmetrized decomposition as in pll_update_eigen
+    (core_pmatrix.c:239): B = D^1/2 Q D^-1/2 is symmetric for a
+    reversible Q, so eigh is exact and stable."""
+    from .aa_matrices import AA_MODELS, aa_qmatrix
+
+    rates, freqs = AA_MODELS[model_name]
+    Q = aa_qmatrix(rates, freqs)
+    sq = np.sqrt(freqs)
+    B = sq[:, None] * Q / sq[None, :]
+    w, V = np.linalg.eigh((B + B.T) / 2.0)
+    T = V / sq[:, None]
+    Tinv = V.T * sq[None, :]
+    return w, T, Tinv, freqs
+
+
+def pmatrix_aa(t_eff, model_name: str):
+    """P(t) for an empirical AA model: ``t_eff [...]`` -> ``[..., 20, 20]``.
+
+    The 20-wide contraction is one matmul in ``t_eff``'s dtype: full
+    float32 on the card, where ``driver.resolve_device`` turns TF32 off
+    (the counterpart of ``bpp_tpu``'s ``Precision.HIGHEST``)."""
+    dtype, dev = t_eff.dtype, t_eff.device
+    w, T, Tinv, _ = aa_eigen(model_name)
+    wt = torch.as_tensor(w, dtype=dtype, device=dev)
+    Tt = torch.as_tensor(T, dtype=dtype, device=dev)
+    Tit = torch.as_tensor(Tinv, dtype=dtype, device=dev)
+    em1 = torch.expm1(t_eff[..., None] * wt)               # [..., A]
+    P = torch.matmul(Tt * em1[..., None, :], Tit)
+    return P + torch.eye(20, dtype=dtype, device=dev)
 
 
 TN93_FAMILY = (SubstModel.K80, SubstModel.F81, SubstModel.HKY,
@@ -113,18 +168,19 @@ TN93_FAMILY = (SubstModel.K80, SubstModel.F81, SubstModel.HKY,
 
 def pmatrix_model(model: SubstModel, t_eff, freqs, kappa1, kappa2, eigw,
                   eigT, eigTi):
-    """P(t) for every ``t_eff [L, N, C]`` entry: ``[L, N, C, 4, 4]``, with
-    per-locus model parameters (the DNA half of ``bpp_tpu``'s
-    ``state.compute_pmats``)."""
+    """P(t) for every ``t_eff [L, N, C]`` entry: ``[L, N, C, A, A]``, with
+    per-locus model parameters (``bpp_tpu``'s ``state.compute_pmats``).
+    Per-locus models (CUSTOM) ride the per-locus eigensystem, 4 or 20
+    states wide."""
+    if model in (SubstModel.GTR, SubstModel.CUSTOM):
+        return pmatrix_eigen(t_eff, eigw[:, None, None, :],
+                             eigT[:, None, None, :, :],
+                             eigTi[:, None, None, :, :])
+    if model.is_aa:
+        return pmatrix_aa(t_eff, model.name)
     if model == SubstModel.JC69:
         return pmatrix_jc69(t_eff)
     if model in TN93_FAMILY:
         return pmatrix_tn93(t_eff, freqs[:, None, None, :],
                             kappa1[:, None, None], kappa2[:, None, None])
-    if model == SubstModel.GTR:
-        return pmatrix_eigen(t_eff, eigw[:, None, None, :],
-                             eigT[:, None, None, :, :],
-                             eigTi[:, None, None, :, :])
-    raise NotImplementedError(
-        f"model {model.name} is not ported yet "
-        "(ROADMAP Queue 1 item 10a-custom)")
+    raise NotImplementedError(model)

@@ -3,18 +3,20 @@
 Port of ``bpp_tpu/mcmc/driver.py`` cut to what is ported so far: A00 on
 a fixed species tree, species-tree search (A01: SPR and SNL, topology
 constraints), species delimitation on a guide tree (A10) and both
-together (A11), on haploid, phased or unphased diploid DNA, with any DNA
-substitution model for all loci, Γ rates, locus rates and heredity
-scalars, the strict or a relaxed clock (2, 3, 4), estimated or
-integrated-out thetas, tip dating, and checkpoint/resume.  Every
-combination outside that raises ``NotImplementedError`` naming the
-ROADMAP item that brings it.  The jitted ``lax.scan`` chunk becomes a
-Python loop over :meth:`Engine._step`; a step reads nothing back to the
-host but for the serial accept chains (the Gamma-Dirichlet priors of
-mu_i and nu_i, and every per-locus gene-tree move under integrated-out
-thetas: one copy each way per chain) and, with SNL on, the SNL-or-SPR
-draw together with the species arrays (one copy), and a chunk
-synchronises once, at its end.
+together (A11), on haploid, phased or unphased diploid DNA or on amino
+acids, with one substitution model for all loci or one per locus
+(``model = custom``), Γ rates, locus rates and heredity scalars, the
+strict or a relaxed clock (2, 3, 4), estimated or integrated-out thetas,
+tip dating, checkpoint/resume and the runtime check of the caches
+(``check = N``).  Every combination outside that raises
+``NotImplementedError`` naming the ROADMAP item that brings it.  The
+jitted ``lax.scan`` chunk becomes a Python loop over
+:meth:`Engine._step`; a step reads nothing back to the host but for the
+serial accept chains (the Gamma-Dirichlet priors of mu_i and nu_i, and
+every per-locus gene-tree move under integrated-out thetas: one copy
+each way per chain) and, with SNL on, the SNL-or-SPR draw together with
+the species arrays (one copy), and a chunk synchronises once, at its
+end (and once more at a check).
 """
 
 from __future__ import annotations
@@ -29,17 +31,20 @@ import torch
 from ..config import BppConfig, Clock, PriorDist, SubstModel
 from ..core import felsenstein as fe
 from ..core.gammarates import discrete_gamma_rates
+from ..core.pmatrix import aa_eigen
 from ..core.units import Units
 from ..io.constraints import build_constraint_ids
 from ..loader import RunData, init_tau_theta
 from ..trees.gtree import init_gtrees, species_arrays
 from . import clock_moves, moves, rj_moves, rng, stree_moves, subst_moves
+from .gibbs import gamma_conditional_approx
 from .state import (
     FT_ALPHA, FT_BRATE, FT_FREQS, FT_GTAGE, FT_GTSPR, FT_LRHT, FT_MIX,
     FT_MUBAR, FT_MUI, FT_NUBAR, FT_NUI, FT_QRATES, FT_TAU, FT_THETA,
     MV_ALPHA, MV_BRATE, MV_FREQS, MV_GTAGE, MV_GTSPR, MV_LRHT, MV_MIX,
     MV_MUBAR, MV_MUI, MV_NUBAR, MV_NUI, MV_QRATES, MV_RJ, MV_SNL, MV_SSPR,
-    MV_TAU, MV_THETA, N_MOVES, Ctx, McmcState, SubstState, finetune_array,
+    MV_TAU, MV_THETA, N_MOVES, ROUTE_K1, ROUTE_K2, ROUTE_PLAIN, Ctx,
+    McmcState, SubstState, build_custom_models, finetune_array,
     make_logl_fn, make_logpr_fn, refresh_eigen,
 )
 
@@ -303,10 +308,6 @@ def _slice_guards(cfg: BppConfig, run: RunData):
             f"{what} is not ported to bpp_tpu_torch yet "
             f"(ROADMAP Queue 1 item {item})")
 
-    if cfg.model == SubstModel.CUSTOM or run.locus_models is not None:
-        refuse("per-locus models (model = custom)", "10a-custom")
-    if cfg.model.is_aa:
-        refuse(f"the amino-acid model {cfg.model.name}", "10a-custom")
     if run.stree.n_hybrids > 0:
         refuse("MSC-I networks", "10f")
     if cfg.migration:
@@ -317,8 +318,17 @@ def _slice_guards(cfg: BppConfig, run: RunData):
         refuse("linked thetas (thetamodel)", "10b-linked")
     if cfg.n_chains > 1:
         refuse("chains > 1", "10j")
-    if cfg.check_every:
-        refuse("check = N (validate_state)", "10k")
+
+
+def likelihood_route(n_states: int, res_map) -> str:
+    """The likelihood pass of a batch, chosen once per run: kernel K1 for
+    4 states without a diploid resolution map, K2 (and ``reduce_root``)
+    with one, the plain pass at 20 states (amino acids, or a partition
+    with an amino-acid locus).  A per-locus DNA partition has 4 states and
+    takes K1 or K2 through the GTR family."""
+    if n_states != 4:
+        return ROUTE_PLAIN
+    return ROUTE_K1 if res_map is None else ROUTE_K2
 
 
 @dataclass
@@ -379,9 +389,16 @@ class Engine:
         def t(a, dtype=None):
             return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
 
+        custom = None
+        if run.locus_models is not None:
+            custom = build_custom_models(run.locus_models, batch.n_loci,
+                                         self.dtype, dev)
+        self.n_states = (custom.n_states if custom is not None
+                         else cfg.model.n_states)
         self.ctx = Ctx(
             tip_partials=fe.tip_partials_from_codes(
-                t(batch.tip_codes.astype(np.int64)), dtype=self.dtype),
+                t(batch.tip_codes.astype(np.int64)), dtype=self.dtype,
+                n_states=self.n_states),
             weights=t(batch.weights, self.dtype),
             n_seq=t(batch.n_seq, torch.int64),
             tip_pop=t(batch.tip_pop, torch.int64),
@@ -403,11 +420,14 @@ class Engine:
                                        and cfg.delimit_prior >= 2)
             else t(np.log(prior_a11_masses(run.stree.n_tips,
                                            cfg.delimit_prior)), self.dtype),
+            custom=custom,
+            route=likelihood_route(self.n_states, rm),
         )
         self._logl_fn = make_logl_fn(self.ctx, cfg)
         self._logpr_fn = make_logpr_fn(self.ctx)
         self.gen = torch.Generator(device=dev)
         self.gen.manual_seed(int(self.seed))
+        self.record_samples()
 
     # --- state construction ---------------------------------------------------
 
@@ -473,13 +493,30 @@ class Engine:
         L = run.batch.n_loci
         C = cfg.gamma_cats
 
-        # near-uniform random starting freqs/qrates (locus.c:961-975)
-        if cfg.model in subst_moves.FREQS_MODELS:
+        # near-uniform random starting freqs/qrates (locus.c:961-975);
+        # amino-acid models keep their fixed frequencies (locus.c:985)
+        S = self.n_states
+        qrates = np.ones((L, 6))
+        if cfg.model == SubstModel.CUSTOM:
+            freqs = np.zeros((L, S))
+            freqs[:, :4] = 0.25
+            for i, m in enumerate(run.locus_models):
+                if m.is_aa:
+                    freqs[i] = aa_eigen(m.name)[3]
+                elif m in subst_moves.FREQS_MODELS:
+                    f = 0.8 + 0.4 * rng.random(4)
+                    freqs[i, :4] = f / f.sum()
+                if m in subst_moves.QRATES_COUNT:
+                    cnt, _ = subst_moves.QRATES_COUNT[m]
+                    q = 0.8 + 0.4 * rng.random(cnt)
+                    qrates[i, :cnt] = q / q.sum()
+        elif cfg.model.is_aa:
+            freqs = np.tile(aa_eigen(cfg.model.name)[3], (L, 1))
+        elif cfg.model in subst_moves.FREQS_MODELS:
             f = 0.8 + 0.4 * rng.random((L, 4))
             freqs = f / f.sum(1, keepdims=True)
         else:
             freqs = np.full((L, 4), 0.25)
-        qrates = np.ones((L, 6))
         if cfg.model in subst_moves.QRATES_COUNT:
             cnt, _ = subst_moves.QRATES_COUNT[cfg.model]
             q = 0.8 + 0.4 * rng.random((L, cnt))
@@ -502,10 +539,10 @@ class Engine:
             freqs=t(freqs), kappa1=full((L,), 1.0), kappa2=full((L,), 1.0),
             qrates=t(qrates), alpha=full((L,), alpha0), rates=t(rates0),
             mu=t(mu0), heredity=t(self._init_heredity(L)),
-            eigw=full((L, 4), 0.0), eigT=full((L, 4, 4), 0.0),
-            eigTi=full((L, 4, 4), 0.0))
-        subst = subst_moves._derive_kappas(subst, cfg.model)
-        subst = refresh_eigen(subst, cfg.model)
+            eigw=full((L, S), 0.0), eigT=full((L, S, S), 0.0),
+            eigTi=full((L, S, S), 0.0))
+        subst = subst_moves._derive_kappas(subst, cfg.model, self.ctx.custom)
+        subst = refresh_eigen(subst, cfg.model, self.ctx.custom)
         clock = None
         if cfg.clock != Clock.GLOBAL or (
                 cfg.est_locusrate == 1 and cfg.locusrate_prior in (0, 1)):
@@ -585,10 +622,12 @@ class Engine:
         if cfg.est_heredity == 1:
             state, pa = subst_moves.heredity_move(ctx, cfg, state, gen)
             count(MV_LRHT, pa)
-        if cfg.model in subst_moves.FREQS_MODELS:
+        if cfg.model in subst_moves.FREQS_MODELS or (
+                ctx.custom is not None and ctx.custom.any_freqs):
             state, pa = subst_moves.freqs_move(ctx, cfg, state, gen)
             count(MV_FREQS, pa)
-        if cfg.model in subst_moves.QRATES_COUNT:
+        if cfg.model in subst_moves.QRATES_COUNT or (
+                ctx.custom is not None and ctx.custom.q_slots):
             state, pa = subst_moves.qrates_move(ctx, cfg, state, gen)
             count(MV_QRATES, pa)
         if cfg.alphaprior is not None:
@@ -662,20 +701,127 @@ class Engine:
             tr["sp_parent"] = state.sp.parent
         return tr
 
-    def _chunk(self, state: McmcState, n: int):
-        """n iterations; returns (state, stats, trace) with trace leaves
-        stacked [n, ...] on the device."""
+    def record_samples(self, a1b1=False, loci=(), gtrees=False,
+                       params=False):
+        """Ask each sample for more than the columns of mcmc.txt: the
+        conditional (a1, b1) of every population (``a1b1``, the
+        ``conditional_a1b1.txt`` log), and, of the loci ``loci``
+        (0-based), the gene trees (``gtrees``) and the heredity scalar,
+        locus rate, nu_i and branch rates (``params``: the per-locus print
+        files).  They are computed at sample generations only and reach
+        the host with the chunk's trace; unasked, nothing more is computed
+        or copied."""
+        self._rec = (bool(a1b1), bool(gtrees), bool(params))
+        self._rec_loci = torch.as_tensor(np.asarray(loci, np.int64),
+                                         device=self.device)
+
+    def _sample_record(self, state: McmcState):
+        """The records :meth:`record_samples` asks for, of one state."""
+        a1b1, gtrees, params = self._rec
+        out = {}
+        if a1b1:
+            out["a1"], out["b1"] = self.a1b1_stats(state)
+        idx = self._rec_loci
+        if gtrees:
+            gt = state.gt
+            out.update(gt_left=gt.left[idx], gt_right=gt.right[idx],
+                       gt_parent=gt.parent[idx], gt_age=gt.age[idx])
+        if params:
+            out["heredity"] = state.subst.heredity[idx]
+            out["mu"] = state.subst.mu[idx]
+            if state.clock is not None and self.cfg.clock != Clock.GLOBAL:
+                br = state.clock.brate
+                out["nu"] = state.clock.nu[idx]
+                out["brate"] = br[idx.clamp(max=br.shape[0] - 1)]
+        return out
+
+    def a1b1_stats(self, state: McmcState):
+        """The conditional posterior of every population's theta given
+        the gene trees (log_a1b1, method.c:4829), computed on the device:
+        InvGamma(a + K_h, b + C_h) with K_h and C_h summed over the real
+        loci (C_h / heredity), or under a Gamma(a, b) prior the
+        moment-matched gamma of ``gibbs.gamma_conditional_approx``.
+        Returns (a1 [H], b1 [H]).  Port of ``bpp_tpu``'s
+        ``Engine.a1b1_stats`` without migration."""
+        cfg = self.cfg
+        a, b = cfg.thetaprior.alpha, cfg.thetaprior.beta
+        _, c, t2 = self._logpr_fn(state.gt, state.sp, state.subst.heredity)
+        m = self.ctx.locus_mask[:, None]
+        ksum = torch.where(m, c, torch.zeros_like(c)).sum(0).to(t2.dtype)
+        cc = t2 / state.subst.heredity[:, None]
+        csum = torch.where(m, cc, torch.zeros_like(cc)).sum(0)
+        if cfg.thetaprior.dist == PriorDist.GAMMA:
+            return gamma_conditional_approx(a, b, ksum, csum,
+                                            invgamma_proposal=False)
+        return a + ksum, b + csum
+
+    def validate_state(self, state: McmcState, it=None):
+        """``check = N [tol]``: recompute every cached per-locus quantity
+        (logl, logpr and, with integrated-out thetas, the coal/T2h caches)
+        from scratch and raise on drift beyond ``tol`` (default 0.5 in
+        float32, 1e-6 in float64): the reference's CHECK_LOGL/CHECK_LOGPR
+        (method.c:4699).  Port of ``bpp_tpu``'s ``Engine.validate_state``
+        without its migration and trait branches; the comparison reads the
+        device once."""
+        cfg = self.cfg
+        tol = cfg.check_tol or (
+            1e-6 if self.dtype == torch.float64 else 0.5)
+        where = f" at iteration {it}" if it is not None else ""
+        logl2 = self._logl_fn(state.gt, state.subst, state.sp, state.clock)
+        lp2, c2, t22 = self._logpr_fn(state.gt, state.sp,
+                                      state.subst.heredity)
+        pairs = [("logl", state.logl, logl2),
+                 ("logpr (MSC density)", state.logpr, lp2)]
+        if cfg.theta_integrated:
+            pairs += [("coal counts (notheta K cache)", state.coal, c2),
+                      ("T2h sums (notheta C cache)", state.t2h, t22)]
+        L = state.logl.shape[0]
+        flat = [x.reshape(L, -1).to(torch.float64)
+                for _, c, f in pairs for x in (c, f)]
+        host = torch.cat(flat, dim=1).cpu().numpy()
+        mask = np.asarray(self.run.batch.locus_mask, bool)
+        off = 0
+        for (what, _, _), c in zip(pairs, flat[::2]):
+            k = c.shape[1]
+            cached, fresh = host[:, off:off + k], host[:, off + k:off + 2 * k]
+            off += 2 * k
+            d = np.abs(np.where(mask[:, None], cached - fresh, 0.0))
+            finite = np.isfinite(np.where(mask[:, None], cached, 0.0)).all()
+            if finite and not (d > tol).any():
+                continue
+            worst = int(np.argmax(d.max(axis=1)))
+            raise RuntimeError(
+                f"check{where}: cached {what} drifted from full "
+                f"recompute (max |delta| = {d.max():.6g} > tol {tol:g}, "
+                f"worst locus {worst}: cached {cached[worst][:4]} fresh "
+                f"{fresh[worst][:4]})")
+        return True
+
+    def _chunk(self, state: McmcState, n: int, it=None):
+        """n iterations after iteration ``it``; returns (state, stats,
+        trace, samples): the trace leaves stacked [n, ...] on the device,
+        and, with ``it`` given, the records :meth:`record_samples` asks
+        for, stacked [one a sample generation in (it, it + n], ...]."""
+        K = max(1, self.cfg.sampfreq)
+        want = it is not None and any(self._rec)
         acc = torch.zeros((N_MOVES, 2), dtype=torch.int64, device=self.device)
-        rows = []
-        for _ in range(n):
+        rows, recs = [], []
+        for i in range(n):
             state, stats = self._step(state)
             acc += stats
             rows.append(self._trace_of(state))
+            if want and it + i + 1 > 0 and (it + i + 1) % K == 0:
+                recs.append(self._sample_record(state))
         trace = {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
-        return state, acc, trace
+        samples = ({k: torch.stack([r[k] for r in recs]) for k in recs[0]}
+                   if recs else {})
+        return state, acc, trace, samples
 
-    def chunk_step(self, state: McmcState, n: int):
-        state, stats, _ = self._chunk(state, n)
+    def chunk_step(self, state: McmcState, n: int, it=None):
+        """n iterations; with ``it`` (the iteration before the chunk) the
+        sample records :meth:`record_samples` asks for are taken as a run
+        takes them."""
+        state, stats, _, _ = self._chunk(state, n, it)
         return state, stats
 
     # --- full run -------------------------------------------------------------
@@ -689,6 +835,10 @@ class Engine:
         ends; chunks end at the finetune marks, at it = 0, at the
         checkpoint generations and at most every 500 iterations, each
         with one device-to-host copy.
+
+        A sample's row also holds the records :meth:`record_samples`
+        asks for.  With ``check = N`` every Nth iteration from the start
+        of burn-in is a chunk bound where :meth:`validate_state` runs.
 
         ``resume = (state, rng_state, it, stats_acc)`` continues from a
         checkpoint: the state as :meth:`init_state`'s template restored
@@ -737,11 +887,16 @@ class Engine:
             ck_initial, ck_step = cfg.checkpoint
             next_ck = (ck_initial if it < ck_initial else
                        it + ck_step if ck_step > 0 else 1 << 60)
+        # the runtime check (check = N): every Nth iteration, counted from
+        # the start of burn-in
+        chk_n = cfg.check_every
+        next_chk = it + chk_n if chk_n > 0 else 1 << 60
 
         while it < total_main:
-            bounds = [m for m in marks if m > it] + [total_main, next_ck]
+            bounds = [m for m in marks if m > it] + [total_main, next_ck,
+                                                     next_chk]
             n = max(1, min(500, min(bounds) - it))
-            state, stats, trace = self._chunk(state, n)
+            state, stats, trace, samples = self._chunk(state, n, it)
             stats_acc += stats.cpu().numpy()
             prev = it
             it += n
@@ -752,8 +907,10 @@ class Engine:
             first = K * (max(prev, 0) // K + 1)
             if first <= it:
                 htr = {k: v.cpu().numpy() for k, v in trace.items()}
-                for g in range(first, it + 1, K):
+                hrec = {k: v.cpu().numpy() for k, v in samples.items()}
+                for j, g in enumerate(range(first, it + 1, K)):
                     row = {k: v[g - prev - 1] for k, v in htr.items()}
+                    row.update((k, v[j]) for k, v in hrec.items())
                     log.gen.append(g)
                     log.theta.append(row["theta"])
                     log.tau.append(row["tau"])
@@ -766,6 +923,11 @@ class Engine:
                                             row["sp_parent"]))
                     if on_sample is not None:
                         on_sample(g, row)
+            if it >= next_chk:
+                self.validate_state(state, it=it)
+                print(f"  check at it {it:>8d}: caches consistent",
+                      file=log_fp or sys.stderr)
+                next_chk = it + chk_n
             if it >= next_ck:
                 on_checkpoint(state, self.gen, it, stats_acc)
                 ck_step = cfg.checkpoint[1]

@@ -5,7 +5,8 @@ Port of ``bpp_tpu/mcmc/gibbs.py`` (``get_gamma_conditional_approx``,
 with k coalescences and waiting sum T, ``p(th) ∝ th^(a-1-k)
 exp(-b·th - T/th)``, is moment-matched at its mode by a gamma or an
 inverse-gamma; under an InvGamma(a, b) prior it is exactly
-InvGamma(a + k, b + T).
+InvGamma(a + k, b + T).  The theta move proposes from the inverse-gamma
+form; the conditional a1b1 log records the gamma form.
 """
 
 from __future__ import annotations
@@ -13,10 +14,10 @@ from __future__ import annotations
 import torch
 
 
-def gamma_conditional_approx(a, b, k, T):
-    """Inverse-gamma proposal parameters (a1, b1), vectorized over k/T;
-    solved in float64, returned in T's dtype.  (``bpp_tpu``'s gamma
-    proposal form serves the a1b1 log, not ported yet.)"""
+def gamma_conditional_approx(a, b, k, T, invgamma_proposal: bool = True):
+    """Approximate conditional parameters (a1, b1), vectorized over k/T;
+    solved in float64, returned in T's dtype.  With ``invgamma_proposal``
+    they parameterize an InvGamma proposal, otherwise a Gamma one."""
     out_dtype = T.dtype
     k = k.to(torch.float64)
     T = T.to(torch.float64)
@@ -27,6 +28,13 @@ def gamma_conditional_approx(a, b, k, T):
     ddl = -(a1k + 2.0 * Ts / m) / (m * m)
     v = -1.0 / ddl
     mmv = m * m / v
+
+    if not invgamma_proposal:
+        a1 = 1.0 + mmv / 2.0 + torch.sqrt(mmv + mmv * mmv / 4.0)
+        b1 = (a1 - 1.0) / m
+        a1 = torch.where(T <= 0.0, torch.full_like(a1, a), a1)
+        b1 = torch.where(T <= 0.0, torch.full_like(b1, b), b1)
+        return a1.to(out_dtype), b1.to(out_dtype)
 
     # inverse-gamma proposal: a1 is the root of
     #   x^3 - (4+mmv) x^2 + (5-2mmv) x - (2+mmv) = 0  in [x0, x1]

@@ -2,7 +2,8 @@
 
 Port of ``bpp_tpu/mcmc/state.py`` for plain species trees: the strict
 and the relaxed clocks, estimated or integrated-out thetas, tip dating,
-species-tree search and species delimitation.
+species-tree search and species delimitation, one substitution model
+for all loci (DNA or amino acids) or one per locus (``model = custom``).
 The sampler state is one NamedTuple of tensors; moves return a new state
 and reject by ``torch.where(accept, new, old)``.
 """
@@ -17,9 +18,9 @@ import torch
 
 from ..config import BppConfig, Clock, SubstModel
 from ..core import felsenstein as fe
-from ..core.fels import site_logl_fels
+from ..core.fels import site_logl_fels, site_logl_fels_ref
 from ..core.pack import site_logl_packed
-from ..core.pmatrix import gtr_eigen, pmatrix_model
+from ..core.pmatrix import aa_eigen, gtr_eigen, pmatrix_model
 from ..core.units import Units
 from ..trees import coalescent as coal
 from ..trees.gtree import (
@@ -72,7 +73,7 @@ N_MOVES = 23
 class SubstState(NamedTuple):
     """Per-locus substitution-model parameters."""
 
-    freqs: torch.Tensor     # [L, 4]
+    freqs: torch.Tensor     # [L, A] (A = 4, or 20 with amino acids)
     kappa1: torch.Tensor    # [L]
     kappa2: torch.Tensor    # [L]
     qrates: torch.Tensor    # [L, 6]
@@ -80,13 +81,141 @@ class SubstState(NamedTuple):
     rates: torch.Tensor     # [L, C] category rates
     mu: torch.Tensor        # [L] locus rate
     heredity: torch.Tensor  # [L]
-    eigw: torch.Tensor      # [L, 4] cached GTR eigensystem
-    eigT: torch.Tensor      # [L, 4, 4]
-    eigTi: torch.Tensor     # [L, 4, 4]
+    eigw: torch.Tensor      # [L, A] cached eigensystem (GTR, custom)
+    eigT: torch.Tensor      # [L, A, A]
+    eigTi: torch.Tensor     # [L, A, A]
 
 
-def refresh_eigen(subst: SubstState, model: SubstModel) -> SubstState:
-    """Recompute the cached eigendecomposition (GTR only)."""
+@dataclasses.dataclass(frozen=True)
+class CustomModels:
+    """Per-locus substitution models (``model = custom`` partition file),
+    constant over a run (method.c:3344-3352).  Every DNA model is put in
+    the GTR parameterization, so one eigendecomposition covers the batch.
+
+    kind codes: 0 JC69/F81, 1 the two-parameter kappa family (K80, HKY,
+    T92, F84), 2 TN93, 3 GTR, 4 an empirical amino-acid model."""
+
+    kind: torch.Tensor        # [L] int64
+    freqs_free: torch.Tensor  # [L] bool: the locus samples frequencies
+    q_free: torch.Tensor      # [L, 6] bool: the qrates slot is a target
+    q_ref: torch.Tensor       # [L] int64 reference slot per locus
+    # [L] the reference slot's exponent in subst_moves.GTR_DIR_ALPHA
+    q_ref_alpha: torch.Tensor
+    is_dna: torch.Tensor      # [L] bool
+    # fixed eigensystems of the amino-acid loci (zeros on DNA loci); None
+    # when no locus is amino acids
+    aa_w: torch.Tensor | None
+    aa_T: torch.Tensor | None
+    aa_Ti: torch.Tensor | None
+    n_states: int             # 4, or 20 with any amino-acid locus
+    any_freqs: bool           # the freqs move runs
+    q_slots: tuple            # qrates slots free at one locus or more
+
+
+def build_custom_models(locus_models, n_loci: int, dtype,
+                        device="cpu") -> CustomModels:
+    """The per-locus model constants of a partition (copied from
+    ``bpp_tpu/mcmc/state.py``).  ``locus_models`` covers the real loci;
+    padding loci are JC69 with no free parameter."""
+    kinds = {SubstModel.JC69: 0, SubstModel.F81: 0, SubstModel.K80: 1,
+             SubstModel.HKY: 1, SubstModel.T92: 1, SubstModel.F84: 1,
+             SubstModel.TN93: 2, SubstModel.GTR: 3}
+    with_freqs = {SubstModel.F81, SubstModel.HKY, SubstModel.T92,
+                  SubstModel.TN93, SubstModel.F84, SubstModel.GTR}
+    kind = np.zeros(n_loci, np.int64)
+    freqs_free = np.zeros(n_loci, bool)
+    q_free = np.zeros((n_loci, 6), bool)
+    q_ref = np.ones(n_loci, np.int64)
+    is_dna = np.ones(n_loci, bool)
+    has_aa = any(m.is_aa for m in locus_models)
+    S = 20 if has_aa else 4
+    aa_w = np.zeros((n_loci, S)) if has_aa else None
+    aa_T = np.zeros((n_loci, S, S)) if has_aa else None
+    aa_Ti = np.zeros((n_loci, S, S)) if has_aa else None
+    for i, m in enumerate(locus_models):
+        if m.is_aa:
+            kind[i] = 4
+            is_dna[i] = False
+            aa_w[i], aa_T[i], aa_Ti[i], _ = aa_eigen(m.name)
+            continue
+        k = kinds[m]
+        kind[i] = k
+        freqs_free[i] = m in with_freqs
+        if k == 1:                       # (alpha, beta): slot 0 vs ref 1
+            q_free[i, 0] = True
+            q_ref[i] = 1
+        elif k == 2:                     # TN93 (a1, a2, b): ref slot 2
+            q_free[i, [0, 1]] = True
+            q_ref[i] = 2
+        elif k == 3:                     # GTR: all but the AG reference
+            q_free[i, :] = True
+            q_free[i, 1] = False
+            q_ref[i] = 1
+
+    def t(a, dt=None):
+        return None if a is None else torch.as_tensor(a, dtype=dt,
+                                                      device=device)
+
+    return CustomModels(
+        kind=t(kind), freqs_free=t(freqs_free), q_free=t(q_free),
+        q_ref=t(q_ref), q_ref_alpha=t(np.asarray(
+            (2.0, 4.0, 2.0, 2.0, 4.0, 2.0))[q_ref], dtype),
+        is_dna=t(is_dna), aa_w=t(aa_w, dtype),
+        aa_T=t(aa_T, dtype), aa_Ti=t(aa_Ti, dtype), n_states=S,
+        any_freqs=bool(freqs_free.any()),
+        q_slots=tuple(j for j in range(6) if q_free[:, j].any()))
+
+
+def custom_kappas(qrates, kind):
+    """Per-locus (kappa1, kappa2) of a partition: q0/q1 for the kappa
+    family, (q0/q2, q1/q2) for TN93, 1 elsewhere."""
+    q = qrates
+    one = torch.ones_like(q[:, 0])
+    k1 = torch.where(kind == 1, q[:, 0] / q[:, 1],
+                     torch.where(kind == 2, q[:, 0] / q[:, 2], one))
+    k2 = torch.where(kind == 1, q[:, 0] / q[:, 1],
+                     torch.where(kind == 2, q[:, 1] / q[:, 2], one))
+    return k1, k2
+
+
+def expand_qrates(subst: SubstState, custom: CustomModels):
+    """Per-locus GTR-layout (AC, AG, AT, CG, CT, GT) exchangeabilities:
+    kappa on the transition slots for the kappa family and TN93, the
+    qrates themselves for GTR, all ones for JC69 and amino acids."""
+    q = subst.qrates
+    k1, k2 = custom_kappas(q, custom.kind)
+    one = torch.ones_like(k1)
+    tn = torch.stack([one, k1, one, one, k2, one], dim=1)
+    return torch.where((custom.kind == 3)[:, None], q, tn)
+
+
+def refresh_eigen(subst: SubstState, model: SubstModel,
+                  custom: CustomModels | None = None) -> SubstState:
+    """Recompute the cached eigendecomposition (GTR and custom loci)."""
+    if model == SubstModel.CUSTOM:
+        exp = expand_qrates(subst, custom)
+        if custom.n_states == 4:
+            w, T, Tinv = gtr_eigen(subst.freqs, exp)
+            return subst._replace(eigw=w, eigT=T, eigTi=Tinv)
+        # mixed DNA/AA: each DNA locus's 4-state eigensystem embedded in
+        # the 20-state space (zero eigenvalues, the identity on the other
+        # 16 states); amino-acid loci keep their fixed eigensystems
+        d = custom.is_dna
+        f4 = torch.where(d[:, None], subst.freqs[:, :4],
+                         torch.full_like(subst.freqs[:, :4], 0.25))
+        w4, T4, Ti4 = gtr_eigen(f4, exp)
+        L, S = w4.shape[0], custom.n_states
+        w = torch.zeros((L, S), dtype=w4.dtype, device=w4.device)
+        w[:, :4] = w4
+        eye = torch.eye(S, dtype=w4.dtype, device=w4.device)
+        T = eye.expand(L, S, S).clone()
+        T[:, :4, :4] = T4
+        Tinv = eye.expand(L, S, S).clone()
+        Tinv[:, :4, :4] = Ti4
+        w = torch.where(d[:, None], w, custom.aa_w)
+        T = torch.where(d[:, None, None], T, custom.aa_T)
+        Tinv = torch.where(d[:, None, None], Tinv, custom.aa_Ti)
+        return subst._replace(eigw=w, eigT=T, eigTi=Tinv)
     if model != SubstModel.GTR:
         return subst
     w, T, Tinv = gtr_eigen(subst.freqs, subst.qrates)
@@ -136,11 +265,19 @@ def tree_where(cond, new, old):
     return torch.where(cond, new, old)
 
 
+# the likelihood routes of a batch: 4 states without a diploid resolution
+# map (kernel K1), 4 states with one (kernel K2 and reduce_root), 20
+# states (K2's plain version and reduce_root; no TPU kernel exists for it)
+ROUTE_K1 = "K1"
+ROUTE_K2 = "K2"
+ROUTE_PLAIN = "plain"
+
+
 @dataclasses.dataclass(frozen=True)
 class Ctx:
     """Static per-run tensors."""
 
-    tip_partials: torch.Tensor   # [L, T, S, 4]
+    tip_partials: torch.Tensor   # [L, T, S, A]
     weights: torch.Tensor        # [L, W]
     n_seq: torch.Tensor          # [L] int64
     tip_pop: torch.Tensor        # [L, T] int64
@@ -166,11 +303,16 @@ class Ctx:
     # A11 under speciesmodelprior 2/3: log prior mass per species count
     # minus one (driver.prior_a11_masses)
     prior_a11_log: torch.Tensor | None = None    # [NS]
+    # per-locus substitution models (model = custom partition file)
+    custom: CustomModels | None = None
+    # the likelihood pass, chosen once per run (driver.likelihood_route)
+    route: str = ROUTE_K1
+
 
 
 def compute_pmats(gt: GTrees, subst: SubstState, model: SubstModel,
                   blen=None):
-    """Transition matrices for every (node, category): [L, N, C, 4, 4]."""
+    """Transition matrices for every (node, category): [L, N, C, A, A]."""
     if blen is None:
         blen = fe.branch_lengths(gt, subst.mu)
     t_eff = blen[:, :, None] * subst.rates[:, None, :]
@@ -181,12 +323,17 @@ def compute_pmats(gt: GTrees, subst: SubstState, model: SubstModel,
 def make_logl_fn(ctx: Ctx, cfg: BppConfig):
     """Returns logl(gt, subst, sp=None, clock=None, seg=None) -> [L].
 
-    A batch whose resolution map is the identity goes through
-    ``core.pack.site_logl_packed`` (kernel K1).  A batch with a diploid
-    resolution map goes wholly through ``core.fels.site_logl_fels``
-    (kernel K2), then ``felsenstein.reduce_root`` averages the phase
-    resolutions.  Either wrapper launches its kernel on CUDA tensors and
-    computes its plain version on CPU tensors.
+    ``ctx.route`` picks the pass.  A 4-state batch whose resolution map
+    is the identity goes through ``core.pack.site_logl_packed`` (kernel
+    K1).  A 4-state batch with a diploid resolution map goes wholly
+    through ``core.fels.site_logl_fels`` (kernel K2), then
+    ``felsenstein.reduce_root`` averages the phase resolutions.  Either
+    wrapper launches its kernel on CUDA tensors and computes its plain
+    version on CPU tensors; per-locus DNA models reach both kernels
+    through their GTR family.  A 20-state batch (amino acids, or a
+    partition with an amino-acid locus) takes K2's plain version,
+    ``core.fels.site_logl_fels_ref``, on any device, then ``reduce_root``:
+    ``bpp_tpu`` has no Pallas kernel for it either.
 
     Under a relaxed clock (``cfg.clock != GLOBAL``) ``sp`` and ``clock``
     are required: the branch lengths ``relaxed_branch_lengths`` (times
@@ -220,13 +367,17 @@ def make_logl_fn(ctx: Ctx, cfg: BppConfig):
                 gt.age, subst.mu, rk, subst.freqs, subst.eigw, subst.eigT,
                 subst.eigTi, ctx.tip_partials)
         n_cats = subst.rates.shape[1]
-        if ctx.res_map is None:
+        if ctx.route == ROUTE_K1:
             ll = site_logl_packed(*tree, ctx.weights, model=model,
                                   n_cats=n_cats, blen=blen, units=ctx.units)
         else:
-            site = site_logl_fels(*tree, model=model, n_cats=n_cats,
-                                  blen=blen, n_pat=ctx.n_pat,
-                                  units=ctx.units)
+            if ctx.route == ROUTE_K2:
+                site = site_logl_fels(*tree, model=model, n_cats=n_cats,
+                                      blen=blen, n_pat=ctx.n_pat,
+                                      units=ctx.units)
+            else:
+                site = site_logl_fels_ref(*tree, model=model, n_cats=n_cats,
+                                          blen=blen, n_pat=ctx.n_pat)
             ll = fe.reduce_root(site.to(ctx.weights.dtype), ctx.weights,
                                 ctx.res_map, ctx.res_count)
         if bfbeta != 1.0:

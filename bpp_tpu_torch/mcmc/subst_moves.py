@@ -1,13 +1,16 @@
 """Substitution- and rate-parameter moves, batched over loci (PyTorch).
 
-Port of ``bpp_tpu/mcmc/subst_moves.py`` for the DNA models with one
-model for all loci:
+Port of ``bpp_tpu/mcmc/subst_moves.py``, for one DNA model for all loci
+or one model per locus (``model = custom``; amino-acid loci have no free
+parameter):
 
   * base frequencies  — locus.c:2634 ``propose_freqs``: pick a pair
     (j, k), slide the ratio x = f_j/(f_j+f_k), uniform Dirichlet prior.
   * Q-matrix rates    — locus.c:3167 ``propose_qrates``: log-slide each
     non-reference rate against the reference (A<->G for GTR, beta for
-    the kappa models), Dirichlet(2,4,2,2,4,2) prior.
+    the kappa models), Dirichlet(2,4,2,2,4,2) prior; under a partition
+    the free slots and the reference vary per locus, and a locus whose
+    model does not free a slot sits that round out.
   * Gamma shape alpha — prop_gamma.c:54 ``propose_alpha``: log-slide,
     Gamma(a, b) prior, mean-discretized categories recomputed.
   * locus rates mu_i under the Dirichlet prior — stree.c:9225
@@ -24,7 +27,6 @@ likelihood pass (one kernel launch on the card) and accepts or rejects
 per locus with ``torch.where`` over the ``SubstState`` tuple; nothing is
 read back to the host (but for the heredity move with integrated-out
 thetas, whose serial accept chain runs on the host, ``notheta``).
-Per-locus models (``model = custom``) are not ported yet.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ from ..core.gammarates import discrete_gamma_rates
 from . import notheta, rng
 from .state import (
     FT_ALPHA, FT_FREQS, FT_LRHT, FT_QRATES, Ctx, McmcState, SubstState,
-    make_logl_fn, make_logpr_fn, refresh_eigen,
+    custom_kappas, make_logl_fn, make_logpr_fn, refresh_eigen,
 )
 
 # number of free Q-matrix params and reference-rate index per model
@@ -50,8 +52,13 @@ FREQS_MODELS = (SubstModel.F81, SubstModel.HKY, SubstModel.T92,
                 SubstModel.TN93, SubstModel.F84, SubstModel.GTR)
 
 
-def _derive_kappas(subst: SubstState, model: SubstModel) -> SubstState:
-    """kappa1/kappa2 from the qrates vector for the TN93 family."""
+def _derive_kappas(subst: SubstState, model: SubstModel,
+                   custom=None) -> SubstState:
+    """kappa1/kappa2 from the qrates vector for the TN93 family (per
+    locus under a partition, ``custom``)."""
+    if model == SubstModel.CUSTOM:
+        k1, k2 = custom_kappas(subst.qrates, custom.kind)
+        return subst._replace(kappa1=k1, kappa2=k2)
     if model in (SubstModel.K80, SubstModel.HKY, SubstModel.T92,
                  SubstModel.F84):
         k = subst.qrates[:, 0] / subst.qrates[:, 1]
@@ -81,7 +88,10 @@ def freqs_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
     dt, dev = f.dtype, f.device
     lidx = torch.arange(L, device=dev)
     eps = state.finetune[FT_FREQS]
-    free = ctx.locus_mask
+    # under a partition only the loci whose model has free frequencies
+    # take part (always the first 4 states: amino-acid ones are fixed)
+    free = ctx.locus_mask if ctx.custom is None \
+        else ctx.locus_mask & ctx.custom.freqs_free
 
     j = torch.randint(0, 4, (L,), generator=gen, device=dev)
     k = torch.randint(0, 3, (L,), generator=gen, device=dev)
@@ -98,7 +108,8 @@ def freqs_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
     fnew[lidx, k] = s - y * s
     fnew = torch.where(free[:, None], fnew, f)
 
-    subst_new = refresh_eigen(subst._replace(freqs=fnew), cfg.model)
+    subst_new = refresh_eigen(subst._replace(freqs=fnew), cfg.model,
+                              ctx.custom)
     logl_new = _logl(ctx, cfg, state, subst_new)
     lnacc = logl_new - state.logl         # uniform Dirichlet prior, symmetric
     accept = rng.mh_accept(gen, lnacc) & free
@@ -110,7 +121,9 @@ def freqs_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
 def qrates_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
     """Sequential sweep over non-reference rates, each batched over loci:
     one likelihood pass per target (1 for the kappa models, 2 for TN93,
-    5 for GTR)."""
+    5 for GTR; under a partition one for each slot free at some locus)."""
+    if cfg.model == SubstModel.CUSTOM:
+        return _qrates_move_custom(ctx, cfg, state, gen)
     L = state.gt.n_loci
     count, ref = QRATES_COUNT[cfg.model]
     eps = state.finetune[FT_QRATES]
@@ -142,6 +155,50 @@ def qrates_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
         logl = torch.where(accept, logl_new, logl)
         nacc = nacc + accept.sum()
     nprop = len(targets) * ctx.locus_mask.sum()
+    return state._replace(subst=subst, logl=logl), (nprop, nacc)
+
+
+def _qrates_move_custom(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
+    """The qrates sweep under a partition (``model = custom``): the same
+    slot-against-reference log-slide, with the free slots and the
+    reference slot of each locus's model (``state.CustomModels``)."""
+    cm = ctx.custom
+    L = state.gt.n_loci
+    eps = state.finetune[FT_QRATES]
+    subst, logl = state.subst, state.logl
+    dt, dev = logl.dtype, logl.device
+    lidx = torch.arange(L, device=dev)
+    lo = torch.full((L,), 1e-5, dtype=dt, device=dev).log()
+    nprop = torch.zeros((), dtype=torch.int64, device=dev)
+    nacc = torch.zeros((), dtype=torch.int64, device=dev)
+    for j in cm.q_slots:
+        free_j = cm.q_free[:, j] & ctx.locus_mask
+        q = subst.qrates
+        qref = q[lidx, cm.q_ref]
+        s = q[:, j] + qref
+        old_lg = torch.log(q[:, j])
+        new_lg = rng.reflect(
+            old_lg + eps * rng.bactrian(gen, (L,), dt, dev), lo, torch.log(s))
+        qnew = q.clone()
+        qnew[:, j] = torch.exp(new_lg)
+        qnew[lidx, cm.q_ref] = s - torch.exp(new_lg)
+        qnew = torch.where(free_j[:, None], qnew, q)
+
+        subst_new = refresh_eigen(
+            _derive_kappas(subst._replace(qrates=qnew), cfg.model, cm),
+            cfg.model, cm)
+        logl_new = _logl(ctx, cfg, state, subst_new)
+        ref_ratio = torch.log(torch.where(
+            free_j, qnew[lidx, cm.q_ref] / torch.clamp(qref, min=1e-300),
+            torch.ones_like(qref)))
+        lnacc = (new_lg - old_lg) + (logl_new - logl) \
+            + (GTR_DIR_ALPHA[j] - 1.0) * (new_lg - old_lg) \
+            + (cm.q_ref_alpha - 1.0) * ref_ratio
+        accept = rng.mh_accept(gen, lnacc) & free_j
+        subst = _select(accept, subst_new, subst)
+        logl = torch.where(accept, logl_new, logl)
+        nprop = nprop + free_j.sum()
+        nacc = nacc + accept.sum()
     return state._replace(subst=subst, logl=logl), (nprop, nacc)
 
 

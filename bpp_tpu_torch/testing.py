@@ -4,8 +4,11 @@
 seed gives the same data) that also takes per-locus sequence counts.
 ``write_simulated_run`` simulates a dataset (4 species by default,
 haploid, or with unphased diploid species) with the port's simulator and
-writes a run control file for it; ``fixed_subst`` builds
-a substitution state per DNA model family with fixed parameters.
+writes a run control file for it; ``write_partition_file`` writes the
+partition file of ``model = custom``; ``generate_aa_benchmark`` (a copy
+of ``bpp_tpu/testing.py``'s) writes the WAG amino-acid dataset of
+``bench.py``; ``fixed_subst`` builds a substitution state per DNA model
+family with fixed parameters.
 """
 
 from __future__ import annotations
@@ -89,9 +92,11 @@ def synthetic_species_tree(n_species: int, rng: np.random.Generator,
 
 def synthetic_run(n_loci: int = 8, n_seq=6, n_patterns=16,
                   n_species: int = 4, seed: int = 0,
-                  pad_loci_to: int | None = None, **cfg_kw) -> RunData:
+                  pad_loci_to: int | None = None, locus_models=None,
+                  **cfg_kw) -> RunData:
     """Random (non-simulated) data; ``n_seq`` and ``n_patterns`` may be
-    per-locus lists to build heterogeneous batches."""
+    per-locus lists to build heterogeneous batches; ``locus_models`` are
+    the per-locus models of ``model = custom``."""
     rng = np.random.default_rng(seed)
     st = synthetic_species_tree(n_species, rng)
     pat_of = list(n_patterns) if isinstance(n_patterns, (list, tuple)) \
@@ -123,7 +128,8 @@ def synthetic_run(n_loci: int = 8, n_seq=6, n_patterns=16,
         burnin=2, nsample=2, sampfreq=1,
         **cfg_kw,
     )
-    return RunData(cfg=cfg, batch=batch, stree=st, loci=loci)
+    return RunData(cfg=cfg, batch=batch, stree=st, loci=loci,
+                   locus_models=locus_models)
 
 
 def _lines(*items) -> str:
@@ -180,6 +186,119 @@ def write_simulated_run(directory, n_loci: int, seqs=(2, 2, 2, 2),
             extra=_lines(f"model = {model}", flags and f"phase = {flags}",
                          *priors)))
     return path
+
+
+def generate_aa_benchmark(nloci: int, nsites: int, out_dir: str,
+                          seed: int = 137) -> float:
+    """Deterministic WAG amino-acid benchmark dataset (PHYLIP + Imap).
+
+    4 species x 4 sequences, MSC gene trees on the same ((A,B),(C,D))
+    tree/taus as the DNA bench; evolution via the WAG eigensystem
+    (P(t) = V e^{wt} V^-1).  Used by bench.py's AA head-to-head against
+    the reference's 20x20 AVX kernels (core_partials_avx.c
+    pll_core_update_partial_ti_20x20_avx, bpp.h:2827).  Returns the
+    generation wall time.  A copy of ``bpp_tpu/testing.py``'s (numpy; the
+    same seed writes the same files)."""
+    import time as _time
+
+    from .core.aa_matrices import AA_MODELS
+
+    t0 = _time.time()
+
+    rng = np.random.default_rng(seed)
+    AAS = "ARNDCQEGHILKMFPSTWYV"
+    rates, freqs = AA_MODELS["WAG"]
+    Q = np.zeros((20, 20))
+    iu = np.triu_indices(20, 1)
+    Q[iu] = rates[iu] if rates.ndim == 2 else rates
+    Q = Q + Q.T
+    Q = Q * freqs[None, :]
+    np.fill_diagonal(Q, -Q.sum(1))
+    Q /= -(freqs * np.diag(Q)).sum()
+    # reversible: symmetrize with sqrt(pi), eigendecompose once
+    sp = np.sqrt(freqs)
+    S = Q * sp[:, None] / sp[None, :]
+    w, U = np.linalg.eigh((S + S.T) / 2)
+    V = U / sp[:, None]          # Q = V diag(w) Vinv
+    Vinv = U.T * sp[None, :]
+
+    TAUS_AB, TAUS_CD, TAU_R, THETA = 0.01, 0.012, 0.02, 0.01
+
+    def sim_gtree():
+        nodes = {}
+        ages = {i: 0.0 for i in range(16)}
+        def coalesce(lin, t0_, t1):
+            t = t0_
+            while len(lin) > 1:
+                t = t + rng.exponential(THETA / (len(lin) * (len(lin) - 1)))
+                if t >= t1:
+                    return lin, t1
+                i, j = sorted(rng.choice(len(lin), 2, replace=False))
+                a, b = lin[i], lin[j]
+                n = 16 + len(nodes)
+                nodes[n] = (t, a, b)
+                ages[n] = t
+                lin = [x for x in lin if x not in (a, b)] + [n]
+            return lin, t1
+        act = {s: list(range(4 * i, 4 * i + 4))
+               for i, s in enumerate("ABCD")}
+        for s in "ABCD":
+            act[s], _ = coalesce(act[s],
+                                 0.0, TAUS_AB if s in "AB" else TAUS_CD)
+        ab, _ = coalesce(act["A"] + act["B"], TAUS_AB, TAU_R)
+        cd, _ = coalesce(act["C"] + act["D"], TAUS_CD, TAU_R)
+        root_lin, _ = coalesce(ab + cd, TAU_R, np.inf)
+        return nodes, ages, root_lin[0]
+
+    import os
+    os.makedirs(out_dir, exist_ok=True)
+    labels = [f"{s}{k}^{s}{k}" for s in "ABCD" for k in range(1, 5)]
+    cumfreq = freqs.cumsum()
+    with open(f"{out_dir}/aa.phy", "w") as f:
+        for li in range(nloci):
+            nodes, ages, root = sim_gtree()
+            seqs = {}
+            stack = [(root, (rng.random(nsites)[:, None]
+                             > cumfreq[None, :]).sum(1))]
+            while stack:
+                node, seq = stack.pop()
+                if node < 16:
+                    seqs[node] = seq
+                    continue
+                age, l, r = nodes[node]
+                for ch in (l, r):
+                    t = max(age - ages.get(ch, 0.0), 1e-9)
+                    P = (V * np.exp(w * t)[None, :]) @ Vinv
+                    P = np.maximum(P, 0.0)
+                    P /= P.sum(1, keepdims=True)
+                    cum = P.cumsum(1)
+                    u = rng.random(nsites)
+                    stack.append((ch, (u[:, None] > cum[seq]).sum(1)))
+            f.write(f"16 {nsites}\n")
+            for i, lab in enumerate(labels):
+                f.write(f"{lab}  {''.join(AAS[x] for x in seqs[i])}\n")
+            f.write("\n")
+    with open(f"{out_dir}/Imap.txt", "w") as f:
+        for s in "ABCD":
+            for k in range(1, 5):
+                f.write(f"{s}{k} {s}\n")
+    return _time.time() - t0
+
+
+def write_partition_file(path, models, n_loci: int) -> str:
+    """Write a partition file for ``model = custom`` (``io.partition``'s
+    grammar): ``models`` (names, DNA or amino acids) take the loci in
+    equal consecutive blocks, the last block to ``n_loci``.  Returns the
+    path."""
+    from .io.partition import _AA_MODELS
+    k = len(models)
+    with open(path, "w") as fh:
+        for j, name in enumerate(models):
+            lo = 1 + j * n_loci // k
+            hi = (j + 1) * n_loci // k
+            kind = "AA" if name.upper() in _AA_MODELS else "DNA"
+            fh.write(f"{lo} - {hi}, {kind}, {name}\n")
+    return str(path)
 
 
 def fixed_subst(model_name: str, n_cats: int, L: int, dtype, device="cpu"):

@@ -31,7 +31,11 @@ Phases, in order; any failure exits non-zero:
               count of K1 must grow by 8 per iteration (age 2 + SPR 3 +
               tau 2 + mixing 1) plus 1 for the initial state, K2's must
               stay 0, and mcmc.txt must hold 40 finite samples with
-              moving theta/tau;
+              moving theta/tau; the conditional a1b1 log must hold 40 rows
+              of an a1 and a b1 for each theta column, the summary its
+              Rao-Blackwellized section, and ``out.pdf`` a PDF; a
+              ``[profile]`` line of the step with the a1b1 record taken
+              every iteration (sampfreq = 1) stands beside the plain one;
 6. data 2   — the simulator writes the diploid dataset (4 species x 2
               unphased diploid individuals = 16 haplotype tips, 500 sites,
               HKY, 1000 loci with Gamma(5, 5) locus rates, seed 137);
@@ -105,8 +109,29 @@ Phases, in order; any failure exits non-zero:
               accepted one; ``[profile]`` of both steps and ``[moves]`` wall
               ms of species_spr_move, snl_move and rj_move.
 
+17. custom  — the haploid data under a partition of five DNA models in
+              blocks of 200 loci (JC69, K80, HKY, TN93, GTR): K1 through its
+              GTR family on the per-locus eigensystems of a warmed chain's
+              state, against its float64 plain version under both CLV
+              stores, and the ``[profile]`` of that step; later, K2 likewise
+              on the diploid data under the same partition (with G4);
+18. main 8  — ``cli.main`` runs that partition on the haploid data with
+              ``check = 10`` and ``print = 1 0 0 1 0``, ``printlocus = 2 1
+              1000``: K1 launched 8 + freqs 1 + qrates 6 (one pass for each
+              slot some locus's model frees) = 15 times per iteration, plus
+              1 at init and 1 for each of the 5 checks (which all pass in
+              float32), K2 never; ``out8.gtree.L1`` and ``.L1000`` hold 40
+              gene trees each;
+19. main 9  — ``bench.py``'s amino-acid workload (``_bench_aa``: 500 loci x
+              16 sequences x 500 sites, WAG, ``generate_aa_benchmark`` seed
+              137, the same priors), burnin 10, nsample 40, through the
+              20-state plain pass on the card: one pass in float32 within
+              0.02 lnL a locus of float64 on the card, the pass timed, the
+              ``[profile]`` of the step, no K1 or K2 launch, and the peak
+              device memory of the run.
+
 Then one JSON line ``{"kernels": [...]}`` (K1 at JC69, K2 at HKY+G4: the
-models of their chains; launches summed over main 1-7, errors the largest
+models of their chains; launches summed over main 1-8, errors the largest
 of every hold), the card's name and power limit from nvidia-smi,
 and the last line ``{"ok": true, "device": {...}}``.  Without a CUDA
 device the script exits non-zero and prints no result.
@@ -207,6 +232,34 @@ A01 = "speciestree = 1 0.5 0.33 0.1 0.2\n"
 A11 = ("speciesdelimitation = 1 0 2\nspeciestree = 1\n"
        "speciesmodelprior = 1\n")
 TOPO_ITERS = 20
+# main 8: the haploid data under a partition of five DNA models in blocks
+# of 200 loci, with the runtime check and two loci's gene-tree files
+CUSTOM_MODELS = ("JC69", "K80", "HKY", "TN93", "GTR")
+CHECK_EVERY = 10
+CUSTOM8 = ("model = custom parts.txt\ncheck = {check}\n"
+           "printlocus = 2 1 {last}\n")
+# main 9: bench.py's amino-acid workload (bench.py _bench_aa)
+N_AA_LOCI, AA_SITES = 500, 500
+AA_CTL = """\
+seed = 11
+seqfile = aa.phy
+Imapfile = Imap.txt
+jobname = out9
+species&tree = 4 A B C D
+                 4 4 4 4
+                ((A, B), (C, D));
+usedata = 1
+nloci = {nloci}
+cleandata = 0
+model = WAG
+thetaprior = 3 0.03
+tauprior = 3 0.06
+finetune = 1
+print = 1 0 0 0
+burnin = {burnin}
+sampfreq = 1
+nsample = {nsample}
+"""
 
 N_LOCI = 1000
 BURNIN, NSAMPLE = 10, 40
@@ -219,6 +272,10 @@ PASSES_PER_ITER_4 = PASSES_PER_ITER_2 + H_BRANCHES
 PASSES_PER_ITER_5 = PASSES_PER_ITER     # tipdate mubar replaces mixing
 PASSES_PER_ITER_6 = PASSES_PER_ITER + 1   # + species SPR or SNL
 PASSES_PER_ITER_7 = PASSES_PER_ITER_2 + 2  # + rj + species SPR or SNL
+# + freqs 1 + one qrates pass for each slot some model of the partition
+# frees (K80 / HKY slot 0, TN93 slots 0-1, GTR all but slot 1: 6 slots)
+PASSES_PER_ITER_8 = PASSES_PER_ITER + 1 + 6
+N_CHECKS = (BURNIN + NSAMPLE) // CHECK_EVERY   # one K1 pass each
 TOL_SITE = 2e-3           # per-pattern |dlnL| of K2, float32
 TOL_LNL = 0.02            # f32 bound of tests/test_kernel_consistency.py
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -323,7 +380,7 @@ def device_kernels(fn):
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-def kernel_device_ms(launch, kernel_name, reps=30, windows=3, attempts=6):
+def kernel_device_ms(launch, kernel_name, reps=30, windows=3, attempts=10):
     """Median device time of one launch of the named kernel, from profiler
     traces of ``reps`` launches: the median over ``windows`` traces of each
     trace's median.  A trace may miss launches (a few of the first, or now
@@ -348,17 +405,23 @@ def kernel_device_ms(launch, kernel_name, reps=30, windows=3, attempts=6):
 
 
 def profile_step(eng, state, step_ms, smi, kernel_name, label, passes,
-                 iters=3, attempts=6):
+                 iters=3, attempts=10, it=None):
     """Device time per iteration from a profiler trace: kernels launched,
     busy milliseconds (all kernels, and the pruning kernel's) and the idle
     share of the untraced wall time per iteration.  A trace that misses
     some of the ``passes`` pruning launches per iteration has missed other
     kernels too and is taken again; if none of the ``attempts`` is whole,
-    the run fails, since its kernel count would read low."""
+    the run fails, since its kernel count would read low.  A step with no
+    pruning kernel (``kernel_name`` None: the 20-state pass) is taken
+    once.  ``it`` (the iteration before the traced ones) takes the sample
+    records the engine was asked for, as a run does."""
     for _ in range(attempts):
-        kern = device_kernels(lambda: eng.chunk_step(state, iters))
+        kern = device_kernels(lambda: eng.chunk_step(state, iters, it))
         if not kern:
             raise AssertionError("no device events in the profiler trace")
+        if kernel_name is None:
+            mine = []
+            break
         mine = [e for e in kern if kernel_name in e.name]
         if len(mine) == passes * iters:
             break
@@ -369,10 +432,23 @@ def profile_step(eng, state, step_ms, smi, kernel_name, label, passes,
             f"{len(mine)})")
     busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3 / iters
     k_ms = sum(e.time_range.elapsed_us() for e in mine) / 1e3 / iters
+    pruning = (f"{kernel_name} {k_ms:.3f} in {len(mine) / iters:.0f} "
+               "launches" if kernel_name else "no pruning kernel")
     print(f"[profile] {label}: {len(kern) / iters:.0f} device kernels/iter "
-          f"| device busy {busy:.3f} ms/iter ({kernel_name} {k_ms:.3f} in "
-          f"{len(mine) / iters:.0f} launches) | wall {step_ms:.2f} ms/iter "
-          f"untraced | idle share {1 - busy / step_ms:.3f} | {smi}")
+          f"| device busy {busy:.3f} ms/iter ({pruning}) | wall "
+          f"{step_ms:.2f} ms/iter untraced | idle share "
+          f"{1 - busy / step_ms:.3f} | {smi}")
+    return len(kern) / iters
+
+
+def step_ms(eng, state, iters=10, it=None):
+    """Wall milliseconds an iteration of ``iters``, synchronised."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.chunk_step(state, iters, it)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
 
 
 def warm_engine(run, dev):
@@ -456,7 +532,7 @@ def run_chain(argv, job, iters, expect, moving, label, smi):
             f"{label}: (K1, K2) launched {got} times on the main path, "
             f"expected {expect} over {iters} iterations + the initial state")
     store = pack.CLV_STORE if got[0] else fels.CLV_STORE
-    if store != "shared":
+    if sum(got) and store != "shared":
         raise AssertionError(f"{label}: the main path ran the {store} CLV "
                              "store; at 16 tips it keeps its CLVs in shared "
                              "memory and allocates no scratch")
@@ -469,7 +545,7 @@ def run_chain(argv, job, iters, expect, moving, label, smi):
           f"{wall:.1f} "
           f"s (load + init + chain + summary), {iters / wall:.2f} iters/s "
           f"overall | K1 launches {got[0]} | K2 launches {got[1]} | CLV store "
-          f"{store} | {result} | {smi}")
+          f"{store if sum(got) else '-'} | {result} | {smi}")
     return got
 
 
@@ -727,20 +803,58 @@ def relaxed_blen(eng, state, dtype):
     return fe.relaxed_branch_lengths(gt, sp, pops, brate)
 
 
+def fixed_cases(L, dev):
+    """(label, model, categories, float32 state, float64 state) of the four
+    model families K1 and K2 special-case, with fixed parameters."""
+    import torch
+
+    from bpp_tpu_torch.testing import fixed_subst
+    cases = []
+    for model_name, n_cats in MODELS:
+        model, s32 = fixed_subst(model_name, n_cats, L, torch.float32, dev)
+        _, s64 = fixed_subst(model_name, n_cats, L, torch.float64, dev)
+        cases.append((f"{model_name}+G{n_cats}" if n_cats > 1
+                      else model_name, model, n_cats, s32, s64))
+    return cases
+
+
+def custom_cases(eng, state):
+    """The one case of a partition (``model = custom``): ``state``'s own
+    per-locus parameters, their kappas and eigensystems computed in
+    float32 and in float64."""
+    import torch
+
+    from bpp_tpu_torch.config import SubstModel
+    from bpp_tpu_torch.mcmc import subst_moves
+    from bpp_tpu_torch.mcmc.state import refresh_eigen
+    cm = eng.ctx.custom
+
+    def subst(dtype):
+        s = type(state.subst)(*(x.to(dtype) for x in state.subst))
+        s = subst_moves._derive_kappas(s, SubstModel.CUSTOM, cm)
+        s = refresh_eigen(s, SubstModel.CUSTOM, cm)
+        return type(s)(*(x.contiguous() for x in s))
+
+    n_cats = state.subst.rates.shape[1]
+    return [(f"partition {'/'.join(CUSTOM_MODELS)}"
+             + (f"+G{n_cats}" if n_cats > 1 else ""), SubstModel.CUSTOM,
+             n_cats, subst(torch.float32), subst(torch.float64))]
+
+
 def hold_given(label, eng, state, smi, blen_of=None, report=True,
-               mask=None):
+               mask=None, cases=None, tag="given"):
     """``[given]``: the kernel of ``eng``'s batch (K1, or K2 and
     ``reduce_root`` with a diploid map) against its float64 plain version
-    on ``state``'s gene trees, for the four model families under both CLV
-    stores.  ``blen_of(dtype)`` gives the branch lengths both get (None:
-    the ages, dated tips included); ``mask`` [L] bool narrows the loci
-    compared (default: the real loci).  Returns (max per-locus |dlnL|, max
+    on ``state``'s gene trees, for each of ``cases`` (default: the four
+    model families of :func:`fixed_cases`) under both CLV stores.
+    ``blen_of(dtype)`` gives the branch lengths both get (None: the ages,
+    dated tips included); ``mask`` [L] bool narrows the loci compared
+    (default: the real loci).  Returns (max per-locus |dlnL|, max
     per-pattern |dlnL| or None)."""
     import torch
 
     from bpp_tpu_torch.core import fels, pack
     from bpp_tpu_torch.core import felsenstein as fe
-    from bpp_tpu_torch.testing import fixed_subst
     ctx = eng.ctx
     L = state.gt.n_loci
     k2 = ctx.res_map is not None
@@ -749,11 +863,9 @@ def hold_given(label, eng, state, smi, blen_of=None, report=True,
     b64 = None if blen_of is None else blen_of(torch.float64)
     w64 = ctx.weights.double()
     worst, site_worst = 0.0, 0.0
-    for model_name, n_cats in MODELS:
-        model, s32 = fixed_subst(model_name, n_cats, L, torch.float32,
-                                 ctx.weights.device)
-        _, s64 = fixed_subst(model_name, n_cats, L, torch.float64,
-                             ctx.weights.device)
+    if cases is None:
+        cases = fixed_cases(L, ctx.weights.device)
+    for name, model, n_cats, s32, s64 in cases:
         a32 = pass_args(state, s32, ctx, torch.float32)
         a64 = pass_args(state, s64, ctx, torch.float64)
         kw = dict(model=model, n_cats=n_cats)
@@ -774,12 +886,13 @@ def hold_given(label, eng, state, smi, blen_of=None, report=True,
                 want = pack.site_logl_packed_ref(*a64, blen=b64, **kw)
             torch.cuda.synchronize()
             if mod.CLV_STORE != store:
-                raise AssertionError(f"[given] {label}: the {mod.CLV_STORE}"
-                                     f" store ran, {store} was asked for")
+                raise AssertionError(f"[{tag}] {label}: the "
+                                     f"{mod.CLV_STORE} store ran, {store} "
+                                     "was asked for")
             if mask is None:
                 mask = ctx.locus_mask
             if not bool(torch.isfinite(got[mask]).all()):
-                raise AssertionError(f"[given] {label} {model_name}: "
+                raise AssertionError(f"[{tag}] {label} {name}: "
                                      "non-finite lnL")
             err = float((got - want)[mask].abs().max())
             if k2:
@@ -788,17 +901,17 @@ def hold_given(label, eng, state, smi, blen_of=None, report=True,
                 site_worst = max(site_worst, site)
             if not (err < TOL_LNL and site < TOL_SITE):
                 raise AssertionError(
-                    f"[given] {label} {model_name} ({store} store): kernel "
+                    f"[{tag}] {label} {name} ({store} store): kernel "
                     f"and plain version differ by {err} lnL a locus, "
                     f"{site} a pattern")
             worst = max(worst, err)
     site_txt = (f" | max per-pattern |dlnL| {site_worst:.3e} (tol "
                 f"{TOL_SITE})" if k2 else "")
     if report:
-        print(f"[given] {label}: {'K2' if k2 else 'K1'} vs its float64 "
-              f"plain version on JC69, HKY+G4, TN93, GTR+G4 x shared/global "
-              f"store: max per-locus |dlnL| {worst:.3e} (tol {TOL_LNL})"
-              f"{site_txt} | {smi}")
+        print(f"[{tag}] {label}: {'K2' if k2 else 'K1'} vs its float64 "
+              f"plain version on {', '.join(c[0] for c in cases)} x "
+              f"shared/global store: max per-locus |dlnL| {worst:.3e} (tol "
+              f"{TOL_LNL}){site_txt} | {smi}")
     return worst, (site_worst if k2 else None)
 
 
@@ -955,6 +1068,140 @@ def hold_shapes(dev, smi):
              weights[keep].contiguous(), model_name, n_cats, store, T / 16)
 
 
+def check_a00_extras(job, nsample):
+    """The A00 outputs beside mcmc.txt: the conditional a1b1 log (one row
+    a sample, an a1 and a b1 column for each theta column of mcmc.txt),
+    its Rao-Blackwellized section in the summary, and the species-tree
+    PDF.  Returns a line on them."""
+    import numpy as np
+    with open(f"{job}.mcmc.txt") as f:
+        thetas = [c for c in f.readline().split() if c.startswith("theta")]
+    with open(f"{job}.conditional_a1b1.txt") as f:
+        lines = f.read().splitlines()
+    want = ["Gen"] + [f"{c}_{x}" for c in thetas for x in ("a1", "b1")]
+    if lines[0].split("\t") != want or len(lines) != nsample + 1:
+        raise AssertionError(f"{job}.conditional_a1b1.txt: header "
+                             f"{lines[0]!r}, {len(lines) - 1} rows")
+    rows = np.loadtxt(lines[1:], ndmin=2)
+    if not (np.isfinite(rows).all() and (rows[:, 1::2] > 2).all()):
+        raise AssertionError(f"{job}.conditional_a1b1.txt: a row is not "
+                             "finite or an a1 is not above 2")
+    with open(f"{job}.txt") as f:
+        text = f.read()
+    head = ("Summarizing parameter estimates using file "
+            f"{job}.conditional_a1b1.txt ...")
+    if head not in text:
+        raise AssertionError(f"{job}.txt has no Rao-Blackwellized section")
+    section = text.split(head)[1].splitlines()
+    for c in thetas:
+        if not any(r.startswith(c + " ") for r in section):
+            raise AssertionError(f"{job}.txt: no a1b1 row for {c}")
+    with open(f"{job}.pdf", "rb") as f:
+        pdf = f.read()
+    if not (pdf.startswith(b"%PDF-1.4") and pdf.endswith(b"%%EOF\n")):
+        raise AssertionError(f"{job}.pdf is not a PDF")
+    return (f"a1b1 log {nsample} rows x {len(thetas)} thetas, "
+            f"Rao-Blackwellized summary, {job}.pdf {len(pdf)} bytes")
+
+
+def main8(iters, smi):
+    """Main 8 through the CLI: the partition chain with ``check`` and the
+    gene-tree print files; every check passes and is counted.  Returns the
+    K1 launches."""
+    from bpp_tpu_torch.io.newick import parse_newick
+    from bpp_tpu_torch.mcmc.driver import Engine
+    checks = []
+    orig = Engine.validate_state
+
+    def counted(self, state, it=None):
+        checks.append(it)
+        return orig(self, state, it)
+
+    Engine.validate_state = counted
+    try:
+        launches, _ = run_chain(
+            ["--cfile", "run8.ctl"], "out8", iters,
+            (PASSES_PER_ITER_8 * iters + 1 + N_CHECKS, 0), ("theta", "tau"),
+            "main 8", smi)
+    finally:
+        Engine.validate_state = orig
+    want = list(range(-BURNIN + CHECK_EVERY, NSAMPLE + 1, CHECK_EVERY))
+    if checks != want:
+        raise AssertionError(f"main 8: checks at {checks}, expected {want}")
+    files = sorted(f for f in os.listdir(".") if f.startswith("out8.")
+                   and ("gtree" in f or "params" in f))
+    if files != [f"out8.gtree.L{i}" for i in sorted((1, N_LOCI), key=str)]:
+        raise AssertionError(f"main 8: print files {files}")
+    for fn in files:
+        with open(fn) as f:
+            trees = f.read().splitlines()
+        if len(trees) != NSAMPLE:
+            raise AssertionError(f"{fn}: {len(trees)} trees")
+        for t in trees:
+            parse_newick(t)
+    print(f"[main 8] {len(checks)} checks passed (float32, tol 0.5) at "
+          f"iterations {checks} | {', '.join(files)}: {NSAMPLE} gene trees "
+          f"each | {check_a00_extras('out8', NSAMPLE)} | {smi}")
+    return launches
+
+
+def aa_phase(dev, smi, iters):
+    """Main 9: ``bench.py``'s amino-acid workload on the 20-state plain
+    pass.  Returns (max per-locus |dlnL| of float32 against float64 on the
+    card, ms a pass)."""
+    import dataclasses
+
+    import torch
+
+    from bpp_tpu_torch.loader import load_run_from_ctl
+    from bpp_tpu_torch.mcmc.state import make_logl_fn
+    from bpp_tpu_torch.testing import generate_aa_benchmark
+    t0 = time.perf_counter()
+    generate_aa_benchmark(N_AA_LOCI, AA_SITES, ".")
+    with open("run9.ctl", "w") as f:
+        f.write(AA_CTL.format(nloci=N_AA_LOCI, burnin=BURNIN,
+                              nsample=NSAMPLE))
+    run9 = load_run_from_ctl("run9.ctl")
+    b = run9.batch
+    print(f"[data 9] {N_AA_LOCI} amino-acid loci written and loaded in "
+          f"{time.perf_counter() - t0:.1f} s | L={b.n_loci} T={b.max_tips} "
+          f"S={b.max_patterns} | real patterns {int(b.n_pat.sum())}")
+    eng, state, ips = warm_engine(run9, dev)
+    if eng.ctx.route != "plain":
+        raise AssertionError(f"main 9: the WAG batch took {eng.ctx.route}")
+    profile_step(eng, state, 1e3 / ips, smi, None,
+                 "AA WAG step (20-state plain pass)", 0)
+    ctx = eng.ctx
+    args = (state.gt, state.subst, state.sp, state.clock)
+    lnl32 = eng._logl_fn(*args)
+    ctx64 = dataclasses.replace(ctx, tip_partials=ctx.tip_partials.double(),
+                                weights=ctx.weights.double())
+    gt64 = state.gt._replace(age=state.gt.age.double())
+    s64 = type(state.subst)(*(x.double() for x in state.subst))
+    lnl64 = make_logl_fn(ctx64, eng.cfg)(gt64, s64, state.sp, state.clock)
+    m = ctx.locus_mask
+    if not bool(torch.isfinite(lnl32[m]).all()):
+        raise AssertionError("main 9: non-finite lnL in float32")
+    err = float((lnl32.double() - lnl64)[m].abs().max())
+    pass_ms = cuda_ms(lambda: eng._logl_fn(*args), reps=10)
+    print(f"[aa pass] WAG, {N_AA_LOCI} loci: float32 vs float64 on the card "
+          f"max per-locus |dlnL| {err:.3e} (tol {TOL_LNL}) | one pass "
+          f"{pass_ms:.3f} ms (float32, CUDA events) | step {ips:.2f} iters/s "
+          f"after warm-up | {smi}")
+    if not err < TOL_LNL:
+        raise AssertionError(f"main 9: float32 and float64 differ by {err}")
+    del eng, state, args, lnl32, lnl64, ctx64, gt64, s64
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    run_chain(["--cfile", "run9.ctl"], "out9", iters, (0, 0),
+              ("theta", "tau"), "main 9", smi)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    print(f"[main 9] peak device memory {peak:.1f} MiB "
+          f"(torch.cuda.max_memory_allocated) | "
+          f"{check_a00_extras('out9', NSAMPLE)} | {smi}")
+    return err, pass_ms
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -966,6 +1213,7 @@ def main() -> int:
     from bpp_tpu_torch.core import felsenstein as fe
     from bpp_tpu_torch.loader import load_run_from_ctl
     from bpp_tpu_torch.sim.simulate import run_simulation
+    from bpp_tpu_torch.testing import write_partition_file
 
     # 1. device
     dev = torch.device("cuda")
@@ -998,11 +1246,16 @@ def main() -> int:
             for ctl, job, extra in (
                     ("run.ctl", "out", ""), ("run3.ctl", "out3", RELAXED),
                     ("run5.ctl", "out5", DATED.format(ck=CHECKPOINT_AT)),
-                    ("run6.ctl", "out6", A01)):
+                    ("run6.ctl", "out6", A01),
+                    ("run8.ctl", "out8", CUSTOM8.format(check=CHECK_EVERY,
+                                                        last=N_LOCI))):
+                text = RUN_CTL.format(nloci=N_LOCI, burnin=BURNIN,
+                                      nsample=NSAMPLE, job=job, extra=extra)
+                if job == "out8":
+                    text = text.replace("print = 1 0 0 0", "print = 1 0 0 1 0")
                 with open(ctl, "w") as f:
-                    f.write(RUN_CTL.format(nloci=N_LOCI, burnin=BURNIN,
-                                           nsample=NSAMPLE, job=job,
-                                           extra=extra))
+                    f.write(text)
+            write_partition_file("parts.txt", CUSTOM_MODELS, N_LOCI)
             print(f"[data 1] {N_LOCI} haploid loci simulated in "
                   f"{time.perf_counter() - t0:.1f} s")
 
@@ -1029,6 +1282,11 @@ def main() -> int:
             launch_floor(dev, smi)
             print(f"[kernel 1] engine step (JC69, {N_LOCI} loci): "
                   f"{step_ips:.2f} iters/s after warm-up | {smi}")
+            # the step as main 1 runs it: the a1b1 record every iteration
+            eng.record_samples(a1b1=True)
+            profile_step(eng, state, step_ms(eng, state, it=0), smi,
+                         "pack_logl_kernel", "JC69 step with the a1b1 record",
+                         PASSES_PER_ITER, it=0)
             del eng, state
 
             # 5. main path 1, through the CLI
@@ -1036,6 +1294,7 @@ def main() -> int:
                 ["--cfile", "run.ctl"], "out", iters,
                 (PASSES_PER_ITER * iters + 1, 0), ("theta", "tau"), "main 1",
                 smi)
+            print(f"[main 1] {check_a00_extras('out', NSAMPLE)} | {smi}")
 
             # 9. K1 on relaxed-clock branch lengths and on dated tips
             run3 = load_run_from_ctl("run3.ctl")
@@ -1125,6 +1384,23 @@ def main() -> int:
             err_topo1 = species_phase("A01 JC69", "run6.ctl", dev, smi,
                                       "pack_logl_kernel", PASSES_PER_ITER_6)
             torch.cuda.empty_cache()
+
+            # 17. K1 on the per-locus eigensystems of a partition
+            eng8, state8, ips8 = warm_engine(load_run_from_ctl("run8.ctl"),
+                                             dev)
+            if eng8.ctx.route != "K1":
+                raise AssertionError(f"the partition took {eng8.ctx.route}")
+            profile_step(eng8, state8, 1e3 / ips8, smi, "pack_logl_kernel",
+                         "custom partition step", PASSES_PER_ITER_8)
+            err_k1_custom, _ = hold_given(
+                "K1, per-locus models", eng8, state8, smi,
+                cases=custom_cases(eng8, state8), tag="custom")
+            print(f"[custom] engine step (partition, {N_LOCI} loci): "
+                  f"{ips8:.2f} iters/s after warm-up | {smi}")
+            del eng8, state8
+
+            # 18. main path 8: the partition, check and print files
+            launches8 = main8(iters, smi)
 
             # 6. data 2
             t0 = time.perf_counter()
@@ -1226,8 +1502,28 @@ def main() -> int:
                                       PASSES_PER_ITER_7)
             torch.cuda.empty_cache()
 
+            # 17. K2 on the per-locus eigensystems of the partition
+            from bpp_tpu_torch.mcmc.driver import Engine
+            with open("run8d.ctl", "w") as f:
+                f.write(RUN2_CTL.format(
+                    nloci=N_LOCI, burnin=BURNIN, nsample=NSAMPLE, job="out8d",
+                    extra="").replace("model = HKY", "model = custom parts.txt"))
+            eng8d = Engine(load_run_from_ctl("run8d.ctl"), seed=1, device=dev)
+            if eng8d.ctx.route != "K2":
+                raise AssertionError(f"the diploid partition took "
+                                     f"{eng8d.ctx.route}")
+            state8d, _ = eng8d.chunk_step(eng8d.init_state(), 3)
+            err_k2_custom, _ = hold_given(
+                "K2, per-locus models (diploid)", eng8d, state8d, smi,
+                cases=custom_cases(eng8d, state8d), tag="custom")
+            del eng8d, state8d
+            torch.cuda.empty_cache()
+
             # 13. shapes the bench data lacks; stores picked by the wrappers
             hold_shapes(dev, smi)
+
+            # 19. main path 9: amino acids through the 20-state plain pass
+            aa_phase(dev, smi, iters)
         finally:
             os.chdir(cwd)
 
@@ -1240,20 +1536,21 @@ def main() -> int:
                 "library_ms": None}
 
     # launches: every main path's run; errors: the bench models' holds,
-    # those on relaxed-clock lengths and dated tips, and those on the trees
-    # of the species and rj moves
+    # those on relaxed-clock lengths and dated tips, on the trees of the
+    # species and rj moves, and on a partition's per-locus eigensystems
     print(json.dumps({"kernels": [
         entry("K1 pallas_pack._make_kernel -> pack_logl_kernel",
               "bpp_tpu_torch/csrc/pack_kernel.cu",
               "bpp_tpu/core/pallas_pack.py:315",
-              launches1 + launches3 + launches5 + launches6,
-              [*errs1.values(), err_k1_blen, err_k1_dated, err_topo1],
-              rows1["JC69"]),
+              launches1 + launches3 + launches5 + launches6 + launches8,
+              [*errs1.values(), err_k1_blen, err_k1_dated, err_topo1,
+               err_k1_custom], rows1["JC69"]),
         entry("K2 pallas_fels._make_kernel -> fels_site_logl_kernel",
               "bpp_tpu_torch/csrc/fels_kernel.cu",
               "bpp_tpu/core/pallas_fels.py:92",
               launches2 + launches4 + launches7,
-              [*errs2.values(), err_k2_blen, err_topo2], rows2["HKY"]),
+              [*errs2.values(), err_k2_blen, err_topo2, err_k2_custom],
+              rows2["HKY"]),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

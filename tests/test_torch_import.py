@@ -32,7 +32,8 @@ def test_import_loads_no_jax_and_no_bpp_tpu():
                 "mcmc.clock_moves", "mcmc.notheta", "checkpoint",
                 "mcmc.stree_moves", "mcmc.rj_moves", "io.constraints",
                 "summary.stree_summary", "summary.delimit_summary",
-                "summary.mixed_summary"):
+                "summary.mixed_summary", "summary.a1b1", "visual",
+                "core.aa_matrices"):
         assert f"bpp_tpu_torch.{mod}" in mods
     code = (
         "import importlib, sys\n"

@@ -11,7 +11,10 @@ relaxed-clock branch lengths of clock = 2 and clock = 4 chains and the
 dated tips of a tip-dating chain, and the caches of those chains on the
 card; the gene trees a species SPR, an SNL and an rj move propose (K1 on
 haploid A01 data, K2 on diploid A11 data), and the caches of those chains
-on the card.  Needs a CUDA device and nvcc; skips without them.
+on the card; both kernels on the per-locus eigensystems of a DNA
+partition (``model = custom``), and the 20-state plain pass of an
+amino-acid batch (WAG) in float32 on the card against float64 on the CPU.
+Needs a CUDA device and nvcc; skips without them.
 
     python -m pytest tests/test_torch_kernel_gpu.py -q
 """
@@ -623,3 +626,126 @@ def test_species_chains_keep_their_caches_on_the_card(request, data):
     pp = _recompute_pptable(state.sp.parent, state.sp.n_nodes)
     assert torch.equal(pp, state.sp.pptable)
     assert torch.equal(_recompute_mrca(pp), state.sp.mrca)
+
+
+@pytest.fixture(scope="module")
+def cuda_partition(tmp_path_factory):
+    """A five-model DNA partition (``model = custom``) on haploid data and
+    on data with unphased diploid species, each engine after 10
+    iterations on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from bpp_tpu_torch.loader import load_run_from_ctl
+    from bpp_tpu_torch.mcmc.driver import Engine
+    from bpp_tpu_torch.testing import write_partition_file, write_simulated_run
+    out = {}
+    for name, kw in (("haploid", {}), ("diploid", dict(
+            seqs=(2, 2, 2, 2), diploid=(1, 1, 0, 0),
+            priors=("alphaprior = 1 1 4",)))):
+        tmp = tmp_path_factory.mktemp(f"torchgpucustom{name}")
+        parts = write_partition_file(
+            tmp / "parts.txt", ["JC69", "K80", "HKY", "TN93", "GTR"], 10)
+        run = load_run_from_ctl(write_simulated_run(
+            tmp, n_loci=10, model=f"custom {parts}", **kw))
+        eng = Engine(run, seed=1, device="cuda")
+        state, _ = eng.chunk_step(eng.init_state(), 10)
+        out[name] = (eng, state)
+    return out
+
+
+@pytest.mark.parametrize("store", STORES)
+@pytest.mark.parametrize("data", ["haploid", "diploid"])
+def test_kernels_on_a_partition(cuda_partition, data, store):
+    """K1 (haploid) and K2 (diploid) through the GTR family on per-locus
+    eigensystems against the float64 plain version; the chain's cached
+    lnL equals a fresh pass."""
+    from bpp_tpu_torch.config import SubstModel
+    from bpp_tpu_torch.core import fels, pack
+    from bpp_tpu_torch.core import felsenstein as fe
+    from bpp_tpu_torch.mcmc import subst_moves
+    from bpp_tpu_torch.mcmc.state import refresh_eigen
+    eng, st = cuda_partition[data]
+    ctx = eng.ctx
+    assert ctx.route == ("K1" if data == "haploid" else "K2")
+    cm, C = ctx.custom, st.subst.rates.shape[1]
+
+    def subst(dtype):
+        s = type(st.subst)(*(x.to(dtype) for x in st.subst))
+        s = subst_moves._derive_kappas(s, SubstModel.CUSTOM, cm)
+        s = refresh_eigen(s, SubstModel.CUSTOM, cm)
+        return type(s)(*(x.contiguous() for x in s))
+
+    kw = dict(model=SubstModel.CUSTOM, n_cats=C)
+    a32 = _args(st, ctx, subst(torch.float32), torch.float32)
+    a64 = _args(st, ctx, subst(torch.float64), torch.float64)
+    if data == "haploid":
+        got = pack.site_logl_packed(*a32, units=ctx.units, clv_store=store,
+                                    **kw).double()
+        want = pack.site_logl_packed_ref(*a64, **kw)
+    else:
+        w64 = ctx.weights.double()
+        gs = fels.site_logl_fels(*a32[:-1], n_pat=ctx.n_pat, units=ctx.units,
+                                 clv_store=store, **kw).double()
+        ws = fels.site_logl_fels_ref(*a64[:-1], n_pat=ctx.n_pat, **kw)
+        assert float((gs - ws).abs().max()) < 2e-3
+        got = fe.reduce_root(gs, w64, ctx.res_map, ctx.res_count)
+        want = fe.reduce_root(ws, w64, ctx.res_map, ctx.res_count)
+    torch.cuda.synchronize()
+    m = ctx.locus_mask
+    assert float((got - want)[m].abs().max()) < 0.02
+    fresh = eng._logl_fn(st.gt, st.subst, st.sp, st.clock)
+    assert float((fresh - st.logl)[m].abs().max()) < 1e-3
+    assert eng.validate_state(st)
+
+
+def test_amino_acid_pass_on_the_card(tmp_path):
+    """WAG: the 20-state plain pass on the card in float32 against the
+    same pass in float64 on the CPU; no pruning kernel is launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+
+    from bpp_tpu_torch.core import fels, pack
+    from bpp_tpu_torch.loader import load_run_from_ctl
+    from bpp_tpu_torch.mcmc.driver import Engine
+    from bpp_tpu_torch.mcmc.state import make_logl_fn
+    from bpp_tpu_torch.testing import generate_aa_benchmark
+    generate_aa_benchmark(6, 120, str(tmp_path))
+    ctl = tmp_path / "aa.ctl"
+    ctl.write_text(f"""seed = 11
+seqfile = {tmp_path}/aa.phy
+Imapfile = {tmp_path}/Imap.txt
+jobname = {tmp_path}/aaout
+species&tree = 4 A B C D
+                 4 4 4 4
+                ((A, B), (C, D));
+usedata = 1
+nloci = 6
+cleandata = 0
+model = WAG
+thetaprior = 3 0.03
+tauprior = 3 0.06
+burnin = 2
+sampfreq = 1
+nsample = 2
+""")
+    eng = Engine(load_run_from_ctl(str(ctl)), seed=1, device="cuda")
+    assert eng.ctx.route == "plain"
+    before = (pack.LAUNCHES, fels.LAUNCHES)
+    st, _ = eng.chunk_step(eng.init_state(), 5)
+    assert (pack.LAUNCHES, fels.LAUNCHES) == before
+    got = eng._logl_fn(st.gt, st.subst, st.sp, st.clock).double().cpu()
+    cpu = torch.device("cpu")
+    ctx64 = dataclasses.replace(
+        eng.ctx, tip_partials=eng.ctx.tip_partials.double().to(cpu),
+        weights=eng.ctx.weights.double().to(cpu),
+        n_seq=eng.ctx.n_seq.to(cpu), n_pat=eng.ctx.n_pat.to(cpu),
+        locus_mask=eng.ctx.locus_mask.to(cpu))
+
+    def host(t):
+        return type(t)(*(x.to(cpu, torch.float64) if x.is_floating_point()
+                         else x.to(cpu) for x in t))
+
+    want = make_logl_fn(ctx64, eng.cfg)(host(st.gt), host(st.subst))
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) < 0.02

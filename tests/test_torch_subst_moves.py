@@ -372,11 +372,8 @@ def test_discrete_gamma_rates_float32_over_the_slide_range():
 
 
 @pytest.mark.parametrize("line,item", [
-    ("model = custom parts.txt", "10a-custom"),
-    ("model = LG", "10a-custom"),
     ("thetamodel = linked-all", "10b-linked"),
     ("chains = 2", "10j"),
-    ("check = 10", "10k"),
 ])
 def test_other_combinations_stay_refused(tmp_path, line, item):
     from bpp_tpu_torch.io.ctl import parse_ctl
@@ -391,8 +388,5 @@ def test_other_combinations_stay_refused(tmp_path, line, item):
     other.write_text(text + line + "\n")
     cfg = parse_ctl(str(other))
     run.cfg = cfg
-    if "custom" in line:
-        from bpp_tpu_torch.config import SubstModel
-        run.locus_models = [SubstModel.HKY, SubstModel.JC69]
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         Engine(run, device="cpu")
