@@ -10,7 +10,9 @@ holds:
 * ``__ctl__``: the control file's text;
 * one array per leaf of the state, named by its path
   (``state.gt.left``, ``state.clock.brate``, ...; absent fields have no
-  leaf);
+  leaf): on an MSC-I network also the gene trees' int8 hybridization
+  flags ``state.gt.hpath``, the species arrays' ``phi`` and their other
+  network fields, each restored in its dtype and shape;
 * ``rng_state``: the bytes of the run's ``torch.Generator``
   (``get_state()``; on CUDA, Philox's seed and offset), where ``bpp_tpu``
   stores its JAX PRNG key;
@@ -19,8 +21,10 @@ holds:
 CLVs are never stored: they are derived state.  The sequence files must
 still be where the control file names them on resume.  A checkpoint of
 the port does not load in ``bpp_tpu``, nor one of ``bpp_tpu`` here: the
-random number generators differ.  ``save_checkpoint_multi`` and
-``restore_logs`` (``chains = K``) come with ROADMAP item 10j.
+random number generators differ.  The samples taken before a
+checkpoint, phi among them, are read back from mcmc.txt on resume.
+``save_checkpoint_multi`` and ``restore_logs`` (``chains = K``), which
+carry the sample logs themselves, come with ROADMAP item 10j.
 """
 
 from __future__ import annotations

@@ -4,6 +4,7 @@ Usage:
   python -m bpp_tpu_torch --cfile run.ctl [--seed N] [--device cpu]
   python -m bpp_tpu_torch --resume out.chk.npz [--extend N] [--device cpu]
   python -m bpp_tpu_torch --simulate sim.ctl [--seed N]
+  python -m bpp_tpu_torch --msci-create defs.txt
 
 ``--cfile`` runs on the GPU (``cuda``) unless ``--device cpu`` is given;
 with no CUDA device it exits with an error.  It writes
@@ -23,7 +24,14 @@ checkpoint's offset and appended to, so every sample is written once,
 and the summary reads all of them back.  ``--extend N`` adds N samples
 to the resumed run.  ``--check N`` (``check = N`` in the control file)
 recomputes the cached likelihoods and densities every N iterations and
-stops on drift.  Chains and ``--summary`` are later work.
+stops on drift.  On an MSC-I network mcmc.txt has a phi column a
+hybridization, and the run writes no a1b1 log and no FigTree.tre (as
+``bpp_tpu``); with bidirectional introgression it also relabels the
+samples against label switching (``summary.lswitch``), writes them to
+``<mcmcfile>.processed`` and summarises the processed samples.
+``--msci-create`` turns a network definitions file into the extended
+newick a control file reads (``tools.msci_create``).  Chains,
+``--summary`` and ``--bfdriver`` are later work.
 """
 
 from __future__ import annotations
@@ -50,6 +58,8 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--extend", type=int, default=0, metavar="N",
                     help="with --resume: take N more samples")
     ap.add_argument("--simulate", help="simulation control file")
+    ap.add_argument("--msci-create", dest="msci_create",
+                    help="MSC-I network definitions file -> extended newick")
     ap.add_argument("--seed", type=int, default=None, help="override seed")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default cuda; 'cpu' "
@@ -134,6 +144,7 @@ def cmd_run(args) -> int:
         read_mcmc_samples,
     )
     from .summary.allfixed import hpd_interval
+    from .summary.lswitch import bdi_pairs_of
 
     device = resolve_device(args.device)
     if args.resume:
@@ -187,7 +198,8 @@ def cmd_run(args) -> int:
         # conditional (a1, b1) log and Rao-Blackwellized summary
         # (method.c:3838 opt_print_a1b1: A00, data, estimated thetas)
         if (cfg.usedata and not cfg.theta_integrated
-                and not cfg.est_delimit and not args.resume):
+                and not cfg.est_delimit and not args.resume
+                and run.stree.n_hybrids == 0):
             from .summary.a1b1 import DIST_GAMMA, DIST_INVGAMMA, A1b1Writer
             tdist = (DIST_GAMMA if cfg.thetaprior.dist == PriorDist.GAMMA
                      else DIST_INVGAMMA)
@@ -211,7 +223,7 @@ def cmd_run(args) -> int:
 
             writer.write_sample(
                 gen, row["theta"], row["tau"], float(row["lnl"]),
-                mubar=opt("mubar"), mubar_h=opt("mubar_h"),
+                phi=row.get("phi"), mubar=opt("mubar"), mubar_h=opt("mubar_h"),
                 nu_col=opt("nu_col"), brate0=row.get("brate0"))
             if locus_files is not None:
                 locus_files.write(row)
@@ -241,7 +253,7 @@ def cmd_run(args) -> int:
         locus_files.close()
     if args.resume:
         # the summary covers the samples from before the checkpoint too
-        gen, theta, tau, lnl, sptrees, _ = read_mcmc_samples(
+        gen, theta, tau, lnl, sptrees, phi = read_mcmc_samples(
             cfg, run.stree, mcmc_path)
         mubar = (_column(mcmc_path, "mu_bar")
                  if not cfg.est_stree and writer.dated else None)
@@ -249,6 +261,7 @@ def cmd_run(args) -> int:
         gen, theta, tau, lnl, _ = log.arrays()
         sptrees = log.sptrees
         mubar = log.mubar
+        phi = np.stack(log.phi) if log.phi else None
     a00 = not (cfg.est_stree or cfg.est_delimit)
     if cfg.est_stree and cfg.est_delimit:
         from .summary.mixed_summary import format_a11_summary, summarize_mixed
@@ -267,11 +280,15 @@ def cmd_run(args) -> int:
         models, nsp = summarize_delimitations(tau, run.stree)
         report = format_a10_summary(models, nsp, len(gen), run.stree)
     else:
-        report = a00_summary(cfg, run.stree, gen, theta, tau, lnl,
+        if phi is not None and bdi_pairs_of(run.stree) and len(gen):
+            _relabel_bdi(cfg, run, mcmc_path, gen, theta, tau, lnl, phi,
+                         args.quiet)
+        report = a00_summary(cfg, run.stree, gen, theta, tau, lnl, phi=phi,
                              mubar=mubar)
 
     # FigTree.tre (allfixed.c:571): A00 fixed multi-species tree only
-    if a00 and run.stree.n_tips > 1 and len(gen):
+    if (a00 and run.stree.n_tips > 1 and run.stree.n_hybrids == 0
+            and len(gen)):
         H = run.stree.n_nodes
         lo = np.zeros(H)
         hi = np.zeros(H)
@@ -304,6 +321,27 @@ def cmd_run(args) -> int:
     return 0
 
 
+def _relabel_bdi(cfg, run, mcmc_path, gen, theta, tau, lnl, phi, quiet):
+    """The label-switching correction of bidirectional introgression
+    (lswitch.c:336, called from allfixed.c:1853): relabel ``theta`` and
+    ``phi`` in place for every BDI pair and write the processed samples
+    to ``<mcmc_path>.processed`` (``bpp_tpu/cli.py:347-365``)."""
+    from .output import McmcWriter
+    from .summary.lswitch import lswitch_samples
+    lines = []
+    lswitch_samples(run.stree, theta, phi, est_theta=not cfg.theta_integrated,
+                    log=lines.append)
+    proc = McmcWriter(mcmc_path + ".processed", cfg, run.stree)
+    for k, g in enumerate(gen):
+        proc.write_sample(int(g), theta[k], tau[k], float(lnl[k]),
+                          phi=phi[k])
+    proc.close()
+    if not quiet:
+        print("\n".join(lines), file=sys.stderr)
+        print(f"Printing processed sample into {mcmc_path}.processed",
+              file=sys.stderr)
+
+
 def cmd_simulate(args) -> int:
     from .sim.simulate import run_simulation
 
@@ -329,6 +367,9 @@ def main(argv=None) -> int:
         return cmd_run(args)
     if args.simulate:
         return cmd_simulate(args)
+    if args.msci_create:
+        from .tools.msci_create import cmd_msci_create
+        return cmd_msci_create(args.msci_create)
     build_argparser().print_help()
     return 1
 

@@ -9,7 +9,13 @@ a test can hand a JAX chain's state to the port and compare densities on
 the same trees.  ``"clock"`` is optional (the strict clock without
 estimated locus rates carries none), and so are the arrays ``"coal"``
 and ``"t2h"`` (integrated-out thetas) and ``"mubar"`` (tip dating).
-Fields the port does not carry (MSC-I network arrays) must be None.
+
+Carried: every field of the four, the MSC-I network's too — the gene
+trees' hybridization flags ``hpath`` (int8) and the species arrays'
+``hslot``, ``hybrid``, ``phi``, ``hindex``, ``tau_free``,
+``bdi_partner``, ``bdi_mirror``, ``bdi_pairs``, ``rate_nodes`` and
+``rate_owner`` (index fields as int64, masks as bool).  A field the port
+does not have (migration, traits) raises.
 """
 
 from __future__ import annotations
@@ -22,11 +28,14 @@ from .mcmc.state import (
 )
 from .trees.gtree import GTrees, SpeciesArrays
 
-_INT_FIELDS = {"left", "right", "parent", "mrca"}
+_INT_FIELDS = {"left", "right", "parent", "mrca", "hslot", "hybrid",
+               "hindex", "bdi_partner", "bdi_pairs", "rate_owner"}
 
 
 def _tensor(name, a, dtype, device):
     a = np.array(a)          # a writable copy (JAX arrays are read-only)
+    if name == "hpath":
+        return torch.as_tensor(a.astype(np.int8), device=device)
     if name in _INT_FIELDS:
         return torch.as_tensor(a.astype(np.int64), device=device)
     if a.dtype == bool:
@@ -45,8 +54,7 @@ def _build(cls, fields: dict, dtype, device):
              if k not in cls._fields and v is not None]
     if extra:
         raise NotImplementedError(
-            f"{cls.__name__} fields {extra} are not carried by the port "
-            "(MSC-I networks: ROADMAP Queue 1 item 10f)")
+            f"{cls.__name__} fields {extra} are not carried by the port")
     return cls(**kw)
 
 

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from ..trees.gtree import BIG_AGE, GTrees, inner_order
+from ..trees.gtree import BIG_AGE, GTrees, edge_passes, inner_order
 
 
 def branch_lengths(gt: GTrees, rate):
@@ -30,18 +30,22 @@ def branch_lengths(gt: GTrees, rate):
 def relaxed_segments(gt: GTrees, sp, pops):
     """Time each gene-tree edge spends in each population, ``[L, N, H]``.
 
-    The edge of node u spans ``[age_u, age_parent_u)`` and ascends from
-    population ``pops[u]``; its overlap with an ancestor-or-self population
-    h is ``max(0, min(t_parent, tau_top(h)) - max(t_u, tau_h))`` and 0 for
-    every other population (``visits = pptable[pops]``).  Depends on the
-    gene trees, the taus and the populations only, so a sweep over branch
-    rates computes it once."""
+    The edge of node u spans ``[age_u, age_parent_u)`` and climbs from
+    population ``pops[u]``; its overlap with a population h it passes
+    through is ``max(0, min(t_parent, tau_top(h)) - max(t_u, tau_h))``,
+    and 0 with every other population.  On a plain tree it passes through
+    the ancestors of ``pops[u]`` (``pptable[pops]``), on an MSC-I network
+    through the populations of its route (``gtree.edge_passes``); a
+    zero-length hybridization segment (htau == 0) adds 0 by itself.
+    Depends on the gene trees, the taus and the populations only, so a
+    sweep over branch rates computes it once."""
     tau = sp.tau
     par = sp.parent
     partau = torch.where(par >= 0, tau[par.clamp(min=0)],
                          torch.full_like(tau, BIG_AGE))
     page = torch.gather(gt.age, 1, gt.parent.clamp(min=0))      # [L, N]
-    visits = sp.pptable[pops]                                   # [L, N, H]
+    visits = (edge_passes(gt, sp, pops) if sp.is_network
+              else sp.pptable[pops])                            # [L, N, H]
     lo = torch.maximum(gt.age[..., None], tau[None, None, :])
     hi = torch.minimum(page[..., None], partau[None, None, :])
     seg = torch.clamp(hi - lo, min=0.0)
@@ -51,17 +55,23 @@ def relaxed_segments(gt: GTrees, sp, pops):
 def relaxed_branch_lengths(gt: GTrees, sp, pops, brate):
     """Per-node branch lengths under a relaxed clock ``[L, N]``.
 
-    Port of ``bpp_tpu/core/felsenstein.py`` ``relaxed_branch_lengths`` for
-    plain species trees (src/locus.c:1151): the rate-weighted sum of an
-    edge's overlap with every population it crosses,
+    Port of ``bpp_tpu/core/felsenstein.py`` ``relaxed_branch_lengths``
+    (src/locus.c:1151): the rate-weighted sum of an edge's overlap with
+    every population it crosses,
 
-      len_u = sum_h visits[u, h] * brate[l, h] * overlap(u, h)."""
-    return segment_lengths(gt, relaxed_segments(gt, sp, pops), brate)
+      len_u = sum_h visits[u, h] * brate[l, owner(h)] * overlap(u, h),
+
+    where a BDI mirror's rate is its hinner partner's (``rate_owner``)."""
+    return segment_lengths(gt, relaxed_segments(gt, sp, pops), brate,
+                           sp.rate_owner)
 
 
-def segment_lengths(gt: GTrees, seg, brate):
+def segment_lengths(gt: GTrees, seg, brate, owner=None):
     """:func:`relaxed_branch_lengths` from the segments ``seg`` of
-    :func:`relaxed_segments`: the same numbers, bit for bit."""
+    :func:`relaxed_segments`: the same numbers, bit for bit.  ``owner``
+    is the network's ``rate_owner`` (None: every population its own)."""
+    if owner is not None:
+        brate = brate[:, owner]
     blen = torch.sum(seg * brate[:, None, :], dim=-1)
     return torch.where(gt.parent >= 0, blen, torch.zeros_like(blen))
 

@@ -1,12 +1,13 @@
 """Locus-rate, relaxed-clock and tip-dating moves (PyTorch).
 
-Port of ``bpp_tpu/mcmc/clock_moves.py`` for plain species trees
+Port of ``bpp_tpu/mcmc/clock_moves.py`` without migration and traits
 (reference src/stree.c:9052-10468): the branch-rate prior
 ``lnprior_rates`` (clocks 2 IID, 3 CORR, 4 SIMPLE; gamma or lognormal
-rates), the starting ``ClockState``, the mu_i move under the
-Gamma-Dirichlet or the hierarchical prior and its mubar move, the nu_i
-and nubar moves, the branch-rate sweeps and the tip-dating mutation-rate
-move.
+rates; on an MSC-I network only the populations of
+``SpeciesArrays.rate_nodes`` carry a rate), the starting ``ClockState``,
+the mu_i move under the Gamma-Dirichlet or the hierarchical prior and
+its mubar move, the nu_i and nubar moves, the branch-rate sweeps and the
+tip-dating mutation-rate move.
 
 All proposals are log-scale Bactrian slides reflected into [-99, 99]
 like the reference.  The Gamma-Dirichlet priors couple the loci through
@@ -33,18 +34,13 @@ from ..config import BppConfig, Clock
 from ..core import felsenstein as fe
 from ..trees.gtree import assign_populations, topo_scan
 from . import notheta, rng
+from .rng import tiny_floor
 from .state import (
     FT_BRATE, FT_MUBAR, FT_MUI, FT_NUBAR, FT_NUI, ClockState, Ctx,
     McmcState, make_logl_fn, make_logpr_fn, tree_where,
 )
 
 LOG_BOUND = 99.0
-
-
-def tiny_floor(dtype) -> float:
-    """``max(1e-300, finfo(dtype).tiny)``: bpp_tpu's 1e-300 floor where the
-    dtype can hold it, else the smallest normal number."""
-    return max(1e-300, torch.finfo(dtype).tiny)
 
 
 # --------------------------------------------------------------------------
@@ -66,11 +62,20 @@ def lnprior_rates(cfg: BppConfig, sp, mu, clock: ClockState):
     r = clock.brate
     if cfg.clock == Clock.GLOBAL:
         return torch.zeros((r.shape[0],), dtype=r.dtype, device=r.device)
+    # MSC-I networks: zero-length hybridization segments and BDI mirrors
+    # carry no rate (prop_branch_rates skips them, stree.c:10293)
+    rmask = sp.rate_nodes
+
+    def total(per):
+        if rmask is None:
+            return per.sum(1)
+        return torch.where(rmask[None, :], per, torch.zeros_like(per)).sum(1)
+
     if cfg.clock == Clock.SIMPLE:
         a = cfg.clock_alpha
         per = (a * math.log(a) - math.lgamma(a) + (a - 1.0) * torch.log(r)
                - a * r)
-        return per.sum(1)
+        return total(per)
     nu = clock.nu[:, None]
     m = mu[:, None]
     if cfg.clock == Clock.IID:
@@ -79,10 +84,12 @@ def lnprior_rates(cfg: BppConfig, sp, mu, clock: ClockState):
             beta = m / nu
             per = -beta * r + (alpha - 1.0) * torch.log(r)
             const = alpha * torch.log(beta) - torch.lgamma(alpha)
-            return (per + const).sum(1)
+            return total(per + const)
         z = torch.log(r) - torch.log(m) + nu / 2.0    # lognormal
         per = -(z * z) / (2.0 * nu) - torch.log(r)
-        return per.sum(1) - 0.5 * torch.log(2.0 * math.pi * clock.nu) * H
+        n_rate = H if rmask is None else rmask.sum()
+        return total(per) - 0.5 * torch.log(2.0 * math.pi * clock.nu) \
+            * n_rate
     if cfg.clock == Clock.CORRELATED:
         NS = sp.n_tips
         inner = torch.arange(NS, H, device=r.device)
@@ -356,12 +363,18 @@ def brate_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
     nprop = torch.zeros((), dtype=torch.int64, device=dev)
     nacc = torch.zeros((), dtype=torch.int64, device=dev)
     active = ctx.locus_mask
+    rmask = state.sp.rate_nodes
     for h in range(H):
         if cfg.clock == Clock.CORRELATED and h == root:
             continue
         r = brate[:, h]
         r_new, dlog = _logslide(gen, r, eps)
-        r_new = torch.where(active, r_new, r)
+        act = active
+        if rmask is not None:
+            # a network's zero-length segments and BDI mirrors carry no
+            # rate (stree.c:10293-10298)
+            act = active & rmask[h]
+        r_new = torch.where(act, r_new, r)
         brate_new = brate.clone()
         brate_new[:, h] = r_new
         clock_new = state.clock._replace(brate=brate_new)
@@ -370,11 +383,11 @@ def brate_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
         lnr_new = lnprior_rates(cfg, state.sp, state.subst.mu, clock_new)
         lnacc = dlog + (logl_new - logl) + (lnr_new - lnrates)
         us = rng.uniform(gen, (L,), r.dtype, dev)
-        accept = (torch.log(us) < lnacc) & active
+        accept = (torch.log(us) < lnacc) & act
         brate = torch.where(accept[:, None], brate_new, brate)
         lnrates = torch.where(accept, lnr_new, lnrates)
         logl = torch.where(accept, logl_new, logl)
-        nprop = nprop + active.sum()
+        nprop = nprop + act.sum()
         nacc = nacc + accept.sum()
     new = state._replace(
         clock=state.clock._replace(brate=brate, lnrates=lnrates), logl=logl)
@@ -391,9 +404,12 @@ def brate_simple_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
     seg = _sweep_segments(ctx, cfg, state)
     brate, logl = state.clock.brate, state.logl
     nacc = torch.zeros((), dtype=torch.int64, device=logl.device)
+    rmask = state.sp.rate_nodes
     for h in range(H):
         r = brate[0, h]
         r_new, dlog = _logslide(gen, r, eps)
+        if rmask is not None:
+            r_new = torch.where(rmask[h], r_new, r)
         brate_new = brate.clone()
         brate_new[0, h] = r_new
         clock_new = state.clock._replace(brate=brate_new)

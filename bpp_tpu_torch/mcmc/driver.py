@@ -1,14 +1,15 @@
 """MCMC driver: the cmd_run equivalent (src/method.c:4939), PyTorch.
 
 Port of ``bpp_tpu/mcmc/driver.py`` cut to what is ported so far: A00 on
-a fixed species tree, species-tree search (A01: SPR and SNL, topology
+a fixed species tree or MSC-I network (with bidirectional
+introgression), species-tree search (A01: SPR and SNL, topology
 constraints), species delimitation on a guide tree (A10) and both
 together (A11), on haploid, phased or unphased diploid DNA or on amino
 acids, with one substitution model for all loci or one per locus
 (``model = custom``), Γ rates, locus rates and heredity scalars, the
-strict or a relaxed clock (2, 3, 4), estimated or integrated-out thetas,
-tip dating, checkpoint/resume and the runtime check of the caches
-(``check = N``).  Every combination outside that raises
+strict or a relaxed clock (2, 3, 4), estimated, linked (``thetamodel``)
+or integrated-out thetas, tip dating, checkpoint/resume and the runtime
+check of the caches (``check = N``).  Every combination outside that raises
 ``NotImplementedError`` naming the ROADMAP item that brings it.  The
 jitted ``lax.scan`` chunk becomes a Python loop over
 :meth:`Engine._step`; a step reads nothing back to the host but for the
@@ -36,14 +37,18 @@ from ..core.units import Units
 from ..io.constraints import build_constraint_ids
 from ..loader import RunData, init_tau_theta
 from ..trees.gtree import init_gtrees, species_arrays
-from . import clock_moves, moves, rj_moves, rng, stree_moves, subst_moves
+from ..trees.stree import theta_link_map
+from . import (
+    clock_moves, moves, msci_moves, rj_moves, rng, stree_moves, subst_moves,
+)
 from .gibbs import gamma_conditional_approx
 from .state import (
     FT_ALPHA, FT_BRATE, FT_FREQS, FT_GTAGE, FT_GTSPR, FT_LRHT, FT_MIX,
     FT_MUBAR, FT_MUI, FT_NUBAR, FT_NUI, FT_QRATES, FT_TAU, FT_THETA,
-    MV_ALPHA, MV_BRATE, MV_FREQS, MV_GTAGE, MV_GTSPR, MV_LRHT, MV_MIX,
-    MV_MUBAR, MV_MUI, MV_NUBAR, MV_NUI, MV_QRATES, MV_RJ, MV_SNL, MV_SSPR,
-    MV_TAU, MV_THETA, N_MOVES, ROUTE_K1, ROUTE_K2, ROUTE_PLAIN, Ctx,
+    MV_ALPHA, MV_BRATE, MV_FREQS, MV_GTAGE, MV_GTSPR, MV_HPATH, MV_LRHT,
+    MV_MIX, MV_MUBAR, MV_MUI, MV_NUBAR, MV_NUI, MV_PHI, MV_QRATES, MV_RJ,
+    MV_SNL, MV_SSPR, MV_TAU, MV_THETA, N_MOVES, ROUTE_K1, ROUTE_K2,
+    ROUTE_PLAIN, Ctx,
     McmcState, SubstState, build_custom_models, finetune_array,
     make_logl_fn, make_logpr_fn, refresh_eigen,
 )
@@ -293,6 +298,9 @@ def _reference_guards(cfg: BppConfig, run: RunData):
         raise NotImplementedError(
             "species-tree search / delimitation support "
             "thetamodel = linked-all / linked-inner only")
+    if cfg.migration and cfg.linked_theta and cfg.linked_theta != 4:
+        raise NotImplementedError(
+            "use thetamodel = linked-mscm with migration")
     if cfg.constraintfile and cfg.est_stree and cfg.prob_snl > 0:
         # stree.c:11395: SNL has no constraint support
         raise NotImplementedError(
@@ -308,14 +316,10 @@ def _slice_guards(cfg: BppConfig, run: RunData):
             f"{what} is not ported to bpp_tpu_torch yet "
             f"(ROADMAP Queue 1 item {item})")
 
-    if run.stree.n_hybrids > 0:
-        refuse("MSC-I networks", "10f")
     if cfg.migration:
         refuse("MSC-M migration", "10g")
     if cfg.traitfile:
         refuse("morphological traits", "10h")
-    if cfg.linked_theta:
-        refuse("linked thetas (thetamodel)", "10b-linked")
     if cfg.n_chains > 1:
         refuse("chains > 1", "10j")
 
@@ -343,6 +347,7 @@ class SampleLog:
     mubar: list = field(default_factory=list)     # scalar; tip dating only
     sptrees: list = field(default_factory=list)   # (left, right, parent) per
                                                   # sample; A01/A11 only
+    phi: list = field(default_factory=list)       # [H]; MSC-I only
 
     def arrays(self):
         return (np.asarray(self.gen), np.stack(self.theta),
@@ -420,6 +425,11 @@ class Engine:
                                        and cfg.delimit_prior >= 2)
             else t(np.log(prior_a11_masses(run.stree.n_tips,
                                            cfg.delimit_prior)), self.dtype),
+            # linked thetas: the owner map is defined by node classes
+            # (tips, inner, root; a network's hybridizations), which no
+            # species move changes (bpp_tpu driver.py:391-411)
+            theta_link=None if not cfg.linked_theta
+            else t(theta_link_map(run.stree, cfg.linked_theta), torch.int64),
             custom=custom,
             route=likelihood_route(self.n_states, rm),
         )
@@ -599,9 +609,19 @@ class Engine:
         if not cfg.theta_integrated:
             state, pa = moves.theta_move(ctx, cfg, state, gen)
             count(MV_THETA, pa)
-        if not cfg.usedata_fix_gtree:
+        if state.sp.is_network:
+            # MSC-I: the network tau slide, then the population and flag
+            # re-choice and the phi draw (bpp_tpu driver.py:823-835)
+            state, pa = msci_moves.tau_move_net(ctx, cfg, state, gen)
+            count(MV_TAU, pa)
+            state, pa = msci_moves.repath_move(ctx, cfg, state, gen)
+            count(MV_HPATH, pa)
+            state, pa = msci_moves.phi_gibbs_move(ctx, cfg, state, gen)
+            count(MV_PHI, pa)
+        elif not cfg.usedata_fix_gtree:
             state, pa = moves.tau_move(ctx, cfg, state, gen)
             count(MV_TAU, pa)
+        if not cfg.usedata_fix_gtree:
             # mixing would move the fixed tip dates (method.c:5600); the
             # tip-dating mubar move takes its global-rescaling role
             if ctx.tip_dates is None:
@@ -680,6 +700,8 @@ class Engine:
         cfg = self.cfg
         tr = {"theta": state.sp.theta, "tau": state.sp.tau,
               "lnl": torch.sum(state.logl), "logpr": torch.sum(state.logpr)}
+        if state.sp.phi is not None:
+            tr["phi"] = state.sp.phi
         if state.mubar is not None:
             # tip dating: mu_bar and the calendar-unit taus
             tr["mubar"] = state.mubar
@@ -750,6 +772,8 @@ class Engine:
         ksum = torch.where(m, c, torch.zeros_like(c)).sum(0).to(t2.dtype)
         cc = t2 / state.subst.heredity[:, None]
         csum = torch.where(m, cc, torch.zeros_like(cc)).sum(0)
+        # linked thetas: each member gets its group's pooled statistics
+        ksum, csum = moves._pool_linked(self.ctx, ksum, csum)
         if cfg.thetaprior.dist == PriorDist.GAMMA:
             return gamma_conditional_approx(a, b, ksum, csum,
                                             invgamma_proposal=False)
@@ -918,6 +942,8 @@ class Engine:
                     log.logpr.append(float(row["logpr"]))
                     if "mubar" in row:
                         log.mubar.append(float(row["mubar"]))
+                    if "phi" in row:
+                        log.phi.append(row["phi"])
                     if "sp_left" in row:
                         log.sptrees.append((row["sp_left"], row["sp_right"],
                                             row["sp_parent"]))

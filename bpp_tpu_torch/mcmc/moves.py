@@ -1,7 +1,9 @@
 """MCMC moves, batched over loci (PyTorch).
 
-Port of ``bpp_tpu/mcmc/moves.py`` for plain species trees, with
-estimated (unlinked) or integrated-out thetas, any clock and dated tips:
+Port of ``bpp_tpu/mcmc/moves.py`` without migration and traits: plain
+species trees and MSC-I networks (whose tau move is
+``msci_moves.tau_move_net``), with estimated, linked or integrated-out
+thetas, any clock and dated tips:
 
   * gene-node ages    — gtree.c:4585 ``propose_ages`` (blocked by depth
                         parity: two jointly proposed phases)
@@ -25,7 +27,8 @@ import torch
 
 from ..config import BppConfig, Clock, PriorDist
 from ..trees.gtree import (
-    BIG_AGE, GTrees, lift_population, mrca_and_leaves, mrca_species,
+    BIG_AGE, GTrees, assign_populations, edge_passes,
+    lift_population, lift_population_net, mrca_and_leaves, mrca_species,
     node_depths,
 )
 from . import notheta, rng
@@ -53,6 +56,16 @@ def _suff_stats(ctx: Ctx, c, t2, heredity):
     csum = _psum_if_sharded(torch.where(
         mask_l, t2 / heredity[:, None], torch.zeros_like(t2)).sum(0))
     return ksum, csum
+
+
+def _pool_linked(ctx: Ctx, ksum, csum):
+    """Linked thetas (thetamodel; init_theta_linkage stree.c:2427): the
+    statistics of every owner group, summed, on each of its members."""
+    link = ctx.theta_link
+    if link is None:
+        return ksum, csum
+    return (torch.zeros_like(ksum).index_add_(0, link, ksum)[link],
+            torch.zeros_like(csum).index_add_(0, link, csum)[link])
 
 
 def _corr_ln(cfg: BppConfig, state: McmcState) -> bool:
@@ -86,6 +99,9 @@ def theta_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
     logpr_fn = make_logpr_fn(ctx)
     _, c, t2 = logpr_fn(state.gt, sp, state.subst.heredity)
     ksum, csum = _suff_stats(ctx, c, t2, state.subst.heredity)
+    # linked thetas: one parameter a group, from the group's statistics
+    ksum, csum = _pool_linked(ctx, ksum, csum)
+    link = ctx.theta_link
 
     a = cfg.thetaprior.alpha
     b = cfg.thetaprior.beta
@@ -104,6 +120,11 @@ def theta_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
         b1 = b + csum
     th_gibbs = b1 / rng.gamma(gen, a1)
     th_new = torch.where(use_slide, th_slide, th_gibbs)
+    if link is not None:
+        # every member takes its owner's proposal; with pooled statistics
+        # each member's ratio is its group's
+        use_slide = use_slide[link]
+        th_new = th_new[link]
 
     dlogpr = ksum * torch.log(theta / th_new) \
         + csum * (1.0 / theta - 1.0 / th_new)
@@ -123,6 +144,8 @@ def theta_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
         lnacc = torch.where(use_slide, lnacc,
                             torch.full_like(lnacc, float("inf")))
     accept = rng.mh_accept(gen, lnacc)
+    if link is not None:
+        accept = accept[link]            # one decision a group
     th_fin = torch.where(accept, th_new, theta)
 
     # recompute the cached per-locus logpr exactly (a float32 delta
@@ -310,9 +333,14 @@ def mixing_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
 
     lnc = eps * rng.bactrian(gen, (), dt, dev)
     c = torch.exp(lnc)
-    msp = mrca_species(gt, sp, ctx.tip_pop)
+    # topology-only species MRCAs (a network routes by the flags instead)
+    msp = None if sp.is_network else mrca_species(gt, sp, ctx.tip_pop)
 
-    if NS > 1:
+    if sp.is_network:
+        # only free taus are dimensions: mirrors and htau == 0 parents
+        # shadow a hybridization's tau (prop_mixing.c tau_count)
+        tau_count = torch.sum((sp.tau > 0) & sp.tau_free)
+    elif NS > 1:
         tau_count = torch.sum(sp.tau[NS:] > 0)
     else:
         tau_count = torch.zeros((), dtype=torch.int64, device=dev)
@@ -345,6 +373,11 @@ def mixing_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
         # Gibbs-style theta refresh at the scaled waiting times
         _, cc, t2 = logpr_fn(gt, sp, state.subst.heredity, msp=msp)
         ksum, csum = _suff_stats(ctx, cc, t2, state.subst.heredity)
+        # linked thetas: pooled statistics, density terms of owners only
+        ksum, csum = _pool_linked(ctx, ksum, csum)
+        link = ctx.theta_link
+        owner = (torch.ones_like(ksum, dtype=torch.bool) if link is None
+                 else link == torch.arange(len(link), device=dev))
         cstar = csum * c
         if gamma_prior:
             a1, b1 = gamma_conditional_approx(a, b, ksum, cstar)
@@ -353,15 +386,20 @@ def mixing_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
             a1, b1 = a + ksum, b + cstar
             a1o, b1o = a + ksum, b + csum
         th_new = b1 / rng.gamma(gen, a1)
+        if link is not None:
+            th_new = th_new[link]
         th_old = sp.theta
-        lnacc = lnacc + torch.sum(rng.log_pdf_invgamma(th_old, a1o, b1o)
-                                  - rng.log_pdf_invgamma(th_new, a1, b1))
+        zt = torch.zeros_like(th_old)
+        lnacc = lnacc + torch.sum(torch.where(
+            owner, rng.log_pdf_invgamma(th_old, a1o, b1o)
+            - rng.log_pdf_invgamma(th_new, a1, b1), zt))
         if gamma_prior:
-            lnacc = lnacc + torch.sum((a - 1.0) * torch.log(th_new / th_old)
-                                      - b * (th_new - th_old))
+            prior = (a - 1.0) * torch.log(th_new / th_old) \
+                - b * (th_new - th_old)
         else:
-            lnacc = lnacc + torch.sum((-a - 1.0) * torch.log(th_new / th_old)
-                                      - b * (1.0 / th_new - 1.0 / th_old))
+            prior = (-a - 1.0) * torch.log(th_new / th_old) \
+                - b * (1.0 / th_new - 1.0 / th_old)
+        lnacc = lnacc + torch.sum(torch.where(owner, prior, zt))
 
     gtn = gt._replace(age=age_new)
     spn = sp._replace(tau=tau_new, theta=th_new)
@@ -400,7 +438,8 @@ def age_block_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
     logl_fn = make_logl_fn(ctx, cfg)
     logpr_fn = make_logpr_fn(ctx)
     eps = state.finetune[FT_GTAGE]
-    msp = mrca_species(gt, sp, ctx.tip_pop)
+    net = sp.is_network
+    msp = None if net else mrca_species(gt, sp, ctx.tip_pop)
     depths = node_depths(gt)
     inner_valid = (nodes_idx >= T) & (nodes_idx < T + ctx.n_seq[:, None] - 1)
 
@@ -415,18 +454,26 @@ def age_block_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
     lc = gt.left.clamp(min=0)
     rc = gt.right.clamp(min=0)
     par_s = gt.parent.clamp(min=0)
-    msp_l = torch.gather(msp, 1, lc)
-    msp_r = torch.gather(msp, 1, rc)
+    if not net:
+        msp_l = torch.gather(msp, 1, lc)
+        msp_r = torch.gather(msp, 1, rc)
     cap = torch.full_like(age, MAXAGE_CAP)
 
     for phase in (0, 1):
         mask = inner_valid & (depths % 2 == phase) & ctx.locus_mask[:, None]
         la = torch.gather(age, 1, lc)
         ra = torch.gather(age, 1, rc)
-        pop_lc = lift_population(sp, msp_l, la)
-        pop_rc = lift_population(sp, msp_r, ra)
-        mrca_pop = sp.mrca[pop_lc, pop_rc]
-        minage = torch.maximum(torch.maximum(la, ra), sp.tau[mrca_pop])
+        if net:
+            # no species-MRCA bound on a network: an age below where the
+            # children's routes meet breaks route consistency, and the
+            # density's -inf rejects it
+            minage = torch.maximum(la, ra)
+        else:
+            pop_lc = lift_population(sp, msp_l, la)
+            pop_rc = lift_population(sp, msp_r, ra)
+            mrca_pop = sp.mrca[pop_lc, pop_rc]
+            minage = torch.maximum(torch.maximum(la, ra),
+                                   sp.tau[mrca_pop])
         maxage = torch.where(gt.parent >= 0, torch.gather(age, 1, par_s), cap)
         # degenerate window (float32 parent == child tie): skip the node
         mask = mask & (maxage > minage)
@@ -501,8 +548,13 @@ def spr_round_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
     cand_mask = valid_nodes & (parent >= 0)
     i, _ = _select_uniform(gen, cand_mask)
 
-    msp, leaves = mrca_and_leaves(gt0, sp, ctx.tip_pop, ctx.n_seq)
-    pops = lift_population(sp, msp, age.clamp(0.0, BIG_AGE * 0.5))
+    net = sp.is_network
+    if net:
+        pops = assign_populations(gt0, sp, ctx.tip_pop)
+        passes = edge_passes(gt0, sp, pops)                      # [L, N, H]
+    else:
+        msp, leaves = mrca_and_leaves(gt0, sp, ctx.tip_pop, ctx.n_seq)
+        pops = lift_population(sp, msp, age.clamp(0.0, BIG_AGE * 0.5))
 
     father = parent[lidx, i]
     is_valid = (father >= 0) & ctx.locus_mask
@@ -511,16 +563,25 @@ def spr_round_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
     sibling = torch.where(fleft == i, right[lidx, father_s], fleft)
 
     cur_pop = pops[lidx, i]
-    i_leaves = leaves[lidx, i]
-    cand = sp.pptable[cur_pop] & (glv > i_leaves[:, None])
-    score = torch.where(cand, depth[None, :], -1)
-    pop_min = torch.argmax(score, dim=1)
-    minage = torch.maximum(age[lidx, i], sp.tau[pop_min])
+    if net:
+        # the pruned node's own age: heights no route allows reject
+        # through tcount == 0 or the route-consistency indicator
+        minage = age[lidx, i]
+    else:
+        i_leaves = leaves[lidx, i]
+        cand = sp.pptable[cur_pop] & (glv > i_leaves[:, None])
+        score = torch.where(cand, depth[None, :], -1)
+        pop_min = torch.argmax(score, dim=1)
+        minage = torch.maximum(age[lidx, i], sp.tau[pop_min])
 
     f_age = age[lidx, father_s]
     tnew = rng.reflect(f_age + eps * rng.bactrian(gen, (L,), dt, dev),
                        minage, MAXAGE_CAP)
-    pop_target = lift_population(sp, cur_pop, tnew)
+    if net:
+        pop_target = lift_population_net(sp, cur_pop, tnew,
+                                         gt0.hpath[lidx, i])
+    else:
+        pop_target = lift_population(sp, cur_pop, tnew)
 
     page = torch.where(parent >= 0, torch.gather(age, 1, parent.clamp(min=0)),
                        torch.full_like(age, float("-inf")))
@@ -529,7 +590,11 @@ def spr_round_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
         torch.full_like(age, float("-inf"))), dim=1)
     root_age = age[lidx, order_root]
     spans = (age <= tnew[:, None]) & (tnew[:, None] < page)
-    in_pop = sp.pptable[pops, pop_target[:, None].expand_as(pops)]
+    if net:
+        in_pop = torch.gather(
+            passes, 2, pop_target[:, None, None].expand(-1, N, 1))[..., 0]
+    else:
+        in_pop = sp.pptable[pops, pop_target[:, None].expand_as(pops)]
     tmask = (valid_nodes & spans & in_pop
              & (nodes_idx != i[:, None])
              & (nodes_idx != order_root[:, None]))
@@ -541,7 +606,11 @@ def spr_round_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
 
     f_pop = pops[lidx, father_s]
     sspans = (age <= f_age[:, None]) & (f_age[:, None] < page)
-    s_in_pop = sp.pptable[pops, f_pop[:, None].expand_as(pops)]
+    if net:
+        s_in_pop = torch.gather(
+            passes, 2, f_pop[:, None, None].expand(-1, N, 1))[..., 0]
+    else:
+        s_in_pop = sp.pptable[pops, f_pop[:, None].expand_as(pops)]
     smask = (valid_nodes & sspans & s_in_pop
              & (nodes_idx != i[:, None]) & (nodes_idx != order_root[:, None])
              & (nodes_idx != sibling[:, None])
@@ -583,7 +652,7 @@ def spr_round_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
     # father age update (also for the no-topology-change case)
     _write(na, lidx, ok, father_s, tnew)
 
-    gtn = GTrees(nl, nr, np_, na)
+    gtn = GTrees(nl, nr, np_, na, gt0.hpath)
     logl_new = logl_fn(gtn, state.subst, sp, state.clock)
     logpr_new, c_new, t2_new = logpr_fn(gtn, sp, state.subst.heredity)
     dprop = torch.log(torch.clamp(tcount, min=1).to(dt)
@@ -603,7 +672,8 @@ def spr_round_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
     am = accept[:, None]
     new_state = new_state._replace(
         gt=GTrees(torch.where(am, nl, left), torch.where(am, nr, right),
-                  torch.where(am, np_, parent), torch.where(am, na, age)),
+                  torch.where(am, np_, parent), torch.where(am, na, age),
+                  gt0.hpath),
         logl=torch.where(accept, logl_new, logl),
         logpr=torch.where(accept, logpr_new, logpr))
     return new_state, (ok.sum(), accept.sum())

@@ -17,8 +17,9 @@ vector (tau == 0 collapses a node), so a move
 ``bpp_tpu`` branches between split and join with ``lax.cond``.  Here both
 proposals' species-level parts are built (a few ops on [H] tensors) and
 selected with ``torch.where``; the rubber band and the likelihood pass
-then run once, on the selected one.  Migration (``routes``) is not
-ported (ROADMAP item 10g).
+then run once, on the selected one.  Linked thetas (``thetamodel =
+linked-all`` or ``linked-inner``) give a linked child its owner's theta.
+Migration (``routes``) is not ported (ROADMAP item 10g).
 """
 
 from __future__ import annotations
@@ -193,8 +194,21 @@ def rj_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen,
         lc, rc = _at(sp.left, h_s), _at(sp.right, h_s)
         th_l, f_l = _child_theta_split(cfg, u[2], g[2], th_h)
         th_r, f_r = _child_theta_split(cfg, u[3], g[3], th_h)
-        ln_s = ln_s + (_prior_logpdf(cfg.thetaprior, th_l) + f_l
-                       + _prior_logpdf(cfg.thetaprior, th_r) + f_r)
+        fac_l = _prior_logpdf(cfg.thetaprior, th_l) + f_l
+        fac_r = _prior_logpdf(cfg.thetaprior, th_r) + f_r
+        link = ctx.theta_link
+        if link is not None:
+            # a linked child has no theta of its own: it takes its
+            # owner's, with no prior or proposal factor (prop_rj.c:606)
+            own_l = _at(link, lc.clamp(min=0))
+            own_r = _at(link, rc.clamp(min=0))
+            linked_l = own_l != lc
+            linked_r = own_r != rc
+            th_l = torch.where(linked_l, _at(sp.theta, own_l), th_l)
+            th_r = torch.where(linked_r, _at(sp.theta, own_r), th_r)
+            fac_l = torch.where(linked_l, torch.zeros_like(fac_l), fac_l)
+            fac_r = torch.where(linked_r, torch.zeros_like(fac_r), fac_r)
+        ln_s = ln_s + fac_l + fac_r
         theta_s = torch.where(hidx == lc, th_l,
                               torch.where(hidx == rc, th_r, sp.theta))
     ln_s = ln_s + torch.where(root_s, _prior_logpdf(cfg.tauprior, tau_new),
@@ -215,12 +229,22 @@ def rj_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen,
     bad_j = (fjoin == 0) | (tau_old >= up_j)
     if not integ:
         th_h = _at(sp.theta, h_j)
-        th_l = _at(sp.theta, _at(sp.left, h_j).clamp(min=0))
-        th_r = _at(sp.theta, _at(sp.right, h_j).clamp(min=0))
+        lc, rc = (_at(sp.left, h_j).clamp(min=0),
+                  _at(sp.right, h_j).clamp(min=0))
+        th_l, th_r = _at(sp.theta, lc), _at(sp.theta, rc)
         f_l, bad_l = _child_theta_join(cfg, th_l, th_h)
         f_r, bad_r = _child_theta_join(cfg, th_r, th_h)
-        ln_j = ln_j + (f_l - _prior_logpdf(cfg.thetaprior, th_l)
-                       + f_r - _prior_logpdf(cfg.thetaprior, th_r))
+        fac_l = f_l - _prior_logpdf(cfg.thetaprior, th_l)
+        fac_r = f_r - _prior_logpdf(cfg.thetaprior, th_r)
+        link = ctx.theta_link
+        if link is not None:
+            linked_l = _at(link, lc) != lc
+            linked_r = _at(link, rc) != rc
+            fac_l = torch.where(linked_l, torch.zeros_like(fac_l), fac_l)
+            fac_r = torch.where(linked_r, torch.zeros_like(fac_r), fac_r)
+            bad_l = bad_l & ~linked_l
+            bad_r = bad_r & ~linked_r
+        ln_j = ln_j + fac_l + fac_r
         bad_j = bad_j | bad_l | bad_r
     ln_j = ln_j - torch.where(root_j, _prior_logpdf(cfg.tauprior, tau_old),
                               torch.log((tau_count - 1.0) / root_tau))

@@ -17,6 +17,13 @@ M_BACTRIAN = 0.90
 S_BACTRIAN = (1.0 - M_BACTRIAN * M_BACTRIAN) ** 0.5
 
 
+def tiny_floor(dtype) -> float:
+    """``max(1e-300, finfo(dtype).tiny)``: bpp_tpu's 1e-300 floor where the
+    dtype can hold it, else the smallest normal number (in float32 1e-300
+    is 0, and a log of it -inf)."""
+    return max(1e-300, torch.finfo(dtype).tiny)
+
+
 def uniform(gen, shape, dtype, device):
     return torch.rand(shape, generator=gen, dtype=dtype, device=device)
 

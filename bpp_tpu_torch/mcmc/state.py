@@ -1,9 +1,10 @@
 """MCMC state and likelihood glue (PyTorch).
 
-Port of ``bpp_tpu/mcmc/state.py`` for plain species trees: the strict
-and the relaxed clocks, estimated or integrated-out thetas, tip dating,
-species-tree search and species delimitation, one substitution model
-for all loci (DNA or amino acids) or one per locus (``model = custom``).
+Port of ``bpp_tpu/mcmc/state.py`` without migration and traits: plain
+species trees and MSC-I networks, the strict and the relaxed clocks,
+estimated, linked or integrated-out thetas, tip dating, species-tree
+search and species delimitation, one substitution model for all loci
+(DNA or amino acids) or one per locus (``model = custom``).
 The sampler state is one NamedTuple of tensors; moves return a new state
 and reject by ``torch.where(accept, new, old)``.
 """
@@ -25,8 +26,9 @@ from ..core.units import Units
 from ..trees import coalescent as coal
 from ..trees.gtree import (
     BIG_AGE, GTrees, SpeciesArrays, assign_populations, inner_order,
-    lift_population,
+    lift_population, route_consistent,
 )
+from . import rng
 
 # finetune slot indices (the reference's finetune vector order)
 FT_GTAGE = 0
@@ -59,9 +61,11 @@ MV_LRHT = 5
 MV_FREQS = 6
 MV_QRATES = 7
 MV_ALPHA = 8
+MV_PHI = 9           # MSC-I phi Gibbs
 MV_RJ = 10           # rjMCMC split/join (A10/A11)
 MV_SSPR = 11         # species-tree SPR (A01/A11)
 MV_SNL = 12          # species-tree SNL (A01/A11)
+MV_HPATH = 13        # MSC-I population and hybridization-flag re-choice
 MV_MUI = 14
 MV_NUI = 15
 MV_MUBAR = 16
@@ -293,8 +297,9 @@ class Ctx:
     # date * mubar) and the oldest date below each species node
     tip_dates: torch.Tensor | None = None   # [L, T]
     date_lmax: torch.Tensor | None = None   # [H]
-    # thetas integrated out: logpr_fn's per-locus value is 0 (plain
-    # trees have no theta-free terms) and the density lives in
+    # thetas integrated out: logpr_fn's per-locus value holds only the
+    # theta-free terms (a network's phi terms and route validity; 0 on a
+    # plain tree) and the rest of the density lives in
     # notheta.total_integrated over the (coal, t2h) caches
     integrated: bool = False
     # A01/A11 topology constraints: a group id per species node (SPR only
@@ -303,6 +308,9 @@ class Ctx:
     # A11 under speciesmodelprior 2/3: log prior mass per species count
     # minus one (driver.prior_a11_masses)
     prior_a11_log: torch.Tensor | None = None    # [NS]
+    # linked thetas (thetamodel; init_theta_linkage stree.c:2427): the
+    # theta owner of every node; the thetas of a group are one parameter
+    theta_link: torch.Tensor | None = None       # [H] int64
     # per-locus substitution models (model = custom partition file)
     custom: CustomModels | None = None
     # the likelihood pass, chosen once per run (driver.likelihood_route)
@@ -360,7 +368,7 @@ def make_logl_fn(ctx: Ctx, cfg: BppConfig):
             if seg is None:
                 seg = fe.relaxed_segments(
                     gt, sp, assign_populations(gt, sp, ctx.tip_pop))
-            blen = fe.segment_lengths(gt, seg, brate)
+            blen = fe.segment_lengths(gt, seg, brate, sp.rate_owner)
         rk = torch.cat([subst.rates, subst.kappa1[:, None],
                         subst.kappa2[:, None]], dim=1)
         tree = (inner_order(gt), gt.left, gt.right, gt.parent, ctx.n_seq,
@@ -389,26 +397,43 @@ def make_logl_fn(ctx: Ctx, cfg: BppConfig):
 
 def make_logpr_fn(ctx: Ctx):
     """Returns logpr(gt, sp, heredity, msp=None) -> ([L], coal [L,H],
-    T2h [L,H]) for plain species trees.
+    T2h [L,H]).
 
     ``msp`` is the optional [L, N] species-MRCA of every gene node, a
-    topology-only quantity that moves fixing the topology compute once.
-    Dated tips take ``per_pop_stats_dated``.  With integrated thetas the
-    per-locus value is 0 (plain trees have no theta-free terms) and the
-    density is ``notheta.total_integrated`` of the returned stats."""
+    topology-only quantity that moves fixing the topology compute once
+    (plain trees only; a network routes by ``gt.hpath``).  Dated tips
+    take ``per_pop_stats_dated``.  On an MSC-I network the density adds
+    the phi terms, n_in * log(phi) per hinner and mirror
+    (gtree.c:3925-3931), and is -inf at a locus whose coalescences'
+    child routes disagree (``route_consistent``).  The phi floor is
+    ``rng.tiny_floor``: bpp_tpu's 1e-300 in float64, the smallest normal
+    number in float32, where 1e-300 is 0 and a phi of 0 would give
+    0 * -inf.  With integrated thetas the per-locus value holds only the
+    theta-free terms (0 on a plain tree) and the density is
+    ``notheta.total_integrated`` of the returned stats."""
     stats = (coal.per_pop_stats if ctx.tip_dates is None
              else coal.per_pop_stats_dated)
 
     def logpr_fn(gt: GTrees, sp: SpeciesArrays, heredity, msp=None):
-        if msp is not None:
+        if msp is not None and not sp.is_network:
             pops = lift_population(sp, msp,
                                    gt.age.clamp(0.0, BIG_AGE * 0.5))
         else:
             pops = assign_populations(gt, sp, ctx.tip_pop)
-        c, t2, _ = stats(gt, sp, pops, ctx.n_seq)
+        c, t2, n_in = stats(gt, sp, pops, ctx.n_seq)
         if ctx.integrated:
-            return torch.zeros_like(t2[:, 0]), c, t2
-        lp = coal.msc_contrib(c, t2, sp.theta, heredity).sum(dim=1)
+            lp = torch.zeros_like(t2[:, 0])
+        else:
+            lp = coal.msc_contrib(c, t2, sp.theta, heredity).sum(dim=1)
+        if sp.is_network:
+            floor = rng.tiny_floor(sp.phi.dtype)
+            lphi = torch.where(sp.hindex >= 0,
+                               torch.log(torch.clamp(sp.phi, min=floor)),
+                               torch.zeros_like(sp.phi))
+            n_eff = coal.phi_entry_counts(sp, n_in)
+            lp = lp + (n_eff * lphi).sum(dim=1)
+            ok = route_consistent(gt, sp, pops, ctx.n_seq)
+            lp = torch.where(ok, lp, torch.full_like(lp, -float("inf")))
         lp = torch.where(ctx.locus_mask, lp, torch.zeros_like(lp))
         return lp, c, t2
 

@@ -180,9 +180,15 @@ class McmcWriter:
         self._nu_bar_col = cfg.locusrate_prior == 1
         self.rate_nodes = []
         if self.clock_simple:
-            # every population of a plain species tree carries a rate (the
-            # zero-length MSC-I segments that do not wait for item 10f)
-            self.rate_nodes = list(range(st.n_tips)) + self.inner
+            # the rate-carrying populations, in output order (a network's
+            # zero-length segments and BDI mirrors carry none)
+            from .trees.gtree import species_arrays
+            rn = species_arrays(st).rate_nodes
+            rn = (np.ones(st.n_nodes, bool) if rn is None
+                  else rn.cpu().numpy())
+            order = (list(range(st.n_tips)) + self.inner
+                     + list(range(st.n_tips + st.n_inner, st.n_nodes)))
+            self.rate_nodes = [i for i in order if rn[i]]
         if not append:
             self._write_header()
         else:

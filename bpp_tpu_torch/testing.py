@@ -3,12 +3,15 @@
 ``synthetic_run`` is a copy of ``bpp_tpu/testing.py``'s (numpy; the same
 seed gives the same data) that also takes per-locus sequence counts.
 ``write_simulated_run`` simulates a dataset (4 species by default,
-haploid, or with unphased diploid species) with the port's simulator and
-writes a run control file for it; ``write_partition_file`` writes the
-partition file of ``model = custom``; ``generate_aa_benchmark`` (a copy
-of ``bpp_tpu/testing.py``'s) writes the WAG amino-acid dataset of
-``bench.py``; ``fixed_subst`` builds a substitution state per DNA model
-family with fixed parameters.
+haploid, or with unphased diploid species; on the MSC-I network
+``NET_SIM_TREE`` with ``NET_GUIDE``) with the port's simulator and
+writes a run control file for it; ``state_arrays`` and ``port_state``
+hand a sampler state (``bpp_tpu``'s too) to the port;
+``write_partition_file`` writes the partition file of ``model =
+custom``; ``generate_aa_benchmark`` (a copy of ``bpp_tpu/testing.py``'s)
+writes the WAG amino-acid dataset of ``bench.py``; ``fixed_subst`` builds
+a substitution state per DNA model family with fixed parameters;
+``ess`` is a chain's effective sample size, for prior-recovery bands.
 """
 
 from __future__ import annotations
@@ -138,6 +141,18 @@ def _lines(*items) -> str:
 
 SIM_TREE4 = ("((A #0.01, B #0.01) :0.01 #0.01, (C #0.01, D #0.01) :0.012 "
              "#0.01) :0.02 #0.01")
+
+
+# an MSC-I network on four species: B introgresses into the T lineage
+# (H, phi 0.3), with every population's theta 0.01; the simulator's tree
+# and the run's species tree (``write_simulated_run(..., sim_tree=
+# NET_SIM_TREE, guide=NET_GUIDE, priors=("phiprior = 1 1", ...))``)
+NET_SIM_TREE = (
+    "(((A #0.01, (B #0.01)H[&phi=0.3,&tau-parent=yes] :0.005 #0.01) S "
+    ":0.01 #0.01, (H[&tau-parent=yes], C #0.01) T :0.008 #0.01) U :0.015 "
+    "#0.01, D #0.01) R :0.02 #0.01")
+NET_GUIDE = ("(((A,(B)H[&phi=0.3,&tau-parent=yes])S,"
+             "(H[&tau-parent=yes],C)T)U,D)R")
 
 
 def write_simulated_run(directory, n_loci: int, seqs=(2, 2, 2, 2),
@@ -389,7 +404,7 @@ def gene_tree_faults(gt, n_seq) -> list:
     than its parent."""
     L, N = gt.left.shape
     T = (N + 1) // 2
-    left, right, parent, age = (x.detach().cpu().numpy() for x in gt)
+    left, right, parent, age = (x.detach().cpu().numpy() for x in gt[:4])
     n_seq = np.asarray(n_seq.cpu() if torch.is_tensor(n_seq) else n_seq)
     faults = []
     for li in range(L):
@@ -409,3 +424,51 @@ def gene_tree_faults(gt, n_seq) -> list:
             if p >= 0 and v not in (left[li, p], right[li, p]):
                 faults.append((li, "parent", v, int(p)))
     return faults
+
+
+def state_arrays(state) -> dict:
+    """The ``{"gt", "sp", "subst", "clock"}`` numpy field dictionaries of a
+    sampler state (the port's, or ``bpp_tpu``'s, whose arrays numpy
+    reads), with ``coal``/``t2h``/``mubar`` where the state has them: what
+    ``convert.state_from_numpy`` takes."""
+    def fields(x):
+        return None if x is None else {
+            f: (None if v is None else np.asarray(v))
+            for f, v in x._asdict().items()}
+
+    out = {k: fields(getattr(state, k)) for k in ("gt", "sp", "subst",
+                                                  "clock")}
+    for k in ("coal", "t2h", "mubar"):
+        v = getattr(state, k, None)
+        if v is not None:
+            out[k] = np.asarray(v)
+    return out
+
+
+def port_state(state, cfg, device="cpu", dtype=torch.float64):
+    """A port ``McmcState`` holding ``state``'s arrays and its cached
+    ``logl``/``logpr`` (on a network: its gene trees with their
+    hybridization flags and every network field of the species arrays)."""
+    from .convert import state_from_numpy
+    st = state_from_numpy(state_arrays(state), device=device, dtype=dtype,
+                          cfg=cfg)
+    return st._replace(
+        logl=torch.as_tensor(np.array(state.logl), dtype=dtype,
+                             device=device),
+        logpr=torch.as_tensor(np.array(state.logpr), dtype=dtype,
+                              device=device))
+
+
+def ess(x) -> float:
+    """Effective sample size of a chain's trace, from its initial
+    positive autocorrelations."""
+    x = np.asarray(x, float) - np.mean(x)
+    n = len(x)
+    f = np.fft.rfft(x, 2 * n)
+    ac = np.fft.irfft(f * np.conj(f))[:n] / (np.arange(n, 0, -1) * x.var())
+    s = 0.0
+    for k in range(1, n):
+        if ac[k] <= 0:
+            break
+        s += ac[k]
+    return n / (1 + 2 * s)

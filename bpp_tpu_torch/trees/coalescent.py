@@ -1,8 +1,10 @@
 """MSC (multispecies coalescent) log-density, batched over loci (PyTorch).
 
 Port of ``bpp_tpu/trees/coalescent.py`` (``per_pop_stats``,
-``per_pop_stats_dated``, ``msc_contrib``, ``msc_logprob``,
-``msc_logprob_integrated``) for plain species trees.  Per
+``per_pop_stats_dated``, ``phi_entry_counts``, ``msc_contrib``,
+``msc_logprob``, ``msc_logprob_integrated``) for plain species trees and
+MSC-I networks; on a network an edge's populations are those its route
+visits (``gtree.edge_passes``).  Per
 population h with n_in entering lineages and k coalescences at sorted
 times t_1..t_k inside [tau_h, tau_parent_h):
 
@@ -14,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from .gtree import GTrees, SpeciesArrays
+from .gtree import GTrees, SpeciesArrays, edge_passes
 
 _FINITE_BIG = 1.0e12
 
@@ -30,6 +32,14 @@ def _pop_end(sp: SpeciesArrays):
     partau = torch.where(par >= 0, sp.tau[par.clamp(min=0)],
                          torch.full_like(sp.tau, float("inf")))
     return torch.clamp(partau, max=_FINITE_BIG)                # [H]
+
+
+def _visits(gt: GTrees, sp: SpeciesArrays, pops):
+    """``[L, N, H]`` bool: the populations each edge passes through (its
+    population's ancestors on a tree, its route on a network)."""
+    if sp.is_network:
+        return edge_passes(gt, sp, pops)
+    return sp.pptable[pops]
 
 
 def per_pop_stats(gt: GTrees, sp: SpeciesArrays, pops, n_seq):
@@ -58,7 +68,7 @@ def per_pop_stats(gt: GTrees, sp: SpeciesArrays, pops, n_seq):
     tau = sp.tau
     end = _pop_end(sp)
     page = _parent_age(gt)
-    pres = sp.pptable[pops] & valid[..., None]                 # [L, N, H]
+    pres = _visits(gt, sp, pops) & valid[..., None]     # [L, N, H]
 
     # lineages entering each population (at tau_h)
     inh = pres & (gt.age[..., None] <= tau) & (tau < page[..., None])
@@ -114,7 +124,7 @@ def per_pop_stats_dated(gt: GTrees, sp: SpeciesArrays, pops, n_seq):
     tau = sp.tau
     end = _pop_end(sp)
     page = _parent_age(gt)
-    pres = sp.pptable[pops] & valid[..., None]                 # [L, N, H]
+    pres = _visits(gt, sp, pops) & valid[..., None]     # [L, N, H]
 
     inh = pres & (gt.age[..., None] <= tau) & (tau < page[..., None])
     n_in = inh.sum(dim=1)                                      # [L, H]
@@ -135,6 +145,25 @@ def per_pop_stats_dated(gt: GTrees, sp: SpeciesArrays, pops, n_seq):
     off = 1.0 - torch.eye(N, dtype=ov.dtype, device=dev)
     T2h = (ov * off[None, :, :, None]).sum((1, 2))             # [L, H]
     return coal, T2h, n_in
+
+
+def phi_entry_counts(sp: SpeciesArrays, n_in):
+    """Entry counts of the phi terms, ``[L, H]``.
+
+    Lineages entering a hinner pay log(phi), those entering a mirror
+    log(1 - phi), so these are ``n_in``.  But ``n_in`` of a BDI hinner X
+    also counts the switchers from the partner side, which enter X at the
+    shared tau after passing the partner's mirror and paid
+    log(phi[mirror_Y]) there already: they are taken off (the reference
+    counts them through per-mirror seqin, gtree.c:3925)."""
+    if sp.bdi_partner is None:
+        return n_in
+    part = sp.bdi_partner
+    has = part >= 0
+    pmir = torch.where(has, sp.hybrid[part.clamp(min=0)],
+                       torch.zeros_like(part))
+    sub = torch.where(has[None, :], n_in[:, pmir], torch.zeros_like(n_in))
+    return n_in - sub
 
 
 def msc_contrib(coal, T2h, theta, heredity):

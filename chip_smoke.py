@@ -130,9 +130,37 @@ Phases, in order; any failure exits non-zero:
               ``[profile]`` of the step, no K1 or K2 launch, and the peak
               device memory of the run.
 
+20. main 10 — A00 on an MSC-I network at the bench shape: 1000 loci x 4
+              species x 4 sequences x 500 sites simulated on
+              ``testing.NET_SIM_TREE`` (B into T through H, phi 0.3; seed
+              137, JC69, theta 0.01), through ``cli.main`` with ``phiprior =
+              1 1``: K1 launched 2 + 3 + 5 (one tau pass for each inner
+              node) + 1 = 11 times per iteration plus 1, K2 never; theta,
+              tau and phi columns move; every state's routes are
+              consistent and ``validate_state`` passes on the last; no
+              FigTree.tre; the ``[profile]`` of its step;
+21. net     — K1 and K2 against their float64 plain versions on network
+              gene trees under both CLV stores: (a) main 10's last state,
+              (b) a clock = 2 chain on the network (``blen`` through
+              ``edge_passes``), (c) the BDI fixture under clock = 2
+              (mirrors at their partners' rates, ``rate_owner``), (d) K2
+              with ``reduce_root`` on 200 diploid HKY+G4 loci simulated on
+              the network;
+22. main 11 — the BDI fixture (``tests/fixtures/bdi``) with ``thetamodel =
+              linked-msci`` through ``cli.main``: K1 launched 2 + 3 + 4 + 1
+              = 10 times per iteration plus 1; ``out11.mcmc.txt.processed``
+              (the label-switching correction) holds every sample, the
+              theta columns are the linked owners', phi moves; then
+              ``--msci-create`` prints ``tests/test_msci_create.py``'s
+              bidirection newick; ``[cli]``: ``cli.main`` on the card for
+              ``tests/fixtures/msci/m.ctl`` with its data (strict and
+              clock = 2) and for linked-all / linked-inner thetas on
+              ((A, B), (C, D)) with 100 of main 10's loci, 4 samples
+              each.
+
 Then one JSON line ``{"kernels": [...]}`` (K1 at JC69, K2 at HKY+G4: the
-models of their chains; launches summed over main 1-8, errors the largest
-of every hold), the card's name and power limit from nvidia-smi,
+models of their chains; launches summed over main 1-11, errors the
+largest of every hold), the card's name and power limit from nvidia-smi,
 and the last line ``{"ok": true, "device": {...}}``.  Without a CUDA
 device the script exits non-zero and prints no result.
 """
@@ -261,6 +289,53 @@ sampfreq = 1
 nsample = {nsample}
 """
 
+# main 10: the haploid bench shape simulated on an MSC-I network (B
+# introgresses into the T lineage through H, phi 0.3); [net]'s diploid
+# batch on the same network; main 11: the BDI fixture with linked thetas
+SIM10_CTL = """\
+seed = 137
+seqfile = {prefix}.phy
+treefile = {prefix}.tre
+Imapfile = {prefix}.Imap.txt
+modelparafile = {prefix}.para.txt
+species&tree = 4 A B C D
+                 {seqs}
+                {tree};
+loci&length = {nloci} 500
+{extra}"""
+NET_DIPLOID = ("diploid = 1 1 1 1\nmodel = 3\nkappa = 2\n"
+               "basefreqs = 0.3 0.2 0.2 0.3\nlocusrate = 1 5\n")
+N_NET_DIPLOID = 200
+BDI_CTL = """\
+seed = 7
+seqfile = {fix}/bdi_seqs.txt
+Imapfile = {fix}/bdi_imap.txt
+jobname = {job}
+species&tree = 3 A B C
+               4 4 2
+               (((A,Y[&phi=0.300000])X,(B,X[&phi=0.200000])Y)S, C)R;
+usedata = 1
+nloci = 30
+cleandata = 0
+model = JC69
+thetaprior = gamma 2 1000
+tauprior = gamma 4 100
+phiprior = 1 1
+finetune = 1
+print = 1 0 0 0
+burnin = {burnin}
+sampfreq = 1
+nsample = {nsample}
+{extra}"""
+# tests/test_msci_create.py's bidirection case and the newick it expects
+MSCI_DEFS = """\
+tree ((A,B),C);
+define T as A,B
+define R as A,B,C
+bidirection A T, C R as X Y phi=0.2,0.3
+"""
+MSCI_NEWICK = "(((A,Y[&phi=0.300000])X,B)T,(C,X[&phi=0.200000])Y)R;"
+
 N_LOCI = 1000
 BURNIN, NSAMPLE = 10, 40
 PASSES_PER_ITER = 8        # age 2 + SPR 3 + tau 2 + mixing 1
@@ -276,6 +351,12 @@ PASSES_PER_ITER_7 = PASSES_PER_ITER_2 + 2  # + rj + species SPR or SNL
 # frees (K80 / HKY slot 0, TN93 slots 0-1, GTR all but slot 1: 6 slots)
 PASSES_PER_ITER_8 = PASSES_PER_ITER + 1 + 6
 N_CHECKS = (BURNIN + NSAMPLE) // CHECK_EVERY   # one K1 pass each
+# an MSC-I network's step: age 2 + SPR 3 + one tau pass for each inner
+# node (tau_move_net; H - NS - HY = 10 - 4 - 1 = 5 on main 10's network,
+# 9 - 3 - 2 = 4 on the BDI network) + mixing 1; the strict clock's
+# repath and phi moves run no pass
+PASSES_PER_ITER_10 = 2 + 3 + 5 + 1
+PASSES_PER_ITER_11 = 2 + 3 + 4 + 1
 TOL_SITE = 2e-3           # per-pattern |dlnL| of K2, float32
 TOL_LNL = 0.02            # f32 bound of tests/test_kernel_consistency.py
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -481,10 +562,10 @@ def wall_ms(fn, reps=5):
     return statistics.median(times)
 
 
-def check_chain_output(job, nsample, moving):
+def check_chain_output(job, nsample, moving, figtree=True):
     """mcmc.txt of ``job``: ``nsample`` finite rows whose ``moving``
-    columns moved; the summary and the tree file exist.  Returns the
-    samples."""
+    columns moved; the summary and (``figtree``: not on a network) the
+    tree file exist.  Returns the samples."""
     import numpy as np
     with open(f"{job}.mcmc.txt") as f:
         header = f.readline().split()
@@ -503,13 +584,15 @@ def check_chain_output(job, nsample, moving):
                     raise AssertionError(f"{job}: column {col} never moved")
     if seen != set(moving):
         raise AssertionError(f"{job}: no column of {set(moving) - seen}")
-    for fn in (f"{job}.txt", f"{job}.FigTree.tre"):
+    for fn in (f"{job}.txt", f"{job}.FigTree.tre")[:1 + figtree]:
         if not os.path.getsize(fn):
             raise AssertionError(f"{fn} is empty")
+    if not figtree and os.path.exists(f"{job}.FigTree.tre"):
+        raise AssertionError(f"{job}.FigTree.tre written for a network")
     return data
 
 
-def run_chain(argv, job, iters, expect, moving, label, smi):
+def run_chain(argv, job, iters, expect, moving, label, smi, figtree=True):
     """Drive one chain through the CLI (``argv``) with both launch counts
     set to 0 just before and read just after; ``expect`` = (K1, K2)
     launches over ``iters`` iterations and the initial state.  ``moving``
@@ -539,7 +622,7 @@ def run_chain(argv, job, iters, expect, moving, label, smi):
     if moving in ("A01", "A11"):
         result = check_species_output(job, NSAMPLE, moving)
     else:
-        data = check_chain_output(job, NSAMPLE, moving)
+        data = check_chain_output(job, NSAMPLE, moving, figtree)
         result = f"mean lnL {data[:, -1].mean():.3f}"
     print(f"[{label}] cli {' '.join(argv)}: {iters} iterations, wall "
           f"{wall:.1f} "
@@ -1063,7 +1146,7 @@ def hold_shapes(dev, smi):
         gt, n_seq, n_pat, tips, weights = shaped_batch(T, 72, seed=T,
                                                        device=dev)
         keep = slice(2 * T - 12, 2 * T)       # the 12 loci of most tips
-        hold(f"{T} tips", type(gt)(*(x[keep].contiguous() for x in gt)),
+        hold(f"{T} tips", type(gt)(*(x[keep].contiguous() for x in gt[:4])),
              n_seq[keep], n_pat[keep], tips[keep].contiguous(),
              weights[keep].contiguous(), model_name, n_cats, store, T / 16)
 
@@ -1202,7 +1285,233 @@ def aa_phase(dev, smi, iters):
     return err, pass_ms
 
 
+class StepWatch:
+    """While active, keeps the route-consistency flag of every state an
+    MSC-I engine's step returns (on the device: no host read) and the
+    last engine and state."""
+
+    def __enter__(self):
+        from bpp_tpu_torch.mcmc.driver import Engine
+        from bpp_tpu_torch.trees.gtree import (
+            assign_populations, route_consistent,
+        )
+        self.flags, self.last = [], None
+        self._orig = orig = Engine._step
+        watch = self
+
+        def step(eng, state):
+            state, stats = orig(eng, state)
+            pops = assign_populations(state.gt, state.sp, eng.ctx.tip_pop)
+            watch.flags.append(route_consistent(
+                state.gt, state.sp, pops, eng.ctx.n_seq).all())
+            watch.last = (eng, state)
+            return state, stats
+
+        Engine._step = step
+        return self
+
+    def __exit__(self, *exc):
+        from bpp_tpu_torch.mcmc.driver import Engine
+        Engine._step = self._orig
+
+
+def write_net_data(prefix, nloci, seqs, extra):
+    """Simulate ``nloci`` loci on main 10's network with the port's
+    simulator (seed 137) into ``<prefix>.phy`` / ``.Imap.txt``."""
+    from bpp_tpu_torch.sim.simulate import run_simulation
+    from bpp_tpu_torch.testing import NET_SIM_TREE
+    with open(f"{prefix}.ctl", "w") as f:
+        f.write(SIM10_CTL.format(prefix=prefix, seqs=seqs, tree=NET_SIM_TREE,
+                                 nloci=nloci, extra=extra))
+    run_simulation(f"{prefix}.ctl")
+
+
+def msci_phases(dev, smi, iters, n_loci=N_LOCI, n_diploid=N_NET_DIPLOID):
+    """``[data 10]``, ``[main 10]``, ``[profile]`` of its step, ``[net]``
+    (a)-(d) and ``[main 11]`` with ``--msci-create``.  Returns (K1
+    launches of main 10, of main 11, [net]'s largest K1 error, its largest
+    K2 error)."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from bpp_tpu_torch import cli
+    from bpp_tpu_torch.loader import load_run_from_ctl
+    from bpp_tpu_torch.testing import NET_GUIDE
+    from bpp_tpu_torch.tools.msci_create import msci_create
+    from bpp_tpu_torch.trees.stree import theta_link_map
+    net_run = RUN_CTL.replace("((A, B), (C, D));", NET_GUIDE + ";").replace(
+        "seqfile = sim.phy", "seqfile = sim10.phy").replace(
+        "Imapfile = sim.Imap.txt", "Imapfile = sim10.Imap.txt")
+
+    # [data 10]: the bench shape on the network
+    t0 = time.perf_counter()
+    write_net_data("sim10", n_loci, "4 4 4 4", "model = 0")
+    for ctl, job, extra in (("run10.ctl", "out10", "phiprior = 1 1\n"),
+                            ("run10c.ctl", "out10c",
+                             "phiprior = 1 1\n" + RELAXED)):
+        with open(ctl, "w") as f:
+            f.write(net_run.format(nloci=n_loci, burnin=BURNIN,
+                                   nsample=NSAMPLE, job=job, extra=extra))
+    run10 = load_run_from_ctl("run10.ctl")
+    st = run10.stree
+    b = run10.batch
+    print(f"[data 10] {n_loci} haploid loci simulated on the network "
+          f"{NET_GUIDE} in {time.perf_counter() - t0:.1f} s | H={st.n_nodes} "
+          f"(tips {st.n_tips}, hybridizations {st.n_hybrids}) L={b.n_loci} "
+          f"T={b.max_tips} S={b.max_patterns} | real patterns "
+          f"{int(np.asarray(b.n_pat).sum())}")
+
+    # [main 10]: A00 on the network through the CLI
+    with StepWatch() as watch:
+        launches10, _ = run_chain(
+            ["--cfile", "run10.ctl"], "out10", iters,
+            (PASSES_PER_ITER_10 * iters + 1, 0), ("theta", "tau", "phi"),
+            "main 10", smi, figtree=False)
+    consistent = bool(torch.stack(watch.flags).all())
+    if len(watch.flags) != iters or not consistent:
+        raise AssertionError(f"main 10: {len(watch.flags)} steps, routes "
+                             f"consistent in all: {consistent}")
+    eng10, state10 = watch.last
+    eng10.validate_state(state10)
+    print(f"[main 10] routes consistent in all {iters} states; "
+          f"validate_state passed on the last | {smi}")
+
+    # its step, profiled; [net] (a): K1 on the chain's gene trees
+    eng, state, ips = warm_engine(run10, dev)
+    # one iteration a trace: its ~56,000 kernels are more events than
+    # three iterations of any other step
+    profile_step(eng, state, 1e3 / ips, smi, "pack_logl_kernel",
+                 "MSC-I JC69 step (main 10)", PASSES_PER_ITER_10, iters=1)
+    print(f"[main 10] engine step (MSC-I JC69, {n_loci} loci): {ips:.2f} "
+          f"iters/s after warm-up | {smi}")
+    net = {}
+    net["a"], _ = hold_given("(a) K1, main 10's gene trees (strict ages)",
+                             eng10, state10, smi, tag="net")
+    del eng, state, eng10, state10, watch
+
+    # (b) K1 on relaxed lengths through edge_passes (clock = 2)
+    engc, statec, ipsc = warm_engine(load_run_from_ctl("run10c.ctl"), dev)
+    net["b"], _ = hold_given(
+        "(b) K1, blen of a clock = 2 chain on the network", engc, statec,
+        smi, lambda dt: relaxed_blen(engc, statec, dt), tag="net")
+    print(f"[net] clock = 2 network step: {ipsc:.2f} iters/s after warm-up "
+          f"| {smi}")
+    del engc, statec
+
+    # (c) K1 on the BDI fixture's trees under clock = 2 (rate_owner)
+    fix = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                       "fixtures", "bdi")
+    for ctl, job, extra in (("run11c.ctl", "out11c", RELAXED),
+                            ("run11.ctl", "out11",
+                             "thetamodel = linked-msci\n")):
+        with open(ctl, "w") as f:
+            f.write(BDI_CTL.format(fix=fix, job=job, burnin=BURNIN,
+                                   nsample=NSAMPLE, extra=extra))
+    engb, stateb, _ = warm_engine(load_run_from_ctl("run11c.ctl"), dev)
+    if engb.run.stree.bdi is None or stateb.sp.rate_owner is None:
+        raise AssertionError("the BDI fixture has no rate owners")
+    net["c"], _ = hold_given(
+        "(c) K1, BDI fixture under clock = 2 (mirrors at their partners' "
+        "rates)", engb, stateb, smi, lambda dt: relaxed_blen(engb, stateb,
+                                                             dt), tag="net")
+    del engb, stateb
+
+    # (d) K2 on a diploid HKY+G4 batch on the network
+    write_net_data("sim10d", n_diploid, "2 2 2 2", NET_DIPLOID)
+    text = RUN2_CTL.format(nloci=n_diploid, burnin=BURNIN, nsample=NSAMPLE,
+                           job="out10d", extra="phiprior = 1 1\n")
+    with open("run10d.ctl", "w") as f:
+        f.write(text.replace("((A, B), (C, D));", NET_GUIDE + ";").replace(
+            "sim2.", "sim10d."))
+    engd, stated, _ = warm_engine(load_run_from_ctl("run10d.ctl"), dev)
+    if engd.ctx.route != "K2":
+        raise AssertionError(f"the diploid network batch took "
+                             f"{engd.ctx.route}")
+    net["d"], net["d site"] = hold_given(
+        "(d) K2 and reduce_root, diploid HKY+G4 on the network", engd,
+        stated, smi, tag="net")
+    del engd, stated
+    torch.cuda.empty_cache()
+    print(f"[net] K1 max per-locus |dlnL| (a) {net['a']:.3e} (b) "
+          f"{net['b']:.3e} (c) {net['c']:.3e} | K2 (d) {net['d']:.3e} a "
+          f"locus, {net['d site']:.3e} a pattern | tol {TOL_LNL} | {smi}")
+
+    # [main 11]: BDI with linked thetas through the CLI
+    launches11, _ = run_chain(
+        ["--cfile", "run11.ctl"], "out11", iters,
+        (PASSES_PER_ITER_11 * iters + 1, 0), ("theta", "tau", "phi"),
+        "main 11", smi, figtree=False)
+    st11 = load_run_from_ctl("run11.ctl").stree
+    # the theta owners of linked-msci, less the BDI mirrors (no theta)
+    mirrors = {int(st11.hybrid[i]) for i in range(st11.n_nodes)
+               if st11.bdi[i] >= 0}
+    owners = sorted(set(theta_link_map(st11, 3).tolist()) - mirrors)
+    with open("out11.mcmc.txt") as f:
+        head = f.readline().split()
+    with open("out11.mcmc.txt.processed") as f:
+        proc = f.read().splitlines()
+    thetas = [c for c in head if c.startswith("theta")]
+    if len(thetas) != len(owners) or len(proc) != NSAMPLE + 1:
+        raise AssertionError(f"main 11: theta columns {thetas} for owners "
+                             f"{owners}; {len(proc)} processed lines")
+    out = io.StringIO()
+    with open("defs.txt", "w") as f:
+        f.write(MSCI_DEFS)
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["--msci-create", "defs.txt"])
+    lines = out.getvalue().splitlines()
+    if rc or lines[-1] != MSCI_NEWICK or msci_create(MSCI_DEFS) != \
+            MSCI_NEWICK:
+        raise AssertionError(f"--msci-create printed {lines}")
+    print(f"[main 11] out11.mcmc.txt.processed: {len(proc) - 1} relabelled "
+          f"samples | theta columns {len(thetas)} (the linked-msci owners "
+          f"{owners}) | --msci-create: {lines[-1]} | {smi}")
+
+    # [cli] the slice's other combinations through the CLI on the card:
+    # tests/fixtures/msci/m.ctl with its data, strict and clock = 2, and
+    # linked-all / linked-inner thetas on ((A, B), (C, D)) with 100 of the
+    # network's loci
+    mdir = os.path.join(os.path.dirname(fix), "msci")
+    with open(os.path.join(mdir, "m.ctl")) as f:
+        mtext = f.read()
+    for a, b in (("usedata = 0", "usedata = 1"),
+                 ("seqfile = d.txt", f"seqfile = {mdir}/d.txt"),
+                 ("Imapfile = d.imap", f"Imapfile = {mdir}/d.imap"),
+                 ("burnin = 200", "burnin = 2"),
+                 ("nsample = 2000", "nsample = 4")):
+        mtext = mtext.replace(a, b)
+    runs = [("outm", mtext.replace("jobname = out", "jobname = outm")),
+            ("outmc", mtext.replace("jobname = out", "jobname = outmc")
+             + "\n" + RELAXED)]
+    tree_run = RUN_CTL.replace("seqfile = sim.phy", "seqfile = sim10.phy") \
+        .replace("Imapfile = sim.Imap.txt", "Imapfile = sim10.Imap.txt")
+    for model in ("linked-all", "linked-inner"):
+        runs.append((f"out-{model}", tree_run.format(
+            nloci=100, burnin=2, nsample=4, job=f"out-{model}",
+            extra=f"thetamodel = {model}\n")))
+    done = []
+    for job, text in runs:
+        with open(f"{job}.ctl", "w") as f:
+            f.write(text)
+        if cli.main(["--cfile", f"{job}.ctl", "--quiet"]) != 0:
+            raise AssertionError(f"[cli] {job}: cli.main failed")
+        with open(f"{job}.mcmc.txt") as f:
+            rows = f.read().splitlines()
+        n_theta = sum(c.startswith("theta") for c in rows[0].split())
+        if len(rows) != 5 or (job.startswith("out-") and n_theta >= 7):
+            raise AssertionError(f"[cli] {job}: {len(rows) - 1} samples, "
+                                 f"{n_theta} theta columns")
+        done.append(f"{job} ({n_theta} theta columns)")
+    print(f"[cli] 4 samples each on the card: {', '.join(done)} | {smi}")
+    return (launches10, launches11, max(net["a"], net["b"], net["c"]),
+            net["d"])
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1524,6 +1833,11 @@ def main() -> int:
 
             # 19. main path 9: amino acids through the 20-state plain pass
             aa_phase(dev, smi, iters)
+            torch.cuda.empty_cache()
+
+            # 20-22. MSC-I: main 10, [net] (a)-(d), main 11
+            launches10, launches11, err_net1, err_net2 = msci_phases(
+                dev, smi, iters)
         finally:
             os.chdir(cwd)
 
@@ -1535,22 +1849,26 @@ def main() -> int:
                 "plain_ms": plain, "bound_ms": bms, "bound_by": by,
                 "library_ms": None}
 
+    print(f"[time] whole script {time.perf_counter() - t_start:.1f} s, "
+          f"the kernels' build included | {smi}")
     # launches: every main path's run; errors: the bench models' holds,
     # those on relaxed-clock lengths and dated tips, on the trees of the
-    # species and rj moves, and on a partition's per-locus eigensystems
+    # species and rj moves, on a partition's per-locus eigensystems and on
+    # network gene trees ([net])
     print(json.dumps({"kernels": [
         entry("K1 pallas_pack._make_kernel -> pack_logl_kernel",
               "bpp_tpu_torch/csrc/pack_kernel.cu",
               "bpp_tpu/core/pallas_pack.py:315",
-              launches1 + launches3 + launches5 + launches6 + launches8,
+              launches1 + launches3 + launches5 + launches6 + launches8
+              + launches10 + launches11,
               [*errs1.values(), err_k1_blen, err_k1_dated, err_topo1,
-               err_k1_custom], rows1["JC69"]),
+               err_k1_custom, err_net1], rows1["JC69"]),
         entry("K2 pallas_fels._make_kernel -> fels_site_logl_kernel",
               "bpp_tpu_torch/csrc/fels_kernel.cu",
               "bpp_tpu/core/pallas_fels.py:92",
               launches2 + launches4 + launches7,
-              [*errs2.values(), err_k2_blen, err_topo2, err_k2_custom],
-              rows2["HKY"]),
+              [*errs2.values(), err_k2_blen, err_topo2, err_k2_custom,
+               err_net2], rows2["HKY"]),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

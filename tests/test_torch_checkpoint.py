@@ -10,6 +10,9 @@
   integrated-out thetas and heredity (whose moves run host accept
   chains).
 * ``--resume --extend N`` adds N samples.
+* An MSC-I network run (phi columns, hybridization flags in the state)
+  resumed gives the uninterrupted run's mcmc.txt byte for byte; the
+  int8 flags keep their dtype and shape through the ``.npz``.
 * A checkpoint restored under another data shape raises; ``--extend``
   without ``--resume`` is refused.
 """
@@ -141,3 +144,31 @@ def test_restore_under_another_shape_raises(tmp_path):
 def test_extend_needs_resume(capsys):
     assert cli.main(["--cfile", "x.ctl", "--extend", "3"]) == 1
     assert "--resume" in capsys.readouterr().err
+
+
+def test_network_resume_is_byte_identical(tmp_path):
+    from bpp_tpu_torch.testing import (
+        NET_GUIDE, NET_SIM_TREE, write_simulated_run,
+    )
+    ctl = write_simulated_run(tmp_path, n_loci=3, n_sites=60, burnin=4,
+                              nsample=12, sim_tree=NET_SIM_TREE,
+                              guide=NET_GUIDE,
+                              priors=("phiprior = 1 1", "checkpoint = 6 0"))
+    job = Path(ctl).with_name("out")
+    assert cli.main(["--cfile", ctl, "--device", "cpu", "--quiet"]) == 0
+    whole = Path(f"{job}.whole.txt")
+    shutil.copy(f"{job}.mcmc.txt", whole)
+    head = whole.read_text().splitlines()[0]
+    assert "phi:" in head
+    chk = Path(f"{job}.chk.npz")
+    meta, _, arrays = ckpt.load_checkpoint(chk)
+    assert meta["it"] == 6
+    hp = arrays["state.gt.hpath"]
+    assert hp.dtype == np.int8 and hp.shape[2] == 1
+    back = ckpt.restore_state(_engine(ctl).init_state(), arrays)
+    assert back.gt.hpath.dtype == torch.int8
+    np.testing.assert_array_equal(back.gt.hpath.numpy(), hp)
+    assert cli.main(["--resume", str(chk), "--device", "cpu",
+                     "--quiet"]) == 0
+    assert filecmp.cmp(f"{job}.mcmc.txt", whole, shallow=False)
+    assert "(12 samples" in Path(f"{job}.txt").read_text()

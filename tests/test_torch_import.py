@@ -33,7 +33,8 @@ def test_import_loads_no_jax_and_no_bpp_tpu():
                 "mcmc.stree_moves", "mcmc.rj_moves", "io.constraints",
                 "summary.stree_summary", "summary.delimit_summary",
                 "summary.mixed_summary", "summary.a1b1", "visual",
-                "core.aa_matrices"):
+                "core.aa_matrices", "mcmc.msci_moves", "summary.lswitch",
+                "tools.msci_create"):
         assert f"bpp_tpu_torch.{mod}" in mods
     code = (
         "import importlib, sys\n"

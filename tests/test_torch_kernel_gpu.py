@@ -210,7 +210,8 @@ def _big_trees(n_tips):
     from bpp_tpu_torch.core.units import Units
     from bpp_tpu_torch.testing import shaped_batch
     gt, n_seq, n_pat, tips, weights = (
-        type(x)(*(y[-12:].contiguous() for y in x)) if isinstance(x, tuple)
+        type(x)(*(None if y is None else y[-12:].contiguous() for y in x))
+        if isinstance(x, tuple)
         else x[-12:].contiguous()
         for x in shaped_batch(n_tips, 72, seed=n_tips, device="cuda"))
     return gt, n_seq, n_pat, tips, weights, Units(n_pat.cpu().numpy(), 72,
@@ -743,8 +744,8 @@ nsample = 2
         locus_mask=eng.ctx.locus_mask.to(cpu))
 
     def host(t):
-        return type(t)(*(x.to(cpu, torch.float64) if x.is_floating_point()
-                         else x.to(cpu) for x in t))
+        return type(t)(*(None if x is None else x.to(cpu, torch.float64)
+                         if x.is_floating_point() else x.to(cpu) for x in t))
 
     want = make_logl_fn(ctx64, eng.cfg)(host(st.gt), host(st.subst))
     assert torch.isfinite(got).all()
