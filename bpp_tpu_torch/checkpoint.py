@@ -12,7 +12,9 @@ holds:
   (``state.gt.left``, ``state.clock.brate``, ...; absent fields have no
   leaf): on an MSC-I network also the gene trees' int8 hybridization
   flags ``state.gt.hpath``, the species arrays' ``phi`` and their other
-  network fields, each restored in its dtype and shape;
+  network fields, under MSC-M the migration events and rates
+  (``state.mig.time``, ``.node``, ``.src``, ``.dst``, ``.M``, ``.Mi``),
+  each restored in its dtype and shape;
 * ``rng_state``: the bytes of the run's ``torch.Generator``
   (``get_state()``; on CUDA, Philox's seed and offset), where ``bpp_tpu``
   stores its JAX PRNG key;
@@ -23,8 +25,13 @@ still be where the control file names them on resume.  A checkpoint of
 the port does not load in ``bpp_tpu``, nor one of ``bpp_tpu`` here: the
 random number generators differ.  The samples taken before a
 checkpoint, phi among them, are read back from mcmc.txt on resume.
-``save_checkpoint_multi`` and ``restore_logs`` (``chains = K``), which
-carry the sample logs themselves, come with ROADMAP item 10j.
+
+``save_checkpoint_multi`` (``chains = K``) stores the K chains' states
+(``chain<k>.gt.left``, ..., k = 0..K-1), their generators' bytes
+(``rng_state<k>``), the per-chain move statistics, ``multichain = K`` in
+the meta and the samples taken so far (``log_gen``, ``log_theta``, ...),
+because a chain batch writes its sample files at the end of the run;
+``restore_states``, ``rng_states`` and ``restore_logs`` read them back.
 """
 
 from __future__ import annotations
@@ -67,6 +74,61 @@ def save_checkpoint(path, state, gen, it, stats_acc, *, cfg_text, seed,
                             __ctl__=cfg_text, **arrays)
 
 
+def save_checkpoint_multi(path, states, gens, it, stats_acc, logs, *,
+                          cfg_text, seed, extra=None):
+    """The checkpoint of K replicate chains (``bpp_tpu``'s
+    ``save_checkpoint_multi`` with one generator a chain)."""
+    meta = {
+        "version": FORMAT_VERSION,
+        "it": int(it),
+        "seed": int(seed),
+        "mcmc_offset": 0,
+        "multichain": len(logs),
+        "extra": extra or {},
+    }
+    arrays = {}
+    for k, (state, gen) in enumerate(zip(states, gens)):
+        arrays.update((name, t.detach().cpu().numpy())
+                      for name, t in _leaves(state, f"chain{k}"))
+        arrays[f"rng_state{k}"] = gen.get_state().numpy()
+    arrays["stats_acc"] = np.asarray(stats_acc)
+    if logs[0].gen:
+        arrays["log_gen"] = np.asarray(logs[0].gen)
+        arrays["log_theta"] = np.stack([np.stack(lg.theta) for lg in logs])
+        arrays["log_tau"] = np.stack([np.stack(lg.tau) for lg in logs])
+        arrays["log_lnl"] = np.asarray([lg.lnL for lg in logs])
+        arrays["log_logpr"] = np.asarray([lg.logpr for lg in logs])
+        for name in ("phi", "migM"):
+            if getattr(logs[0], name):
+                arrays[f"log_{name}"] = np.stack(
+                    [np.stack(getattr(lg, name)) for lg in logs])
+        if logs[0].mubar:
+            arrays["log_mubar"] = np.asarray([lg.mubar for lg in logs])
+    with open(path, "wb") as fh:
+        np.savez_compressed(fh, __meta__=json.dumps(meta),
+                            __ctl__=cfg_text, **arrays)
+
+
+def restore_logs(arrays, n_chains, make_log):
+    """The K sample logs :func:`save_checkpoint_multi` stored
+    (``make_log`` makes an empty one)."""
+    logs = [make_log() for _ in range(n_chains)]
+    if "log_gen" not in arrays:
+        return logs
+    for c, lg in enumerate(logs):
+        lg.gen = [int(g) for g in arrays["log_gen"]]
+        lg.theta = list(arrays["log_theta"][c])
+        lg.tau = list(arrays["log_tau"][c])
+        lg.lnL = [float(x) for x in arrays["log_lnl"][c]]
+        lg.logpr = [float(x) for x in arrays["log_logpr"][c]]
+        for name in ("phi", "migM"):
+            if f"log_{name}" in arrays:
+                setattr(lg, name, list(arrays[f"log_{name}"][c]))
+        if "log_mubar" in arrays:
+            lg.mubar = [float(x) for x in arrays["log_mubar"][c]]
+    return logs
+
+
 def load_checkpoint(path):
     """(meta, control-file text, named arrays)."""
     with np.load(path, allow_pickle=False) as z:
@@ -79,7 +141,7 @@ def load_checkpoint(path):
         return meta, str(z["__ctl__"]), arrays
 
 
-def restore_state(template_state, arrays):
+def restore_state(template_state, arrays, prefix="state"):
     """Rebuild the state from named arrays, on the template's device and in
     its dtypes; the template comes from ``Engine.init_state()`` under the
     same control file.  A missing leaf or a leaf of another shape raises."""
@@ -105,12 +167,24 @@ def restore_state(template_state, arrays):
                                                    dtype=value.dtype))
         return type(tmpl)(*out)
 
-    return build(template_state, "state")
+    return build(template_state, prefix)
 
 
-def rng_state(arrays) -> torch.Tensor:
+def restore_states(templates, arrays):
+    """The K chains of :func:`save_checkpoint_multi`, from the templates
+    of ``Engine.init_states(K)``."""
+    return [restore_state(t, arrays, f"chain{k}")
+            for k, t in enumerate(templates)]
+
+
+def rng_state(arrays, name="rng_state") -> torch.Tensor:
     """The generator bytes to hand ``torch.Generator.set_state``."""
-    return torch.as_tensor(arrays["rng_state"], dtype=torch.uint8)
+    return torch.as_tensor(arrays[name], dtype=torch.uint8)
+
+
+def rng_states(arrays, n_chains):
+    """The K chains' generator bytes."""
+    return [rng_state(arrays, f"rng_state{k}") for k in range(n_chains)]
 
 
 def truncate_file(path, offset):

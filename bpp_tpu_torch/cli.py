@@ -30,8 +30,13 @@ hybridization, and the run writes no a1b1 log and no FigTree.tre (as
 samples against label switching (``summary.lswitch``), writes them to
 ``<mcmcfile>.processed`` and summarises the processed samples.
 ``--msci-create`` turns a network definitions file into the extended
-newick a control file reads (``tools.msci_create``).  Chains,
-``--summary`` and ``--bfdriver`` are later work.
+newick a control file reads (``tools.msci_create``).  Under MSC-M
+migration mcmc.txt has a ``W:`` column a route (its rate M), and the
+a1b1 log a row a route.  ``--chains K`` (``chains = K``) runs K replicate
+chains: chain 1 writes ``<jobname>.mcmc.txt``, chain k
+``<jobname>.c<k>.mcmc.txt``, and ``<jobname>.txt`` pools them with a
+split-R-hat table (``_run_multichain``).  ``--summary`` and
+``--bfdriver`` are later work.
 """
 
 from __future__ import annotations
@@ -72,6 +77,9 @@ def build_argparser() -> argparse.ArgumentParser:
                     "stop on drift (the reference's CHECK_LOGL/"
                     "CHECK_LOGPR, method.c:4699; as 'check = N' in the "
                     "control file)")
+    ap.add_argument("--chains", type=int, default=None, metavar="K",
+                    help="run K replicate chains and report their split-"
+                    "R-hat (as 'chains = K' in the control file)")
     ap.add_argument("--quiet", action="store_true")
     return ap
 
@@ -147,6 +155,7 @@ def cmd_run(args) -> int:
     from .summary.lswitch import bdi_pairs_of
 
     device = resolve_device(args.device)
+    meta = arrays = None
     if args.resume:
         meta, cfg_text, arrays = ckpt.load_checkpoint(args.resume)
         extra = meta["extra"]
@@ -165,6 +174,8 @@ def cmd_run(args) -> int:
         cfg = cfg.replace(dtype="float64")
     if args.check is not None:
         cfg = cfg.replace(check_every=args.check)
+    if args.chains is not None:
+        cfg = cfg.replace(n_chains=args.chains)
     run = load_run(cfg)
     eng = Engine(run, seed=seed, device=device)
     if not args.quiet:
@@ -176,6 +187,9 @@ def cmd_run(args) -> int:
                              if args.resume else ""), file=sys.stderr)
 
     mcmc_path = cfg.mcmcfile or f"{cfg.jobname}.mcmc.txt"
+    if cfg.n_chains > 1:
+        return _run_multichain(args, cfg, run, eng, mcmc_path, cfg_text,
+                               ctl_dir, meta, arrays)
     resume = None
     if args.resume:
         # exactly-once logging: cut back to the checkpointed offset
@@ -205,6 +219,8 @@ def cmd_run(args) -> int:
                      else DIST_INVGAMMA)
             labels = [(c, tdist) for c in writer.columns
                       if c.startswith("theta")]
+            labels += [(c, DIST_GAMMA) for c in writer.columns
+                       if c.startswith("W:")]
             if labels:
                 a1b1 = A1b1Writer(f"{cfg.jobname}.conditional_a1b1.txt",
                                   labels)
@@ -223,14 +239,18 @@ def cmd_run(args) -> int:
 
             writer.write_sample(
                 gen, row["theta"], row["tau"], float(row["lnl"]),
-                phi=row.get("phi"), mubar=opt("mubar"), mubar_h=opt("mubar_h"),
-                nu_col=opt("nu_col"), brate0=row.get("brate0"))
+                phi=row.get("phi"), migM=row.get("migM"), mubar=opt("mubar"),
+                mubar_h=opt("mubar_h"), nu_col=opt("nu_col"),
+                brate0=row.get("brate0"))
             if locus_files is not None:
                 locus_files.write(row)
             if a1b1 is not None:
-                a1b1.write_sample(gen, [row["a1"][i] for i in
-                                        writer.theta_nodes],
-                                  [row["b1"][i] for i in writer.theta_nodes])
+                av = [row["a1"][i] for i in writer.theta_nodes]
+                bv = [row["b1"][i] for i in writer.theta_nodes]
+                if "wa1" in row:
+                    av += list(row["wa1"])
+                    bv += list(row["wb1"])
+                a1b1.write_sample(gen, av, bv)
 
     chk_path = f"{cfg.jobname}.chk.npz"
 
@@ -257,11 +277,15 @@ def cmd_run(args) -> int:
             cfg, run.stree, mcmc_path)
         mubar = (_column(mcmc_path, "mu_bar")
                  if not cfg.est_stree and writer.dated else None)
+        # the migration rates of a resumed run are not read back (as
+        # bpp_tpu): its summary has no W: rows
+        migM = None
     else:
         gen, theta, tau, lnl, _ = log.arrays()
         sptrees = log.sptrees
         mubar = log.mubar
         phi = np.stack(log.phi) if log.phi else None
+        migM = np.stack(log.migM) if log.migM else None
     a00 = not (cfg.est_stree or cfg.est_delimit)
     if cfg.est_stree and cfg.est_delimit:
         from .summary.mixed_summary import format_a11_summary, summarize_mixed
@@ -284,7 +308,7 @@ def cmd_run(args) -> int:
             _relabel_bdi(cfg, run, mcmc_path, gen, theta, tau, lnl, phi,
                          args.quiet)
         report = a00_summary(cfg, run.stree, gen, theta, tau, lnl, phi=phi,
-                             mubar=mubar)
+                             migM=migM, mubar=mubar)
 
     # FigTree.tre (allfixed.c:571): A00 fixed multi-species tree only
     if (a00 and run.stree.n_tips > 1 and run.stree.n_hybrids == 0
@@ -340,6 +364,116 @@ def _relabel_bdi(cfg, run, mcmc_path, gen, theta, tau, lnl, phi, quiet):
         print("\n".join(lines), file=sys.stderr)
         print(f"Printing processed sample into {mcmc_path}.processed",
               file=sys.stderr)
+
+
+def _run_multichain(args, cfg, run, eng, mcmc_path, cfg_text, ctl_dir,
+                    meta=None, arrays=None) -> int:
+    """``chains = K``: K replicate chains (port of ``bpp_tpu/cli.py``'s
+    ``_run_multichain``; the reference runs one chain, method.c:5343).
+    Chain 1 writes the normal mcmc file, chains 2..K
+    ``<jobname>.c<k>.mcmc.txt``; the summary pools all chains and reports
+    a between-chain split-R-hat table, and under A10 the pooled
+    delimitation posterior and each chain's P(#species).  A00 and A10,
+    with checkpoint/resume of the whole batch (the sample files are
+    written at the end, from the samples the checkpoint carries)."""
+    from . import checkpoint as ckpt
+    from .config import Clock
+    from .mcmc.driver import SampleLog
+    from .output import McmcWriter
+    from .summary.allfixed import format_summary, split_rhat, summary_table
+
+    K = cfg.n_chains
+    if cfg.est_stree:
+        print("chains > 1 supports A00/A10 (fixed guide tree); species-"
+              "tree search logs newick traces the chain batch does not "
+              "carry yet", file=sys.stderr)
+        return 1
+    if cfg.check_every:
+        print("chains > 1 cannot be combined with check = N "
+              "(run chains = 1 for the validation mode)", file=sys.stderr)
+        return 1
+    if cfg.clock != Clock.GLOBAL:
+        # the sample logs do not carry the nu / branch-rate columns
+        print("chains > 1 does not support relaxed clocks yet "
+              "(clock = 1 only)", file=sys.stderr)
+        return 1
+    resume = None
+    if args.resume:
+        if meta.get("multichain") != K:
+            print(f"checkpoint holds {meta.get('multichain')} chains, "
+                  f"ctl wants {K}", file=sys.stderr)
+            return 1
+        resume = (ckpt.restore_states(eng.init_states(K), arrays),
+                  ckpt.rng_states(arrays, K), meta["it"],
+                  arrays["stats_acc"], ckpt.restore_logs(arrays, K, SampleLog))
+    chk_path = f"{cfg.jobname}.chk.npz"
+
+    def on_checkpoint(states, gens, it, stats_acc, logs):
+        ckpt.save_checkpoint_multi(
+            chk_path, states, gens, it, stats_acc, logs, cfg_text=cfg_text,
+            seed=eng.seed, extra={"ctl_dir": ctl_dir, "nsample": cfg.nsample})
+        if not args.quiet:
+            print(f"  checkpoint -> {chk_path} (it {it}, {K} chains)",
+                  file=sys.stderr)
+
+    t0 = time.time()
+    logs = eng.run_mcmc_multi(
+        K, progress_every=0 if args.quiet else 1000, resume=resume,
+        on_checkpoint=on_checkpoint if cfg.checkpoint else None)
+    wall = time.time() - t0
+    series_per_chain = []
+    for c, log in enumerate(logs):
+        path = mcmc_path if c == 0 else f"{cfg.jobname}.c{c + 1}.mcmc.txt"
+        w = McmcWriter(path, cfg, run.stree)
+        for i, g in enumerate(log.gen):
+            w.write_sample(g, log.theta[i], log.tau[i], log.lnL[i],
+                           phi=log.phi[i] if log.phi else None,
+                           migM=log.migM[i] if log.migM else None,
+                           mubar=log.mubar[i] if log.mubar else None)
+        w.close()
+        cols = {"lnL": np.asarray(log.lnL)}
+        th = np.stack(log.theta)
+        tu = np.stack(log.tau)
+        tcols = [c0 for c0 in w.columns if c0.startswith("theta:")]
+        for name, node in zip(tcols, w.theta_nodes):
+            cols[name] = th[:, node]
+        ucols = [c0 for c0 in w.columns if c0.startswith("tau:")]
+        for name, node in zip(ucols, w.tau_nodes):
+            cols[name] = tu[:, node]
+        series_per_chain.append(cols)
+    pooled = {k: np.concatenate([sc[k] for sc in series_per_chain])
+              for k in series_per_chain[0]}
+    rhat = {k: split_rhat(np.stack([sc[k] for sc in series_per_chain]))
+            for k in series_per_chain[0]}
+    total_iters = (cfg.burnin + cfg.nsample * cfg.sampfreq) * K
+    lines = [format_summary(summary_table(pooled)), "",
+             f"Between-chain split-R-hat over {K} chains "
+             "(values near 1 = converged):"]
+    lines += [f"  {k:<12s} {v:8.4f}" for k, v in rhat.items()]
+    if cfg.est_delimit:
+        from .summary.delimit_summary import (
+            format_a10_summary, n_species, summarize_delimitations,
+        )
+        tau_pool = np.concatenate([np.stack(lg.tau) for lg in logs])
+        models, nsp = summarize_delimitations(tau_pool, run.stree)
+        lines += ["", format_a10_summary(models, nsp, len(tau_pool),
+                                         run.stree)]
+        lines += ["Per-chain P(#species):"]
+        for c, lg in enumerate(logs):
+            ns = np.asarray([n_species(t, run.stree) for t in lg.tau])
+            probs = " ".join(f"{k}:{float((ns == k).mean()):.3f}"
+                             for k in range(1, run.stree.n_tips + 1))
+            lines.append(f"  chain {c + 1}: {probs}")
+    lines += ["", f"{K} chains x {cfg.nsample} samples in {wall:.1f} s "
+              f"({total_iters / wall:.1f} aggregate iters/s)"]
+    out_txt = "\n".join(lines)
+    with open(f"{cfg.jobname}.txt", "w") as fh:
+        fh.write(out_txt + "\n")
+    if not args.quiet:
+        print(out_txt, file=sys.stderr)
+        print(f"wrote {mcmc_path} (+{K - 1} chain files), {cfg.jobname}.txt",
+              file=sys.stderr)
+    return 0
 
 
 def cmd_simulate(args) -> int:

@@ -7,15 +7,18 @@ dictionaries of numpy arrays keyed by the field names of ``bpp_tpu``'s
 ``state.gt._asdict()`` with ``np.asarray`` on each value gives them), so
 a test can hand a JAX chain's state to the port and compare densities on
 the same trees.  ``"clock"`` is optional (the strict clock without
-estimated locus rates carries none), and so are the arrays ``"coal"``
-and ``"t2h"`` (integrated-out thetas) and ``"mubar"`` (tip dating).
+estimated locus rates carries none), and so are ``"mig"`` (MSC-M: the
+fields of ``MigState``, events and rates) and the arrays ``"coal"`` and
+``"t2h"`` (integrated-out thetas) and ``"mubar"`` (tip dating).
 
 Carried: every field of the four, the MSC-I network's too — the gene
 trees' hybridization flags ``hpath`` (int8) and the species arrays'
 ``hslot``, ``hybrid``, ``phi``, ``hindex``, ``tau_free``,
 ``bdi_partner``, ``bdi_mirror``, ``bdi_pairs``, ``rate_nodes`` and
-``rate_owner`` (index fields as int64, masks as bool).  A field the port
-does not have (migration, traits) raises.
+``rate_owner`` (index fields as int64, masks as bool) — and the
+migration events' ``time``, ``node``, ``src``, ``dst`` and the rates
+``M``, ``Mi`` (and the geneflow mask ``on``).  A field the port does not
+have (traits) raises.
 """
 
 from __future__ import annotations
@@ -27,9 +30,11 @@ from .mcmc.state import (
     N_FINETUNE, ClockState, McmcState, SubstState, finetune_array,
 )
 from .trees.gtree import GTrees, SpeciesArrays
+from .trees.migration import MigState
 
 _INT_FIELDS = {"left", "right", "parent", "mrca", "hslot", "hybrid",
-               "hindex", "bdi_partner", "bdi_pairs", "rate_owner"}
+               "hindex", "bdi_partner", "bdi_pairs", "rate_owner", "node",
+               "src", "dst"}
 
 
 def _tensor(name, a, dtype, device):
@@ -68,9 +73,11 @@ def state_from_numpy(arrays: dict[str, dict[str, np.ndarray]], device="cpu",
     gt = _build(GTrees, arrays["gt"], dtype, device)
     sp = _build(SpeciesArrays, arrays["sp"], dtype, device)
     subst = _build(SubstState, arrays["subst"], dtype, device)
-    clock = None
+    clock = mig = None
     if arrays.get("clock") is not None:
         clock = _build(ClockState, arrays["clock"], dtype, device)
+    if arrays.get("mig") is not None:
+        mig = _build(MigState, arrays["mig"], dtype, device)
     zeros = torch.zeros((gt.n_loci,), dtype=dtype, device=device)
     ft = (finetune_array(cfg, dtype, device) if cfg is not None
           else torch.zeros((N_FINETUNE,), dtype=dtype, device=device))
@@ -83,4 +90,4 @@ def state_from_numpy(arrays: dict[str, dict[str, np.ndarray]], device="cpu",
     return McmcState(gt=gt, sp=sp, subst=subst, logl=zeros, logpr=zeros,
                      finetune=ft, clock=clock,
                      coal=opt("coal", torch.int64), t2h=opt("t2h", dtype),
-                     mubar=opt("mubar", dtype))
+                     mubar=opt("mubar", dtype), mig=mig)

@@ -1,13 +1,15 @@
 """Locus-rate, relaxed-clock and tip-dating moves (PyTorch).
 
-Port of ``bpp_tpu/mcmc/clock_moves.py`` without migration and traits
-(reference src/stree.c:9052-10468): the branch-rate prior
+Port of ``bpp_tpu/mcmc/clock_moves.py`` without traits (reference
+src/stree.c:9052-10468): the branch-rate prior
 ``lnprior_rates`` (clocks 2 IID, 3 CORR, 4 SIMPLE; gamma or lognormal
 rates; on an MSC-I network only the populations of
 ``SpeciesArrays.rate_nodes`` carry a rate), the starting ``ClockState``,
 the mu_i move under the Gamma-Dirichlet or the hierarchical prior and
 its mubar move, the nu_i and nubar moves, the branch-rate sweeps and the
-tip-dating mutation-rate move.
+tip-dating mutation-rate move.  Under MSC-M migration the rate moves'
+likelihood passes take the state's events (``mig=state.mig``), whose
+sub-edges split the branch lengths.
 
 All proposals are log-scale Bactrian slides reflected into [-99, 99]
 like the reference.  The Gamma-Dirichlet priors couple the loci through
@@ -37,7 +39,7 @@ from . import notheta, rng
 from .rng import tiny_floor
 from .state import (
     FT_BRATE, FT_MUBAR, FT_MUI, FT_NUBAR, FT_NUI, ClockState, Ctx,
-    McmcState, make_logl_fn, make_logpr_fn, tree_where,
+    McmcState, make_logl_fn, make_logpr_fn, relaxed_segments, tree_where,
 )
 
 LOG_BOUND = 99.0
@@ -224,7 +226,7 @@ def mui_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
         clock_new = state.clock._replace(brate=brate)
     if likelihood_changes:
         logl_new = make_logl_fn(ctx, cfg)(state.gt, subst_new, state.sp,
-                                          clock_new)
+                                          clock_new, mig=state.mig)
         dlogl = logl_new - state.logl
     else:
         logl_new = state.logl
@@ -337,13 +339,13 @@ def nubar_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
 
 
 def _sweep_segments(ctx: Ctx, cfg: BppConfig, state: McmcState):
-    """``felsenstein.relaxed_segments`` of the state's (gt, sp): a sweep
-    over branch rates changes neither, so one evaluation serves all of
-    its likelihood passes."""
+    """``state.relaxed_segments`` of the state's (gt, sp, mig): a sweep
+    over branch rates changes none of them, so one evaluation serves all
+    of its likelihood passes."""
     if not cfg.usedata:
         return None
-    pops = assign_populations(state.gt, state.sp, ctx.tip_pop)
-    return fe.relaxed_segments(state.gt, state.sp, pops)
+    return relaxed_segments(ctx, state.gt, state.sp, state.mig,
+                            cfg.migration)
 
 
 def brate_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):

@@ -1,23 +1,28 @@
 """MCMC driver: the cmd_run equivalent (src/method.c:4939), PyTorch.
 
 Port of ``bpp_tpu/mcmc/driver.py`` cut to what is ported so far: A00 on
-a fixed species tree or MSC-I network (with bidirectional
-introgression), species-tree search (A01: SPR and SNL, topology
-constraints), species delimitation on a guide tree (A10) and both
-together (A11), on haploid, phased or unphased diploid DNA or on amino
-acids, with one substitution model for all loci or one per locus
-(``model = custom``), Γ rates, locus rates and heredity scalars, the
-strict or a relaxed clock (2, 3, 4), estimated, linked (``thetamodel``)
-or integrated-out thetas, tip dating, checkpoint/resume and the runtime
-check of the caches (``check = N``).  Every combination outside that raises
-``NotImplementedError`` naming the ROADMAP item that brings it.  The
-jitted ``lax.scan`` chunk becomes a Python loop over
-:meth:`Engine._step`; a step reads nothing back to the host but for the
-serial accept chains (the Gamma-Dirichlet priors of mu_i and nu_i, and
-every per-locus gene-tree move under integrated-out thetas: one copy
-each way per chain) and, with SNL on, the SNL-or-SPR draw together with
-the species arrays (one copy), and a chunk synchronises once, at its
-end (and once more at a check).
+a fixed species tree, an MSC-I network (with bidirectional
+introgression) or under MSC-M migration on fixed routes (constant or
+variable rates), species-tree search (A01: SPR and SNL, topology
+constraints), species delimitation on a guide tree (A10, with or
+without migration) and both together (A11), on haploid, phased or
+unphased diploid DNA or on amino acids, with one substitution model for
+all loci or one per locus (``model = custom``), Γ rates, locus rates and
+heredity scalars, the strict or a relaxed clock (2, 3, 4), estimated,
+linked (``thetamodel``) or integrated-out thetas, tip dating,
+checkpoint/resume, the runtime check of the caches (``check = N``) and K
+replicate chains (``chains = K``, :meth:`Engine.run_mcmc_multi`).  Every
+combination outside that raises ``NotImplementedError`` naming the
+ROADMAP item that brings it.  The jitted ``lax.scan`` chunk becomes a
+Python loop over :meth:`Engine._step`; a step reads nothing back to the
+host but for the serial accept chains (the Gamma-Dirichlet priors of
+mu_i and nu_i, and every per-locus gene-tree move under integrated-out
+thetas: one copy each way per chain), with SNL on, the SNL-or-SPR draw
+together with the species arrays (one copy), and under migration one
+"any lineage still walking" read every ``mig_moves.SIM_BLOCK`` steps of
+each sim-SPR round; a chunk synchronises once, at its end (and once more
+at a check).  ``bpp_tpu`` vmaps its chunk over the K chains; here the
+chains step in turn, each with its own ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -36,18 +41,21 @@ from ..core.pmatrix import aa_eigen
 from ..core.units import Units
 from ..io.constraints import build_constraint_ids
 from ..loader import RunData, init_tau_theta
+from ..trees import migration as mg
 from ..trees.gtree import init_gtrees, species_arrays
 from ..trees.stree import theta_link_map
 from . import (
-    clock_moves, moves, msci_moves, rj_moves, rng, stree_moves, subst_moves,
+    clock_moves, mig_moves, moves, msci_moves, rj_moves, rng, stree_moves,
+    subst_moves,
 )
 from .gibbs import gamma_conditional_approx
 from .state import (
-    FT_ALPHA, FT_BRATE, FT_FREQS, FT_GTAGE, FT_GTSPR, FT_LRHT, FT_MIX,
-    FT_MUBAR, FT_MUI, FT_NUBAR, FT_NUI, FT_QRATES, FT_TAU, FT_THETA,
+    FT_ALPHA, FT_BRATE, FT_FREQS, FT_GTAGE, FT_GTSPR, FT_LRHT, FT_MIG_AGES,
+    FT_MIX, FT_MUBAR, FT_MUI, FT_NUBAR, FT_NUI, FT_QRATES, FT_TAU, FT_THETA,
     MV_ALPHA, MV_BRATE, MV_FREQS, MV_GTAGE, MV_GTSPR, MV_HPATH, MV_LRHT,
-    MV_MIX, MV_MUBAR, MV_MUI, MV_NUBAR, MV_NUI, MV_PHI, MV_QRATES, MV_RJ,
-    MV_SNL, MV_SSPR, MV_TAU, MV_THETA, N_MOVES, ROUTE_K1, ROUTE_K2,
+    MV_MIG_AGES, MV_MIGRATES, MV_MIX, MV_MUBAR, MV_MUI, MV_NUBAR, MV_NUI,
+    MV_PHI, MV_QRATES, MV_RJ, MV_SNL, MV_SSPR, MV_TAU, MV_THETA, N_MOVES,
+    ROUTE_K1, ROUTE_K2,
     ROUTE_PLAIN, Ctx,
     McmcState, SubstState, build_custom_models, finetune_array,
     make_logl_fn, make_logpr_fn, refresh_eigen,
@@ -60,6 +68,7 @@ NO_CUDA = ("no CUDA device: bpp_tpu_torch runs on the GPU by default; "
 # the species moves (MV_RJ, MV_SSPR, MV_SNL) have no step length to tune,
 # in bpp_tpu as in the reference
 MOVE_TO_FT = {
+    MV_MIG_AGES: FT_MIG_AGES,
     MV_GTAGE: FT_GTAGE,
     MV_GTSPR: FT_GTSPR,
     MV_THETA: FT_THETA,
@@ -261,6 +270,47 @@ def _reference_guards(cfg: BppConfig, run: RunData):
         raise NotImplementedError(
             "usedata = 2 cannot be combined with geneflow route "
             "rjMCMC (method.c:3279)")
+    if cfg.migration:
+        if cfg.est_stree:
+            # cfile.c:2884 fatal (delimitation on a fixed guide tree is
+            # available: prop_rj.c:599-656)
+            raise NotImplementedError(
+                "species-tree search (A01/A11) is not available "
+                "under the MSC-M model (cfile.c:2884)")
+        if cfg.est_delimit and cfg.geneflow:
+            raise NotImplementedError(
+                "geneflow route rjMCMC with species delimitation is "
+                "not yet supported in bpp_tpu (the route windows "
+                "change under a moving delimitation; fixed-route "
+                "migration with A10 is supported)")
+        if st.n_hybrids > 0:
+            raise NotImplementedError(
+                "MSC-I networks cannot be combined with MSC-M "
+                "migration (reference: assert in stree.c:7452)")
+        if cfg.clock == Clock.CORRELATED:
+            raise NotImplementedError(
+                "the auto-correlated clock with migration is not "
+                "supported; use clock = 2 (iid) or 4 (simple)")
+        if cfg.theta_integrated:
+            raise NotImplementedError(
+                "thetas cannot be integrated out under migration "
+                "(gtree.c:9271 fatal)")
+        routes = mg.build_routes(cfg, st)
+        if (routes.si == st.root).any() or (routes.ti == st.root).any():
+            raise ValueError("migration to/from the root population "
+                             "is impossible (no contemporaries)")
+        anc = st.pptable()
+        for s_, t_ in zip(routes.si.tolist(), routes.ti.tolist()):
+            if anc[s_, t_] or anc[t_, s_]:
+                raise ValueError(
+                    "migration route between ancestor and descendant "
+                    "populations: they never coexist")
+        if cfg.geneflow and (routes.am > 0).any():
+            raise NotImplementedError(
+                "variable-rates routes (am > 0) cannot be "
+                "combined with geneflow rjMCMC (the reference "
+                "disables rate variation on rj-managed routes, "
+                "stree.c:14194)")
     if cfg.theta_integrated and cfg.thetaprior.dist != PriorDist.INVGAMMA:
         raise ValueError(
             "theta integration ('e' flag) requires an inverse-"
@@ -316,12 +366,10 @@ def _slice_guards(cfg: BppConfig, run: RunData):
             f"{what} is not ported to bpp_tpu_torch yet "
             f"(ROADMAP Queue 1 item {item})")
 
-    if cfg.migration:
-        refuse("MSC-M migration", "10g")
+    if cfg.geneflow:
+        refuse("geneflow route rjMCMC", "10g-geneflow")
     if cfg.traitfile:
         refuse("morphological traits", "10h")
-    if cfg.n_chains > 1:
-        refuse("chains > 1", "10j")
 
 
 def likelihood_route(n_states: int, res_map) -> str:
@@ -348,6 +396,24 @@ class SampleLog:
     sptrees: list = field(default_factory=list)   # (left, right, parent) per
                                                   # sample; A01/A11 only
     phi: list = field(default_factory=list)       # [H]; MSC-I only
+    migM: list = field(default_factory=list)      # [K]; MSC-M only
+
+    def add(self, g, row):
+        """One sample: generation ``g`` and a trace row of host values."""
+        self.gen.append(g)
+        self.theta.append(row["theta"])
+        self.tau.append(row["tau"])
+        self.lnL.append(float(row["lnl"]))
+        self.logpr.append(float(row["logpr"]))
+        if "mubar" in row:
+            self.mubar.append(float(row["mubar"]))
+        if "phi" in row:
+            self.phi.append(row["phi"])
+        if "migM" in row:
+            self.migM.append(row["migM"])
+        if "sp_left" in row:
+            self.sptrees.append((row["sp_left"], row["sp_right"],
+                                 row["sp_parent"]))
 
     def arrays(self):
         return (np.asarray(self.gen), np.stack(self.theta),
@@ -435,6 +501,13 @@ class Engine:
         )
         self._logl_fn = make_logl_fn(self.ctx, cfg)
         self._logpr_fn = make_logpr_fn(self.ctx)
+        # MSC-M: the route table on the host and on the device
+        self.routes = self.mig_routes = None
+        if cfg.migration:
+            self.routes = mg.build_routes(cfg, run.stree)
+            self.mig_routes = self.routes.to(dev, self.dtype)
+            self._logpr_mig_fn = mig_moves.make_logpr_fn_mig(
+                self.ctx, self.mig_routes)
         self.gen = torch.Generator(device=dev)
         self.gen.manual_seed(int(self.seed))
         self.record_samples()
@@ -565,6 +638,18 @@ class Engine:
                 mu0 = mub * (0.9 + 0.2 * rng.random(L))
                 subst = subst._replace(mu=t(mu0))
             clock = clock_moves.init_clock_state(cfg, sp, mu0, rng)
+        if cfg.migration:
+            # no events at the start (a valid support point; the sim-SPR
+            # move makes them), route rates at their prior means
+            routes = self.routes
+            mig = mg.empty_mig_state(
+                L, max(16, 2 * run.batch.max_tips), routes.n_routes,
+                routes.alpha / routes.beta, dt, device=dev)
+            return McmcState(
+                gt=gt, sp=sp, subst=subst,
+                logl=self._logl_fn(gt, subst, sp, clock, mig=mig),
+                logpr=self._logpr_mig_fn(gt, sp, mig, subst.heredity)[0],
+                finetune=finetune_array(cfg, dt, dev), clock=clock, mig=mig)
         logl = self._logl_fn(gt, subst, sp, clock)
         logpr, c0, t20 = self._logpr_fn(gt, sp, subst.heredity)
         integ = cfg.theta_integrated
@@ -586,6 +671,9 @@ class Engine:
         def count(mv, pa):
             stats[mv, 0] += pa[0]
             stats[mv, 1] += pa[1]
+
+        if cfg.migration:
+            return self._step_mig(state, count), stats
 
         # rjMCMC split/join (A10/A11; method.c:5420-5435)
         if cfg.est_delimit:
@@ -674,6 +762,85 @@ class Engine:
             count(MV_BRATE, pa)
         return state, stats
 
+    def _step_mig(self, state: McmcState, count):
+        """The MSC-M move schedule (method.c order with the migration
+        variants; ``bpp_tpu``'s ``Engine._step_mig``)."""
+        cfg, ctx, gen, routes = self.cfg, self.ctx, self.gen, self.mig_routes
+        # rjMCMC split/join under the IM model (A10 x MSC-M)
+        if cfg.est_delimit:
+            state, pa = rj_moves.rj_move(ctx, cfg, state, gen,
+                                         self.root_age0, routes=routes)
+            count(MV_RJ, pa)
+        # usedata = 2 freezes the gene trees, event ages and taus
+        # (method.c:5490, 5515, 5524, 5572)
+        fixed = cfg.usedata_fix_gtree
+        if not fixed:
+            state, pa = mig_moves.age_block_mig(ctx, cfg, routes, state, gen)
+            count(MV_GTAGE, pa)
+            state, pa = mig_moves.migevent_age_move(ctx, cfg, routes, state,
+                                                    gen)
+            count(MV_MIG_AGES, pa)
+            for _ in range(3):
+                state, pa = mig_moves.spr_sim_move(ctx, cfg, routes, state,
+                                                   gen)
+                count(MV_GTSPR, pa)
+        state, pa = mig_moves.theta_move_mig(ctx, cfg, routes, state, gen)
+        count(MV_THETA, pa)
+        if not fixed:
+            state, pa = mig_moves.tau_move_mig(ctx, cfg, routes, state, gen)
+            count(MV_TAU, pa)
+        state, pa = mig_moves.migrate_move(ctx, cfg, routes, state, gen)
+        count(MV_MIGRATES, pa)
+        # variable-rate routes (am > 0): the per-locus Mi slides and the
+        # Mbar hyper-rate slide (stree.c:11932, 11676)
+        if routes.any_am:
+            state, pa = mig_moves.mig_vrates_move(ctx, cfg, routes, state,
+                                                  gen)
+            count(MV_MIGRATES, pa)
+            state, pa = mig_moves.mig_mbar_move(ctx, cfg, routes, state, gen)
+            count(MV_MIGRATES, pa)
+        if not fixed:
+            state, pa = mig_moves.mixing_mig(ctx, cfg, routes, state, gen)
+            count(MV_MIX, pa)
+        if cfg.model in subst_moves.FREQS_MODELS or (
+                ctx.custom is not None and ctx.custom.any_freqs):
+            state, pa = subst_moves.freqs_move(ctx, cfg, state, gen)
+            count(MV_FREQS, pa)
+        if cfg.model in subst_moves.QRATES_COUNT or (
+                ctx.custom is not None and ctx.custom.q_slots):
+            state, pa = subst_moves.qrates_move(ctx, cfg, state, gen)
+            count(MV_QRATES, pa)
+        if cfg.alphaprior is not None:
+            state, pa = subst_moves.alpha_move(ctx, cfg, state, gen)
+            count(MV_ALPHA, pa)
+        if cfg.est_locusrate == 1 and cfg.locusrate_prior == 3:
+            state, pa = subst_moves.locusrate_move(ctx, cfg, state, gen)
+            count(MV_LRHT, pa)
+        if cfg.est_heredity == 1:
+            state, pa = mig_moves.heredity_move_mig(ctx, cfg, routes, state,
+                                                    gen)
+            count(MV_LRHT, pa)
+        # locus rates and the relaxed clocks (method.c:5745-5835); their
+        # passes take the branch lengths of the sub-edge sweep
+        if cfg.est_locusrate == 1 and cfg.locusrate_prior in (0, 1):
+            state, pa = clock_moves.mui_move(ctx, cfg, state, gen)
+            count(MV_MUI, pa)
+            if cfg.locusrate_prior == 1 and cfg.locusrate_mubar_est:
+                state, pa = clock_moves.mubar_move(ctx, cfg, state, gen)
+                count(MV_MUBAR, pa)
+        if cfg.clock == Clock.SIMPLE:
+            state, pa = clock_moves.brate_simple_move(ctx, cfg, state, gen)
+            count(MV_BRATE, pa)
+        elif cfg.clock != Clock.GLOBAL:
+            state, pa = clock_moves.nui_move(ctx, cfg, state, gen)
+            count(MV_NUI, pa)
+            if cfg.locusrate_prior == 1:
+                state, pa = clock_moves.nubar_move(ctx, cfg, state, gen)
+                count(MV_NUBAR, pa)
+            state, pa = clock_moves.brate_move(ctx, cfg, state, gen)
+            count(MV_BRATE, pa)
+        return state
+
     def _species_move(self, state: McmcState):
         """One species SPR or SNL; returns (state, stats, move slot).  With
         SNL on, the choice is read on the host, with one copy that also
@@ -702,6 +869,8 @@ class Engine:
               "lnl": torch.sum(state.logl), "logpr": torch.sum(state.logpr)}
         if state.sp.phi is not None:
             tr["phi"] = state.sp.phi
+        if state.mig is not None:
+            tr["migM"] = state.mig.M
         if state.mubar is not None:
             # tip dating: mu_bar and the calendar-unit taus
             tr["mubar"] = state.mubar
@@ -743,6 +912,8 @@ class Engine:
         out = {}
         if a1b1:
             out["a1"], out["b1"] = self.a1b1_stats(state)
+            if self.cfg.migration:
+                out["wa1"], out["wb1"] = self.mig_a1b1_stats(state)
         idx = self._rec_loci
         if gtrees:
             gt = state.gt
@@ -763,11 +934,17 @@ class Engine:
         InvGamma(a + K_h, b + C_h) with K_h and C_h summed over the real
         loci (C_h / heredity), or under a Gamma(a, b) prior the
         moment-matched gamma of ``gibbs.gamma_conditional_approx``.
-        Returns (a1 [H], b1 [H]).  Port of ``bpp_tpu``'s
-        ``Engine.a1b1_stats`` without migration."""
+        Returns (a1 [H], b1 [H]); under migration the statistics come
+        from the MSC-M sweep, and :meth:`mig_a1b1_stats` gives the rates'
+        rows.  Port of ``bpp_tpu``'s ``Engine.a1b1_stats``."""
         cfg = self.cfg
         a, b = cfg.thetaprior.alpha, cfg.thetaprior.beta
-        _, c, t2 = self._logpr_fn(state.gt, state.sp, state.subst.heredity)
+        if cfg.migration:
+            _, c, t2, _, _, _ = self._logpr_mig_fn(
+                state.gt, state.sp, state.mig, state.subst.heredity)
+        else:
+            _, c, t2 = self._logpr_fn(state.gt, state.sp,
+                                      state.subst.heredity)
         m = self.ctx.locus_mask[:, None]
         ksum = torch.where(m, c, torch.zeros_like(c)).sum(0).to(t2.dtype)
         cc = t2 / state.subst.heredity[:, None]
@@ -779,23 +956,41 @@ class Engine:
                                             invgamma_proposal=False)
         return a + ksum, b + csum
 
+    def mig_a1b1_stats(self, state: McmcState):
+        """The conditional posterior of every route's migration rate
+        given the gene trees and events, M_k | G ~ Gamma(alpha + mc_k,
+        beta + W_k) with mc_k and W_k summed over the real loci (the W:
+        rows of the a1b1 log): (wa1 [K], wb1 [K])."""
+        _, _, _, W, mc, _ = self._logpr_mig_fn(
+            state.gt, state.sp, state.mig, state.subst.heredity)
+        m = self.ctx.locus_mask[:, None]
+        r = self.mig_routes
+        return (r.alpha + torch.where(m, mc, torch.zeros_like(mc)).sum(0),
+                r.beta + torch.where(m, W, torch.zeros_like(W)).sum(0))
+
     def validate_state(self, state: McmcState, it=None):
         """``check = N [tol]``: recompute every cached per-locus quantity
         (logl, logpr and, with integrated-out thetas, the coal/T2h caches)
         from scratch and raise on drift beyond ``tol`` (default 0.5 in
         float32, 1e-6 in float64): the reference's CHECK_LOGL/CHECK_LOGPR
         (method.c:4699).  Port of ``bpp_tpu``'s ``Engine.validate_state``
-        without its migration and trait branches; the comparison reads the
-        device once."""
+        without its trait branch; the comparison reads the device once."""
         cfg = self.cfg
         tol = cfg.check_tol or (
             1e-6 if self.dtype == torch.float64 else 0.5)
         where = f" at iteration {it}" if it is not None else ""
-        logl2 = self._logl_fn(state.gt, state.subst, state.sp, state.clock)
-        lp2, c2, t22 = self._logpr_fn(state.gt, state.sp,
-                                      state.subst.heredity)
-        pairs = [("logl", state.logl, logl2),
-                 ("logpr (MSC density)", state.logpr, lp2)]
+        logl2 = self._logl_fn(state.gt, state.subst, state.sp, state.clock,
+                              mig=state.mig)
+        if cfg.migration:
+            lp2 = self._logpr_mig_fn(state.gt, state.sp, state.mig,
+                                     state.subst.heredity)[0]
+            pairs = [("logl", state.logl, logl2),
+                     ("logpr (MSC-M density)", state.logpr, lp2)]
+        else:
+            lp2, c2, t22 = self._logpr_fn(state.gt, state.sp,
+                                          state.subst.heredity)
+            pairs = [("logl", state.logl, logl2),
+                     ("logpr (MSC density)", state.logpr, lp2)]
         if cfg.theta_integrated:
             pairs += [("coal counts (notheta K cache)", state.coal, c2),
                       ("T2h sums (notheta C cache)", state.t2h, t22)]
@@ -935,18 +1130,7 @@ class Engine:
                 for j, g in enumerate(range(first, it + 1, K)):
                     row = {k: v[g - prev - 1] for k, v in htr.items()}
                     row.update((k, v[j]) for k, v in hrec.items())
-                    log.gen.append(g)
-                    log.theta.append(row["theta"])
-                    log.tau.append(row["tau"])
-                    log.lnL.append(float(row["lnl"]))
-                    log.logpr.append(float(row["logpr"]))
-                    if "mubar" in row:
-                        log.mubar.append(float(row["mubar"]))
-                    if "phi" in row:
-                        log.phi.append(row["phi"])
-                    if "sp_left" in row:
-                        log.sptrees.append((row["sp_left"], row["sp_right"],
-                                            row["sp_parent"]))
+                    log.add(g, row)
                     if on_sample is not None:
                         on_sample(g, row)
             if it >= next_chk:
@@ -959,6 +1143,115 @@ class Engine:
                 ck_step = cfg.checkpoint[1]
                 next_ck = it + ck_step if ck_step > 0 else 1 << 60
         return log
+
+    # --- replicate chains (chains = K) ---------------------------------------
+
+    def chain_seed(self, k: int) -> int:
+        """Chain k's seed (0-based): ``bpp_tpu``'s ``seed + 1000003 k``."""
+        return int(self.seed) + 1000003 * k
+
+    def init_states(self, n_chains: int) -> list:
+        """The K chains' initial states, chain k's as :meth:`init_state`
+        makes it at :meth:`chain_seed`, so that each equals ``bpp_tpu``'s
+        (``Engine.init_states``, which stacks them on a leading axis)."""
+        base = self.seed
+        states = []
+        try:
+            for k in range(n_chains):
+                self.seed = self.chain_seed(k)
+                states.append(self.init_state())
+        finally:
+            self.seed = base
+        return states
+
+    def run_mcmc_multi(self, n_chains: int, progress_every: int = 1000,
+                       log_fp=None, resume=None, on_checkpoint=None):
+        """Run K replicate chains; returns their K :class:`SampleLog`.
+
+        ``bpp_tpu`` vmaps the chunk over the chains; here the chains take
+        each chunk in turn, chain k with its own ``torch.Generator``
+        seeded at :meth:`chain_seed`.  Each chain tunes its finetune steps
+        at the single-chain marks from its own move statistics.  The
+        records of :meth:`record_samples` and ``check = N`` are
+        single-chain features.
+
+        ``resume = (states, rng_states, it, stats_acc, logs)`` continues
+        from a checkpoint (the K states as :meth:`init_states`' templates
+        restored them, the K generators' bytes, the iteration, the
+        per-chain move statistics [K, N_MOVES, 2] and the samples so
+        far); ``on_checkpoint(states, gens, it, stats_acc, logs)`` fires at
+        the generations ``checkpoint = initial [step]`` schedules, each a
+        chunk bound, so a resumed run draws what the uninterrupted one
+        draws."""
+        cfg = self.cfg
+        gens = [torch.Generator(device=self.device) for _ in range(n_chains)]
+        if resume is None:
+            states = self.init_states(n_chains)
+            for k, g in enumerate(gens):
+                g.manual_seed(self.chain_seed(k))
+            it = -cfg.burnin
+            stats_acc = np.zeros((n_chains, N_MOVES, 2), np.float64)
+            logs = [SampleLog() for _ in range(n_chains)]
+        else:
+            states, rng_states, it, stats_acc, logs = resume
+            states = list(states)
+            for g, r in zip(gens, rng_states):
+                g.set_state(r)
+            stats_acc = np.array(stats_acc, np.float64)
+        next_ck = 1 << 60
+        if cfg.checkpoint and on_checkpoint is not None:
+            ck_initial, ck_step = cfg.checkpoint
+            next_ck = (ck_initial if it < ck_initial else
+                       it + ck_step if ck_step > 0 else 1 << 60)
+        total_burn = cfg.burnin
+        total_main = cfg.nsample * cfg.sampfreq
+        auto_ft = cfg.finetune.auto and total_burn >= 8
+        quarter = max(1, total_burn // 4)
+        marks = sorted({-total_burn + q * quarter for q in (1, 2, 3)}
+                       | {0}) if auto_ft else [0]
+        K = max(1, cfg.sampfreq)
+        t0 = time.time()
+        last_print = 0
+        own_gen = self.gen
+        try:
+            while it < total_main:
+                bounds = ([m for m in marks if m > it]
+                          + ([next_ck] if it < next_ck <= total_main else [])
+                          + [total_main])
+                n = max(1, min(500, min(bounds) - it))
+                traces = []
+                for c in range(n_chains):
+                    self.gen = gens[c]
+                    states[c], stats, trace, _ = self._chunk(states[c], n)
+                    stats_acc[c] += stats.cpu().numpy()
+                    traces.append(trace)
+                prev = it
+                it += n
+                if progress_every and (it - last_print >= progress_every
+                                       or it == 0):
+                    last_print = it
+                    print(f"  it {it:>8d} x{n_chains} chains  lnL "
+                          f"{float(torch.sum(states[0].logl)):.4f}  "
+                          f"[{time.time() - t0:.1f}s]",
+                          file=log_fp or sys.stderr)
+                if auto_ft and it in marks and it <= 0:
+                    states = [self._reset_finetune(st, acc)
+                              for st, acc in zip(states, stats_acc)]
+                    stats_acc[:] = 0.0
+                first = K * (max(prev, 0) // K + 1)
+                if first <= it:
+                    for log, trace in zip(logs, traces):
+                        htr = {k: v.cpu().numpy() for k, v in trace.items()}
+                        for g in range(first, it + 1, K):
+                            log.add(g, {k: v[g - prev - 1]
+                                        for k, v in htr.items()})
+                if it >= next_ck:
+                    on_checkpoint(states, gens, it, stats_acc, logs)
+                    ck_step = cfg.checkpoint[1]
+                    next_ck = it + ck_step if ck_step > 0 else 1 << 60
+        finally:
+            self.gen = own_gen
+        return logs
 
     def _reset_finetune(self, state: McmcState, stats_acc) -> McmcState:
         ft = state.finetune.cpu().numpy().copy()

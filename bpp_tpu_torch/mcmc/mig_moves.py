@@ -1,0 +1,789 @@
+"""MSC-M (isolation-with-migration) MCMC moves on fixed routes, batched
+over loci (PyTorch).
+
+Port of ``bpp_tpu/mcmc/mig_moves.py`` without the geneflow rjMCMC moves
+(ROADMAP item 10g-geneflow).  Reference counterparts:
+
+  * theta Gibbs/slide under migration     stree.c:3464 propose_theta_gibbs_im
+  * migration rates: W Gibbs, Mbar and    stree.c:11627 migrate_gibbs,
+    per-locus slides                      11676, 11822
+  * migration-event age slide             gtree.c:5766 propose_migevent_ages
+  * gene-node ages with event clamps      gtree.c:4585 (opt_migration paths)
+  * simulation-based SPR                  gtree.c:9090 propose_spr_sim +
+                                          8742 simulate_coalescent_mig
+  * tau under migration                   stree.c:6725 propose_tau_mig
+  * mixing incl. event times              prop_mixing.c:275
+  * heredity scalars                      gtree.c:8214 prop_heredity
+
+The likelihood depends on migration events only under a relaxed clock
+(branch lengths are age differences otherwise), so event-only moves
+accept on the density delta alone under the strict clock.  The sim-SPR
+proposal draws the pruned lineage's path from the structured-coalescent
+prior given the rest of the gene tree, so its acceptance is the
+likelihood ratio only (gtree.c:9368).
+
+``bpp_tpu`` walks the sim-SPR lineages in a ``lax.while_loop``; here the
+steps run in blocks of :data:`SIM_BLOCK` with one host read ("is any
+lane still walking?") a block.  A step after a lane has finished leaves
+the lane unchanged, so the blocks propose what the loop proposes for the
+same draws.  The coalescence rate's floor on ``theta * heredity`` is
+``rng.tiny_floor`` (``bpp_tpu``'s 1e-300 is 0 in float32, where a lineage
+alone in a population of theta 0 would get rate 0 / 0).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..config import BppConfig, Clock, PriorDist
+from ..trees import migration as mg
+from ..trees.gtree import BIG_AGE, GTrees, lift_population, node_depths
+from . import rng
+from .gibbs import gamma_conditional_approx
+from .moves import MAXAGE_CAP, _select_uniform, _suff_stats, _write
+from .state import (
+    FT_GTAGE, FT_LRHT, FT_MIG_AGES, FT_MIGRATES, FT_MIX, FT_TAU, Ctx,
+    McmcState, make_logl_fn, tree_where,
+)
+
+SIM_BLOCK = 8     # sim-SPR steps between two host reads
+
+
+def make_logpr_fn_mig(ctx: Ctx, routes: mg.RouteTensors):
+    """Returns logpr(gt, sp, mig, heredity) ->
+    (lp [L], coal [L, H], C2 [L, H], W [L, K], mc [L, K], pops [L, N]);
+    -inf at a locus whose routes or events are inconsistent."""
+    def fn(gt: GTrees, sp, mig: mg.MigState, heredity):
+        pops = mg.assign_populations_mig(gt, sp, ctx.tip_pop, mig,
+                                         ctx.n_seq)
+        coal, C2, W, mc, _ = mg.mig_stats(gt, sp, pops, mig, routes.si,
+                                          routes.ti, ctx.n_seq)
+        lp = mg.msc_logprob_mig(coal, C2, W, mc, sp.theta, heredity,
+                                mg.eff_rates(routes, mig), on=mig.on)
+        ok = mg.route_consistent_mig(gt, sp, mig, pops, ctx.n_seq)
+        bad = torch.where(ctx.locus_mask,
+                          torch.full_like(lp, -float("inf")),
+                          torch.zeros_like(lp))
+        lp = torch.where(ok & ctx.locus_mask, lp, bad)
+        return lp, coal, C2, W, mc, pops
+
+    return fn
+
+
+# --------------------------------------------------------------------------
+# theta under migration: the same conjugacy, statistics from the sweep
+# --------------------------------------------------------------------------
+
+
+def theta_move_mig(ctx: Ctx, cfg: BppConfig, routes, state: McmcState, gen):
+    sp = state.sp
+    H = sp.n_nodes
+    hered = state.subst.heredity
+    logpr_fn = make_logpr_fn_mig(ctx, routes)
+    _, c, t2, _, _, _ = logpr_fn(state.gt, sp, state.mig, hered)
+    ksum, csum = _suff_stats(ctx, c, t2, hered)
+
+    a, b = cfg.thetaprior.alpha, cfg.thetaprior.beta
+    gamma_prior = cfg.thetaprior.dist == PriorDist.GAMMA
+    theta = sp.theta
+    if gamma_prior:
+        a1, b1 = gamma_conditional_approx(a, b, ksum, csum, True)
+    else:
+        a1, b1 = a + ksum, b + csum
+    th_new = b1 / rng.gamma(gen, a1)
+    if gamma_prior:
+        dlogpr = ksum * torch.log(theta / th_new) \
+            + csum * (1.0 / theta - 1.0 / th_new)
+        prior_r = (a - 1.0) * torch.log(th_new / theta) \
+            - b * (th_new - theta)
+        prop_r = (-a1 - 1.0) * torch.log(theta / th_new) \
+            - b1 * (1.0 / theta - 1.0 / th_new)
+        accept = rng.mh_accept(gen, dlogpr + prior_r + prop_r)
+    else:
+        # the exact conjugate draw
+        accept = torch.ones_like(theta, dtype=torch.bool)
+    new_sp = sp._replace(theta=torch.where(accept, th_new, theta))
+    logpr = logpr_fn(state.gt, new_sp, state.mig, hered)[0]
+    return state._replace(sp=new_sp, logpr=logpr), (H, accept.sum())
+
+
+# --------------------------------------------------------------------------
+# migration rates (stree.c:11627 migrate_gibbs, 11676, 11822)
+# --------------------------------------------------------------------------
+
+
+def migrate_move(ctx: Ctx, cfg: BppConfig, routes, state: McmcState, gen):
+    """M_k | rest ~ Gamma(alpha + sum_l mc_lk, beta + sum_l W_lk).
+
+    Routes with a variable-rates shape (am > 0) keep their mean rate:
+    it moves by :func:`mig_mbar_move`, the per-locus Mi by
+    :func:`mig_vrates_move` (migrate_gibbs asserts !spec->am,
+    stree.c:11636)."""
+    logpr_fn = make_logpr_fn_mig(ctx, routes)
+    _, _, _, W, mc, _ = logpr_fn(state.gt, state.sp, state.mig,
+                                 state.subst.heredity)
+    mask_l = ctx.locus_mask[:, None]
+    csum = torch.where(mask_l, mc, torch.zeros_like(mc)).sum(0)
+    wsum = torch.where(mask_l, W, torch.zeros_like(W)).sum(0)
+    a1 = routes.alpha + csum
+    b1 = routes.beta + wsum
+    M_new = torch.clamp(rng.gamma(gen, a1) / b1, min=1e-30)
+    M_new = torch.where(routes.has_am, state.mig.M, M_new)
+    mig_new = state.mig._replace(M=M_new)
+    logpr = logpr_fn(state.gt, state.sp, mig_new, state.subst.heredity)[0]
+    K = M_new.shape[0]
+    return state._replace(mig=mig_new, logpr=logpr), (K, K)
+
+
+def mig_mbar_move(ctx: Ctx, cfg: BppConfig, routes, state: McmcState, gen):
+    """Mean-rate slide of the variable-rate routes (migrate_mbar_slide
+    stree.c:11676): Mbar_k has its Gamma(alpha, beta) prior, and
+    Mi[l, k] ~ Gamma(am, am / Mbar_k) iid over loci.  The density reads
+    Mi only, so there is no density term."""
+    mig = state.mig
+    dt, dev = mig.M.dtype, mig.M.device
+    K = mig.M.shape[0]
+    eps = state.finetune[FT_MIGRATES]
+    lnc = eps * rng.bactrian(gen, (K,), dt, dev)
+    mbar_new = mig.M * torch.exp(lnc)
+    am = routes.am
+    lnacc = lnc + lnc * (routes.alpha - 1.0) - (mbar_new - mig.M) * routes.beta
+    bnew = am / mbar_new
+    bold = am / mig.M
+    n_real = ctx.locus_mask.sum().to(dt)
+    misum = torch.where(ctx.locus_mask[:, None], mig.Mi,
+                        torch.zeros_like(mig.Mi)).sum(0)
+    lnacc = lnacc + n_real * am * torch.log(bnew / bold) \
+        - (bnew - bold) * misum
+    accept = rng.mh_accept(gen, torch.where(
+        routes.has_am, lnacc, torch.full_like(lnacc, -float("inf"))))
+    return (state._replace(mig=mig._replace(
+        M=torch.where(accept, mbar_new, mig.M))),
+        (routes.has_am.sum(), accept.sum()))
+
+
+def mig_vrates_move(ctx: Ctx, cfg: BppConfig, routes, state: McmcState,
+                    gen):
+    """Per-locus migration-rate slide (prop_mig_vrates_slide
+    stree.c:11822): Mi[l, k] *= e^(eps z) under the Gamma(am, am/Mbar_k)
+    prior and the per-(locus, route) density delta mc dlog(Mi) - dMi W;
+    the coalescent terms do not involve the rates, so every (l, k)
+    coordinate updates at once."""
+    mig = state.mig
+    dt, dev = mig.Mi.dtype, mig.Mi.device
+    L, K = mig.Mi.shape
+    logpr_fn = make_logpr_fn_mig(ctx, routes)
+    _, _, _, W, mc, _ = logpr_fn(state.gt, state.sp, mig,
+                                 state.subst.heredity)
+    eps = state.finetune[FT_MIGRATES]
+    lnc = eps * rng.bactrian(gen, (L, K), dt, dev)
+    mi_new = mig.Mi * torch.exp(lnc)
+    am = routes.am[None, :]
+    beta = am / torch.clamp(mig.M, min=1e-300)[None, :]
+    lnacc = lnc + lnc * (am - 1.0) - (mi_new - mig.Mi) * beta
+    lnacc = lnacc + mc * torch.log(mi_new / mig.Mi) - (mi_new - mig.Mi) * W
+    has_am = routes.has_am[None, :] & ctx.locus_mask[:, None]
+    accept = rng.mh_accept(gen, torch.where(
+        has_am, lnacc, torch.full_like(lnacc, -float("inf"))))
+    mig_new = mig._replace(Mi=torch.where(accept, mi_new, mig.Mi))
+    logpr = logpr_fn(state.gt, state.sp, mig_new, state.subst.heredity)[0]
+    return (state._replace(mig=mig_new, logpr=logpr),
+            (has_am.sum(), accept.sum()))
+
+
+# --------------------------------------------------------------------------
+# migration-event age slide (gtree.c:5766)
+# --------------------------------------------------------------------------
+
+
+def migevent_age_move(ctx: Ctx, cfg: BppConfig, routes, state: McmcState,
+                      gen):
+    """Sweep the event slots; each live event slides within the window
+    bounded by its edge's span, its neighbours on the same edge and both
+    populations' lifetimes.  Under a relaxed clock the event moves the
+    boundary between two differently rated pieces of its edge, so the
+    likelihood delta counts too (one pass a slot)."""
+    gt, sp, mig = state.gt, state.sp, state.mig
+    L, ME = mig.time.shape
+    dev = gt.age.device
+    logpr_fn = make_logpr_fn_mig(ctx, routes)
+    relaxed = cfg.clock != Clock.GLOBAL
+    logl_fn = make_logl_fn(ctx, cfg) if relaxed else None
+    eps = state.finetune[FT_MIG_AGES]
+    dt = eps.dtype
+    lidx = torch.arange(L, device=dev)
+    tau = sp.tau
+    partau = mg._partau(sp, MAXAGE_CAP)
+    inf = torch.full_like(mig.time, float("inf"))
+    logpr, logl = state.logpr, state.logl
+    nprop = torch.zeros((), dtype=torch.int64, device=dev)
+    nacc = torch.zeros((), dtype=torch.int64, device=dev)
+    for m in range(ME):
+        live = mig.node[:, m] >= 0
+        nd = mig.node[:, m].clamp(min=0)
+        t = mig.time[:, m]
+        e_lo = gt.age[lidx, nd]
+        par = gt.parent[lidx, nd]
+        e_hi = torch.where(par >= 0, gt.age[lidx, par.clamp(min=0)],
+                           torch.full_like(t, MAXAGE_CAP))
+        same = (mig.node == mig.node[:, m][:, None]) & (mig.node >= 0)
+        prev = torch.where(same & (mig.time < t[:, None]), mig.time,
+                           -inf).amax(dim=1)
+        nxt = torch.where(same & (mig.time > t[:, None]), mig.time,
+                          inf).amin(dim=1)
+        s, d = mig.src[:, m], mig.dst[:, m]
+        lo = torch.maximum(torch.maximum(e_lo, prev),
+                           torch.maximum(tau[s], tau[d]))
+        hi = torch.minimum(torch.minimum(e_hi, nxt),
+                           torch.minimum(partau[s], partau[d]))
+        ok = live & (hi > lo) & ctx.locus_mask
+        tnew = rng.reflect(t + eps * rng.bactrian(gen, (L,), dt, dev),
+                           lo, torch.maximum(hi, lo + 1e-300))
+        tnew = torch.where(ok, tnew, t)
+        time_new = mig.time.clone()
+        time_new[:, m] = tnew
+        mign = mig._replace(time=time_new)
+        logpr_new = logpr_fn(gt, sp, mign, state.subst.heredity)[0]
+        lnacc = logpr_new - logpr
+        if relaxed:
+            logl_new = logl_fn(gt, state.subst, sp, state.clock, mig=mign)
+            lnacc = lnacc + (logl_new - logl)
+        accept = rng.mh_accept(gen, lnacc) & ok
+        mig = mig._replace(time=torch.where(accept[:, None], time_new,
+                                            mig.time))
+        logpr = torch.where(accept, logpr_new, logpr)
+        if relaxed:
+            logl = torch.where(accept, logl_new, logl)
+        nprop = nprop + ok.sum()
+        nacc = nacc + accept.sum()
+    return (state._replace(mig=mig, logpr=logpr, logl=logl),
+            (nprop, nacc))
+
+
+# --------------------------------------------------------------------------
+# gene-node age phases with migration-event clamps
+# --------------------------------------------------------------------------
+
+
+def age_block_mig(ctx: Ctx, cfg: BppConfig, routes, state: McmcState, gen):
+    """Gene-node ages in two phases of nodes at even/odd depth, each age
+    clamped by its children, the last events on the child edges, the
+    species MRCA of the populations above those events, its parent and
+    the first event on its own edge."""
+    gt, sp, mig = state.gt, state.sp, state.mig
+    L, N, T = gt.n_loci, gt.n_nodes, gt.n_tips
+    dev = gt.age.device
+    nodes_idx = torch.arange(N, device=dev)[None, :]
+    logl_fn = make_logl_fn(ctx, cfg)
+    logpr_fn = make_logpr_fn_mig(ctx, routes)
+    eps = state.finetune[FT_GTAGE]
+    dt = eps.dtype
+    depths = node_depths(gt)
+    inner_valid = (nodes_idx >= T) & (nodes_idx < T + ctx.n_seq[:, None] - 1)
+    lc = gt.left.clamp(min=0)
+    rc = gt.right.clamp(min=0)
+    hered = state.subst.heredity
+
+    age = gt.age
+    logl, logpr = state.logl, state.logpr
+    nprop = torch.zeros((), dtype=torch.int64, device=dev)
+    nacc = torch.zeros((), dtype=torch.int64, device=dev)
+
+    # the last event time on every edge [L, N] (-inf if none), its dst
+    # population, and the first event time (+inf if none)
+    on = (mig.node >= 0)[:, None, :] & (mig.node[:, None, :]
+                                        == nodes_idx[:, :, None])
+    ev = mig.time[:, None, :].expand_as(on)
+    ev_t = torch.where(on, ev, torch.full_like(ev, -float("inf")))
+    last_t = ev_t.amax(dim=2)
+    last_i = torch.argmax(ev_t, dim=2)
+    has_ev = last_t > -float("inf")
+    last_dst = torch.where(has_ev, torch.gather(mig.dst, 1, last_i),
+                           torch.zeros_like(last_i))
+    first_t = torch.where(on, ev, torch.full_like(ev, float("inf"))
+                          ).amin(dim=2)
+    pops0 = mg.assign_populations_mig(gt, sp, ctx.tip_pop, mig, ctx.n_seq)
+    base_pop = torch.where(has_ev, last_dst, pops0)   # above the last event
+    cap = torch.full_like(age, MAXAGE_CAP)
+
+    for phase in (0, 1):
+        mask = inner_valid & (depths % 2 == phase) & ctx.locus_mask[:, None]
+        la = torch.gather(age, 1, lc)
+        ra = torch.gather(age, 1, rc)
+        low_ev = torch.maximum(torch.maximum(la, ra), torch.maximum(
+            torch.gather(last_t, 1, lc), torch.gather(last_t, 1, rc)))
+        low0 = torch.clamp(low_ev, min=0.0)
+        pl = lift_population(sp, torch.gather(base_pop, 1, lc), low0)
+        pr = lift_population(sp, torch.gather(base_pop, 1, rc), low0)
+        minage = torch.maximum(low_ev, sp.tau[sp.mrca[pl, pr]])
+        maxage = torch.where(gt.parent >= 0,
+                             torch.gather(age, 1, gt.parent.clamp(min=0)),
+                             cap)
+        maxage = torch.minimum(maxage, first_t)
+        tnew = rng.reflect(age + eps * rng.bactrian(gen, (L, N), dt, dev),
+                           minage, torch.maximum(maxage, minage + 1e-300))
+        mask_ok = mask & (maxage > minage)
+        age_new = torch.where(mask_ok, tnew, age)
+        gtn = gt._replace(age=age_new)
+        logl_new = logl_fn(gtn, state.subst, sp, state.clock, mig=mig)
+        logpr_new = logpr_fn(gtn, sp, mig, hered)[0]
+        lnacc = (logl_new - logl) + (logpr_new - logpr)
+        amask = ctx.locus_mask & mask_ok.any(1)
+        accept = rng.mh_accept(gen, lnacc) & amask
+        age = torch.where(accept[:, None], age_new, age)
+        logl = torch.where(accept, logl_new, logl)
+        logpr = torch.where(accept, logpr_new, logpr)
+        nprop = nprop + amask.sum()
+        nacc = nacc + accept.sum()
+
+    return (state._replace(gt=gt._replace(age=age), logl=logl, logpr=logpr),
+            (nprop, nacc))
+
+
+# --------------------------------------------------------------------------
+# tau rubber band under migration (stree.c:6725 propose_tau_mig)
+# --------------------------------------------------------------------------
+
+
+def tau_move_mig(ctx: Ctx, cfg: BppConfig, routes, state: McmcState, gen):
+    """Blocked tau rubber band under migration: the parity-blocked
+    piecewise-linear remap of ``moves.tau_move``, extended to event
+    times.  Every gene-node age and event time inside a governed
+    population's (minage, maxage) window moves with the window's map
+    (events by their source population, the one the migrating lineage
+    occupies below the event).  The map is a bijection, so MH needs the
+    summed log-slopes only; configurations the remap strands reject
+    through the density's validity indicator."""
+    sp0 = state.sp
+    H = sp0.n_nodes
+    NS = sp0.n_tips
+    gt = state.gt
+    dev = gt.age.device
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    if NS == 1:
+        return state, (zero, zero)
+    T, N = gt.n_tips, gt.n_nodes
+    logpr_fn = make_logpr_fn_mig(ctx, routes)
+    logl_fn = make_logl_fn(ctx, cfg)
+    gamma_tau = cfg.tauprior.dist == PriorDist.GAMMA
+    a, b = cfg.tauprior.alpha, cfg.tauprior.beta
+    eps = state.finetune[FT_TAU]
+    nodes_idx = torch.arange(N, device=dev)[None, :]
+    hidx = torch.arange(H, device=dev)
+    parity = (sp0.pptable.sum(1) + 1) % 2
+    is_inner_sp = hidx >= NS
+    is_inner_g = (nodes_idx >= T) & (nodes_idx < T + ctx.n_seq[:, None] - 1)
+    gmask = is_inner_g & ctx.locus_mask[:, None]
+    ev_live0 = (state.mig.node >= 0) & ctx.locus_mask[:, None]
+
+    age, tau, ev_time = gt.age, sp0.tau, state.mig.time
+    dt = tau.dtype
+    logl, logpr = state.logl, state.logpr
+    nprop = zero
+    nacc = zero
+    par = sp0.parent
+    par_s = par.clamp(min=0)
+    lh = sp0.left.clamp(min=0)
+    rh = sp0.right.clamp(min=0)
+    root = sp0.root
+
+    for phase in range(1 if NS == 2 else 2):
+        prop = is_inner_sp & (parity == phase) & (tau > 0.0)
+        minage = torch.maximum(tau[lh], tau[rh])
+        maxage = torch.where(par >= 0, tau[par_s],
+                             torch.full_like(tau, MAXAGE_CAP))
+        prop = prop & (maxage > minage)
+        tnew = rng.reflect(tau + eps * rng.bactrian(gen, (H,), dt, dev),
+                           minage, maxage)
+        tau_new = torch.where(prop, tnew, tau)
+        dtau = tau_new - tau
+        sp_cur = sp0._replace(tau=tau)
+        sp_new = sp0._replace(tau=tau_new)
+
+        # governing proposed node per population: itself or its parent
+        gov = torch.where(prop, hidx,
+                          torch.where((par >= 0) & prop[par_s], par_s,
+                                      torch.full_like(hidx, -1)))
+        pops = mg.assign_populations_mig(
+            gt._replace(age=age), sp_cur, ctx.tip_pop,
+            state.mig._replace(time=ev_time), ctx.n_seq)
+        gov_ok = gov >= 0
+        gov_s = gov.clamp(min=0)
+        one = torch.ones_like(tau)
+        zt = torch.zeros_like(tau)
+        ln_maxf = torch.log1p(dtau / torch.where(prop, tau - maxage, one))
+        ln_minf = torch.log1p(dtau / torch.where(prop, tau - minage, one))
+        params = torch.stack([
+            torch.where(gov_ok, minage[gov_s], zt),
+            torch.where(gov_ok, maxage[gov_s], one),
+            torch.where(gov_ok, tau[gov_s], torch.full_like(tau, 0.5)),
+            torch.where(gov_ok, dtau[gov_s], zt),
+            gov_ok.to(dt),
+            torch.where(gov_ok, ln_maxf[gov_s], zt),
+            torch.where(gov_ok, ln_minf[gov_s], zt),
+        ], dim=-1)                                          # [H, 7]
+
+        def remap(times, popidx, live):
+            """The piecewise rubber map and each item's log-slope."""
+            g_min, g_max, g_told, g_dt, g_gov, g_lmaxf, g_lminf = \
+                params[popidx].unbind(-1)
+            cond = live & (g_gov > 0.5) & (times > g_min) & (times < g_max)
+            above = cond & (times >= g_told)
+            below = cond & (times < g_told)
+            t_new = torch.where(
+                above, times + g_dt * (g_max - times) / (g_max - g_told),
+                torch.where(below,
+                            times + g_dt * (times - g_min) / (g_told - g_min),
+                            times))
+            z = torch.zeros_like(times)
+            return t_new, (torch.where(above, g_lmaxf, z)
+                           + torch.where(below, g_lminf, z))
+
+        age_new, jac_a = remap(age, pops, gmask)
+        # events by their source population; empty slots carry BIG_AGE,
+        # outside every window, and are masked by ev_live0 too
+        ev_new, jac_e = remap(ev_time, state.mig.src, ev_live0)
+        jac = jac_a.sum() + jac_e.sum()
+
+        gtn = gt._replace(age=age_new)
+        mign = state.mig._replace(time=ev_new)
+        logpr_new = logpr_fn(gtn, sp_new, mign, state.subst.heredity)[0]
+        logl_new = logl_fn(gtn, state.subst, sp_new, state.clock, mig=mign)
+        lnacc = jac + torch.sum(logpr_new - logpr) + torch.sum(logl_new - logl)
+
+        cand = torch.sum(tau[NS:] > 0).to(dt)
+        t_r, tn_r = tau[root], tau_new[root]
+        t_rs = torch.clamp(t_r, min=1e-300)
+        tn_rs = torch.clamp(tn_r, min=1e-300)
+        if gamma_tau:
+            root_term = (a - 1.0 - cand + 1.0) * torch.log(tn_rs / t_rs) \
+                - b * (tn_r - t_r)
+        else:
+            root_term = (-a - 1.0 - cand + 1.0) * torch.log(tn_rs / t_rs) \
+                - b * (1.0 / tn_rs - 1.0 / t_rs)
+        lnacc = lnacc + torch.where(prop[root], root_term,
+                                    torch.zeros_like(root_term))
+
+        accept = rng.mh_accept(gen, lnacc) & prop.any()
+        age = torch.where(accept, age_new, age)
+        ev_time = torch.where(accept, ev_new, ev_time)
+        tau = torch.where(accept, tau_new, tau)
+        logl = torch.where(accept, logl_new, logl)
+        logpr = torch.where(accept, logpr_new, logpr)
+        np_ = prop.sum()
+        nprop = nprop + np_
+        nacc = nacc + torch.where(accept, np_, zero)
+
+    return (state._replace(gt=gt._replace(age=age), sp=sp0._replace(tau=tau),
+                           mig=state.mig._replace(time=ev_time),
+                           logl=logl, logpr=logpr),
+            (nprop, nacc))
+
+
+# --------------------------------------------------------------------------
+# mixing with event times (prop_mixing.c:275, migration Jacobian :319-327)
+# --------------------------------------------------------------------------
+
+
+def mixing_mig(ctx: Ctx, cfg: BppConfig, routes, state: McmcState, gen):
+    """Scale every gene-node age, tau and event time by one factor c."""
+    gt, sp, mig = state.gt, state.sp, state.mig
+    N, T = gt.n_nodes, gt.n_tips
+    NS = sp.n_tips
+    dev = gt.age.device
+    logl_fn = make_logl_fn(ctx, cfg)
+    logpr_fn = make_logpr_fn_mig(ctx, routes)
+    nodes_idx = torch.arange(N, device=dev)[None, :]
+    ta, tb = cfg.tauprior.alpha, cfg.tauprior.beta
+    eps = state.finetune[FT_MIX]
+    dt = eps.dtype
+
+    lnc = eps * rng.bactrian(gen, (), dt, dev)
+    c = torch.exp(lnc)
+    tau_count = torch.sum(sp.tau[NS:] > 0)
+    inner_count = torch.sum(torch.where(ctx.locus_mask, ctx.n_seq - 1,
+                                        torch.zeros_like(ctx.n_seq)))
+    live = mig.node >= 0
+    ev_count = torch.sum(ctx.locus_mask[:, None] & live)
+    lnacc = (tau_count + inner_count + ev_count).to(dt) * lnc
+
+    is_inner = (nodes_idx >= T) & (nodes_idx < T + ctx.n_seq[:, None] - 1)
+    age_new = torch.where(is_inner, gt.age * c, gt.age)
+    tau_new = torch.where(sp.tau > 0, sp.tau * c, sp.tau)
+    time_new = torch.where(live, mig.time * c, mig.time)
+
+    rt_old = sp.tau[sp.root]
+    rt_new = tau_new[sp.root]
+    tcf = tau_count.to(dt)
+    if cfg.tauprior.dist == PriorDist.GAMMA:
+        root_term = (ta - 1.0 - tcf + 1.0) * lnc - tb * (rt_new - rt_old)
+    else:
+        root_term = (-ta - 1.0 - tcf + 1.0) * lnc \
+            - tb * (1.0 / torch.clamp(rt_new, min=1e-300)
+                    - 1.0 / torch.clamp(rt_old, min=1e-300))
+    lnacc = lnacc + torch.where(rt_old > 0, root_term,
+                                torch.zeros_like(root_term))
+
+    gtn = gt._replace(age=age_new)
+    mign = mig._replace(time=time_new)
+    spn = sp._replace(tau=tau_new)
+    logl_new = logl_fn(gtn, state.subst, spn, state.clock, mig=mign)
+    logpr_new = logpr_fn(gtn, spn, mign, state.subst.heredity)[0]
+    lnacc = lnacc + torch.sum(logl_new - state.logl) \
+        + torch.sum(logpr_new - state.logpr)
+    accept = rng.mh_accept(gen, lnacc)
+    cand = state._replace(gt=gtn, sp=spn, mig=mign, logl=logl_new,
+                          logpr=logpr_new)
+    return tree_where(accept, cand, state), (1, accept.to(torch.int64))
+
+
+# --------------------------------------------------------------------------
+# simulation-based SPR (gtree.c:9090 propose_spr_sim +
+# 8742 simulate_coalescent_mig): prune one lineage a locus, drop its
+# migration events, simulate its path again under the structured
+# coalescent given the rest of the gene tree, and reattach it to a
+# uniformly chosen contemporary lineage.  The proposal density is the
+# MSC-M prior of the new path, so lnacceptance = dlogl.
+# --------------------------------------------------------------------------
+
+
+def _sim_rate(n, theta_p, heredity, mrs):
+    """The walking lineage's coalescence rate 2 n / (theta heredity) and
+    its total rate with the migration rate ``mrs``.  The floor on
+    ``theta * heredity`` is ``rng.tiny_floor``: where ``bpp_tpu``'s 1e-300
+    is 0 (float32), a lineage alone (n = 0) in a population of theta 0
+    would get the rate 0 / 0 and never migrate."""
+    th = torch.clamp(theta_p * heredity, min=rng.tiny_floor(theta_p.dtype))
+    crate = 2.0 * n.to(th.dtype) / th
+    return crate, crate + mrs
+
+
+def spr_sim_move(ctx: Ctx, cfg: BppConfig, routes, state: McmcState, gen,
+                 max_steps: int | None = None):
+    gt0, sp, mig0 = state.gt, state.sp, state.mig
+    L, N, T = gt0.n_loci, gt0.n_nodes, gt0.n_tips
+    H = sp.n_nodes
+    ME = mig0.cap
+    K = mig0.M.shape[0]
+    dtype = gt0.age.dtype
+    dev = gt0.age.device
+    lidx = torch.arange(L, device=dev)
+    nodes_idx = torch.arange(N, device=dev)[None, :]
+    logl_fn = make_logl_fn(ctx, cfg)
+    logpr_fn = make_logpr_fn_mig(ctx, routes)
+    si, ti = routes.si, routes.ti
+    tau = sp.tau
+    partau_f = mg._partau(sp, mg._FINITE_BIG)
+    if max_steps is None:
+        max_steps = 2 * (N + ME) + 2 * H + 2 * K + 8
+    heredity = state.subst.heredity
+
+    # --- the pruned node of every locus ---------------------------------------
+    valid_nodes = (nodes_idx < ctx.n_seq[:, None]) | (
+        (nodes_idx >= T) & (nodes_idx < T + ctx.n_seq[:, None] - 1))
+    i, _ = _select_uniform(gen, valid_nodes & (gt0.parent >= 0))
+    is_valid = (gt0.parent[lidx, i] >= 0) & ctx.locus_mask
+    father = gt0.parent[lidx, i].clamp(min=0)
+    fleft = gt0.left[lidx, father]
+    sibling = torch.where(fleft == i, gt0.right[lidx, father], fleft)
+    grandpa = gt0.parent[lidx, father]
+    gp_s = grandpa.clamp(min=0)
+
+    # --- prune ----------------------------------------------------------------
+    pl, pr, pp = gt0.left.clone(), gt0.right.clone(), gt0.parent.clone()
+    repl_l = is_valid & (grandpa >= 0) & (gt0.left[lidx, gp_s] == father)
+    repl_r = is_valid & (grandpa >= 0) & (gt0.right[lidx, gp_s] == father)
+    _write(pl, lidx, repl_l, gp_s, sibling)
+    _write(pr, lidx, repl_r, gp_s, sibling)
+    _write(pp, lidx, is_valid, sibling, grandpa)   # -1 when father was root
+    _write(pp, lidx, is_valid, father, torch.full_like(father, -1))
+    gt_p = GTrees(pl, pr, pp, gt0.age, gt0.hpath)
+
+    # events: the father's edge's go to the sibling's, the pruned edge's go
+    on_father = (mig0.node == father[:, None]) & is_valid[:, None]
+    on_i = (mig0.node == i[:, None]) & is_valid[:, None]
+    node_p = torch.where(on_father, sibling[:, None], mig0.node)
+    node_p = torch.where(on_i, torch.full_like(node_p, -1), node_p)
+    time_p = torch.where(on_i, torch.full_like(mig0.time, BIG_AGE),
+                         mig0.time)
+    mig_p = mig0._replace(node=node_p, time=time_p)
+
+    # the pruned lineage starts in node i's own population
+    pops_p = mg.assign_populations_mig(gt_p, sp, ctx.tip_pop, mig_p,
+                                       ctx.n_seq)
+
+    # --- the rest of the tree's sub-edges (i's and father's edges out) --------
+    t_lo, t_hi, pop_lo, live_e = mg._subedges(
+        gt_p, mig_p, pops_p, ctx.n_seq, exclude=torch.stack([i, father], 1),
+        include_root_edge=True)
+    anc_e = sp.pptable[pop_lo] & live_e[..., None]        # [L, E, H]
+    E = t_lo.shape[1]
+    route_M = mg.eff_rates(routes, mig0)                  # [L, K]
+    big = mg._FINITE_BIG
+    d_lo = tau[si].expand(L, K)
+    d_hi = partau_f[si].expand(L, K)
+
+    def lineages_in(t, p):
+        """The rest's lineages in population p at t: (inside [L, E], lo,
+        hi)."""
+        ph = torch.gather(anc_e, 2, p[:, None, None].expand(L, E, 1))[..., 0]
+        lo = torch.maximum(t_lo, tau[p][:, None])
+        hi = torch.minimum(t_hi, partau_f[p][:, None])
+        inside = ph & (lo <= t[:, None]) & (t[:, None] < hi)
+        return inside, ph, lo, hi
+
+    def n_and_bounds(t, p):
+        """Lineages in p at t, and the next boundary time (> t): a
+        lineage's start or end in p, p's end, a donor's birth or death."""
+        inside, ph, lo, hi = lineages_in(t, p)
+        pts = torch.cat([lo, hi], dim=1)                  # [L, 2E]
+        pm = torch.cat([ph, ph], dim=1)
+        nb = torch.where(pm & (pts > t[:, None]), pts,
+                         torch.full_like(pts, big)).amin(dim=1)
+        nb = torch.minimum(nb, partau_f[p])
+        don = (ti[None, :] == p[:, None])[..., None]     # [L, K, 1]
+        dpts = torch.stack([d_lo, d_hi], dim=2)           # [L, K, 2]
+        dpts = torch.where(don & (dpts > t[:, None, None]), dpts,
+                           torch.full_like(dpts, big))
+        return inside.sum(1), torch.minimum(nb, dpts.amin(dim=(1, 2)))
+
+    # --- walk the pruned lineage up until it coalesces -------------------------
+    t = gt0.age[lidx, i]
+    p = pops_p[lidx, i]
+    done = torch.zeros(L, dtype=torch.bool, device=dev)
+    fail = torch.zeros_like(done)
+    nt = torch.full((L, ME), BIG_AGE, dtype=dtype, device=dev)
+    ns = torch.zeros((L, ME), dtype=torch.int64, device=dev)
+    nd = torch.zeros_like(ns)
+    nn = torch.zeros(L, dtype=torch.int64, device=dev)
+    inf = torch.full_like(t, float("inf"))
+    steps = 0
+    while steps < max_steps and bool((~done & ~fail & is_valid).any()):
+        for _ in range(min(SIM_BLOCK, max_steps - steps)):
+            act = ~done & ~fail & is_valid
+            n, nb = n_and_bounds(t, p)
+            alive = (d_lo <= t[:, None]) & (t[:, None] < d_hi)
+            route_ok = (ti[None, :] == p[:, None]) & alive
+            w = torch.where(route_ok, route_M, torch.zeros_like(route_M))
+            mrs = w.sum(1)
+            _, rate = _sim_rate(n, sp.theta[p], heredity, mrs)
+            delta = torch.where(rate > 0, rng.exponential(gen, (L,), dtype,
+                                                          dev) / rate, inf)
+            t_ev = t + delta
+            hit = t_ev < nb
+            u = rng.uniform(gen, (L,), dtype, dev) * rate
+            is_coal = hit & (u >= mrs)
+            is_mig = hit & (u < mrs)
+            # the donor route: categorical over the live routes' rates
+            cum = torch.cumsum(w, dim=1)
+            r = rng.uniform(gen, (L,), dtype, dev) * torch.clamp(
+                cum[:, -1], min=1e-300)
+            dpick = si[torch.argmax((cum > r[:, None]).to(torch.uint8),
+                                    dim=1)]
+            # record the migration event
+            can_rec = is_mig & act & (nn < ME)
+            fail = fail | (is_mig & act & (nn >= ME))
+            slot = nn.clamp(max=ME - 1)
+            _write(nt, lidx, can_rec, slot, t_ev)
+            _write(ns, lidx, can_rec, slot, p)
+            _write(nd, lidx, can_rec, slot, dpick)
+            nn = nn + can_rec.to(torch.int64)
+            # a boundary crossing at the population's end lifts to its
+            # parent
+            p_next = torch.where(is_mig & act, dpick, p)
+            at_end = ~hit & (nb >= partau_f[p]) & act
+            p_next = torch.where(at_end, sp.parent[p].clamp(min=0), p_next)
+            t = torch.where(act, torch.where(hit, t_ev, nb), t)
+            p = torch.where(act, p_next, p)
+            done = done | (is_coal & act)
+            steps += 1
+    fail = fail | ~done
+    t_new = t
+
+    # --- the target edge, uniform among the lineages there ---------------------
+    inside, _, _, _ = lineages_in(t_new, p)
+    esel, ecount = _select_uniform(gen, inside)
+    fail = fail | (ecount < 1)
+    target = torch.where(esel < N, esel,
+                         mig_p.node[lidx, (esel - N).clamp(min=0)])
+    target = target.clamp(min=0)
+
+    # --- regraft ----------------------------------------------------------------
+    ok = is_valid & ~fail
+    nl, nr, np_ = pl.clone(), pr.clone(), pp.clone()
+    na = gt0.age.clone()
+    tpar = pp[lidx, target]
+    tpar_s = tpar.clamp(min=0)
+    repl_tl = ok & (tpar >= 0) & (pl[lidx, tpar_s] == target)
+    repl_tr = ok & (tpar >= 0) & (pr[lidx, tpar_s] == target)
+    _write(nl, lidx, repl_tl, tpar_s, father)
+    _write(nr, lidx, repl_tr, tpar_s, father)
+    _write(np_, lidx, ok, father, tpar)
+    _write(nl, lidx, ok, father, i)
+    _write(nr, lidx, ok, father, target)
+    _write(np_, lidx, ok, target, father)
+    _write(np_, lidx, ok, i, father)
+    _write(na, lidx, ok, father, t_new)
+    gt_n = GTrees(nl, nr, np_, na, gt0.hpath)
+
+    # events on the target's edge above t_new move to the father's edge
+    on_tgt = (mig_p.node == target[:, None]) & ok[:, None] & (
+        mig_p.time > t_new[:, None])
+    node_n = torch.where(on_tgt, father[:, None], mig_p.node)
+    # the new events go to the pruned edge i, in free slots (free first)
+    free_order = torch.argsort((node_n >= 0).to(torch.int64), dim=1,
+                               stable=True)
+    ok = ok & (nn <= (node_n < 0).sum(1))
+    put = ok[:, None] & (torch.arange(ME, device=dev)[None, :] < nn[:, None])
+
+    def place(arr, new):
+        out = arr.clone()
+        out.scatter_(1, free_order, torch.where(
+            put, new, torch.gather(arr, 1, free_order)))
+        return out
+
+    mig_n = mig_p._replace(
+        time=place(mig_p.time, nt),
+        node=place(node_n, i[:, None].expand(L, ME)),
+        src=place(mig_p.src, ns), dst=place(mig_p.dst, nd))
+
+    # --- accept (dlogl only: prior == proposal) ---------------------------------
+    logl_new = logl_fn(gt_n, state.subst, sp, state.clock, mig=mig_n)
+    logpr_new = logpr_fn(gt_n, sp, mig_n, heredity)[0]
+    ok = ok & torch.isfinite(logpr_new)
+    accept = rng.mh_accept(gen, logl_new - state.logl) & ok
+    am = accept[:, None]
+    new_state = state._replace(
+        gt=GTrees(torch.where(am, nl, gt0.left),
+                  torch.where(am, nr, gt0.right),
+                  torch.where(am, np_, gt0.parent),
+                  torch.where(am, na, gt0.age), gt0.hpath),
+        mig=mig0._replace(
+            time=torch.where(am, mig_n.time, mig0.time),
+            node=torch.where(am, mig_n.node, mig0.node),
+            src=torch.where(am, mig_n.src, mig0.src),
+            dst=torch.where(am, mig_n.dst, mig0.dst)),
+        logl=torch.where(accept, logl_new, state.logl),
+        logpr=torch.where(accept, logpr_new, state.logpr))
+    return new_state, (is_valid.sum(), accept.sum())
+
+
+def heredity_move_mig(ctx: Ctx, cfg: BppConfig, routes, state: McmcState,
+                      gen):
+    """Per-locus heredity-scalar slide under migration (prop_heredity
+    gtree.c:8214; the MSC-M density scales every theta by h_l)."""
+    L = state.gt.n_loci
+    eps = state.finetune[FT_LRHT]
+    h = state.subst.heredity
+    h_new = torch.abs(h + eps * rng.bactrian(gen, (L,), h.dtype, h.device))
+    h_new = torch.where(ctx.locus_mask, torch.clamp(h_new, min=1e-300), h)
+    dprior = (cfg.heredity_alpha - 1.0) * torch.log(h_new / h) \
+        - cfg.heredity_beta * (h_new - h)
+    logpr_new = make_logpr_fn_mig(ctx, routes)(state.gt, state.sp,
+                                               state.mig, h_new)[0]
+    accept = rng.mh_accept(gen, dprior + (logpr_new - state.logpr)) \
+        & ctx.locus_mask
+    return (state._replace(
+        subst=state.subst._replace(heredity=torch.where(accept, h_new, h)),
+        logpr=torch.where(accept, logpr_new, state.logpr)),
+        (ctx.locus_mask.sum(), accept.sum()))

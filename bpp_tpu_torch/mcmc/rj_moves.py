@@ -19,7 +19,10 @@ proposals' species-level parts are built (a few ops on [H] tensors) and
 selected with ``torch.where``; the rubber band and the likelihood pass
 then run once, on the selected one.  Linked thetas (``thetamodel =
 linked-all`` or ``linked-inner``) give a linked child its owner's theta.
-Migration (``routes``) is not ported (ROADMAP item 10g).
+Under MSC-M migration (``routes``) the populations come through the
+migration events, event times ride the rubber band edge by edge
+(:func:`_remap_event_times`) and the acceptance takes the
+structured-coalescent density (prop_rj.c:599-656, :1140-1222).
 """
 
 from __future__ import annotations
@@ -29,7 +32,10 @@ import math
 import torch
 
 from ..config import BppConfig, PriorDist
-from ..trees.gtree import assign_populations, inner_order, topo_scan
+from ..trees import migration as mg
+from ..trees.gtree import (
+    BIG_AGE, assign_populations, inner_order, topo_scan,
+)
 from . import rng
 from .moves import _integrated_delta
 from .state import Ctx, McmcState, make_logl_fn, make_logpr_fn, tree_where
@@ -54,18 +60,22 @@ def _pick_uniform(u, mask):
     return torch.argmax(hit.to(torch.uint8)), count
 
 
-def _rubber_band(ctx: Ctx, state: McmcState, h, tau_from, tau_to, tau_upper):
+def _rubber_band(ctx: Ctx, state: McmcState, h, tau_from, tau_to, tau_upper,
+                 pops=None):
     """Age remap for a split/join at node h (0-dim index tensor); returns
     (age_new, lnterms [L]).  "Mixed" coalescences in population h
     (descendants of both children) map affinely between [tau_from,
     tau_upper] and [tau_to, tau_upper]; each maximal pure subtree below a
-    mixed node scales with its governing mixed ancestor."""
+    mixed node scales with its governing mixed ancestor.  ``pops``: the
+    populations of the gene nodes (the migration-aware ones under MSC-M),
+    by default from the ages."""
     gt, sp = state.gt, state.sp
     L, N, T = gt.n_loci, gt.n_nodes, gt.n_tips
     dev = gt.age.device
     lidx = torch.arange(L, device=dev)
     nodes_idx = torch.arange(N, device=dev)[None, :]
-    pops = assign_populations(gt, sp, ctx.tip_pop)
+    if pops is None:
+        pops = assign_populations(gt, sp, ctx.tip_pop)
     age = gt.age
     valid_inner = (nodes_idx >= T) & (nodes_idx < T + ctx.n_seq[:, None] - 1)
     order = inner_order(gt)                          # youngest..oldest
@@ -105,6 +115,38 @@ def _rubber_band(ctx: Ctx, state: McmcState, h, tau_from, tau_to, tau_upper):
                                 torch.zeros_like(lnterms))
 
 
+def _remap_event_times(gt, age_new, mig, locus_mask):
+    """Per-edge linear remap of migration-event times after an age remap;
+    returns (mig_new, per-locus log-Jacobian [L]).
+
+    An event at time t on edge u -> parent(u) maps affinely between the
+    edge's old and new endpoint ages, one log-slope Jacobian term an
+    event: the bijection that keeps every event inside its rescaled edge.
+    (The reference leaves event times alone in the rj move,
+    ``rubber_proportional`` prop_rj.c:205, which can strand events
+    outside their moved edges.)"""
+    live = mig.node >= 0
+    nd = mig.node.clamp(min=0)
+    par = torch.gather(gt.parent, 1, nd)
+    par_s = par.clamp(min=0)
+    big = torch.full_like(mig.time, BIG_AGE)
+    lo_o = torch.gather(gt.age, 1, nd)
+    hi_o = torch.where(par >= 0, torch.gather(gt.age, 1, par_s), big)
+    lo_n = torch.gather(age_new, 1, nd)
+    hi_n = torch.where(par >= 0, torch.gather(age_new, 1, par_s), big)
+    span_o = hi_o - lo_o
+    moved = live & ((lo_n != lo_o) | (hi_n != hi_o))
+    one = torch.ones_like(span_o)
+    slope = torch.where(moved & (span_o > 0.0),
+                        (hi_n - lo_n) / torch.where(span_o > 0.0, span_o,
+                                                    one), one)
+    t_new = torch.where(moved, lo_n + (mig.time - lo_o) * slope, mig.time)
+    ljac = torch.where(moved & locus_mask[:, None],
+                       torch.log(torch.clamp(slope, min=1e-300)),
+                       torch.zeros_like(slope))
+    return mig._replace(time=t_new), ljac.sum(dim=1)
+
+
 def _prior_logpdf(prior, x):
     """Log density of a gamma or inverse-gamma ``Prior`` at ``x``."""
     a, b = prior.alpha, prior.beta
@@ -140,9 +182,15 @@ def _child_theta_join(cfg: BppConfig, theta_c, theta_h):
 
 
 def rj_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen,
-            root_age0: float):
+            root_age0: float, routes=None):
     """One rjMCMC step: split or join with probability 1/2 each
-    (method.c:5420-5435, pr_split = 0.5, so the move-type term is 0)."""
+    (method.c:5420-5435, pr_split = 0.5, so the move-type term is 0).
+
+    ``routes`` (a ``migration.RouteTensors``) switches on the MSC-M
+    variant: a proposal that strands an event in a collapsed population's
+    empty window has density 0 (the validity indicator), so a join is
+    accepted only once the sim-SPR move has removed the gene flow among
+    the merged populations' lineages."""
     sp = state.sp
     H = sp.n_nodes
     NS = (H + 1) // 2
@@ -150,8 +198,15 @@ def rj_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen,
     dt = sp.tau.dtype
     hidx = torch.arange(H, device=dev)
     logl_fn = make_logl_fn(ctx, cfg)
-    logpr_fn = make_logpr_fn(ctx)
     integ = cfg.theta_integrated
+    pops_rb = None
+    if routes is None:
+        logpr_fn = make_logpr_fn(ctx)
+    else:
+        from .mig_moves import make_logpr_fn_mig
+        logpr_fn_mig = make_logpr_fn_mig(ctx, routes)
+        pops_rb = mg.assign_populations_mig(state.gt, sp, ctx.tip_pop,
+                                            state.mig, ctx.n_seq)
 
     # every draw of both branches, up front: direction, node, Beta(2, 8)
     # as two Gammas, the two child-theta variates
@@ -260,17 +315,28 @@ def rj_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen,
     age_new, lnterms = _rubber_band(
         ctx, state, h, torch.where(do_split, zero, tau_old),
         torch.where(do_split, tau_new, zero),
-        torch.where(do_split, up_s, up_j))
+        torch.where(do_split, up_s, up_j), pops=pops_rb)
     sp_new = sp._replace(tau=torch.where(do_split, tau_s, tau_j),
                          theta=torch.where(do_split, theta_s, sp.theta))
     gt_new = state.gt._replace(age=age_new)
     lnacc = torch.where(do_split, ln_s, ln_j)
     bad = torch.where(do_split, bad_s, bad_j)
 
-    logl_new = logl_fn(gt_new, state.subst, sp_new, state.clock)
-    logpr_new, c_new, t2_new = logpr_fn(gt_new, sp_new, state.subst.heredity)
+    if routes is None:
+        mig_new = None
+        logl_new = logl_fn(gt_new, state.subst, sp_new, state.clock)
+        logpr_new, c_new, t2_new = logpr_fn(gt_new, sp_new,
+                                            state.subst.heredity)
+    else:
+        mig_new, jac_e = _remap_event_times(state.gt, age_new, state.mig,
+                                            ctx.locus_mask)
+        lnterms = lnterms + jac_e
+        logl_new = logl_fn(gt_new, state.subst, sp_new, state.clock,
+                           mig=mig_new)
+        logpr_new = logpr_fn_mig(gt_new, sp_new, mig_new,
+                                 state.subst.heredity)[0]
     cand = state._replace(gt=gt_new, sp=sp_new, logl=logl_new,
-                          logpr=logpr_new)
+                          logpr=logpr_new, mig=mig_new)
     if integ:
         # the integrated density couples the loci (prop_rj.c:539)
         lnacc = (lnacc + _integrated_delta(ctx, cfg, state, c_new, t2_new)

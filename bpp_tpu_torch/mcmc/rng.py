@@ -28,6 +28,12 @@ def uniform(gen, shape, dtype, device):
     return torch.rand(shape, generator=gen, dtype=dtype, device=device)
 
 
+def exponential(gen, shape, dtype, device):
+    """Exponential(1) variates."""
+    return torch.empty(shape, dtype=dtype, device=device).exponential_(
+        generator=gen)
+
+
 def bactrian(gen, shape=(), dtype=torch.float64, device="cpu"):
     """Bactrian-Laplace variate: mean 0, variance 1, bimodal at ±m."""
     u = uniform(gen, shape, dtype, device) - 0.5

@@ -1,7 +1,8 @@
 """MCMC state and likelihood glue (PyTorch).
 
-Port of ``bpp_tpu/mcmc/state.py`` without migration and traits: plain
-species trees and MSC-I networks, the strict and the relaxed clocks,
+Port of ``bpp_tpu/mcmc/state.py`` without traits: plain species trees,
+MSC-I networks and MSC-M migration on fixed routes, the strict and the
+relaxed clocks,
 estimated, linked or integrated-out thetas, tip dating, species-tree
 search and species delimitation, one substitution model for all loci
 (DNA or amino acids) or one per locus (``model = custom``).
@@ -24,6 +25,7 @@ from ..core.pack import site_logl_packed
 from ..core.pmatrix import aa_eigen, gtr_eigen, pmatrix_model
 from ..core.units import Units
 from ..trees import coalescent as coal
+from ..trees import migration as mg
 from ..trees.gtree import (
     BIG_AGE, GTrees, SpeciesArrays, assign_populations, inner_order,
     lift_population, route_consistent,
@@ -71,6 +73,8 @@ MV_NUI = 15
 MV_MUBAR = 16
 MV_NUBAR = 17
 MV_BRATE = 18
+MV_MIGRATES = 19     # MSC-M route rates (Gibbs, variable-rate slides)
+MV_MIG_AGES = 20     # MSC-M migration-event ages
 N_MOVES = 23
 
 
@@ -256,6 +260,8 @@ class McmcState(NamedTuple):
     # tip dating (locusrate = 3): the mutation rate that turns calendar
     # dates into substitution units; tip ages are tip_dates * mubar
     mubar: torch.Tensor | None = None   # []
+    # MSC-M: migration events and route rates (None without migration)
+    mig: object | None = None           # trees.migration.MigState
 
 
 def tree_where(cond, new, old):
@@ -329,7 +335,8 @@ def compute_pmats(gt: GTrees, subst: SubstState, model: SubstModel,
 
 
 def make_logl_fn(ctx: Ctx, cfg: BppConfig):
-    """Returns logl(gt, subst, sp=None, clock=None, seg=None) -> [L].
+    """Returns logl(gt, subst, sp=None, clock=None, seg=None, mig=None)
+    -> [L].
 
     ``ctx.route`` picks the pass.  A 4-state batch whose resolution map
     is the identity goes through ``core.pack.site_logl_packed`` (kernel
@@ -346,16 +353,20 @@ def make_logl_fn(ctx: Ctx, cfg: BppConfig):
     Under a relaxed clock (``cfg.clock != GLOBAL``) ``sp`` and ``clock``
     are required: the branch lengths ``relaxed_branch_lengths`` (times
     mu_i under the SIMPLE clock) go to the same kernels as ``blen``.
-    ``seg`` is ``felsenstein.relaxed_segments`` of (gt, sp), for callers
-    that hold it across several rate proposals."""
+    Under migration (``cfg.migration``) an edge changes population at its
+    events, so ``mig`` is required there too and the segments are
+    ``migration.relaxed_segments_mig``'s sub-edge sweep (``bpp_tpu``'s
+    ``relaxed_branch_lengths_mig``).  ``seg`` is the segments of (gt, sp,
+    mig), for callers that hold them across several rate proposals."""
     usedata = cfg.usedata
     model = cfg.model
     bfbeta = cfg.bfbeta
     relaxed = cfg.clock != Clock.GLOBAL
     simple = cfg.clock == Clock.SIMPLE
+    migration = cfg.migration
 
     def logl_fn(gt: GTrees, subst: SubstState, sp=None, clock=None,
-                seg=None):
+                seg=None, mig=None):
         if not usedata:
             return torch.zeros_like(ctx.weights[:, 0])
         blen = None
@@ -366,8 +377,7 @@ def make_logl_fn(ctx: Ctx, cfg: BppConfig):
             if simple:
                 brate = brate * subst.mu[:, None]       # locus.c:1142
             if seg is None:
-                seg = fe.relaxed_segments(
-                    gt, sp, assign_populations(gt, sp, ctx.tip_pop))
+                seg = relaxed_segments(ctx, gt, sp, mig, migration)
             blen = fe.segment_lengths(gt, seg, brate, sp.rate_owner)
         rk = torch.cat([subst.rates, subst.kappa1[:, None],
                         subst.kappa2[:, None]], dim=1)
@@ -393,6 +403,20 @@ def make_logl_fn(ctx: Ctx, cfg: BppConfig):
         return torch.where(ctx.locus_mask, ll, torch.zeros_like(ll))
 
     return logl_fn
+
+
+def relaxed_segments(ctx: Ctx, gt: GTrees, sp, mig=None, migration=False):
+    """The per-population segments of every edge a relaxed clock's
+    branch lengths weigh: ``felsenstein.relaxed_segments``, or under
+    migration the sub-edge sweep ``migration.relaxed_segments_mig``."""
+    if not migration:
+        return fe.relaxed_segments(gt, sp,
+                                   assign_populations(gt, sp, ctx.tip_pop))
+    if mig is None:
+        raise ValueError("relaxed clock under migration: logl_fn requires "
+                         "mig")
+    pops = mg.assign_populations_mig(gt, sp, ctx.tip_pop, mig, ctx.n_seq)
+    return mg.relaxed_segments_mig(gt, sp, mig, pops, ctx.n_seq)
 
 
 def make_logpr_fn(ctx: Ctx):

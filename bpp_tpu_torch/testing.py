@@ -4,7 +4,8 @@
 seed gives the same data) that also takes per-locus sequence counts.
 ``write_simulated_run`` simulates a dataset (4 species by default,
 haploid, or with unphased diploid species; on the MSC-I network
-``NET_SIM_TREE`` with ``NET_GUIDE``) with the port's simulator and
+``NET_SIM_TREE`` with ``NET_GUIDE``; with the migration routes of
+``MIG_SIM`` and the run routes ``MIG_RUN``) with the port's simulator and
 writes a run control file for it; ``state_arrays`` and ``port_state``
 hand a sampler state (``bpp_tpu``'s too) to the port;
 ``write_partition_file`` writes the partition file of ``model =
@@ -155,6 +156,15 @@ NET_GUIDE = ("(((A,(B)H[&phi=0.3,&tau-parent=yes])S,"
              "(H[&tau-parent=yes],C)T)U,D)R")
 
 
+# MSC-M: two migration routes between the sister species A and B on
+# ((A,B),(C,D)), in both directions, for the simulator (rate M = 0.5) and
+# for a run (``write_simulated_run(..., sim_model="model = 0\n" +
+# MIG_SIM, priors=(MIG_RUN,))``; the rates take the wprior, 2 1 unless
+# the run sets ``wprior``)
+MIG_SIM = "migration = 2\nA B 0.5\nB A 0.5\n"
+MIG_RUN = "migration = 2\nA B\nB A\n"
+
+
 def write_simulated_run(directory, n_loci: int, seqs=(2, 2, 2, 2),
                         n_sites: int = 200, seed: int = 137,
                         job: str = "out", usedata: int = 1,
@@ -172,7 +182,8 @@ def write_simulated_run(directory, n_loci: int, seqs=(2, 2, 2, 2),
     ``seqs`` counts individuals per species; ``diploid`` (one 0/1 per
     species) makes a species' individuals unphased diploids, and becomes
     the run's ``phase`` line.  ``sim_model`` holds the simulator's model
-    lines (``model``, ``kappa``, ``basefreqs``, ``locusrate`` ...);
+    lines (``model``, ``kappa``, ``basefreqs``, ``locusrate``, a
+    ``migration`` block such as ``MIG_SIM`` ...);
     ``model`` and ``priors`` (``alphaprior``, ``locusrate``, ``heredity``
     ... lines) go into the run control file."""
     from .sim.simulate import run_simulation
@@ -427,17 +438,17 @@ def gene_tree_faults(gt, n_seq) -> list:
 
 
 def state_arrays(state) -> dict:
-    """The ``{"gt", "sp", "subst", "clock"}`` numpy field dictionaries of a
-    sampler state (the port's, or ``bpp_tpu``'s, whose arrays numpy
-    reads), with ``coal``/``t2h``/``mubar`` where the state has them: what
-    ``convert.state_from_numpy`` takes."""
+    """The ``{"gt", "sp", "subst", "clock", "mig"}`` numpy field
+    dictionaries of a sampler state (the port's, or ``bpp_tpu``'s, whose
+    arrays numpy reads), with ``coal``/``t2h``/``mubar`` where the state
+    has them: what ``convert.state_from_numpy`` takes."""
     def fields(x):
         return None if x is None else {
             f: (None if v is None else np.asarray(v))
             for f, v in x._asdict().items()}
 
-    out = {k: fields(getattr(state, k)) for k in ("gt", "sp", "subst",
-                                                  "clock")}
+    out = {k: fields(getattr(state, k, None))
+           for k in ("gt", "sp", "subst", "clock", "mig")}
     for k in ("coal", "t2h", "mubar"):
         v = getattr(state, k, None)
         if v is not None:
@@ -448,7 +459,8 @@ def state_arrays(state) -> dict:
 def port_state(state, cfg, device="cpu", dtype=torch.float64):
     """A port ``McmcState`` holding ``state``'s arrays and its cached
     ``logl``/``logpr`` (on a network: its gene trees with their
-    hybridization flags and every network field of the species arrays)."""
+    hybridization flags and every network field of the species arrays;
+    under MSC-M its migration events and rates)."""
     from .convert import state_from_numpy
     st = state_from_numpy(state_arrays(state), device=device, dtype=dtype,
                           cfg=cfg)

@@ -123,15 +123,18 @@ def species_arrays(st, dtype=torch.float64, device="cpu") -> SpeciesArrays:
     """Build device tensors from a host-side SpeciesTree (a tree or an
     MSC-I network; ``bpp_tpu/trees/gtree.py`` ``species_arrays``)."""
 
+    # copies: a float64 CPU tensor made by as_tensor would share its
+    # memory with the host tree's arrays, which init_tau_theta rewrites
+    # for the next chain
     def idx(a):
-        return torch.as_tensor(np.asarray(a, np.int64), device=device)
+        return torch.tensor(np.asarray(a, np.int64), device=device)
 
     def flt(a):
-        return torch.as_tensor(np.asarray(a, np.float64), dtype=dtype,
-                               device=device)
+        return torch.tensor(np.asarray(a, np.float64), dtype=dtype,
+                            device=device)
 
     def flag(a):
-        return torch.as_tensor(np.asarray(a, bool), device=device)
+        return torch.tensor(np.asarray(a, bool), device=device)
 
     kw = {}
     if st.n_hybrids > 0:

@@ -101,7 +101,7 @@ Phases, in order; any failure exits non-zero:
               1``): K2 launched 12 + 2 = 14 times per iteration (rj 1 +
               species move 1) plus 1, K1 never; 40 newick samples, a well
               formed A11 report whose probabilities sum to 1;
-16. topo    — 20 iterations each of main 6's and main 7's engines: K1 and K2
+16. topo    — 10 iterations each of main 6's and main 7's engines: K1 and K2
               held against their float64 plain versions on the four model
               families under both CLV stores on every gene-tree batch a
               species SPR, SNL or rj move proposed (the trees the kernel
@@ -158,8 +158,37 @@ Phases, in order; any failure exits non-zero:
               ((A, B), (C, D)) with 100 of main 10's loci, 4 samples
               each.
 
+23. main 12 — A00 under MSC-M migration at the bench shape: main 1's data
+              shape (1000 loci, 4 x 4 sequences, 500 sites, theta 0.01,
+              seed 137) simulated on ((A,B),(C,D)) with ``migration = 2``
+              (A -> B and B -> A, M = 0.5) by the port's simulator, run
+              through ``cli.main`` with the routes ``A B`` and ``B A`` and
+              ``wprior = 20 40``: K1 launched 8 times per iteration (age 2
+              + sim-SPR 3 + tau 2 + mixing 1; the event-age move runs no
+              pass under the strict clock) plus 1, K2 never; theta, tau and
+              the ``W:`` rate columns move; every state's routes and events
+              are consistent, the last passes ``validate_state`` (after
+              the launch count is read) and holds migration events; the
+              a1b1 log has the rates' rows; the ``[profile]`` of its step;
+24. mig     — K1 and K2 against their float64 plain versions under both CLV
+              stores: (a) every gene-tree batch ``spr_sim_move`` proposed
+              over 20 iterations of main 12's engine (loci of failed walks,
+              pruned and not regrafted, left out and counted) and the state
+              after them; (b) the sub-edge branch lengths
+              (``relaxed_branch_lengths_mig``) of a clock = 2 MSC-M chain on
+              main 12's data, whose step launches K1 8 + 32 (one pass an
+              event slot) + 7 (branch rates) = 47 times; (c) K2 with
+              ``reduce_root`` on 200 diploid HKY+G4 loci simulated under
+              migration;
+25. main 13 — ``chains = 2`` on main 1's data (A00 JC69, 1000 loci) with
+              ``checkpoint = 25 0`` through ``cli.main``: K1 launched 2 x
+              (8 x 50 + 1) = 802 times, K2 never; ``out13.mcmc.txt`` and
+              ``out13.c2.mcmc.txt`` hold 40 finite moving samples each, the
+              summary the split-R-hat table; ``--resume`` rewrites both
+              files byte for byte; the ``[profile]`` of the two-chain step.
+
 Then one JSON line ``{"kernels": [...]}`` (K1 at JC69, K2 at HKY+G4: the
-models of their chains; launches summed over main 1-11, errors the
+models of their chains; launches summed over main 1-13, errors the
 largest of every hold), the card's name and power limit from nvidia-smi,
 and the last line ``{"ok": true, "device": {...}}``.  Without a CUDA
 device the script exits non-zero and prints no result.
@@ -259,7 +288,7 @@ CHECKPOINT_AT = 25
 A01 = "speciestree = 1 0.5 0.33 0.1 0.2\n"
 A11 = ("speciesdelimitation = 1 0 2\nspeciestree = 1\n"
        "speciesmodelprior = 1\n")
-TOPO_ITERS = 20
+TOPO_ITERS = 10
 # main 8: the haploid data under a partition of five DNA models in blocks
 # of 200 loci, with the runtime check and two loci's gene-tree files
 CUSTOM_MODELS = ("JC69", "K80", "HKY", "TN93", "GTR")
@@ -357,6 +386,25 @@ N_CHECKS = (BURNIN + NSAMPLE) // CHECK_EVERY   # one K1 pass each
 # repath and phi moves run no pass
 PASSES_PER_ITER_10 = 2 + 3 + 5 + 1
 PASSES_PER_ITER_11 = 2 + 3 + 4 + 1
+# main 12: main 1's shape simulated with migration between A and B (M =
+# 0.5 each way); the run's routes A -> B and B -> A with a Gamma(20, 40)
+# prior on M (mean 0.5, the simulation's rate: a chain of 50 iterations
+# from its event-free start holds M there and so carries events); [mig]
+# (c): 200 diploid loci simulated likewise; main 13: two chains on main
+# 1's data
+MAIN1_TREE = ("((A #0.01, B #0.01) :0.01 #0.01, (C #0.01, D #0.01) :0.012 "
+              "#0.01) :0.02 #0.01")
+MIG_WPRIOR = "wprior = 20 40\n"
+N_MIG_DIPLOID = 200
+MIG_ITERS = 20
+CHAINS = 2
+# an MSC-M step under the strict clock: age 2 + sim-SPR 3 + tau 2 +
+# mixing 1 (the event-age move runs no pass); under clock = 2 the
+# event-age move takes one pass an event slot (ME = max(16, 2 x 16 tips))
+# and the branch-rate sweep one a species branch
+PASSES_PER_ITER_12 = 2 + 3 + 2 + 1
+ME_12 = 32
+PASSES_PER_ITER_12C = PASSES_PER_ITER_12 + ME_12 + H_BRANCHES
 TOL_SITE = 2e-3           # per-pattern |dlnL| of K2, float32
 TOL_LNL = 0.02            # f32 bound of tests/test_kernel_consistency.py
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -463,26 +511,37 @@ def device_kernels(fn):
 
 def kernel_device_ms(launch, kernel_name, reps=30, windows=3, attempts=10):
     """Median device time of one launch of the named kernel, from profiler
-    traces of ``reps`` launches: the median over ``windows`` traces of each
-    trace's median.  A trace may miss launches (a few of the first, or now
-    and then all of a short window), and now and then one reads every
-    launch at half its time: a trace must hold two thirds of the launches,
+    traces: the median over ``windows`` traces of each trace's median over
+    its last ``reps`` launches.  A trace may miss launches (a run of the
+    first ones, or now and then all of a short window), and now and then
+    one reads every launch at half its time: so each trace launches the
+    kernel ``2 * reps`` times and counts only if it holds ``reps`` of them,
     one that holds fewer is taken again (``attempts`` traces in all), and
-    the median over the windows drops the odd one out."""
+    the median over the windows drops the odd one out.  If no ``windows``
+    traces of ``attempts`` are whole, the time is that of ``reps`` launches
+    back to back between two CUDA events, a launch's share, and the line
+    printed says so."""
+    import torch
+
     def run():
-        for _ in range(reps):
+        for _ in range(2 * reps):
             launch()
-    medians = []
+    medians, held = [], []
     for _ in range(attempts):
         times = [e.time_range.elapsed_us() / 1e3
                  for e in device_kernels(run) if kernel_name in e.name]
-        if 2 * reps <= 3 * len(times) <= 3 * reps:
-            medians.append(statistics.median(times))
+        held.append(len(times))
+        if reps <= len(times) <= 2 * reps:
+            medians.append(statistics.median(times[-reps:]))
             if len(medians) == windows:
                 return statistics.median(medians)
-    raise AssertionError(f"profiler held {kernel_name}'s launches in "
-                         f"{len(medians)} of {attempts} traces; {windows} "
-                         "are needed")
+    ms = cuda_ms(lambda: [launch() for _ in range(reps)], reps=10) / reps
+    print(f"[timing] profiler held {kernel_name}'s launches in {len(medians)}"
+          f" of {attempts} traces ({windows} needed; launches held of "
+          f"{2 * reps}: {held}): timed with CUDA events instead, "
+          f"{ms:.4f} ms a launch over {reps} back to back")
+    torch.cuda.synchronize()
+    return ms
 
 
 def profile_step(eng, state, step_ms, smi, kernel_name, label, passes,
@@ -532,19 +591,20 @@ def step_ms(eng, state, iters=10, it=None):
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def warm_engine(run, dev):
-    """(engine, warmed state, iterations/s after warm-up)."""
+def warm_engine(run, dev, warm=5, timed=10):
+    """(engine, state after ``warm`` + ``timed`` iterations, iterations/s
+    over the ``timed`` ones)."""
     import torch
 
     from bpp_tpu_torch.mcmc.driver import Engine
     eng = Engine(run, seed=1, device=dev)
     state = eng.init_state()
-    state, _ = eng.chunk_step(state, 5)
+    state, _ = eng.chunk_step(state, warm)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    state, _ = eng.chunk_step(state, 10)
+    state, _ = eng.chunk_step(state, timed)
     torch.cuda.synchronize()
-    return eng, state, 10 / (time.perf_counter() - t0)
+    return eng, state, timed / (time.perf_counter() - t0)
 
 
 def wall_ms(fn, reps=5):
@@ -680,18 +740,21 @@ class MoveTally:
     MOVES = (("stree_moves", "species_spr_move"),
              ("stree_moves", "snl_move"), ("rj_moves", "rj_move"))
 
-    def __init__(self, record=False):
+    def __init__(self, record=False, moves=MOVES, accepted=True):
         self.record = record
-        self.counts = {name: [0, 0] for _, name in self.MOVES}
+        self.moves = moves
+        self.accepted = accepted     # keep the trees after accepted moves
+        self.counts = {name: [0, 0] for _, name in moves}
         self.trees = []          # (label, GTrees)
         self._inside = None
         self._saved = []
 
     def __enter__(self):
-        from bpp_tpu_torch.mcmc import rj_moves, stree_moves
+        from bpp_tpu_torch.mcmc import mig_moves, rj_moves, stree_moves
         from bpp_tpu_torch.mcmc import state as state_mod
-        mods = {"stree_moves": stree_moves, "rj_moves": rj_moves}
-        for mod_name, name in self.MOVES:
+        mods = {"stree_moves": stree_moves, "rj_moves": rj_moves,
+                "mig_moves": mig_moves}
+        for mod_name, name in self.moves:
             self._patch(mods[mod_name], name, self._move)
         for name in ("site_logl_packed", "site_logl_fels"):
             self._patch(state_mod, name, self._pass)
@@ -716,7 +779,8 @@ class MoveTally:
             self.counts[name][0] += 1
             if self.record and bool(acc):
                 self.counts[name][1] += 1
-                self.trees.append((f"{name} accepted", state.gt))
+                if self.accepted:
+                    self.trees.append((f"{name} accepted", state.gt))
             return state, (prop, acc)
         return move
 
@@ -882,6 +946,14 @@ def relaxed_blen(eng, state, dtype):
     brate = state.clock.brate.to(dtype)
     if eng.cfg.clock == Clock.SIMPLE:
         brate = brate * state.subst.mu.to(dtype)[:, None]
+    if state.mig is not None:
+        # MSC-M: the sub-edge sweep through the migration events
+        from bpp_tpu_torch.trees import migration as mg
+        mig = state.mig._replace(time=state.mig.time.to(dtype))
+        pops = mg.assign_populations_mig(gt, sp, eng.ctx.tip_pop, mig,
+                                         eng.ctx.n_seq)
+        return mg.relaxed_branch_lengths_mig(gt, sp, mig, pops,
+                                             eng.ctx.n_seq, brate)
     pops = assign_populations(gt, sp, eng.ctx.tip_pop)
     return fe.relaxed_branch_lengths(gt, sp, pops, brate)
 
@@ -1009,7 +1081,6 @@ def species_phase(label, ctl, dev, smi, kernel_name, passes):
 
     from bpp_tpu_torch.loader import load_run_from_ctl
     from bpp_tpu_torch.mcmc import rj_moves, stree_moves
-    from bpp_tpu_torch.testing import gene_tree_faults
     eng, state, ips = warm_engine(load_run_from_ctl(ctl), dev)
     profile_step(eng, state, 1e3 / ips, smi, kernel_name, f"{label} step",
                  passes)
@@ -1028,29 +1099,11 @@ def species_phase(label, ctl, dev, smi, kernel_name, passes):
     with MoveTally(record=True) as tally:
         state, _ = eng.chunk_step(state, TOPO_ITERS)
     torch.cuda.synchronize()
-    worst = site = 0.0
-    held = left_out = 0
-    for what, gt in tally.trees:
-        # a proposal the move rejects by its own checks (a moved gene node
-        # with no target branch keeps its rescaled age unregrafted) can
-        # hold loci whose trees are not trees: the likelihood of those
-        # loci is never used; they are left out and counted
-        bad = {f[0] for f in gene_tree_faults(gt, ctx.n_seq)}
-        ok = torch.tensor([li not in bad for li in range(gt.n_loci)],
-                          device=dev)
-        if what.endswith("accepted") and not bool(ok[ctx.locus_mask].all()):
-            raise AssertionError(f"[topo] {label}: an accepted move left an "
-                                 "invalid gene tree")
-        mask = ok & ctx.locus_mask
-        held += int(mask.sum())
-        left_out += int((~ok & ctx.locus_mask).sum())
-        if bool(mask.any()):
-            err, serr = hold_given(f"{label} {what}", eng,
-                                   state._replace(gt=gt), smi, report=False,
-                                   mask=mask)
-            worst, site = max(worst, err), max(site, serr or 0.0)
-    if not held:
-        raise AssertionError(f"[topo] {label}: no gene tree was held")
+    # a proposal the move rejects by its own checks (a moved gene node
+    # with no target branch keeps its rescaled age unregrafted) can hold
+    # loci whose trees are not trees
+    worst, site, held, left_out = hold_batches(label, eng, state,
+                                               tally.trees, smi, "topo")
     kinds = ", ".join(f"{n} {c[0]} proposed / {c[1]} accepted"
                       for n, c in tally.counts.items() if c[0])
     print(f"[topo] {label}: {TOPO_ITERS} iterations ({kinds}); "
@@ -1287,11 +1340,16 @@ def aa_phase(dev, smi, iters):
 
 class StepWatch:
     """While active, keeps the route-consistency flag of every state an
-    MSC-I engine's step returns (on the device: no host read) and the
-    last engine and state."""
+    MSC-I engine's step returns (with ``mig``: an MSC-M engine's, whose
+    events must lie in their edges and populations too; on the device: no
+    host read) and the last engine and state."""
+
+    def __init__(self, mig=False):
+        self.mig = mig
 
     def __enter__(self):
         from bpp_tpu_torch.mcmc.driver import Engine
+        from bpp_tpu_torch.trees import migration as mg
         from bpp_tpu_torch.trees.gtree import (
             assign_populations, route_consistent,
         )
@@ -1301,9 +1359,17 @@ class StepWatch:
 
         def step(eng, state):
             state, stats = orig(eng, state)
-            pops = assign_populations(state.gt, state.sp, eng.ctx.tip_pop)
-            watch.flags.append(route_consistent(
-                state.gt, state.sp, pops, eng.ctx.n_seq).all())
+            ctx = eng.ctx
+            if watch.mig:
+                pops = mg.assign_populations_mig(
+                    state.gt, state.sp, ctx.tip_pop, state.mig, ctx.n_seq)
+                ok = mg.route_consistent_mig(state.gt, state.sp, state.mig,
+                                             pops, ctx.n_seq)
+                ok = ok | ~ctx.locus_mask
+            else:
+                pops = assign_populations(state.gt, state.sp, ctx.tip_pop)
+                ok = route_consistent(state.gt, state.sp, pops, ctx.n_seq)
+            watch.flags.append(ok.all())
             watch.last = (eng, state)
             return state, stats
 
@@ -1379,21 +1445,23 @@ def msci_phases(dev, smi, iters, n_loci=N_LOCI, n_diploid=N_NET_DIPLOID):
     print(f"[main 10] routes consistent in all {iters} states; "
           f"validate_state passed on the last | {smi}")
 
-    # its step, profiled; [net] (a): K1 on the chain's gene trees
-    eng, state, ips = warm_engine(run10, dev)
-    # one iteration a trace: its ~56,000 kernels are more events than
-    # three iterations of any other step
-    profile_step(eng, state, 1e3 / ips, smi, "pack_logl_kernel",
+    # its step, profiled on the chain's last state; [net] (a): K1 on the
+    # chain's gene trees.  One iteration a trace: its ~56,000 kernels are
+    # more events than three iterations of any other step
+    ms = step_ms(eng10, state10, iters=3)
+    profile_step(eng10, state10, ms, smi, "pack_logl_kernel",
                  "MSC-I JC69 step (main 10)", PASSES_PER_ITER_10, iters=1)
-    print(f"[main 10] engine step (MSC-I JC69, {n_loci} loci): {ips:.2f} "
-          f"iters/s after warm-up | {smi}")
+    print(f"[main 10] engine step (MSC-I JC69, {n_loci} loci): "
+          f"{1e3 / ms:.2f} iters/s after the chain | {smi}")
     net = {}
     net["a"], _ = hold_given("(a) K1, main 10's gene trees (strict ages)",
                              eng10, state10, smi, tag="net")
-    del eng, state, eng10, state10, watch
+    del eng10, state10, watch
 
-    # (b) K1 on relaxed lengths through edge_passes (clock = 2)
-    engc, statec, ipsc = warm_engine(load_run_from_ctl("run10c.ctl"), dev)
+    # (b) K1 on relaxed lengths through edge_passes (clock = 2); the
+    # network steps are slow, so their engines warm for a few iterations
+    engc, statec, ipsc = warm_engine(load_run_from_ctl("run10c.ctl"), dev,
+                                     2, 3)
     net["b"], _ = hold_given(
         "(b) K1, blen of a clock = 2 chain on the network", engc, statec,
         smi, lambda dt: relaxed_blen(engc, statec, dt), tag="net")
@@ -1410,7 +1478,7 @@ def msci_phases(dev, smi, iters, n_loci=N_LOCI, n_diploid=N_NET_DIPLOID):
         with open(ctl, "w") as f:
             f.write(BDI_CTL.format(fix=fix, job=job, burnin=BURNIN,
                                    nsample=NSAMPLE, extra=extra))
-    engb, stateb, _ = warm_engine(load_run_from_ctl("run11c.ctl"), dev)
+    engb, stateb, _ = warm_engine(load_run_from_ctl("run11c.ctl"), dev, 2, 3)
     if engb.run.stree.bdi is None or stateb.sp.rate_owner is None:
         raise AssertionError("the BDI fixture has no rate owners")
     net["c"], _ = hold_given(
@@ -1426,7 +1494,8 @@ def msci_phases(dev, smi, iters, n_loci=N_LOCI, n_diploid=N_NET_DIPLOID):
     with open("run10d.ctl", "w") as f:
         f.write(text.replace("((A, B), (C, D));", NET_GUIDE + ";").replace(
             "sim2.", "sim10d."))
-    engd, stated, _ = warm_engine(load_run_from_ctl("run10d.ctl"), dev)
+    engd, stated, _ = warm_engine(load_run_from_ctl("run10d.ctl"), dev, 2,
+                                  3)
     if engd.ctx.route != "K2":
         raise AssertionError(f"the diploid network batch took "
                              f"{engd.ctx.route}")
@@ -1508,6 +1577,260 @@ def msci_phases(dev, smi, iters, n_loci=N_LOCI, n_diploid=N_NET_DIPLOID):
     print(f"[cli] 4 samples each on the card: {', '.join(done)} | {smi}")
     return (launches10, launches11, max(net["a"], net["b"], net["c"]),
             net["d"])
+
+
+def write_mig_data(prefix, nloci, seqs, extra):
+    """Simulate ``nloci`` loci on main 1's species tree with main 12's
+    migration routes (the port's simulator, seed 137) into
+    ``<prefix>.phy`` / ``.Imap.txt``."""
+    from bpp_tpu_torch.sim.simulate import run_simulation
+    from bpp_tpu_torch.testing import MIG_SIM
+    with open(f"{prefix}.ctl", "w") as f:
+        f.write(SIM10_CTL.format(prefix=prefix, seqs=seqs, tree=MAIN1_TREE,
+                                 nloci=nloci, extra=extra + MIG_SIM))
+    run_simulation(f"{prefix}.ctl")
+
+
+def hold_batches(label, eng, state, trees, smi, tag):
+    """The pruning kernel against its float64 plain version on each
+    recorded ``(what, gene-tree batch)`` of ``trees``.  Loci that are not
+    trees (a proposal the move itself rejects: the likelihood of those
+    loci is never used) are left out and counted; a batch kept after an
+    accepted move must be all trees.  Returns (largest per-locus error,
+    largest per-pattern error, loci held, loci left out)."""
+    import torch
+
+    from bpp_tpu_torch.testing import gene_tree_faults
+    ctx = eng.ctx
+    worst = site = 0.0
+    held = left_out = 0
+    for what, gt in trees:
+        bad = {f[0] for f in gene_tree_faults(gt, ctx.n_seq)}
+        ok = torch.tensor([li not in bad for li in range(gt.n_loci)],
+                          device=ctx.n_seq.device)
+        if what.endswith("accepted") and not bool(ok[ctx.locus_mask].all()):
+            raise AssertionError(f"[{tag}] {label}: an accepted move left "
+                                 "an invalid gene tree")
+        mask = ok & ctx.locus_mask
+        held += int(mask.sum())
+        left_out += int((~ok & ctx.locus_mask).sum())
+        if bool(mask.any()):
+            err, serr = hold_given(f"{label} {what}", eng,
+                                   state._replace(gt=gt), smi, report=False,
+                                   mask=mask, tag=tag)
+            worst, site = max(worst, err), max(site, serr or 0.0)
+    if not held:
+        raise AssertionError(f"[{tag}] {label}: no gene tree was held")
+    return worst, site, held, left_out
+
+
+def mig_phases(dev, smi, iters, n_loci=N_LOCI, n_diploid=N_MIG_DIPLOID):
+    """``[data 12]``, ``[main 12]``, the ``[profile]`` of its step and
+    ``[mig]`` (a)-(c).  Returns (K1 launches of main 12, [mig]'s largest
+    K1 error, its largest K2 error)."""
+    import numpy as np
+    import torch
+
+    from bpp_tpu_torch.core import pack
+    from bpp_tpu_torch.loader import load_run_from_ctl
+    from bpp_tpu_torch.testing import MIG_RUN
+    routes = MIG_RUN + MIG_WPRIOR
+    mig_run = RUN_CTL.replace("seqfile = sim.phy", "seqfile = sim12.phy") \
+        .replace("Imapfile = sim.Imap.txt", "Imapfile = sim12.Imap.txt")
+
+    # [data 12]: main 1's shape with migration between A and B
+    t0 = time.perf_counter()
+    write_mig_data("sim12", n_loci, "4 4 4 4", "model = 0\n")
+    for ctl, job, extra in (("run12.ctl", "out12", routes),
+                            ("run12c.ctl", "out12c", routes + RELAXED)):
+        with open(ctl, "w") as f:
+            f.write(mig_run.format(nloci=n_loci, burnin=BURNIN,
+                                   nsample=NSAMPLE, job=job, extra=extra))
+    run12 = load_run_from_ctl("run12.ctl")
+    b = run12.batch
+    print(f"[data 12] {n_loci} haploid loci simulated with migration A <-> B "
+          f"(M = 0.5 each way) in {time.perf_counter() - t0:.1f} s | "
+          f"L={b.n_loci} T={b.max_tips} S={b.max_patterns} | real patterns "
+          f"{int(np.asarray(b.n_pat).sum())} | routes "
+          f"{[(s.source, s.target) for s in run12.cfg.mig_specs]}")
+
+    # [main 12]: A00 MSC-M through the CLI
+    with StepWatch(mig=True) as watch:
+        launches12, _ = run_chain(
+            ["--cfile", "run12.ctl"], "out12", iters,
+            (PASSES_PER_ITER_12 * iters + 1, 0), ("theta", "tau", "W:"),
+            "main 12", smi)
+    consistent = bool(torch.stack(watch.flags).all())
+    if len(watch.flags) != iters or not consistent:
+        raise AssertionError(f"main 12: {len(watch.flags)} steps, routes "
+                             f"and events consistent in all: {consistent}")
+    eng12, state12 = watch.last
+    eng12.validate_state(state12)
+    eng, state = eng12, state12
+    events = state.mig.count()
+    if not int(events.sum()):
+        raise AssertionError("main 12: no migration event in the last state")
+    with open("out12.conditional_a1b1.txt") as f:
+        a1b1_head = f.readline().split()
+    w_rows = [c for c in a1b1_head if c.startswith("W:")]
+    if len(w_rows) != 4:
+        raise AssertionError(f"main 12: a1b1 log header {a1b1_head}")
+    print(f"[main 12] routes and events consistent in all {iters} states; "
+          f"validate_state passed on the last; {int(events.sum())} "
+          f"migration events on {int((events > 0).sum())} loci; M "
+          f"{[round(float(m), 4) for m in state.mig.M]}; a1b1 log rows "
+          f"{w_rows} | {smi}")
+    del eng12, state12, watch
+
+    # its step, profiled on the chain's last state; [mig] (a): the kernels
+    # on every gene-tree batch spr_sim_move proposed
+    ms = step_ms(eng, state, iters=3)
+    profile_step(eng, state, ms, smi, "pack_logl_kernel",
+                 "MSC-M JC69 step (main 12)", PASSES_PER_ITER_12, iters=1)
+    print(f"[main 12] engine step (MSC-M JC69, {n_loci} loci): "
+          f"{1e3 / ms:.2f} iters/s after the chain | {smi}")
+    with MoveTally(record=True, moves=(("mig_moves", "spr_sim_move"),),
+                   accepted=False) as tally:
+        state, _ = eng.chunk_step(state, MIG_ITERS)
+    torch.cuda.synchronize()
+    mig = {}
+    mig["a"], _, held, left_out = hold_batches(
+        "(a) sim-SPR proposals", eng, state, tally.trees, smi, "mig")
+    mig["a"] = max(mig["a"], hold_given(
+        "(a) the state after them", eng, state, smi, report=False,
+        tag="mig")[0])
+    print(f"[mig] (a) K1 on {len(tally.trees)} gene-tree batches spr_sim_move "
+          f"proposed over {MIG_ITERS} iterations ({tally.counts} calls / "
+          f"calls with an accepted locus), {held} locus trees held ({left_out} "
+          f"of failed walks left out: pruned, not regrafted), and the state "
+          f"after them ({int(state.mig.count().sum())} events): max per-locus "
+          f"|dlnL| {mig['a']:.3e} (tol {TOL_LNL}) | {smi}")
+    del eng, state, tally
+
+    # (b) K1 on the sub-edge lengths of a clock = 2 MSC-M chain, and the
+    # event-age move's pass per event slot
+    engc, statec, ipsc = warm_engine(load_run_from_ctl("run12c.ctl"), dev,
+                                     2, 3)
+    pack.LAUNCHES = 0
+    statec, _ = engc.chunk_step(statec, 2)
+    torch.cuda.synchronize()
+    if pack.LAUNCHES != 2 * PASSES_PER_ITER_12C:
+        raise AssertionError(f"[mig] clock = 2 MSC-M step: K1 launched "
+                             f"{pack.LAUNCHES} times in 2 iterations, "
+                             f"expected {2 * PASSES_PER_ITER_12C}")
+    mig["b"], _ = hold_given(
+        "(b) K1, blen of a clock = 2 MSC-M chain (the sub-edge sweep)", engc,
+        statec, smi, lambda dt: relaxed_blen(engc, statec, dt), tag="mig")
+    print(f"[mig] clock = 2 MSC-M step: {ipsc:.2f} iters/s after warm-up, "
+          f"K1 {PASSES_PER_ITER_12C} launches an iteration (event slots "
+          f"{ME_12}), {int(statec.mig.count().sum())} events | {smi}")
+    del engc, statec
+
+    # (c) K2 on a diploid HKY+G4 batch simulated under migration
+    write_mig_data("sim12d", n_diploid, "2 2 2 2", NET_DIPLOID)
+    with open("run12d.ctl", "w") as f:
+        f.write(RUN2_CTL.format(nloci=n_diploid, burnin=BURNIN,
+                                nsample=NSAMPLE, job="out12d",
+                                extra=routes).replace("sim2.", "sim12d."))
+    engd, stated, _ = warm_engine(load_run_from_ctl("run12d.ctl"), dev, 2,
+                                  3)
+    if engd.ctx.route != "K2":
+        raise AssertionError(f"the diploid MSC-M batch took "
+                             f"{engd.ctx.route}")
+    mig["c"], mig["c site"] = hold_given(
+        "(c) K2 and reduce_root, diploid HKY+G4 under migration", engd,
+        stated, smi, tag="mig")
+    del engd, stated
+    torch.cuda.empty_cache()
+    print(f"[mig] K1 max per-locus |dlnL| (a) {mig['a']:.3e} (b) "
+          f"{mig['b']:.3e} | K2 (c) {mig['c']:.3e} a locus, "
+          f"{mig['c site']:.3e} a pattern | tol {TOL_LNL} | {smi}")
+    return launches12, max(mig["a"], mig["b"]), mig["c"]
+
+
+class TwoChains:
+    """``chunk_step`` over the K chains of an engine, each with its own
+    generator, as ``Engine.run_mcmc_multi`` steps them: what
+    ``profile_step`` and ``step_ms`` time."""
+
+    def __init__(self, eng, gens):
+        self.eng, self.gens = eng, gens
+
+    def chunk_step(self, states, n, it=None):
+        own = self.eng.gen
+        try:
+            for c, g in enumerate(self.gens):
+                self.eng.gen = g
+                states[c], _ = self.eng.chunk_step(states[c], n)
+        finally:
+            self.eng.gen = own
+        return states, None
+
+
+def main13(iters, smi, dev):
+    """``[main 13]``: ``chains = 2`` on main 1's data with ``checkpoint =
+    25 0``, run whole and then resumed; the ``[profile]`` of the two-chain
+    step.  Returns K1's launches."""
+    import numpy as np
+    import torch
+
+    from bpp_tpu_torch.loader import load_run_from_ctl
+    from bpp_tpu_torch.mcmc.driver import Engine
+    with open("run13.ctl", "w") as f:
+        f.write(RUN_CTL.format(nloci=N_LOCI, burnin=BURNIN, nsample=NSAMPLE,
+                               job="out13", extra=f"chains = {CHAINS}\n"
+                               f"checkpoint = {CHECKPOINT_AT} 0\n"))
+    files = ["out13.mcmc.txt"] + [f"out13.c{k}.mcmc.txt"
+                                  for k in range(2, CHAINS + 1)]
+    launches, _ = run_chain(
+        ["--cfile", "run13.ctl"], "out13", iters,
+        (CHAINS * (PASSES_PER_ITER * iters + 1), 0), ("theta", "tau"),
+        "main 13", smi, figtree=False)
+    for fn in files[1:]:
+        with open(fn) as f:
+            f.readline()
+            data = np.loadtxt(f, ndmin=2)
+        if (data.shape[0] != NSAMPLE or not np.isfinite(data).all()
+                or not (data.std(axis=0)[:-1] > 0).all()):
+            raise AssertionError(f"main 13: {fn} holds {data.shape} samples "
+                                 "or a column that never moved")
+    with open("out13.txt") as f:
+        summary = f.read()
+    if f"split-R-hat over {CHAINS} chains" not in summary:
+        raise AssertionError("main 13: no split-R-hat table in out13.txt")
+    whole = []
+    for fn in files:
+        with open(fn, "rb") as f:
+            whole.append(f.read())
+        os.replace(fn, fn + ".whole")
+    rest = NSAMPLE - CHECKPOINT_AT
+    resumed, _ = run_chain(
+        ["--resume", "out13.chk.npz"], "out13", rest,
+        (CHAINS * (PASSES_PER_ITER * rest + 1), 0), ("theta", "tau"),
+        "main 13 resumed", smi, figtree=False)
+    for fn, w in zip(files, whole):
+        with open(fn, "rb") as f:
+            if f.read() != w:
+                raise AssertionError(f"main 13: the resumed {fn} differs "
+                                     "from the uninterrupted run's")
+    rhat = summary.split("(values near 1 = converged):")[1].splitlines()[1:3]
+    print(f"[main 13] {CHAINS} chains: {', '.join(files)} {NSAMPLE} finite "
+          f"moving samples each; split-R-hat table ({'; '.join(r.strip() for r in rhat)}, "
+          f"...); --resume at it {CHECKPOINT_AT}: every file byte-identical "
+          f"to the whole run's | {smi}")
+
+    # the two-chain step, profiled
+    eng = Engine(load_run_from_ctl("run13.ctl"), seed=1, device=dev)
+    states = eng.init_states(CHAINS)
+    gens = [torch.Generator(device=dev) for _ in range(CHAINS)]
+    for k, g in enumerate(gens):
+        g.manual_seed(eng.chain_seed(k))
+    both = TwoChains(eng, gens)
+    states, _ = both.chunk_step(states, 5)
+    profile_step(both, states, step_ms(both, states), smi,
+                 "pack_logl_kernel", f"JC69 {CHAINS}-chain step (main 13)",
+                 CHAINS * PASSES_PER_ITER)
+    return launches + resumed
 
 
 def main() -> int:
@@ -1838,6 +2161,14 @@ def main() -> int:
             # 20-22. MSC-I: main 10, [net] (a)-(d), main 11
             launches10, launches11, err_net1, err_net2 = msci_phases(
                 dev, smi, iters)
+            torch.cuda.empty_cache()
+
+            # 23-24. MSC-M: main 12, [mig] (a)-(c)
+            launches12, err_mig1, err_mig2 = mig_phases(dev, smi, iters)
+            torch.cuda.empty_cache()
+
+            # 25. chains = 2: main 13
+            launches13 = main13(iters, smi, dev)
         finally:
             os.chdir(cwd)
 
@@ -1853,22 +2184,22 @@ def main() -> int:
           f"the kernels' build included | {smi}")
     # launches: every main path's run; errors: the bench models' holds,
     # those on relaxed-clock lengths and dated tips, on the trees of the
-    # species and rj moves, on a partition's per-locus eigensystems and on
-    # network gene trees ([net])
+    # species and rj moves, on a partition's per-locus eigensystems, on
+    # network gene trees ([net]) and on migration gene trees ([mig])
     print(json.dumps({"kernels": [
         entry("K1 pallas_pack._make_kernel -> pack_logl_kernel",
               "bpp_tpu_torch/csrc/pack_kernel.cu",
               "bpp_tpu/core/pallas_pack.py:315",
               launches1 + launches3 + launches5 + launches6 + launches8
-              + launches10 + launches11,
+              + launches10 + launches11 + launches12 + launches13,
               [*errs1.values(), err_k1_blen, err_k1_dated, err_topo1,
-               err_k1_custom, err_net1], rows1["JC69"]),
+               err_k1_custom, err_net1, err_mig1], rows1["JC69"]),
         entry("K2 pallas_fels._make_kernel -> fels_site_logl_kernel",
               "bpp_tpu_torch/csrc/fels_kernel.cu",
               "bpp_tpu/core/pallas_fels.py:92",
               launches2 + launches4 + launches7,
               [*errs2.values(), err_k2_blen, err_topo2, err_k2_custom,
-               err_net2], rows2["HKY"]),
+               err_net2, err_mig2], rows2["HKY"]),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

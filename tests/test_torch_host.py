@@ -17,7 +17,7 @@ species&tree = 4 A B C D
                 ((A #0.01, B #0.01) :0.01 #0.01, (C #0.01, D #0.01) :0.012 #0.01) :0.02 #0.01;
 loci&length = 9 150
 model = {model}
-"""
+{extra}"""
 
 RUN_CTL = """\
 seed = 11
@@ -39,12 +39,16 @@ nsample = 4
 """
 
 
-def _simulate(tmp, sim_mod, model="0"):
+# two migration routes (A -> B and B -> A forward in time, M = 0.5)
+MIGRATION = "migration = 2\nA B 0.5\nB A 0.5\n"
+
+
+def _simulate(tmp, sim_mod, model="0", extra=""):
     cwd = os.getcwd()
     os.chdir(tmp)
     try:
         with open("sim.ctl", "w") as f:
-            f.write(SIM_CTL.format(model=model))
+            f.write(SIM_CTL.format(model=model, extra=extra))
         sim_mod.run_simulation("sim.ctl")
     finally:
         os.chdir(cwd)
@@ -58,16 +62,18 @@ def simdir(tmp_path_factory):
     return tmp
 
 
-@pytest.mark.parametrize("model", ["0", "HKY"])
-def test_simulator_writes_identical_files(tmp_path, model):
+@pytest.mark.parametrize("model,extra", [("0", ""), ("HKY", ""),
+                                         ("0", MIGRATION)],
+                         ids=["0", "HKY", "migration"])
+def test_simulator_writes_identical_files(tmp_path, model, extra):
     from bpp_tpu.sim import simulate as sim_jax
     from bpp_tpu_torch.sim import simulate as sim_port
     a, b = tmp_path / "jax", tmp_path / "port"
     a.mkdir()
     b.mkdir()
-    _simulate(a, sim_jax, model)
-    _simulate(b, sim_port, model)
-    for name in ("sim.phy", "sim.Imap.txt"):
+    _simulate(a, sim_jax, model, extra)
+    _simulate(b, sim_port, model, extra)
+    for name in ("sim.phy", "sim.Imap.txt", "sim.tre"):
         assert (a / name).read_bytes() == (b / name).read_bytes(), name
 
 

@@ -13,7 +13,10 @@ card; the gene trees a species SPR, an SNL and an rj move propose (K1 on
 haploid A01 data, K2 on diploid A11 data), and the caches of those chains
 on the card; both kernels on the per-locus eigensystems of a DNA
 partition (``model = custom``), and the 20-state plain pass of an
-amino-acid batch (WAG) in float32 on the card against float64 on the CPU.
+amino-acid batch (WAG) in float32 on the card against float64 on the CPU;
+under MSC-M migration, K1 on the gene trees the sim-SPR move proposes and
+on a clock = 2 chain's sub-edge branch lengths, K2 on a diploid batch
+simulated under migration, and the caches of those chains on the card.
 Needs a CUDA device and nvcc; skips without them.
 
     python -m pytest tests/test_torch_kernel_gpu.py -q
@@ -539,7 +542,7 @@ def _proposed_trees(eng, state, move_name):
     """The gene trees the pruning kernel was launched on inside one call of
     the move, and the loci whose trees are valid (a proposal the move
     rejects by its own checks may hold loci that are not trees)."""
-    from bpp_tpu_torch.mcmc import rj_moves, stree_moves
+    from bpp_tpu_torch.mcmc import mig_moves, rj_moves, stree_moves
     from bpp_tpu_torch.mcmc import state as state_mod
     from bpp_tpu_torch.testing import gene_tree_faults
     from bpp_tpu_torch.trees.gtree import GTrees
@@ -557,6 +560,9 @@ def _proposed_trees(eng, state, move_name):
     try:
         if move_name == "rj":
             rj_moves.rj_move(eng.ctx, eng.cfg, state, eng.gen, eng.root_age0)
+        elif move_name == "spr_sim":
+            mig_moves.spr_sim_move(eng.ctx, eng.cfg, eng.mig_routes, state,
+                                   eng.gen)
         else:
             getattr(stree_moves, move_name)(eng.ctx, eng.cfg, state, eng.gen)
     finally:
@@ -750,3 +756,124 @@ nsample = 2
     want = make_logl_fn(ctx64, eng.cfg)(host(st.gt), host(st.subst))
     assert torch.isfinite(got).all()
     assert float((got - want).abs().max()) < 0.02
+
+
+# --- MSC-M migration ---------------------------------------------------------
+
+MIG_SIM = "model = 0\nmigration = 2\nA B 20\nB A 20"
+MIG_SIM_DIPLOID = ("model = 3\nkappa = 2\nbasefreqs = 0.3 0.2 0.2 0.3\n"
+                   "migration = 2\nA B 20\nB A 20")
+MIG_RUN = "migration = 2\nA B 2 0.1\nB A 2 0.1"
+
+
+def _mig_engine(tmp, priors=(), diploid=False):
+    """A CUDA engine after 10 iterations of an MSC-M chain on 12 loci
+    simulated with migration between A and B: (engine, state)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from bpp_tpu_torch.loader import load_run_from_ctl
+    from bpp_tpu_torch.mcmc.driver import Engine
+    from bpp_tpu_torch.testing import write_simulated_run
+    run = load_run_from_ctl(write_simulated_run(
+        tmp, n_loci=12, n_sites=60, seqs=(2, 2, 2, 2),
+        diploid=(1, 1, 0, 0) if diploid else None,
+        sim_model=MIG_SIM_DIPLOID if diploid else MIG_SIM,
+        model="HKY" if diploid else "JC69", priors=(MIG_RUN, *priors)))
+    eng = Engine(run, seed=3, device="cuda")
+    state = eng.init_state()
+    state, _ = eng.chunk_step(state, 10)
+    return eng, state
+
+
+@pytest.fixture(scope="module")
+def cuda_mig(tmp_path_factory):
+    return _mig_engine(tmp_path_factory.mktemp("gpumig"))
+
+
+@pytest.fixture(scope="module")
+def cuda_mig_relaxed(tmp_path_factory):
+    return _mig_engine(tmp_path_factory.mktemp("gpumigc"), (
+        "locusrate = 1 10 10 5 iid", "clock = 2 10 100 5 iid G"))
+
+
+@pytest.fixture(scope="module")
+def cuda_mig_diploid(tmp_path_factory):
+    return _mig_engine(tmp_path_factory.mktemp("gpumigd"), diploid=True)
+
+
+def _mig_blen(eng, state, dtype):
+    from bpp_tpu_torch.trees import migration as mg
+    gt = state.gt._replace(age=state.gt.age.to(dtype))
+    sp = state.sp._replace(tau=state.sp.tau.to(dtype))
+    mig = state.mig._replace(time=state.mig.time.to(dtype))
+    pops = mg.assign_populations_mig(gt, sp, eng.ctx.tip_pop, mig,
+                                     eng.ctx.n_seq)
+    return mg.relaxed_branch_lengths_mig(gt, sp, mig, pops, eng.ctx.n_seq,
+                                         state.clock.brate.to(dtype))
+
+
+@pytest.mark.parametrize("store", STORES)
+@pytest.mark.parametrize("data", ["cuda_mig", "cuda_mig_relaxed",
+                                  "cuda_mig_diploid"])
+@pytest.mark.parametrize("model_name,n_cats", MODELS)
+def test_kernels_on_migration_trees(request, data, model_name, n_cats,
+                                    store):
+    """K1 on the gene trees spr_sim_move proposes and on the sub-edge
+    branch lengths of a clock = 2 MSC-M chain, K2 on a diploid batch
+    simulated under migration, each against its float64 plain version."""
+    from bpp_tpu_torch.core import fels, pack
+    from bpp_tpu_torch.core import felsenstein as fe
+    eng, state = request.getfixturevalue(data)
+    ctx = eng.ctx
+    ok = ctx.locus_mask
+    b32 = b64 = None
+    if data == "cuda_mig":
+        state, ok = _proposed_trees(eng, state, "spr_sim")
+    elif data == "cuda_mig_relaxed":
+        b32 = _mig_blen(eng, state, torch.float32).contiguous()
+        b64 = _mig_blen(eng, state, torch.float64)
+    L = state.gt.n_loci
+    model, s32 = fixed_subst(model_name, n_cats, L, torch.float32, "cuda")
+    _, s64 = fixed_subst(model_name, n_cats, L, torch.float64, "cuda")
+    kw = dict(model=model, n_cats=n_cats)
+    a32 = _args(state, ctx, s32, torch.float32)
+    a64 = _args(state, ctx, s64, torch.float64)
+    if ctx.res_map is None:
+        got = pack.site_logl_packed(*a32, blen=b32, units=ctx.units,
+                                    clv_store=store, **kw).double()
+        want = pack.site_logl_packed_ref(*a64, blen=b64, **kw)
+    else:
+        w64 = ctx.weights.double()
+        gs = fels.site_logl_fels(*a32[:-1], n_pat=ctx.n_pat, units=ctx.units,
+                                 clv_store=store, **kw).double()
+        ws = fels.site_logl_fels_ref(*a64[:-1], n_pat=ctx.n_pat, **kw)
+        assert float((gs - ws)[ok].abs().max()) < 2e-3
+        got = fe.reduce_root(gs, w64, ctx.res_map, ctx.res_count)
+        want = fe.reduce_root(ws, w64, ctx.res_map, ctx.res_count)
+    torch.cuda.synchronize()
+    assert (pack if ctx.res_map is None else fels).CLV_STORE == store
+    assert bool(ok.any())
+    assert bool(torch.isfinite(got[ok]).all())
+    assert float((got - want)[ok].abs().max()) < 0.02
+
+
+@pytest.mark.parametrize("data", ["cuda_mig", "cuda_mig_relaxed",
+                                  "cuda_mig_diploid"])
+def test_mig_chains_keep_their_caches_on_the_card(request, data):
+    """A few more iterations of each MSC-M chain on the card: the cached
+    logl and logpr stay within float32 roundoff of fresh ones, and every
+    real locus's routes and events are consistent."""
+    from bpp_tpu_torch.trees import migration as mg
+    eng, state = request.getfixturevalue(data)
+    state, _ = eng.chunk_step(state, 3)
+    ctx = eng.ctx
+    logl = eng._logl_fn(state.gt, state.subst, state.sp, state.clock,
+                        mig=state.mig)
+    logpr, *_, pops = eng._logpr_mig_fn(state.gt, state.sp, state.mig,
+                                        state.subst.heredity)
+    m = ctx.locus_mask
+    assert float((logl - state.logl)[m].abs().max()) < 1e-3
+    assert float((logpr - state.logpr)[m].abs().max()) < 1e-3
+    ok = mg.route_consistent_mig(state.gt, state.sp, state.mig, pops,
+                                 ctx.n_seq)
+    assert bool((ok | ~m).all())

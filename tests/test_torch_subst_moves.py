@@ -372,9 +372,8 @@ def test_discrete_gamma_rates_float32_over_the_slide_range():
 
 
 @pytest.mark.parametrize("line,item", [
-    ("migration = 1\nA C 2 10", "10g"),
+    ("geneflow = 1", "10g-geneflow"),
     ("traitfile = traits.txt", "10h"),
-    ("chains = 2", "10j"),
 ])
 def test_other_combinations_stay_refused(tmp_path, line, item):
     from bpp_tpu_torch.io.ctl import parse_ctl
