@@ -13,8 +13,10 @@ holds:
   leaf): on an MSC-I network also the gene trees' int8 hybridization
   flags ``state.gt.hpath``, the species arrays' ``phi`` and their other
   network fields, under MSC-M the migration events and rates
-  (``state.mig.time``, ``.node``, ``.src``, ``.dst``, ``.M``, ``.Mi``),
-  each restored in its dtype and shape;
+  (``state.mig.time``, ``.node``, ``.src``, ``.dst``, ``.M``, ``.Mi``, and
+  the geneflow mask ``.on``), with traits their branch rates and cached
+  log-likelihoods (``state.trait.brate``, ``.logl``), each restored in
+  its dtype and shape;
 * ``rng_state``: the bytes of the run's ``torch.Generator``
   (``get_state()``; on CUDA, Philox's seed and offset), where ``bpp_tpu``
   stores its JAX PRNG key;

@@ -5,6 +5,8 @@ Usage:
   python -m bpp_tpu_torch --resume out.chk.npz [--extend N] [--device cpu]
   python -m bpp_tpu_torch --simulate sim.ctl [--seed N]
   python -m bpp_tpu_torch --msci-create defs.txt
+  python -m bpp_tpu_torch --summary run.ctl
+  python -m bpp_tpu_torch --bfdriver run.ctl [--points K]
 
 ``--cfile`` runs on the GPU (``cuda``) unless ``--device cpu`` is given;
 with no CUDA device it exits with an error.  It writes
@@ -35,8 +37,13 @@ migration mcmc.txt has a ``W:`` column a route (its rate M), and the
 a1b1 log a row a route.  ``--chains K`` (``chains = K``) runs K replicate
 chains: chain 1 writes ``<jobname>.mcmc.txt``, chain k
 ``<jobname>.c<k>.mcmc.txt``, and ``<jobname>.txt`` pools them with a
-split-R-hat table (``_run_multichain``).  ``--summary`` and
-``--bfdriver`` are later work.
+split-R-hat table (``_run_multichain``).  ``--x64`` runs in float64, on
+the card through the kernels' float64 builds.  ``--summary`` re-reads
+``<jobname>.mcmc.txt`` and rewrites the ``<jobname>.txt`` report without
+sampling (:func:`cmd_summary`); ``--bfdriver`` writes the control files
+of a power-posterior run for the marginal likelihood
+(``tools.bfdriver``).  ``--multihost`` (locus sharding) is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -65,12 +72,24 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--simulate", help="simulation control file")
     ap.add_argument("--msci-create", dest="msci_create",
                     help="MSC-I network definitions file -> extended newick")
+    ap.add_argument("--summary", metavar="CTL",
+                    help="re-read the run's mcmc file and rewrite its "
+                    "summary without sampling (bpp.c:871 opt_onlysummary)")
+    ap.add_argument("--bfdriver", metavar="CTL",
+                    help="write K power-posterior control files and "
+                    "<CTL>.betaweights.csv for marginal-likelihood "
+                    "estimation (bfdriver.c:1161)")
+    ap.add_argument("--points", type=int, default=8,
+                    help="Gauss-Legendre points for --bfdriver (even)")
+    ap.add_argument("--multihost", default=None, metavar="SPEC",
+                    help=argparse.SUPPRESS)
     ap.add_argument("--seed", type=int, default=None, help="override seed")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default cuda; 'cpu' "
                     "runs the plain PyTorch path)")
     ap.add_argument("--x64", action="store_true",
-                    help="run in float64 (CPU only in this version)")
+                    help="run in float64 (on the GPU through the float64 "
+                    "builds of the pruning kernels)")
     ap.add_argument("--check", type=int, default=None, metavar="N",
                     help="every N iterations recompute the cached logl/"
                     "logpr (and integrated-theta caches) from scratch and "
@@ -142,14 +161,38 @@ class LocusFiles:
             fp.close()
 
 
+def method_report(cfg, st, gen, theta, tau, lnl, sptrees, phi=None,
+                  migM=None, mubar=None) -> str:
+    """The report of the run's method: A11, A01 or A10 from the species
+    trees and taus, else the A00 posterior summary."""
+    if cfg.est_stree and cfg.est_delimit:
+        from .summary.mixed_summary import format_a11_summary, summarize_mixed
+        trees, nsp = summarize_mixed(sptrees, tau, st.names)
+        return format_a11_summary(trees, nsp, len(gen))
+    if cfg.est_stree:
+        from .summary.stree_summary import (
+            format_a01_summary, summarize_sptrees,
+        )
+        topo, clades, n = summarize_sptrees(sptrees, st.names)
+        return format_a01_summary(topo, clades, n, st.names)
+    if cfg.est_delimit:
+        from .summary.delimit_summary import (
+            format_a10_summary, summarize_delimitations,
+        )
+        models, nsp = summarize_delimitations(tau, st)
+        return format_a10_summary(models, nsp, len(gen), st)
+    from .output import a00_summary
+    return a00_summary(cfg, st, gen, theta, tau, lnl, phi=phi, migM=migM,
+                       mubar=mubar)
+
+
 def cmd_run(args) -> int:
     from . import checkpoint as ckpt
     from .io.ctl import parse_ctl_text
     from .loader import load_run
     from .mcmc.driver import Engine, resolve_device
     from .output import (
-        A01McmcWriter, McmcWriter, a00_summary, figtree_export,
-        read_mcmc_samples,
+        A01McmcWriter, McmcWriter, figtree_export, read_mcmc_samples,
     )
     from .summary.allfixed import hpd_interval
     from .summary.lswitch import bdi_pairs_of
@@ -287,28 +330,11 @@ def cmd_run(args) -> int:
         phi = np.stack(log.phi) if log.phi else None
         migM = np.stack(log.migM) if log.migM else None
     a00 = not (cfg.est_stree or cfg.est_delimit)
-    if cfg.est_stree and cfg.est_delimit:
-        from .summary.mixed_summary import format_a11_summary, summarize_mixed
-        trees, nsp = summarize_mixed(sptrees, tau, run.stree.names)
-        report = format_a11_summary(trees, nsp, len(gen))
-    elif cfg.est_stree:
-        from .summary.stree_summary import (
-            format_a01_summary, summarize_sptrees,
-        )
-        topo, clades, n = summarize_sptrees(sptrees, run.stree.names)
-        report = format_a01_summary(topo, clades, n, run.stree.names)
-    elif cfg.est_delimit:
-        from .summary.delimit_summary import (
-            format_a10_summary, summarize_delimitations,
-        )
-        models, nsp = summarize_delimitations(tau, run.stree)
-        report = format_a10_summary(models, nsp, len(gen), run.stree)
-    else:
-        if phi is not None and bdi_pairs_of(run.stree) and len(gen):
-            _relabel_bdi(cfg, run, mcmc_path, gen, theta, tau, lnl, phi,
-                         args.quiet)
-        report = a00_summary(cfg, run.stree, gen, theta, tau, lnl, phi=phi,
-                             migM=migM, mubar=mubar)
+    if a00 and phi is not None and bdi_pairs_of(run.stree) and len(gen):
+        _relabel_bdi(cfg, run, mcmc_path, gen, theta, tau, lnl, phi,
+                     args.quiet)
+    report = method_report(cfg, run.stree, gen, theta, tau, lnl, sptrees,
+                           phi=phi, migM=migM, mubar=mubar)
 
     # FigTree.tre (allfixed.c:571): A00 fixed multi-species tree only
     if (a00 and run.stree.n_tips > 1 and run.stree.n_hybrids == 0
@@ -476,6 +502,35 @@ def _run_multichain(args, cfg, run, eng, mcmc_path, cfg_text, ctl_dir,
     return 0
 
 
+def cmd_summary(args) -> int:
+    """``--summary``: summarise an existing mcmc file without sampling
+    (bpp.c:871-874 opt_onlysummary; port of ``bpp_tpu/cli.py``'s
+    ``cmd_summary``): the A00, A01, A10 or A11 report into
+    ``<jobname>.txt``."""
+    from .io.ctl import parse_ctl
+    from .loader import build_species_tree
+    from .output import read_mcmc_samples
+
+    cfg = parse_ctl(args.summary)
+    st = build_species_tree(cfg)
+    mcmc_path = cfg.mcmcfile or f"{cfg.jobname}.mcmc.txt"
+    if not os.path.exists(mcmc_path):
+        print(f"no mcmc file {mcmc_path!r} to summarize", file=sys.stderr)
+        return 1
+    gen, theta, tau, lnl, sptrees, phi = read_mcmc_samples(cfg, st,
+                                                           mcmc_path)
+    report = method_report(cfg, st, gen, theta, tau, lnl, sptrees, phi=phi)
+    out_path = f"{cfg.jobname}.txt"
+    with open(out_path, "w") as fh:
+        fh.write(f"bpp_tpu_torch {cfg.method.name} summary-only re-run "
+                 f"({len(gen)} samples)\n\n")
+        fh.write(report + "\n")
+    if not args.quiet:
+        print(report)
+        print(f"\nwrote {out_path}", file=sys.stderr)
+    return 0
+
+
 def cmd_simulate(args) -> int:
     from .sim.simulate import run_simulation
 
@@ -490,6 +545,13 @@ def main(argv=None) -> int:
     if args.extend < 0:
         print("--extend must not be negative", file=sys.stderr)
         return 1
+    if args.multihost is not None:
+        print("--multihost is not ported to bpp_tpu_torch yet (ROADMAP "
+              "Queue 1 item 10m: sharding over torch.distributed)",
+              file=sys.stderr)
+        return 2
+    if args.summary:
+        return cmd_summary(args)
     if args.cfile or args.resume:
         import torch
 
@@ -504,6 +566,9 @@ def main(argv=None) -> int:
     if args.msci_create:
         from .tools.msci_create import cmd_msci_create
         return cmd_msci_create(args.msci_create)
+    if args.bfdriver:
+        from .tools.bfdriver import cmd_bfdriver
+        return cmd_bfdriver(args.bfdriver, args.points)
     build_argparser().print_help()
     return 1
 

@@ -9,7 +9,8 @@ a test can hand a JAX chain's state to the port and compare densities on
 the same trees.  ``"clock"`` is optional (the strict clock without
 estimated locus rates carries none), and so are ``"mig"`` (MSC-M: the
 fields of ``MigState``, events and rates) and the arrays ``"coal"`` and
-``"t2h"`` (integrated-out thetas) and ``"mubar"`` (tip dating).
+``"t2h"`` (integrated-out thetas), ``"mubar"`` (tip dating) and
+``"trait"`` (morphological traits: the fields of ``TraitState``).
 
 Carried: every field of the four, the MSC-I network's too — the gene
 trees' hybridization flags ``hpath`` (int8) and the species arrays'
@@ -17,8 +18,9 @@ trees' hybridization flags ``hpath`` (int8) and the species arrays'
 ``bdi_partner``, ``bdi_mirror``, ``bdi_pairs``, ``rate_nodes`` and
 ``rate_owner`` (index fields as int64, masks as bool) — and the
 migration events' ``time``, ``node``, ``src``, ``dst`` and the rates
-``M``, ``Mi`` (and the geneflow mask ``on``).  A field the port does not
-have (traits) raises.
+``M``, ``Mi`` and the geneflow mask ``on``, and the traits' branch
+rates ``brate`` and cached ``logl``.  A field the port does not have
+raises.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from .mcmc.state import (
 )
 from .trees.gtree import GTrees, SpeciesArrays
 from .trees.migration import MigState
+from .trees.traits import TraitState
 
 _INT_FIELDS = {"left", "right", "parent", "mrca", "hslot", "hybrid",
                "hindex", "bdi_partner", "bdi_pairs", "rate_owner", "node",
@@ -73,11 +76,13 @@ def state_from_numpy(arrays: dict[str, dict[str, np.ndarray]], device="cpu",
     gt = _build(GTrees, arrays["gt"], dtype, device)
     sp = _build(SpeciesArrays, arrays["sp"], dtype, device)
     subst = _build(SubstState, arrays["subst"], dtype, device)
-    clock = mig = None
+    clock = mig = trait = None
     if arrays.get("clock") is not None:
         clock = _build(ClockState, arrays["clock"], dtype, device)
     if arrays.get("mig") is not None:
         mig = _build(MigState, arrays["mig"], dtype, device)
+    if arrays.get("trait") is not None:
+        trait = _build(TraitState, arrays["trait"], dtype, device)
     zeros = torch.zeros((gt.n_loci,), dtype=dtype, device=device)
     ft = (finetune_array(cfg, dtype, device) if cfg is not None
           else torch.zeros((N_FINETUNE,), dtype=dtype, device=device))
@@ -90,4 +95,4 @@ def state_from_numpy(arrays: dict[str, dict[str, np.ndarray]], device="cpu",
     return McmcState(gt=gt, sp=sp, subst=subst, logl=zeros, logpr=zeros,
                      finetune=ft, clock=clock,
                      coal=opt("coal", torch.int64), t2h=opt("t2h", dtype),
-                     mubar=opt("mubar", dtype), mig=mig)
+                     mubar=opt("mubar", dtype), mig=mig, trait=trait)

@@ -21,9 +21,9 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
-# -split-compile 0: each source instantiates its kernel for 3 model
-# families x 8 category counts x 2 CLV stores; nvcc optimises them on all
-# the host's cores
+# -split-compile 0: each source instantiates its kernel for 2 scalar types
+# (float, double) x 3 model families x 8 category counts x 2 CLV stores;
+# nvcc optimises them on all the host's cores
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-split-compile", "0", "-shared", "-Xcompiler", "-fPIC")
 

@@ -10,7 +10,8 @@ batches with a diploid resolution map: the ``[L, S]`` output goes through
 resolutions.  On a CUDA tensor :func:`site_logl_fels` checks its inputs and
 launches the hand-written kernel in ``csrc/fels_kernel.cu``, which computes
 branch lengths and exponential factors itself, or raises; it never falls
-back.  On a CPU tensor it computes the same function with
+back; the kernel has a float32 and a float64 build, and the inputs' dtype
+picks one.  On a CPU tensor it computes the same function with
 :func:`site_logl_fels_ref`.
 """
 
@@ -28,8 +29,10 @@ from .pack import (
 from .pmatrix import pmatrix_model
 from .units import Units
 
-# kernel launches since import (reset by callers that count a run)
+# kernel launches since import (reset by callers that count a run), and
+# those of the float64 build among them
 LAUNCHES = 0
+LAUNCHES_F64 = 0
 # the CLV store of the last launch: "shared" or "global"
 CLV_STORE = None
 
@@ -61,7 +64,7 @@ def site_logl_fels_ref(order, left, right, parent, n_seq, age, mu,
 
 def _kernel_lib():
     """The built K2 library."""
-    return kernel_lib("fels_kernel", "bpp_fels", "bpp_fels_site_logl", 16, 7)
+    return kernel_lib("fels_kernel", "bpp_fels", "bpp_fels_site_logl", 16, 8)
 
 
 def site_logl_fels(order, left, right, parent, n_seq, age, mu, rates_kappa,
@@ -70,7 +73,8 @@ def site_logl_fels(order, left, right, parent, n_seq, age, mu, rates_kappa,
                    units: Units | None = None, clv_store=None):
     """Per-pattern log-likelihoods ``[L, S]`` of 4-state data.
 
-    CUDA tensors: f32 state, int64 indices; checks and one kernel launch,
+    CUDA tensors: float32 or float64 state (the kernel's build of that
+    type), int64 indices; checks and one kernel launch,
     which computes branch lengths, exponential factors, pruning, rescaling
     and the root value of every real pattern, and writes 0 to the columns
     past ``n_pat``.  ``units`` is the batch's static unit table
@@ -112,16 +116,17 @@ def kernel_args(order, left, right, parent, n_seq, age, mu, rates_kappa,
         model=model, n_cats=n_cats, blen=blen, clv_store=clv_store,
         threads=threads or BLOCK_THREADS)
     L, T, S, _ = tips.shape
-    out = torch.empty((L, S), dtype=torch.float32, device=tips.device)
+    out = torch.empty((L, S), dtype=tips.dtype, device=tips.device)
     dims = (T, S, units.n_units, n_cats, fam,
-            int(plan.clv_store == "shared"), plan.threads)
+            int(plan.clv_store == "shared"), plan.threads,
+            int(tips.dtype == torch.float64))
     return KernelArgs(tree + (out,), dims, plan)
 
 
 def launch(args: KernelArgs):
     """One launch of K2 on the current stream; returns the ``[L, S]``
     output."""
-    global LAUNCHES, CLV_STORE
+    global LAUNCHES, LAUNCHES_F64, CLV_STORE
     out = args.tensors[-1]
     stream = torch.cuda.current_stream(out.device).cuda_stream
     rc = _kernel_lib().bpp_fels_site_logl(*data_ptrs(args.tensors),
@@ -129,5 +134,6 @@ def launch(args: KernelArgs):
     if rc != 0:
         raise RuntimeError(f"fels_kernel launch failed: cudaError {rc}")
     LAUNCHES += 1
+    LAUNCHES_F64 += int(out.dtype == torch.float64)
     CLV_STORE = args.plan.clv_store
     return out

@@ -6,6 +6,8 @@ argument convention minus the TPU lane-packing layout.  On a CUDA
 tensor :func:`site_logl_packed` checks its inputs and launches the
 hand-written kernel in ``csrc/pack_kernel.cu``, which computes branch
 lengths and exponential factors itself, or raises; it never falls back.
+The kernel has a float32 and a float64 build (``--x64``): the inputs'
+dtype picks one, and the CLV store is planned for its element size.
 On a CPU tensor it computes the same function with
 :func:`site_logl_packed_ref`, the port's ``felsenstein.loglikelihood``
 over ``compute_pmats``.
@@ -25,8 +27,10 @@ from .efactors import model_family
 from .pmatrix import pmatrix_model
 from .units import Units
 
-# kernel launches since import (reset by callers that count a run)
+# kernel launches since import (reset by callers that count a run), and
+# those of the float64 build among them
 LAUNCHES = 0
+LAUNCHES_F64 = 0
 # the CLV store of the last launch: "shared" or "global"
 CLV_STORE = None
 # threads per block of both kernels.  Shared memory sets how many warps an SM holds, and
@@ -38,6 +42,8 @@ BLOCK_THREADS = 64
 BLOCK_SHARED = 232448 - 256
 
 _FAM_CODE = {"jc69": 0, "tn93": 1, "gtr": 2}
+# the dtypes the kernels are built for
+KERNEL_DTYPES = (torch.float32, torch.float64)
 
 
 def scaled_lengths(order, left, right, parent, age, mu, rates_kappa, n_cats,
@@ -124,9 +130,11 @@ def tree_tensors(who, lib_prefix, lib, order, left, right, parent, n_seq, age,
     """What kernels K1 and K2 both read, checked: the tensors in the order
     of the C signature up to the CLV scratch (tips, age, blen, mu,
     rates_kappa, freqs, eigw, eigT, eigTi, order, left, right, n_seq,
-    units, scratch), the model family's code and the launch plan.  Nothing
-    is computed here: branch lengths and factors are the kernel's
-    prologue.  The scratch exists only under the global CLV store."""
+    units, scratch), the model family's code and the launch plan.  The
+    tips' dtype (float32 or float64) picks the kernel's build, and every
+    parameter must have it.  Nothing is computed here: branch lengths and
+    factors are the kernel's prologue.  The scratch exists only under the
+    global CLV store."""
     if tips.device.type != "cuda":
         raise ValueError(f"{who}: the kernel takes CUDA tensors, "
                          f"got {tips.device}")
@@ -134,7 +142,10 @@ def tree_tensors(who, lib_prefix, lib, order, left, right, parent, n_seq, age,
     L, T, S, A = tips.shape
     N = 2 * T - 1
     C = n_cats
-    f32 = torch.float32
+    dt = tips.dtype
+    if dt not in KERNEL_DTYPES:
+        raise TypeError(f"{who}: tips have dtype {dt}, the kernel takes "
+                        "float32 or float64")
     if A != 4:
         raise ValueError(f"{who}: the kernel takes 4-state data")
     if T < 2:
@@ -143,7 +154,7 @@ def tree_tensors(who, lib_prefix, lib, order, left, right, parent, n_seq, age,
     if not 1 <= C <= max_cats:
         raise ValueError(f"{who}: {C} rate categories; the kernel "
                          f"takes 1..{max_cats}")
-    check_tensor(who, "tips", tips, f32, (L, T, S, 4), dev)
+    check_tensor(who, "tips", tips, dt, (L, T, S, 4), dev)
     for nm, t, shape in (("order", order, (L, T - 1)), ("left", left, (L, N)),
                          ("right", right, (L, N)), ("parent", parent, (L, N)),
                          ("n_seq", n_seq, (L,))):
@@ -153,7 +164,7 @@ def tree_tensors(who, lib_prefix, lib, order, left, right, parent, n_seq, age,
         # a view (an expanded prior mean, say) is copied; a contiguous
         # tensor is passed as it is
         t = t.contiguous()
-        check_tensor(who, name, t, f32, shape, dev)
+        check_tensor(who, name, t, dt, shape, dev)
         return t
 
     age = param("age", age, (L, N))
@@ -171,11 +182,13 @@ def tree_tensors(who, lib_prefix, lib, order, left, right, parent, n_seq, age,
             f"{units.n_cols} columns on {units.units.device}, the tips have "
             f"{L} loci of {S} columns on {dev}")
     fam = _FAM_CODE[model_family(model)]
-    plan = plan_launch(who, getattr(lib, f"{lib_prefix}_warp_bytes"), T, C,
-                       fam, clv_store, threads)
+    dbl = int(dt == torch.float64)
+    warp_bytes = getattr(lib, f"{lib_prefix}_warp_bytes")
+    plan = plan_launch(who, lambda *a: warp_bytes(*a, dbl), T, C, fam,
+                       clv_store, threads)
     scratch = None
     if plan.clv_store == "global":
-        scratch = torch.empty((units.n_units, T // 2, C, 32, 4), dtype=f32,
+        scratch = torch.empty((units.n_units, T // 2, C, 32, 4), dtype=dt,
                               device=dev)
     tensors = (tips, age, blen, mu, rates_kappa, freqs, eigw, eigT, eigTi,
                order, left, right, n_seq, units.units, scratch)
@@ -196,7 +209,7 @@ def kernel_lib(name, prefix, entry, n_ptrs, n_ints):
             + [ctypes.c_void_p]
         warp_bytes = getattr(lib, f"{prefix}_warp_bytes")
         warp_bytes.restype = ctypes.c_longlong
-        warp_bytes.argtypes = [ctypes.c_int] * 4
+        warp_bytes.argtypes = [ctypes.c_int] * 5
         max_cats = getattr(lib, f"{prefix}_max_cats")
         max_cats.restype = ctypes.c_int
         max_cats.argtypes = []
@@ -205,7 +218,7 @@ def kernel_lib(name, prefix, entry, n_ptrs, n_ints):
 
 def _kernel_lib():
     """The built K1 library."""
-    lib = kernel_lib("pack_kernel", "bpp_pack", "bpp_pack_logl", 19, 9)
+    lib = kernel_lib("pack_kernel", "bpp_pack", "bpp_pack_logl", 19, 10)
     if lib.bpp_pack_empty.argtypes is None:
         lib.bpp_pack_empty.restype = ctypes.c_int
         lib.bpp_pack_empty.argtypes = [ctypes.c_void_p]
@@ -228,7 +241,8 @@ def site_logl_packed(order, left, right, parent, n_seq, age, mu,
                      units: Units | None = None, clv_store=None):
     """Per-locus log-likelihoods ``[L]`` of 4-state, non-diploid data.
 
-    CUDA tensors: f32 state, int64 indices; checks and one kernel launch,
+    CUDA tensors: float32 or float64 state (the kernel's build of that
+    type), int64 indices; checks and one kernel launch,
     which computes branch lengths, exponential factors, pruning, rescaling,
     root reduction and pattern weighting.  ``units`` is the batch's static
     unit table (:class:`core.units.Units`, built once per run from
@@ -266,14 +280,15 @@ def kernel_args(order, left, right, parent, n_seq, age, mu, rates_kappa,
         threads=threads or BLOCK_THREADS)
     L, T, S, _ = tips.shape
     W = weights.shape[1]
-    check_tensor(who, "weights", weights, torch.float32, (L, W), tips.device)
+    check_tensor(who, "weights", weights, tips.dtype, (L, W), tips.device)
     if W > S:
         raise ValueError(f"{who}: more weights than patterns")
-    out = torch.empty((L,), dtype=torch.float32, device=tips.device)
+    out = torch.empty((L,), dtype=tips.dtype, device=tips.device)
     blocks = units.blocks(plan.threads // 32)
     tensors = tree + (weights, blocks, units.locus_unit0, out)
     dims = (T, S, units.n_units, W, blocks.shape[0], n_cats, fam,
-            int(plan.clv_store == "shared"), plan.threads)
+            int(plan.clv_store == "shared"), plan.threads,
+            int(tips.dtype == torch.float64))
     return KernelArgs(tensors, dims, plan)
 
 
@@ -283,7 +298,7 @@ def data_ptrs(tensors):
 
 def launch(args: KernelArgs):
     """One launch of K1 on the current stream; returns the ``[L]`` output."""
-    global LAUNCHES, CLV_STORE
+    global LAUNCHES, LAUNCHES_F64, CLV_STORE
     out = args.tensors[-1]
     stream = torch.cuda.current_stream(out.device).cuda_stream
     rc = _kernel_lib().bpp_pack_logl(*data_ptrs(args.tensors), *args.dims,
@@ -291,6 +306,7 @@ def launch(args: KernelArgs):
     if rc != 0:
         raise RuntimeError(f"pack_kernel launch failed: cudaError {rc}")
     LAUNCHES += 1
+    LAUNCHES_F64 += int(out.dtype == torch.float64)
     CLV_STORE = args.plan.clv_store
     return out
 

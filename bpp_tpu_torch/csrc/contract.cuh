@@ -35,8 +35,12 @@
 //     for all nodes at once by pointer jumping, not by a walk in schedule
 //     order.  core/units.py `slot_plan` is the same plan in numpy, tested
 //     on the CPU.
+//   * Scalar type, a template parameter R: float, or double for --x64
+//     (Real<R> below; the float build is the code this file held before
+//     the parameter, with the same intrinsics and constants).  A 4-vector
+//     of R is float4, or V4d, 32 bytes read as two 16-byte words.
 //   * CLV store, a template parameter: SHARED keeps the slots
-//     [slot][category][32] as float4 in the warp's shared memory (a warp
+//     [slot][category][32] as 4-vectors in the warp's shared memory (a warp
 //     reads 32 consecutive 16-byte words: no bank conflicts); the other
 //     store keeps the same slots in a device scratch
 //     [unit][slot][category][32], for trees whose slots do not fit in a
@@ -54,10 +58,12 @@
 //     one-sequence locus is rooted at tip 0.  The value is
 //     log(sum_c sum_a pi_a clv / C) + sum log scale.
 //
-// Shared memory per warp with the SHARED store, in bytes:
-//   512 C floor(T/2) (CLVs) + 8 (T-1) C K (factors) + 8 (T-1) (branch
-//   lengths) + 4 C (rates) + 10 (T-1) (plan), rounded
-//   up to 16.
+// Shared memory per warp with the SHARED store, in bytes, with b =
+// sizeof(R) (4, or 8 in double):
+//   128 b C floor(T/2) (CLVs) + 2 b (T-1) C K (factors) + 2 b (T-1)
+//   (branch lengths) + b C (rates) + 10 (T-1) (plan), rounded up to 16.
+// The figures below are float's; double's CLVs and factors take twice
+// as much (C = 4: 35 KB a warp, three 64-thread blocks an SM).
 // At T = 16 (K = 1 JC69, 3 TN93 class, 4 GTR) a warp / a 64-thread block,
 // the wrappers' block size:
 //   C = 1:  4,496 ..  4,864 B /  8.8 ..  9.5 KB (23-25 blocks an SM)
@@ -74,7 +80,6 @@
 
 namespace bpp {
 
-constexpr float kTiny = 1e-30f;
 constexpr int kLanes = 32;
 constexpr int kMaxCats = 8;
 // dynamic shared memory one block may ask for on sm_90
@@ -82,89 +87,146 @@ constexpr int kMaxBlockShared = 232448;
 
 enum { FAM_JC69 = 0, FAM_TN93 = 1, FAM_GTR = 2 };
 
+// A 4-vector of doubles: 32 bytes, read and written as two 16-byte words.
+struct __align__(16) V4d {
+  double x, y, z, w;
+};
+
+// The scalar type's vector, intrinsics and constants: the floor of a
+// level's rescale (kTiny) and the product of scale factors below which
+// their log is taken (kFlush) are float's in both builds.
+template <typename R> struct Real;
+
+template <> struct Real<float> {
+  using V4 = float4;
+  static constexpr float kTiny = 1e-30f;
+  static constexpr float kFlush = 1e-25f;
+  static __device__ __forceinline__ float4 make(float x, float y, float z,
+                                                float w) {
+    return make_float4(x, y, z, w);
+  }
+  static __device__ __forceinline__ float expm1_(float x) {
+    return expm1f(x);
+  }
+  static __device__ __forceinline__ float log_(float x) { return logf(x); }
+  static __device__ __forceinline__ float max_(float a, float b) {
+    return fmaxf(a, b);
+  }
+  static __device__ __forceinline__ float rcp(float x) {
+    return __frcp_rn(x);
+  }
+};
+
+template <> struct Real<double> {
+  using V4 = V4d;
+  static constexpr double kTiny = 1e-30;
+  static constexpr double kFlush = 1e-25;
+  static __device__ __forceinline__ V4d make(double x, double y, double z,
+                                             double w) {
+    V4d v;
+    v.x = x; v.y = y; v.z = z; v.w = w;
+    return v;
+  }
+  static __device__ __forceinline__ double expm1_(double x) {
+    return expm1(x);
+  }
+  static __device__ __forceinline__ double log_(double x) { return log(x); }
+  static __device__ __forceinline__ double max_(double a, double b) {
+    return fmax(a, b);
+  }
+  static __device__ __forceinline__ double rcp(double x) {
+    return __drcp_rn(x);
+  }
+};
+
 // What both kernels take (tensors of the whole batch, on the card).
+template <typename R>
 struct TreeArgs {
-  const float4* tips;      // [L, T, S] float4
-  const float* age;        // [L, N]
-  const float* blen;       // [L, N] or null: branch lengths, mu included
-  const float* mu;         // [L]
-  const float* rates;      // [L, C + 2]: category rates, kappa1, kappa2
-  const float* freqs;      // [L, 4]
-  const float* eigw;       // [L, 4] (GTR)
-  const float* eigT;       // [L, 16] (GTR)
-  const float* eigTi;      // [L, 16] (GTR)
+  using V4 = typename Real<R>::V4;
+  const V4* tips;          // [L, T, S] 4-vectors
+  const R* age;            // [L, N]
+  const R* blen;           // [L, N] or null: branch lengths, mu included
+  const R* mu;             // [L]
+  const R* rates;          // [L, C + 2]: category rates, kappa1, kappa2
+  const R* freqs;          // [L, 4]
+  const R* eigw;           // [L, 4] (GTR)
+  const R* eigT;           // [L, 16] (GTR)
+  const R* eigTi;          // [L, 16] (GTR)
   const int64_t* order;    // [L, T-1]
   const int64_t* left;     // [L, N]
   const int64_t* right;    // [L, N]
   const int64_t* n_seq;    // [L]
   const int4* units;       // [U]: locus, first pattern, real patterns, last
-  float4* scratch;         // [U, T/2, C, 32] float4 (global store) or null
+  V4* scratch;             // [U, T/2, C, 32] 4-vectors (global store) or null
   int T, S, U;
 };
 
-template <int FAM> struct Coefs;
+template <int FAM, typename R> struct Coefs;
 
-template <> struct Coefs<FAM_JC69> {
+template <typename R> struct Coefs<FAM_JC69, R> {
+  using V4 = typename Real<R>::V4;
   static constexpr int K = 1;
-  __device__ void load(const TreeArgs&, int64_t, int) {}
+  __device__ void load(const TreeArgs<R>&, int64_t, int) {}
   __device__ void prepare() {}
-  __device__ void factors(float t, float* e) const {
-    e[0] = expm1f(-4.0f / 3.0f * t);
+  __device__ void factors(R t, R* e) const {
+    e[0] = Real<R>::expm1_(R(-4) / R(3) * t);
   }
   // y = e x + (1-e)/4 Σx, as x + m (x - Σx/4) with m = e - 1
-  __device__ float4 apply(float4 x, const float* e) const {
-    const float m = e[0];
-    const float q = 0.25f * ((x.x + x.y) + (x.z + x.w));
-    return make_float4(x.x + m * (x.x - q), x.y + m * (x.y - q),
-                       x.z + m * (x.z - q), x.w + m * (x.w - q));
+  __device__ V4 apply(V4 x, const R* e) const {
+    const R m = e[0];
+    const R q = R(0.25) * ((x.x + x.y) + (x.z + x.w));
+    return Real<R>::make(x.x + m * (x.x - q), x.y + m * (x.y - q),
+                         x.z + m * (x.z - q), x.w + m * (x.w - q));
   }
 };
 
-template <> struct Coefs<FAM_TN93> {
+template <typename R> struct Coefs<FAM_TN93, R> {
+  using V4 = typename Real<R>::V4;
   static constexpr int K = 3;
-  float pa, pc, pg, pt, k1, k2, rR, rY, cA, cG, cC, cT, m, b3, b4;
+  R pa, pc, pg, pt, k1, k2, rR, rY, cA, cG, cC, cT, m, b3, b4;
   // load() only asks device memory for the parameters; prepare() uses
   // them, and so waits for them
-  __device__ void load(const TreeArgs& a, int64_t l, int C) {
-    const float* f = a.freqs + l * 4;
+  __device__ void load(const TreeArgs<R>& a, int64_t l, int C) {
+    const R* f = a.freqs + l * 4;
     pa = f[0]; pc = f[1]; pg = f[2]; pt = f[3];
     k1 = a.rates[l * (C + 2) + C];
     k2 = a.rates[l * (C + 2) + C + 1];
   }
   __device__ void prepare() {
-    const float R = pa + pg, Y = pc + pt;
-    m = 2.0f * (pa * pg * k1 + pc * pt * k2 + R * Y);
-    b3 = R * k1 + Y;
-    b4 = Y * k2 + R;
-    rR = (1.0f - R) / R; rY = (1.0f - Y) / Y;
-    cA = pg / R; cG = pa / R; cC = pt / Y; cT = pc / Y;
+    const R Rr = pa + pg, Y = pc + pt;
+    m = R(2) * (pa * pg * k1 + pc * pt * k2 + Rr * Y);
+    b3 = Rr * k1 + Y;
+    b4 = Y * k2 + Rr;
+    rR = (R(1) - Rr) / Rr; rY = (R(1) - Y) / Y;
+    cA = pg / Rr; cG = pa / Rr; cC = pt / Y; cT = pc / Y;
   }
   // e2 (any substitution), e3 (purine), e4 (pyrimidine), each minus 1
-  __device__ void factors(float t, float* e) const {
-    const float ts = t / m;
-    e[0] = expm1f(-ts);
-    e[1] = expm1f(-b3 * ts);
-    e[2] = expm1f(-b4 * ts);
+  __device__ void factors(R t, R* e) const {
+    const R ts = t / m;
+    e[0] = Real<R>::expm1_(-ts);
+    e[1] = Real<R>::expm1_(-b3 * ts);
+    e[2] = Real<R>::expm1_(-b4 * ts);
   }
   // pallas_fels's UR + cA e3 (xA - xG) etc., with every e = 1 + m so
   // that the t = 0 identity cancels algebraically: y = x + corrections
-  __device__ float4 apply(float4 x, const float* e) const {
-    const float m2 = e[0], m3 = e[1], m4 = e[2];
-    const float WR = pa * x.x + pg * x.z;
-    const float WY = pc * x.y + pt * x.w;
-    const float uR = m2 * (rR * WR - WY);
-    const float uY = m2 * (rY * WY - WR);
-    const float dRG = m3 * (x.x - x.z);
-    const float dCT = m4 * (x.y - x.w);
-    return make_float4(x.x + (uR + cA * dRG), x.y + (uY + cC * dCT),
-                       x.z + (uR - cG * dRG), x.w + (uY - cT * dCT));
+  __device__ V4 apply(V4 x, const R* e) const {
+    const R m2 = e[0], m3 = e[1], m4 = e[2];
+    const R WR = pa * x.x + pg * x.z;
+    const R WY = pc * x.y + pt * x.w;
+    const R uR = m2 * (rR * WR - WY);
+    const R uY = m2 * (rY * WY - WR);
+    const R dRG = m3 * (x.x - x.z);
+    const R dCT = m4 * (x.y - x.w);
+    return Real<R>::make(x.x + (uR + cA * dRG), x.y + (uY + cC * dCT),
+                         x.z + (uR - cG * dRG), x.w + (uY - cT * dCT));
   }
 };
 
-template <> struct Coefs<FAM_GTR> {
+template <typename R> struct Coefs<FAM_GTR, R> {
+  using V4 = typename Real<R>::V4;
   static constexpr int K = 4;
-  float w[4], T[16], Ti[16];
-  __device__ void load(const TreeArgs& a, int64_t l, int) {
+  R w[4], T[16], Ti[16];
+  __device__ void load(const TreeArgs<R>& a, int64_t l, int) {
     for (int i = 0; i < 4; ++i) w[i] = a.eigw[l * 4 + i];
     for (int i = 0; i < 16; ++i) {
       T[i] = a.eigT[l * 16 + i];
@@ -172,19 +234,19 @@ template <> struct Coefs<FAM_GTR> {
     }
   }
   __device__ void prepare() {}
-  __device__ void factors(float t, float* e) const {
-    for (int f = 0; f < 4; ++f) e[f] = expm1f(w[f] * t);
+  __device__ void factors(R t, R* e) const {
+    for (int f = 0; f < 4; ++f) e[f] = Real<R>::expm1_(w[f] * t);
   }
-  __device__ float4 apply(float4 x, const float* e) const {
-    float z[4];
+  __device__ V4 apply(V4 x, const R* e) const {
+    R z[4];
     for (int k = 0; k < 4; ++k)
       z[k] = e[k] * (Ti[k * 4 + 0] * x.x + Ti[k * 4 + 1] * x.y +
                      Ti[k * 4 + 2] * x.z + Ti[k * 4 + 3] * x.w);
-    float y[4];
+    R y[4];
     for (int i = 0; i < 4; ++i)
       y[i] = T[i * 4 + 0] * z[0] + T[i * 4 + 1] * z[1] +
              T[i * 4 + 2] * z[2] + T[i * 4 + 3] * z[3];
-    return make_float4(x.x + y[0], x.y + y[1], x.z + y[2], x.w + y[3]);
+    return Real<R>::make(x.x + y[0], x.y + y[1], x.z + y[2], x.w + y[3]);
   }
 };
 
@@ -192,43 +254,49 @@ __host__ __device__ inline int family_factors(int fam) {
   return fam == FAM_JC69 ? 1 : (fam == FAM_TN93 ? 3 : 4);
 }
 
-__device__ __forceinline__ float4 mul4(float4 a, float4 b) {
-  return make_float4(a.x * b.x, a.y * b.y, a.z * b.z, a.w * b.w);
+template <typename R>
+__device__ __forceinline__ typename Real<R>::V4 mul4(typename Real<R>::V4 a,
+                                                     typename Real<R>::V4 b) {
+  return Real<R>::make(a.x * b.x, a.y * b.y, a.z * b.z, a.w * b.w);
 }
 
-__device__ __forceinline__ float4 scale4(float4 a, float r) {
-  return make_float4(a.x * r, a.y * r, a.z * r, a.w * r);
+template <typename R>
+__device__ __forceinline__ typename Real<R>::V4 scale4(
+    typename Real<R>::V4 a, R r) {
+  return Real<R>::make(a.x * r, a.y * r, a.z * r, a.w * r);
 }
 
-__device__ __forceinline__ float max4(float4 a) {
-  return fmaxf(fmaxf(a.x, a.y), fmaxf(a.z, a.w));
+template <typename R>
+__device__ __forceinline__ R max4(typename Real<R>::V4 a) {
+  return Real<R>::max_(Real<R>::max_(a.x, a.y), Real<R>::max_(a.z, a.w));
 }
 
-// Byte offsets of one warp's state in its block's dynamic shared memory.
+// Byte offsets of one warp's state in its block's dynamic shared memory;
+// rb is sizeof(R).
 struct WarpLayout {
-  int clv;      // float4 [slots][C][32]     (SHARED store only)
-  int fac;      // float  [T-1][2][C][K]     expm1 factors, by level, child
-  int blen;     // float  [T-1][2]           mu-scaled branch lengths
-  int rate;     // float  [C]                the locus's category rates
+  int clv;      // V4   [slots][C][32]     (SHARED store only)
+  int fac;      // R    [T-1][2][C][K]     expm1 factors, by level, child
+  int blen;     // R    [T-1][2]           mu-scaled branch lengths
+  int rate;     // R    [C]                the locus's category rates
   int plan;     // short  srcL, srcR, dst, down, chain [T-1]
   int slots;    // CLV slots a pattern needs: floor(T/2)
   long long bytes;
 };
 
 __host__ __device__ inline WarpLayout warp_layout(int T, int C, int K,
-                                                  bool shared) {
+                                                  bool shared, int rb) {
   WarpLayout w;
   const long long nlev = T - 1;
   w.slots = T / 2;
   long long off = 0;
   w.clv = static_cast<int>(off);
-  if (shared) off += 16LL * kLanes * C * w.slots;
+  if (shared) off += 4LL * rb * kLanes * C * w.slots;
   w.fac = static_cast<int>(off);
-  off += 4LL * 2 * nlev * C * K;
+  off += 1LL * rb * 2 * nlev * C * K;
   w.blen = static_cast<int>(off);
-  off += 4LL * 2 * nlev;
+  off += 1LL * rb * 2 * nlev;
   w.rate = static_cast<int>(off);
-  off += 4LL * C;
+  off += 1LL * rb * C;
   w.plan = static_cast<int>(off);
   off += 2LL * 5 * nlev;
   w.bytes = (off + 15) & ~15LL;
@@ -239,19 +307,21 @@ __host__ __device__ inline WarpLayout warp_layout(int T, int C, int K,
 // past the unit's real patterns take part in the prologue and skip the
 // walk.  `region` is the warp's slice of the block's dynamic shared
 // memory, free for reuse once every lane has returned.
-template <int FAM, int C, bool SHARED>
+template <typename R, int FAM, int C, bool SHARED>
 struct UnitWalk {
-  static constexpr int K = Coefs<FAM>::K;
+  using Rt = Real<R>;
+  using V4 = typename Rt::V4;
+  static constexpr int K = Coefs<FAM, R>::K;
 
-  static __device__ float run(const TreeArgs& a, unsigned char* region,
-                              int u, int4 unit, int lane) {
+  static __device__ R run(const TreeArgs<R>& a, unsigned char* region,
+                          int u, int4 unit, int lane) {
     const int T = a.T, S = a.S, N = 2 * T - 1;
     const int64_t l = unit.x;
     const bool active = lane < unit.z;
-    const WarpLayout w = warp_layout(T, C, K, SHARED);
-    float* fac = reinterpret_cast<float*>(region + w.fac);
-    float* bl = reinterpret_cast<float*>(region + w.blen);
-    float* rate = reinterpret_cast<float*>(region + w.rate);
+    const WarpLayout w = warp_layout(T, C, K, SHARED, sizeof(R));
+    R* fac = reinterpret_cast<R*>(region + w.fac);
+    R* bl = reinterpret_cast<R*>(region + w.blen);
+    R* rate = reinterpret_cast<R*>(region + w.rate);
     short* srcL = reinterpret_cast<short*>(region + w.plan);
     short* srcR = srcL + (T - 1);
     short* dst = srcR + (T - 1);
@@ -259,10 +329,10 @@ struct UnitWalk {
     short* chain = down + (T - 1);
 
     // this lane's column of the tips, and of the CLV slots
-    const float4* tp = a.tips + (l * T) * S + (unit.y + lane);
-    float4* cv;
+    const V4* tp = a.tips + (l * T) * S + (unit.y + lane);
+    V4* cv;
     if constexpr (SHARED)
-      cv = reinterpret_cast<float4*>(region + w.clv) + lane;
+      cv = reinterpret_cast<V4*>(region + w.clv) + lane;
     else
       cv = a.scratch + static_cast<int64_t>(u) * w.slots * C * kLanes + lane;
 
@@ -278,13 +348,13 @@ struct UnitWalk {
     // the schedule names each inner node once, children before parents,
     // and 0 <= n_seq <= T (the batch's tip capacity is its largest locus).
     const int nlev = static_cast<int>(a.n_seq[l]) - 1;
-    const float mu = a.blen != nullptr ? 1.0f : a.mu[l];
-    const float* len = (a.blen != nullptr ? a.blen : a.age) + l * N;
-    const float* fq = a.freqs + l * 4;
-    const float f0 = fq[0], f1 = fq[1], f2 = fq[2], f3 = fq[3];
-    Coefs<FAM> cf;
+    const R mu = a.blen != nullptr ? R(1) : a.mu[l];
+    const R* len = (a.blen != nullptr ? a.blen : a.age) + l * N;
+    const R* fq = a.freqs + l * 4;
+    const R f0 = fq[0], f1 = fq[1], f2 = fq[2], f3 = fq[3];
+    Coefs<FAM, R> cf;
     cf.load(a, l, C);
-    const float my_rate = lane < C ? a.rates[l * (C + 2) + lane] : 0.0f;
+    const R my_rate = lane < C ? a.rates[l * (C + 2) + lane] : R(0);
     const int64_t* order = a.order + l * (T - 1);
     const int64_t* left = a.left + l * N;
     const int64_t* right = a.right + l * N;
@@ -295,11 +365,11 @@ struct UnitWalk {
       int rc = static_cast<int>(right[node]);
       lc = lc < 0 ? 0 : (lc >= N ? N - 1 : lc);
       rc = rc < 0 ? 0 : (rc >= N ? N - 1 : rc);
-      float tl = len[lc], tr = len[rc];
+      R tl = len[lc], tr = len[rc];
       if (a.blen == nullptr) {
-        const float an = len[node];
-        tl = fmaxf(an - tl, 0.0f) * mu;
-        tr = fmaxf(an - tr, 0.0f) * mu;
+        const R an = len[node];
+        tl = Rt::max_(an - tl, R(0)) * mu;
+        tr = Rt::max_(an - tr, R(0)) * mu;
       }
       srcL[k] = static_cast<short>(lc);
       srcR[k] = static_cast<short>(rc);
@@ -354,19 +424,19 @@ struct UnitWalk {
     // the K factors of one (level, child, category) per lane and round:
     // K independent expm1 chains, stored once all are there
     for (int p = lane; p < 2 * nlev * C; p += kLanes) {
-      float e[K];
+      R e[K];
       cf.factors(bl[p / C] * rate[p % C], e);
       for (int f = 0; f < K; ++f) fac[p * K + f] = e[f];
     }
     __syncwarp();
 
-    float value = 0.0f;
+    R value = R(0);
     if (active) {
       // A level's plan entry and tip children are read two levels before
       // it is walked, so that a tip's fetch from device memory overlaps
       // two levels and the plan is never waited for.
-      const float4 tip0 = tp[0];
-      float4 a0 = tip0, b0 = tip0, a1 = tip0, b1 = tip0;
+      const V4 tip0 = tp[0];
+      V4 a0 = tip0, b0 = tip0, a1 = tip0, b1 = tip0;
       int sl0 = 0, sr0 = 0, sl1 = 0, sr1 = 0;
       if (0 < nlev) {
         sl0 = srcL[0];
@@ -378,14 +448,14 @@ struct UnitWalk {
         sr1 = srcR[1];
         fetch_tips(tp, S, sl1, sr1, &a1, &b1);
       }
-      float4 y[C];
+      V4 y[C];
       for (int c = 0; c < C; ++c) y[c] = tip0;   // single-sequence locus
       // the scale factors are multiplied up and their log is taken when
       // the product nears the bottom of float32's range, and at the root
-      float logscale = 0.0f, scale = 1.0f;
+      R logscale = R(0), scale = R(1);
       for (int k = 0; k < nlev; ++k) {
         const int sl = sl0, sr = sr0;
-        const float4 ta = a0, tb = b0;
+        const V4 ta = a0, tb = b0;
         sl0 = sl1;
         sr0 = sr1;
         a0 = a1;
@@ -396,33 +466,34 @@ struct UnitWalk {
           fetch_tips(tp, S, sl1, sr1, &a1, &b1);
         }
         const int d = dst[k];
-        const float* eL = fac + 2 * k * C * K;
-        const float* eR = eL + C * K;
-        float m = 0.0f;
+        const R* eL = fac + 2 * k * C * K;
+        const R* eR = eL + C * K;
+        R m = R(0);
         for (int c = 0; c < C; ++c) {
-          const float4 xl = sl >= 0 ? ta : cv[((-1 - sl) * C + c) * kLanes];
-          const float4 xr = sr >= 0 ? tb : cv[((-1 - sr) * C + c) * kLanes];
-          y[c] = mul4(cf.apply(xl, eL + c * K), cf.apply(xr, eR + c * K));
-          m = fmaxf(m, max4(y[c]));
+          const V4 xl = sl >= 0 ? ta : cv[((-1 - sl) * C + c) * kLanes];
+          const V4 xr = sr >= 0 ? tb : cv[((-1 - sr) * C + c) * kLanes];
+          y[c] = mul4<R>(cf.apply(xl, eL + c * K), cf.apply(xr, eR + c * K));
+          m = Rt::max_(m, max4<R>(y[c]));
         }
-        m = fmaxf(m, kTiny);
-        const float inv = __frcp_rn(m);   // one reciprocal a level, not 4 C
-        for (int c = 0; c < C; ++c) y[c] = scale4(y[c], inv);
+        m = Rt::max_(m, Rt::kTiny);
+        const R inv = Rt::rcp(m);   // one reciprocal a level, not 4 C
+        for (int c = 0; c < C; ++c) y[c] = scale4<R>(y[c], inv);
         if (k + 1 < nlev)
           for (int c = 0; c < C; ++c) cv[(d * C + c) * kLanes] = y[c];
-        const float sm = scale * m;
-        if (sm < 1e-25f) {
-          logscale += logf(scale) + logf(m);
-          scale = 1.0f;
+        const R sm = scale * m;
+        if (sm < Rt::kFlush) {
+          logscale += Rt::log_(scale) + Rt::log_(m);
+          scale = R(1);
         } else {
           scale = sm;
         }
       }
-      float lik = 0.0f;
+      R lik = R(0);
       for (int c = 0; c < C; ++c)
-        lik += (1.0f / C) * (f0 * y[c].x + f1 * y[c].y + f2 * y[c].z +
+        lik += (R(1) / C) * (f0 * y[c].x + f1 * y[c].y + f2 * y[c].z +
                              f3 * y[c].w);
-      value = logf(fmaxf(lik, kTiny)) + (logscale + logf(scale));
+      value = Rt::log_(Rt::max_(lik, Rt::kTiny)) +
+              (logscale + Rt::log_(scale));
     }
     return value;
   }
@@ -434,56 +505,59 @@ struct UnitWalk {
   }
 
   // the tip children of one level (a source >= 0) from this lane's column
-  static __device__ __forceinline__ void fetch_tips(const float4* tp, int S,
+  static __device__ __forceinline__ void fetch_tips(const V4* tp, int S,
                                                     int sl, int sr,
-                                                    float4* xa, float4* xb) {
+                                                    V4* xa, V4* xb) {
     if (sl >= 0) *xa = tp[static_cast<int64_t>(sl) * S];
     if (sr >= 0) *xb = tp[static_cast<int64_t>(sr) * S];
   }
 };
 
-// Run `Launch<FAM, C, SHARED>::run(args...)` (an int: 0 or a cudaError)
-// for the runtime family, category count and CLV store; -1 for a
-// combination the kernels do not take.
-template <template <int, int, bool> class Launch, int FAM, bool SHARED,
-          typename... A>
+// Run `Launch<R, FAM, C, SHARED>::run(args...)` (an int: 0 or a
+// cudaError) for the runtime family, category count and CLV store; -1 for
+// a combination the kernels do not take.
+template <template <typename, int, int, bool> class Launch, typename R,
+          int FAM, bool SHARED, typename... A>
 int dispatch_cats(int C, A&&... args) {
   switch (C) {
-    case 1: return Launch<FAM, 1, SHARED>::run(args...);
-    case 2: return Launch<FAM, 2, SHARED>::run(args...);
-    case 3: return Launch<FAM, 3, SHARED>::run(args...);
-    case 4: return Launch<FAM, 4, SHARED>::run(args...);
-    case 5: return Launch<FAM, 5, SHARED>::run(args...);
-    case 6: return Launch<FAM, 6, SHARED>::run(args...);
-    case 7: return Launch<FAM, 7, SHARED>::run(args...);
-    case 8: return Launch<FAM, 8, SHARED>::run(args...);
+    case 1: return Launch<R, FAM, 1, SHARED>::run(args...);
+    case 2: return Launch<R, FAM, 2, SHARED>::run(args...);
+    case 3: return Launch<R, FAM, 3, SHARED>::run(args...);
+    case 4: return Launch<R, FAM, 4, SHARED>::run(args...);
+    case 5: return Launch<R, FAM, 5, SHARED>::run(args...);
+    case 6: return Launch<R, FAM, 6, SHARED>::run(args...);
+    case 7: return Launch<R, FAM, 7, SHARED>::run(args...);
+    case 8: return Launch<R, FAM, 8, SHARED>::run(args...);
     default: return -1;
   }
 }
 
-template <template <int, int, bool> class Launch, bool SHARED, typename... A>
+template <template <typename, int, int, bool> class Launch, typename R,
+          bool SHARED, typename... A>
 int dispatch_family(int fam, int C, A&&... args) {
   switch (fam) {
     case FAM_JC69:
-      return dispatch_cats<Launch, FAM_JC69, SHARED>(C, args...);
+      return dispatch_cats<Launch, R, FAM_JC69, SHARED>(C, args...);
     case FAM_TN93:
-      return dispatch_cats<Launch, FAM_TN93, SHARED>(C, args...);
+      return dispatch_cats<Launch, R, FAM_TN93, SHARED>(C, args...);
     case FAM_GTR:
-      return dispatch_cats<Launch, FAM_GTR, SHARED>(C, args...);
+      return dispatch_cats<Launch, R, FAM_GTR, SHARED>(C, args...);
     default: return -1;
   }
 }
 
-template <template <int, int, bool> class Launch, typename... A>
+template <template <typename, int, int, bool> class Launch, typename R,
+          typename... A>
 int dispatch(int fam, int C, bool shared, A&&... args) {
-  return shared ? dispatch_family<Launch, true>(fam, C, args...)
-                : dispatch_family<Launch, false>(fam, C, args...);
+  return shared ? dispatch_family<Launch, R, true>(fam, C, args...)
+                : dispatch_family<Launch, R, false>(fam, C, args...);
 }
 
-// Dynamic shared memory of a block of `threads` for this tree size.
+// Dynamic shared memory of a block of `threads` for this tree size, with
+// values of rb bytes.
 inline long long block_shared_bytes(int T, int C, int fam, bool shared,
-                                    int threads) {
-  return warp_layout(T, C, family_factors(fam), shared).bytes *
+                                    int threads, int rb) {
+  return warp_layout(T, C, family_factors(fam), shared, rb).bytes *
          (threads / kLanes);
 }
 
@@ -503,30 +577,30 @@ int allow_shared(Kernel kernel, long long bytes, long long* allowed) {
   return 0;
 }
 
-inline TreeArgs tree_args(const void* tips, const void* age,
-                          const void* blen, const void* mu,
-                          const void* rates, const void* freqs,
-                          const void* eigw, const void* eigT,
-                          const void* eigTi, const void* order,
-                          const void* left, const void* right,
-                          const void* n_seq, const void* units,
-                          void* scratch, int T, int S, int U) {
-  TreeArgs a;
-  a.tips = static_cast<const float4*>(tips);
-  a.age = static_cast<const float*>(age);
-  a.blen = static_cast<const float*>(blen);
-  a.mu = static_cast<const float*>(mu);
-  a.rates = static_cast<const float*>(rates);
-  a.freqs = static_cast<const float*>(freqs);
-  a.eigw = static_cast<const float*>(eigw);
-  a.eigT = static_cast<const float*>(eigT);
-  a.eigTi = static_cast<const float*>(eigTi);
+template <typename R>
+TreeArgs<R> tree_args(const void* tips, const void* age, const void* blen,
+                      const void* mu, const void* rates, const void* freqs,
+                      const void* eigw, const void* eigT, const void* eigTi,
+                      const void* order, const void* left, const void* right,
+                      const void* n_seq, const void* units, void* scratch,
+                      int T, int S, int U) {
+  using V4 = typename Real<R>::V4;
+  TreeArgs<R> a;
+  a.tips = static_cast<const V4*>(tips);
+  a.age = static_cast<const R*>(age);
+  a.blen = static_cast<const R*>(blen);
+  a.mu = static_cast<const R*>(mu);
+  a.rates = static_cast<const R*>(rates);
+  a.freqs = static_cast<const R*>(freqs);
+  a.eigw = static_cast<const R*>(eigw);
+  a.eigT = static_cast<const R*>(eigT);
+  a.eigTi = static_cast<const R*>(eigTi);
   a.order = static_cast<const int64_t*>(order);
   a.left = static_cast<const int64_t*>(left);
   a.right = static_cast<const int64_t*>(right);
   a.n_seq = static_cast<const int64_t*>(n_seq);
   a.units = static_cast<const int4*>(units);
-  a.scratch = static_cast<float4*>(scratch);
+  a.scratch = static_cast<V4*>(scratch);
   a.T = T;
   a.S = S;
   a.U = U;

@@ -1,5 +1,6 @@
-// Per-pattern Felsenstein pruning log-likelihoods [L, S] for 4-state data
-// (f32): the likelihood pass of batches that carry a diploid resolution
+// Per-pattern Felsenstein pruning log-likelihoods [L, S] for 4-state data,
+// in float or (for --x64) double, instantiations of one template: the
+// likelihood pass of batches that carry a diploid resolution
 // map, whose phase resolutions are averaged per weight pattern outside
 // the kernel (core/felsenstein.py `reduce_root`).
 //
@@ -38,8 +39,9 @@
 // three).
 //
 // C interface (built with nvcc into a shared library, loaded by ctypes
-// from bpp_tpu_torch/core/fels.py): bpp_fels_site_logl returns the value
-// of cudaGetLastError() right after the launch.
+// from bpp_tpu_torch/core/fels.py): bpp_fels_site_logl (dbl = 1: the
+// double build) returns the value of cudaGetLastError() right after the
+// launch.
 
 #include "contract.cuh"
 
@@ -47,8 +49,8 @@ namespace {
 
 using namespace bpp;
 
-template <int FAM, int C, bool SHARED>
-__global__ void fels_site_logl_kernel(TreeArgs a, float* out) {
+template <typename R, int FAM, int C, bool SHARED>
+__global__ void fels_site_logl_kernel(TreeArgs<R> a, R* out) {
   extern __shared__ __align__(16) unsigned char block_state[];
   const int lane = threadIdx.x & (kLanes - 1);
   const int warp = threadIdx.x / kLanes;
@@ -56,37 +58,62 @@ __global__ void fels_site_logl_kernel(TreeArgs a, float* out) {
   if (u >= a.U) return;
   const int4 unit = a.units[u];
   const long long stride =
-      warp_layout(a.T, C, Coefs<FAM>::K, SHARED).bytes;
-  const float v = UnitWalk<FAM, C, SHARED>::run(
+      warp_layout(a.T, C, Coefs<FAM, R>::K, SHARED, sizeof(R)).bytes;
+  const R v = UnitWalk<R, FAM, C, SHARED>::run(
       a, block_state + warp * stride, u, unit, lane);
-  float* row = out + static_cast<int64_t>(unit.x) * a.S;
+  R* row = out + static_cast<int64_t>(unit.x) * a.S;
   if (lane < unit.z) row[unit.y + lane] = v;
   if (unit.w)
-    for (int s = unit.y + unit.z + lane; s < a.S; s += kLanes) row[s] = 0.0f;
+    for (int s = unit.y + unit.z + lane; s < a.S; s += kLanes) row[s] = R(0);
 }
 
-template <int FAM, int C, bool SHARED>
+template <typename R, int FAM, int C, bool SHARED>
 struct Launch {
-  static int run(const TreeArgs& a, float* out, int threads,
+  static int run(const TreeArgs<R>& a, R* out, int threads,
                  long long shared_bytes, cudaStream_t st) {
     static long long allowed = 48 * 1024;
-    const int rc = allow_shared(fels_site_logl_kernel<FAM, C, SHARED>, shared_bytes,
-                                &allowed);
+    const int rc = allow_shared(fels_site_logl_kernel<R, FAM, C, SHARED>,
+                                shared_bytes, &allowed);
     if (rc != 0) return rc;
     const int warps = threads / kLanes;
-    fels_site_logl_kernel<FAM, C, SHARED>
+    fels_site_logl_kernel<R, FAM, C, SHARED>
         <<<(a.U + warps - 1) / warps, threads, shared_bytes, st>>>(a, out);
     return 0;
   }
 };
 
+template <typename R>
+int fels_site_logl(const void* tips, const void* age, const void* blen,
+                   const void* mu, const void* rates, const void* freqs,
+                   const void* eigw, const void* eigT, const void* eigTi,
+                   const void* order, const void* left, const void* right,
+                   const void* n_seq, const void* units, void* scratch,
+                   void* out, int T, int S, int U, int C, int fam, int shared,
+                   int threads, cudaStream_t stream) {
+  const TreeArgs<R> a = tree_args<R>(tips, age, blen, mu, rates, freqs, eigw,
+                                     eigT, eigTi, order, left, right, n_seq,
+                                     units, scratch, T, S, U);
+  const long long bytes =
+      block_shared_bytes(T, C, fam, shared != 0, threads, sizeof(R));
+  if (threads < kLanes || threads % kLanes || bytes > kMaxBlockShared)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int rc = dispatch<Launch, R>(fam, C, shared != 0, a,
+                                     static_cast<R*>(out), threads, bytes,
+                                     stream);
+  if (rc != 0) return rc;
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int bpp_fels_max_cats() { return bpp::kMaxCats; }
 
-// Shared memory one warp needs for this tree size under either store.
-extern "C" long long bpp_fels_warp_bytes(int T, int C, int fam, int shared) {
-  return bpp::block_shared_bytes(T, C, fam, shared != 0, bpp::kLanes);
+// Shared memory one warp needs for this tree size under either store, in
+// float (dbl = 0) or double.
+extern "C" long long bpp_fels_warp_bytes(int T, int C, int fam, int shared,
+                                         int dbl) {
+  return bpp::block_shared_bytes(T, C, fam, shared != 0, bpp::kLanes,
+                                 dbl ? 8 : 4);
 }
 
 extern "C" int bpp_fels_site_logl(
@@ -95,18 +122,15 @@ extern "C" int bpp_fels_site_logl(
     const void* eigTi, const void* order, const void* left,
     const void* right, const void* n_seq, const void* units, void* scratch,
     void* out, int T, int S, int U, int C, int fam, int shared, int threads,
-    void* stream) {
+    int dbl, void* stream) {
   if (U <= 0 || S <= 0) return 0;
-  const TreeArgs a = tree_args(tips, age, blen, mu, rates, freqs, eigw, eigT,
-                               eigTi, order, left, right, n_seq, units,
-                               scratch, T, S, U);
-  const long long bytes =
-      block_shared_bytes(T, C, fam, shared != 0, threads);
-  if (threads < kLanes || threads % kLanes || bytes > kMaxBlockShared)
-    return static_cast<int>(cudaErrorInvalidConfiguration);
-  const int rc = dispatch<Launch>(fam, C, shared != 0, a,
-                                  static_cast<float*>(out), threads, bytes,
-                                  static_cast<cudaStream_t>(stream));
-  if (rc != 0) return rc;
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return dbl ? fels_site_logl<double>(tips, age, blen, mu, rates, freqs,
+                                      eigw, eigT, eigTi, order, left, right,
+                                      n_seq, units, scratch, out, T, S, U, C,
+                                      fam, shared, threads, st)
+             : fels_site_logl<float>(tips, age, blen, mu, rates, freqs, eigw,
+                                     eigT, eigTi, order, left, right, n_seq,
+                                     units, scratch, out, T, S, U, C, fam,
+                                     shared, threads, st);
 }

@@ -1,4 +1,5 @@
-// Per-locus Felsenstein pruning log-likelihood for 4-state data (f32).
+// Per-locus Felsenstein pruning log-likelihood for 4-state data, in float
+// or (for --x64) double: both builds are instantiations of one template.
 //
 // Replaces the TPU kernel K1: bpp_tpu/core/pallas_pack.py
 // `_make_kernel` (launched by `site_logl_packed`).  It computes what K1
@@ -35,8 +36,8 @@
 // wrapper's block size, about 9 KB (C = 1), 35 KB (C = 4) and 70 KB (C = 8).
 //
 // C interface (built with nvcc into a shared library, loaded by ctypes
-// from bpp_tpu_torch/core/pack.py): bpp_pack_logl returns the value of
-// cudaGetLastError() right after the launch.  bpp_pack_empty launches a
+// from bpp_tpu_torch/core/pack.py): bpp_pack_logl (dbl = 1: the double
+// build) returns the value of cudaGetLastError() right after the launch.  bpp_pack_empty launches a
 // kernel that does nothing, for timing the launch floor beside K1.
 
 #include "contract.cuh"
@@ -53,10 +54,10 @@ __device__ __forceinline__ double warp_sum(double v) {
   return v;
 }
 
-template <int FAM, int C, bool SHARED>
-__global__ void pack_logl_kernel(TreeArgs a, const float* weights, int W,
+template <typename R, int FAM, int C, bool SHARED>
+__global__ void pack_logl_kernel(TreeArgs<R> a, const R* weights, int W,
                                  const int4* blocks, const int* locus_unit0,
-                                 float* out) {
+                                 R* out) {
   extern __shared__ __align__(16) unsigned char block_state[];
   __shared__ double part[kMaxWarps];
   const int lane = threadIdx.x & (kLanes - 1);
@@ -65,7 +66,7 @@ __global__ void pack_logl_kernel(TreeArgs a, const float* weights, int W,
   const int4 blk = blocks[blockIdx.x];     // units u0..u1 of loci l0..l1
   const int u1 = blk.y;
   const long long stride =
-      warp_layout(a.T, C, Coefs<FAM>::K, SHARED).bytes;
+      warp_layout(a.T, C, Coefs<FAM, R>::K, SHARED, sizeof(R)).bytes;
 
   // the locus this thread sums: its units are ulo..uhi
   const int l = blk.z + threadIdx.x;
@@ -80,10 +81,10 @@ __global__ void pack_logl_kernel(TreeArgs a, const float* weights, int W,
       const int4 unit = a.units[u];
       // asked for before the walk, so that it does not wait after it
       const int s = unit.y + lane;
-      const float w = (lane < unit.z && s < W)
-                          ? weights[static_cast<int64_t>(unit.x) * W + s]
-                          : 0.0f;
-      const float site = UnitWalk<FAM, C, SHARED>::run(
+      const R w = (lane < unit.z && s < W)
+                      ? weights[static_cast<int64_t>(unit.x) * W + s]
+                      : R(0);
+      const R site = UnitWalk<R, FAM, C, SHARED>::run(
           a, block_state + warp * stride, u, unit, lane);
       const double p =
           warp_sum(static_cast<double>(w) * static_cast<double>(site));
@@ -95,34 +96,63 @@ __global__ void pack_logl_kernel(TreeArgs a, const float* weights, int W,
     for (int v = lo; v < hi; ++v) acc += part[v - base];
     __syncthreads();
   }
-  if (owner) out[l] = static_cast<float>(acc);
+  if (owner) out[l] = static_cast<R>(acc);
 }
 
 __global__ void empty_kernel() {}
 
-template <int FAM, int C, bool SHARED>
+template <typename R, int FAM, int C, bool SHARED>
 struct Launch {
-  static int run(const TreeArgs& a, const float* weights, int W,
-                 const int4* blocks, const int* locus_unit0, float* out,
-                 int B, int threads, long long shared_bytes,
-                 cudaStream_t st) {
+  static int run(const TreeArgs<R>& a, const R* weights, int W,
+                 const int4* blocks, const int* locus_unit0, R* out, int B,
+                 int threads, long long shared_bytes, cudaStream_t st) {
     static long long allowed = 48 * 1024;
-    const int rc = allow_shared(pack_logl_kernel<FAM, C, SHARED>, shared_bytes,
-                                &allowed);
+    const int rc = allow_shared(pack_logl_kernel<R, FAM, C, SHARED>,
+                                shared_bytes, &allowed);
     if (rc != 0) return rc;
-    pack_logl_kernel<FAM, C, SHARED><<<B, threads, shared_bytes, st>>>(
+    pack_logl_kernel<R, FAM, C, SHARED><<<B, threads, shared_bytes, st>>>(
         a, weights, W, blocks, locus_unit0, out);
     return 0;
   }
 };
 
+template <typename R>
+int pack_logl(const void* tips, const void* age, const void* blen,
+              const void* mu, const void* rates, const void* freqs,
+              const void* eigw, const void* eigT, const void* eigTi,
+              const void* order, const void* left, const void* right,
+              const void* n_seq, const void* units, void* scratch,
+              const void* weights, const void* blocks,
+              const void* locus_unit0, void* out, int T, int S, int U, int W,
+              int B, int C, int fam, int shared, int threads,
+              cudaStream_t stream) {
+  const TreeArgs<R> a = tree_args<R>(tips, age, blen, mu, rates, freqs, eigw,
+                                     eigT, eigTi, order, left, right, n_seq,
+                                     units, scratch, T, S, U);
+  const long long bytes =
+      block_shared_bytes(T, C, fam, shared != 0, threads, sizeof(R));
+  if (threads < kLanes || threads % kLanes ||
+      threads > kMaxWarps * kLanes ||
+      bytes + kMaxWarps * 8 > kMaxBlockShared)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int rc = dispatch<Launch, R>(
+      fam, C, shared != 0, a, static_cast<const R*>(weights), W,
+      static_cast<const int4*>(blocks), static_cast<const int*>(locus_unit0),
+      static_cast<R*>(out), B, threads, bytes, stream);
+  if (rc != 0) return rc;
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int bpp_pack_max_cats() { return bpp::kMaxCats; }
 
-// Shared memory one warp needs for this tree size under either store.
-extern "C" long long bpp_pack_warp_bytes(int T, int C, int fam, int shared) {
-  return bpp::block_shared_bytes(T, C, fam, shared != 0, bpp::kLanes);
+// Shared memory one warp needs for this tree size under either store, in
+// float (dbl = 0) or double.
+extern "C" long long bpp_pack_warp_bytes(int T, int C, int fam, int shared,
+                                         int dbl) {
+  return bpp::block_shared_bytes(T, C, fam, shared != 0, bpp::kLanes,
+                                 dbl ? 8 : 4);
 }
 
 extern "C" int bpp_pack_empty(void* stream) {
@@ -137,22 +167,17 @@ extern "C" int bpp_pack_logl(
     const void* right, const void* n_seq, const void* units, void* scratch,
     const void* weights, const void* blocks, const void* locus_unit0,
     void* out, int T, int S, int U, int W, int B, int C, int fam, int shared,
-    int threads, void* stream) {
+    int threads, int dbl, void* stream) {
   if (B <= 0) return 0;
-  const TreeArgs a = tree_args(tips, age, blen, mu, rates, freqs, eigw, eigT,
-                               eigTi, order, left, right, n_seq, units,
-                               scratch, T, S, U);
-  const long long bytes =
-      block_shared_bytes(T, C, fam, shared != 0, threads);
-  if (threads < kLanes || threads % kLanes ||
-      threads > kMaxWarps * kLanes ||
-      bytes + kMaxWarps * 8 > kMaxBlockShared)
-    return static_cast<int>(cudaErrorInvalidConfiguration);
-  const int rc = dispatch<Launch>(
-      fam, C, shared != 0, a, static_cast<const float*>(weights), W,
-      static_cast<const int4*>(blocks), static_cast<const int*>(locus_unit0),
-      static_cast<float*>(out), B, threads, bytes,
-      static_cast<cudaStream_t>(stream));
-  if (rc != 0) return rc;
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return dbl ? pack_logl<double>(tips, age, blen, mu, rates, freqs, eigw,
+                                 eigT, eigTi, order, left, right, n_seq,
+                                 units, scratch, weights, blocks,
+                                 locus_unit0, out, T, S, U, W, B, C, fam,
+                                 shared, threads, st)
+             : pack_logl<float>(tips, age, blen, mu, rates, freqs, eigw,
+                                eigT, eigTi, order, left, right, n_seq,
+                                units, scratch, weights, blocks, locus_unit0,
+                                out, T, S, U, W, B, C, fam, shared, threads,
+                                st);
 }

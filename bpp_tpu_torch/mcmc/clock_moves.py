@@ -1,6 +1,6 @@
 """Locus-rate, relaxed-clock and tip-dating moves (PyTorch).
 
-Port of ``bpp_tpu/mcmc/clock_moves.py`` without traits (reference
+Port of ``bpp_tpu/mcmc/clock_moves.py`` (reference
 src/stree.c:9052-10468): the branch-rate prior
 ``lnprior_rates`` (clocks 2 IID, 3 CORR, 4 SIMPLE; gamma or lognormal
 rates; on an MSC-I network only the populations of

@@ -1,19 +1,20 @@
 """MCMC driver: the cmd_run equivalent (src/method.c:4939), PyTorch.
 
-Port of ``bpp_tpu/mcmc/driver.py`` cut to what is ported so far: A00 on
-a fixed species tree, an MSC-I network (with bidirectional
-introgression) or under MSC-M migration on fixed routes (constant or
-variable rates), species-tree search (A01: SPR and SNL, topology
-constraints), species delimitation on a guide tree (A10, with or
-without migration) and both together (A11), on haploid, phased or
-unphased diploid DNA or on amino acids, with one substitution model for
-all loci or one per locus (``model = custom``), Γ rates, locus rates and
-heredity scalars, the strict or a relaxed clock (2, 3, 4), estimated,
-linked (``thetamodel``) or integrated-out thetas, tip dating,
-checkpoint/resume, the runtime check of the caches (``check = N``) and K
-replicate chains (``chains = K``, :meth:`Engine.run_mcmc_multi`).  Every
-combination outside that raises ``NotImplementedError`` naming the
-ROADMAP item that brings it.  The jitted ``lax.scan`` chunk becomes a
+Port of ``bpp_tpu/mcmc/driver.py``: A00 on a fixed species tree, an
+MSC-I network (with bidirectional introgression) or under MSC-M
+migration (fixed routes of constant or variable rates, or the geneflow
+rjMCMC over every candidate route), species-tree search (A01: SPR and
+SNL, topology constraints), species delimitation on a guide tree (A10,
+with or without migration) and both together (A11), on haploid, phased
+or unphased diploid DNA or on amino acids, with one substitution model
+for all loci or one per locus (``model = custom``), morphological traits
+beside the sequences (``traitfile``), Γ rates, locus rates and heredity
+scalars, the strict or a relaxed clock (2, 3, 4), estimated, linked
+(``thetamodel``) or integrated-out thetas, tip dating, checkpoint/resume,
+the runtime check of the caches (``check = N``) and K replicate chains
+(``chains = K``, :meth:`Engine.run_mcmc_multi`), in float32 or float64.
+``bpp_tpu``'s combination guards are kept with its messages
+(:func:`_reference_guards`).  The jitted ``lax.scan`` chunk becomes a
 Python loop over :meth:`Engine._step`; a step reads nothing back to the
 host but for the serial accept chains (the Gamma-Dirichlet priors of
 mu_i and nu_i, and every per-locus gene-tree move under integrated-out
@@ -42,22 +43,22 @@ from ..core.units import Units
 from ..io.constraints import build_constraint_ids
 from ..loader import RunData, init_tau_theta
 from ..trees import migration as mg
+from ..trees import traits as trmod
 from ..trees.gtree import init_gtrees, species_arrays
 from ..trees.stree import theta_link_map
 from . import (
     clock_moves, mig_moves, moves, msci_moves, rj_moves, rng, stree_moves,
-    subst_moves,
+    subst_moves, trait_moves,
 )
 from .gibbs import gamma_conditional_approx
 from .state import (
-    FT_ALPHA, FT_BRATE, FT_FREQS, FT_GTAGE, FT_GTSPR, FT_LRHT, FT_MIG_AGES,
-    FT_MIX, FT_MUBAR, FT_MUI, FT_NUBAR, FT_NUI, FT_QRATES, FT_TAU, FT_THETA,
-    MV_ALPHA, MV_BRATE, MV_FREQS, MV_GTAGE, MV_GTSPR, MV_HPATH, MV_LRHT,
-    MV_MIG_AGES, MV_MIGRATES, MV_MIX, MV_MUBAR, MV_MUI, MV_NUBAR, MV_NUI,
-    MV_PHI, MV_QRATES, MV_RJ, MV_SNL, MV_SSPR, MV_TAU, MV_THETA, N_MOVES,
-    ROUTE_K1, ROUTE_K2,
-    ROUTE_PLAIN, Ctx,
-    McmcState, SubstState, build_custom_models, finetune_array,
+    FT_ALPHA, FT_BRATE, FT_BRATE_M, FT_FREQS, FT_GTAGE, FT_GTSPR, FT_LRHT,
+    FT_MIG_AGES, FT_MIX, FT_MUBAR, FT_MUI, FT_NUBAR, FT_NUI, FT_QRATES,
+    FT_TAU, FT_THETA, MV_ALPHA, MV_BRATE, MV_FREQS, MV_GFRJ, MV_GTAGE,
+    MV_GTSPR, MV_HPATH, MV_LRHT, MV_MIG_AGES, MV_MIGRATES, MV_MIX, MV_MUBAR,
+    MV_MUI, MV_NUBAR, MV_NUI, MV_PHI, MV_QRATES, MV_RJ, MV_SNL, MV_SSPR,
+    MV_TAU, MV_THETA, MV_TRAIT, N_MOVES, ROUTE_K1, ROUTE_K2, ROUTE_PLAIN,
+    Ctx, McmcState, SubstState, build_custom_models, finetune_array,
     make_logl_fn, make_logpr_fn, refresh_eigen,
 )
 
@@ -83,6 +84,7 @@ MOVE_TO_FT = {
     MV_MUBAR: FT_MUBAR,
     MV_NUBAR: FT_NUBAR,
     MV_BRATE: FT_BRATE,
+    MV_TRAIT: FT_BRATE_M,
 }
 
 
@@ -351,25 +353,16 @@ def _reference_guards(cfg: BppConfig, run: RunData):
     if cfg.migration and cfg.linked_theta and cfg.linked_theta != 4:
         raise NotImplementedError(
             "use thetamodel = linked-mscm with migration")
+    if cfg.traitfile and st.n_hybrids > 0:
+        # the contrast recursion (morph.c:888) is defined on a tree;
+        # traits with MSC-M are supported (they see only the taus)
+        raise NotImplementedError(
+            "traits with MSC-I networks are not supported")
     if cfg.constraintfile and cfg.est_stree and cfg.prob_snl > 0:
         # stree.c:11395: SNL has no constraint support
         raise NotImplementedError(
             "constraints are not implemented for the SNL move; "
             "use 'speciestree = 1 0' to disable SNL")
-
-
-def _slice_guards(cfg: BppConfig, run: RunData):
-    """What this slice of the port does not run yet, with the ROADMAP
-    item (Queue 1) that brings it."""
-    def refuse(what, item):
-        raise NotImplementedError(
-            f"{what} is not ported to bpp_tpu_torch yet "
-            f"(ROADMAP Queue 1 item {item})")
-
-    if cfg.geneflow:
-        refuse("geneflow route rjMCMC", "10g-geneflow")
-    if cfg.traitfile:
-        refuse("morphological traits", "10h")
 
 
 def likelihood_route(n_states: int, res_map) -> str:
@@ -428,17 +421,12 @@ class Engine:
         self.run = run
         self.cfg = cfg = run.cfg
         _reference_guards(cfg, run)
-        _slice_guards(cfg, run)
         self.device = dev = resolve_device(device)
         self.seed = seed if seed is not None else (
             cfg.seed if cfg.seed > 0
             else np.random.SeedSequence().entropy % (2**31))
         self.dtype = torch.float64 if cfg.dtype == "float64" else torch.float32
         self.root_age0 = None         # rjMCMC root-age scale (init_state)
-        if dev.type == "cuda" and self.dtype != torch.float32:
-            raise NotImplementedError(
-                "float64 on the GPU: the pruning kernel is float32 only "
-                "(an f64 kernel is on the ROADMAP)")
         batch = run.batch
         # static data, checked once: the pruning kernels walk n_seq - 1
         # levels of a tree of at most tip_codes.shape[1] tips unchecked
@@ -460,6 +448,20 @@ class Engine:
         def t(a, dtype=None):
             return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
 
+        # morphological traits: the likelihood on the fixed topology, or
+        # on the topology it is given under species-tree search (the
+        # species SPR and SNL moves re-score the proposed topology; under
+        # A11 the rj move re-scores the current one)
+        trait_fn = trait_fn_topo = self.trait_data = None
+        if cfg.traitfile:
+            parts = trmod.parse_traitfile(cfg.traitfile)
+            self.trait_data = trmod.build_trait_data(parts, run.stree,
+                                                     self.dtype, dev)
+            if cfg.est_stree:
+                trait_fn_topo = trmod.make_trait_logl_topo(
+                    run.stree.n_tips, run.stree.n_nodes, self.trait_data)
+            else:
+                trait_fn = trmod.make_trait_logl(run.stree, self.trait_data)
         custom = None
         if run.locus_models is not None:
             custom = build_custom_models(run.locus_models, batch.n_loci,
@@ -498,13 +500,21 @@ class Engine:
             else t(theta_link_map(run.stree, cfg.linked_theta), torch.int64),
             custom=custom,
             route=likelihood_route(self.n_states, rm),
+            trait_fn=trait_fn,
+            trait_fn_topo=trait_fn_topo,
         )
         self._logl_fn = make_logl_fn(self.ctx, cfg)
         self._logpr_fn = make_logpr_fn(self.ctx)
-        # MSC-M: the route table on the host and on the device
-        self.routes = self.mig_routes = None
+        # MSC-M: the route table on the host and on the device; geneflow
+        # rjMCMC takes the saturated candidate table, in which the
+        # configured routes start active
+        self.routes = self.mig_routes = self.route_on0 = None
         if cfg.migration:
-            self.routes = mg.build_routes(cfg, run.stree)
+            if cfg.geneflow:
+                self.routes, self.route_on0 = mg.build_routes_geneflow(
+                    cfg, run.stree)
+            else:
+                self.routes = mg.build_routes(cfg, run.stree)
             self.mig_routes = self.routes.to(dev, self.dtype)
             self._logpr_mig_fn = mig_moves.make_logpr_fn_mig(
                 self.ctx, self.mig_routes)
@@ -638,18 +648,27 @@ class Engine:
                 mu0 = mub * (0.9 + 0.2 * rng.random(L))
                 subst = subst._replace(mu=t(mu0))
             clock = clock_moves.init_clock_state(cfg, sp, mu0, rng)
+        trait = None
+        if self.ctx.has_traits:
+            # brates start at 1 (trait_init morph.c:832)
+            brate0 = full((len(self.trait_data), run.stree.n_nodes), 1.0)
+            trait = trmod.TraitState(
+                brate=brate0,
+                logl=moves._trait_eval(self.ctx, sp, sp.tau, brate0))
         if cfg.migration:
             # no events at the start (a valid support point; the sim-SPR
             # move makes them), route rates at their prior means
             routes = self.routes
             mig = mg.empty_mig_state(
                 L, max(16, 2 * run.batch.max_tips), routes.n_routes,
-                routes.alpha / routes.beta, dt, device=dev)
+                routes.alpha / routes.beta, dt, on=self.route_on0,
+                device=dev)
             return McmcState(
                 gt=gt, sp=sp, subst=subst,
                 logl=self._logl_fn(gt, subst, sp, clock, mig=mig),
                 logpr=self._logpr_mig_fn(gt, sp, mig, subst.heredity)[0],
-                finetune=finetune_array(cfg, dt, dev), clock=clock, mig=mig)
+                finetune=finetune_array(cfg, dt, dev), clock=clock, mig=mig,
+                trait=trait)
         logl = self._logl_fn(gt, subst, sp, clock)
         logpr, c0, t20 = self._logpr_fn(gt, sp, subst.heredity)
         integ = cfg.theta_integrated
@@ -657,7 +676,8 @@ class Engine:
                          finetune=finetune_array(cfg, dt, dev), clock=clock,
                          coal=c0 if integ else None,
                          t2h=t20 if integ else None,
-                         mubar=None if mubar0 is None else t(mubar0))
+                         mubar=None if mubar0 is None else t(mubar0),
+                         trait=trait)
 
     # --- one iteration --------------------------------------------------------
 
@@ -760,6 +780,10 @@ class Engine:
         elif cfg.clock == Clock.SIMPLE:
             state, pa = clock_moves.brate_simple_move(ctx, cfg, state, gen)
             count(MV_BRATE, pa)
+        # move #16: the trait branch rates (method.c:5838, morph.c:1177)
+        if ctx.has_traits:
+            state, pa = trait_moves.trait_brate_move(ctx, cfg, state, gen)
+            count(MV_TRAIT, pa)
         return state, stats
 
     def _step_mig(self, state: McmcState, count):
@@ -802,6 +826,14 @@ class Engine:
         if not fixed:
             state, pa = mig_moves.mixing_mig(ctx, cfg, routes, state, gen)
             count(MV_MIX, pa)
+        # geneflow rjMCMC: the flip, then add/remove (method.c:5658-5695)
+        if cfg.geneflow:
+            state, pa = mig_moves.geneflow_flip_move(ctx, cfg, routes, state,
+                                                     gen)
+            count(MV_GFRJ, pa)
+            state, pa = mig_moves.geneflow_rj_move(ctx, cfg, routes, state,
+                                                   gen)
+            count(MV_GFRJ, pa)
         if cfg.model in subst_moves.FREQS_MODELS or (
                 ctx.custom is not None and ctx.custom.any_freqs):
             state, pa = subst_moves.freqs_move(ctx, cfg, state, gen)
@@ -839,6 +871,11 @@ class Engine:
                 count(MV_NUBAR, pa)
             state, pa = clock_moves.brate_move(ctx, cfg, state, gen)
             count(MV_BRATE, pa)
+        # move #16: the trait branch rates; the trait likelihood sees only
+        # the taus, so it composes with migration
+        if ctx.trait_fn is not None:
+            state, pa = trait_moves.trait_brate_move(ctx, cfg, state, gen)
+            count(MV_TRAIT, pa)
         return state
 
     def _species_move(self, state: McmcState):
@@ -870,7 +907,11 @@ class Engine:
         if state.sp.phi is not None:
             tr["phi"] = state.sp.phi
         if state.mig is not None:
-            tr["migM"] = state.mig.M
+            # geneflow: an inactive route logs 0 (its slot holds a
+            # pseudo-prior draw, not a posterior rate)
+            M = state.mig.M
+            tr["migM"] = (M if state.mig.on is None else
+                          torch.where(state.mig.on, M, torch.zeros_like(M)))
         if state.mubar is not None:
             # tip dating: mu_bar and the calendar-unit taus
             tr["mubar"] = state.mubar
@@ -973,8 +1014,9 @@ class Engine:
         (logl, logpr and, with integrated-out thetas, the coal/T2h caches)
         from scratch and raise on drift beyond ``tol`` (default 0.5 in
         float32, 1e-6 in float64): the reference's CHECK_LOGL/CHECK_LOGPR
-        (method.c:4699).  Port of ``bpp_tpu``'s ``Engine.validate_state``
-        without its trait branch; the comparison reads the device once."""
+        (method.c:4699), and the cached trait log-likelihoods.  Port of
+        ``bpp_tpu``'s ``Engine.validate_state``; the comparison reads the
+        device once."""
         cfg = self.cfg
         tol = cfg.check_tol or (
             1e-6 if self.dtype == torch.float64 else 0.5)
@@ -994,6 +1036,17 @@ class Engine:
         if cfg.theta_integrated:
             pairs += [("coal counts (notheta K cache)", state.coal, c2),
                       ("T2h sums (notheta C cache)", state.t2h, t22)]
+        if state.trait is not None:
+            # the partitions as row 0 (a real locus) of an [L, n_part]
+            # block, in the layout of the others
+            fresh = moves._trait_eval(self.ctx, state.sp, state.sp.tau,
+                                      state.trait.brate)
+
+            def row0(x):
+                return torch.cat([x[None], x.new_zeros(
+                    (state.logl.shape[0] - 1, x.shape[0]))])
+
+            pairs.append(("trait logl", row0(state.trait.logl), row0(fresh)))
         L = state.logl.shape[0]
         flat = [x.reshape(L, -1).to(torch.float64)
                 for _, c, f in pairs for x in (c, f)]

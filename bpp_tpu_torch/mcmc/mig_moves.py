@@ -1,8 +1,7 @@
 """MSC-M (isolation-with-migration) MCMC moves on fixed routes, batched
 over loci (PyTorch).
 
-Port of ``bpp_tpu/mcmc/mig_moves.py`` without the geneflow rjMCMC moves
-(ROADMAP item 10g-geneflow).  Reference counterparts:
+Port of ``bpp_tpu/mcmc/mig_moves.py``.  Reference counterparts:
 
   * theta Gibbs/slide under migration     stree.c:3464 propose_theta_gibbs_im
   * migration rates: W Gibbs, Mbar and    stree.c:11627 migrate_gibbs,
@@ -14,6 +13,8 @@ Port of ``bpp_tpu/mcmc/mig_moves.py`` without the geneflow rjMCMC moves
   * tau under migration                   stree.c:6725 propose_tau_mig
   * mixing incl. event times              prop_mixing.c:275
   * heredity scalars                      gtree.c:8214 prop_heredity
+  * geneflow rjMCMC: route add/remove     stree.c:15419 stree_migration_rj,
+    and direction flip                    15204 (method.c:5658-5695)
 
 The likelihood depends on migration events only under a relaxed clock
 (branch lengths are age differences otherwise), so event-only moves
@@ -122,9 +123,13 @@ def migrate_move(ctx: Ctx, cfg: BppConfig, routes, state: McmcState, gen):
     logpr_fn = make_logpr_fn_mig(ctx, routes)
     _, _, _, W, mc, _ = logpr_fn(state.gt, state.sp, state.mig,
                                  state.subst.heredity)
-    mask_l = ctx.locus_mask[:, None]
-    csum = torch.where(mask_l, mc, torch.zeros_like(mc)).sum(0)
-    wsum = torch.where(mask_l, W, torch.zeros_like(W)).sum(0)
+    wsum, csum = _route_sums(ctx, W, mc)
+    if state.mig.on is not None:
+        # geneflow: an inactive route takes a prior draw (zeroed
+        # statistics), the Carlin-Chib pseudo-prior that makes toggling a
+        # route a plain within-space MH move
+        csum = torch.where(state.mig.on, csum, torch.zeros_like(csum))
+        wsum = torch.where(state.mig.on, wsum, torch.zeros_like(wsum))
     a1 = routes.alpha + csum
     b1 = routes.beta + wsum
     M_new = torch.clamp(rng.gamma(gen, a1) / b1, min=1e-30)
@@ -379,6 +384,8 @@ def tau_move_mig(ctx: Ctx, cfg: BppConfig, routes, state: McmcState, gen):
     age, tau, ev_time = gt.age, sp0.tau, state.mig.time
     dt = tau.dtype
     logl, logpr = state.logl, state.logpr
+    traits = ctx.trait_fn is not None
+    tlogl = state.trait.logl if traits else None
     nprop = zero
     nacc = zero
     par = sp0.parent
@@ -450,6 +457,11 @@ def tau_move_mig(ctx: Ctx, cfg: BppConfig, routes, state: McmcState, gen):
         logpr_new = logpr_fn(gtn, sp_new, mign, state.subst.heredity)[0]
         logl_new = logl_fn(gtn, state.subst, sp_new, state.clock, mig=mign)
         lnacc = jac + torch.sum(logpr_new - logpr) + torch.sum(logl_new - logl)
+        if traits:
+            # the trait likelihood sees the species taus only
+            # (stree.c:5675): the same delta as the plain tau move
+            tl_new = ctx.trait_fn(tau_new, state.trait.brate)
+            lnacc = lnacc + torch.sum(tl_new - tlogl)
 
         cand = torch.sum(tau[NS:] > 0).to(dt)
         t_r, tn_r = tau[root], tau_new[root]
@@ -470,14 +482,18 @@ def tau_move_mig(ctx: Ctx, cfg: BppConfig, routes, state: McmcState, gen):
         tau = torch.where(accept, tau_new, tau)
         logl = torch.where(accept, logl_new, logl)
         logpr = torch.where(accept, logpr_new, logpr)
+        if traits:
+            tlogl = torch.where(accept, tl_new, tlogl)
         np_ = prop.sum()
         nprop = nprop + np_
         nacc = nacc + torch.where(accept, np_, zero)
 
-    return (state._replace(gt=gt._replace(age=age), sp=sp0._replace(tau=tau),
-                           mig=state.mig._replace(time=ev_time),
-                           logl=logl, logpr=logpr),
-            (nprop, nacc))
+    out = state._replace(gt=gt._replace(age=age), sp=sp0._replace(tau=tau),
+                         mig=state.mig._replace(time=ev_time),
+                         logl=logl, logpr=logpr)
+    if traits:
+        out = out._replace(trait=state.trait._replace(logl=tlogl))
+    return out, (nprop, nacc)
 
 
 # --------------------------------------------------------------------------
@@ -531,10 +547,152 @@ def mixing_mig(ctx: Ctx, cfg: BppConfig, routes, state: McmcState, gen):
     logpr_new = logpr_fn(gtn, spn, mign, state.subst.heredity)[0]
     lnacc = lnacc + torch.sum(logl_new - state.logl) \
         + torch.sum(logpr_new - state.logpr)
-    accept = rng.mh_accept(gen, lnacc)
     cand = state._replace(gt=gtn, sp=spn, mig=mign, logl=logl_new,
                           logpr=logpr_new)
+    if ctx.trait_fn is not None:
+        # the taus scale, and the trait branch lengths with them
+        tl_new = ctx.trait_fn(tau_new, state.trait.brate)
+        lnacc = lnacc + torch.sum(tl_new - state.trait.logl)
+        cand = cand._replace(trait=state.trait._replace(logl=tl_new))
+    accept = rng.mh_accept(gen, lnacc)
     return tree_where(accept, cand, state), (1, accept.to(torch.int64))
+
+
+# --------------------------------------------------------------------------
+# geneflow rjMCMC: route add/remove and direction flip (stree.c:15419
+# stree_migration_rj, the flip wrapper :15204, method.c:5658-5695)
+# --------------------------------------------------------------------------
+#
+# ``bpp_tpu``'s redesign, kept: the parameter space is saturated (Carlin &
+# Chib).  Every candidate route keeps a rate; an inactive route's rate
+# follows its prior (migrate_move draws it with zeroed statistics), so
+# toggling a route is a within-space MH move whose pseudo-prior terms
+# cancel, as the reference's prior-matched draw does.  Gene trees are not
+# modified: a route with events on it cannot be removed or flipped.  The
+# count Hastings uses the exact per-state counts of feasible routes.
+
+
+def _route_sums(ctx: Ctx, W, mc):
+    """(sum_l W_lk, sum_l mc_lk) over the real loci: [K] each."""
+    mask_l = ctx.locus_mask[:, None]
+    return (torch.where(mask_l, W, torch.zeros_like(W)).sum(0),
+            torch.where(mask_l, mc, torch.zeros_like(mc)).sum(0))
+
+
+def _route_overlap(routes, sp):
+    """[K] bool: the source's and the target's time intervals overlap
+    (select_migpair stree.c:15275)."""
+    tau = sp.tau
+    partau = torch.where(sp.parent >= 0, tau[sp.parent.clamp(min=0)],
+                         torch.full_like(tau, float("inf")))
+    si, ti = routes.si, routes.ti
+    return (torch.maximum(tau[si], tau[ti])
+            < torch.minimum(partau[si], partau[ti]))
+
+
+def _pick(gen, mask):
+    """(index, count): a uniform choice among the True entries of mask
+    [K] (index 0 when there is none)."""
+    idx, count = _select_uniform(gen, mask[None, :])
+    return idx[0], count[0]
+
+
+def geneflow_rj_move(ctx: Ctx, cfg: BppConfig, routes, state: McmcState,
+                     gen):
+    """Toggle one route's activation: append or remove by a fair coin,
+    among the feasible routes only (append: an inactive route whose
+    populations coexist; remove: an active one without events).  Routes
+    of variable rates (am > 0) are frozen."""
+    mig, sp = state.mig, state.sp
+    logpr_fn = make_logpr_fn_mig(ctx, routes)
+    _, _, _, W, mc, _ = logpr_fn(state.gt, sp, mig, state.subst.heredity)
+    wsum, mcsum = _route_sums(ctx, W, mc)
+    dt = wsum.dtype
+    on = mig.on
+    ov = _route_overlap(routes, sp)
+    do_append = rng.uniform(gen, (), dt, wsum.device) < 0.5
+    avail = ov & ~on
+    n_avail = avail.sum()
+    n_act = on.sum()
+    k, _ = _pick(gen, torch.where(do_append, avail, on))
+
+    # density delta: -+ M_k sum_l W_lk (an appended route has no events
+    # yet, and a route with events is never removed)
+    dW = mig.M[k] * wsum[k]
+    lnacc = torch.where(do_append, -dW, dW)
+    # exact count Hastings: append picks 1 / n_avail, its reverse removal
+    # 1 / (n_act + 1); removal picks 1 / n_act, its reverse 1 / n_avail
+    # after it
+    n_avail_after = n_avail + ov[k].to(n_avail.dtype)
+    one = torch.ones((), dtype=dt, device=wsum.device)
+    lnacc = lnacc + torch.where(
+        do_append,
+        torch.log(torch.maximum(n_avail.to(dt), one) / (n_act.to(dt) + 1.0)),
+        torch.log(torch.maximum(n_act.to(dt), one)
+                  / torch.maximum(n_avail_after.to(dt), one)))
+    feasible = torch.where(do_append, n_avail > 0,
+                           (n_act > 0) & (mcsum[k] == 0) & ov[k])
+    feasible = feasible & ~routes.has_am[k]
+    accept = rng.mh_accept(gen, torch.where(
+        feasible, lnacc, torch.full_like(lnacc, -float("inf"))))
+    on_new = on.scatter(0, k[None], torch.where(accept, do_append,
+                                                on[k])[None])
+    mig_new = mig._replace(on=on_new)
+    logpr_new = logpr_fn(state.gt, sp, mig_new, state.subst.heredity)[0]
+    return (state._replace(mig=mig_new,
+                           logpr=torch.where(accept, logpr_new, state.logpr)),
+            (1, accept.to(torch.int64)))
+
+
+def geneflow_flip_move(ctx: Ctx, cfg: BppConfig, routes, state: McmcState,
+                       gen):
+    """Flip one route's direction s -> t to t -> s, carrying its rate over
+    (stree_migration_flip_wrapper stree.c:15204; the candidates are the
+    active routes whose reverse is inactive, :15225-15232)."""
+    mig, sp = state.mig, state.sp
+    logpr_fn = make_logpr_fn_mig(ctx, routes)
+    _, _, _, W, mc, _ = logpr_fn(state.gt, sp, mig, state.subst.heredity)
+    wsum, mcsum = _route_sums(ctx, W, mc)
+    on = mig.on
+    rev = routes.rev
+    has_rev = rev >= 0
+    rev_s = rev.clamp(min=0)
+    am0 = ~routes.has_am
+
+    def flippable(on):
+        return on & has_rev & ~on[rev_s] & am0 & am0[rev_s]
+
+    k, n_flip = _pick(gen, flippable(on))
+    r = rev_s[k]
+    Mk, Mr = mig.M[k], mig.M[r]
+    # deactivate k, activate r, and swap the rate slots so that the
+    # active rate carries over (migspec_flip keeps spec->M)
+    idx = torch.stack([k, r])
+    on_new = on.scatter(0, idx, torch.tensor([False, True],
+                                             device=on.device))
+    M_new = mig.M.scatter(0, idx, torch.stack([Mr, Mk]))
+    # density delta: k's exposure leaves, r's (at rate Mk) enters; the
+    # pseudo-prior terms of the swapped values (the slots may carry
+    # different priors)
+    al, be = routes.alpha, routes.beta
+    lpg = rng.log_pdf_gamma
+    lnacc = Mk * wsum[k] - Mk * wsum[r] \
+        + (lpg(Mk, al[r], be[r]) + lpg(Mr, al[k], be[k])
+           - lpg(Mk, al[k], be[k]) - lpg(Mr, al[r], be[r]))
+    # the reverse selection: the flippable set after the flip
+    one = torch.ones((), dtype=wsum.dtype, device=wsum.device)
+    n_after = flippable(on_new).sum()
+    lnacc = lnacc + torch.log(torch.maximum(n_flip.to(one.dtype), one)
+                              / torch.maximum(n_after.to(one.dtype), one))
+    feasible = (n_flip > 0) & (mcsum[k] == 0)
+    accept = rng.mh_accept(gen, torch.where(
+        feasible, lnacc, torch.full_like(lnacc, -float("inf"))))
+    mig_new = mig._replace(on=torch.where(accept, on_new, on),
+                           M=torch.where(accept, M_new, mig.M))
+    logpr_new = logpr_fn(state.gt, sp, mig_new, state.subst.heredity)[0]
+    return (state._replace(mig=mig_new,
+                           logpr=torch.where(accept, logpr_new, state.logpr)),
+            (1, accept.to(torch.int64)))
 
 
 # --------------------------------------------------------------------------

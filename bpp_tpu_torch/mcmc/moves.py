@@ -1,9 +1,10 @@
 """MCMC moves, batched over loci (PyTorch).
 
-Port of ``bpp_tpu/mcmc/moves.py`` without migration and traits: plain
-species trees and MSC-I networks (whose tau move is
+Port of ``bpp_tpu/mcmc/moves.py`` without migration (``mig_moves``):
+plain species trees and MSC-I networks (whose tau move is
 ``msci_moves.tau_move_net``), with estimated, linked or integrated-out
-thetas, any clock and dated tips:
+thetas, any clock, dated tips and morphological traits (the tau and
+mixing moves re-score them):
 
   * gene-node ages    — gtree.c:4585 ``propose_ages`` (blocked by depth
                         parity: two jointly proposed phases)
@@ -40,6 +41,15 @@ from .state import (
 )
 
 MAXAGE_CAP = 999.0  # reference's "999 for compatibility" upper bound
+
+
+def _trait_eval(ctx: Ctx, sp, tau, brate):
+    """The trait log-likelihoods [n_part] through whichever closure the
+    run carries (the fixed topology's ``trait_fn`` for A00/A10,
+    ``trait_fn_topo`` on ``sp``'s topology for A01/A11)."""
+    if ctx.trait_fn is not None:
+        return ctx.trait_fn(tau, brate)
+    return ctx.trait_fn_topo(sp.left, sp.right, sp.parent, tau, brate)
 
 
 def _psum_if_sharded(x):
@@ -196,6 +206,8 @@ def tau_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
     corr_ln = _corr_ln(cfg, state)
     coal_c, t2_c = state.coal, state.t2h
     lnrates = state.clock.lnrates if corr_ln else None
+    traits = ctx.has_traits
+    tlogl = state.trait.logl if traits else None
     nprop = zero
     nacc = zero
     par = sp0.parent
@@ -285,6 +297,9 @@ def tau_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
         if corr_ln:
             lnr_new = lnprior_rates(cfg, sp_new, state.subst.mu, state.clock)
             lnacc = lnacc + _psum_if_sharded(torch.sum(lnr_new - lnrates))
+        if traits:
+            tl_new = _trait_eval(ctx, sp0, tau_new, state.trait.brate)
+            lnacc = lnacc + torch.sum(tl_new - tlogl)
 
         accept = rng.mh_accept(gen, lnacc) & prop.any()
         age = torch.where(accept, age_new, age)
@@ -296,6 +311,8 @@ def tau_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
             t2_c = torch.where(accept, t2_new, t2_c)
         if corr_ln:
             lnrates = torch.where(accept, lnr_new, lnrates)
+        if traits:
+            tlogl = torch.where(accept, tl_new, tlogl)
         np_ = prop.sum()
         nprop = nprop + np_
         nacc = nacc + torch.where(accept, np_, zero)
@@ -306,6 +323,9 @@ def tau_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
     if corr_ln:
         new_state = new_state._replace(
             clock=state.clock._replace(lnrates=lnrates))
+    if traits:
+        new_state = new_state._replace(
+            trait=state.trait._replace(logl=tlogl))
     return new_state, (nprop, nacc)
 
 
@@ -412,6 +432,12 @@ def mixing_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
     if cfg.theta_integrated:
         lnacc = lnacc + _integrated_delta(ctx, cfg, state, c_new, t2_new)
         cand = cand._replace(coal=c_new, t2h=t2_new)
+    if ctx.has_traits:
+        # the taus scale, and the trait branch lengths with them
+        # (prop_mixing.c:642-647)
+        tl_new = _trait_eval(ctx, sp, tau_new, state.trait.brate)
+        lnacc = lnacc + torch.sum(tl_new - state.trait.logl)
+        cand = cand._replace(trait=state.trait._replace(logl=tl_new))
     if _corr_ln(cfg, state):
         lnr_new = lnprior_rates(cfg, spn, state.subst.mu, state.clock)
         lnacc = lnacc + _psum_if_sharded(

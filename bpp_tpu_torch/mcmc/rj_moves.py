@@ -23,6 +23,8 @@ Under MSC-M migration (``routes``) the populations come through the
 migration events, event times ride the rubber band edge by edge
 (:func:`_remap_event_times`) and the acceptance takes the
 structured-coalescent density (prop_rj.c:599-656, :1140-1222).
+Morphological traits are re-scored at the split or joined taus
+(prop_rj.c:727-774).
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ from ..trees.gtree import (
     BIG_AGE, assign_populations, inner_order, topo_scan,
 )
 from . import rng
-from .moves import _integrated_delta
+from .moves import _integrated_delta, _trait_eval
 from .state import Ctx, McmcState, make_logl_fn, make_logpr_fn, tree_where
 from .stree_moves import _at, _masked_sum, log_species_model_prior
 
@@ -349,6 +351,13 @@ def rj_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen,
     lnacc = lnacc + (log_species_model_prior(cfg, sp_new, ctx.prior_a11_log)
                      - log_species_model_prior(cfg, sp, ctx.prior_a11_log)
                      ).to(dt)
+    # morphological traits re-scored at the split or joined taus
+    # (prop_rj.c:727-774); under A11 on the current sampled topology (the
+    # rj move never changes it)
+    if ctx.has_traits:
+        tl_new = _trait_eval(ctx, sp, sp_new.tau, state.trait.brate)
+        lnacc = lnacc + torch.sum(tl_new - state.trait.logl)
+        cand = cand._replace(trait=state.trait._replace(logl=tl_new))
     lnacc = torch.where(bad, torch.full_like(lnacc, -float("inf")), lnacc)
     accept = rng.mh_accept(gen, lnacc)
     return tree_where(accept, cand, state), (1, accept.to(torch.int64))

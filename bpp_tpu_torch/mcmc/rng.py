@@ -88,8 +88,9 @@ def log_pdf_invgamma(x, a, b):
     return a * torch.log(b) - torch.lgamma(a) - (a + 1.0) * torch.log(x) - b / x
 
 
-def log_pdf_gamma(x, a: float, b):
-    """Gamma(a, rate b) log density; ``b`` is a float or a tensor like
-    ``x``."""
+def log_pdf_gamma(x, a, b):
+    """Gamma(a, rate b) log density; ``a`` and ``b`` are floats or tensors
+    like ``x``."""
     lb = torch.log(b) if torch.is_tensor(b) else math.log(b)
-    return a * lb - math.lgamma(a) + (a - 1.0) * torch.log(x) - b * x
+    lga = torch.lgamma(a) if torch.is_tensor(a) else math.lgamma(a)
+    return a * lb - lga + (a - 1.0) * torch.log(x) - b * x

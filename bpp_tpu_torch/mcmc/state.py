@@ -1,8 +1,8 @@
 """MCMC state and likelihood glue (PyTorch).
 
-Port of ``bpp_tpu/mcmc/state.py`` without traits: plain species trees,
-MSC-I networks and MSC-M migration on fixed routes, the strict and the
-relaxed clocks,
+Port of ``bpp_tpu/mcmc/state.py``: plain species trees, MSC-I networks
+and MSC-M migration (fixed routes or geneflow rjMCMC), morphological
+traits, the strict and the relaxed clocks,
 estimated, linked or integrated-out thetas, tip dating, species-tree
 search and species delimitation, one substitution model for all loci
 (DNA or amino acids) or one per locus (``model = custom``).
@@ -75,6 +75,8 @@ MV_NUBAR = 17
 MV_BRATE = 18
 MV_MIGRATES = 19     # MSC-M route rates (Gibbs, variable-rate slides)
 MV_MIG_AGES = 20     # MSC-M migration-event ages
+MV_TRAIT = 21        # trait branch rates (prop_branch_rates_trait)
+MV_GFRJ = 22         # geneflow rjMCMC route add/remove and flip
 N_MOVES = 23
 
 
@@ -262,6 +264,9 @@ class McmcState(NamedTuple):
     mubar: torch.Tensor | None = None   # []
     # MSC-M: migration events and route rates (None without migration)
     mig: object | None = None           # trees.migration.MigState
+    # morphological traits (traitfile; morph.c trait_t per snode): the
+    # per-partition branch rates and cached trait log-likelihoods
+    trait: object | None = None         # trees.traits.TraitState
 
 
 def tree_where(cond, new, old):
@@ -321,6 +326,16 @@ class Ctx:
     custom: CustomModels | None = None
     # the likelihood pass, chosen once per run (driver.likelihood_route)
     route: str = ROUTE_K1
+    # morphological traits: trait_logl(tau, brate) -> [n_part] on the
+    # fixed species topology (trees.traits.make_trait_logl); under
+    # species-tree search trait_fn is None and trait_fn_topo(left, right,
+    # parent, tau, brate) scores the topology it is given
+    trait_fn: object | None = None
+    trait_fn_topo: object | None = None
+
+    @property
+    def has_traits(self) -> bool:
+        return self.trait_fn is not None or self.trait_fn_topo is not None
 
 
 

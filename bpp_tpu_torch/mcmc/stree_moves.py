@@ -7,6 +7,8 @@ the species-level choice, the gene-tree surgery batched over loci, one
 likelihood pass and one MSC-density pass on the proposed trees, and one
 accept decision; an infeasible proposal still runs its pass and is
 rejected, so a move launches the pruning kernel exactly once.
+Morphological traits are re-scored on the proposed topology
+(:func:`_traits_on`).
 
 What the eager step changes against ``bpp_tpu``:
 
@@ -276,6 +278,18 @@ def _masked_sum(ctx, x):
     return torch.where(ctx.locus_mask, x, torch.zeros_like(x)).sum()
 
 
+def _traits_on(ctx: Ctx, state: McmcState, sp_new, lnacc, cand_state):
+    """Morphological traits re-scored on the proposed topology
+    (stree.c:727-736 subtracts trait_old_logl and adds
+    loglikelihood_trait inside the acceptance): (lnacc, candidate)."""
+    if ctx.trait_fn_topo is None or state.trait is None:
+        return lnacc, cand_state
+    tl_new = ctx.trait_fn_topo(sp_new.left, sp_new.right, sp_new.parent,
+                               sp_new.tau, state.trait.brate)
+    return (lnacc + torch.sum(tl_new - state.trait.logl),
+            cand_state._replace(trait=state.trait._replace(logl=tl_new)))
+
+
 def species_spr_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
     """Species-tree SPR with gene-tree surgery (stree.c:7747): prune the
     focal node Y (weight 1/sqrt(branch length)) with its child A and
@@ -450,6 +464,7 @@ def species_spr_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
         lnacc = lnacc + _masked_sum(ctx, lnr_new - state.clock.lnrates)
         cand_state = cand_state._replace(
             clock=state.clock._replace(lnrates=lnr_new))
+    lnacc, cand_state = _traits_on(ctx, state, sp_new, lnacc, cand_state)
     lnacc = torch.where(bad_any, torch.full_like(lnacc, -float("inf")), lnacc)
     accept = rng.mh_accept(gen, lnacc)
     return (tree_where(accept, cand_state, state),
@@ -849,6 +864,7 @@ def snl_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen, host=None):
     bad_any = badmask.any() | ~torch.isfinite(lnacc)
     if bad:
         bad_any = torch.ones_like(bad_any)
+    lnacc, cand_state = _traits_on(ctx, state, sp_new, lnacc, cand_state)
     lnacc = torch.where(bad_any, torch.full_like(lnacc, -float("inf")), lnacc)
     accept = rng.mh_accept(gen, lnacc)
     return (tree_where(accept, cand_state, state),

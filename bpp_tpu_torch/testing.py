@@ -214,6 +214,36 @@ def write_simulated_run(directory, n_loci: int, seqs=(2, 2, 2, 2),
     return path
 
 
+def write_trait_file(path, names="ABCD", n_cont: int = 20,
+                     n_disc: int = 50, seed: int = 137) -> str:
+    """A traitfile (morph.c's format) for the species ``names``: one
+    continuous partition of ``n_cont`` standardized characters (v_pop 0.5,
+    ldetRs 0) and one discrete partition of ``n_disc`` characters of 2-4
+    states, each variable, with some missing (``?``) values; made with
+    numpy from ``seed``.  Returns ``path``."""
+    rng = np.random.default_rng(seed)
+    ns = len(names)
+    lines = [f"{ns} {n_cont} C 0.5 0.0"]
+    cont = rng.standard_normal((ns, n_cont))
+    lines += [f"{nm} " + " ".join(f"{v:.6f}" for v in row)
+              for nm, row in zip(names, cont)]
+    disc = np.zeros((ns, n_disc), np.int64)
+    for j in range(n_disc):
+        k = int(rng.integers(2, 5))
+        col = rng.integers(0, k, ns)
+        col[:2] = rng.permutation(k)[:2]     # two states: variable
+        disc[:, j] = col
+    miss = rng.random((ns, n_disc)) < 0.1
+    miss[:2] = False                         # keep the column variable
+    lines += ["", f"{ns} {n_disc} D"]
+    lines += [f"{nm} " + " ".join("?" if m else str(v)
+                                  for v, m in zip(row, mrow))
+              for nm, row, mrow in zip(names, disc, miss)]
+    with open(path, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    return str(path)
+
+
 def generate_aa_benchmark(nloci: int, nsites: int, out_dir: str,
                           seed: int = 137) -> float:
     """Deterministic WAG amino-acid benchmark dataset (PHYLIP + Imap).
@@ -448,7 +478,7 @@ def state_arrays(state) -> dict:
             for f, v in x._asdict().items()}
 
     out = {k: fields(getattr(state, k, None))
-           for k in ("gt", "sp", "subst", "clock", "mig")}
+           for k in ("gt", "sp", "subst", "clock", "mig", "trait")}
     for k in ("coal", "t2h", "mubar"):
         v = getattr(state, k, None)
         if v is not None:

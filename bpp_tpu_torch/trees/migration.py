@@ -67,6 +67,7 @@ class MigRoutes:
             si=t(self.si, torch.int64), ti=t(self.ti, torch.int64),
             alpha=t(self.alpha, dtype), beta=t(self.beta, dtype),
             am=t(self.am, dtype), has_am=t(self.am > 0),
+            rev=t(self.index[self.ti, self.si], torch.int64),
             any_am=bool((self.am > 0).any()))
 
 
@@ -79,6 +80,7 @@ class RouteTensors(NamedTuple):
     beta: torch.Tensor     # [K]
     am: torch.Tensor       # [K]
     has_am: torch.Tensor   # [K] bool
+    rev: torch.Tensor      # [K] int64 the opposite route's index, or -1
     any_am: bool
 
 

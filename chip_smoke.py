@@ -134,8 +134,9 @@ Phases, in order; any failure exits non-zero:
               species x 4 sequences x 500 sites simulated on
               ``testing.NET_SIM_TREE`` (B into T through H, phi 0.3; seed
               137, JC69, theta 0.01), through ``cli.main`` with ``phiprior =
-              1 1``: K1 launched 2 + 3 + 5 (one tau pass for each inner
-              node) + 1 = 11 times per iteration plus 1, K2 never; theta,
+              1 1``, burnin 5, nsample 20: K1 launched 2 + 3 + 5 (one tau
+              pass for each inner node) + 1 = 11 times per iteration plus
+              1, K2 never; theta,
               tau and phi columns move; every state's routes are
               consistent and ``validate_state`` passes on the last; no
               FigTree.tre; the ``[profile]`` of its step;
@@ -147,8 +148,8 @@ Phases, in order; any failure exits non-zero:
               with ``reduce_root`` on 200 diploid HKY+G4 loci simulated on
               the network;
 22. main 11 — the BDI fixture (``tests/fixtures/bdi``) with ``thetamodel =
-              linked-msci`` through ``cli.main``: K1 launched 2 + 3 + 4 + 1
-              = 10 times per iteration plus 1; ``out11.mcmc.txt.processed``
+              linked-msci`` through ``cli.main``, burnin 8, nsample 20: K1
+              launched 2 + 3 + 4 + 1 = 10 times per iteration plus 1; ``out11.mcmc.txt.processed``
               (the label-switching correction) holds every sample, the
               theta columns are the linked owners', phi moves; then
               ``--msci-create`` prints ``tests/test_msci_create.py``'s
@@ -163,7 +164,8 @@ Phases, in order; any failure exits non-zero:
               seed 137) simulated on ((A,B),(C,D)) with ``migration = 2``
               (A -> B and B -> A, M = 0.5) by the port's simulator, run
               through ``cli.main`` with the routes ``A B`` and ``B A`` and
-              ``wprior = 20 40``: K1 launched 8 times per iteration (age 2
+              ``wprior = 20 40``, burnin 5, nsample 20: K1 launched 8 times
+              per iteration (age 2
               + sim-SPR 3 + tau 2 + mixing 1; the event-age move runs no
               pass under the strict clock) plus 1, K2 never; theta, tau and
               the ``W:`` rate columns move; every state's routes and events
@@ -172,7 +174,7 @@ Phases, in order; any failure exits non-zero:
               a1b1 log has the rates' rows; the ``[profile]`` of its step;
 24. mig     — K1 and K2 against their float64 plain versions under both CLV
               stores: (a) every gene-tree batch ``spr_sim_move`` proposed
-              over 20 iterations of main 12's engine (loci of failed walks,
+              over 10 iterations of main 12's engine (loci of failed walks,
               pruned and not regrafted, left out and counted) and the state
               after them; (b) the sub-edge branch lengths
               (``relaxed_branch_lengths_mig``) of a clock = 2 MSC-M chain on
@@ -187,11 +189,46 @@ Phases, in order; any failure exits non-zero:
               summary the split-R-hat table; ``--resume`` rewrites both
               files byte for byte; the ``[profile]`` of the two-chain step.
 
+26. main 14 — main 12's data and routes with ``geneflow = 1`` (the
+              rjMCMC over all 22 candidate routes; A -> B and B -> A active
+              at the start), burnin 5, nsample 20, through ``cli.main``: K1
+              launched 8 times per iteration plus 1 (the flip and add/remove
+              moves run no pass), K2 never; routes and events consistent in
+              every state, ``validate_state`` on the last; every ``W:``
+              column 0 exactly where its route is off; both geneflow moves
+              proposed once an iteration; the ``[profile]`` of its step;
+27. main 15 — main 1's data with a trait file the script writes (numpy
+              seed 137: 4 species x 20 continuous characters, 4 x 50
+              discrete ones of 2-4 states, some missing) and ``check =
+              10``: K1 launched 8 times per iteration plus 1 plus one a
+              check; the cached trait logl equal to a fresh evaluation at
+              every check; the trait move proposed and accepted; the
+              ``[profile]`` of its step;
+28. tools   — ``--bfdriver run.ctl --points 4`` writes four control files
+              and the beta-weights table; the smallest beta's file runs
+              through ``cli.main`` for 10 iterations (K1 8 an iteration
+              plus 1, finite lnL); ``--summary run.ctl`` rewrites main 1's
+              ``out.txt``, whose table must equal main 1's to the six
+              decimals mcmc.txt keeps;
+29. main 16 — main 1 with ``--x64``: K1's float64 build launched 8 times
+              per iteration plus 1 and the float32 build never; the diploid
+              chain of main 2 with ``--x64`` for 10 iterations: K2's float64
+              build 12 an iteration plus 1; the ``[profile]`` of the float64
+              JC69 step;
+30. x64     — the float64 builds against their float64 plain versions on
+              the card for JC69, HKY+G4, TN93 and GTR+G4 under both CLV
+              stores: K1 on main 16's gene trees (within 1e-6 lnL a locus),
+              K2 on the diploid data (1e-8 a pattern, 1e-6 a locus after
+              ``reduce_root``); each timed with the profiler at its main
+              path's model, beside its plain version and its bound in
+              float64 bytes and operations.
+
 Then one JSON line ``{"kernels": [...]}`` (K1 at JC69, K2 at HKY+G4: the
-models of their chains; launches summed over main 1-13, errors the
-largest of every hold), the card's name and power limit from nvidia-smi,
-and the last line ``{"ok": true, "device": {...}}``.  Without a CUDA
-device the script exits non-zero and prints no result.
+models of their chains; launches summed over main 1-15 and [tools],
+errors the largest of every hold; then the float64 builds, with main
+16's launches and the [x64] holds), the card's name and power limit from
+nvidia-smi, and the last line ``{"ok": true, "device": {...}}``.  Without
+a CUDA device the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -396,7 +433,7 @@ MAIN1_TREE = ("((A #0.01, B #0.01) :0.01 #0.01, (C #0.01, D #0.01) :0.012 "
               "#0.01) :0.02 #0.01")
 MIG_WPRIOR = "wprior = 20 40\n"
 N_MIG_DIPLOID = 200
-MIG_ITERS = 20
+MIG_ITERS = 10
 CHAINS = 2
 # an MSC-M step under the strict clock: age 2 + sim-SPR 3 + tau 2 +
 # mixing 1 (the event-age move runs no pass); under clock = 2 the
@@ -405,10 +442,28 @@ CHAINS = 2
 PASSES_PER_ITER_12 = 2 + 3 + 2 + 1
 ME_12 = 32
 PASSES_PER_ITER_12C = PASSES_PER_ITER_12 + ME_12 + H_BRANCHES
+# main 10 and main 12 run 25 iterations (burnin 5, nsample 20): their
+# steps take about a second each, and the script's time is bounded; main
+# 11 runs 28 (burnin 8, the fewest with finetune marks)
+SHORT_BURNIN, SHORT_NSAMPLE = 5, 20
+BDI_BURNIN = 8
+# main 14: main 12's data and routes with the geneflow rjMCMC over every
+# candidate route (its flip and add/remove run no likelihood pass)
+GENEFLOW = "geneflow = 1\n"
+# main 15: main 1's data with a trait file (4 species x 20 continuous
+# characters, 4 x 50 discrete ones); the trait move runs no pass, each
+# check one
+TRAITS15 = "traitfile = traits.txt\ncheck = {check}\n"
+# [tools]: --bfdriver's quadrature points, and the smallest beta's run
+BF_POINTS = 4
+BF_BURNIN, BF_NSAMPLE = 2, 8
 TOL_SITE = 2e-3           # per-pattern |dlnL| of K2, float32
 TOL_LNL = 0.02            # f32 bound of tests/test_kernel_consistency.py
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS = 67e12          # H100 SXM, float32 outside the tensor cores
+F64_FLOPS = 34e12          # H100 SXM, float64 outside the tensor cores
+TOL_LNL_F64 = 1e-6         # per-locus |dlnL| of the float64 builds
+TOL_SITE_F64 = 1e-8        # per-pattern |dlnL| of K2's float64 build
 # (model, gamma categories): the four families K1 special-cases
 MODELS = [("JC69", 1), ("HKY", 4), ("TN93", 1), ("GTR", 4)]
 # operations per child contraction of one (site, category), by family
@@ -456,10 +511,13 @@ def pass_args(state, subst, ctx, dtype):
             ctx.weights.to(dtype))
 
 
-def bound_ms(batch, model_name, n_cats, per_pattern=False):
+def bound_ms(batch, model_name, n_cats, per_pattern=False, rb=4,
+             flops=F32_FLOPS):
     """Least time the card could take for one pass on this run's data:
     the larger of the bytes it must move over the HBM rate and the
-    operations it must do over the f32 rate.  Only real patterns, real
+    operations it must do over the rate of the values' type (``rb``
+    bytes a value: 4, float32 at ``F32_FLOPS``; 8, float64 at
+    ``F64_FLOPS``).  Only real patterns, real
     tips and real levels count, and of the tree only what the kernels
     read: the schedule, the children and the ages (the parent of a
     scheduled child is its level's node, so ``parent`` is not read).  K1
@@ -476,22 +534,22 @@ def bound_ms(batch, model_name, n_cats, per_pattern=False):
     npat = np.asarray(batch.n_pat)[m].astype(np.float64)
     L = float(m.sum())
     C, K = n_cats, _KFAC[fam]
-    nbytes = (16.0 * (ns * npat).sum()            # tip partials (f32 x 4)
+    nbytes = (4.0 * rb * (ns * npat).sum()        # tip partials (x 4)
               + 8.0 * 3 * (ns - 1).sum()           # order, left, right
-              + 4.0 * (2 * ns - 1).sum()           # ages (f32)
-              + 4.0 * L * (4 + 1 + C + 2))         # freqs, mu, rates, kappas
+              + rb * (2 * ns - 1).sum()            # ages
+              + rb * L * (4 + 1 + C + 2))          # freqs, mu, rates, kappas
     if per_pattern:
-        nbytes += 8.0 * L + 4.0 * L * batch.max_patterns   # n_pat; [L, S] out
+        nbytes += 8.0 * L + rb * L * batch.max_patterns    # n_pat; [L, S] out
     else:
-        nbytes += 4.0 * npat.sum() + 4.0 * L       # weights; [L] out
+        nbytes += rb * npat.sum() + rb * L         # weights; [L] out
     if fam == "gtr":
-        nbytes += 4.0 * L * (4 + 32)               # eigensystem
+        nbytes += rb * L * (4 + 32)                # eigensystem
     site_levels = (npat * (ns - 1)).sum()
     ops = (site_levels * (C * (2 * CONTRACT_OPS[fam] + 4 + 4 + 4) + 2)
            + npat.sum() * (C * 8 + (2 if per_pattern else 4))
            + K * C * (2 * ns - 1).sum())
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_FLOPS * 1e3
+    t_ops = ops / flops * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
                                  "operations")
 
@@ -652,17 +710,20 @@ def check_chain_output(job, nsample, moving, figtree=True):
     return data
 
 
-def run_chain(argv, job, iters, expect, moving, label, smi, figtree=True):
+def run_chain(argv, job, iters, expect, moving, label, smi, figtree=True,
+              nsample=NSAMPLE):
     """Drive one chain through the CLI (``argv``) with both launch counts
-    set to 0 just before and read just after; ``expect`` = (K1, K2)
-    launches over ``iters`` iterations and the initial state.  ``moving``
-    names the mcmc.txt columns that must move, or is "A01" / "A11" for a
-    run that writes species trees."""
+    (and those of the float64 builds) set to 0 just before and read just
+    after; ``expect`` = (K1, K2) launches over ``iters`` iterations and
+    the initial state.  ``moving`` names the mcmc.txt columns that must
+    move, or is "A01" / "A11" for a run that writes species trees; the
+    file holds ``nsample`` samples."""
     import torch
 
     from bpp_tpu_torch import cli
     from bpp_tpu_torch.core import fels, pack
     pack.LAUNCHES = fels.LAUNCHES = 0
+    pack.LAUNCHES_F64 = fels.LAUNCHES_F64 = 0
     t0 = time.perf_counter()
     rc = cli.main(argv + ["--quiet"])
     torch.cuda.synchronize()
@@ -680,14 +741,15 @@ def run_chain(argv, job, iters, expect, moving, label, smi, figtree=True):
                              "store; at 16 tips it keeps its CLVs in shared "
                              "memory and allocates no scratch")
     if moving in ("A01", "A11"):
-        result = check_species_output(job, NSAMPLE, moving)
+        result = check_species_output(job, nsample, moving)
     else:
-        data = check_chain_output(job, NSAMPLE, moving, figtree)
+        data = check_chain_output(job, nsample, moving, figtree)
         result = f"mean lnL {data[:, -1].mean():.3f}"
     print(f"[{label}] cli {' '.join(argv)}: {iters} iterations, wall "
           f"{wall:.1f} "
           f"s (load + init + chain + summary), {iters / wall:.2f} iters/s "
-          f"overall | K1 launches {got[0]} | K2 launches {got[1]} | CLV store "
+          f"overall | K1 launches {got[0]} | K2 launches {got[1]} (float64 "
+          f"build {pack.LAUNCHES_F64} / {fels.LAUNCHES_F64}) | CLV store "
           f"{store if sum(got) else '-'} | {result} | {smi}")
     return got
 
@@ -750,10 +812,12 @@ class MoveTally:
         self._saved = []
 
     def __enter__(self):
-        from bpp_tpu_torch.mcmc import mig_moves, rj_moves, stree_moves
+        from bpp_tpu_torch.mcmc import (
+            mig_moves, rj_moves, stree_moves, trait_moves,
+        )
         from bpp_tpu_torch.mcmc import state as state_mod
         mods = {"stree_moves": stree_moves, "rj_moves": rj_moves,
-                "mig_moves": mig_moves}
+                "mig_moves": mig_moves, "trait_moves": trait_moves}
         for mod_name, name in self.moves:
             self._patch(mods[mod_name], name, self._move)
         for name in ("site_logl_packed", "site_logl_fels"):
@@ -1341,8 +1405,9 @@ def aa_phase(dev, smi, iters):
 class StepWatch:
     """While active, keeps the route-consistency flag of every state an
     MSC-I engine's step returns (with ``mig``: an MSC-M engine's, whose
-    events must lie in their edges and populations too; on the device: no
-    host read) and the last engine and state."""
+    events must lie in their edges and populations too, and under the
+    geneflow rjMCMC its route mask ``on``; on the device: no host read)
+    and the last engine and state."""
 
     def __init__(self, mig=False):
         self.mig = mig
@@ -1353,7 +1418,7 @@ class StepWatch:
         from bpp_tpu_torch.trees.gtree import (
             assign_populations, route_consistent,
         )
-        self.flags, self.last = [], None
+        self.flags, self.ons, self.last = [], [], None
         self._orig = orig = Engine._step
         watch = self
 
@@ -1370,6 +1435,8 @@ class StepWatch:
                 pops = assign_populations(state.gt, state.sp, ctx.tip_pop)
                 ok = route_consistent(state.gt, state.sp, pops, ctx.n_seq)
             watch.flags.append(ok.all())
+            if watch.mig and state.mig.on is not None:
+                watch.ons.append(state.mig.on)
             watch.last = (eng, state)
             return state, stats
 
@@ -1419,8 +1486,9 @@ def msci_phases(dev, smi, iters, n_loci=N_LOCI, n_diploid=N_NET_DIPLOID):
                             ("run10c.ctl", "out10c",
                              "phiprior = 1 1\n" + RELAXED)):
         with open(ctl, "w") as f:
-            f.write(net_run.format(nloci=n_loci, burnin=BURNIN,
-                                   nsample=NSAMPLE, job=job, extra=extra))
+            f.write(net_run.format(nloci=n_loci, burnin=SHORT_BURNIN,
+                                   nsample=SHORT_NSAMPLE, job=job,
+                                   extra=extra))
     run10 = load_run_from_ctl("run10.ctl")
     st = run10.stree
     b = run10.batch
@@ -1430,19 +1498,20 @@ def msci_phases(dev, smi, iters, n_loci=N_LOCI, n_diploid=N_NET_DIPLOID):
           f"T={b.max_tips} S={b.max_patterns} | real patterns "
           f"{int(np.asarray(b.n_pat).sum())}")
 
-    # [main 10]: A00 on the network through the CLI
+    # [main 10]: A00 on the network through the CLI, 25 iterations
+    iters10 = SHORT_BURNIN + SHORT_NSAMPLE
     with StepWatch() as watch:
         launches10, _ = run_chain(
-            ["--cfile", "run10.ctl"], "out10", iters,
-            (PASSES_PER_ITER_10 * iters + 1, 0), ("theta", "tau", "phi"),
-            "main 10", smi, figtree=False)
+            ["--cfile", "run10.ctl"], "out10", iters10,
+            (PASSES_PER_ITER_10 * iters10 + 1, 0), ("theta", "tau", "phi"),
+            "main 10", smi, figtree=False, nsample=SHORT_NSAMPLE)
     consistent = bool(torch.stack(watch.flags).all())
-    if len(watch.flags) != iters or not consistent:
+    if len(watch.flags) != iters10 or not consistent:
         raise AssertionError(f"main 10: {len(watch.flags)} steps, routes "
                              f"consistent in all: {consistent}")
     eng10, state10 = watch.last
     eng10.validate_state(state10)
-    print(f"[main 10] routes consistent in all {iters} states; "
+    print(f"[main 10] routes consistent in all {iters10} states; "
           f"validate_state passed on the last | {smi}")
 
     # its step, profiled on the chain's last state; [net] (a): K1 on the
@@ -1476,8 +1545,8 @@ def msci_phases(dev, smi, iters, n_loci=N_LOCI, n_diploid=N_NET_DIPLOID):
                             ("run11.ctl", "out11",
                              "thetamodel = linked-msci\n")):
         with open(ctl, "w") as f:
-            f.write(BDI_CTL.format(fix=fix, job=job, burnin=BURNIN,
-                                   nsample=NSAMPLE, extra=extra))
+            f.write(BDI_CTL.format(fix=fix, job=job, burnin=BDI_BURNIN,
+                                   nsample=SHORT_NSAMPLE, extra=extra))
     engb, stateb, _ = warm_engine(load_run_from_ctl("run11c.ctl"), dev, 2, 3)
     if engb.run.stree.bdi is None or stateb.sp.rate_owner is None:
         raise AssertionError("the BDI fixture has no rate owners")
@@ -1508,11 +1577,12 @@ def msci_phases(dev, smi, iters, n_loci=N_LOCI, n_diploid=N_NET_DIPLOID):
           f"{net['b']:.3e} (c) {net['c']:.3e} | K2 (d) {net['d']:.3e} a "
           f"locus, {net['d site']:.3e} a pattern | tol {TOL_LNL} | {smi}")
 
-    # [main 11]: BDI with linked thetas through the CLI
+    # [main 11]: BDI with linked thetas through the CLI, 28 iterations
+    iters11 = BDI_BURNIN + SHORT_NSAMPLE
     launches11, _ = run_chain(
-        ["--cfile", "run11.ctl"], "out11", iters,
-        (PASSES_PER_ITER_11 * iters + 1, 0), ("theta", "tau", "phi"),
-        "main 11", smi, figtree=False)
+        ["--cfile", "run11.ctl"], "out11", iters11,
+        (PASSES_PER_ITER_11 * iters11 + 1, 0), ("theta", "tau", "phi"),
+        "main 11", smi, figtree=False, nsample=SHORT_NSAMPLE)
     st11 = load_run_from_ctl("run11.ctl").stree
     # the theta owners of linked-msci, less the BDI mirrors (no theta)
     mirrors = {int(st11.hybrid[i]) for i in range(st11.n_nodes)
@@ -1523,7 +1593,7 @@ def msci_phases(dev, smi, iters, n_loci=N_LOCI, n_diploid=N_NET_DIPLOID):
     with open("out11.mcmc.txt.processed") as f:
         proc = f.read().splitlines()
     thetas = [c for c in head if c.startswith("theta")]
-    if len(thetas) != len(owners) or len(proc) != NSAMPLE + 1:
+    if len(thetas) != len(owners) or len(proc) != SHORT_NSAMPLE + 1:
         raise AssertionError(f"main 11: theta columns {thetas} for owners "
                              f"{owners}; {len(proc)} processed lines")
     out = io.StringIO()
@@ -1644,8 +1714,9 @@ def mig_phases(dev, smi, iters, n_loci=N_LOCI, n_diploid=N_MIG_DIPLOID):
     for ctl, job, extra in (("run12.ctl", "out12", routes),
                             ("run12c.ctl", "out12c", routes + RELAXED)):
         with open(ctl, "w") as f:
-            f.write(mig_run.format(nloci=n_loci, burnin=BURNIN,
-                                   nsample=NSAMPLE, job=job, extra=extra))
+            f.write(mig_run.format(nloci=n_loci, burnin=SHORT_BURNIN,
+                                   nsample=SHORT_NSAMPLE, job=job,
+                                   extra=extra))
     run12 = load_run_from_ctl("run12.ctl")
     b = run12.batch
     print(f"[data 12] {n_loci} haploid loci simulated with migration A <-> B "
@@ -1654,12 +1725,13 @@ def mig_phases(dev, smi, iters, n_loci=N_LOCI, n_diploid=N_MIG_DIPLOID):
           f"{int(np.asarray(b.n_pat).sum())} | routes "
           f"{[(s.source, s.target) for s in run12.cfg.mig_specs]}")
 
-    # [main 12]: A00 MSC-M through the CLI
+    # [main 12]: A00 MSC-M through the CLI, 25 iterations
+    iters = SHORT_BURNIN + SHORT_NSAMPLE
     with StepWatch(mig=True) as watch:
         launches12, _ = run_chain(
             ["--cfile", "run12.ctl"], "out12", iters,
             (PASSES_PER_ITER_12 * iters + 1, 0), ("theta", "tau", "W:"),
-            "main 12", smi)
+            "main 12", smi, nsample=SHORT_NSAMPLE)
     consistent = bool(torch.stack(watch.flags).all())
     if len(watch.flags) != iters or not consistent:
         raise AssertionError(f"main 12: {len(watch.flags)} steps, routes "
@@ -1831,6 +1903,356 @@ def main13(iters, smi, dev):
                  "pack_logl_kernel", f"JC69 {CHAINS}-chain step (main 13)",
                  CHAINS * PASSES_PER_ITER)
     return launches + resumed
+
+
+def main14(smi):
+    """``[main 14]``: main 12's data and routes with the geneflow rjMCMC
+    (``geneflow = 1``: every candidate route, the configured A -> B and
+    B -> A active at the start), burnin 5, nsample 20, through the CLI;
+    routes and events consistent in every state, ``validate_state`` on the
+    last, each ``W:`` column 0 exactly where its route is off, the
+    geneflow moves counted; the ``[profile]`` of its step.  Returns K1's
+    launches."""
+    import numpy as np
+    import torch
+
+    from bpp_tpu_torch.testing import MIG_RUN
+    mig_run = RUN_CTL.replace("seqfile = sim.phy", "seqfile = sim12.phy") \
+        .replace("Imapfile = sim.Imap.txt", "Imapfile = sim12.Imap.txt")
+    with open("run14.ctl", "w") as f:
+        f.write(mig_run.format(nloci=N_LOCI, burnin=SHORT_BURNIN,
+                               nsample=SHORT_NSAMPLE, job="out14",
+                               extra=MIG_RUN + MIG_WPRIOR + GENEFLOW))
+    iters = SHORT_BURNIN + SHORT_NSAMPLE
+    moves = (("mig_moves", "geneflow_flip_move"),
+             ("mig_moves", "geneflow_rj_move"))
+    with StepWatch(mig=True) as watch, \
+            MoveTally(record=True, moves=moves, accepted=False) as tally:
+        launches, _ = run_chain(
+            ["--cfile", "run14.ctl"], "out14", iters,
+            (PASSES_PER_ITER_12 * iters + 1, 0), ("theta",),
+            "main 14", smi, nsample=SHORT_NSAMPLE)
+    consistent = bool(torch.stack(watch.flags).all())
+    if len(watch.flags) != iters or not consistent:
+        raise AssertionError(f"main 14: {len(watch.flags)} steps, routes "
+                             f"and events consistent in all: {consistent}")
+    eng, state = watch.last
+    eng.validate_state(state)
+    ons = torch.stack(watch.ons).cpu().numpy()              # [iters, K]
+    with open("out14.mcmc.txt") as f:
+        head = f.readline().split()
+        data = np.loadtxt(f, ndmin=2)
+    w = [j for j, c in enumerate(head) if c.startswith("W:")]
+    if len(w) != ons.shape[1] or len(w) != eng.routes.n_routes:
+        raise AssertionError(f"main 14: {len(w)} W: columns for "
+                             f"{eng.routes.n_routes} candidate routes")
+    # 25 iterations without finetune marks (burnin < 8): a tau column
+    # may keep its value, but not every one
+    taus = [j for j, c in enumerate(head) if c.startswith("tau")]
+    if not (data[:, taus].std(axis=0) > 0).any():
+        raise AssertionError("main 14: no tau column moved")
+    W = data[:, w]
+    on = ons[SHORT_BURNIN:]
+    if not ((W == 0) == ~on).all():
+        raise AssertionError("main 14: a W: column is 0 where its route is "
+                             "on, or not 0 where it is off")
+    counts = {n: tuple(c) for n, c in tally.counts.items()}
+    if any(c[0] != iters for c in counts.values()):
+        raise AssertionError(f"main 14: geneflow moves proposed {counts}, "
+                             f"expected {iters} calls each")
+    print(f"[main 14] {len(w)} candidate routes; routes and events "
+          f"consistent in all {iters} states; validate_state passed on the "
+          f"last; W: columns 0 exactly where their route is off in all "
+          f"{SHORT_NSAMPLE} samples; active routes a sample "
+          f"{sorted(set(on.sum(1).tolist()))}; geneflow moves (calls, calls "
+          f"accepted) {counts}; {int(state.mig.count().sum())} events | "
+          f"{smi}")
+    ms = step_ms(eng, state, iters=3)
+    profile_step(eng, state, ms, smi, "pack_logl_kernel",
+                 "MSC-M geneflow JC69 step (main 14)", PASSES_PER_ITER_12,
+                 iters=1)
+    print(f"[main 14] engine step (MSC-M geneflow JC69, {N_LOCI} loci): "
+          f"{1e3 / ms:.2f} iters/s after the chain | {smi}")
+    return launches
+
+
+def main15(smi, dev):
+    """``[main 15]``: main 1's data with a trait file (numpy seed 137: 4
+    species x 20 continuous characters, 4 x 50 discrete ones of 2-4
+    states with some missing) and ``check = 10`` through the CLI; the
+    cached trait logl equal to a fresh evaluation at every check, the trait
+    move proposed and accepted; the ``[profile]`` of its step.  Returns
+    K1's launches."""
+    import torch
+
+    from bpp_tpu_torch.mcmc import moves
+    from bpp_tpu_torch.mcmc.driver import Engine
+    from bpp_tpu_torch.testing import write_trait_file
+    write_trait_file("traits.txt", seed=137)
+    with open("run15.ctl", "w") as f:
+        f.write(RUN_CTL.format(nloci=N_LOCI, burnin=BURNIN, nsample=NSAMPLE,
+                               job="out15",
+                               extra=TRAITS15.format(check=CHECK_EVERY)))
+    iters = BURNIN + NSAMPLE
+    diffs = []
+    orig = Engine.validate_state
+
+    def validate(eng, state, it=None):
+        fresh = moves._trait_eval(eng.ctx, state.sp, state.sp.tau,
+                                  state.trait.brate)
+        diffs.append(float((fresh - state.trait.logl).abs().max()))
+        return orig(eng, state, it)
+
+    Engine.validate_state = validate
+    try:
+        with MoveTally(record=True, moves=(("trait_moves",
+                                            "trait_brate_move"),),
+                       accepted=False) as tally:
+            launches, _ = run_chain(
+                ["--cfile", "run15.ctl"], "out15", iters,
+                (PASSES_PER_ITER * iters + 1 + N_CHECKS, 0),
+                ("theta", "tau"), "main 15", smi)
+    finally:
+        Engine.validate_state = orig
+    if len(diffs) != N_CHECKS or any(d != 0.0 for d in diffs):
+        raise AssertionError(f"main 15: the cached trait logl differs from "
+                             f"a fresh evaluation at the checks: {diffs}")
+    prop, acc = tally.counts["trait_brate_move"]
+    if prop != iters or not acc:
+        raise AssertionError(f"main 15: the trait move ran {prop} times, "
+                             f"accepted in {acc}")
+    eng = Engine(load_run("run15.ctl"), seed=1, device=dev)
+    state, _ = eng.chunk_step(eng.init_state(), 5)
+    print(f"[main 15] {N_CHECKS} checks passed, the cached trait logl equal "
+          f"to a fresh evaluation at each (max |d| {max(diffs)}); the trait "
+          f"move ran {prop} times and accepted in {acc}; trait logl "
+          f"{[round(float(x), 3) for x in state.trait.logl]} | {smi}")
+    profile_step(eng, state, step_ms(eng, state), smi, "pack_logl_kernel",
+                 "JC69 with traits step (main 15)", PASSES_PER_ITER)
+    del eng, state
+    torch.cuda.empty_cache()
+    return launches
+
+
+def load_run(ctl, dtype=None):
+    """``load_run_from_ctl``, in ``dtype`` when one is given."""
+    from bpp_tpu_torch.loader import load_run_from_ctl
+    run = load_run_from_ctl(ctl)
+    if dtype is not None:
+        run.cfg = run.cfg.replace(dtype=dtype)
+    return run
+
+
+def _table(path):
+    """The rows of the posterior table in a summary: {param: [values]}."""
+    with open(path) as f:
+        lines = f.read().splitlines()
+    i = next(k for k, ln in enumerate(lines) if ln.startswith("param"))
+    rows = {}
+    for ln in lines[i + 2:]:
+        if not ln.strip():
+            break
+        parts = ln.split()
+        rows[parts[0]] = [float(x) for x in parts[1:]]
+    return lines[i].split(), rows
+
+
+def tools_phase(smi):
+    """``[tools]``: ``--bfdriver`` on main 1's control file with 4 points,
+    and the smallest beta's control file through ``cli.main`` for 10
+    iterations; then ``--summary`` on main 1's control file, whose table
+    must equal main 1's to the six decimals mcmc.txt keeps.  Returns K1's
+    launches."""
+    import contextlib
+    import io
+    import shutil
+
+    import numpy as np
+
+    from bpp_tpu_torch import cli
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["--bfdriver", "run.ctl", "--points", str(BF_POINTS)])
+    with open("run.ctl.betaweights.csv") as f:
+        rows = f.read().splitlines()
+    betas = [float(r.split(",")[0]) for r in rows[1:]]
+    if rc or len(betas) != BF_POINTS or betas != sorted(betas) or \
+            not all(os.path.exists(f"run.ctl.{i + 1}")
+                    for i in range(BF_POINTS)):
+        raise AssertionError(f"--bfdriver: rc {rc}, betas {betas}")
+    with open("run.ctl.1") as f:
+        text = f.read()
+    for a, b in ((f"burnin = {BURNIN}\n", f"burnin = {BF_BURNIN}\n"),
+                 (f"nsample = {NSAMPLE}\n", f"nsample = {BF_NSAMPLE}\n"),
+                 ("jobname = out\n", "jobname = outbf\n")):
+        if a not in text:
+            raise AssertionError(f"run.ctl.1 has no line {a!r}")
+        text = text.replace(a, b)
+    with open("runbf.ctl", "w") as f:
+        f.write(text)
+    iters = BF_BURNIN + BF_NSAMPLE
+    launches, _ = run_chain(
+        ["--cfile", "runbf.ctl"], "outbf", iters,
+        (PASSES_PER_ITER * iters + 1, 0), ("theta",),
+        f"tools: beta {betas[0]}", smi, nsample=BF_NSAMPLE)
+    shutil.copy("out.txt", "out.main1.txt")
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(["--summary", "run.ctl", "--quiet"])
+    head1, main1 = _table("out.main1.txt")
+    head2, again = _table("out.txt")
+    if rc or head1 != head2 or list(main1) != list(again):
+        raise AssertionError(f"--summary: rc {rc}, rows {list(again)} for "
+                             f"{list(main1)}")
+    worst = 0.0
+    for name, vals in main1.items():
+        a, b = np.asarray(vals), np.asarray(again[name])
+        # mcmc.txt keeps six decimals; the table prints six digits
+        ok = np.abs(a - b) <= 1e-6 + 2e-4 * np.abs(a)
+        ok[-3:] = np.abs(a - b)[-3:] <= 2e-3 * np.abs(a[-3:]) + 2e-4
+        if not ok.all():
+            raise AssertionError(f"--summary: row {name} {list(b)} for "
+                                 f"main 1's {list(a)}")
+        worst = max(worst, float(np.abs(a - b)[:-3].max()))
+    print(f"[tools] --bfdriver run.ctl --points {BF_POINTS}: betas {betas}; "
+          f"the beta {betas[0]} file ran through cli.main | --summary "
+          f"run.ctl: {len(again)} rows equal to main 1's table to the "
+          f"precision of mcmc.txt (max |d| {worst:.2e} but ESS/Eff/rho1) | "
+          f"{smi}")
+    return launches
+
+
+def hold_f64(label, eng, state, smi):
+    """``[x64]``: the float64 build of ``eng``'s kernel (K1, or K2 with a
+    diploid map) against its float64 plain version on ``state``'s gene
+    trees, for the four model families under both CLV stores: K1 within
+    ``TOL_LNL_F64`` a locus, K2 within ``TOL_SITE_F64`` a pattern and
+    ``TOL_LNL_F64`` a locus after ``reduce_root``.  Returns (max per-locus
+    error, (device ms, plain ms, bound ms, bound by) of the main path's
+    model: JC69 for K1, HKY+G4 for K2)."""
+    import torch
+
+    from bpp_tpu_torch.core import fels, pack
+    from bpp_tpu_torch.core import felsenstein as fe
+    ctx = eng.ctx
+    k2 = ctx.res_map is not None
+    mod = fels if k2 else pack
+    w64 = ctx.weights.double()
+    worst = site_worst = 0.0
+    row = None
+    for name, model, n_cats, _, s64 in fixed_cases(state.gt.n_loci,
+                                                   w64.device):
+        a64 = pass_args(state, s64, ctx, torch.float64)
+        kw = dict(model=model, n_cats=n_cats)
+        for store in ("shared", "global"):
+            n0 = mod.LAUNCHES_F64
+            if k2:
+                got_s = fels.site_logl_fels(*a64[:-1], n_pat=ctx.n_pat,
+                                            units=ctx.units, clv_store=store,
+                                            **kw)
+                want_s = fels.site_logl_fels_ref(*a64[:-1], n_pat=ctx.n_pat,
+                                                 **kw)
+                site = float((got_s - want_s).abs().max())
+                got = fe.reduce_root(got_s, w64, ctx.res_map, ctx.res_count)
+                want = fe.reduce_root(want_s, w64, ctx.res_map,
+                                      ctx.res_count)
+            else:
+                site = 0.0
+                got = pack.site_logl_packed(*a64, units=ctx.units,
+                                            clv_store=store, **kw)
+                want = pack.site_logl_packed_ref(*a64, **kw)
+            torch.cuda.synchronize()
+            if mod.LAUNCHES_F64 != n0 + 1 or mod.CLV_STORE != store or \
+                    got.dtype != torch.float64:
+                raise AssertionError(f"[x64] {label} {name}: not one launch "
+                                     f"of the float64 build's {store} store")
+            mask = ctx.locus_mask
+            if not bool(torch.isfinite(got[mask]).all()):
+                raise AssertionError(f"[x64] {label} {name}: non-finite lnL")
+            err = float((got - want)[mask].abs().max())
+            if not (err < TOL_LNL_F64 and site < TOL_SITE_F64):
+                raise AssertionError(
+                    f"[x64] {label} {name} ({store} store): the float64 "
+                    f"build and its plain version differ by {err} lnL a "
+                    f"locus, {site} a pattern")
+            worst, site_worst = max(worst, err), max(site_worst, site)
+        if name == ("HKY+G4" if k2 else "JC69"):
+            kwk = dict(units=ctx.units)
+            if k2:
+                kargs = fels.kernel_args(*a64[:-1], n_pat=ctx.n_pat, **kw,
+                                         **kwk)
+                plain = cuda_ms(lambda: fels.site_logl_fels_ref(
+                    *a64[:-1], n_pat=ctx.n_pat, **kw), reps=10)
+            else:
+                kargs = pack.kernel_args(*a64, **kw, **kwk)
+                plain = cuda_ms(lambda: pack.site_logl_packed_ref(*a64, **kw),
+                                reps=10)
+            ms = kernel_device_ms(lambda: mod.launch(kargs),
+                                  "fels_site_logl_kernel" if k2
+                                  else "pack_logl_kernel", reps=20)
+            bms, by = bound_ms(eng.run.batch, name.split("+")[0], n_cats,
+                               per_pattern=k2, rb=8, flops=F64_FLOPS)
+            row = (ms, plain, bms, by)
+            print(f"[x64] {label} {name}: float64 build {ms:.4f} ms a launch "
+                  f"({kargs.plan.clv_store} store, {kargs.plan.threads} "
+                  f"threads, {kargs.plan.shared_bytes} B shared a block) | "
+                  f"plain version (float64) {plain:.4f} ms/pass | bound "
+                  f"{bms:.5f} ms ({by}, float64) | {smi}")
+    site_txt = (f", {site_worst:.3e} a pattern (tol {TOL_SITE_F64})"
+                if k2 else "")
+    print(f"[x64] {label}: {'K2' if k2 else 'K1'} float64 build vs its "
+          f"float64 plain version on JC69, HKY+G4, TN93, GTR+G4 x shared/"
+          f"global store: max |dlnL| {worst:.3e} a locus (tol "
+          f"{TOL_LNL_F64}){site_txt} | {smi}")
+    return worst, row
+
+
+def x64_phases(dev, smi, iters):
+    """``[main 16]``: main 1 with ``--x64`` through the CLI, K1's float64
+    build launched 8 times an iteration plus 1 and the float32 build
+    never, and the diploid chain of main 2 with ``--x64`` for 10
+    iterations through K2's float64 build; ``[x64]``: both float64 builds
+    held and timed (:func:`hold_f64`); the ``[profile]`` of the float64
+    step.  Returns (K1 float64 launches, K2 float64 launches, K1 error,
+    K1 row, K2 error, K2 row)."""
+    import torch
+
+    from bpp_tpu_torch.core import fels, pack
+    with open("run16.ctl", "w") as f:
+        f.write(RUN_CTL.format(nloci=N_LOCI, burnin=BURNIN, nsample=NSAMPLE,
+                               job="out16", extra=""))
+    launches, _ = run_chain(
+        ["--cfile", "run16.ctl", "--x64"], "out16", iters,
+        (PASSES_PER_ITER * iters + 1, 0), ("theta", "tau"), "main 16", smi)
+    k1_f64 = pack.LAUNCHES_F64
+    if k1_f64 != launches:
+        raise AssertionError(f"main 16: {k1_f64} of {launches} K1 launches "
+                             "were of the float64 build")
+    short = BF_BURNIN + BF_NSAMPLE
+    with open("run16d.ctl", "w") as f:
+        f.write(RUN2_CTL.format(nloci=N_LOCI, burnin=BF_BURNIN,
+                                nsample=BF_NSAMPLE, job="out16d", extra=""))
+    _, k2_launches = run_chain(
+        ["--cfile", "run16d.ctl", "--x64"], "out16d", short,
+        (0, PASSES_PER_ITER_2 * short + 1), ("theta", "tau"),
+        "main 16 diploid", smi, nsample=BF_NSAMPLE)
+    k2_f64 = fels.LAUNCHES_F64
+    if k2_f64 != k2_launches:
+        raise AssertionError(f"main 16 diploid: {k2_f64} of {k2_launches} "
+                             "K2 launches were of the float64 build")
+    print(f"[main 16] --x64: K1 float64 build {k1_f64} launches, float32 "
+          f"build 0; K2 float64 build {k2_f64} launches, float32 build 0 | "
+          f"{smi}")
+    eng, state, ips = warm_engine(load_run("run16.ctl", "float64"), dev)
+    profile_step(eng, state, 1e3 / ips, smi, "pack_logl_kernel",
+                 "JC69 float64 step (main 16)", PASSES_PER_ITER)
+    err1, row1 = hold_f64("K1, main 16's gene trees", eng, state, smi)
+    del eng, state
+    engd, stated, _ = warm_engine(load_run("run16d.ctl", "float64"), dev, 2,
+                                  3)
+    err2, row2 = hold_f64("K2, the diploid data", engd, stated, smi)
+    del engd, stated
+    torch.cuda.empty_cache()
+    return k1_f64, k2_f64, err1, row1, err2, row2
 
 
 def main() -> int:
@@ -2169,10 +2591,26 @@ def main() -> int:
 
             # 25. chains = 2: main 13
             launches13 = main13(iters, smi, dev)
+
+            # 26. geneflow rjMCMC on main 12's data: main 14
+            launches14 = main14(smi)
+            torch.cuda.empty_cache()
+
+            # 27. morphological traits on main 1's data: main 15
+            launches15 = main15(smi, dev)
+
+            # 28. --bfdriver and --summary: [tools]
+            launches_bf = tools_phase(smi)
+
+            # 29-30. --x64 through the float64 builds: main 16, [x64]
+            (k1_f64, k2_f64, err_x1, row_x1, err_x2,
+             row_x2) = x64_phases(dev, smi, iters)
         finally:
             os.chdir(cwd)
 
     def entry(kname, source, replaces, launches, errs, row):
+        if not launches:
+            raise AssertionError(f"{kname}: not launched on its main paths")
         ms, plain, bms, by = row
         return {"name": kname, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
@@ -2185,13 +2623,15 @@ def main() -> int:
     # launches: every main path's run; errors: the bench models' holds,
     # those on relaxed-clock lengths and dated tips, on the trees of the
     # species and rj moves, on a partition's per-locus eigensystems, on
-    # network gene trees ([net]) and on migration gene trees ([mig])
+    # network gene trees ([net]) and on migration gene trees ([mig]); the
+    # float64 builds: main 16's launches and the [x64] holds
     print(json.dumps({"kernels": [
         entry("K1 pallas_pack._make_kernel -> pack_logl_kernel",
               "bpp_tpu_torch/csrc/pack_kernel.cu",
               "bpp_tpu/core/pallas_pack.py:315",
               launches1 + launches3 + launches5 + launches6 + launches8
-              + launches10 + launches11 + launches12 + launches13,
+              + launches10 + launches11 + launches12 + launches13
+              + launches14 + launches15 + launches_bf,
               [*errs1.values(), err_k1_blen, err_k1_dated, err_topo1,
                err_k1_custom, err_net1, err_mig1], rows1["JC69"]),
         entry("K2 pallas_fels._make_kernel -> fels_site_logl_kernel",
@@ -2200,6 +2640,12 @@ def main() -> int:
               launches2 + launches4 + launches7,
               [*errs2.values(), err_k2_blen, err_topo2, err_k2_custom,
                err_net2, err_mig2], rows2["HKY"]),
+        entry("K1 pallas_pack._make_kernel -> pack_logl_kernel "
+              "(float64 build)", "bpp_tpu_torch/csrc/pack_kernel.cu",
+              "bpp_tpu/core/pallas_pack.py:315", k1_f64, [err_x1], row_x1),
+        entry("K2 pallas_fels._make_kernel -> fels_site_logl_kernel "
+              "(float64 build)", "bpp_tpu_torch/csrc/fels_kernel.cu",
+              "bpp_tpu/core/pallas_fels.py:92", k2_f64, [err_x2], row_x2),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -34,7 +34,8 @@ def test_import_loads_no_jax_and_no_bpp_tpu():
                 "summary.stree_summary", "summary.delimit_summary",
                 "summary.mixed_summary", "summary.a1b1", "visual",
                 "core.aa_matrices", "mcmc.msci_moves", "summary.lswitch",
-                "tools.msci_create", "trees.migration", "mcmc.mig_moves"):
+                "tools.msci_create", "trees.migration", "mcmc.mig_moves",
+                "trees.traits", "mcmc.trait_moves", "tools.bfdriver"):
         assert f"bpp_tpu_torch.{mod}" in mods
     code = (
         "import importlib, sys\n"

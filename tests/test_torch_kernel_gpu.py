@@ -17,7 +17,10 @@ amino-acid batch (WAG) in float32 on the card against float64 on the CPU;
 under MSC-M migration, K1 on the gene trees the sim-SPR move proposes and
 on a clock = 2 chain's sub-edge branch lengths, K2 on a diploid batch
 simulated under migration, and the caches of those chains on the card.
-Needs a CUDA device and nvcc; skips without them.
+The float64 builds (``--x64``): K1 within 1e-6 lnL a locus and K2 within
+1e-8 a pattern and 1e-6 a locus of their float64 plain versions, on both
+stores and the model grid, and an x64 engine's step launching only the
+float64 build.  Needs a CUDA device and nvcc; skips without them.
 
     python -m pytest tests/test_torch_kernel_gpu.py -q
 """
@@ -158,17 +161,98 @@ def test_diploid_engine_launches_only_k2(cuda_diploid):
 
 
 def test_kernel_refuses_float64(cuda_state):
+    """float64 tips with float32 parameters (or float16 tips) are refused:
+    a launch takes one build's type throughout."""
     from bpp_tpu_torch.core import pack
     eng, state = cuda_state
     L = state.gt.n_loci
-    model, s64 = fixed_subst("JC69", 1, L, torch.float64, "cuda")
+    model, s32 = fixed_subst("JC69", 1, L, torch.float32, "cuda")
+    mixed = list(_args(state, eng.ctx, s32, torch.float32))
+    mixed[12] = mixed[12].double()                  # the tips
     with pytest.raises(TypeError):
-        pack.site_logl_packed(*_args(state, eng.ctx, s64, torch.float64),
-                              model=model, n_cats=1)
+        pack.site_logl_packed(*mixed, model=model, n_cats=1)
     from bpp_tpu_torch.core import fels
     with pytest.raises(TypeError):
-        fels.site_logl_fels(*_args(state, eng.ctx, s64, torch.float64)[:-1],
-                            model=model, n_cats=1)
+        fels.site_logl_fels(*mixed[:-1], model=model, n_cats=1)
+    half = list(_args(state, eng.ctx, s32, torch.float32))
+    half[12] = half[12].half()
+    with pytest.raises(TypeError):
+        pack.site_logl_packed(*half, model=model, n_cats=1)
+
+
+@pytest.mark.parametrize("store", STORES)
+@pytest.mark.parametrize("model_name,n_cats", MODELS + [("HKY", 8)])
+def test_float64_kernel_matches_plain_version(cuda_state, model_name,
+                                              n_cats, store):
+    from bpp_tpu_torch.core import pack
+    eng, state = cuda_state
+    L = state.gt.n_loci
+    model, s64 = fixed_subst(model_name, n_cats, L, torch.float64, "cuda")
+    a64 = _args(state, eng.ctx, s64, torch.float64)
+    before = pack.LAUNCHES, pack.LAUNCHES_F64
+    got = pack.site_logl_packed(*a64, model=model, n_cats=n_cats,
+                                units=eng.ctx.units, clv_store=store)
+    torch.cuda.synchronize()
+    assert (pack.LAUNCHES, pack.LAUNCHES_F64) == (before[0] + 1,
+                                                  before[1] + 1)
+    assert got.dtype == torch.float64 and pack.CLV_STORE == store
+    want = pack.site_logl_packed_ref(*a64, model=model, n_cats=n_cats)
+    mask = eng.ctx.locus_mask
+    assert bool(torch.isfinite(got[mask]).all())
+    err = float((got - want)[mask].abs().max())
+    assert err < 1e-6, err
+
+
+@pytest.mark.parametrize("store", STORES)
+@pytest.mark.parametrize("data", ["cuda_state", "cuda_diploid"])
+@pytest.mark.parametrize("model_name,n_cats", MODELS)
+def test_float64_fels_kernel_matches_plain_version(request, data,
+                                                   model_name, n_cats,
+                                                   store):
+    from bpp_tpu_torch.core import fels
+    from bpp_tpu_torch.core import felsenstein as fe
+    eng, state = request.getfixturevalue(data)
+    ctx = eng.ctx
+    L = state.gt.n_loci
+    model, s64 = fixed_subst(model_name, n_cats, L, torch.float64, "cuda")
+    a64 = _args(state, ctx, s64, torch.float64)[:-1]
+    kw = dict(model=model, n_cats=n_cats, n_pat=ctx.n_pat)
+    before = fels.LAUNCHES_F64
+    got = fels.site_logl_fels(*a64, clv_store=store, units=ctx.units, **kw)
+    torch.cuda.synchronize()
+    assert fels.LAUNCHES_F64 == before + 1 and got.dtype == torch.float64
+    want = fels.site_logl_fels_ref(*a64, **kw)
+    live = torch.arange(got.shape[1], device="cuda") < ctx.n_pat[:, None]
+    assert bool((got[~live] == 0).all())
+    site_err = float((got - want).abs().max())
+    assert site_err < 1e-8, site_err
+    w64 = ctx.weights.double()
+    err = float((fe.reduce_root(got, w64, ctx.res_map, ctx.res_count)
+                 - fe.reduce_root(want, w64, ctx.res_map, ctx.res_count)
+                 )[ctx.locus_mask].abs().max())
+    assert err < 1e-6, err
+
+
+def test_x64_engine_launches_the_float64_build(tmp_path):
+    """An engine in float64 on the card: 8 K1 launches an iteration, all of
+    the float64 build, and its caches exact to float64 roundoff."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from bpp_tpu_torch.core import pack
+    from bpp_tpu_torch.loader import load_run_from_ctl
+    from bpp_tpu_torch.mcmc.driver import Engine
+    from bpp_tpu_torch.testing import write_simulated_run
+    run = load_run_from_ctl(write_simulated_run(tmp_path, n_loci=12))
+    run.cfg = run.cfg.replace(dtype="float64")
+    eng = Engine(run, seed=1, device="cuda")
+    state = eng.init_state()
+    before = pack.LAUNCHES, pack.LAUNCHES_F64
+    state, _ = eng.chunk_step(state, 3)
+    torch.cuda.synchronize()
+    assert pack.LAUNCHES - before[0] == 24
+    assert pack.LAUNCHES_F64 - before[1] == 24
+    assert state.logl.dtype == torch.float64
+    assert eng.validate_state(state)
 
 
 def test_single_sequence_and_padded_loci_finite():

@@ -369,24 +369,3 @@ def test_discrete_gamma_rates_float32_over_the_slide_range():
         np.testing.assert_allclose(
             dp(torch.as_tensor([a], dtype=torch.float64), 4).numpy(),
             np.asarray(dj(jnp.float64(a), 4))[None], rtol=1e-9, atol=1e-14)
-
-
-@pytest.mark.parametrize("line,item", [
-    ("geneflow = 1", "10g-geneflow"),
-    ("traitfile = traits.txt", "10h"),
-])
-def test_other_combinations_stay_refused(tmp_path, line, item):
-    from bpp_tpu_torch.io.ctl import parse_ctl
-    from bpp_tpu_torch.loader import load_run_from_ctl
-    from bpp_tpu_torch.mcmc.driver import Engine
-    from bpp_tpu_torch.testing import write_simulated_run
-    ctl = write_simulated_run(tmp_path, n_loci=2, n_sites=40)
-    run = load_run_from_ctl(ctl)
-    with open(ctl) as fh:
-        text = "".join(ln for ln in fh if not ln.startswith("model"))
-    other = tmp_path / "other.ctl"
-    other.write_text(text + line + "\n")
-    cfg = parse_ctl(str(other))
-    run.cfg = cfg
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        Engine(run, device="cpu")

@@ -25,6 +25,11 @@ in numpy/PyTorch and tested on the CPU.
   ``port + 1 == bpp_tpu`` to rtol 1e-12, ``coefs`` equal.
 * The launch plan: the shared CLV store where a warp's slots fit a
   block's shared memory, the global one above it, a refusal beyond.
+* The float64 build's store plan (:func:`warp_layout`, the layout of
+  ``csrc/contract.cuh``) as hypothesis properties: float32's layout
+  unchanged, float64's regions in order, disjoint and aligned to their
+  element, its CLV slots twice float32's, and the launch plan choosing
+  the shared store exactly where a float64 warp fits.
 """
 
 import jax.numpy as jnp
@@ -401,3 +406,73 @@ def test_launch_plan_refuses_what_cannot_fit():
         plan(16, 4, 1, store="registers")
     with pytest.raises(ValueError, match="threads"):
         plan(16, 4, 1, threads=100)
+
+
+def warp_layout(T: int, C: int, K: int, shared: bool, real_bytes: int):
+    """``csrc/contract.cuh`` ``warp_layout``: the byte offsets of one warp's
+    CLV slots (``clv``, the shared store only), expm1 factors (``fac``),
+    branch lengths (``blen``), category rates (``rate``) and slot plan
+    (``plan``), its ``slots`` and its ``bytes`` rounded up to 16, for
+    values of ``real_bytes`` bytes (4: float32, 8: float64)."""
+    nlev = T - 1
+    slots = T // 2
+    off = {"clv": 0}
+    n = 4 * real_bytes * WARP * C * slots if shared else 0
+    off["fac"] = n
+    n += real_bytes * 2 * nlev * C * K
+    off["blen"] = n
+    n += real_bytes * 2 * nlev
+    off["rate"] = n
+    n += real_bytes * C
+    off["plan"] = n
+    n += 2 * 5 * nlev
+    return dict(off, slots=slots, bytes=-(-n // 16) * 16)
+
+
+@settings(max_examples=300, deadline=None)
+@given(T=st.integers(2, 600), C=st.integers(1, 8), fam=st.integers(0, 2),
+       shared=st.booleans(), threads=st.sampled_from([32, 64, 128, 256]))
+def test_float64_store_plan(T, C, fam, shared, threads):
+    K = (1, 3, 4)[fam]
+    f32 = warp_layout(T, C, K, shared, 4)
+    f64 = warp_layout(T, C, K, shared, 8)
+    # float32's layout is the one the kernels had before the float64 build
+    assert f32["bytes"] == _warp_bytes(T, C, fam, shared)
+    nlev = T - 1
+    order = ["clv", "fac", "blen", "rate", "plan"]
+    sizes = {"clv": 32 * 32 * C * f64["slots"] if shared else 0,
+             "fac": 8 * 2 * nlev * C * K, "blen": 8 * 2 * nlev,
+             "rate": 8 * C, "plan": 10 * nlev}
+    for a, b in zip(order, order[1:]):
+        assert f64[a] + sizes[a] == f64[b]      # in order, disjoint
+    assert f64["plan"] + sizes["plan"] <= f64["bytes"] < \
+        f64["plan"] + sizes["plan"] + 16
+    assert f64["bytes"] % 16 == 0
+    for r in ("fac", "blen", "rate"):
+        assert f64[r] % 8 == 0                  # each double aligned
+    assert f64["plan"] % 2 == 0
+    assert f64["slots"] == f32["slots"] == T // 2
+    assert f64["fac"] - f64["clv"] == 2 * (f32["fac"] - f32["clv"])
+    assert f32["bytes"] <= f64["bytes"] <= 2 * f32["bytes"]
+
+    def wb(dbl):
+        return lambda T_, C_, fam_, sh: warp_layout(
+            T_, C_, (1, 3, 4)[fam_], bool(sh), 8 if dbl else 4)["bytes"]
+
+    fits64 = wb(True)(T, C, fam, 1) <= pack.BLOCK_SHARED
+    try:
+        p64 = pack.plan_launch("t", wb(True), T, C, fam, None, threads)
+    except ValueError:
+        assert wb(True)(T, C, fam, 0) > pack.BLOCK_SHARED
+        return
+    assert p64.clv_store == ("shared" if fits64 else "global")
+    assert p64.shared_bytes == p64.threads // 32 * wb(True)(
+        T, C, fam, p64.clv_store == "shared")
+    assert p64.shared_bytes <= pack.BLOCK_SHARED
+    p32 = pack.plan_launch("t", wb(False), T, C, fam, None, threads)
+    # what float32 keeps in the device scratch, float64 does too
+    if p32.clv_store == "global":
+        assert p64.clv_store == "global"
+    if p32.clv_store == p64.clv_store:
+        # the same store in doubles: as many warps a block at most
+        assert p64.threads <= p32.threads
