@@ -42,8 +42,13 @@ the card through the kernels' float64 builds.  ``--summary`` re-reads
 ``<jobname>.mcmc.txt`` and rewrites the ``<jobname>.txt`` report without
 sampling (:func:`cmd_summary`); ``--bfdriver`` writes the control files
 of a power-posterior run for the marginal likelihood
-(``tools.bfdriver``).  ``--multihost`` (locus sharding) is not ported
-yet.
+(``tools.bfdriver``).  ``--multihost host:port,N,i`` (or ``auto``) runs
+this process as rank i of N that split the loci into contiguous blocks
+(``parallel.multihost``): each runs the kernels on its own block, every
+cross-locus quantity is all-reduced, and rank 0 alone prints and writes
+the files; checkpoints and the per-locus print files are off, and
+``--resume`` is refused, as in ``bpp_tpu``.  Under ``chains = K`` each
+process runs every chain on all the loci and rank 0 writes.
 """
 
 from __future__ import annotations
@@ -82,7 +87,13 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--points", type=int, default=8,
                     help="Gauss-Legendre points for --bfdriver (even)")
     ap.add_argument("--multihost", default=None, metavar="SPEC",
-                    help=argparse.SUPPRESS)
+                    help="run as one process of N that share the loci: "
+                    "'host:port,N,i' (rank i of N, rendezvous at host:port) "
+                    "or 'auto' to read torch's MASTER_ADDR / MASTER_PORT / "
+                    "WORLD_SIZE / RANK (env://, as torchrun sets them).  "
+                    "Each rank takes one card (cuda:LOCAL_RANK, or the rank "
+                    "modulo the cards) and NCCL, or gloo with --device cpu "
+                    "or when ranks share a card; rank 0 writes the files.")
     ap.add_argument("--seed", type=int, default=None, help="override seed")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default cuda; 'cpu' "
@@ -187,6 +198,33 @@ def method_report(cfg, st, gen, theta, tau, lnl, sptrees, phi=None,
 
 
 def cmd_run(args) -> int:
+    """``--cfile`` / ``--resume``; under ``--multihost`` inside this
+    process's rank of the process group, which it leaves at the end."""
+    if not args.multihost:
+        return _cmd_run(args)
+    from .parallel.multihost import MultihostSpec, init_multihost, shutdown
+    spec = MultihostSpec.parse(args.multihost)
+    device = init_multihost(spec, args.device, quiet=args.quiet)
+    try:
+        return _cmd_run(args, device)
+    finally:
+        shutdown()
+
+
+def _broadcast_seed(device) -> int:
+    """Rank 0's clock seed on every rank (the ctl leaves the seed to the
+    clock, and the ranks' generators must be alike)."""
+    import torch
+    import torch.distributed as dist
+    seed = int(np.random.SeedSequence().entropy % (2**31))
+    buf = torch.tensor([seed], dtype=torch.int64,
+                       device=device if dist.get_backend() == "nccl"
+                       else "cpu")
+    dist.broadcast(buf, src=0)
+    return int(buf.item())
+
+
+def _cmd_run(args, device=None) -> int:
     from . import checkpoint as ckpt
     from .io.ctl import parse_ctl_text
     from .loader import load_run
@@ -197,7 +235,16 @@ def cmd_run(args) -> int:
     from .summary.allfixed import hpd_interval
     from .summary.lswitch import bdi_pairs_of
 
-    device = resolve_device(args.device)
+    multihost = device is not None
+    is_main = True
+    if multihost:
+        import torch.distributed as dist
+        is_main = dist.get_rank() == 0
+        if args.resume:
+            print("--multihost cannot resume yet", file=sys.stderr)
+            return 1
+    else:
+        device = resolve_device(args.device)
     meta = arrays = None
     if args.resume:
         meta, cfg_text, arrays = ckpt.load_checkpoint(args.resume)
@@ -219,9 +266,29 @@ def cmd_run(args) -> int:
         cfg = cfg.replace(check_every=args.check)
     if args.chains is not None:
         cfg = cfg.replace(n_chains=args.chains)
+    shard = None
+    if multihost:
+        # the ranks hold the loci apart: no rank can write a checkpoint
+        # or a per-locus file (bpp_tpu/cli.py:132-145)
+        if cfg.checkpoint and is_main:
+            print("multihost: checkpointing disabled (sharded state is "
+                  "not host-addressable)", file=sys.stderr)
+        cfg = cfg.replace(checkpoint=None, print_genetrees=False,
+                          print_locusrate=False, print_hscalars=False,
+                          print_rates=False)
+        if seed is None and cfg.seed <= 0:
+            seed = _broadcast_seed(device)
     run = load_run(cfg)
-    eng = Engine(run, seed=seed, device=device)
-    if not args.quiet:
+    if multihost and cfg.n_chains == 1:
+        from .parallel.mesh import make_shard
+        try:
+            shard = make_shard(run.batch.n_loci)
+        except ValueError as exc:
+            if is_main:
+                print(f"--multihost: {exc}", file=sys.stderr)
+            return 1
+    eng = Engine(run, seed=seed, device=device, shard=shard)
+    if not args.quiet and is_main:
         b = run.batch
         print(f"bpp_tpu_torch: {len(run.loci)} loci | max seqs {b.max_tips} "
               f"| max patterns {b.max_patterns} | species {run.stree.n_tips}"
@@ -232,7 +299,7 @@ def cmd_run(args) -> int:
     mcmc_path = cfg.mcmcfile or f"{cfg.jobname}.mcmc.txt"
     if cfg.n_chains > 1:
         return _run_multichain(args, cfg, run, eng, mcmc_path, cfg_text,
-                               ctl_dir, meta, arrays)
+                               ctl_dir, meta, arrays, is_main)
     resume = None
     if args.resume:
         # exactly-once logging: cut back to the checkpointed offset
@@ -242,7 +309,14 @@ def cmd_run(args) -> int:
                   arrays["stats_acc"])
     a1b1 = None
     locus_files = None
-    if cfg.est_stree:
+    if not is_main:
+        # another rank: it runs every collective of the chain, and its
+        # trace rows (whose sums over loci are all-reduced) go nowhere
+        writer = None
+
+        def on_sample(gen, row):
+            pass
+    elif cfg.est_stree:
         writer = A01McmcWriter(mcmc_path, cfg, run.stree,
                                append=bool(args.resume))
 
@@ -253,10 +327,11 @@ def cmd_run(args) -> int:
         writer = McmcWriter(mcmc_path, cfg, run.stree,
                             append=bool(args.resume))
         # conditional (a1, b1) log and Rao-Blackwellized summary
-        # (method.c:3838 opt_print_a1b1: A00, data, estimated thetas)
+        # (method.c:3838 opt_print_a1b1: A00, data, estimated thetas; not
+        # under a mesh, bpp_tpu/cli.py:177)
         if (cfg.usedata and not cfg.theta_integrated
                 and not cfg.est_delimit and not args.resume
-                and run.stree.n_hybrids == 0):
+                and run.stree.n_hybrids == 0 and shard is None):
             from .summary.a1b1 import DIST_GAMMA, DIST_INVGAMMA, A1b1Writer
             tdist = (DIST_GAMMA if cfg.thetaprior.dist == PriorDist.GAMMA
                      else DIST_INVGAMMA)
@@ -307,10 +382,13 @@ def cmd_run(args) -> int:
             print(f"  checkpoint -> {chk_path} (it {it})", file=sys.stderr)
 
     t0 = time.time()
-    log = eng.run_mcmc(progress_every=0 if args.quiet else 1000,
+    log = eng.run_mcmc(progress_every=0 if args.quiet or not is_main
+                       else 1000,
                        on_sample=on_sample, resume=resume,
                        on_checkpoint=on_checkpoint if cfg.checkpoint
                        else None)
+    if writer is None:
+        return 0      # a rank other than 0 writes no file
     writer.close()
     if locus_files is not None:
         locus_files.close()
@@ -393,7 +471,7 @@ def _relabel_bdi(cfg, run, mcmc_path, gen, theta, tau, lnl, phi, quiet):
 
 
 def _run_multichain(args, cfg, run, eng, mcmc_path, cfg_text, ctl_dir,
-                    meta=None, arrays=None) -> int:
+                    meta=None, arrays=None, is_main=True) -> int:
     """``chains = K``: K replicate chains (port of ``bpp_tpu/cli.py``'s
     ``_run_multichain``; the reference runs one chain, method.c:5343).
     Chain 1 writes the normal mcmc file, chains 2..K
@@ -444,9 +522,13 @@ def _run_multichain(args, cfg, run, eng, mcmc_path, cfg_text, ctl_dir,
 
     t0 = time.time()
     logs = eng.run_mcmc_multi(
-        K, progress_every=0 if args.quiet else 1000, resume=resume,
-        on_checkpoint=on_checkpoint if cfg.checkpoint else None)
+        K, progress_every=0 if args.quiet or not is_main else 1000,
+        resume=resume, on_checkpoint=on_checkpoint if cfg.checkpoint
+        else None)
     wall = time.time() - t0
+    if not is_main:
+        # --multihost: the replicas run the same chains; rank 0 writes
+        return 0
     series_per_chain = []
     for c, log in enumerate(logs):
         path = mcmc_path if c == 0 else f"{cfg.jobname}.c{c + 1}.mcmc.txt"
@@ -545,11 +627,6 @@ def main(argv=None) -> int:
     if args.extend < 0:
         print("--extend must not be negative", file=sys.stderr)
         return 1
-    if args.multihost is not None:
-        print("--multihost is not ported to bpp_tpu_torch yet (ROADMAP "
-              "Queue 1 item 10m: sharding over torch.distributed)",
-              file=sys.stderr)
-        return 2
     if args.summary:
         return cmd_summary(args)
     if args.cfile or args.resume:

@@ -1,11 +1,13 @@
-"""Build the port's CUDA kernels with nvcc on first use.
+"""Build the port's CUDA kernels with nvcc on first use, and its host
+library (the pattern compressor) with the host compiler.
 
 Each ``csrc/*.cu`` source becomes a shared library with a plain C
 interface (loaded with ctypes), compiled for ``sm_90a`` into
 ``bpp_tpu_torch/_build/<name>-<hash>.so``.  The hash covers the source,
 the shared headers (``csrc/*.cuh``) and the flags, so an edited source
 rebuilds and an unchanged one loads from the cache.  A failed build
-raises with nvcc's stderr.
+raises with nvcc's stderr.  :func:`build_host` does the same for a
+``csrc/*.cpp`` source with ``g++`` (``HOST_FLAGS``).
 """
 
 from __future__ import annotations
@@ -26,6 +28,9 @@ BUILD = PKG / "_build"
 # nvcc optimises them on all the host's cores
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-split-compile", "0", "-shared", "-Xcompiler", "-fPIC")
+
+# the flags of bpp_tpu's native/Makefile
+HOST_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -78,6 +83,34 @@ def build_all(names, verbose: bool = False) -> list[Path]:
     if failed:
         raise RuntimeError("\n".join(failed))
     return outs
+
+
+def build_host(name: str, timeout: float = 120.0) -> Path:
+    """Compile ``csrc/<name>.cpp`` with ``g++`` into
+    ``_build/<name>-<hash>.so`` unless it exists; the hash covers the
+    source and ``HOST_FLAGS``.  Raises when the compiler is missing or
+    fails."""
+    src = CSRC / f"{name}.cpp"
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(HOST_FLAGS).encode()).hexdigest()
+    out = BUILD / f"{name}-{digest[:16]}.so"
+    if out.exists():
+        return out
+    BUILD.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
+    os.close(fd)
+    try:
+        proc = subprocess.run(["g++", *HOST_FLAGS, str(src), "-o", tmp],
+                              capture_output=True, text=True,
+                              timeout=timeout)
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed to build {name}.cpp (exit "
+                               f"{proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, out)          # atomic: concurrent builds agree
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
 
 
 def build(name: str, verbose: bool = False) -> Path:

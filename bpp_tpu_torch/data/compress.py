@@ -1,6 +1,7 @@
 """Copied from ``bpp_tpu/data/compress.py`` (numpy / pure Python, unchanged but for
-its imports) so that the PyTorch port never loads that package.  Only the
-numpy path is kept: the bridge to ``native/compress.cpp`` is later work.
+its imports) so that the PyTorch port never loads that package.  The
+native fast path goes through the port's own bridge, ``data.cnative``
+(``csrc/compress.cpp``), and the numpy path below runs where it does not.
 
 Site-pattern compression.
 
@@ -38,6 +39,11 @@ def compress_patterns(
     """
     if codes.ndim != 2:
         raise ValueError("codes must be [n_seq, n_sites]")
+    # native fast path (compress.cpp; the reference's compress.c analog)
+    from .cnative import compress_patterns_native
+    out = compress_patterns_native(codes, jc69_fold, sorted_order)
+    if out is not None:
+        return out
     work = np.ascontiguousarray(codes)
     if jc69_fold:
         work = fold_jc69(work)

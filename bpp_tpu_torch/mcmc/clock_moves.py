@@ -17,8 +17,9 @@ the running sum of rates (mu_i) or variances (nu_i), so their accept
 chains are serial: the batched per-locus deltas are exact (likelihood
 and rate prior factorize per locus), five ``[L]`` vectors go to the host
 in one copy, a numpy loop takes the decisions in locus order, and the
-accept mask comes back in one copy.  The hierarchical priors are fully
-batched.
+accept mask comes back in one copy (under locus sharding every rank runs
+the chain over the gathered vectors of all loci and keeps its rows).
+The hierarchical priors are fully batched.
 
 ``1e-300`` floors in ``tipdate_mubar_move`` are
 ``max(1e-300, finfo(dtype).tiny)``: the same value in float64, and not 0
@@ -34,6 +35,7 @@ import torch
 
 from ..config import BppConfig, Clock
 from ..core import felsenstein as fe
+from ..parallel.mesh import gather_loci, pany, psum, psum_counts
 from ..trees.gtree import assign_populations, topo_scan
 from . import notheta, rng
 from .rng import tiny_floor
@@ -156,12 +158,13 @@ def init_clock_state(cfg: BppConfig, sp, mu: np.ndarray,
     return cl._replace(lnrates=lnprior_rates(cfg, sp, t(mu), cl))
 
 
-def _logslide(gen, x, eps):
+def _logslide(gen, x, eps, shard=None):
     """log-scale Bactrian slide reflected into [-99, 99] (stree.c:9290):
-    (new value, log of the proposal ratio)."""
+    (new value, log of the proposal ratio); ``shard`` when ``x`` is per
+    locus."""
     lx = torch.log(x)
     lnew = rng.reflect(
-        lx + eps * rng.bactrian(gen, x.shape, x.dtype, x.device),
+        lx + eps * rng.bactrian(gen, x.shape, x.dtype, x.device, shard),
         -LOG_BOUND, LOG_BOUND)
     return torch.exp(lnew), lnew - lx
 
@@ -190,13 +193,18 @@ def _gammadir_chain(terms: np.ndarray, mask: np.ndarray, a_bar: float,
 
 def _host_gammadir(ctx: Ctx, old, new, dlog, ddens, us, a_bar, b_bar, a_i):
     """One copy of the chain's inputs to the host, the chain, one copy of
-    the accept mask back."""
-    terms = torch.stack([old, new, dlog, ddens, us]).double()
-    host = torch.cat([terms, ctx.locus_mask[None].double()]).cpu().numpy()
+    the accept mask back (the chain over every rank's loci under locus
+    sharding)."""
+    terms = torch.stack([x.double() for x in (old, new, dlog, ddens, us,
+                                              ctx.locus_mask)], 1)
+    host = gather_loci(ctx.shard, terms).T.cpu().numpy()
     mask = host[5] > 0.5
     nl = float(mask.sum())
-    return torch.as_tensor(_gammadir_chain(
-        host[:5], mask, a_bar, a_i * nl, b_bar / nl, a_i)).to(old.device)
+    accept = _gammadir_chain(host[:5], mask, a_bar, a_i * nl, b_bar / nl,
+                             a_i)
+    if ctx.shard is not None:
+        accept = ctx.shard.rows(accept)
+    return torch.as_tensor(accept).to(old.device)
 
 
 # --------------------------------------------------------------------------
@@ -212,7 +220,7 @@ def mui_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
     L = state.gt.n_loci
     eps = state.finetune[FT_MUI]
     mu = state.subst.mu
-    mu_new, dlog = _logslide(gen, mu, eps)
+    mu_new, dlog = _logslide(gen, mu, eps, ctx.shard)
     mu_new = torch.where(ctx.locus_mask, mu_new, mu)
 
     subst_new = state.subst._replace(mu=mu_new)
@@ -238,7 +246,7 @@ def mui_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
         dlnr = lnr_new - state.clock.lnrates
 
     a_mui = cfg.locusrate_alpha
-    us = rng.uniform(gen, (L,), mu.dtype, mu.device)
+    us = rng.uniform(gen, (L,), mu.dtype, mu.device, ctx.shard)
     if cfg.locusrate_prior == 1:
         # iid Gamma(a_mui, a_mui / mubar): no cross-locus coupling
         beta = a_mui / state.clock.mubar
@@ -261,7 +269,7 @@ def mui_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
     if lnr_new is not None:
         new = new._replace(clock=new.clock._replace(
             lnrates=torch.where(accept, lnr_new, state.clock.lnrates)))
-    return new, (ctx.locus_mask.sum(), accept.sum())
+    return new, psum_counts(ctx.shard, ctx.locus_mask.sum(), accept.sum())
 
 
 def mubar_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
@@ -272,8 +280,8 @@ def mubar_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
     am = cfg.locusrate_alpha
     bnew, bold = am / new, am / old
     mu = state.subst.mu
-    summu = torch.sum(torch.where(ctx.locus_mask, mu, torch.zeros_like(mu)))
-    nl = ctx.locus_mask.sum()
+    summu, nl = psum(ctx.shard, torch.sum(torch.where(
+        ctx.locus_mask, mu, torch.zeros_like(mu))), ctx.locus_mask.sum())
     lnacc = (dlog + (a - 1.0) * torch.log(new / old) - b * (new - old)
              + nl * am * torch.log(bnew / bold) - (bnew - bold) * summu)
     accept = rng.mh_accept(gen, lnacc)
@@ -293,14 +301,14 @@ def nui_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
     L = state.gt.n_loci
     eps = state.finetune[FT_NUI]
     nu = state.clock.nu
-    nu_new, dlog = _logslide(gen, nu, eps)
+    nu_new, dlog = _logslide(gen, nu, eps, ctx.shard)
     nu_new = torch.where(ctx.locus_mask, nu_new, nu)
     clock_new = state.clock._replace(nu=nu_new)
     lnr_new = lnprior_rates(cfg, state.sp, state.subst.mu, clock_new)
     dlnr = lnr_new - state.clock.lnrates
 
     a_vi = cfg.clock_vi_alpha
-    us = rng.uniform(gen, (L,), nu.dtype, nu.device)
+    us = rng.uniform(gen, (L,), nu.dtype, nu.device, ctx.shard)
     if cfg.locusrate_prior == 1:
         beta = a_vi / state.clock.nubar
         lnacc = (dlog + (a_vi - 1.0) * torch.log(nu_new / nu)
@@ -312,7 +320,7 @@ def nui_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
     new = state._replace(clock=state.clock._replace(
         nu=torch.where(accept, nu_new, nu),
         lnrates=torch.where(accept, lnr_new, state.clock.lnrates)))
-    return new, (ctx.locus_mask.sum(), accept.sum())
+    return new, psum_counts(ctx.shard, ctx.locus_mask.sum(), accept.sum())
 
 
 def nubar_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
@@ -323,8 +331,8 @@ def nubar_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
     av = cfg.clock_vi_alpha
     bnew, bold = av / new, av / old
     nu = state.clock.nu
-    sumnu = torch.sum(torch.where(ctx.locus_mask, nu, torch.zeros_like(nu)))
-    nl = ctx.locus_mask.sum()
+    sumnu, nl = psum(ctx.shard, torch.sum(torch.where(
+        ctx.locus_mask, nu, torch.zeros_like(nu))), ctx.locus_mask.sum())
     lnacc = (dlog + (a - 1.0) * dlog - b * (new - old)
              + nl * av * torch.log(bnew / bold) - (bnew - bold) * sumnu)
     accept = rng.mh_accept(gen, lnacc)
@@ -370,7 +378,7 @@ def brate_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
         if cfg.clock == Clock.CORRELATED and h == root:
             continue
         r = brate[:, h]
-        r_new, dlog = _logslide(gen, r, eps)
+        r_new, dlog = _logslide(gen, r, eps, ctx.shard)
         act = active
         if rmask is not None:
             # a network's zero-length segments and BDI mirrors carry no
@@ -384,7 +392,7 @@ def brate_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
                            seg=seg)
         lnr_new = lnprior_rates(cfg, state.sp, state.subst.mu, clock_new)
         lnacc = dlog + (logl_new - logl) + (lnr_new - lnrates)
-        us = rng.uniform(gen, (L,), r.dtype, dev)
+        us = rng.uniform(gen, (L,), r.dtype, dev, ctx.shard)
         accept = (torch.log(us) < lnacc) & act
         brate = torch.where(accept[:, None], brate_new, brate)
         lnrates = torch.where(accept, lnr_new, lnrates)
@@ -393,7 +401,7 @@ def brate_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
         nacc = nacc + accept.sum()
     new = state._replace(
         clock=state.clock._replace(brate=brate, lnrates=lnrates), logl=logl)
-    return new, (nprop, nacc)
+    return new, psum_counts(ctx.shard, nprop, nacc)
 
 
 def brate_simple_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
@@ -418,7 +426,7 @@ def brate_simple_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
         logl_new = logl_fn(state.gt, state.subst, state.sp, clock_new,
                            seg=seg)
         lnacc = (dlog + (a - 1.0) * torch.log(r_new / r) - a * (r_new - r)
-                 + torch.sum(logl_new - logl))
+                 + psum(ctx.shard, torch.sum(logl_new - logl)))
         accept = rng.mh_accept(gen, lnacc)
         brate = torch.where(accept, brate_new, brate)
         logl = torch.where(accept, logl_new, logl)
@@ -504,27 +512,29 @@ def tipdate_mubar_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
         torch.full_like(age_new, float("inf")))
     bad = torch.any((is_tip | is_inner) & mask & (gt.parent >= 0)
                     & (age_new > page_new))
-    bad = bad | torch.any(torch.where(squash, h, one) <= 0.0)
+    bad = pany(ctx.shard, bad | torch.any(torch.where(squash, h, one) <= 0.0))
 
     a_mu, b_mu = cfg.locusrate_mubar_a, cfg.locusrate_mubar_b
     lnacc = (lnew - lold + (a_mu - 1.0) * torch.log(new / old)
-             - b_mu * (new - old) + jac)
+             - b_mu * (new - old))
 
     gtn = gt._replace(age=age_new)
     logl_new = logl_fn(gtn, state.subst, sp, state.clock)
     logpr_new, c_new, t2_new = logpr_fn(gtn, sp, state.subst.heredity)
-    lnacc = lnacc + torch.sum(logl_new - state.logl)
+    jac, dlogl, dlogpr = psum(ctx.shard, jac, torch.sum(logl_new - state.logl),
+                              torch.sum(logpr_new - state.logpr))
+    lnacc = lnacc + jac + dlogl
     cand = state._replace(gt=gtn, logl=logl_new, logpr=logpr_new, mubar=new)
     if cfg.theta_integrated:
         hered = state.subst.heredity
         lnacc = lnacc + (
             notheta.total_integrated(cfg, c_new, t2_new, hered,
-                                     ctx.locus_mask)
+                                     ctx.locus_mask, ctx.shard)
             - notheta.total_integrated(cfg, state.coal, state.t2h, hered,
-                                       ctx.locus_mask))
+                                       ctx.locus_mask, ctx.shard))
         cand = cand._replace(coal=c_new, t2h=t2_new, logpr=state.logpr)
     else:
-        lnacc = lnacc + torch.sum(logpr_new - state.logpr)
+        lnacc = lnacc + dlogpr
 
     accept = rng.mh_accept(
         gen, torch.where(bad, torch.full_like(lnacc, float("-inf")), lnacc))

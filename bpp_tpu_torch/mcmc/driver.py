@@ -24,6 +24,12 @@ together with the species arrays (one copy), and under migration one
 each sim-SPR round; a chunk synchronises once, at its end (and once more
 at a check).  ``bpp_tpu`` vmaps its chunk over the K chains; here the
 chains step in turn, each with its own ``torch.Generator``.
+
+Locus sharding (``--multihost``, ``parallel.mesh``): an engine given a
+``Shard`` keeps its block of loci in ``ctx`` and in every state, and its
+moves all-reduce what they sum over loci; every rank draws what the
+unsharded run draws, so the chain is the unsharded chain.  The sample
+trace's sums over loci are all-reduced once a chunk.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ from ..core.pmatrix import aa_eigen
 from ..core.units import Units
 from ..io.constraints import build_constraint_ids
 from ..loader import RunData, init_tau_theta
+from ..parallel.mesh import gather_loci, psum, shard_by_locus
 from ..trees import migration as mg
 from ..trees import traits as trmod
 from ..trees.gtree import init_gtrees, species_arrays
@@ -65,6 +72,9 @@ from .state import (
 PJ_OPTIMUM = 0.30     # method.c:45 target pjump
 NO_CUDA = ("no CUDA device: bpp_tpu_torch runs on the GPU by default; "
            "pass --device cpu (or device='cpu') to run on the CPU")
+
+# the keys of a trace row that sum over loci (all-reduced under sharding)
+_LOCUS_SUMS = ("lnl", "logpr", "nu_sum", "nu_n")
 
 # the species moves (MV_RJ, MV_SSPR, MV_SNL) have no step length to tune,
 # in bpp_tpu as in the reference
@@ -415,10 +425,13 @@ class SampleLog:
 
 
 class Engine:
-    """Owns device data and the step for one inference run."""
+    """Owns device data and the step for one inference run; with
+    ``shard`` (``parallel.mesh.Shard``) one rank's block of its loci."""
 
-    def __init__(self, run: RunData, seed: int | None = None, device=None):
+    def __init__(self, run: RunData, seed: int | None = None, device=None,
+                 shard=None):
         self.run = run
+        self.shard = None
         self.cfg = cfg = run.cfg
         _reference_guards(cfg, run)
         self.device = dev = resolve_device(device)
@@ -521,6 +534,25 @@ class Engine:
         self.gen = torch.Generator(device=dev)
         self.gen.manual_seed(int(self.seed))
         self.record_samples()
+        if shard is not None:
+            self.set_shard(shard)
+
+    def set_shard(self, shard):
+        """Keep only ``shard``'s block of the loci: the context's per-locus
+        tensors and the kernels' unit table are rebuilt from its rows, and
+        the likelihood and density closures rebound to them.  States come
+        from :meth:`init_state` (or ``parallel.mesh.shard_by_locus``) in
+        the same block."""
+        if shard.n_loci != self.run.batch.n_loci:
+            raise ValueError(f"the shard splits {shard.n_loci} loci, the run "
+                             f"has {self.run.batch.n_loci}")
+        self.shard = shard
+        self.ctx = shard_by_locus(self.ctx, shard)
+        self._logl_fn = make_logl_fn(self.ctx, self.cfg)
+        self._logpr_fn = make_logpr_fn(self.ctx)
+        if self.cfg.migration:
+            self._logpr_mig_fn = mig_moves.make_logpr_fn_mig(
+                self.ctx, self.mig_routes)
 
     # --- state construction ---------------------------------------------------
 
@@ -564,7 +596,9 @@ class Engine:
         order, as ``bpp_tpu``.  (``bpp_tpu`` also carries the hierarchical
         start's mean rate in ``state.mubar`` under a relaxed clock, where
         its summary then reports a constant ``mu_bar``; the port keeps
-        ``mubar`` for tip dating only.)"""
+        ``mubar`` for tip dating only.)  A sharded engine draws the
+        global state and keeps its block before the first likelihood
+        pass, which runs on its own loci."""
         cfg, run = self.cfg, self.run
         dev, dt = self.device, self.dtype
         rng = np.random.default_rng(self.seed)
@@ -634,8 +668,6 @@ class Engine:
             mu=t(mu0), heredity=t(self._init_heredity(L)),
             eigw=full((L, S), 0.0), eigT=full((L, S, S), 0.0),
             eigTi=full((L, S, S), 0.0))
-        subst = subst_moves._derive_kappas(subst, cfg.model, self.ctx.custom)
-        subst = refresh_eigen(subst, cfg.model, self.ctx.custom)
         clock = None
         if cfg.clock != Clock.GLOBAL or (
                 cfg.est_locusrate == 1 and cfg.locusrate_prior in (0, 1)):
@@ -655,6 +687,7 @@ class Engine:
             trait = trmod.TraitState(
                 brate=brate0,
                 logl=moves._trait_eval(self.ctx, sp, sp.tau, brate0))
+        mig = None
         if cfg.migration:
             # no events at the start (a valid support point; the sim-SPR
             # move makes them), route rates at their prior means
@@ -663,21 +696,29 @@ class Engine:
                 L, max(16, 2 * run.batch.max_tips), routes.n_routes,
                 routes.alpha / routes.beta, dt, on=self.route_on0,
                 device=dev)
-            return McmcState(
-                gt=gt, sp=sp, subst=subst,
+        state = McmcState(
+            gt=gt, sp=sp, subst=subst, logl=None, logpr=None,
+            finetune=finetune_array(cfg, dt, dev), clock=clock,
+            mubar=None if mubar0 is None else t(mubar0), mig=mig,
+            trait=trait)
+        if self.shard is not None:
+            state = shard_by_locus(state, self.shard,
+                                   shared_clock=cfg.clock == Clock.SIMPLE)
+            gt, subst, clock, mig = (state.gt, state.subst, state.clock,
+                                     state.mig)
+        subst = subst_moves._derive_kappas(subst, cfg.model, self.ctx.custom)
+        subst = refresh_eigen(subst, cfg.model, self.ctx.custom)
+        state = state._replace(subst=subst)
+        if cfg.migration:
+            return state._replace(
                 logl=self._logl_fn(gt, subst, sp, clock, mig=mig),
-                logpr=self._logpr_mig_fn(gt, sp, mig, subst.heredity)[0],
-                finetune=finetune_array(cfg, dt, dev), clock=clock, mig=mig,
-                trait=trait)
+                logpr=self._logpr_mig_fn(gt, sp, mig, subst.heredity)[0])
         logl = self._logl_fn(gt, subst, sp, clock)
         logpr, c0, t20 = self._logpr_fn(gt, sp, subst.heredity)
         integ = cfg.theta_integrated
-        return McmcState(gt=gt, sp=sp, subst=subst, logl=logl, logpr=logpr,
-                         finetune=finetune_array(cfg, dt, dev), clock=clock,
-                         coal=c0 if integ else None,
-                         t2h=t20 if integ else None,
-                         mubar=None if mubar0 is None else t(mubar0),
-                         trait=trait)
+        return state._replace(logl=logl, logpr=logpr,
+                              coal=c0 if integ else None,
+                              t2h=t20 if integ else None)
 
     # --- one iteration --------------------------------------------------------
 
@@ -900,7 +941,9 @@ class Engine:
 
     def _trace_of(self, state: McmcState):
         """Per-iteration sample record, kept on the device: what the
-        columns of mcmc.txt need (``bpp_tpu/cli.py:232-281``)."""
+        columns of mcmc.txt need (``bpp_tpu/cli.py:232-281``).  The sums
+        over loci (``_LOCUS_SUMS``) are this rank's under sharding;
+        :meth:`_chunk` all-reduces them."""
         cfg = self.cfg
         tr = {"theta": state.sp.theta, "tau": state.sp.tau,
               "lnl": torch.sum(state.logl), "logpr": torch.sum(state.logpr)}
@@ -924,9 +967,11 @@ class Engine:
         elif cfg.clock != Clock.GLOBAL:
             # one nu_bar (hierarchical) or nu (mean nu_i) column
             nu, m = state.clock.nu, self.ctx.locus_mask
-            tr["nu_col"] = (state.clock.nubar if cfg.locusrate_prior == 1
-                            else torch.where(m, nu, torch.zeros_like(nu))
-                            .sum() / m.sum())
+            if cfg.locusrate_prior == 1:
+                tr["nu_col"] = state.clock.nubar
+            else:
+                tr["nu_sum"] = torch.where(m, nu, torch.zeros_like(nu)).sum()
+                tr["nu_n"] = m.sum()
         if cfg.est_stree:
             tr["sp_left"] = state.sp.left
             tr["sp_right"] = state.sp.right
@@ -956,6 +1001,9 @@ class Engine:
             if self.cfg.migration:
                 out["wa1"], out["wb1"] = self.mig_a1b1_stats(state)
         idx = self._rec_loci
+        if (gtrees or params) and self.shard is not None:
+            raise ValueError("per-locus records are not taken under locus "
+                             "sharding")
         if gtrees:
             gt = state.gt
             out.update(gt_left=gt.left[idx], gt_right=gt.right[idx],
@@ -986,10 +1034,7 @@ class Engine:
         else:
             _, c, t2 = self._logpr_fn(state.gt, state.sp,
                                       state.subst.heredity)
-        m = self.ctx.locus_mask[:, None]
-        ksum = torch.where(m, c, torch.zeros_like(c)).sum(0).to(t2.dtype)
-        cc = t2 / state.subst.heredity[:, None]
-        csum = torch.where(m, cc, torch.zeros_like(cc)).sum(0)
+        ksum, csum = moves._suff_stats(self.ctx, c, t2, state.subst.heredity)
         # linked thetas: each member gets its group's pooled statistics
         ksum, csum = moves._pool_linked(self.ctx, ksum, csum)
         if cfg.thetaprior.dist == PriorDist.GAMMA:
@@ -1004,10 +1049,9 @@ class Engine:
         rows of the a1b1 log): (wa1 [K], wb1 [K])."""
         _, _, _, W, mc, _ = self._logpr_mig_fn(
             state.gt, state.sp, state.mig, state.subst.heredity)
-        m = self.ctx.locus_mask[:, None]
+        wsum, mcsum = mig_moves._route_sums(self.ctx, W, mc)
         r = self.mig_routes
-        return (r.alpha + torch.where(m, mc, torch.zeros_like(mc)).sum(0),
-                r.beta + torch.where(m, W, torch.zeros_like(W)).sum(0))
+        return r.alpha + mcsum, r.beta + wsum
 
     def validate_state(self, state: McmcState, it=None):
         """``check = N [tol]``: recompute every cached per-locus quantity
@@ -1016,7 +1060,8 @@ class Engine:
         float32, 1e-6 in float64): the reference's CHECK_LOGL/CHECK_LOGPR
         (method.c:4699), and the cached trait log-likelihoods.  Port of
         ``bpp_tpu``'s ``Engine.validate_state``; the comparison reads the
-        device once."""
+        device once (every rank's loci, gathered, under sharding, so that
+        the ranks agree on the verdict)."""
         cfg = self.cfg
         tol = cfg.check_tol or (
             1e-6 if self.dtype == torch.float64 else 0.5)
@@ -1050,7 +1095,7 @@ class Engine:
         L = state.logl.shape[0]
         flat = [x.reshape(L, -1).to(torch.float64)
                 for _, c, f in pairs for x in (c, f)]
-        host = torch.cat(flat, dim=1).cpu().numpy()
+        host = gather_loci(self.shard, torch.cat(flat, dim=1)).cpu().numpy()
         mask = np.asarray(self.run.batch.locus_mask, bool)
         off = 0
         for (what, _, _), c in zip(pairs, flat[::2]):
@@ -1085,6 +1130,12 @@ class Engine:
             if want and it + i + 1 > 0 and (it + i + 1) % K == 0:
                 recs.append(self._sample_record(state))
         trace = {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+        if self.shard is not None:
+            keys = [k for k in _LOCUS_SUMS if k in trace]
+            trace.update(zip(keys, psum(self.shard,
+                                        *[trace[k] for k in keys])))
+        if "nu_sum" in trace:
+            trace["nu_col"] = trace.pop("nu_sum") / trace.pop("nu_n")
         samples = ({k: torch.stack([r[k] for r in recs]) for k in recs[0]}
                    if recs else {})
         return state, acc, trace, samples
@@ -1099,8 +1150,8 @@ class Engine:
     # --- full run -------------------------------------------------------------
 
     def run_mcmc(self, progress_every: int = 1000, log_fp=None,
-                 on_sample=None, resume=None,
-                 on_checkpoint=None) -> SampleLog:
+                 on_sample=None, resume=None, on_checkpoint=None,
+                 mesh=None) -> SampleLog:
         """Run the chain.  ``on_sample(gen, row)`` receives each sample as
         a dict of host values (theta, tau, lnl, logpr and what
         :meth:`_trace_of` adds for the run's columns) when its chunk
@@ -1120,8 +1171,15 @@ class Engine:
         [step]`` schedules (method.c:6183-6188; generation 1 is the first
         iteration after burn-in); each is a chunk bound, so a resumed
         chain lands on them and draws exactly what the uninterrupted one
-        draws."""
+        draws.
+
+        ``mesh``: a ``parallel.mesh.Shard``; the engine keeps its block of
+        the loci (:meth:`set_shard`) before the initial state is drawn,
+        and every rank runs this loop in step.  ``on_sample`` then gets
+        rows whose sums over loci cover every rank."""
         cfg = self.cfg
+        if mesh is not None and self.shard is None:
+            self.set_shard(mesh)
         if resume is None:
             state = self.init_state()
             self.gen.manual_seed(int(self.seed))
@@ -1135,7 +1193,7 @@ class Engine:
         t0 = time.time()
         last_print = [0]
 
-        def progress(it, state):
+        def progress(it, lnl):
             if not progress_every:
                 return
             if it - last_print[0] < progress_every and it != 0:
@@ -1143,7 +1201,7 @@ class Engine:
             last_print[0] = it
             with np.errstate(invalid="ignore", divide="ignore"):
                 pj = stats_acc[:, 1] / np.maximum(stats_acc[:, 0], 1)
-            print(f"  it {it:>8d}  lnL {float(torch.sum(state.logl)):.4f}"
+            print(f"  it {it:>8d}  lnL {float(lnl):.4f}"
                   f"  pjump " + " ".join(f"{x:.2f}" for x in pj[:5])
                   + f"  [{time.time()-t0:.1f}s]", file=log_fp or sys.stderr)
 
@@ -1172,7 +1230,7 @@ class Engine:
             stats_acc += stats.cpu().numpy()
             prev = it
             it += n
-            progress(it, state)
+            progress(it, trace["lnl"][-1])
             if auto_ft and it in marks and it <= 0:
                 state = self._reset_finetune(state, stats_acc)
                 stats_acc[:] = 0.0
@@ -1188,8 +1246,9 @@ class Engine:
                         on_sample(g, row)
             if it >= next_chk:
                 self.validate_state(state, it=it)
-                print(f"  check at it {it:>8d}: caches consistent",
-                      file=log_fp or sys.stderr)
+                if self.shard is None or self.shard.rank == 0:
+                    print(f"  check at it {it:>8d}: caches consistent",
+                          file=log_fp or sys.stderr)
                 next_chk = it + chk_n
             if it >= next_ck:
                 on_checkpoint(state, self.gen, it, stats_acc)
@@ -1235,8 +1294,11 @@ class Engine:
         far); ``on_checkpoint(states, gens, it, stats_acc, logs)`` fires at
         the generations ``checkpoint = initial [step]`` schedules, each a
         chunk bound, so a resumed run draws what the uninterrupted one
-        draws."""
+        draws.  Under ``--multihost`` each process runs every chain on all
+        the loci (an unsharded engine)."""
         cfg = self.cfg
+        if self.shard is not None:
+            raise ValueError("replicate chains run on unsharded engines")
         gens = [torch.Generator(device=self.device) for _ in range(n_chains)]
         if resume is None:
             states = self.init_states(n_chains)
@@ -1284,7 +1346,7 @@ class Engine:
                                        or it == 0):
                     last_print = it
                     print(f"  it {it:>8d} x{n_chains} chains  lnL "
-                          f"{float(torch.sum(states[0].logl)):.4f}  "
+                          f"{float(traces[0]['lnl'][-1]):.4f}  "
                           f"[{time.time() - t0:.1f}s]",
                           file=log_fp or sys.stderr)
                 if auto_ft and it in marks and it <= 0:

@@ -37,11 +37,14 @@ from __future__ import annotations
 import torch
 
 from ..config import BppConfig, Clock, PriorDist
+from ..parallel.mesh import pany, psum_counts
 from ..trees import migration as mg
 from ..trees.gtree import BIG_AGE, GTrees, lift_population, node_depths
 from . import rng
 from .gibbs import gamma_conditional_approx
-from .moves import MAXAGE_CAP, _select_uniform, _suff_stats, _write
+from .moves import (
+    MAXAGE_CAP, _psum_if_sharded, _select_uniform, _suff_stats, _write,
+)
 from .state import (
     FT_GTAGE, FT_LRHT, FT_MIG_AGES, FT_MIGRATES, FT_MIX, FT_TAU, Ctx,
     McmcState, make_logl_fn, tree_where,
@@ -155,9 +158,10 @@ def mig_mbar_move(ctx: Ctx, cfg: BppConfig, routes, state: McmcState, gen):
     lnacc = lnc + lnc * (routes.alpha - 1.0) - (mbar_new - mig.M) * routes.beta
     bnew = am / mbar_new
     bold = am / mig.M
-    n_real = ctx.locus_mask.sum().to(dt)
-    misum = torch.where(ctx.locus_mask[:, None], mig.Mi,
-                        torch.zeros_like(mig.Mi)).sum(0)
+    n_real, misum = _psum_if_sharded(
+        ctx, ctx.locus_mask.sum(), torch.where(
+            ctx.locus_mask[:, None], mig.Mi, torch.zeros_like(mig.Mi)).sum(0))
+    n_real = n_real.to(dt)
     lnacc = lnacc + n_real * am * torch.log(bnew / bold) \
         - (bnew - bold) * misum
     accept = rng.mh_accept(gen, torch.where(
@@ -181,7 +185,7 @@ def mig_vrates_move(ctx: Ctx, cfg: BppConfig, routes, state: McmcState,
     _, _, _, W, mc, _ = logpr_fn(state.gt, state.sp, mig,
                                  state.subst.heredity)
     eps = state.finetune[FT_MIGRATES]
-    lnc = eps * rng.bactrian(gen, (L, K), dt, dev)
+    lnc = eps * rng.bactrian(gen, (L, K), dt, dev, ctx.shard)
     mi_new = mig.Mi * torch.exp(lnc)
     am = routes.am[None, :]
     beta = am / torch.clamp(mig.M, min=1e-300)[None, :]
@@ -189,11 +193,11 @@ def mig_vrates_move(ctx: Ctx, cfg: BppConfig, routes, state: McmcState,
     lnacc = lnacc + mc * torch.log(mi_new / mig.Mi) - (mi_new - mig.Mi) * W
     has_am = routes.has_am[None, :] & ctx.locus_mask[:, None]
     accept = rng.mh_accept(gen, torch.where(
-        has_am, lnacc, torch.full_like(lnacc, -float("inf"))))
+        has_am, lnacc, torch.full_like(lnacc, -float("inf"))), ctx.shard)
     mig_new = mig._replace(Mi=torch.where(accept, mi_new, mig.Mi))
     logpr = logpr_fn(state.gt, state.sp, mig_new, state.subst.heredity)[0]
     return (state._replace(mig=mig_new, logpr=logpr),
-            (has_am.sum(), accept.sum()))
+            psum_counts(ctx.shard, has_am.sum(), accept.sum()))
 
 
 # --------------------------------------------------------------------------
@@ -242,7 +246,8 @@ def migevent_age_move(ctx: Ctx, cfg: BppConfig, routes, state: McmcState,
         hi = torch.minimum(torch.minimum(e_hi, nxt),
                            torch.minimum(partau[s], partau[d]))
         ok = live & (hi > lo) & ctx.locus_mask
-        tnew = rng.reflect(t + eps * rng.bactrian(gen, (L,), dt, dev),
+        tnew = rng.reflect(t + eps * rng.bactrian(gen, (L,), dt, dev,
+                                                  ctx.shard),
                            lo, torch.maximum(hi, lo + 1e-300))
         tnew = torch.where(ok, tnew, t)
         time_new = mig.time.clone()
@@ -253,7 +258,7 @@ def migevent_age_move(ctx: Ctx, cfg: BppConfig, routes, state: McmcState,
         if relaxed:
             logl_new = logl_fn(gt, state.subst, sp, state.clock, mig=mign)
             lnacc = lnacc + (logl_new - logl)
-        accept = rng.mh_accept(gen, lnacc) & ok
+        accept = rng.mh_accept(gen, lnacc, ctx.shard) & ok
         mig = mig._replace(time=torch.where(accept[:, None], time_new,
                                             mig.time))
         logpr = torch.where(accept, logpr_new, logpr)
@@ -262,7 +267,7 @@ def migevent_age_move(ctx: Ctx, cfg: BppConfig, routes, state: McmcState,
         nprop = nprop + ok.sum()
         nacc = nacc + accept.sum()
     return (state._replace(mig=mig, logpr=logpr, logl=logl),
-            (nprop, nacc))
+            psum_counts(ctx.shard, nprop, nacc))
 
 
 # --------------------------------------------------------------------------
@@ -325,7 +330,8 @@ def age_block_mig(ctx: Ctx, cfg: BppConfig, routes, state: McmcState, gen):
                              torch.gather(age, 1, gt.parent.clamp(min=0)),
                              cap)
         maxage = torch.minimum(maxage, first_t)
-        tnew = rng.reflect(age + eps * rng.bactrian(gen, (L, N), dt, dev),
+        tnew = rng.reflect(age + eps * rng.bactrian(gen, (L, N), dt, dev,
+                                                    ctx.shard),
                            minage, torch.maximum(maxage, minage + 1e-300))
         mask_ok = mask & (maxage > minage)
         age_new = torch.where(mask_ok, tnew, age)
@@ -334,7 +340,7 @@ def age_block_mig(ctx: Ctx, cfg: BppConfig, routes, state: McmcState, gen):
         logpr_new = logpr_fn(gtn, sp, mig, hered)[0]
         lnacc = (logl_new - logl) + (logpr_new - logpr)
         amask = ctx.locus_mask & mask_ok.any(1)
-        accept = rng.mh_accept(gen, lnacc) & amask
+        accept = rng.mh_accept(gen, lnacc, ctx.shard) & amask
         age = torch.where(accept[:, None], age_new, age)
         logl = torch.where(accept, logl_new, logl)
         logpr = torch.where(accept, logpr_new, logpr)
@@ -342,7 +348,7 @@ def age_block_mig(ctx: Ctx, cfg: BppConfig, routes, state: McmcState, gen):
         nacc = nacc + accept.sum()
 
     return (state._replace(gt=gt._replace(age=age), logl=logl, logpr=logpr),
-            (nprop, nacc))
+            psum_counts(ctx.shard, nprop, nacc))
 
 
 # --------------------------------------------------------------------------
@@ -450,13 +456,14 @@ def tau_move_mig(ctx: Ctx, cfg: BppConfig, routes, state: McmcState, gen):
         # events by their source population; empty slots carry BIG_AGE,
         # outside every window, and are masked by ev_live0 too
         ev_new, jac_e = remap(ev_time, state.mig.src, ev_live0)
-        jac = jac_a.sum() + jac_e.sum()
-
         gtn = gt._replace(age=age_new)
         mign = state.mig._replace(time=ev_new)
         logpr_new = logpr_fn(gtn, sp_new, mign, state.subst.heredity)[0]
         logl_new = logl_fn(gtn, state.subst, sp_new, state.clock, mig=mign)
-        lnacc = jac + torch.sum(logpr_new - logpr) + torch.sum(logl_new - logl)
+        jac, dlogpr, dlogl = _psum_if_sharded(
+            ctx, jac_a.sum() + jac_e.sum(), torch.sum(logpr_new - logpr),
+            torch.sum(logl_new - logl))
+        lnacc = jac + dlogpr + dlogl
         if traits:
             # the trait likelihood sees the species taus only
             # (stree.c:5675): the same delta as the plain tau move
@@ -517,10 +524,11 @@ def mixing_mig(ctx: Ctx, cfg: BppConfig, routes, state: McmcState, gen):
     lnc = eps * rng.bactrian(gen, (), dt, dev)
     c = torch.exp(lnc)
     tau_count = torch.sum(sp.tau[NS:] > 0)
-    inner_count = torch.sum(torch.where(ctx.locus_mask, ctx.n_seq - 1,
-                                        torch.zeros_like(ctx.n_seq)))
     live = mig.node >= 0
-    ev_count = torch.sum(ctx.locus_mask[:, None] & live)
+    inner_count, ev_count = _psum_if_sharded(
+        ctx, torch.sum(torch.where(ctx.locus_mask, ctx.n_seq - 1,
+                                   torch.zeros_like(ctx.n_seq))),
+        torch.sum(ctx.locus_mask[:, None] & live))
     lnacc = (tau_count + inner_count + ev_count).to(dt) * lnc
 
     is_inner = (nodes_idx >= T) & (nodes_idx < T + ctx.n_seq[:, None] - 1)
@@ -545,8 +553,9 @@ def mixing_mig(ctx: Ctx, cfg: BppConfig, routes, state: McmcState, gen):
     spn = sp._replace(tau=tau_new)
     logl_new = logl_fn(gtn, state.subst, spn, state.clock, mig=mign)
     logpr_new = logpr_fn(gtn, spn, mign, state.subst.heredity)[0]
-    lnacc = lnacc + torch.sum(logl_new - state.logl) \
-        + torch.sum(logpr_new - state.logpr)
+    dlogl, dlogpr = _psum_if_sharded(ctx, torch.sum(logl_new - state.logl),
+                                     torch.sum(logpr_new - state.logpr))
+    lnacc = lnacc + dlogl + dlogpr
     cand = state._replace(gt=gtn, sp=spn, mig=mign, logl=logl_new,
                           logpr=logpr_new)
     if ctx.trait_fn is not None:
@@ -575,8 +584,9 @@ def mixing_mig(ctx: Ctx, cfg: BppConfig, routes, state: McmcState, gen):
 def _route_sums(ctx: Ctx, W, mc):
     """(sum_l W_lk, sum_l mc_lk) over the real loci: [K] each."""
     mask_l = ctx.locus_mask[:, None]
-    return (torch.where(mask_l, W, torch.zeros_like(W)).sum(0),
-            torch.where(mask_l, mc, torch.zeros_like(mc)).sum(0))
+    return _psum_if_sharded(
+        ctx, torch.where(mask_l, W, torch.zeros_like(W)).sum(0),
+        torch.where(mask_l, mc, torch.zeros_like(mc)).sum(0))
 
 
 def _route_overlap(routes, sp):
@@ -739,7 +749,7 @@ def spr_sim_move(ctx: Ctx, cfg: BppConfig, routes, state: McmcState, gen,
     # --- the pruned node of every locus ---------------------------------------
     valid_nodes = (nodes_idx < ctx.n_seq[:, None]) | (
         (nodes_idx >= T) & (nodes_idx < T + ctx.n_seq[:, None] - 1))
-    i, _ = _select_uniform(gen, valid_nodes & (gt0.parent >= 0))
+    i, _ = _select_uniform(gen, valid_nodes & (gt0.parent >= 0), ctx.shard)
     is_valid = (gt0.parent[lidx, i] >= 0) & ctx.locus_mask
     father = gt0.parent[lidx, i].clamp(min=0)
     fleft = gt0.left[lidx, father]
@@ -816,7 +826,9 @@ def spr_sim_move(ctx: Ctx, cfg: BppConfig, routes, state: McmcState, gen,
     nn = torch.zeros(L, dtype=torch.int64, device=dev)
     inf = torch.full_like(t, float("inf"))
     steps = 0
-    while steps < max_steps and bool((~done & ~fail & is_valid).any()):
+    # every rank walks until the last lineage of every rank is done
+    while steps < max_steps and bool(
+            pany(ctx.shard, (~done & ~fail & is_valid).any())):
         for _ in range(min(SIM_BLOCK, max_steps - steps)):
             act = ~done & ~fail & is_valid
             n, nb = n_and_bounds(t, p)
@@ -825,16 +837,16 @@ def spr_sim_move(ctx: Ctx, cfg: BppConfig, routes, state: McmcState, gen,
             w = torch.where(route_ok, route_M, torch.zeros_like(route_M))
             mrs = w.sum(1)
             _, rate = _sim_rate(n, sp.theta[p], heredity, mrs)
-            delta = torch.where(rate > 0, rng.exponential(gen, (L,), dtype,
-                                                          dev) / rate, inf)
+            delta = torch.where(rate > 0, rng.exponential(
+                gen, (L,), dtype, dev, ctx.shard) / rate, inf)
             t_ev = t + delta
             hit = t_ev < nb
-            u = rng.uniform(gen, (L,), dtype, dev) * rate
+            u = rng.uniform(gen, (L,), dtype, dev, ctx.shard) * rate
             is_coal = hit & (u >= mrs)
             is_mig = hit & (u < mrs)
             # the donor route: categorical over the live routes' rates
             cum = torch.cumsum(w, dim=1)
-            r = rng.uniform(gen, (L,), dtype, dev) * torch.clamp(
+            r = rng.uniform(gen, (L,), dtype, dev, ctx.shard) * torch.clamp(
                 cum[:, -1], min=1e-300)
             dpick = si[torch.argmax((cum > r[:, None]).to(torch.uint8),
                                     dim=1)]
@@ -860,7 +872,7 @@ def spr_sim_move(ctx: Ctx, cfg: BppConfig, routes, state: McmcState, gen,
 
     # --- the target edge, uniform among the lineages there ---------------------
     inside, _, _, _ = lineages_in(t_new, p)
-    esel, ecount = _select_uniform(gen, inside)
+    esel, ecount = _select_uniform(gen, inside, ctx.shard)
     fail = fail | (ecount < 1)
     target = torch.where(esel < N, esel,
                          mig_p.node[lidx, (esel - N).clamp(min=0)])
@@ -909,7 +921,7 @@ def spr_sim_move(ctx: Ctx, cfg: BppConfig, routes, state: McmcState, gen,
     logl_new = logl_fn(gt_n, state.subst, sp, state.clock, mig=mig_n)
     logpr_new = logpr_fn(gt_n, sp, mig_n, heredity)[0]
     ok = ok & torch.isfinite(logpr_new)
-    accept = rng.mh_accept(gen, logl_new - state.logl) & ok
+    accept = rng.mh_accept(gen, logl_new - state.logl, ctx.shard) & ok
     am = accept[:, None]
     new_state = state._replace(
         gt=GTrees(torch.where(am, nl, gt0.left),
@@ -923,7 +935,7 @@ def spr_sim_move(ctx: Ctx, cfg: BppConfig, routes, state: McmcState, gen,
             dst=torch.where(am, mig_n.dst, mig0.dst)),
         logl=torch.where(accept, logl_new, state.logl),
         logpr=torch.where(accept, logpr_new, state.logpr))
-    return new_state, (is_valid.sum(), accept.sum())
+    return new_state, psum_counts(ctx.shard, is_valid.sum(), accept.sum())
 
 
 def heredity_move_mig(ctx: Ctx, cfg: BppConfig, routes, state: McmcState,
@@ -933,15 +945,16 @@ def heredity_move_mig(ctx: Ctx, cfg: BppConfig, routes, state: McmcState,
     L = state.gt.n_loci
     eps = state.finetune[FT_LRHT]
     h = state.subst.heredity
-    h_new = torch.abs(h + eps * rng.bactrian(gen, (L,), h.dtype, h.device))
+    h_new = torch.abs(h + eps * rng.bactrian(gen, (L,), h.dtype, h.device,
+                                             ctx.shard))
     h_new = torch.where(ctx.locus_mask, torch.clamp(h_new, min=1e-300), h)
     dprior = (cfg.heredity_alpha - 1.0) * torch.log(h_new / h) \
         - cfg.heredity_beta * (h_new - h)
     logpr_new = make_logpr_fn_mig(ctx, routes)(state.gt, state.sp,
                                                state.mig, h_new)[0]
-    accept = rng.mh_accept(gen, dprior + (logpr_new - state.logpr)) \
-        & ctx.locus_mask
+    accept = rng.mh_accept(gen, dprior + (logpr_new - state.logpr),
+                           ctx.shard) & ctx.locus_mask
     return (state._replace(
         subst=state.subst._replace(heredity=torch.where(accept, h_new, h)),
         logpr=torch.where(accept, logpr_new, state.logpr)),
-        (ctx.locus_mask.sum(), accept.sum()))
+        psum_counts(ctx.shard, ctx.locus_mask.sum(), accept.sum()))

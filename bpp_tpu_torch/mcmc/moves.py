@@ -19,7 +19,11 @@ Per-locus moves take independent accept decisions per locus with
 No move reads a device value on the host, so a step runs without a
 synchronisation, but for integrated-out thetas: their density couples
 the loci, and the per-locus moves then take their decisions in a serial
-chain on the host (``notheta.scan_accept``).
+chain on the host (``notheta.scan_accept``).  Under locus sharding
+(``ctx.shard``) every sum over loci is a cross-rank sum
+(:func:`_psum_if_sharded`) and every per-locus draw is taken at the
+global shape (``rng``'s ``shard``), so each rank takes the decisions of
+the unsharded run.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from ..config import BppConfig, Clock, PriorDist
+from ..parallel.mesh import psum, psum_counts
 from ..trees.gtree import (
     BIG_AGE, GTrees, assign_populations, edge_passes,
     lift_population, lift_population_net, mrca_and_leaves, mrca_species,
@@ -52,20 +57,21 @@ def _trait_eval(ctx: Ctx, sp, tau, brate):
     return ctx.trait_fn_topo(sp.left, sp.right, sp.parent, tau, brate)
 
 
-def _psum_if_sharded(x):
-    """Cross-shard reduction hook; the identity on one device."""
-    return x
+def _psum_if_sharded(ctx: Ctx, *xs):
+    """The sums over this rank's loci ``xs``, summed over the ranks (one
+    all-reduce) when the run is sharded; the identity on one process."""
+    return psum(ctx.shard, *xs)
 
 
 def _suff_stats(ctx: Ctx, c, t2, heredity):
     """Per-population coalescence counts and heredity-scaled waiting
     sums over the real loci: (ksum [H], csum [H])."""
     mask_l = ctx.locus_mask[:, None]
-    ksum = _psum_if_sharded(
-        torch.where(mask_l, c, torch.zeros_like(c)).sum(0)).to(t2.dtype)
-    csum = _psum_if_sharded(torch.where(
-        mask_l, t2 / heredity[:, None], torch.zeros_like(t2)).sum(0))
-    return ksum, csum
+    ksum, csum = _psum_if_sharded(
+        ctx, torch.where(mask_l, c, torch.zeros_like(c)).sum(0),
+        torch.where(mask_l, t2 / heredity[:, None],
+                    torch.zeros_like(t2)).sum(0))
+    return ksum.to(t2.dtype), csum
 
 
 def _pool_linked(ctx: Ctx, ksum, csum):
@@ -92,9 +98,9 @@ def _integrated_delta(ctx: Ctx, cfg: BppConfig, state: McmcState, c_new,
     from the state's to (c_new, t2_new)."""
     hered = state.subst.heredity
     return (notheta.total_integrated(cfg, c_new, t2_new, hered,
-                                     ctx.locus_mask)
+                                     ctx.locus_mask, ctx.shard)
             - notheta.total_integrated(cfg, state.coal, state.t2h, hered,
-                                       ctx.locus_mask))
+                                       ctx.locus_mask, ctx.shard))
 
 
 # --------------------------------------------------------------------------
@@ -268,15 +274,16 @@ def tau_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
             torch.where(below,
                         age + g_dt * (age - g_min) / (g_told - g_min), age))
         zg = torch.zeros_like(age)
-        jac = _psum_if_sharded(torch.sum(
-            torch.where(above, g_lmaxf, zg) + torch.where(below, g_lminf, zg)))
+        jac = torch.sum(
+            torch.where(above, g_lmaxf, zg) + torch.where(below, g_lminf, zg))
 
         gtn = gt._replace(age=age_new)
         logl_new = logl_fn(gtn, state.subst, sp_new, state.clock)
         logpr_new, c_new, t2_new = logpr_fn(gtn, sp_new,
                                             state.subst.heredity, msp=msp)
-        lnacc = jac + _psum_if_sharded(torch.sum(logl_new - logl)) \
-            + _psum_if_sharded(torch.sum(logpr_new - logpr))
+        jac, dlogl, dlogpr = _psum_if_sharded(
+            ctx, jac, torch.sum(logl_new - logl), torch.sum(logpr_new - logpr))
+        lnacc = jac + dlogl + dlogpr
         if integ:
             lnacc = lnacc + _integrated_delta(
                 ctx, cfg, state._replace(coal=coal_c, t2h=t2_c), c_new,
@@ -296,7 +303,7 @@ def tau_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
                                     torch.zeros_like(root_term))
         if corr_ln:
             lnr_new = lnprior_rates(cfg, sp_new, state.subst.mu, state.clock)
-            lnacc = lnacc + _psum_if_sharded(torch.sum(lnr_new - lnrates))
+            lnacc = lnacc + _psum_if_sharded(ctx, torch.sum(lnr_new - lnrates))
         if traits:
             tl_new = _trait_eval(ctx, sp0, tau_new, state.trait.brate)
             lnacc = lnacc + torch.sum(tl_new - tlogl)
@@ -364,7 +371,7 @@ def mixing_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
         tau_count = torch.sum(sp.tau[NS:] > 0)
     else:
         tau_count = torch.zeros((), dtype=torch.int64, device=dev)
-    inner_count = _psum_if_sharded(torch.sum(torch.where(
+    inner_count = _psum_if_sharded(ctx, torch.sum(torch.where(
         ctx.locus_mask, ctx.n_seq - 1, torch.zeros_like(ctx.n_seq))))
     lnacc = (tau_count + inner_count).to(dt) * lnc
 
@@ -426,8 +433,10 @@ def mixing_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
     logl_new = logl_fn(gtn, state.subst, spn, state.clock)
     logpr_new, c_new, t2_new = logpr_fn(gtn, spn, state.subst.heredity,
                                         msp=msp)
-    lnacc = lnacc + _psum_if_sharded(torch.sum(logl_new - state.logl))
-    lnacc = lnacc + _psum_if_sharded(torch.sum(logpr_new - state.logpr))
+    dlogl, dlogpr = _psum_if_sharded(ctx, torch.sum(logl_new - state.logl),
+                                     torch.sum(logpr_new - state.logpr))
+    lnacc = lnacc + dlogl
+    lnacc = lnacc + dlogpr
     cand = state._replace(gt=gtn, sp=spn, logl=logl_new, logpr=logpr_new)
     if cfg.theta_integrated:
         lnacc = lnacc + _integrated_delta(ctx, cfg, state, c_new, t2_new)
@@ -441,7 +450,7 @@ def mixing_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
     if _corr_ln(cfg, state):
         lnr_new = lnprior_rates(cfg, spn, state.subst.mu, state.clock)
         lnacc = lnacc + _psum_if_sharded(
-            torch.sum(lnr_new - state.clock.lnrates))
+            ctx, torch.sum(lnr_new - state.clock.lnrates))
         cand = cand._replace(clock=state.clock._replace(lnrates=lnr_new))
 
     accept = rng.mh_accept(gen, lnacc)
@@ -503,7 +512,8 @@ def age_block_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
         maxage = torch.where(gt.parent >= 0, torch.gather(age, 1, par_s), cap)
         # degenerate window (float32 parent == child tie): skip the node
         mask = mask & (maxage > minage)
-        tnew = rng.reflect(age + eps * rng.bactrian(gen, (L, N), dt, dev),
+        tnew = rng.reflect(age + eps * rng.bactrian(gen, (L, N), dt, dev,
+                                                    ctx.shard),
                            minage, maxage)
         age_new = torch.where(mask, tnew, age)
         gtn = gt._replace(age=age_new)
@@ -514,11 +524,11 @@ def age_block_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
         if integ:
             accept = notheta.scan_accept(
                 gen, cfg, lnacc, coal_c, t2_c, hered, c_new, t2_new, hered,
-                amask, ctx.locus_mask)
+                amask, ctx.locus_mask, ctx.shard)
             coal_c = torch.where(accept[:, None], c_new, coal_c)
             t2_c = torch.where(accept[:, None], t2_new, t2_c)
         else:
-            accept = rng.mh_accept(gen, lnacc) & amask
+            accept = rng.mh_accept(gen, lnacc, ctx.shard) & amask
         logpr = torch.where(accept, logpr_new, logpr)
         age = torch.where(accept[:, None], age_new, age)
         logl = torch.where(accept, logl_new, logl)
@@ -527,15 +537,15 @@ def age_block_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
 
     new_state = state._replace(gt=gt._replace(age=age), logl=logl,
                                logpr=logpr, coal=coal_c, t2h=t2_c)
-    return new_state, (nprop, nacc)
+    return new_state, psum_counts(ctx.shard, nprop, nacc)
 
 
-def _select_uniform(gen, mask):
+def _select_uniform(gen, mask, shard=None):
     """Uniformly select one True index per row of mask [L, N]:
-    (index [L], count [L])."""
+    (index [L], count [L]); ``shard`` when the rows are loci."""
     L = mask.shape[0]
     count = mask.sum(dim=1)
-    r = rng.uniform(gen, (L,), torch.float64, mask.device)
+    r = rng.uniform(gen, (L,), torch.float64, mask.device, shard)
     sel_rank = torch.floor(r * count).to(torch.int64)
     sel_rank = torch.minimum(sel_rank, torch.clamp(count - 1, min=0))
     mi = mask.to(torch.int64)
@@ -572,7 +582,7 @@ def spr_round_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
         (nodes_idx >= T) & (nodes_idx < T + ctx.n_seq[:, None] - 1))
 
     cand_mask = valid_nodes & (parent >= 0)
-    i, _ = _select_uniform(gen, cand_mask)
+    i, _ = _select_uniform(gen, cand_mask, ctx.shard)
 
     net = sp.is_network
     if net:
@@ -601,7 +611,8 @@ def spr_round_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
         minage = torch.maximum(age[lidx, i], sp.tau[pop_min])
 
     f_age = age[lidx, father_s]
-    tnew = rng.reflect(f_age + eps * rng.bactrian(gen, (L,), dt, dev),
+    tnew = rng.reflect(f_age + eps * rng.bactrian(gen, (L,), dt, dev,
+                                                  ctx.shard),
                        minage, MAXAGE_CAP)
     if net:
         pop_target = lift_population_net(sp, cur_pop, tnew,
@@ -625,7 +636,7 @@ def spr_round_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
              & (nodes_idx != i[:, None])
              & (nodes_idx != order_root[:, None]))
     above_root = tnew >= root_age
-    tsel, tcount = _select_uniform(gen, tmask)
+    tsel, tcount = _select_uniform(gen, tmask, ctx.shard)
     target = torch.where(above_root, order_root, tsel)
     tcount = torch.where(above_root, torch.ones_like(tcount), tcount)
     target = torch.where(target == father, sibling, target)
@@ -689,12 +700,12 @@ def spr_round_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
         hered = state.subst.heredity
         accept = notheta.scan_accept(
             gen, cfg, lnacc, state.coal, state.t2h, hered, c_new, t2_new,
-            hered, ok, ctx.locus_mask)
+            hered, ok, ctx.locus_mask, ctx.shard)
         new_state = state._replace(
             coal=torch.where(accept[:, None], c_new, state.coal),
             t2h=torch.where(accept[:, None], t2_new, state.t2h))
     else:
-        accept = rng.mh_accept(gen, lnacc) & ok
+        accept = rng.mh_accept(gen, lnacc, ctx.shard) & ok
     am = accept[:, None]
     new_state = new_state._replace(
         gt=GTrees(torch.where(am, nl, left), torch.where(am, nr, right),
@@ -702,4 +713,4 @@ def spr_round_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
                   gt0.hpath),
         logl=torch.where(accept, logl_new, logl),
         logpr=torch.where(accept, logpr_new, logpr))
-    return new_state, (ok.sum(), accept.sum())
+    return new_state, psum_counts(ctx.shard, ok.sum(), accept.sum())

@@ -34,6 +34,7 @@ from __future__ import annotations
 import torch
 
 from ..config import BppConfig, Clock, PriorDist
+from ..parallel.mesh import psum_counts
 from ..trees import coalescent as coalmod
 from ..trees.gtree import SpeciesArrays, assign_populations, node_depths
 from . import notheta, rng
@@ -55,7 +56,7 @@ def phi_beta_params(ctx: Ctx, cfg: BppConfig, state: McmcState):
     _, _, n_in = coalmod.per_pop_stats(gt, sp, pops, ctx.n_seq)
     n_in = coalmod.phi_entry_counts(sp, n_in)
     n_in = torch.where(ctx.locus_mask[:, None], n_in, torch.zeros_like(n_in))
-    tot = n_in.sum(0).to(sp.phi.dtype)                       # [H]
+    tot = _psum_if_sharded(ctx, n_in.sum(0)).to(sp.phi.dtype)  # [H]
     p0 = cfg.phiprior.alpha if cfg.phiprior else 1.0
     q0 = cfg.phiprior.beta if cfg.phiprior else 1.0
     hin = sp.hslot
@@ -187,21 +188,21 @@ def tau_move_net(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
             above, age + dtau * (maxage - age) / (maxage - told),
             torch.where(below, age + dtau * (age - minage) / (told - minage),
                         age))
-        ca = _psum_if_sharded(above.sum()).to(dt)
-        cb = _psum_if_sharded(below.sum()).to(dt)
-
         gtn = state.gt._replace(age=age_new)
         logl_new = logl_fn(gtn, state.subst, sp_new, state.clock)
         logpr_new, c_new, t2_new = logpr_fn(gtn, sp_new, hered)
-        dpr = _psum_if_sharded(torch.sum(logpr_new - logpr))
+        ca, cb, dpr, dlogl = _psum_if_sharded(
+            ctx, above.sum(), below.sum(), torch.sum(logpr_new - logpr),
+            torch.sum(logl_new - logl))
+        ca, cb = ca.to(dt), cb.to(dt)
         if integ:
             # logpr is the theta-free part (phi terms, validity); the
             # coupled part comes from the (coal, t2h) caches
             dpr = dpr + (
                 notheta.total_integrated(cfg, c_new, t2_new, hered,
-                                         ctx.locus_mask)
+                                         ctx.locus_mask, ctx.shard)
                 - notheta.total_integrated(cfg, coal_c, t2_c, hered,
-                                           ctx.locus_mask))
+                                           ctx.locus_mask, ctx.shard))
         ln_maxf = torch.log1p(dtau / (told - maxage))
         ln_minf = torch.log1p(dtau / (told - minage))
         cand = torch.sum((tau > 0) & sp0.tau_free).to(dt)
@@ -212,7 +213,7 @@ def tau_move_net(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
             root_term = (-a - 1.0 - cand + 1.0) * torch.log(tnew / told) \
                 - b * (1.0 / tnew - 1.0 / told)
         lnacc = (ca * ln_maxf + cb * ln_minf
-                 + _psum_if_sharded(torch.sum(logl_new - logl)) + dpr
+                 + dlogl + dpr
                  + torch.where(is_root, root_term,
                                torch.zeros_like(root_term)))
 
@@ -309,11 +310,12 @@ def _replay_path(sp: SpeciesArrays, start, end, flags):
     return logq, p != end
 
 
-def _choose_uniform(gen, cand):
+def _choose_uniform(gen, cand, shard=None):
     """One True entry of each row of ``cand`` [..., H], uniformly (an
-    arbitrary index where a row has none): (index [...], count [...])."""
+    arbitrary index where a row has none): (index [...], count [...]);
+    ``shard`` when the leading axis is loci."""
     count = cand.sum(-1)
-    u = rng.uniform(gen, count.shape, torch.float64, cand.device)
+    u = rng.uniform(gen, count.shape, torch.float64, cand.device, shard)
     rank = torch.minimum(torch.floor(u * count).to(torch.int64),
                          (count - 1).clamp(min=0))
     ci = cand.to(torch.int64)
@@ -369,11 +371,11 @@ def repath_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
         has_time = (tau <= age[..., None]) & (age[..., None] < par_pop_tau)
         cand = (sp.pptable[pop_lc] & sp.pptable[pop_rc] & has_time
                 & sp.pptable.T[pop_pu])
-        choice, ccount = _choose_uniform(gen, cand)
+        choice, ccount = _choose_uniform(gen, cand, ctx.shard)
 
         # new flags on the three edges at u, and the old paths replayed
         # towards the old population
-        u01 = rng.uniform(gen, (L, N, 3, HY), sp.phi.dtype, dev)
+        u01 = rng.uniform(gen, (L, N, 3, HY), sp.phi.dtype, dev, ctx.shard)
         fl_l, ql_f, bad_l = _sample_path(sp, pop_lc, choice,
                                          hpath[lidx, lc], u01[:, :, 0])
         fl_r, qr_f, bad_r = _sample_path(sp, pop_rc, choice,
@@ -409,11 +411,11 @@ def repath_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
             # per-locus decisions couple through the pooled sums
             accept = notheta.scan_accept(
                 gen, cfg, lnacc, coal_c, t2_c, hered, c_new, t2_new, hered,
-                amask, ctx.locus_mask)
+                amask, ctx.locus_mask, ctx.shard)
             coal_c = torch.where(accept[:, None], c_new, coal_c)
             t2_c = torch.where(accept[:, None], t2_new, t2_c)
         else:
-            accept = rng.mh_accept(gen, lnacc) & amask
+            accept = rng.mh_accept(gen, lnacc, ctx.shard) & amask
         hpath = torch.where(accept[:, None, None], hp_new, hpath)
         logpr = torch.where(accept, logpr_new, logpr)
         if relaxed:
@@ -423,4 +425,4 @@ def repath_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
 
     new_state = state._replace(gt=gt._replace(hpath=hpath), logpr=logpr,
                                logl=logl, coal=coal_c, t2h=t2_c)
-    return new_state, (nprop, nacc)
+    return new_state, psum_counts(ctx.shard, nprop, nacc)

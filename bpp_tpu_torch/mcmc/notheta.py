@@ -17,7 +17,9 @@ the running K/C sums.  On the card that chain would be thousands of tiny
 launches, so :func:`scan_accept` runs it on the host in float64 numpy:
 one copy of its inputs to the host and one copy of the accept mask back
 per move, the pattern of the Gamma-Dirichlet locus-rate chain
-(``clock_moves._gammadir_chain``).
+(``clock_moves._gammadir_chain``).  Under locus sharding every rank runs
+the whole chain on the gathered inputs of all loci and keeps its rows of
+the decisions, and the K/C sums are all-reduced.
 """
 
 from __future__ import annotations
@@ -27,15 +29,17 @@ import math
 import numpy as np
 import torch
 
+from ..parallel.mesh import gather_loci, psum
 from ..trees import coalescent as coalmod
 from . import rng
 
 
-def total_integrated(cfg, coal, t2h, heredity, locus_mask):
-    """Scalar integrated logPG over all loci (notheta_logpr)."""
+def total_integrated(cfg, coal, t2h, heredity, locus_mask, shard=None):
+    """Scalar integrated logPG over all loci (notheta_logpr); ``shard``:
+    the sums run over every rank's loci."""
     return coalmod.msc_logprob_integrated(
         coal, t2h, heredity, cfg.thetaprior.alpha, cfg.thetaprior.beta,
-        locus_mask)
+        locus_mask, shard)
 
 
 def pop_sums(coal, t2h, heredity, locus_mask):
@@ -90,7 +94,7 @@ def accept_chain(a: float, b: float, K0, C0, co, cn, to, tn, dother, dh,
 
 
 def scan_accept(gen, cfg, dother, coal_o, t2_o, h_o, coal_n, t2_n, h_n,
-                mask, locus_mask):
+                mask, locus_mask, shard=None):
     """Exact serial MH accept chain over loci for per-locus proposals.
 
     Args:
@@ -101,23 +105,28 @@ def scan_accept(gen, cfg, dother, coal_o, t2_o, h_o, coal_n, t2_n, h_n,
         must equal the old rows).
       mask: [L] which loci propose.
       locus_mask: [L] real (non-padded) loci.
+      shard: the locus sharding (``parallel.mesh.Shard``) or None.
 
     Returns accept [L] bool on the device.  The uniforms are drawn on the
     device from ``gen``; the chain runs on the host."""
-    L, H = coal_o.shape
+    H = coal_o.shape[1]
     dev, dt = t2_o.device, t2_o.dtype
     t2c_o = t2_o / h_o[:, None]
     t2c_n = t2_n / h_n[:, None]
     K0, C0 = pop_sums(coal_o, t2_o, h_o, locus_mask)
     dh = (coal_n.sum(1) * torch.log(2.0 / h_n)
           - coal_o.sum(1) * torch.log(2.0 / h_o))
-    us = rng.uniform(gen, (L,), dt, dev)
+    us = rng.uniform(gen, (coal_o.shape[0],), dt, dev, shard)
     cols = torch.cat([
         coal_o.to(torch.float64), coal_n.to(torch.float64),
         t2c_o.double(), t2c_n.double(),
         torch.stack([dother, dh, torch.log(us)], 1).double(),
         mask[:, None].double()], 1)
     sums = torch.cat([K0, C0]).double()
+    if shard is not None:
+        # the chain runs over every locus, in order, on each rank
+        cols, sums = gather_loci(shard, cols), psum(shard, sums)
+    L = cols.shape[0]
     host = torch.cat([cols.reshape(-1), sums]).cpu().numpy()
     cols = host[:L * (4 * H + 4)].reshape(L, 4 * H + 4)
     sums = host[L * (4 * H + 4):]
@@ -126,4 +135,6 @@ def scan_accept(gen, cfg, dother, coal_o, t2_o, h_o, coal_n, t2_n, h_n,
     accept = accept_chain(cfg.thetaprior.alpha, cfg.thetaprior.beta,
                           sums[:H], sums[H:], co, cn, to, tn, dother_h,
                           dh_h, logu, m > 0.5)
+    if shard is not None:
+        accept = shard.rows(accept)
     return torch.as_tensor(accept).to(dev)

@@ -5,6 +5,12 @@ Port of ``bpp_tpu/mcmc/rng.py``: an explicit ``torch.Generator``
 reference math: the Bactrian-Laplace symmetric kernel
 (``random.c:191-208``, m=0.90) and boundary reflection
 (``src/gtree.c:3982`` ``reflect``).
+
+Per-locus draws take ``shard`` (``parallel.mesh.Shard``, None when the
+run is not sharded): the variate is drawn at the global shape, the
+locus axis first, and this rank's rows are kept, so the generator
+advances alike on every rank and each locus gets the value the
+unsharded run gives it.
 """
 
 from __future__ import annotations
@@ -24,23 +30,42 @@ def tiny_floor(dtype) -> float:
     return max(1e-300, torch.finfo(dtype).tiny)
 
 
-def uniform(gen, shape, dtype, device):
-    return torch.rand(shape, generator=gen, dtype=dtype, device=device)
+def _global(shape, shard):
+    """The draw's shape: ``shape`` with the global locus count first."""
+    shape = tuple(shape)
+    return shape if shard is None else (shard.n_loci,) + shape[1:]
 
 
-def exponential(gen, shape, dtype, device):
+def _local(x, shard):
+    return x if shard is None else x[shard.lo:shard.hi]
+
+
+def uniform(gen, shape, dtype, device, shard=None):
+    return _local(torch.rand(_global(shape, shard), generator=gen,
+                             dtype=dtype, device=device), shard)
+
+
+def exponential(gen, shape, dtype, device, shard=None):
     """Exponential(1) variates."""
-    return torch.empty(shape, dtype=dtype, device=device).exponential_(
-        generator=gen)
+    return _local(torch.empty(_global(shape, shard), dtype=dtype,
+                              device=device).exponential_(generator=gen),
+                  shard)
 
 
-def bactrian(gen, shape=(), dtype=torch.float64, device="cpu"):
+def randint(gen, high: int, shape, device, shard=None):
+    """Integers uniform on [0, high)."""
+    return _local(torch.randint(0, high, _global(shape, shard),
+                                generator=gen, device=device), shard)
+
+
+def bactrian(gen, shape=(), dtype=torch.float64, device="cpu", shard=None):
     """Bactrian-Laplace variate: mean 0, variance 1, bimodal at ±m."""
-    u = uniform(gen, shape, dtype, device) - 0.5
+    u = uniform(gen, shape, dtype, device, shard) - 0.5
     r = torch.log1p(-2.0 * torch.abs(u)) * 0.70710678118654752440
     lap = torch.where(u >= 0, -r, r)
     z = M_BACTRIAN + lap * S_BACTRIAN
-    sign = torch.where(uniform(gen, shape, dtype, device) < 0.5, -1.0, 1.0)
+    sign = torch.where(uniform(gen, shape, dtype, device, shard) < 0.5,
+                       -1.0, 1.0)
     return (sign * z).to(dtype)
 
 
@@ -70,11 +95,12 @@ def reflect(x, a, b):
     return torch.minimum(torch.maximum(y, lo), torch.maximum(lo, hi))
 
 
-def mh_accept(gen, lnacceptance):
+def mh_accept(gen, lnacceptance, shard=None):
     """Metropolis-Hastings accept decision (accept when lnacceptance >=
-    ~0 or log(u) < lnacceptance)."""
+    ~0 or log(u) < lnacceptance); ``shard`` when ``lnacceptance`` is per
+    locus."""
     u = uniform(gen, lnacceptance.shape, lnacceptance.dtype,
-                lnacceptance.device)
+                lnacceptance.device, shard)
     return (lnacceptance >= -1e-10) | (torch.log(u) < lnacceptance)
 
 

@@ -332,6 +332,9 @@ class Ctx:
     # parent, tau, brate) scores the topology it is given
     trait_fn: object | None = None
     trait_fn_topo: object | None = None
+    # locus sharding (parallel.mesh.Shard): the per-locus tensors above
+    # hold this rank's block of loci; None when one process holds them all
+    shard: object | None = None
 
     @property
     def has_traits(self) -> bool:

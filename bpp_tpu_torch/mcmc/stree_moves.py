@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from ..config import BppConfig, Clock, PriorDist
+from ..parallel.mesh import pany, psum
 from ..trees.gtree import assign_populations, inner_order, topo_scan
 from . import rng
 from .clock_moves import lnprior_rates
@@ -190,14 +191,14 @@ def _branch_frame(gt, ctx, age, with_root=False):
     return page, valid_branch, valid_inner
 
 
-def _identify(gen, moved, tmask, smask, T, dtype):
+def _identify(gen, moved, tmask, smask, T, dtype, shard=None):
     """Targets and the Hastings ratio of every inner node at once: one
     target drawn uniformly from ``tmask`` ``[L, T-1, N]`` per moved node,
     log(#targets / #sources) summed per locus, and the loci where a moved
     node has no target.  Returns (lnhr [L], bad [L], targets [L, N])."""
     L, K, N = tmask.shape
     is_m = moved[:, T:]
-    r = rng.uniform(gen, (L, K), torch.float64, moved.device)
+    r = rng.uniform(gen, (L, K), torch.float64, moved.device, shard)
     tgt, tcount = _select_rows(tmask, r)
     scount = smask.sum(-1) + 1
     ok = is_m & (tcount > 0)
@@ -275,7 +276,9 @@ def _prune_regraft(gt, is_m_all, pruned, targets, lift_age, mtime_all):
 
 
 def _masked_sum(ctx, x):
-    return torch.where(ctx.locus_mask, x, torch.zeros_like(x)).sum()
+    """The sum of ``x`` [L] over the real loci (of every rank)."""
+    return psum(ctx.shard,
+                torch.where(ctx.locus_mask, x, torch.zeros_like(x)).sum())
 
 
 def _traits_on(ctx: Ctx, state: McmcState, sp_new, lnacc, cand_state):
@@ -402,7 +405,8 @@ def species_spr_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
     smask = (spans & sp.pptable[pops[:, None, :], pops[:, T:, None]]
              & ~pureA[:, None, :]
              & (nodes_idx[:, None, :] != intact[:, T:, None]))
-    lnhr, badmask, targets = _identify(gen, moved, tmask, smask, T, dt)
+    lnhr, badmask, targets = _identify(gen, moved, tmask, smask, T, dt,
+                                       ctx.shard)
 
     # application: sequential prune + regraft on the evolving topology
     gl, gr, gp = _prune_regraft(gt, moved & ~badmask[:, None], pruned,
@@ -444,8 +448,8 @@ def species_spr_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
 
     # no feasible focal node or target (e.g. A11 states with everything
     # collapsed): the picks are garbage; reject outright
-    bad_any = ((badmask & ctx.locus_mask).any() | ~feas_y.any()
-               | ~cand.any())
+    bad_any = (pany(ctx.shard, (badmask & ctx.locus_mask).any())
+               | ~feas_y.any() | ~cand.any())
     if cfg.theta_integrated:
         dpr = _integrated_delta(ctx, cfg, state, c_new, t2_new)
     else:
@@ -776,7 +780,7 @@ def snl_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen, host=None):
     scale_mask = (pureA | moved) & valid_inner
     tnew_all = age * taufactor
     age_new = torch.where(scale_mask, tnew_all, age)
-    g_scaled = (scale_mask & ctx.locus_mask[:, None]).sum()
+    g_scaled = psum(ctx.shard, (scale_mask & ctx.locus_mask[:, None]).sum())
 
     # newpop of every node at its new age (stree.c:10680-10700): y and the
     # target's new ancestors, the deepest with tau <= tnew, mapped back to
@@ -808,7 +812,8 @@ def snl_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen, host=None):
              & sp.pptable[pops[:, None, :], pops[:, T:, None]]
              & (nodes_idx[:, None, :] != intact[:, T:, None])
              & (nodes_idx[:, None, :] != inner_ids))
-    lnhr, badmask, targets = _identify(gen, moved, tmask, smask, T, dt)
+    lnhr, badmask, targets = _identify(gen, moved, tmask, smask, T, dt,
+                                       ctx.shard)
     # targets that are themselves moved nodes resolve down to their
     # intact child (stree.c:10725 "trace towards tips until BLACK")
     down = _jump(torch.where(moved, intact, nodes_idx.expand(L, N)),
@@ -846,7 +851,7 @@ def snl_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen, host=None):
     lnacc = (spc["lnacc"] + g_scaled.to(dt) * float(np.log(taufactor))
              + (log_species_model_prior(cfg, sp_new)
                 - log_species_model_prior(cfg, sp)).to(dt)
-             + lnhr.sum()
+             + psum(ctx.shard, lnhr.sum())
              + _masked_sum(ctx, (logl_new - state.logl)
                            + (logpr_new - state.logpr)))
     cand_state = state._replace(gt=gt_new, sp=sp_new, logl=logl_new,
@@ -861,7 +866,7 @@ def snl_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen, host=None):
         lnacc = lnacc + _masked_sum(ctx, lnr_new - state.clock.lnrates)
         cand_state = cand_state._replace(
             clock=clock._replace(lnrates=lnr_new))
-    bad_any = badmask.any() | ~torch.isfinite(lnacc)
+    bad_any = pany(ctx.shard, badmask.any()) | ~torch.isfinite(lnacc)
     if bad:
         bad_any = torch.ones_like(bad_any)
     lnacc, cand_state = _traits_on(ctx, state, sp_new, lnacc, cand_state)

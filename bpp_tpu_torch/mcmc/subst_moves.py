@@ -35,6 +35,7 @@ import torch
 
 from ..config import BppConfig, SubstModel
 from ..core.gammarates import discrete_gamma_rates
+from ..parallel.mesh import gather_loci, psum_counts
 from . import notheta, rng
 from .state import (
     FT_ALPHA, FT_FREQS, FT_LRHT, FT_QRATES, Ctx, McmcState, SubstState,
@@ -93,15 +94,16 @@ def freqs_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
     free = ctx.locus_mask if ctx.custom is None \
         else ctx.locus_mask & ctx.custom.freqs_free
 
-    j = torch.randint(0, 4, (L,), generator=gen, device=dev)
-    k = torch.randint(0, 3, (L,), generator=gen, device=dev)
+    sh = ctx.shard
+    j = rng.randint(gen, 4, (L,), dev, sh)
+    k = rng.randint(gen, 3, (L,), dev, sh)
     k = torch.where(k >= j, k + 1, k)
     fj = f[lidx, j]
     fk = f[lidx, k]
     s = fj + fk
     ssafe = torch.clamp(s, min=1e-30)
     minv = 1e-8 / ssafe                   # PLL_MISC_EPSILON bound
-    y = rng.reflect(fj / ssafe + eps * rng.bactrian(gen, (L,), dt, dev),
+    y = rng.reflect(fj / ssafe + eps * rng.bactrian(gen, (L,), dt, dev, sh),
                     minv, 1.0 - minv)
     fnew = f.clone()
     fnew[lidx, j] = y * s
@@ -112,10 +114,10 @@ def freqs_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
                               ctx.custom)
     logl_new = _logl(ctx, cfg, state, subst_new)
     lnacc = logl_new - state.logl         # uniform Dirichlet prior, symmetric
-    accept = rng.mh_accept(gen, lnacc) & free
+    accept = rng.mh_accept(gen, lnacc, sh) & free
     return (state._replace(subst=_select(accept, subst_new, subst),
                            logl=torch.where(accept, logl_new, state.logl)),
-            (free.sum(), accept.sum()))
+            psum_counts(ctx.shard, free.sum(), accept.sum()))
 
 
 def qrates_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
@@ -138,7 +140,8 @@ def qrates_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
         s = q[:, j] + q[:, ref]
         old_lg = torch.log(q[:, j])
         new_lg = rng.reflect(
-            old_lg + eps * rng.bactrian(gen, (L,), dt, dev), lo, torch.log(s))
+            old_lg + eps * rng.bactrian(gen, (L,), dt, dev, ctx.shard), lo,
+            torch.log(s))
         qnew = q.clone()
         qnew[:, j] = torch.exp(new_lg)
         qnew[:, ref] = s - torch.exp(new_lg)
@@ -150,12 +153,13 @@ def qrates_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
         lnacc = (new_lg - old_lg) + (logl_new - logl) \
             + (aj - 1.0) * (new_lg - old_lg) \
             + (ar - 1.0) * torch.log(qnew[:, ref] / q[:, ref])
-        accept = rng.mh_accept(gen, lnacc) & ctx.locus_mask
+        accept = rng.mh_accept(gen, lnacc, ctx.shard) & ctx.locus_mask
         subst = _select(accept, subst_new, subst)
         logl = torch.where(accept, logl_new, logl)
         nacc = nacc + accept.sum()
     nprop = len(targets) * ctx.locus_mask.sum()
-    return state._replace(subst=subst, logl=logl), (nprop, nacc)
+    return (state._replace(subst=subst, logl=logl),
+            psum_counts(ctx.shard, nprop, nacc))
 
 
 def _qrates_move_custom(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
@@ -178,7 +182,8 @@ def _qrates_move_custom(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
         s = q[:, j] + qref
         old_lg = torch.log(q[:, j])
         new_lg = rng.reflect(
-            old_lg + eps * rng.bactrian(gen, (L,), dt, dev), lo, torch.log(s))
+            old_lg + eps * rng.bactrian(gen, (L,), dt, dev, ctx.shard), lo,
+            torch.log(s))
         qnew = q.clone()
         qnew[:, j] = torch.exp(new_lg)
         qnew[lidx, cm.q_ref] = s - torch.exp(new_lg)
@@ -194,12 +199,13 @@ def _qrates_move_custom(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
         lnacc = (new_lg - old_lg) + (logl_new - logl) \
             + (GTR_DIR_ALPHA[j] - 1.0) * (new_lg - old_lg) \
             + (cm.q_ref_alpha - 1.0) * ref_ratio
-        accept = rng.mh_accept(gen, lnacc) & free_j
+        accept = rng.mh_accept(gen, lnacc, ctx.shard) & free_j
         subst = _select(accept, subst_new, subst)
         logl = torch.where(accept, logl_new, logl)
         nprop = nprop + free_j.sum()
         nacc = nacc + accept.sum()
-    return state._replace(subst=subst, logl=logl), (nprop, nacc)
+    return (state._replace(subst=subst, logl=logl),
+            psum_counts(ctx.shard, nprop, nacc))
 
 
 def alpha_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
@@ -211,8 +217,9 @@ def alpha_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
     alpha = state.subst.alpha
     dt, dev = alpha.dtype, alpha.device
     loga = torch.log(alpha)
-    loga_new = rng.reflect(loga + eps * rng.bactrian(gen, (L,), dt, dev),
-                           -99.0, 99.0)
+    loga_new = rng.reflect(
+        loga + eps * rng.bactrian(gen, (L,), dt, dev, ctx.shard), -99.0,
+        99.0)
     alpha_new = torch.exp(loga_new)
     rates_new = discrete_gamma_rates(alpha_new, C).to(dt)
 
@@ -220,29 +227,37 @@ def alpha_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
     logl_new = _logl(ctx, cfg, state, subst_new)
     lnacc = (loga_new - loga) + (logl_new - state.logl) \
         + (a0 - 1.0) * (loga_new - loga) - b0 * (alpha_new - alpha)
-    accept = rng.mh_accept(gen, lnacc) & ctx.locus_mask
+    accept = rng.mh_accept(gen, lnacc, ctx.shard) & ctx.locus_mask
     subst = state.subst._replace(
         alpha=torch.where(accept, alpha_new, alpha),
         rates=torch.where(accept[:, None], rates_new, state.subst.rates))
     return (state._replace(subst=subst,
                            logl=torch.where(accept, logl_new, state.logl)),
-            (ctx.locus_mask.sum(), accept.sum()))
+            psum_counts(ctx.shard, ctx.locus_mask.sum(), accept.sum()))
 
 
 def locusrate_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
     """mu_i under the Dirichlet prior: compensating-pair slides.  The
-    clock is global, so mu changes the likelihood."""
-    L = state.gt.n_loci
+    clock is global, so mu changes the likelihood.  A pair may join loci
+    of two ranks under locus sharding: the pairs are drawn and decided on
+    the gathered rates and likelihood deltas of every locus, the same on
+    each rank, and a rank keeps its rows."""
+    sh = ctx.shard
     eps = state.finetune[FT_LRHT]
     a_mui = cfg.locusrate_alpha
-    mu = state.subst.mu
+    mu = gather_loci(sh, state.subst.mu)
+    mask = gather_loci(sh, ctx.locus_mask)
+    L = mu.shape[0]
     dt, dev = mu.dtype, mu.device
+
+    def rows(x):
+        return x if sh is None else sh.rows(x)
 
     perm = torch.randperm(L, generator=gen, device=dev)
     n_pairs = L // 2
     pi = perm[:n_pairs]
     pj = perm[n_pairs:2 * n_pairs]
-    valid = ctx.locus_mask[pi] & ctx.locus_mask[pj]
+    valid = mask[pi] & mask[pj]
 
     s = mu[pi] + mu[pj]
     minv = 1e-8 / s
@@ -252,16 +267,19 @@ def locusrate_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
     mu_new[pi] = torch.where(valid, y * s, mu[pi])
     mu_new[pj] = torch.where(valid, s - y * s, mu[pj])
 
-    logl_new = _logl(ctx, cfg, state, state.subst._replace(mu=mu_new))
-    dlogl = logl_new - state.logl
+    logl_new = _logl(ctx, cfg, state,
+                     state.subst._replace(mu=rows(mu_new)))
+    dlogl = gather_loci(sh, logl_new - state.logl)
     pair_lnacc = dlogl[pi] + dlogl[pj] + (a_mui - 1.0) * (
         torch.log(mu_new[pi] * mu_new[pj]) - torch.log(mu[pi] * mu[pj]))
     accept_p = rng.mh_accept(gen, pair_lnacc) & valid
     accept = torch.zeros((L,), dtype=torch.bool, device=dev)
     accept[pi] = accept_p
     accept[pj] = accept_p
+    accept = rows(accept)
     state = state._replace(
-        subst=state.subst._replace(mu=torch.where(accept, mu_new, mu)),
+        subst=state.subst._replace(mu=torch.where(accept, rows(mu_new),
+                                                  state.subst.mu)),
         logl=torch.where(accept, logl_new, state.logl))
     return state, (valid.sum(), accept_p.sum())
 
@@ -271,7 +289,8 @@ def heredity_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
     L = state.gt.n_loci
     eps = state.finetune[FT_LRHT]
     h = state.subst.heredity
-    h_new = torch.abs(h + eps * rng.bactrian(gen, (L,), h.dtype, h.device))
+    h_new = torch.abs(h + eps * rng.bactrian(gen, (L,), h.dtype, h.device,
+                                             ctx.shard))
     h_new = torch.clamp(h_new, min=1e-300)
     h_new = torch.where(ctx.locus_mask, h_new, h)
     dprior = (cfg.heredity_alpha - 1.0) * torch.log(h_new / h) \
@@ -280,14 +299,14 @@ def heredity_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
         # the gene trees stay: only the heredity scaling of C_h moves
         accept = notheta.scan_accept(
             gen, cfg, dprior, state.coal, state.t2h, h, state.coal,
-            state.t2h, h_new, ctx.locus_mask, ctx.locus_mask)
+            state.t2h, h_new, ctx.locus_mask, ctx.locus_mask, ctx.shard)
         return (state._replace(subst=state.subst._replace(
             heredity=torch.where(accept, h_new, h))),
-            (ctx.locus_mask.sum(), accept.sum()))
+            psum_counts(ctx.shard, ctx.locus_mask.sum(), accept.sum()))
     logpr_new, _, _ = make_logpr_fn(ctx)(state.gt, state.sp, h_new)
     lnacc = dprior + (logpr_new - state.logpr)
-    accept = rng.mh_accept(gen, lnacc) & ctx.locus_mask
+    accept = rng.mh_accept(gen, lnacc, ctx.shard) & ctx.locus_mask
     return (state._replace(
         subst=state.subst._replace(heredity=torch.where(accept, h_new, h)),
         logpr=torch.where(accept, logpr_new, state.logpr)),
-        (ctx.locus_mask.sum(), accept.sum()))
+        psum_counts(ctx.shard, ctx.locus_mask.sum(), accept.sum()))

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel.mesh import psum
 from .gtree import GTrees, SpeciesArrays, edge_passes
 
 _FINITE_BIG = 1.0e12
@@ -178,18 +179,22 @@ def msc_logprob(gt: GTrees, sp: SpeciesArrays, pops, n_seq, heredity):
     return msc_contrib(coal, T2h, sp.theta, heredity).sum(dim=1)
 
 
-def msc_logprob_integrated(coal, T2h, heredity, a, b, locus_mask):
+def msc_logprob_integrated(coal, T2h, heredity, a, b, locus_mask,
+                           shard=None):
     """The theta-integrated-out total log density over all loci (scalar).
 
     Each population's theta is marginalized under InvGamma(a, b):
       2^K b^a Gamma(a+K) / (Gamma(a) (b+C)^(a+K)) * prod_l h_l^(-k_l)
-    with K = sum_l k_l and C = sum_l T2_l / h_l over the real loci."""
+    with K = sum_l k_l and C = sum_l T2_l / h_l over the real loci
+    (over every rank's loci under locus sharding, ``shard``)."""
     mask = locus_mask[:, None]
     zero = torch.zeros_like(T2h)
     K = torch.where(mask, coal.to(T2h.dtype), zero).sum(0)          # [H]
     C = torch.where(mask, T2h / heredity[:, None], zero).sum(0)     # [H]
     hterm = torch.where(
         mask, coal * torch.log(2.0 / heredity[:, None]), zero).sum(0)
+    if shard is not None:
+        K, C, hterm = psum(shard, K, C, hterm)
     a_t = torch.full_like(C, a)
     lg = (a * torch.log(torch.full_like(C, b)) - torch.lgamma(a_t)
           + torch.lgamma(a + K) - (a + K) * torch.log(b + C))

@@ -18,8 +18,8 @@ Phases, in order; any failure exits non-zero:
               wrapper picks at these shapes, and the device scratch,
               forced); K1's device time comes from torch.profiler
               traces (the median over 3 traces of each trace's median
-              over 20-30 launches; also at 64, 128 and 256 threads a
-              block, and under the global store), and one
+              over 20-30 launches, at the wrappers' 64 threads a block,
+              and under the global store), and one
               launch, the whole wrapper (checks + launch) and the plain
               version (float32) from CUDA events (median of 30 / 30 / 20
               after warm-up); two launches on the same inputs must be
@@ -221,12 +221,30 @@ Phases, in order; any failure exits non-zero:
               K2 on the diploid data (1e-8 a pattern, 1e-6 a locus after
               ``reduce_root``); each timed with the profiler at its main
               path's model, beside its plain version and its bound in
-              float64 bytes and operations.
+              float64 bytes and operations;
+31. native  — main 1's 1000 loci loaded through the port's native pattern
+              compressor (``csrc/compress.cpp``, built with g++ into
+              ``bpp_tpu_torch/_build/`` in [build]; asserted to run, one
+              compression a locus at least) and again through the numpy
+              path (``BPP_TPU_NATIVE=0``): the batches and every locus's
+              patterns and weights bit-equal, both load times printed;
+32. shard   — locus sharding (``--multihost``) on the one card: two ranks
+              spawned by ``torch.multiprocessing`` (gloo: NCCL takes one
+              rank a card), each ``cli.main(["--cfile", ..., "--x64",
+              "--multihost", "127.0.0.1:P,2,r"])`` on main 16's run: rank
+              0's mcmc.txt equal to main 16's (every column to rtol 1e-9,
+              lnL to 1e-6), rank 1 writing nothing (it runs in an empty
+              directory), each rank's K1 float64 build launched 8 x 50 + 1
+              times on its own 500 loci of cuda:0 and the plain versions
+              never; then main 16's diploid run likewise (K2's float64 build
+              12 x 10 + 1 on each rank's 500 loci); the chain's wall ms an
+              iteration beside main 16's.  The ranks are killed on a
+              failure or after ``SHARD_TIMEOUT`` seconds.
 
 Then one JSON line ``{"kernels": [...]}`` (K1 at JC69, K2 at HKY+G4: the
 models of their chains; launches summed over main 1-15 and [tools],
 errors the largest of every hold; then the float64 builds, with main
-16's launches and the [x64] holds), the card's name and power limit from
+16's and both [shard] ranks' launches and the [x64] holds), the card's name and power limit from
 nvidia-smi, and the last line ``{"ok": true, "device": {...}}``.  Without
 a CUDA device the script exits non-zero and prints no result.
 """
@@ -454,6 +472,9 @@ GENEFLOW = "geneflow = 1\n"
 # characters, 4 x 50 discrete ones); the trait move runs no pass, each
 # check one
 TRAITS15 = "traitfile = traits.txt\ncheck = {check}\n"
+# [shard]: two ranks on the one card, each its half of main 16's loci
+SHARD_RANKS = 2
+SHARD_TIMEOUT = 400
 # [tools]: --bfdriver's quadrature points, and the smallest beta's run
 BF_POINTS = 4
 BF_BURNIN, BF_NSAMPLE = 2, 8
@@ -972,8 +993,7 @@ def hold_kernel(label, kernel_name, mod, state, ctx, batch, dev, smi,
             raise AssertionError(f"{label} {model_name}: the global store "
                                  "differs from the shared one")
         gplan, gms = timed(clv_store="global")
-        by_threads = {t: timed(threads=t)[1] for t in (64, 128, 256)}
-        ms = by_threads.get(plan.threads) or timed()[1]
+        ms = timed()[1]
         launch_ms = cuda_ms(lambda: mod.launch(kargs))
         kkw = dict(units=ctx.units)
         wrap = cuda_ms(lambda: wrapper(a32, kw, kkw))
@@ -989,9 +1009,7 @@ def hold_kernel(label, kernel_name, mod, state, ctx, batch, dev, smi,
               f"shared / global store {err:.3e} / {gerr:.3e} (tol "
               f"{TOL_LNL}){site} | device {ms:.4f} ms ({plan.clv_store} "
               f"store, {plan.threads} threads, {plan.shared_bytes} B shared "
-              f"a block) | at 64 / 128 / 256 threads "
-              + " / ".join(f"{by_threads[t]:.4f}" for t in (64, 128, 256))
-              + f" ms | global store {gms:.4f} ms ({gplan.threads} threads, "
+              f"a block) | global store {gms:.4f} ms ({gplan.threads} threads, "
               f"{gplan.shared_bytes} B) | stores and repeat launch bit-equal "
               f"| one launch {launch_ms:.4f} ms | wrapper {wrap:.4f} ms/pass "
               f"| plain {plain_ms:.4f} ms/pass | bound {bms:.5f} ms ({by}) | "
@@ -2213,16 +2231,18 @@ def x64_phases(dev, smi, iters):
     iterations through K2's float64 build; ``[x64]``: both float64 builds
     held and timed (:func:`hold_f64`); the ``[profile]`` of the float64
     step.  Returns (K1 float64 launches, K2 float64 launches, K1 error,
-    K1 row, K2 error, K2 row)."""
+    K1 row, K2 error, K2 row, the chain seconds of the two runs)."""
     import torch
 
     from bpp_tpu_torch.core import fels, pack
     with open("run16.ctl", "w") as f:
         f.write(RUN_CTL.format(nloci=N_LOCI, burnin=BURNIN, nsample=NSAMPLE,
                                job="out16", extra=""))
-    launches, _ = run_chain(
-        ["--cfile", "run16.ctl", "--x64"], "out16", iters,
-        (PASSES_PER_ITER * iters + 1, 0), ("theta", "tau"), "main 16", smi)
+    with ChainTimer() as timer:
+        launches, _ = run_chain(
+            ["--cfile", "run16.ctl", "--x64"], "out16", iters,
+            (PASSES_PER_ITER * iters + 1, 0), ("theta", "tau"), "main 16",
+            smi)
     k1_f64 = pack.LAUNCHES_F64
     if k1_f64 != launches:
         raise AssertionError(f"main 16: {k1_f64} of {launches} K1 launches "
@@ -2231,10 +2251,11 @@ def x64_phases(dev, smi, iters):
     with open("run16d.ctl", "w") as f:
         f.write(RUN2_CTL.format(nloci=N_LOCI, burnin=BF_BURNIN,
                                 nsample=BF_NSAMPLE, job="out16d", extra=""))
-    _, k2_launches = run_chain(
-        ["--cfile", "run16d.ctl", "--x64"], "out16d", short,
-        (0, PASSES_PER_ITER_2 * short + 1), ("theta", "tau"),
-        "main 16 diploid", smi, nsample=BF_NSAMPLE)
+    with timer:
+        _, k2_launches = run_chain(
+            ["--cfile", "run16d.ctl", "--x64"], "out16d", short,
+            (0, PASSES_PER_ITER_2 * short + 1), ("theta", "tau"),
+            "main 16 diploid", smi, nsample=BF_NSAMPLE)
     k2_f64 = fels.LAUNCHES_F64
     if k2_f64 != k2_launches:
         raise AssertionError(f"main 16 diploid: {k2_f64} of {k2_launches} "
@@ -2252,7 +2273,266 @@ def x64_phases(dev, smi, iters):
     err2, row2 = hold_f64("K2, the diploid data", engd, stated, smi)
     del engd, stated
     torch.cuda.empty_cache()
-    return k1_f64, k2_f64, err1, row1, err2, row2
+    return k1_f64, k2_f64, err1, row1, err2, row2, timer.seconds
+
+
+class ChainTimer:
+    """While active, the wall seconds of every ``Engine.run_mcmc`` call
+    (the initial state and the chain: no loading, no summary), kept in
+    ``seconds`` across activations."""
+
+    def __init__(self):
+        self.seconds = []
+
+    def __enter__(self):
+        from bpp_tpu_torch.mcmc import driver
+        self._orig = orig = driver.Engine.run_mcmc
+
+        def timed(eng, *a, **kw):
+            import torch
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return orig(eng, *a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                self.seconds.append(time.perf_counter() - t0)
+        driver.Engine.run_mcmc = timed
+        return self
+
+    def __exit__(self, *exc):
+        from bpp_tpu_torch.mcmc import driver
+        driver.Engine.run_mcmc = self._orig
+        return False
+
+
+def native_phase(smi):
+    """``[native]``: main 1's data loaded through the native compressor
+    (asserted to run) and through the numpy path: the batches and every
+    locus's patterns and weights bit-equal.  Returns the two load times
+    (seconds)."""
+    import numpy as np
+
+    from bpp_tpu_torch.data import cnative
+    from bpp_tpu_torch.loader import load_run_from_ctl
+    if not cnative.available():
+        raise AssertionError(f"[native] the native compressor does not "
+                             f"load: {cnative.ERROR}")
+    cnative.CALLS = 0
+    t0 = time.perf_counter()
+    nat = load_run_from_ctl("run.ctl")
+    t_nat = time.perf_counter() - t0
+    calls = cnative.CALLS
+    if calls < nat.batch.n_loci:
+        raise AssertionError(f"[native] {calls} native compressions for "
+                             f"{nat.batch.n_loci} loci")
+    os.environ["BPP_TPU_NATIVE"] = "0"
+    try:
+        t0 = time.perf_counter()
+        ref = load_run_from_ctl("run.ctl")
+        t_np = time.perf_counter() - t0
+    finally:
+        del os.environ["BPP_TPU_NATIVE"]
+    if cnative.CALLS != calls:
+        raise AssertionError("[native] BPP_TPU_NATIVE=0 still compressed "
+                             "natively")
+    for f in ("tip_codes", "weights", "n_pat", "n_seq", "tip_pop",
+              "locus_mask", "res_map", "res_count", "n_sites"):
+        a, b = getattr(nat.batch, f), getattr(ref.batch, f)
+        if not (a.dtype == b.dtype and np.array_equal(a, b)):
+            raise AssertionError(f"[native] batch.{f} differs from the "
+                                 "numpy path's")
+    for la, lb in zip(nat.loci, ref.loci, strict=True):
+        if not (np.array_equal(la.codes, lb.codes)
+                and np.array_equal(la.weights, lb.weights)
+                and la.codes.dtype == lb.codes.dtype
+                and la.weights.dtype == lb.weights.dtype):
+            raise AssertionError(f"[native] locus {la.index}: patterns or "
+                                 "weights differ from the numpy path's")
+    print(f"[native] {nat.batch.n_loci} loci of run.ctl loaded in "
+          f"{t_nat * 1e3:.1f} ms through the native compressor ({calls} "
+          f"compressions) and in {t_np * 1e3:.1f} ms through numpy; patterns "
+          f"and weights bit-equal | {smi}")
+    return t_nat, t_np
+
+
+def shard_rank(rank, port, ctl, result_dir):
+    """One rank of ``[shard]`` (spawned): ``cli.main --multihost`` on the
+    card, rank 1 in an empty directory of its own; writes its launch
+    counts, the (loci, device) of every launch, the calls of the plain
+    versions, the backend and the chain's wall seconds to
+    ``rank<r>.json``."""
+    import torch
+
+    from bpp_tpu_torch import cli
+    from bpp_tpu_torch.core import fels, pack
+    from bpp_tpu_torch.parallel import multihost
+    seen = {"K1": set(), "K2": set()}
+    plain = {"K1": 0, "K2": 0}
+    for key, mod, ref in (("K1", pack, "site_logl_packed_ref"),
+                          ("K2", fels, "site_logl_fels_ref")):
+        def launch(args, orig=mod.launch, key=key):
+            out = args.tensors[-1]
+            seen[key].add((int(out.shape[0]), str(out.device)))
+            return orig(args)
+
+        def plain_pass(*a, orig=getattr(mod, ref), key=key, **kw):
+            plain[key] += 1
+            return orig(*a, **kw)
+        mod.launch = launch
+        setattr(mod, ref, plain_pass)
+    backend = []
+    orig_shutdown = multihost.shutdown
+
+    def shutdown():
+        import torch.distributed as dist
+        backend.append(dist.get_backend())
+        orig_shutdown()
+    multihost.shutdown = shutdown
+    if rank:
+        os.makedirs(f"rank{rank}", exist_ok=True)
+        os.chdir(f"rank{rank}")
+    pack.LAUNCHES = fels.LAUNCHES = 0
+    pack.LAUNCHES_F64 = fels.LAUNCHES_F64 = 0
+    with ChainTimer() as timer:
+        rc = cli.main(["--cfile", ctl, "--x64", "--quiet", "--multihost",
+                       f"127.0.0.1:{port},{SHARD_RANKS},{rank}"])
+    torch.cuda.synchronize()
+    with open(os.path.join(result_dir, f"rank{rank}.json"), "w") as f:
+        json.dump({"rc": rc, "K1": pack.LAUNCHES, "K1_f64": pack.LAUNCHES_F64,
+                   "K2": fels.LAUNCHES, "K2_f64": fels.LAUNCHES_F64,
+                   "seen": {k: sorted(v) for k, v in seen.items()},
+                   "plain": plain, "backend": backend,
+                   "device": torch.cuda.current_device(),
+                   "chain_s": timer.seconds}, f)
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _same_chain(job, ref_job, label):
+    """``job``'s mcmc.txt equals ``ref_job``'s: the header, lnL to 1e-6
+    and every other column to rtol 1e-9."""
+    import numpy as np
+    tabs = []
+    for j in (job, ref_job):
+        with open(f"{j}.mcmc.txt") as f:
+            head = f.readline().split()
+            tabs.append((head, np.loadtxt(f, ndmin=2)))
+    (h1, a), (h2, b) = tabs
+    if h1 != h2 or a.shape != b.shape:
+        raise AssertionError(f"{label}: {job}.mcmc.txt is not shaped as "
+                             f"{ref_job}'s")
+    j = h1.index("lnL")
+    dl = float(np.abs(a[:, j] - b[:, j]).max())
+    rest_a, rest_b = np.delete(a, j, 1), np.delete(b, j, 1)
+    rel = float((np.abs(rest_a - rest_b)
+                 / np.maximum(np.abs(rest_b), 1e-300)).max())
+    if not (dl <= 1e-6 and np.allclose(rest_a, rest_b, rtol=1e-9, atol=0)):
+        raise AssertionError(f"{label}: {job}.mcmc.txt differs from "
+                             f"{ref_job}'s: lnL by {dl}, the other columns "
+                             f"by {rel} relative")
+    return dl, rel
+
+
+def shard_phase(smi, main16_s):
+    """``[shard]``: main 16's JC69 and diploid runs on two ranks of the one
+    card (see the module docstring).  ``main16_s``: the chain seconds of
+    main 16's two runs.  Returns (K1 float64 launches, K2 float64
+    launches) summed over the ranks."""
+    import torch.multiprocessing as mp
+    work = os.getcwd()
+    runs = (("run17.ctl", "run16.ctl", "out17", "out16", BURNIN, NSAMPLE,
+             "K1", PASSES_PER_ITER, main16_s[0]),
+            ("run17d.ctl", "run16d.ctl", "out17d", "out16d", BF_BURNIN,
+             BF_NSAMPLE, "K2", PASSES_PER_ITER_2, main16_s[1]))
+    totals = {"K1": 0, "K2": 0}
+    for ctl, ref_ctl, job, ref_job, burnin, nsample, kern, passes, ref_s \
+            in runs:
+        iters = burnin + nsample
+        with open(ref_ctl) as f:
+            text = f.read()
+        # the data by absolute path: rank 1 runs in a directory of its own
+        for key in ("seqfile", "Imapfile"):
+            text = text.replace(f"{key} = ", f"{key} = {work}/")
+        with open(ctl, "w") as f:
+            f.write(text.replace(f"jobname = {ref_job}\n",
+                                 f"jobname = {job}\n"))
+        for r in range(SHARD_RANKS):
+            if os.path.exists(f"rank{r}.json"):
+                os.unlink(f"rank{r}.json")
+        t0 = time.perf_counter()
+        procs = mp.spawn(shard_rank,
+                         args=(_free_port(), os.path.join(work, ctl), work),
+                         nprocs=SHARD_RANKS, join=False)
+        try:
+            while not procs.join(timeout=5):
+                if time.perf_counter() - t0 > SHARD_TIMEOUT:
+                    raise AssertionError(f"[shard] {job}: the ranks still "
+                                         f"run after {SHARD_TIMEOUT} s")
+        finally:
+            for p in procs.processes:
+                if p.is_alive():
+                    p.kill()
+            for p in procs.processes:
+                p.join(timeout=30)
+        wall = time.perf_counter() - t0
+        res = []
+        for r in range(SHARD_RANKS):
+            with open(f"rank{r}.json") as f:
+                res.append(json.load(f))
+        per = -(-N_LOCI // SHARD_RANKS)
+        want = passes * iters + 1
+        other = "K2" if kern == "K1" else "K1"
+        for r, got in enumerate(res):
+            lo, hi = r * per, min((r + 1) * per, N_LOCI)
+            if got["rc"] != 0:
+                raise AssertionError(f"[shard] {job} rank {r}: cli.main "
+                                     f"returned {got['rc']}")
+            if (got[kern], got[f"{kern}_f64"], got[other]) != (want, want, 0):
+                raise AssertionError(
+                    f"[shard] {job} rank {r}: {kern} launched {got[kern]} "
+                    f"times ({got[f'{kern}_f64']} float64), {other} "
+                    f"{got[other]}; expected {want} float64 launches")
+            if got["seen"][kern] != [[hi - lo, "cuda:0"]]:
+                raise AssertionError(f"[shard] {job} rank {r}: {kern} "
+                                     f"launched on {got['seen'][kern]}, not "
+                                     f"its {hi - lo} loci on cuda:0")
+            if got["device"] != 0 or any(got["plain"].values()):
+                raise AssertionError(f"[shard] {job} rank {r}: device "
+                                     f"{got['device']}, plain passes "
+                                     f"{got['plain']}")
+            if got["backend"] != ["gloo"]:
+                raise AssertionError(f"[shard] {job} rank {r}: backend "
+                                     f"{got['backend']}")
+        if os.listdir("rank1"):
+            raise AssertionError(f"[shard] rank 1 wrote {os.listdir('rank1')}")
+        files = sorted(f for f in os.listdir(".") if f.startswith(job + ".")
+                       and f != ctl)
+        want_files = sorted(f"{job}.{x}" for x in
+                            ("FigTree.tre", "mcmc.txt", "pdf", "txt"))
+        if files != want_files:
+            raise AssertionError(f"[shard] {job}: wrote {files}, expected "
+                                 f"{want_files}")
+        dl, rel = _same_chain(job, ref_job, f"[shard] {job}")
+        check_chain_output(job, nsample, ("theta", "tau"))
+        ms = [1e3 * g["chain_s"][0] / iters for g in res]
+        totals[kern] += sum(g[f"{kern}_f64"] for g in res)
+        print(f"[shard] {SHARD_RANKS} ranks on cuda:0 (backend "
+              f"{res[0]['backend'][0]}), --x64, {job} = main 16's {ref_job} "
+              f"split {per} loci a rank: {kern} float64 launches "
+              f"{' / '.join(str(g[f'{kern}_f64']) for g in res)} "
+              f"(expected {want} each), plain passes 0 | rank 0's mcmc.txt "
+              f"vs {ref_job}'s: max |dlnL| {dl:.3e}, other columns "
+              f"{rel:.3e} relative | chain wall "
+              f"{' / '.join(f'{m:.1f}' for m in ms)} ms/iter a rank vs "
+              f"{1e3 * ref_s / iters:.1f} ms/iter on one process | phase "
+              f"wall {wall:.1f} s (start-up, load, chain, summary) | {smi}")
+    return totals["K1"], totals["K2"]
 
 
 def main() -> int:
@@ -2279,6 +2559,7 @@ def main() -> int:
     # 2. build: one nvcc per source, started together
     t0 = time.perf_counter()
     libs = _build.build_all(["pack_kernel", "fels_kernel"], verbose=True)
+    libs.append(_build.build_host("compress"))
     print(f"[build] {', '.join(p.name for p in libs)} in "
           f"{time.perf_counter() - t0:.2f} s")
 
@@ -2604,7 +2885,13 @@ def main() -> int:
 
             # 29-30. --x64 through the float64 builds: main 16, [x64]
             (k1_f64, k2_f64, err_x1, row_x1, err_x2,
-             row_x2) = x64_phases(dev, smi, iters)
+             row_x2, main16_s) = x64_phases(dev, smi, iters)
+
+            # 31. the native pattern compressor: [native]
+            native_phase(smi)
+
+            # 32. locus sharding on two ranks of the card: [shard]
+            k1_shard, k2_shard = shard_phase(smi, main16_s)
         finally:
             os.chdir(cwd)
 
@@ -2624,7 +2911,8 @@ def main() -> int:
     # those on relaxed-clock lengths and dated tips, on the trees of the
     # species and rj moves, on a partition's per-locus eigensystems, on
     # network gene trees ([net]) and on migration gene trees ([mig]); the
-    # float64 builds: main 16's launches and the [x64] holds
+    # float64 builds: main 16's and the [shard] ranks' launches and the
+    # [x64] holds
     print(json.dumps({"kernels": [
         entry("K1 pallas_pack._make_kernel -> pack_logl_kernel",
               "bpp_tpu_torch/csrc/pack_kernel.cu",
@@ -2642,10 +2930,12 @@ def main() -> int:
                err_net2, err_mig2], rows2["HKY"]),
         entry("K1 pallas_pack._make_kernel -> pack_logl_kernel "
               "(float64 build)", "bpp_tpu_torch/csrc/pack_kernel.cu",
-              "bpp_tpu/core/pallas_pack.py:315", k1_f64, [err_x1], row_x1),
+              "bpp_tpu/core/pallas_pack.py:315", k1_f64 + k1_shard, [err_x1],
+              row_x1),
         entry("K2 pallas_fels._make_kernel -> fels_site_logl_kernel "
               "(float64 build)", "bpp_tpu_torch/csrc/fels_kernel.cu",
-              "bpp_tpu/core/pallas_fels.py:92", k2_f64, [err_x2], row_x2),
+              "bpp_tpu/core/pallas_fels.py:92", k2_f64 + k2_shard, [err_x2],
+              row_x2),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

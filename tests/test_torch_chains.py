@@ -47,23 +47,37 @@ def test_init_states_equal_bpp_tpus(simdir):
     rj.cfg = rj.cfg.replace(dtype="float64")
     rp.cfg = rp.cfg.replace(dtype="float64")
     engj, eng = EJ(rj, seed=9), EP(rp, seed=9, device="cpu")
-    sj = engj.init_states(K)
+    # bpp_tpu's init_states(K) is init_state at seed + 1000003 k, stacked;
+    # each chain's arrays are copied here before the next chain's
+    # init_tau_theta rewrites the host tree, which bpp_tpu's species
+    # arrays may alias (jnp.asarray of an aligned numpy buffer on the CPU
+    # backend; ROADMAP Queue 3)
+    sj = []
+    for k in range(K):
+        engj.seed = 9 + 1000003 * k
+        st = engj.init_state()
+        sj.append({(part, f): np.array(getattr(getattr(st, part), f))
+                   for part in ("gt", "sp")
+                   for f in ("left", "right", "parent", "age", "tau",
+                             "theta")
+                   if getattr(getattr(st, part), f, None) is not None}
+                  | {"logl": np.array(st.logl), "logpr": np.array(st.logpr)})
+    engj.seed = 9
     sp = eng.init_states(K)
     assert len(sp) == K and eng.seed == 9
     for k, st in enumerate(sp):
         assert eng.chain_seed(k) == 9 + 1000003 * k
-        for part in ("gt", "sp"):
-            for f in ("left", "right", "parent", "age", "tau", "theta"):
-                a = getattr(getattr(sj, part), f, None)
-                if a is None:
-                    continue
-                np.testing.assert_allclose(
-                    getattr(getattr(st, part), f).numpy(), np.asarray(a)[k],
-                    rtol=1e-12, err_msg=f"chain {k} {part}.{f}")
-        np.testing.assert_allclose(st.logl.numpy(), np.asarray(sj.logl)[k],
+        for key, a in sj[k].items():
+            if key in ("logl", "logpr"):
+                continue
+            part, f = key
+            np.testing.assert_allclose(
+                getattr(getattr(st, part), f).numpy(), a, rtol=1e-12,
+                err_msg=f"chain {k} {part}.{f}")
+        np.testing.assert_allclose(st.logl.numpy(), sj[k]["logl"],
                                    rtol=1e-10)
-        np.testing.assert_allclose(st.logpr.numpy(),
-                                   np.asarray(sj.logpr)[k], rtol=1e-10)
+        np.testing.assert_allclose(st.logpr.numpy(), sj[k]["logpr"],
+                                   rtol=1e-10)
     # the chains differ
     assert not torch.equal(sp[0].gt.age, sp[1].gt.age)
 

@@ -1,6 +1,9 @@
-"""The PyTorch port stands alone: it loads neither JAX nor ``bpp_tpu``,
-and its CLI refuses to run on a missing GPU unless asked for the CPU."""
+"""The PyTorch port stands alone: it loads neither JAX nor ``bpp_tpu``
+(its ``parallel`` layer and native bridge included), its code names
+nothing of ``bpp_tpu``'s ``native/`` directory, and its CLI refuses to
+run on a missing GPU unless asked for the CPU."""
 
+import ast
 import os
 import re
 import subprocess
@@ -35,7 +38,8 @@ def test_import_loads_no_jax_and_no_bpp_tpu():
                 "summary.mixed_summary", "summary.a1b1", "visual",
                 "core.aa_matrices", "mcmc.msci_moves", "summary.lswitch",
                 "tools.msci_create", "trees.migration", "mcmc.mig_moves",
-                "trees.traits", "mcmc.trait_moves", "tools.bfdriver"):
+                "trees.traits", "mcmc.trait_moves", "tools.bfdriver",
+                "parallel.mesh", "parallel.multihost", "data.cnative"):
         assert f"bpp_tpu_torch.{mod}" in mods
     code = (
         "import importlib, sys\n"
@@ -64,6 +68,39 @@ def test_source_imports_nothing_of_jax_or_bpp_tpu(path):
     text = (ROOT / path).read_text()
     hits = _FORBIDDEN.findall(text)
     assert not hits, f"{path} imports {hits}"
+
+
+def _code_strings(tree):
+    """The string constants of a module's code (docstrings left out)."""
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if isinstance(first, ast.Expr) and isinstance(
+                    first.value, ast.Constant):
+                docs.add(id(first.value))
+    return [n.value for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str)
+            and id(n) not in docs]
+
+
+_NATIVE_DIR = re.compile(r"(^|[/\\])native([/\\]|$)")
+
+
+def test_port_code_names_no_native_dir():
+    """The port builds and loads its pattern compressor from ``csrc/`` and
+    ``_build/`` (``data/cnative.py``): no string of its code names
+    ``bpp_tpu``'s ``native/`` directory, so it reads and writes nothing
+    there."""
+    hits = [(str(p.relative_to(ROOT)), v)
+            for p in sorted(PORT.rglob("*.py"))
+            for v in _code_strings(ast.parse(p.read_text()))
+            if _NATIVE_DIR.search(v)]
+    assert not hits, hits
+    assert _NATIVE_DIR.search("native/libbppnative.so")
+    assert _NATIVE_DIR.search('os.path.join(root, "native")'.split('"')[1])
+    assert not _NATIVE_DIR.search("BPP_TPU_NATIVE")
 
 
 CSRC = PORT / "csrc"

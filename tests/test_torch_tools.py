@@ -9,7 +9,9 @@
 * The power-posterior likelihood: ``logl_fn`` under ``BayesFactorBeta =
   0.3`` equal to ``bpp_tpu``'s (float64, rtol 1e-10), and 0.3 times the
   unscaled one.
-* ``--multihost`` refused, naming the ROADMAP item.
+* ``--multihost`` refuses what ``bpp_tpu`` refuses: a malformed spec
+  (its ValueError) and ``--resume`` (its message, exit 1, on a one-rank
+  gloo group).
 """
 
 import io
@@ -139,6 +141,15 @@ def test_bfbeta_scales_logl_as_bpp_tpu(runs):
 
 
 def test_multihost_refused(capsys):
+    import socket
+
     from bpp_tpu_torch import cli
-    assert cli.main(["--multihost", "auto", "--cfile", "x.ctl"]) == 2
-    assert "item 10m" in capsys.readouterr().err
+    with pytest.raises(ValueError, match="--multihost expects"):
+        cli.main(["--multihost", "127.0.0.1:1,2", "--cfile", "x.ctl",
+                  "--device", "cpu"])
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    assert cli.main(["--multihost", f"127.0.0.1:{port},1,0", "--resume",
+                     "x.chk.npz", "--device", "cpu", "--quiet"]) == 1
+    assert "--multihost cannot resume yet" in capsys.readouterr().err
