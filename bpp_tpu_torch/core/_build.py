@@ -3,7 +3,9 @@ library (the pattern compressor) with the host compiler.
 
 Each ``csrc/*.cu`` source becomes a shared library with a plain C
 interface (loaded with ctypes), compiled for ``sm_90a`` into
-``bpp_tpu_torch/_build/<name>-<hash>.so``.  The hash covers the source,
+``bpp_tpu_torch/_build/<name>-<hash>.so``, with nvcc's report (``-Xptxas
+-v``: each kernel's registers and spills) beside it in
+``<name>-<hash>.log``.  The hash covers the source,
 the shared headers (``csrc/*.cuh``) and the flags, so an edited source
 rebuilds and an unchanged one loads from the cache.  A failed build
 raises with nvcc's stderr.  :func:`build_host` does the same for a
@@ -54,7 +56,7 @@ def library_path(name: str) -> Path:
     return BUILD / f"{name}-{digest[:16]}.so"
 
 
-def build_all(names, verbose: bool = False) -> list[Path]:
+def build_all(names) -> list[Path]:
     """Compile every ``csrc/<name>.cu`` whose hashed library is missing,
     one nvcc process per source, all started together."""
     outs = [library_path(name) for name in names]
@@ -77,8 +79,8 @@ def build_all(names, verbose: bool = False) -> list[Path]:
             failed.append(f"nvcc failed to build {name}.cu "
                           f"(exit {proc.returncode}):\n{stderr}")
             continue
-        if verbose:
-            print(stderr, end="")
+        # the -Xptxas -v report: registers and spills of every kernel
+        out.with_suffix(".log").write_text(stderr)
         os.replace(tmp, out)          # atomic: concurrent builds agree
     if failed:
         raise RuntimeError("\n".join(failed))
@@ -113,9 +115,9 @@ def build_host(name: str, timeout: float = 120.0) -> Path:
     return out
 
 
-def build(name: str, verbose: bool = False) -> Path:
+def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless the hashed library exists."""
-    return build_all([name], verbose)[0]
+    return build_all([name])[0]
 
 
 def load(name: str) -> ctypes.CDLL:

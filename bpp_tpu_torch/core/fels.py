@@ -24,7 +24,7 @@ from ..trees.gtree import GTrees
 from . import felsenstein as fe
 from .pack import (
     BLOCK_THREADS, KernelArgs, check_tensor, data_ptrs, kernel_lib,
-    scaled_lengths, tree_tensors,
+    occupancy, scaled_lengths, tree_tensors,
 )
 from .pmatrix import pmatrix_model
 from .units import Units
@@ -82,7 +82,8 @@ def site_logl_fels(order, left, right, parent, n_seq, age, mu, rates_kappa,
     ``n_pat``); without it the wrapper builds one from ``n_pat``, which
     copies ``n_pat`` to the host.  ``clv_store`` forces the kernel's
     ``"shared"`` or ``"global"`` CLV store; by default the wrapper takes
-    the shared one where the tree fits (``pack.plan_launch``).  CPU
+    the shared one where the tree fits, in float64 only up to
+    ``pack.F64_SHARED_MAX_CATS`` categories (``pack.plan_launch``).  CPU
     tensors: the plain version."""
     if tips.device.type == "cpu":
         return site_logl_fels_ref(
@@ -137,3 +138,8 @@ def launch(args: KernelArgs):
     LAUNCHES_F64 += int(out.dtype == torch.float64)
     CLV_STORE = args.plan.clv_store
     return out
+
+
+def blocks_per_sm(args: KernelArgs) -> int:
+    """Blocks of one K2 launch an SM holds."""
+    return occupancy(_kernel_lib().bpp_fels_occupancy, args)

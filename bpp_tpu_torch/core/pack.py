@@ -40,6 +40,14 @@ CLV_STORE = None
 BLOCK_THREADS = 64
 # shared memory a block may use on sm_90 (227 KB), less K1's partials
 BLOCK_SHARED = 232448 - 256
+# the most rate categories for which the float64 build keeps its CLVs in
+# shared memory; above it they go to the device scratch (plan_launch).
+# Measured at 1000 loci on an NVIDIA H100 80GB HBM3, 700 W (PERF.md §6):
+# K2 at HKY, shared against global, 0.0283 / 0.0367 ms at C = 1,
+# 0.0335 / 0.0506 at 2, 0.0517 / 0.0612 at 3, then 0.0820 / 0.0714 at 4 and
+# 0.2836 / 0.1363 at 8, where a warp's CLVs leave an SM 6 and 2 warps; K1
+# at JC69 likewise (C = 4: 0.0245 / 0.0193)
+F64_SHARED_MAX_CATS = 3
 
 _FAM_CODE = {"jc69": 0, "tn93": 1, "gtr": 2}
 # the dtypes the kernels are built for
@@ -97,12 +105,16 @@ class LaunchPlan(NamedTuple):
     shared_bytes: int       # dynamic shared memory per block
 
 
-def plan_launch(who, warp_bytes, T, C, fam, clv_store, threads) -> LaunchPlan:
+def plan_launch(who, warp_bytes, T, C, fam, clv_store, threads,
+                dbl=False) -> LaunchPlan:
     """Lay out one launch.  ``warp_bytes(T, C, family, shared)`` asks the
-    built kernel for one warp's shared memory under either store.
+    built kernel for one warp's shared memory under either store; ``dbl``
+    says the launch is of the float64 build.
 
     The CLVs go to shared memory where one warp's CLV slots, factors and
     plan fit a block's shared memory, else to the device scratch; the
+    float64 build takes the device scratch also above
+    ``F64_SHARED_MAX_CATS`` categories, where it measured faster.  The
     block shrinks to the warps that fit; a tree too large even for the
     global store's factors and plan is refused."""
     if clv_store not in (None, "shared", "global"):
@@ -112,7 +124,8 @@ def plan_launch(who, warp_bytes, T, C, fam, clv_store, threads) -> LaunchPlan:
         raise ValueError(f"{who}: {threads} threads per block; a multiple "
                          "of 32 up to 1024")
     if clv_store is None:
-        clv_store = ("shared" if warp_bytes(T, C, fam, 1) <= BLOCK_SHARED
+        fits = warp_bytes(T, C, fam, 1) <= BLOCK_SHARED
+        clv_store = ("shared" if fits and not (dbl and C > F64_SHARED_MAX_CATS)
                      else "global")
     per_warp = warp_bytes(T, C, fam, int(clv_store == "shared"))
     warps = min(threads // 32, BLOCK_SHARED // per_warp)
@@ -185,7 +198,7 @@ def tree_tensors(who, lib_prefix, lib, order, left, right, parent, n_seq, age,
     dbl = int(dt == torch.float64)
     warp_bytes = getattr(lib, f"{lib_prefix}_warp_bytes")
     plan = plan_launch(who, lambda *a: warp_bytes(*a, dbl), T, C, fam,
-                       clv_store, threads)
+                       clv_store, threads, bool(dbl))
     scratch = None
     if plan.clv_store == "global":
         scratch = torch.empty((units.n_units, T // 2, C, 32, 4), dtype=dt,
@@ -198,8 +211,8 @@ def tree_tensors(who, lib_prefix, lib, order, left, right, parent, n_seq, age,
 def kernel_lib(name, prefix, entry, n_ptrs, n_ints):
     """The built library ``name`` of one pruning kernel, with its C
     signatures declared: ``entry`` takes ``n_ptrs`` pointers, ``n_ints``
-    ints and the stream; ``<prefix>_warp_bytes`` and ``<prefix>_max_cats``
-    are the same in both libraries."""
+    ints and the stream; ``<prefix>_warp_bytes``, ``<prefix>_max_cats`` and
+    ``<prefix>_occupancy`` are the same in both libraries."""
     from ._build import load
     lib = load(name)
     fn = getattr(lib, entry)
@@ -213,6 +226,9 @@ def kernel_lib(name, prefix, entry, n_ptrs, n_ints):
         max_cats = getattr(lib, f"{prefix}_max_cats")
         max_cats.restype = ctypes.c_int
         max_cats.argtypes = []
+        occupancy = getattr(lib, f"{prefix}_occupancy")
+        occupancy.restype = ctypes.c_int
+        occupancy.argtypes = [ctypes.c_int] * 5 + [ctypes.c_longlong]
     return lib
 
 
@@ -249,7 +265,8 @@ def site_logl_packed(order, left, right, parent, n_seq, age, mu,
     ``n_pat``); without it every column counts as a real pattern.
     ``clv_store`` forces the kernel's ``"shared"`` or ``"global"`` CLV
     store; by default the wrapper takes the shared one where the tree
-    fits (:func:`plan_launch`).  CPU tensors: the plain version."""
+    fits, in float64 only up to ``F64_SHARED_MAX_CATS`` categories
+    (:func:`plan_launch`).  CPU tensors: the plain version."""
     if tips.device.type == "cpu":
         return site_logl_packed_ref(
             order, left, right, parent, n_seq, age, mu, rates_kappa, freqs,
@@ -309,6 +326,22 @@ def launch(args: KernelArgs):
     LAUNCHES_F64 += int(out.dtype == torch.float64)
     CLV_STORE = args.plan.clv_store
     return out
+
+
+def occupancy(query, args: KernelArgs) -> int:
+    """Blocks of ``args``' launch one SM holds: ``query`` is a kernel
+    library's ``<prefix>_occupancy`` (the CUDA occupancy API), asked at
+    the plan's threads and shared memory with the tail both kernels' dims
+    share: (C, family, shared, threads, dbl)."""
+    blocks = query(*args.dims[-5:], args.plan.shared_bytes)
+    if blocks < 0:
+        raise RuntimeError("the occupancy query failed")
+    return blocks
+
+
+def blocks_per_sm(args: KernelArgs) -> int:
+    """Blocks of one K1 launch an SM holds."""
+    return occupancy(_kernel_lib().bpp_pack_occupancy, args)
 
 
 def launch_empty(device):

@@ -38,7 +38,11 @@
 //   * Scalar type, a template parameter R: float, or double for --x64
 //     (Real<R> below; the float build is the code this file held before
 //     the parameter, with the same intrinsics and constants).  A 4-vector
-//     of R is float4, or V4d, 32 bytes read as two 16-byte words.
+//     of R is float4, or V4d, 32 bytes read as two 16-byte words.  Up
+//     to 3 categories the double build walks with DoubleWalk (below):
+//     UnitWalk's prologue and unit of work, and a level that rescales
+//     only near the bottom of double's range and keeps in registers what
+//     the next level reads.
 //   * CLV store, a template parameter: SHARED keeps the slots
 //     [slot][category][32] as 4-vectors in the warp's shared memory (a warp
 //     reads 32 consecutive 16-byte words: no bank conflicts); the other
@@ -77,6 +81,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace bpp {
 
@@ -513,6 +519,230 @@ struct UnitWalk {
   }
 };
 
+// The largest high word (sign, exponent, top of the mantissa) of a
+// 4-vector of doubles: for values >= 0 it orders them as the values do, to
+// the mantissa's top 20 bits, on the integer units.
+__device__ __forceinline__ int max_hi4(V4d v) {
+  return max(max(__double2hiint(v.x), __double2hiint(v.y)),
+             max(__double2hiint(v.z), __double2hiint(v.w)));
+}
+
+// The double build's walk of one unit at up to kDoubleWalkMaxCats
+// categories, designed for the H100's float64 (PERF.md §6).  It
+// computes what UnitWalk computes, with the same prologue, layout and unit
+// of work (one warp, up to 32 patterns, C categories a lane); what differs
+// is the end of each level, where the float64 build of UnitWalk waited:
+//   * No rescale in the common case: a level's CLVs are multiplied by a
+//     power of two, 2^-e, only when their largest value (found on the
+//     integer units from the values' high words) falls below 2^-512, and
+//     e is added to an integer exponent; the root adds e * log(2) once.
+//     Scaling by a power of two is exact, so the values are those of an
+//     unscaled walk; after a rescale the largest is in [1, 2), and no level
+//     can take it from there below double's normal range.  (UnitWalk ends
+//     every level with a reciprocal, 4 C multiplies and a running log, all
+//     in float64, on the path to the next level.)
+//   * A level whose output the next level reads keeps it in registers and
+//     does not store it (a CLV is read once, by its parent); the next level
+//     takes that child from registers.
+//   * A level reads and computes all its categories before it stores any,
+//     so that a category's store never stands between the next one's loads
+//     (under the device scratch, each would be a round trip).
+template <int FAM, int C, bool SHARED>
+struct DoubleWalk {
+  static constexpr int K = Coefs<FAM, double>::K;
+  // the high word of 2^-512: a level rescales when its largest value's is
+  // lower
+  static constexpr int kLowHi = (1023 - 512) << 20;
+  // a source no level has (tips are >= 0, slots < 0)
+  static constexpr int kNone = 1 << 30;
+
+  static __device__ double run(const TreeArgs<double>& a,
+                               unsigned char* region, int u, int4 unit,
+                               int lane) {
+    const int T = a.T, S = a.S, N = 2 * T - 1;
+    const int64_t l = unit.x;
+    const bool active = lane < unit.z;
+    const WarpLayout w = warp_layout(T, C, K, SHARED, sizeof(double));
+    double* fac = reinterpret_cast<double*>(region + w.fac);
+    double* bl = reinterpret_cast<double*>(region + w.blen);
+    double* rate = reinterpret_cast<double*>(region + w.rate);
+    short* srcL = reinterpret_cast<short*>(region + w.plan);
+    short* srcR = srcL + (T - 1);
+    short* dst = srcR + (T - 1);
+    short* down = dst + (T - 1);
+    short* chain = down + (T - 1);
+
+    const V4d* tp = a.tips + (l * T) * S + (unit.y + lane);
+    V4d* cv;
+    if constexpr (SHARED)
+      cv = reinterpret_cast<V4d*>(region + w.clv) + lane;
+    else
+      cv = a.scratch + static_cast<int64_t>(u) * w.slots * C * kLanes + lane;
+
+    // prologue 1 and 2: UnitWalk's
+    const int nlev = static_cast<int>(a.n_seq[l]) - 1;
+    const double mu = a.blen != nullptr ? 1.0 : a.mu[l];
+    const double* len = (a.blen != nullptr ? a.blen : a.age) + l * N;
+    const double* fq = a.freqs + l * 4;
+    const double f0 = fq[0], f1 = fq[1], f2 = fq[2], f3 = fq[3];
+    Coefs<FAM, double> cf;
+    cf.load(a, l, C);
+    const double my_rate = lane < C ? a.rates[l * (C + 2) + lane] : 0.0;
+    const int64_t* order = a.order + l * (T - 1);
+    const int64_t* left = a.left + l * N;
+    const int64_t* right = a.right + l * N;
+    for (int k = lane; k < T - 1; k += kLanes) {
+      int node = static_cast<int>(order[k]);
+      node = node < T ? T : (node >= N ? N - 1 : node);
+      int lc = static_cast<int>(left[node]);
+      int rc = static_cast<int>(right[node]);
+      lc = lc < 0 ? 0 : (lc >= N ? N - 1 : lc);
+      rc = rc < 0 ? 0 : (rc >= N ? N - 1 : rc);
+      double tl = len[lc], tr = len[rc];
+      if (a.blen == nullptr) {
+        const double an = len[node];
+        tl = fmax(an - tl, 0.0) * mu;
+        tr = fmax(an - tr, 0.0) * mu;
+      }
+      srcL[k] = static_cast<short>(lc);
+      srcR[k] = static_cast<short>(rc);
+      dst[k] = static_cast<short>(node);
+      down[node - T] =
+          static_cast<short>((lc >= T ? lc : (rc >= T ? rc : node)) - T);
+      chain[k] = 0;
+      bl[2 * k] = tl;
+      bl[2 * k + 1] = tr;
+    }
+    if (lane < C) rate[lane] = my_rate;
+    cf.prepare();
+    __syncwarp();
+    int n_chains = 0;
+    for (int base = 0; base < nlev; base += kLanes) {
+      const int k = base + lane;
+      const bool bottom = k < nlev && srcL[k] < T && srcR[k] < T;
+      const unsigned mask = __ballot_sync(0xffffffffu, bottom);
+      if (bottom) {
+        chain[dst[k] - T] = static_cast<short>(
+            n_chains + __popc(mask & ((1u << lane) - 1u)));
+      }
+      n_chains += __popc(mask);
+    }
+    for (int span = 1; span < nlev; span <<= 1) {
+      for (int base = 0; base < T - 1; base += kLanes) {
+        const int j = base + lane;
+        const int v = j < T - 1 ? down[inner(down[j], T)] : 0;
+        __syncwarp();
+        if (j < T - 1) down[j] = static_cast<short>(v);
+        __syncwarp();
+      }
+    }
+    __syncwarp();
+    for (int k = lane; k < nlev; k += kLanes) {
+      const int lc = srcL[k], rc = srcR[k];
+      if (lc >= T)
+        srcL[k] = static_cast<short>(-1 - chain[inner(down[lc - T], T)]);
+      if (rc >= T)
+        srcR[k] = static_cast<short>(-1 - chain[inner(down[rc - T], T)]);
+      dst[k] = chain[inner(down[dst[k] - T], T)];
+    }
+    for (int p = lane; p < 2 * nlev * C; p += kLanes) {
+      double e[K];
+      cf.factors(bl[p / C] * rate[p % C], e);
+      for (int f = 0; f < K; ++f) fac[p * K + f] = e[f];
+    }
+    __syncwarp();
+
+    double value = 0.0;
+    if (active) {
+      // tips are read one level before the level that takes them (two,
+      // as UnitWalk does, measured slower here)
+      const V4d tip0 = tp[0];
+      V4d a0 = tip0, b0 = tip0;
+      int sl0 = 0, sr0 = 0;
+      if (0 < nlev) {
+        sl0 = srcL[0];
+        sr0 = srcR[0];
+        fetch_tips(tp, S, sl0, sr0, &a0, &b0);
+      }
+      V4d y[C];
+      for (int c = 0; c < C; ++c) y[c] = tip0;   // single-sequence locus
+      int expo = 0;        // the CLVs are the walk's values times 2^expo
+      int held = kNone;    // the source whose CLVs y holds, unstored
+      for (int k = 0; k < nlev; ++k) {
+        const int sl = sl0, sr = sr0;
+        const V4d ta = a0, tb = b0;
+        if (k + 1 < nlev) {
+          sl0 = srcL[k + 1];
+          sr0 = srcR[k + 1];
+          fetch_tips(tp, S, sl0, sr0, &a0, &b0);
+        }
+        const int d = dst[k];
+        const bool last = k + 1 == nlev;
+        // the next level reads this one's output: keep it in y
+        const bool hold = !last && (sl0 == -1 - d || sr0 == -1 - d);
+        const bool fromL = sl == held, fromR = sr == held;
+        const double* eL = fac + 2 * k * C * K;
+        const double* eR = eL + C * K;
+        int hi = 0;
+        for (int c = 0; c < C; ++c) {
+          const V4d xl = fromL ? y[c]
+                               : (sl >= 0 ? ta
+                                          : cv[((-1 - sl) * C + c) * kLanes]);
+          const V4d xr = fromR ? y[c]
+                               : (sr >= 0 ? tb
+                                          : cv[((-1 - sr) * C + c) * kLanes]);
+          y[c] = mul4<double>(cf.apply(xl, eL + c * K),
+                              cf.apply(xr, eR + c * K));
+          hi = max(hi, max_hi4(y[c]));
+        }
+        if (!last) {
+          if (hi < kLowHi && hi > 0) {
+            // the largest value's binary exponent (-1023 if subnormal),
+            // and 2^-e, exact
+            const int e = (hi >> 20) - 1023;
+            const double s = __hiloint2double((1023 - e) << 20, 0);
+            expo += e;
+            for (int c = 0; c < C; ++c) y[c] = scale4<double>(y[c], s);
+          }
+          if (!hold)
+            for (int c = 0; c < C; ++c) cv[(d * C + c) * kLanes] = y[c];
+        }
+        held = hold ? -1 - d : kNone;
+      }
+      double lik = 0.0;
+      for (int c = 0; c < C; ++c)
+        lik += (1.0 / C) * (f0 * y[c].x + f1 * y[c].y + f2 * y[c].z +
+                            f3 * y[c].w);
+      value = log(fmax(lik, kMinNormal)) + expo * kLn2;
+    }
+    return value;
+  }
+
+  static constexpr double kMinNormal = 2.2250738585072014e-308;
+  static constexpr double kLn2 = 0.69314718055994530942;
+
+  static __device__ __forceinline__ int inner(int j, int T) {
+    return j < 0 ? 0 : (j > T - 2 ? T - 2 : j);
+  }
+
+  static __device__ __forceinline__ void fetch_tips(const V4d* tp, int S,
+                                                    int sl, int sr,
+                                                    V4d* xa, V4d* xb) {
+    if (sl >= 0) *xa = tp[static_cast<int64_t>(sl) * S];
+    if (sr >= 0) *xb = tp[static_cast<int64_t>(sr) * S];
+  }
+};
+
+// The double build's walk: DoubleWalk up to kDoubleWalkMaxCats categories,
+// UnitWalk's above, where DoubleWalk measured slower on either store
+// (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6).
+constexpr int kDoubleWalkMaxCats = 3;
+
+template <int FAM, int C, bool SHARED>
+using DoubleBuildWalk =
+    std::conditional_t<(C <= kDoubleWalkMaxCats), DoubleWalk<FAM, C, SHARED>,
+                       UnitWalk<double, FAM, C, SHARED>>;
+
 // Run `Launch<R, FAM, C, SHARED>::run(args...)` (an int: 0 or a
 // cudaError) for the runtime family, category count and CLV store; -1 for
 // a combination the kernels do not take.
@@ -575,6 +805,29 @@ int allow_shared(Kernel kernel, long long bytes, long long* allowed) {
   }
   *allowed = bytes;
   return 0;
+}
+
+// Blocks of `threads` one SM holds of `kernel` with `bytes` of dynamic
+// shared memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or -1 on
+// an error.  The kernel's limit is raised to `bytes` where it is lower (a
+// launch raises it to what it asks for itself: allow_shared).
+template <typename Kernel>
+int occupancy(Kernel kernel, int threads, long long bytes) {
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+  if (e == cudaSuccess && bytes > attr.maxDynamicSharedSizeBytes)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  int blocks = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, kernel, threads, static_cast<size_t>(bytes));
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return -1;
+  }
+  return blocks;
 }
 
 template <typename R>

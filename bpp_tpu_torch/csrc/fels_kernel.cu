@@ -38,6 +38,11 @@
 // 9 KB (C = 1), 35 KB (C = 4, HKY: six blocks an SM) and 70 KB (C = 8:
 // three).
 //
+// The double build (--x64) has a kernel of its own,
+// fels_site_logl_kernel_f64: the same grid and layout with contract.cuh's
+// DoubleBuildWalk (DoubleWalk up to 3 categories, UnitWalk's above);
+// PERF.md §6 has the measurements it was designed from.
+//
 // C interface (built with nvcc into a shared library, loaded by ctypes
 // from bpp_tpu_torch/core/fels.py): bpp_fels_site_logl (dbl = 1: the
 // double build) returns the value of cudaGetLastError() right after the
@@ -67,6 +72,25 @@ __global__ void fels_site_logl_kernel(TreeArgs<R> a, R* out) {
     for (int s = unit.y + unit.z + lane; s < a.S; s += kLanes) row[s] = R(0);
 }
 
+// The double build: the same grid, with DoubleBuildWalk (contract.cuh).
+template <int FAM, int C, bool SHARED>
+__global__ void fels_site_logl_kernel_f64(TreeArgs<double> a, double* out) {
+  extern __shared__ __align__(16) unsigned char block_state[];
+  const int lane = threadIdx.x & (kLanes - 1);
+  const int warp = threadIdx.x / kLanes;
+  const int u = blockIdx.x * (blockDim.x / kLanes) + warp;
+  if (u >= a.U) return;
+  const int4 unit = a.units[u];
+  const long long stride =
+      warp_layout(a.T, C, Coefs<FAM, double>::K, SHARED, 8).bytes;
+  const double v = DoubleBuildWalk<FAM, C, SHARED>::run(
+      a, block_state + warp * stride, u, unit, lane);
+  double* row = out + static_cast<int64_t>(unit.x) * a.S;
+  if (lane < unit.z) row[unit.y + lane] = v;
+  if (unit.w)
+    for (int s = unit.y + unit.z + lane; s < a.S; s += kLanes) row[s] = 0.0;
+}
+
 template <typename R, int FAM, int C, bool SHARED>
 struct Launch {
   static int run(const TreeArgs<R>& a, R* out, int threads,
@@ -79,6 +103,37 @@ struct Launch {
     fels_site_logl_kernel<R, FAM, C, SHARED>
         <<<(a.U + warps - 1) / warps, threads, shared_bytes, st>>>(a, out);
     return 0;
+  }
+};
+
+template <int FAM, int C, bool SHARED>
+struct Launch<double, FAM, C, SHARED> {
+  static int run(const TreeArgs<double>& a, double* out, int threads,
+                 long long shared_bytes, cudaStream_t st) {
+    static long long allowed = 48 * 1024;
+    const int rc = allow_shared(fels_site_logl_kernel_f64<FAM, C, SHARED>,
+                                shared_bytes, &allowed);
+    if (rc != 0) return rc;
+    const int warps = threads / kLanes;
+    fels_site_logl_kernel_f64<FAM, C, SHARED>
+        <<<(a.U + warps - 1) / warps, threads, shared_bytes, st>>>(a, out);
+    return 0;
+  }
+};
+
+template <typename R, int FAM, int C, bool SHARED>
+struct Occupancy {
+  static int run(int threads, long long shared_bytes) {
+    return occupancy(fels_site_logl_kernel<R, FAM, C, SHARED>, threads,
+                     shared_bytes);
+  }
+};
+
+template <int FAM, int C, bool SHARED>
+struct Occupancy<double, FAM, C, SHARED> {
+  static int run(int threads, long long shared_bytes) {
+    return occupancy(fels_site_logl_kernel_f64<FAM, C, SHARED>, threads,
+                     shared_bytes);
   }
 };
 
@@ -114,6 +169,17 @@ extern "C" long long bpp_fels_warp_bytes(int T, int C, int fam, int shared,
                                          int dbl) {
   return bpp::block_shared_bytes(T, C, fam, shared != 0, bpp::kLanes,
                                  dbl ? 8 : 4);
+}
+
+// Blocks of `threads` one SM holds of the build's kernel for this family,
+// category count and store, with `bytes` of dynamic shared memory (the
+// launch plan's); -1 on an error.
+extern "C" int bpp_fels_occupancy(int C, int fam, int shared, int threads,
+                                  int dbl, long long bytes) {
+  return dbl ? bpp::dispatch<Occupancy, double>(fam, C, shared != 0,
+                                                threads, bytes)
+             : bpp::dispatch<Occupancy, float>(fam, C, shared != 0, threads,
+                                               bytes);
 }
 
 extern "C" int bpp_fels_site_logl(

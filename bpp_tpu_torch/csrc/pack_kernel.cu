@@ -35,6 +35,11 @@
 // contract.cuh, plus 256 B of partials; at T = 16 and 64 threads, the
 // wrapper's block size, about 9 KB (C = 1), 35 KB (C = 4) and 70 KB (C = 8).
 //
+// The double build (--x64) has a kernel of its own, pack_logl_kernel_f64:
+// the same blocks, rounds and flat ordered sum with contract.cuh's
+// DoubleBuildWalk (DoubleWalk up to 3 categories, UnitWalk's above);
+// PERF.md §6 has the measurements it was designed from.
+//
 // C interface (built with nvcc into a shared library, loaded by ctypes
 // from bpp_tpu_torch/core/pack.py): bpp_pack_logl (dbl = 1: the double
 // build) returns the value of cudaGetLastError() right after the launch.  bpp_pack_empty launches a
@@ -99,6 +104,49 @@ __global__ void pack_logl_kernel(TreeArgs<R> a, const R* weights, int W,
   if (owner) out[l] = static_cast<R>(acc);
 }
 
+// The double build: the same blocks, rounds and sums, with
+// DoubleBuildWalk (contract.cuh).
+template <int FAM, int C, bool SHARED>
+__global__ void pack_logl_kernel_f64(TreeArgs<double> a,
+                                     const double* weights, int W,
+                                     const int4* blocks,
+                                     const int* locus_unit0, double* out) {
+  extern __shared__ __align__(16) unsigned char block_state[];
+  __shared__ double part[kMaxWarps];
+  const int lane = threadIdx.x & (kLanes - 1);
+  const int warp = threadIdx.x / kLanes;
+  const int warps = blockDim.x / kLanes;
+  const int4 blk = blocks[blockIdx.x];     // units u0..u1 of loci l0..l1
+  const int u1 = blk.y;
+  const long long stride =
+      warp_layout(a.T, C, Coefs<FAM, double>::K, SHARED, 8).bytes;
+  const int l = blk.z + threadIdx.x;
+  const bool owner = l < blk.w;
+  const int ulo = owner ? locus_unit0[l] : 0;
+  const int uhi = owner ? locus_unit0[l + 1] : 0;
+  double acc = 0.0;
+  for (int base = blk.x; base < u1; base += warps) {
+    const int u = base + warp;
+    if (u < u1) {
+      const int4 unit = a.units[u];
+      const int s = unit.y + lane;
+      const double w = (lane < unit.z && s < W)
+                           ? weights[static_cast<int64_t>(unit.x) * W + s]
+                           : 0.0;
+      const double site = DoubleBuildWalk<FAM, C, SHARED>::run(
+          a, block_state + warp * stride, u, unit, lane);
+      const double p = warp_sum(w * site);
+      if (lane == 0) part[warp] = p;
+    }
+    __syncthreads();
+    const int lo = ulo > base ? ulo : base;
+    const int hi = uhi < base + warps ? uhi : base + warps;
+    for (int v = lo; v < hi; ++v) acc += part[v - base];
+    __syncthreads();
+  }
+  if (owner) out[l] = acc;
+}
+
 __global__ void empty_kernel() {}
 
 template <typename R, int FAM, int C, bool SHARED>
@@ -113,6 +161,38 @@ struct Launch {
     pack_logl_kernel<R, FAM, C, SHARED><<<B, threads, shared_bytes, st>>>(
         a, weights, W, blocks, locus_unit0, out);
     return 0;
+  }
+};
+
+template <int FAM, int C, bool SHARED>
+struct Launch<double, FAM, C, SHARED> {
+  static int run(const TreeArgs<double>& a, const double* weights, int W,
+                 const int4* blocks, const int* locus_unit0, double* out,
+                 int B, int threads, long long shared_bytes,
+                 cudaStream_t st) {
+    static long long allowed = 48 * 1024;
+    const int rc = allow_shared(pack_logl_kernel_f64<FAM, C, SHARED>,
+                                shared_bytes, &allowed);
+    if (rc != 0) return rc;
+    pack_logl_kernel_f64<FAM, C, SHARED><<<B, threads, shared_bytes, st>>>(
+        a, weights, W, blocks, locus_unit0, out);
+    return 0;
+  }
+};
+
+template <typename R, int FAM, int C, bool SHARED>
+struct Occupancy {
+  static int run(int threads, long long shared_bytes) {
+    return occupancy(pack_logl_kernel<R, FAM, C, SHARED>, threads,
+                     shared_bytes);
+  }
+};
+
+template <int FAM, int C, bool SHARED>
+struct Occupancy<double, FAM, C, SHARED> {
+  static int run(int threads, long long shared_bytes) {
+    return occupancy(pack_logl_kernel_f64<FAM, C, SHARED>, threads,
+                     shared_bytes);
   }
 };
 
@@ -153,6 +233,17 @@ extern "C" long long bpp_pack_warp_bytes(int T, int C, int fam, int shared,
                                          int dbl) {
   return bpp::block_shared_bytes(T, C, fam, shared != 0, bpp::kLanes,
                                  dbl ? 8 : 4);
+}
+
+// Blocks of `threads` one SM holds of the build's kernel for this family,
+// category count and store, with `bytes` of dynamic shared memory (the
+// launch plan's); -1 on an error.
+extern "C" int bpp_pack_occupancy(int C, int fam, int shared, int threads,
+                                  int dbl, long long bytes) {
+  return dbl ? bpp::dispatch<Occupancy, double>(fam, C, shared != 0,
+                                                threads, bytes)
+             : bpp::dispatch<Occupancy, float>(fam, C, shared != 0, threads,
+                                               bytes);
 }
 
 extern "C" int bpp_pack_empty(void* stream) {

@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``bpp_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
-Phases, in order; any failure exits non-zero:
+``--parent DIR``, a checkout of the parent commit (``git archive``), adds
+the parent's float64 builds timed on ``[x64]``'s inputs in a process of
+their own.  Phases, in order; any failure exits non-zero:
 
 1. device   — torch version, the card's name and power limit;
 2. build    — nvcc builds kernels K1 (``bpp_tpu_torch/csrc/pack_kernel.cu``)
               and K2 (``csrc/fels_kernel.cu``), one process each, started
-              together;
+              together; the float64 instantiations' registers and spills
+              from the ``-Xptxas -v`` report (none of C <= 4 may spill);
 3. data 1   — the port's simulator writes the haploid bench dataset (4
               species x 4 sequences, 500 sites, JC69, 1000 loci, seed 137);
 4. kernel 1 — on gene trees from the JC69 engine, K1 (float32) is held
@@ -215,13 +218,20 @@ Phases, in order; any failure exits non-zero:
               chain of main 2 with ``--x64`` for 10 iterations: K2's float64
               build 12 an iteration plus 1; the ``[profile]`` of the float64
               JC69 step;
-30. x64     — the float64 builds against their float64 plain versions on
-              the card for JC69, HKY+G4, TN93 and GTR+G4 under both CLV
-              stores: K1 on main 16's gene trees (within 1e-6 lnL a locus),
-              K2 on the diploid data (1e-8 a pattern, 1e-6 a locus after
-              ``reduce_root``); each timed with the profiler at its main
-              path's model, beside its plain version and its bound in
-              float64 bytes and operations;
+30. x64     — the diagnosis: K1 (JC69) on main 16's gene trees and K2
+              (HKY) on the diploid data, each build x store x C in 1, 2,
+              4, 8: device ms, the prologue's ms alone, blocks and warps an
+              SM, shared bytes a block, registers and spills; the float64
+              builds against their float64 plain versions on the card for
+              JC69, HKY, TN93 and GTR x C in 1, 2, 4, 8 x both CLV stores
+              (K1 within 1e-6 lnL a locus, K2 within 1e-8 a pattern and
+              1e-6 a locus after ``reduce_root``; repeat launches and the
+              stores bit-equal), and on [shapes]' batches and 128-tip trees
+              with branches of 2e-8 that force the rescale; each timed
+              with the profiler at its main path's model, beside its plain
+              version and its bound in float64 bytes and operations; with
+              ``--parent``, the parent's float64 builds on the same
+              inputs;
 31. native  — main 1's 1000 loci loaded through the port's native pattern
               compressor (``csrc/compress.cpp``, built with g++ into
               ``bpp_tpu_torch/_build/`` in [build]; asserted to run, one
@@ -487,6 +497,8 @@ TOL_LNL_F64 = 1e-6         # per-locus |dlnL| of the float64 builds
 TOL_SITE_F64 = 1e-8        # per-pattern |dlnL| of K2's float64 build
 # (model, gamma categories): the four families K1 special-cases
 MODELS = [("JC69", 1), ("HKY", 4), ("TN93", 1), ("GTR", 4)]
+# the category counts of the [x64] diagnosis and holds
+X64_CATS = (1, 2, 4, 8)
 # operations per child contraction of one (site, category), by family
 CONTRACT_OPS = {"jc69": 14, "tn93": 27, "gtr": 64}
 
@@ -732,13 +744,16 @@ def check_chain_output(job, nsample, moving, figtree=True):
 
 
 def run_chain(argv, job, iters, expect, moving, label, smi, figtree=True,
-              nsample=NSAMPLE):
+              nsample=NSAMPLE, clv_store="shared"):
     """Drive one chain through the CLI (``argv``) with both launch counts
     (and those of the float64 builds) set to 0 just before and read just
     after; ``expect`` = (K1, K2) launches over ``iters`` iterations and
     the initial state.  ``moving`` names the mcmc.txt columns that must
     move, or is "A01" / "A11" for a run that writes species trees; the
-    file holds ``nsample`` samples."""
+    file holds ``nsample`` samples.  ``clv_store`` is the store the
+    wrappers pick for the run: shared memory at 16 tips, but the device
+    scratch for the float64 build above ``pack.F64_SHARED_MAX_CATS``
+    categories."""
     import torch
 
     from bpp_tpu_torch import cli
@@ -757,10 +772,10 @@ def run_chain(argv, job, iters, expect, moving, label, smi, figtree=True,
             f"{label}: (K1, K2) launched {got} times on the main path, "
             f"expected {expect} over {iters} iterations + the initial state")
     store = pack.CLV_STORE if got[0] else fels.CLV_STORE
-    if sum(got) and store != "shared":
+    if sum(got) and store != clv_store:
         raise AssertionError(f"{label}: the main path ran the {store} CLV "
-                             "store; at 16 tips it keeps its CLVs in shared "
-                             "memory and allocates no scratch")
+                             f"store; at 16 tips the wrappers pick the "
+                             f"{clv_store} one")
     if moving in ("A01", "A11"):
         result = check_species_output(job, nsample, moving)
     else:
@@ -2139,92 +2154,395 @@ def tools_phase(smi):
     return launches
 
 
-def hold_f64(label, eng, state, smi):
+def hold_f64(label, eng, state, smi, keep=None):
     """``[x64]``: the float64 build of ``eng``'s kernel (K1, or K2 with a
     diploid map) against its float64 plain version on ``state``'s gene
-    trees, for the four model families under both CLV stores: K1 within
-    ``TOL_LNL_F64`` a locus, K2 within ``TOL_SITE_F64`` a pattern and
-    ``TOL_LNL_F64`` a locus after ``reduce_root``.  Returns (max per-locus
-    error, (device ms, plain ms, bound ms, bound by) of the main path's
-    model: JC69 for K1, HKY+G4 for K2)."""
+    trees, for the four model families (JC69, HKY, TN93, GTR) x C in
+    ``X64_CATS`` x both CLV stores: K1 within ``TOL_LNL_F64`` a locus, K2
+    within ``TOL_SITE_F64`` a pattern and ``TOL_LNL_F64`` a locus after
+    ``reduce_root``; a repeat launch and the other store bit-equal.  Then
+    the main path's model (JC69 for K1, HKY+G4 for K2) is timed at the
+    wrapper's plan, beside its plain version and its bound.  ``keep``, a
+    list, gets that launch's inputs (:func:`parent_times`).  Returns (max
+    per-locus error, (device ms, plain ms, bound ms, bound by))."""
     import torch
 
     from bpp_tpu_torch.core import fels, pack
     from bpp_tpu_torch.core import felsenstein as fe
+    from bpp_tpu_torch.testing import fixed_subst
     ctx = eng.ctx
     k2 = ctx.res_map is not None
     mod = fels if k2 else pack
     w64 = ctx.weights.double()
+    mask = ctx.locus_mask
+    L = state.gt.n_loci
     worst = site_worst = 0.0
-    row = None
-    for name, model, n_cats, _, s64 in fixed_cases(state.gt.n_loci,
-                                                   w64.device):
-        a64 = pass_args(state, s64, ctx, torch.float64)
-        kw = dict(model=model, n_cats=n_cats)
-        for store in ("shared", "global"):
-            n0 = mod.LAUNCHES_F64
+    for model_name in ("JC69", "HKY", "TN93", "GTR"):
+        for n_cats in X64_CATS:
+            name = f"{model_name}+C{n_cats}"
+            model, s64 = fixed_subst(model_name, n_cats, L, torch.float64,
+                                     w64.device)
+            a64 = pass_args(state, s64, ctx, torch.float64)
+            kw = dict(model=model, n_cats=n_cats)
             if k2:
-                got_s = fels.site_logl_fels(*a64[:-1], n_pat=ctx.n_pat,
-                                            units=ctx.units, clv_store=store,
-                                            **kw)
                 want_s = fels.site_logl_fels_ref(*a64[:-1], n_pat=ctx.n_pat,
                                                  **kw)
-                site = float((got_s - want_s).abs().max())
-                got = fe.reduce_root(got_s, w64, ctx.res_map, ctx.res_count)
                 want = fe.reduce_root(want_s, w64, ctx.res_map,
                                       ctx.res_count)
             else:
-                site = 0.0
-                got = pack.site_logl_packed(*a64, units=ctx.units,
-                                            clv_store=store, **kw)
                 want = pack.site_logl_packed_ref(*a64, **kw)
-            torch.cuda.synchronize()
-            if mod.LAUNCHES_F64 != n0 + 1 or mod.CLV_STORE != store or \
-                    got.dtype != torch.float64:
-                raise AssertionError(f"[x64] {label} {name}: not one launch "
-                                     f"of the float64 build's {store} store")
-            mask = ctx.locus_mask
-            if not bool(torch.isfinite(got[mask]).all()):
-                raise AssertionError(f"[x64] {label} {name}: non-finite lnL")
-            err = float((got - want)[mask].abs().max())
-            if not (err < TOL_LNL_F64 and site < TOL_SITE_F64):
-                raise AssertionError(
-                    f"[x64] {label} {name} ({store} store): the float64 "
-                    f"build and its plain version differ by {err} lnL a "
-                    f"locus, {site} a pattern")
-            worst, site_worst = max(worst, err), max(site_worst, site)
-        if name == ("HKY+G4" if k2 else "JC69"):
-            kwk = dict(units=ctx.units)
-            if k2:
-                kargs = fels.kernel_args(*a64[:-1], n_pat=ctx.n_pat, **kw,
-                                         **kwk)
-                plain = cuda_ms(lambda: fels.site_logl_fels_ref(
-                    *a64[:-1], n_pat=ctx.n_pat, **kw), reps=10)
-            else:
-                kargs = pack.kernel_args(*a64, **kw, **kwk)
-                plain = cuda_ms(lambda: pack.site_logl_packed_ref(*a64, **kw),
-                                reps=10)
-            ms = kernel_device_ms(lambda: mod.launch(kargs),
-                                  "fels_site_logl_kernel" if k2
-                                  else "pack_logl_kernel", reps=20)
-            bms, by = bound_ms(eng.run.batch, name.split("+")[0], n_cats,
-                               per_pattern=k2, rb=8, flops=F64_FLOPS)
-            row = (ms, plain, bms, by)
-            print(f"[x64] {label} {name}: float64 build {ms:.4f} ms a launch "
-                  f"({kargs.plan.clv_store} store, {kargs.plan.threads} "
-                  f"threads, {kargs.plan.shared_bytes} B shared a block) | "
-                  f"plain version (float64) {plain:.4f} ms/pass | bound "
-                  f"{bms:.5f} ms ({by}, float64) | {smi}")
+            first = None
+            for store in ("shared", "global"):
+                n0 = mod.LAUNCHES_F64
+                if k2:
+                    got_s = fels.site_logl_fels(
+                        *a64[:-1], n_pat=ctx.n_pat, units=ctx.units,
+                        clv_store=store, **kw)
+                    site = float((got_s - want_s).abs().max())
+                    got = fe.reduce_root(got_s, w64, ctx.res_map,
+                                         ctx.res_count)
+                    again = fels.site_logl_fels(
+                        *a64[:-1], n_pat=ctx.n_pat, units=ctx.units,
+                        clv_store=store, **kw)
+                    raw = got_s
+                else:
+                    site = 0.0
+                    got = pack.site_logl_packed(*a64, units=ctx.units,
+                                                clv_store=store, **kw)
+                    again = pack.site_logl_packed(*a64, units=ctx.units,
+                                                  clv_store=store, **kw)
+                    raw = got
+                torch.cuda.synchronize()
+                if mod.LAUNCHES_F64 != n0 + 2 or mod.CLV_STORE != store or \
+                        got.dtype != torch.float64:
+                    raise AssertionError(
+                        f"[x64] {label} {name}: not two launches of the "
+                        f"float64 build's {store} store")
+                if not bool(torch.isfinite(got[mask]).all()):
+                    raise AssertionError(f"[x64] {label} {name}: non-finite "
+                                         "lnL")
+                if not torch.equal(raw, again) or (
+                        first is not None and not torch.equal(raw, first)):
+                    raise AssertionError(
+                        f"[x64] {label} {name}: a repeat launch or the "
+                        "other store is not bit-equal")
+                first = raw
+                err = float((got - want)[mask].abs().max())
+                if not (err < TOL_LNL_F64 and site < TOL_SITE_F64):
+                    raise AssertionError(
+                        f"[x64] {label} {name} ({store} store): the float64 "
+                        f"build and its plain version differ by {err} lnL a "
+                        f"locus, {site} a pattern")
+                worst, site_worst = max(worst, err), max(site_worst, site)
+    model_name, n_cats = ("HKY", 4) if k2 else ("JC69", 1)
+    model, s64 = fixed_subst(model_name, n_cats, L, torch.float64, w64.device)
+    a64 = pass_args(state, s64, ctx, torch.float64)
+    kw = dict(model=model, n_cats=n_cats)
+    if k2:
+        kargs = fels.kernel_args(*a64[:-1], n_pat=ctx.n_pat, units=ctx.units,
+                                 **kw)
+        plain = cuda_ms(lambda: fels.site_logl_fels_ref(
+            *a64[:-1], n_pat=ctx.n_pat, **kw), reps=10)
+    else:
+        kargs = pack.kernel_args(*a64, units=ctx.units, **kw)
+        plain = cuda_ms(lambda: pack.site_logl_packed_ref(*a64, **kw),
+                        reps=10)
+    kname = "fels_site_logl_kernel" if k2 else "pack_logl_kernel"
+    ms = kernel_device_ms(lambda: mod.launch(kargs), kname, reps=20)
+    bms, by = bound_ms(eng.run.batch, model_name, n_cats, per_pattern=k2,
+                       rb=8, flops=F64_FLOPS)
+    if keep is not None:
+        keep.append(x64_case(k2, ctx, a64, model, n_cats,
+                             kargs.plan.clv_store))
+    name = f"{model_name}+G{n_cats}" if n_cats > 1 else model_name
+    print(f"[x64] {label} {name}: float64 build {ms:.4f} ms a launch "
+          f"({kargs.plan.clv_store} store, {kargs.plan.threads} threads, "
+          f"{kargs.plan.shared_bytes} B shared a block) | plain version "
+          f"(float64) {plain:.4f} ms/pass | bound {bms:.5f} ms ({by}, "
+          f"float64) | {smi}")
     site_txt = (f", {site_worst:.3e} a pattern (tol {TOL_SITE_F64})"
                 if k2 else "")
     print(f"[x64] {label}: {'K2' if k2 else 'K1'} float64 build vs its "
-          f"float64 plain version on JC69, HKY+G4, TN93, GTR+G4 x shared/"
-          f"global store: max |dlnL| {worst:.3e} a locus (tol "
-          f"{TOL_LNL_F64}){site_txt} | {smi}")
-    return worst, row
+          f"float64 plain version on JC69, HKY, TN93, GTR x C "
+          f"{'/'.join(map(str, X64_CATS))} x shared/global store, repeat "
+          f"launches and stores bit-equal: max |dlnL| {worst:.3e} a locus "
+          f"(tol {TOL_LNL_F64}){site_txt} | {smi}")
+    return worst, (ms, plain, bms, by)
 
 
-def x64_phases(dev, smi, iters):
+def x64_case(k2, ctx, a64, model, n_cats, store):
+    """One float64 launch's inputs, on the host, for :func:`time_cases`."""
+    return {"kernel": "K2" if k2 else "K1", "C": n_cats, "store": store,
+            "model": model.name, "args": [t.cpu() for t in a64],
+            "n_pat": ctx.n_pat.cpu(), "n_cols": ctx.tip_partials.shape[2]}
+
+
+def time_cases(src, dst):
+    """Time every launch of ``src`` (a list of :func:`x64_case`) with the
+    ``bpp_tpu_torch`` that is first on ``sys.path``, and write the device
+    ms of each (profiler, one window of 20) to ``dst`` as JSON."""
+    import torch
+
+    from bpp_tpu_torch.config import SubstModel
+    from bpp_tpu_torch.core import fels, pack
+    from bpp_tpu_torch.core.units import Units
+    times = []
+    for case in torch.load(src, weights_only=False):
+        a = [t.cuda() for t in case["args"]]
+        n_pat = case["n_pat"].cuda()
+        kw = dict(model=SubstModel[case["model"]], n_cats=case["C"],
+                  units=Units(case["n_pat"].numpy(), case["n_cols"], "cuda"),
+                  clv_store=case["store"])
+        if case["kernel"] == "K2":
+            kargs = fels.kernel_args(*a[:-1], n_pat=n_pat, **kw)
+            launch, name = fels.launch, "fels_site_logl_kernel"
+        else:
+            kargs = pack.kernel_args(*a, **kw)
+            launch, name = pack.launch, "pack_logl_kernel"
+        times.append(kernel_device_ms(lambda: launch(kargs), name, reps=20,
+                                      windows=1))
+    with open(dst, "w") as f:
+        json.dump(times, f)
+
+
+def parent_times(parent, cases, smi):
+    """``[x64] parent``: the float64 builds of ``parent`` (a checkout of
+    the parent commit, ``--parent DIR``) timed on ``cases`` in a process of
+    their own, which builds the parent's kernels into its own
+    ``_build/``, then the same cases with this tree's builds.  Prints one
+    line a case; returns [(case, parent ms, this tree's ms)]."""
+    import torch
+    with tempfile.TemporaryDirectory(prefix="bpp_parent_") as tmp:
+        src, dst = os.path.join(tmp, "cases.pt"), os.path.join(tmp, "ms.json")
+        torch.save(cases, src)
+        code = ("import importlib.util, sys\n"
+                "sys.path.insert(0, sys.argv[1])\n"
+                "spec = importlib.util.spec_from_file_location("
+                "'smoke', sys.argv[2])\n"
+                "m = importlib.util.module_from_spec(spec)\n"
+                "spec.loader.exec_module(m)\n"
+                "m.time_cases(sys.argv[3], sys.argv[4])\n")
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-c", code, os.path.abspath(parent),
+                        os.path.abspath(__file__), src, dst],
+                       cwd=os.path.abspath(parent), check=True, timeout=900)
+        with open(dst) as f:
+            before = json.load(f)
+        print(f"[x64] parent: built and timed in "
+              f"{time.perf_counter() - t0:.1f} s | {smi}")
+        time_cases(src, dst)
+        with open(dst) as f:
+            after = json.load(f)
+    rows = []
+    for case, p_ms, n_ms in zip(cases, before, after):
+        print(f"[x64] parent vs this tree: {case['kernel']} float64 "
+              f"{case['model']}+C{case['C']}, {case['store']} store | "
+              f"parent {p_ms:.4f} ms | this tree {n_ms:.4f} ms a launch | "
+              f"{smi}")
+        rows.append((case, p_ms, n_ms))
+    return rows
+
+
+def hold_shapes_f64(dev, smi):
+    """``[x64] shapes``: both float64 builds against their float64 plain
+    versions on ``[shapes]``' batches (1..16 sequences, caterpillar and
+    balanced trees, 0..200 patterns; 64 and 128 tips) under the store the
+    wrappers pick and under the other one where a warp fits, and on
+    128-tip trees with branches of about 2e-8 (ages x 1e-5), whose
+    patterns' likelihoods fall far below double's range unless the
+    kernels rescale (held at JC69 against the plain pruning on the P(t)
+    the kernels apply): K2 within ``TOL_SITE_F64`` a pattern, K1 within
+    ``TOL_LNL_F64`` a locus."""
+    import torch
+
+    from bpp_tpu_torch.core import fels, pack
+    from bpp_tpu_torch.core import felsenstein as fe
+    from bpp_tpu_torch.core.units import Units
+    from bpp_tpu_torch.testing import fixed_subst, shaped_batch
+    from bpp_tpu_torch.trees.gtree import inner_order
+
+    def hold(name, gt, n_seq, n_pat, tips, weights, model_name, n_cats):
+        L = gt.n_loci
+        model, s64 = fixed_subst(model_name, n_cats, L, torch.float64, dev)
+        rk = torch.cat([s64.rates, s64.kappa1[:, None], s64.kappa2[:, None]],
+                       dim=1)
+        a = (inner_order(gt), gt.left, gt.right, gt.parent, n_seq, gt.age,
+             s64.mu, rk, s64.freqs, s64.eigw, s64.eigT, s64.eigTi, tips)
+        kw = dict(model=model, n_cats=n_cats)
+        units = Units(n_pat.cpu().numpy(), tips.shape[2], dev)
+        if model_name == "JC69":
+            # the plain pruning on the kernels' P(t) = I + m (I - 1/4), m =
+            # expm1(-4t/3): site_logl_fels_ref's P(t) takes 1 - exp(-4t/3),
+            # which keeps about eps / t of an off-diagonal entry (1e-8 lnL
+            # a pattern on branches of 2e-8)
+            t_eff = pack.scaled_lengths(*a[:4], gt.age, s64.mu, rk, n_cats,
+                                        None)
+            m = torch.expm1(-4.0 / 3.0 * t_eff)[..., None, None]
+            eye = torch.eye(4, dtype=torch.float64, device=dev)
+            cw = torch.full((n_cats,), 1.0 / n_cats, dtype=torch.float64,
+                            device=dev)
+            want = fe.site_loglikelihood(gt, tips, n_seq,
+                                         eye + m * (eye - 0.25), s64.freqs,
+                                         cw, order=a[0])
+            live = torch.arange(tips.shape[2], device=dev) < n_pat[:, None]
+            want = torch.where(live, want, torch.zeros_like(want))
+            want_l = fe.reduce_root(want, weights)
+        else:
+            want = fels.site_logl_fels_ref(*a, n_pat=n_pat, **kw)
+            want_l = pack.site_logl_packed_ref(*a, weights, **kw)
+        # a one-sequence locus: the kernels root it at tip 0
+        one = n_seq < 2
+        tip0 = (tips[:, 0] * s64.freqs[:, None, :]).sum(-1).log()
+        live = torch.arange(tips.shape[2], device=dev) < n_pat[:, None]
+        tip0 = torch.where(live, tip0, torch.zeros_like(tip0))
+        want = torch.where(one[:, None], tip0, want)
+        want_l = torch.where(one, (weights * tip0).sum(1), want_l)
+        picked = None
+        for store in (None, "shared", "global"):
+            try:
+                site = fels.site_logl_fels(*a, n_pat=n_pat, units=units,
+                                           clv_store=store, **kw)
+                logl = pack.site_logl_packed(*a, weights, units=units,
+                                             clv_store=store, **kw)
+            except ValueError:
+                if store != "shared":
+                    raise
+                continue            # a warp's CLVs do not fit a block
+            torch.cuda.synchronize()
+            if store is None:
+                picked = fels.CLV_STORE
+                if pack.CLV_STORE != picked:
+                    raise AssertionError(f"[x64] shapes {name}: the wrappers "
+                                         "picked different stores")
+            if not bool(torch.isfinite(site).all()
+                        & torch.isfinite(logl).all()):
+                raise AssertionError(f"[x64] shapes {name}: non-finite lnL")
+            if not bool((site[~live] == 0).all()):
+                raise AssertionError(f"[x64] shapes {name}: K2 left a column "
+                                     "past n_pat that is not 0")
+            site_err = float((site - want).abs().max())
+            err = float((logl - want_l).abs().max())
+            print(f"[x64] shapes {name}: {L} loci, {model_name}+C{n_cats}, "
+                  f"{store or 'picked: ' + picked} store | K2 max per-pattern"
+                  f" |dlnL| {site_err:.3e} (tol {TOL_SITE_F64}) | K1 max per-"
+                  f"locus |dlnL| {err:.3e} (tol {TOL_LNL_F64}) | {smi}")
+            if not (site_err < TOL_SITE_F64 and err < TOL_LNL_F64):
+                raise AssertionError(f"[x64] shapes {name}: the float64 "
+                                     "builds and their plain versions differ")
+
+    def batch(T, n_cols, seed, age_scale=1.0):
+        gt, n_seq, n_pat, tips, weights = shaped_batch(
+            T, n_cols, seed=seed, dtype=torch.float64, device=dev)
+        gt = gt._replace(age=gt.age * age_scale)
+        if T == 16:
+            return gt, n_seq, n_pat, tips, weights
+        keep = slice(2 * T - 12, 2 * T)       # the 12 loci of most tips
+        return (type(gt)(*(x[keep].contiguous() for x in gt[:4])),
+                n_seq[keep], n_pat[keep], tips[keep].contiguous(),
+                weights[keep].contiguous())
+
+    hold("1..16 sequences, caterpillar and balanced, 0..200 patterns",
+         *batch(16, 200, 3), "HKY", 4)
+    hold("64 tips", *batch(64, 72, 64), "HKY", 4)
+    hold("128 tips", *batch(128, 72, 128), "GTR", 8)
+    hold("128 tips, branches x 1e-5", *batch(128, 72, 7, 1e-5), "JC69", 1)
+
+
+def ptxas_usage(name):
+    """{(scalar "f" or "d", family, C, shared): (registers, spill store
+    bytes, spill load bytes)} of every instantiation of ``csrc/<name>.cu``'s
+    kernel, from the ``-Xptxas -v`` report ``core/_build`` keeps beside the
+    library."""
+    import re
+
+    from bpp_tpu_torch.core import _build
+    text = _build.library_path(name).with_suffix(".log").read_text()
+    # float: <name>_kernel<float, FAM, C, SHARED>; double:
+    # <name>_kernel_f64<FAM, C, SHARED>
+    tag = re.compile(r"_kernel(?:I([fd])|_f64I)Li(\d)ELi(\d)ELb([01])E")
+    usage, spills, regs = {}, {}, {}
+    key = None
+    for line in text.splitlines():
+        if "entry function" in line or "Function properties" in line:
+            m = tag.search(line)
+            key = ((m[1] or "d", int(m[2]), int(m[3]), m[4] == "1") if m
+                   else None)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and key is not None:
+            spills[key] = (int(m[1]), int(m[2]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and key is not None:
+            regs[key] = int(m[1])
+    for key in regs:
+        usage[key] = (regs[key], *spills.get(key, (-1, -1)))
+    return usage
+
+
+def x64_diagnosis(label, eng, state, smi, cats=X64_CATS, keep=None):
+    """``[x64] diagnosis``: ``eng``'s kernel (K2 at HKY with a diploid map,
+    else K1 at JC69) on ``state``'s gene trees for each build (float32,
+    float64) x CLV store x C in ``cats``: device ms a launch (profiler, one
+    window of 10), the prologue's ms alone (the same launch with no real
+    pattern in any unit, so that no lane walks), blocks and warps an SM
+    (the CUDA occupancy API at the launch plan), shared bytes a block, and
+    the instantiation's registers and spills (:func:`ptxas_usage`).
+    ``keep``, a list, gets the float64 launches' inputs
+    (:func:`parent_times`).  Returns {(build, store, C): (ms, prologue ms,
+    blocks an SM)}."""
+    import torch
+
+    from bpp_tpu_torch.core import fels, pack
+    from bpp_tpu_torch.core.pack import KernelArgs
+    from bpp_tpu_torch.testing import fixed_subst
+    ctx = eng.ctx
+    k2 = ctx.res_map is not None
+    mod, kname = (fels, "fels_site_logl_kernel") if k2 else \
+        (pack, "pack_logl_kernel")
+    model_name = "HKY" if k2 else "JC69"
+    usage = ptxas_usage("fels_kernel" if k2 else "pack_kernel")
+    fam = {"HKY": 1, "JC69": 0}[model_name]
+    rows = {}
+    for dtype, build in ((torch.float32, "f"), (torch.float64, "d")):
+        for C in cats:
+            model, subst = fixed_subst(model_name, C, state.gt.n_loci,
+                                       dtype, ctx.weights.device)
+            a = pass_args(state, subst, ctx, dtype)
+            kw = dict(model=model, n_cats=C, units=ctx.units)
+            for store in ("shared", "global"):
+                kargs = (fels.kernel_args(*a[:-1], n_pat=ctx.n_pat,
+                                          clv_store=store, **kw) if k2 else
+                         pack.kernel_args(*a, clv_store=store, **kw))
+                # the same launch with no real pattern: only the prologue
+                idle = ctx.units.units.clone()
+                idle[:, 2:] = 0
+                tensors = list(kargs.tensors)
+                tensors[13] = idle
+                pargs = KernelArgs(tuple(tensors), kargs.dims, kargs.plan)
+                ms = kernel_device_ms(lambda: mod.launch(kargs), kname,
+                                      reps=10, windows=1)
+                pro = kernel_device_ms(lambda: mod.launch(pargs), kname,
+                                       reps=10, windows=1)
+                blocks = mod.blocks_per_sm(kargs)
+                regs, sst, sld = usage.get((build, fam, C, store == "shared"),
+                                           (-1, -1, -1))
+                rows[(build, store, C)] = (ms, pro, blocks)
+                if keep is not None and build == "d":
+                    keep.append(x64_case(k2, ctx, a, model, C, store))
+                print(f"[x64] diagnosis {label}: {model_name}+C{C} "
+                      f"{'float64' if build == 'd' else 'float32'} build, "
+                      f"{store} store | {ms:.4f} ms a launch | prologue "
+                      f"alone {pro:.4f} ms | {blocks} blocks of "
+                      f"{kargs.plan.threads} threads an SM "
+                      f"({blocks * kargs.plan.threads // 32} warps) | "
+                      f"{kargs.plan.shared_bytes} B shared a block | "
+                      f"{regs} registers, spill stores {sst} B, loads {sld} "
+                      f"B | {smi}")
+    return rows
+
+
+def x64_phases(dev, smi, iters, parent=None):
     """``[main 16]``: main 1 with ``--x64`` through the CLI, K1's float64
     build launched 8 times an iteration plus 1 and the float32 build
     never, and the diploid chain of main 2 with ``--x64`` for 10
@@ -2252,10 +2570,13 @@ def x64_phases(dev, smi, iters):
         f.write(RUN2_CTL.format(nloci=N_LOCI, burnin=BF_BURNIN,
                                 nsample=BF_NSAMPLE, job="out16d", extra=""))
     with timer:
+        # HKY+G4: 4 categories, on the device scratch in float64
         _, k2_launches = run_chain(
             ["--cfile", "run16d.ctl", "--x64"], "out16d", short,
             (0, PASSES_PER_ITER_2 * short + 1), ("theta", "tau"),
-            "main 16 diploid", smi, nsample=BF_NSAMPLE)
+            "main 16 diploid", smi, nsample=BF_NSAMPLE,
+            clv_store=("global" if 4 > pack.F64_SHARED_MAX_CATS
+                       else "shared"))
     k2_f64 = fels.LAUNCHES_F64
     if k2_f64 != k2_launches:
         raise AssertionError(f"main 16 diploid: {k2_f64} of {k2_launches} "
@@ -2266,12 +2587,23 @@ def x64_phases(dev, smi, iters):
     eng, state, ips = warm_engine(load_run("run16.ctl", "float64"), dev)
     profile_step(eng, state, 1e3 / ips, smi, "pack_logl_kernel",
                  "JC69 float64 step (main 16)", PASSES_PER_ITER)
-    err1, row1 = hold_f64("K1, main 16's gene trees", eng, state, smi)
+    t0 = time.perf_counter()
+    keep = []
+    x64_diagnosis("K1, main 1's batch", eng, state, smi, keep=keep)
+    err1, row1 = hold_f64("K1, main 16's gene trees", eng, state, smi,
+                          keep=keep)
     del eng, state
     engd, stated, _ = warm_engine(load_run("run16d.ctl", "float64"), dev, 2,
                                   3)
-    err2, row2 = hold_f64("K2, the diploid data", engd, stated, smi)
+    x64_diagnosis("K2, main 2's batch", engd, stated, smi, keep=keep)
+    err2, row2 = hold_f64("K2, the diploid data", engd, stated, smi,
+                          keep=keep)
     del engd, stated
+    hold_shapes_f64(dev, smi)
+    print(f"[x64] diagnosis, holds and shapes in "
+          f"{time.perf_counter() - t0:.1f} s | {smi}")
+    if parent is not None:
+        parent_times(parent, keep, smi)
     torch.cuda.empty_cache()
     return k1_f64, k2_f64, err1, row1, err2, row2, timer.seconds
 
@@ -2535,8 +2867,36 @@ def shard_phase(smi, main16_s):
     return totals["K1"], totals["K2"]
 
 
-def main() -> int:
+def spill_report(smi):
+    """``[build]``: the float64 instantiations' registers and spills from
+    the ``-Xptxas -v`` report; fails if one of C <= 4 spills."""
+    for name in ("pack_kernel", "fels_kernel"):
+        usage = {k: v for k, v in ptxas_usage(name).items() if k[0] == "d"}
+        if len(usage) != 3 * 8 * 2:
+            raise AssertionError(f"[build] {name}: {len(usage)} float64 "
+                                 "instantiations in the build log, not 48")
+        spilled = sorted(k[1:] for k, (_, st, ld) in usage.items()
+                         if st or ld)
+        regs = [v[0] for v in usage.values()]
+        print(f"[build] {name} float64 build: {min(regs)}..{max(regs)} "
+              f"registers a thread; spilling (family, C, shared): "
+              f"{spilled or 'none'} | {smi}")
+        if any(c <= 4 for _, c, _ in spilled):
+            raise AssertionError(f"[build] {name}: a float64 instantiation "
+                                 "of C <= 4 spills")
+
+
+def main(argv=None) -> int:
     t_start = time.perf_counter()
+    argv = sys.argv[1:] if argv is None else argv
+    parent = None
+    if len(argv) == 2 and argv[0] == "--parent" and os.path.isdir(
+            os.path.join(argv[1], "bpp_tpu_torch")):
+        parent = os.path.abspath(argv[1])     # the phases run elsewhere
+    elif argv:
+        print("usage: chip_smoke.py [--parent DIR]  (DIR holds the parent "
+              "commit's bpp_tpu_torch/)", file=sys.stderr)
+        return 2
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2558,10 +2918,11 @@ def main() -> int:
 
     # 2. build: one nvcc per source, started together
     t0 = time.perf_counter()
-    libs = _build.build_all(["pack_kernel", "fels_kernel"], verbose=True)
+    libs = _build.build_all(["pack_kernel", "fels_kernel"])
     libs.append(_build.build_host("compress"))
     print(f"[build] {', '.join(p.name for p in libs)} in "
           f"{time.perf_counter() - t0:.2f} s")
+    spill_report(smi)
 
     iters = BURNIN + NSAMPLE
     cwd = os.getcwd()
@@ -2885,7 +3246,7 @@ def main() -> int:
 
             # 29-30. --x64 through the float64 builds: main 16, [x64]
             (k1_f64, k2_f64, err_x1, row_x1, err_x2,
-             row_x2, main16_s) = x64_phases(dev, smi, iters)
+             row_x2, main16_s) = x64_phases(dev, smi, iters, parent)
 
             # 31. the native pattern compressor: [native]
             native_phase(smi)

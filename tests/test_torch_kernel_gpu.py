@@ -19,8 +19,9 @@ on a clock = 2 chain's sub-edge branch lengths, K2 on a diploid batch
 simulated under migration, and the caches of those chains on the card.
 The float64 builds (``--x64``): K1 within 1e-6 lnL a locus and K2 within
 1e-8 a pattern and 1e-6 a locus of their float64 plain versions, on both
-stores and the model grid, and an x64 engine's step launching only the
-float64 build.  Needs a CUDA device and nvcc; skips without them.
+stores and the model grid; both within 1e-10 on the four families x C in
+1, 2, 4, 8 x both stores, with repeat launches and block sizes
+bit-equal; and an x64 engine's step launching only the float64 build.  Needs a CUDA device and nvcc; skips without them.
 
     python -m pytest tests/test_torch_kernel_gpu.py -q
 """
@@ -231,6 +232,43 @@ def test_float64_fels_kernel_matches_plain_version(request, data,
                  - fe.reduce_root(want, w64, ctx.res_map, ctx.res_count)
                  )[ctx.locus_mask].abs().max())
     assert err < 1e-6, err
+
+
+@pytest.mark.parametrize("store", STORES)
+@pytest.mark.parametrize("n_cats", [1, 2, 4, 8])
+@pytest.mark.parametrize("model_name", ["JC69", "HKY", "TN93", "GTR"])
+def test_float64_builds_on_the_grid(cuda_state, cuda_diploid, model_name,
+                                    n_cats, store):
+    """The float64 builds' design (``DoubleWalk``) on both stores: K1 on
+    haploid loci and K2 on diploid ones within 1e-10 of their float64
+    plain versions (a locus, a pattern), repeat launches and block sizes
+    bit-equal."""
+    from bpp_tpu_torch.core import fels, pack
+    for data in (cuda_state, cuda_diploid):
+        eng, state = data
+        ctx = eng.ctx
+        L = state.gt.n_loci
+        model, s64 = fixed_subst(model_name, n_cats, L, torch.float64,
+                                 "cuda")
+        a64 = _args(state, ctx, s64, torch.float64)
+        kw = dict(model=model, n_cats=n_cats, units=ctx.units)
+        k1 = pack.launch(pack.kernel_args(*a64, clv_store=store, **kw))
+        k2 = fels.launch(fels.kernel_args(*a64[:-1], n_pat=ctx.n_pat,
+                                          clv_store=store, **kw))
+        torch.cuda.synchronize()
+        want1 = pack.site_logl_packed_ref(*a64, model=model, n_cats=n_cats)
+        want2 = fels.site_logl_fels_ref(*a64[:-1], model=model,
+                                        n_cats=n_cats, n_pat=ctx.n_pat)
+        mask = ctx.locus_mask
+        assert float((k1 - want1)[mask].abs().max()) < 1e-10
+        assert float((k2 - want2).abs().max()) < 1e-10
+        k1, k2 = k1.clone(), k2.clone()
+        for threads in (None, 64, 128, 256):
+            assert torch.equal(k1, pack.launch(pack.kernel_args(
+                *a64, clv_store=store, threads=threads, **kw)))
+            assert torch.equal(k2, fels.launch(fels.kernel_args(
+                *a64[:-1], n_pat=ctx.n_pat, clv_store=store,
+                threads=threads, **kw)))
 
 
 def test_x64_engine_launches_the_float64_build(tmp_path):

@@ -29,7 +29,14 @@ in numpy/PyTorch and tested on the CPU.
   ``csrc/contract.cuh``) as hypothesis properties: float32's layout
   unchanged, float64's regions in order, disjoint and aligned to their
   element, its CLV slots twice float32's, and the launch plan choosing
-  the shared store exactly where a float64 warp fits.
+  the shared store exactly where a float64 warp fits and C is at most
+  ``pack.F64_SHARED_MAX_CATS``.
+* A numpy walk of the float64 build's ``DoubleWalk`` (a rescale by a
+  power of two only below 2^-512, an integer exponent, the next level's
+  child kept in registers) against ``fels.site_logl_fels_ref`` in
+  float64, rtol 1e-12, on the 12 loci x 4 families with and without
+  ``blen``, and on 128-tip trees with branches of 2e-8 that force the
+  rescale (against the plain pruning on the kernels' expm1 P(t)).
 """
 
 import jax.numpy as jnp
@@ -268,6 +275,170 @@ def test_walk_through_the_slots_matches_plain_version(mixed, model_name,
         rtol=1e-12, atol=1e-13)
 
 
+# csrc/contract.cuh DoubleWalk: a level is rescaled, by 2^-e, only when
+# the high word of its largest value is below 2^-512's
+LOW_HI = (1023 - 512) << 20
+DBL_MIN = np.finfo(np.float64).tiny
+
+
+def double_walk(order, left, right, n_seq, age, mu, rates_kappa, freqs,
+                eigw, eigT, eigTi, tips, *, model, n_cats, blen=None):
+    """The float64 build's algorithm up to 3 categories (``DoubleWalk``;
+    above, the float64 build walks as :func:`kernel_walk` states), locus
+    by locus in numpy: ``([L, S] values, rescales)``.
+
+    UnitWalk's prologue (branch lengths, factors, slot plan); a pattern is
+    rescaled by 2^-e only when the largest high word of its level's values
+    over all categories and states is below 2^-512's (e the largest
+    value's binary exponent), the integer sum of the e is kept, and e *
+    log(2) is added at the root; a level whose output the next level reads
+    keeps it in registers unstored, and no other read ever needs it."""
+    fam = model_family(model)
+    K, C = _KFAC[fam], n_cats
+    L, T, S, _ = tips.shape
+    N = 2 * T - 1
+    out = np.zeros((L, S))
+    rescales = 0
+    for l in range(L):
+        ns = int(n_seq[l])
+        nlev = max(ns - 1, 0)
+        # the prologue: both children's branches of every level, each
+        # index clamped as the kernels clamp it
+        length = blen[l] if blen is not None else age[l]
+        node = np.clip(order[l], T, N - 1)[:nlev]
+        lc = np.clip(left[l, node], 0, N - 1)
+        rc = np.clip(right[l, node], 0, N - 1)
+        if blen is not None:
+            bl = np.stack([length[lc], length[rc]], axis=1)
+        else:
+            bl = np.stack([np.maximum(length[node] - length[lc], 0.0),
+                           np.maximum(length[node] - length[rc], 0.0)],
+                          axis=1) * mu[l]
+        src_l, src_r, dst, _ = slot_plan(order[l], left[l], right[l], ns, T)
+        t_eff = torch.as_tensor(
+            bl.reshape(1, 2 * nlev, 1) * rates_kappa[l, None, None, :C])
+        fac, _ = efactors(model, t_eff, torch.as_tensor(freqs[l:l + 1]),
+                          torch.as_tensor(rates_kappa[l:l + 1, C]),
+                          torch.as_tensor(rates_kappa[l:l + 1, C + 1]),
+                          torch.as_tensor(eigw[l:l + 1]))
+        fac = fac.numpy().reshape(nlev, 2, C, K)
+        stored = {}                                     # slot -> CLVs
+        y = np.repeat(tips[l, 0][None], C, axis=0)      # [C, S, 4]
+        expo = np.zeros(S, np.int64)
+        held = None
+        for k in range(nlev):
+            xs = []
+            for src in (src_l[k], src_r[k]):
+                if src >= 0:
+                    xs.append(np.repeat(tips[l, src][None], C, axis=0))
+                elif -1 - src == held:
+                    xs.append(y)                        # from registers
+                else:
+                    xs.append(stored.pop(-1 - src))     # read once
+            y = np.stack([
+                _apply(fam, xs[0][c], fac[k, 0, c], freqs[l], eigT[l],
+                       eigTi[l])
+                * _apply(fam, xs[1][c], fac[k, 1, c], freqs[l], eigT[l],
+                         eigTi[l]) for c in range(C)])
+            last = k + 1 == nlev
+            hold = not last and dst[k] in (-1 - src_l[k + 1],
+                                           -1 - src_r[k + 1])
+            if not last:
+                hi = (y.view(np.int64) >> 32).max(axis=(0, 2))
+                low = (hi < LOW_HI) & (hi > 0)
+                e = np.where(low, (hi >> 20) - 1023, 0)
+                rescales += int(low.sum())
+                y = np.ldexp(y, -e[None, :, None])
+                expo += e
+                if not hold:
+                    stored[dst[k]] = y
+            held = dst[k] if hold else None
+        lik = sum((1.0 / C) * (y[c] * freqs[l]).sum(-1) for c in range(C))
+        out[l] = np.log(np.maximum(lik, DBL_MIN)) + expo * np.log(2.0)
+        assert not stored            # every CLV but the root's was read
+    return out, rescales
+
+
+@pytest.mark.parametrize("with_blen", [False, True])
+@pytest.mark.parametrize("model_name,n_cats", MODELS)
+def test_double_walk_matches_plain_version(mixed, model_name, n_cats,
+                                           with_blen):
+    from bpp_tpu_torch.core import felsenstein as fe
+    from bpp_tpu_torch.trees.gtree import GTrees
+    eng, state = mixed
+    L = state.gt.n_loci
+    model, subst = fixed_subst(model_name, n_cats, L, torch.float64)
+    subst = subst._replace(mu=torch.as_tensor(
+        np.random.default_rng(5).uniform(0.5, 2.0, L)))
+    args = _tree_args(state, eng.ctx, subst)
+    blen = None
+    if with_blen:
+        gt = state.gt
+        blen = fe.branch_lengths(GTrees(*gt[:4]), subst.mu) * torch.as_tensor(
+            np.random.default_rng(6).uniform(0.5, 2.0, gt.age.shape))
+    want = fels.site_logl_fels_ref(*args, model=model, n_cats=n_cats,
+                                   blen=blen).numpy()
+    a = [x.numpy() for x in args]
+    got, _ = double_walk(a[0], a[1], a[2], *a[4:], model=model,
+                         n_cats=n_cats,
+                         blen=None if blen is None else blen.numpy())
+    many = a[4] >= 2
+    assert many.sum() == 11
+    np.testing.assert_allclose(got[many], want[many], rtol=1e-12, atol=1e-13)
+    tip0 = a[12][~many][:, 0]
+    np.testing.assert_allclose(
+        got[~many], np.log((tip0 * a[8][~many][:, None]).sum(-1)),
+        rtol=1e-12, atol=1e-13)
+
+
+@pytest.mark.parametrize("model_name,n_cats", [("JC69", 1), ("HKY", 4)])
+def test_double_walk_rescales_deep_caterpillars(model_name, n_cats):
+    """Caterpillars and balanced trees of up to 128 tips with branches of
+    about 2e-8: many patterns' likelihoods lie below double's range, so
+    the walk must rescale, and it still agrees with the plain pruning.
+
+    ``site_logl_fels_ref`` forms P(t) with 1 - exp(-t), which keeps about
+    eps / t of an off-diagonal entry on such a branch (1e-8 lnL a pattern
+    here); so the reference is the plain pruning
+    (``felsenstein.site_loglikelihood``, a rescale at every level) on the
+    P(t) the kernels apply, from the same expm1 factors."""
+    from bpp_tpu_torch.core import felsenstein as fe
+    from bpp_tpu_torch.testing import shaped_batch
+    from bpp_tpu_torch.trees.gtree import inner_order
+    gt, n_seq, n_pat, tips, _ = shaped_batch(128, 12, seed=7,
+                                             dtype=torch.float64)
+    keep = slice(2 * 128 - 6, 2 * 128)       # the 6 loci of most tips
+    gt = type(gt)(*(x[keep].contiguous() for x in gt[:4]))
+    gt = gt._replace(age=gt.age * 1e-5)
+    n_seq, n_pat, tips = n_seq[keep], n_pat[keep], tips[keep].contiguous()
+    L, T = gt.n_loci, tips.shape[1]
+    model, s = fixed_subst(model_name, n_cats, L, torch.float64)
+    rk = torch.cat([s.rates, s.kappa1[:, None], s.kappa2[:, None]], dim=1)
+    args = (inner_order(gt), gt.left, gt.right, gt.parent, n_seq, gt.age,
+            s.mu, rk, s.freqs, s.eigw, s.eigT, s.eigTi, tips)
+    a = [x.numpy() for x in args]
+    got, rescales = double_walk(a[0], a[1], a[2], *a[4:], model=model,
+                                n_cats=n_cats)
+    t_eff = pack.scaled_lengths(*args[:4], gt.age, s.mu, rk, n_cats, None)
+    fac, _ = efactors(model, t_eff, s.freqs, rk[:, n_cats],
+                      rk[:, n_cats + 1], s.eigw)
+    fam = model_family(model)
+    eye = np.eye(4)
+    pmats = np.zeros(fac.shape[:3] + (4, 4))
+    for l in range(L):
+        for i in range(2 * T - 1):
+            for c in range(n_cats):
+                pmats[l, i, c] = _apply(fam, eye, fac[l, i, c].numpy(),
+                                        a[8][l], a[10][l], a[11][l]).T
+    cw = torch.full((n_cats,), 1.0 / n_cats, dtype=torch.float64)
+    want = fe.site_loglikelihood(gt, tips, n_seq, torch.as_tensor(pmats),
+                                 s.freqs, cw, order=args[0]).numpy()
+    live = np.arange(tips.shape[2]) < n_pat.numpy()[:, None]
+    assert live.sum() > 30 and rescales > 0
+    assert want[live].min() < np.log(DBL_MIN)      # below double's range
+    np.testing.assert_allclose(got[live], want[live], rtol=1e-12)
+
+
 def test_scheduled_children_have_the_levels_node_as_parent(mixed):
     from bpp_tpu_torch.trees.gtree import inner_order
     eng, state = mixed
@@ -461,11 +632,15 @@ def test_float64_store_plan(T, C, fam, shared, threads):
 
     fits64 = wb(True)(T, C, fam, 1) <= pack.BLOCK_SHARED
     try:
-        p64 = pack.plan_launch("t", wb(True), T, C, fam, None, threads)
+        p64 = pack.plan_launch("t", wb(True), T, C, fam, None, threads,
+                               dbl=True)
     except ValueError:
         assert wb(True)(T, C, fam, 0) > pack.BLOCK_SHARED
         return
-    assert p64.clv_store == ("shared" if fits64 else "global")
+    # the float64 build's store: shared where a warp fits and C is at most
+    # F64_SHARED_MAX_CATS, which measured faster there; else the scratch
+    assert p64.clv_store == ("shared" if fits64 and
+                             C <= pack.F64_SHARED_MAX_CATS else "global")
     assert p64.shared_bytes == p64.threads // 32 * wb(True)(
         T, C, fam, p64.clv_store == "shared")
     assert p64.shared_bytes <= pack.BLOCK_SHARED
@@ -476,3 +651,12 @@ def test_float64_store_plan(T, C, fam, shared, threads):
     if p32.clv_store == p64.clv_store:
         # the same store in doubles: as many warps a block at most
         assert p64.threads <= p32.threads
+    # a forced store is taken as it is
+    for store in ("shared", "global"):
+        try:
+            forced = pack.plan_launch("t", wb(True), T, C, fam, store,
+                                      threads, dbl=True)
+        except ValueError:
+            assert store == "shared" and not fits64
+            continue
+        assert forced.clv_store == store
