@@ -5,7 +5,9 @@
 
 ``--parent DIR``, a checkout of the parent commit (``git archive``), adds
 the parent's float64 builds timed on ``[x64]``'s inputs in a process of
-their own.  Phases, in order; any failure exits non-zero:
+their own.  Phases, numbered as they were added (``main`` runs 13, 19 and
+20-22 right after the build, while the simulations of data 1 and data 2
+run beside them, then the others in order); any failure exits non-zero:
 
 1. device   — torch version, the card's name and power limit;
 2. build    — nvcc builds kernels K1 (``bpp_tpu_torch/csrc/pack_kernel.cu``)
@@ -13,7 +15,14 @@ their own.  Phases, in order; any failure exits non-zero:
               together; the float64 instantiations' registers and spills
               from the ``-Xptxas -v`` report (none of C <= 4 may spill);
 3. data 1   — the port's simulator writes the haploid bench dataset (4
-              species x 4 sequences, 500 sites, JC69, 1000 loci, seed 137);
+              species x 4 sequences, 500 sites, JC69, seed 137) at
+              10,000 loci, ``bench.py``'s scale target; every 1000-locus
+              path reads its first 1000 loci (a control file's ``nloci``
+              reads the first alignments, and the simulator is prefix-
+              stable).  The simulation, and that of data 2, run in
+              processes of their own from the start of the script, beside
+              the build, ``[shapes]``, main 9 and the MSC-I phases, which
+              need neither;
 4. kernel 1 — on gene trees from the JC69 engine, K1 (float32) is held
               against its plain PyTorch version (float64, on the card)
               for JC69, HKY+G4, TN93 and GTR+G4 (max per-locus |dlnL| <
@@ -248,11 +257,53 @@ their own.  Phases, in order; any failure exits non-zero:
               times on its own 500 loci of cuda:0 and the plain versions
               never; then main 16's diploid run likewise (K2's float64 build
               12 x 10 + 1 on each rank's 500 loci); the chain's wall ms an
-              iteration beside main 16's.  The ranks are killed on a
-              failure or after ``SHARD_TIMEOUT`` seconds.
+              iteration beside main 16's, and each rank's peak device
+              memory.  The ranks are killed on a failure or after
+              ``SHARD_TIMEOUT`` seconds.
 
-Then one JSON line ``{"kernels": [...]}`` (K1 at JC69, K2 at HKY+G4: the
-models of their chains; launches summed over main 1-15 and [tools],
+The configurations no earlier run took to the card, each through
+``cli.main`` with its launches predicted, finite moving samples, ``check``
+where set, its pruning kernel held against its float64 plain version on
+the chain's last state, and the ``[profile]`` of its step there:
+
+33. main 17 — main 1's run at 10,000 loci, burnin 2, nsample 8: K1 8 an
+              iteration plus 1 = 81; the load through the native
+              compressor timed; K1 held on all 10,000 loci;
+34. main 18 — ``chains = 8`` on the first 100 loci (``bench.py``'s
+              ``_bench_chains8`` shape), burnin 8, nsample 12: K1 8 x (8 x
+              20 + 1) = 1,288; eight finite moving mcmc files and the
+              pooled split-R-hat table;
+35. main 19 — TN93+G4 (``model = TN93``, ``alphaprior = 1 1 4``) on main
+              1's data, 20 iterations: K1 8 + freqs 1 + qrates 2 (TN93's
+              two free rates) + alpha 1 = 12 an iteration plus 1; the
+              frequencies, rates and alpha (not in mcmc.txt) moved on the
+              loci; K1 held on the state's own TN93+G4 parameters;
+36. main 20 — GTR+G4 likewise: K1 8 + 1 + 5 + 1 = 15 an iteration plus 1;
+              the eigensystems (``torch.linalg.eigh`` in float32 on the
+              card) that came out NaN counted, each rejected;
+37. main 21 — main 2's diploid data with Gamma-Dirichlet locus rates
+              (``locusrate = 1 10 10 5``), the correlated clock (``clock = 3
+              10 100 5 gdir LN``) and ``check = 10``, 20 iterations: K2 8 +
+              freqs 1 + qrates 1 + alpha 1 + mu_i 1 (the root's rate is
+              mu_i under clock 3) + 6 (the branch sweep skips the root) =
+              18 an iteration plus 1 plus 1 a check; mu_i, nu_i and the
+              branch rates moved; K2 held on the relaxed branch lengths;
+              ``[moves]``: one ``_host_gammadir`` call at 1000 loci;
+38. main 22 — main 15's traits under ``clock = 2 10 100 5 iid G`` with
+              A01's species moves and ``check = 10``, 20 iterations: K1 8
+              + species move 1 + 7 branch-rate passes = 16 an iteration
+              plus 1 plus 1 a check; the cached trait logl equal to a fresh
+              evaluation at every check, SPR and SNL proposed, the A01
+              report as main 6's; K1 held on the relaxed branch lengths;
+39. memory  — every chain's peak device memory
+              (``torch.cuda.max_memory_allocated`` from a reset just before
+              the chain; ``run_chain`` prints it on the chain's line beside
+              what the process held before it) in one line.
+
+Then a ``[time]`` line (the whole script, and the seconds of each group
+of phases in the order they ran), one JSON line ``{"kernels": [...]}``
+(K1 at JC69, K2 at HKY+G4: the
+models of their chains; launches summed over main 1-15, 17-22 and [tools],
 errors the largest of every hold; then the float64 builds, with main
 16's and both [shard] ranks' launches and the [x64] holds), the card's name and power limit from
 nvidia-smi, and the last line ``{"ok": true, "device": {...}}``.  Without
@@ -488,6 +539,27 @@ SHARD_TIMEOUT = 400
 # [tools]: --bfdriver's quadrature points, and the smallest beta's run
 BF_POINTS = 4
 BF_BURNIN, BF_NSAMPLE = 2, 8
+# the haploid data: one simulation at bench.py's scale target (bench.py
+# _ensure_sim); main 17 runs all of it, 10 iterations
+N_LOCI_10K = 10000
+BURNIN_17, NSAMPLE_17 = 2, 8
+# main 18: bench.py's _bench_chains8 shape
+CHAINS_18, N_LOCI_18 = 8, 100
+# mains 18-22: 20 iterations, burnin 8 (the fewest with finetune marks)
+NEW_BURNIN, NEW_NSAMPLE = 8, 12
+NEW_CHECKS = (NEW_BURNIN + NEW_NSAMPLE) // CHECK_EVERY
+GAMMA4 = "alphaprior = 1 1 4\n"
+# + freqs 1 + one qrates pass a free rate (TN93 2, GTR 5) + alpha 1
+PASSES_PER_ITER_19 = PASSES_PER_ITER + 1 + 2 + 1
+PASSES_PER_ITER_20 = PASSES_PER_ITER + 1 + 5 + 1
+# main 21: main 2's move set (mu_i changes the likelihood under clock 3,
+# whose root rate is mu_i) + the branch sweep, which skips the root
+CORR21 = ("locusrate = 1 10 10 5\nclock = 3 10 100 5 gdir LN\n"
+          "check = {check}\n")
+PASSES_PER_ITER_21 = PASSES_PER_ITER_2 + H_BRANCHES - 1
+# main 22: the species move 1 + the IID branch sweep (root included)
+CLOCK2 = "clock = 2 10 100 5 iid G\n"
+PASSES_PER_ITER_22 = PASSES_PER_ITER_6 + H_BRANCHES
 TOL_SITE = 2e-3           # per-pattern |dlnL| of K2, float32
 TOL_LNL = 0.02            # f32 bound of tests/test_kernel_consistency.py
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -588,7 +660,11 @@ def bound_ms(batch, model_name, n_cats, per_pattern=False, rb=4,
 
 
 def device_kernels(fn):
-    """Run ``fn()`` under torch.profiler; the device (CUDA) events."""
+    """Run ``fn()`` under torch.profiler; (name, microseconds) of each
+    device (CUDA) event in the order they started, read from the trace's
+    raw events: the events ``prof.events()`` would keep, without building
+    its tree of host and device events, which takes the host seconds a
+    10,000 events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -596,8 +672,12 @@ def device_kernels(fn):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = sorted(
+        (e.start_ns(), e.name(), (e.end_ns() - e.start_ns()) / 1e3)
+        for e in prof.profiler.kineto_results.events()
+        if e.device_type() == torch.autograd.DeviceType.CUDA
+        and not getattr(e, "is_hidden_event", lambda: False)())
+    return [(name, us) for _, name, us in events]
 
 
 def kernel_device_ms(launch, kernel_name, reps=30, windows=3, attempts=10):
@@ -619,8 +699,8 @@ def kernel_device_ms(launch, kernel_name, reps=30, windows=3, attempts=10):
             launch()
     medians, held = [], []
     for _ in range(attempts):
-        times = [e.time_range.elapsed_us() / 1e3
-                 for e in device_kernels(run) if kernel_name in e.name]
+        times = [us / 1e3 for name, us in device_kernels(run)
+                 if kernel_name in name]
         held.append(len(times))
         if reps <= len(times) <= 2 * reps:
             medians.append(statistics.median(times[-reps:]))
@@ -653,7 +733,7 @@ def profile_step(eng, state, step_ms, smi, kernel_name, label, passes,
         if kernel_name is None:
             mine = []
             break
-        mine = [e for e in kern if kernel_name in e.name]
+        mine = [k for k in kern if kernel_name in k[0]]
         if len(mine) == passes * iters:
             break
     else:
@@ -661,8 +741,8 @@ def profile_step(eng, state, step_ms, smi, kernel_name, label, passes,
             f"{label}: no profiler trace of {attempts} held all "
             f"{passes * iters} launches of {kernel_name} (the last held "
             f"{len(mine)})")
-    busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3 / iters
-    k_ms = sum(e.time_range.elapsed_us() for e in mine) / 1e3 / iters
+    busy = sum(us for _, us in kern) / 1e3 / iters
+    k_ms = sum(us for _, us in mine) / 1e3 / iters
     pruning = (f"{kernel_name} {k_ms:.3f} in {len(mine) / iters:.0f} "
                "launches" if kernel_name else "no pruning kernel")
     print(f"[profile] {label}: {len(kern) / iters:.0f} device kernels/iter "
@@ -713,10 +793,11 @@ def wall_ms(fn, reps=5):
     return statistics.median(times)
 
 
-def check_chain_output(job, nsample, moving, figtree=True):
+def check_chain_output(job, nsample, moving, figtree=True, every=True):
     """mcmc.txt of ``job``: ``nsample`` finite rows whose ``moving``
-    columns moved; the summary and (``figtree``: not on a network) the
-    tree file exist.  Returns the samples."""
+    columns moved (with ``every`` False: some column of each prefix in
+    ``moving``); the summary and (``figtree``: not on a network) the tree
+    file exist.  Returns the samples."""
     import numpy as np
     with open(f"{job}.mcmc.txt") as f:
         header = f.readline().split()
@@ -726,15 +807,19 @@ def check_chain_output(job, nsample, moving, figtree=True):
     if not np.isfinite(data).all():
         raise AssertionError(f"non-finite values in {job}.mcmc.txt")
     sd = data.std(axis=0)
-    seen = set()
+    seen, moved = set(), set()
     for j, col in enumerate(header):
         for prefix in moving:
             if col.startswith(prefix):
                 seen.add(prefix)
-                if not sd[j] > 0:
+                if sd[j] > 0:
+                    moved.add(prefix)
+                elif every:
                     raise AssertionError(f"{job}: column {col} never moved")
     if seen != set(moving):
         raise AssertionError(f"{job}: no column of {set(moving) - seen}")
+    if moved != seen:
+        raise AssertionError(f"{job}: no column of {seen - moved} moved")
     for fn in (f"{job}.txt", f"{job}.FigTree.tre")[:1 + figtree]:
         if not os.path.getsize(fn):
             raise AssertionError(f"{fn} is empty")
@@ -744,20 +829,25 @@ def check_chain_output(job, nsample, moving, figtree=True):
 
 
 def run_chain(argv, job, iters, expect, moving, label, smi, figtree=True,
-              nsample=NSAMPLE, clv_store="shared"):
+              nsample=NSAMPLE, clv_store="shared", every=True):
     """Drive one chain through the CLI (``argv``) with both launch counts
     (and those of the float64 builds) set to 0 just before and read just
     after; ``expect`` = (K1, K2) launches over ``iters`` iterations and
     the initial state.  ``moving`` names the mcmc.txt columns that must
-    move, or is "A01" / "A11" for a run that writes species trees; the
-    file holds ``nsample`` samples.  ``clv_store`` is the store the
+    move (``every``: see :func:`check_chain_output`), or is "A01" /
+    "A11" for a run that writes species trees; the file holds
+    ``nsample`` samples.  ``clv_store`` is the store the
     wrappers pick for the run: shared memory at 16 tips, but the device
     scratch for the float64 build above ``pack.F64_SHARED_MAX_CATS``
-    categories."""
+    categories.  The peak device memory of the run, from a reset just
+    before it, goes on its line and into ``PEAKS``."""
     import torch
 
     from bpp_tpu_torch import cli
     from bpp_tpu_torch.core import fels, pack
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() / 2**20
+    torch.cuda.reset_peak_memory_stats()
     pack.LAUNCHES = fels.LAUNCHES = 0
     pack.LAUNCHES_F64 = fels.LAUNCHES_F64 = 0
     t0 = time.perf_counter()
@@ -765,6 +855,8 @@ def run_chain(argv, job, iters, expect, moving, label, smi, figtree=True,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     got = (pack.LAUNCHES, fels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    PEAKS.append((label, peak, held))
     if rc != 0:
         raise AssertionError(f"cli.main returned {rc}")
     if got != expect:
@@ -779,15 +871,20 @@ def run_chain(argv, job, iters, expect, moving, label, smi, figtree=True,
     if moving in ("A01", "A11"):
         result = check_species_output(job, nsample, moving)
     else:
-        data = check_chain_output(job, nsample, moving, figtree)
+        data = check_chain_output(job, nsample, moving, figtree, every)
         result = f"mean lnL {data[:, -1].mean():.3f}"
     print(f"[{label}] cli {' '.join(argv)}: {iters} iterations, wall "
           f"{wall:.1f} "
           f"s (load + init + chain + summary), {iters / wall:.2f} iters/s "
           f"overall | K1 launches {got[0]} | K2 launches {got[1]} (float64 "
           f"build {pack.LAUNCHES_F64} / {fels.LAUNCHES_F64}) | CLV store "
-          f"{store if sum(got) else '-'} | {result} | {smi}")
+          f"{store if sum(got) else '-'} | peak device memory {peak:.1f} "
+          f"MiB ({held:.1f} held before the run) | {result} | {smi}")
     return got
+
+
+# (label, peak MiB, MiB held before) of every run_chain and [shard] rank 0
+PEAKS = []
 
 
 def _prob_rows(lines, header):
@@ -827,6 +924,9 @@ def check_species_output(job, nsample, method):
                                  f"sums to {total} over {len(rows)} rows")
         first = first or f"{len(rows)} rows, top {rows[0][0]} {rows[0][-1]}"
     return f"{nsample} species trees | {method} report {first}"
+
+
+TRAIT_MOVE = ("trait_moves", "trait_brate_move")
 
 
 class MoveTally:
@@ -1070,27 +1170,28 @@ def fixed_cases(L, dev):
     return cases
 
 
-def custom_cases(eng, state):
-    """The one case of a partition (``model = custom``): ``state``'s own
-    per-locus parameters, their kappas and eigensystems computed in
-    float32 and in float64."""
+def own_cases(eng, state):
+    """The one case of ``state``'s own substitution parameters (under
+    ``model = custom`` each locus's model): their kappas and eigensystems
+    computed in float32 and in float64."""
     import torch
 
     from bpp_tpu_torch.config import SubstModel
     from bpp_tpu_torch.mcmc import subst_moves
     from bpp_tpu_torch.mcmc.state import refresh_eigen
-    cm = eng.ctx.custom
+    model, cm = eng.cfg.model, eng.ctx.custom
 
     def subst(dtype):
         s = type(state.subst)(*(x.to(dtype) for x in state.subst))
-        s = subst_moves._derive_kappas(s, SubstModel.CUSTOM, cm)
-        s = refresh_eigen(s, SubstModel.CUSTOM, cm)
+        s = subst_moves._derive_kappas(s, model, cm)
+        s = refresh_eigen(s, model, cm)
         return type(s)(*(x.contiguous() for x in s))
 
     n_cats = state.subst.rates.shape[1]
-    return [(f"partition {'/'.join(CUSTOM_MODELS)}"
-             + (f"+G{n_cats}" if n_cats > 1 else ""), SubstModel.CUSTOM,
-             n_cats, subst(torch.float32), subst(torch.float64))]
+    name = (f"partition {'/'.join(CUSTOM_MODELS)}"
+            if model == SubstModel.CUSTOM else f"{model.name} (own)")
+    return [(name + (f"+G{n_cats}" if n_cats > 1 else ""), model, n_cats,
+             subst(torch.float32), subst(torch.float64))]
 
 
 def hold_given(label, eng, state, smi, blen_of=None, report=True,
@@ -1337,30 +1438,91 @@ def check_a00_extras(job, nsample):
             f"Rao-Blackwellized summary, {job}.pdf {len(pdf)} bytes")
 
 
+class Checks:
+    """While active, the iteration of every ``Engine.validate_state`` call
+    (``its``) and, where the state holds traits, the largest |cached -
+    fresh| trait logl at it (``trait_diffs``), taken before the check."""
+
+    def __enter__(self):
+        from bpp_tpu_torch.mcmc import moves
+        from bpp_tpu_torch.mcmc.driver import Engine
+        self.its, self.trait_diffs = [], []
+        self._orig = orig = Engine.validate_state
+        checks = self
+
+        def validate(eng, state, it=None):
+            checks.its.append(it)
+            if state.trait is not None:
+                fresh = moves._trait_eval(eng.ctx, state.sp, state.sp.tau,
+                                          state.trait.brate)
+                checks.trait_diffs.append(
+                    float((fresh - state.trait.logl).abs().max()))
+            return orig(eng, state, it)
+
+        Engine.validate_state = validate
+        return self
+
+    def __exit__(self, *exc):
+        from bpp_tpu_torch.mcmc.driver import Engine
+        Engine.validate_state = self._orig
+
+    def expect(self, label, burnin, nsample, traits=False):
+        """Every ``CHECK_EVERY``-th iteration from the start of burn-in
+        was checked (and, with ``traits``, the trait caches were exact at
+        each)."""
+        want = list(range(-burnin + CHECK_EVERY, nsample + 1, CHECK_EVERY))
+        if self.its != want:
+            raise AssertionError(f"{label}: checks at {self.its}, expected "
+                                 f"{want}")
+        if traits and (len(self.trait_diffs) != len(want)
+                       or any(d != 0.0 for d in self.trait_diffs)):
+            raise AssertionError(f"{label}: the cached trait logl differs "
+                                 f"from a fresh evaluation at the checks: "
+                                 f"{self.trait_diffs}")
+
+
+class ChainEnds:
+    """While active, the state the first ``Engine._step`` was given
+    (``first``) and the last (engine, state) a step returned (``last``;
+    under ``chains = K``, the last chain's); :meth:`seen` gets every
+    state a step returns."""
+
+    def __enter__(self):
+        from bpp_tpu_torch.mcmc.driver import Engine
+        self.first = self.last = None
+        self._orig = orig = Engine._step
+        ends = self
+
+        def step(eng, state):
+            if ends.first is None:
+                ends.first = state
+            state, stats = orig(eng, state)
+            ends.last = (eng, state)
+            ends.seen(eng, state)
+            return state, stats
+
+        Engine._step = step
+        return self
+
+    def seen(self, eng, state):
+        """What a subclass keeps of each state."""
+
+    def __exit__(self, *exc):
+        from bpp_tpu_torch.mcmc.driver import Engine
+        Engine._step = self._orig
+
+
 def main8(iters, smi):
     """Main 8 through the CLI: the partition chain with ``check`` and the
     gene-tree print files; every check passes and is counted.  Returns the
     K1 launches."""
     from bpp_tpu_torch.io.newick import parse_newick
-    from bpp_tpu_torch.mcmc.driver import Engine
-    checks = []
-    orig = Engine.validate_state
-
-    def counted(self, state, it=None):
-        checks.append(it)
-        return orig(self, state, it)
-
-    Engine.validate_state = counted
-    try:
+    with Checks() as checks:
         launches, _ = run_chain(
             ["--cfile", "run8.ctl"], "out8", iters,
             (PASSES_PER_ITER_8 * iters + 1 + N_CHECKS, 0), ("theta", "tau"),
             "main 8", smi)
-    finally:
-        Engine.validate_state = orig
-    want = list(range(-BURNIN + CHECK_EVERY, NSAMPLE + 1, CHECK_EVERY))
-    if checks != want:
-        raise AssertionError(f"main 8: checks at {checks}, expected {want}")
+    checks.expect("main 8", BURNIN, NSAMPLE)
     files = sorted(f for f in os.listdir(".") if f.startswith("out8.")
                    and ("gtree" in f or "params" in f))
     if files != [f"out8.gtree.L{i}" for i in sorted((1, N_LOCI), key=str)]:
@@ -1372,8 +1534,8 @@ def main8(iters, smi):
             raise AssertionError(f"{fn}: {len(trees)} trees")
         for t in trees:
             parse_newick(t)
-    print(f"[main 8] {len(checks)} checks passed (float32, tol 0.5) at "
-          f"iterations {checks} | {', '.join(files)}: {NSAMPLE} gene trees "
+    print(f"[main 8] {len(checks.its)} checks passed (float32, tol 0.5) at "
+          f"iterations {checks.its} | {', '.join(files)}: {NSAMPLE} gene trees "
           f"each | {check_a00_extras('out8', NSAMPLE)} | {smi}")
     return launches
 
@@ -1425,17 +1587,13 @@ def aa_phase(dev, smi, iters):
         raise AssertionError(f"main 9: float32 and float64 differ by {err}")
     del eng, state, args, lnl32, lnl64, ctx64, gt64, s64
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
     run_chain(["--cfile", "run9.ctl"], "out9", iters, (0, 0),
               ("theta", "tau"), "main 9", smi)
-    peak = torch.cuda.max_memory_allocated() / 2**20
-    print(f"[main 9] peak device memory {peak:.1f} MiB "
-          f"(torch.cuda.max_memory_allocated) | "
-          f"{check_a00_extras('out9', NSAMPLE)} | {smi}")
+    print(f"[main 9] {check_a00_extras('out9', NSAMPLE)} | {smi}")
     return err, pass_ms
 
 
-class StepWatch:
+class StepWatch(ChainEnds):
     """While active, keeps the route-consistency flag of every state an
     MSC-I engine's step returns (with ``mig``: an MSC-M engine's, whose
     events must lie in their edges and populations too, and under the
@@ -1446,39 +1604,27 @@ class StepWatch:
         self.mig = mig
 
     def __enter__(self):
-        from bpp_tpu_torch.mcmc.driver import Engine
+        self.flags, self.ons = [], []
+        return super().__enter__()
+
+    def seen(self, eng, state):
         from bpp_tpu_torch.trees import migration as mg
         from bpp_tpu_torch.trees.gtree import (
             assign_populations, route_consistent,
         )
-        self.flags, self.ons, self.last = [], [], None
-        self._orig = orig = Engine._step
-        watch = self
-
-        def step(eng, state):
-            state, stats = orig(eng, state)
-            ctx = eng.ctx
-            if watch.mig:
-                pops = mg.assign_populations_mig(
-                    state.gt, state.sp, ctx.tip_pop, state.mig, ctx.n_seq)
-                ok = mg.route_consistent_mig(state.gt, state.sp, state.mig,
-                                             pops, ctx.n_seq)
-                ok = ok | ~ctx.locus_mask
-            else:
-                pops = assign_populations(state.gt, state.sp, ctx.tip_pop)
-                ok = route_consistent(state.gt, state.sp, pops, ctx.n_seq)
-            watch.flags.append(ok.all())
-            if watch.mig and state.mig.on is not None:
-                watch.ons.append(state.mig.on)
-            watch.last = (eng, state)
-            return state, stats
-
-        Engine._step = step
-        return self
-
-    def __exit__(self, *exc):
-        from bpp_tpu_torch.mcmc.driver import Engine
-        Engine._step = self._orig
+        ctx = eng.ctx
+        if self.mig:
+            pops = mg.assign_populations_mig(
+                state.gt, state.sp, ctx.tip_pop, state.mig, ctx.n_seq)
+            ok = mg.route_consistent_mig(state.gt, state.sp, state.mig,
+                                         pops, ctx.n_seq)
+            ok = ok | ~ctx.locus_mask
+        else:
+            pops = assign_populations(state.gt, state.sp, ctx.tip_pop)
+            ok = route_consistent(state.gt, state.sp, pops, ctx.n_seq)
+        self.flags.append(ok.all())
+        if self.mig and state.mig.on is not None:
+            self.ons.append(state.mig.on)
 
 
 def write_net_data(prefix, nloci, seqs, extra):
@@ -1853,13 +1999,23 @@ def mig_phases(dev, smi, iters, n_loci=N_LOCI, n_diploid=N_MIG_DIPLOID):
     return launches12, max(mig["a"], mig["b"]), mig["c"]
 
 
-class TwoChains:
+class Chains:
     """``chunk_step`` over the K chains of an engine, each with its own
     generator, as ``Engine.run_mcmc_multi`` steps them: what
     ``profile_step`` and ``step_ms`` time."""
 
     def __init__(self, eng, gens):
         self.eng, self.gens = eng, gens
+
+    @classmethod
+    def start(cls, eng, k):
+        """(the K-chain stepper, the K initial states) of ``eng``, each
+        chain seeded as ``run_mcmc_multi`` seeds it."""
+        import torch
+        gens = [torch.Generator(device=eng.device) for _ in range(k)]
+        for c, g in enumerate(gens):
+            g.manual_seed(eng.chain_seed(c))
+        return cls(eng, gens), eng.init_states(k)
 
     def chunk_step(self, states, n, it=None):
         own = self.eng.gen
@@ -1872,37 +2028,45 @@ class TwoChains:
         return states, None
 
 
+def check_chains(job, k, nsample, label):
+    """The files of a ``chains = k`` run: chains 2..k's mcmc.txt hold
+    ``nsample`` finite samples with every column but lnL moving (chain
+    1's is :func:`run_chain`'s), and the pooled summary its split-R-hat
+    table.  Returns (the mcmc files, the table's first two rows)."""
+    import numpy as np
+    files = [f"{job}.mcmc.txt"] + [f"{job}.c{c}.mcmc.txt"
+                                   for c in range(2, k + 1)]
+    for fn in files[1:]:
+        with open(fn) as f:
+            f.readline()
+            data = np.loadtxt(f, ndmin=2)
+        if (data.shape[0] != nsample or not np.isfinite(data).all()
+                or not (data.std(axis=0)[:-1] > 0).all()):
+            raise AssertionError(f"{label}: {fn} holds {data.shape} samples "
+                                 "or a column that never moved")
+    with open(f"{job}.txt") as f:
+        summary = f.read()
+    if f"split-R-hat over {k} chains" not in summary:
+        raise AssertionError(f"{label}: no split-R-hat table in {job}.txt")
+    rows = summary.split("(values near 1 = converged):")[1].splitlines()[1:3]
+    return files, "; ".join(r.strip() for r in rows)
+
+
 def main13(iters, smi, dev):
     """``[main 13]``: ``chains = 2`` on main 1's data with ``checkpoint =
     25 0``, run whole and then resumed; the ``[profile]`` of the two-chain
     step.  Returns K1's launches."""
-    import numpy as np
-    import torch
-
     from bpp_tpu_torch.loader import load_run_from_ctl
     from bpp_tpu_torch.mcmc.driver import Engine
     with open("run13.ctl", "w") as f:
         f.write(RUN_CTL.format(nloci=N_LOCI, burnin=BURNIN, nsample=NSAMPLE,
                                job="out13", extra=f"chains = {CHAINS}\n"
                                f"checkpoint = {CHECKPOINT_AT} 0\n"))
-    files = ["out13.mcmc.txt"] + [f"out13.c{k}.mcmc.txt"
-                                  for k in range(2, CHAINS + 1)]
     launches, _ = run_chain(
         ["--cfile", "run13.ctl"], "out13", iters,
         (CHAINS * (PASSES_PER_ITER * iters + 1), 0), ("theta", "tau"),
         "main 13", smi, figtree=False)
-    for fn in files[1:]:
-        with open(fn) as f:
-            f.readline()
-            data = np.loadtxt(f, ndmin=2)
-        if (data.shape[0] != NSAMPLE or not np.isfinite(data).all()
-                or not (data.std(axis=0)[:-1] > 0).all()):
-            raise AssertionError(f"main 13: {fn} holds {data.shape} samples "
-                                 "or a column that never moved")
-    with open("out13.txt") as f:
-        summary = f.read()
-    if f"split-R-hat over {CHAINS} chains" not in summary:
-        raise AssertionError("main 13: no split-R-hat table in out13.txt")
+    files, rhat = check_chains("out13", CHAINS, NSAMPLE, "main 13")
     whole = []
     for fn in files:
         with open(fn, "rb") as f:
@@ -1918,19 +2082,14 @@ def main13(iters, smi, dev):
             if f.read() != w:
                 raise AssertionError(f"main 13: the resumed {fn} differs "
                                      "from the uninterrupted run's")
-    rhat = summary.split("(values near 1 = converged):")[1].splitlines()[1:3]
     print(f"[main 13] {CHAINS} chains: {', '.join(files)} {NSAMPLE} finite "
-          f"moving samples each; split-R-hat table ({'; '.join(r.strip() for r in rhat)}, "
-          f"...); --resume at it {CHECKPOINT_AT}: every file byte-identical "
-          f"to the whole run's | {smi}")
+          f"moving samples each; split-R-hat table ({rhat}, ...); --resume "
+          f"at it {CHECKPOINT_AT}: every file byte-identical to the whole "
+          f"run's | {smi}")
 
     # the two-chain step, profiled
-    eng = Engine(load_run_from_ctl("run13.ctl"), seed=1, device=dev)
-    states = eng.init_states(CHAINS)
-    gens = [torch.Generator(device=dev) for _ in range(CHAINS)]
-    for k, g in enumerate(gens):
-        g.manual_seed(eng.chain_seed(k))
-    both = TwoChains(eng, gens)
+    both, states = Chains.start(
+        Engine(load_run_from_ctl("run13.ctl"), seed=1, device=dev), CHAINS)
     states, _ = both.chunk_step(states, 5)
     profile_step(both, states, step_ms(both, states), smi,
                  "pack_logl_kernel", f"JC69 {CHAINS}-chain step (main 13)",
@@ -2018,7 +2177,6 @@ def main15(smi, dev):
     K1's launches."""
     import torch
 
-    from bpp_tpu_torch.mcmc import moves
     from bpp_tpu_torch.mcmc.driver import Engine
     from bpp_tpu_torch.testing import write_trait_file
     write_trait_file("traits.txt", seed=137)
@@ -2027,29 +2185,14 @@ def main15(smi, dev):
                                job="out15",
                                extra=TRAITS15.format(check=CHECK_EVERY)))
     iters = BURNIN + NSAMPLE
-    diffs = []
-    orig = Engine.validate_state
-
-    def validate(eng, state, it=None):
-        fresh = moves._trait_eval(eng.ctx, state.sp, state.sp.tau,
-                                  state.trait.brate)
-        diffs.append(float((fresh - state.trait.logl).abs().max()))
-        return orig(eng, state, it)
-
-    Engine.validate_state = validate
-    try:
-        with MoveTally(record=True, moves=(("trait_moves",
-                                            "trait_brate_move"),),
-                       accepted=False) as tally:
-            launches, _ = run_chain(
-                ["--cfile", "run15.ctl"], "out15", iters,
-                (PASSES_PER_ITER * iters + 1 + N_CHECKS, 0),
-                ("theta", "tau"), "main 15", smi)
-    finally:
-        Engine.validate_state = orig
-    if len(diffs) != N_CHECKS or any(d != 0.0 for d in diffs):
-        raise AssertionError(f"main 15: the cached trait logl differs from "
-                             f"a fresh evaluation at the checks: {diffs}")
+    with Checks() as checks, MoveTally(
+            record=True, moves=(TRAIT_MOVE,), accepted=False) as tally:
+        launches, _ = run_chain(
+            ["--cfile", "run15.ctl"], "out15", iters,
+            (PASSES_PER_ITER * iters + 1 + N_CHECKS, 0),
+            ("theta", "tau"), "main 15", smi)
+    checks.expect("main 15", BURNIN, NSAMPLE, traits=True)
+    diffs = checks.trait_diffs
     prop, acc = tally.counts["trait_brate_move"]
     if prop != iters or not acc:
         raise AssertionError(f"main 15: the trait move ran {prop} times, "
@@ -2065,6 +2208,288 @@ def main15(smi, dev):
     del eng, state
     torch.cuda.empty_cache()
     return launches
+
+
+def new_ctl(n, nloci, burnin=NEW_BURNIN, nsample=NEW_NSAMPLE):
+    """The control file of main ``n`` (17-22) at ``nloci`` loci, job
+    ``out<n>``: main 1's run (main 21: main 2's) with the lines of its
+    configuration."""
+    job = f"out{n}"
+    if n == 21:
+        text = RUN2_CTL.format(nloci=nloci, burnin=burnin, nsample=nsample,
+                               job=job, extra=CORR21.format(check=CHECK_EVERY))
+        return text.replace("locusrate = 1 10 10 5 iid\n", "")
+    extra = {17: "", 18: f"chains = {CHAINS_18}\n",
+             19: "model = TN93\n" + GAMMA4, 20: "model = GTR\n" + GAMMA4,
+             22: TRAITS15.format(check=CHECK_EVERY) + CLOCK2 + A01}[n]
+    return RUN_CTL.format(nloci=nloci, burnin=burnin, nsample=nsample,
+                          job=job, extra=extra)
+
+
+def profile_last(eng, state, smi, kernel_name, label, passes, iters=3):
+    """The ``[profile]`` of ``eng``'s step on the chain's last ``state``,
+    and its iterations/s (wall, untraced) there."""
+    ms = step_ms(eng, state, iters=5)
+    profile_step(eng, state, ms, smi, kernel_name, label, passes,
+                 iters=iters)
+    print(f"[profile] {label}: {1e3 / ms:.2f} iters/s after the chain | "
+          f"{smi}")
+
+
+def moved_loci(first, last, mask, fields):
+    """{field: real loci whose value of the per-locus ``fields`` differs
+    between the ``first`` and ``last`` states}; fails if one moved
+    nowhere.  ``fields`` name (state part, attribute) pairs."""
+    out = {}
+    for part, name in fields:
+        a = getattr(getattr(first, part), name)
+        b = getattr(getattr(last, part), name)
+        out[name] = int(((a != b).reshape(a.shape[0], -1).any(1)
+                         & mask).sum())
+    if not all(out.values()):
+        raise AssertionError(f"a parameter never moved: {out}")
+    return out
+
+
+def main17(smi):
+    """``[main 17]``: main 1's run on all 10,000 loci through the CLI,
+    burnin 2, nsample 8: K1 8 an iteration plus 1; the load through the
+    native compressor timed; K1 against its float64 plain version on
+    every locus of the last state; the ``[profile]`` of the step there.
+    Returns (K1 launches, the hold's largest per-locus error)."""
+    import torch
+
+    from bpp_tpu_torch import loader
+    from bpp_tpu_torch.data import cnative
+    with open("run17.ctl", "w") as f:
+        f.write(new_ctl(17, N_LOCI_10K, BURNIN_17, NSAMPLE_17))
+    iters = BURNIN_17 + NSAMPLE_17
+    loads = []
+    orig = loader.load_run
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return orig(*a, **kw)
+        finally:
+            loads.append(time.perf_counter() - t0)
+
+    loader.load_run = timed
+    cnative.CALLS = 0
+    try:
+        # 10 iterations, no finetune marks (burnin < 8), 10,000 loci: a
+        # tau column may keep its value, but not every one
+        with ChainEnds() as ends:
+            launches, _ = run_chain(
+                ["--cfile", "run17.ctl"], "out17", iters,
+                (PASSES_PER_ITER * iters + 1, 0), ("theta", "tau"),
+                "main 17", smi, nsample=NSAMPLE_17, every=False)
+    finally:
+        loader.load_run = orig
+    if len(loads) != 1 or cnative.CALLS < N_LOCI_10K:
+        raise AssertionError(f"main 17: {len(loads)} loads, "
+                             f"{cnative.CALLS} native compressions")
+    eng, state = ends.last
+    print(f"[main 17] {N_LOCI_10K} loci loaded in {loads[0]:.2f} s through "
+          f"the native compressor ({cnative.CALLS} compressions) | {smi}")
+    err, _ = hold_given(f"K1, main 17's last state (all {N_LOCI_10K} loci)",
+                        eng, state, smi, tag="main 17")
+    profile_last(eng, state, smi, "pack_logl_kernel",
+                 f"JC69 step at {N_LOCI_10K} loci (main 17)",
+                 PASSES_PER_ITER)
+    del eng, state, ends
+    torch.cuda.empty_cache()
+    return launches, err
+
+
+def main18(smi):
+    """``[main 18]``: ``chains = 8`` on main 1's first 100 loci (the shape
+    of ``bench.py``'s ``_bench_chains8``) through the CLI, 20 iterations:
+    K1 8 x (8 x 20 + 1); eight finite moving mcmc files and the pooled
+    split-R-hat table; K1 held on the last chain's last state; the
+    ``[profile]`` of the eight-chain step.  Returns (K1 launches, the
+    hold's error)."""
+    from bpp_tpu_torch.loader import load_run_from_ctl
+    from bpp_tpu_torch.mcmc.driver import Engine
+    with open("run18.ctl", "w") as f:
+        f.write(new_ctl(18, N_LOCI_18))
+    iters = NEW_BURNIN + NEW_NSAMPLE
+    with ChainEnds() as ends:
+        launches, _ = run_chain(
+            ["--cfile", "run18.ctl"], "out18", iters,
+            (CHAINS_18 * (PASSES_PER_ITER * iters + 1), 0),
+            ("theta", "tau"), "main 18", smi, figtree=False,
+            nsample=NEW_NSAMPLE)
+    files, rhat = check_chains("out18", CHAINS_18, NEW_NSAMPLE, "main 18")
+    print(f"[main 18] {CHAINS_18} chains on {N_LOCI_18} loci: {len(files)} "
+          f"mcmc files of {NEW_NSAMPLE} finite moving samples; split-R-hat "
+          f"table ({rhat}, ...) | {smi}")
+    eng, state = ends.last
+    err, _ = hold_given("K1, main 18's last chain's last state", eng, state,
+                        smi, tag="main 18")
+    chains, states = Chains.start(
+        Engine(load_run_from_ctl("run18.ctl"), seed=1, device=eng.device),
+        CHAINS_18)
+    states, _ = chains.chunk_step(states, 3)
+    profile_last(chains, states, smi, "pack_logl_kernel",
+                 f"JC69 {CHAINS_18}-chain step, {N_LOCI_18} loci (main 18)",
+                 CHAINS_18 * PASSES_PER_ITER, iters=1)
+    return launches, err
+
+
+def subst_main(n, model, passes, smi):
+    """``[main 19]`` / ``[main 20]``: main 1's data under ``model`` + G4
+    (``alphaprior = 1 1 4``) through the CLI, 20 iterations: K1 ``passes``
+    times an iteration plus 1; the frequencies, rates and alpha, which
+    mcmc.txt does not print, moved; under GTR every eigensystem a move
+    computed (``torch.linalg.eigh`` in float32 on the card) counted, and
+    those that came out NaN, which the moves reject; K1 held on the last
+    state's own parameters; the ``[profile]`` of the step there.  Returns
+    (K1 launches, the hold's error)."""
+    import torch
+
+    from bpp_tpu_torch.mcmc import subst_moves
+    label = f"main {n}"
+    with open(f"run{n}.ctl", "w") as f:
+        f.write(new_ctl(n, N_LOCI))
+    iters = NEW_BURNIN + NEW_NSAMPLE
+    eigen = []                       # per refresh: (loci, NaN loci)
+    orig = subst_moves.refresh_eigen
+
+    def counted(subst, model_, custom=None):
+        out = orig(subst, model_, custom)
+        if out.eigw is not subst.eigw:
+            bad = ~torch.isfinite(out.eigw).all(-1)
+            eigen.append((bad.numel(), bad.sum()))
+        return out
+
+    subst_moves.refresh_eigen = counted
+    try:
+        with ChainEnds() as ends:
+            launches, _ = run_chain(
+                ["--cfile", f"run{n}.ctl"], f"out{n}", iters,
+                (passes * iters + 1, 0), ("theta", "tau"), label, smi,
+                nsample=NEW_NSAMPLE)
+    finally:
+        subst_moves.refresh_eigen = orig
+    eng, state = ends.last
+    mask = eng.ctx.locus_mask
+    moved = moved_loci(ends.first, state, mask, (
+        ("subst", "freqs"), ("subst", "qrates"), ("subst", "alpha")))
+    if not bool(torch.isfinite(state.subst.eigw[mask]).all()):
+        raise AssertionError(f"{label}: a NaN eigensystem was accepted")
+    nan = (f"; {sum(int(b) for _, b in eigen)} of "
+           f"{sum(k for k, _ in eigen)} eigensystems NaN, each rejected"
+           if model == "GTR" else "")
+    if model == "GTR" and not eigen:
+        raise AssertionError(f"{label}: no eigensystem was computed")
+    print(f"[{label}] {model}+G4: loci whose parameters moved {moved} of "
+          f"{int(mask.sum())}{nan} | {smi}")
+    err, _ = hold_given(f"K1, {label}'s last state", eng, state, smi,
+                        cases=own_cases(eng, state), tag=label)
+    profile_last(eng, state, smi, "pack_logl_kernel",
+                 f"{model}+G4 step ({label})", passes)
+    return launches, err
+
+
+def main21(smi):
+    """``[main 21]``: main 2's diploid data with Gamma-Dirichlet locus rates
+    and the correlated clock (``CORR21``) through the CLI, 20 iterations:
+    K2 ``PASSES_PER_ITER_21`` times an iteration plus 1 plus 1 a check,
+    every check passing; mu_i, nu_i and the branch rates moved; K2 held on
+    the relaxed branch lengths of the last state (the four families and
+    the state's own HKY+G4); ``[moves]``: one ``_host_gammadir`` call, the
+    mu_i, nu_i and branch-rate moves; the ``[profile]`` of the step.
+    Returns (K2 launches, the hold's error)."""
+    import torch
+
+    from bpp_tpu_torch.mcmc import clock_moves
+    with open("run21.ctl", "w") as f:
+        f.write(new_ctl(21, N_LOCI))
+    iters = NEW_BURNIN + NEW_NSAMPLE
+    with Checks() as checks, ChainEnds() as ends:
+        _, launches = run_chain(
+            ["--cfile", "run21.ctl"], "out21", iters,
+            (0, PASSES_PER_ITER_21 * iters + 1 + NEW_CHECKS),
+            ("theta", "tau", "nu"), "main 21", smi, nsample=NEW_NSAMPLE)
+    checks.expect("main 21", NEW_BURNIN, NEW_NSAMPLE)
+    eng, state = ends.last
+    ctx, cfg, gen = eng.ctx, eng.cfg, eng.gen
+    moved = moved_loci(ends.first, state, ctx.locus_mask, (
+        ("subst", "mu"), ("clock", "nu"), ("clock", "brate")))
+    print(f"[main 21] {len(checks.its)} checks passed at iterations "
+          f"{checks.its}; loci whose rates moved {moved} of "
+          f"{int(ctx.locus_mask.sum())} | {smi}")
+    cases = fixed_cases(state.gt.n_loci, ctx.weights.device) + \
+        own_cases(eng, state)
+    err, _ = hold_given("K2, main 21's relaxed blen (clock = 3)", eng,
+                        state, smi, lambda dt: relaxed_blen(eng, state, dt),
+                        cases=cases, tag="main 21")
+    mu = state.subst.mu
+    zero = torch.zeros_like(mu)
+    u = torch.rand(mu.shape, dtype=mu.dtype, device=mu.device)
+    rows = [("_host_gammadir (mu_i)", wall_ms(lambda: clock_moves._host_gammadir(
+        ctx, mu, mu * 1.01, zero, zero, u, cfg.locusrate_mubar_a,
+        cfg.locusrate_mubar_b, cfg.locusrate_alpha)))]
+    for name, fn in (("mu_i", clock_moves.mui_move),
+                     ("nu_i", clock_moves.nui_move),
+                     ("branch rates (clock = 3)", clock_moves.brate_move)):
+        rows.append((name, wall_ms(lambda: fn(ctx, cfg, state, gen))))
+    print(f"[moves] main 21, wall ms per call at {state.gt.n_loci} loci: "
+          + " | ".join(f"{n} {t:.2f}" for n, t in rows) + f" | {smi}")
+    profile_last(eng, state, smi, "fels_site_logl_kernel",
+                 "diploid HKY+G4 clock = 3, Gamma-Dirichlet step (main 21)",
+                 PASSES_PER_ITER_21)
+    return launches, err
+
+
+def main22(smi):
+    """``[main 22]``: main 15's data and traits under ``clock = 2`` with
+    A01's species moves and ``check = 10`` through the CLI, 20
+    iterations: K1 ``PASSES_PER_ITER_22`` times an iteration plus 1 plus 1
+    a check; the cached trait logl equal to a fresh evaluation at every
+    check; SPR, SNL and the trait move proposed, the trait move accepted;
+    the A01 report as main 6's; K1 held on the relaxed branch lengths of
+    the last state; the ``[profile]`` of the step.  Returns (K1 launches,
+    the hold's error)."""
+    from bpp_tpu_torch.testing import write_trait_file
+    write_trait_file("traits.txt", seed=137)
+    with open("run22.ctl", "w") as f:
+        f.write(new_ctl(22, N_LOCI))
+    iters = NEW_BURNIN + NEW_NSAMPLE
+    with Checks() as checks, ChainEnds() as ends, MoveTally(
+            record=True, moves=MoveTally.MOVES[:2] + (TRAIT_MOVE,),
+            accepted=False) as tally:
+        launches, _ = run_chain(
+            ["--cfile", "run22.ctl"], "out22", iters,
+            (PASSES_PER_ITER_22 * iters + 1 + NEW_CHECKS, 0), "A01",
+            "main 22", smi, nsample=NEW_NSAMPLE)
+    checks.expect("main 22", NEW_BURNIN, NEW_NSAMPLE, traits=True)
+    counts = {n: tuple(c) for n, c in tally.counts.items()}
+    if not (counts["species_spr_move"][0] and counts["snl_move"][0]
+            and counts["trait_brate_move"][0] == iters
+            and counts["trait_brate_move"][1]):
+        raise AssertionError(f"main 22: moves (calls, calls accepted) "
+                             f"{counts}")
+    print(f"[main 22] {len(checks.its)} checks passed at iterations "
+          f"{checks.its}, the cached trait logl equal to a fresh evaluation "
+          f"at each; moves (calls, calls accepted) {counts} | {smi}")
+    eng, state = ends.last
+    err, _ = hold_given("K1, main 22's relaxed blen (clock = 2, A01)", eng,
+                        state, smi, lambda dt: relaxed_blen(eng, state, dt),
+                        tag="main 22")
+    profile_last(eng, state, smi, "pack_logl_kernel",
+                 "A01 JC69 traits clock = 2 step (main 22)",
+                 PASSES_PER_ITER_22)
+    return launches, err
+
+
+def memory_report(smi):
+    """``[memory]``: every chain's peak device memory, one line."""
+    print("[memory] peak device memory a run (torch.cuda.max_memory_"
+          "allocated from a reset just before it; MiB held before it): "
+          + " | ".join(f"{label} {peak:.1f} ({held:.1f})"
+                       for label, peak, held in PEAKS) + f" | {smi}")
 
 
 def load_run(ctl, dtype=None):
@@ -2736,6 +3161,7 @@ def shard_rank(rank, port, ctl, result_dir):
                    "seen": {k: sorted(v) for k, v in seen.items()},
                    "plain": plain, "backend": backend,
                    "device": torch.cuda.current_device(),
+                   "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
                    "chain_s": timer.seconds}, f)
 
 
@@ -2778,9 +3204,9 @@ def shard_phase(smi, main16_s):
     launches) summed over the ranks."""
     import torch.multiprocessing as mp
     work = os.getcwd()
-    runs = (("run17.ctl", "run16.ctl", "out17", "out16", BURNIN, NSAMPLE,
+    runs = (("runsh.ctl", "run16.ctl", "outsh", "out16", BURNIN, NSAMPLE,
              "K1", PASSES_PER_ITER, main16_s[0]),
-            ("run17d.ctl", "run16d.ctl", "out17d", "out16d", BF_BURNIN,
+            ("runshd.ctl", "run16d.ctl", "outshd", "out16d", BF_BURNIN,
              BF_NSAMPLE, "K2", PASSES_PER_ITER_2, main16_s[1]))
     totals = {"K1": 0, "K2": 0}
     for ctl, ref_ctl, job, ref_job, burnin, nsample, kern, passes, ref_s \
@@ -2854,13 +3280,16 @@ def shard_phase(smi, main16_s):
         check_chain_output(job, nsample, ("theta", "tau"))
         ms = [1e3 * g["chain_s"][0] / iters for g in res]
         totals[kern] += sum(g[f"{kern}_f64"] for g in res)
+        PEAKS.append((f"[shard] {job} rank 0", res[0]["peak_mib"], 0.0))
+        peaks = " / ".join(f"{g['peak_mib']:.1f}" for g in res)
         print(f"[shard] {SHARD_RANKS} ranks on cuda:0 (backend "
               f"{res[0]['backend'][0]}), --x64, {job} = main 16's {ref_job} "
               f"split {per} loci a rank: {kern} float64 launches "
               f"{' / '.join(str(g[f'{kern}_f64']) for g in res)} "
               f"(expected {want} each), plain passes 0 | rank 0's mcmc.txt "
               f"vs {ref_job}'s: max |dlnL| {dl:.3e}, other columns "
-              f"{rel:.3e} relative | chain wall "
+              f"{rel:.3e} relative | peak device memory {peaks} MiB a "
+              f"rank | chain wall "
               f"{' / '.join(f'{m:.1f}' for m in ms)} ms/iter a rank vs "
               f"{1e3 * ref_s / iters:.1f} ms/iter on one process | phase "
               f"wall {wall:.1f} s (start-up, load, chain, summary) | {smi}")
@@ -2886,6 +3315,46 @@ def spill_report(smi):
                                  "of C <= 4 spills")
 
 
+def start_simulation(ctl):
+    """The port's simulator on the control file ``ctl`` in a process of
+    its own, its output in ``<ctl>.log``; :func:`finish_simulation` waits
+    for it."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    path = os.environ.get("PYTHONPATH")
+    env = dict(os.environ, PYTHONPATH=repo + (os.pathsep + path if path
+                                              else ""))
+    code = ("import sys, time\n"
+            "from bpp_tpu_torch.sim.simulate import run_simulation\n"
+            "t0 = time.perf_counter()\n"
+            "run_simulation(sys.argv[1])\n"
+            "print(f'{time.perf_counter() - t0:.1f} s')\n")
+    log = open(ctl + ".log", "w")
+    proc = subprocess.Popen([sys.executable, "-c", code, ctl], stdout=log,
+                            stderr=subprocess.STDOUT, env=env)
+    return proc, log, ctl
+
+
+def finish_simulation(sim, timeout=600):
+    """Wait for a :func:`start_simulation` process; (its own time as it
+    printed it, the seconds waited here)."""
+    proc, log, ctl = sim
+    t0 = time.perf_counter()
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise
+    finally:
+        log.close()
+    with open(ctl + ".log") as f:
+        out = f.read().strip()
+    if rc != 0:
+        raise AssertionError(f"the simulation of {ctl} failed (rc {rc}): "
+                             f"{out[-2000:]}")
+    return out.splitlines()[-1], time.perf_counter() - t0
+
+
 def main(argv=None) -> int:
     t_start = time.perf_counter()
     argv = sys.argv[1:] if argv is None else argv
@@ -2906,8 +3375,12 @@ def main(argv=None) -> int:
     from bpp_tpu_torch.core import _build, fels, pack
     from bpp_tpu_torch.core import felsenstein as fe
     from bpp_tpu_torch.loader import load_run_from_ctl
-    from bpp_tpu_torch.sim.simulate import run_simulation
     from bpp_tpu_torch.testing import write_partition_file
+
+    laps = [("", t_start)]
+
+    def lap(name):
+        laps.append((name, time.perf_counter()))
 
     # 1. device
     dev = torch.device("cuda")
@@ -2916,24 +3389,50 @@ def main(argv=None) -> int:
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} | "
           f"{name} | nvidia-smi: {smi}")
 
-    # 2. build: one nvcc per source, started together
-    t0 = time.perf_counter()
-    libs = _build.build_all(["pack_kernel", "fels_kernel"])
-    libs.append(_build.build_host("compress"))
-    print(f"[build] {', '.join(p.name for p in libs)} in "
-          f"{time.perf_counter() - t0:.2f} s")
-    spill_report(smi)
-
     iters = BURNIN + NSAMPLE
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory(prefix="bpp_smoke_") as work:
         os.chdir(work)
+        sims = {}
         try:
-            # 3. data 1
+            # 3, 6. the data of main 1 and main 2, each simulated in a
+            # process of its own while the phases that need neither run
+            for ctl, text in (("sim.ctl", SIM_CTL.format(nloci=N_LOCI_10K)),
+                              ("sim2.ctl", SIM2_CTL.format(nloci=N_LOCI))):
+                with open(ctl, "w") as f:
+                    f.write(text)
+                sims[ctl] = start_simulation(ctl)
+
+            # 2. build: one nvcc per source, started together
             t0 = time.perf_counter()
-            with open("sim.ctl", "w") as f:
-                f.write(SIM_CTL.format(nloci=N_LOCI))
-            run_simulation("sim.ctl")
+            libs = _build.build_all(["pack_kernel", "fels_kernel"])
+            libs.append(_build.build_host("compress"))
+            print(f"[build] {', '.join(p.name for p in libs)} in "
+                  f"{time.perf_counter() - t0:.2f} s")
+            spill_report(smi)
+
+            lap("build")
+
+            # 13. shapes the bench data lacks; stores picked by the wrappers
+            hold_shapes(dev, smi)
+
+            lap("[shapes]")
+
+            # 19. main path 9: amino acids through the 20-state plain pass
+            aa_phase(dev, smi, iters)
+            torch.cuda.empty_cache()
+
+            lap("main 9")
+
+            # 20-22. MSC-I: main 10, [net] (a)-(d), main 11
+            launches10, launches11, err_net1, err_net2 = msci_phases(
+                dev, smi, iters)
+            torch.cuda.empty_cache()
+
+            lap("MSC-I (main 10, [net], main 11, [cli])")
+
+            # 3. data 1
+            own, waited = finish_simulation(sims.pop("sim.ctl"))
             rng = np.random.default_rng(137)
             with open("dates.txt", "w") as f:
                 for sp_name in "abcd":
@@ -2952,8 +3451,10 @@ def main(argv=None) -> int:
                 with open(ctl, "w") as f:
                     f.write(text)
             write_partition_file("parts.txt", CUSTOM_MODELS, N_LOCI)
-            print(f"[data 1] {N_LOCI} haploid loci simulated in "
-                  f"{time.perf_counter() - t0:.1f} s")
+            print(f"[data 1] {N_LOCI_10K} haploid loci simulated in {own} "
+                  f"(a process of its own since the start; waited "
+                  f"{waited:.1f} s for it here); the 1000-locus paths read "
+                  f"the first {N_LOCI}")
 
             # 4. kernel 1 against its plain version
             run = load_run_from_ctl("run.ctl")
@@ -3090,7 +3591,7 @@ def main(argv=None) -> int:
                          "custom partition step", PASSES_PER_ITER_8)
             err_k1_custom, _ = hold_given(
                 "K1, per-locus models", eng8, state8, smi,
-                cases=custom_cases(eng8, state8), tag="custom")
+                cases=own_cases(eng8, state8), tag="custom")
             print(f"[custom] engine step (partition, {N_LOCI} loci): "
                   f"{ips8:.2f} iters/s after warm-up | {smi}")
             del eng8, state8
@@ -3098,11 +3599,11 @@ def main(argv=None) -> int:
             # 18. main path 8: the partition, check and print files
             launches8 = main8(iters, smi)
 
+            lap("data 1, kernel 1, given, main 1, 3, 5, 6, 8, topo, custom")
+
             # 6. data 2
             t0 = time.perf_counter()
-            with open("sim2.ctl", "w") as f:
-                f.write(SIM2_CTL.format(nloci=N_LOCI))
-            run_simulation("sim2.ctl")
+            own2, _ = finish_simulation(sims.pop("sim2.ctl"))
             for ctl, job, extra in (("run2.ctl", "out2", ""),
                                     ("run4.ctl", "out4", SIMPLE),
                                     ("run7.ctl", "out7", A11)):
@@ -3112,7 +3613,8 @@ def main(argv=None) -> int:
                                             extra=extra))
             run2 = load_run_from_ctl("run2.ctl")
             b2 = run2.batch
-            print(f"[data 2] {N_LOCI} diploid loci simulated and loaded in "
+            print(f"[data 2] {N_LOCI} diploid loci simulated in {own2} (a "
+                  f"process of its own), waited for and loaded in "
                   f"{time.perf_counter() - t0:.1f} s | L={b2.n_loci} "
                   f"T={b2.max_tips} S={b2.max_patterns} "
                   f"W={b2.weights.shape[1]} R={b2.res_map.shape[2]} | real "
@@ -3211,25 +3713,17 @@ def main(argv=None) -> int:
             state8d, _ = eng8d.chunk_step(eng8d.init_state(), 3)
             err_k2_custom, _ = hold_given(
                 "K2, per-locus models (diploid)", eng8d, state8d, smi,
-                cases=custom_cases(eng8d, state8d), tag="custom")
+                cases=own_cases(eng8d, state8d), tag="custom")
             del eng8d, state8d
             torch.cuda.empty_cache()
 
-            # 13. shapes the bench data lacks; stores picked by the wrappers
-            hold_shapes(dev, smi)
-
-            # 19. main path 9: amino acids through the 20-state plain pass
-            aa_phase(dev, smi, iters)
-            torch.cuda.empty_cache()
-
-            # 20-22. MSC-I: main 10, [net] (a)-(d), main 11
-            launches10, launches11, err_net1, err_net2 = msci_phases(
-                dev, smi, iters)
-            torch.cuda.empty_cache()
+            lap("data 2, kernel 2, main 2, 4, 7, topo, custom")
 
             # 23-24. MSC-M: main 12, [mig] (a)-(c)
             launches12, err_mig1, err_mig2 = mig_phases(dev, smi, iters)
             torch.cuda.empty_cache()
+
+            lap("MSC-M (main 12, [mig])")
 
             # 25. chains = 2: main 13
             launches13 = main13(iters, smi, dev)
@@ -3244,6 +3738,20 @@ def main(argv=None) -> int:
             # 28. --bfdriver and --summary: [tools]
             launches_bf = tools_phase(smi)
 
+            lap("main 13, 14, 15, [tools]")
+
+            # 33-38. the configurations no earlier run took to the card
+            launches17, err17 = main17(smi)
+            launches18, err18 = main18(smi)
+            launches19, err19 = subst_main(19, "TN93", PASSES_PER_ITER_19,
+                                           smi)
+            launches20, err20 = subst_main(20, "GTR", PASSES_PER_ITER_20, smi)
+            launches21, err21 = main21(smi)
+            launches22, err22 = main22(smi)
+            torch.cuda.empty_cache()
+
+            lap("main 17-22")
+
             # 29-30. --x64 through the float64 builds: main 16, [x64]
             (k1_f64, k2_f64, err_x1, row_x1, err_x2,
              row_x2, main16_s) = x64_phases(dev, smi, iters, parent)
@@ -3253,7 +3761,16 @@ def main(argv=None) -> int:
 
             # 32. locus sharding on two ranks of the card: [shard]
             k1_shard, k2_shard = shard_phase(smi, main16_s)
+
+            lap("main 16, [x64], [native], [shard]")
+
+            # 39. every run's peak device memory
+            memory_report(smi)
         finally:
+            for proc, log, _ in sims.values():
+                proc.kill()
+                proc.wait()
+                log.close()
             os.chdir(cwd)
 
     def entry(kname, source, replaces, launches, errs, row):
@@ -3267,11 +3784,14 @@ def main(argv=None) -> int:
                 "library_ms": None}
 
     print(f"[time] whole script {time.perf_counter() - t_start:.1f} s, "
-          f"the kernels' build included | {smi}")
+          f"the kernels' build included: " + " | ".join(
+              f"{n} {t1 - t0:.1f}" for (_, t0), (n, t1)
+              in zip(laps, laps[1:])) + f" | {smi}")
     # launches: every main path's run; errors: the bench models' holds,
     # those on relaxed-clock lengths and dated tips, on the trees of the
     # species and rj moves, on a partition's per-locus eigensystems, on
-    # network gene trees ([net]) and on migration gene trees ([mig]); the
+    # network gene trees ([net]), on migration gene trees ([mig]) and on
+    # the last states of mains 17-22; the
     # float64 builds: main 16's and the [shard] ranks' launches and the
     # [x64] holds
     print(json.dumps({"kernels": [
@@ -3280,15 +3800,17 @@ def main(argv=None) -> int:
               "bpp_tpu/core/pallas_pack.py:315",
               launches1 + launches3 + launches5 + launches6 + launches8
               + launches10 + launches11 + launches12 + launches13
-              + launches14 + launches15 + launches_bf,
+              + launches14 + launches15 + launches_bf + launches17
+              + launches18 + launches19 + launches20 + launches22,
               [*errs1.values(), err_k1_blen, err_k1_dated, err_topo1,
-               err_k1_custom, err_net1, err_mig1], rows1["JC69"]),
+               err_k1_custom, err_net1, err_mig1, err17, err18, err19,
+               err20, err22], rows1["JC69"]),
         entry("K2 pallas_fels._make_kernel -> fels_site_logl_kernel",
               "bpp_tpu_torch/csrc/fels_kernel.cu",
               "bpp_tpu/core/pallas_fels.py:92",
-              launches2 + launches4 + launches7,
+              launches2 + launches4 + launches7 + launches21,
               [*errs2.values(), err_k2_blen, err_topo2, err_k2_custom,
-               err_net2, err_mig2], rows2["HKY"]),
+               err_net2, err_mig2, err21], rows2["HKY"]),
         entry("K1 pallas_pack._make_kernel -> pack_logl_kernel "
               "(float64 build)", "bpp_tpu_torch/csrc/pack_kernel.cu",
               "bpp_tpu/core/pallas_pack.py:315", k1_f64 + k1_shard, [err_x1],

@@ -7,8 +7,9 @@
 * ``Engine.init_state``'s trait state equal to ``bpp_tpu``'s, and carried
   across by ``convert.state_from_numpy``.
 * The cached trait logl exact (rtol 1e-10) after every step of seeded
-  float64 port chains under A00 (strict and clock = 2), A01, A10, A11 and
-  MSC-M, with ``validate_state`` passing and the trait move accepted.
+  float64 port chains under A00 (strict and clock = 2), A01 (strict and
+  clock = 2), A10, A11 and MSC-M, with ``validate_state`` passing and the
+  trait move accepted.
 * The MSC-I refusal, with ``bpp_tpu``'s message.
 * A resumed run's mcmc.txt byte-identical to the whole run's.
 """
@@ -29,6 +30,8 @@ CONFIGS = {
     "A00": (),
     "clock2": ("clock = 2 10 100 5 iid G",),
     "A01": ("speciestree = 1 0.5 0.33 0.1 0.2",),
+    "A01clock2": ("speciestree = 1 0.5 0.33 0.1 0.2",
+                  "clock = 2 10 100 5 iid G"),
     "A10": ("speciesdelimitation = 1 0 2",),
     "A11": ("speciestree = 1 0.5 0.33 0.1 0.2",
             "speciesdelimitation = 1 0 2"),
@@ -189,9 +192,11 @@ def test_caches_exact_along_port_chain(data, name):
     st = eng.init_state()
     tau0 = st.sp.tau.clone()
     acc = torch.zeros(2, dtype=torch.int64)
+    topologies = {tuple(st.sp.parent.tolist())}
     for k in range(STEPS):
         st, stats = eng.chunk_step(st, 1)
         acc += stats[MV_TRAIT]
+        topologies.add(tuple(st.sp.parent.tolist()))
         fresh = moves._trait_eval(eng.ctx, st.sp, st.sp.tau, st.trait.brate)
         np.testing.assert_allclose(st.trait.logl.numpy(), fresh.numpy(),
                                    rtol=1e-10, err_msg=f"step {k}")
@@ -199,9 +204,12 @@ def test_caches_exact_along_port_chain(data, name):
     assert eng.validate_state(st)
     assert int(acc[0]) > 0 and int(acc[1]) > 0, acc
     assert not torch.equal(st.sp.tau, tau0)
-    if name == "clock2":
+    if name in ("clock2", "A01clock2"):
         # one rate a branch: the branches differ
         assert st.trait.brate[0].unique().numel() > 2
+    if name == "A01clock2":
+        # the caches held across accepted species moves
+        assert len(topologies) > 1
 
 
 def test_msci_refused_as_bpp_tpu(tmp_path):
