@@ -48,7 +48,10 @@ this process as rank i of N that split the loci into contiguous blocks
 cross-locus quantity is all-reduced, and rank 0 alone prints and writes
 the files; checkpoints and the per-locus print files are off, and
 ``--resume`` is refused, as in ``bpp_tpu``.  Under ``chains = K`` each
-process runs every chain on all the loci and rank 0 writes.
+process runs every chain on all the loci and rank 0 writes.  The header
+names the run's step route (``driver.step_route``): ``graph``, a chunk of
+replays of one captured CUDA graph, or ``eager`` with the host read that
+keeps the step eager.
 """
 
 from __future__ import annotations
@@ -295,6 +298,8 @@ def _cmd_run(args, device=None) -> int:
               f" | method {cfg.method.name} | seed {eng.seed} | device "
               f"{device}" + (f" | RESUMED at it {meta['it']}"
                              if args.resume else ""), file=sys.stderr)
+        print(f"step route: {eng.route} ({eng.route_reason})",
+              file=sys.stderr)
 
     mcmc_path = cfg.mcmcfile or f"{cfg.jobname}.mcmc.txt"
     if cfg.n_chains > 1:

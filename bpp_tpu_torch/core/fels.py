@@ -24,13 +24,14 @@ from ..trees.gtree import GTrees
 from . import felsenstein as fe
 from .pack import (
     BLOCK_THREADS, KernelArgs, check_tensor, data_ptrs, kernel_lib,
-    occupancy, scaled_lengths, tree_tensors,
+    occupancy, refuse_under_capture, scaled_lengths, tree_tensors,
 )
 from .pmatrix import pmatrix_model
 from .units import Units
 
 # kernel launches since import (reset by callers that count a run), and
-# those of the float64 build among them
+# those of the float64 build among them; a replayed CUDA graph adds the
+# launches it captured (mcmc.graph.StepGraph)
 LAUNCHES = 0
 LAUNCHES_F64 = 0
 # the CLV store of the last launch: "shared" or "global"
@@ -106,6 +107,7 @@ def kernel_args(order, left, right, parent, n_seq, age, mu, rates_kappa,
     overrides the block size."""
     who = "site_logl_fels"
     if units is None and tips.device.type == "cuda":
+        refuse_under_capture(who)
         L, _, S, _ = tips.shape
         if n_pat is not None:
             check_tensor(who, "n_pat", n_pat, torch.int64, (L,), tips.device)

@@ -28,7 +28,8 @@ from .pmatrix import pmatrix_model
 from .units import Units
 
 # kernel launches since import (reset by callers that count a run), and
-# those of the float64 build among them
+# those of the float64 build among them; counted per Python call, so a
+# replayed CUDA graph adds the launches it captured (mcmc.graph.StepGraph)
 LAUNCHES = 0
 LAUNCHES_F64 = 0
 # the CLV store of the last launch: "shared" or "global"
@@ -81,6 +82,16 @@ def site_logl_packed_ref(order, left, right, parent, n_seq, age, mu,
     cw = torch.full((C,), 1.0 / C, dtype=tips.dtype, device=tips.device)
     return fe.loglikelihood(GTrees(left, right, parent, age), tips, weights,
                             n_seq, pmats, freqs, cw, order=order)
+
+
+def refuse_under_capture(who):
+    """A wrapper given no unit table builds one, which copies to the card:
+    under CUDA-graph capture that copy would be recorded from host memory
+    that is gone at replay, so the captured path must pass the batch's
+    static table."""
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"{who}: pass the batch's static unit table "
+                           "(units=...) under CUDA-graph capture")
 
 
 def check_tensor(who, name, t, dtype, shape, device):
@@ -288,6 +299,7 @@ def kernel_args(order, left, right, parent, n_seq, age, mu, rates_kappa,
     overrides the block size."""
     who = "site_logl_packed"
     if units is None and tips.device.type == "cuda":
+        refuse_under_capture(who)
         units = Units([tips.shape[2]] * tips.shape[0], tips.shape[2],
                       tips.device)
     tree, fam, plan = tree_tensors(

@@ -74,13 +74,74 @@ def pmatrix_f81(t, freqs):
     return pmatrix_tn93(t, freqs, one, one)
 
 
-def gtr_eigen(freqs, rates):
+# the cyclic Jacobi method on a 4 x 4 symmetric matrix in rounds of two
+# disjoint rotations that together cover the six off-diagonal pairs
+JACOBI_ROUNDS = (((0, 1), (2, 3)), ((0, 2), (1, 3)), ((0, 3), (1, 2)))
+# sweeps of the three rounds: Jacobi converges quadratically; four reached
+# float64 roundoff on 20,000 random GTR systems (rates over 5 decades,
+# frequencies down to 2e-4), one more is margin
+JACOBI_SWEEPS = 5
+
+
+@functools.lru_cache(maxsize=None)
+def _jacobi_masks(dtype, device):
+    """Per round, the 4 x 4 patterns of (c1, s1, c2, s2) in its rotation:
+    c on (p, p) and (q, q), s on (p, q) and -s on (q, p)."""
+    out = []
+    for pairs in JACOBI_ROUNDS:
+        masks = []
+        for p, q in pairs:
+            c = torch.zeros((4, 4), dtype=dtype)
+            c[p, p] = c[q, q] = 1.0
+            sn = torch.zeros((4, 4), dtype=dtype)
+            sn[p, q], sn[q, p] = 1.0, -1.0
+            masks += [c.to(device), sn.to(device)]
+        out.append(tuple(masks))
+    return tuple(out)
+
+
+def eigh_jacobi(B, sweeps=JACOBI_SWEEPS):
+    """Eigenvalues ``[..., 4]`` (unordered) and orthonormal eigenvectors
+    ``[..., 4, 4]`` (columns) of symmetric 4 x 4 matrices ``B``, by
+    cyclic Jacobi rotations (Numerical Recipes' ``jacobi``, two disjoint
+    pairs a round) in a fixed number of sweeps: every op runs on the
+    device and nothing is read back, which ``torch.linalg.eigh`` does to
+    check its solver's status (a CUDA graph cannot capture that read)."""
+    A = B
+    V = torch.eye(4, dtype=B.dtype, device=B.device).expand(B.shape).clone()
+    masks = _jacobi_masks(B.dtype, B.device)
+    for _ in range(sweeps):
+        for pairs, (mc1, ms1, mc2, ms2) in zip(JACOBI_ROUNDS, masks):
+            app = torch.stack([A[..., p, p] for p, _ in pairs], -1)
+            aqq = torch.stack([A[..., q, q] for _, q in pairs], -1)
+            apq = torch.stack([A[..., p, q] for p, q in pairs], -1)
+            theta = (aqq - app) / (2.0 * apq)
+            t = torch.where(theta >= 0, 1.0, -1.0) / (
+                theta.abs() + torch.hypot(torch.ones_like(theta), theta))
+            # a pair already zero (or theta out of range) is not rotated
+            t = torch.where((apq == 0) | ~torch.isfinite(t),
+                            torch.zeros_like(t), t)
+            c = torch.rsqrt(t * t + 1.0)
+            sn = t * c
+            J = (c[..., 0, None, None] * mc1 + sn[..., 0, None, None] * ms1
+                 + c[..., 1, None, None] * mc2
+                 + sn[..., 1, None, None] * ms2)
+            A = J.transpose(-1, -2) @ A @ J
+            V = V @ J
+    return torch.diagonal(A, dim1=-2, dim2=-1), V
+
+
+def gtr_eigen(freqs, rates, jacobi=False):
     """Eigendecomposition of a reversible rate matrix.
 
     ``freqs [..., S]``, ``rates [..., S(S-1)/2]`` upper-triangle
     exchangeabilities (AC, AG, AT, CG, CT, GT for DNA).  Returns
     (eigvals ``[..., S]``, T, Tinv) with ``Q = T diag(w) Tinv`` and
-    ``-Σ π_i Q_ii = 1``."""
+    ``-Σ π_i Q_ii = 1``.  ``jacobi``: a 4-state system takes
+    :func:`eigh_jacobi`, which reads nothing back to the host, so that a
+    CUDA graph can capture it (``Ctx.captured``); otherwise
+    ``torch.linalg.eigh``, one call where the sweeps are some six hundred
+    small ops."""
     S = freqs.shape[-1]
     iu = torch.triu_indices(S, S, 1, device=freqs.device)
     shape = torch.broadcast_shapes(freqs.shape[:-1], rates.shape[:-1])
@@ -101,7 +162,9 @@ def gtr_eigen(freqs, rates):
     # solver, which refuses a non-finite matrix, sees the identity there
     bad = ~torch.isfinite(B).all(-1).all(-1)
     eye = torch.eye(S, dtype=B.dtype, device=B.device)
-    w, V = torch.linalg.eigh(torch.where(bad[..., None, None], eye, B))
+    B = torch.where(bad[..., None, None], eye, B)
+    w, V = (eigh_jacobi(B) if jacobi and S == 4
+            else torch.linalg.eigh(B))
     nan = torch.full_like(w[..., :1], float("nan"))
     w = torch.where(bad[..., None], nan, w)
     V = torch.where(bad[..., None, None], nan[..., None], V)
@@ -146,6 +209,14 @@ def aa_eigen(model_name: str):
     return w, T, Tinv, freqs
 
 
+@functools.lru_cache(maxsize=None)
+def _aa_eigen_tensors(model_name: str, dtype, device):
+    """The model's eigensystem on ``device``, copied there once: a copy a
+    call would be recorded from host memory under CUDA-graph capture."""
+    return tuple(torch.as_tensor(a, dtype=dtype, device=device)
+                 for a in aa_eigen(model_name)[:3])
+
+
 def pmatrix_aa(t_eff, model_name: str):
     """P(t) for an empirical AA model: ``t_eff [...]`` -> ``[..., 20, 20]``.
 
@@ -153,10 +224,7 @@ def pmatrix_aa(t_eff, model_name: str):
     float32 on the card, where ``driver.resolve_device`` turns TF32 off
     (the counterpart of ``bpp_tpu``'s ``Precision.HIGHEST``)."""
     dtype, dev = t_eff.dtype, t_eff.device
-    w, T, Tinv, _ = aa_eigen(model_name)
-    wt = torch.as_tensor(w, dtype=dtype, device=dev)
-    Tt = torch.as_tensor(T, dtype=dtype, device=dev)
-    Tit = torch.as_tensor(Tinv, dtype=dtype, device=dev)
+    wt, Tt, Tit = _aa_eigen_tensors(model_name, dtype, dev)
     em1 = torch.expm1(t_eff[..., None] * wt)               # [..., A]
     P = torch.matmul(Tt * em1[..., None, :], Tit)
     return P + torch.eye(20, dtype=dtype, device=dev)

@@ -14,16 +14,22 @@ scalars, the strict or a relaxed clock (2, 3, 4), estimated, linked
 the runtime check of the caches (``check = N``) and K replicate chains
 (``chains = K``, :meth:`Engine.run_mcmc_multi`), in float32 or float64.
 ``bpp_tpu``'s combination guards are kept with its messages
-(:func:`_reference_guards`).  The jitted ``lax.scan`` chunk becomes a
-Python loop over :meth:`Engine._step`; a step reads nothing back to the
-host but for the serial accept chains (the Gamma-Dirichlet priors of
-mu_i and nu_i, and every per-locus gene-tree move under integrated-out
-thetas: one copy each way per chain), with SNL on, the SNL-or-SPR draw
-together with the species arrays (one copy), and under migration one
-"any lineage still walking" read every ``mig_moves.SIM_BLOCK`` steps of
-each sim-SPR round; a chunk synchronises once, at its end (and once more
-at a check).  ``bpp_tpu`` vmaps its chunk over the K chains; here the
-chains step in turn, each with its own ``torch.Generator``.
+(:func:`_reference_guards`).
+
+``bpp_tpu`` jits its step and runs a chunk as one ``lax.scan``.  Here
+:func:`step_route`, once per engine, sends a run one of two ways.  On the
+``"graph"`` route a chunk of n iterations is n replays of one captured
+CUDA graph of :meth:`Engine._step` (``mcmc.graph.StepGraph``; under
+``chains = K`` one graph a chain, where ``_chunk_multi`` vmaps them).
+The ``"eager"`` route is a Python loop over :meth:`Engine._step`, taken by
+the schedules whose step reads the device from the host: the serial
+accept chains (the Gamma-Dirichlet priors of mu_i and nu_i, and every
+per-locus gene-tree move under integrated-out thetas: one copy each way
+per chain), with SNL on the SNL-or-SPR draw together with the species
+arrays (one copy), under migration one "any lineage still walking" read
+every ``mig_moves.SIM_BLOCK`` steps of each sim-SPR round, and locus
+sharding.  Either way a chunk synchronises once, at its end (and once
+more at a check).
 
 Locus sharding (``--multihost``, ``parallel.mesh``): an engine given a
 ``Shard`` keeps its block of loci in ``ctx`` and in every state, and its
@@ -34,6 +40,7 @@ trace's sums over loci are all-reduced once a chunk.
 
 from __future__ import annotations
 
+import dataclasses
 import sys
 import time
 from dataclasses import dataclass, field
@@ -58,6 +65,7 @@ from . import (
     subst_moves, trait_moves,
 )
 from .gibbs import gamma_conditional_approx
+from .graph import StepGraph
 from .state import (
     FT_ALPHA, FT_BRATE, FT_BRATE_M, FT_FREQS, FT_GTAGE, FT_GTSPR, FT_LRHT,
     FT_MIG_AGES, FT_MIX, FT_MUBAR, FT_MUI, FT_NUBAR, FT_NUI, FT_QRATES,
@@ -386,6 +394,44 @@ def likelihood_route(n_states: int, res_map) -> str:
     return ROUTE_K1 if res_map is None else ROUTE_K2
 
 
+ROUTE_GRAPH = "graph"
+ROUTE_EAGER = "eager"
+
+
+def step_route(cfg: BppConfig, shard=None) -> tuple[str, str]:
+    """How an engine runs its chunks, chosen once from the configuration:
+    ``("graph", why)`` where the step reads nothing back to the host, so
+    that a chunk is n replays of one captured CUDA graph, else
+    ``("eager", the host read)``.  This table alone decides; a failed
+    capture raises and never falls back to the eager step."""
+    if shard is not None:
+        return ROUTE_EAGER, (
+            "--multihost: each sum over loci is all-reduced between the "
+            "ranks (over gloo through the host, parallel/mesh.py:120-127)")
+    if cfg.theta_integrated:
+        return ROUTE_EAGER, (
+            "integrated thetas: the serial accept chain of every per-locus "
+            "gene-tree move runs on the host (notheta.scan_accept, "
+            "mcmc/notheta.py:96-130, from mcmc/moves.py:525 and :701)")
+    if cfg.locusrate_prior == 0 and (
+            cfg.est_locusrate == 1
+            or cfg.clock in (Clock.IID, Clock.CORRELATED)):
+        return ROUTE_EAGER, (
+            "Gamma-Dirichlet mu_i / nu_i: the serial accept chain runs on "
+            "the host (clock_moves._host_gammadir, mcmc/clock_moves.py:"
+            "194-205, from :257 and :318)")
+    if cfg.est_stree and cfg.prob_snl > 0:
+        return ROUTE_EAGER, (
+            "SNL: the SNL-or-SPR draw and SNL's species-level part read the "
+            "species arrays on the host (driver.py Engine._species_move, "
+            "stree_moves.species_to_host, mcmc/stree_moves.py:498-508)")
+    if cfg.migration and not cfg.usedata_fix_gtree:
+        return ROUTE_EAGER, (
+            "MSC-M: the sim-SPR walk reads 'any lineage still walking' on "
+            "the host (mcmc/mig_moves.py:830-831)")
+    return ROUTE_GRAPH, "the step reads nothing back to the host"
+
+
 @dataclass
 class SampleLog:
     """Posterior samples collected on host."""
@@ -481,6 +527,7 @@ class Engine:
                                          self.dtype, dev)
         self.n_states = (custom.n_states if custom is not None
                          else cfg.model.n_states)
+        self.route, self.route_reason = step_route(cfg)
         self.ctx = Ctx(
             tip_partials=fe.tip_partials_from_codes(
                 t(batch.tip_codes.astype(np.int64)), dtype=self.dtype,
@@ -515,6 +562,7 @@ class Engine:
             route=likelihood_route(self.n_states, rm),
             trait_fn=trait_fn,
             trait_fn_topo=trait_fn_topo,
+            captured=self.route == ROUTE_GRAPH and dev.type == "cuda",
         )
         self._logl_fn = make_logl_fn(self.ctx, cfg)
         self._logpr_fn = make_logpr_fn(self.ctx)
@@ -534,6 +582,7 @@ class Engine:
         self.gen = torch.Generator(device=dev)
         self.gen.manual_seed(int(self.seed))
         self.record_samples()
+        self._graphs = {}     # generators' ids -> their StepGraph
         if shard is not None:
             self.set_shard(shard)
 
@@ -547,7 +596,11 @@ class Engine:
             raise ValueError(f"the shard splits {shard.n_loci} loci, the run "
                              f"has {self.run.batch.n_loci}")
         self.shard = shard
-        self.ctx = shard_by_locus(self.ctx, shard)
+        self.route, self.route_reason = step_route(self.cfg, shard)
+        self._graphs = {}
+        self.ctx = dataclasses.replace(
+            shard_by_locus(self.ctx, shard),
+            captured=self.route == ROUTE_GRAPH and self.device.type == "cuda")
         self._logl_fn = make_logl_fn(self.ctx, self.cfg)
         self._logpr_fn = make_logpr_fn(self.ctx)
         if self.cfg.migration:
@@ -707,7 +760,8 @@ class Engine:
             gt, subst, clock, mig = (state.gt, state.subst, state.clock,
                                      state.mig)
         subst = subst_moves._derive_kappas(subst, cfg.model, self.ctx.custom)
-        subst = refresh_eigen(subst, cfg.model, self.ctx.custom)
+        subst = refresh_eigen(subst, cfg.model, self.ctx.custom,
+                              self.ctx.captured)
         state = state._replace(subst=subst)
         if cfg.migration:
             return state._replace(
@@ -1114,37 +1168,66 @@ class Engine:
                 f"{fresh[worst][:4]})")
         return True
 
+    def step_graph(self, states, gens=None) -> StepGraph:
+        """The captured step of the chains ``states``, chain c drawing
+        from ``gens[c]`` (default: one chain on the engine's generator),
+        made once and kept, with ``states`` loaded (its own views stay)."""
+        gens = [self.gen] if gens is None else list(gens)
+        # the graph holds its generators, so these ids stay theirs
+        key = tuple(id(g) for g in gens)
+        graph = self._graphs.get(key)
+        if graph is None:
+            graph = self._graphs[key] = StepGraph(self, states, gens)
+        else:
+            graph.load(states)
+        return graph
+
     def _chunk(self, state: McmcState, n: int, it=None):
         """n iterations after iteration ``it``; returns (state, stats,
         trace, samples): the trace leaves stacked [n, ...] on the device,
         and, with ``it`` given, the records :meth:`record_samples` asks
-        for, stacked [one a sample generation in (it, it + n], ...]."""
+        for, stacked [one a sample generation in (it, it + n], ...].  On
+        the graph route the state returned is the captured step's static
+        state (:meth:`StepGraph.state`), which the next chunk overwrites."""
         K = max(1, self.cfg.sampfreq)
         want = it is not None and any(self._rec)
-        acc = torch.zeros((N_MOVES, 2), dtype=torch.int64, device=self.device)
-        rows, recs = [], []
-        for i in range(n):
-            state, stats = self._step(state)
-            acc += stats
-            rows.append(self._trace_of(state))
-            if want and it + i + 1 > 0 and (it + i + 1) % K == 0:
-                recs.append(self._sample_record(state))
-        trace = {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+        recs = []
+        if self.route == ROUTE_GRAPH:
+            graph = self.step_graph([state])
+            state = graph.state()
+
+            def record(i):
+                if want and it + i + 1 > 0 and (it + i + 1) % K == 0:
+                    recs.append(self._sample_record(state))
+            accs, traces = graph.run(n, record)
+            acc, trace = accs[0], traces[0]
+        else:
+            acc = torch.zeros((N_MOVES, 2), dtype=torch.int64,
+                              device=self.device)
+            rows = []
+            for i in range(n):
+                state, stats = self._step(state)
+                acc += stats
+                rows.append(self._trace_of(state))
+                if want and it + i + 1 > 0 and (it + i + 1) % K == 0:
+                    recs.append(self._sample_record(state))
+            trace = {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
         if self.shard is not None:
             keys = [k for k in _LOCUS_SUMS if k in trace]
             trace.update(zip(keys, psum(self.shard,
                                         *[trace[k] for k in keys])))
-        if "nu_sum" in trace:
-            trace["nu_col"] = trace.pop("nu_sum") / trace.pop("nu_n")
         samples = ({k: torch.stack([r[k] for r in recs]) for k in recs[0]}
                    if recs else {})
-        return state, acc, trace, samples
+        return state, acc, _nu_column(trace), samples
 
     def chunk_step(self, state: McmcState, n: int, it=None):
         """n iterations; with ``it`` (the iteration before the chunk) the
         sample records :meth:`record_samples` asks for are taken as a run
-        takes them."""
+        takes them.  The state returned is the caller's own on either
+        route (on the graph route a copy of the static state)."""
         state, stats, _, _ = self._chunk(state, n, it)
+        if self.route == ROUTE_GRAPH:
+            state = clone_state(state)
         return state, stats
 
     # --- full run -------------------------------------------------------------
@@ -1280,12 +1363,13 @@ class Engine:
                        log_fp=None, resume=None, on_checkpoint=None):
         """Run K replicate chains; returns their K :class:`SampleLog`.
 
-        ``bpp_tpu`` vmaps the chunk over the chains; here the chains take
-        each chunk in turn, chain k with its own ``torch.Generator``
-        seeded at :meth:`chain_seed`.  Each chain tunes its finetune steps
-        at the single-chain marks from its own move statistics.  The
-        records of :meth:`record_samples` and ``check = N`` are
-        single-chain features.
+        ``bpp_tpu`` vmaps the chunk over the chains.  Here chain k draws
+        from its own ``torch.Generator`` seeded at :meth:`chain_seed`, and
+        the chains take each chunk in turn: on the graph route as n
+        replays of their captured steps (:meth:`step_graph`).  Each
+        chain tunes its finetune steps at the single-chain marks from its
+        own move statistics.  The records of :meth:`record_samples` and
+        ``check = N`` are single-chain features.
 
         ``resume = (states, rng_states, it, stats_acc, logs)`` continues
         from a checkpoint (the K states as :meth:`init_states`' templates
@@ -1328,18 +1412,28 @@ class Engine:
         t0 = time.time()
         last_print = 0
         own_gen = self.gen
+        graph = None
+        if self.route == ROUTE_GRAPH:
+            graph = self.step_graph(states, gens)
+            states = list(graph.states())
         try:
             while it < total_main:
                 bounds = ([m for m in marks if m > it]
                           + ([next_ck] if it < next_ck <= total_main else [])
                           + [total_main])
                 n = max(1, min(500, min(bounds) - it))
-                traces = []
-                for c in range(n_chains):
-                    self.gen = gens[c]
-                    states[c], stats, trace, _ = self._chunk(states[c], n)
-                    stats_acc[c] += stats.cpu().numpy()
-                    traces.append(trace)
+                if graph is not None:
+                    accs, traces = graph.run(n)
+                    traces = [_nu_column(tr) for tr in traces]
+                    stats_acc += accs.cpu().numpy()
+                else:
+                    traces = []
+                    for c in range(n_chains):
+                        self.gen = gens[c]
+                        states[c], stats, trace, _ = self._chunk(states[c],
+                                                                 n)
+                        stats_acc[c] += stats.cpu().numpy()
+                        traces.append(trace)
                 prev = it
                 it += n
                 if progress_every and (it - last_print >= progress_every
@@ -1369,11 +1463,28 @@ class Engine:
         return logs
 
     def _reset_finetune(self, state: McmcState, stats_acc) -> McmcState:
+        """The finetune steps tuned from ``stats_acc``, written through
+        into ``state.finetune`` (the captured step's buffer on the graph
+        route); returns ``state``."""
         ft = state.finetune.cpu().numpy().copy()
         for mv, fti in MOVE_TO_FT.items():
             prop, acc = stats_acc[mv]
             # too few proposals make the pjump estimate useless
             if prop >= 30:
                 ft[fti] = reset_finetune_onestep(acc / prop, ft[fti])
-        return state._replace(finetune=torch.as_tensor(
-            ft, dtype=self.dtype, device=self.device))
+        state.finetune.copy_(torch.as_tensor(ft, dtype=self.dtype))
+        return state
+
+
+def _nu_column(trace):
+    """The nu column of mcmc.txt from the trace's sums over loci."""
+    if "nu_sum" in trace:
+        trace["nu_col"] = trace.pop("nu_sum") / trace.pop("nu_n")
+    return trace
+
+
+def clone_state(state):
+    """A copy of every tensor of a state (a NamedTuple tree)."""
+    if state is None or torch.is_tensor(state):
+        return None if state is None else state.clone()
+    return type(state)(*(clone_state(v) for v in state))

@@ -4,7 +4,10 @@ Port of ``bpp_tpu/mcmc/rng.py``: an explicit ``torch.Generator``
 (Philox on CUDA) replaces the JAX keys.  The proposal kernels mirror the
 reference math: the Bactrian-Laplace symmetric kernel
 (``random.c:191-208``, m=0.90) and boundary reflection
-(``src/gtree.c:3982`` ``reflect``).
+(``src/gtree.c:3982`` ``reflect``).  Every draw takes the run's generator
+(``torch.rand``, ``randint``, ``exponential_``, ``_standard_gamma``), never
+the default one: ``mcmc.graph.StepGraph`` registers it with its CUDA
+graph, so each replay advances its Philox offset as an eager step does.
 
 Per-locus draws take ``shard`` (``parallel.mesh.Shard``, None when the
 run is not sharded): the variate is drawn at the global shape, the

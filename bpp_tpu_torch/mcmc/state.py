@@ -200,12 +200,14 @@ def expand_qrates(subst: SubstState, custom: CustomModels):
 
 
 def refresh_eigen(subst: SubstState, model: SubstModel,
-                  custom: CustomModels | None = None) -> SubstState:
-    """Recompute the cached eigendecomposition (GTR and custom loci)."""
+                  custom: CustomModels | None = None,
+                  jacobi: bool = False) -> SubstState:
+    """Recompute the cached eigendecomposition (GTR and custom loci);
+    ``jacobi``: by ``pmatrix.eigh_jacobi`` (``Ctx.captured``)."""
     if model == SubstModel.CUSTOM:
         exp = expand_qrates(subst, custom)
         if custom.n_states == 4:
-            w, T, Tinv = gtr_eigen(subst.freqs, exp)
+            w, T, Tinv = gtr_eigen(subst.freqs, exp, jacobi)
             return subst._replace(eigw=w, eigT=T, eigTi=Tinv)
         # mixed DNA/AA: each DNA locus's 4-state eigensystem embedded in
         # the 20-state space (zero eigenvalues, the identity on the other
@@ -213,7 +215,7 @@ def refresh_eigen(subst: SubstState, model: SubstModel,
         d = custom.is_dna
         f4 = torch.where(d[:, None], subst.freqs[:, :4],
                          torch.full_like(subst.freqs[:, :4], 0.25))
-        w4, T4, Ti4 = gtr_eigen(f4, exp)
+        w4, T4, Ti4 = gtr_eigen(f4, exp, jacobi)
         L, S = w4.shape[0], custom.n_states
         w = torch.zeros((L, S), dtype=w4.dtype, device=w4.device)
         w[:, :4] = w4
@@ -228,7 +230,7 @@ def refresh_eigen(subst: SubstState, model: SubstModel,
         return subst._replace(eigw=w, eigT=T, eigTi=Tinv)
     if model != SubstModel.GTR:
         return subst
-    w, T, Tinv = gtr_eigen(subst.freqs, subst.qrates)
+    w, T, Tinv = gtr_eigen(subst.freqs, subst.qrates, jacobi)
     return subst._replace(eigw=w, eigT=T, eigTi=Tinv)
 
 
@@ -335,6 +337,11 @@ class Ctx:
     # locus sharding (parallel.mesh.Shard): the per-locus tensors above
     # hold this rank's block of loci; None when one process holds them all
     shard: object | None = None
+    # the step is captured into a CUDA graph (driver.step_route's graph
+    # route on the card): GTR's eigensystem takes pmatrix.eigh_jacobi,
+    # which reads nothing back to the host; an eager step takes
+    # torch.linalg.eigh, in far fewer kernels (PERF.md §6)
+    captured: bool = False
 
     @property
     def has_traits(self) -> bool:

@@ -111,7 +111,7 @@ def freqs_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
     fnew = torch.where(free[:, None], fnew, f)
 
     subst_new = refresh_eigen(subst._replace(freqs=fnew), cfg.model,
-                              ctx.custom)
+                              ctx.custom, ctx.captured)
     logl_new = _logl(ctx, cfg, state, subst_new)
     lnacc = logl_new - state.logl         # uniform Dirichlet prior, symmetric
     accept = rng.mh_accept(gen, lnacc, sh) & free
@@ -147,7 +147,8 @@ def qrates_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
         qnew[:, ref] = s - torch.exp(new_lg)
 
         subst_new = refresh_eigen(
-            _derive_kappas(subst._replace(qrates=qnew), cfg.model), cfg.model)
+            _derive_kappas(subst._replace(qrates=qnew), cfg.model), cfg.model,
+            jacobi=ctx.captured)
         logl_new = _logl(ctx, cfg, state, subst_new)
         aj, ar = GTR_DIR_ALPHA[j], GTR_DIR_ALPHA[ref]
         lnacc = (new_lg - old_lg) + (logl_new - logl) \
@@ -191,7 +192,7 @@ def _qrates_move_custom(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
 
         subst_new = refresh_eigen(
             _derive_kappas(subst._replace(qrates=qnew), cfg.model, cm),
-            cfg.model, cm)
+            cfg.model, cm, ctx.captured)
         logl_new = _logl(ctx, cfg, state, subst_new)
         ref_ratio = torch.log(torch.where(
             free_j, qnew[lidx, cm.q_ref] / torch.clamp(qref, min=1e-300),

@@ -228,6 +228,12 @@ def make_trait_logl(st, data: tuple[TraitPartData, ...]):
     return trait_logl
 
 
+def _at(x, i):
+    """``x[i]`` for a 0-dim index tensor ``i`` on the device, gathered
+    there: indexing with the 0-dim tensor itself reads it on the host."""
+    return x[i[None]][0]
+
+
 def make_trait_logl_topo(NS: int, H: int, data: tuple[TraitPartData, ...]):
     """Returns ``trait_logl(left, right, parent, tau, brate) -> [n_part]``
     over a species topology held in tensors: the form the species SPR and
@@ -263,17 +269,17 @@ def make_trait_logl_topo(NS: int, H: int, data: tuple[TraitPartData, ...]):
         logl = torch.zeros((), dtype=tau.dtype, device=tau.device)
         for i in range(NS - 1):
             node = porder[i]
-            lch, rch = left[node], right[node]
-            v1, v2 = brlen[lch], brlen[rch]
+            lch, rch = _at(left, node), _at(right, node)
+            v1, v2 = _at(brlen, lch), _at(brlen, rch)
             v12 = v1 + v2
-            contrast = m[lch] - m[rch]
+            contrast = _at(m, lch) - _at(m, rch)
             zz = torch.sum(contrast * contrast)
             logl = logl - 0.5 * (p * torch.log(2.0 * math.pi * v12)
                                  + part.ldetRs + zz / v12)
-            m = m.index_copy(0, node[None],
-                             ((v2 * m[lch] + v1 * m[rch]) / v12)[None])
+            m = m.index_copy(0, node[None], ((v2 * _at(m, lch) + v1 * _at(
+                m, rch)) / v12)[None])
             brlen = brlen.index_copy(0, node[None],
-                                     (vk[node] + v1 * v2 / v12)[None])
+                                     (_at(vk, node) + v1 * v2 / v12)[None])
         return logl
 
     def one_disc(left, right, parent, porder, root, tau, brate, part):
@@ -303,24 +309,24 @@ def make_trait_logl_topo(NS: int, H: int, data: tuple[TraitPartData, ...]):
 
         def prune(cl_child, child, kindex):
             # (P @ cl)[x] = pdiff * S + (psame - pdiff) * cl[x]
-            ps = psame[child][kindex]
-            pd = pdiff[child][kindex]
+            ps = _at(psame, child)[kindex]
+            pd = _at(pdiff, child)[kindex]
             s = cl_child.sum(-1)
             return pd[:, None] * s[:, None] + (ps - pd)[:, None] * cl_child
 
         for i in range(NS - 1):
             node = porder[i]
-            lch, rch = left[node], right[node]
-            clp = (prune(cl[lch] * xmask, lch, kidx)
-                   * prune(cl[rch] * xmask, rch, kidx)) * xmask
-            dlp = (prune(dl[lch] * dmask, lch, kall)
-                   * prune(dl[rch] * dmask, rch, kall)) * dmask
+            lch, rch = _at(left, node), _at(right, node)
+            clp = (prune(_at(cl, lch) * xmask, lch, kidx)
+                   * prune(_at(cl, rch) * xmask, rch, kidx)) * xmask
+            dlp = (prune(_at(dl, lch) * dmask, lch, kall)
+                   * prune(_at(dl, rch) * dmask, rch, kall)) * dmask
             cl = cl.index_copy(0, node[None], clp[None])
             dl = dl.index_copy(0, node[None], dlp[None])
-        prob = cl[root].sum(-1) / part.nstate.to(dt)     # uniform root
+        prob = _at(cl, root).sum(-1) / part.nstate.to(dt)     # uniform root
         # p_const(k) = sum_a sum_x rootprob_a[x] / k (morph.c:935): the k
         # dummies are alike, so it is sum_x of the one dummy's root
-        pc = dl[root].sum(-1)[kidx]                      # [nchar]
+        pc = _at(dl, root).sum(-1)[kidx]                 # [nchar]
         return torch.sum(torch.log(torch.clamp(prob, min=1e-300))
                          - torch.log(torch.clamp(1.0 - pc, min=1e-300)))
 

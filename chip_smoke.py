@@ -279,7 +279,7 @@ the chain's last state, and the ``[profile]`` of its step there:
               frequencies, rates and alpha (not in mcmc.txt) moved on the
               loci; K1 held on the state's own TN93+G4 parameters;
 36. main 20 — GTR+G4 likewise: K1 8 + 1 + 5 + 1 = 15 an iteration plus 1;
-              the eigensystems (``torch.linalg.eigh`` in float32 on the
+              the eigensystems (``pmatrix.eigh_jacobi`` in float32 on the
               card) that came out NaN counted, each rejected;
 37. main 21 — main 2's diploid data with Gamma-Dirichlet locus rates
               (``locusrate = 1 10 10 5``), the correlated clock (``clock = 3
@@ -299,6 +299,36 @@ the chain's last state, and the ``[profile]`` of its step there:
               (``torch.cuda.max_memory_allocated`` from a reset just before
               the chain; ``run_chain`` prints it on the chain's line beside
               what the process held before it) in one line.
+40. graph   — the captured step (``mcmc.graph.StepGraph``) against the
+              eager step at the same seed, in this process, for mains 1,
+              2, 13, 16, 17 and 18 and, timed, every other main path the
+              route table captures (3, 4, 8, 9, 10, 11, 15, 16's diploid
+              run, 19, 20): the states, move statistics, traces and generator
+              states bit-equal after 6 iterations, and (the first six)
+              the control file through ``cli.main`` at burnin 8, nsample 4
+              both ways with every mcmc file byte-equal; each route's wall
+              ms an iteration (the median of 3 windows), device kernels,
+              busy ms and idle share an iteration (within 25 kernels of
+              each other), the capture's seconds and peak device memory,
+              K1 / K2 launched inside the graph (under ``chains = K`` the
+              K graphs, one a chain, and the write-back on one shared
+              memory pool, as ``run_mcmc_multi`` runs them); then
+              ``[eigen]``: main 20's GTR step on the eager route with its
+              eigensystems from ``pmatrix.eigh_jacobi`` and from
+              ``torch.linalg.eigh``, windows in turn;
+41. sync    — each main path's control file cut to 20 loci: one eager
+              step under ``torch.cuda.set_sync_debug_mode("warn")``, every
+              synchronising op by the line of the port that issued it,
+              beside the route ``driver.step_route`` gives; a graph-route
+              step must have none.
+
+Every main path whose configuration ``driver.step_route`` captures (1-4,
+8-11, 13, 15-20 and [tools]' run) runs its chunks as replays of one
+captured CUDA graph; the launch counts a replay adds are the graph's
+captured launches, so the predicted counts hold on either route.  The
+graph's warm-up iteration before its capture (one iteration of each
+chain, undone) launches the kernels too but is left out of the counts
+and of the ``launches`` in the kernels line, as the capture itself is.
 
 Then a ``[time]`` line (the whole script, and the seconds of each group
 of phases in the order they ran), one JSON line ``{"kernels": [...]}``
@@ -995,6 +1025,36 @@ class MoveTally:
         return wrapper
 
 
+class MoveStats:
+    """While active, the move statistics ``stats`` [N_MOVES, 2]
+    (proposed, accepted) summed over every chunk an engine runs, and the
+    iterations ``iters`` those chunks ran: what a move did on either
+    route (a replayed graph makes no Python call a move could count)."""
+
+    def __enter__(self):
+        import numpy as np
+
+        from bpp_tpu_torch.mcmc.driver import Engine
+        from bpp_tpu_torch.mcmc.state import N_MOVES
+        self.stats = np.zeros((N_MOVES, 2), np.int64)
+        self.iters = 0
+        self._orig = orig = Engine._chunk
+        tally = self
+
+        def chunk(eng, state, n, it=None):
+            out = orig(eng, state, n, it)
+            tally.stats += out[1].cpu().numpy()
+            tally.iters += n
+            return out
+
+        Engine._chunk = chunk
+        return self
+
+    def __exit__(self, *exc):
+        from bpp_tpu_torch.mcmc.driver import Engine
+        Engine._chunk = self._orig
+
+
 def time_moves(eng, state, dev, smi):
     """``[moves]``: wall time of each new move on the diploid chain's
     state, and of GTR's eigendecomposition and the Gamma quantiles."""
@@ -1033,6 +1093,8 @@ def time_moves(eng, state, dev, smi):
         lambda: subst_moves.qrates_move(ctx, cfg_g, st_g, gen))))
     rows.append(("gtr_eigen[L]", cuda_ms(
         lambda: gtr_eigen(s_g.freqs, s_g.qrates), reps=10)))
+    rows.append(("gtr_eigen[L] (eigh_jacobi)", cuda_ms(
+        lambda: gtr_eigen(s_g.freqs, s_g.qrates, jacobi=True), reps=10)))
     rows.append(("discrete_gamma_rates[L,4]", cuda_ms(
         lambda: discrete_gamma_rates(state.subst.alpha, 4), reps=10)))
     print("[moves] wall ms per call at " + f"{L} loci: "
@@ -1482,18 +1544,26 @@ class Checks:
 
 
 class ChainEnds:
-    """While active, the state the first ``Engine._step`` was given
-    (``first``) and the last (engine, state) a step returned (``last``;
-    under ``chains = K``, the last chain's); :meth:`seen` gets every
-    state a step returns."""
+    """While active, the state the first iteration was given (``first``)
+    and the last (engine, state) an iteration returned (``last``; under
+    ``chains = K``, the last chain's); :meth:`seen` gets every state an
+    iteration returns.  On the eager route these are ``Engine._step``'s;
+    on the graph route the static state around each
+    ``StepGraph.replay`` (copied where a later replay would overwrite
+    it), and the step's own calls, which only warm up and capture the
+    graph, are not seen."""
 
     def __enter__(self):
-        from bpp_tpu_torch.mcmc.driver import Engine
+        from bpp_tpu_torch.mcmc.driver import Engine, clone_state
+        from bpp_tpu_torch.mcmc.graph import StepGraph
         self.first = self.last = None
         self._orig = orig = Engine._step
+        self._orig_replay = orig_replay = StepGraph.replay
         ends = self
 
         def step(eng, state):
+            if eng.route != "eager":
+                return orig(eng, state)
             if ends.first is None:
                 ends.first = state
             state, stats = orig(eng, state)
@@ -1501,15 +1571,28 @@ class ChainEnds:
             ends.seen(eng, state)
             return state, stats
 
+        def replay(graph):
+            if ends.first is None:
+                ends.first = clone_state(graph.state(0))
+            orig_replay(graph)
+            for state in graph.states():
+                ends.last = (graph.eng, state)
+                ends.seen(graph.eng, state)
+
         Engine._step = step
+        StepGraph.replay = replay
         return self
 
     def seen(self, eng, state):
         """What a subclass keeps of each state."""
 
     def __exit__(self, *exc):
-        from bpp_tpu_torch.mcmc.driver import Engine
+        from bpp_tpu_torch.mcmc.driver import Engine, clone_state
+        from bpp_tpu_torch.mcmc.graph import StepGraph
         Engine._step = self._orig
+        StepGraph.replay = self._orig_replay
+        if self.last is not None and self.last[0].route == "graph":
+            self.last = (self.last[0], clone_state(self.last[1]))
 
 
 def main8(iters, smi):
@@ -2001,8 +2084,9 @@ def mig_phases(dev, smi, iters, n_loci=N_LOCI, n_diploid=N_MIG_DIPLOID):
 
 class Chains:
     """``chunk_step`` over the K chains of an engine, each with its own
-    generator, as ``Engine.run_mcmc_multi`` steps them: what
-    ``profile_step`` and ``step_ms`` time."""
+    generator, as ``Engine.run_mcmc_multi`` steps them (on the graph route
+    replays of one graph a chain): what ``profile_step`` and ``step_ms``
+    time."""
 
     def __init__(self, eng, gens):
         self.eng, self.gens = eng, gens
@@ -2018,6 +2102,12 @@ class Chains:
         return cls(eng, gens), eng.init_states(k)
 
     def chunk_step(self, states, n, it=None):
+        from bpp_tpu_torch.mcmc.driver import clone_state
+        if self.eng.route == "graph":
+            # the chains' captured steps, as run_mcmc_multi runs them
+            graph = self.eng.step_graph(states, self.gens)
+            graph.run(n)
+            return [clone_state(st) for st in graph.states()], None
         own = self.eng.gen
         try:
             for c, g in enumerate(self.gens):
@@ -2178,6 +2268,7 @@ def main15(smi, dev):
     import torch
 
     from bpp_tpu_torch.mcmc.driver import Engine
+    from bpp_tpu_torch.mcmc.state import MV_TRAIT
     from bpp_tpu_torch.testing import write_trait_file
     write_trait_file("traits.txt", seed=137)
     with open("run15.ctl", "w") as f:
@@ -2185,23 +2276,26 @@ def main15(smi, dev):
                                job="out15",
                                extra=TRAITS15.format(check=CHECK_EVERY)))
     iters = BURNIN + NSAMPLE
-    with Checks() as checks, MoveTally(
-            record=True, moves=(TRAIT_MOVE,), accepted=False) as tally:
+    with Checks() as checks, MoveStats() as tally:
         launches, _ = run_chain(
             ["--cfile", "run15.ctl"], "out15", iters,
             (PASSES_PER_ITER * iters + 1 + N_CHECKS, 0),
             ("theta", "tau"), "main 15", smi)
     checks.expect("main 15", BURNIN, NSAMPLE, traits=True)
     diffs = checks.trait_diffs
-    prop, acc = tally.counts["trait_brate_move"]
-    if prop != iters or not acc:
-        raise AssertionError(f"main 15: the trait move ran {prop} times, "
-                             f"accepted in {acc}")
     eng = Engine(load_run("run15.ctl"), seed=1, device=dev)
+    # under the strict clock one proposal a partition an iteration
+    per_iter = len(eng.trait_data)
+    prop, acc = tally.stats[MV_TRAIT]
+    if tally.iters != iters or prop != per_iter * iters or not acc:
+        raise AssertionError(f"main 15: {tally.iters} iterations, the trait "
+                             f"move proposed {prop} rates ({per_iter} an "
+                             f"iteration expected), accepted {acc}")
     state, _ = eng.chunk_step(eng.init_state(), 5)
     print(f"[main 15] {N_CHECKS} checks passed, the cached trait logl equal "
           f"to a fresh evaluation at each (max |d| {max(diffs)}); the trait "
-          f"move ran {prop} times and accepted in {acc}; trait logl "
+          f"move proposed {prop} rates in {iters} iterations and accepted "
+          f"{acc}; trait logl "
           f"{[round(float(x), 3) for x in state.trait.logl]} | {smi}")
     profile_step(eng, state, step_ms(eng, state), smi, "pack_logl_kernel",
                  "JC69 with traits step (main 15)", PASSES_PER_ITER)
@@ -2341,11 +2435,12 @@ def subst_main(n, model, passes, smi):
     """``[main 19]`` / ``[main 20]``: main 1's data under ``model`` + G4
     (``alphaprior = 1 1 4``) through the CLI, 20 iterations: K1 ``passes``
     times an iteration plus 1; the frequencies, rates and alpha, which
-    mcmc.txt does not print, moved; under GTR every eigensystem a move
-    computed (``torch.linalg.eigh`` in float32 on the card) counted, and
-    those that came out NaN, which the moves reject; K1 held on the last
-    state's own parameters; the ``[profile]`` of the step there.  Returns
-    (K1 launches, the hold's error)."""
+    mcmc.txt does not print, moved; under GTR the eigensystems the moves
+    computed (``pmatrix.eigh_jacobi`` in float32 on the card) that came
+    out NaN, which the moves reject, counted on the device (a replayed
+    graph adds its count each replay; its warm-up iteration counts too);
+    K1 held on the last state's own parameters; the ``[profile]`` of the
+    step there.  Returns (K1 launches, the hold's error)."""
     import torch
 
     from bpp_tpu_torch.mcmc import subst_moves
@@ -2353,14 +2448,15 @@ def subst_main(n, model, passes, smi):
     with open(f"run{n}.ctl", "w") as f:
         f.write(new_ctl(n, N_LOCI))
     iters = NEW_BURNIN + NEW_NSAMPLE
-    eigen = []                       # per refresh: (loci, NaN loci)
+    eigen = []                       # the loci of each refresh call
+    nan = torch.zeros((), dtype=torch.int64, device="cuda")
     orig = subst_moves.refresh_eigen
 
-    def counted(subst, model_, custom=None):
-        out = orig(subst, model_, custom)
+    def counted(subst, model_, custom=None, jacobi=False):
+        out = orig(subst, model_, custom, jacobi)
         if out.eigw is not subst.eigw:
-            bad = ~torch.isfinite(out.eigw).all(-1)
-            eigen.append((bad.numel(), bad.sum()))
+            nan.add_((~torch.isfinite(out.eigw).all(-1)).sum())
+            eigen.append(out.eigw.shape[0])
         return out
 
     subst_moves.refresh_eigen = counted
@@ -2378,13 +2474,12 @@ def subst_main(n, model, passes, smi):
         ("subst", "freqs"), ("subst", "qrates"), ("subst", "alpha")))
     if not bool(torch.isfinite(state.subst.eigw[mask]).all()):
         raise AssertionError(f"{label}: a NaN eigensystem was accepted")
-    nan = (f"; {sum(int(b) for _, b in eigen)} of "
-           f"{sum(k for k, _ in eigen)} eigensystems NaN, each rejected"
-           if model == "GTR" else "")
+    nans = (f"; {int(nan)} NaN eigensystems proposed ({eigen[0]} a "
+            f"refresh), each rejected" if model == "GTR" else "")
     if model == "GTR" and not eigen:
         raise AssertionError(f"{label}: no eigensystem was computed")
     print(f"[{label}] {model}+G4: loci whose parameters moved {moved} of "
-          f"{int(mask.sum())}{nan} | {smi}")
+          f"{int(mask.sum())}{nans} | {smi}")
     err, _ = hold_given(f"K1, {label}'s last state", eng, state, smi,
                         cases=own_cases(eng, state), tag=label)
     profile_last(eng, state, smi, "pack_logl_kernel",
@@ -2482,6 +2577,372 @@ def main22(smi):
                  "A01 JC69 traits clock = 2 step (main 22)",
                  PASSES_PER_ITER_22)
     return launches, err
+
+
+# [sync]: each main path's control file cut to this many loci (the ops a
+# step runs do not depend on the locus count)
+SYNC_LOCI = 20
+# the main paths [sync] reads, by control file (x64: with --x64)
+SYNC_MAINS = (
+    ("main 1", "run.ctl", False), ("main 2", "run2.ctl", False),
+    ("main 3", "run3.ctl", False), ("main 4", "run4.ctl", False),
+    ("main 5", "run5.ctl", False), ("main 6", "run6.ctl", False),
+    ("main 7", "run7.ctl", False), ("main 8", "run8.ctl", False),
+    ("main 9", "run9.ctl", False), ("main 10", "run10.ctl", False),
+    ("main 11", "run11.ctl", False), ("main 12", "run12.ctl", False),
+    ("main 13", "run13.ctl", False), ("main 14", "run14.ctl", False),
+    ("main 15", "run15.ctl", False), ("main 16", "run.ctl", True),
+    ("main 16 diploid", "run2.ctl", True), ("main 17", "run17.ctl", False),
+    ("main 18", "run18.ctl", False), ("main 19", "run19.ctl", False),
+    ("main 20", "run20.ctl", False), ("main 21", "run21.ctl", False),
+    ("main 22", "run22.ctl", False))
+# [graph]: wall time a route, the median of GRAPH_WINDOWS windows of
+# GRAPH_WINDOW_ITERS iterations; states compared after GRAPH_ITERS
+# iterations from the initial state; the CLI runs compared at burnin 8
+# (the first with finetune marks), nsample 4
+GRAPH_WINDOWS = 3
+GRAPH_WINDOW_ITERS = 5
+GRAPH_ITERS = 6
+GRAPH_BURNIN, GRAPH_NSAMPLE = 8, 4
+
+
+class ForcedEager:
+    """While active, every new engine takes the eager route (the route
+    table patched): [graph]'s runs to compare with."""
+
+    def __enter__(self):
+        from bpp_tpu_torch.mcmc import driver
+        self._orig = driver.step_route
+        driver.step_route = lambda cfg, shard=None: ("eager", "compared")
+        return self
+
+    def __exit__(self, *exc):
+        from bpp_tpu_torch.mcmc import driver
+        driver.step_route = self._orig
+
+
+def cut_ctl(ctl, dst, nloci=None, burnin=None, nsample=None, job=None):
+    """A copy of the control file ``ctl`` at ``dst`` with its nloci,
+    burnin, nsample and jobname lines replaced where given."""
+    import re
+    with open(ctl) as f:
+        text = f.read()
+    for key, val in (("nloci", nloci), ("burnin", burnin),
+                     ("nsample", nsample), ("jobname", job)):
+        if val is not None:
+            text = re.sub(rf"(?m)^{key} = .*$", f"{key} = {val}", text)
+    with open(dst, "w") as f:
+        f.write(text)
+    return dst
+
+
+def sync_pass(label, ctl, smi, x64=False, nloci=SYNC_LOCI):
+    """``[sync]``: one eager step of ``label``'s configuration (``ctl`` cut
+    to ``nloci`` loci) under ``torch.cuda.set_sync_debug_mode("warn")``,
+    after a step that warms it up: every synchronising op, by the line of
+    the port that called it, beside the route the table gives.  A graph-
+    route step must have none (its capture would fail).  Returns the
+    synchronising lines."""
+    import collections
+    import traceback
+    import warnings
+
+    import torch
+
+    import bpp_tpu_torch
+    from bpp_tpu_torch.mcmc.driver import Engine
+    small = cut_ctl(ctl, f"sync_{os.path.basename(ctl)}", nloci=nloci)
+    with open(small) as f:
+        text = f.read()
+    if "model = custom parts.txt" in text:
+        # the partition file covers the loci read
+        from bpp_tpu_torch.testing import write_partition_file
+        write_partition_file("sync_parts.txt", CUSTOM_MODELS, nloci)
+        with open(small, "w") as f:
+            f.write(text.replace("custom parts.txt", "custom sync_parts.txt"))
+    eng = Engine(load_run(small, "float64" if x64 else None), seed=1,
+                 device="cuda")
+    route, why = eng.route, eng.route_reason
+    eng.route = "eager"
+    state, _ = eng.chunk_step(eng.init_state(), 1)
+    torch.cuda.synchronize()
+    root = os.path.dirname(os.path.abspath(bpp_tpu_torch.__file__))
+    found = collections.Counter()
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing" not in str(message):
+            return
+        for fr in reversed(traceback.extract_stack()[:-1]):
+            if fr.filename.startswith(root):
+                found[f"{os.path.relpath(fr.filename, root)}:{fr.lineno}"] += 1
+                return
+        found[f"{os.path.basename(filename)}:{lineno}"] += 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            eng.chunk_step(state, 1)
+            torch.cuda.set_sync_debug_mode(0)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    ops = ", ".join(f"{k} x{v}" for k, v in sorted(found.items())) or "none"
+    print(f"[sync] {label}: route {route} ({why}) | synchronising ops in "
+          f"one eager step ({nloci} loci): {ops} | {smi}")
+    if route == "graph" and found:
+        raise AssertionError(f"[sync] {label}: the graph route's step "
+                             f"synchronises at {ops}")
+    return found
+
+
+def graph_phase(label, ctl, smi, x64=False, cli_compare=True,
+                window_iters=GRAPH_WINDOW_ITERS):
+    """``[graph]``: ``label``'s configuration (``ctl``; ``x64``: in
+    float64) run eagerly and through its captured step (one graph of the
+    K chains under ``chains = K``) at the same seed, in this process.
+    From the same initial states, ``GRAPH_ITERS`` iterations each way:
+    the states, move statistics, traces and generator states must be
+    bit-equal.  Then each route's wall ms an iteration (the median of
+    ``GRAPH_WINDOWS`` windows of ``window_iters``), its device kernels,
+    busy ms and idle share an iteration (a profiler trace of 3), the
+    capture's seconds and peak device memory (from a reset just before
+    it), and K1 / K2 launched inside the graph.  ``cli_compare``: the
+    control file run through ``cli.main`` at
+    burnin 8, nsample 4 both ways: every mcmc file byte-equal.  Returns
+    (eager, graph) wall ms an iteration."""
+    import torch
+
+    from bpp_tpu_torch import cli
+    from bpp_tpu_torch.mcmc.driver import Engine, clone_state
+    from bpp_tpu_torch.mcmc import graph as graph_mod
+    from bpp_tpu_torch.mcmc.graph import StepGraph, flatten
+    run = load_run(ctl, "float64" if x64 else None)
+    K = max(1, run.cfg.n_chains)
+    res = {}
+
+    def start(route):
+        eng = Engine(run, seed=1, device="cuda")
+        if eng.route != "graph":
+            raise AssertionError(f"[graph] {label}: the route table sends "
+                                 f"it {eng.route} ({eng.route_reason})")
+        eng.route = route
+        gens = [torch.Generator(device="cuda") for _ in range(K)]
+        for c, g in enumerate(gens):
+            g.manual_seed(eng.chain_seed(c))
+        states = eng.init_states(K) if K > 1 else [eng.init_state()]
+        return eng, gens, states
+
+    def timed(advance, passes, attempts=10):
+        """(wall ms, device kernels, busy ms) an iteration; a profiler
+        trace that misses some of the ``passes`` pruning launches an
+        iteration has missed other kernels too and is taken again (as in
+        ``profile_step``; a step with none takes the first)."""
+        times = []
+        for _ in range(GRAPH_WINDOWS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            advance(window_iters)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3 / window_iters)
+        for _ in range(attempts):
+            kern = device_kernels(lambda: advance(3))
+            held = sum(1 for name, _ in kern if "pack_logl_kernel" in name
+                       or "fels_site_logl_kernel" in name)
+            if held == 3 * passes:
+                break
+        else:
+            raise AssertionError(f"[graph] {label}: no profiler trace of "
+                                 f"{attempts} held all {3 * passes} pruning "
+                                 f"launches (the last held {held})")
+        busy = sum(us for _, us in kern) / 1e3 / 3
+        return statistics.median(times), len(kern) / 3, busy
+
+    for route in ("eager", "graph"):
+        eng, gens, states = start(route)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        r = res[route] = {"pass": eng.ctx.route}
+        if route == "graph":
+            graph = eng.step_graph(states, gens)
+            graph.capture()
+            r["capture_s"] = graph.capture_s
+            r["peak"] = (torch.cuda.max_memory_allocated() - held) / 2**20
+            r["per_replay"] = graph.per_replay
+
+            def advance(n):
+                return graph.run(n)
+        else:
+            def advance(n):
+                own, accs, traces = eng.gen, [], []
+                try:
+                    for c in range(K):
+                        eng.gen = gens[c]
+                        states[c], acc, trace, _ = eng._chunk(states[c], n)
+                        accs.append(acc)
+                        traces.append(trace)
+                finally:
+                    eng.gen = own
+                return torch.stack(accs), traces
+        counts = graph_mod.launch_counts()
+        acc, traces = advance(GRAPH_ITERS)
+        torch.cuda.synchronize()
+        r["passes"] = sum(b - a for a, b in zip(
+            counts[::2], graph_mod.launch_counts()[::2])) // GRAPH_ITERS
+        final = graph.states() if route == "graph" else states
+        r["leaves"] = [flatten(clone_state(st))[1] for st in final]
+        r["acc"], r["traces"] = acc.clone(), traces
+        r["gens"] = [g.get_state() for g in gens]
+        if route == "eager":
+            torch.cuda.reset_peak_memory_stats()
+            r["capture_s"], r["per_replay"] = 0.0, None
+        r["ms"], r["kernels"], r["busy"] = timed(advance, r["passes"])
+        if route == "eager":
+            r["peak"] = (torch.cuda.max_memory_allocated() - held) / 2**20
+        del eng, states, gens
+        if route == "graph":
+            del graph
+        torch.cuda.empty_cache()
+    e, g = res["eager"], res["graph"]
+    same = (all(torch.equal(a, b) for la, lb in zip(e["leaves"], g["leaves"])
+                for a, b in zip(la, lb))
+            and torch.equal(e["acc"], g["acc"])
+            and all(torch.equal(ta[k], tb[k])
+                    for ta, tb in zip(e["traces"], g["traces"]) for k in ta)
+            and all(torch.equal(a, b) for a, b in zip(e["gens"], g["gens"])))
+    if not same:
+        raise AssertionError(f"[graph] {label}: after {GRAPH_ITERS} "
+                             "iterations the replayed chain's state differs "
+                             "from the eager chain's")
+    k1, k1d, k2, k2d = g["per_replay"]
+    if bool(k1 + k2) != (g["pass"] != "plain"):
+        raise AssertionError(f"[graph] {label}: K1 {k1}, K2 {k2} launched "
+                             f"inside the graph on the {g['pass']} route")
+    if abs(g["kernels"] - e["kernels"]) > 25:
+        raise AssertionError(f"[graph] {label}: {g['kernels']:.0f} device "
+                             f"kernels an iteration replayed, "
+                             f"{e['kernels']:.0f} eager")
+    files = "not compared"
+    if cli_compare:
+        argv = ["--quiet"] + (["--x64"] if x64 else [])
+        out = {}
+        for route in ("eager", "graph"):
+            job = f"graph_{os.path.splitext(ctl)[0]}_{route}"
+            cut_ctl(ctl, f"{job}.ctl", burnin=GRAPH_BURNIN,
+                    nsample=GRAPH_NSAMPLE, job=job)
+            if route == "eager":
+                with ForcedEager():
+                    rc = cli.main(["--cfile", f"{job}.ctl"] + argv)
+            else:
+                rc = cli.main(["--cfile", f"{job}.ctl"] + argv)
+            if rc != 0:
+                raise AssertionError(f"[graph] {label}: cli.main returned "
+                                     f"{rc} on the {route} route")
+            names = [f"{job}.mcmc.txt"] + [f"{job}.c{c}.mcmc.txt"
+                                           for c in range(2, K + 1)]
+            out[route] = []
+            for fn in names:
+                with open(fn, "rb") as f:
+                    out[route].append(f.read())
+        if out["eager"] != out["graph"]:
+            raise AssertionError(f"[graph] {label}: the replayed run's mcmc "
+                                 "files differ from the eager run's")
+        files = (f"{K} mcmc file{'s' if K > 1 else ''} byte-equal "
+                 f"({sum(map(len, out['graph']))} bytes, "
+                 f"{GRAPH_BURNIN + GRAPH_NSAMPLE} iterations)")
+    print(f"[graph] {label} ({K} chain{'s' if K > 1 else ''}, "
+          f"{run.batch.n_loci} loci{', float64' if x64 else ''}): states, "
+          f"move statistics, traces and generators bit-equal after "
+          f"{GRAPH_ITERS} iterations; {files} | wall ms/iter eager "
+          f"{e['ms']:.2f} graph {g['ms']:.2f} (median of {GRAPH_WINDOWS} "
+          f"windows of {window_iters}; iters/s {1e3 / e['ms']:.2f} / "
+          f"{1e3 / g['ms']:.2f}) | device kernels/iter {e['kernels']:.0f} / "
+          f"{g['kernels']:.0f} | busy ms/iter {e['busy']:.3f} / "
+          f"{g['busy']:.3f} | idle share {1 - e['busy'] / e['ms']:.3f} / "
+          f"{1 - g['busy'] / g['ms']:.3f} | inside the graph K1 {k1} "
+          f"(float64 {k1d}) K2 {k2} (float64 {k2d}) a replay | capture "
+          f"{g['capture_s']:.2f} s, peak {g['peak']:.1f} MiB (eager step "
+          f"peak {e['peak']:.1f} MiB) | {smi}")
+    return e["ms"], g["ms"]
+
+
+# [graph]: (label, control file, x64, compared through the CLI too,
+# iterations a timing window); the mains the comparison must cover first,
+# then every other main path on the graph route, timed
+GRAPH_MAINS = (
+    ("main 1", "run.ctl", False, True, GRAPH_WINDOW_ITERS),
+    ("main 2", "run2.ctl", False, True, GRAPH_WINDOW_ITERS),
+    ("main 13", "run13.ctl", False, True, GRAPH_WINDOW_ITERS),
+    ("main 16", "run.ctl", True, True, GRAPH_WINDOW_ITERS),
+    ("main 17", "run17.ctl", False, True, GRAPH_WINDOW_ITERS),
+    ("main 18", "run18.ctl", False, True, 2),
+    ("main 3", "run3.ctl", False, False, GRAPH_WINDOW_ITERS),
+    ("main 4", "run4.ctl", False, False, GRAPH_WINDOW_ITERS),
+    ("main 9", "run9.ctl", False, False, GRAPH_WINDOW_ITERS),
+    ("main 10", "run10.ctl", False, False, 2),
+    ("main 11", "run11.ctl", False, False, GRAPH_WINDOW_ITERS),
+    ("main 15", "run15.ctl", False, False, GRAPH_WINDOW_ITERS),
+    ("main 16 diploid", "run2.ctl", True, False, GRAPH_WINDOW_ITERS),
+    ("main 8", "run8.ctl", False, False, GRAPH_WINDOW_ITERS),
+    ("main 19", "run19.ctl", False, False, GRAPH_WINDOW_ITERS),
+    ("main 20", "run20.ctl", False, False, GRAPH_WINDOW_ITERS))
+
+
+def graph_phases(smi):
+    """``[graph]`` for every main of ``GRAPH_MAINS``, then a summary
+    line."""
+    rows = []
+    for label, ctl, x64, whole, w in GRAPH_MAINS:
+        e, g = graph_phase(label, ctl, smi, x64, cli_compare=whole,
+                           window_iters=w)
+        rows.append(f"{label} {e:.2f} -> {g:.2f}")
+    print("[graph] wall ms/iter eager -> replayed: " + ", ".join(rows)
+          + f" | {smi}")
+
+
+def eigen_phase(smi, windows=GRAPH_WINDOWS, iters=GRAPH_WINDOW_ITERS):
+    """``[eigen]``: main 20's GTR+G4 step on the eager route (the route
+    of GTR under SNL, Gamma-Dirichlet rates or integrated thetas), its
+    eigensystems from ``pmatrix.eigh_jacobi`` (``Ctx.captured``: what the
+    captured step runs) and from ``torch.linalg.eigh`` (which reads its
+    status back to the host each call; what an eager step runs): wall ms
+    an iteration, the median of ``windows`` windows of ``iters`` taken in
+    turn, and device kernels an iteration."""
+    import dataclasses
+
+    import torch
+
+    from bpp_tpu_torch.mcmc.driver import Engine
+    run = load_run("run20.ctl")
+    eng = Engine(run, seed=1, device="cuda")
+    eng.route = "eager"
+    state = eng.init_state()
+    solvers = (("eigh_jacobi", True), ("torch.linalg.eigh", False))
+    times = {name: [] for name, _ in solvers}
+    kernels = {}
+    for w in range(windows + 1):
+        for name, captured in solvers:
+            eng.ctx = dataclasses.replace(eng.ctx, captured=captured)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _, _, _ = eng._chunk(state, iters)
+            torch.cuda.synchronize()
+            if w:      # the first round warms both up
+                times[name].append((time.perf_counter() - t0) * 1e3
+                                   / iters)
+    for name, captured in solvers:
+        eng.ctx = dataclasses.replace(eng.ctx, captured=captured)
+        kernels[name] = len(device_kernels(
+            lambda: eng._chunk(state, 2))) / 2
+    print(f"[eigen] main 20 (GTR+G4, {run.batch.n_loci} loci) on the eager "
+          f"route (wall the median of {windows} windows of {iters}, the "
+          "solvers in turn): " + "; ".join(
+              f"{name} {statistics.median(times[name]):.2f} ms/iter, "
+              f"{kernels[name]:.0f} device kernels/iter"
+              for name, _ in solvers) + f" | {smi}")
+    del eng, state
+    torch.cuda.empty_cache()
 
 
 def memory_report(smi):
@@ -3752,6 +4213,12 @@ def main(argv=None) -> int:
 
             lap("main 17-22")
 
+            # 40. the eager step against the replayed one, in one process
+            graph_phases(smi)
+            eigen_phase(smi)
+
+            lap("[graph]")
+
             # 29-30. --x64 through the float64 builds: main 16, [x64]
             (k1_f64, k2_f64, err_x1, row_x1, err_x2,
              row_x2, main16_s) = x64_phases(dev, smi, iters, parent)
@@ -3763,6 +4230,12 @@ def main(argv=None) -> int:
             k1_shard, k2_shard = shard_phase(smi, main16_s)
 
             lap("main 16, [x64], [native], [shard]")
+
+            # 41. the synchronising ops of every main path's step
+            for label, ctl, x64 in SYNC_MAINS:
+                sync_pass(label, ctl, smi, x64)
+
+            lap("[sync]")
 
             # 39. every run's peak device memory
             memory_report(smi)
@@ -3787,7 +4260,13 @@ def main(argv=None) -> int:
           f"the kernels' build included: " + " | ".join(
               f"{n} {t1 - t0:.1f}" for (_, t0), (n, t1)
               in zip(laps, laps[1:])) + f" | {smi}")
-    # launches: every main path's run; errors: the bench models' holds,
+    print("[launches] the kernels line's launches: every main path's run; "
+          "on the graph route a graph's captured launches times its "
+          "replays, the warm-up iteration before each capture (run, then "
+          "undone) and the capture itself left out")
+    # launches: every main path's run (on the graph route its replays; a
+    # graph's warm-up iteration before capture is not counted); errors:
+    # the bench models' holds,
     # those on relaxed-clock lengths and dated tips, on the trees of the
     # species and rj moves, on a partition's per-locus eigensystems, on
     # network gene trees ([net]), on migration gene trees ([mig]) and on

@@ -39,7 +39,8 @@ def test_import_loads_no_jax_and_no_bpp_tpu():
                 "core.aa_matrices", "mcmc.msci_moves", "summary.lswitch",
                 "tools.msci_create", "trees.migration", "mcmc.mig_moves",
                 "trees.traits", "mcmc.trait_moves", "tools.bfdriver",
-                "parallel.mesh", "parallel.multihost", "data.cnative"):
+                "parallel.mesh", "parallel.multihost", "data.cnative",
+                "mcmc.graph"):
         assert f"bpp_tpu_torch.{mod}" in mods
     code = (
         "import importlib, sys\n"

@@ -21,7 +21,11 @@ The float64 builds (``--x64``): K1 within 1e-6 lnL a locus and K2 within
 1e-8 a pattern and 1e-6 a locus of their float64 plain versions, on both
 stores and the model grid; both within 1e-10 on the four families x C in
 1, 2, 4, 8 x both stores, with repeat launches and block sizes
-bit-equal; and an x64 engine's step launching only the float64 build.  Needs a CUDA device and nvcc; skips without them.
+bit-equal; and an x64 engine's step launching only the float64 build.
+The captured step (``mcmc.graph.StepGraph``): 20 replays bit-equal to 20
+eager steps on a JC69 and a diploid chain, and the launch counters
+adding up under replay.  Needs a CUDA device and nvcc; skips without
+them.
 
     python -m pytest tests/test_torch_kernel_gpu.py -q
 """
@@ -999,3 +1003,68 @@ def test_mig_chains_keep_their_caches_on_the_card(request, data):
     ok = mg.route_consistent_mig(state.gt, state.sp, state.mig, pops,
                                  ctx.n_seq)
     assert bool((ok | ~m).all())
+
+
+@pytest.mark.parametrize("data", ["cuda_state", "cuda_diploid"])
+def test_replayed_graph_equals_the_eager_chain(request, data):
+    """20 iterations as replays of the captured step (``StepGraph``)
+    against 20 eager steps from the same state and generator state: the
+    states, move statistics, trace rows and generator states bit-equal
+    (JC69 through K1, diploid HKY through K2)."""
+    from bpp_tpu_torch.mcmc.driver import clone_state
+    from bpp_tpu_torch.mcmc.graph import flatten
+    eng, state = request.getfixturevalue(data)
+    assert eng.route == "graph", eng.route_reason
+    start = clone_state(state)
+    seed = eng.gen.get_state()
+    out = {}
+    try:
+        for route in ("eager", "graph"):
+            eng.route = route
+            eng.gen.set_state(seed)
+            st, acc, trace, _ = eng._chunk(clone_state(start), 20)
+            torch.cuda.synchronize()
+            out[route] = (flatten(clone_state(st))[1], acc.clone(),
+                          {k: v.clone() for k, v in trace.items()},
+                          eng.gen.get_state())
+    finally:
+        eng.route = "graph"
+    (le, ae, te, ge), (lg, ag, tg, gg) = out["eager"], out["graph"]
+    assert all(torch.equal(a, b) for a, b in zip(le, lg))
+    assert torch.equal(ae, ag) and torch.equal(ge, gg)
+    assert te.keys() == tg.keys()
+    assert all(torch.equal(te[k], tg[k]) for k in te)
+
+
+@pytest.mark.parametrize("data", ["cuda_state", "cuda_diploid"])
+def test_launch_counters_add_up_under_replay(request, data):
+    """A replay makes no Python call into the wrappers: the graph counts
+    its captured launches once (neither the warm-up nor the capture is
+    counted) and each replay adds them, 8 K1 passes an iteration on the
+    haploid chain, 8 + freqs-free HKY's ... K2 passes on the diploid one,
+    as many as the eager step launches."""
+    from bpp_tpu_torch.core import fels, pack
+    from bpp_tpu_torch.mcmc.driver import clone_state
+    from bpp_tpu_torch.mcmc.graph import StepGraph
+    eng, state = request.getfixturevalue(data)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    counts = {}
+    for route in ("eager", "graph"):
+        pack.LAUNCHES = fels.LAUNCHES = 0
+        if route == "eager":
+            own = eng.gen
+            eng.gen, eng.route = gen, "eager"
+            try:
+                eng._chunk(clone_state(state), 5)
+            finally:
+                eng.gen, eng.route = own, "graph"
+        else:
+            graph = StepGraph(eng, [clone_state(state)], [gen])
+            graph.capture()
+            assert (pack.LAUNCHES, fels.LAUNCHES) == (0, 0)
+            graph.run(5)
+            assert sum(graph.per_replay) > 0
+        counts[route] = (pack.LAUNCHES, fels.LAUNCHES)
+    assert counts["graph"] == counts["eager"]
+    assert sum(counts["graph"]) % 5 == 0 and sum(counts["graph"]) >= 40
