@@ -50,8 +50,8 @@ the files; checkpoints and the per-locus print files are off, and
 ``--resume`` is refused, as in ``bpp_tpu``.  Under ``chains = K`` each
 process runs every chain on all the loci and rank 0 writes.  The header
 names the run's step route (``driver.step_route``): ``graph``, a chunk of
-replays of one captured CUDA graph, or ``eager`` with the host read that
-keeps the step eager.
+replays of one captured CUDA graph, or ``eager`` (``--multihost``) with
+the reason.
 """
 
 from __future__ import annotations

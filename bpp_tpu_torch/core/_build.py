@@ -31,6 +31,10 @@ BUILD = PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-split-compile", "0", "-shared", "-Xcompiler", "-fPIC")
 
+# the kernel sources: K1 (pack), K2 (fels), K3/K4 (the accept chains), K5
+# (the sim-SPR walk)
+KERNELS = ("pack_kernel", "fels_kernel", "chain_kernel", "simwalk_kernel")
+
 # the flags of bpp_tpu's native/Makefile
 HOST_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
 

@@ -19,30 +19,39 @@ from ..config import SubstModel
 
 
 def pmatrix_jc69(t):
-    """JC69 P(t); t is any-shaped tensor -> [..., 4, 4]."""
-    e = torch.exp(-4.0 / 3.0 * t)[..., None, None]
-    eye = torch.eye(4, dtype=e.dtype, device=e.device)
-    return 0.25 + 0.75 * e * eye - 0.25 * e * (1.0 - eye)
+    """JC69 P(t); t is any-shaped tensor -> [..., 4, 4].  Written with
+    m = expm1(-4t/3), as the kernels' factors are: 1 - exp(-4t/3) keeps
+    only about eps / t of an off-diagonal entry and is 0 below t ~ eps,
+    where a change on the branch has probability about t / 3."""
+    m = torch.expm1(-4.0 / 3.0 * t)[..., None, None]
+    eye = torch.eye(4, dtype=m.dtype, device=m.device)
+    return eye + m * (eye - 0.25)
 
 
 def pmatrix_tn93(t, freqs, kappa1, kappa2):
-    """TN93 P(t) closed form; HKY when kappa1 == kappa2, F81 at kappa=1."""
+    """TN93 P(t) closed form; HKY when kappa1 == kappa2, F81 at kappa=1.
+    Written with the expm1 of each exponent (as the kernels' factors
+    are), so that short branches keep their off-diagonal entries."""
     pa, pc, pg, pt = (freqs[..., i] for i in range(4))
     R = pa + pg
     Y = pc + pt
     m = 2.0 * (pa * pg * kappa1 + pc * pt * kappa2 + R * Y)
     ts = t / m
-    e2 = torch.exp(-ts)
-    e3 = torch.exp(-(R * kappa1 + Y) * ts)
-    e4 = torch.exp(-(Y * kappa2 + R) * ts)
+    e2 = torch.expm1(-ts)
+    e3 = torch.expm1(-(R * kappa1 + Y) * ts)
+    e4 = torch.expm1(-(Y * kappa2 + R) * ts)
 
+    # with e = 1 + expm1: pi + pi (1 - pg) / pg e2 + pother / pg eg is 1 +
+    # the expm1 terms (pi + pother = pg), and the within-group entry's
+    # constants cancel
     def same(pi, pother, pgroup, egroup):
-        return pi + pi * (1.0 - pgroup) / pgroup * e2 + pother / pgroup * egroup
+        return 1.0 + pi * (1.0 - pgroup) / pgroup * e2 \
+            + pother / pgroup * egroup
 
     def within(pj, pgroup, egroup):
-        return pj + pj * (1.0 - pgroup) / pgroup * e2 - pj / pgroup * egroup
+        return pj * (1.0 - pgroup) / pgroup * e2 - pj / pgroup * egroup
 
-    cross = 1.0 - e2
+    cross = -e2
 
     paa = same(pa, pg, R, e3)
     pgg = same(pg, pa, R, e3)

@@ -15,9 +15,10 @@ All proposals are log-scale Bactrian slides reflected into [-99, 99]
 like the reference.  The Gamma-Dirichlet priors couple the loci through
 the running sum of rates (mu_i) or variances (nu_i), so their accept
 chains are serial: the batched per-locus deltas are exact (likelihood
-and rate prior factorize per locus), five ``[L]`` vectors go to the host
-in one copy, a numpy loop takes the decisions in locus order, and the
-accept mask comes back in one copy (under locus sharding every rank runs
+and rate prior factorize per locus), and :func:`gammadir_accept` takes
+the decisions in locus order where the deltas lie: on the card kernel K4
+(``csrc/chain_kernel.cu``, ``bpp_tpu``'s ``lax.scan``; no host read), on
+the CPU its plain version in numpy (under locus sharding every rank runs
 the chain over the gathered vectors of all loci and keeps its rows).
 The hierarchical priors are fully batched.
 
@@ -34,6 +35,7 @@ import numpy as np
 import torch
 
 from ..config import BppConfig, Clock
+from ..core import chains
 from ..core import felsenstein as fe
 from ..parallel.mesh import gather_loci, pany, psum, psum_counts
 from ..trees.gtree import assign_populations, topo_scan
@@ -170,11 +172,14 @@ def _logslide(gen, x, eps, shard=None):
 
 
 def _gammadir_chain(terms: np.ndarray, mask: np.ndarray, a_bar: float,
-                    terma: float, termb: float, a_i: float) -> np.ndarray:
+                    terma: float, termb: float, a_i: float,
+                    margin=None) -> np.ndarray:
     """Serial Gamma-Dirichlet accept chain with the running sum of the
-    per-locus values (stree.c:9299-9303).  ``terms`` rows: old value, new
-    value, log proposal ratio, locus-factorizing density delta, uniform
-    draw."""
+    per-locus values (stree.c:9299-9303), in float64 numpy: the plain
+    version of kernel K4.  ``terms`` rows: old value, new value, log
+    proposal ratio, locus-factorizing density delta, uniform draw.
+    ``margin`` (an array [L]), when given, receives |log u - ln
+    acceptance| at each proposing locus (inf elsewhere)."""
     mo, mn, dlog, dlogl, u = terms
     accept = np.zeros(len(mo), bool)
     sum_mu = float(mo[mask].sum())
@@ -185,26 +190,37 @@ def _gammadir_chain(terms: np.ndarray, mask: np.ndarray, a_bar: float,
             sum_new = sum_mu + mn[i] - mo[i]
             lnacc = ((a_bar - terma) * np.log(sum_new / sum_mu)
                      - termb * (sum_new - sum_mu) + lratio[i])
+            if margin is not None:
+                margin[i] = abs(logu[i] - lnacc)
             if logu[i] < lnacc:
                 accept[i] = True
                 sum_mu = sum_new
     return accept
 
 
-def _host_gammadir(ctx: Ctx, old, new, dlog, ddens, us, a_bar, b_bar, a_i):
-    """One copy of the chain's inputs to the host, the chain, one copy of
-    the accept mask back (the chain over every rank's loci under locus
-    sharding)."""
-    terms = torch.stack([x.double() for x in (old, new, dlog, ddens, us,
-                                              ctx.locus_mask)], 1)
-    host = gather_loci(ctx.shard, terms).T.cpu().numpy()
-    mask = host[5] > 0.5
-    nl = float(mask.sum())
-    accept = _gammadir_chain(host[:5], mask, a_bar, a_i * nl, b_bar / nl,
-                             a_i)
+def gammadir_accept(ctx: Ctx, old, new, dlog, ddens, us, a_bar, b_bar, a_i,
+                    margin=None):
+    """The Gamma-Dirichlet accept chain of the mu_i / nu_i moves
+    (``bpp_tpu``'s ``lax.scan`` over loci): accept [L] bool on the
+    device of its inputs.  CUDA tensors: kernel K4 on the card, with no
+    host read; CPU tensors: the plain version :func:`_gammadir_chain`
+    (``margin`` as there; the CPU only).  Under locus sharding the chain
+    runs over every rank's loci, gathered, and each rank keeps its
+    rows."""
+    terms = gather_loci(ctx.shard, torch.stack(
+        [x.double() for x in (old, new, dlog, ddens, us, ctx.locus_mask)],
+        1))
+    if terms.device.type == "cuda":
+        accept = chains.launch_gammadir(terms, a_bar, b_bar, a_i)
+    else:
+        host = terms.T.numpy()
+        mask = host[5] > 0.5
+        nl = float(mask.sum())
+        accept = torch.from_numpy(_gammadir_chain(
+            host[:5], mask, a_bar, a_i * nl, b_bar / nl, a_i, margin))
     if ctx.shard is not None:
         accept = ctx.shard.rows(accept)
-    return torch.as_tensor(accept).to(old.device)
+    return accept
 
 
 # --------------------------------------------------------------------------
@@ -254,7 +270,7 @@ def mui_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
                  - beta * (mu_new - mu) + dlogl + dlnr)
         accept = (torch.log(us) < lnacc) & ctx.locus_mask
     else:
-        accept = _host_gammadir(ctx, mu, mu_new, dlog, dlogl + dlnr, us,
+        accept = gammadir_accept(ctx, mu, mu_new, dlog, dlogl + dlnr, us,
                                 cfg.locusrate_mubar_a, cfg.locusrate_mubar_b,
                                 a_mui)
 
@@ -315,7 +331,7 @@ def nui_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
                  - beta * (nu_new - nu) + dlnr)
         accept = (torch.log(us) < lnacc) & ctx.locus_mask
     else:
-        accept = _host_gammadir(ctx, nu, nu_new, dlog, dlnr, us,
+        accept = gammadir_accept(ctx, nu, nu_new, dlog, dlnr, us,
                                 cfg.clock_vbar_a, cfg.clock_vbar_b, a_vi)
     new = state._replace(clock=state.clock._replace(
         nu=torch.where(accept, nu_new, nu),

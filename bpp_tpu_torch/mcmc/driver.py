@@ -21,15 +21,16 @@ the runtime check of the caches (``check = N``) and K replicate chains
 ``"graph"`` route a chunk of n iterations is n replays of one captured
 CUDA graph of :meth:`Engine._step` (``mcmc.graph.StepGraph``; under
 ``chains = K`` one graph a chain, where ``_chunk_multi`` vmaps them).
-The ``"eager"`` route is a Python loop over :meth:`Engine._step`, taken by
-the schedules whose step reads the device from the host: the serial
-accept chains (the Gamma-Dirichlet priors of mu_i and nu_i, and every
-per-locus gene-tree move under integrated-out thetas: one copy each way
-per chain), with SNL on the SNL-or-SPR draw together with the species
-arrays (one copy), under migration one "any lineage still walking" read
-every ``mig_moves.SIM_BLOCK`` steps of each sim-SPR round, and locus
-sharding.  Either way a chunk synchronises once, at its end (and once
-more at a check).
+The ``"eager"`` route is a Python loop over :meth:`Engine._step`, taken
+by locus sharding alone (its all-reduces go through the host over gloo);
+``eng.route = "eager"`` forces it for a comparison.  The device control
+flow of ``bpp_tpu``'s step has device counterparts, so every one-card
+schedule is captured: the serial accept chains over loci (integrated
+thetas, the Gamma-Dirichlet mu_i and nu_i) are kernels K3 and K4, the
+SNL-or-SPR choice computes both moves and selects (``lax.cond`` under
+``vmap``), SNL's species-level part runs in torch ops on the device, and
+MSC-M's sim-SPR walk (a ``while_loop``) is kernel K5.  Either way a chunk
+synchronises once, at its end (and once more at a check).
 
 Locus sharding (``--multihost``, ``parallel.mesh``): an engine given a
 ``Shard`` keeps its block of loci in ``ctx`` and in every state, and its
@@ -74,7 +75,7 @@ from .state import (
     MV_MUI, MV_NUBAR, MV_NUI, MV_PHI, MV_QRATES, MV_RJ, MV_SNL, MV_SSPR,
     MV_TAU, MV_THETA, MV_TRAIT, N_MOVES, ROUTE_K1, ROUTE_K2, ROUTE_PLAIN,
     Ctx, McmcState, SubstState, build_custom_models, finetune_array,
-    make_logl_fn, make_logpr_fn, refresh_eigen,
+    make_logl_fn, make_logpr_fn, refresh_eigen, tree_where,
 )
 
 PJ_OPTIMUM = 0.30     # method.c:45 target pjump
@@ -402,33 +403,15 @@ def step_route(cfg: BppConfig, shard=None) -> tuple[str, str]:
     """How an engine runs its chunks, chosen once from the configuration:
     ``("graph", why)`` where the step reads nothing back to the host, so
     that a chunk is n replays of one captured CUDA graph, else
-    ``("eager", the host read)``.  This table alone decides; a failed
-    capture raises and never falls back to the eager step."""
+    ``("eager", the host read)``.  Every one-card schedule is captured:
+    the accept chains over loci are kernels K3/K4, SNL's species-level
+    part and the SNL-or-SPR choice run on the device, and MSC-M's sim-SPR
+    walk is kernel K5.  This table alone decides; a failed capture raises
+    and never falls back to the eager step."""
     if shard is not None:
         return ROUTE_EAGER, (
             "--multihost: each sum over loci is all-reduced between the "
             "ranks (over gloo through the host, parallel/mesh.py:120-127)")
-    if cfg.theta_integrated:
-        return ROUTE_EAGER, (
-            "integrated thetas: the serial accept chain of every per-locus "
-            "gene-tree move runs on the host (notheta.scan_accept, "
-            "mcmc/notheta.py:96-130, from mcmc/moves.py:525 and :701)")
-    if cfg.locusrate_prior == 0 and (
-            cfg.est_locusrate == 1
-            or cfg.clock in (Clock.IID, Clock.CORRELATED)):
-        return ROUTE_EAGER, (
-            "Gamma-Dirichlet mu_i / nu_i: the serial accept chain runs on "
-            "the host (clock_moves._host_gammadir, mcmc/clock_moves.py:"
-            "194-205, from :257 and :318)")
-    if cfg.est_stree and cfg.prob_snl > 0:
-        return ROUTE_EAGER, (
-            "SNL: the SNL-or-SPR draw and SNL's species-level part read the "
-            "species arrays on the host (driver.py Engine._species_move, "
-            "stree_moves.species_to_host, mcmc/stree_moves.py:498-508)")
-    if cfg.migration and not cfg.usedata_fix_gtree:
-        return ROUTE_EAGER, (
-            "MSC-M: the sim-SPR walk reads 'any lineage still walking' on "
-            "the host (mcmc/mig_moves.py:830-831)")
     return ROUTE_GRAPH, "the step reads nothing back to the host"
 
 
@@ -798,8 +781,9 @@ class Engine:
         # with probability pSNL); with < 3 species there is no other
         # rooted topology
         if cfg.est_stree and self.run.stree.n_tips >= 3:
-            state, pa, mv = self._species_move(state)
-            count(mv, pa)
+            state, counts = self._species_move(state)
+            for mv, pa in counts:
+                count(mv, pa)
 
         # usedata = 2 freezes the gene trees and taus (method.c:5490,
         # 5524, 5572, 5600)
@@ -974,24 +958,28 @@ class Engine:
         return state
 
     def _species_move(self, state: McmcState):
-        """One species SPR or SNL; returns (state, stats, move slot).  With
-        SNL on, the choice is read on the host, with one copy that also
-        carries the species arrays and the uniforms SNL's species-level
-        part needs, so only the chosen move runs."""
+        """One species SPR or SNL; returns (state, [(move slot, (proposed,
+        accepted))]).  With SNL on, the choice is drawn on the device and
+        both moves are computed from the same state; the state and the
+        MV_SNL / MV_SSPR statistics are selected with ``torch.where``, as
+        ``bpp_tpu``'s ``lax.cond`` computes under ``vmap``, so nothing is
+        read on the host."""
         cfg, ctx, gen = self.cfg, self.ctx, self.gen
         if cfg.prob_snl <= 0:
             state, pa = stree_moves.species_spr_move(ctx, cfg, state, gen)
-            return state, pa, MV_SSPR
+            return state, [(MV_SSPR, pa)]
         H = state.sp.n_nodes
         u = rng.uniform(gen, (1 + stree_moves.snl_uniform_count(H),),
                         torch.float64, self.device)
-        host = stree_moves.species_to_host(state.sp, u)
-        if host[0][0] < cfg.prob_snl:
-            state, pa = stree_moves.snl_move(
-                ctx, cfg, state, gen, host=(host[0][1:],) + host[1:])
-            return state, pa, MV_SNL
-        state, pa = stree_moves.species_spr_move(ctx, cfg, state, gen)
-        return state, pa, MV_SSPR
+        use_snl = u[0] < cfg.prob_snl
+        snl, (_, acc_snl) = stree_moves.snl_move(ctx, cfg, state, gen,
+                                                 u=u[1:])
+        spr, (_, acc_spr) = stree_moves.species_spr_move(ctx, cfg, state,
+                                                         gen)
+        on = use_snl.to(torch.int64)
+        return tree_where(use_snl, snl, spr), [
+            (MV_SNL, (on, on * acc_snl)),
+            (MV_SSPR, (1 - on, (1 - on) * acc_spr))]
 
     def _trace_of(self, state: McmcState):
         """Per-iteration sample record, kept on the device: what the

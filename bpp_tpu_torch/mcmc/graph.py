@@ -6,7 +6,7 @@ over K chains): where ``bpp_tpu`` hands XLA one program a chunk, the port
 captures one iteration of :meth:`driver.Engine._step` (under ``chains =
 K`` each chain's, with its own generator) into CUDA graphs
 (``torch.cuda.CUDAGraph``) and replays them n times.  A replay issues every kernel of the step, K1
-and K2 among them, with one host call.
+to K5 among them, with one host call.
 
 A :class:`StepGraph` owns static buffers: every tensor of the K states
 (``McmcState``, flattened), the move statistics ``[K, N_MOVES, 2]`` and
@@ -90,16 +90,17 @@ def unflatten(spec, leaves):
 
 def launch_counts():
     """The kernel wrappers' launch counters (K1, K1 float64, K2, K2
-    float64)."""
-    from ..core import fels, pack
+    float64, K3, K4, K5)."""
+    from ..core import chains, fels, pack
     return (pack.LAUNCHES, pack.LAUNCHES_F64, fels.LAUNCHES,
-            fels.LAUNCHES_F64)
+            fels.LAUNCHES_F64) + chains.launch_counts()
 
 
 def set_launch_counts(counts):
-    from ..core import fels, pack
+    from ..core import chains, fels, pack
     (pack.LAUNCHES, pack.LAUNCHES_F64, fels.LAUNCHES,
-     fels.LAUNCHES_F64) = counts
+     fels.LAUNCHES_F64) = counts[:4]
+    chains.set_launch_counts(counts[4:])
 
 
 class StepGraph:
@@ -115,7 +116,7 @@ class StepGraph:
         self.gens = list(gens)
         self.device = eng.device
         self.graphs = None
-        self.per_replay = (0, 0, 0, 0)   # launch counts a replay adds
+        self.per_replay = (0,) * 7       # launch counts a replay adds
         self.capture_s = None
         specs, chains = zip(*(flatten(s) for s in states))
         self.specs = specs

@@ -23,11 +23,11 @@ proposal draws the pruned lineage's path from the structured-coalescent
 prior given the rest of the gene tree, so its acceptance is the
 likelihood ratio only (gtree.c:9368).
 
-``bpp_tpu`` walks the sim-SPR lineages in a ``lax.while_loop``; here the
-steps run in blocks of :data:`SIM_BLOCK` with one host read ("is any
-lane still walking?") a block.  A step after a lane has finished leaves
-the lane unchanged, so the blocks propose what the loop proposes for the
-same draws.  The coalescence rate's floor on ``theta * heredity`` is
+``bpp_tpu`` walks the sim-SPR lineages in a ``lax.while_loop``; here
+the walk is kernel K5 (``csrc/simwalk_kernel.cu``, one thread a locus)
+on the card and :func:`simspr_walk_ref` on the CPU, both reading one
+block of uniforms drawn before the walk, so the step reads nothing back
+to the host.  The coalescence rate's floor on ``theta * heredity`` is
 ``rng.tiny_floor`` (``bpp_tpu``'s 1e-300 is 0 in float32, where a lineage
 alone in a population of theta 0 would get rate 0 / 0).
 """
@@ -37,7 +37,8 @@ from __future__ import annotations
 import torch
 
 from ..config import BppConfig, Clock, PriorDist
-from ..parallel.mesh import pany, psum_counts
+from ..core import chains
+from ..parallel.mesh import psum_counts
 from ..trees import migration as mg
 from ..trees.gtree import BIG_AGE, GTrees, lift_population, node_depths
 from . import rng
@@ -49,8 +50,7 @@ from .state import (
     FT_GTAGE, FT_LRHT, FT_MIG_AGES, FT_MIGRATES, FT_MIX, FT_TAU, Ctx,
     McmcState, make_logl_fn, tree_where,
 )
-
-SIM_BLOCK = 8     # sim-SPR steps between two host reads
+from .stree_moves import _at
 
 
 def make_logpr_fn_mig(ctx: Ctx, routes: mg.RouteTensors):
@@ -628,12 +628,12 @@ def geneflow_rj_move(ctx: Ctx, cfg: BppConfig, routes, state: McmcState,
 
     # density delta: -+ M_k sum_l W_lk (an appended route has no events
     # yet, and a route with events is never removed)
-    dW = mig.M[k] * wsum[k]
+    dW = _at(mig.M, k) * _at(wsum, k)
     lnacc = torch.where(do_append, -dW, dW)
     # exact count Hastings: append picks 1 / n_avail, its reverse removal
     # 1 / (n_act + 1); removal picks 1 / n_act, its reverse 1 / n_avail
     # after it
-    n_avail_after = n_avail + ov[k].to(n_avail.dtype)
+    n_avail_after = n_avail + _at(ov, k).to(n_avail.dtype)
     one = torch.ones((), dtype=dt, device=wsum.device)
     lnacc = lnacc + torch.where(
         do_append,
@@ -641,12 +641,12 @@ def geneflow_rj_move(ctx: Ctx, cfg: BppConfig, routes, state: McmcState,
         torch.log(torch.maximum(n_act.to(dt), one)
                   / torch.maximum(n_avail_after.to(dt), one)))
     feasible = torch.where(do_append, n_avail > 0,
-                           (n_act > 0) & (mcsum[k] == 0) & ov[k])
-    feasible = feasible & ~routes.has_am[k]
+                           (n_act > 0) & (_at(mcsum, k) == 0) & _at(ov, k))
+    feasible = feasible & ~_at(routes.has_am, k)
     accept = rng.mh_accept(gen, torch.where(
         feasible, lnacc, torch.full_like(lnacc, -float("inf"))))
     on_new = on.scatter(0, k[None], torch.where(accept, do_append,
-                                                on[k])[None])
+                                                _at(on, k))[None])
     mig_new = mig._replace(on=on_new)
     logpr_new = logpr_fn(state.gt, sp, mig_new, state.subst.heredity)[0]
     return (state._replace(mig=mig_new,
@@ -673,28 +673,30 @@ def geneflow_flip_move(ctx: Ctx, cfg: BppConfig, routes, state: McmcState,
         return on & has_rev & ~on[rev_s] & am0 & am0[rev_s]
 
     k, n_flip = _pick(gen, flippable(on))
-    r = rev_s[k]
-    Mk, Mr = mig.M[k], mig.M[r]
+    r = _at(rev_s, k)
+    Mk, Mr = _at(mig.M, k), _at(mig.M, r)
     # deactivate k, activate r, and swap the rate slots so that the
     # active rate carries over (migspec_flip keeps spec->M)
     idx = torch.stack([k, r])
-    on_new = on.scatter(0, idx, torch.tensor([False, True],
-                                             device=on.device))
+    # [False, True] made on the device: a host tensor would be a
+    # pageable copy, which a captured step cannot hold
+    on_new = on.scatter(0, idx, torch.arange(2, device=on.device) == 1)
     M_new = mig.M.scatter(0, idx, torch.stack([Mr, Mk]))
     # density delta: k's exposure leaves, r's (at rate Mk) enters; the
     # pseudo-prior terms of the swapped values (the slots may carry
     # different priors)
-    al, be = routes.alpha, routes.beta
+    ak, bk = _at(routes.alpha, k), _at(routes.beta, k)
+    ar, br = _at(routes.alpha, r), _at(routes.beta, r)
     lpg = rng.log_pdf_gamma
-    lnacc = Mk * wsum[k] - Mk * wsum[r] \
-        + (lpg(Mk, al[r], be[r]) + lpg(Mr, al[k], be[k])
-           - lpg(Mk, al[k], be[k]) - lpg(Mr, al[r], be[r]))
+    lnacc = Mk * _at(wsum, k) - Mk * _at(wsum, r) \
+        + (lpg(Mk, ar, br) + lpg(Mr, ak, bk)
+           - lpg(Mk, ak, bk) - lpg(Mr, ar, br))
     # the reverse selection: the flippable set after the flip
     one = torch.ones((), dtype=wsum.dtype, device=wsum.device)
     n_after = flippable(on_new).sum()
     lnacc = lnacc + torch.log(torch.maximum(n_flip.to(one.dtype), one)
                               / torch.maximum(n_after.to(one.dtype), one))
-    feasible = (n_flip > 0) & (mcsum[k] == 0)
+    feasible = (n_flip > 0) & (_at(mcsum, k) == 0)
     accept = rng.mh_accept(gen, torch.where(
         feasible, lnacc, torch.full_like(lnacc, -float("inf"))))
     mig_new = mig._replace(on=torch.where(accept, on_new, on),
@@ -724,6 +726,131 @@ def _sim_rate(n, theta_p, heredity, mrs):
     th = torch.clamp(theta_p * heredity, min=rng.tiny_floor(theta_p.dtype))
     crate = 2.0 * n.to(th.dtype) / th
     return crate, crate + mrs
+
+
+def simspr_walk_ref(t_lo, t_hi, pop_lo, live_e, pptable, tau, partau_f,
+                    theta, parent, si, ti, d_lo, d_hi, route_M, heredity, t0,
+                    p0, is_valid, unif, ME: int, margin=None, steps=None):
+    """The sim-SPR walk of every locus in torch ops: the plain version of
+    kernel K5 (``bpp_tpu``'s ``while_loop``, mig_moves.py:765).
+
+    The rest of the gene tree is its sub-edges ``t_lo``, ``t_hi``,
+    ``pop_lo``, ``live_e`` [L, E]; the species tree ``pptable`` [H, H],
+    ``tau``, ``partau_f`` (parents' taus, the root's finite),
+    ``theta``, ``parent`` [H]; the routes ``si``, ``ti``, their sources'
+    lifetimes ``d_lo``, ``d_hi`` [K] and rates ``route_M`` [L, K];
+    ``heredity`` [L].  Each locus's lineage starts at ``t0`` in ``p0``
+    where ``is_valid``.  Step s reads the uniforms ``unif[:, s]`` [3, L]:
+    the waiting time is -log1p(-u0) / rate, the event a migration when u1
+    x rate < the migration rate, the donor the first route whose
+    cumulative rate exceeds u2 x the total.  Returns (t, p, done, fail,
+    nt, ns, nd, nn): the end of each walk, its events (time, source and
+    destination population) [L, ME] and their count.  A lineage that is
+    done or failed takes no more steps, so the loop stops once every
+    lineage is (a host read a step: this version runs on the CPU and in
+    the card's comparisons).  ``margin`` (a tensor [L]), when given,
+    receives each locus's least relative margin over its decisions (the
+    event against the next boundary, its kind, its donor): a locus above
+    1e-6 decides alike in float32 whatever the order of its sums.
+    ``steps`` (an int64 tensor [L]), when given, receives the steps each
+    locus took."""
+    L, E = t_lo.shape
+    dtype, dev = t_lo.dtype, t_lo.device
+    lidx = torch.arange(L, device=dev)
+    big = mg._FINITE_BIG
+    anc_e = pptable[pop_lo] & live_e[..., None]           # [L, E, H]
+    t, p = t0, p0
+    done = torch.zeros(L, dtype=torch.bool, device=dev)
+    fail = torch.zeros_like(done)
+    nt = torch.full((L, ME), BIG_AGE, dtype=dtype, device=dev)
+    ns = torch.zeros((L, ME), dtype=torch.int64, device=dev)
+    nd = torch.zeros_like(ns)
+    nn = torch.zeros(L, dtype=torch.int64, device=dev)
+    inf = torch.full_like(t, float("inf"))
+    if margin is not None:
+        margin.fill_(float("inf"))
+    if steps is not None:
+        steps.zero_()
+    for s in range(unif.shape[1]):
+        act = ~done & ~fail & is_valid
+        if not bool(act.any()):
+            break
+        if steps is not None:
+            steps.add_(act.to(torch.int64))
+        ph = torch.gather(anc_e, 2, p[:, None, None].expand(L, E, 1))[..., 0]
+        lo = torch.maximum(t_lo, tau[p][:, None])
+        hi = torch.minimum(t_hi, partau_f[p][:, None])
+        n = (ph & (lo <= t[:, None]) & (t[:, None] < hi)).sum(1)
+        # the next boundary time (> t): a lineage's start or end in p,
+        # p's end, a donor's birth or death
+        pts = torch.cat([lo, hi], dim=1)                  # [L, 2E]
+        pm = torch.cat([ph, ph], dim=1)
+        nb = torch.where(pm & (pts > t[:, None]), pts,
+                         torch.full_like(pts, big)).amin(dim=1)
+        nb = torch.minimum(nb, partau_f[p])
+        don = (ti[None, :] == p[:, None])[..., None]     # [L, K, 1]
+        dpts = torch.stack([d_lo, d_hi], dim=1)[None].expand(L, -1, -1)
+        dpts = torch.where(don & (dpts > t[:, None, None]), dpts,
+                           torch.full_like(dpts, big))
+        nb = torch.minimum(nb, dpts.amin(dim=(1, 2)))
+        alive = (d_lo[None, :] <= t[:, None]) & (t[:, None] < d_hi[None, :])
+        route_ok = (ti[None, :] == p[:, None]) & alive
+        w = torch.where(route_ok, route_M, torch.zeros_like(route_M))
+        cum = torch.cumsum(w, dim=1)
+        mrs = cum[:, -1]
+        _, rate = _sim_rate(n, theta[p], heredity, mrs)
+        delta = torch.where(rate > 0, -torch.log1p(-unif[0, s]) / rate, inf)
+        t_ev = t + delta
+        hit = t_ev < nb
+        u = unif[1, s] * rate
+        is_coal = hit & (u >= mrs)
+        is_mig = hit & (u < mrs)
+        # the donor route: categorical over the live routes' rates
+        r = unif[2, s] * torch.clamp(mrs, min=1e-300)
+        dpick = si[torch.argmax((cum > r[:, None]).to(torch.uint8), dim=1)]
+        if margin is not None:
+            rel = torch.where(hit, (nb - t_ev).abs() / nb.abs(),
+                              (t_ev - nb).abs() / nb.abs())
+            rel = torch.minimum(rel, torch.where(
+                hit, (u - mrs).abs() / rate, inf))
+            rel = torch.minimum(rel, torch.where(
+                is_mig, ((cum - r[:, None]).abs()
+                         / torch.clamp(mrs, min=1e-300)[:, None]).amin(1),
+                inf))
+            margin.copy_(torch.where(act, torch.minimum(margin, rel), margin))
+        # record the migration event
+        can_rec = is_mig & act & (nn < ME)
+        fail = fail | (is_mig & act & (nn >= ME))
+        slot = nn.clamp(max=ME - 1)
+        _write(nt, lidx, can_rec, slot, t_ev)
+        _write(ns, lidx, can_rec, slot, p)
+        _write(nd, lidx, can_rec, slot, dpick)
+        nn = nn + can_rec.to(torch.int64)
+        # a boundary crossing at the population's end lifts to its
+        # parent
+        p_next = torch.where(is_mig & act, dpick, p)
+        at_end = ~hit & (nb >= partau_f[p]) & act
+        p_next = torch.where(at_end, parent[p].clamp(min=0), p_next)
+        t = torch.where(act, torch.where(hit, t_ev, nb), t)
+        p = torch.where(act, p_next, p)
+        done = done | (is_coal & act)
+    return t, p, done, fail, nt, ns, nd, nn
+
+
+def simspr_walk(t_lo, t_hi, pop_lo, live_e, pptable, tau, partau_f, theta,
+                parent, si, ti, d_lo, d_hi, route_M, heredity, t0, p0,
+                is_valid, unif, ME: int):
+    """The sim-SPR walk (arguments and result as
+    :func:`simspr_walk_ref`): on CUDA tensors kernel K5
+    (``csrc/simwalk_kernel.cu``, one thread a locus, no host read), on CPU
+    tensors the plain version."""
+    args = (t_lo, t_hi, pop_lo, live_e, pptable, tau, partau_f, theta,
+            parent, si, ti, d_lo, d_hi, route_M, heredity, t0, p0, is_valid,
+            unif)
+    if t_lo.device.type == "cuda":
+        return chains.launch_simwalk(*args, ME, mg._FINITE_BIG,
+                                     rng.tiny_floor(t_lo.dtype))
+    return simspr_walk_ref(*args, ME)
 
 
 def spr_sim_move(ctx: Ctx, cfg: BppConfig, routes, state: McmcState, gen,
@@ -784,94 +911,26 @@ def spr_sim_move(ctx: Ctx, cfg: BppConfig, routes, state: McmcState, gen,
     t_lo, t_hi, pop_lo, live_e = mg._subedges(
         gt_p, mig_p, pops_p, ctx.n_seq, exclude=torch.stack([i, father], 1),
         include_root_edge=True)
-    anc_e = sp.pptable[pop_lo] & live_e[..., None]        # [L, E, H]
     E = t_lo.shape[1]
     route_M = mg.eff_rates(routes, mig0)                  # [L, K]
-    big = mg._FINITE_BIG
-    d_lo = tau[si].expand(L, K)
-    d_hi = partau_f[si].expand(L, K)
-
-    def lineages_in(t, p):
-        """The rest's lineages in population p at t: (inside [L, E], lo,
-        hi)."""
-        ph = torch.gather(anc_e, 2, p[:, None, None].expand(L, E, 1))[..., 0]
-        lo = torch.maximum(t_lo, tau[p][:, None])
-        hi = torch.minimum(t_hi, partau_f[p][:, None])
-        inside = ph & (lo <= t[:, None]) & (t[:, None] < hi)
-        return inside, ph, lo, hi
-
-    def n_and_bounds(t, p):
-        """Lineages in p at t, and the next boundary time (> t): a
-        lineage's start or end in p, p's end, a donor's birth or death."""
-        inside, ph, lo, hi = lineages_in(t, p)
-        pts = torch.cat([lo, hi], dim=1)                  # [L, 2E]
-        pm = torch.cat([ph, ph], dim=1)
-        nb = torch.where(pm & (pts > t[:, None]), pts,
-                         torch.full_like(pts, big)).amin(dim=1)
-        nb = torch.minimum(nb, partau_f[p])
-        don = (ti[None, :] == p[:, None])[..., None]     # [L, K, 1]
-        dpts = torch.stack([d_lo, d_hi], dim=2)           # [L, K, 2]
-        dpts = torch.where(don & (dpts > t[:, None, None]), dpts,
-                           torch.full_like(dpts, big))
-        return inside.sum(1), torch.minimum(nb, dpts.amin(dim=(1, 2)))
+    d_lo = tau[si]
+    d_hi = partau_f[si]
 
     # --- walk the pruned lineage up until it coalesces -------------------------
-    t = gt0.age[lidx, i]
-    p = pops_p[lidx, i]
-    done = torch.zeros(L, dtype=torch.bool, device=dev)
-    fail = torch.zeros_like(done)
-    nt = torch.full((L, ME), BIG_AGE, dtype=dtype, device=dev)
-    ns = torch.zeros((L, ME), dtype=torch.int64, device=dev)
-    nd = torch.zeros_like(ns)
-    nn = torch.zeros(L, dtype=torch.int64, device=dev)
-    inf = torch.full_like(t, float("inf"))
-    steps = 0
-    # every rank walks until the last lineage of every rank is done
-    while steps < max_steps and bool(
-            pany(ctx.shard, (~done & ~fail & is_valid).any())):
-        for _ in range(min(SIM_BLOCK, max_steps - steps)):
-            act = ~done & ~fail & is_valid
-            n, nb = n_and_bounds(t, p)
-            alive = (d_lo <= t[:, None]) & (t[:, None] < d_hi)
-            route_ok = (ti[None, :] == p[:, None]) & alive
-            w = torch.where(route_ok, route_M, torch.zeros_like(route_M))
-            mrs = w.sum(1)
-            _, rate = _sim_rate(n, sp.theta[p], heredity, mrs)
-            delta = torch.where(rate > 0, rng.exponential(
-                gen, (L,), dtype, dev, ctx.shard) / rate, inf)
-            t_ev = t + delta
-            hit = t_ev < nb
-            u = rng.uniform(gen, (L,), dtype, dev, ctx.shard) * rate
-            is_coal = hit & (u >= mrs)
-            is_mig = hit & (u < mrs)
-            # the donor route: categorical over the live routes' rates
-            cum = torch.cumsum(w, dim=1)
-            r = rng.uniform(gen, (L,), dtype, dev, ctx.shard) * torch.clamp(
-                cum[:, -1], min=1e-300)
-            dpick = si[torch.argmax((cum > r[:, None]).to(torch.uint8),
-                                    dim=1)]
-            # record the migration event
-            can_rec = is_mig & act & (nn < ME)
-            fail = fail | (is_mig & act & (nn >= ME))
-            slot = nn.clamp(max=ME - 1)
-            _write(nt, lidx, can_rec, slot, t_ev)
-            _write(ns, lidx, can_rec, slot, p)
-            _write(nd, lidx, can_rec, slot, dpick)
-            nn = nn + can_rec.to(torch.int64)
-            # a boundary crossing at the population's end lifts to its
-            # parent
-            p_next = torch.where(is_mig & act, dpick, p)
-            at_end = ~hit & (nb >= partau_f[p]) & act
-            p_next = torch.where(at_end, sp.parent[p].clamp(min=0), p_next)
-            t = torch.where(act, torch.where(hit, t_ev, nb), t)
-            p = torch.where(act, p_next, p)
-            done = done | (is_coal & act)
-            steps += 1
+    # the walk's draws, made before it: three uniforms a step and a locus
+    unif = rng.uniform_loci_last(gen, (3, max_steps), L, dtype, dev,
+                                 ctx.shard)
+    t_new, p, done, fail, nt, ns, nd, nn = simspr_walk(
+        t_lo, t_hi, pop_lo, live_e, sp.pptable, tau, partau_f, sp.theta,
+        sp.parent, si, ti, d_lo, d_hi, route_M, heredity,
+        gt0.age[lidx, i], pops_p[lidx, i], is_valid, unif, ME)
     fail = fail | ~done
-    t_new = t
 
     # --- the target edge, uniform among the lineages there ---------------------
-    inside, _, _, _ = lineages_in(t_new, p)
+    ph = sp.pptable[pop_lo, p[:, None].expand(L, E)] & live_e
+    lo = torch.maximum(t_lo, tau[p][:, None])
+    hi = torch.minimum(t_hi, partau_f[p][:, None])
+    inside = ph & (lo <= t_new[:, None]) & (t_new[:, None] < hi)
     esel, ecount = _select_uniform(gen, inside, ctx.shard)
     fail = fail | (ecount < 1)
     target = torch.where(esel < N, esel,

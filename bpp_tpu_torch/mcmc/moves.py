@@ -17,9 +17,9 @@ mixing moves re-score them):
 Per-locus moves take independent accept decisions per locus with
 ``torch.where``; global moves sum per-locus terms and take one decision.
 No move reads a device value on the host, so a step runs without a
-synchronisation, but for integrated-out thetas: their density couples
-the loci, and the per-locus moves then take their decisions in a serial
-chain on the host (``notheta.scan_accept``).  Under locus sharding
+synchronisation.  Under integrated-out thetas the density couples the
+loci, and the per-locus moves take their decisions in a serial chain
+(``notheta.scan_accept``: kernel K3 on the card).  Under locus sharding
 (``ctx.shard``) every sum over loci is a cross-rank sum
 (:func:`_psum_if_sharded`) and every per-locus draw is taken at the
 global shape (``rng``'s ``shard``), so each rank takes the decisions of

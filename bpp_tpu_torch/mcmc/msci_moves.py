@@ -24,9 +24,9 @@ flags ``GTrees.hpath``; nothing is book-kept):
     clock the re-routed edges change their lengths and a likelihood pass
     is part of the move.
 
-Every walk takes H steps, so a move reads nothing back to the host but
-under integrated thetas, where the per-locus decisions of repath take
-``notheta.scan_accept``'s serial chain.
+Every walk takes H steps, so a move reads nothing back to the host;
+under integrated thetas the per-locus decisions of repath take
+``notheta.scan_accept``'s serial chain (kernel K3 on the card).
 """
 
 from __future__ import annotations

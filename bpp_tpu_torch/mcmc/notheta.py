@@ -13,13 +13,13 @@ coalescent counts K_h and waiting-time sums C_h,
 Batched per-locus proposals stay batched: the likelihood deltas and the
 candidate (k, T2) rows of all loci are computed together on the device.
 Only the accept decisions form an exact serial chain over loci, carrying
-the running K/C sums.  On the card that chain would be thousands of tiny
-launches, so :func:`scan_accept` runs it on the host in float64 numpy:
-one copy of its inputs to the host and one copy of the accept mask back
-per move, the pattern of the Gamma-Dirichlet locus-rate chain
-(``clock_moves._gammadir_chain``).  Under locus sharding every rank runs
-the whole chain on the gathered inputs of all loci and keeps its rows of
-the decisions, and the K/C sums are all-reduced.
+the running K/C sums (``bpp_tpu``'s ``lax.scan``).  :func:`chain_accept`
+runs that chain where its inputs lie: on the card as kernel K3
+(``csrc/chain_kernel.cu``, one warp walking the loci in float64, no host
+read), on the CPU as :func:`accept_chain`, its plain version in float64
+Python floats.  Under locus sharding every rank runs the whole chain on
+the gathered inputs of all loci and keeps its rows of the decisions, and
+the K/C sums are all-reduced.
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ import math
 import numpy as np
 import torch
 
+from ..core import chains
 from ..parallel.mesh import gather_loci, psum
 from ..trees import coalescent as coalmod
 from . import rng
@@ -52,8 +53,9 @@ def pop_sums(coal, t2h, heredity, locus_mask):
 
 
 def accept_chain(a: float, b: float, K0, C0, co, cn, to, tn, dother, dh,
-                 logu, mask) -> np.ndarray:
-    """The serial accept chain of :func:`scan_accept` in float64 numpy.
+                 logu, mask, margin=None) -> np.ndarray:
+    """The serial accept chain of :func:`scan_accept` in float64 numpy:
+    the plain version of kernel K3.
 
     ``K0``/``C0`` [H] the starting sums; per locus ``co``/``cn`` the old
     and candidate counts [L, H], ``to``/``tn`` the old and candidate
@@ -61,7 +63,9 @@ def accept_chain(a: float, b: float, K0, C0, co, cn, to, tn, dother, dh,
     ln acceptance, ``dh`` the heredity/log 2 term delta, ``logu`` the log
     of the uniform draw, ``mask`` whether the locus proposes.  A locus
     whose rows are unchanged contributes 0 to the coupled term, so only
-    the changed populations are evaluated."""
+    the changed populations are evaluated.  ``margin`` (an array [L]),
+    when given, receives |log u - (dother + dh + dlg)| at each proposing
+    locus (inf elsewhere): how far each decision is from its tie."""
     def term(k, c):
         return math.lgamma(a + k) - (a + k) * math.log(b + c)
 
@@ -86,6 +90,8 @@ def accept_chain(a: float, b: float, K0, C0, co, cn, to, tn, dother, dh,
                 x = term(k, c)
                 dlg += x - g[h]
                 upd.append((h, k, c, x))
+        if margin is not None:
+            margin[i] = abs(lhs[i] - (rhs[i] + dlg))
         if lhs[i] < rhs[i] + dlg:
             accept[i] = True
             for h, k, c, x in upd:
@@ -108,15 +114,15 @@ def scan_accept(gen, cfg, dother, coal_o, t2_o, h_o, coal_n, t2_n, h_n,
       shard: the locus sharding (``parallel.mesh.Shard``) or None.
 
     Returns accept [L] bool on the device.  The uniforms are drawn on the
-    device from ``gen``; the chain runs on the host."""
+    device from ``gen``; the chain runs in :func:`chain_accept`."""
     H = coal_o.shape[1]
-    dev, dt = t2_o.device, t2_o.dtype
+    dt = t2_o.dtype
     t2c_o = t2_o / h_o[:, None]
     t2c_n = t2_n / h_n[:, None]
     K0, C0 = pop_sums(coal_o, t2_o, h_o, locus_mask)
     dh = (coal_n.sum(1) * torch.log(2.0 / h_n)
           - coal_o.sum(1) * torch.log(2.0 / h_o))
-    us = rng.uniform(gen, (coal_o.shape[0],), dt, dev, shard)
+    us = rng.uniform(gen, (coal_o.shape[0],), dt, t2_o.device, shard)
     cols = torch.cat([
         coal_o.to(torch.float64), coal_n.to(torch.float64),
         t2c_o.double(), t2c_n.double(),
@@ -126,15 +132,26 @@ def scan_accept(gen, cfg, dother, coal_o, t2_o, h_o, coal_n, t2_n, h_n,
     if shard is not None:
         # the chain runs over every locus, in order, on each rank
         cols, sums = gather_loci(shard, cols), psum(shard, sums)
-    L = cols.shape[0]
-    host = torch.cat([cols.reshape(-1), sums]).cpu().numpy()
-    cols = host[:L * (4 * H + 4)].reshape(L, 4 * H + 4)
-    sums = host[L * (4 * H + 4):]
-    co, cn, to, tn = (cols[:, k * H:(k + 1) * H] for k in range(4))
-    dother_h, dh_h, logu, m = cols[:, 4 * H:].T
-    accept = accept_chain(cfg.thetaprior.alpha, cfg.thetaprior.beta,
-                          sums[:H], sums[H:], co, cn, to, tn, dother_h,
-                          dh_h, logu, m > 0.5)
+    accept = chain_accept(cfg.thetaprior.alpha, cfg.thetaprior.beta, cols,
+                          sums, H)
     if shard is not None:
         accept = shard.rows(accept)
-    return torch.as_tensor(accept).to(dev)
+    return accept
+
+
+def chain_accept(a: float, b: float, cols, sums, H: int, margin=None):
+    """The accept chain over ``cols`` ``[L, 4H + 4]`` float64 (per locus
+    co, cn, to, tn [H] each, then dother, dh, log u, mask) from the sums
+    ``sums`` ``[2H]`` (K0, C0): accept ``[L]`` bool on their device.  CUDA
+    tensors: kernel K3, with no host read; CPU tensors: the plain version
+    :func:`accept_chain` (``margin`` as there; the CPU only)."""
+    if cols.device.type == "cuda":
+        return chains.launch_notheta(cols.contiguous(), sums.contiguous(),
+                                     H, a, b)
+    host = cols.numpy()
+    sums = sums.numpy()
+    co, cn, to, tn = (host[:, k * H:(k + 1) * H] for k in range(4))
+    dother, dh, logu, m = host[:, 4 * H:].T
+    return torch.from_numpy(accept_chain(a, b, sums[:H], sums[H:], co, cn,
+                                         to, tn, dother, dh, logu, m > 0.5,
+                                         margin))

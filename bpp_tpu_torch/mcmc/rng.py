@@ -48,6 +48,16 @@ def uniform(gen, shape, dtype, device, shard=None):
                              dtype=dtype, device=device), shard)
 
 
+def uniform_loci_last(gen, lead, n_loci, dtype, device, shard=None):
+    """Uniforms ``[*lead, n_loci]`` with the locus axis last (a block of
+    draws a kernel reads, one column a locus): drawn at the global locus
+    count under ``shard``, this rank's columns kept."""
+    L = n_loci if shard is None else shard.n_loci
+    x = torch.rand(tuple(lead) + (L,), generator=gen, dtype=dtype,
+                   device=device)
+    return x if shard is None else x[..., shard.lo:shard.hi]
+
+
 def exponential(gen, shape, dtype, device, shard=None):
     """Exponential(1) variates."""
     return _local(torch.empty(_global(shape, shard), dtype=dtype,

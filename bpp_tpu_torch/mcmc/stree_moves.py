@@ -22,10 +22,10 @@ What the eager step changes against ``bpp_tpu``:
     point of the same one-step map, the no-lift case included);
   * SNL's species-level part (focal choice, the delta walk of at most
     4H + 16 steps, the proposal densities and the new species arrays)
-    runs on the host, in float64, from one copy of the species arrays and
-    of uniforms drawn beforehand from the run's generator; the driver
-    makes that copy together with its SNL-or-SPR draw, so an iteration
-    with a species move synchronises once.  The walk keeps
+    runs in torch ops on the species arrays' device, in float64, from
+    uniforms drawn with the driver's SNL-or-SPR draw from the run's
+    generator (:func:`snl_species`); each branch of ``bpp_tpu``'s code is
+    a ``torch.where``, so nothing is read on the host.  The walk keeps
     ``bpp_tpu``'s bookkeeping but for one fault: ``bpp_tpu`` goes on
     checking for an invalid tip landing after the walk has stopped, which
     rejects every landing on a tip branch (ROADMAP Queue 3).  And SNL's
@@ -41,6 +41,9 @@ What the eager step changes against ``bpp_tpu``:
 """
 
 from __future__ import annotations
+
+import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -486,7 +489,16 @@ def species_spr_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
 
 def _logpdf_power(y, b, lam):
     """pdf of delta = b(1-u^(1/lam)) (stree.c:10496)."""
-    return np.log(lam / b) + (lam - 1.0) * np.log(max(1.0 - y / b, 1e-300))
+    return (torch.log(lam / b)
+            + (lam - 1.0) * torch.log(torch.clamp(1.0 - y / b, min=1e-300)))
+
+
+def _log_ratio(num: float, den: float) -> float:
+    """log(num / den) of two floats as float64 arithmetic gives it (-inf at
+    num 0, inf at den 0): a constant of a proposal branch that may be
+    computed and not taken."""
+    with np.errstate(all="ignore"):
+        return float(np.log(np.float64(num) / np.float64(den)))
 
 
 def snl_uniform_count(H: int) -> int:
@@ -495,239 +507,265 @@ def snl_uniform_count(H: int) -> int:
     return 4 + 2 * (4 * H + 16)
 
 
-def species_to_host(sp, u):
-    """One device-to-host copy of the species arrays and of the uniforms
-    ``u`` (float64 [n]); returns (u, left, right, parent, tau, pptable) as
-    numpy arrays."""
-    H = sp.n_nodes
-    packed = torch.cat([u.to(torch.float64), sp.left.to(torch.float64),
-                        sp.right.to(torch.float64),
-                        sp.parent.to(torch.float64),
-                        sp.tau.to(torch.float64),
-                        sp.pptable.reshape(-1).to(torch.float64)]).cpu()
-    packed = packed.numpy()
-    n = u.shape[0]
-    ints = packed[n:n + 3 * H].astype(np.int64)
-    return (packed[:n], ints[:H], ints[H:2 * H], ints[2 * H:],
-            packed[n + 3 * H:n + 4 * H],
-            packed[n + 4 * H:].reshape(H, H) > 0.5)
+class SnlSpecies(NamedTuple):
+    """SNL's species-level proposal (0-dim tensors unless noted; labels of
+    the current tree).  ``lnacc`` is its part of ln acceptance, float64:
+    the focal choice, the proposal densities, the reverse choice, the
+    rescaled species taus' Jacobian and the root-tau prior."""
+
+    sel: torch.Tensor
+    shrink: torch.Tensor
+    y: torch.Tensor
+    x: torch.Tensor
+    a: torch.Tensor
+    b_node: torch.Tensor
+    c: torch.Tensor
+    lca: torch.Tensor
+    went_down: torch.Tensor
+    done: torch.Tensor          # the walk stopped within its steps
+    wbad: torch.Tensor          # it stopped on a tip branch too short
+    tau_new: torch.Tensor       # float64
+    taufactor: torch.Tensor     # float64
+    left: torch.Tensor          # [H] the proposed tree
+    right: torch.Tensor
+    parent: torch.Tensor
+    tau: torch.Tensor           # [H] float64
+    sp_scaled: torch.Tensor     # inner species taus rescaled
+    root_new: torch.Tensor
+    lnacc: torch.Tensor
+    bad: torch.Tensor           # reject whatever the gene trees give
 
 
-def _pick_categorical_host(u, logw, mask):
-    logits = np.where(mask, logw, NEG)
-    m = logits.max()
-    cdf = np.cumsum(np.exp(logits - m))
-    idx = min(int(np.searchsorted(cdf, u * cdf[-1], side="right")),
-              len(logits) - 1)
-    return idx, logits[idx] - (m + np.log(cdf[-1]))
-
-
-def _snl_species(cfg, u, left, right, parent, tau, pp):
-    """SNL's species-level part on the host (stree.c:10406-11110, as in
-    ``bpp_tpu``): returns a dict with the focal nodes, the landing branch,
-    the new species arrays, taufactor, the count of rescaled species
-    taus, the host part of the log acceptance and whether the proposal is
-    invalid."""
-    H = len(tau)
+def snl_species(cfg, sp, u) -> SnlSpecies:
+    """SNL's species-level part (stree.c:10406-11110, as in ``bpp_tpu``'s
+    ``snl_move``) on the species arrays' device, in float64, from the
+    uniforms ``u`` (``snl_uniform_count(H)`` of them, float64): the focal
+    choice, the delta walk of at most 4H + 16 steps, the proposal
+    densities, the new species arrays and the reverse terms.  Nothing is
+    read on the host: each branch of ``bpp_tpu``'s code is a
+    ``torch.where``.  The walk keeps ``bpp_tpu``'s bookkeeping but for the
+    tip-landing check after the walk has stopped (module docstring)."""
+    H = sp.tau.shape[0]
     NS = (H + 1) // 2
-    hidx = np.arange(H)
+    dev = sp.tau.device
+    f64 = torch.float64
+    hidx = torch.arange(H, device=dev)
+    left, right, parent = sp.left, sp.right, sp.parent
+    tau = sp.tau.to(f64)
+    pp = sp.pptable
     lam_e, lam_s = cfg.snl_lambda_expand, cfg.snl_lambda_shrink
     p_shrink = cfg.prob_snl_shrink
-    partau = np.where(parent >= 0, tau[np.maximum(parent, 0)], np.inf)
+    inf = torch.full((), float("inf"), dtype=f64, device=dev)
+
+    def at(x, i):
+        # a read at a possibly negative label wraps, as numpy's does
+        return _at(x, torch.remainder(i, H))
+
+    partau = torch.where(parent >= 0, tau[parent.clamp(min=0)], inf)
     is_inner = hidx >= NS
 
     # --- weights + focal selection (init_weights, stree.c:10406) ------------
     feas = is_inner & (parent >= 0) & (tau > 0)
-    w = np.where(feas, 1.0 / np.sqrt(np.maximum(partau - tau, 1e-30)), 0.0)
-    wnorm = w / max(w.sum(), 1e-300)
-    sel, logp_sel = _pick_categorical_host(
-        u[1], np.log(np.maximum(wnorm, 1e-300)), feas)
-    shrink = bool(u[0] < p_shrink)
+    w = torch.where(feas, 1.0 / torch.sqrt(torch.clamp(partau - tau,
+                                                       min=1e-30)),
+                    torch.zeros_like(tau))
+    wnorm = w / torch.clamp(w.sum(), min=1e-300)
+    logits = torch.where(feas, torch.log(torch.clamp(wnorm, min=1e-300)),
+                         torch.full_like(tau, NEG))
+    m = logits.max()
+    cdf = torch.cumsum(torch.exp(logits - m), 0)
+    sel = torch.searchsorted(cdf, (u[1] * cdf[-1]).reshape(1),
+                             right=True).clamp(max=H - 1)[0]
+    logp_sel = _at(logits, sel) - (m + torch.log(cdf[-1]))
+    shrink = u[0] < p_shrink
 
     # EXPAND: y = sel, x = parent(y), (a, b) random child split,
     #         delta ~ power(x.tau, lam_e), walk starts at x
     # SHRINK: c0 = sel, y = parent(c0), a = other child of y,
     #         delta ~ power(c0.tau, lam_s), walk starts at c0, downward
-    y = int(parent[sel]) if shrink else sel
-    x = int(parent[y])                # -1 possible for a shrink at the root
-    swap = bool(u[2] < 0.5)
-    a_exp = right[y] if swap else left[y]
-    a_shr = right[y] if left[y] == sel else left[y]
-    a = int(a_shr if shrink else a_exp)
-    start = sel if shrink else x
-    dscale = tau[sel] if shrink else tau[max(x, 0)]
-    delta0 = dscale * (1.0 - u[3] ** (1.0 / (lam_s if shrink else lam_e)))
+    y = torch.where(shrink, at(parent, sel), sel)
+    x = at(parent, y)                 # -1 possible for a shrink at the root
+    left_y, right_y = at(left, y), at(right, y)
+    a_exp = torch.where(u[2] < 0.5, right_y, left_y)
+    a_shr = torch.where(left_y == sel, right_y, left_y)
+    a = torch.where(shrink, a_shr, a_exp)
+    start = torch.where(shrink, sel, x)
+    xs = x.clamp(min=0)
+    tau_sel, tau_x = _at(tau, sel), _at(tau, xs)
+    dscale = torch.where(shrink, tau_sel, tau_x)
+    lam = torch.where(shrink, torch.full_like(tau_sel, lam_s),
+                      torch.full_like(tau_sel, lam_e))
+    delta = dscale * (1.0 - u[3] ** (1.0 / lam))
 
     # --- delta walk (stree.c:11450-11510), bounded at 4H + 16 steps ------
     walk = u[4:].reshape(-1, 2)
-    done, target, prevnode, down = False, start, y, shrink
-    delta, tau_new, lca, wbad = delta0, 0.0, -1, False
-    for u_up, u_child in walk:
-        go_up = (not down) and u_up < 0.5
-        par = int(parent[target])
+    done = torch.zeros((), dtype=torch.bool, device=dev)
+    wbad = done
+    target, prevnode, down = start, y, shrink
+    tau_new = torch.zeros((), dtype=f64, device=dev)
+    lca = torch.full_like(y, -1)
+    zero = torch.zeros_like(delta)
+    for k in range(walk.shape[0]):
+        go_up = ~down & (walk[k, 0] < 0.5)
+        par = at(parent, target)
         up_has_par = par >= 0
-        dist_up = tau[max(par, 0)] - tau[target] if up_has_par else np.inf
+        par_s = par.clamp(min=0)
+        tau_t = at(tau, target)
+        dist_up = torch.where(up_has_par, _at(tau, par_s) - tau_t, inf)
         up_fits = dist_up > delta
-        first_down = not down
-        other = right[target] if left[target] == prevnode else left[target]
-        rand_child = left[target] if u_child < 0.5 else right[target]
-        nxt = max(int(other if first_down else rand_child), 0)
-        dist_dn = tau[target] - tau[nxt]
-        if done:
-            continue
+        first_down = ~down
+        lt, rt = at(left, target), at(right, target)
+        other = torch.where(lt == prevnode, rt, lt)
+        rand_child = torch.where(walk[k, 1] < 0.5, lt, rt)
+        nxt = torch.where(first_down, other, rand_child).clamp(min=0)
+        dist_dn = tau_t - _at(tau, nxt)
         # in exact arithmetic the remaining delta is always smaller than
         # the distance to any tip below; rounding can break it: stop on a
         # tip edge and flag the landing.  (bpp_tpu keeps making this check
         # after the walk has stopped, so it flags, and rejects, every
         # landing on a tip branch: from a tip, the "child" it reads is
         # tip 0 at distance 0.)
-        dn_fits = (dist_dn > delta) or nxt < NS
-        wbad = wbad or ((not go_up) and nxt < NS and dist_dn <= delta)
-        if go_up:
-            stop = up_fits or not up_has_par
-            tau_new = tau[target] + delta
-            target_next = target if stop else max(par, 0)
-            prevnode = target
-            delta = 0.0 if up_fits else delta - dist_up
-        else:
-            stop = dn_fits
-            tau_new = tau[target] - delta
-            if first_down:
-                lca = target
-            target_next = prevnode = nxt
-            delta = 0.0 if dn_fits else delta - dist_dn
-        down = down or not go_up
-        target = target_next
-        done = stop
+        tip_nxt = nxt < NS
+        dn_fits = (dist_dn > delta) | tip_nxt
+        stop = torch.where(go_up, up_fits | ~up_has_par, dn_fits)
+        live = ~done
+        wbad = wbad | (live & ~go_up & tip_nxt & (dist_dn <= delta))
+        tau_new = torch.where(live, torch.where(go_up, tau_t + delta,
+                                                tau_t - delta), tau_new)
+        lca = torch.where(live & ~go_up & first_down, target, lca)
+        nxt_target = torch.where(go_up, torch.where(stop, target, par_s),
+                                 nxt)
+        prevnode = torch.where(live, torch.where(go_up, target, nxt),
+                               prevnode)
+        delta = torch.where(live, torch.where(
+            go_up, torch.where(up_fits, zero, delta - dist_up),
+            torch.where(dn_fits, zero, delta - dist_dn)), delta)
+        down = down | (live & ~go_up)
+        target = torch.where(live, nxt_target, target)
+        done = done | stop
     went_down = down
     c = target
-    tpar = int(parent[c])
-    tpar_s = max(tpar, 0)
+    tpar = at(parent, c)
+    tpar_s = tpar.clamp(min=0)
 
     # A11 guard: SNL needs >= 3 delimited species and a feasible focal
     # node (method.c:5438 ndspecies > 2); degenerate landings (c == y)
-    ndsp_cur = int((tau[NS:] > 0).sum()) + 1
-    bad = (not done) or wbad or not feas.any() or ndsp_cur <= 2 or c == y
+    ndsp_cur = (tau[NS:] > 0).sum() + 1
+    bad = ~done | wbad | ~feas.any() | (ndsp_cur <= 2) | (c == y)
 
     # --- proposal-density corrections (stree.c:11512-11552) ------------------
-    tau_y = tau[y]
-    xs = max(x, 0)
-    with np.errstate(all="ignore"):
-        if shrink:
-            d_rev = tau_y - tau[tpar_s]
-            bad = bad or d_rev >= tau[tpar_s] or tpar < 0
-            term = (_logpdf_power(max(d_rev, 1e-300), max(tau[tpar_s], 1e-300),
-                                  lam_e) + np.log(0.5)
-                    - _logpdf_power(tau[sel] - tau_new, tau[sel], lam_s)
-                    + np.log((1 - p_shrink) / p_shrink))
-        elif not went_down:           # pure expand (++)
-            d_rev = tau[c] - tau_y
-            bad = bad or d_rev >= tau[c]
-            term = (_logpdf_power(max(d_rev, 1e-300), tau[c], lam_s)
-                    - np.log(0.5)
-                    - _logpdf_power(tau_new - tau[xs], tau[xs], lam_e)
-                    + np.log(p_shrink / (1 - p_shrink)))
-        else:                         # expand with downward steps (+-)
-            lca_s = max(lca, 0)
-            dist_fw = tau[lca_s] - tau[xs] + tau[lca_s] - tau_new
-            dist_rev = tau[lca_s] - tau_y + tau[lca_s] - tau[tpar_s]
-            bad = bad or dist_rev >= tau[tpar_s] or tpar < 0
-            term = (_logpdf_power(max(dist_rev, 1e-300),
-                                  max(tau[tpar_s], 1e-300), lam_e)
-                    - _logpdf_power(max(dist_fw, 1e-300), tau[xs], lam_e))
-        lnacc = -logp_sel + term
-        taufactor = tau_new / tau_y
+    tau_y, tau_c = at(tau, y), at(tau, c)
+    tau_tp = _at(tau, tpar_s)
+    tiny = 1e-300
+    # shrink (--)
+    d_rev = tau_y - tau_tp
+    bad_sh = (d_rev >= tau_tp) | (tpar < 0)
+    term_sh = (_logpdf_power(torch.clamp(d_rev, min=tiny),
+                             torch.clamp(tau_tp, min=tiny), lam_e)
+               + math.log(0.5)
+               - _logpdf_power(tau_sel - tau_new, tau_sel, lam_s)
+               + _log_ratio(1 - p_shrink, p_shrink))
+    # pure expand (++)
+    d_rev_pe = tau_c - tau_y
+    bad_pe = d_rev_pe >= tau_c
+    term_pe = (_logpdf_power(torch.clamp(d_rev_pe, min=tiny), tau_c, lam_s)
+               - math.log(0.5)
+               - _logpdf_power(tau_new - tau_x, tau_x, lam_e)
+               + _log_ratio(p_shrink, 1 - p_shrink))
+    # expand with downward steps (+-)
+    tau_lca = _at(tau, lca.clamp(min=0))
+    dist_fw = tau_lca - tau_x + tau_lca - tau_new
+    dist_rev = tau_lca - tau_y + tau_lca - tau_tp
+    bad_ed = (dist_rev >= tau_tp) | (tpar < 0)
+    term_ed = (_logpdf_power(torch.clamp(dist_rev, min=tiny),
+                             torch.clamp(tau_tp, min=tiny), lam_e)
+               - _logpdf_power(torch.clamp(dist_fw, min=tiny), tau_x, lam_e))
+    pure_expand = ~shrink & ~went_down
+    bad = bad | torch.where(shrink, bad_sh,
+                            torch.where(pure_expand, bad_pe, bad_ed))
+    term = torch.where(shrink, term_sh,
+                       torch.where(pure_expand, term_pe, term_ed))
+    lnacc = -logp_sel.to(f64) + term
+    taufactor = tau_new / tau_y
 
     # --- species-tree surgery (stree.c:11000-11060) --------------------------
-    b_node = int(right[y] if left[y] == a else left[y])
-    nleft, nright, nparent = left.copy(), right.copy(), parent.copy()
+    b_node = torch.where(left_y == a, right_y, left_y)
 
-    def replace_child(par, old, new):
-        if par >= 0:
-            if nleft[par] == old:
-                nleft[par] = new
-            if nright[par] == old:
-                nright[par] = new
+    def put(arr, i, v):
+        return arr.index_copy(0, torch.remainder(i, H).reshape(1),
+                              v.reshape(1))
 
-    replace_child(x, y, b_node)
-    nparent[b_node] = x
-    replace_child(tpar, c, y)
-    nparent[y] = tpar
-    if left[y] == a:
-        nright[y] = c
-    else:
-        nleft[y] = c
-    nparent[c] = y
+    def replace_child(nl, nr, par, old, new):
+        has = par >= 0
+        lv, rv = at(nl, par), at(nr, par)
+        nl = put(nl, par, torch.where(has & (lv == old), new, lv))
+        nr = put(nr, par, torch.where(has & (rv == old), new, rv))
+        return nl, nr
+
+    nleft, nright = replace_child(left, right, x, y, b_node)
+    nparent = put(parent, b_node, x)
+    nleft, nright = replace_child(nleft, nright, tpar, c, y)
+    nparent = put(nparent, y, tpar)
+    a_left = left_y == a
+    nright = put(nright, y, torch.where(a_left, c, at(nright, y)))
+    nleft = put(nleft, y, torch.where(a_left, at(nleft, y), c))
+    nparent = put(nparent, c, y)
     # taus: y at tau_new, clade-A species taus scaled
-    in_a = pp[:, a]
-    with np.errstate(all="ignore"):
-        ntau = np.where(in_a & (tau > 0), tau * taufactor, tau)
-    ntau[y] = tau_new
-    sp_scaled = int((in_a & (tau > 0) & is_inner).sum())
+    in_a = at(pp.T, a)
+    scaled = in_a & (tau > 0)
+    ntau = put(torch.where(scaled, tau * taufactor, tau), y, tau_new)
+    sp_scaled = (scaled & is_inner).sum()
 
     # reverse-weight term (new tree): expand-down -> weight of the
     # target's new parent (y), pure expand -> the target's, shrink -> y's
-    with np.errstate(all="ignore"):
-        npartau = np.where(nparent >= 0, ntau[np.maximum(nparent, 0)],
-                           np.inf)
-        feas2 = is_inner & (nparent >= 0) & (ntau > 0)
-        w2 = np.where(feas2, 1.0 / np.sqrt(np.maximum(npartau - ntau, 1e-30)),
-                      0.0)
-        w2 = w2 / max(w2.sum(), 1e-300)
-        rev_node = y if (shrink or went_down) else c
-        lnacc += np.log(max(w2[rev_node], 1e-300))
-        lnacc += sp_scaled * np.log(taufactor)
-        # root-tau prior (stree.c:11090-11110); the root is node H - 1
-        tau0 = tau[H - 1]
-        root_new = int(np.argmax(nparent < 0))
-        tau0n = ntau[root_new]
-        ta, tb = cfg.tauprior.alpha, cfg.tauprior.beta
-        if cfg.tauprior.dist == PriorDist.INVGAMMA:
-            rt = ((-ta - 1 - (ndsp_cur - 2)) * np.log(tau0n / tau0)
-                  - tb * (1 / tau0n - 1 / tau0))
-        else:
-            rt = ((ta - 1 - (ndsp_cur - 2)) * np.log(tau0n / tau0)
-                  - tb * (tau0n - tau0))
-        if abs(tau0n - tau0) > 1e-20:
-            lnacc += rt
-    return dict(y=y, a=a, b_node=b_node, c=c, tau_new=tau_new,
-                taufactor=taufactor, left=nleft, right=nright,
-                parent=nparent, tau=ntau, root_new=root_new,
-                lnacc=float(lnacc), bad=bool(bad) or not np.isfinite(lnacc))
+    npartau = torch.where(nparent >= 0, ntau[nparent.clamp(min=0)], inf)
+    feas2 = is_inner & (nparent >= 0) & (ntau > 0)
+    w2 = torch.where(feas2, 1.0 / torch.sqrt(torch.clamp(npartau - ntau,
+                                                         min=1e-30)),
+                     torch.zeros_like(ntau))
+    w2 = w2 / torch.clamp(w2.sum(), min=1e-300)
+    rev_node = torch.where(shrink | went_down, y, c)
+    lnacc = lnacc + torch.log(torch.clamp(at(w2, rev_node), min=tiny))
+    lnacc = lnacc + sp_scaled.to(f64) * torch.log(taufactor)
+    # root-tau prior (stree.c:11090-11110); the root is node H - 1
+    tau0 = tau[H - 1]
+    root_new = torch.argmax((nparent < 0).to(torch.uint8))
+    tau0n = _at(ntau, root_new)
+    ta, tb = cfg.tauprior.alpha, cfg.tauprior.beta
+    nd2 = (ndsp_cur - 2).to(f64)
+    if cfg.tauprior.dist == PriorDist.INVGAMMA:
+        rt = ((-ta - 1 - nd2) * torch.log(tau0n / tau0)
+              - tb * (1 / tau0n - 1 / tau0))
+    else:
+        rt = ((ta - 1 - nd2) * torch.log(tau0n / tau0) - tb * (tau0n - tau0))
+    lnacc = lnacc + torch.where((tau0n - tau0).abs() > 1e-20, rt, zero)
+    return SnlSpecies(
+        sel=sel, shrink=shrink, y=y, x=x, a=a, b_node=b_node, c=c, lca=lca,
+        went_down=went_down, done=done, wbad=wbad, tau_new=tau_new,
+        taufactor=taufactor, left=nleft, right=nright, parent=nparent,
+        tau=ntau, sp_scaled=sp_scaled, root_new=root_new, lnacc=lnacc,
+        bad=bad | ~torch.isfinite(lnacc))
 
 
-def _upload(arr, dtype, dev):
-    """A host array on ``dev`` in ``dtype``; to a GPU through pinned
-    memory without waiting for the device."""
-    np_dtype = {torch.int64: np.int64, torch.float32: np.float32,
-                torch.float64: np.float64}[dtype]
-    t = torch.from_numpy(np.ascontiguousarray(arr, dtype=np_dtype))
-    if dev.type == "cuda":
-        return t.pin_memory().to(dev, non_blocking=True)
-    return t
+def _root_last(root_new, H: int):
+    """The label permutation (an involution, the identity when the root is
+    already last) that brings ``root_new`` to index H - 1."""
+    hidx = torch.arange(H, device=root_new.device)
+    last = torch.full_like(hidx, H - 1)
+    return torch.where(hidx == root_new, last,
+                       torch.where(hidx == H - 1, root_new, hidx))
 
 
-def _root_last(spc):
-    """Label permutation (an involution) that brings the new root to
-    index H - 1; applied to the host species arrays in place."""
-    H = len(spc["tau"])
-    perm = np.arange(H)
-    r = spc["root_new"]
-    if r == H - 1:
-        return None
-    perm[[r, H - 1]] = perm[[H - 1, r]]
-    for key in ("left", "right", "parent"):
-        arr = spc[key][perm]
-        spc[key] = np.where(arr >= 0, perm[np.maximum(arr, 0)], arr)
-    spc["tau"] = spc["tau"][perm]
-    return perm
+def _relabel(arr, perm):
+    """Node pointers ``arr`` [H] under the label permutation ``perm``."""
+    out = arr[perm]
+    return torch.where(out >= 0, perm[out.clamp(min=0)], out)
 
 
-def snl_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen, host=None):
-    """SNL proposal.  ``host`` is ``species_to_host(state.sp, u)`` with
-    ``u`` of ``snl_uniform_count`` uniforms, made by the caller with the
-    read it needs anyway; without it the move draws and reads them
-    itself."""
+def snl_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen, u=None):
+    """SNL proposal.  ``u``: the ``snl_uniform_count`` float64 uniforms of
+    the species-level part, drawn by the caller with its SNL-or-SPR draw;
+    without it the move draws them from ``gen``."""
     gt, sp = state.gt, state.sp
     L, N, T = gt.n_loci, gt.n_nodes, gt.n_tips
     H = sp.n_nodes
@@ -737,33 +775,25 @@ def snl_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen, host=None):
     nodes_idx = torch.arange(N, device=dev)[None, :]
     logl_fn = make_logl_fn(ctx, cfg)
     logpr_fn = make_logpr_fn(ctx)
-    if host is None:
-        host = species_to_host(sp, rng.uniform(gen, (snl_uniform_count(H),),
-                                               torch.float64, dev))
-    spc = _snl_species(cfg, *host)
-    y, a, b_node, c = spc["y"], spc["a"], spc["b_node"], spc["c"]
-    bad = spc["bad"]
+    if u is None:
+        u = rng.uniform(gen, (snl_uniform_count(H),), torch.float64, dev)
+    spc = snl_species(cfg, sp, u)
+    y, a, b_node, c = spc.y, spc.a, spc.b_node, spc.c
+    bad = spc.bad
     # a degenerate factor only comes with a rejected proposal
-    taufactor = spc["taufactor"]
-    if bad or not (np.isfinite(taufactor) and taufactor > 0):
-        taufactor = 1.0
-    # the new tree in the current labels (the gene-tree part reads them),
-    # then relabelled so that the root stays last; one upload each of the
-    # integer and the float arrays, without a host wait
-    pre = (spc["parent"], spc["tau"])
-    perm = _root_last(spc)
-    ints = _upload(np.concatenate([
-        pre[0], spc["left"], spc["right"], spc["parent"],
-        np.arange(H) if perm is None else perm]), torch.int64, dev)
-    taus = _upload(np.concatenate([pre[1], spc["tau"]]), dt, dev)
-    nparent, ntau = ints[:H], taus[:H]
+    tf = spc.taufactor
+    taufactor = torch.where(bad | ~(torch.isfinite(tf) & (tf > 0)),
+                            torch.ones_like(tf), tf)
+    # the new tree in the current labels (the gene-tree part reads them)
+    nparent, ntau = spc.parent, spc.tau.to(dt)
     npptable = _recompute_pptable(nparent, H)
 
     # --- gene-tree painting --------------------------------------------------
     order = inner_order(gt)
     pops = assign_populations(gt, sp, ctx.tip_pop)
     age = gt.age
-    tip_under_a = sp.pptable[ctx.tip_pop, a]                # [L, T]
+    # a proposal with no feasible focal node (rejected) may carry label -1
+    tip_under_a = _at(sp.pptable, torch.remainder(a, H), 1)[ctx.tip_pop]
     pureA = topo_scan(gt, tip_under_a, torch.logical_and, order)
     # the branch above a gene tree's root is a target (and a source) too:
     # a rescaled node may rise above its tree's root (bpp_tpu rejects
@@ -778,14 +808,14 @@ def snl_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen, host=None):
     intact = torch.where(lA, gt.right, gt.left)
     # new ages: pure-A inner and moved nodes scale by taufactor
     scale_mask = (pureA | moved) & valid_inner
-    tnew_all = age * taufactor
+    tnew_all = age * taufactor.to(dt)
     age_new = torch.where(scale_mask, tnew_all, age)
     g_scaled = psum(ctx.shard, (scale_mask & ctx.locus_mask[:, None]).sum())
 
     # newpop of every node at its new age (stree.c:10680-10700): y and the
     # target's new ancestors, the deepest with tau <= tnew, mapped back to
     # the current labels (y -> c, b -> y)
-    anc_t_new = npptable[c] & (hidx != c)
+    anc_t_new = _at(npptable, torch.remainder(c, H)) & (hidx != c)
     inf = torch.full_like(ntau, float("inf"))
     rway_tau = torch.where(anc_t_new, ntau, inf)
     below = rway_tau[None, None, :] <= tnew_all[..., None]
@@ -823,32 +853,31 @@ def snl_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen, host=None):
                           targets)
 
     # --- application: sequential prune + regraft with the new ages ----------
-    if bad:
-        gl, gr, gp = gt.left, gt.right, gt.parent
-    else:
-        gl, gr, gp = _prune_regraft(gt, moved & ~badmask[:, None], pruned,
-                                    targets, age_new, tnew_all)
-    gt_new = gt._replace(left=gl, right=gr, parent=gp, age=age_new)
+    gl, gr, gp = _prune_regraft(gt, moved & ~badmask[:, None], pruned,
+                                targets, age_new, tnew_all)
+    gt_new = gt._replace(left=torch.where(bad, gt.left, gl),
+                         right=torch.where(bad, gt.right, gr),
+                         parent=torch.where(bad, gt.parent, gp), age=age_new)
 
-    # keep the root at index H - 1 (see the module docstring)
+    # keep the root at index H - 1 (see the module docstring): the labels
+    # of the old and the new root swap (the identity when it stays)
+    perm = _root_last(spc.root_new, H)
     clock = state.clock
-    theta = sp.theta
-    if perm is not None:
-        p = ints[4 * H:]
-        theta = theta[p]
-        if clock is not None and cfg.clock != Clock.CORRELATED:
-            clock = clock._replace(brate=clock.brate[:, p])
-    nparent = ints[3 * H:4 * H]
+    theta = sp.theta[perm]
+    if clock is not None and cfg.clock != Clock.CORRELATED:
+        clock = clock._replace(brate=clock.brate[:, perm])
+    nparent = _relabel(spc.parent, perm)
     npptable = _recompute_pptable(nparent, H)
-    sp_new = sp._replace(left=ints[H:2 * H], right=ints[2 * H:3 * H],
-                         parent=nparent, tau=taus[H:], theta=theta,
-                         pptable=npptable, mrca=_recompute_mrca(npptable))
+    sp_new = sp._replace(left=_relabel(spc.left, perm),
+                         right=_relabel(spc.right, perm), parent=nparent,
+                         tau=ntau[perm], theta=theta, pptable=npptable,
+                         mrca=_recompute_mrca(npptable))
 
     # --- full re-evaluation + remaining acceptance terms ---------------------
     logl_new = logl_fn(gt_new, state.subst, sp_new, clock)
     logpr_new, c_new, t2_new = logpr_fn(gt_new, sp_new, state.subst.heredity)
     # Jacobian of the gene-node rescaling + species-model prior
-    lnacc = (spc["lnacc"] + g_scaled.to(dt) * float(np.log(taufactor))
+    lnacc = (spc.lnacc.to(dt) + g_scaled.to(dt) * torch.log(taufactor).to(dt)
              + (log_species_model_prior(cfg, sp_new)
                 - log_species_model_prior(cfg, sp)).to(dt)
              + psum(ctx.shard, lnhr.sum())
@@ -866,9 +895,8 @@ def snl_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen, host=None):
         lnacc = lnacc + _masked_sum(ctx, lnr_new - state.clock.lnrates)
         cand_state = cand_state._replace(
             clock=clock._replace(lnrates=lnr_new))
-    bad_any = pany(ctx.shard, badmask.any()) | ~torch.isfinite(lnacc)
-    if bad:
-        bad_any = torch.ones_like(bad_any)
+    bad_any = (pany(ctx.shard, badmask.any()) | ~torch.isfinite(lnacc)
+               | bad)
     lnacc, cand_state = _traits_on(ctx, state, sp_new, lnacc, cand_state)
     lnacc = torch.where(bad_any, torch.full_like(lnacc, -float("inf")), lnacc)
     accept = rng.mh_accept(gen, lnacc)

@@ -25,8 +25,9 @@ parameter):
 Every likelihood-touching proposal recomputes the full batched
 likelihood pass (one kernel launch on the card) and accepts or rejects
 per locus with ``torch.where`` over the ``SubstState`` tuple; nothing is
-read back to the host (but for the heredity move with integrated-out
-thetas, whose serial accept chain runs on the host, ``notheta``).
+read back to the host (the heredity move with integrated-out thetas
+takes its decisions in ``notheta``'s serial accept chain, kernel K3 on
+the card).
 """
 
 from __future__ import annotations

@@ -10,9 +10,10 @@ their own.  Phases, numbered as they were added (``main`` runs 13, 19 and
 run beside them, then the others in order); any failure exits non-zero:
 
 1. device   — torch version, the card's name and power limit;
-2. build    — nvcc builds kernels K1 (``bpp_tpu_torch/csrc/pack_kernel.cu``)
-              and K2 (``csrc/fels_kernel.cu``), one process each, started
-              together; the float64 instantiations' registers and spills
+2. build    — nvcc builds kernels K1 (``bpp_tpu_torch/csrc/pack_kernel.cu``),
+              K2 (``csrc/fels_kernel.cu``), K3/K4 (``csrc/chain_kernel.cu``)
+              and K5 (``csrc/simwalk_kernel.cu``), one process each,
+              started together; the float64 instantiations' registers and spills
               from the ``-Xptxas -v`` report (none of C <= 4 may spill);
 3. data 1   — the port's simulator writes the haploid bench dataset (4
               species x 4 sequences, 500 sites, JC69, seed 137) at
@@ -57,7 +58,7 @@ run beside them, then the others in order); any failure exits non-zero:
               ``reduce_root`` (max per-locus |dlnL| < 0.02); timed as K1
               is; the ``[profile]`` line of the diploid HKY+G4 step; and
               ``[moves]``: the wall time of each substitution and rate
-              move, of the Gamma-Dirichlet mu_i move with its host loop,
+              move, of the Gamma-Dirichlet mu_i move with its chain (K4),
               and of GTR's eigendecomposition and the discrete-gamma
               quantiles on the card;
 8. main 2   — ``cli.main(["--cfile", "run2.ctl"])`` runs the 1000-locus
@@ -94,7 +95,8 @@ run beside them, then the others in order); any failure exits non-zero:
               with no theta column and a moving mu_bar, and the summary
               must count every sample; K1 launched 8 times per iteration
               (the tip-dating mubar move replaces mixing) plus 1 at init,
-              in each run.
+              in each run, K3 5 times per iteration (the age move's 2
+              blocks, 3 SPR rounds).
 
 13. shapes  — both kernels against their plain versions (float64) on what
               the bench data lacks: 1..16 sequences per locus in one batch,
@@ -104,22 +106,25 @@ run beside them, then the others in order); any failure exits non-zero:
               the CLV store themselves (shared at 64 tips with 4
               categories, the device scratch at 128 tips with 8).
 14. main 6  — A01 on the haploid data (``speciestree = 1 0.5 0.33 0.1
-              0.2``: SPR and SNL, pSNL 0.5): K1 launched 8 + 1 = 9 times per
-              iteration (the species move adds one pass) plus 1, K2 never;
-              mcmc.txt holds 40 newick samples, the A01 report's topology
-              probabilities sum to 1, and both SPR and SNL were proposed;
+              0.2``: SPR and SNL, pSNL 0.5): K1 launched 8 + 2 = 10 times per
+              iteration (both species moves are computed, one kept, a pass
+              each) plus 1, K2 never; mcmc.txt holds 40 newick samples,
+              the A01 report's topology probabilities sum to 1, and the
+              move statistics show both SPR and SNL kept;
 15. main 7  — A11 on the diploid data of main 2 (``speciesdelimitation = 1
               0 2``, ``speciestree = 1`` (pSNL 0.2), ``speciesmodelprior =
-              1``): K2 launched 12 + 2 = 14 times per iteration (rj 1 +
-              species move 1) plus 1, K1 never; 40 newick samples, a well
-              formed A11 report whose probabilities sum to 1;
+              1``): K2 launched 12 + 3 = 15 times per iteration (rj 1 +
+              species SPR 1 + SNL 1) plus 1, K1 never; 40 newick samples, a
+              well formed A11 report whose probabilities sum to 1;
 16. topo    — 10 iterations each of main 6's and main 7's engines: K1 and K2
               held against their float64 plain versions on the four model
               families under both CLV stores on every gene-tree batch a
               species SPR, SNL or rj move proposed (the trees the kernel
               was launched on inside the move) and on the state after each
-              accepted one; ``[profile]`` of both steps and ``[moves]`` wall
-              ms of species_spr_move, snl_move and rj_move.
+              accepted one (these iterations run eagerly: the trees are
+              taken from the moves' Python calls); ``[profile]`` of both
+              steps and ``[moves]`` wall ms of species_spr_move, snl_move
+              and rj_move.
 
 17. custom  — the haploid data under a partition of five DNA models in
               blocks of 200 loci (JC69, K80, HKY, TN93, GTR): K1 through its
@@ -179,14 +184,15 @@ run beside them, then the others in order); any failure exits non-zero:
               ``wprior = 20 40``, burnin 5, nsample 20: K1 launched 8 times
               per iteration (age 2
               + sim-SPR 3 + tau 2 + mixing 1; the event-age move runs no
-              pass under the strict clock) plus 1, K2 never; theta, tau and
+              pass under the strict clock) plus 1, K2 never, K5 3 times an
+              iteration (one walk a sim-SPR round); theta, tau and
               the ``W:`` rate columns move; every state's routes and events
               are consistent, the last passes ``validate_state`` (after
               the launch count is read) and holds migration events; the
               a1b1 log has the rates' rows; the ``[profile]`` of its step;
 24. mig     — K1 and K2 against their float64 plain versions under both CLV
               stores: (a) every gene-tree batch ``spr_sim_move`` proposed
-              over 10 iterations of main 12's engine (loci of failed walks,
+              over 10 eager iterations of main 12's engine (loci of failed walks,
               pruned and not regrafted, left out and counted) and the state
               after them; (b) the sub-edge branch lengths
               (``relaxed_branch_lengths_mig``) of a clock = 2 MSC-M chain on
@@ -205,10 +211,11 @@ run beside them, then the others in order); any failure exits non-zero:
               rjMCMC over all 22 candidate routes; A -> B and B -> A active
               at the start), burnin 5, nsample 20, through ``cli.main``: K1
               launched 8 times per iteration plus 1 (the flip and add/remove
-              moves run no pass), K2 never; routes and events consistent in
-              every state, ``validate_state`` on the last; every ``W:``
-              column 0 exactly where its route is off; both geneflow moves
-              proposed once an iteration; the ``[profile]`` of its step;
+              moves run no pass), K2 never, K5 3 times an iteration; routes
+              and events consistent in every state, ``validate_state`` on
+              the last; every ``W:`` column 0 exactly where its route is
+              off; the geneflow moves proposed twice an iteration (the
+              statistics' slot); the ``[profile]`` of its step;
 27. main 15 — main 1's data with a trait file the script writes (numpy
               seed 137: 4 species x 20 continuous characters, 4 x 50
               discrete ones of 2-4 states, some missing) and ``check =
@@ -286,14 +293,15 @@ the chain's last state, and the ``[profile]`` of its step there:
               10 100 5 gdir LN``) and ``check = 10``, 20 iterations: K2 8 +
               freqs 1 + qrates 1 + alpha 1 + mu_i 1 (the root's rate is
               mu_i under clock 3) + 6 (the branch sweep skips the root) =
-              18 an iteration plus 1 plus 1 a check; mu_i, nu_i and the
-              branch rates moved; K2 held on the relaxed branch lengths;
-              ``[moves]``: one ``_host_gammadir`` call at 1000 loci;
+              18 an iteration plus 1 plus 1 a check, K4 2 an iteration
+              (mu_i, nu_i); mu_i, nu_i and the branch rates moved; K2 held
+              on the relaxed branch lengths; ``[moves]``: one
+              ``gammadir_accept`` call (K4) at 1000 loci;
 38. main 22 — main 15's traits under ``clock = 2 10 100 5 iid G`` with
               A01's species moves and ``check = 10``, 20 iterations: K1 8
-              + species move 1 + 7 branch-rate passes = 16 an iteration
-              plus 1 plus 1 a check; the cached trait logl equal to a fresh
-              evaluation at every check, SPR and SNL proposed, the A01
+              + species SPR and SNL 2 + 7 branch-rate passes = 17 an
+              iteration plus 1 plus 1 a check; the cached trait logl equal
+              to a fresh evaluation at every check, SPR and SNL kept, the A01
               report as main 6's; K1 held on the relaxed branch lengths;
 39. memory  — every chain's peak device memory
               (``torch.cuda.max_memory_allocated`` from a reset just before
@@ -301,16 +309,20 @@ the chain's last state, and the ``[profile]`` of its step there:
               what the process held before it) in one line.
 40. graph   — the captured step (``mcmc.graph.StepGraph``) against the
               eager step at the same seed, in this process, for mains 1,
-              2, 13, 16, 17 and 18 and, timed, every other main path the
-              route table captures (3, 4, 8, 9, 10, 11, 15, 16's diploid
-              run, 19, 20): the states, move statistics, traces and generator
-              states bit-equal after 6 iterations, and (the first six)
-              the control file through ``cli.main`` at burnin 8, nsample 4
-              both ways with every mcmc file byte-equal; each route's wall
-              ms an iteration (the median of 3 windows), device kernels,
+              2, 13, 16, 17 and 18, timed every other main path the route
+              table captures (3, 4, 8, 9, 10, 11, 15, 16's diploid run,
+              19, 20), and mains 5, 6, 7, 12, 14, 21 and 22 (whose accept
+              chains, SNL and sim-SPR walks run on the device): the
+              states, move statistics, traces and generator states
+              bit-equal after 6 iterations, and (the first six and the
+              last seven) the control file through ``cli.main`` at burnin
+              8, nsample 4 both ways with every mcmc file byte-equal; each route's wall
+              ms an iteration (eager the median of 3 windows of the 6
+              compared iterations, replayed of 3 more windows of 5
+              replays, 2 for mains 10, 12, 14 and 18), device kernels,
               busy ms and idle share an iteration (within 25 kernels of
               each other), the capture's seconds and peak device memory,
-              K1 / K2 launched inside the graph (under ``chains = K`` the
+              K1-K5 launched inside the graph (under ``chains = K`` the
               K graphs, one a chain, and the write-back on one shared
               memory pool, as ``run_mcmc_multi`` runs them); then
               ``[eigen]``: main 20's GTR step on the eager route with its
@@ -321,9 +333,20 @@ the chain's last state, and the ``[profile]`` of its step there:
               synchronising op by the line of the port that issued it,
               beside the route ``driver.step_route`` gives; a graph-route
               step must have none.
+42. chains  — K3 (the integrated-theta accept chain) on main 5's and K4
+              (the Gamma-Dirichlet chain) on main 21's engine, K5 (the
+              sim-SPR walk) on main 12's and main 14's, eager iterations
+              in which every call is held against its plain version on the
+              same inputs (K3/K4 on the host in float64, K5 in torch ops
+              on the card): decisions equal but where a margin is under
+              1e-9 (K3/K4, at most 1 such locus a call; the error kept
+              the largest |kernel - plain| of the 0/1 decisions, calls
+              with a disagreement counted) or 1e-6 relative
+              (K5, at most 1 locus in 1000; times within 1e-5 relative in
+              float32); each kernel's device ms a launch (profiler) on the
+              last call's inputs, its plain version's ms and its bound.
 
-Every main path whose configuration ``driver.step_route`` captures (1-4,
-8-11, 13, 15-20 and [tools]' run) runs its chunks as replays of one
+Every main path but ``[shard]``'s runs its chunks as replays of one
 captured CUDA graph; the launch counts a replay adds are the graph's
 captured launches, so the predicted counts hold on either route.  The
 graph's warm-up iteration before its capture (one iteration of each
@@ -335,7 +358,9 @@ of phases in the order they ran), one JSON line ``{"kernels": [...]}``
 (K1 at JC69, K2 at HKY+G4: the
 models of their chains; launches summed over main 1-15, 17-22 and [tools],
 errors the largest of every hold; then the float64 builds, with main
-16's and both [shard] ranks' launches and the [x64] holds), the card's name and power limit from
+16's and both [shard] ranks' launches and the [x64] holds; then K3, K4
+and K5 with their mains' launches and ``[chains]``' times), the card's
+name and power limit from
 nvidia-smi, and the last line ``{"ok": true, "device": {...}}``.  Without
 a CUDA device the script exits non-zero and prints no result.
 """
@@ -520,8 +545,16 @@ H_BRANCHES = 7             # species branches of ((A,B),(C,D)): one pass each
 PASSES_PER_ITER_3 = PASSES_PER_ITER + H_BRANCHES
 PASSES_PER_ITER_4 = PASSES_PER_ITER_2 + H_BRANCHES
 PASSES_PER_ITER_5 = PASSES_PER_ITER     # tipdate mubar replaces mixing
-PASSES_PER_ITER_6 = PASSES_PER_ITER + 1   # + species SPR or SNL
-PASSES_PER_ITER_7 = PASSES_PER_ITER_2 + 2  # + rj + species SPR or SNL
+# kernels K3-K5 an iteration: K3 under integrated thetas (main 5) once for
+# each of the age move's 2 blocks and of 3 SPR rounds; K4 once each for mu_i
+# and nu_i under Gamma-Dirichlet priors (main 21); K5 once for each of the
+# 3 sim-SPR rounds under migration (mains 12, 14)
+K3_PER_ITER_5 = 2 + 3
+K4_PER_ITER_21 = 2
+K5_PER_ITER_12 = 3
+# with SNL on, both species moves are computed and one is kept
+PASSES_PER_ITER_6 = PASSES_PER_ITER + 2   # + species SPR + SNL
+PASSES_PER_ITER_7 = PASSES_PER_ITER_2 + 3  # + rj + species SPR + SNL
 # + freqs 1 + one qrates pass for each slot some model of the partition
 # frees (K80 / HKY slot 0, TN93 slots 0-1, GTR all but slot 1: 6 slots)
 PASSES_PER_ITER_8 = PASSES_PER_ITER + 1 + 6
@@ -694,7 +727,9 @@ def device_kernels(fn):
     device (CUDA) event in the order they started, read from the trace's
     raw events: the events ``prof.events()`` would keep, without building
     its tree of host and device events, which takes the host seconds a
-    10,000 events."""
+    10,000 events.  Host and device activity are traced: with the device
+    activity alone a trace of an eager step of 40,000 kernels ran twice as
+    fast but now and then dropped dozens of its kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -859,11 +894,13 @@ def check_chain_output(job, nsample, moving, figtree=True, every=True):
 
 
 def run_chain(argv, job, iters, expect, moving, label, smi, figtree=True,
-              nsample=NSAMPLE, clv_store="shared", every=True):
-    """Drive one chain through the CLI (``argv``) with both launch counts
-    (and those of the float64 builds) set to 0 just before and read just
+              nsample=NSAMPLE, clv_store="shared", every=True,
+              chains=(0, 0, 0)):
+    """Drive one chain through the CLI (``argv``) with every launch count
+    (those of the float64 builds too) set to 0 just before and read just
     after; ``expect`` = (K1, K2) launches over ``iters`` iterations and
-    the initial state.  ``moving`` names the mcmc.txt columns that must
+    the initial state, ``chains`` = (K3, K4, K5) launches (recorded in
+    ``CHAIN_LAUNCHES``).  ``moving`` names the mcmc.txt columns that must
     move (``every``: see :func:`check_chain_output`), or is "A01" /
     "A11" for a run that writes species trees; the file holds
     ``nsample`` samples.  ``clv_store`` is the store the
@@ -874,17 +911,21 @@ def run_chain(argv, job, iters, expect, moving, label, smi, figtree=True,
     import torch
 
     from bpp_tpu_torch import cli
+    from bpp_tpu_torch.core import chains as chain_kernels
     from bpp_tpu_torch.core import fels, pack
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated() / 2**20
     torch.cuda.reset_peak_memory_stats()
     pack.LAUNCHES = fels.LAUNCHES = 0
     pack.LAUNCHES_F64 = fels.LAUNCHES_F64 = 0
+    chain_kernels.set_launch_counts((0, 0, 0))
     t0 = time.perf_counter()
     rc = cli.main(argv + ["--quiet"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     got = (pack.LAUNCHES, fels.LAUNCHES)
+    got_chains = chain_kernels.launch_counts()
+    CHAIN_LAUNCHES.append((label, got_chains))
     peak = torch.cuda.max_memory_allocated() / 2**20
     PEAKS.append((label, peak, held))
     if rc != 0:
@@ -893,6 +934,10 @@ def run_chain(argv, job, iters, expect, moving, label, smi, figtree=True,
         raise AssertionError(
             f"{label}: (K1, K2) launched {got} times on the main path, "
             f"expected {expect} over {iters} iterations + the initial state")
+    if got_chains != tuple(chains):
+        raise AssertionError(
+            f"{label}: (K3, K4, K5) launched {got_chains} times on the main "
+            f"path, expected {tuple(chains)} over {iters} iterations")
     store = pack.CLV_STORE if got[0] else fels.CLV_STORE
     if sum(got) and store != clv_store:
         raise AssertionError(f"{label}: the main path ran the {store} CLV "
@@ -907,7 +952,8 @@ def run_chain(argv, job, iters, expect, moving, label, smi, figtree=True,
           f"{wall:.1f} "
           f"s (load + init + chain + summary), {iters / wall:.2f} iters/s "
           f"overall | K1 launches {got[0]} | K2 launches {got[1]} (float64 "
-          f"build {pack.LAUNCHES_F64} / {fels.LAUNCHES_F64}) | CLV store "
+          f"build {pack.LAUNCHES_F64} / {fels.LAUNCHES_F64}) | K3 / K4 / K5 "
+          f"launches {' / '.join(map(str, got_chains))} | CLV store "
           f"{store if sum(got) else '-'} | peak device memory {peak:.1f} "
           f"MiB ({held:.1f} held before the run) | {result} | {smi}")
     return got
@@ -915,6 +961,8 @@ def run_chain(argv, job, iters, expect, moving, label, smi, figtree=True,
 
 # (label, peak MiB, MiB held before) of every run_chain and [shard] rank 0
 PEAKS = []
+# (label, (K3, K4, K5) launches) of every run_chain
+CHAIN_LAUNCHES = []
 
 
 def _prob_rows(lines, header):
@@ -954,9 +1002,6 @@ def check_species_output(job, nsample, method):
                                  f"sums to {total} over {len(rows)} rows")
         first = first or f"{len(rows)} rows, top {rows[0][0]} {rows[0][-1]}"
     return f"{nsample} species trees | {method} report {first}"
-
-
-TRAIT_MOVE = ("trait_moves", "trait_brate_move")
 
 
 class MoveTally:
@@ -1075,9 +1120,9 @@ def time_moves(eng, state, dev, smi):
                      ("mu_i(hierarchical)", clock_moves.mui_move),
                      ("mubar", clock_moves.mubar_move)):
         rows.append((name, wall_ms(lambda: fn(ctx, cfg, state, gen))))
-    # the Gamma-Dirichlet prior's serial accept chain runs on the host
+    # the Gamma-Dirichlet prior's serial accept chain: kernel K4
     cfg0 = cfg.replace(locusrate_prior=0)
-    rows.append(("mu_i(gamma-dirichlet, host loop)", wall_ms(
+    rows.append(("mu_i(gamma-dirichlet, K4)", wall_ms(
         lambda: clock_moves.mui_move(ctx, cfg0, state, gen))))
     # the Dirichlet prior's compensating pairs
     rows.append(("locusrate(dirichlet pairs)", wall_ms(
@@ -1348,7 +1393,7 @@ def species_phase(label, ctl, dev, smi, kernel_name, passes):
     ctx, cfg, gen = eng.ctx, eng.cfg, eng.gen
     rows = [("species_spr_move", wall_ms(lambda: stree_moves.species_spr_move(
         ctx, cfg, state, gen))),
-        ("snl_move (with its host read)", wall_ms(
+        ("snl_move", wall_ms(
             lambda: stree_moves.snl_move(ctx, cfg, state, gen)))]
     if cfg.est_delimit:
         rows.append(("rj_move", wall_ms(lambda: rj_moves.rj_move(
@@ -1356,6 +1401,9 @@ def species_phase(label, ctl, dev, smi, kernel_name, passes):
     rows.append(("whole step", wall_ms(lambda: eng._step(state))))
     print(f"[moves] {label}, wall ms per call at {state.gt.n_loci} loci: "
           + " | ".join(f"{n} {t:.2f}" for n, t in rows) + f" | {smi}")
+    # the proposals' trees are taken from the moves' Python calls, which
+    # a replayed graph does not make: these iterations run eagerly
+    eng.route = "eager"
     with MoveTally(record=True) as tally:
         state, _ = eng.chunk_step(state, TOPO_ITERS)
     torch.cuda.synchronize()
@@ -1707,7 +1755,9 @@ class StepWatch(ChainEnds):
             ok = route_consistent(state.gt, state.sp, pops, ctx.n_seq)
         self.flags.append(ok.all())
         if self.mig and state.mig.on is not None:
-            self.ons.append(state.mig.on)
+            # a copy: on the graph route the state is the static buffer,
+            # which the next replay overwrites
+            self.ons.append(state.mig.on.clone())
 
 
 def write_net_data(prefix, nloci, seqs, extra):
@@ -1993,7 +2043,8 @@ def mig_phases(dev, smi, iters, n_loci=N_LOCI, n_diploid=N_MIG_DIPLOID):
         launches12, _ = run_chain(
             ["--cfile", "run12.ctl"], "out12", iters,
             (PASSES_PER_ITER_12 * iters + 1, 0), ("theta", "tau", "W:"),
-            "main 12", smi, nsample=SHORT_NSAMPLE)
+            "main 12", smi, nsample=SHORT_NSAMPLE,
+            chains=(0, 0, K5_PER_ITER_12 * iters))
     consistent = bool(torch.stack(watch.flags).all())
     if len(watch.flags) != iters or not consistent:
         raise AssertionError(f"main 12: {len(watch.flags)} steps, routes "
@@ -2023,6 +2074,7 @@ def mig_phases(dev, smi, iters, n_loci=N_LOCI, n_diploid=N_MIG_DIPLOID):
                  "MSC-M JC69 step (main 12)", PASSES_PER_ITER_12, iters=1)
     print(f"[main 12] engine step (MSC-M JC69, {n_loci} loci): "
           f"{1e3 / ms:.2f} iters/s after the chain | {smi}")
+    eng.route = "eager"      # the proposals' trees, from Python calls
     with MoveTally(record=True, moves=(("mig_moves", "spr_sim_move"),),
                    accepted=False) as tally:
         state, _ = eng.chunk_step(state, MIG_ITERS)
@@ -2206,14 +2258,13 @@ def main14(smi):
                                nsample=SHORT_NSAMPLE, job="out14",
                                extra=MIG_RUN + MIG_WPRIOR + GENEFLOW))
     iters = SHORT_BURNIN + SHORT_NSAMPLE
-    moves = (("mig_moves", "geneflow_flip_move"),
-             ("mig_moves", "geneflow_rj_move"))
-    with StepWatch(mig=True) as watch, \
-            MoveTally(record=True, moves=moves, accepted=False) as tally:
+    from bpp_tpu_torch.mcmc.state import MV_GFRJ
+    with StepWatch(mig=True) as watch, MoveStats() as tally:
         launches, _ = run_chain(
             ["--cfile", "run14.ctl"], "out14", iters,
             (PASSES_PER_ITER_12 * iters + 1, 0), ("theta",),
-            "main 14", smi, nsample=SHORT_NSAMPLE)
+            "main 14", smi, nsample=SHORT_NSAMPLE,
+            chains=(0, 0, K5_PER_ITER_12 * iters))
     consistent = bool(torch.stack(watch.flags).all())
     if len(watch.flags) != iters or not consistent:
         raise AssertionError(f"main 14: {len(watch.flags)} steps, routes "
@@ -2238,16 +2289,17 @@ def main14(smi):
     if not ((W == 0) == ~on).all():
         raise AssertionError("main 14: a W: column is 0 where its route is "
                              "on, or not 0 where it is off")
-    counts = {n: tuple(c) for n, c in tally.counts.items()}
-    if any(c[0] != iters for c in counts.values()):
-        raise AssertionError(f"main 14: geneflow moves proposed {counts}, "
-                             f"expected {iters} calls each")
+    # the flip and the add/remove move share one statistics slot
+    counts = tuple(tally.stats[MV_GFRJ])
+    if counts[0] != 2 * iters:
+        raise AssertionError(f"main 14: geneflow moves (proposed, accepted) "
+                             f"{counts}, expected {2 * iters} proposals")
     print(f"[main 14] {len(w)} candidate routes; routes and events "
           f"consistent in all {iters} states; validate_state passed on the "
           f"last; W: columns 0 exactly where their route is off in all "
           f"{SHORT_NSAMPLE} samples; active routes a sample "
-          f"{sorted(set(on.sum(1).tolist()))}; geneflow moves (calls, calls "
-          f"accepted) {counts}; {int(state.mig.count().sum())} events | "
+          f"{sorted(set(on.sum(1).tolist()))}; geneflow moves (flip and "
+          f"add/remove proposed, accepted) {counts}; {int(state.mig.count().sum())} events | "
           f"{smi}")
     ms = step_ms(eng, state, iters=3)
     profile_step(eng, state, ms, smi, "pack_logl_kernel",
@@ -2493,7 +2545,7 @@ def main21(smi):
     K2 ``PASSES_PER_ITER_21`` times an iteration plus 1 plus 1 a check,
     every check passing; mu_i, nu_i and the branch rates moved; K2 held on
     the relaxed branch lengths of the last state (the four families and
-    the state's own HKY+G4); ``[moves]``: one ``_host_gammadir`` call, the
+    the state's own HKY+G4); ``[moves]``: one ``gammadir_accept`` call, the
     mu_i, nu_i and branch-rate moves; the ``[profile]`` of the step.
     Returns (K2 launches, the hold's error)."""
     import torch
@@ -2506,7 +2558,8 @@ def main21(smi):
         _, launches = run_chain(
             ["--cfile", "run21.ctl"], "out21", iters,
             (0, PASSES_PER_ITER_21 * iters + 1 + NEW_CHECKS),
-            ("theta", "tau", "nu"), "main 21", smi, nsample=NEW_NSAMPLE)
+            ("theta", "tau", "nu"), "main 21", smi, nsample=NEW_NSAMPLE,
+            chains=(0, K4_PER_ITER_21 * iters, 0))
     checks.expect("main 21", NEW_BURNIN, NEW_NSAMPLE)
     eng, state = ends.last
     ctx, cfg, gen = eng.ctx, eng.cfg, eng.gen
@@ -2523,7 +2576,7 @@ def main21(smi):
     mu = state.subst.mu
     zero = torch.zeros_like(mu)
     u = torch.rand(mu.shape, dtype=mu.dtype, device=mu.device)
-    rows = [("_host_gammadir (mu_i)", wall_ms(lambda: clock_moves._host_gammadir(
+    rows = [("gammadir_accept (mu_i, K4)", wall_ms(lambda: clock_moves.gammadir_accept(
         ctx, mu, mu * 1.01, zero, zero, u, cfg.locusrate_mubar_a,
         cfg.locusrate_mubar_b, cfg.locusrate_alpha)))]
     for name, fn in (("mu_i", clock_moves.mui_move),
@@ -2552,23 +2605,23 @@ def main22(smi):
     with open("run22.ctl", "w") as f:
         f.write(new_ctl(22, N_LOCI))
     iters = NEW_BURNIN + NEW_NSAMPLE
-    with Checks() as checks, ChainEnds() as ends, MoveTally(
-            record=True, moves=MoveTally.MOVES[:2] + (TRAIT_MOVE,),
-            accepted=False) as tally:
+    from bpp_tpu_torch.mcmc.state import MV_SNL, MV_SSPR, MV_TRAIT
+    with Checks() as checks, ChainEnds() as ends, MoveStats() as tally:
         launches, _ = run_chain(
             ["--cfile", "run22.ctl"], "out22", iters,
             (PASSES_PER_ITER_22 * iters + 1 + NEW_CHECKS, 0), "A01",
             "main 22", smi, nsample=NEW_NSAMPLE)
     checks.expect("main 22", NEW_BURNIN, NEW_NSAMPLE, traits=True)
-    counts = {n: tuple(c) for n, c in tally.counts.items()}
-    if not (counts["species_spr_move"][0] and counts["snl_move"][0]
-            and counts["trait_brate_move"][0] == iters
-            and counts["trait_brate_move"][1]):
-        raise AssertionError(f"main 22: moves (calls, calls accepted) "
+    counts = {n: tuple(tally.stats[mv]) for n, mv in (
+        ("species SPR", MV_SSPR), ("SNL", MV_SNL), ("traits", MV_TRAIT))}
+    if not (counts["species SPR"][0] and counts["SNL"][0]
+            and counts["species SPR"][0] + counts["SNL"][0] == iters
+            and counts["traits"][0] and counts["traits"][1]):
+        raise AssertionError(f"main 22: moves (proposed, accepted) "
                              f"{counts}")
     print(f"[main 22] {len(checks.its)} checks passed at iterations "
           f"{checks.its}, the cached trait logl equal to a fresh evaluation "
-          f"at each; moves (calls, calls accepted) {counts} | {smi}")
+          f"at each; moves (proposed, accepted) {counts} | {smi}")
     eng, state = ends.last
     err, _ = hold_given("K1, main 22's relaxed blen (clock = 2, A01)", eng,
                         state, smi, lambda dt: relaxed_blen(eng, state, dt),
@@ -2577,6 +2630,298 @@ def main22(smi):
                  "A01 JC69 traits clock = 2 step (main 22)",
                  PASSES_PER_ITER_22)
     return launches, err
+
+
+# [chains]: eager iterations whose K3/K4 calls (mains 5, 21) and K5 calls
+# (mains 12, 14) are each held against the plain version on the same
+# inputs; a decision whose margin is under the tie width may go either way
+# (lgamma/log on the card and on the host differ by ulps; a float32 sum
+# of another order), and such loci are counted and gated
+CHAIN_ITERS = 5
+WALK_ITERS = 2
+CHAIN_TIE = 1e-9          # |log u - ln acceptance|, K3/K4
+WALK_TIE = 1e-6           # relative, K5
+WALK_RTOL = {"torch.float32": 1e-5, "torch.float64": 1e-12}
+
+
+class ChainHolds:
+    """While active, every call of the K3 (``notheta.chain_accept``), K4
+    (``clock_moves.gammadir_accept``) and K5 (``mig_moves.simspr_walk``)
+    wrappers on the card launches the kernel and then runs the plain
+    version on the same inputs (K3/K4 on the host in float64, K5 in torch
+    ops on the card), compares, and keeps the last call's inputs for
+    timing.  These comparison calls are not main-path runs."""
+
+    def __init__(self):
+        self.rec = {k: {"calls": 0, "loci": 0, "near": [], "err": None,
+                        "differ": 0, "last": None}
+                    for k in ("K3", "K4", "K5")}
+
+    def __enter__(self):
+        from bpp_tpu_torch.mcmc import clock_moves, mig_moves, notheta
+        self._saved = [(notheta, "chain_accept", notheta.chain_accept),
+                       (clock_moves, "gammadir_accept",
+                        clock_moves.gammadir_accept),
+                       (mig_moves, "simspr_walk", mig_moves.simspr_walk)]
+        notheta.chain_accept = self._k3(notheta.chain_accept)
+        clock_moves.gammadir_accept = self._k4(clock_moves.gammadir_accept)
+        mig_moves.simspr_walk = self._k5(mig_moves.simspr_walk)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, orig in self._saved:
+            setattr(mod, name, orig)
+
+    def _masks(self, name, got, want, margin):
+        """Accept masks equal up to the first disagreement, which must sit
+        at a near tie (the chains part there); near ties counted.  The
+        error kept is the largest |kernel - plain| of the 0/1 decisions
+        over the loci compared (through the first disagreement), and the
+        calls with a disagreement are counted."""
+        import numpy as np
+        got = got.cpu().numpy()
+        want = want.cpu().numpy()
+        near = margin < CHAIN_TIE
+        differ = np.flatnonzero(got != want)
+        upto = len(got) if not len(differ) else differ[0]
+        if len(differ) and not near[differ[0]]:
+            raise AssertionError(
+                f"[chains] {name}: the kernel's accept mask differs from the "
+                f"plain version's at locus {differ[0]} (margin "
+                f"{margin[differ[0]]:.3e} >= {CHAIN_TIE})")
+        r = self.rec[name]
+        r["calls"] += 1
+        r["loci"] += int(upto)
+        r["near"].append(int(near.sum()))
+        seen = min(int(upto) + 1, len(got))
+        err = float(np.abs(got[:seen].astype(np.float64)
+                           - want[:seen].astype(np.float64)).max(initial=0.0))
+        r["err"] = err if r["err"] is None else max(r["err"], err)
+        r["differ"] += int(len(differ) > 0)
+        if near.sum() > 1:
+            raise AssertionError(f"[chains] {name}: {int(near.sum())} loci "
+                                 f"of one call within {CHAIN_TIE} of a tie")
+
+    def _k3(self, orig):
+        import numpy as np
+
+        def held(a, b, cols, sums, H, margin=None):
+            got = orig(a, b, cols, sums, H)
+            m = np.full(cols.shape[0], np.inf)
+            want = orig(a, b, cols.cpu(), sums.cpu(), H, margin=m)
+            self._masks("K3", got, want, m)
+            self.rec["K3"]["last"] = (a, b, cols.clone(), sums.clone(), H)
+            return got
+        return held
+
+    def _k4(self, orig):
+        import types
+
+        import numpy as np
+        import torch
+
+        def held(ctx, old, new, dlog, ddens, us, a_bar, b_bar, a_i,
+                 margin=None):
+            got = orig(ctx, old, new, dlog, ddens, us, a_bar, b_bar, a_i)
+            m = np.full(old.shape[0], np.inf)
+            host = types.SimpleNamespace(locus_mask=ctx.locus_mask.cpu(),
+                                         shard=None)
+            want = orig(host, *(x.cpu() for x in (old, new, dlog, ddens, us)),
+                        a_bar, b_bar, a_i, margin=m)
+            self._masks("K4", got, want, m)
+            terms = torch.stack([x.double() for x in (
+                old, new, dlog, ddens, us, ctx.locus_mask)], 1)
+            self.rec["K4"]["last"] = (terms, a_bar, b_bar, a_i)
+            return got
+        return held
+
+    def _k5(self, orig):
+        import torch
+
+        from bpp_tpu_torch.mcmc import mig_moves
+
+        def held(*args):
+            got = orig(*args)
+            L, dt = args[0].shape[0], args[0].dtype
+            margin = torch.empty(L, dtype=dt, device=args[0].device)
+            steps = torch.zeros(L, dtype=torch.int64, device=args[0].device)
+            want = mig_moves.simspr_walk_ref(*args, margin=margin,
+                                             steps=steps)
+            valid = args[17]
+            clear = (margin >= WALK_TIE) & valid
+            tol = WALK_RTOL[str(dt)]
+            t, p, done, fail, nt, ns, nd, nn = got
+            tw, pw, dw, fw, ntw, nsw, ndw, nnw = want
+            same = ((done == dw) & (fail == fw) & (p == pw) & (nn == nnw)
+                    & (ns == nsw).all(1) & (nd == ndw).all(1)
+                    & ((t - tw).abs() <= tol * tw.abs())
+                    & ((nt - ntw).abs() <= tol * ntw.abs()).all(1))
+            bad = clear & ~same
+            if bool(bad.any()):
+                i = int(torch.nonzero(bad)[0])
+                raise AssertionError(
+                    f"[chains] K5: locus {i} (relative margin "
+                    f"{float(margin[i]):.3e}) walked otherwise: kernel t "
+                    f"{float(t[i])} p {int(p[i])} done {bool(done[i])} fail "
+                    f"{bool(fail[i])} nn {int(nn[i])}, plain t "
+                    f"{float(tw[i])} p {int(pw[i])} done {bool(dw[i])} fail "
+                    f"{bool(fw[i])} nn {int(nnw[i])}")
+            r = self.rec["K5"]
+            r["calls"] += 1
+            r["loci"] += int(valid.sum())
+            r["near"].append(int((~clear & valid).sum()))
+            err = float(torch.where(clear, (t - tw).abs(),
+                                    torch.zeros_like(t)).max())
+            r["err"] = err if r["err"] is None else max(r["err"], err)
+            r["last"] = (args, steps)
+            return got
+        return held
+
+
+def chain_bounds(name, last):
+    """(bound ms, what bounds it) of one launch of K3/K4/K5 on ``last``:
+    each input read once and each output written once over the HBM rate,
+    against the operations the inputs need over the float64 (K3, K4) or
+    the state's type's (K5) peak.  K3 counts 2 differences a population
+    and, for each changed population of a proposing locus, 10 operations
+    (lgamma and log as one each); K4 7 a locus and 8 a proposing one; K5,
+    for each step each locus took, 8 a sub-edge, 6 a route and 20."""
+    import torch
+    if name == "K3":
+        a, b, cols, sums, H = last
+        L = cols.shape[0]
+        prop = cols[:, 4 * H + 3] > 0.5
+        changed = ((cols[:, H:2 * H] != cols[:, :H])
+                   | (cols[:, 3 * H:4 * H] != cols[:, 2 * H:3 * H]))
+        ops = float(prop.sum()) * (2 * H + 3) + 10.0 * float(
+            (changed & prop[:, None]).sum())
+        nbytes = 8.0 * (cols.numel() + sums.numel()) + L
+        flops = F64_FLOPS
+    elif name == "K4":
+        terms = last[0]
+        L = terms.shape[0]
+        ops = 7.0 * L + 8.0 * float((terms[:, 5] > 0.5).sum())
+        nbytes = 8.0 * terms.numel() + L
+        flops = F64_FLOPS
+    else:
+        args, steps = last
+        t_lo, route_M, unif = args[0], args[13], args[18]
+        L, E = t_lo.shape
+        K = route_M.shape[1]
+        ME = args[19]
+        H = args[5].shape[0]
+        tb = t_lo.element_size()
+        n_steps = float(steps.sum())
+        nbytes = (L * E * (2 * tb + 8 + 1) + L * K * tb + H * H
+                  + H * (3 * tb + 8) + K * (2 * tb + 16)
+                  + L * (2 * tb + 8 + 1) + 3 * tb * n_steps
+                  + L * (tb + 8 + 2 + 8) + L * ME * (tb + 16))
+        ops = n_steps * (8.0 * E + 6.0 * K + 20.0)
+        flops = F64_FLOPS if t_lo.dtype == torch.float64 else F32_FLOPS
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / flops * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+def chains_phase(smi):
+    """``[chains]``: K3 on main 5's and K4 on main 21's accept chains, K5
+    on main 12's and main 14's sim-SPR walks: eager iterations
+    (``CHAIN_ITERS``, ``WALK_ITERS``) in which every call is held against
+    the plain version (``ChainHolds``); then each kernel's device ms a
+    launch (profiler) on the last call's inputs, the plain version's ms
+    on them, and the bound.  Returns {kernel: (device ms, plain ms, bound
+    ms, bound by, max_abs_err)}."""
+    import torch
+
+    from bpp_tpu_torch.core import chains
+    from bpp_tpu_torch.mcmc import mig_moves, notheta
+    from bpp_tpu_torch.mcmc.driver import Engine
+    holds = ChainHolds()
+    with holds:
+        for ctl, iters in (("run5.ctl", CHAIN_ITERS),
+                           ("run21.ctl", CHAIN_ITERS),
+                           ("run12.ctl", WALK_ITERS),
+                           ("run14.ctl", WALK_ITERS)):
+            eng = Engine(load_run(ctl), seed=1, device="cuda")
+            eng.route = "eager"
+            eng.chunk_step(eng.init_state(), iters)
+            torch.cuda.synchronize()
+            del eng
+    torch.cuda.empty_cache()
+    per_iter = {"K3": (K3_PER_ITER_5, "main 5"),
+                "K4": (K4_PER_ITER_21, "main 21"),
+                "K5": (K5_PER_ITER_12, "mains 12, 14")}
+    rows = {}
+    for name, kname in (("K3", "notheta_chain_kernel"),
+                        ("K4", "gammadir_chain_kernel"),
+                        ("K5", "simwalk_kernel")):
+        r = holds.rec[name]
+        if not r["calls"]:
+            raise AssertionError(f"[chains] {name}: no call held")
+        last = r["last"]
+        if name == "K3":
+            a, b, cols, sums, H = last
+
+            def launch():
+                chains.launch_notheta(cols, sums, H, a, b)
+
+            def plain():
+                notheta.chain_accept(a, b, cols.cpu(), sums.cpu(), H)
+            shape = f"L={cols.shape[0]} H={H}"
+        elif name == "K4":
+            terms, a_bar, b_bar, a_i = last
+
+            def launch():
+                chains.launch_gammadir(terms, a_bar, b_bar, a_i)
+
+            def plain():
+                from bpp_tpu_torch.mcmc.clock_moves import _gammadir_chain
+                host = terms.cpu().T.numpy()
+                mask = host[5] > 0.5
+                nl = float(mask.sum())
+                _gammadir_chain(host[:5], mask, a_bar, a_i * nl, b_bar / nl,
+                                a_i)
+            shape = f"L={terms.shape[0]}"
+        else:
+            args, _ = last
+
+            def launch():
+                chains.launch_simwalk(*args[:19], args[19],
+                                      mig_moves.mg._FINITE_BIG,
+                                      mig_moves.rng.tiny_floor(args[0].dtype))
+
+            def plain():
+                mig_moves.simspr_walk_ref(*args)
+            shape = (f"L={args[0].shape[0]} E={args[0].shape[1]} "
+                     f"S={args[18].shape[1]} ME={args[19]}")
+        saved = chains.launch_counts()
+        ms = kernel_device_ms(launch, kname, reps=20)
+        chains.set_launch_counts(saved)
+        plain_ms = wall_ms(plain)
+        bms, by = chain_bounds(name, last)
+        n_iter, where = per_iter[name]
+        near = r["near"]
+        gate = ("at most 1 a call" if name != "K5" else
+                f"at most {r['loci'] // 1000} in {r['loci']} loci")
+        if name == "K5" and sum(near) > r["loci"] // 1000:
+            raise AssertionError(f"[chains] K5: {sum(near)} of {r['loci']} "
+                                 f"loci within {WALK_TIE} of a tie")
+        held = (f"{r['loci']} loci compared, calls whose decisions "
+                f"differ {r['differ']} (each at a near tie), max |kernel - "
+                f"plain| of the 0/1 decisions {r['err']:.0f}"
+                if name != "K5" else f"{r['loci']} loci compared, decisions "
+                "equal where clear of a tie")
+        print(f"[chains] {name} {kname} ({shape}): {r['calls']} calls held, "
+              f"{held}; loci near a tie "
+              f"(< {CHAIN_TIE if name != 'K5' else WALK_TIE}) {sum(near)} "
+              f"(max {max(near)} a call; gate {gate})"
+              + (f", max |dt| {r['err']:.3e}" if name == "K5" else "")
+              + f" | device {ms:.4f} ms a launch (profiler) | {n_iter} "
+              f"launches an iteration ({where}) | plain version {plain_ms:.2f}"
+              f" ms | bound {bms:.3e} ms ({by}) | {smi}")
+        rows[name] = (ms, plain_ms, bms, by, r["err"])
+    return rows
 
 
 # [sync]: each main path's control file cut to this many loci (the ops a
@@ -2596,12 +2941,20 @@ SYNC_MAINS = (
     ("main 18", "run18.ctl", False), ("main 19", "run19.ctl", False),
     ("main 20", "run20.ctl", False), ("main 21", "run21.ctl", False),
     ("main 22", "run22.ctl", False))
-# [graph]: wall time a route, the median of GRAPH_WINDOWS windows of
-# GRAPH_WINDOW_ITERS iterations; states compared after GRAPH_ITERS
-# iterations from the initial state; the CLI runs compared at burnin 8
-# (the first with finetune marks), nsample 4
+# [graph]: states compared after GRAPH_ITERS iterations from the initial
+# state; the eager route's wall the median of GRAPH_WINDOWS timed windows
+# of those iterations, the replayed route's the median of GRAPH_WINDOWS
+# more windows of GRAPH_WINDOW_ITERS replays (GRAPH_HEAVY_WINDOW where an
+# eager iteration takes about a second); a profiler trace of
+# GRAPH_TRACE_ITERS iterations (GRAPH_HEAVY_TRACE there); the CLI runs
+# compared at burnin 8 (the first with finetune marks), nsample 4;
+# [eigen]'s windows take GRAPH_WINDOW_ITERS iterations
 GRAPH_WINDOWS = 3
 GRAPH_WINDOW_ITERS = 5
+GRAPH_HEAVY_WINDOW = 2
+GRAPH_TRACE_ITERS = 3
+GRAPH_HEAVY_TRACE = 2
+GRAPH_RETRACE = 20000
 GRAPH_ITERS = 6
 GRAPH_BURNIN, GRAPH_NSAMPLE = 8, 4
 
@@ -2697,25 +3050,30 @@ def sync_pass(label, ctl, smi, x64=False, nloci=SYNC_LOCI):
 
 
 def graph_phase(label, ctl, smi, x64=False, cli_compare=True,
+                trace_iters=GRAPH_TRACE_ITERS,
                 window_iters=GRAPH_WINDOW_ITERS):
     """``[graph]``: ``label``'s configuration (``ctl``; ``x64``: in
     float64) run eagerly and through its captured step (one graph of the
     K chains under ``chains = K``) at the same seed, in this process.
-    From the same initial states, ``GRAPH_ITERS`` iterations each way:
-    the states, move statistics, traces and generator states must be
-    bit-equal.  Then each route's wall ms an iteration (the median of
-    ``GRAPH_WINDOWS`` windows of ``window_iters``), its device kernels,
-    busy ms and idle share an iteration (a profiler trace of 3), the
-    capture's seconds and peak device memory (from a reset just before
-    it), and K1 / K2 launched inside the graph.  ``cli_compare``: the
+    From the same initial states, ``GRAPH_ITERS`` iterations each way, in
+    ``GRAPH_WINDOWS`` timed windows: the states, move statistics, traces
+    and generator states after them must be bit-equal.  The eager route's
+    wall ms an iteration is the median of those windows (an eager
+    iteration dwarfs a chunk's fixed cost); the replayed route's the
+    median of ``GRAPH_WINDOWS`` more windows of ``window_iters`` replays
+    (a replayed chunk's fixed cost would weigh on a window of two).
+    Then its device kernels,
+    busy ms and idle share an iteration (a profiler trace of
+    ``trace_iters``), the capture's seconds and peak device memory (from
+    a reset just before it), and K1-K5 launched inside the graph.  ``cli_compare``: the
     control file run through ``cli.main`` at
     burnin 8, nsample 4 both ways: every mcmc file byte-equal.  Returns
     (eager, graph) wall ms an iteration."""
     import torch
 
     from bpp_tpu_torch import cli
-    from bpp_tpu_torch.mcmc.driver import Engine, clone_state
     from bpp_tpu_torch.mcmc import graph as graph_mod
+    from bpp_tpu_torch.mcmc.driver import Engine, _nu_column, clone_state
     from bpp_tpu_torch.mcmc.graph import StepGraph, flatten
     run = load_run(ctl, "float64" if x64 else None)
     K = max(1, run.cfg.n_chains)
@@ -2733,30 +3091,48 @@ def graph_phase(label, ctl, smi, x64=False, cli_compare=True,
         states = eng.init_states(K) if K > 1 else [eng.init_state()]
         return eng, gens, states
 
-    def timed(advance, passes, attempts=10):
-        """(wall ms, device kernels, busy ms) an iteration; a profiler
-        trace that misses some of the ``passes`` pruning launches an
-        iteration has missed other kernels too and is taken again (as in
-        ``profile_step``; a step with none takes the first)."""
-        times = []
+    def windows(advance):
+        """``GRAPH_ITERS`` iterations in ``GRAPH_WINDOWS`` timed windows:
+        (the median window's wall ms an iteration, the move statistics,
+        each chain's traces)."""
+        n = GRAPH_ITERS // GRAPH_WINDOWS
+        times, accs, parts = [], [], []
         for _ in range(GRAPH_WINDOWS):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            advance(window_iters)
+            acc, traces = advance(n)
             torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3 / window_iters)
+            times.append((time.perf_counter() - t0) * 1e3 / n)
+            accs.append(acc)
+            parts.append(traces)
+        traces = [{k: torch.cat([p[c][k] for p in parts]) for k in parts[0][c]}
+                  for c in range(K)]
+        return statistics.median(times), sum(accs), traces
+
+    def traced(advance, passes, attempts=10):
+        """(device kernels, busy ms) an iteration; a profiler trace that
+        misses some of the ``passes`` pruning launches an iteration has
+        missed other kernels too and is taken again (as in
+        ``profile_step``; a step with none takes the first).  A trace of
+        more than ``GRAPH_RETRACE`` kernels an iteration can lose a few
+        dozen others while it holds every pruning launch (either route):
+        such a step is traced twice and the fuller trace kept."""
+        n = trace_iters
+        whole = []
         for _ in range(attempts):
-            kern = device_kernels(lambda: advance(3))
+            kern = device_kernels(lambda: advance(n))
             held = sum(1 for name, _ in kern if "pack_logl_kernel" in name
                        or "fels_site_logl_kernel" in name)
-            if held == 3 * passes:
-                break
-        else:
+            if held == n * passes:
+                whole.append(kern)
+                if len(whole) == 2 or len(kern) <= n * GRAPH_RETRACE:
+                    break
+        if not whole:
             raise AssertionError(f"[graph] {label}: no profiler trace of "
-                                 f"{attempts} held all {3 * passes} pruning "
+                                 f"{attempts} held all {n * passes} pruning "
                                  f"launches (the last held {held})")
-        busy = sum(us for _, us in kern) / 1e3 / 3
-        return statistics.median(times), len(kern) / 3, busy
+        kern = max(whole, key=len)
+        return len(kern) / n, sum(us for _, us in kern) / 1e3 / n
 
     for route in ("eager", "graph"):
         eng, gens, states = start(route)
@@ -2772,7 +3148,8 @@ def graph_phase(label, ctl, smi, x64=False, cli_compare=True,
             r["per_replay"] = graph.per_replay
 
             def advance(n):
-                return graph.run(n)
+                acc, traces = graph.run(n)
+                return acc, [_nu_column(t) for t in traces]
         else:
             def advance(n):
                 own, accs, traces = eng.gen, [], []
@@ -2785,19 +3162,28 @@ def graph_phase(label, ctl, smi, x64=False, cli_compare=True,
                 finally:
                     eng.gen = own
                 return torch.stack(accs), traces
+            r["capture_s"], r["per_replay"] = 0.0, None
         counts = graph_mod.launch_counts()
-        acc, traces = advance(GRAPH_ITERS)
-        torch.cuda.synchronize()
-        r["passes"] = sum(b - a for a, b in zip(
-            counts[::2], graph_mod.launch_counts()[::2])) // GRAPH_ITERS
+        r["ms"], acc, traces = windows(advance)
+        # K1 and K2 launches (each count includes its float64 build's)
+        after = graph_mod.launch_counts()
+        r["passes"] = (after[0] - counts[0] + after[2] - counts[2]) \
+            // GRAPH_ITERS
         final = graph.states() if route == "graph" else states
         r["leaves"] = [flatten(clone_state(st))[1] for st in final]
         r["acc"], r["traces"] = acc.clone(), traces
         r["gens"] = [g.get_state() for g in gens]
-        if route == "eager":
-            torch.cuda.reset_peak_memory_stats()
-            r["capture_s"], r["per_replay"] = 0.0, None
-        r["ms"], r["kernels"], r["busy"] = timed(advance, r["passes"])
+        if route == "graph":
+            times = []
+            for _ in range(GRAPH_WINDOWS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                advance(window_iters)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3
+                             / window_iters)
+            r["ms"] = statistics.median(times)
+        r["kernels"], r["busy"] = traced(advance, r["passes"])
         if route == "eager":
             r["peak"] = (torch.cuda.max_memory_allocated() - held) / 2**20
         del eng, states, gens
@@ -2815,7 +3201,7 @@ def graph_phase(label, ctl, smi, x64=False, cli_compare=True,
         raise AssertionError(f"[graph] {label}: after {GRAPH_ITERS} "
                              "iterations the replayed chain's state differs "
                              "from the eager chain's")
-    k1, k1d, k2, k2d = g["per_replay"]
+    k1, k1d, k2, k2d, k3, k4, k5 = g["per_replay"]
     if bool(k1 + k2) != (g["pass"] != "plain"):
         raise AssertionError(f"[graph] {label}: K1 {k1}, K2 {k2} launched "
                              f"inside the graph on the {g['pass']} route")
@@ -2855,47 +3241,62 @@ def graph_phase(label, ctl, smi, x64=False, cli_compare=True,
           f"{run.batch.n_loci} loci{', float64' if x64 else ''}): states, "
           f"move statistics, traces and generators bit-equal after "
           f"{GRAPH_ITERS} iterations; {files} | wall ms/iter eager "
-          f"{e['ms']:.2f} graph {g['ms']:.2f} (median of {GRAPH_WINDOWS} "
-          f"windows of {window_iters}; iters/s {1e3 / e['ms']:.2f} / "
+          f"{e['ms']:.2f} graph {g['ms']:.2f} (the median of "
+          f"{GRAPH_WINDOWS} windows: eager of {GRAPH_ITERS // GRAPH_WINDOWS}"
+          f", the compared iterations, replayed of {window_iters} more; "
+          f"iters/s {1e3 / e['ms']:.2f} / "
           f"{1e3 / g['ms']:.2f}) | device kernels/iter {e['kernels']:.0f} / "
           f"{g['kernels']:.0f} | busy ms/iter {e['busy']:.3f} / "
           f"{g['busy']:.3f} | idle share {1 - e['busy'] / e['ms']:.3f} / "
           f"{1 - g['busy'] / g['ms']:.3f} | inside the graph K1 {k1} "
-          f"(float64 {k1d}) K2 {k2} (float64 {k2d}) a replay | capture "
+          f"(float64 {k1d}) K2 {k2} (float64 {k2d}) K3 {k3} K4 {k4} K5 {k5} "
+          f"a replay | capture "
           f"{g['capture_s']:.2f} s, peak {g['peak']:.1f} MiB (eager step "
           f"peak {e['peak']:.1f} MiB) | {smi}")
     return e["ms"], g["ms"]
 
 
 # [graph]: (label, control file, x64, compared through the CLI too,
-# iterations a timing window); the mains the comparison must cover first,
-# then every other main path on the graph route, timed
+# iterations a profiler trace and a replayed timing window: fewer where an
+# eager iteration takes about a second); the mains the comparison must
+# cover first, then every other main path on the graph route, timed
+_LIGHT = (GRAPH_TRACE_ITERS, GRAPH_WINDOW_ITERS)
+_HEAVY = (GRAPH_HEAVY_TRACE, GRAPH_HEAVY_WINDOW)
 GRAPH_MAINS = (
-    ("main 1", "run.ctl", False, True, GRAPH_WINDOW_ITERS),
-    ("main 2", "run2.ctl", False, True, GRAPH_WINDOW_ITERS),
-    ("main 13", "run13.ctl", False, True, GRAPH_WINDOW_ITERS),
-    ("main 16", "run.ctl", True, True, GRAPH_WINDOW_ITERS),
-    ("main 17", "run17.ctl", False, True, GRAPH_WINDOW_ITERS),
-    ("main 18", "run18.ctl", False, True, 2),
-    ("main 3", "run3.ctl", False, False, GRAPH_WINDOW_ITERS),
-    ("main 4", "run4.ctl", False, False, GRAPH_WINDOW_ITERS),
-    ("main 9", "run9.ctl", False, False, GRAPH_WINDOW_ITERS),
-    ("main 10", "run10.ctl", False, False, 2),
-    ("main 11", "run11.ctl", False, False, GRAPH_WINDOW_ITERS),
-    ("main 15", "run15.ctl", False, False, GRAPH_WINDOW_ITERS),
-    ("main 16 diploid", "run2.ctl", True, False, GRAPH_WINDOW_ITERS),
-    ("main 8", "run8.ctl", False, False, GRAPH_WINDOW_ITERS),
-    ("main 19", "run19.ctl", False, False, GRAPH_WINDOW_ITERS),
-    ("main 20", "run20.ctl", False, False, GRAPH_WINDOW_ITERS))
+    ("main 1", "run.ctl", False, True, *_LIGHT),
+    ("main 2", "run2.ctl", False, True, *_LIGHT),
+    ("main 13", "run13.ctl", False, True, *_LIGHT),
+    ("main 16", "run.ctl", True, True, *_LIGHT),
+    ("main 17", "run17.ctl", False, True, *_LIGHT),
+    ("main 18", "run18.ctl", False, True, *_HEAVY),
+    ("main 3", "run3.ctl", False, False, *_LIGHT),
+    ("main 4", "run4.ctl", False, False, *_LIGHT),
+    ("main 9", "run9.ctl", False, False, *_LIGHT),
+    ("main 10", "run10.ctl", False, False, *_HEAVY),
+    ("main 11", "run11.ctl", False, False, *_LIGHT),
+    ("main 15", "run15.ctl", False, False, *_LIGHT),
+    ("main 16 diploid", "run2.ctl", True, False, *_LIGHT),
+    ("main 8", "run8.ctl", False, False, *_LIGHT),
+    ("main 19", "run19.ctl", False, False, *_LIGHT),
+    ("main 20", "run20.ctl", False, False, *_LIGHT),
+    # the schedules whose device control flow became kernels K3-K5 and
+    # torch ops on the device
+    ("main 5", "run5.ctl", False, True, *_LIGHT),
+    ("main 6", "run6.ctl", False, True, *_LIGHT),
+    ("main 7", "run7.ctl", False, True, *_LIGHT),
+    ("main 12", "run12.ctl", False, True, *_HEAVY),
+    ("main 14", "run14.ctl", False, True, *_HEAVY),
+    ("main 21", "run21.ctl", False, True, *_LIGHT),
+    ("main 22", "run22.ctl", False, True, *_LIGHT))
 
 
 def graph_phases(smi):
     """``[graph]`` for every main of ``GRAPH_MAINS``, then a summary
     line."""
     rows = []
-    for label, ctl, x64, whole, w in GRAPH_MAINS:
+    for label, ctl, x64, whole, n, w in GRAPH_MAINS:
         e, g = graph_phase(label, ctl, smi, x64, cli_compare=whole,
-                           window_iters=w)
+                           trace_iters=n, window_iters=w)
         rows.append(f"{label} {e:.2f} -> {g:.2f}")
     print("[graph] wall ms/iter eager -> replayed: " + ", ".join(rows)
           + f" | {smi}")
@@ -2903,7 +3304,7 @@ def graph_phases(smi):
 
 def eigen_phase(smi, windows=GRAPH_WINDOWS, iters=GRAPH_WINDOW_ITERS):
     """``[eigen]``: main 20's GTR+G4 step on the eager route (the route
-    of GTR under SNL, Gamma-Dirichlet rates or integrated thetas), its
+    of GTR under ``--multihost``), its
     eigensystems from ``pmatrix.eigh_jacobi`` (``Ctx.captured``: what the
     captured step runs) and from ``torch.linalg.eigh`` (which reads its
     status back to the host each call; what an eager step runs): wall ms
@@ -3236,13 +3637,11 @@ def hold_shapes_f64(dev, smi):
     wrappers pick and under the other one where a warp fits, and on
     128-tip trees with branches of about 2e-8 (ages x 1e-5), whose
     patterns' likelihoods fall far below double's range unless the
-    kernels rescale (held at JC69 against the plain pruning on the P(t)
-    the kernels apply): K2 within ``TOL_SITE_F64`` a pattern, K1 within
-    ``TOL_LNL_F64`` a locus."""
+    kernels rescale (held at JC69): K2 within ``TOL_SITE_F64`` a pattern,
+    K1 within ``TOL_LNL_F64`` a locus."""
     import torch
 
     from bpp_tpu_torch.core import fels, pack
-    from bpp_tpu_torch.core import felsenstein as fe
     from bpp_tpu_torch.core.units import Units
     from bpp_tpu_torch.testing import fixed_subst, shaped_batch
     from bpp_tpu_torch.trees.gtree import inner_order
@@ -3256,26 +3655,10 @@ def hold_shapes_f64(dev, smi):
              s64.mu, rk, s64.freqs, s64.eigw, s64.eigT, s64.eigTi, tips)
         kw = dict(model=model, n_cats=n_cats)
         units = Units(n_pat.cpu().numpy(), tips.shape[2], dev)
-        if model_name == "JC69":
-            # the plain pruning on the kernels' P(t) = I + m (I - 1/4), m =
-            # expm1(-4t/3): site_logl_fels_ref's P(t) takes 1 - exp(-4t/3),
-            # which keeps about eps / t of an off-diagonal entry (1e-8 lnL
-            # a pattern on branches of 2e-8)
-            t_eff = pack.scaled_lengths(*a[:4], gt.age, s64.mu, rk, n_cats,
-                                        None)
-            m = torch.expm1(-4.0 / 3.0 * t_eff)[..., None, None]
-            eye = torch.eye(4, dtype=torch.float64, device=dev)
-            cw = torch.full((n_cats,), 1.0 / n_cats, dtype=torch.float64,
-                            device=dev)
-            want = fe.site_loglikelihood(gt, tips, n_seq,
-                                         eye + m * (eye - 0.25), s64.freqs,
-                                         cw, order=a[0])
-            live = torch.arange(tips.shape[2], device=dev) < n_pat[:, None]
-            want = torch.where(live, want, torch.zeros_like(want))
-            want_l = fe.reduce_root(want, weights)
-        else:
-            want = fels.site_logl_fels_ref(*a, n_pat=n_pat, **kw)
-            want_l = pack.site_logl_packed_ref(*a, weights, **kw)
+        # the plain versions' closed-form P(t) is written with expm1, as
+        # the kernels' factors are, so it keeps short branches' entries
+        want = fels.site_logl_fels_ref(*a, n_pat=n_pat, **kw)
+        want_l = pack.site_logl_packed_ref(*a, weights, **kw)
         # a one-sequence locus: the kernels root it at tip 0
         one = n_seq < 2
         tip0 = (tips[:, 0] * s64.freqs[:, None, :]).sum(-1).log()
@@ -3866,7 +4249,7 @@ def main(argv=None) -> int:
 
             # 2. build: one nvcc per source, started together
             t0 = time.perf_counter()
-            libs = _build.build_all(["pack_kernel", "fels_kernel"])
+            libs = _build.build_all(_build.KERNELS)
             libs.append(_build.build_host("compress"))
             print(f"[build] {', '.join(p.name for p in libs)} in "
                   f"{time.perf_counter() - t0:.2f} s")
@@ -3997,7 +4380,7 @@ def main(argv=None) -> int:
             launches5, _ = run_chain(
                 ["--cfile", "run5.ctl"], "out5", iters,
                 (PASSES_PER_ITER_5 * iters + 1, 0), ("tau", "mu_bar"),
-                "main 5", smi)
+                "main 5", smi, chains=(K3_PER_ITER_5 * iters, 0, 0))
             os.replace("out5.mcmc.txt", "out5.whole.txt")
             with open("out5.whole.txt", "rb") as f:
                 whole = f.read()
@@ -4007,7 +4390,7 @@ def main(argv=None) -> int:
             resumed, _ = run_chain(
                 ["--resume", "out5.chk.npz"], "out5", rest,
                 (PASSES_PER_ITER_5 * rest + 1, 0), ("tau", "mu_bar"),
-                "main 5 resumed", smi)
+                "main 5 resumed", smi, chains=(K3_PER_ITER_5 * rest, 0, 0))
             with open("out5.mcmc.txt", "rb") as f:
                 again = f.read()
             if again != whole:
@@ -4027,17 +4410,20 @@ def main(argv=None) -> int:
             launches5 += resumed
 
             # 14. main path 6: A01 (SPR and SNL) through the CLI
-            with MoveTally() as tally6:
+            from bpp_tpu_torch.mcmc.state import MV_RJ, MV_SNL, MV_SSPR
+            with MoveStats() as tally6:
                 launches6, _ = run_chain(
                     ["--cfile", "run6.ctl"], "out6", iters,
                     (PASSES_PER_ITER_6 * iters + 1, 0), "A01", "main 6", smi)
-            proposed = {n: c[0] for n, c in tally6.counts.items()}
-            if not (proposed["species_spr_move"] and proposed["snl_move"]):
-                raise AssertionError(f"main 6: species moves proposed "
-                                     f"{proposed}; SPR and SNL must both run")
-            print(f"[main 6] species moves proposed: SPR "
-                  f"{proposed['species_spr_move']}, SNL "
-                  f"{proposed['snl_move']} | {smi}")
+            # the statistics count the move the SNL-or-SPR draw kept
+            spr6, snl6 = tally6.stats[MV_SSPR], tally6.stats[MV_SNL]
+            if not (spr6[0] and snl6[0] and spr6[0] + snl6[0] == iters):
+                raise AssertionError(f"main 6: species moves (proposed, "
+                                     f"accepted) SPR {spr6}, SNL {snl6}; "
+                                     f"SPR and SNL must both run, one an "
+                                     f"iteration")
+            print(f"[main 6] species moves (proposed, accepted): SPR "
+                  f"{tuple(spr6)}, SNL {tuple(snl6)} | {smi}")
             # 16. the kernels on the trees the species moves make
             err_topo1 = species_phase("A01 JC69", "run6.ctl", dev, smi,
                                       "pack_logl_kernel", PASSES_PER_ITER_6)
@@ -4146,13 +4532,15 @@ def main(argv=None) -> int:
                 ("theta", "tau", "mu_bar", "r:"), "main 4", smi)
 
             # 15. main path 7: A11 on the diploid data through the CLI
-            with MoveTally() as tally7:
+            with MoveStats() as tally7:
                 _, launches7 = run_chain(
                     ["--cfile", "run7.ctl"], "out7", iters,
                     (0, PASSES_PER_ITER_7 * iters + 1), "A11", "main 7", smi)
-            print("[main 7] moves proposed: " + ", ".join(
-                f"{n} {c[0]}" for n, c in tally7.counts.items()) + f" | {smi}")
-            if tally7.counts["rj_move"][0] != iters:
+            print("[main 7] moves (proposed, accepted): " + ", ".join(
+                f"{n} {tuple(tally7.stats[mv])}" for n, mv in (
+                    ("species SPR", MV_SSPR), ("SNL", MV_SNL),
+                    ("rj", MV_RJ))) + f" | {smi}")
+            if tally7.stats[MV_RJ][0] != iters:
                 raise AssertionError("main 7: the rj move did not run once "
                                      "an iteration")
             # 16. K2 on the trees the species and rj moves make
@@ -4213,6 +4601,12 @@ def main(argv=None) -> int:
 
             lap("main 17-22")
 
+            # 42. K3, K4 and K5 against their plain versions on the main
+            # paths' calls
+            chain_rows = chains_phase(smi)
+
+            lap("[chains]")
+
             # 40. the eager step against the replayed one, in one process
             graph_phases(smi)
             eigen_phase(smi)
@@ -4249,7 +4643,7 @@ def main(argv=None) -> int:
     def entry(kname, source, replaces, launches, errs, row):
         if not launches:
             raise AssertionError(f"{kname}: not launched on its main paths")
-        ms, plain, bms, by = row
+        ms, plain, bms, by = row[:4]
         return {"name": kname, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": max(errs), "ms": ms,
@@ -4263,7 +4657,13 @@ def main(argv=None) -> int:
     print("[launches] the kernels line's launches: every main path's run; "
           "on the graph route a graph's captured launches times its "
           "replays, the warm-up iteration before each capture (run, then "
-          "undone) and the capture itself left out")
+          "undone) and the capture itself left out; K3-K5 as K1/K2 (main "
+          "5 and its resume: K3; main 21: K4; mains 12, 14: K5), their "
+          "errors from [chains] (K3/K4: the largest |kernel - plain| of "
+          "the 0/1 accept decisions over the loci compared, each call "
+          "through its first disagreement; K5: max |dt| of a walk clear "
+          "of a tie)")
+    chain_total = [sum(c[k] for _, c in CHAIN_LAUNCHES) for k in range(3)]
     # launches: every main path's run (on the graph route its replays; a
     # graph's warm-up iteration before capture is not counted); errors:
     # the bench models' holds,
@@ -4298,6 +4698,18 @@ def main(argv=None) -> int:
               "(float64 build)", "bpp_tpu_torch/csrc/fels_kernel.cu",
               "bpp_tpu/core/pallas_fels.py:92", k2_f64 + k2_shard, [err_x2],
               row_x2),
+        entry("K3 notheta.scan_accept lax.scan -> notheta_chain_kernel",
+              "bpp_tpu_torch/csrc/chain_kernel.cu",
+              "bpp_tpu/mcmc/notheta.py:86", chain_total[0],
+              [chain_rows["K3"][4]], chain_rows["K3"]),
+        entry("K4 clock_moves Gamma-Dirichlet lax.scan -> "
+              "gammadir_chain_kernel", "bpp_tpu_torch/csrc/chain_kernel.cu",
+              "bpp_tpu/mcmc/clock_moves.py:212", chain_total[1],
+              [chain_rows["K4"][4]], chain_rows["K4"]),
+        entry("K5 mig_moves.spr_sim_move lax.while_loop -> simwalk_kernel",
+              "bpp_tpu_torch/csrc/simwalk_kernel.cu",
+              "bpp_tpu/mcmc/mig_moves.py:765", chain_total[2],
+              [chain_rows["K5"][4]], chain_rows["K5"]),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

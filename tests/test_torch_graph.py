@@ -4,15 +4,19 @@ on the CPU, where a replay runs the captured body eagerly.
 * ``Engine._chunk`` on the graph route equals the eager route bit for
   bit at the same seed (states, move statistics, trace rows, the a1b1
   sample records and the generator's state) on A00 JC69 (K1's path) and
-  diploid HKY+G4 (K2's plain version), in float32 and float64.
+  diploid HKY+G4 (K2's plain version), in float32 and float64, and on
+  the schedules whose device control flow the port runs on the card:
+  integrated thetas (K3's plain version), A01 with SNL (both species
+  moves computed, one selected), MSC-M (K5's) and clock = 3 with
+  Gamma-Dirichlet mu_i and nu_i (K4's).
 * ``cli.main --device cpu`` writes the same mcmc.txt on both routes: a
   run whose chunks cross the finetune marks, with ``check = N``, under
   ``--x64`` and with ``chains = 2``; a checkpointed run resumed on the
   graph route rewrites the uninterrupted run's files byte for byte (one
   chain and two).
-* ``driver.step_route``: each schedule whose step reads the device from
-  the host goes eager with its host read named, and the configurations of
-  the main paths that are captured go to the graph (GTR and per-locus
+* ``driver.step_route``: every schedule without ``--multihost`` goes to
+  the graph, those whose step once read the device from the host among
+  them, and the configurations of the main paths go to the graph (GTR and per-locus
   models among them: ``pmatrix.eigh_jacobi``, which GTR's eigensystem
   takes in a captured step, matches ``torch.linalg.eigh``, and a GTR+G4
   chain through it, on either route, matches ``bpp_tpu``).
@@ -38,7 +42,7 @@ torch.set_num_threads(1)     # tiny tensors; the suite runs in parallel
 
 @pytest.fixture(scope="module")
 def data(tmp_path_factory):
-    from bpp_tpu_torch.testing import write_simulated_run
+    from bpp_tpu_torch.testing import MIG_RUN, MIG_SIM, write_simulated_run
     d = tmp_path_factory.mktemp("graph")
     write_simulated_run(d, 4, n_sites=60, burnin=8, nsample=6,
                         priors=("check = 5",))
@@ -51,6 +55,19 @@ def data(tmp_path_factory):
                         priors=("checkpoint = 3 0",))
     write_simulated_run(d, 4, n_sites=60, burnin=4, nsample=6, job="c2",
                         priors=("chains = 2", "checkpoint = 3 0"))
+    # the schedules whose device control flow the step runs on the card
+    # (K3, K4, K5 and SNL's species-level part): integrated thetas, A01
+    # with SNL, MSC-M, clock = 3 with Gamma-Dirichlet mu_i and nu_i
+    write_simulated_run(d, 4, n_sites=60, burnin=8, nsample=6, job="int",
+                        thetaprior="invgamma 3 0.03 int")
+    write_simulated_run(d, 4, n_sites=60, burnin=8, nsample=6, job="snl",
+                        priors=(cs.A01.strip(),))
+    write_simulated_run(d, 4, n_sites=60, burnin=8, nsample=6, job="mig",
+                        sim_model="model = 0\n" + MIG_SIM,
+                        priors=(MIG_RUN.strip(),))
+    write_simulated_run(d, 4, n_sites=60, burnin=8, nsample=6, job="gdir",
+                        priors=("clock = 3 10 100 5 gdir LN",
+                                "locusrate = 1 10 10 5"))
     return d
 
 
@@ -71,7 +88,10 @@ def _engine(ctl, route, dtype):
 
 
 @pytest.mark.parametrize("job,dtype", [("out", "float32"), ("out", "float64"),
-                                       ("dip", "float32"), ("dip", "float64")])
+                                       ("dip", "float32"), ("dip", "float64"),
+                                       ("int", "float32"), ("snl", "float32"),
+                                       ("mig", "float32"),
+                                       ("gdir", "float64")])
 def test_graph_chunk_equals_eager(data, job, dtype):
     from bpp_tpu_torch.mcmc.driver import clone_state
     out = {}
@@ -196,6 +216,11 @@ def test_step_route_captures_the_main_paths(main):
     ("msc-m", None, "mig_moves.py:830"),
 ])
 def test_step_route_sends_host_reads_eager(case, lines, where):
+    """The five schedules whose step once read the device from the host
+    (``where``: the host read each had) take the graph route now that the
+    accept chains (K3/K4), SNL's species-level part and the
+    sim-SPR walk (K5) run on the device; ``--multihost`` alone stays
+    eager, its all-reduces going through the host."""
     from bpp_tpu_torch.mcmc.driver import step_route
     from bpp_tpu_torch.testing import MIG_RUN
     text = cs.RUN_CTL.format(nloci=10, burnin=8, nsample=4, job="x",
@@ -204,9 +229,9 @@ def test_step_route_sends_host_reads_eager(case, lines, where):
         lines or "") else text
     cfg = _cfg(text)
     route, why = step_route(cfg)
-    assert route == "eager" and where in why, (route, why)
-    # each of the five host-read schedules alone takes the eager route
-    assert step_route(_cfg(_main_ctl(1)), shard=object())[0] == "eager"
+    assert route == "graph", (case, where, why)
+    route, why = step_route(cfg, shard=object())
+    assert route == "eager" and "--multihost" in why, (route, why)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),

@@ -40,7 +40,7 @@ def test_import_loads_no_jax_and_no_bpp_tpu():
                 "tools.msci_create", "trees.migration", "mcmc.mig_moves",
                 "trees.traits", "mcmc.trait_moves", "tools.bfdriver",
                 "parallel.mesh", "parallel.multihost", "data.cnative",
-                "mcmc.graph"):
+                "mcmc.graph", "core.chains"):
         assert f"bpp_tpu_torch.{mod}" in mods
     code = (
         "import importlib, sys\n"

@@ -22,9 +22,16 @@ The float64 builds (``--x64``): K1 within 1e-6 lnL a locus and K2 within
 stores and the model grid; both within 1e-10 on the four families x C in
 1, 2, 4, 8 x both stores, with repeat launches and block sizes
 bit-equal; and an x64 engine's step launching only the float64 build.
-The captured step (``mcmc.graph.StepGraph``): 20 replays bit-equal to 20
-eager steps on a JC69 and a diploid chain, and the launch counters
-adding up under replay.  Needs a CUDA device and nvcc; skips without
+Both kernels per locus (K1) and per pattern (K2) on cherries at float32's
+smallest normal age above their tips.  The captured step
+(``mcmc.graph.StepGraph``): 20 replays bit-equal to 20
+eager steps on a JC69, a diploid, an integrated-theta, an A01 (SNL), an
+MSC-M and a clock = 3 Gamma-Dirichlet chain, and the launch counters
+adding up under replay.  K3 (``csrc/chain_kernel.cu`` notheta_chain) and
+K4 (gammadir_chain) against their host plain versions on random chains,
+K5 (``csrc/simwalk_kernel.cu``) against its torch plain version on the
+MSC-M chain's sim-SPR walks in float32 and float64: decisions equal but
+at near ties, which are counted and gated.  Needs a CUDA device and nvcc; skips without
 them.
 
     python -m pytest tests/test_torch_kernel_gpu.py -q
@@ -1005,12 +1012,219 @@ def test_mig_chains_keep_their_caches_on_the_card(request, data):
     assert bool((ok | ~m).all())
 
 
+@pytest.mark.parametrize("model_name,n_cats", MODELS)
 @pytest.mark.parametrize("data", ["cuda_state", "cuda_diploid"])
+def test_kernels_on_a_branch_of_the_smallest_normal_length(request, data,
+                                                          model_name,
+                                                          n_cats):
+    """A cherry raised to float32's smallest normal age above its tips (an
+    age move's reflection off the tips' age 0 can leave a node there) on
+    every locus: K1 per locus and K2 per pattern against their float64
+    plain versions, whose closed-form P(t) keeps the cherry's off-diagonal
+    entries (t / 3 and the like) as the kernels' expm1 factors do."""
+    from bpp_tpu_torch.core import fels, pack
+    eng, state = request.getfixturevalue(data)
+    ctx = eng.ctx
+    gt = state.gt
+    T = gt.n_tips
+    age = gt.age.clone()
+    for l in range(gt.n_loci):
+        for node in range(T, T + int(ctx.n_seq[l]) - 1):
+            if int(gt.left[l, node]) < T and int(gt.right[l, node]) < T:
+                age[l, node] = torch.finfo(torch.float32).tiny
+                break
+    state = state._replace(gt=gt._replace(age=age))
+    L = gt.n_loci
+    model, s32 = fixed_subst(model_name, n_cats, L, torch.float32, "cuda")
+    _, s64 = fixed_subst(model_name, n_cats, L, torch.float64, "cuda")
+    kw = dict(model=model, n_cats=n_cats)
+    a32 = _args(state, ctx, s32, torch.float32)
+    a64 = _args(state, ctx, s64, torch.float64)
+    ok = ctx.locus_mask
+    if ctx.res_map is None:
+        got = pack.site_logl_packed(*a32, units=ctx.units, **kw).double()
+        want = pack.site_logl_packed_ref(*a64, **kw)
+        assert float((got - want)[ok].abs().max()) < 0.02
+    else:
+        gs = fels.site_logl_fels(*a32[:-1], n_pat=ctx.n_pat, units=ctx.units,
+                                 **kw).double()
+        ws = fels.site_logl_fels_ref(*a64[:-1], n_pat=ctx.n_pat, **kw)
+        assert float((gs - ws)[ok].abs().max()) < 2e-3
+
+
+def _card_engine(tmp, **kw):
+    """A CUDA engine after 10 iterations of a chain on 12 simulated loci
+    (``write_simulated_run``'s keywords): (engine, state)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from bpp_tpu_torch.loader import load_run_from_ctl
+    from bpp_tpu_torch.mcmc.driver import Engine
+    from bpp_tpu_torch.testing import write_simulated_run
+    run = load_run_from_ctl(write_simulated_run(tmp, n_loci=12, n_sites=60,
+                                                **kw))
+    eng = Engine(run, seed=3, device="cuda")
+    state = eng.init_state()
+    state, _ = eng.chunk_step(state, 10)
+    return eng, state
+
+
+@pytest.fixture(scope="module")
+def cuda_int(tmp_path_factory):
+    return _card_engine(tmp_path_factory.mktemp("gpuint"),
+                        thetaprior="invgamma 3 0.03 int")
+
+
+@pytest.fixture(scope="module")
+def cuda_snl(tmp_path_factory):
+    return _card_engine(tmp_path_factory.mktemp("gpusnl"),
+                        priors=("speciestree = 1 0.5 0.33 0.1 0.2",))
+
+
+@pytest.fixture(scope="module")
+def cuda_gdir(tmp_path_factory):
+    return _card_engine(tmp_path_factory.mktemp("gpugdir"), priors=(
+        "clock = 3 10 100 5 gdir LN", "locusrate = 1 10 10 5"))
+
+
+# a decision whose margin is under these may go either way between the card
+# and the host (lgamma/log differ by ulps; a float32 sum of another order)
+CHAIN_TIE = 1e-9
+WALK_TIE = 1e-6
+
+
+def _masks_agree(got, want, margin):
+    """Accept masks equal up to a first disagreement at a near tie (the
+    chains part there), with at most one near tie."""
+    got, want = got.cpu().numpy(), want.numpy()
+    near = margin < CHAIN_TIE
+    differ = np.flatnonzero(got != want)
+    assert not len(differ) or near[differ[0]], (differ[:5], margin[differ])
+    assert near.sum() <= 1
+
+
+@pytest.mark.parametrize("H", [7, 40])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_notheta_chain_kernel_matches_plain(H, seed):
+    """K3 on random integrated-theta chains of 500 loci (7 populations, and
+    40, past one warp's lanes) against ``notheta.accept_chain``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from bpp_tpu_torch.mcmc import notheta
+    rng = np.random.default_rng(seed)
+    L = 500
+    co = rng.integers(0, 5, (L, H)).astype(np.float64)
+    to = rng.gamma(2.0, 0.02, (L, H)) * (co > 0)
+    mask = rng.random(L) < 0.8
+    cn = co.copy()
+    src = rng.integers(0, H, L)
+    dst = (src + 1 + rng.integers(0, H - 1, L)) % H
+    move = mask & (cn[np.arange(L), src] > 0)
+    cn[np.arange(L)[move], src[move]] -= 1
+    cn[np.arange(L)[move], dst[move]] += 1
+    tn = np.where(mask[:, None], to * rng.uniform(0.7, 1.4, (L, H)), to)
+    cols = np.concatenate([co, cn, to, tn, np.stack([
+        rng.normal(0.0, 1.0, L), rng.normal(0.0, 0.1, L),
+        np.log(rng.random(L)), mask.astype(np.float64)], 1)], 1)
+    sums = np.concatenate([co.sum(0), to.sum(0)])
+    c64, s64 = torch.as_tensor(cols), torch.as_tensor(sums)
+    got = notheta.chain_accept(3.0, 0.03, c64.cuda(), s64.cuda(), H)
+    torch.cuda.synchronize()
+    margin = np.full(L, np.inf)
+    want = notheta.chain_accept(3.0, 0.03, c64, s64, H, margin)
+    assert 0 < int(want.sum()) < int(mask.sum())
+    _masks_agree(got, want, margin)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_gammadir_chain_kernel_matches_plain(seed):
+    """K4 on random Gamma-Dirichlet mu_i chains of 1000 loci (a few padded
+    loci) against ``clock_moves._gammadir_chain``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import types
+
+    from bpp_tpu_torch.mcmc import clock_moves
+    rng = np.random.default_rng(seed)
+    L = 1000
+    old = rng.gamma(10.0, 0.1, L)
+    new = old * np.exp(rng.normal(0.0, 0.3, L))
+    dlog = np.log(new / old)
+    ddens = rng.normal(0.0, 1.0, L)
+    us = rng.random(L)
+    lmask = np.ones(L, bool)
+    lmask[-3:] = False
+    args = [torch.as_tensor(x) for x in (old, new, dlog, ddens, us)]
+    ctx = types.SimpleNamespace(locus_mask=torch.as_tensor(lmask),
+                                shard=None)
+    cctx = types.SimpleNamespace(locus_mask=ctx.locus_mask.cuda(),
+                                 shard=None)
+    got = clock_moves.gammadir_accept(cctx, *(x.cuda() for x in args), 10.0,
+                                      10.0, 5.0)
+    torch.cuda.synchronize()
+    margin = np.full(L, np.inf)
+    want = clock_moves.gammadir_accept(ctx, *args, 10.0, 10.0, 5.0, margin)
+    assert 0 < int(want.sum()) < L - 3
+    _masks_agree(got, want, margin)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_simwalk_kernel_matches_plain(cuda_mig, dtype, monkeypatch):
+    """K5 on the walks of sim-SPR moves of the MSC-M chain on the card
+    against ``mig_moves.simspr_walk_ref`` on the same inputs and draws:
+    ends, populations, event counts, sources and destinations equal and
+    times within 1e-5 (float32) / 1e-12 (float64) relative on every locus
+    whose decisions clear a relative margin of 1e-6."""
+    from bpp_tpu_torch.core import chains
+    from bpp_tpu_torch.mcmc import mig_moves
+    eng, state = cuda_mig
+    calls = []
+    orig = mig_moves.simspr_walk
+
+    def record(*args):
+        calls.append(args)
+        return orig(*args)
+
+    monkeypatch.setattr(mig_moves, "simspr_walk", record)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    for _ in range(3):
+        state, _ = mig_moves.spr_sim_move(eng.ctx, eng.cfg, eng.mig_routes,
+                                          state, gen)
+    monkeypatch.setattr(mig_moves, "simspr_walk", orig)
+    assert len(calls) == 3
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    before = chains.LAUNCHES_SIMWALK
+    for args in calls:
+        args = tuple(x.to(dtype) if torch.is_tensor(x)
+                     and x.is_floating_point() else x for x in args)
+        got = mig_moves.simspr_walk(*args)
+        L = args[0].shape[0]
+        margin = torch.empty(L, dtype=dtype, device="cuda")
+        want = mig_moves.simspr_walk_ref(*args, margin=margin)
+        torch.cuda.synchronize()
+        clear = (margin >= WALK_TIE) & args[17]
+        t, p, done, fail, nt, ns, nd, nn = got
+        tw, pw, dw, fw, ntw, nsw, ndw, nnw = want
+        c = clear
+        assert bool(c.any())
+        for a, b in ((done, dw), (fail, fw), (p, pw), (nn, nnw), (ns, nsw),
+                     (nd, ndw)):
+            assert torch.equal(a[c], b[c])
+        assert bool(((t - tw).abs() <= tol * tw.abs())[c].all())
+        assert bool(((nt - ntw).abs() <= tol * ntw.abs())[c].all())
+        assert int((~clear & args[17]).sum()) <= max(1, L // 1000)
+    assert chains.LAUNCHES_SIMWALK == before + len(calls)
+
+
+@pytest.mark.parametrize("data", ["cuda_state", "cuda_diploid", "cuda_int",
+                                  "cuda_snl", "cuda_mig", "cuda_gdir"])
 def test_replayed_graph_equals_the_eager_chain(request, data):
     """20 iterations as replays of the captured step (``StepGraph``)
     against 20 eager steps from the same state and generator state: the
     states, move statistics, trace rows and generator states bit-equal
-    (JC69 through K1, diploid HKY through K2)."""
+    (JC69 through K1, diploid HKY through K2; integrated thetas through
+    K3, A01 with SNL, MSC-M through K5, clock = 3 with Gamma-Dirichlet
+    rates through K4)."""
     from bpp_tpu_torch.mcmc.driver import clone_state
     from bpp_tpu_torch.mcmc.graph import flatten
     eng, state = request.getfixturevalue(data)
@@ -1036,14 +1250,15 @@ def test_replayed_graph_equals_the_eager_chain(request, data):
     assert all(torch.equal(te[k], tg[k]) for k in te)
 
 
-@pytest.mark.parametrize("data", ["cuda_state", "cuda_diploid"])
+@pytest.mark.parametrize("data", ["cuda_state", "cuda_diploid", "cuda_int",
+                                  "cuda_mig", "cuda_gdir"])
 def test_launch_counters_add_up_under_replay(request, data):
     """A replay makes no Python call into the wrappers: the graph counts
     its captured launches once (neither the warm-up nor the capture is
     counted) and each replay adds them, 8 K1 passes an iteration on the
     haploid chain, 8 + freqs-free HKY's ... K2 passes on the diploid one,
     as many as the eager step launches."""
-    from bpp_tpu_torch.core import fels, pack
+    from bpp_tpu_torch.core import chains, fels, pack
     from bpp_tpu_torch.mcmc.driver import clone_state
     from bpp_tpu_torch.mcmc.graph import StepGraph
     eng, state = request.getfixturevalue(data)
@@ -1052,6 +1267,7 @@ def test_launch_counters_add_up_under_replay(request, data):
     counts = {}
     for route in ("eager", "graph"):
         pack.LAUNCHES = fels.LAUNCHES = 0
+        chains.set_launch_counts((0, 0, 0))
         if route == "eager":
             own = eng.gen
             eng.gen, eng.route = gen, "eager"
@@ -1063,8 +1279,15 @@ def test_launch_counters_add_up_under_replay(request, data):
             graph = StepGraph(eng, [clone_state(state)], [gen])
             graph.capture()
             assert (pack.LAUNCHES, fels.LAUNCHES) == (0, 0)
+            assert chains.launch_counts() == (0, 0, 0)
             graph.run(5)
             assert sum(graph.per_replay) > 0
-        counts[route] = (pack.LAUNCHES, fels.LAUNCHES)
+        counts[route] = (pack.LAUNCHES, fels.LAUNCHES) + \
+            chains.launch_counts()
     assert counts["graph"] == counts["eager"]
-    assert sum(counts["graph"]) % 5 == 0 and sum(counts["graph"]) >= 40
+    assert sum(counts["graph"][:2]) % 5 == 0
+    assert sum(counts["graph"][:2]) >= 40
+    # K3 (integrated thetas), K5 (MSC-M), K4 (Gamma-Dirichlet) an iteration
+    want = {"cuda_int": (25, 0, 0), "cuda_mig": (0, 0, 15),
+            "cuda_gdir": (0, 10, 0)}.get(data, (0, 0, 0))
+    assert counts["graph"][2:] == want

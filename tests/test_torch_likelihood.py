@@ -1,6 +1,9 @@
 """Likelihood math of the PyTorch port against ``bpp_tpu``.
 
-* P(t) for every DNA model family, float64 (rtol 1e-12);
+* P(t) for every DNA model family, float64 (rtol 1e-12), and the closed
+  forms against the matrix exponential down to t = 1e-38 (they keep the
+  short branches' off-diagonal entries, as the kernels' expm1 factors
+  do);
 * per-locus log-likelihoods of ``pack.site_logl_packed_ref`` against
   ``bpp_tpu``'s ``felsenstein.loglikelihood`` in float64 (rtol 1e-10)
   on simulated data over the model grid of test_kernel_consistency.py,
@@ -65,6 +68,40 @@ def test_pmatrix_matches(name):
     # atol: eigen-solver roundoff on the smallest entries of GTR P(t)
     np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-12,
                                atol=1e-15)
+
+
+@pytest.mark.parametrize("name", ["JC69", "HKY", "TN93"])
+def test_pmatrix_closed_forms_keep_short_branches(name):
+    """The closed forms against the matrix exponential of their rate
+    matrix from t = 1e-38 (a node at float32's smallest normal age above
+    its tips, where an age move's reflection can leave it) to t = 3, every
+    entry to 1e-13 relative.  ``bpp_tpu``'s 1 - exp(-t) forms lose the
+    off-diagonal entries of short branches (0 below t ~ 1e-16), which the
+    kernels' expm1 factors keep."""
+    from scipy.linalg import expm
+    t = np.array([1e-38, 1e-30, 1e-20, 1e-12, 1e-8, 1e-4, 0.01, 0.5, 3.0])
+    f = np.array([0.3, 0.2, 0.15, 0.35])
+    k1, k2 = {"JC69": (1.0, 1.0), "HKY": (2.5, 2.5),
+              "TN93": (2.5, 4.0)}[name]
+    if name == "JC69":
+        f = np.full(4, 0.25)
+        got = pmp.pmatrix_jc69(torch.as_tensor(t)).numpy()
+    else:
+        n = len(t)
+        got = pmp.pmatrix_tn93(torch.as_tensor(t),
+                               torch.as_tensor(np.tile(f, (n, 1))),
+                               torch.full((n,), k1, dtype=torch.float64),
+                               torch.full((n,), k2, dtype=torch.float64)
+                               ).numpy()
+    pa, pc, pg, pt = f
+    Q = np.array([[0, pc, k1 * pg, pt], [pa, 0, pg, k2 * pt],
+                  [k1 * pa, pc, 0, pt], [pa, k2 * pc, pg, 0]])
+    np.fill_diagonal(Q, -Q.sum(1))
+    Q /= -(f * np.diag(Q)).sum()
+    for i, ti in enumerate(t):
+        want = expm(Q * ti)
+        np.testing.assert_allclose(got[i], want, rtol=1e-13, atol=0,
+                                   err_msg=f"t = {ti}")
 
 
 @pytest.fixture(scope="module")

@@ -284,3 +284,104 @@ def test_sim_rate_float32_floor():
         assert torch.isfinite(rate).all(), (dt, rate)
         assert float(rate[0]) == 1.5
         np.testing.assert_allclose(float(crate[1]), 600.0, rtol=1e-6)
+
+
+class _Walked(Exception):
+    """Raised by the stand-in ``while_loop`` once ``bpp_tpu``'s sim-SPR
+    walk has run: the caller's locals and the loop's final carry."""
+
+    def __init__(self, frame, carry):
+        super().__init__("walked")
+        self.frame, self.carry = frame, carry
+
+
+def _bpp_tpu_walk(engj, state_j, key, monkeypatch):
+    """``bpp_tpu``'s ``spr_sim_move`` up to the end of its walk
+    (``lax.while_loop``, mig_moves.py:765), the loop run step by step:
+    (the move's locals at the loop, the loop's final carry)."""
+    import sys
+
+    import jax
+    from bpp_tpu.mcmc import mig_moves as mmj
+
+    def walk(cond, body, carry):
+        frame = dict(sys._getframe(1).f_locals)
+        while bool(cond(carry)):
+            carry = body(carry)
+        raise _Walked(frame, carry)
+
+    monkeypatch.setattr(jax.lax, "while_loop", walk)
+    try:
+        mmj.spr_sim_move(engj.ctx, engj.cfg, engj.routes, state_j,
+                         jax.random.PRNGKey(key))
+    except _Walked as w:
+        return w.frame, w.carry
+    finally:
+        monkeypatch.undo()
+    raise AssertionError("bpp_tpu's spr_sim_move ran no while_loop")
+
+
+def _walk_uniforms(ksim, max_steps, L):
+    """The block of uniforms [3, max_steps, L] that makes the port's walk
+    take ``bpp_tpu``'s draws: step s's keys split as its ``sim_body``
+    splits them, the exponential e as the uniform 1 - exp(-e) (the port
+    takes -log1p(-u))."""
+    import jax
+    kk, rows = ksim, []
+    for _ in range(max_steps):
+        kk, k1, k2, k3 = jax.random.split(kk, 4)
+        e = np.asarray(jax.random.exponential(k1, (L,), jnp.float64))
+        rows.append([-np.expm1(-e),
+                     np.asarray(jax.random.uniform(k2, (L,), jnp.float64)),
+                     np.asarray(jax.random.uniform(k3, (L,), jnp.float64))])
+    return torch.from_numpy(np.asarray(rows).transpose(1, 0, 2).copy())
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_sim_walk_matches_bpp_tpu_while_loop(data, name, monkeypatch):
+    """The sim-SPR walk's plain version (``simspr_walk_ref``, what kernel
+    K5 is held against on the card) against ``bpp_tpu``'s ``while_loop``
+    on the same inputs and the same draws: the walk's inputs read from
+    ``bpp_tpu``'s move at its loop, on the chain's first state and the
+    one with most events, eight keys each.  Populations, outcomes and
+    events' populations and counts exact, times at float64 round-off."""
+    from bpp_tpu_torch.mcmc.mig_moves import simspr_walk_ref
+    engj, eng, states = _chain(data, name)
+    picks = [eng.init_state(), max(states, key=lambda s: int(
+        s.mig.count().sum()))]
+
+    def t(x, dtype=None):
+        a = torch.from_numpy(np.array(x))
+        if a.dtype == torch.int32:
+            a = a.to(torch.int64)
+        return a if dtype is None else a.to(dtype)
+
+    seen = {"coalesced": 0, "events": 0, "failed": 0}
+    for st in picks:
+        state_j = _jax_state(st)
+        for key in range(8):
+            f, carry = _bpp_tpu_walk(engj, state_j, key, monkeypatch)
+            L, sp = f["L"], f["sp"]
+            unif = _walk_uniforms(f["ksim"], f["max_steps"], L)
+            tau, partau_f, si = t(f["tau"]), t(f["partau_f"]), t(f["si"])
+            got = simspr_walk_ref(
+                t(f["t_lo"]), t(f["t_hi"]), t(f["pop_lo"]), t(f["live_e"]),
+                t(sp.pptable), tau, partau_f, t(sp.theta), t(sp.parent), si,
+                t(f["ti"]), tau[si], partau_f[si], t(f["route_M"]),
+                t(f["heredity"]), t(f["t0"]), t(f["start_pop"]),
+                t(f["is_valid"]), unif, f["ME"])
+            tj, pj, _, donej, failj, ntj, nsj, ndj, nnj, _ = carry
+            for what, a, b in (("p", pj, got[1]), ("done", donej, got[2]),
+                               ("fail", failj, got[3]), ("ns", nsj, got[5]),
+                               ("nd", ndj, got[6]), ("nn", nnj, got[7])):
+                np.testing.assert_array_equal(
+                    b.numpy(), np.asarray(a), err_msg=f"{what}, key {key}")
+            for what, a, b in (("t", tj, got[0]), ("nt", ntj, got[4])):
+                np.testing.assert_allclose(
+                    b.numpy(), np.asarray(a), rtol=1e-12,
+                    err_msg=f"{what}, key {key}")
+            valid = np.asarray(f["is_valid"])
+            seen["coalesced"] += int((np.asarray(donej) & valid).sum())
+            seen["events"] += int(np.asarray(nnj)[valid].sum())
+            seen["failed"] += int((np.asarray(failj) & valid).sum())
+    assert seen["coalesced"] and seen["events"], seen

@@ -43,7 +43,10 @@ def _chain(data, name):
     from bpp_tpu_torch.mcmc.driver import Engine
     run = load_run_from_ctl(data[name])
     run.cfg = run.cfg.replace(dtype="float64")
-    eng = Engine(run, seed=5, device="cpu")
+    # at this seed every configuration's chain ends holding migration
+    # events, which the last checks need (about one chain in five of
+    # these ends with none)
+    eng = Engine(run, seed=8, device="cpu")
     st = eng.init_state()
     states = []
     for _ in range(STEPS):

@@ -249,12 +249,7 @@ def _chain(run, steps, shard=None):
 
 def _worker(rank, world, init_file, out_dir, cases):
     import torch.distributed as dist
-    from bpp_tpu_torch.mcmc import mig_moves
     torch.set_num_threads(1)
-    # the sim-SPR walk tests "any lineage still walking" after every step
-    # (not every 8): ranks whose walks end at different steps must agree
-    # on when all have ended
-    mig_moves.SIM_BLOCK = 1
     dist.init_process_group("gloo", init_method=f"file://{init_file}",
                             world_size=world, rank=rank,
                             timeout=datetime.timedelta(seconds=120))

@@ -368,3 +368,161 @@ def test_snl_with_constraints_refused(tmp_path):
                       extra=f"speciestree = 1\nconstraintfile = {cf}")
     with pytest.raises(NotImplementedError, match="SNL"):
         Engine(load_run_from_ctl(ctl), device="cpu")
+
+
+@pytest.fixture(scope="module")
+def bpp_tpu_a01(tmp_path_factory):
+    """``bpp_tpu``'s engine, state and configuration on ``a01_states``'
+    configuration (the same four species, one sequence each), float64."""
+    from bpp_tpu.loader import load_run_from_ctl as load_j
+    from bpp_tpu.mcmc.driver import Engine as EJ
+    from bpp_tpu_torch.testing import write_simulated_run
+    ctl = write_simulated_run(
+        tmp_path_factory.mktemp("a01j"), n_loci=3, seqs=(1, 1, 1, 1),
+        n_sites=100, priors=(SNL_ON,), usedata=0, thetaprior="gamma 2 200",
+        tauprior="gamma 2 100")
+    run = load_j(ctl)
+    run.cfg = run.cfg.replace(dtype="float64")
+    eng = EJ(run, seed=3)
+    return eng, eng.init_state()
+
+
+# the local variables of bpp_tpu's snl_move the comparison reads
+SNL_LOCALS = ("sel", "shrink", "y", "x", "a", "b_node", "c", "lca",
+              "went_down", "wdone", "wbad", "bad", "logp_sel", "term_pe",
+              "term_sh", "term_ed", "w2", "rev_node", "sp_scaled",
+              "taufactor", "tau_new", "tau0", "tau0n", "rt", "nleft",
+              "nright", "nparent", "ntau", "root_new", "k_mt", "swap", "u_d",
+              "k_walk")
+
+
+def _bpp_tpu_snl_locals(eng_j, state_j, monkeypatch):
+    """A jitted function of (species arrays, key) that returns the local
+    variables ``SNL_LOCALS`` of ``bpp_tpu``'s ``snl_move`` at its accept
+    draw (rejected there), read while it is traced."""
+    import sys
+
+    import jax
+    from bpp_tpu.mcmc import stree_moves as smj
+
+    def capture(k, lnacc, *args, **kw):
+        frame = sys._getframe(1).f_locals
+        capture.out = {name: frame[name] for name in SNL_LOCALS}
+        return jnp.asarray(False)
+
+    monkeypatch.setattr(smj.rng, "mh_accept", capture)
+
+    def run(left, right, parent, tau, pptable, mrca, key):
+        spj = state_j.sp._replace(left=left, right=right, parent=parent,
+                                  tau=tau, pptable=pptable, mrca=mrca)
+        smj.snl_move(eng_j.ctx, eng_j.cfg, state_j._replace(sp=spj), key)
+        return capture.out
+
+    jitted = jax.jit(run)
+
+    def call(sp, key):
+        return jitted(jnp.asarray(sp.left.numpy(), jnp.int32),
+                      jnp.asarray(sp.right.numpy(), jnp.int32),
+                      jnp.asarray(sp.parent.numpy(), jnp.int32),
+                      jnp.asarray(sp.tau.numpy()),
+                      jnp.asarray(sp.pptable.numpy()),
+                      jnp.asarray(sp.mrca.numpy(), jnp.int32),
+                      jax.random.PRNGKey(key))
+    return call
+
+
+def _port_uniforms(cap, sp, H):
+    """The uniforms that make the port's species-level part take
+    ``bpp_tpu``'s draws: its move type and delta uniforms, its walk's,
+    its child split, and a uniform inside the port's inverse-CDF interval
+    of the focal node ``bpp_tpu`` drew (Gumbel-max there)."""
+    import jax
+    tau = sp.tau.numpy()
+    parent = sp.parent.numpy()
+    NS = (H + 1) // 2
+    partau = np.where(parent >= 0, tau[np.maximum(parent, 0)], np.inf)
+    feas = (np.arange(H) >= NS) & (parent >= 0) & (tau > 0)
+    w = np.where(feas, 1.0 / np.sqrt(np.maximum(partau - tau, 1e-30)), 0.0)
+    wn = w / max(w.sum(), 1e-300)
+    logits = np.where(feas, np.log(np.maximum(wn, 1e-300)), -1e30)
+    cdf = np.cumsum(np.exp(logits - logits.max()))
+    sel = int(cap["sel"])
+    lo = cdf[sel - 1] if sel else 0.0
+    u = [float(jax.random.uniform(cap["k_mt"])),
+         0.5 * (lo + cdf[sel]) / cdf[-1],
+         0.25 if bool(cap["swap"]) else 0.75, float(cap["u_d"])]
+    kk = cap["k_walk"]
+    for _ in range(4 * H + 16):
+        kk, k1, k2 = jax.random.split(kk, 3)
+        u += [float(jax.random.uniform(k1)), float(jax.random.uniform(k2))]
+    return torch.tensor(u, dtype=torch.float64)
+
+
+def test_snl_species_part_matches_bpp_tpu(a01_states, bpp_tpu_a01,
+                                          monkeypatch):
+    """SNL's species-level part on the device (``snl_species``: the focal
+    choice, the delta walk, the proposal densities, the new species
+    arrays, the reverse terms) against ``bpp_tpu``'s ``snl_move`` on the
+    same trees with the same draws: integers exact, floats at float64
+    round-off, over the first tree and those after accepted species moves,
+    eight keys each.  ``bpp_tpu`` flags every landing on a tip branch as
+    invalid (its walk goes on checking after it stopped; ROADMAP Queue 3):
+    the port's flag differs only there, and the rest of such a proposal
+    is compared too."""
+    from bpp_tpu_torch.mcmc import stree_moves as smp
+    eng, out = a01_states
+    eng_j, state_j = bpp_tpu_a01
+    cfg = eng.cfg
+    kinds = {"shrink": 0, "expand": 0, "expand-down": 0}
+    snl_j = _bpp_tpu_snl_locals(eng_j, state_j, monkeypatch)
+    trees = [eng.init_state().sp] + [st.sp for st in out["spr"]
+                                     + out["snl"]]
+    for sp in trees:
+        H = sp.n_nodes
+        NS = (H + 1) // 2
+        for key in range(8):
+            cap = snl_j(sp, key)
+            got = smp.snl_species(cfg, sp, _port_uniforms(cap, sp, H))
+
+            def j(name):
+                return np.asarray(cap[name])
+
+            for name, want in (("sel", "sel"), ("shrink", "shrink"),
+                               ("y", "y"), ("a", "a"), ("c", "c"),
+                               ("went_down", "went_down"),
+                               ("done", "wdone")):
+                assert int(getattr(got, name)) == int(j(want)), (key, name)
+            pure = ~j("shrink") & ~j("went_down")
+            term = np.where(pure, j("term_pe"),
+                            np.where(j("shrink"), j("term_sh"),
+                                     j("term_ed")))
+            lnacc_j = (-j("logp_sel") + term
+                       + np.log(max(j("w2")[int(j("rev_node"))], 1e-300))
+                       + j("sp_scaled") * np.log(j("taufactor"))
+                       + np.where(abs(j("tau0n") - j("tau0")) > 1e-20,
+                                  j("rt"), 0.0))
+            bad_j = bool(j("bad")) or not np.isfinite(lnacc_j)
+            if bool(got.bad) != bad_j:
+                # bpp_tpu's check after the walk stopped, on a tip branch
+                assert bad_j and bool(j("wbad")) and not bool(got.wbad) \
+                    and int(got.c) < NS, (key, int(got.c))
+            if bool(got.bad):
+                continue
+            kinds["shrink" if bool(got.shrink) else
+                  "expand-down" if bool(got.went_down) else "expand"] += 1
+            for name in ("x", "b_node", "lca", "sp_scaled", "root_new"):
+                want = {"sp_scaled": "sp_scaled", "root_new": "root_new"}
+                assert int(getattr(got, name)) == int(j(want.get(name, name))), \
+                    (key, name)
+            for name, want in (("left", "nleft"), ("right", "nright"),
+                               ("parent", "nparent")):
+                np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                              j(want))
+            np.testing.assert_allclose(got.tau.numpy(), j("ntau"),
+                                       rtol=1e-13)
+            for name in ("tau_new", "taufactor"):
+                np.testing.assert_allclose(float(getattr(got, name)),
+                                           float(j(name)), rtol=1e-13)
+            np.testing.assert_allclose(float(got.lnacc), float(lnacc_j),
+                                       rtol=1e-10, atol=1e-10)
+    assert all(kinds.values()), kinds
