@@ -1,7 +1,8 @@
 """Launches of the kernels that replace ``bpp_tpu``'s device control flow
 over loci: K3 ``notheta_chain`` and K4 ``gammadir_chain``
 (``csrc/chain_kernel.cu``, the serial accept chains of integrated thetas
-and of Gamma-Dirichlet locus rates) and K5 ``simspr_walk``
+and of Gamma-Dirichlet locus rates, each resolving several loci a round
+by lookahead: :func:`chain_depth`) and K5 ``simspr_walk``
 (``csrc/simwalk_kernel.cu``, MSC-M's sim-SPR walk).
 
 Each ``launch_*`` checks its CUDA tensors, allocates the outputs and
@@ -40,8 +41,8 @@ def _lib(name):
 def _chain_lib():
     lib = _lib("chain_kernel")
     if lib.bpp_notheta_chain.argtypes is None:
-        lib.bpp_notheta_tile.restype = _I
-        lib.bpp_notheta_tile.argtypes = [_I]
+        lib.bpp_notheta_depth.restype = _I
+        lib.bpp_notheta_depth.argtypes = [_I]
         lib.bpp_notheta_chain.restype = _I
         lib.bpp_notheta_chain.argtypes = [_P, _P, _I, _I, _D, _D, _P, _P]
         lib.bpp_gammadir_chain.restype = _I
@@ -66,11 +67,19 @@ def _check_rc(rc, what):
         raise RuntimeError(f"{what} launch failed: cudaError {rc}")
 
 
+def chain_depth(H: int = 1) -> int:
+    """The loci a K3 launch over ``H`` populations resolves a round:
+    the kernels' depth (K4's, and K3's at one population), lower where H
+    populations leave too little shared memory for its round; 0 where not
+    even one locus a round fits (K3 refuses).  Builds the kernel."""
+    return _chain_lib().bpp_notheta_depth(H)
+
+
 def launch_notheta(cols, sums, H: int, a: float, b: float):
     """K3 on ``cols`` ``[L, 4H + 4]`` float64 (per locus the old and
     candidate counts and scaled waiting sums of the H populations, then
-    dother, dh, log u, mask) and ``sums`` ``[2H]`` (K0, C0); returns
-    accept ``[L]`` bool."""
+    dother, dh, log u, mask) and ``sums`` ``[2H]`` (K0, C0),
+    ``chain_depth(H)`` loci a round; returns accept ``[L]`` bool."""
     global LAUNCHES_NOTHETA
     who = "notheta_chain"
     dev = cols.device
@@ -80,7 +89,7 @@ def launch_notheta(cols, sums, H: int, a: float, b: float):
     check_tensor(who, "cols", cols, torch.float64, (L, 4 * H + 4), dev)
     check_tensor(who, "sums", sums, torch.float64, (2 * H,), dev)
     lib = _chain_lib()
-    if lib.bpp_notheta_tile(H) <= 0:
+    if lib.bpp_notheta_depth(H) <= 0:
         raise ValueError(f"{who}: {H} populations do not fit the kernel's "
                          "shared memory")
     out = torch.empty((L,), dtype=torch.bool, device=dev)
@@ -94,7 +103,7 @@ def launch_notheta(cols, sums, H: int, a: float, b: float):
 def launch_gammadir(terms, a_bar: float, b_bar: float, a_i: float):
     """K4 on ``terms`` ``[L, 6]`` float64 (per locus the old and new
     value, log proposal ratio, locus-factorizing density delta, uniform,
-    mask); returns accept ``[L]`` bool."""
+    mask), ``chain_depth()`` loci a round; returns accept ``[L]`` bool."""
     global LAUNCHES_GAMMADIR
     who = "gammadir_chain"
     dev = terms.device

@@ -17,7 +17,8 @@ the running sum of rates (mu_i) or variances (nu_i), so their accept
 chains are serial: the batched per-locus deltas are exact (likelihood
 and rate prior factorize per locus), and :func:`gammadir_accept` takes
 the decisions in locus order where the deltas lie: on the card kernel K4
-(``csrc/chain_kernel.cu``, ``bpp_tpu``'s ``lax.scan``; no host read), on
+(``csrc/chain_kernel.cu``, ``bpp_tpu``'s ``lax.scan``, several loci a
+round by lookahead; no host read), on
 the CPU its plain version in numpy (under locus sharding every rank runs
 the chain over the gathered vectors of all loci and keeps its rows).
 The hierarchical priors are fully batched.

@@ -15,11 +15,12 @@ candidate (k, T2) rows of all loci are computed together on the device.
 Only the accept decisions form an exact serial chain over loci, carrying
 the running K/C sums (``bpp_tpu``'s ``lax.scan``).  :func:`chain_accept`
 runs that chain where its inputs lie: on the card as kernel K3
-(``csrc/chain_kernel.cu``, one warp walking the loci in float64, no host
-read), on the CPU as :func:`accept_chain`, its plain version in float64
-Python floats.  Under locus sharding every rank runs the whole chain on
-the gathered inputs of all loci and keeps its rows of the decisions, and
-the K/C sums are all-reduced.
+(``csrc/chain_kernel.cu``, in float64, resolving several loci a round by
+lookahead over their accept/reject patterns; no host read), on the CPU
+as :func:`accept_chain`, its plain version in float64 Python floats.
+Under locus sharding every rank runs the whole chain on the gathered
+inputs of all loci and keeps its rows of the decisions, and the K/C sums
+are all-reduced.
 """
 
 from __future__ import annotations

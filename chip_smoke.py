@@ -4,10 +4,11 @@
     python3 chip_smoke.py [--parent DIR]
 
 ``--parent DIR``, a checkout of the parent commit (``git archive``), adds
-the parent's float64 builds timed on ``[x64]``'s inputs in a process of
-their own.  Phases, numbered as they were added (``main`` runs 13, 19 and
-20-22 right after the build, while the simulations of data 1 and data 2
-run beside them, then the others in order); any failure exits non-zero:
+the parent's float64 builds timed on ``[x64]``'s inputs and the parent's
+K3/K4 timed on ``[chains]``' inputs, each in a process of its own.
+Phases, numbered as they were added (``main`` runs 13, 19 and 20-22 right
+after the build, while the simulations of data 1 and data 2 run beside
+them, then the others in order); any failure exits non-zero:
 
 1. device   — torch version, the card's name and power limit;
 2. build    — nvcc builds kernels K1 (``bpp_tpu_torch/csrc/pack_kernel.cu``),
@@ -344,7 +345,14 @@ the chain's last state, and the ``[profile]`` of its step there:
               with a disagreement counted) or 1e-6 relative
               (K5, at most 1 locus in 1000; times within 1e-5 relative in
               float32); each kernel's device ms a launch (profiler) on the
-              last call's inputs, its plain version's ms and its bound.
+              last call's inputs, its plain version's ms and its bound;
+              K3/K4 also their proposing loci, ns a proposing locus and
+              lookahead depth (``chains.chain_depth``), and the last
+              call's inputs tiled to 10,000 loci (K3's sums scaled to match):
+              held against the plain version under the same gates and
+              timed; with ``--parent``, the parent's K3/K4 built and timed
+              on the same inputs in a process of their own, their
+              decisions held against this tree's.
 
 Every main path but ``[shard]``'s runs its chunks as replays of one
 captured CUDA graph; the launch counts a replay adds are the graph's
@@ -2644,6 +2652,32 @@ WALK_TIE = 1e-6           # relative, K5
 WALK_RTOL = {"torch.float32": 1e-5, "torch.float64": 1e-12}
 
 
+def chain_masks_agree(name, got, want, margin):
+    """K3/K4's accept masks equal up to the first disagreement, which must
+    sit at a near tie (the chains part there), with at most one near tie:
+    (loci compared before the first disagreement, near ties, the largest
+    |kernel - plain| of the 0/1 decisions through the first disagreement,
+    whether they disagree)."""
+    import numpy as np
+    got = got.cpu().numpy()
+    want = want.cpu().numpy()
+    near = margin < CHAIN_TIE
+    differ = np.flatnonzero(got != want)
+    upto = len(got) if not len(differ) else differ[0]
+    if len(differ) and not near[differ[0]]:
+        raise AssertionError(
+            f"[chains] {name}: the kernel's accept mask differs from the "
+            f"plain version's at locus {differ[0]} (margin "
+            f"{margin[differ[0]]:.3e} >= {CHAIN_TIE})")
+    if near.sum() > 1:
+        raise AssertionError(f"[chains] {name}: {int(near.sum())} loci "
+                             f"of one call within {CHAIN_TIE} of a tie")
+    seen = min(int(upto) + 1, len(got))
+    err = float(np.abs(got[:seen].astype(np.float64)
+                       - want[:seen].astype(np.float64)).max(initial=0.0))
+    return int(upto), int(near.sum()), err, len(differ) > 0
+
+
 class ChainHolds:
     """While active, every call of the K3 (``notheta.chain_accept``), K4
     (``clock_moves.gammadir_accept``) and K5 (``mig_moves.simspr_walk``)
@@ -2673,34 +2707,13 @@ class ChainHolds:
             setattr(mod, name, orig)
 
     def _masks(self, name, got, want, margin):
-        """Accept masks equal up to the first disagreement, which must sit
-        at a near tie (the chains part there); near ties counted.  The
-        error kept is the largest |kernel - plain| of the 0/1 decisions
-        over the loci compared (through the first disagreement), and the
-        calls with a disagreement are counted."""
-        import numpy as np
-        got = got.cpu().numpy()
-        want = want.cpu().numpy()
-        near = margin < CHAIN_TIE
-        differ = np.flatnonzero(got != want)
-        upto = len(got) if not len(differ) else differ[0]
-        if len(differ) and not near[differ[0]]:
-            raise AssertionError(
-                f"[chains] {name}: the kernel's accept mask differs from the "
-                f"plain version's at locus {differ[0]} (margin "
-                f"{margin[differ[0]]:.3e} >= {CHAIN_TIE})")
+        upto, near, err, differ = chain_masks_agree(name, got, want, margin)
         r = self.rec[name]
         r["calls"] += 1
-        r["loci"] += int(upto)
-        r["near"].append(int(near.sum()))
-        seen = min(int(upto) + 1, len(got))
-        err = float(np.abs(got[:seen].astype(np.float64)
-                           - want[:seen].astype(np.float64)).max(initial=0.0))
+        r["loci"] += upto
+        r["near"].append(near)
         r["err"] = err if r["err"] is None else max(r["err"], err)
-        r["differ"] += int(len(differ) > 0)
-        if near.sum() > 1:
-            raise AssertionError(f"[chains] {name}: {int(near.sum())} loci "
-                                 f"of one call within {CHAIN_TIE} of a tie")
+        r["differ"] += int(differ)
 
     def _k3(self, orig):
         import numpy as np
@@ -2790,11 +2803,8 @@ def chain_bounds(name, last):
     if name == "K3":
         a, b, cols, sums, H = last
         L = cols.shape[0]
-        prop = cols[:, 4 * H + 3] > 0.5
-        changed = ((cols[:, H:2 * H] != cols[:, :H])
-                   | (cols[:, 3 * H:4 * H] != cols[:, 2 * H:3 * H]))
-        ops = float(prop.sum()) * (2 * H + 3) + 10.0 * float(
-            (changed & prop[:, None]).sum())
+        ops = chain_proposing(name, last) * (2 * H + 3) + 10.0 * float(
+            chain_changed(last).sum())
         nbytes = 8.0 * (cols.numel() + sums.numel()) + L
         flops = F64_FLOPS
     elif name == "K4":
@@ -2824,18 +2834,184 @@ def chain_bounds(name, last):
                                  "operations")
 
 
-def chains_phase(smi):
+# [chains]: the kernels' names in the profiler, and the held K3/K4 inputs
+# tiled to this many loci (a timing input, not a main path)
+CHAIN_KERNELS = {"K3": "notheta_chain_kernel", "K4": "gammadir_chain_kernel",
+                 "K5": "simwalk_kernel"}
+CHAIN_TILED_LOCI = 10000
+
+
+def chain_launch(name, args):
+    """One launch of K3 (``args``: a, b, cols, sums, H) or K4 (terms, a_bar,
+    b_bar, a_i) through its launcher; returns the accept mask."""
+    from bpp_tpu_torch.core import chains
+    if name == "K3":
+        a, b, cols, sums, H = args
+        return chains.launch_notheta(cols, sums, H, a, b)
+    terms, a_bar, b_bar, a_i = args
+    return chains.launch_gammadir(terms, a_bar, b_bar, a_i)
+
+
+def chain_plain(name, args, margin=None):
+    """K3's or K4's plain version on ``args`` (on the host, float64): the
+    accept mask; ``margin`` as the plain versions take it."""
+    import torch
+
+    from bpp_tpu_torch.mcmc import notheta
+    from bpp_tpu_torch.mcmc.clock_moves import _gammadir_chain
+    if name == "K3":
+        a, b, cols, sums, H = args
+        return notheta.chain_accept(a, b, cols.cpu(), sums.cpu(), H,
+                                    margin=margin)
+    terms, a_bar, b_bar, a_i = args
+    host = terms.cpu().T.numpy()
+    mask = host[5] > 0.5
+    nl = float(mask.sum())
+    return torch.from_numpy(_gammadir_chain(host[:5], mask, a_bar, a_i * nl,
+                                            b_bar / nl, a_i, margin))
+
+
+def chain_proposing(name, args):
+    """The proposing loci of a K3/K4 call."""
+    if name == "K3":
+        cols, H = args[2], args[4]
+        return int((cols[:, 4 * H + 3] > 0.5).sum())
+    return int((args[0][:, 5] > 0.5).sum())
+
+
+def chain_changed(args):
+    """[proposing loci, H]: the populations each proposing locus of a K3
+    call changes."""
+    _, _, cols, _, H = args
+    prop = cols[:, 4 * H + 3] > 0.5
+    changed = ((cols[:, H:2 * H] != cols[:, :H])
+               | (cols[:, 3 * H:4 * H] != cols[:, 2 * H:3 * H]))
+    return changed[prop]
+
+
+def tile_chain(name, args, loci=CHAIN_TILED_LOCI):
+    """A K3/K4 call's ``args`` repeated to about ``loci`` loci (whole
+    copies; K3's starting sums times the copies, the sums of the copies'
+    loci)."""
+    rows = args[2] if name == "K3" else args[0]
+    n = max(1, round(loci / rows.shape[0]))
+    if name == "K3":
+        a, b, cols, sums, H = args
+        return (a, b, cols.repeat(n, 1).contiguous(), sums * n, H)
+    terms, a_bar, b_bar, a_i = args
+    return (terms.repeat(n, 1).contiguous(), a_bar, b_bar, a_i)
+
+
+def time_chain_cases(src, dst):
+    """Launch and time every K3/K4 case of ``src`` (``torch.save`` of
+    [(kernel, args on the host)]) with the ``bpp_tpu_torch`` that is first
+    on ``sys.path``: writes [(device ms a
+    launch (profiler, one window of 20), accept mask)] to ``dst``."""
+    import torch
+    out = []
+    for name, args in torch.load(src, weights_only=False):
+        args = tuple(x.cuda() if torch.is_tensor(x) else x for x in args)
+        ms = kernel_device_ms(lambda: chain_launch(name, args),
+                              CHAIN_KERNELS[name], reps=20, windows=1)
+        out.append((ms, chain_launch(name, args).cpu()))
+    torch.save(out, dst)
+
+
+def parent_chain_times(parent, cases, smi):
+    """``[chains] parent``: the parent's K3/K4 (``parent``, a checkout of
+    the parent commit) built and timed on ``cases`` ([(kernel, args)]) in a
+    process of their own, then this tree's on the same cases; the parent's
+    decisions held against this tree's (equal but at a near tie of the
+    plain version's margins).  Prints one line a case; returns [(kernel,
+    loci, parent ms, this tree's ms)]."""
+    import numpy as np
+    import torch
+    host = [(name, tuple(x.cpu() if torch.is_tensor(x) else x
+                         for x in args)) for name, args in cases]
+    with tempfile.TemporaryDirectory(prefix="bpp_parent_") as tmp:
+        src, dst = os.path.join(tmp, "cases.pt"), os.path.join(tmp, "out.pt")
+        torch.save(host, src)
+        code = ("import importlib.util, sys\n"
+                "sys.path.insert(0, sys.argv[1])\n"
+                "spec = importlib.util.spec_from_file_location("
+                "'smoke', sys.argv[2])\n"
+                "m = importlib.util.module_from_spec(spec)\n"
+                "spec.loader.exec_module(m)\n"
+                "m.time_chain_cases(sys.argv[3], sys.argv[4])\n")
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-c", code, os.path.abspath(parent),
+                        os.path.abspath(__file__), src, dst],
+                       cwd=os.path.abspath(parent), check=True, timeout=900)
+        before = torch.load(dst, weights_only=False)
+        print(f"[chains] parent: built and timed in "
+              f"{time.perf_counter() - t0:.1f} s | {smi}")
+        time_chain_cases(src, dst)
+        after = torch.load(dst, weights_only=False)
+    rows = []
+    for (name, args), (p_ms, p_acc), (n_ms, n_acc) in zip(host, before,
+                                                          after):
+        L = (args[2] if name == "K3" else args[0]).shape[0]
+        margin = np.full(L, np.inf)
+        chain_plain(name, args, margin)
+        _, near, _, differ = chain_masks_agree(f"{name} parent vs this tree",
+                                               n_acc, p_acc, margin)
+        print(f"[chains] parent vs this tree: {name} {CHAIN_KERNELS[name]} "
+              f"(L={L}, {chain_proposing(name, args)} proposing) | parent "
+              f"{p_ms:.4f} ms | this tree {n_ms:.4f} ms a launch "
+              f"({p_ms / n_ms:.2f}x) | decisions "
+              + ("part at a near tie" if differ else "equal")
+              + f" ({near} near a tie) | {smi}")
+        rows.append((name, L, p_ms, n_ms))
+    return rows
+
+
+def chain_tiled(name, last, smi):
+    """K3's or K4's line beyond the held call's: the held call tiled to
+    ``CHAIN_TILED_LOCI`` loci, held against the plain version under the
+    same gates and timed.  Returns the held and the tiled cases [(kernel,
+    args)] for :func:`parent_chain_times`."""
+    import numpy as np
+    import torch
+
+    from bpp_tpu_torch.core import chains
+    kname = CHAIN_KERNELS[name]
+    saved = chains.launch_counts()
+    tiled = tile_chain(name, last)
+    L = (tiled[2] if name == "K3" else tiled[0]).shape[0]
+    got = chain_launch(name, tiled)
+    torch.cuda.synchronize()
+    margin = np.full(L, np.inf)
+    want = chain_plain(name, tiled, margin)
+    _, near, _, differ = chain_masks_agree(f"{name} tiled", got, want, margin)
+    ms = kernel_device_ms(lambda: chain_launch(name, tiled), kname, reps=20)
+    chains.set_launch_counts(saved)
+    prop = chain_proposing(name, tiled)
+    bms, by = chain_bounds(name, tiled)
+    print(f"[chains] {name} {kname} on the held call tiled to {L} loci (a "
+          "timing input): decisions "
+          + ("part at a near tie" if differ else "equal")
+          + f" ({near} near a tie) | device {ms:.4f} ms a launch "
+          f"(profiler) | {prop} proposing loci, {ms * 1e6 / prop:.1f} ns a "
+          f"proposing locus | bound {bms:.3e} ms ({by}) | {smi}")
+    return [(name, last), (name, tiled)]
+
+
+def chains_phase(smi, parent=None):
     """``[chains]``: K3 on main 5's and K4 on main 21's accept chains, K5
     on main 12's and main 14's sim-SPR walks: eager iterations
     (``CHAIN_ITERS``, ``WALK_ITERS``) in which every call is held against
     the plain version (``ChainHolds``); then each kernel's device ms a
     launch (profiler) on the last call's inputs, the plain version's ms
-    on them, and the bound.  Returns {kernel: (device ms, plain ms, bound
-    ms, bound by, max_abs_err)}."""
+    on them, and the bound.  K3/K4 also: proposing loci, ns a proposing
+    locus and lookahead depth; the last call tiled to
+    ``CHAIN_TILED_LOCI`` loci, held and timed; with ``parent``, the
+    parent's build on the held and tiled inputs
+    (:func:`parent_chain_times`).  Returns {kernel: (device ms, plain ms,
+    bound ms, bound by, max_abs_err)}."""
     import torch
 
     from bpp_tpu_torch.core import chains
-    from bpp_tpu_torch.mcmc import mig_moves, notheta
+    from bpp_tpu_torch.mcmc import mig_moves
     from bpp_tpu_torch.mcmc.driver import Engine
     holds = ChainHolds()
     with holds:
@@ -2852,38 +3028,14 @@ def chains_phase(smi):
     per_iter = {"K3": (K3_PER_ITER_5, "main 5"),
                 "K4": (K4_PER_ITER_21, "main 21"),
                 "K5": (K5_PER_ITER_12, "mains 12, 14")}
-    rows = {}
-    for name, kname in (("K3", "notheta_chain_kernel"),
-                        ("K4", "gammadir_chain_kernel"),
-                        ("K5", "simwalk_kernel")):
+    rows, parent_cases = {}, []
+    for name, kname in CHAIN_KERNELS.items():
         r = holds.rec[name]
         if not r["calls"]:
             raise AssertionError(f"[chains] {name}: no call held")
         last = r["last"]
-        if name == "K3":
-            a, b, cols, sums, H = last
-
-            def launch():
-                chains.launch_notheta(cols, sums, H, a, b)
-
-            def plain():
-                notheta.chain_accept(a, b, cols.cpu(), sums.cpu(), H)
-            shape = f"L={cols.shape[0]} H={H}"
-        elif name == "K4":
-            terms, a_bar, b_bar, a_i = last
-
-            def launch():
-                chains.launch_gammadir(terms, a_bar, b_bar, a_i)
-
-            def plain():
-                from bpp_tpu_torch.mcmc.clock_moves import _gammadir_chain
-                host = terms.cpu().T.numpy()
-                mask = host[5] > 0.5
-                nl = float(mask.sum())
-                _gammadir_chain(host[:5], mask, a_bar, a_i * nl, b_bar / nl,
-                                a_i)
-            shape = f"L={terms.shape[0]}"
-        else:
+        saved = chains.launch_counts()
+        if name == "K5":
             args, _ = last
 
             def launch():
@@ -2895,7 +3047,15 @@ def chains_phase(smi):
                 mig_moves.simspr_walk_ref(*args)
             shape = (f"L={args[0].shape[0]} E={args[0].shape[1]} "
                      f"S={args[18].shape[1]} ME={args[19]}")
-        saved = chains.launch_counts()
+        else:
+            def launch():
+                chain_launch(name, last)
+
+            def plain():
+                chain_plain(name, last)
+            L = (last[2] if name == "K3" else last[0]).shape[0]
+            shape = f"L={L}" + (f" H={last[4]}" if name == "K3" else "")
+            depth = chains.chain_depth(last[4] if name == "K3" else 1)
         ms = kernel_device_ms(launch, kname, reps=20)
         chains.set_launch_counts(saved)
         plain_ms = wall_ms(plain)
@@ -2912,15 +3072,29 @@ def chains_phase(smi):
                 f"plain| of the 0/1 decisions {r['err']:.0f}"
                 if name != "K5" else f"{r['loci']} loci compared, decisions "
                 "equal where clear of a tie")
+        walk = ""
+        if name != "K5":
+            prop = chain_proposing(name, last)
+            per = (float(chain_changed(last).sum(1).double().mean())
+                   if name == "K3" else 0.0)
+            walk = (f" | {prop} proposing loci, {ms * 1e6 / prop:.1f} ns a "
+                    f"proposing locus" + (
+                        f" ({per:.2f} populations changed a proposing locus)"
+                        if name == "K3" else "")
+                    + f" | lookahead depth {depth}")
         print(f"[chains] {name} {kname} ({shape}): {r['calls']} calls held, "
               f"{held}; loci near a tie "
               f"(< {CHAIN_TIE if name != 'K5' else WALK_TIE}) {sum(near)} "
               f"(max {max(near)} a call; gate {gate})"
               + (f", max |dt| {r['err']:.3e}" if name == "K5" else "")
-              + f" | device {ms:.4f} ms a launch (profiler) | {n_iter} "
+              + f" | device {ms:.4f} ms a launch (profiler){walk} | {n_iter} "
               f"launches an iteration ({where}) | plain version {plain_ms:.2f}"
               f" ms | bound {bms:.3e} ms ({by}) | {smi}")
         rows[name] = (ms, plain_ms, bms, by, r["err"])
+        if name != "K5":
+            parent_cases += chain_tiled(name, last, smi)
+    if parent is not None:
+        parent_chain_times(parent, parent_cases, smi)
     return rows
 
 
@@ -2955,6 +3129,7 @@ GRAPH_HEAVY_WINDOW = 2
 GRAPH_TRACE_ITERS = 3
 GRAPH_HEAVY_TRACE = 2
 GRAPH_RETRACE = 20000
+GRAPH_RETRACES = 3
 GRAPH_ITERS = 6
 GRAPH_BURNIN, GRAPH_NSAMPLE = 8, 4
 
@@ -3115,23 +3290,35 @@ def graph_phase(label, ctl, smi, x64=False, cli_compare=True,
         missed other kernels too and is taken again (as in
         ``profile_step``; a step with none takes the first).  A trace of
         more than ``GRAPH_RETRACE`` kernels an iteration can lose a few
-        dozen others while it holds every pruning launch (either route):
-        such a step is traced twice and the fuller trace kept."""
+        dozen others while it holds every pruning launch (either route;
+        main 22's replayed step once lost 764 of 20,642 in two traces):
+        such a step is traced ``GRAPH_RETRACES`` times and the fullest
+        trace kept.  Where a step was traced more than once, prints each
+        trace's kernels an iteration and the one kept."""
         n = trace_iters
-        whole = []
+        whole, seen = [], []
         for _ in range(attempts):
             kern = device_kernels(lambda: advance(n))
             held = sum(1 for name, _ in kern if "pack_logl_kernel" in name
                        or "fels_site_logl_kernel" in name)
+            seen.append(f"{len(kern) / n:.0f}" + (
+                "" if held == n * passes else
+                f" (held {held} of {n * passes} pruning launches)"))
             if held == n * passes:
                 whole.append(kern)
-                if len(whole) == 2 or len(kern) <= n * GRAPH_RETRACE:
+                if (len(whole) == GRAPH_RETRACES
+                        or len(kern) <= n * GRAPH_RETRACE):
                     break
         if not whole:
             raise AssertionError(f"[graph] {label}: no profiler trace of "
                                  f"{attempts} held all {n * passes} pruning "
                                  f"launches (the last held {held})")
         kern = max(whole, key=len)
+        if len(seen) > 1:
+            print(f"[graph] {label} {route}: {len(seen)} profiler traces of "
+                  f"{n} iterations, device kernels an iteration "
+                  + ", ".join(seen) + f"; kept {len(kern) / n:.0f}",
+                  flush=True)
         return len(kern) / n, sum(us for _, us in kern) / 1e3 / n
 
     for route in ("eager", "graph"):
@@ -4603,7 +4790,7 @@ def main(argv=None) -> int:
 
             # 42. K3, K4 and K5 against their plain versions on the main
             # paths' calls
-            chain_rows = chains_phase(smi)
+            chain_rows = chains_phase(smi, parent)
 
             lap("[chains]")
 

@@ -20,6 +20,13 @@
   within 4 Monte Carlo standard errors (20 batch means).  (mubar is
   recovered under tip dating, ``test_torch_tipdate.py``; mu_i and mubar
   under the strict clock, ``test_torch_subst_moves.py``.)
+* The Gamma-Dirichlet accept chain's plain version (``gammadir_accept``
+  on the CPU, what kernel K4 is held against on the card) takes
+  bpp_tpu's decisions on the inputs of bpp_tpu's mu_i and nu_i scans,
+  read at the scan, and on those inputs with every uniform moved to
+  1e-7..1e-6 from its threshold under the serial carry (bpp_tpu's scan
+  rerun on them): equal but for a first disagreement at a near tie
+  (< 1e-9).
 """
 
 import jax.numpy as jnp
@@ -305,3 +312,109 @@ def test_prior_recovery_simple_clock(tmp_path):
     r = _run(eng, state, [clock_moves.brate_simple_move], 4000,
              lambda s: s.clock.brate[0])
     _check_moments(r, 1.0, 1.0 + 1.0 / a, "simple rates")
+
+
+@pytest.fixture(scope="module")
+def gdir_chain(tmp_path_factory):
+    """bpp_tpu's engine and starting state on 40 loci under the prior,
+    clock = 3 with Gamma-Dirichlet mu_i and nu_i."""
+    from bpp_tpu_torch.testing import write_simulated_run
+    tmp = tmp_path_factory.mktemp("torchclock-gdir")
+    ctl = write_simulated_run(tmp, n_loci=40, n_sites=40, usedata=0,
+                              priors=("locusrate = 1 10 10 5",
+                                      "clock = 3 10 100 5 gdir LN"))
+    engj = _jax_engine(ctl)
+    assert engj.cfg.locusrate_prior == 0
+    return engj, engj.init_state()
+
+
+def _bpp_tpu_scan(engj, state_j, move, key, monkeypatch):
+    """``bpp_tpu``'s move on ``state_j`` with ``key``, its Gamma-Dirichlet
+    ``lax.scan`` (clock_moves.py:212 / :296) read as it runs: (the move's
+    locals at the scan, the scan's body, init and inputs, its decisions)."""
+    import sys
+
+    import jax
+    real = jax.lax.scan
+    seen = []
+
+    def spy(body, init, xs, *a, **kw):
+        carry, ys = real(body, init, xs, *a, **kw)
+        seen.append((dict(sys._getframe(1).f_locals), body, init, xs, ys))
+        return carry, ys
+
+    monkeypatch.setattr(jax.lax, "scan", spy)
+    try:
+        move(engj.ctx, engj.cfg, state_j, jax.random.PRNGKey(key))
+    finally:
+        monkeypatch.undo()
+    found = [s for s in seen if "terma" in s[0]]
+    assert len(found) == 1, len(seen)
+    return found[0]
+
+
+def _edge_uniforms(mo, mn, lratio, mask, a_bar, terma, termb, rng):
+    """Uniforms that put every proposing locus's decision 1e-7..1e-6 from
+    its threshold under the serial carry (``_gammadir_chain``'s walk in
+    its arithmetic), accepted or rejected at random."""
+    u = np.ones(len(mo))
+    sum_mu = float(mo[mask].sum())
+    for i in np.flatnonzero(mask):
+        sum_new = sum_mu + mn[i] - mo[i]
+        lnacc = ((a_bar - terma) * np.log(sum_new / sum_mu)
+                 - termb * (sum_new - sum_mu) + lratio[i])
+        acc = rng.random() < 0.5
+        gap = rng.uniform(1e-7, 1e-6)
+        u[i] = np.exp(lnacc - gap if acc else lnacc + gap)
+        if acc:
+            sum_mu = sum_new
+    return u
+
+
+@pytest.mark.parametrize("move", ["mui", "nui"])
+def test_gammadir_chain_matches_bpp_tpu_scans(gdir_chain, move, monkeypatch):
+    import types
+
+    import jax
+    from bpp_tpu.mcmc import clock_moves as cmj
+    engj, state_j = gdir_chain
+    cfg = engj.cfg
+    if move == "mui":
+        fn, a_bar, b_bar, a_i = (cmj.mui_move, cfg.locusrate_mubar_a,
+                                 cfg.locusrate_mubar_b, cfg.locusrate_alpha)
+    else:
+        fn, a_bar, b_bar, a_i = (cmj.nui_move, cfg.clock_vbar_a,
+                                 cfg.clock_vbar_b, cfg.clock_vi_alpha)
+    rng = np.random.default_rng(3)
+    decided = np.zeros(2, int)
+    for key in range(8):
+        _, body, init, xs, want = _bpp_tpu_scan(engj, state_j, fn, key,
+                                                monkeypatch)
+        xs = [np.array(x) for x in xs]
+        if move == "mui":
+            mo, mn, dlog, dlo, dlr, u, mask = xs
+            ddens, iu = dlo + dlr, 5
+        else:
+            mo, mn, dlog, dlr, u, mask = xs
+            ddens, iu = dlr, 4
+        nl = float(mask.sum())
+        lratio = (a_i - 1.0) * np.log(mn / mo) + dlog + ddens
+        for edge in (False, True):
+            if edge:
+                u = _edge_uniforms(mo, mn, lratio, mask, a_bar, a_i * nl,
+                                   b_bar / nl, rng)
+                xs[iu] = u
+                _, want = jax.lax.scan(body, init, tuple(
+                    jnp.asarray(x) for x in xs))
+            want = np.asarray(want)
+            ctx = types.SimpleNamespace(locus_mask=torch.as_tensor(mask),
+                                        shard=None)
+            margin = np.full(len(mo), np.inf)
+            got = clock_moves.gammadir_accept(
+                ctx, *(torch.as_tensor(x) for x in (mo, mn, dlog, ddens, u)),
+                a_bar, b_bar, a_i, margin=margin).numpy()
+            differ = np.flatnonzero(got != want)
+            assert not len(differ) or margin[differ[0]] < 1e-9, (
+                key, edge, differ, margin[differ])
+            decided += [int(got[mask].sum()), int((~got[mask]).sum())]
+    assert decided.min() > 0, decided

@@ -1102,69 +1102,283 @@ def _masks_agree(got, want, margin):
     assert near.sum() <= 1
 
 
-@pytest.mark.parametrize("H", [7, 40])
-@pytest.mark.parametrize("seed", [0, 1])
-def test_notheta_chain_kernel_matches_plain(H, seed):
-    """K3 on random integrated-theta chains of 500 loci (7 populations, and
-    40, past one warp's lanes) against ``notheta.accept_chain``."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    from bpp_tpu_torch.mcmc import notheta
-    rng = np.random.default_rng(seed)
-    L = 500
+CHAIN_REGIMES = ["random", "all", "none", "alternating", "edge"]
+CHAIN_LOCI = [1, 5, 31, 33, 1000, 10000]
+
+
+def _regime_dother(rng, L, regime):
+    """The locus-factorizing part of ln acceptance: every proposing locus
+    accepted ("all"), none ("none"), runs of three of each
+    ("alternating"), else random."""
+    if regime == "all":
+        return np.full(L, 50.0)
+    if regime == "none":
+        return np.full(L, -50.0)
+    if regime == "alternating":
+        return np.where((np.arange(L) // 3) % 2 == 0, 50.0, -50.0)
+    return rng.normal(0.0, 1.0, L)
+
+
+def _k3_case(rng, L, H, regime, a=3.0, b=0.03):
+    """(cols, sums) of a random integrated-theta chain: gene-tree-like
+    proposals on 80% of the loci, a tenth of them proposing their current
+    rows (no population changes), the last three loci padded (no
+    proposal) where L > 5.  "edge": log u puts every proposing locus's
+    decision 1e-7..1e-6 from its threshold under the serial walk's carry,
+    accepted or rejected at random (a decision taken under another carry
+    would differ)."""
+    import math
     co = rng.integers(0, 5, (L, H)).astype(np.float64)
     to = rng.gamma(2.0, 0.02, (L, H)) * (co > 0)
     mask = rng.random(L) < 0.8
+    if L > 5:
+        mask[-3:] = False
     cn = co.copy()
-    src = rng.integers(0, H, L)
-    dst = (src + 1 + rng.integers(0, H - 1, L)) % H
-    move = mask & (cn[np.arange(L), src] > 0)
-    cn[np.arange(L)[move], src[move]] -= 1
-    cn[np.arange(L)[move], dst[move]] += 1
+    if H > 1:
+        src = rng.integers(0, H, L)
+        dst = (src + 1 + rng.integers(0, H - 1, L)) % H
+        move = mask & (cn[np.arange(L), src] > 0)
+        cn[np.arange(L)[move], src[move]] -= 1
+        cn[np.arange(L)[move], dst[move]] += 1
     tn = np.where(mask[:, None], to * rng.uniform(0.7, 1.4, (L, H)), to)
-    cols = np.concatenate([co, cn, to, tn, np.stack([
-        rng.normal(0.0, 1.0, L), rng.normal(0.0, 0.1, L),
-        np.log(rng.random(L)), mask.astype(np.float64)], 1)], 1)
+    same = rng.random(L) < 0.1
+    cn[same], tn[same] = co[same], to[same]
+    dh = rng.normal(0.0, 0.1, L)
+    dother = _regime_dother(rng, L, regime)
+    logu = np.log(rng.random(L))
     sums = np.concatenate([co.sum(0), to.sum(0)])
-    c64, s64 = torch.as_tensor(cols), torch.as_tensor(sums)
-    got = notheta.chain_accept(3.0, 0.03, c64.cuda(), s64.cuda(), H)
-    torch.cuda.synchronize()
-    margin = np.full(L, np.inf)
-    want = notheta.chain_accept(3.0, 0.03, c64, s64, H, margin)
-    assert 0 < int(want.sum()) < int(mask.sum())
-    _masks_agree(got, want, margin)
+    if regime == "edge":
+        def term(k, c):
+            return math.lgamma(a + k) - (a + k) * math.log(b + c)
+        K, C = sums[:H].tolist(), sums[H:].tolist()
+        g = [term(k, c) for k, c in zip(K, C)]
+        dK, dC = (cn - co).tolist(), (tn - to).tolist()
+        rhs = (dother + dh).tolist()
+        for i in np.flatnonzero(mask).tolist():
+            dlg, upd = 0.0, []
+            for h in range(H):
+                if dK[i][h] != 0.0 or dC[i][h] != 0.0:
+                    k, c = K[h] + dK[i][h], C[h] + dC[i][h]
+                    x = term(k, c)
+                    dlg += x - g[h]
+                    upd.append((h, k, c, x))
+            acc = rng.random() < 0.5
+            gap = rng.uniform(1e-7, 1e-6)
+            logu[i] = rhs[i] + dlg + (-gap if acc else gap)
+            if acc:
+                for h, k, c, x in upd:
+                    K[h], C[h], g[h] = k, c, x
+    cols = np.concatenate([co, cn, to, tn, np.stack([
+        dother, dh, logu, mask.astype(np.float64)], 1)], 1)
+    return torch.as_tensor(cols), torch.as_tensor(sums), mask
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_gammadir_chain_kernel_matches_plain(seed):
-    """K4 on random Gamma-Dirichlet mu_i chains of 1000 loci (a few padded
-    loci) against ``clock_moves._gammadir_chain``."""
+def _k4_case(rng, L, regime, a_bar=10.0, b_bar=10.0, a_i=5.0):
+    """(terms [L, 6], proposing mask) of a random Gamma-Dirichlet mu_i
+    chain: a tenth of the loci propose their current value, the last three
+    are padded where L > 5; "edge" as in :func:`_k3_case`."""
+    old = rng.gamma(10.0, 0.1, L)
+    new = old * np.exp(rng.normal(0.0, 0.3, L))
+    same = rng.random(L) < 0.1
+    new[same] = old[same]
+    dlog = np.log(new / old)
+    ddens = _regime_dother(rng, L, regime)
+    us = rng.random(L)
+    mask = np.ones(L, bool)
+    if L > 5:
+        mask[-3:] = False
+    if regime == "edge":
+        nl = float(mask.sum())
+        terma, termb = a_i * nl, b_bar / nl
+        lratio = (a_i - 1.0) * np.log(new / old) + dlog + ddens
+        sum_mu = float(old[mask].sum())
+        for i in np.flatnonzero(mask):
+            sum_new = sum_mu + new[i] - old[i]
+            lnacc = ((a_bar - terma) * np.log(sum_new / sum_mu)
+                     - termb * (sum_new - sum_mu) + lratio[i])
+            acc = rng.random() < 0.5
+            gap = rng.uniform(1e-7, 1e-6)
+            us[i] = np.exp(lnacc - gap if acc else lnacc + gap)
+            if acc:
+                sum_mu = sum_new
+    terms = np.stack([old, new, dlog, ddens, us, mask.astype(np.float64)], 1)
+    return torch.as_tensor(terms), mask
+
+
+def _k4_plain(terms, a_bar=10.0, b_bar=10.0, a_i=5.0):
+    from bpp_tpu_torch.mcmc import clock_moves
+    host = terms.T.numpy()
+    mask = host[5] > 0.5
+    nl = float(mask.sum())
+    margin = np.full(terms.shape[0], np.inf)
+    want = clock_moves._gammadir_chain(host[:5], mask, a_bar, a_i * nl,
+                                       b_bar / nl, a_i, margin)
+    return torch.as_tensor(want), margin
+
+
+def _held_regime(want, mask, regime):
+    """The plain version's decisions are what the regime asks for."""
+    want = want.numpy()
+    if regime == "all":
+        assert want[mask].all() and not want[~mask].any()
+    elif regime == "none":
+        assert not want.any()
+    elif mask.sum() > 100:
+        assert 0 < want.sum() < mask.sum()
+
+
+@pytest.mark.parametrize("regime", CHAIN_REGIMES)
+@pytest.mark.parametrize("H", [1, 7, 40, 200])
+def test_notheta_chain_kernel_matches_plain(H, regime):
+    """K3 on random integrated-theta chains of 1 .. 10,000 loci (1, 7, 40
+    and 200 populations; padded loci and proposing loci that change no
+    population) against ``notheta.accept_chain``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from bpp_tpu_torch.mcmc import notheta
+    rng = np.random.default_rng(H)
+    for L in CHAIN_LOCI:
+        cols, sums, mask = _k3_case(rng, L, H, regime)
+        got = notheta.chain_accept(3.0, 0.03, cols.cuda(), sums.cuda(), H)
+        torch.cuda.synchronize()
+        margin = np.full(L, np.inf)
+        want = notheta.chain_accept(3.0, 0.03, cols, sums, H, margin)
+        _held_regime(want, mask, regime)
+        _masks_agree(got, want, margin)
+
+
+@pytest.mark.parametrize("regime", CHAIN_REGIMES)
+def test_gammadir_chain_kernel_matches_plain(regime):
+    """K4 on random Gamma-Dirichlet mu_i chains of 1 .. 10,000 loci (padded
+    loci, loci proposing their current value) against
+    ``clock_moves._gammadir_chain`` through ``gammadir_accept``."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     import types
 
     from bpp_tpu_torch.mcmc import clock_moves
-    rng = np.random.default_rng(seed)
-    L = 1000
-    old = rng.gamma(10.0, 0.1, L)
-    new = old * np.exp(rng.normal(0.0, 0.3, L))
-    dlog = np.log(new / old)
-    ddens = rng.normal(0.0, 1.0, L)
-    us = rng.random(L)
-    lmask = np.ones(L, bool)
-    lmask[-3:] = False
-    args = [torch.as_tensor(x) for x in (old, new, dlog, ddens, us)]
-    ctx = types.SimpleNamespace(locus_mask=torch.as_tensor(lmask),
-                                shard=None)
-    cctx = types.SimpleNamespace(locus_mask=ctx.locus_mask.cuda(),
-                                 shard=None)
-    got = clock_moves.gammadir_accept(cctx, *(x.cuda() for x in args), 10.0,
-                                      10.0, 5.0)
+    rng = np.random.default_rng(7)
+    for L in CHAIN_LOCI:
+        terms, mask = _k4_case(rng, L, regime)
+        args = [terms[:, k].contiguous() for k in range(5)]
+        cctx = types.SimpleNamespace(locus_mask=torch.as_tensor(mask).cuda(),
+                                     shard=None)
+        got = clock_moves.gammadir_accept(cctx, *(x.cuda() for x in args),
+                                          10.0, 10.0, 5.0)
+        torch.cuda.synchronize()
+        want, margin = _k4_plain(terms)
+        _held_regime(want, mask, regime)
+        _masks_agree(got, want, margin)
+
+
+def _first_h_at(depth):
+    """The fewest populations at which K3 resolves ``depth`` loci a round
+    (its depth falls as H grows)."""
+    from bpp_tpu_torch.core import chains
+    lo, hi = 1, 5000
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if chains.chain_depth(mid) <= depth:
+            hi = mid
+        else:
+            lo = mid + 1
+    return lo
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3, 4, 5])
+def test_notheta_chain_kernel_at_every_depth(depth):
+    """K3 at each depth the population count leaves it (5 loci a round
+    down to 1, at the fewest populations that lower it there: tiles of a
+    few loci) against ``notheta.accept_chain``, on chains whose decisions
+    sit at the edge of their thresholds and on random ones."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from bpp_tpu_torch.core import chains
+    from bpp_tpu_torch.mcmc import notheta
+    H = _first_h_at(depth)
+    assert chains.chain_depth(H) == depth
+    assert depth == 5 or chains.chain_depth(H - 1) > depth
+    rng = np.random.default_rng(depth)
+    for regime in ("edge", "random"):
+        cols, sums, _ = _k3_case(rng, 40, H, regime)
+        got = chains.launch_notheta(cols.cuda(), sums.cuda(), H, 3.0, 0.03)
+        torch.cuda.synchronize()
+        margin = np.full(40, np.inf)
+        want = notheta.chain_accept(3.0, 0.03, cols, sums, H, margin)
+        _masks_agree(got, want, margin)
+
+
+def test_notheta_chain_kernel_off_its_table():
+    """K3 where the carry's counts leave the kernel's lgamma table (K0 +-
+    128 counts): every proposing locus moves a coalescence from population
+    0 to 1, so K_1 drifts by one a locus accepted; decisions at the edge
+    of their thresholds (half accepted) and all accepted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import math
+
+    from bpp_tpu_torch.mcmc import notheta
+    rng = np.random.default_rng(64)
+    H, L = 7, 1000
+    for edge in (True, False):
+        co = np.full((L, H), 2.0)
+        cn = co.copy()
+        cn[:, 0] -= 1
+        cn[:, 1] += 1
+        to = rng.gamma(2.0, 0.02, (L, H))
+        tn = to * rng.uniform(0.7, 1.4, (L, H))
+        logu = np.log(rng.random(L))
+        sums = np.concatenate([co.sum(0), to.sum(0)])
+        if edge:
+            def term(k, c):
+                return math.lgamma(3.0 + k) - (3.0 + k) * math.log(0.03 + c)
+            K, C = sums[:H].tolist(), sums[H:].tolist()
+            for i in range(L):
+                new = [(k + d, c + e) for k, c, d, e in zip(
+                    K, C, (cn[i] - co[i]).tolist(), (tn[i] - to[i]).tolist())]
+                dlg = 0.0
+                for h in range(H):
+                    dlg += term(*new[h]) - term(K[h], C[h])
+                acc = rng.random() < 0.5
+                logu[i] = dlg + (-1.0 if acc else 1.0) * rng.uniform(1e-7, 1e-6)
+                if acc:
+                    K, C = [k for k, _ in new], [c for _, c in new]
+        dother = np.zeros(L) if edge else np.full(L, 50.0)
+        cols = torch.as_tensor(np.concatenate([co, cn, to, tn, np.stack([
+            dother, np.zeros(L), logu, np.ones(L)], 1)], 1))
+        sums = torch.as_tensor(sums)
+        got = notheta.chain_accept(3.0, 0.03, cols.cuda(), sums.cuda(), H)
+        torch.cuda.synchronize()
+        margin = np.full(L, np.inf)
+        want = notheta.chain_accept(3.0, 0.03, cols, sums, H, margin)
+        assert int(want.sum()) > 200
+        _masks_agree(got, want, margin)
+
+
+def test_notheta_chain_kernel_refuses_past_the_shared_budget():
+    """K3 takes every population count up to 465 (what a one-warp walk
+    over 40 KB tiles took) and refuses one whose tile of loci does not fit
+    the block's shared memory, launching nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from bpp_tpu_torch.core import chains
+    from bpp_tpu_torch.mcmc import notheta
+    rng = np.random.default_rng(465)
+    cols, sums, _ = _k3_case(rng, 33, 465, "random")
+    assert chains.chain_depth(465) > 0
+    got = notheta.chain_accept(3.0, 0.03, cols.cuda(), sums.cuda(), 465)
     torch.cuda.synchronize()
-    margin = np.full(L, np.inf)
-    want = clock_moves.gammadir_accept(ctx, *args, 10.0, 10.0, 5.0, margin)
-    assert 0 < int(want.sum()) < L - 3
+    margin = np.full(33, np.inf)
+    want = notheta.chain_accept(3.0, 0.03, cols, sums, 465, margin)
     _masks_agree(got, want, margin)
+    H = 5000
+    assert chains.chain_depth(H) == 0
+    before = chains.LAUNCHES_NOTHETA
+    with pytest.raises(ValueError, match="shared memory"):
+        notheta.chain_accept(3.0, 0.03, torch.zeros(
+            (2, 4 * H + 4), dtype=torch.float64, device="cuda"), torch.zeros(
+            2 * H, dtype=torch.float64, device="cuda"), H)
+    assert chains.LAUNCHES_NOTHETA == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

@@ -3,9 +3,15 @@ on the CPU in float64.
 
 * ``msc_logprob_integrated`` equals bpp_tpu's on random counts and
   waiting sums with a padded locus (rtol 1e-10).
-* The host accept chain (``notheta.accept_chain``) takes the same
-  decisions as bpp_tpu's ``scan_accept`` on the same uniforms, for
-  gene-tree-like proposals and for heredity proposals (exact booleans).
+* The host accept chain (``notheta.accept_chain``, what kernel K3 is
+  held against on the card) takes the same decisions as bpp_tpu's
+  ``scan_accept`` on the same uniforms (exact booleans), for
+  gene-tree-like proposals and for heredity proposals, and in the
+  regimes K3's lookahead stresses: every proposing locus accepted, none,
+  alternating runs, 1 and 40 populations, 61 loci, proposing loci that
+  change no population, and every decision within 1e-7..1e-6 of its
+  threshold under the serial carry (a decision taken under another
+  carry would differ).
 * After each move of the chain (ages, SPR, tau, mixing, heredity) the
   ``coal``/``t2h`` caches equal a fresh evaluation exactly and ``logl``
   to float64 roundoff; logpr stays 0.
@@ -64,14 +70,61 @@ def test_msc_logprob_integrated_matches_bpp_tpu():
     np.testing.assert_allclose(float(got), float(want), rtol=1e-10)
 
 
-@pytest.mark.parametrize("seed", [0, 1, 2])
-@pytest.mark.parametrize("kind", ["gene-trees", "heredity"])
-def test_accept_chain_matches_bpp_tpu_scan_accept(ctl, kind, seed):
+# (kind, seed, regime, H, L): the first six as before; then the regimes
+# K3's lookahead stresses
+CHAIN_CASES = [pytest.param(kind, seed, "random", 7, 60, id=f"{kind}-{seed}")
+               for kind in ("gene-trees", "heredity") for seed in (0, 1, 2)]
+CHAIN_CASES += [
+    pytest.param("gene-trees", 3, "all", 7, 60, id="all-accepted"),
+    pytest.param("gene-trees", 4, "none", 7, 60, id="none-accepted"),
+    pytest.param("gene-trees", 5, "alternating", 7, 60, id="alternating"),
+    pytest.param("gene-trees", 6, "random", 1, 60, id="H1"),
+    pytest.param("gene-trees", 7, "random", 40, 60, id="H40"),
+    pytest.param("gene-trees", 8, "random", 7, 61, id="L61"),
+    pytest.param("gene-trees", 9, "unchanged", 7, 60, id="no-change"),
+    pytest.param("gene-trees", 10, "edge", 7, 61, id="edge"),
+    pytest.param("heredity", 11, "edge", 40, 61, id="heredity-edge"),
+]
+
+
+def _edge_dother(a, b, K0, C0, co, cn, to, tn, dh, logu, mask, rng):
+    """dother that puts every proposing locus's decision 1e-7..1e-6 from
+    its threshold under the serial walk's carry, accepted or rejected at
+    random (the walk of ``notheta.accept_chain``, in the same
+    arithmetic)."""
+    import math
+
+    def term(k, c):
+        return math.lgamma(a + k) - (a + k) * math.log(b + c)
+    K, C = [float(k) for k in K0], [float(c) for c in C0]
+    g = [term(k, c) for k, c in zip(K, C)]
+    dK, dC = (cn - co).tolist(), (tn - to).tolist()
+    dother = np.zeros(len(logu))
+    for i in np.flatnonzero(mask).tolist():
+        dlg, upd = 0.0, []
+        for h in range(len(K)):
+            if dK[i][h] != 0.0 or dC[i][h] != 0.0:
+                k, c = K[h] + dK[i][h], C[h] + dC[i][h]
+                x = term(k, c)
+                dlg += x - g[h]
+                upd.append((h, k, c, x))
+        acc = rng.random() < 0.5
+        gap = rng.uniform(1e-7, 1e-6)
+        dother[i] = logu[i] - dh[i] - dlg + (gap if acc else -gap)
+        if acc:
+            for h, k, c, x in upd:
+                K[h], C[h], g[h] = k, c, x
+    return dother
+
+
+@pytest.mark.parametrize("kind,seed,regime,H,L", CHAIN_CASES)
+def test_accept_chain_matches_bpp_tpu_scan_accept(ctl, kind, seed, regime,
+                                                  H, L):
     from bpp_tpu.mcmc.notheta import scan_accept as sj
     eng = _port_engine(ctl)
     cfg = eng.cfg
+    a, b = cfg.thetaprior.alpha, cfg.thetaprior.beta
     rng = np.random.default_rng(seed)
-    L, H = 60, 7
     coal_o = rng.integers(0, 5, (L, H))
     t2_o = rng.gamma(2.0, 0.02, (L, H)) * (coal_o > 0)
     h_o = rng.uniform(0.5, 1.5, L)
@@ -82,36 +135,69 @@ def test_accept_chain_matches_bpp_tpu_scan_accept(ctl, kind, seed):
     if kind == "gene-trees":
         # a coalescence moves between two populations, waiting times change
         coal_n = coal_o.copy()
-        src = rng.integers(0, H, L)
-        dst = (src + 1 + rng.integers(0, H - 1, L)) % H
-        move = mask & (coal_n[np.arange(L), src] > 0)
-        coal_n[np.arange(L)[move], src[move]] -= 1
-        coal_n[np.arange(L)[move], dst[move]] += 1
+        if H > 1:
+            src = rng.integers(0, H, L)
+            dst = (src + 1 + rng.integers(0, H - 1, L)) % H
+            move = mask & (coal_n[np.arange(L), src] > 0)
+            coal_n[np.arange(L)[move], src[move]] -= 1
+            coal_n[np.arange(L)[move], dst[move]] += 1
         t2_n = np.where(mask[:, None],
                         t2_o * rng.uniform(0.7, 1.4, (L, H)), t2_o)
         h_n = h_o
     else:
         coal_n, t2_n = coal_o, t2_o
         h_n = np.where(mask, h_o * rng.uniform(0.8, 1.25, L), h_o)
-    dother = rng.normal(0.0, 1.0, L)
+    if regime == "unchanged":
+        # a third of the proposing loci propose their current rows
+        same = mask & (rng.random(L) < 0.33)
+        coal_n = np.where(same[:, None], coal_o, coal_n)
+        t2_n = np.where(same[:, None], t2_o, t2_n)
     key = jax.random.PRNGKey(seed)
-    want = np.asarray(sj(key, cfg, jnp.asarray(dother), jnp.asarray(coal_o),
-                         jnp.asarray(t2_o), jnp.asarray(h_o),
-                         jnp.asarray(coal_n), jnp.asarray(t2_n),
-                         jnp.asarray(h_n), jnp.asarray(mask),
-                         jnp.asarray(locus_mask)))
     us = np.asarray(jax.random.uniform(key, (L,)))
     K0, C0 = notheta.pop_sums(torch.as_tensor(coal_o), torch.as_tensor(t2_o),
                               torch.as_tensor(h_o),
                               torch.as_tensor(locus_mask))
     dh = (coal_n.sum(1) * np.log(2.0 / h_n)
           - coal_o.sum(1) * np.log(2.0 / h_o))
-    got = notheta.accept_chain(
-        cfg.thetaprior.alpha, cfg.thetaprior.beta, K0.numpy(), C0.numpy(),
-        coal_o, coal_n, t2_o / h_o[:, None], t2_n / h_n[:, None], dother,
-        dh, np.log(us), mask)
-    assert 0 < got.sum() < mask.sum()
+    to, tn = t2_o / h_o[:, None], t2_n / h_n[:, None]
+    dother = {"all": np.full(L, 50.0), "none": np.full(L, -50.0),
+              "alternating": np.where((np.arange(L) // 3) % 2 == 0, 50.0,
+                                      -50.0)}.get(regime)
+    if regime == "edge":
+        dother = _edge_dother(a, b, K0.numpy(), C0.numpy(), coal_o, coal_n,
+                              to, tn, dh, np.log(us), mask, rng)
+    elif dother is None:
+        dother = rng.normal(0.0, 1.0, L)
+    want = np.asarray(sj(key, cfg, jnp.asarray(dother), jnp.asarray(coal_o),
+                         jnp.asarray(t2_o), jnp.asarray(h_o),
+                         jnp.asarray(coal_n), jnp.asarray(t2_n),
+                         jnp.asarray(h_n), jnp.asarray(mask),
+                         jnp.asarray(locus_mask)))
+    got = notheta.accept_chain(a, b, K0.numpy(), C0.numpy(), coal_o, coal_n,
+                               to, tn, dother, dh, np.log(us), mask)
+    if regime == "all":
+        assert got.sum() == mask.sum()
+    elif regime == "none":
+        assert got.sum() == 0
+    else:
+        assert 0 < got.sum() < mask.sum()
     np.testing.assert_array_equal(got, want)
+
+
+def test_chain_launchers_take_only_cuda_tensors():
+    """K3/K4's launchers refuse host tensors before they build or launch
+    anything, and count no launch (the wrappers send host tensors to the
+    plain versions)."""
+    from bpp_tpu_torch.core import chains
+    cols = torch.zeros((3, 8), dtype=torch.float64)
+    sums = torch.zeros(2, dtype=torch.float64)
+    terms = torch.zeros((3, 6), dtype=torch.float64)
+    before = chains.launch_counts()
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
+        chains.launch_notheta(cols, sums, 1, 3.0, 0.03)
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
+        chains.launch_gammadir(terms, 10.0, 10.0, 5.0)
+    assert chains.launch_counts() == before
 
 
 MOVES = [("age", moves.age_block_move), ("spr", moves.spr_round_move),
