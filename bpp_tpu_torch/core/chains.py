@@ -3,7 +3,7 @@ over loci: K3 ``notheta_chain`` and K4 ``gammadir_chain``
 (``csrc/chain_kernel.cu``, the serial accept chains of integrated thetas
 and of Gamma-Dirichlet locus rates, each resolving several loci a round
 by lookahead: :func:`chain_depth`) and K5 ``simspr_walk``
-(``csrc/simwalk_kernel.cu``, MSC-M's sim-SPR walk).
+(``csrc/simwalk_kernel.cu``, MSC-M's sim-SPR walk, a warp a locus).
 
 Each ``launch_*`` checks its CUDA tensors, allocates the outputs and
 launches on the current stream; a refused launch raises.  The wrappers

@@ -246,9 +246,11 @@ class StepGraph:
 
     # --- capture and replay -------------------------------------------------
 
-    def capture(self):
+    def capture(self, keep=False):
         """Warm up on a side stream, undo the warm-up, capture (the card
-        only)."""
+        only).  ``keep``: each graph keeps its ``cudaGraph_t`` beside the
+        executable graph (``torch.cuda.CUDAGraph(keep_graph=True)``), so
+        that ``raw_cuda_graph()`` can be read (its nodes counted)."""
         dev = self.device
         t0 = time.perf_counter()
         counts = launch_counts()
@@ -276,11 +278,14 @@ class StepGraph:
         graphs = []
         try:
             for gens, body in parts:
-                graph = torch.cuda.CUDAGraph()
+                graph = (torch.cuda.CUDAGraph(keep_graph=True) if keep
+                         else torch.cuda.CUDAGraph())
                 for g in gens:
                     graph.register_generator_state(g)
                 with torch.cuda.graph(graph, pool=pool, stream=side):
                     body()
+                if keep:
+                    graph.instantiate()
                 graphs.append(graph)
         except Exception as exc:
             raise RuntimeError(

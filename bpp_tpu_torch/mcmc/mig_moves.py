@@ -24,7 +24,7 @@ prior given the rest of the gene tree, so its acceptance is the
 likelihood ratio only (gtree.c:9368).
 
 ``bpp_tpu`` walks the sim-SPR lineages in a ``lax.while_loop``; here
-the walk is kernel K5 (``csrc/simwalk_kernel.cu``, one thread a locus)
+the walk is kernel K5 (``csrc/simwalk_kernel.cu``, one warp a locus)
 on the card and :func:`simspr_walk_ref` on the CPU, both reading one
 block of uniforms drawn before the walk, so the step reads nothing back
 to the host.  The coalescence rate's floor on ``theta * heredity`` is
@@ -842,7 +842,7 @@ def simspr_walk(t_lo, t_hi, pop_lo, live_e, pptable, tau, partau_f, theta,
                 is_valid, unif, ME: int):
     """The sim-SPR walk (arguments and result as
     :func:`simspr_walk_ref`): on CUDA tensors kernel K5
-    (``csrc/simwalk_kernel.cu``, one thread a locus, no host read), on CPU
+    (``csrc/simwalk_kernel.cu``, one warp a locus, no host read), on CPU
     tensors the plain version."""
     args = (t_lo, t_hi, pop_lo, live_e, pptable, tau, partau_f, theta,
             parent, si, ti, d_lo, d_hi, route_M, heredity, t0, p0, is_valid,

@@ -9,7 +9,8 @@ haploid, or with unphased diploid species; on the MSC-I network
 writes a run control file for it; ``state_arrays`` and ``port_state``
 hand a sampler state (``bpp_tpu``'s too) to the port;
 ``write_partition_file`` writes the partition file of ``model =
-custom``; ``generate_aa_benchmark`` (a copy of ``bpp_tpu/testing.py``'s)
+custom``; ``synthetic_walks`` makes the inputs of MSC-M's sim-SPR walk;
+``generate_aa_benchmark`` (a copy of ``bpp_tpu/testing.py``'s)
 writes the WAG amino-acid dataset of ``bench.py``; ``fixed_subst`` builds
 a substitution state per DNA model family with fixed parameters;
 ``ess`` is a chain's effective sample size, for prior-recovery bands.
@@ -436,6 +437,137 @@ def shaped_batch(n_tips: int = 16, n_cols: int = 200, seed: int = 0,
                 t(parent, torch.int64), t(age, dtype))
     return (gt, t(n_seq, torch.int64), t(n_pat, torch.int64),
             t(tips, dtype), t(weights, dtype))
+
+
+# the kinds of locus :func:`synthetic_walks` makes
+WALK_KINDS = ("walks", "invalid", "no live sub-edge", "fills ME")
+
+
+# (E sub-edges, L loci, H populations, routes between every sister pair)
+# of the walk tests: sub-edge counts about a warp's 32 lanes and past the
+# 64 a locus K5 keeps in registers; the most populations whose float64
+# tables fit K5's 48 KB of shared memory (at K = 4 routes); more routes
+# (62) than a warp has lanes
+WALK_SHAPES = tuple((E, L, 7, False) for E in (1, 31, 32, 33, 63, 97)
+                    for L in (1, 33, 1000)) + ((63, 200, 207, False),
+                                               (63, 200, 63, True))
+
+
+def walk_seed(shape) -> int:
+    """The seed of a walk test's shape (E, L, H, every_pair)."""
+    E, L, H, every_pair = shape
+    return 1000 * E + L + H + 7 * every_pair
+
+
+def walk_id(shape) -> str:
+    """A walk test's name for ``shape``."""
+    E, L, H, every_pair = shape
+    return f"E{E}-L{L}-H{H}" + ("-every-pair" if every_pair else "")
+
+
+def synthetic_walks(L: int, E: int, H: int = 7, ME: int = 8, seed: int = 0,
+                    dtype=torch.float64, device="cpu", every_pair=False):
+    """Random inputs of MSC-M's sim-SPR walk (kernel K5 and
+    ``mig_moves.simspr_walk_ref``): L loci of E sub-edges each on a random
+    species tree of H populations (H odd; the root is H - 1), routes both
+    ways between the root's children and, where it is another pair,
+    between the two tips of a cherry (``every_pair``: between the children
+    of every inner node), and the walk's S = 2 E + 2 H + 2 K + 8 steps of
+    uniforms (``spr_sim_move``'s S, E standing for N + ME).
+
+    Every locus has one lineage that reaches the root (sub-edge 0, up to
+    ``BIG_AGE``), so a walk ends; a sub-edge's population is written as a
+    negative index (counting from the end) at random.  Each locus is of a
+    kind (``WALK_KINDS``): "walks" (a lineage starting in a random
+    population at a random time, 85% of the sub-edges live, moderate
+    route rates), "invalid" (``is_valid`` False), "no live sub-edge" (no
+    lineage to coalesce with; it starts where a route's source is alive,
+    at a rate that fills the ME event slots and fails) and "fills ME"
+    (the same start and rate with live sub-edges).  Where L >= 33, loci
+    1, 2 and 3 are of the last three kinds, and above 100 loci each of
+    them takes 5% more at random.
+
+    Returns (the walk's arguments: the 19 tensors of
+    ``simspr_walk_ref`` and ME, the kinds [L] as indices into
+    ``WALK_KINDS``)."""
+    from .trees.gtree import BIG_AGE
+    from .trees.migration import _FINITE_BIG
+    rng = np.random.default_rng(seed)
+    tau_root = 0.02
+    st = synthetic_species_tree((H + 1) // 2, rng, tau_root=tau_root)
+    if len(st.tau) != H:
+        raise ValueError(f"H = {H}: a species tree has an odd node count")
+    par = st.parent.astype(np.int64)
+    tau = st.tau.astype(np.float64)
+    top = np.where(par >= 0, tau[np.maximum(par, 0)], 1.5 * tau_root)
+    partau = np.where(par >= 0, top, _FINITE_BIG)
+    anc = np.zeros((H, H), bool)
+    for q in range(H):
+        a = q
+        while a >= 0:
+            anc[q, a] = True
+            a = par[a]
+    pairs = []
+    if H > 1:
+        root = H - 1
+        pairs.append((int(st.left[root]), int(st.right[root])))
+        for v in range(H):
+            kids = (int(st.left[v]), int(st.right[v]))
+            if kids[0] < 0 or kids in pairs:
+                continue
+            if every_pair:
+                pairs.append(kids)
+            elif max(kids) < (H + 1) // 2:
+                pairs.append(kids)
+                break
+    si = np.array([x for a, b in pairs for x in (a, b)], np.int64)
+    ti = np.array([x for a, b in pairs for x in (b, a)], np.int64)
+    K = len(si)
+    S = 2 * E + 2 * H + 2 * K + 8
+
+    kind = np.zeros(L, np.int64)
+    if L >= 33:
+        kind[1:4] = (1, 2, 3)
+    if L > 100:
+        pick = rng.random(L)
+        for k in (1, 2, 3):
+            kind[(pick >= 0.05 * (k - 1)) & (pick < 0.05 * k)] = k
+    q = rng.integers(0, H, (L, E))
+    lo = tau[q] + rng.random((L, E)) * (top[q] - tau[q])
+    hi = lo + rng.exponential(0.3 * tau_root, (L, E))
+    hi[:, 0] = BIG_AGE
+    live = rng.random((L, E)) < 0.85
+    live[:, 0] = True
+    live[kind == 2] = False
+    pop_lo = np.where(rng.random((L, E)) < 0.5, q - H, q)
+    p0 = rng.integers(0, H, L)
+    t0 = tau[p0] + rng.random(L) * (top[p0] - tau[p0])
+    route_M = rng.uniform(0.0, 500.0, (L, K))
+    heredity = rng.uniform(0.5, 2.0, L)
+    trap = (kind == 2) | (kind == 3)
+    if K and trap.any():
+        a, b = int(si[0]), int(ti[0])
+        p0[trap] = b
+        start = max(tau[a], tau[b])
+        t0[trap] = start + rng.random(int(trap.sum())) * (top[b] - start)
+        route_M[trap] = 1e8
+    unif = rng.random((3, S, L))
+
+    def f(x):
+        return torch.as_tensor(np.asarray(x, np.float64), dtype=dtype,
+                               device=device)
+
+    def i(x):
+        return torch.as_tensor(np.asarray(x, np.int64), device=device)
+
+    def b(x):
+        return torch.as_tensor(np.asarray(x, bool), device=device)
+
+    args = (f(lo), f(hi), i(pop_lo), b(live), b(anc), f(tau), f(partau),
+            f(rng.uniform(0.002, 0.02, H)), i(par), i(si), i(ti),
+            f(tau[si]), f(partau[si]), f(route_M), f(heredity), f(t0), i(p0),
+            b(kind != 1), f(unif), ME)
+    return args, kind
 
 
 def gene_tree_faults(gt, n_seq) -> list:

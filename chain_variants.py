@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Time variants of kernels K3 and K4 (``bpp_tpu_torch/csrc/chain_kernel.cu``)
-on one GPU, in one process, against the source as it stands.
+and K5 (``csrc/simwalk_kernel.cu``) on one GPU, in one process, against the
+sources as they stand.
 
     python3 chain_variants.py
 
@@ -16,10 +17,17 @@ seed): K3 with 7 populations, once as made (a proposing locus changes the
 waiting sums of every population with a coalescence) and once cut to at
 most one changed population a proposing locus (main 5 of ``chip_smoke.py``
 changes 1.04), each labelled with its mean; and K4.
+K5's variants set the lanes a locus (``kLanes``: 32, 16, 8) and the warps a
+block (``kWarps``: 4, 8); its inputs are the GPU tests' synthetic sim-SPR
+walks (``bpp_tpu_torch.testing.synthetic_walks``) at main 12's shape in
+``chip_smoke.py`` (63 sub-edges, 7 populations, 32 event slots) on 1000 and
+on 10,000 loci, and on 1000 loci with 63 populations and 62 routes, in
+float32 (main 12's type) and float64.
 Each line gives the milliseconds a launch (CUDA events over 20 launches back
 to back, the median of 7, every variant timed in turn twice, the mean of the
-two), checks each variant's decisions against the unchanged source's, and
-names the card and its power limit.  Exits non-zero without a CUDA device.
+two), checks each variant's decisions (K5: all eight outputs, bit for bit)
+against the unchanged source's, and names the card and its power limit.
+Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -45,6 +53,18 @@ VARIANTS = {
                   "constexpr int kHeader = 512;")],
 }
 L, H = 1000, 7
+LANES = "constexpr int kLanes = 32;"
+WARPS = "constexpr int kWarps = 4;"
+WALK_VARIANTS = {
+    f"{g} lanes, {w} warps" + (" (source)" if (g, w) == (32, 4) else ""):
+    [(LANES, f"constexpr int kLanes = {g};"),
+     (WARPS, f"constexpr int kWarps = {w};")]
+    for g in (32, 16, 8) for w in (4, 8)}
+# main 12's walk: 63 sub-edges (31 nodes, 32 event slots), 7 populations
+# (4 routes), on 1000 and 10,000 loci; and 63 populations with routes
+# between every sister pair (62, more than a warp's lanes)
+WALK_E, WALK_ME = 63, 32
+WALK_INPUTS = ((1000, 7, False), (10000, 7, False), (1000, 63, True))
 
 
 def cases():
@@ -75,36 +95,88 @@ def cases():
     return out + [("K4", "K4", terms.cuda(), None)]
 
 
-def build(tmp):
-    """{variant: loaded library}, one nvcc a variant, started together."""
+def start(tmp, source, variants):
+    """Start one nvcc a variant of ``csrc/<source>.cu`` (each variant's
+    edits made to the source): {variant: (the library's path, the
+    process)}.  Every source's nvcc processes are started before
+    :func:`load` waits for any."""
     sys.path.insert(0, str(ROOT))
     from bpp_tpu_torch.core import _build
-    src = (_build.CSRC / "chain_kernel.cu").read_text()
+    src = (_build.CSRC / f"{source}.cu").read_text()
     jobs = {}
-    for name, edits in VARIANTS.items():
+    for name, edits in variants.items():
         text = src
         for old, new in edits:
             if old not in text:
                 raise RuntimeError(f"{name}: {old!r} is not in the source")
             text = text.replace(old, new)
-        cu = os.path.join(tmp, f"v{len(jobs)}.cu")
+        cu = os.path.join(tmp, f"{source}_v{len(jobs)}.cu")
         with open(cu, "w") as f:
             f.write(text)
         so = cu[:-3] + ".so"
         jobs[name] = (so, subprocess.Popen(
             [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", so, cu]))
-    libs = {}
-    P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    return jobs
+
+
+def load(jobs):
+    """{variant: loaded library} once every nvcc of ``jobs`` ended."""
     for name, (so, proc) in jobs.items():
         if proc.wait() != 0:
             raise RuntimeError(f"nvcc failed on the {name} variant")
-        lib = ctypes.CDLL(so)
+    return {name: ctypes.CDLL(so) for name, (so, _) in jobs.items()}
+
+
+def chain_libs(libs):
+    P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    for lib in libs.values():
         lib.bpp_notheta_depth.restype = I
         lib.bpp_notheta_depth.argtypes = [I]
         lib.bpp_notheta_chain.argtypes = [P, P, I, I, D, D, P, P]
         lib.bpp_gammadir_chain.argtypes = [P, I, D, D, D, P, P]
-        libs[name] = lib
     return libs
+
+
+def walk_libs(libs):
+    P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    for lib in libs.values():
+        lib.bpp_simwalk.restype = I
+        lib.bpp_simwalk.argtypes = [P] * 27 + [I] * 6 + [D, D, I, P]
+    return libs
+
+
+def walk_launcher(lib, args, outs, stream):
+    """One K5 launch of ``lib`` on ``args`` (``synthetic_walks``' on the
+    card) into ``outs``."""
+    import torch
+
+    from bpp_tpu_torch.mcmc import rng
+    from bpp_tpu_torch.trees.migration import _FINITE_BIG
+    xs, ME = args[:19], args[19]
+    L, E = xs[0].shape
+    H, K, S = xs[5].shape[0], xs[9].shape[0], xs[18].shape[1]
+    dt = xs[0].dtype
+    ptrs = [x.data_ptr() for x in xs] + [x.data_ptr() for x in outs]
+    return lambda: lib.bpp_simwalk(
+        *ptrs, L, E, H, K, ME, S, _FINITE_BIG, rng.tiny_floor(dt),
+        int(dt == torch.float64), stream)
+
+
+def walk_outputs(args):
+    """Empty outputs of a K5 launch on ``args``, as ``launch_simwalk``
+    makes them."""
+    import torch
+    from bpp_tpu_torch.trees.gtree import BIG_AGE
+    L, ME, dt = args[0].shape[0], args[19], args[0].dtype
+    i64, bl = torch.int64, torch.bool
+    return (torch.empty(L, dtype=dt, device="cuda"),
+            torch.empty(L, dtype=i64, device="cuda"),
+            torch.empty(L, dtype=bl, device="cuda"),
+            torch.empty(L, dtype=bl, device="cuda"),
+            torch.full((L, ME), BIG_AGE, dtype=dt, device="cuda"),
+            torch.zeros((L, ME), dtype=i64, device="cuda"),
+            torch.zeros((L, ME), dtype=i64, device="cuda"),
+            torch.empty(L, dtype=i64, device="cuda"))
 
 
 def main() -> int:
@@ -145,7 +217,9 @@ def main() -> int:
         return statistics.median(times)
 
     with tempfile.TemporaryDirectory(prefix="bpp_variants_") as tmp:
-        libs = build(tmp)
+        walk_jobs = start(tmp, "simwalk_kernel", WALK_VARIANTS)
+        libs = chain_libs(load(start(tmp, "chain_kernel", VARIANTS)))
+        walks = walk_libs(load(walk_jobs))
         names = list(libs)
         print("[variants] K3's depth at H = 7 by variant: " + ", ".join(
             f"{name} {lib.bpp_notheta_depth(H)}"
@@ -169,7 +243,50 @@ def main() -> int:
                   + " | ".join(f"{name} {statistics.mean(t):.4f}"
                                for name, t in times.items())
                   + f" ms a launch; decisions equal | {smi}", flush=True)
+        time_walks(walks, ms, stream, smi)
     return 0
+
+
+def time_walks(libs, ms, stream, smi):
+    """K5's lines: every variant on each input, outputs held bit-equal to
+    the source's, timed in turns."""
+    import torch
+
+    from bpp_tpu_torch.mcmc.mig_moves import simspr_walk_ref
+    from bpp_tpu_torch.testing import synthetic_walks
+    from chip_smoke import bits
+    names = list(libs)
+    for n_loci, pops, every in WALK_INPUTS:
+        for dt in (torch.float32, torch.float64):
+            args, _ = synthetic_walks(n_loci, WALK_E, pops, ME=WALK_ME,
+                                      seed=16, dtype=dt, device="cuda",
+                                      every_pair=every)
+            steps = torch.zeros(n_loci, dtype=torch.int64, device="cuda")
+            simspr_walk_ref(*args, steps=steps)
+            want, times = None, {name: [] for name in names}
+            for name in names:
+                outs = walk_outputs(args)
+                if walk_launcher(libs[name], args, outs, stream)() != 0:
+                    raise RuntimeError(f"{name}: launch refused")
+                torch.cuda.synchronize()
+                got = [bits(x).cpu() for x in outs]
+                if want is None:
+                    want = got
+                elif not all(torch.equal(a, b) for a, b in zip(got, want)):
+                    raise AssertionError(f"K5, {n_loci} loci, {dt}: the "
+                                         f"{name} variant walks otherwise")
+            for turn in (names, names[::-1]):
+                for name in turn:
+                    times[name].append(ms(walk_launcher(
+                        libs[name], args, walk_outputs(args), stream)))
+            print(f"[variants] K5, L = {n_loci}, E = {WALK_E}, H = {pops}, "
+                  f"K = {args[9].shape[0]}, "
+                  f"{str(dt).split('.')[-1]}, longest walk "
+                  f"{int(steps.max())} steps (mean "
+                  f"{float(steps.double().mean()):.1f}): "
+                  + " | ".join(f"{name} {statistics.mean(t):.4f}"
+                               for name, t in times.items())
+                  + f" ms a launch; outputs bit-equal | {smi}", flush=True)
 
 
 if __name__ == "__main__":

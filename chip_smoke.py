@@ -5,7 +5,7 @@
 
 ``--parent DIR``, a checkout of the parent commit (``git archive``), adds
 the parent's float64 builds timed on ``[x64]``'s inputs and the parent's
-K3/K4 timed on ``[chains]``' inputs, each in a process of its own.
+K3/K4/K5 timed on ``[chains]``' inputs, each in a process of its own.
 Phases, numbered as they were added (``main`` runs 13, 19 and 20-22 right
 after the build, while the simulations of data 1 and data 2 run beside
 them, then the others in order); any failure exits non-zero:
@@ -321,8 +321,10 @@ the chain's last state, and the ``[profile]`` of its step there:
               ms an iteration (eager the median of 3 windows of the 6
               compared iterations, replayed of 3 more windows of 5
               replays, 2 for mains 10, 12, 14 and 18), device kernels,
-              busy ms and idle share an iteration (within 25 kernels of
-              each other), the capture's seconds and peak device memory,
+              busy ms and idle share an iteration (the eager trace's
+              kernels within 25 of the captured step's exact device
+              nodes, counted with cudaGraphGetNodes), the capture's
+              seconds and peak device memory,
               K1-K5 launched inside the graph (under ``chains = K`` the
               K graphs, one a chain, and the write-back on one shared
               memory pool, as ``run_mcmc_multi`` runs them); then
@@ -347,12 +349,14 @@ the chain's last state, and the ``[profile]`` of its step there:
               float32); each kernel's device ms a launch (profiler) on the
               last call's inputs, its plain version's ms and its bound;
               K3/K4 also their proposing loci, ns a proposing locus and
-              lookahead depth (``chains.chain_depth``), and the last
-              call's inputs tiled to 10,000 loci (K3's sums scaled to match):
-              held against the plain version under the same gates and
-              timed; with ``--parent``, the parent's K3/K4 built and timed
-              on the same inputs in a process of their own, their
-              decisions held against this tree's.
+              lookahead depth (``chains.chain_depth``), K5 the steps of
+              its longest walk; each kernel's last call's inputs tiled to
+              10,000 loci (K3's sums scaled to match): held against the
+              plain version under the same gates and timed; with
+              ``--parent``, the parent's K3/K4/K5 built and timed on the
+              same inputs in a process of their own, their K3/K4
+              decisions held against this tree's and their K5 walks
+              bit-equal to this tree's (all eight outputs).
 
 Every main path but ``[shard]``'s runs its chunks as replays of one
 captured CUDA graph; the launch counts a replay adds are the graph's
@@ -730,9 +734,19 @@ def bound_ms(batch, model_name, n_cats, per_pattern=False, rb=4,
                                  "operations")
 
 
+# uncounted kernels (``torch.cuda._sleep``'s spin kernel) that open and
+# close every profiler window: a trace loses the first kernels launched
+# after it starts (0-7 of an eager MSC-M step on one host, some 50 on a
+# slower one; none once the window opened with these), so they take the
+# loss in place of the traced work
+TRACE_PAD = 256
+TRACE_PAD_KERNEL = "spin_kernel"
+
+
 def device_kernels(fn):
-    """Run ``fn()`` under torch.profiler; (name, microseconds) of each
-    device (CUDA) event in the order they started, read from the trace's
+    """Run ``fn()`` under torch.profiler, between ``TRACE_PAD`` spin
+    kernels on either side; (name, microseconds) of each device (CUDA)
+    event of ``fn`` in the order they started, read from the trace's
     raw events: the events ``prof.events()`` would keep, without building
     its tree of host and device events, which takes the host seconds a
     10,000 events.  Host and device activity are traced: with the device
@@ -743,13 +757,18 @@ def device_kernels(fn):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(TRACE_PAD):
+            torch.cuda._sleep(50)
         fn()
+        for _ in range(TRACE_PAD):
+            torch.cuda._sleep(50)
         torch.cuda.synchronize()
     events = sorted(
         (e.start_ns(), e.name(), (e.end_ns() - e.start_ns()) / 1e3)
         for e in prof.profiler.kineto_results.events()
         if e.device_type() == torch.autograd.DeviceType.CUDA
-        and not getattr(e, "is_hidden_event", lambda: False)())
+        and not getattr(e, "is_hidden_event", lambda: False)()
+        and TRACE_PAD_KERNEL not in e.name())
     return [(name, us) for _, name, us in events]
 
 
@@ -2749,46 +2768,55 @@ class ChainHolds:
         return held
 
     def _k5(self, orig):
-        import torch
-
-        from bpp_tpu_torch.mcmc import mig_moves
-
         def held(*args):
             got = orig(*args)
-            L, dt = args[0].shape[0], args[0].dtype
-            margin = torch.empty(L, dtype=dt, device=args[0].device)
-            steps = torch.zeros(L, dtype=torch.int64, device=args[0].device)
-            want = mig_moves.simspr_walk_ref(*args, margin=margin,
-                                             steps=steps)
-            valid = args[17]
-            clear = (margin >= WALK_TIE) & valid
-            tol = WALK_RTOL[str(dt)]
-            t, p, done, fail, nt, ns, nd, nn = got
-            tw, pw, dw, fw, ntw, nsw, ndw, nnw = want
-            same = ((done == dw) & (fail == fw) & (p == pw) & (nn == nnw)
-                    & (ns == nsw).all(1) & (nd == ndw).all(1)
-                    & ((t - tw).abs() <= tol * tw.abs())
-                    & ((nt - ntw).abs() <= tol * ntw.abs()).all(1))
-            bad = clear & ~same
-            if bool(bad.any()):
-                i = int(torch.nonzero(bad)[0])
-                raise AssertionError(
-                    f"[chains] K5: locus {i} (relative margin "
-                    f"{float(margin[i]):.3e}) walked otherwise: kernel t "
-                    f"{float(t[i])} p {int(p[i])} done {bool(done[i])} fail "
-                    f"{bool(fail[i])} nn {int(nn[i])}, plain t "
-                    f"{float(tw[i])} p {int(pw[i])} done {bool(dw[i])} fail "
-                    f"{bool(fw[i])} nn {int(nnw[i])}")
+            valid, near, err, steps = walks_agree("K5", args, got)
             r = self.rec["K5"]
             r["calls"] += 1
-            r["loci"] += int(valid.sum())
-            r["near"].append(int((~clear & valid).sum()))
-            err = float(torch.where(clear, (t - tw).abs(),
-                                    torch.zeros_like(t)).max())
+            r["loci"] += valid
+            r["near"].append(near)
             r["err"] = err if r["err"] is None else max(r["err"], err)
             r["last"] = (args, steps)
             return got
         return held
+
+
+def walks_agree(name, args, got):
+    """K5's walks ``got`` on ``args`` held against the plain version
+    (``simspr_walk_ref``, on the card) on the same inputs: ends,
+    populations, outcomes, event counts, sources and destinations equal,
+    times within ``WALK_RTOL``, on every valid locus whose decisions clear
+    a relative margin of ``WALK_TIE``.  Returns (valid loci, valid loci
+    near a tie, max |dt| of a clear walk, the steps each locus took)."""
+    import torch
+
+    from bpp_tpu_torch.mcmc import mig_moves
+    L, dt = args[0].shape[0], args[0].dtype
+    margin = torch.empty(L, dtype=dt, device=args[0].device)
+    steps = torch.zeros(L, dtype=torch.int64, device=args[0].device)
+    want = mig_moves.simspr_walk_ref(*args, margin=margin, steps=steps)
+    valid = args[17]
+    clear = (margin >= WALK_TIE) & valid
+    tol = WALK_RTOL[str(dt)]
+    t, p, done, fail, nt, ns, nd, nn = got
+    tw, pw, dw, fw, ntw, nsw, ndw, nnw = want
+    same = ((done == dw) & (fail == fw) & (p == pw) & (nn == nnw)
+            & (ns == nsw).all(1) & (nd == ndw).all(1)
+            & ((t - tw).abs() <= tol * tw.abs())
+            & ((nt - ntw).abs() <= tol * ntw.abs()).all(1))
+    bad = clear & ~same
+    if bool(bad.any()):
+        i = int(torch.nonzero(bad)[0])
+        raise AssertionError(
+            f"[chains] {name}: locus {i} (relative margin "
+            f"{float(margin[i]):.3e}) walked otherwise: kernel t "
+            f"{float(t[i])} p {int(p[i])} done {bool(done[i])} fail "
+            f"{bool(fail[i])} nn {int(nn[i])}, plain t "
+            f"{float(tw[i])} p {int(pw[i])} done {bool(dw[i])} fail "
+            f"{bool(fw[i])} nn {int(nnw[i])}")
+    err = float(torch.where(clear, (t - tw).abs(),
+                            torch.zeros_like(t)).max())
+    return int(valid.sum()), int((~clear & valid).sum()), err, steps
 
 
 def chain_bounds(name, last):
@@ -2834,20 +2862,27 @@ def chain_bounds(name, last):
                                  "operations")
 
 
-# [chains]: the kernels' names in the profiler, and the held K3/K4 inputs
-# tiled to this many loci (a timing input, not a main path)
+# [chains]: the kernels' names in the profiler, and the held K3/K4/K5
+# inputs tiled to this many loci (a timing input, not a main path)
 CHAIN_KERNELS = {"K3": "notheta_chain_kernel", "K4": "gammadir_chain_kernel",
                  "K5": "simwalk_kernel"}
 CHAIN_TILED_LOCI = 10000
 
 
 def chain_launch(name, args):
-    """One launch of K3 (``args``: a, b, cols, sums, H) or K4 (terms, a_bar,
-    b_bar, a_i) through its launcher; returns the accept mask."""
+    """One launch of K3 (``args``: a, b, cols, sums, H), K4 (terms, a_bar,
+    b_bar, a_i) or K5 (``simspr_walk``'s arguments) through its launcher;
+    returns the accept mask (K3, K4) or the eight outputs of the walks
+    (K5)."""
     from bpp_tpu_torch.core import chains
     if name == "K3":
         a, b, cols, sums, H = args
         return chains.launch_notheta(cols, sums, H, a, b)
+    if name == "K5":
+        from bpp_tpu_torch.mcmc import mig_moves
+        return chains.launch_simwalk(*args[:19], args[19],
+                                     mig_moves.mg._FINITE_BIG,
+                                     mig_moves.rng.tiny_floor(args[0].dtype))
     terms, a_bar, b_bar, a_i = args
     return chains.launch_gammadir(terms, a_bar, b_bar, a_i)
 
@@ -2889,12 +2924,22 @@ def chain_changed(args):
     return changed[prop]
 
 
+# K5's per-locus arguments: the sub-edges, route rates, heredity, start
+# and validity [L, ...]; the uniforms [3, S, L] carry loci last
+WALK_PER_LOCUS = (0, 1, 2, 3, 13, 14, 15, 16, 17)
+
+
 def tile_chain(name, args, loci=CHAIN_TILED_LOCI):
-    """A K3/K4 call's ``args`` repeated to about ``loci`` loci (whole
+    """A K3/K4/K5 call's ``args`` repeated to about ``loci`` loci (whole
     copies; K3's starting sums times the copies, the sums of the copies'
-    loci)."""
+    loci; K5's species and route tables as they are)."""
+    import torch
     rows = args[2] if name == "K3" else args[0]
     n = max(1, round(loci / rows.shape[0]))
+    if name == "K5":
+        return tuple(torch.cat([x] * n) if i in WALK_PER_LOCUS else x
+                     for i, x in enumerate(args[:18])) + (
+            torch.cat([args[18]] * n, dim=2), args[19])
     if name == "K3":
         a, b, cols, sums, H = args
         return (a, b, cols.repeat(n, 1).contiguous(), sums * n, H)
@@ -2903,27 +2948,43 @@ def tile_chain(name, args, loci=CHAIN_TILED_LOCI):
 
 
 def time_chain_cases(src, dst):
-    """Launch and time every K3/K4 case of ``src`` (``torch.save`` of
+    """Launch and time every K3/K4/K5 case of ``src`` (``torch.save`` of
     [(kernel, args on the host)]) with the ``bpp_tpu_torch`` that is first
-    on ``sys.path``: writes [(device ms a
-    launch (profiler, one window of 20), accept mask)] to ``dst``."""
+    on ``sys.path``: writes [(device ms a launch (profiler, one window of
+    20), the accept mask or the walks' eight outputs)] to ``dst``."""
     import torch
+
+    from bpp_tpu_torch.core import _build
+    _build.build_all(("chain_kernel", "simwalk_kernel"))
     out = []
     for name, args in torch.load(src, weights_only=False):
         args = tuple(x.cuda() if torch.is_tensor(x) else x for x in args)
         ms = kernel_device_ms(lambda: chain_launch(name, args),
                               CHAIN_KERNELS[name], reps=20, windows=1)
-        out.append((ms, chain_launch(name, args).cpu()))
+        got = chain_launch(name, args)
+        out.append((ms, tuple(x.cpu() for x in got) if name == "K5"
+                    else got.cpu()))
     torch.save(out, dst)
 
 
+def bits(x):
+    """``x`` as integers of its width: floats compared bit for bit (NaN
+    equal to itself, -0 apart from 0)."""
+    import torch
+    widths = {torch.float64: torch.int64, torch.float32: torch.int32}
+    return x.view(widths[x.dtype]) if x.dtype in widths else x
+
+
 def parent_chain_times(parent, cases, smi):
-    """``[chains] parent``: the parent's K3/K4 (``parent``, a checkout of
-    the parent commit) built and timed on ``cases`` ([(kernel, args)]) in a
-    process of their own, then this tree's on the same cases; the parent's
-    decisions held against this tree's (equal but at a near tie of the
-    plain version's margins).  Prints one line a case; returns [(kernel,
-    loci, parent ms, this tree's ms)]."""
+    """``[chains] parent``: the parent's K3/K4/K5 (``parent``, a checkout
+    of the parent commit) built and timed on ``cases`` ([(kernel, args)])
+    in a process of their own, then this tree's on the same cases; the
+    parent's K3/K4 decisions held against this tree's (equal but at a near
+    tie of the plain version's margins), its K5 walks bit-equal to this
+    tree's in all eight outputs (the lineage count and the next boundary
+    are order-free, the route sums keep their order: any difference is a
+    fault).  Prints one line a case; returns [(kernel, loci, parent ms,
+    this tree's ms)]."""
     import numpy as np
     import torch
     host = [(name, tuple(x.cpu() if torch.is_tensor(x) else x
@@ -2951,6 +3012,20 @@ def parent_chain_times(parent, cases, smi):
     for (name, args), (p_ms, p_acc), (n_ms, n_acc) in zip(host, before,
                                                           after):
         L = (args[2] if name == "K3" else args[0]).shape[0]
+        if name == "K5":
+            differ = [what for what, a, b in zip(WALK_OUTPUTS, p_acc, n_acc)
+                      if not torch.equal(bits(a), bits(b))]
+            if differ:
+                raise AssertionError(
+                    f"[chains] K5 (L={L}): this tree's walks differ from the "
+                    f"parent's build in {', '.join(differ)}")
+            print(f"[chains] parent vs this tree: K5 {CHAIN_KERNELS[name]} "
+                  f"(L={L}, E={args[0].shape[1]}, S={args[18].shape[1]}) | "
+                  f"parent {p_ms:.4f} ms | this tree {n_ms:.4f} ms a launch "
+                  f"({p_ms / n_ms:.2f}x) | walks bit-equal (all "
+                  f"{len(WALK_OUTPUTS)} outputs) | {smi}")
+            rows.append((name, L, p_ms, n_ms))
+            continue
         margin = np.full(L, np.inf)
         chain_plain(name, args, margin)
         _, near, _, differ = chain_masks_agree(f"{name} parent vs this tree",
@@ -2963,6 +3038,42 @@ def parent_chain_times(parent, cases, smi):
               + f" ({near} near a tie) | {smi}")
         rows.append((name, L, p_ms, n_ms))
     return rows
+
+
+# K5's outputs, in the order the launcher returns them
+WALK_OUTPUTS = ("t", "p", "done", "fail", "nt", "ns", "nd", "nn")
+
+
+def walk_tiled(last, smi):
+    """K5's line beyond the held call's: the held call (``last``: its
+    arguments and steps) tiled to ``CHAIN_TILED_LOCI`` loci, held against
+    the plain version under the held calls' gate and timed.  Returns the
+    held and the tiled cases [(kernel, args)] for
+    :func:`parent_chain_times`."""
+    import torch
+
+    from bpp_tpu_torch.core import chains
+    args, _ = last
+    saved = chains.launch_counts()
+    tiled = tile_chain("K5", args)
+    L = tiled[0].shape[0]
+    got = chain_launch("K5", tiled)
+    torch.cuda.synchronize()
+    valid, near, err, steps = walks_agree("K5 tiled", tiled, got)
+    if near > L // 1000:
+        raise AssertionError(f"[chains] K5 tiled: {near} of {valid} loci "
+                             f"within {WALK_TIE} of a tie")
+    ms = kernel_device_ms(lambda: chain_launch("K5", tiled),
+                          CHAIN_KERNELS["K5"], reps=20)
+    chains.set_launch_counts(saved)
+    bms, by = chain_bounds("K5", (tiled, steps))
+    print(f"[chains] K5 {CHAIN_KERNELS['K5']} on the held call tiled to {L} "
+          f"loci (a timing input): {valid} loci compared, decisions equal "
+          f"where clear of a tie, {near} near a tie (gate at most "
+          f"{L // 1000}), max |dt| {err:.3e} | device {ms:.4f} ms a launch "
+          f"(profiler) | longest walk {int(steps.max())} steps | bound "
+          f"{bms:.3e} ms ({by}) | {smi}")
+    return [("K5", args), ("K5", tiled)]
 
 
 def chain_tiled(name, last, smi):
@@ -3003,9 +3114,9 @@ def chains_phase(smi, parent=None):
     the plain version (``ChainHolds``); then each kernel's device ms a
     launch (profiler) on the last call's inputs, the plain version's ms
     on them, and the bound.  K3/K4 also: proposing loci, ns a proposing
-    locus and lookahead depth; the last call tiled to
-    ``CHAIN_TILED_LOCI`` loci, held and timed; with ``parent``, the
-    parent's build on the held and tiled inputs
+    locus and lookahead depth; K5 the steps of its longest walk; each
+    kernel's last call tiled to ``CHAIN_TILED_LOCI`` loci, held and timed;
+    with ``parent``, the parent's build on the held and tiled inputs
     (:func:`parent_chain_times`).  Returns {kernel: (device ms, plain ms,
     bound ms, bound by, max_abs_err)}."""
     import torch
@@ -3036,12 +3147,10 @@ def chains_phase(smi, parent=None):
         last = r["last"]
         saved = chains.launch_counts()
         if name == "K5":
-            args, _ = last
+            args, steps = last
 
             def launch():
-                chains.launch_simwalk(*args[:19], args[19],
-                                      mig_moves.mg._FINITE_BIG,
-                                      mig_moves.rng.tiny_floor(args[0].dtype))
+                chain_launch(name, args)
 
             def plain():
                 mig_moves.simspr_walk_ref(*args)
@@ -3073,7 +3182,12 @@ def chains_phase(smi, parent=None):
                 if name != "K5" else f"{r['loci']} loci compared, decisions "
                 "equal where clear of a tie")
         walk = ""
-        if name != "K5":
+        if name == "K5":
+            walking = steps[steps > 0].double()
+            walk = (f" | longest walk {int(steps.max())} steps (mean "
+                    f"{float(walking.mean()):.1f} over {walking.numel()} "
+                    "walking loci)")
+        else:
             prop = chain_proposing(name, last)
             per = (float(chain_changed(last).sum(1).double().mean())
                    if name == "K3" else 0.0)
@@ -3091,8 +3205,8 @@ def chains_phase(smi, parent=None):
               f"launches an iteration ({where}) | plain version {plain_ms:.2f}"
               f" ms | bound {bms:.3e} ms ({by}) | {smi}")
         rows[name] = (ms, plain_ms, bms, by, r["err"])
-        if name != "K5":
-            parent_cases += chain_tiled(name, last, smi)
+        parent_cases += (walk_tiled(last, smi) if name == "K5"
+                         else chain_tiled(name, last, smi))
     if parent is not None:
         parent_chain_times(parent, parent_cases, smi)
     return rows
@@ -3120,7 +3234,11 @@ SYNC_MAINS = (
 # of those iterations, the replayed route's the median of GRAPH_WINDOWS
 # more windows of GRAPH_WINDOW_ITERS replays (GRAPH_HEAVY_WINDOW where an
 # eager iteration takes about a second); a profiler trace of
-# GRAPH_TRACE_ITERS iterations (GRAPH_HEAVY_TRACE there); the CLI runs
+# GRAPH_TRACE_ITERS iterations (GRAPH_HEAVY_TRACE there), the eager
+# step's taken up to GRAPH_RETRACES times where it reads more than
+# GRAPH_GATE below the replayed step's exact count (the fullest kept),
+# the replayed step's once (its exact count is the graph's nodes, held
+# within GRAPH_GATE of the eager trace); the CLI runs
 # compared at burnin 8 (the first with finetune marks), nsample 4;
 # [eigen]'s windows take GRAPH_WINDOW_ITERS iterations
 GRAPH_WINDOWS = 3
@@ -3128,10 +3246,91 @@ GRAPH_WINDOW_ITERS = 5
 GRAPH_HEAVY_WINDOW = 2
 GRAPH_TRACE_ITERS = 3
 GRAPH_HEAVY_TRACE = 2
-GRAPH_RETRACE = 20000
 GRAPH_RETRACES = 3
+GRAPH_GATE = 25
 GRAPH_ITERS = 6
 GRAPH_BURNIN, GRAPH_NSAMPLE = 8, 4
+
+
+# cudaGraphNodeType (the runtime's driver_types.h): the device work a
+# replay issues is its kernel, memcpy and memset nodes, the three kinds of
+# device activity the profiler's trace holds
+GRAPH_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host",
+                    4: "child graph", 5: "empty", 6: "event wait",
+                    7: "event record", 8: "semaphore signal",
+                    9: "semaphore wait", 10: "memory alloc",
+                    11: "memory free", 12: "batch memop", 13: "conditional"}
+GRAPH_DEVICE_NODES = ("kernel", "memcpy", "memset")
+
+
+def cudart():
+    """The CUDA runtime through ctypes, with the graph calls' signatures:
+    the ``libcudart`` of torch's CUDA major version where the loader finds
+    one (the process's own, where torch loaded it), else the toolkit's."""
+    import ctypes
+
+    import torch
+
+    from bpp_tpu_torch.core import _build
+    cuda_home = os.path.dirname(os.path.dirname(_build.nvcc_path()))
+    names = [f"libcudart.so.{torch.version.cuda.split('.')[0]}",
+             os.path.join(cuda_home, "lib64", "libcudart.so")]
+    for name in names:
+        try:
+            lib = ctypes.CDLL(name)
+            break
+        except OSError:
+            continue
+    else:
+        raise RuntimeError(f"no CUDA runtime library among {names}")
+    P, S = ctypes.c_void_p, ctypes.POINTER(ctypes.c_size_t)
+    lib.cudaGraphGetNodes.argtypes = [P, P, S]
+    lib.cudaGraphGetNodes.restype = ctypes.c_int
+    lib.cudaGraphNodeGetType.argtypes = [P, ctypes.POINTER(ctypes.c_int)]
+    lib.cudaGraphNodeGetType.restype = ctypes.c_int
+    lib.cudaGraphChildGraphNodeGetGraph.argtypes = [P, ctypes.POINTER(P)]
+    lib.cudaGraphChildGraphNodeGetGraph.restype = ctypes.c_int
+    return lib
+
+
+def graph_nodes(graphs):
+    """The nodes of captured CUDA graphs (``torch.cuda.CUDAGraph`` with
+    ``keep_graph=True``), counted by type from each ``raw_cuda_graph()``
+    with ``cudaGraphGetNodes`` / ``cudaGraphNodeGetType`` (a child graph's
+    nodes counted in): {type name: count}, summed over ``graphs``.  Exact:
+    no trace, nothing dropped."""
+    import collections
+    import ctypes
+    lib = cudart()
+    counts = collections.Counter()
+
+    def check(rc, what):
+        if rc != 0:
+            raise RuntimeError(f"[graph] {what} returned cudaError {rc}")
+
+    def walk(handle):
+        n = ctypes.c_size_t(0)
+        check(lib.cudaGraphGetNodes(handle, None, ctypes.byref(n)),
+              "cudaGraphGetNodes")
+        nodes = (ctypes.c_void_p * n.value)()
+        check(lib.cudaGraphGetNodes(handle, nodes, ctypes.byref(n)),
+              "cudaGraphGetNodes")
+        for node in nodes:
+            kind = ctypes.c_int(-1)
+            check(lib.cudaGraphNodeGetType(node, ctypes.byref(kind)),
+                  "cudaGraphNodeGetType")
+            name = GRAPH_NODE_TYPES.get(kind.value, f"type {kind.value}")
+            counts[name] += 1
+            if name == "child graph":
+                child = ctypes.c_void_p()
+                check(lib.cudaGraphChildGraphNodeGetGraph(
+                    node, ctypes.byref(child)),
+                    "cudaGraphChildGraphNodeGetGraph")
+                walk(child)
+
+    for graph in graphs:
+        walk(ctypes.c_void_p(graph.raw_cuda_graph()))
+    return dict(counts)
 
 
 class ForcedEager:
@@ -3239,7 +3438,13 @@ def graph_phase(label, ctl, smi, x64=False, cli_compare=True,
     (a replayed chunk's fixed cost would weigh on a window of two).
     Then its device kernels,
     busy ms and idle share an iteration (a profiler trace of
-    ``trace_iters``), the capture's seconds and peak device memory (from
+    ``trace_iters``; the eager step's taken again where it may have
+    dropped kernels, the replayed step's once), the replayed step's exact
+    device nodes (kernels, memcpy and memset: :func:`graph_nodes`; the
+    graph route runs first, so the eager trace is read against them),
+    held within ``GRAPH_GATE`` of the eager trace's device kernels, the
+    capture's seconds
+    and peak device memory (from
     a reset just before it), and K1-K5 launched inside the graph.  ``cli_compare``: the
     control file run through ``cli.main`` at
     burnin 8, nsample 4 both ways: every mcmc file byte-equal.  Returns
@@ -3284,17 +3489,19 @@ def graph_phase(label, ctl, smi, x64=False, cli_compare=True,
                   for c in range(K)]
         return statistics.median(times), sum(accs), traces
 
-    def traced(advance, passes, attempts=10):
-        """(device kernels, busy ms) an iteration; a profiler trace that
+    def traced(advance, passes, retraces, floor=0, attempts=10):
+        """(device kernels, busy ms, memcpy and memset events) an
+        iteration; a profiler trace that
         misses some of the ``passes`` pruning launches an iteration has
         missed other kernels too and is taken again (as in
-        ``profile_step``; a step with none takes the first).  A trace of
-        more than ``GRAPH_RETRACE`` kernels an iteration can lose a few
-        dozen others while it holds every pruning launch (either route;
-        main 22's replayed step once lost 764 of 20,642 in two traces):
-        such a step is traced ``GRAPH_RETRACES`` times and the fullest
-        trace kept.  Where a step was traced more than once, prints each
-        trace's kernels an iteration and the one kept."""
+        ``profile_step``; a step with none takes the first).  A trace can
+        lose a few dozen other kernels while it holds every pruning
+        launch (either route; main 22's replayed step once lost 764 of
+        20,642 in two traces, main 13's eager step 54 of 6,870): a trace
+        of fewer than ``floor`` kernels an iteration is taken again, up to
+        ``retraces`` whole traces, and the fullest kept.  Where a step was
+        traced more than once, prints each trace's kernels an iteration
+        and the one kept."""
         n = trace_iters
         whole, seen = [], []
         for _ in range(attempts):
@@ -3306,8 +3513,7 @@ def graph_phase(label, ctl, smi, x64=False, cli_compare=True,
                 f" (held {held} of {n * passes} pruning launches)"))
             if held == n * passes:
                 whole.append(kern)
-                if (len(whole) == GRAPH_RETRACES
-                        or len(kern) <= n * GRAPH_RETRACE):
+                if len(whole) == retraces or len(kern) >= floor * n:
                     break
         if not whole:
             raise AssertionError(f"[graph] {label}: no profiler trace of "
@@ -3319,9 +3525,13 @@ def graph_phase(label, ctl, smi, x64=False, cli_compare=True,
                   f"{n} iterations, device kernels an iteration "
                   + ", ".join(seen) + f"; kept {len(kern) / n:.0f}",
                   flush=True)
-        return len(kern) / n, sum(us for _, us in kern) / 1e3 / n
+        copies = {kind: sum(name.startswith(kind.capitalize())
+                            for name, _ in kern) / n
+                  for kind in ("memcpy", "memset")}
+        return (len(kern) / n, sum(us for _, us in kern) / 1e3 / n,
+                copies)
 
-    for route in ("eager", "graph"):
+    for route in ("graph", "eager"):
         eng, gens, states = start(route)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -3329,7 +3539,8 @@ def graph_phase(label, ctl, smi, x64=False, cli_compare=True,
         r = res[route] = {"pass": eng.ctx.route}
         if route == "graph":
             graph = eng.step_graph(states, gens)
-            graph.capture()
+            graph.capture(keep=True)
+            r["nodes"] = graph_nodes(graph.graphs)
             r["capture_s"] = graph.capture_s
             r["peak"] = (torch.cuda.max_memory_allocated() - held) / 2**20
             r["per_replay"] = graph.per_replay
@@ -3370,8 +3581,16 @@ def graph_phase(label, ctl, smi, x64=False, cli_compare=True,
                 times.append((time.perf_counter() - t0) * 1e3
                              / window_iters)
             r["ms"] = statistics.median(times)
-        r["kernels"], r["busy"] = traced(advance, r["passes"])
-        if route == "eager":
+            nodes = r["nodes"]
+            exact = sum(nodes.get(kind, 0) for kind in GRAPH_DEVICE_NODES)
+            r["kernels"], r["busy"], r["copies"] = traced(
+                advance, r["passes"], 1)
+        else:
+            # the eager step issues what the captured one does, but for
+            # the write-back: a trace further below is short
+            r["kernels"], r["busy"], r["copies"] = traced(
+                advance, r["passes"], GRAPH_RETRACES,
+                floor=exact - GRAPH_GATE)
             r["peak"] = (torch.cuda.max_memory_allocated() - held) / 2**20
         del eng, states, gens
         if route == "graph":
@@ -3392,10 +3611,11 @@ def graph_phase(label, ctl, smi, x64=False, cli_compare=True,
     if bool(k1 + k2) != (g["pass"] != "plain"):
         raise AssertionError(f"[graph] {label}: K1 {k1}, K2 {k2} launched "
                              f"inside the graph on the {g['pass']} route")
-    if abs(g["kernels"] - e["kernels"]) > 25:
-        raise AssertionError(f"[graph] {label}: {g['kernels']:.0f} device "
-                             f"kernels an iteration replayed, "
-                             f"{e['kernels']:.0f} eager")
+    if abs(exact - e["kernels"]) > GRAPH_GATE:
+        raise AssertionError(f"[graph] {label}: the captured step issues "
+                             f"{exact} device nodes a replay, the eager "
+                             f"step's trace {e['kernels']:.0f} device "
+                             "kernels an iteration")
     files = "not compared"
     if cli_compare:
         argv = ["--quiet"] + (["--x64"] if x64 else [])
@@ -3433,7 +3653,16 @@ def graph_phase(label, ctl, smi, x64=False, cli_compare=True,
           f", the compared iterations, replayed of {window_iters} more; "
           f"iters/s {1e3 / e['ms']:.2f} / "
           f"{1e3 / g['ms']:.2f}) | device kernels/iter {e['kernels']:.0f} / "
-          f"{g['kernels']:.0f} | busy ms/iter {e['busy']:.3f} / "
+          f"{g['kernels']:.0f} (traced; memcpy {e['copies']['memcpy']:.0f}"
+          f" / {g['copies']['memcpy']:.0f}, memset "
+          f"{e['copies']['memset']:.0f} / {g['copies']['memset']:.0f} of "
+          f"them) | exact, the captured step's nodes a replay: {exact} "
+          f"device ({nodes.get('kernel', 0)} kernel + "
+          f"{nodes.get('memcpy', 0)} memcpy + {nodes.get('memset', 0)} "
+          "memset; the trace counts all three)" + "".join(
+              f", {v} {k}" for k, v in sorted(nodes.items())
+              if k not in GRAPH_DEVICE_NODES)
+          + f" | busy ms/iter {e['busy']:.3f} / "
           f"{g['busy']:.3f} | idle share {1 - e['busy'] / e['ms']:.3f} / "
           f"{1 - g['busy'] / g['ms']:.3f} | inside the graph K1 {k1} "
           f"(float64 {k1d}) K2 {k2} (float64 {k2d}) K3 {k3} K4 {k4} K5 {k5} "

@@ -30,8 +30,10 @@ MSC-M and a clock = 3 Gamma-Dirichlet chain, and the launch counters
 adding up under replay.  K3 (``csrc/chain_kernel.cu`` notheta_chain) and
 K4 (gammadir_chain) against their host plain versions on random chains,
 K5 (``csrc/simwalk_kernel.cu``) against its torch plain version on the
-MSC-M chain's sim-SPR walks in float32 and float64: decisions equal but
-at near ties, which are counted and gated.  Needs a CUDA device and nvcc; skips without
+MSC-M chain's sim-SPR walks and on synthetic walks of 1 to 97 sub-edges, 1
+to 1000 loci, up to 207 populations and up to 62 routes, in float32 and
+float64: decisions
+equal but at near ties, which are counted and gated.  Needs a CUDA device and nvcc; skips without
 them.
 
     python -m pytest tests/test_torch_kernel_gpu.py -q
@@ -41,7 +43,8 @@ import numpy as np
 import pytest
 import torch
 
-from bpp_tpu_torch.testing import fixed_subst
+from bpp_tpu_torch.testing import (WALK_SHAPES, fixed_subst,
+                                   synthetic_walks, walk_id, walk_seed)
 
 MODELS = [("JC69", 1), ("HKY", 4), ("TN93", 1), ("GTR", 4)]
 
@@ -1406,28 +1409,68 @@ def test_simwalk_kernel_matches_plain(cuda_mig, dtype, monkeypatch):
                                           state, gen)
     monkeypatch.setattr(mig_moves, "simspr_walk", orig)
     assert len(calls) == 3
-    tol = 1e-5 if dtype == torch.float32 else 1e-12
     before = chains.LAUNCHES_SIMWALK
     for args in calls:
         args = tuple(x.to(dtype) if torch.is_tensor(x)
                      and x.is_floating_point() else x for x in args)
-        got = mig_moves.simspr_walk(*args)
-        L = args[0].shape[0]
-        margin = torch.empty(L, dtype=dtype, device="cuda")
-        want = mig_moves.simspr_walk_ref(*args, margin=margin)
-        torch.cuda.synchronize()
-        clear = (margin >= WALK_TIE) & args[17]
-        t, p, done, fail, nt, ns, nd, nn = got
-        tw, pw, dw, fw, ntw, nsw, ndw, nnw = want
-        c = clear
-        assert bool(c.any())
-        for a, b in ((done, dw), (fail, fw), (p, pw), (nn, nnw), (ns, nsw),
-                     (nd, ndw)):
-            assert torch.equal(a[c], b[c])
-        assert bool(((t - tw).abs() <= tol * tw.abs())[c].all())
-        assert bool(((nt - ntw).abs() <= tol * ntw.abs())[c].all())
-        assert int((~clear & args[17]).sum()) <= max(1, L // 1000)
+        _walks_agree(args)
     assert chains.LAUNCHES_SIMWALK == before + len(calls)
+
+
+def _walks_agree(args):
+    """K5 (through ``mig_moves.simspr_walk``) and ``simspr_walk_ref`` on
+    the card on the walk's ``args``: ends, populations, event counts,
+    sources and destinations equal and times within 1e-5 (float32) /
+    1e-12 (float64) relative on every locus whose decisions clear a
+    relative margin of 1e-6, and at most one locus in 1000 (at least 1)
+    under it."""
+    from bpp_tpu_torch.mcmc import mig_moves
+    dtype = args[0].dtype
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    got = mig_moves.simspr_walk(*args)
+    L = args[0].shape[0]
+    margin = torch.empty(L, dtype=dtype, device="cuda")
+    want = mig_moves.simspr_walk_ref(*args, margin=margin)
+    torch.cuda.synchronize()
+    clear = (margin >= WALK_TIE) & args[17]
+    t, p, done, fail, nt, ns, nd, nn = got
+    tw, pw, dw, fw, ntw, nsw, ndw, nnw = want
+    c = clear
+    assert bool(c.any())
+    for a, b in ((done, dw), (fail, fw), (p, pw), (nn, nnw), (ns, nsw),
+                 (nd, ndw)):
+        assert torch.equal(a[c], b[c])
+    assert bool(((t - tw).abs() <= tol * tw.abs())[c].all())
+    assert bool(((nt - ntw).abs() <= tol * ntw.abs())[c].all())
+    assert int((~clear & args[17]).sum()) <= max(1, L // 1000)
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", WALK_SHAPES,
+                         ids=[walk_id(s) for s in WALK_SHAPES])
+def test_simwalk_kernel_on_synthetic_walks(shape, dtype):
+    """K5 on synthetic walks (``testing.synthetic_walks``) where a warp's
+    lanes split a locus's sub-edges differently: 1, 31, 32, 33, 63 and 97
+    sub-edges (past the 64 a locus the kernel keeps in registers), 1, 33
+    and 1000 loci, the most populations whose float64 tables fit the
+    kernel's 48 KB of shared memory, and more routes (62) than a warp's
+    lanes; each case of 33 loci or more holds
+    invalid loci, loci with no live sub-edge and walks that fill every
+    event slot and fail.  Held against ``simspr_walk_ref`` as the main
+    paths' walks are (:func:`_walks_agree`), one launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from bpp_tpu_torch.core import chains
+    E, L, H, every_pair = shape
+    args, kinds = synthetic_walks(L, E, H, seed=walk_seed(shape),
+                                  dtype=dtype, device="cuda",
+                                  every_pair=every_pair)
+    before = chains.LAUNCHES_SIMWALK
+    t, p, done, fail, nt, ns, nd, nn = _walks_agree(args)
+    assert chains.LAUNCHES_SIMWALK == before + 1
+    trapped = torch.as_tensor(np.isin(kinds, (2, 3)), device="cuda")
+    assert bool((fail & (nn == args[19]))[trapped].all())
 
 
 @pytest.mark.parametrize("data", ["cuda_state", "cuda_diploid", "cuda_int",

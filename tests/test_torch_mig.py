@@ -15,6 +15,9 @@
   (``thetamodel = linked-mscm`` among them: ``bpp_tpu`` does not
   implement it).
 * The float32 floor of the sim-SPR coalescence rate.
+* The synthetic sim-SPR walks the card's tests hold kernel K5 to
+  (``testing.synthetic_walks``) are well-formed walks with the edge cases
+  they claim.
 
 The caches along 30-step port chains are ``test_torch_mig_chain.py``,
 prior recovery under migration ``test_torch_mig_prior.py``.
@@ -28,6 +31,7 @@ import torch
 from bpp_tpu.mcmc import state as sj
 from bpp_tpu.trees import gtree as gj
 from bpp_tpu.trees import migration as mj
+from bpp_tpu_torch.testing import WALK_SHAPES, walk_id
 from bpp_tpu_torch.trees import migration as mp
 
 torch.set_num_threads(1)     # tiny tensors; the suite runs in parallel
@@ -385,3 +389,53 @@ def test_sim_walk_matches_bpp_tpu_while_loop(data, name, monkeypatch):
             seen["events"] += int(np.asarray(nnj)[valid].sum())
             seen["failed"] += int((np.asarray(failj) & valid).sum())
     assert seen["coalesced"] and seen["events"], seen
+
+
+@pytest.mark.parametrize("shape", WALK_SHAPES,
+                         ids=[walk_id(s) for s in WALK_SHAPES])
+def test_synthetic_walks_are_well_formed(shape):
+    """Each synthetic walk case of ``tests/test_torch_kernel_gpu.py``'s
+    K5 test through ``simspr_walk_ref`` on the CPU: every valid locus done
+    or failed within the S steps, never both; at most ME events, their
+    times non-decreasing from the start and the walk's end at or above the
+    last; invalid loci untouched.  The edge cases a case claims are there:
+    where it has 33 loci or more, invalid loci, loci with no live
+    sub-edge and walks that fill all ME slots, all of them failed, and
+    walks that coalesce and that migrate."""
+    from bpp_tpu_torch.mcmc.mig_moves import simspr_walk_ref
+    from bpp_tpu_torch.testing import synthetic_walks, walk_seed
+    from bpp_tpu_torch.trees.gtree import BIG_AGE
+    E, L, H, every_pair = shape
+    args, kinds = synthetic_walks(L, E, H, seed=walk_seed(shape),
+                                  every_pair=every_pair)
+    assert args[0].shape == (L, E) and args[5].shape == (H,)
+    ME, S = args[19], args[18].shape[1]
+    live, t0, p0, valid = args[3], args[15], args[16], args[17]
+    steps = torch.zeros(L, dtype=torch.int64)
+    t, p, done, fail, nt, ns, nd, nn = simspr_walk_ref(*args, steps=steps)
+    assert int(steps.max()) <= S
+    assert bool((done | fail)[valid].all()) and not bool((done & fail).any())
+    assert bool((nn <= ME).all())
+    slot = torch.arange(ME)[None, :]
+    used = slot < nn[:, None]
+    assert bool((nt[~used] == BIG_AGE).all())
+    prev = torch.cat([t0[:, None], nt[:, :-1]], dim=1)
+    assert bool((nt >= prev)[used].all())
+    last = torch.where(nn > 0, nt[torch.arange(L), (nn - 1).clamp(min=0)], t0)
+    assert bool((t >= last)[valid].all())
+    assert torch.equal(t[~valid], t0[~valid])
+    assert torch.equal(p[~valid], p0[~valid])
+    assert not bool((done | fail | (nn > 0))[~valid].any())
+    if every_pair:
+        assert args[9].shape[0] > 32       # more routes than a warp's lanes
+    kinds = torch.as_tensor(kinds)
+    if L >= 33:
+        assert set(kinds.tolist()) == {0, 1, 2, 3}
+        assert not bool(live[kinds == 2].any())
+        assert bool(live[kinds == 3].any())
+        trapped = (kinds == 2) | (kinds == 3)
+        assert bool((fail & (nn == ME))[trapped].all())
+        walks = kinds == 0
+        assert bool(done[walks].any()) and bool((nn > 0)[walks].any())
+    else:
+        assert not bool((kinds != 0).any())
