@@ -51,7 +51,9 @@ the files; checkpoints and the per-locus print files are off, and
 process runs every chain on all the loci and rank 0 writes.  The header
 names the run's step route (``driver.step_route``): ``graph``, a chunk of
 replays of one captured CUDA graph, or ``eager`` (``--multihost``) with
-the reason.
+the reason; under ``chains = K`` also the chains' route
+(``driver.chain_route``): ``batched``, one step over a chain axis (K1 or
+K2 launched once a pass for every chain), or ``per-chain``.
 """
 
 from __future__ import annotations
@@ -298,7 +300,9 @@ def _cmd_run(args, device=None) -> int:
               f" | method {cfg.method.name} | seed {eng.seed} | device "
               f"{device}" + (f" | RESUMED at it {meta['it']}"
                              if args.resume else ""), file=sys.stderr)
-        print(f"step route: {eng.route} ({eng.route_reason})",
+        chains = (f"; chains = {cfg.n_chains}: {eng.chains_route} "
+                  f"({eng.chains_route_reason})" if cfg.n_chains > 1 else "")
+        print(f"step route: {eng.route} ({eng.route_reason}){chains}",
               file=sys.stderr)
 
     mcmc_path = cfg.mcmcfile or f"{cfg.jobname}.mcmc.txt"

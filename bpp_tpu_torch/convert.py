@@ -21,6 +21,11 @@ migration events' ``time``, ``node``, ``src``, ``dst`` and the rates
 ``M``, ``Mi`` and the geneflow mask ``on``, and the traits' branch
 rates ``brate`` and cached ``logl``.  A field the port does not have
 raises.
+
+A stacked state of K chains (``chains = K``: every array with a leading
+chain axis, as ``bpp_tpu``'s ``init_states`` stacks them; gene trees
+``[K, L, N]``) gives the port's stacked state, which
+``driver.Engine._step_batched`` steps.
 """
 
 from __future__ import annotations
@@ -72,8 +77,11 @@ def state_from_numpy(arrays: dict[str, dict[str, np.ndarray]], device="cpu",
 
     The cached ``logl``/``logpr`` are zeros (recompute them with the
     port's ``logl_fn``/``logpr_fn``); the finetune steps are ``cfg``'s,
-    or zeros without one."""
+    or zeros without one.  Arrays with a leading chain axis (gene trees
+    ``[K, L, N]``) give the K chains' stacked state: ``logl``/``logpr``
+    ``[K, L]``, the finetune steps ``[K, N_FINETUNE]``."""
     gt = _build(GTrees, arrays["gt"], dtype, device)
+    lead = tuple(gt.left.shape[:-1])        # (L,), or (K, L) stacked
     sp = _build(SpeciesArrays, arrays["sp"], dtype, device)
     subst = _build(SubstState, arrays["subst"], dtype, device)
     clock = mig = trait = None
@@ -83,9 +91,11 @@ def state_from_numpy(arrays: dict[str, dict[str, np.ndarray]], device="cpu",
         mig = _build(MigState, arrays["mig"], dtype, device)
     if arrays.get("trait") is not None:
         trait = _build(TraitState, arrays["trait"], dtype, device)
-    zeros = torch.zeros((gt.n_loci,), dtype=dtype, device=device)
+    zeros = torch.zeros(lead, dtype=dtype, device=device)
     ft = (finetune_array(cfg, dtype, device) if cfg is not None
           else torch.zeros((N_FINETUNE,), dtype=dtype, device=device))
+    if len(lead) == 2:
+        ft = ft.expand(lead[:1] + ft.shape).clone()
 
     def opt(name, dt):
         a = arrays.get(name)

@@ -23,8 +23,9 @@ from ..config import SubstModel
 from ..trees.gtree import GTrees
 from . import felsenstein as fe
 from .pack import (
-    BLOCK_THREADS, KernelArgs, check_tensor, data_ptrs, kernel_lib,
-    occupancy, refuse_under_capture, scaled_lengths, tree_tensors,
+    BLOCK_THREADS, KernelArgs, chain_count, check_tensor, data_ptrs,
+    flatten_chains, kernel_lib, occupancy, refuse_under_capture,
+    scaled_lengths, tree_tensors,
 )
 from .pmatrix import pmatrix_model
 from .units import Units
@@ -48,7 +49,20 @@ def site_logl_fels_ref(order, left, right, parent, n_seq, age, mu,
 
     ``tips [L, T, S, A]`` tip partials (A = 4, or 20), ``rates_kappa [L, C+2]`` category
     rates with kappa1, kappa2 appended, ``n_pat [L]`` real patterns per
-    locus: columns ``s >= n_pat[l]`` are exactly 0."""
+    locus: columns ``s >= n_pat[l]`` are exactly 0.  Over K chains
+    (``pack.PER_CHAIN`` arguments ``[K, L, ...]``) the K x L loci are one
+    batch, and the result is ``[K, L, S]``."""
+    K = chain_count(age)
+    if K is not None:
+        (order, left, right, parent, age, mu, rates_kappa, freqs, eigw, eigT,
+         eigTi, blen), (n_seq, tips, n_pat) = flatten_chains(
+            K, (order, left, right, parent, age, mu, rates_kappa, freqs,
+                eigw, eigT, eigTi, blen), (n_seq, tips, n_pat))
+        site = site_logl_fels_ref(
+            order, left, right, parent, n_seq, age, mu, rates_kappa, freqs,
+            eigw, eigT, eigTi, tips, model=model, n_cats=n_cats, blen=blen,
+            n_pat=n_pat)
+        return site.reshape((K, -1) + tuple(site.shape[1:]))
     C = n_cats
     t_eff = scaled_lengths(order, left, right, parent, age, mu, rates_kappa,
                            C, blen)
@@ -65,7 +79,7 @@ def site_logl_fels_ref(order, left, right, parent, n_seq, age, mu,
 
 def _kernel_lib():
     """The built K2 library."""
-    return kernel_lib("fels_kernel", "bpp_fels", "bpp_fels_site_logl", 16, 8)
+    return kernel_lib("fels_kernel", "bpp_fels", "bpp_fels_site_logl", 16, 10)
 
 
 def site_logl_fels(order, left, right, parent, n_seq, age, mu, rates_kappa,
@@ -85,7 +99,11 @@ def site_logl_fels(order, left, right, parent, n_seq, age, mu, rates_kappa,
     ``"shared"`` or ``"global"`` CLV store; by default the wrapper takes
     the shared one where the tree fits, in float64 only up to
     ``pack.F64_SHARED_MAX_CATS`` categories (``pack.plan_launch``).  CPU
-    tensors: the plain version."""
+    tensors: the plain version.
+
+    Over K chains (chains = K) the ``pack.PER_CHAIN`` arguments are ``[K,
+    L, ...]`` and the result ``[K, L, S]``: on the card one launch for all
+    K, chain k's rows bit-equal to a launch on chain k's tensors alone."""
     if tips.device.type == "cpu":
         return site_logl_fels_ref(
             order, left, right, parent, n_seq, age, mu, rates_kappa, freqs,
@@ -119,16 +137,18 @@ def kernel_args(order, left, right, parent, n_seq, age, mu, rates_kappa,
         model=model, n_cats=n_cats, blen=blen, clv_store=clv_store,
         threads=threads or BLOCK_THREADS)
     L, T, S, _ = tips.shape
-    out = torch.empty((L, S), dtype=tips.dtype, device=tips.device)
+    K = chain_count(age)
+    out = torch.empty((L, S) if K is None else (K, L, S), dtype=tips.dtype,
+                      device=tips.device)
     dims = (T, S, units.n_units, n_cats, fam,
             int(plan.clv_store == "shared"), plan.threads,
-            int(tips.dtype == torch.float64))
+            int(tips.dtype == torch.float64), K or 1, L)
     return KernelArgs(tree + (out,), dims, plan)
 
 
 def launch(args: KernelArgs):
     """One launch of K2 on the current stream; returns the ``[L, S]``
-    output."""
+    output (``[K, L, S]`` over K chains)."""
     global LAUNCHES, LAUNCHES_F64, CLV_STORE
     out = args.tensors[-1]
     stream = torch.cuda.current_stream(out.device).cuda_stream

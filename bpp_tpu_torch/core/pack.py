@@ -64,6 +64,31 @@ def scaled_lengths(order, left, right, parent, age, mu, rates_kappa, n_cats,
     return blen[:, :, None] * rates_kappa[:, None, :n_cats]
 
 
+# the arguments of K1 and K2 that are a chain's own under chains = K
+# ([K, L, ...] in a call over K chains); the others (tips, weights, n_seq,
+# n_pat and the unit table) are the batch's, one copy for every chain
+PER_CHAIN = ("order", "left", "right", "parent", "age", "mu", "rates_kappa",
+             "freqs", "eigw", "eigT", "eigTi", "blen")
+
+
+def chain_count(age):
+    """K of a call over K chains (ages ``[K, L, N]``), None for one chain
+    (``[L, N]``)."""
+    return age.shape[0] if age.dim() == 3 else None
+
+
+def flatten_chains(K, per_chain, shared):
+    """A call over K chains as one call over K x L loci (the plain
+    versions, on the CPU): the per-chain tensors ``[K, L, ...]`` merged to
+    ``[K L, ...]``, the batch's repeated for every chain."""
+    return ([None if t is None else t.reshape((-1,) + tuple(t.shape[2:]))
+             for t in per_chain],
+            [None if t is None else
+             t.expand((K,) + tuple(t.shape)).reshape((-1,)
+                                                     + tuple(t.shape[1:]))
+             for t in shared])
+
+
 def site_logl_packed_ref(order, left, right, parent, n_seq, age, mu,
                          rates_kappa, freqs, eigw, eigT, eigTi, tips,
                          weights, *, model: SubstModel, n_cats: int,
@@ -73,7 +98,18 @@ def site_logl_packed_ref(order, left, right, parent, n_seq, age, mu,
 
     ``tips [L, T, S, 4]`` tip partials, ``weights [L, S]`` pattern
     counts, ``rates_kappa [L, C+2]`` category rates with kappa1, kappa2
-    appended."""
+    appended.  Over K chains (``PER_CHAIN`` arguments ``[K, L, ...]``)
+    the K x L loci are one batch, and the result is ``[K, L]``."""
+    K = chain_count(age)
+    if K is not None:
+        (order, left, right, parent, age, mu, rates_kappa, freqs, eigw, eigT,
+         eigTi, blen), (n_seq, tips, weights) = flatten_chains(
+            K, (order, left, right, parent, age, mu, rates_kappa, freqs,
+                eigw, eigT, eigTi, blen), (n_seq, tips, weights))
+        return site_logl_packed_ref(
+            order, left, right, parent, n_seq, age, mu, rates_kappa, freqs,
+            eigw, eigT, eigTi, tips, weights, model=model, n_cats=n_cats,
+            blen=blen).reshape(K, -1)
     C = n_cats
     t_eff = scaled_lengths(order, left, right, parent, age, mu, rates_kappa,
                            C, blen)
@@ -82,6 +118,44 @@ def site_logl_packed_ref(order, left, right, parent, n_seq, age, mu,
     cw = torch.full((C,), 1.0 / C, dtype=tips.dtype, device=tips.device)
     return fe.loglikelihood(GTrees(left, right, parent, age), tips, weights,
                             n_seq, pmats, freqs, cw, order=order)
+
+
+class _ChainPass(torch.autograd.Function):
+    """A pruning pass of the batched step (``torch.func.vmap`` over the
+    chains): :meth:`vmap` hands the wrapper the K chains' tensors on a
+    leading chain axis, so that one call (one launch of K1 or K2 on the
+    card) covers every chain, where ``vmap`` would otherwise run the
+    wrapper's ops chain by chain or refuse its launch."""
+
+    @staticmethod
+    def forward(fn, static, names, *tensors):
+        return fn(**dict(zip(names, tensors)), **static)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, fn, static, names, *tensors):
+        K = info.batch_size
+        args = {}
+        for name, t, d in zip(names, tensors, in_dims[3:]):
+            if t is not None and name in PER_CHAIN:
+                # the kernels read [K, L, ...] rows chain after chain
+                t = (t.movedim(d, 0).contiguous() if d is not None
+                     else t.expand((K,) + tuple(t.shape)))
+            elif d is not None:
+                raise ValueError(f"{name} is the batch's, one copy for every "
+                                 "chain; it came with a chain axis")
+            args[name] = t
+        return fn(**args, **static), 0
+
+
+def chain_pass(fn, tensors: dict, **static):
+    """``fn(**tensors, **static)`` (:func:`site_logl_packed` or
+    ``fels.site_logl_fels``) inside the batched step: one call over the K
+    chains (:class:`_ChainPass`)."""
+    return _ChainPass.apply(fn, static, tuple(tensors), *tensors.values())
 
 
 def refuse_under_capture(who):
@@ -156,9 +230,10 @@ def tree_tensors(who, lib_prefix, lib, order, left, right, parent, n_seq, age,
     rates_kappa, freqs, eigw, eigT, eigTi, order, left, right, n_seq,
     units, scratch), the model family's code and the launch plan.  The
     tips' dtype (float32 or float64) picks the kernel's build, and every
-    parameter must have it.  Nothing is computed here: branch lengths and
-    factors are the kernel's prologue.  The scratch exists only under the
-    global CLV store."""
+    parameter must have it.  Over K chains the ``PER_CHAIN`` tensors are
+    ``[K, L, ...]`` and the scratch holds K chains' units.  Nothing is
+    computed here: branch lengths and factors are the kernel's prologue.
+    The scratch exists only under the global CLV store."""
     if tips.device.type != "cuda":
         raise ValueError(f"{who}: the kernel takes CUDA tensors, "
                          f"got {tips.device}")
@@ -167,6 +242,9 @@ def tree_tensors(who, lib_prefix, lib, order, left, right, parent, n_seq, age,
     N = 2 * T - 1
     C = n_cats
     dt = tips.dtype
+    K = chain_count(age)
+    # a chain's tensors carry the chain axis first over K chains
+    lead = (L,) if K is None else (K, L)
     if dt not in KERNEL_DTYPES:
         raise TypeError(f"{who}: tips have dtype {dt}, the kernel takes "
                         "float32 or float64")
@@ -179,8 +257,10 @@ def tree_tensors(who, lib_prefix, lib, order, left, right, parent, n_seq, age,
         raise ValueError(f"{who}: {C} rate categories; the kernel "
                          f"takes 1..{max_cats}")
     check_tensor(who, "tips", tips, dt, (L, T, S, 4), dev)
-    for nm, t, shape in (("order", order, (L, T - 1)), ("left", left, (L, N)),
-                         ("right", right, (L, N)), ("parent", parent, (L, N)),
+    for nm, t, shape in (("order", order, lead + (T - 1,)),
+                         ("left", left, lead + (N,)),
+                         ("right", right, lead + (N,)),
+                         ("parent", parent, lead + (N,)),
                          ("n_seq", n_seq, (L,))):
         check_tensor(who, nm, t, torch.int64, shape, dev)
 
@@ -191,15 +271,15 @@ def tree_tensors(who, lib_prefix, lib, order, left, right, parent, n_seq, age,
         check_tensor(who, name, t, dt, shape, dev)
         return t
 
-    age = param("age", age, (L, N))
-    mu = param("mu", mu, (L,))
-    rates_kappa = param("rates_kappa", rates_kappa, (L, C + 2))
-    freqs = param("freqs", freqs, (L, 4))
-    eigw = param("eigw", eigw, (L, 4))
-    eigT = param("eigT", eigT, (L, 4, 4))
-    eigTi = param("eigTi", eigTi, (L, 4, 4))
+    age = param("age", age, lead + (N,))
+    mu = param("mu", mu, lead)
+    rates_kappa = param("rates_kappa", rates_kappa, lead + (C + 2,))
+    freqs = param("freqs", freqs, lead + (4,))
+    eigw = param("eigw", eigw, lead + (4,))
+    eigT = param("eigT", eigT, lead + (4, 4))
+    eigTi = param("eigTi", eigTi, lead + (4, 4))
     if blen is not None:
-        blen = param("blen", blen, (L, N))
+        blen = param("blen", blen, lead + (N,))
     if (units.n_loci, units.n_cols, units.units.device) != (L, S, dev):
         raise ValueError(
             f"{who}: the unit table is for {units.n_loci} loci of "
@@ -212,8 +292,8 @@ def tree_tensors(who, lib_prefix, lib, order, left, right, parent, n_seq, age,
                        clv_store, threads, bool(dbl))
     scratch = None
     if plan.clv_store == "global":
-        scratch = torch.empty((units.n_units, T // 2, C, 32, 4), dtype=dt,
-                              device=dev)
+        scratch = torch.empty(((K or 1) * units.n_units, T // 2, C, 32, 4),
+                              dtype=dt, device=dev)
     tensors = (tips, age, blen, mu, rates_kappa, freqs, eigw, eigT, eigTi,
                order, left, right, n_seq, units.units, scratch)
     return tensors, fam, plan
@@ -245,7 +325,7 @@ def kernel_lib(name, prefix, entry, n_ptrs, n_ints):
 
 def _kernel_lib():
     """The built K1 library."""
-    lib = kernel_lib("pack_kernel", "bpp_pack", "bpp_pack_logl", 19, 10)
+    lib = kernel_lib("pack_kernel", "bpp_pack", "bpp_pack_logl", 19, 12)
     if lib.bpp_pack_empty.argtypes is None:
         lib.bpp_pack_empty.restype = ctypes.c_int
         lib.bpp_pack_empty.argtypes = [ctypes.c_void_p]
@@ -258,7 +338,8 @@ class KernelArgs(NamedTuple):
 
     tensors: tuple          # tree_tensors' 15, then the kernel's own; the
     #                         output last
-    dims: tuple             # the C signature's ints
+    dims: tuple             # the C signature's ints; the last two are
+    #                         the chains K and the loci L a chain
     plan: LaunchPlan
 
 
@@ -277,7 +358,12 @@ def site_logl_packed(order, left, right, parent, n_seq, age, mu,
     ``clv_store`` forces the kernel's ``"shared"`` or ``"global"`` CLV
     store; by default the wrapper takes the shared one where the tree
     fits, in float64 only up to ``F64_SHARED_MAX_CATS`` categories
-    (:func:`plan_launch`).  CPU tensors: the plain version."""
+    (:func:`plan_launch`).  CPU tensors: the plain version.
+
+    Over K chains (chains = K) the ``PER_CHAIN`` arguments are ``[K, L,
+    ...]``, the rest the batch's, and the result ``[K, L]``: on the card
+    one launch for all K (a grid row a chain), chain k's row bit-equal to
+    a launch on chain k's tensors alone."""
     if tips.device.type == "cpu":
         return site_logl_packed_ref(
             order, left, right, parent, n_seq, age, mu, rates_kappa, freqs,
@@ -308,16 +394,18 @@ def kernel_args(order, left, right, parent, n_seq, age, mu, rates_kappa,
         model=model, n_cats=n_cats, blen=blen, clv_store=clv_store,
         threads=threads or BLOCK_THREADS)
     L, T, S, _ = tips.shape
+    K = chain_count(age)
     W = weights.shape[1]
     check_tensor(who, "weights", weights, tips.dtype, (L, W), tips.device)
     if W > S:
         raise ValueError(f"{who}: more weights than patterns")
-    out = torch.empty((L,), dtype=tips.dtype, device=tips.device)
+    out = torch.empty((L,) if K is None else (K, L), dtype=tips.dtype,
+                      device=tips.device)
     blocks = units.blocks(plan.threads // 32)
     tensors = tree + (weights, blocks, units.locus_unit0, out)
     dims = (T, S, units.n_units, W, blocks.shape[0], n_cats, fam,
             int(plan.clv_store == "shared"), plan.threads,
-            int(tips.dtype == torch.float64))
+            int(tips.dtype == torch.float64), K or 1, L)
     return KernelArgs(tensors, dims, plan)
 
 
@@ -326,7 +414,8 @@ def data_ptrs(tensors):
 
 
 def launch(args: KernelArgs):
-    """One launch of K1 on the current stream; returns the ``[L]`` output."""
+    """One launch of K1 on the current stream; returns the ``[L]`` output
+    (``[K, L]`` over K chains)."""
     global LAUNCHES, LAUNCHES_F64, CLV_STORE
     out = args.tensors[-1]
     stream = torch.cuda.current_stream(out.device).cuda_stream
@@ -343,9 +432,9 @@ def launch(args: KernelArgs):
 def occupancy(query, args: KernelArgs) -> int:
     """Blocks of ``args``' launch one SM holds: ``query`` is a kernel
     library's ``<prefix>_occupancy`` (the CUDA occupancy API), asked at
-    the plan's threads and shared memory with the tail both kernels' dims
-    share: (C, family, shared, threads, dbl)."""
-    blocks = query(*args.dims[-5:], args.plan.shared_bytes)
+    the plan's threads and shared memory with the part both kernels' dims
+    share before the chains: (C, family, shared, threads, dbl)."""
+    blocks = query(*args.dims[-7:-2], args.plan.shared_bytes)
     if blocks < 0:
         raise RuntimeError("the occupancy query failed")
     return blocks

@@ -145,27 +145,45 @@ template <> struct Real<double> {
   }
 };
 
-// What both kernels take (tensors of the whole batch, on the card).
+// What both kernels take (tensors of the whole batch, on the card).  A
+// launch covers K chains (chains = K), one a grid row (blockIdx.y): the
+// tensors marked [K, L, ...] hold every chain's rows, chain after chain,
+// and chain k reads its rows k L .. k L + L - 1 (chain_row); the tips,
+// n_seq and the unit table are the batch's, one copy that every chain
+// reads.  K = 1 is the one-chain launch, with the same arithmetic.
 template <typename R>
 struct TreeArgs {
   using V4 = typename Real<R>::V4;
   const V4* tips;          // [L, T, S] 4-vectors
-  const R* age;            // [L, N]
-  const R* blen;           // [L, N] or null: branch lengths, mu included
-  const R* mu;             // [L]
-  const R* rates;          // [L, C + 2]: category rates, kappa1, kappa2
-  const R* freqs;          // [L, 4]
-  const R* eigw;           // [L, 4] (GTR)
-  const R* eigT;           // [L, 16] (GTR)
-  const R* eigTi;          // [L, 16] (GTR)
-  const int64_t* order;    // [L, T-1]
-  const int64_t* left;     // [L, N]
-  const int64_t* right;    // [L, N]
+  const R* age;            // [K, L, N]
+  const R* blen;           // [K, L, N] or null: branch lengths, mu included
+  const R* mu;             // [K, L]
+  const R* rates;          // [K, L, C + 2]: category rates, kappa1, kappa2
+  const R* freqs;          // [K, L, 4]
+  const R* eigw;           // [K, L, 4] (GTR)
+  const R* eigT;           // [K, L, 16] (GTR)
+  const R* eigTi;          // [K, L, 16] (GTR)
+  const int64_t* order;    // [K, L, T-1]
+  const int64_t* left;     // [K, L, N]
+  const int64_t* right;    // [K, L, N]
   const int64_t* n_seq;    // [L]
   const int4* units;       // [U]: locus, first pattern, real patterns, last
-  V4* scratch;             // [U, T/2, C, 32] 4-vectors (global store) or null
-  int T, S, U;
+  V4* scratch;             // [K, U, T/2, C, 32] 4-vectors (global store) or
+                           // null
+  int T, S, U, L;
 };
+
+// The row of locus l of this block's chain (blockIdx.y) in a [K, L, ...]
+// tensor, and of unit u in the [K, U, ...] scratch.
+template <typename R>
+__device__ __forceinline__ int64_t chain_row(const TreeArgs<R>& a,
+                                             int64_t l) {
+  return static_cast<int64_t>(blockIdx.y) * a.L + l;
+}
+template <typename R>
+__device__ __forceinline__ int64_t chain_unit(const TreeArgs<R>& a, int u) {
+  return static_cast<int64_t>(blockIdx.y) * a.U + u;
+}
 
 template <int FAM, typename R> struct Coefs;
 
@@ -323,6 +341,7 @@ struct UnitWalk {
                           int u, int4 unit, int lane) {
     const int T = a.T, S = a.S, N = 2 * T - 1;
     const int64_t l = unit.x;
+    const int64_t cl = chain_row(a, l);       // l in the chain's rows
     const bool active = lane < unit.z;
     const WarpLayout w = warp_layout(T, C, K, SHARED, sizeof(R));
     R* fac = reinterpret_cast<R*>(region + w.fac);
@@ -340,7 +359,7 @@ struct UnitWalk {
     if constexpr (SHARED)
       cv = reinterpret_cast<V4*>(region + w.clv) + lane;
     else
-      cv = a.scratch + static_cast<int64_t>(u) * w.slots * C * kLanes + lane;
+      cv = a.scratch + chain_unit(a, u) * w.slots * C * kLanes + lane;
 
     // prologue 1: the schedule and both children's branch lengths, one
     // level per lane (the parent of a scheduled child is the level's
@@ -354,16 +373,16 @@ struct UnitWalk {
     // the schedule names each inner node once, children before parents,
     // and 0 <= n_seq <= T (the batch's tip capacity is its largest locus).
     const int nlev = static_cast<int>(a.n_seq[l]) - 1;
-    const R mu = a.blen != nullptr ? R(1) : a.mu[l];
-    const R* len = (a.blen != nullptr ? a.blen : a.age) + l * N;
-    const R* fq = a.freqs + l * 4;
+    const R mu = a.blen != nullptr ? R(1) : a.mu[cl];
+    const R* len = (a.blen != nullptr ? a.blen : a.age) + cl * N;
+    const R* fq = a.freqs + cl * 4;
     const R f0 = fq[0], f1 = fq[1], f2 = fq[2], f3 = fq[3];
     Coefs<FAM, R> cf;
-    cf.load(a, l, C);
-    const R my_rate = lane < C ? a.rates[l * (C + 2) + lane] : R(0);
-    const int64_t* order = a.order + l * (T - 1);
-    const int64_t* left = a.left + l * N;
-    const int64_t* right = a.right + l * N;
+    cf.load(a, cl, C);
+    const R my_rate = lane < C ? a.rates[cl * (C + 2) + lane] : R(0);
+    const int64_t* order = a.order + cl * (T - 1);
+    const int64_t* left = a.left + cl * N;
+    const int64_t* right = a.right + cl * N;
     for (int k = lane; k < T - 1; k += kLanes) {
       int node = static_cast<int>(order[k]);
       node = node < T ? T : (node >= N ? N - 1 : node);
@@ -561,6 +580,7 @@ struct DoubleWalk {
                                int lane) {
     const int T = a.T, S = a.S, N = 2 * T - 1;
     const int64_t l = unit.x;
+    const int64_t cl = chain_row(a, l);       // l in the chain's rows
     const bool active = lane < unit.z;
     const WarpLayout w = warp_layout(T, C, K, SHARED, sizeof(double));
     double* fac = reinterpret_cast<double*>(region + w.fac);
@@ -577,20 +597,20 @@ struct DoubleWalk {
     if constexpr (SHARED)
       cv = reinterpret_cast<V4d*>(region + w.clv) + lane;
     else
-      cv = a.scratch + static_cast<int64_t>(u) * w.slots * C * kLanes + lane;
+      cv = a.scratch + chain_unit(a, u) * w.slots * C * kLanes + lane;
 
     // prologue 1 and 2: UnitWalk's
     const int nlev = static_cast<int>(a.n_seq[l]) - 1;
-    const double mu = a.blen != nullptr ? 1.0 : a.mu[l];
-    const double* len = (a.blen != nullptr ? a.blen : a.age) + l * N;
-    const double* fq = a.freqs + l * 4;
+    const double mu = a.blen != nullptr ? 1.0 : a.mu[cl];
+    const double* len = (a.blen != nullptr ? a.blen : a.age) + cl * N;
+    const double* fq = a.freqs + cl * 4;
     const double f0 = fq[0], f1 = fq[1], f2 = fq[2], f3 = fq[3];
     Coefs<FAM, double> cf;
-    cf.load(a, l, C);
-    const double my_rate = lane < C ? a.rates[l * (C + 2) + lane] : 0.0;
-    const int64_t* order = a.order + l * (T - 1);
-    const int64_t* left = a.left + l * N;
-    const int64_t* right = a.right + l * N;
+    cf.load(a, cl, C);
+    const double my_rate = lane < C ? a.rates[cl * (C + 2) + lane] : 0.0;
+    const int64_t* order = a.order + cl * (T - 1);
+    const int64_t* left = a.left + cl * N;
+    const int64_t* right = a.right + cl * N;
     for (int k = lane; k < T - 1; k += kLanes) {
       int node = static_cast<int>(order[k]);
       node = node < T ? T : (node >= N ? N - 1 : node);
@@ -836,7 +856,7 @@ TreeArgs<R> tree_args(const void* tips, const void* age, const void* blen,
                       const void* eigw, const void* eigT, const void* eigTi,
                       const void* order, const void* left, const void* right,
                       const void* n_seq, const void* units, void* scratch,
-                      int T, int S, int U) {
+                      int T, int S, int U, int L) {
   using V4 = typename Real<R>::V4;
   TreeArgs<R> a;
   a.tips = static_cast<const V4*>(tips);
@@ -857,6 +877,7 @@ TreeArgs<R> tree_args(const void* tips, const void* age, const void* blen,
   a.T = T;
   a.S = S;
   a.U = U;
+  a.L = L;
   return a;
 }
 

@@ -43,9 +43,15 @@
 // DoubleBuildWalk (DoubleWalk up to 3 categories, UnitWalk's above);
 // PERF.md §6 has the measurements it was designed from.
 //
+// Chains (chains = K): a launch takes K chains' trees and parameters at
+// once, a grid row (blockIdx.y) a chain, and writes out [K, L, S]; the
+// tips and the unit table are read by every row (contract.cuh TreeArgs).
+// Chain k's rows equal a one-chain launch on chain k's tensors bit for
+// bit.
+//
 // C interface (built with nvcc into a shared library, loaded by ctypes
 // from bpp_tpu_torch/core/fels.py): bpp_fels_site_logl (dbl = 1: the
-// double build) returns the value of cudaGetLastError() right after the
+// double build; K chains of L loci) returns the value of cudaGetLastError() right after the
 // launch.
 
 #include "contract.cuh"
@@ -66,7 +72,7 @@ __global__ void fels_site_logl_kernel(TreeArgs<R> a, R* out) {
       warp_layout(a.T, C, Coefs<FAM, R>::K, SHARED, sizeof(R)).bytes;
   const R v = UnitWalk<R, FAM, C, SHARED>::run(
       a, block_state + warp * stride, u, unit, lane);
-  R* row = out + static_cast<int64_t>(unit.x) * a.S;
+  R* row = out + chain_row(a, unit.x) * a.S;
   if (lane < unit.z) row[unit.y + lane] = v;
   if (unit.w)
     for (int s = unit.y + unit.z + lane; s < a.S; s += kLanes) row[s] = R(0);
@@ -85,7 +91,7 @@ __global__ void fels_site_logl_kernel_f64(TreeArgs<double> a, double* out) {
       warp_layout(a.T, C, Coefs<FAM, double>::K, SHARED, 8).bytes;
   const double v = DoubleBuildWalk<FAM, C, SHARED>::run(
       a, block_state + warp * stride, u, unit, lane);
-  double* row = out + static_cast<int64_t>(unit.x) * a.S;
+  double* row = out + chain_row(a, unit.x) * a.S;
   if (lane < unit.z) row[unit.y + lane] = v;
   if (unit.w)
     for (int s = unit.y + unit.z + lane; s < a.S; s += kLanes) row[s] = 0.0;
@@ -93,7 +99,7 @@ __global__ void fels_site_logl_kernel_f64(TreeArgs<double> a, double* out) {
 
 template <typename R, int FAM, int C, bool SHARED>
 struct Launch {
-  static int run(const TreeArgs<R>& a, R* out, int threads,
+  static int run(const TreeArgs<R>& a, R* out, int K, int threads,
                  long long shared_bytes, cudaStream_t st) {
     static long long allowed = 48 * 1024;
     const int rc = allow_shared(fels_site_logl_kernel<R, FAM, C, SHARED>,
@@ -101,22 +107,24 @@ struct Launch {
     if (rc != 0) return rc;
     const int warps = threads / kLanes;
     fels_site_logl_kernel<R, FAM, C, SHARED>
-        <<<(a.U + warps - 1) / warps, threads, shared_bytes, st>>>(a, out);
+        <<<dim3((a.U + warps - 1) / warps, K), threads, shared_bytes, st>>>(
+            a, out);
     return 0;
   }
 };
 
 template <int FAM, int C, bool SHARED>
 struct Launch<double, FAM, C, SHARED> {
-  static int run(const TreeArgs<double>& a, double* out, int threads,
-                 long long shared_bytes, cudaStream_t st) {
+  static int run(const TreeArgs<double>& a, double* out, int K,
+                 int threads, long long shared_bytes, cudaStream_t st) {
     static long long allowed = 48 * 1024;
     const int rc = allow_shared(fels_site_logl_kernel_f64<FAM, C, SHARED>,
                                 shared_bytes, &allowed);
     if (rc != 0) return rc;
     const int warps = threads / kLanes;
     fels_site_logl_kernel_f64<FAM, C, SHARED>
-        <<<(a.U + warps - 1) / warps, threads, shared_bytes, st>>>(a, out);
+        <<<dim3((a.U + warps - 1) / warps, K), threads, shared_bytes, st>>>(
+            a, out);
     return 0;
   }
 };
@@ -144,17 +152,18 @@ int fels_site_logl(const void* tips, const void* age, const void* blen,
                    const void* order, const void* left, const void* right,
                    const void* n_seq, const void* units, void* scratch,
                    void* out, int T, int S, int U, int C, int fam, int shared,
-                   int threads, cudaStream_t stream) {
+                   int threads, int K, int L, cudaStream_t stream) {
   const TreeArgs<R> a = tree_args<R>(tips, age, blen, mu, rates, freqs, eigw,
                                      eigT, eigTi, order, left, right, n_seq,
-                                     units, scratch, T, S, U);
+                                     units, scratch, T, S, U, L);
   const long long bytes =
       block_shared_bytes(T, C, fam, shared != 0, threads, sizeof(R));
-  if (threads < kLanes || threads % kLanes || bytes > kMaxBlockShared)
+  if (threads < kLanes || threads % kLanes || bytes > kMaxBlockShared ||
+      K < 1 || K > 65535)
     return static_cast<int>(cudaErrorInvalidConfiguration);
   const int rc = dispatch<Launch, R>(fam, C, shared != 0, a,
-                                     static_cast<R*>(out), threads, bytes,
-                                     stream);
+                                     static_cast<R*>(out), K, threads,
+                                     bytes, stream);
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
 }
@@ -188,15 +197,15 @@ extern "C" int bpp_fels_site_logl(
     const void* eigTi, const void* order, const void* left,
     const void* right, const void* n_seq, const void* units, void* scratch,
     void* out, int T, int S, int U, int C, int fam, int shared, int threads,
-    int dbl, void* stream) {
+    int dbl, int K, int L, void* stream) {
   if (U <= 0 || S <= 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return dbl ? fels_site_logl<double>(tips, age, blen, mu, rates, freqs,
                                       eigw, eigT, eigTi, order, left, right,
                                       n_seq, units, scratch, out, T, S, U, C,
-                                      fam, shared, threads, st)
+                                      fam, shared, threads, K, L, st)
              : fels_site_logl<float>(tips, age, blen, mu, rates, freqs, eigw,
                                      eigT, eigTi, order, left, right, n_seq,
                                      units, scratch, out, T, S, U, C, fam,
-                                     shared, threads, st);
+                                     shared, threads, K, L, st);
 }

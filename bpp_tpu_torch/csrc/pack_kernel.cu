@@ -40,9 +40,16 @@
 // DoubleBuildWalk (DoubleWalk up to 3 categories, UnitWalk's above);
 // PERF.md §6 has the measurements it was designed from.
 //
+// Chains (chains = K): a launch takes K chains' trees and parameters at
+// once, a grid row (blockIdx.y) a chain over the one block table, and
+// writes out [K, L]; the tips, weights and tables are read by every row
+// (contract.cuh TreeArgs).  Nothing of a locus's arithmetic depends on K,
+// so chain k's row equals a one-chain launch on chain k's tensors bit for
+// bit.
+//
 // C interface (built with nvcc into a shared library, loaded by ctypes
 // from bpp_tpu_torch/core/pack.py): bpp_pack_logl (dbl = 1: the double
-// build) returns the value of cudaGetLastError() right after the launch.  bpp_pack_empty launches a
+// build; K chains of L loci) returns the value of cudaGetLastError() right after the launch.  bpp_pack_empty launches a
 // kernel that does nothing, for timing the launch floor beside K1.
 
 #include "contract.cuh"
@@ -101,7 +108,7 @@ __global__ void pack_logl_kernel(TreeArgs<R> a, const R* weights, int W,
     for (int v = lo; v < hi; ++v) acc += part[v - base];
     __syncthreads();
   }
-  if (owner) out[l] = static_cast<R>(acc);
+  if (owner) out[chain_row(a, l)] = static_cast<R>(acc);
 }
 
 // The double build: the same blocks, rounds and sums, with
@@ -144,7 +151,7 @@ __global__ void pack_logl_kernel_f64(TreeArgs<double> a,
     for (int v = lo; v < hi; ++v) acc += part[v - base];
     __syncthreads();
   }
-  if (owner) out[l] = acc;
+  if (owner) out[chain_row(a, l)] = acc;
 }
 
 __global__ void empty_kernel() {}
@@ -153,12 +160,14 @@ template <typename R, int FAM, int C, bool SHARED>
 struct Launch {
   static int run(const TreeArgs<R>& a, const R* weights, int W,
                  const int4* blocks, const int* locus_unit0, R* out, int B,
-                 int threads, long long shared_bytes, cudaStream_t st) {
+                 int K, int threads, long long shared_bytes,
+                 cudaStream_t st) {
     static long long allowed = 48 * 1024;
     const int rc = allow_shared(pack_logl_kernel<R, FAM, C, SHARED>,
                                 shared_bytes, &allowed);
     if (rc != 0) return rc;
-    pack_logl_kernel<R, FAM, C, SHARED><<<B, threads, shared_bytes, st>>>(
+    pack_logl_kernel<R, FAM, C, SHARED>
+        <<<dim3(B, K), threads, shared_bytes, st>>>(
         a, weights, W, blocks, locus_unit0, out);
     return 0;
   }
@@ -168,13 +177,14 @@ template <int FAM, int C, bool SHARED>
 struct Launch<double, FAM, C, SHARED> {
   static int run(const TreeArgs<double>& a, const double* weights, int W,
                  const int4* blocks, const int* locus_unit0, double* out,
-                 int B, int threads, long long shared_bytes,
+                 int B, int K, int threads, long long shared_bytes,
                  cudaStream_t st) {
     static long long allowed = 48 * 1024;
     const int rc = allow_shared(pack_logl_kernel_f64<FAM, C, SHARED>,
                                 shared_bytes, &allowed);
     if (rc != 0) return rc;
-    pack_logl_kernel_f64<FAM, C, SHARED><<<B, threads, shared_bytes, st>>>(
+    pack_logl_kernel_f64<FAM, C, SHARED>
+        <<<dim3(B, K), threads, shared_bytes, st>>>(
         a, weights, W, blocks, locus_unit0, out);
     return 0;
   }
@@ -204,21 +214,21 @@ int pack_logl(const void* tips, const void* age, const void* blen,
               const void* n_seq, const void* units, void* scratch,
               const void* weights, const void* blocks,
               const void* locus_unit0, void* out, int T, int S, int U, int W,
-              int B, int C, int fam, int shared, int threads,
+              int B, int C, int fam, int shared, int threads, int K, int L,
               cudaStream_t stream) {
   const TreeArgs<R> a = tree_args<R>(tips, age, blen, mu, rates, freqs, eigw,
                                      eigT, eigTi, order, left, right, n_seq,
-                                     units, scratch, T, S, U);
+                                     units, scratch, T, S, U, L);
   const long long bytes =
       block_shared_bytes(T, C, fam, shared != 0, threads, sizeof(R));
   if (threads < kLanes || threads % kLanes ||
       threads > kMaxWarps * kLanes ||
-      bytes + kMaxWarps * 8 > kMaxBlockShared)
+      bytes + kMaxWarps * 8 > kMaxBlockShared || K < 1 || K > 65535)
     return static_cast<int>(cudaErrorInvalidConfiguration);
   const int rc = dispatch<Launch, R>(
       fam, C, shared != 0, a, static_cast<const R*>(weights), W,
       static_cast<const int4*>(blocks), static_cast<const int*>(locus_unit0),
-      static_cast<R*>(out), B, threads, bytes, stream);
+      static_cast<R*>(out), B, K, threads, bytes, stream);
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
 }
@@ -258,17 +268,17 @@ extern "C" int bpp_pack_logl(
     const void* right, const void* n_seq, const void* units, void* scratch,
     const void* weights, const void* blocks, const void* locus_unit0,
     void* out, int T, int S, int U, int W, int B, int C, int fam, int shared,
-    int threads, int dbl, void* stream) {
+    int threads, int dbl, int K, int L, void* stream) {
   if (B <= 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return dbl ? pack_logl<double>(tips, age, blen, mu, rates, freqs, eigw,
                                  eigT, eigTi, order, left, right, n_seq,
                                  units, scratch, weights, blocks,
                                  locus_unit0, out, T, S, U, W, B, C, fam,
-                                 shared, threads, st)
+                                 shared, threads, K, L, st)
              : pack_logl<float>(tips, age, blen, mu, rates, freqs, eigw,
                                 eigT, eigTi, order, left, right, n_seq,
                                 units, scratch, weights, blocks, locus_unit0,
                                 out, T, S, U, W, B, C, fam, shared, threads,
-                                st);
+                                K, L, st);
 }

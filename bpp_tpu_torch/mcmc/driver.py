@@ -19,8 +19,11 @@ the runtime check of the caches (``check = N``) and K replicate chains
 ``bpp_tpu`` jits its step and runs a chunk as one ``lax.scan``.  Here
 :func:`step_route`, once per engine, sends a run one of two ways.  On the
 ``"graph"`` route a chunk of n iterations is n replays of one captured
-CUDA graph of :meth:`Engine._step` (``mcmc.graph.StepGraph``; under
-``chains = K`` one graph a chain, where ``_chunk_multi`` vmaps them).
+CUDA graph of :meth:`Engine._step` (``mcmc.graph.StepGraph``).  Under
+``chains = K`` :func:`chain_route` picks how the chains step: batched,
+one step over the K stacked chains (:meth:`Engine._step_batched`,
+``vmap`` of the step as ``bpp_tpu``'s ``_chunk_multi`` vmaps its chunk;
+one graph), or per-chain (one graph a chain).
 The ``"eager"`` route is a Python loop over :meth:`Engine._step`, taken
 by locus sharding alone (its all-reduces go through the host over gloo);
 ``eng.route = "eager"`` forces it for a comparison.  The device control
@@ -66,7 +69,7 @@ from . import (
     subst_moves, trait_moves,
 )
 from .gibbs import gamma_conditional_approx
-from .graph import StepGraph
+from .graph import StepGraph, chain_views, flatten, stack_states, unflatten
 from .state import (
     FT_ALPHA, FT_BRATE, FT_BRATE_M, FT_FREQS, FT_GTAGE, FT_GTSPR, FT_LRHT,
     FT_MIG_AGES, FT_MIX, FT_MUBAR, FT_MUI, FT_NUBAR, FT_NUI, FT_QRATES,
@@ -415,6 +418,58 @@ def step_route(cfg: BppConfig, shard=None) -> tuple[str, str]:
     return ROUTE_GRAPH, "the step reads nothing back to the host"
 
 
+ROUTE_BATCHED = "batched"
+ROUTE_PER_CHAIN = "per-chain"
+
+# the substitution models a batched step takes: 4 states without GTR's
+# eigensystem
+_BATCHED_MODELS = (SubstModel.JC69, SubstModel.K80, SubstModel.F81,
+                   SubstModel.HKY, SubstModel.T92, SubstModel.F84,
+                   SubstModel.TN93)
+
+
+def chain_route(cfg: BppConfig, run: RunData) -> tuple[str, str]:
+    """How ``chains = K`` steps, chosen once from the configuration:
+    ``("batched", why)``, one step over a leading chain axis of the K
+    stacked states (``bpp_tpu``'s ``_chunk_multi``, which vmaps its chunk:
+    :meth:`Engine._step_batched`, K1 or K2 launched once a pass for all K
+    chains), or ``("per-chain", what is not batched)``, the chains' steps
+    one after another.  The batched step covers A00 on a species tree
+    with the strict clock, estimated thetas and a 4-state model other
+    than GTR and ``model = custom``, haploid (K1) or diploid (K2 and
+    ``reduce_root``), with Gamma rates, heredity scalars and hierarchical
+    locus rates.  This table alone decides: a batched step that fails to
+    capture or launch raises, and nothing reruns the chains one by one."""
+    why = None
+    if cfg.est_delimit or cfg.est_stree:
+        why = "species delimitation / species-tree moves (rj, SPR, SNL)"
+    elif run.stree.n_hybrids > 0:
+        why = "an MSC-I network"
+    elif cfg.migration:
+        why = "MSC-M migration"
+    elif cfg.theta_integrated:
+        why = "integrated thetas (the accept chain K3)"
+    elif cfg.datefile:
+        why = "tip dating"
+    elif cfg.model not in _BATCHED_MODELS:
+        why = f"model = {cfg.model.name} (custom, amino acids and GTR)"
+    elif cfg.clock != Clock.GLOBAL:
+        why = "a relaxed clock"
+    elif cfg.est_locusrate == 1 and cfg.locusrate_prior != 1:
+        why = ("locus rates under the Gamma-Dirichlet (K4) or Dirichlet "
+               "prior")
+    elif cfg.linked_theta:
+        why = "linked thetas"
+    elif cfg.traitfile:
+        why = "morphological traits"
+    elif cfg.usedata_fix_gtree:
+        why = "usedata = 2"
+    if why is not None:
+        return ROUTE_PER_CHAIN, f"{why}: one chain's step after another"
+    return ROUTE_BATCHED, ("one step over a chain axis: each pruning pass "
+                           "one launch for every chain")
+
+
 @dataclass
 class SampleLog:
     """Posterior samples collected on host."""
@@ -511,6 +566,7 @@ class Engine:
         self.n_states = (custom.n_states if custom is not None
                          else cfg.model.n_states)
         self.route, self.route_reason = step_route(cfg)
+        self.chains_route, self.chains_route_reason = chain_route(cfg, run)
         self.ctx = Ctx(
             tip_partials=fe.tip_partials_from_codes(
                 t(batch.tip_codes.astype(np.int64)), dtype=self.dtype,
@@ -566,6 +622,7 @@ class Engine:
         self.gen.manual_seed(int(self.seed))
         self.record_samples()
         self._graphs = {}     # generators' ids -> their StepGraph
+        self._chain_idx = None    # the batched step's chain index
         if shard is not None:
             self.set_shard(shard)
 
@@ -763,8 +820,9 @@ class Engine:
         """One iteration of the main-path move schedule; returns (state,
         stats [N_MOVES, 2] on the device)."""
         cfg, ctx, gen = self.cfg, self.ctx, self.gen
-        stats = torch.zeros((N_MOVES, 2), dtype=torch.int64,
-                            device=self.device)
+        # made from the state, so that inside the batched step (vmap) the
+        # statistics carry the chain axis: [K, N_MOVES, 2]
+        stats = state.logl.new_zeros((N_MOVES, 2), dtype=torch.int64)
 
         def count(mv, pa):
             stats[mv, 0] += pa[0]
@@ -956,6 +1014,71 @@ class Engine:
             state, pa = trait_moves.trait_brate_move(ctx, cfg, state, gen)
             count(MV_TRAIT, pa)
         return state
+
+    def _step_batched(self, state: McmcState, gens):
+        """One iteration of K chains at once: ``state`` holds the K
+        chains' states stacked (every tensor with a leading chain axis,
+        :func:`stack_states`) and chain k draws from ``gens[k]``.  The
+        counterpart of ``bpp_tpu``'s ``_chunk_multi``: ``torch.func.vmap``
+        of the one-chain :meth:`_step` over the chain axis, in which every
+        draw is chain k's draw from its own generator
+        (``rng.ChainGens``) and every pruning pass one call of K1 or K2
+        over all K chains (``Ctx.chains``).  Returns (state, stats [K,
+        N_MOVES, 2]).  Only configurations :func:`chain_route` sends to
+        the batched route run here."""
+        K = len(gens)
+        if self.chains_route != ROUTE_BATCHED:
+            raise ValueError("chains = K of this configuration step one "
+                             "chain after another "
+                             f"({self.chains_route_reason})")
+        spec, leaves = flatten(state)
+        idx = self._chain_index(K)
+        own_gen, own_ctx = self.gen, self.ctx
+
+        def one(leaves, i):
+            self.gen = rng.ChainGens(gens, i)
+            new, stats = self._step(unflatten(spec, iter(leaves)))
+            out_spec, out = flatten(new)
+            if out_spec != spec:
+                raise ValueError("the step changed the state's structure")
+            return out, stats
+
+        self.ctx = dataclasses.replace(own_ctx, chains=K)
+        try:
+            out, stats = torch.func.vmap(one)(leaves, idx)
+        finally:
+            self.gen, self.ctx = own_gen, own_ctx
+        return unflatten(spec, iter(out)), stats
+
+    def _trace_batched(self, state: McmcState):
+        """:meth:`_trace_of` of K stacked chains: rows ``{key: [K, ...]}``."""
+        spec, leaves = flatten(state)
+        return torch.func.vmap(
+            lambda lv: self._trace_of(unflatten(spec, iter(lv))))(leaves)
+
+    def _chain_index(self, K):
+        """The chain index 0..K-1 the batched step is vmapped over (kept,
+        so that a captured step reads the same tensor)."""
+        if self._chain_idx is None or self._chain_idx.shape[0] != K:
+            self._chain_idx = torch.arange(K, device=self.device)
+        return self._chain_idx
+
+    def _chunk_multi(self, state: McmcState, gens, n: int):
+        """n batched iterations of the K stacked chains ``state`` on the
+        eager route (a Python loop over :meth:`_step_batched`); returns
+        (state, stats [K, N_MOVES, 2], the K chains' traces {key: [n,
+        ...]})."""
+        K = len(gens)
+        acc = torch.zeros((K, N_MOVES, 2), dtype=torch.int64,
+                          device=self.device)
+        rows = []
+        for _ in range(n):
+            state, stats = self._step_batched(state, gens)
+            acc += stats
+            rows.append(self._trace_batched(state))
+        rows = {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+        return state, acc, [{k: v[:, c] for k, v in rows.items()}
+                            for c in range(K)]
 
     def _species_move(self, state: McmcState):
         """One species SPR or SNL; returns (state, [(move slot, (proposed,
@@ -1156,16 +1279,19 @@ class Engine:
                 f"{fresh[worst][:4]})")
         return True
 
-    def step_graph(self, states, gens=None) -> StepGraph:
+    def step_graph(self, states, gens=None, batched=False) -> StepGraph:
         """The captured step of the chains ``states``, chain c drawing
         from ``gens[c]`` (default: one chain on the engine's generator),
-        made once and kept, with ``states`` loaded (its own views stay)."""
+        made once and kept, with ``states`` loaded (its own views stay).
+        ``batched``: ``states`` is ``[the K chains stacked]`` and the step
+        :meth:`_step_batched`."""
         gens = [self.gen] if gens is None else list(gens)
         # the graph holds its generators, so these ids stay theirs
-        key = tuple(id(g) for g in gens)
+        key = (batched,) + tuple(id(g) for g in gens)
         graph = self._graphs.get(key)
         if graph is None:
-            graph = self._graphs[key] = StepGraph(self, states, gens)
+            graph = self._graphs[key] = StepGraph(self, states, gens,
+                                                  batched)
         else:
             graph.load(states)
         return graph
@@ -1352,12 +1478,17 @@ class Engine:
         """Run K replicate chains; returns their K :class:`SampleLog`.
 
         ``bpp_tpu`` vmaps the chunk over the chains.  Here chain k draws
-        from its own ``torch.Generator`` seeded at :meth:`chain_seed`, and
-        the chains take each chunk in turn: on the graph route as n
-        replays of their captured steps (:meth:`step_graph`).  Each
-        chain tunes its finetune steps at the single-chain marks from its
-        own move statistics.  The records of :meth:`record_samples` and
-        ``check = N`` are single-chain features.
+        from its own ``torch.Generator`` seeded at :meth:`chain_seed`.  On
+        the batched route (:func:`chain_route`) the K states are stacked
+        and a chunk is n batched steps (:meth:`_step_batched`, as n
+        replays of one captured graph on the graph route, else
+        :meth:`_chunk_multi`); on the per-chain route the chains take each
+        chunk in turn (on the graph route as n replays of their captured
+        steps, :meth:`step_graph`).  Either way chain k draws what its
+        one-chain step draws.  Each chain tunes its finetune steps at the
+        single-chain marks from its own move statistics (written into its
+        row of the stacked state).  The records of :meth:`record_samples`
+        and ``check = N`` are single-chain features.
 
         ``resume = (states, rng_states, it, stats_acc, logs)`` continues
         from a checkpoint (the K states as :meth:`init_states`' templates
@@ -1400,8 +1531,16 @@ class Engine:
         t0 = time.time()
         last_print = 0
         own_gen = self.gen
-        graph = None
-        if self.route == ROUTE_GRAPH:
+        graph = stacked = None
+        batched = self.chains_route == ROUTE_BATCHED
+        if batched:
+            stacked = stack_states(states)
+            if self.route == ROUTE_GRAPH:
+                graph = self.step_graph([stacked], gens, batched=True)
+                states = graph.chain_states()
+            else:
+                states = chain_views(stacked, n_chains)
+        elif self.route == ROUTE_GRAPH:
             graph = self.step_graph(states, gens)
             states = list(graph.states())
         try:
@@ -1412,6 +1551,12 @@ class Engine:
                 n = max(1, min(500, min(bounds) - it))
                 if graph is not None:
                     accs, traces = graph.run(n)
+                    traces = [_nu_column(tr) for tr in traces]
+                    stats_acc += accs.cpu().numpy()
+                elif batched:
+                    stacked, accs, traces = self._chunk_multi(stacked, gens,
+                                                              n)
+                    states = chain_views(stacked, n_chains)
                     traces = [_nu_column(tr) for tr in traces]
                     stats_acc += accs.cpu().numpy()
                 else:

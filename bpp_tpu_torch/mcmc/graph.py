@@ -8,6 +8,14 @@ K`` each chain's, with its own generator) into CUDA graphs
 (``torch.cuda.CUDAGraph``) and replays them n times.  A replay issues every kernel of the step, K1
 to K5 among them, with one host call.
 
+Under ``chains = K`` on the batched route (``driver.chain_route``) a
+:class:`StepGraph` made with ``batched=True`` holds one state, the K
+chains stacked on a leading axis, and captures one graph of
+:meth:`driver.Engine._step_batched` (``bpp_tpu``'s ``_chunk_multi``: the
+step vmapped over the chains, K1/K2 launched once a pass for all K) with
+the write-back, all K generators registered on it: one replay, one host
+call, steps every chain.
+
 A :class:`StepGraph` owns static buffers: every tensor of the K states
 (``McmcState``, flattened), the move statistics ``[K, N_MOVES, 2]`` and
 rings of ``CAP`` trace rows (:meth:`Engine._trace_of`, one ring a dtype)
@@ -88,6 +96,22 @@ def unflatten(spec, leaves):
     return typ(*(unflatten(s, leaves) for s in specs))
 
 
+def stack_states(states):
+    """The K states as one: every tensor with a leading chain axis."""
+    specs, chains = zip(*(flatten(s) for s in states))
+    if any(sp != specs[0] for sp in specs):
+        raise ValueError("the chains' states differ in structure")
+    return unflatten(specs[0], iter([torch.stack(ts) for ts in
+                                     zip(*chains)]))
+
+
+def chain_views(state, n_chains):
+    """Chain k's state, as views of a stacked state (writes go through)."""
+    spec, leaves = flatten(state)
+    return [unflatten(spec, iter([t[k] for t in leaves]))
+            for k in range(n_chains)]
+
+
 def launch_counts():
     """The kernel wrappers' launch counters (K1, K1 float64, K2, K2
     float64, K3, K4, K5)."""
@@ -107,12 +131,18 @@ class StepGraph:
     """One iteration of ``eng``'s step over the K chains ``states`` (chain
     c drawing from ``gens[c]``), captured on the card at the first
     :meth:`replay`: one CUDA graph a chain and one that writes the K
-    chains' states and trace rows back, on one memory pool."""
+    chains' states and trace rows back, on one memory pool.  With
+    ``batched``, ``states`` is one state of the K chains stacked and the
+    step is :meth:`driver.Engine._step_batched`, one graph with its
+    write-back."""
 
-    def __init__(self, eng, states, gens):
-        if len(states) != len(gens):
-            raise ValueError(f"{len(states)} states, {len(gens)} generators")
+    def __init__(self, eng, states, gens, batched=False):
+        if len(states) != (1 if batched else len(gens)):
+            raise ValueError(f"{len(states)} states, {len(gens)} generators"
+                             + (" (batched: one stacked state)" if batched
+                                else ""))
         self._eng = weakref.ref(eng)      # the engine keeps its graphs
+        self.batched = batched
         self.gens = list(gens)
         self.device = eng.device
         self.graphs = None
@@ -123,7 +153,8 @@ class StepGraph:
         self.bufs = [[t.detach().clone() for t in lv] for lv in chains]
         self._views = [unflatten(s, iter(b))
                        for s, b in zip(self.specs, self.bufs)]
-        K = len(states)
+        self._chain_views = None
+        K = len(gens)
         self.acc = torch.zeros((K, N_MOVES, 2), dtype=torch.int64,
                                device=self.device)
         self.cursor = torch.zeros((1,), dtype=torch.int64, device=self.device)
@@ -132,24 +163,40 @@ class StepGraph:
         # multi-tensor copy a dtype), then one indexed write a dtype puts
         # the row in the ring at the cursor; _layout holds (chain, key,
         # dtype, first column, size, shape)
-        row = eng._trace_of(self._views[0])
+        # (batched: the row of the stacked state, [K, ...] a key, whose
+        # chain c lies at its columns c size .. (c + 1) size)
         self._layout, width = [], {}
-        for c in range(K):
-            for k, v in row.items():
+        if batched:
+            for k, v in eng._trace_batched(self._views[0]).items():
                 col = width.get(v.dtype, 0)
-                self._layout.append((c, k, v.dtype, col, v.numel(),
-                                     tuple(v.shape)))
-                width[v.dtype] = col + v.numel()
+                size = v[0].numel()
+                self._layout += [(c, k, v.dtype, col + c * size, size,
+                                  tuple(v.shape[1:])) for c in range(K)]
+                width[v.dtype] = col + K * size
+        else:
+            row = eng._trace_of(self._views[0])
+            for c in range(K):
+                for k, v in row.items():
+                    col = width.get(v.dtype, 0)
+                    self._layout.append((c, k, v.dtype, col, v.numel(),
+                                         tuple(v.shape)))
+                    width[v.dtype] = col + v.numel()
         self.row = {dt: torch.zeros((w,), dtype=dt, device=self.device)
                     for dt, w in width.items()}
         self.rings = {dt: torch.zeros((CAP, w), dtype=dt, device=self.device)
                       for dt, w in width.items()}
-        self._row_slots = [[self.row[dt][col:col + size]
-                            for cc, _, dt, col, size, _ in self._layout
-                            if cc == c] for c in range(K)]
+        if batched:
+            # one slot a key: its K chains' columns
+            self._row_slots = [[self.row[dt][col:col + K * size]
+                                for c, _, dt, col, size, _ in self._layout
+                                if c == 0]]
+        else:
+            self._row_slots = [[self.row[dt][col:col + size]
+                                for cc, _, dt, col, size, _ in self._layout
+                                if cc == c] for c in range(K)]
         # each chain's new leaves and trace row, held (so that no later
         # capture on the pool reuses them) until the write-back reads them
-        self._outs = [None] * K
+        self._outs = [None] * len(self.bufs)
 
     @property
     def eng(self):
@@ -164,6 +211,15 @@ class StepGraph:
 
     def state(self, c=0):
         return self._views[c]
+
+    def chain_states(self):
+        """The K chains' states as views of the buffers: :meth:`states`,
+        or with ``batched`` chain k's rows of the stacked state."""
+        if not self.batched:
+            return self._views
+        if self._chain_views is None:
+            self._chain_views = chain_views(self._views[0], len(self.gens))
+        return self._chain_views
 
     def load(self, states):
         """Copy the K states into the buffers (an initial state, a resumed
@@ -210,6 +266,17 @@ class StepGraph:
         self._outs[c] = (leaves, [v.reshape(-1)
                                   for v in eng._trace_of(new).values()])
 
+    def _batched_body(self):
+        """One iteration of the K stacked chains; the new state's leaves
+        and the trace rows wait in ``_outs[0]`` for :meth:`_write_back`."""
+        eng = self.eng
+        new, stats = eng._step_batched(self._views[0], self.gens)
+        self.acc += stats
+        spec, leaves = flatten(new)
+        self._check(0, spec, leaves, "the batched step")
+        self._outs[0] = (leaves, [v.reshape(-1) for v in
+                                  eng._trace_batched(new).values()])
+
     def _write_back(self):
         """The K chains' new states and trace rows into the buffers, one
         multi-tensor copy a dtype, then the row into the ring at the
@@ -240,8 +307,11 @@ class StepGraph:
         self.cursor += 1
 
     def _body(self):
-        for c in range(len(self.gens)):
-            self._chain_body(c)
+        if self.batched:
+            self._batched_body()
+        else:
+            for c in range(len(self.gens)):
+                self._chain_body(c)
         self._write_back()
 
     # --- capture and replay -------------------------------------------------
@@ -261,7 +331,7 @@ class StepGraph:
         with torch.cuda.stream(side):
             self._body()
         torch.cuda.current_stream(dev).wait_stream(side)
-        self._outs = [None] * len(self.gens)
+        self._outs = [None] * len(self.bufs)
         for chain, snap in zip(self.bufs, saved):
             for b, s in zip(chain, snap):
                 b.copy_(s)
@@ -270,9 +340,13 @@ class StepGraph:
             g.set_state(s)
         self.acc.zero_()
         self.cursor.zero_()
-        parts = [((g,), lambda c=c: self._chain_body(c))
-                 for c, g in enumerate(self.gens)]
-        parts.append(((), self._write_back))
+        if self.batched:
+            # one graph: the batched step and its write-back
+            parts = [(tuple(self.gens), self._body)]
+        else:
+            parts = [((g,), lambda c=c: self._chain_body(c))
+                     for c, g in enumerate(self.gens)]
+            parts.append(((), self._write_back))
         pool = torch.cuda.graph_pool_handle()
         before = launch_counts()
         graphs = []
@@ -330,7 +404,7 @@ class StepGraph:
             acc = self.acc.clone() if acc is None else acc + self.acc
             pieces.append({dt: r[:m].clone() for dt, r in self.rings.items()})
         rows = {dt: torch.cat([p[dt] for p in pieces]) for dt in self.rings}
-        traces = [{} for _ in self.bufs]
+        traces = [{} for _ in self.gens]
         for c, k, dt, col, size, shape in self._layout:
             traces[c][k] = rows[dt][:, col:col + size].reshape((n,) + shape)
         return acc, traces

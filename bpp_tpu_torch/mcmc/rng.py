@@ -9,6 +9,13 @@ reference math: the Bactrian-Laplace symmetric kernel
 the default one: ``mcmc.graph.StepGraph`` registers it with its CUDA
 graph, so each replay advances its Philox offset as an eager step does.
 
+Under ``chains = K`` the batched step (``driver.Engine._step_batched``,
+``torch.func.vmap`` of the one-chain step) hands every draw a
+:class:`ChainGens`: the K chains' generators and the batched chain index.
+A draw there is chain k's draw from generator k at that site, stacked on
+the chain axis (one small launch a chain, :class:`_ChainDraw`), so each
+chain draws exactly the numbers its own one-chain step draws.
+
 Per-locus draws take ``shard`` (``parallel.mesh.Shard``, None when the
 run is not sharded): the variate is drawn at the global shape, the
 locus axis first, and this rank's rows are kept, so the generator
@@ -33,6 +40,75 @@ def tiny_floor(dtype) -> float:
     return max(1e-300, torch.finfo(dtype).tiny)
 
 
+class ChainGens:
+    """The K chains' generators inside the batched step: ``gens[k]`` is
+    chain k's, ``idx`` the chain index, a tensor batched over the chains
+    by ``vmap`` (so that a draw, which takes it as its tensor input, is
+    batched too)."""
+
+    def __init__(self, gens, idx):
+        self.gens = list(gens)
+        self.idx = idx
+
+
+# draws a batched step makes, counted per Python call (a replayed graph
+# does not call): one per draw site, each K launches
+CHAIN_DRAWS = 0
+
+
+def _fill(kind, out, g, param):
+    """One chain's draw of ``kind`` into ``out``, as the one-chain helpers
+    below make it: ``torch.rand`` is ``empty().uniform_()``,
+    ``torch.randint(0, n)`` is ``empty().random_(0, n)``."""
+    if kind == "uniform":
+        out.uniform_(generator=g)
+    elif kind == "exponential":
+        out.exponential_(generator=g)
+    else:
+        out.random_(0, param, generator=g)
+
+
+class _ChainDraw(torch.autograd.Function):
+    """A draw of the batched step.  ``vmap`` calls :meth:`vmap` with the
+    chain index unbatched: chain k draws from ``gens[k]`` in chain order,
+    each into its row of the ``[K, ...]`` result (one launch a chain).
+    Outside ``vmap`` there is no chain axis to draw on."""
+
+    @staticmethod
+    def forward(idx, gens, kind, shape, dtype, device, param, alpha):
+        raise RuntimeError("a ChainGens draw runs inside the batched step "
+                           "(torch.func.vmap over the chains)")
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, idx, gens, kind, shape, dtype, device, param,
+             alpha):
+        global CHAIN_DRAWS
+        if in_dims[0] != 0 or idx.shape[0] != len(gens):
+            raise ValueError("the chain index must be batched over the "
+                             f"{len(gens)} chains")
+        CHAIN_DRAWS += 1
+        if kind == "gamma":
+            a = alpha.movedim(in_dims[7], 0) if in_dims[7] is not None \
+                else alpha.expand((len(gens),) + alpha.shape)
+            return torch.stack([torch._standard_gamma(a[k], generator=g)
+                                for k, g in enumerate(gens)]), 0
+        out = torch.empty((len(gens),) + tuple(shape), dtype=dtype,
+                          device=device)
+        for k, g in enumerate(gens):
+            _fill(kind, out[k], g, param)
+        return out, 0
+
+
+def _chain_draw(gen, kind, shape, dtype=None, device=None, param=0,
+                alpha=None):
+    return _ChainDraw.apply(gen.idx, gen.gens, kind, tuple(shape), dtype,
+                            device, param, alpha)
+
+
 def _global(shape, shard):
     """The draw's shape: ``shape`` with the global locus count first."""
     shape = tuple(shape)
@@ -44,6 +120,9 @@ def _local(x, shard):
 
 
 def uniform(gen, shape, dtype, device, shard=None):
+    if isinstance(gen, ChainGens):
+        return _local(_chain_draw(gen, "uniform", _global(shape, shard),
+                                  dtype, device), shard)
     return _local(torch.rand(_global(shape, shard), generator=gen,
                              dtype=dtype, device=device), shard)
 
@@ -53,13 +132,15 @@ def uniform_loci_last(gen, lead, n_loci, dtype, device, shard=None):
     draws a kernel reads, one column a locus): drawn at the global locus
     count under ``shard``, this rank's columns kept."""
     L = n_loci if shard is None else shard.n_loci
-    x = torch.rand(tuple(lead) + (L,), generator=gen, dtype=dtype,
-                   device=device)
+    x = uniform(gen, tuple(lead) + (L,), dtype, device)
     return x if shard is None else x[..., shard.lo:shard.hi]
 
 
 def exponential(gen, shape, dtype, device, shard=None):
     """Exponential(1) variates."""
+    if isinstance(gen, ChainGens):
+        return _local(_chain_draw(gen, "exponential", _global(shape, shard),
+                                  dtype, device), shard)
     return _local(torch.empty(_global(shape, shard), dtype=dtype,
                               device=device).exponential_(generator=gen),
                   shard)
@@ -67,6 +148,9 @@ def exponential(gen, shape, dtype, device, shard=None):
 
 def randint(gen, high: int, shape, device, shard=None):
     """Integers uniform on [0, high)."""
+    if isinstance(gen, ChainGens):
+        return _local(_chain_draw(gen, "randint", _global(shape, shard),
+                                  torch.int64, device, high), shard)
     return _local(torch.randint(0, high, _global(shape, shard),
                                 generator=gen, device=device), shard)
 
@@ -119,6 +203,8 @@ def mh_accept(gen, lnacceptance, shard=None):
 
 def gamma(gen, alpha):
     """Gamma(alpha, 1) variates of ``alpha``'s shape and dtype."""
+    if isinstance(gen, ChainGens):
+        return _chain_draw(gen, "gamma", (), alpha=alpha)
     return torch._standard_gamma(alpha, generator=gen)
 
 

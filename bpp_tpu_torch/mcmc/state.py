@@ -21,7 +21,7 @@ import torch
 from ..config import BppConfig, Clock, SubstModel
 from ..core import felsenstein as fe
 from ..core.fels import site_logl_fels, site_logl_fels_ref
-from ..core.pack import site_logl_packed
+from ..core.pack import chain_pass, site_logl_packed
 from ..core.pmatrix import aa_eigen, gtr_eigen, pmatrix_model
 from ..core.units import Units
 from ..trees import coalescent as coal
@@ -342,6 +342,10 @@ class Ctx:
     # which reads nothing back to the host; an eager step takes
     # torch.linalg.eigh, in far fewer kernels (PERF.md §6)
     captured: bool = False
+    # the batched step of chains = K (driver.Engine._step_batched, vmap of
+    # the one-chain step over the chains): each pruning pass is one call of
+    # its kernel's wrapper over the K chains (pack.chain_pass); 0 otherwise
+    chains: int = 0
 
     @property
     def has_traits(self) -> bool:
@@ -411,13 +415,14 @@ def make_logl_fn(ctx: Ctx, cfg: BppConfig):
                 subst.eigTi, ctx.tip_partials)
         n_cats = subst.rates.shape[1]
         if ctx.route == ROUTE_K1:
-            ll = site_logl_packed(*tree, ctx.weights, model=model,
-                                  n_cats=n_cats, blen=blen, units=ctx.units)
+            ll = kernel_pass(ctx, site_logl_packed, tree, blen,
+                             weights=ctx.weights, model=model, n_cats=n_cats,
+                             units=ctx.units)
         else:
             if ctx.route == ROUTE_K2:
-                site = site_logl_fels(*tree, model=model, n_cats=n_cats,
-                                      blen=blen, n_pat=ctx.n_pat,
-                                      units=ctx.units)
+                site = kernel_pass(ctx, site_logl_fels, tree, blen,
+                                   model=model, n_cats=n_cats,
+                                   n_pat=ctx.n_pat, units=ctx.units)
             else:
                 site = site_logl_fels_ref(*tree, model=model, n_cats=n_cats,
                                           blen=blen, n_pat=ctx.n_pat)
@@ -428,6 +433,25 @@ def make_logl_fn(ctx: Ctx, cfg: BppConfig):
         return torch.where(ctx.locus_mask, ll, torch.zeros_like(ll))
 
     return logl_fn
+
+
+# the pruning wrappers' tree arguments, in the order make_logl_fn's
+# logl_fn passes them
+TREE_ARGS = ("order", "left", "right", "parent", "n_seq", "age", "mu",
+             "rates_kappa", "freqs", "eigw", "eigT", "eigTi", "tips")
+
+
+def kernel_pass(ctx: Ctx, fn, tree, blen, **kw):
+    """``fn`` (``site_logl_packed`` or ``site_logl_fels``) on ``tree``:
+    inside the batched step of K chains one call over all of them
+    (``pack.chain_pass``), so that K1 or K2 launches once a pass."""
+    if not ctx.chains:
+        return fn(*tree, blen=blen, **kw)
+    tensors = dict(zip(TREE_ARGS, tree), blen=blen)
+    static = {}
+    for k, v in kw.items():
+        (tensors if v is None or torch.is_tensor(v) else static)[k] = v
+    return chain_pass(fn, tensors, **static)
 
 
 def relaxed_segments(ctx: Ctx, gt: GTrees, sp, mig=None, migration=False):

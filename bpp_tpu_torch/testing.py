@@ -622,7 +622,9 @@ def port_state(state, cfg, device="cpu", dtype=torch.float64):
     """A port ``McmcState`` holding ``state``'s arrays and its cached
     ``logl``/``logpr`` (on a network: its gene trees with their
     hybridization flags and every network field of the species arrays;
-    under MSC-M its migration events and rates)."""
+    under MSC-M its migration events and rates).  A state of K chains
+    stacked on a leading axis (``bpp_tpu``'s ``init_states``, or K states
+    stacked with ``jax.tree.map``) gives the port's stacked state."""
     from .convert import state_from_numpy
     st = state_from_numpy(state_arrays(state), device=device, dtype=dtype,
                           cfg=cfg)

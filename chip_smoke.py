@@ -202,8 +202,11 @@ them, then the others in order); any failure exits non-zero:
               ``reduce_root`` on 200 diploid HKY+G4 loci simulated under
               migration;
 25. main 13 — ``chains = 2`` on main 1's data (A00 JC69, 1000 loci) with
-              ``checkpoint = 25 0`` through ``cli.main``: K1 launched 2 x
-              (8 x 50 + 1) = 802 times, K2 never; ``out13.mcmc.txt`` and
+              ``checkpoint = 25 0`` through ``cli.main``, on the batched
+              route (``driver.chain_route``: one step over both chains):
+              K1 launched 8 x 50 + 2 = 402 times (once a pass for both
+              chains, plus an initial state a chain), K2 never;
+              ``out13.mcmc.txt`` and
               ``out13.c2.mcmc.txt`` hold 40 finite moving samples each, the
               summary the split-R-hat table; ``--resume`` rewrites both
               files byte for byte; the ``[profile]`` of the two-chain step.
@@ -279,8 +282,9 @@ the chain's last state, and the ``[profile]`` of its step there:
               compressor timed; K1 held on all 10,000 loci;
 34. main 18 — ``chains = 8`` on the first 100 loci (``bench.py``'s
               ``_bench_chains8`` shape), burnin 8, nsample 12: K1 8 x (8 x
-              20 + 1) = 1,288; eight finite moving mcmc files and the
-              pooled split-R-hat table;
+              20 + 1) = 1,288 one chain at a time, 8 x 20 + 8 = 168 on
+              the batched route, which it takes; eight finite moving
+              mcmc files and the pooled split-R-hat table;
 35. main 19 — TN93+G4 (``model = TN93``, ``alphaprior = 1 1 4``) on main
               1's data, 20 iterations: K1 8 + freqs 1 + qrates 2 (TN93's
               two free rates) + alpha 1 = 12 an iteration plus 1; the
@@ -325,9 +329,10 @@ the chain's last state, and the ``[profile]`` of its step there:
               kernels within 25 of the captured step's exact device
               nodes, counted with cudaGraphGetNodes), the capture's
               seconds and peak device memory,
-              K1-K5 launched inside the graph (under ``chains = K`` the
-              K graphs, one a chain, and the write-back on one shared
-              memory pool, as ``run_mcmc_multi`` runs them); then
+              K1-K5 launched inside the graph (under ``chains = K`` on
+              the batched route, mains 13, 18 and 23, one graph of the
+              step over the stacked chains with its write-back, as
+              ``run_mcmc_multi`` runs it); then
               ``[eigen]``: main 20's GTR step on the eager route with its
               eigensystems from ``pmatrix.eigh_jacobi`` and from
               ``torch.linalg.eigh``, windows in turn;
@@ -357,6 +362,29 @@ the chain's last state, and the ``[profile]`` of its step there:
               same inputs in a process of their own, their K3/K4
               decisions held against this tree's and their K5 walks
               bit-equal to this tree's (all eight outputs).
+43. main 23 — main 2's diploid HKY+G4 control file with ``chains = 4`` on
+              its 1000 loci through ``cli.main``, on the batched route: K2
+              launched 12 x 50 + 4 = 604 times (12 an iteration for all
+              four chains, not 48), K1 never; four mcmc files of finite
+              samples with theta and tau moving (their mu_bar column is
+              nan under ``chains = K``, as ``bpp_tpu`` writes it, and left
+              out) and the split-R-hat table; K2 held on the last chain's
+              last state;
+44. chains-batch — mains 13, 18 and 23 per-chain against batched in this
+              process from the same states and generators: each way's
+              exact device nodes of the captured step, device kernels,
+              busy and replayed wall ms an iteration, capture seconds and
+              peak MiB, pruning launches a replay; after one iteration the
+              move statistics, per-locus lnL and state leaves of the two
+              ways compared; the batched step's draw sites (K launches
+              each); the control file through ``cli.main`` both ways at
+              burnin 8, nsample 4, the K mcmc files compared; main 18's
+              batched step under 6,000 device nodes.
+              Then K1 over main 13's 2 and main 18's 8 chains and K2 over
+              main 23's 4, float32 and float64 builds: one launch (a grid
+              row a chain) bit-equal per (chain, locus) to one-chain
+              launches, within the plain versions' gates, and timed
+              against one chain's launch.
 
 Every main path but ``[shard]``'s runs its chunks as replays of one
 captured CUDA graph; the launch counts a replay adds are the graph's
@@ -368,7 +396,7 @@ and of the ``launches`` in the kernels line, as the capture itself is.
 Then a ``[time]`` line (the whole script, and the seconds of each group
 of phases in the order they ran), one JSON line ``{"kernels": [...]}``
 (K1 at JC69, K2 at HKY+G4: the
-models of their chains; launches summed over main 1-15, 17-22 and [tools],
+models of their chains; launches summed over main 1-15, 17-23 and [tools],
 errors the largest of every hold; then the float64 builds, with main
 16's and both [shard] ranks' launches and the [x64] holds; then K3, K4
 and K5 with their mains' launches and ``[chains]``' times), the card's
@@ -620,6 +648,7 @@ N_LOCI_10K = 10000
 BURNIN_17, NSAMPLE_17 = 2, 8
 # main 18: bench.py's _bench_chains8 shape
 CHAINS_18, N_LOCI_18 = 8, 100
+CHAINS_23 = 4
 # mains 18-22: 20 iterations, burnin 8 (the fewest with finetune marks)
 NEW_BURNIN, NEW_NSAMPLE = 8, 12
 NEW_CHECKS = (NEW_BURNIN + NEW_NSAMPLE) // CHECK_EVERY
@@ -885,18 +914,21 @@ def wall_ms(fn, reps=5):
     return statistics.median(times)
 
 
-def check_chain_output(job, nsample, moving, figtree=True, every=True):
+def check_chain_output(job, nsample, moving, figtree=True, every=True,
+                       skip=()):
     """mcmc.txt of ``job``: ``nsample`` finite rows whose ``moving``
     columns moved (with ``every`` False: some column of each prefix in
     ``moving``); the summary and (``figtree``: not on a network) the tree
-    file exist.  Returns the samples."""
+    file exist.  The columns ``skip`` names are left out (nan by
+    design).  Returns the samples."""
     import numpy as np
     with open(f"{job}.mcmc.txt") as f:
         header = f.readline().split()
         data = np.loadtxt(f, ndmin=2)
     if data.shape != (nsample, len(header)):
         raise AssertionError(f"{job}.mcmc.txt shape {data.shape}")
-    if not np.isfinite(data).all():
+    keep = [j for j, col in enumerate(header) if col not in skip]
+    if not np.isfinite(data[:, keep]).all():
         raise AssertionError(f"non-finite values in {job}.mcmc.txt")
     sd = data.std(axis=0)
     seen, moved = set(), set()
@@ -922,14 +954,14 @@ def check_chain_output(job, nsample, moving, figtree=True, every=True):
 
 def run_chain(argv, job, iters, expect, moving, label, smi, figtree=True,
               nsample=NSAMPLE, clv_store="shared", every=True,
-              chains=(0, 0, 0)):
+              chains=(0, 0, 0), skip=()):
     """Drive one chain through the CLI (``argv``) with every launch count
     (those of the float64 builds too) set to 0 just before and read just
     after; ``expect`` = (K1, K2) launches over ``iters`` iterations and
     the initial state, ``chains`` = (K3, K4, K5) launches (recorded in
     ``CHAIN_LAUNCHES``).  ``moving`` names the mcmc.txt columns that must
-    move (``every``: see :func:`check_chain_output`), or is "A01" /
-    "A11" for a run that writes species trees; the file holds
+    move (``every``, ``skip``: see :func:`check_chain_output`), or is
+    "A01" / "A11" for a run that writes species trees; the file holds
     ``nsample`` samples.  ``clv_store`` is the store the
     wrappers pick for the run: shared memory at 16 tips, but the device
     scratch for the float64 build above ``pack.F64_SHARED_MAX_CATS``
@@ -973,7 +1005,7 @@ def run_chain(argv, job, iters, expect, moving, label, smi, figtree=True,
     if moving in ("A01", "A11"):
         result = check_species_output(job, nsample, moving)
     else:
-        data = check_chain_output(job, nsample, moving, figtree, every)
+        data = check_chain_output(job, nsample, moving, figtree, every, skip)
         result = f"mean lnL {data[:, -1].mean():.3f}"
     print(f"[{label}] cli {' '.join(argv)}: {iters} iterations, wall "
           f"{wall:.1f} "
@@ -1648,9 +1680,9 @@ class ChainEnds:
 
         def replay(graph):
             if ends.first is None:
-                ends.first = clone_state(graph.state(0))
+                ends.first = clone_state(graph.chain_states()[0])
             orig_replay(graph)
-            for state in graph.states():
+            for state in graph.chain_states():
                 ends.last = (graph.eng, state)
                 ends.seen(graph.eng, state)
 
@@ -2163,30 +2195,49 @@ def mig_phases(dev, smi, iters, n_loci=N_LOCI, n_diploid=N_MIG_DIPLOID):
 
 class Chains:
     """``chunk_step`` over the K chains of an engine, each with its own
-    generator, as ``Engine.run_mcmc_multi`` steps them (on the graph route
-    replays of one graph a chain): what ``profile_step`` and ``step_ms``
-    time."""
+    generator, as ``Engine.run_mcmc_multi`` steps them: on the batched
+    route (``driver.chain_route``) one step over the K stacked chains (on
+    the graph route replays of one graph), on the per-chain route the
+    chains in turn (replays of one graph a chain); ``batched=False``
+    takes the per-chain route on any configuration.  What
+    ``profile_step`` and ``step_ms`` time."""
 
-    def __init__(self, eng, gens):
+    def __init__(self, eng, gens, batched=None):
         self.eng, self.gens = eng, gens
+        self.batched = (eng.chains_route == "batched" if batched is None
+                        else batched)
 
     @classmethod
-    def start(cls, eng, k):
+    def start(cls, eng, k, batched=None):
         """(the K-chain stepper, the K initial states) of ``eng``, each
         chain seeded as ``run_mcmc_multi`` seeds it."""
         import torch
         gens = [torch.Generator(device=eng.device) for _ in range(k)]
         for c, g in enumerate(gens):
             g.manual_seed(eng.chain_seed(c))
-        return cls(eng, gens), eng.init_states(k)
+        return cls(eng, gens, batched), eng.init_states(k)
+
+    def graph(self, states):
+        """The captured step of the K chains, ``states`` loaded."""
+        from bpp_tpu_torch.mcmc.driver import stack_states
+        if self.batched:
+            return self.eng.step_graph([stack_states(states)], self.gens,
+                                       batched=True)
+        return self.eng.step_graph(states, self.gens)
 
     def chunk_step(self, states, n, it=None):
-        from bpp_tpu_torch.mcmc.driver import clone_state
+        from bpp_tpu_torch.mcmc.driver import (
+            chain_views, clone_state, stack_states,
+        )
         if self.eng.route == "graph":
-            # the chains' captured steps, as run_mcmc_multi runs them
-            graph = self.eng.step_graph(states, self.gens)
+            graph = self.graph(states)
             graph.run(n)
-            return [clone_state(st) for st in graph.states()], None
+            return [clone_state(st) for st in graph.chain_states()], None
+        if self.batched:
+            stacked, _, _ = self.eng._chunk_multi(stack_states(states),
+                                                  self.gens, n)
+            return [clone_state(st) for st in
+                    chain_views(stacked, len(self.gens))], None
         own = self.eng.gen
         try:
             for c, g in enumerate(self.gens):
@@ -2197,22 +2248,33 @@ class Chains:
         return states, None
 
 
-def check_chains(job, k, nsample, label):
+def check_chains(job, k, nsample, label, skip=(), moving=None):
     """The files of a ``chains = k`` run: chains 2..k's mcmc.txt hold
     ``nsample`` finite samples with every column but lnL moving (chain
-    1's is :func:`run_chain`'s), and the pooled summary its split-R-hat
-    table.  Returns (the mcmc files, the table's first two rows)."""
+    1's is :func:`run_chain`'s; the columns ``skip`` names left out; with
+    ``moving``, a tuple of column prefixes, some column of each prefix
+    moving instead), and the pooled summary its split-R-hat table.
+    Returns (the mcmc files, the table's first two rows)."""
     import numpy as np
     files = [f"{job}.mcmc.txt"] + [f"{job}.c{c}.mcmc.txt"
                                    for c in range(2, k + 1)]
     for fn in files[1:]:
         with open(fn) as f:
-            f.readline()
+            header = f.readline().split()
             data = np.loadtxt(f, ndmin=2)
+        keep = [j for j, col in enumerate(header) if col not in skip]
+        data = data[:, keep]
+        still = [header[j] for j, sd in zip(keep[:-1],
+                                            data.std(axis=0)[:-1])
+                 if not sd > 0]
+        if moving is not None:
+            moved = {header[j] for j in keep[:-1]} - set(still)
+            still = [p for p in moving
+                     if not any(c.startswith(p) for c in moved)]
         if (data.shape[0] != nsample or not np.isfinite(data).all()
-                or not (data.std(axis=0)[:-1] > 0).all()):
+                or still):
             raise AssertionError(f"{label}: {fn} holds {data.shape} samples "
-                                 "or a column that never moved")
+                                 f"or a column that never moved ({still})")
     with open(f"{job}.txt") as f:
         summary = f.read()
     if f"split-R-hat over {k} chains" not in summary:
@@ -2223,8 +2285,9 @@ def check_chains(job, k, nsample, label):
 
 def main13(iters, smi, dev):
     """``[main 13]``: ``chains = 2`` on main 1's data with ``checkpoint =
-    25 0``, run whole and then resumed; the ``[profile]`` of the two-chain
-    step.  Returns K1's launches."""
+    25 0``, run whole and then resumed, on the batched route: K1 once a
+    pass for both chains (8 an iteration) plus one initial state a chain;
+    the ``[profile]`` of the two-chain step.  Returns K1's launches."""
     from bpp_tpu_torch.loader import load_run_from_ctl
     from bpp_tpu_torch.mcmc.driver import Engine
     with open("run13.ctl", "w") as f:
@@ -2233,7 +2296,7 @@ def main13(iters, smi, dev):
                                f"checkpoint = {CHECKPOINT_AT} 0\n"))
     launches, _ = run_chain(
         ["--cfile", "run13.ctl"], "out13", iters,
-        (CHAINS * (PASSES_PER_ITER * iters + 1), 0), ("theta", "tau"),
+        (PASSES_PER_ITER * iters + CHAINS, 0), ("theta", "tau"),
         "main 13", smi, figtree=False)
     files, rhat = check_chains("out13", CHAINS, NSAMPLE, "main 13")
     whole = []
@@ -2244,7 +2307,7 @@ def main13(iters, smi, dev):
     rest = NSAMPLE - CHECKPOINT_AT
     resumed, _ = run_chain(
         ["--resume", "out13.chk.npz"], "out13", rest,
-        (CHAINS * (PASSES_PER_ITER * rest + 1), 0), ("theta", "tau"),
+        (PASSES_PER_ITER * rest + CHAINS, 0), ("theta", "tau"),
         "main 13 resumed", smi, figtree=False)
     for fn, w in zip(files, whole):
         with open(fn, "rb") as f:
@@ -2261,8 +2324,8 @@ def main13(iters, smi, dev):
         Engine(load_run_from_ctl("run13.ctl"), seed=1, device=dev), CHAINS)
     states, _ = both.chunk_step(states, 5)
     profile_step(both, states, step_ms(both, states), smi,
-                 "pack_logl_kernel", f"JC69 {CHAINS}-chain step (main 13)",
-                 CHAINS * PASSES_PER_ITER)
+                 "pack_logl_kernel", f"JC69 {CHAINS}-chain step (main 13, "
+                 "batched)", PASSES_PER_ITER)
     return launches + resumed
 
 
@@ -2490,7 +2553,7 @@ def main18(smi):
     with ChainEnds() as ends:
         launches, _ = run_chain(
             ["--cfile", "run18.ctl"], "out18", iters,
-            (CHAINS_18 * (PASSES_PER_ITER * iters + 1), 0),
+            (PASSES_PER_ITER * iters + CHAINS_18, 0),
             ("theta", "tau"), "main 18", smi, figtree=False,
             nsample=NEW_NSAMPLE)
     files, rhat = check_chains("out18", CHAINS_18, NEW_NSAMPLE, "main 18")
@@ -2505,8 +2568,46 @@ def main18(smi):
         CHAINS_18)
     states, _ = chains.chunk_step(states, 3)
     profile_last(chains, states, smi, "pack_logl_kernel",
-                 f"JC69 {CHAINS_18}-chain step, {N_LOCI_18} loci (main 18)",
-                 CHAINS_18 * PASSES_PER_ITER, iters=1)
+                 f"JC69 {CHAINS_18}-chain step, {N_LOCI_18} loci (main 18, "
+                 "batched)", PASSES_PER_ITER, iters=1)
+    return launches, err
+
+
+def main23(iters, smi):
+    """``[main 23]``: main 2's diploid HKY+G4 control file with ``chains =
+    4`` on its 1000 loci through the CLI, on the batched route: K2
+    launched 12 times an iteration for all four chains (not 4 x 12) plus
+    one initial state a chain, K1 never; four mcmc files of finite
+    samples, some theta and some tau column moving in each (the mu_bar
+    column left out: under ``chains = K`` it is nan, as ``bpp_tpu``
+    writes it) and the pooled split-R-hat table;
+    K2 held on the last chain's last state.  Returns (K2 launches, the
+    hold's error)."""
+    with open("run23.ctl", "w") as f:
+        f.write(RUN2_CTL.format(nloci=N_LOCI, burnin=BURNIN, nsample=NSAMPLE,
+                                job="out23",
+                                extra=f"chains = {CHAINS_23}\n"))
+    # at 1000 diploid loci a tau may stay put for 40 samples (chain 4's
+    # tau:6 and tau:7 do, on either chains route): each chain must move
+    # some theta and some tau
+    with ChainEnds() as ends:
+        _, launches = run_chain(
+            ["--cfile", "run23.ctl"], "out23", iters,
+            (0, PASSES_PER_ITER_2 * iters + CHAINS_23), ("theta", "tau"),
+            "main 23", smi, figtree=False, every=False, skip=("mu_bar",))
+    files, rhat = check_chains("out23", CHAINS_23, NSAMPLE, "main 23",
+                               skip=("mu_bar",), moving=("theta", "tau"))
+    eng, state = ends.last
+    if eng.chains_route != "batched":
+        raise AssertionError(f"main 23: chains route {eng.chains_route} "
+                             f"({eng.chains_route_reason})")
+    print(f"[main 23] {CHAINS_23} diploid HKY+G4 chains on {N_LOCI} loci: "
+          f"{len(files)} mcmc files of {NSAMPLE} finite samples, theta and "
+          f"tau moving; "
+          f"split-R-hat table ({rhat}, ...); K2 {launches} launches = "
+          f"{PASSES_PER_ITER_2} x {iters} + {CHAINS_23} | {smi}")
+    err, _ = hold_given("K2, main 23's last chain's last state", eng, state,
+                        smi, tag="main 23")
     return launches, err
 
 
@@ -3348,6 +3449,22 @@ class ForcedEager:
         driver.step_route = self._orig
 
 
+class ForcedPerChain:
+    """While active, every new engine steps ``chains = K`` one chain after
+    another (``driver.chain_route`` patched): [chains-batch]'s runs to
+    compare with."""
+
+    def __enter__(self):
+        from bpp_tpu_torch.mcmc import driver
+        self._orig = driver.chain_route
+        driver.chain_route = lambda cfg, run: ("per-chain", "compared")
+        return self
+
+    def __exit__(self, *exc):
+        from bpp_tpu_torch.mcmc import driver
+        driver.chain_route = self._orig
+
+
 def cut_ctl(ctl, dst, nloci=None, burnin=None, nsample=None, job=None):
     """A copy of the control file ``ctl`` at ``dst`` with its nloci,
     burnin, nsample and jobname lines replaced where given."""
@@ -3453,8 +3570,10 @@ def graph_phase(label, ctl, smi, x64=False, cli_compare=True,
 
     from bpp_tpu_torch import cli
     from bpp_tpu_torch.mcmc import graph as graph_mod
-    from bpp_tpu_torch.mcmc.driver import Engine, _nu_column, clone_state
-    from bpp_tpu_torch.mcmc.graph import StepGraph, flatten
+    from bpp_tpu_torch.mcmc.driver import (
+        Engine, _nu_column, chain_views, clone_state, stack_states,
+    )
+    from bpp_tpu_torch.mcmc.graph import flatten
     run = load_run(ctl, "float64" if x64 else None)
     K = max(1, run.cfg.n_chains)
     res = {}
@@ -3537,8 +3656,13 @@ def graph_phase(label, ctl, smi, x64=False, cli_compare=True,
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()
         r = res[route] = {"pass": eng.ctx.route}
+        batched = K > 1 and eng.chains_route == "batched"
+        if batched:
+            # one step over the stacked chains, as run_mcmc_multi takes it
+            stacked = [stack_states(states)]
         if route == "graph":
-            graph = eng.step_graph(states, gens)
+            graph = (eng.step_graph(stacked, gens, batched=True) if batched
+                     else eng.step_graph(states, gens))
             graph.capture(keep=True)
             r["nodes"] = graph_nodes(graph.graphs)
             r["capture_s"] = graph.capture_s
@@ -3548,6 +3672,12 @@ def graph_phase(label, ctl, smi, x64=False, cli_compare=True,
             def advance(n):
                 acc, traces = graph.run(n)
                 return acc, [_nu_column(t) for t in traces]
+        elif batched:
+            def advance(n):
+                stacked[0], acc, traces = eng._chunk_multi(stacked[0], gens,
+                                                           n)
+                return acc, [_nu_column(t) for t in traces]
+            r["capture_s"], r["per_replay"] = 0.0, None
         else:
             def advance(n):
                 own, accs, traces = eng.gen, [], []
@@ -3567,7 +3697,8 @@ def graph_phase(label, ctl, smi, x64=False, cli_compare=True,
         after = graph_mod.launch_counts()
         r["passes"] = (after[0] - counts[0] + after[2] - counts[2]) \
             // GRAPH_ITERS
-        final = graph.states() if route == "graph" else states
+        final = (graph.chain_states() if route == "graph" else
+                 chain_views(stacked[0], K) if batched else states)
         r["leaves"] = [flatten(clone_state(st))[1] for st in final]
         r["acc"], r["traces"] = acc.clone(), traces
         r["gens"] = [g.get_state() for g in gens]
@@ -3593,6 +3724,8 @@ def graph_phase(label, ctl, smi, x64=False, cli_compare=True,
                 floor=exact - GRAPH_GATE)
             r["peak"] = (torch.cuda.max_memory_allocated() - held) / 2**20
         del eng, states, gens
+        if batched:
+            del stacked
         if route == "graph":
             del graph
         torch.cuda.empty_cache()
@@ -3685,6 +3818,7 @@ GRAPH_MAINS = (
     ("main 16", "run.ctl", True, True, *_LIGHT),
     ("main 17", "run17.ctl", False, True, *_LIGHT),
     ("main 18", "run18.ctl", False, True, *_HEAVY),
+    ("main 23", "run23.ctl", False, True, *_LIGHT),
     ("main 3", "run3.ctl", False, False, *_LIGHT),
     ("main 4", "run4.ctl", False, False, *_LIGHT),
     ("main 9", "run9.ctl", False, False, *_LIGHT),
@@ -3704,6 +3838,267 @@ GRAPH_MAINS = (
     ("main 14", "run14.ctl", False, True, *_HEAVY),
     ("main 21", "run21.ctl", False, True, *_LIGHT),
     ("main 22", "run22.ctl", False, True, *_LIGHT))
+
+
+# [chains-batch]: the mains of chains = K whose per-chain and batched
+# routes are compared, their timing windows and traced iterations, and the
+# most device nodes main 18's batched step may hold (8 chains' glue as one)
+CB_MAINS = (("main 13", "run13.ctl"), ("main 18", "run18.ctl"),
+            ("main 23", "run23.ctl"))
+CB_WINDOWS = 3
+CB_WINDOW_ITERS = 5
+CB_TRACE_ITERS = 2
+CB_NODES_18 = 6000
+
+
+def batch_launches(label, eng, states, smi):
+    """``[chains-batch]`` launches: the pruning kernel of ``eng``'s batch
+    (K1, or K2 with a diploid map) once over the K chains ``states``
+    (their own trees and substitution parameters stacked, the batch's
+    tips one copy) against K one-chain launches, float32 and float64
+    builds: bit-equal per (chain, locus) and, for K2, per pattern; the
+    batched output against the float64 plain version (per locus, after
+    ``reduce_root`` for K2).  Device ms of the batched launch and of one
+    chain's launch (profiler).  Returns (the largest per-locus |dlnL| of
+    the float32 launch, its ms, one chain's ms)."""
+    import torch
+
+    from bpp_tpu_torch.core import fels, pack
+    from bpp_tpu_torch.core import felsenstein as fe
+    ctx = eng.ctx
+    k2 = ctx.res_map is not None
+    K, L = len(states), states[0].gt.n_loci
+    C = states[0].subst.rates.shape[1]
+    mod, kname = ((fels, "fels_site_logl_kernel") if k2 else
+                  (pack, "pack_logl_kernel"))
+    shared = {4, 12, 13}        # n_seq, tips, weights: the batch's
+    worst, times = 0.0, {}
+    for dt in (torch.float32, torch.float64):
+        chains = []
+        for st in states:
+            sub = type(st.subst)(*(x.to(dt) if x.is_floating_point() else x
+                                   for x in st.subst))
+            chains.append(pass_args(st, sub, ctx, dt))
+        stacked = tuple(a if i in shared else
+                        torch.stack([c[i] for c in chains])
+                        for i, a in enumerate(chains[0]))
+        kw = dict(model=eng.cfg.model, n_cats=C, units=ctx.units)
+
+        def args(a):
+            if k2:
+                return fels.kernel_args(*a[:-1], n_pat=ctx.n_pat, **kw)
+            return pack.kernel_args(*a, **kw)
+
+        batched = args(stacked)
+        got = mod.launch(batched)
+        ones = [mod.launch(args(a)) for a in chains]
+        torch.cuda.synchronize()
+        if tuple(got.shape[:2]) != (K, L):
+            raise AssertionError(f"[chains-batch] {label}: output "
+                                 f"{tuple(got.shape)}")
+        for k, one in enumerate(ones):
+            if not torch.equal(got[k], one):
+                raise AssertionError(
+                    f"[chains-batch] {label} {dt}: chain {k}'s row of the "
+                    "batched launch differs from its one-chain launch")
+        mask = ctx.locus_mask
+        w64 = ctx.weights.double()
+        for k, a in enumerate(chains):
+            a64 = tuple(t.double() if t.is_floating_point() else t for t in a)
+            kw64 = dict(model=kw["model"], n_cats=C)
+            if k2:
+                want = fe.reduce_root(fels.site_logl_fels_ref(
+                    *a64[:-1], n_pat=ctx.n_pat, **kw64), w64, ctx.res_map,
+                    ctx.res_count)
+                have = fe.reduce_root(got[k].double(), w64, ctx.res_map,
+                                      ctx.res_count)
+            else:
+                want = pack.site_logl_packed_ref(*a64, **kw64)
+                have = got[k].double()
+            err = float((have - want)[mask].abs().max())
+            tol = TOL_LNL if dt == torch.float32 else TOL_LNL_F64
+            if not err < tol:
+                raise AssertionError(f"[chains-batch] {label} {dt}: chain "
+                                     f"{k} {err} lnL a locus off its plain "
+                                     "version")
+            if dt == torch.float32:
+                worst = max(worst, err)
+        times[dt] = (kernel_device_ms(lambda: mod.launch(batched), kname),
+                     kernel_device_ms(lambda: mod.launch(args(chains[0])),
+                                      kname))
+    (b32, o32), (b64, o64) = times[torch.float32], times[torch.float64]
+    print(f"[chains-batch] {label}: {'K2' if k2 else 'K1'} once over {K} "
+          f"chains x {L} loci (a grid row a chain) bit-equal per (chain, "
+          f"locus{', pattern' if k2 else ''}) to {K} one-chain launches, "
+          f"float32 and float64 builds; max per-locus |dlnL| against the "
+          f"float64 plain version {worst:.3e} (tol {TOL_LNL}) | device ms "
+          f"(profiler): float32 batched {b32:.4f}, one chain {o32:.4f} "
+          f"({K} launches {K * o32:.4f}); float64 batched {b64:.4f}, one "
+          f"chain {o64:.4f} ({K * o64:.4f}) | {smi}")
+    return worst, b32, o32
+
+
+def chains_ab(label, ctl, smi):
+    """``[chains-batch]`` A/B: ``label``'s ``chains = K`` configuration
+    in this process both ways from the same initial states and generator
+    states: per-chain (one captured graph a chain and the write-back) and
+    batched (one graph of the step over the K stacked chains with its
+    write-back).  Each way: the captured step's exact device nodes
+    (:func:`graph_nodes`), capture seconds and peak MiB, the replayed wall
+    ms an iteration (the median of ``CB_WINDOWS`` windows of
+    ``CB_WINDOW_ITERS`` replays), device kernels and busy ms an iteration
+    (a profiler trace of ``CB_TRACE_ITERS``); after the first iteration
+    the two ways' move statistics, per-locus lnL and state leaves
+    compared; the batched step's draw sites an iteration (each K
+    launches, one a chain); the control file through ``cli.main`` both
+    ways (per-chain forced by :class:`ForcedPerChain`), its K mcmc files
+    compared.  Returns (the chains' states after the
+    batched route's first iteration, the engine, the batched exact
+    nodes)."""
+    import torch
+
+    from bpp_tpu_torch.mcmc import rng
+    from bpp_tpu_torch.mcmc.driver import Engine, clone_state, stack_states
+    from bpp_tpu_torch.mcmc.graph import flatten
+    run = load_run(ctl)
+    K = run.cfg.n_chains
+    eng = Engine(run, seed=1, device="cuda")
+    if eng.chains_route != "batched":
+        raise AssertionError(f"[chains-batch] {label}: chains route "
+                             f"{eng.chains_route} ({eng.chains_route_reason})")
+    start = eng.init_states(K)
+
+    def seeded():
+        gens = [torch.Generator(device="cuda") for _ in range(K)]
+        for c, g in enumerate(gens):
+            g.manual_seed(eng.chain_seed(c))
+        return gens
+
+    res = {}
+    for mode in ("per-chain", "batched"):
+        ch = Chains(eng, seeded(), batched=mode == "batched")
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        graph = ch.graph([clone_state(st) for st in start])
+        graph.capture(keep=True)
+        r = res[mode] = {"capture_s": graph.capture_s}
+        r["peak"] = (torch.cuda.max_memory_allocated() - held) / 2**20
+        nodes = graph_nodes(graph.graphs)
+        r["exact"] = sum(nodes.get(k, 0) for k in GRAPH_DEVICE_NODES)
+        r["passes"] = graph.per_replay[0] + graph.per_replay[2]
+        acc, traces = graph.run(1)
+        r["acc"] = acc.clone()
+        r["states"] = [clone_state(st) for st in graph.chain_states()]
+        r["lnl"] = [t["lnl"].clone() for t in traces]
+        times = []
+        for _ in range(CB_WINDOWS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            graph.run(CB_WINDOW_ITERS)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3 / CB_WINDOW_ITERS)
+        r["ms"] = statistics.median(times)
+        kern = device_kernels(lambda: graph.run(CB_TRACE_ITERS))
+        r["kernels"] = len(kern) / CB_TRACE_ITERS
+        r["busy"] = sum(us for _, us in kern) / 1e3 / CB_TRACE_ITERS
+        del graph, ch
+        eng._graphs.clear()
+        torch.cuda.empty_cache()
+    # the control file through cli.main both ways: the K mcmc files
+    import numpy as np
+
+    from bpp_tpu_torch import cli
+    runs = {}
+    for mode in ("per-chain", "batched"):
+        job = f"cb_{os.path.splitext(ctl)[0]}_{mode[0]}"
+        cut_ctl(ctl, f"{job}.ctl", burnin=GRAPH_BURNIN,
+                nsample=GRAPH_NSAMPLE, job=job)
+        if mode == "per-chain":
+            with ForcedPerChain():
+                rc = cli.main(["--cfile", f"{job}.ctl", "--quiet"])
+        else:
+            rc = cli.main(["--cfile", f"{job}.ctl", "--quiet"])
+        if rc != 0:
+            raise AssertionError(f"[chains-batch] {label}: cli.main returned "
+                                 f"{rc} on the {mode} route")
+        runs[mode] = []
+        for fn in [f"{job}.mcmc.txt"] + [f"{job}.c{c}.mcmc.txt"
+                                         for c in range(2, K + 1)]:
+            with open(fn, "rb") as f:
+                raw = f.read()
+            runs[mode].append((raw, np.loadtxt(fn, skiprows=1, ndmin=2)))
+    same_files = sum(a[0] == b_[0] for a, b_ in zip(runs["per-chain"],
+                                                    runs["batched"]))
+    file_diff = max(float(np.nanmax(np.abs(a[1] - b_[1])))
+                    for a, b_ in zip(runs["per-chain"], runs["batched"]))
+    p, b = res["per-chain"], res["batched"]
+    # the batched step's draw sites, from one eager iteration
+    before = rng.CHAIN_DRAWS
+    eng._step_batched(stack_states(b["states"]), seeded())
+    sites = rng.CHAIN_DRAWS - before
+    same_stats = sum(bool(torch.equal(p["acc"][k], b["acc"][k]))
+                     for k in range(K))
+    rel, loci_equal, n_loci = 0.0, 0, 0
+    for sp_, sb in zip(p["states"], b["states"]):
+        for x, y in zip(flatten(sp_)[1], flatten(sb)[1]):
+            if x.is_floating_point():
+                d = (x.double() - y.double()).abs() / y.double().abs().clamp(
+                    min=1e-30)
+                d = d[torch.isfinite(d)]
+                if d.numel():
+                    rel = max(rel, float(d.max()))
+        mask = eng.ctx.locus_mask
+        loci_equal += int((sp_.logl == sb.logl)[mask].sum())
+        n_loci += int(mask.sum())
+    if b["passes"] * K != p["passes"]:
+        raise AssertionError(f"[chains-batch] {label}: {b['passes']} pruning "
+                             f"launches a batched replay, {p['passes']} a "
+                             f"per-chain one, over {K} chains")
+    if not b["exact"] < p["exact"]:
+        raise AssertionError(f"[chains-batch] {label}: the batched step "
+                             f"holds {b['exact']} device nodes, the "
+                             f"per-chain {p['exact']}")
+    print(f"[chains-batch] {label} ({K} chains, {run.batch.n_loci} loci, "
+          f"{eng.ctx.route}): per-chain | batched: exact device nodes/iter "
+          f"{p['exact']} | {b['exact']}; traced device kernels/iter "
+          f"{p['kernels']:.0f} | {b['kernels']:.0f}; busy ms/iter "
+          f"{p['busy']:.3f} | {b['busy']:.3f}; wall ms/iter (replayed, the "
+          f"median of {CB_WINDOWS} windows of {CB_WINDOW_ITERS}) "
+          f"{p['ms']:.2f} | {b['ms']:.2f} (iters/s x {K}: "
+          f"{1e3 / p['ms']:.2f} | {1e3 / b['ms']:.2f}); idle share "
+          f"{1 - p['busy'] / p['ms']:.3f} | {1 - b['busy'] / b['ms']:.3f}; "
+          f"capture s {p['capture_s']:.2f} | {b['capture_s']:.2f}; capture "
+          f"peak MiB {p['peak']:.1f} | {b['peak']:.1f}; pruning launches a "
+          f"replay {p['passes']} | {b['passes']} | batched draws: {sites} "
+          f"sites an iteration, {sites * K} launches (one a chain) | after "
+          f"one iteration from the same states: move statistics equal on "
+          f"{same_stats} of {K} chains, per-locus lnL bit-equal on "
+          f"{loci_equal} of {n_loci} loci, largest relative leaf "
+          f"difference {rel:.3e} | cli.main both ways "
+          f"({GRAPH_BURNIN + GRAPH_NSAMPLE} iterations): {same_files} of {K} "
+          f"mcmc files byte-equal, the largest difference of a value "
+          f"{file_diff:.1e} | {smi}")
+    return b["states"], eng, b["exact"]
+
+
+def chains_batch_phase(smi):
+    """``[chains-batch]``: mains 13, 18 and 23 per-chain against batched
+    (:func:`chains_ab`), then the batched launches of K1 (main 18's 8
+    chains, main 13's 2) and K2 (main 23's 4) on the chains' states
+    against one-chain launches (:func:`batch_launches`).  Main 18's
+    batched step must hold fewer than ``CB_NODES_18`` device nodes.
+    Returns {label: (max |dlnL|, batched ms, one chain's ms)}."""
+    out = {}
+    for label, ctl in CB_MAINS:
+        states, eng, exact = chains_ab(label, ctl, smi)
+        if label == "main 18" and not exact < CB_NODES_18:
+            raise AssertionError(f"[chains-batch] main 18's batched step "
+                                 f"holds {exact} device nodes, not under "
+                                 f"{CB_NODES_18}")
+        out[label] = batch_launches(label, eng, states, smi)
+        del states, eng
+    return out
 
 
 def graph_phases(smi):
@@ -4992,6 +5387,9 @@ def main(argv=None) -> int:
 
             # 25. chains = 2: main 13
             launches13 = main13(iters, smi, dev)
+            # 43. chains = 4 on the diploid data: main 23
+            launches23, err23 = main23(iters, smi)
+            torch.cuda.empty_cache()
 
             # 26. geneflow rjMCMC on main 12's data: main 14
             launches14 = main14(smi)
@@ -5003,7 +5401,7 @@ def main(argv=None) -> int:
             # 28. --bfdriver and --summary: [tools]
             launches_bf = tools_phase(smi)
 
-            lap("main 13, 14, 15, [tools]")
+            lap("main 13, 23, 14, 15, [tools]")
 
             # 33-38. the configurations no earlier run took to the card
             launches17, err17 = main17(smi)
@@ -5022,6 +5420,13 @@ def main(argv=None) -> int:
             chain_rows = chains_phase(smi, parent)
 
             lap("[chains]")
+
+            # 44. chains = K per-chain against batched, and the batched
+            # launches against one-chain launches
+            batch_rows = chains_batch_phase(smi)
+            torch.cuda.empty_cache()
+
+            lap("[chains-batch]")
 
             # 40. the eager step against the replayed one, in one process
             graph_phases(smi)
@@ -5099,13 +5504,15 @@ def main(argv=None) -> int:
               + launches18 + launches19 + launches20 + launches22,
               [*errs1.values(), err_k1_blen, err_k1_dated, err_topo1,
                err_k1_custom, err_net1, err_mig1, err17, err18, err19,
-               err20, err22], rows1["JC69"]),
+               err20, err22, batch_rows["main 13"][0],
+               batch_rows["main 18"][0]], rows1["JC69"]),
         entry("K2 pallas_fels._make_kernel -> fels_site_logl_kernel",
               "bpp_tpu_torch/csrc/fels_kernel.cu",
               "bpp_tpu/core/pallas_fels.py:92",
-              launches2 + launches4 + launches7 + launches21,
+              launches2 + launches4 + launches7 + launches21 + launches23,
               [*errs2.values(), err_k2_blen, err_topo2, err_k2_custom,
-               err_net2, err_mig2, err21], rows2["HKY"]),
+               err_net2, err_mig2, err21, err23,
+               batch_rows["main 23"][0]], rows2["HKY"]),
         entry("K1 pallas_pack._make_kernel -> pack_logl_kernel "
               "(float64 build)", "bpp_tpu_torch/csrc/pack_kernel.cu",
               "bpp_tpu/core/pallas_pack.py:315", k1_f64 + k1_shard, [err_x1],

@@ -33,8 +33,13 @@ K5 (``csrc/simwalk_kernel.cu``) against its torch plain version on the
 MSC-M chain's sim-SPR walks and on synthetic walks of 1 to 97 sub-edges, 1
 to 1000 loci, up to 207 populations and up to 62 routes, in float32 and
 float64: decisions
-equal but at near ties, which are counted and gated.  Needs a CUDA device and nvcc; skips without
-them.
+equal but at near ties, which are counted and gated.  ``chains = K``:
+one launch of K1 / K2 over K chains (K in 1, 3, 8; float32 and float64;
+both stores) bit-equal per (chain, locus) to K one-chain launches and
+within the plain versions' gates; the batched step's graph (one replay
+for every chain) bit-equal to the eager batched step, and one batched
+iteration against the one-chain steps.  Needs a CUDA device and nvcc;
+skips without them.
 
     python -m pytest tests/test_torch_kernel_gpu.py -q
 """
@@ -1548,3 +1553,166 @@ def test_launch_counters_add_up_under_replay(request, data):
     want = {"cuda_int": (25, 0, 0), "cuda_mig": (0, 0, 15),
             "cuda_gdir": (0, 10, 0)}.get(data, (0, 0, 0))
     assert counts["graph"][2:] == want
+
+
+# --- chains = K: K1/K2 over a chain axis, the batched step ---------------
+
+
+def _chain_inputs(eng, state, K, dtype):
+    """K distinct chains' kernel arguments: the fixture state stepped 2
+    iterations a chain further, each chain's locus rates scaled and its
+    frequencies rotated (so that a wrong chain stride shows); returns
+    (per-chain argument tuples, the stacked tuple, model, n_cats)."""
+    from bpp_tpu_torch.mcmc.driver import clone_state
+    L = state.gt.n_loci
+    model, subst = fixed_subst("HKY", 4, L, dtype, "cuda")
+    chains, st = [], clone_state(state)
+    for k in range(K):
+        st, _ = eng.chunk_step(st, 2)
+        sk = subst._replace(mu=subst.mu * (1.0 + 0.05 * k),
+                            freqs=torch.roll(subst.freqs, k, dims=1))
+        chains.append(_args(st, eng.ctx, sk, dtype))
+    # the batch's tensors (n_seq, tips, weights) stay one copy
+    shared = {4, 12, 13}
+    stacked = tuple(a if i in shared else torch.stack([c[i] for c in chains])
+                    for i, a in enumerate(chains[0]))
+    return chains, stacked, model, 4
+
+
+@pytest.mark.parametrize("store", STORES)
+@pytest.mark.parametrize("K", [1, 3, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("data", ["cuda_state", "cuda_diploid"])
+def test_chain_axis_launch_equals_one_chain_launches(request, data, dtype, K,
+                                                     store):
+    """One launch over K chains (a grid row a chain) against K one-chain
+    launches: bit-equal per (chain, locus) for K1 (haploid data) and per
+    (chain, locus, pattern) for K2 (diploid data), float32 and float64,
+    both CLV stores; and within the plain versions' gates (K1 0.02 lnL a
+    locus in float32, 1e-6 in float64; K2 2e-3 / 1e-8 a pattern)."""
+    from bpp_tpu_torch.core import fels, pack
+    eng, state = request.getfixturevalue(data)
+    chains, stacked, model, C = _chain_inputs(eng, state, K, dtype)
+    ctx = eng.ctx
+    k2 = ctx.res_map is not None
+    kw = dict(model=model, n_cats=C, units=ctx.units, clv_store=store)
+    if k2:
+        def call(a):
+            return fels.site_logl_fels(*a[:-1], n_pat=ctx.n_pat, **kw)
+        counter = "fels"
+    else:
+        def call(a):
+            return pack.site_logl_packed(*a, **kw)
+        counter = "pack"
+    mod = fels if k2 else pack
+    before = mod.LAUNCHES
+    got = call(stacked)
+    torch.cuda.synchronize()
+    assert mod.LAUNCHES == before + 1, counter
+    assert got.shape[:2] == (K, state.gt.n_loci)
+    mask = ctx.locus_mask
+    for k, a in enumerate(chains):
+        one = call(a)
+        assert torch.equal(got[k], one), (k, store)
+        a64 = tuple(t.double() if t.is_floating_point() else t for t in a)
+        if k2:
+            want = fels.site_logl_fels_ref(*a64[:-1], model=model, n_cats=C,
+                                           n_pat=ctx.n_pat)
+            tol = 2e-3 if dtype == torch.float32 else 1e-8
+        else:
+            want = pack.site_logl_packed_ref(*a64, model=model, n_cats=C)
+            tol = 0.02 if dtype == torch.float32 else 1e-6
+        err = float((got[k].double() - want)[mask].abs().max())
+        assert err < tol, (k, err)
+
+
+@pytest.mark.parametrize("data", ["cuda_state", "cuda_diploid"])
+def test_batched_graph_equals_the_eager_batched_step(request, data):
+    """chains = 3 on the batched route: 10 replays of the captured batched
+    step (one graph, the 3 generators registered) against 10 eager
+    batched steps (``Engine._chunk_multi``) from the same states and
+    generator states: states, statistics, trace rows and generators
+    bit-equal; the replay adds one K1/K2 launch a pass for all 3 chains."""
+    from bpp_tpu_torch.core import fels, pack
+    from bpp_tpu_torch.mcmc.driver import clone_state, stack_states
+    from bpp_tpu_torch.mcmc.graph import StepGraph, flatten
+    eng, state = request.getfixturevalue(data)
+    assert eng.chains_route == "batched", eng.chains_route_reason
+    K = 3
+    states = []
+    st = clone_state(state)
+    for _ in range(K):
+        st, _ = eng.chunk_step(st, 1)
+        states.append(clone_state(st))
+    start = stack_states(states)
+    seeds = []
+    for k in range(K):
+        g = torch.Generator(device="cuda")
+        g.manual_seed(40 + k)
+        seeds.append(g.get_state())
+
+    def gens():
+        out = []
+        for s in seeds:
+            g = torch.Generator(device="cuda")
+            g.set_state(s)
+            out.append(g)
+        return out
+
+    g_eager, g_graph = gens(), gens()
+    st_e, acc_e, tr_e = eng._chunk_multi(clone_state(start), g_eager, 10)
+    graph = StepGraph(eng, [clone_state(start)], g_graph, batched=True)
+    graph.capture()
+    passes = graph.per_replay[0] + graph.per_replay[2]
+    acc_g, tr_g = graph.run(10)
+    torch.cuda.synchronize()
+    # age 2 + SPR 3 + tau 2 + mixing 1 passes (JC69), one launch each for
+    # all 3 chains
+    assert passes == 8
+    assert all(torch.equal(a, b) for a, b in
+               zip(flatten(st_e)[1], flatten(graph.state())[1]))
+    assert torch.equal(acc_e, acc_g)
+    for te, tg in zip(tr_e, tr_g):
+        assert te.keys() == tg.keys()
+        assert all(torch.equal(te[k], tg[k]) for k in te)
+    for a, b in zip(g_eager, g_graph):
+        assert torch.equal(a.get_state(), b.get_state())
+
+
+@pytest.mark.parametrize("data", ["cuda_state", "cuda_diploid"])
+def test_batched_step_against_one_chain_steps_on_the_card(request, data):
+    """One batched iteration of 3 chains against each chain's one-chain
+    eager step from the same generator state: equal move statistics and
+    every state leaf within 1e-5 relative (float32; the vmapped glue may
+    round differently from the one-chain ops)."""
+    from bpp_tpu_torch.mcmc.driver import (
+        chain_views, clone_state, stack_states,
+    )
+    from bpp_tpu_torch.mcmc.graph import flatten
+    eng, state = request.getfixturevalue(data)
+    K = 3
+    states, st = [], clone_state(state)
+    for _ in range(K):
+        st, _ = eng.chunk_step(st, 1)
+        states.append(clone_state(st))
+    gens, ones = [], []
+    for k in range(K):
+        for lst in (gens, ones):
+            g = torch.Generator(device="cuda")
+            g.manual_seed(70 + k)
+            lst.append(g)
+    stacked, stats = eng._step_batched(stack_states(states), gens)
+    own = eng.gen
+    try:
+        for k in range(K):
+            eng.gen = ones[k]
+            one, s1 = eng._step(states[k])
+            assert torch.equal(stats[k], s1), k
+            for a, b in zip(flatten(chain_views(stacked, K)[k])[1],
+                            flatten(one)[1]):
+                if a.is_floating_point():
+                    torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+                else:
+                    assert torch.equal(a, b), k
+    finally:
+        eng.gen = own
