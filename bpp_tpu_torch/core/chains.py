@@ -6,7 +6,11 @@ by lookahead: :func:`chain_depth`) and K5 ``simspr_walk``
 (``csrc/simwalk_kernel.cu``, MSC-M's sim-SPR walk, a warp a locus).
 
 Each ``launch_*`` checks its CUDA tensors, allocates the outputs and
-launches on the current stream; a refused launch raises.  The wrappers
+launches on the current stream; a refused launch raises.  K3 and K4 take
+an optional leading chain axis (``chains = K``'s batched step): one
+launch of K blocks, block k walking chain k's rows alone, so that each
+chain's decisions are those of a one-chain launch on its rows, bit for
+bit.  The wrappers
 that choose between a kernel and its plain version are beside the plain
 versions: ``mcmc.notheta.chain_accept``, ``mcmc.clock_moves.
 gammadir_accept`` and ``mcmc.mig_moves.simspr_walk``.  The counters count
@@ -44,9 +48,10 @@ def _chain_lib():
         lib.bpp_notheta_depth.restype = _I
         lib.bpp_notheta_depth.argtypes = [_I]
         lib.bpp_notheta_chain.restype = _I
-        lib.bpp_notheta_chain.argtypes = [_P, _P, _I, _I, _D, _D, _P, _P]
+        lib.bpp_notheta_chain.argtypes = [_P, _P, _I, _I, _I, _D, _D, _P,
+                                          _P]
         lib.bpp_gammadir_chain.restype = _I
-        lib.bpp_gammadir_chain.argtypes = [_P, _I, _D, _D, _D, _P, _P]
+        lib.bpp_gammadir_chain.argtypes = [_P, _I, _I, _D, _D, _D, _P, _P]
     return lib
 
 
@@ -75,26 +80,41 @@ def chain_depth(H: int = 1) -> int:
     return _chain_lib().bpp_notheta_depth(H)
 
 
+def _chain_axis(who, x, row_dims):
+    """(K, the chain axis's shape) of ``x``: ``x`` holds ``row_dims``
+    dimensions a chain, after an optional leading chain axis of K."""
+    if x.dim() == row_dims:
+        return 1, ()
+    if x.dim() == row_dims + 1 and x.shape[0] > 0:
+        return x.shape[0], (x.shape[0],)
+    raise ValueError(f"{who}: {tuple(x.shape)}: {row_dims} dimensions a "
+                     "chain, after an optional leading chain axis")
+
+
 def launch_notheta(cols, sums, H: int, a: float, b: float):
     """K3 on ``cols`` ``[L, 4H + 4]`` float64 (per locus the old and
     candidate counts and scaled waiting sums of the H populations, then
     dother, dh, log u, mask) and ``sums`` ``[2H]`` (K0, C0),
-    ``chain_depth(H)`` loci a round; returns accept ``[L]`` bool."""
+    ``chain_depth(H)`` loci a round; returns accept ``[L]`` bool.  Over K
+    chains (``cols [K, L, 4H + 4]``, ``sums [K, 2H]``) one launch of K
+    blocks, accept ``[K, L]``."""
     global LAUNCHES_NOTHETA
     who = "notheta_chain"
     dev = cols.device
     if dev.type != "cuda":
         raise ValueError(f"{who}: the kernel takes CUDA tensors, got {dev}")
-    L = cols.shape[0]
-    check_tensor(who, "cols", cols, torch.float64, (L, 4 * H + 4), dev)
-    check_tensor(who, "sums", sums, torch.float64, (2 * H,), dev)
+    K, lead = _chain_axis(who, cols, 2)
+    L = cols.shape[-2]
+    check_tensor(who, "cols", cols, torch.float64, lead + (L, 4 * H + 4),
+                 dev)
+    check_tensor(who, "sums", sums, torch.float64, lead + (2 * H,), dev)
     lib = _chain_lib()
     if lib.bpp_notheta_depth(H) <= 0:
         raise ValueError(f"{who}: {H} populations do not fit the kernel's "
                          "shared memory")
-    out = torch.empty((L,), dtype=torch.bool, device=dev)
-    _check_rc(lib.bpp_notheta_chain(cols.data_ptr(), sums.data_ptr(), L, H,
-                                    float(a), float(b), out.data_ptr(),
+    out = torch.empty(lead + (L,), dtype=torch.bool, device=dev)
+    _check_rc(lib.bpp_notheta_chain(cols.data_ptr(), sums.data_ptr(), K, L,
+                                    H, float(a), float(b), out.data_ptr(),
                                     _stream(dev)), who)
     LAUNCHES_NOTHETA += 1
     return out
@@ -103,17 +123,20 @@ def launch_notheta(cols, sums, H: int, a: float, b: float):
 def launch_gammadir(terms, a_bar: float, b_bar: float, a_i: float):
     """K4 on ``terms`` ``[L, 6]`` float64 (per locus the old and new
     value, log proposal ratio, locus-factorizing density delta, uniform,
-    mask), ``chain_depth()`` loci a round; returns accept ``[L]`` bool."""
+    mask), ``chain_depth()`` loci a round; returns accept ``[L]`` bool.
+    Over K chains (``terms [K, L, 6]``) one launch of K blocks, accept
+    ``[K, L]``."""
     global LAUNCHES_GAMMADIR
     who = "gammadir_chain"
     dev = terms.device
     if dev.type != "cuda":
         raise ValueError(f"{who}: the kernel takes CUDA tensors, got {dev}")
-    L = terms.shape[0]
-    check_tensor(who, "terms", terms, torch.float64, (L, 6), dev)
-    out = torch.empty((L,), dtype=torch.bool, device=dev)
+    K, lead = _chain_axis(who, terms, 2)
+    L = terms.shape[-2]
+    check_tensor(who, "terms", terms, torch.float64, lead + (L, 6), dev)
+    out = torch.empty(lead + (L,), dtype=torch.bool, device=dev)
     _check_rc(_chain_lib().bpp_gammadir_chain(
-        terms.data_ptr(), L, float(a_bar), float(b_bar), float(a_i),
+        terms.data_ptr(), K, L, float(a_bar), float(b_bar), float(a_i),
         out.data_ptr(), _stream(dev)), who)
     LAUNCHES_GAMMADIR += 1
     return out

@@ -121,14 +121,14 @@ def site_logl_packed_ref(order, left, right, parent, n_seq, age, mu,
 
 
 class _ChainPass(torch.autograd.Function):
-    """A pruning pass of the batched step (``torch.func.vmap`` over the
-    chains): :meth:`vmap` hands the wrapper the K chains' tensors on a
-    leading chain axis, so that one call (one launch of K1 or K2 on the
-    card) covers every chain, where ``vmap`` would otherwise run the
-    wrapper's ops chain by chain or refuse its launch."""
+    """A kernel call of the batched step (``torch.func.vmap`` over the
+    chains): :meth:`vmap` hands the wrapper the K chains' tensors of
+    ``per_chain`` on a leading chain axis, so that one call (one launch
+    on the card) covers every chain, where ``vmap`` would otherwise run
+    the wrapper's ops chain by chain or refuse its launch."""
 
     @staticmethod
-    def forward(fn, static, names, *tensors):
+    def forward(fn, static, names, per_chain, *tensors):
         return fn(**dict(zip(names, tensors)), **static)
 
     @staticmethod
@@ -136,11 +136,11 @@ class _ChainPass(torch.autograd.Function):
         pass
 
     @staticmethod
-    def vmap(info, in_dims, fn, static, names, *tensors):
+    def vmap(info, in_dims, fn, static, names, per_chain, *tensors):
         K = info.batch_size
         args = {}
-        for name, t, d in zip(names, tensors, in_dims[3:]):
-            if t is not None and name in PER_CHAIN:
+        for name, t, d in zip(names, tensors, in_dims[4:]):
+            if t is not None and name in per_chain:
                 # the kernels read [K, L, ...] rows chain after chain
                 t = (t.movedim(d, 0).contiguous() if d is not None
                      else t.expand((K,) + tuple(t.shape)))
@@ -151,11 +151,17 @@ class _ChainPass(torch.autograd.Function):
         return fn(**args, **static), 0
 
 
-def chain_pass(fn, tensors: dict, **static):
-    """``fn(**tensors, **static)`` (:func:`site_logl_packed` or
-    ``fels.site_logl_fels``) inside the batched step: one call over the K
-    chains (:class:`_ChainPass`)."""
-    return _ChainPass.apply(fn, static, tuple(tensors), *tensors.values())
+def chain_pass(fn, tensors: dict, per_chain=PER_CHAIN, **static):
+    """``fn(**tensors, **static)`` inside the batched step: one call over
+    the K chains (:class:`_ChainPass`), in which the tensors ``per_chain``
+    names carry a leading chain axis and the others are the batch's, one
+    copy for every chain.  ``fn`` is :func:`site_logl_packed` or
+    ``fels.site_logl_fels`` (``per_chain``: :data:`PER_CHAIN`), or an
+    accept chain's wrapper (``mcmc.notheta.chain_accept``,
+    ``mcmc.clock_moves.gammadir_chain``).  Outside ``vmap`` it is the
+    plain call."""
+    return _ChainPass.apply(fn, static, tuple(tensors), tuple(per_chain),
+                            *tensors.values())
 
 
 def refuse_under_capture(who):

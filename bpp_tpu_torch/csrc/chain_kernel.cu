@@ -20,7 +20,11 @@
 // warp, one such evaluation, a shuffle reduction and a shared-memory round
 // trip took ~1 us a locus.
 //
-// Design: one block of 8 warps.
+// Design: one block of 8 warps a chain.  Under chains = K one launch
+// takes the K chains' rows stacked, a block a chain (blockIdx.x); a block
+// reads and writes only its own chain's rows, so each chain's decisions
+// are those of a one-chain launch on its rows, bit for bit, and the K
+// walks run side by side on K SMs.
 //   * Staging, off the chain.  The walker warps walk tile k of the loci
 //     from shared memory while the other warps stage tile k + 1 (double
 //     buffering): per locus everything that does not depend on the carry,
@@ -473,15 +477,20 @@ __device__ void k3_walk(K3Tile t, int i0, double* Ks, double* Cs,
   }
 }
 
-// cols [L, 4H + 4]: per locus co[H], cn[H], to[H], tn[H], dother, dh, logu,
-// mask (> 0.5: the locus proposes); sums [2H]: K0, C0.  accept [L] bytes.
-// R loci a tile, a table of K0 +- M counts.
+// cols [K, L, 4H + 4]: per locus co[H], cn[H], to[H], tn[H], dother, dh,
+// logu, mask (> 0.5: the locus proposes); sums [K, 2H]: K0, C0.  accept
+// [K, L] bytes.  A block a chain; R loci a tile, a table of K0 +- M counts.
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
     notheta_chain_kernel(const double* __restrict__ cols,
                          const double* __restrict__ sums, int L, int H,
                          double a, double b, int R, int M,
                          unsigned char* __restrict__ accept) {
+  // a block a chain: chain blockIdx.x's rows alone, so that its walk is
+  // a one-chain launch's on them
+  cols += static_cast<size_t>(blockIdx.x) * L * (4 * H + 4);
+  sums += static_cast<size_t>(blockIdx.x) * 2 * H;
+  accept += static_cast<size_t>(blockIdx.x) * L;
   extern __shared__ __align__(16) unsigned char smem[];
   Header* hd = reinterpret_cast<Header*>(smem);
   double* Ks = reinterpret_cast<double*>(smem + kHeader);
@@ -652,13 +661,17 @@ __device__ double k4_walk(K4Tile t, int i0, double sum_mu, double A,
   return sum_mu;
 }
 
-// terms [L, 6]: per locus old value, new value, log proposal ratio,
+// terms [K, L, 6]: per locus old value, new value, log proposal ratio,
 // locus-factorizing density delta, uniform draw, mask (> 0.5: proposes).
-// accept [L] bytes.  The first warp walks, the others stage.
+// accept [K, L] bytes.  A block a chain; its first warp walks, the others
+// stage.
 __global__ void __launch_bounds__(kThreads, 1)
     gammadir_chain_kernel(const double* __restrict__ terms, int L,
                           double a_bar, double b_bar, double a_i,
                           unsigned char* __restrict__ accept) {
+  // a block a chain, as K3's
+  terms += static_cast<size_t>(blockIdx.x) * 6 * L;
+  accept += static_cast<size_t>(blockIdx.x) * L;
   constexpr int kStagers = kThreads - kLanes;
   extern __shared__ __align__(16) unsigned char smem[];
   Header* hd = reinterpret_cast<Header*>(smem);
@@ -706,7 +719,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 template <int D>
-int launch_notheta(const void* cols, const void* sums, int L, int H,
+int launch_notheta(const void* cols, const void* sums, int K, int L, int H,
                    double a, double b, const K3Layout& k, void* accept,
                    cudaStream_t stream) {
   const size_t bytes = k3_shared_bytes(k, H);
@@ -716,7 +729,7 @@ int launch_notheta(const void* cols, const void* sums, int L, int H,
         static_cast<int>(bytes));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  notheta_chain_kernel<D><<<1, kThreads, bytes, stream>>>(
+  notheta_chain_kernel<D><<<K, kThreads, bytes, stream>>>(
       static_cast<const double*>(cols), static_cast<const double*>(sums), L,
       H, a, b, k.R, k.M, static_cast<unsigned char*>(accept));
   return static_cast<int>(cudaGetLastError());
@@ -732,28 +745,29 @@ extern "C" int bpp_notheta_depth(int H) {
   return H > 0 ? k3_layout(H).depth : 0;
 }
 
-extern "C" int bpp_notheta_chain(const void* cols, const void* sums, int L,
-                                 int H, double a, double b, void* accept,
-                                 void* stream) {
-  if (L <= 0) return 0;
+// K chains' accept chains, one launch of K blocks (K = 1: one chain).
+extern "C" int bpp_notheta_chain(const void* cols, const void* sums, int K,
+                                 int L, int H, double a, double b,
+                                 void* accept, void* stream) {
+  if (L <= 0 || K <= 0) return 0;
   if (H <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const K3Layout k = k3_layout(H);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (k.depth) {
-    case 1: return launch_notheta<1>(cols, sums, L, H, a, b, k, accept, st);
-    case 2: return launch_notheta<2>(cols, sums, L, H, a, b, k, accept, st);
-    case 3: return launch_notheta<3>(cols, sums, L, H, a, b, k, accept, st);
-    case 4: return launch_notheta<4>(cols, sums, L, H, a, b, k, accept, st);
-    case 5: return launch_notheta<5>(cols, sums, L, H, a, b, k, accept, st);
+    case 1: return launch_notheta<1>(cols, sums, K, L, H, a, b, k, accept, st);
+    case 2: return launch_notheta<2>(cols, sums, K, L, H, a, b, k, accept, st);
+    case 3: return launch_notheta<3>(cols, sums, K, L, H, a, b, k, accept, st);
+    case 4: return launch_notheta<4>(cols, sums, K, L, H, a, b, k, accept, st);
+    case 5: return launch_notheta<5>(cols, sums, K, L, H, a, b, k, accept, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-extern "C" int bpp_gammadir_chain(const void* terms, int L, double a_bar,
-                                  double b_bar, double a_i, void* accept,
-                                  void* stream) {
-  if (L <= 0) return 0;
-  gammadir_chain_kernel<<<1, kThreads, kK4Shared,
+extern "C" int bpp_gammadir_chain(const void* terms, int K, int L,
+                                  double a_bar, double b_bar, double a_i,
+                                  void* accept, void* stream) {
+  if (L <= 0 || K <= 0) return 0;
+  gammadir_chain_kernel<<<K, kThreads, kK4Shared,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const double*>(terms), L, a_bar, b_bar, a_i,
       static_cast<unsigned char*>(accept));

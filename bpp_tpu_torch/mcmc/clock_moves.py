@@ -38,6 +38,7 @@ import torch
 from ..config import BppConfig, Clock
 from ..core import chains
 from ..core import felsenstein as fe
+from ..core.pack import chain_pass
 from ..parallel.mesh import gather_loci, pany, psum, psum_counts
 from ..trees.gtree import assign_populations, topo_scan
 from . import notheta, rng
@@ -203,25 +204,48 @@ def gammadir_accept(ctx: Ctx, old, new, dlog, ddens, us, a_bar, b_bar, a_i,
                     margin=None):
     """The Gamma-Dirichlet accept chain of the mu_i / nu_i moves
     (``bpp_tpu``'s ``lax.scan`` over loci): accept [L] bool on the
-    device of its inputs.  CUDA tensors: kernel K4 on the card, with no
-    host read; CPU tensors: the plain version :func:`_gammadir_chain`
-    (``margin`` as there; the CPU only).  Under locus sharding the chain
-    runs over every rank's loci, gathered, and each rank keeps its
-    rows."""
+    device of its inputs, through :func:`gammadir_chain` (``margin`` as
+    there).  Under locus sharding the chain runs over every rank's loci,
+    gathered, and each rank keeps its rows.  Inside the batched step of
+    ``chains = K`` (``torch.func.vmap`` over the chains) the K chains'
+    terms go to one call (``pack.chain_pass``): one K4 launch, a block a
+    chain."""
     terms = gather_loci(ctx.shard, torch.stack(
         [x.double() for x in (old, new, dlog, ddens, us, ctx.locus_mask)],
         1))
-    if terms.device.type == "cuda":
-        accept = chains.launch_gammadir(terms, a_bar, b_bar, a_i)
-    else:
-        host = terms.T.numpy()
-        mask = host[5] > 0.5
-        nl = float(mask.sum())
-        accept = torch.from_numpy(_gammadir_chain(
-            host[:5], mask, a_bar, a_i * nl, b_bar / nl, a_i, margin))
+    accept = chain_pass(gammadir_chain, {"terms": terms},
+                        per_chain=("terms",), a_bar=a_bar, b_bar=b_bar,
+                        a_i=a_i, margin=margin)
     if ctx.shard is not None:
         accept = ctx.shard.rows(accept)
     return accept
+
+
+def gammadir_chain(terms, a_bar, b_bar, a_i, margin=None):
+    """The accept chain over ``terms`` ``[L, 6]`` float64 (per locus the
+    old and new value, log proposal ratio, locus-factorizing density
+    delta, uniform, mask): accept ``[L]`` bool on their device; over K
+    chains (``terms [K, L, 6]``) accept ``[K, L]``, each chain with its
+    own running sum and its own count of proposing loci.  CUDA tensors:
+    kernel K4 (one launch, a block a chain), with no host read; CPU
+    tensors: the plain version :func:`_gammadir_chain` a chain
+    (``margin`` as there, ``[K, L]`` over K chains; the CPU only)."""
+    if terms.device.type == "cuda":
+        return chains.launch_gammadir(terms.contiguous(), a_bar, b_bar, a_i)
+    if terms.dim() == 3:
+        return torch.stack([_host_gammadir(
+            t, a_bar, b_bar, a_i, None if margin is None else margin[k])
+            for k, t in enumerate(terms)])
+    return _host_gammadir(terms, a_bar, b_bar, a_i, margin)
+
+
+def _host_gammadir(terms, a_bar, b_bar, a_i, margin):
+    """:func:`_gammadir_chain` on one chain's CPU terms."""
+    host = terms.T.numpy()
+    mask = host[5] > 0.5
+    nl = float(mask.sum())
+    return torch.from_numpy(_gammadir_chain(
+        host[:5], mask, a_bar, a_i * nl, b_bar / nl, a_i, margin))
 
 
 # --------------------------------------------------------------------------

@@ -432,32 +432,30 @@ def chain_route(cfg: BppConfig, run: RunData) -> tuple[str, str]:
     """How ``chains = K`` steps, chosen once from the configuration:
     ``("batched", why)``, one step over a leading chain axis of the K
     stacked states (``bpp_tpu``'s ``_chunk_multi``, which vmaps its chunk:
-    :meth:`Engine._step_batched`, K1 or K2 launched once a pass for all K
-    chains), or ``("per-chain", what is not batched)``, the chains' steps
-    one after another.  The batched step covers A00 on a species tree
-    with the strict clock, estimated thetas and a 4-state model other
-    than GTR and ``model = custom``, haploid (K1) or diploid (K2 and
-    ``reduce_root``), with Gamma rates, heredity scalars and hierarchical
-    locus rates.  This table alone decides: a batched step that fails to
-    capture or launch raises, and nothing reruns the chains one by one."""
+    :meth:`Engine._step_batched`, K1 or K2 launched once a pass, K3 and K4
+    once a call, for all K chains), or ``("per-chain", what is not
+    batched)``, the chains' steps one after another.  The batched step
+    covers A00 and A10 (the rj move on a fixed guide tree) on a species
+    tree with the strict clock and a 4-state model other than GTR and
+    ``model = custom``, haploid (K1) or diploid (K2 and ``reduce_root``),
+    with Gamma rates, heredity scalars, locus rates under any of their
+    priors (hierarchical, Gamma-Dirichlet (K4), Dirichlet) and estimated
+    or integrated thetas (K3).  This table alone decides: a batched step
+    that fails to capture or launch raises, and nothing reruns the chains
+    one by one."""
     why = None
-    if cfg.est_delimit or cfg.est_stree:
-        why = "species delimitation / species-tree moves (rj, SPR, SNL)"
+    if cfg.est_stree:
+        why = "species-tree moves (SPR, SNL)"
     elif run.stree.n_hybrids > 0:
         why = "an MSC-I network"
     elif cfg.migration:
         why = "MSC-M migration"
-    elif cfg.theta_integrated:
-        why = "integrated thetas (the accept chain K3)"
     elif cfg.datefile:
         why = "tip dating"
     elif cfg.model not in _BATCHED_MODELS:
         why = f"model = {cfg.model.name} (custom, amino acids and GTR)"
     elif cfg.clock != Clock.GLOBAL:
         why = "a relaxed clock"
-    elif cfg.est_locusrate == 1 and cfg.locusrate_prior != 1:
-        why = ("locus rates under the Gamma-Dirichlet (K4) or Dirichlet "
-               "prior")
     elif cfg.linked_theta:
         why = "linked thetas"
     elif cfg.traitfile:
@@ -466,7 +464,7 @@ def chain_route(cfg: BppConfig, run: RunData) -> tuple[str, str]:
         why = "usedata = 2"
     if why is not None:
         return ROUTE_PER_CHAIN, f"{why}: one chain's step after another"
-    return ROUTE_BATCHED, ("one step over a chain axis: each pruning pass "
+    return ROUTE_BATCHED, ("one step over a chain axis: each kernel call "
                            "one launch for every chain")
 
 
@@ -1022,8 +1020,9 @@ class Engine:
         counterpart of ``bpp_tpu``'s ``_chunk_multi``: ``torch.func.vmap``
         of the one-chain :meth:`_step` over the chain axis, in which every
         draw is chain k's draw from its own generator
-        (``rng.ChainGens``) and every pruning pass one call of K1 or K2
-        over all K chains (``Ctx.chains``).  Returns (state, stats [K,
+        (``rng.ChainGens``), every pruning pass one call of K1 or K2
+        over all K chains (``Ctx.chains``) and every accept chain one call
+        of K3 or K4 (``pack.chain_pass``).  Returns (state, stats [K,
         N_MOVES, 2]).  Only configurations :func:`chain_route` sends to
         the batched route run here."""
         K = len(gens)

@@ -20,7 +20,10 @@ lookahead over their accept/reject patterns; no host read), on the CPU
 as :func:`accept_chain`, its plain version in float64 Python floats.
 Under locus sharding every rank runs the whole chain on the gathered
 inputs of all loci and keeps its rows of the decisions, and the K/C sums
-are all-reduced.
+are all-reduced.  Inside the batched step of ``chains = K``
+(``torch.func.vmap`` over the chains) the K chains' inputs go to one call
+(``pack.chain_pass``): one K3 launch, a block a chain, or the plain
+version once a chain.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import numpy as np
 import torch
 
 from ..core import chains
+from ..core.pack import chain_pass
 from ..parallel.mesh import gather_loci, psum
 from ..trees import coalescent as coalmod
 from . import rng
@@ -133,8 +137,9 @@ def scan_accept(gen, cfg, dother, coal_o, t2_o, h_o, coal_n, t2_n, h_n,
     if shard is not None:
         # the chain runs over every locus, in order, on each rank
         cols, sums = gather_loci(shard, cols), psum(shard, sums)
-    accept = chain_accept(cfg.thetaprior.alpha, cfg.thetaprior.beta, cols,
-                          sums, H)
+    accept = chain_pass(chain_accept, {"cols": cols, "sums": sums},
+                        per_chain=("cols", "sums"), a=cfg.thetaprior.alpha,
+                        b=cfg.thetaprior.beta, H=H)
     if shard is not None:
         accept = shard.rows(accept)
     return accept
@@ -143,12 +148,24 @@ def scan_accept(gen, cfg, dother, coal_o, t2_o, h_o, coal_n, t2_n, h_n,
 def chain_accept(a: float, b: float, cols, sums, H: int, margin=None):
     """The accept chain over ``cols`` ``[L, 4H + 4]`` float64 (per locus
     co, cn, to, tn [H] each, then dother, dh, log u, mask) from the sums
-    ``sums`` ``[2H]`` (K0, C0): accept ``[L]`` bool on their device.  CUDA
-    tensors: kernel K3, with no host read; CPU tensors: the plain version
-    :func:`accept_chain` (``margin`` as there; the CPU only)."""
+    ``sums`` ``[2H]`` (K0, C0): accept ``[L]`` bool on their device; over
+    K chains (``cols [K, L, 4H + 4]``, ``sums [K, 2H]``) accept ``[K, L]``,
+    each chain's walk its own.  CUDA tensors: kernel K3 (one launch, a
+    block a chain), with no host read; CPU tensors: the plain version
+    :func:`accept_chain` a chain (``margin`` as there, ``[K, L]`` over K
+    chains; the CPU only)."""
     if cols.device.type == "cuda":
         return chains.launch_notheta(cols.contiguous(), sums.contiguous(),
                                      H, a, b)
+    if cols.dim() == 3:
+        return torch.stack([_host_chain(
+            a, b, c, s, H, None if margin is None else margin[k])
+            for k, (c, s) in enumerate(zip(cols, sums))])
+    return _host_chain(a, b, cols, sums, H, margin)
+
+
+def _host_chain(a, b, cols, sums, H, margin):
+    """:func:`accept_chain` on one chain's CPU tensors."""
     host = cols.numpy()
     sums = sums.numpy()
     co, cn, to, tn = (host[:, k * H:(k + 1) * H] for k in range(4))

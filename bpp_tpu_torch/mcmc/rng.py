@@ -96,6 +96,10 @@ class _ChainDraw(torch.autograd.Function):
                 else alpha.expand((len(gens),) + alpha.shape)
             return torch.stack([torch._standard_gamma(a[k], generator=g)
                                 for k, g in enumerate(gens)]), 0
+        if kind == "randperm":
+            return torch.stack([torch.randperm(param, generator=g,
+                                               device=device)
+                                for g in gens]), 0
         out = torch.empty((len(gens),) + tuple(shape), dtype=dtype,
                           device=device)
         for k, g in enumerate(gens):
@@ -153,6 +157,13 @@ def randint(gen, high: int, shape, device, shard=None):
                                   torch.int64, device, high), shard)
     return _local(torch.randint(0, high, _global(shape, shard),
                                 generator=gen, device=device), shard)
+
+
+def randperm(gen, n: int, device):
+    """A uniform random permutation of 0..n-1."""
+    if isinstance(gen, ChainGens):
+        return _chain_draw(gen, "randperm", (n,), torch.int64, device, n)
+    return torch.randperm(n, generator=gen, device=device)
 
 
 def bactrian(gen, shape=(), dtype=torch.float64, device="cpu", shard=None):

@@ -255,7 +255,7 @@ def locusrate_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
     def rows(x):
         return x if sh is None else sh.rows(x)
 
-    perm = torch.randperm(L, generator=gen, device=dev)
+    perm = rng.randperm(gen, L, dev)
     n_pairs = L // 2
     pi = perm[:n_pairs]
     pj = perm[n_pairs:2 * n_pairs]
@@ -275,7 +275,9 @@ def locusrate_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
     pair_lnacc = dlogl[pi] + dlogl[pj] + (a_mui - 1.0) * (
         torch.log(mu_new[pi] * mu_new[pj]) - torch.log(mu[pi] * mu[pj]))
     accept_p = rng.mh_accept(gen, pair_lnacc) & valid
-    accept = torch.zeros((L,), dtype=torch.bool, device=dev)
+    # made from the rates, so that inside the batched step (vmap) it
+    # carries the chain axis of the writes below
+    accept = torch.zeros_like(mu, dtype=torch.bool)
     accept[pi] = accept_p
     accept[pj] = accept_p
     accept = rows(accept)

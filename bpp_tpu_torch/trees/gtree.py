@@ -262,8 +262,9 @@ def topo_scan(gt: GTrees, tip_vals, combine, order=None):
     if order is None:
         order = inner_order(gt)
     lidx = torch.arange(L, device=tip_vals.device)
-    buf = torch.zeros((L, gt.n_nodes), dtype=tip_vals.dtype,
-                      device=tip_vals.device)
+    # made from the ages, so that inside the batched step (vmap) the
+    # buffer carries the chain axis the node writes below take
+    buf = torch.zeros_like(gt.age, dtype=tip_vals.dtype)
     buf[:, :T] = tip_vals
     for k in range(T - 1):
         node = order[:, k]

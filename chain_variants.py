@@ -132,8 +132,8 @@ def chain_libs(libs):
     for lib in libs.values():
         lib.bpp_notheta_depth.restype = I
         lib.bpp_notheta_depth.argtypes = [I]
-        lib.bpp_notheta_chain.argtypes = [P, P, I, I, D, D, P, P]
-        lib.bpp_gammadir_chain.argtypes = [P, I, D, D, D, P, P]
+        lib.bpp_notheta_chain.argtypes = [P, P, I, I, I, D, D, P, P]
+        lib.bpp_gammadir_chain.argtypes = [P, I, I, D, D, D, P, P]
     return libs
 
 
@@ -194,10 +194,10 @@ def main() -> int:
     def launcher(lib, kernel, x, s):
         if kernel == "K3":
             return lambda: lib.bpp_notheta_chain(
-                x.data_ptr(), s.data_ptr(), L, H, 3.0, 0.03, out.data_ptr(),
-                stream)
+                x.data_ptr(), s.data_ptr(), 1, L, H, 3.0, 0.03,
+                out.data_ptr(), stream)
         return lambda: lib.bpp_gammadir_chain(
-            x.data_ptr(), L, 10.0, 10.0, 5.0, out.data_ptr(), stream)
+            x.data_ptr(), 1, L, 10.0, 10.0, 5.0, out.data_ptr(), stream)
 
     def ms(fn, reps=20):
         for _ in range(3):

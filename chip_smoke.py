@@ -314,25 +314,28 @@ the chain's last state, and the ``[profile]`` of its step there:
               what the process held before it) in one line.
 40. graph   — the captured step (``mcmc.graph.StepGraph``) against the
               eager step at the same seed, in this process, for mains 1,
-              2, 13, 16, 17 and 18, timed every other main path the route
-              table captures (3, 4, 8, 9, 10, 11, 15, 16's diploid run,
-              19, 20), and mains 5, 6, 7, 12, 14, 21 and 22 (whose accept
-              chains, SNL and sim-SPR walks run on the device): the
-              states, move statistics, traces and generator states
-              bit-equal after 6 iterations, and (the first six and the
-              last seven) the control file through ``cli.main`` at burnin
-              8, nsample 4 both ways with every mcmc file byte-equal; each route's wall
-              ms an iteration (eager the median of 3 windows of the 6
-              compared iterations, replayed of 3 more windows of 5
-              replays, 2 for mains 10, 12, 14 and 18), device kernels,
-              busy ms and idle share an iteration (the eager trace's
-              kernels within 25 of the captured step's exact device
-              nodes, counted with cudaGraphGetNodes), the capture's
-              seconds and peak device memory,
-              K1-K5 launched inside the graph (under ``chains = K`` on
-              the batched route, mains 13, 18 and 23, one graph of the
-              step over the stacked chains with its write-back, as
-              ``run_mcmc_multi`` runs it); then
+              2, 13, 16, 17, 18 and 23, timed every other main path the
+              route table captures (3, 4, 8, 9, 10, 11, 15, 16's diploid
+              run, 19, 20), mains 5, 6, 7, 12, 14, 21 and 22 (whose
+              accept chains, SNL and sim-SPR walks run on the device) and
+              mains 24 and 25 (A10 and integrated thetas under chains =
+              4): the states, move statistics, traces and generator
+              states bit-equal after 6 iterations, and (all but mains 3,
+              4, 8-12, 14, 15, 16's diploid run, 19, 20 and 22) the
+              control file through ``cli.main`` at burnin 8, nsample 4
+              both ways with every mcmc file byte-equal; each route's
+              wall ms an
+              iteration (eager the median of 3 windows of the 6 compared
+              iterations, replayed of 3 more windows of 5 replays, 2 for
+              mains 10, 12, 14, 18, 24 and 25), device kernels, busy ms
+              and idle share an iteration (a profiler trace of 2
+              iterations; the eager trace's kernels within 25 of the
+              captured step's exact device nodes, counted with
+              cudaGraphGetNodes), the capture's seconds and peak device
+              memory, K1-K5 launched inside the graph (under ``chains =
+              K`` on the batched route, mains 13, 18, 23, 24 and 25, one
+              graph of the step over the stacked chains with its
+              write-back, as ``run_mcmc_multi`` runs it); then
               ``[eigen]``: main 20's GTR step on the eager route with its
               eigensystems from ``pmatrix.eigh_jacobi`` and from
               ``torch.linalg.eigh``, windows in turn;
@@ -370,11 +373,12 @@ the chain's last state, and the ``[profile]`` of its step there:
               nan under ``chains = K``, as ``bpp_tpu`` writes it, and left
               out) and the split-R-hat table; K2 held on the last chain's
               last state;
-44. chains-batch — mains 13, 18 and 23 per-chain against batched in this
-              process from the same states and generators: each way's
-              exact device nodes of the captured step, device kernels,
-              busy and replayed wall ms an iteration, capture seconds and
-              peak MiB, pruning launches a replay; after one iteration the
+44. chains-batch — mains 13, 18, 23, 24 and 25 per-chain against batched
+              in this process from the same states and generators: each
+              way's exact device nodes of the captured step, device
+              kernels, busy and replayed wall ms an iteration, capture
+              seconds and peak MiB, pruning launches a replay; after one
+              iteration the
               move statistics, per-locus lnL and state leaves of the two
               ways compared; the batched step's draw sites (K launches
               each); the control file through ``cli.main`` both ways at
@@ -384,7 +388,29 @@ the chain's last state, and the ``[profile]`` of its step there:
               main 23's 4, float32 and float64 builds: one launch (a grid
               row a chain) bit-equal per (chain, locus) to one-chain
               launches, within the plain versions' gates, and timed
-              against one chain's launch.
+              against one chain's launch.  Mains 24 and 25 likewise (K3 /
+              K4 launches a replay compared too), then K4 over main 24's
+              4 chains and K3 over main 25's 4 (the batched step's last
+              call's inputs, one eager batched iteration): one launch (a
+              block a chain) bit-equal per (chain, locus) to one-chain
+              launches, each chain's decisions against the plain version
+              (near ties as in ``[chains]``), timed against one chain's
+              launch, with the bound over the 4 x 1000 loci.
+45. main 24 — A10 (``speciesdelimitation = 1 0 2``, ``speciestree = 0``)
+              on main 1's 1000 loci with Gamma-Dirichlet locus rates
+              (``locusrate = 1 10 10 5``) and ``chains = 4`` through
+              ``cli.main`` on the batched route: K1 launched (rj 1 + 8 +
+              mu_i 1) x 50 + 4 = 504 times and K4 50 (once an iteration
+              for all four chains), K2 and K3 never; four mcmc files of
+              finite samples, theta and tau moving, the split-R-hat
+              table and the pooled A10 report with each chain's
+              P(#species); K1 held on the last chain's last state;
+46. main 25 — main 1's data with integrated thetas (``thetaprior =
+              invgamma 3 0.06 int``) and ``chains = 4`` on the batched
+              route: K1 8 x 50 + 4 = 404, K3 5 x 50 = 250 (the age move's
+              2 blocks and 3 SPR rounds, once for all four chains); four
+              mcmc files without theta columns, tau moving; K1 held on the
+              last chain's last state.
 
 Every main path but ``[shard]``'s runs its chunks as replays of one
 captured CUDA graph; the launch counts a replay adds are the graph's
@@ -396,7 +422,7 @@ and of the ``launches`` in the kernels line, as the capture itself is.
 Then a ``[time]`` line (the whole script, and the seconds of each group
 of phases in the order they ran), one JSON line ``{"kernels": [...]}``
 (K1 at JC69, K2 at HKY+G4: the
-models of their chains; launches summed over main 1-15, 17-23 and [tools],
+models of their chains; launches summed over main 1-15, 17-25 and [tools],
 errors the largest of every hold; then the float64 builds, with main
 16's and both [shard] ranks' launches and the [x64] holds; then K3, K4
 and K5 with their mains' launches and ``[chains]``' times), the card's
@@ -649,6 +675,17 @@ BURNIN_17, NSAMPLE_17 = 2, 8
 # main 18: bench.py's _bench_chains8 shape
 CHAINS_18, N_LOCI_18 = 8, 100
 CHAINS_23 = 4
+# main 24: A10 with Gamma-Dirichlet locus rates on main 1's data, main 25:
+# integrated thetas, 4 chains each on the batched route.  Main 24's step
+# adds the rj move's pass and mu_i's (the strict clock's rate scales the
+# likelihood) to the base moves' 8, and runs K4 once (mu_i); main 25's
+# runs K3 as main 5's does (the age move's 2 blocks, 3 SPR rounds)
+CHAINS_24 = CHAINS_25 = 4
+A10_24 = ("speciesdelimitation = 1 0 2\nspeciestree = 0\n"
+          "locusrate = 1 10 10 5\nchains = {k}\n")
+INT_25 = "thetaprior = invgamma 3 0.06 int\nchains = {k}\n"
+PASSES_PER_ITER_24 = PASSES_PER_ITER + 2
+K4_PER_ITER_24 = 1
 # mains 18-22: 20 iterations, burnin 8 (the fewest with finetune marks)
 NEW_BURNIN, NEW_NSAMPLE = 8, 12
 NEW_CHECKS = (NEW_BURNIN + NEW_NSAMPLE) // CHECK_EVERY
@@ -2611,6 +2648,88 @@ def main23(iters, smi):
     return launches, err
 
 
+def main24(iters, smi):
+    """``[main 24]``: A10 on main 1's data (``speciesdelimitation = 1 0
+    2``, ``speciestree = 0``) with Gamma-Dirichlet locus rates and
+    ``chains = 4`` through the CLI, on the batched route: K1 once a pass
+    for the four chains (10 an iteration) plus one initial state a chain,
+    K4 once an iteration; four mcmc files of finite samples, some theta
+    and some tau column moving in each, the split-R-hat table and the A10
+    report (the pooled delimitations, each chain's P(#species)); K1 held
+    on the last chain's last state.  Returns (K1 launches, the hold's
+    error)."""
+    with open("run24.ctl", "w") as f:
+        f.write(RUN_CTL.format(nloci=N_LOCI, burnin=BURNIN, nsample=NSAMPLE,
+                               job="out24",
+                               extra=A10_24.format(k=CHAINS_24)))
+    with ChainEnds() as ends:
+        launches, _ = run_chain(
+            ["--cfile", "run24.ctl"], "out24", iters,
+            (PASSES_PER_ITER_24 * iters + CHAINS_24, 0), ("theta", "tau"),
+            "main 24", smi, figtree=False, every=False,
+            chains=(0, K4_PER_ITER_24 * iters, 0))
+    files, rhat = check_chains("out24", CHAINS_24, NSAMPLE, "main 24",
+                               moving=("theta", "tau"))
+    eng, state = ends.last
+    if eng.chains_route != "batched":
+        raise AssertionError(f"main 24: chains route {eng.chains_route} "
+                             f"({eng.chains_route_reason})")
+    with open("out24.txt") as f:
+        report = f.read()
+    per_chain = report.split("Per-chain P(#species):\n")[-1].splitlines()
+    if len([ln for ln in per_chain if ln.startswith("  chain ")]) \
+            != CHAINS_24:
+        raise AssertionError("main 24: out24.txt lacks a chain's "
+                             "P(#species) line")
+    print(f"[main 24] A10 with Gamma-Dirichlet locus rates, {CHAINS_24} "
+          f"chains on {N_LOCI} loci: {len(files)} mcmc files of {NSAMPLE} "
+          f"finite samples, theta and tau moving; split-R-hat table "
+          f"({rhat}, ...); P(#species) " + "; ".join(
+              ln.strip() for ln in per_chain[:CHAINS_24])
+          + f"; K1 {launches} launches = {PASSES_PER_ITER_24} x {iters} + "
+          f"{CHAINS_24}, K4 {K4_PER_ITER_24 * iters} | {smi}")
+    err, _ = hold_given("K1, main 24's last chain's last state", eng, state,
+                        smi, tag="main 24")
+    return launches, err
+
+
+def main25(iters, smi):
+    """``[main 25]``: main 1's data with integrated thetas and ``chains =
+    4`` through the CLI, on the batched route: K1 8 an iteration for the
+    four chains plus one initial state a chain, K3 5 an iteration; four
+    mcmc files of finite samples without theta columns, tau moving; K1
+    held on the last chain's last state.  Returns (K1 launches, the
+    hold's error)."""
+    with open("run25.ctl", "w") as f:
+        f.write(RUN_CTL.format(nloci=N_LOCI, burnin=BURNIN, nsample=NSAMPLE,
+                               job="out25",
+                               extra=INT_25.format(k=CHAINS_25)))
+    with ChainEnds() as ends:
+        launches, _ = run_chain(
+            ["--cfile", "run25.ctl"], "out25", iters,
+            (PASSES_PER_ITER * iters + CHAINS_25, 0), ("tau",), "main 25",
+            smi, figtree=False, every=False,
+            chains=(K3_PER_ITER_5 * iters, 0, 0))
+    files, rhat = check_chains("out25", CHAINS_25, NSAMPLE, "main 25",
+                               moving=("tau",))
+    with open(files[0]) as f:
+        if "theta" in f.readline():
+            raise AssertionError("main 25: theta columns with thetas "
+                                 "integrated out")
+    eng, state = ends.last
+    if eng.chains_route != "batched":
+        raise AssertionError(f"main 25: chains route {eng.chains_route} "
+                             f"({eng.chains_route_reason})")
+    print(f"[main 25] integrated thetas, {CHAINS_25} chains on {N_LOCI} "
+          f"loci: {len(files)} mcmc files of {NSAMPLE} finite samples, no "
+          f"theta column, tau moving; split-R-hat table ({rhat}, ...); K1 "
+          f"{launches} launches = {PASSES_PER_ITER} x {iters} + "
+          f"{CHAINS_25}, K3 {K3_PER_ITER_5 * iters} | {smi}")
+    err, _ = hold_given("K1, main 25's last chain's last state", eng, state,
+                        smi, tag="main 25")
+    return launches, err
+
+
 def subst_main(n, model, passes, smi):
     """``[main 19]`` / ``[main 20]``: main 1's data under ``model`` + G4
     (``alphaprior = 1 1 4``) through the CLI, 20 iterations: K1 ``passes``
@@ -3335,7 +3454,7 @@ SYNC_MAINS = (
 # of those iterations, the replayed route's the median of GRAPH_WINDOWS
 # more windows of GRAPH_WINDOW_ITERS replays (GRAPH_HEAVY_WINDOW where an
 # eager iteration takes about a second); a profiler trace of
-# GRAPH_TRACE_ITERS iterations (GRAPH_HEAVY_TRACE there), the eager
+# GRAPH_TRACE_ITERS iterations, the eager
 # step's taken up to GRAPH_RETRACES times where it reads more than
 # GRAPH_GATE below the replayed step's exact count (the fullest kept),
 # the replayed step's once (its exact count is the graph's nodes, held
@@ -3345,8 +3464,7 @@ SYNC_MAINS = (
 GRAPH_WINDOWS = 3
 GRAPH_WINDOW_ITERS = 5
 GRAPH_HEAVY_WINDOW = 2
-GRAPH_TRACE_ITERS = 3
-GRAPH_HEAVY_TRACE = 2
+GRAPH_TRACE_ITERS = 2
 GRAPH_RETRACES = 3
 GRAPH_GATE = 25
 GRAPH_ITERS = 6
@@ -3806,45 +3924,56 @@ def graph_phase(label, ctl, smi, x64=False, cli_compare=True,
 
 
 # [graph]: (label, control file, x64, compared through the CLI too,
-# iterations a profiler trace and a replayed timing window: fewer where an
-# eager iteration takes about a second); the mains the comparison must
-# cover first, then every other main path on the graph route, timed
-_LIGHT = (GRAPH_TRACE_ITERS, GRAPH_WINDOW_ITERS)
-_HEAVY = (GRAPH_HEAVY_TRACE, GRAPH_HEAVY_WINDOW)
+# iterations a replayed timing window: fewer on the slowest eager steps
+# and the batched chains = K ones); the CLI runs of mains 10, 11, 12, 14
+# and 22, whose eager iteration takes half a second or more, are not
+# compared (their states, statistics, traces and generators are); the
+# mains the comparison must cover first, then every other main path on
+# the graph route, timed
+_LIGHT = GRAPH_WINDOW_ITERS
+_HEAVY = GRAPH_HEAVY_WINDOW
 GRAPH_MAINS = (
-    ("main 1", "run.ctl", False, True, *_LIGHT),
-    ("main 2", "run2.ctl", False, True, *_LIGHT),
-    ("main 13", "run13.ctl", False, True, *_LIGHT),
-    ("main 16", "run.ctl", True, True, *_LIGHT),
-    ("main 17", "run17.ctl", False, True, *_LIGHT),
-    ("main 18", "run18.ctl", False, True, *_HEAVY),
-    ("main 23", "run23.ctl", False, True, *_LIGHT),
-    ("main 3", "run3.ctl", False, False, *_LIGHT),
-    ("main 4", "run4.ctl", False, False, *_LIGHT),
-    ("main 9", "run9.ctl", False, False, *_LIGHT),
-    ("main 10", "run10.ctl", False, False, *_HEAVY),
-    ("main 11", "run11.ctl", False, False, *_LIGHT),
-    ("main 15", "run15.ctl", False, False, *_LIGHT),
-    ("main 16 diploid", "run2.ctl", True, False, *_LIGHT),
-    ("main 8", "run8.ctl", False, False, *_LIGHT),
-    ("main 19", "run19.ctl", False, False, *_LIGHT),
-    ("main 20", "run20.ctl", False, False, *_LIGHT),
+    ("main 1", "run.ctl", False, True, _LIGHT),
+    ("main 2", "run2.ctl", False, True, _LIGHT),
+    ("main 13", "run13.ctl", False, True, _LIGHT),
+    ("main 16", "run.ctl", True, True, _LIGHT),
+    ("main 17", "run17.ctl", False, True, _LIGHT),
+    ("main 18", "run18.ctl", False, True, _HEAVY),
+    ("main 23", "run23.ctl", False, True, _LIGHT),
+    ("main 3", "run3.ctl", False, False, _LIGHT),
+    ("main 4", "run4.ctl", False, False, _LIGHT),
+    ("main 9", "run9.ctl", False, False, _LIGHT),
+    ("main 10", "run10.ctl", False, False, _HEAVY),
+    ("main 11", "run11.ctl", False, False, _LIGHT),
+    ("main 15", "run15.ctl", False, False, _LIGHT),
+    ("main 16 diploid", "run2.ctl", True, False, _LIGHT),
+    ("main 8", "run8.ctl", False, False, _LIGHT),
+    ("main 19", "run19.ctl", False, False, _LIGHT),
+    ("main 20", "run20.ctl", False, False, _LIGHT),
     # the schedules whose device control flow became kernels K3-K5 and
     # torch ops on the device
-    ("main 5", "run5.ctl", False, True, *_LIGHT),
-    ("main 6", "run6.ctl", False, True, *_LIGHT),
-    ("main 7", "run7.ctl", False, True, *_LIGHT),
-    ("main 12", "run12.ctl", False, True, *_HEAVY),
-    ("main 14", "run14.ctl", False, True, *_HEAVY),
-    ("main 21", "run21.ctl", False, True, *_LIGHT),
-    ("main 22", "run22.ctl", False, True, *_LIGHT))
+    ("main 5", "run5.ctl", False, True, _LIGHT),
+    ("main 6", "run6.ctl", False, True, _LIGHT),
+    ("main 7", "run7.ctl", False, True, _LIGHT),
+    ("main 12", "run12.ctl", False, False, _HEAVY),
+    ("main 14", "run14.ctl", False, False, _HEAVY),
+    ("main 21", "run21.ctl", False, True, _LIGHT),
+    ("main 22", "run22.ctl", False, False, _LIGHT),
+    # chains = 4 on the batched route with the rj move and K4 (main 24)
+    # and K3 (main 25) over the chains
+    ("main 24", "run24.ctl", False, True, _HEAVY),
+    ("main 25", "run25.ctl", False, True, _HEAVY))
 
 
 # [chains-batch]: the mains of chains = K whose per-chain and batched
 # routes are compared, their timing windows and traced iterations, and the
 # most device nodes main 18's batched step may hold (8 chains' glue as one)
 CB_MAINS = (("main 13", "run13.ctl"), ("main 18", "run18.ctl"),
-            ("main 23", "run23.ctl"))
+            ("main 23", "run23.ctl"), ("main 24", "run24.ctl"),
+            ("main 25", "run25.ctl"))
+# the accept chain each main holds over its chains (mains 13, 18 and 23
+# hold their pruning kernel)
+CB_CHAIN_KERNEL = {"main 24": "K4", "main 25": "K3"}
 CB_WINDOWS = 3
 CB_WINDOW_ITERS = 5
 CB_TRACE_ITERS = 2
@@ -3987,6 +4116,7 @@ def chains_ab(label, ctl, smi):
         nodes = graph_nodes(graph.graphs)
         r["exact"] = sum(nodes.get(k, 0) for k in GRAPH_DEVICE_NODES)
         r["passes"] = graph.per_replay[0] + graph.per_replay[2]
+        r["chains"] = graph.per_replay[4] + graph.per_replay[5]
         acc, traces = graph.run(1)
         r["acc"] = acc.clone()
         r["states"] = [clone_state(st) for st in graph.chain_states()]
@@ -4051,10 +4181,13 @@ def chains_ab(label, ctl, smi):
         mask = eng.ctx.locus_mask
         loci_equal += int((sp_.logl == sb.logl)[mask].sum())
         n_loci += int(mask.sum())
-    if b["passes"] * K != p["passes"]:
-        raise AssertionError(f"[chains-batch] {label}: {b['passes']} pruning "
-                             f"launches a batched replay, {p['passes']} a "
-                             f"per-chain one, over {K} chains")
+    for what in ("passes", "chains"):
+        if b[what] * K != p[what]:
+            raise AssertionError(
+                f"[chains-batch] {label}: {b[what]} "
+                f"{'pruning' if what == 'passes' else 'K3/K4'} launches a "
+                f"batched replay, {p[what]} a per-chain one, over {K} "
+                "chains")
     if not b["exact"] < p["exact"]:
         raise AssertionError(f"[chains-batch] {label}: the batched step "
                              f"holds {b['exact']} device nodes, the "
@@ -4070,7 +4203,8 @@ def chains_ab(label, ctl, smi):
           f"{1 - p['busy'] / p['ms']:.3f} | {1 - b['busy'] / b['ms']:.3f}; "
           f"capture s {p['capture_s']:.2f} | {b['capture_s']:.2f}; capture "
           f"peak MiB {p['peak']:.1f} | {b['peak']:.1f}; pruning launches a "
-          f"replay {p['passes']} | {b['passes']} | batched draws: {sites} "
+          f"replay {p['passes']} | {b['passes']}; K3/K4 launches a replay "
+          f"{p['chains']} | {b['chains']} | batched draws: {sites} "
           f"sites an iteration, {sites * K} launches (one a chain) | after "
           f"one iteration from the same states: move statistics equal on "
           f"{same_stats} of {K} chains, per-locus lnL bit-equal on "
@@ -4082,32 +4216,138 @@ def chains_ab(label, ctl, smi):
     return b["states"], eng, b["exact"]
 
 
+def batch_accept_chain(label, name, eng, states, smi):
+    """``[chains-batch]`` K3 or K4 (``name``) over ``label``'s K chains:
+    the inputs of the batched step's last call of the kernel's wrapper
+    (``notheta.chain_accept`` / ``clock_moves.gammadir_chain``, handed
+    ``[K, L, ...]`` by ``pack.chain_pass``) in one eager batched
+    iteration from the chains' ``states``; on them one launch over the K
+    chains (a block a chain) against K one-chain launches, bit-equal per
+    (chain, locus), and each chain's decisions against the plain version
+    (:func:`chain_masks_agree`: equal but at near ties).  Device ms of the
+    batched launch and of one chain's (profiler), the plain version's ms
+    over the K chains (host, with the copy) and the bound over the K x L
+    loci (:func:`chain_bounds`).  Returns (the largest |kernel - plain|
+    of the 0/1 decisions, batched ms, one chain's ms, bound ms, what
+    bounds it, plain ms)."""
+    import numpy as np
+    import torch
+
+    from bpp_tpu_torch.mcmc import clock_moves, notheta
+    from bpp_tpu_torch.mcmc.driver import clone_state, stack_states
+    mod, attr, rows = ((notheta, "chain_accept", "cols") if name == "K3"
+                       else (clock_moves, "gammadir_chain", "terms"))
+    orig = getattr(mod, attr)
+    calls = []
+
+    def record(**kw):
+        if kw[rows].dim() == 3:
+            calls.append({k: v.clone() if torch.is_tensor(v) else v
+                          for k, v in kw.items()})
+        return orig(**kw)
+
+    K = len(states)
+    gens = [torch.Generator(device="cuda") for _ in range(K)]
+    for c, g in enumerate(gens):
+        g.manual_seed(eng.chain_seed(c) + 1)
+    setattr(mod, attr, record)
+    try:
+        eng._step_batched(stack_states([clone_state(st) for st in states]),
+                          gens)
+    finally:
+        setattr(mod, attr, orig)
+    if not calls:
+        raise AssertionError(f"[chains-batch] {label}: the batched step "
+                             f"made no {name} call over its chains")
+    kw = calls[-1]
+    if name == "K3":
+        args = (kw["a"], kw["b"], kw["cols"], kw["sums"], kw["H"])
+
+        def chain(k):
+            return (args[0], args[1], args[2][k], args[3][k], args[4])
+        flat = (args[0], args[1], args[2].reshape(-1, args[2].shape[-1]),
+                args[3].reshape(-1), args[4])
+    else:
+        args = (kw["terms"], kw["a_bar"], kw["b_bar"], kw["a_i"])
+
+        def chain(k):
+            return (args[0][k],) + args[1:]
+        flat = (args[0].reshape(-1, 6),) + args[1:]
+    got = chain_launch(name, args)
+    ones = [chain_launch(name, chain(k)) for k in range(K)]
+    torch.cuda.synchronize()
+    L = got.shape[1]
+    if tuple(got.shape) != (K, L):
+        raise AssertionError(f"[chains-batch] {label}: {name} output "
+                             f"{tuple(got.shape)}")
+    agree, near, err = 0, 0, 0.0
+    t0 = time.perf_counter()
+    wants = []
+    for k in range(K):
+        margin = np.full(L, np.inf)
+        wants.append((chain_plain(name, chain(k), margin), margin))
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    for k, (want, margin) in enumerate(wants):
+        if not torch.equal(got[k], ones[k]):
+            raise AssertionError(f"[chains-batch] {label}: chain {k}'s row "
+                                 f"of the batched {name} launch differs "
+                                 "from its one-chain launch")
+        upto, n_near, e, _ = chain_masks_agree(f"{name} ({label}, chain "
+                                               f"{k})", got[k], want, margin)
+        agree += upto
+        near += n_near
+        err = max(err, e)
+    ms = kernel_device_ms(lambda: chain_launch(name, args),
+                          CHAIN_KERNELS[name])
+    one = kernel_device_ms(lambda: chain_launch(name, chain(0)),
+                           CHAIN_KERNELS[name])
+    bms, by = chain_bounds(name, flat)
+    print(f"[chains-batch] {label}: {name} once over {K} chains x {L} loci "
+          f"(a block a chain; the batched step's last call, "
+          f"{chain_proposing(name, flat)} proposing loci) bit-equal per "
+          f"(chain, locus) to {K} one-chain launches; against the plain "
+          f"version: equal on {agree} of {K * L} loci compared, {near} near "
+          f"ties (< {CHAIN_TIE}), max |kernel - plain| {err:.0f} | device "
+          f"ms (profiler): batched {ms:.4f}, one chain {one:.4f} ({K} "
+          f"launches {K * one:.4f}) | bound {bms:.2e} ms ({by}) over {K} x "
+          f"{L} | plain version {plain_ms:.2f} ms ({K} chains, host, with "
+          f"the copy) | {smi}")
+    return err, ms, one, bms, by, plain_ms
+
+
 def chains_batch_phase(smi):
-    """``[chains-batch]``: mains 13, 18 and 23 per-chain against batched
-    (:func:`chains_ab`), then the batched launches of K1 (main 18's 8
-    chains, main 13's 2) and K2 (main 23's 4) on the chains' states
-    against one-chain launches (:func:`batch_launches`).  Main 18's
-    batched step must hold fewer than ``CB_NODES_18`` device nodes.
-    Returns {label: (max |dlnL|, batched ms, one chain's ms)}."""
-    out = {}
+    """``[chains-batch]``: mains 13, 18, 23, 24 and 25 per-chain against
+    batched (:func:`chains_ab`), then the batched launches of K1 (main
+    18's 8 chains, main 13's 2) and K2 (main 23's 4) on the chains'
+    states against one-chain launches (:func:`batch_launches`), and of K4
+    (main 24's 4) and K3 (main 25's 4) on the batched step's inputs
+    (:func:`batch_accept_chain`).  Main 18's batched step must hold fewer
+    than ``CB_NODES_18`` device nodes.  Returns {label: (max |dlnL|,
+    batched ms, one chain's ms)} of the pruning kernels and {label:
+    :func:`batch_accept_chain`'s row} of the accept chains."""
+    out, chain_rows = {}, {}
     for label, ctl in CB_MAINS:
         states, eng, exact = chains_ab(label, ctl, smi)
         if label == "main 18" and not exact < CB_NODES_18:
             raise AssertionError(f"[chains-batch] main 18's batched step "
                                  f"holds {exact} device nodes, not under "
                                  f"{CB_NODES_18}")
-        out[label] = batch_launches(label, eng, states, smi)
+        if label in CB_CHAIN_KERNEL:
+            chain_rows[label] = batch_accept_chain(
+                label, CB_CHAIN_KERNEL[label], eng, states, smi)
+        else:
+            out[label] = batch_launches(label, eng, states, smi)
         del states, eng
-    return out
+    return out, chain_rows
 
 
 def graph_phases(smi):
     """``[graph]`` for every main of ``GRAPH_MAINS``, then a summary
     line."""
     rows = []
-    for label, ctl, x64, whole, n, w in GRAPH_MAINS:
+    for label, ctl, x64, whole, w in GRAPH_MAINS:
         e, g = graph_phase(label, ctl, smi, x64, cli_compare=whole,
-                           trace_iters=n, window_iters=w)
+                           window_iters=w)
         rows.append(f"{label} {e:.2f} -> {g:.2f}")
     print("[graph] wall ms/iter eager -> replayed: " + ", ".join(rows)
           + f" | {smi}")
@@ -5389,6 +5629,10 @@ def main(argv=None) -> int:
             launches13 = main13(iters, smi, dev)
             # 43. chains = 4 on the diploid data: main 23
             launches23, err23 = main23(iters, smi)
+            # 45-46. chains = 4 with A10 and Gamma-Dirichlet rates (K4),
+            # and with integrated thetas (K3), batched
+            launches24, err24 = main24(iters, smi)
+            launches25, err25 = main25(iters, smi)
             torch.cuda.empty_cache()
 
             # 26. geneflow rjMCMC on main 12's data: main 14
@@ -5401,7 +5645,7 @@ def main(argv=None) -> int:
             # 28. --bfdriver and --summary: [tools]
             launches_bf = tools_phase(smi)
 
-            lap("main 13, 23, 14, 15, [tools]")
+            lap("main 13, 23, 24, 25, 14, 15, [tools]")
 
             # 33-38. the configurations no earlier run took to the card
             launches17, err17 = main17(smi)
@@ -5423,7 +5667,7 @@ def main(argv=None) -> int:
 
             # 44. chains = K per-chain against batched, and the batched
             # launches against one-chain launches
-            batch_rows = chains_batch_phase(smi)
+            batch_rows, batch_chain_rows = chains_batch_phase(smi)
             torch.cuda.empty_cache()
 
             lap("[chains-batch]")
@@ -5479,8 +5723,10 @@ def main(argv=None) -> int:
           "on the graph route a graph's captured launches times its "
           "replays, the warm-up iteration before each capture (run, then "
           "undone) and the capture itself left out; K3-K5 as K1/K2 (main "
-          "5 and its resume: K3; main 21: K4; mains 12, 14: K5), their "
-          "errors from [chains] (K3/K4: the largest |kernel - plain| of "
+          "5 and its resume, main 25: K3; mains 21, 24: K4; mains 12, 14: "
+          "K5; under chains = 4 one launch for the four chains), their "
+          "errors from [chains] and [chains-batch] (K3/K4: the largest "
+          "|kernel - plain| of "
           "the 0/1 accept decisions over the loci compared, each call "
           "through its first disagreement; K5: max |dt| of a walk clear "
           "of a tie)")
@@ -5501,10 +5747,11 @@ def main(argv=None) -> int:
               launches1 + launches3 + launches5 + launches6 + launches8
               + launches10 + launches11 + launches12 + launches13
               + launches14 + launches15 + launches_bf + launches17
-              + launches18 + launches19 + launches20 + launches22,
+              + launches18 + launches19 + launches20 + launches22
+              + launches24 + launches25,
               [*errs1.values(), err_k1_blen, err_k1_dated, err_topo1,
                err_k1_custom, err_net1, err_mig1, err17, err18, err19,
-               err20, err22, batch_rows["main 13"][0],
+               err20, err22, err24, err25, batch_rows["main 13"][0],
                batch_rows["main 18"][0]], rows1["JC69"]),
         entry("K2 pallas_fels._make_kernel -> fels_site_logl_kernel",
               "bpp_tpu_torch/csrc/fels_kernel.cu",
@@ -5524,11 +5771,13 @@ def main(argv=None) -> int:
         entry("K3 notheta.scan_accept lax.scan -> notheta_chain_kernel",
               "bpp_tpu_torch/csrc/chain_kernel.cu",
               "bpp_tpu/mcmc/notheta.py:86", chain_total[0],
-              [chain_rows["K3"][4]], chain_rows["K3"]),
+              [chain_rows["K3"][4], batch_chain_rows["main 25"][0]],
+              chain_rows["K3"]),
         entry("K4 clock_moves Gamma-Dirichlet lax.scan -> "
               "gammadir_chain_kernel", "bpp_tpu_torch/csrc/chain_kernel.cu",
               "bpp_tpu/mcmc/clock_moves.py:212", chain_total[1],
-              [chain_rows["K4"][4]], chain_rows["K4"]),
+              [chain_rows["K4"][4], batch_chain_rows["main 24"][0]],
+              chain_rows["K4"]),
         entry("K5 mig_moves.spr_sim_move lax.while_loop -> simwalk_kernel",
               "bpp_tpu_torch/csrc/simwalk_kernel.cu",
               "bpp_tpu/mcmc/mig_moves.py:765", chain_total[2],

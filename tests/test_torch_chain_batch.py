@@ -16,8 +16,10 @@ port's counterpart of ``bpp_tpu``'s ``_chunk_multi``.
   per-chain route's.
 * (c) The plain K1 and K2 over ``[K, L, ...]`` arguments equal K calls on
   one chain's arguments exactly; one wrapper call a pass for all K.
-* (d) ``driver.chain_route``: batched for the slice's configurations,
-  per-chain for A10, integrated thetas, MSC-I and MSC-M.
+* (d) ``driver.chain_route``: batched for the A00 configurations, A10,
+  integrated thetas and every locus-rate prior; per-chain for A11, MSC-I,
+  MSC-M, GTR, relaxed clocks, tip dating, linked thetas, traits and
+  usedata = 2.
 * (e) No op of the batched step falls back to vmap's for-loop: the step
   runs with that warning turned into an error (and the warning is shown
   to fire on an op that has no batching rule).
@@ -331,12 +333,28 @@ def test_chain_route_by_configuration(ctls, tmp_path):
     for model in ("HKY", "TN93", "K80"):
         assert chain_route(cfg.replace(model=type(cfg.model)[model]),
                            run)[0] == "batched"
-    per_chain = {
+    # A10 (the rj move on the guide tree), integrated thetas (K3 over the
+    # chains) and the Gamma-Dirichlet (K4) and Dirichlet locus-rate priors
+    # take the batched step too
+    batched = {
         "A10": cfg.replace(est_delimit=True),
         "integrated thetas": cfg.replace(theta_integrated=True),
+        "Gamma-Dirichlet locus rates": cfg.replace(est_locusrate=1,
+                                                   locusrate_prior=0),
+        "Dirichlet locus rates": cfg.replace(est_locusrate=1,
+                                             locusrate_prior=3),
+    }
+    for what, c in batched.items():
+        assert chain_route(c, run)[0] == "batched", what
+    per_chain = {
+        "A11": cfg.replace(est_delimit=True, est_stree=True),
         "MSC-M": cfg.replace(migration=True),
         "GTR": cfg.replace(model=type(cfg.model)["GTR"]),
         "relaxed clock": cfg.replace(clock=Clock.IID),
+        "tip dating": cfg.replace(datefile="dates.txt"),
+        "linked thetas": cfg.replace(linked_theta=1),
+        "traits": cfg.replace(traitfile="traits.txt"),
+        "usedata = 2": cfg.replace(usedata_fix_gtree=True),
     }
     for what, c in per_chain.items():
         route, why = chain_route(c, run)

@@ -11,6 +11,10 @@
   ``checkpoint = 3 0`` a resumed run writes byte-identical files.
 * The refusals (A01, ``check = N``, a relaxed clock) print ``bpp_tpu``'s
   messages.
+* Under hierarchical locus rates every chain's ``mu_bar`` column is
+  ``nan``, as ``bpp_tpu``'s ``_run_multichain`` writes it: the port's K
+  sample logs written by ``bpp_tpu``'s ``_run_multichain`` are the port's
+  files byte for byte.
 """
 
 import shutil
@@ -167,3 +171,46 @@ def test_refusals_print_bpp_tpus_messages(simdir, capsys, extra):
         assert run_multi(args, cfg, None, None, "x.mcmc.txt", **kw) == 1
         out.append(capsys.readouterr().err)
     assert out[0] == out[1] and out[0], out
+
+
+def test_hierarchical_mu_bar_column_as_bpp_tpu_writes_it(tmp_path,
+                                                         monkeypatch):
+    """``bpp_tpu/cli.py``'s ``_run_multichain`` calls
+    ``McmcWriter.write_sample`` without ``mubar_h``, so under ``chains =
+    K`` with hierarchical locus rates (``locusrate = 1 a b alpha iid``)
+    the ``mu_bar`` column of every chain's file reads ``nan``; the port
+    copies that on purpose (ROADMAP Queue 3).  The samples of the port's
+    run, handed to ``bpp_tpu``'s ``_run_multichain`` in place of its
+    engine's, give the port's files byte for byte."""
+    from bpp_tpu import cli as cj
+    from bpp_tpu.loader import load_run_from_ctl as load_j
+    from bpp_tpu_torch.mcmc.driver import Engine
+    from bpp_tpu_torch.testing import write_simulated_run
+    ctl = write_simulated_run(tmp_path, 3, n_sites=40, burnin=2, nsample=4,
+                              priors=(f"chains = {K}",
+                                      "locusrate = 1 10 10 5 iid"))
+    logs = []
+    real = Engine.run_mcmc_multi
+
+    def kept(self, *a, **kw):
+        logs.extend(real(self, *a, **kw))
+        return logs
+
+    monkeypatch.setattr(Engine, "run_mcmc_multi", kept)
+    _cli(tmp_path, "--cfile", ctl)
+    files = [tmp_path / "out.mcmc.txt", tmp_path / "out.c2.mcmc.txt"]
+    ours = [f.read_bytes() for f in files]
+    (tmp_path / "j").mkdir()
+    run = load_j(ctl)
+    cfg = run.cfg.replace(jobname=str(tmp_path / "j" / "out"))
+    eng = types.SimpleNamespace(run_mcmc_multi=lambda *a, **kw: logs)
+    args = types.SimpleNamespace(resume=None, quiet=True)
+    assert cj._run_multichain(args, cfg, run, eng, cfg.jobname + ".mcmc.txt",
+                              True) == 0
+    theirs = [(tmp_path / "j" / f.name).read_bytes() for f in files]
+    assert ours == theirs
+    for raw in ours:
+        head, *rows = raw.decode().splitlines()
+        col = head.split("\t").index("mu_bar")
+        assert len(rows) == 4
+        assert all(r.split("\t")[col] == "nan" for r in rows)

@@ -36,7 +36,9 @@ float64: decisions
 equal but at near ties, which are counted and gated.  ``chains = K``:
 one launch of K1 / K2 over K chains (K in 1, 3, 8; float32 and float64;
 both stores) bit-equal per (chain, locus) to K one-chain launches and
-within the plain versions' gates; the batched step's graph (one replay
+within the plain versions' gates; one launch of K3 and one of K4 over K
+chains (K in 2, 4, 8; every regime) bit-equal per (chain, locus) to
+one-chain launches and equal to the plain versions but at near ties; the batched step's graph (one replay
 for every chain) bit-equal to the eager batched step, and one batched
 iteration against the one-chain steps.  Needs a CUDA device and nvcc;
 skips without them.
@@ -1624,6 +1626,48 @@ def test_chain_axis_launch_equals_one_chain_launches(request, data, dtype, K,
             tol = 0.02 if dtype == torch.float32 else 1e-6
         err = float((got[k].double() - want)[mask].abs().max())
         assert err < tol, (k, err)
+
+
+@pytest.mark.parametrize("regime", CHAIN_REGIMES)
+@pytest.mark.parametrize("K", [2, 4, 8])
+def test_accept_chains_over_a_chain_axis(K, regime):
+    """One launch of K3 (7 populations) and one of K4 over K chains of
+    1000 loci (a block a chain; each chain its own random case of the
+    regime) against K one-chain launches: bit-equal per (chain, locus);
+    and each chain's decisions against the plain versions, equal but at
+    near ties (the regimes and gates of the one-chain tests above)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from bpp_tpu_torch.core import chains
+    from bpp_tpu_torch.mcmc import notheta
+    rng = np.random.default_rng(100 * K + CHAIN_REGIMES.index(regime))
+    L, H = 1000, 7
+    k3 = [_k3_case(rng, L, H, regime) for _ in range(K)]
+    k4 = [_k4_case(rng, L, regime) for _ in range(K)]
+    cols = torch.stack([c for c, _, _ in k3]).cuda()
+    sums = torch.stack([s for _, s, _ in k3]).cuda()
+    terms = torch.stack([t for t, _ in k4]).cuda()
+    before = chains.launch_counts()
+    got3 = chains.launch_notheta(cols, sums, H, 3.0, 0.03)
+    got4 = chains.launch_gammadir(terms, 10.0, 10.0, 5.0)
+    torch.cuda.synchronize()
+    after = chains.launch_counts()
+    assert (after[0] - before[0], after[1] - before[1]) == (1, 1)
+    assert got3.shape == got4.shape == (K, L)
+    for k in range(K):
+        one3 = chains.launch_notheta(cols[k], sums[k], H, 3.0, 0.03)
+        one4 = chains.launch_gammadir(terms[k], 10.0, 10.0, 5.0)
+        torch.cuda.synchronize()
+        assert torch.equal(got3[k], one3), k
+        assert torch.equal(got4[k], one4), k
+        c, s, mask = k3[k]
+        margin = np.full(L, np.inf)
+        want = notheta.chain_accept(3.0, 0.03, c, s, H, margin)
+        _held_regime(want, mask, regime)
+        _masks_agree(got3[k], want, margin)
+        want, margin = _k4_plain(k4[k][0])
+        _held_regime(want, k4[k][1], regime)
+        _masks_agree(got4[k], want, margin)
 
 
 @pytest.mark.parametrize("data", ["cuda_state", "cuda_diploid"])
