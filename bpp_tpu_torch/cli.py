@@ -53,7 +53,7 @@ names the run's step route (``driver.step_route``): ``graph``, a chunk of
 replays of one captured CUDA graph, or ``eager`` (``--multihost``) with
 the reason; under ``chains = K`` also the chains' route
 (``driver.chain_route``): ``batched``, one step over a chain axis (K1 or
-K2 launched once a pass, K3 or K4 once a call, for every chain), or
+K2 launched once a pass, K3, K4 or K5 once a call, for every chain), or
 ``per-chain``.
 """
 

@@ -6,11 +6,11 @@ by lookahead: :func:`chain_depth`) and K5 ``simspr_walk``
 (``csrc/simwalk_kernel.cu``, MSC-M's sim-SPR walk, a warp a locus).
 
 Each ``launch_*`` checks its CUDA tensors, allocates the outputs and
-launches on the current stream; a refused launch raises.  K3 and K4 take
-an optional leading chain axis (``chains = K``'s batched step): one
-launch of K blocks, block k walking chain k's rows alone, so that each
-chain's decisions are those of a one-chain launch on its rows, bit for
-bit.  The wrappers
+launches on the current stream; a refused launch raises.  K3, K4 and K5
+take an optional leading chain axis (``chains = K``'s batched step): one
+launch over the K chains, K3's and K4's block k (K5's grid row k) walking
+chain k's rows alone, so that each chain's decisions are those of a
+one-chain launch on its rows, bit for bit.  The wrappers
 that choose between a kernel and its plain version are beside the plain
 versions: ``mcmc.notheta.chain_accept``, ``mcmc.clock_moves.
 gammadir_accept`` and ``mcmc.mig_moves.simspr_walk``.  The counters count
@@ -59,7 +59,7 @@ def _walk_lib():
     lib = _lib("simwalk_kernel")
     if lib.bpp_simwalk.argtypes is None:
         lib.bpp_simwalk.restype = _I
-        lib.bpp_simwalk.argtypes = [_P] * 27 + [_I] * 6 + [_D, _D, _I, _P]
+        lib.bpp_simwalk.argtypes = [_P] * 27 + [_I] * 7 + [_D, _D, _I, _P]
     return lib
 
 
@@ -147,7 +147,11 @@ def launch_simwalk(t_lo, t_hi, pop_lo, live_e, pptable, tau, partau_f,
                    p0, is_valid, unif, ME: int, big: float, tiny: float):
     """K5: the sim-SPR walk of every locus (see
     ``mcmc.mig_moves.simspr_walk_ref`` for the arguments); returns (t, p,
-    done, fail, nt, ns, nd, nn)."""
+    done, fail, nt, ns, nd, nn).  Over C chains every argument but the
+    route table ``si``, ``ti`` carries a leading chain axis of C (``t_lo
+    [C, L, E]``, ``pptable [C, H, H]``, ``d_lo [C, K]``, ``unif [C, 3, S,
+    L]``, ...; K counts the routes) and so does every output: one launch,
+    a grid row a chain."""
     global LAUNCHES_SIMWALK
     who = "simspr_walk"
     dev = t_lo.device
@@ -156,38 +160,45 @@ def launch_simwalk(t_lo, t_hi, pop_lo, live_e, pptable, tau, partau_f,
     dt = t_lo.dtype
     if dt not in (torch.float32, torch.float64):
         raise TypeError(f"{who}: {dt}; the kernel takes float32 or float64")
-    L, E = t_lo.shape
-    H = tau.shape[0]
+    C, lead = _chain_axis(who, t_lo, 2)
+    L, E = t_lo.shape[-2:]
+    H = tau.shape[-1]
     K = si.shape[0]
-    S = unif.shape[1]
+    S = unif.shape[-2]
     i64, bl = torch.int64, torch.bool
     args = []
     for name, x, dtype, shape in (
-            ("t_lo", t_lo, dt, (L, E)), ("t_hi", t_hi, dt, (L, E)),
-            ("pop_lo", pop_lo, i64, (L, E)), ("live_e", live_e, bl, (L, E)),
-            ("pptable", pptable, bl, (H, H)), ("tau", tau, dt, (H,)),
-            ("partau_f", partau_f, dt, (H,)), ("theta", theta, dt, (H,)),
-            ("parent", parent, i64, (H,)), ("si", si, i64, (K,)),
-            ("ti", ti, i64, (K,)), ("d_lo", d_lo, dt, (K,)),
-            ("d_hi", d_hi, dt, (K,)), ("route_M", route_M, dt, (L, K)),
-            ("heredity", heredity, dt, (L,)), ("t0", t0, dt, (L,)),
-            ("p0", p0, i64, (L,)), ("is_valid", is_valid, bl, (L,)),
-            ("unif", unif, dt, (3, S, L))):
+            ("t_lo", t_lo, dt, lead + (L, E)),
+            ("t_hi", t_hi, dt, lead + (L, E)),
+            ("pop_lo", pop_lo, i64, lead + (L, E)),
+            ("live_e", live_e, bl, lead + (L, E)),
+            ("pptable", pptable, bl, lead + (H, H)),
+            ("tau", tau, dt, lead + (H,)),
+            ("partau_f", partau_f, dt, lead + (H,)),
+            ("theta", theta, dt, lead + (H,)),
+            ("parent", parent, i64, lead + (H,)), ("si", si, i64, (K,)),
+            ("ti", ti, i64, (K,)), ("d_lo", d_lo, dt, lead + (K,)),
+            ("d_hi", d_hi, dt, lead + (K,)),
+            ("route_M", route_M, dt, lead + (L, K)),
+            ("heredity", heredity, dt, lead + (L,)),
+            ("t0", t0, dt, lead + (L,)), ("p0", p0, i64, lead + (L,)),
+            ("is_valid", is_valid, bl, lead + (L,)),
+            ("unif", unif, dt, lead + (3, S, L))):
         x = x.contiguous()
         check_tensor(who, name, x, dtype, shape, dev)
         args.append(x)
-    t = torch.empty((L,), dtype=dt, device=dev)
-    p = torch.empty((L,), dtype=i64, device=dev)
-    done = torch.empty((L,), dtype=bl, device=dev)
-    fail = torch.empty((L,), dtype=bl, device=dev)
-    nt = torch.full((L, ME), BIG_AGE, dtype=dt, device=dev)
-    ns = torch.zeros((L, ME), dtype=i64, device=dev)
-    nd = torch.zeros((L, ME), dtype=i64, device=dev)
-    nn = torch.empty((L,), dtype=i64, device=dev)
+    t = torch.empty(lead + (L,), dtype=dt, device=dev)
+    p = torch.empty(lead + (L,), dtype=i64, device=dev)
+    done = torch.empty(lead + (L,), dtype=bl, device=dev)
+    fail = torch.empty(lead + (L,), dtype=bl, device=dev)
+    nt = torch.full(lead + (L, ME), BIG_AGE, dtype=dt, device=dev)
+    ns = torch.zeros(lead + (L, ME), dtype=i64, device=dev)
+    nd = torch.zeros(lead + (L, ME), dtype=i64, device=dev)
+    nn = torch.empty(lead + (L,), dtype=i64, device=dev)
     outs = (t, p, done, fail, nt, ns, nd, nn)
     _check_rc(_walk_lib().bpp_simwalk(
-        *(x.data_ptr() for x in args), *(x.data_ptr() for x in outs), L, E,
-        H, K, ME, S, float(big), float(tiny), int(dt == torch.float64),
+        *(x.data_ptr() for x in args), *(x.data_ptr() for x in outs), C, L,
+        E, H, K, ME, S, float(big), float(tiny), int(dt == torch.float64),
         _stream(dev)), who)
     LAUNCHES_SIMWALK += 1
     return outs

@@ -51,6 +51,16 @@
 // rate, the donor route is the first whose cumulative rate exceeds u2 x
 // the total.  A locus whose lineage is done or failed takes no more steps;
 // a warp leaves the loop when none of its loci walks.
+//
+// Under chains = C (the batched step of C chains, C = 1 for one chain) one
+// launch takes the C chains' inputs stacked on a leading chain axis: the
+// grid's y index is the chain, and block (x, c) fills its shared tables
+// from chain c's species rows and walks chain c's loci x, reading and
+// writing only chain c's rows.  Its warps read what they read in a
+// one-chain launch on those rows, so each (chain, locus) comes out bit-equal
+// to it.  The route table (source, target) does not change over a run and
+// is one copy for every chain.  (In this file K counts the routes, so the
+// chains are C.)
 
 #include <cuda_runtime.h>
 
@@ -107,6 +117,36 @@ __global__ void __launch_bounds__(kThreads) simwalk_kernel(
     int64_t* __restrict__ ns, int64_t* __restrict__ nd,
     int64_t* __restrict__ nn_out, int L, int E, int H, int K, int ME, int S,
     T big, T tiny, T cum_floor) {
+  // chain c = blockIdx.y: its rows alone, as a one-chain launch reads them
+  {
+    const size_t c = blockIdx.y;
+    const size_t le = c * L * E, lk = c * L * K, lm = c * L * ME;
+    t_lo += le;
+    t_hi += le;
+    pop_lo += le;
+    live_e += le;
+    pptable += c * H * H;
+    tau += c * H;
+    partau_f += c * H;
+    theta += c * H;
+    parent += c * H;
+    d_lo += c * K;
+    d_hi += c * K;
+    route_M += lk;
+    heredity += c * L;
+    t0 += c * L;
+    p0 += c * L;
+    is_valid += c * L;
+    unif += c * 3 * S * L;
+    t_out += c * L;
+    p_out += c * L;
+    done_out += c * L;
+    fail_out += c * L;
+    nn_out += c * L;
+    nt += lm;
+    ns += lm;
+    nd += lm;
+  }
   extern __shared__ __align__(16) unsigned char smem[];
   // layout: T arrays first, then 32-bit indices, then bytes
   T* s_tau = reinterpret_cast<T*>(smem);
@@ -275,14 +315,16 @@ int simwalk(const void* t_lo, const void* t_hi, const void* pop_lo,
             const void* d_hi, const void* route_M, const void* heredity,
             const void* t0, const void* p0, const void* is_valid,
             const void* unif, void* t, void* p, void* done, void* fail,
-            void* nt, void* ns, void* nd, void* nn, int L, int E, int H,
-            int K, int ME, int S, double big, double tiny,
+            void* nt, void* ns, void* nd, void* nn, int C, int L, int E,
+            int H, int K, int ME, int S, double big, double tiny,
             cudaStream_t stream) {
   const size_t bytes = shared_bytes<T>(H, K);
   if (bytes > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  if (C > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t lanes = static_cast<int64_t>(L) * kLanes;
   const int blocks = static_cast<int>((lanes + kThreads - 1) / kThreads);
-  simwalk_kernel<T><<<blocks, kThreads, bytes, stream>>>(
+  // a grid row a chain
+  simwalk_kernel<T><<<dim3(blocks, C), kThreads, bytes, stream>>>(
       static_cast<const T*>(t_lo), static_cast<const T*>(t_hi),
       static_cast<const int64_t*>(pop_lo), static_cast<const bool*>(live_e),
       static_cast<const bool*>(pptable), static_cast<const T*>(tau),
@@ -303,6 +345,8 @@ int simwalk(const void* t_lo, const void* t_hi, const void* pop_lo,
 
 }  // namespace
 
+// C chains' walks, one launch (C = 1: one chain); each array holds the
+// chains' rows stacked, but si and ti, the run's route table.
 extern "C" int bpp_simwalk(
     const void* t_lo, const void* t_hi, const void* pop_lo,
     const void* live_e, const void* pptable, const void* tau,
@@ -311,18 +355,18 @@ extern "C" int bpp_simwalk(
     const void* route_M, const void* heredity, const void* t0,
     const void* p0, const void* is_valid, const void* unif, void* t,
     void* p, void* done, void* fail, void* nt, void* ns, void* nd, void* nn,
-    int L, int E, int H, int K, int ME, int S, double big, double tiny,
-    int dbl, void* stream) {
-  if (L <= 0) return 0;
+    int C, int L, int E, int H, int K, int ME, int S, double big,
+    double tiny, int dbl, void* stream) {
+  if (L <= 0 || C <= 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return dbl ? simwalk<double>(t_lo, t_hi, pop_lo, live_e, pptable, tau,
                                partau_f, theta, parent, si, ti, d_lo, d_hi,
                                route_M, heredity, t0, p0, is_valid, unif, t,
-                               p, done, fail, nt, ns, nd, nn, L, E, H, K, ME,
-                               S, big, tiny, st)
+                               p, done, fail, nt, ns, nd, nn, C, L, E, H, K,
+                               ME, S, big, tiny, st)
              : simwalk<float>(t_lo, t_hi, pop_lo, live_e, pptable, tau,
                               partau_f, theta, parent, si, ti, d_lo, d_hi,
                               route_M, heredity, t0, p0, is_valid, unif, t, p,
-                              done, fail, nt, ns, nd, nn, L, E, H, K, ME, S,
-                              big, tiny, st);
+                              done, fail, nt, ns, nd, nn, C, L, E, H, K, ME,
+                              S, big, tiny, st);
 }

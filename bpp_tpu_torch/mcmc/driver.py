@@ -432,24 +432,24 @@ def chain_route(cfg: BppConfig, run: RunData) -> tuple[str, str]:
     """How ``chains = K`` steps, chosen once from the configuration:
     ``("batched", why)``, one step over a leading chain axis of the K
     stacked states (``bpp_tpu``'s ``_chunk_multi``, which vmaps its chunk:
-    :meth:`Engine._step_batched`, K1 or K2 launched once a pass, K3 and K4
-    once a call, for all K chains), or ``("per-chain", what is not
+    :meth:`Engine._step_batched`, K1 or K2 launched once a pass, K3, K4
+    and K5 once a call, for all K chains), or ``("per-chain", what is not
     batched)``, the chains' steps one after another.  The batched step
     covers A00 and A10 (the rj move on a fixed guide tree) on a species
     tree with the strict clock and a 4-state model other than GTR and
     ``model = custom``, haploid (K1) or diploid (K2 and ``reduce_root``),
     with Gamma rates, heredity scalars, locus rates under any of their
     priors (hierarchical, Gamma-Dirichlet (K4), Dirichlet) and estimated
-    or integrated thetas (K3).  This table alone decides: a batched step
-    that fails to capture or launch raises, and nothing reruns the chains
-    one by one."""
+    or integrated thetas (K3); and MSC-M on that tree (the sim-SPR walk
+    K5), on fixed routes of constant or variable rate or under geneflow,
+    with A00 or (on fixed routes) A10.  This table alone decides: a
+    batched step that fails to capture or launch raises, and nothing
+    reruns the chains one by one."""
     why = None
     if cfg.est_stree:
         why = "species-tree moves (SPR, SNL)"
     elif run.stree.n_hybrids > 0:
         why = "an MSC-I network"
-    elif cfg.migration:
-        why = "MSC-M migration"
     elif cfg.datefile:
         why = "tip dating"
     elif cfg.model not in _BATCHED_MODELS:
@@ -1021,8 +1021,9 @@ class Engine:
         of the one-chain :meth:`_step` over the chain axis, in which every
         draw is chain k's draw from its own generator
         (``rng.ChainGens``), every pruning pass one call of K1 or K2
-        over all K chains (``Ctx.chains``) and every accept chain one call
-        of K3 or K4 (``pack.chain_pass``).  Returns (state, stats [K,
+        over all K chains (``Ctx.chains``) and every accept chain or
+        sim-SPR walk one call of K3, K4 or K5 (``pack.chain_pass``); an
+        MSC-M run steps :meth:`_step_mig`.  Returns (state, stats [K,
         N_MOVES, 2]).  Only configurations :func:`chain_route` sends to
         the batched route run here."""
         K = len(gens)

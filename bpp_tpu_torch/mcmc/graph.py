@@ -12,9 +12,9 @@ Under ``chains = K`` on the batched route (``driver.chain_route``) a
 :class:`StepGraph` made with ``batched=True`` holds one state, the K
 chains stacked on a leading axis, and captures one graph of
 :meth:`driver.Engine._step_batched` (``bpp_tpu``'s ``_chunk_multi``: the
-step vmapped over the chains, K1/K2 launched once a pass for all K) with
-the write-back, all K generators registered on it: one replay, one host
-call, steps every chain.
+step vmapped over the chains, each kernel launched once a call for all K)
+with the write-back, all K generators registered on it: one replay, one
+host call, steps every chain.
 
 A :class:`StepGraph` owns static buffers: every tensor of the K states
 (``McmcState``, flattened), the move statistics ``[K, N_MOVES, 2]`` and

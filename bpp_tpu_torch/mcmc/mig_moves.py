@@ -27,9 +27,11 @@ likelihood ratio only (gtree.c:9368).
 the walk is kernel K5 (``csrc/simwalk_kernel.cu``, one warp a locus)
 on the card and :func:`simspr_walk_ref` on the CPU, both reading one
 block of uniforms drawn before the walk, so the step reads nothing back
-to the host.  The coalescence rate's floor on ``theta * heredity`` is
-``rng.tiny_floor`` (``bpp_tpu``'s 1e-300 is 0 in float32, where a lineage
-alone in a population of theta 0 would get rate 0 / 0).
+to the host.  Under ``chains = K`` (the batched step) one K5 launch walks
+every chain's loci (:func:`simspr_walk`).  The coalescence rate's floor
+on ``theta * heredity`` is ``rng.tiny_floor`` (``bpp_tpu``'s 1e-300 is 0
+in float32, where a lineage alone in a population of theta 0 would get
+rate 0 / 0).
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ import torch
 
 from ..config import BppConfig, Clock, PriorDist
 from ..core import chains
+from ..core.pack import chain_pass
 from ..parallel.mesh import psum_counts
 from ..trees import migration as mg
 from ..trees.gtree import BIG_AGE, GTrees, lift_population, node_depths
@@ -45,6 +48,7 @@ from . import rng
 from .gibbs import gamma_conditional_approx
 from .moves import (
     MAXAGE_CAP, _psum_if_sharded, _select_uniform, _suff_stats, _write,
+    locus_sum,
 )
 from .state import (
     FT_GTAGE, FT_LRHT, FT_MIG_AGES, FT_MIGRATES, FT_MIX, FT_TAU, Ctx,
@@ -159,8 +163,8 @@ def mig_mbar_move(ctx: Ctx, cfg: BppConfig, routes, state: McmcState, gen):
     bnew = am / mbar_new
     bold = am / mig.M
     n_real, misum = _psum_if_sharded(
-        ctx, ctx.locus_mask.sum(), torch.where(
-            ctx.locus_mask[:, None], mig.Mi, torch.zeros_like(mig.Mi)).sum(0))
+        ctx, ctx.locus_mask.sum(), locus_sum(torch.where(
+            ctx.locus_mask[:, None], mig.Mi, torch.zeros_like(mig.Mi))))
     n_real = n_real.to(dt)
     lnacc = lnacc + n_real * am * torch.log(bnew / bold) \
         - (bnew - bold) * misum
@@ -461,8 +465,8 @@ def tau_move_mig(ctx: Ctx, cfg: BppConfig, routes, state: McmcState, gen):
         logpr_new = logpr_fn(gtn, sp_new, mign, state.subst.heredity)[0]
         logl_new = logl_fn(gtn, state.subst, sp_new, state.clock, mig=mign)
         jac, dlogpr, dlogl = _psum_if_sharded(
-            ctx, jac_a.sum() + jac_e.sum(), torch.sum(logpr_new - logpr),
-            torch.sum(logl_new - logl))
+            ctx, locus_sum(jac_a.reshape(-1)) + locus_sum(jac_e.reshape(-1)),
+            torch.sum(logpr_new - logpr), torch.sum(logl_new - logl))
         lnacc = jac + dlogpr + dlogl
         if traits:
             # the trait likelihood sees the species taus only
@@ -585,7 +589,7 @@ def _route_sums(ctx: Ctx, W, mc):
     """(sum_l W_lk, sum_l mc_lk) over the real loci: [K] each."""
     mask_l = ctx.locus_mask[:, None]
     return _psum_if_sharded(
-        ctx, torch.where(mask_l, W, torch.zeros_like(W)).sum(0),
+        ctx, locus_sum(torch.where(mask_l, W, torch.zeros_like(W))),
         torch.where(mask_l, mc, torch.zeros_like(mc)).sum(0))
 
 
@@ -837,19 +841,49 @@ def simspr_walk_ref(t_lo, t_hi, pop_lo, live_e, pptable, tau, partau_f,
     return t, p, done, fail, nt, ns, nd, nn
 
 
+# the walk's arguments in order; all but the route table (si, ti) are a
+# chain's own under chains = K
+WALK_ARGS = ("t_lo", "t_hi", "pop_lo", "live_e", "pptable", "tau", "partau_f",
+             "theta", "parent", "si", "ti", "d_lo", "d_hi", "route_M",
+             "heredity", "t0", "p0", "is_valid", "unif")
+WALK_PER_CHAIN = tuple(a for a in WALK_ARGS if a not in ("si", "ti"))
+
+
 def simspr_walk(t_lo, t_hi, pop_lo, live_e, pptable, tau, partau_f, theta,
                 parent, si, ti, d_lo, d_hi, route_M, heredity, t0, p0,
                 is_valid, unif, ME: int):
     """The sim-SPR walk (arguments and result as
-    :func:`simspr_walk_ref`): on CUDA tensors kernel K5
-    (``csrc/simwalk_kernel.cu``, one warp a locus, no host read), on CPU
-    tensors the plain version."""
+    :func:`simspr_walk_ref`) through :func:`simspr_walk_chains`.  Inside
+    the batched step of ``chains = K`` (``torch.func.vmap`` over the
+    chains) the K chains' walks go to one call (``pack.chain_pass``): one
+    K5 launch over the chains."""
+    args = (t_lo, t_hi, pop_lo, live_e, pptable, tau, partau_f, theta,
+            parent, si, ti, d_lo, d_hi, route_M, heredity, t0, p0, is_valid,
+            unif)
+    return chain_pass(simspr_walk_chains, dict(zip(WALK_ARGS, args)),
+                      per_chain=WALK_PER_CHAIN, ME=ME)
+
+
+def simspr_walk_chains(t_lo, t_hi, pop_lo, live_e, pptable, tau, partau_f,
+                       theta, parent, si, ti, d_lo, d_hi, route_M, heredity,
+                       t0, p0, is_valid, unif, ME: int):
+    """The sim-SPR walk of one chain (arguments as :func:`simspr_walk_ref`)
+    or of K chains (the arguments of ``WALK_PER_CHAIN`` with a leading
+    chain axis, ``t_lo [K, L, E]`` ..., the outputs likewise): on CUDA
+    tensors kernel K5 (``csrc/simwalk_kernel.cu``, one warp a locus and
+    one launch over the chains, no host read), on CPU tensors the plain
+    version, once a chain (its host read cannot be batched)."""
     args = (t_lo, t_hi, pop_lo, live_e, pptable, tau, partau_f, theta,
             parent, si, ti, d_lo, d_hi, route_M, heredity, t0, p0, is_valid,
             unif)
     if t_lo.device.type == "cuda":
         return chains.launch_simwalk(*args, ME, mg._FINITE_BIG,
                                      rng.tiny_floor(t_lo.dtype))
+    if t_lo.dim() == 3:
+        outs = [simspr_walk_ref(*(a[k] if n in WALK_PER_CHAIN else a
+                                  for n, a in zip(WALK_ARGS, args)), ME)
+                for k in range(t_lo.shape[0])]
+        return tuple(torch.stack(x) for x in zip(*outs))
     return simspr_walk_ref(*args, ME)
 
 
@@ -966,10 +1000,9 @@ def spr_sim_move(ctx: Ctx, cfg: BppConfig, routes, state: McmcState, gen,
     put = ok[:, None] & (torch.arange(ME, device=dev)[None, :] < nn[:, None])
 
     def place(arr, new):
-        out = arr.clone()
-        out.scatter_(1, free_order, torch.where(
+        # out of place: vmap batches scatter, not scatter_
+        return arr.scatter(1, free_order, torch.where(
             put, new, torch.gather(arr, 1, free_order)))
-        return out
 
     mig_n = mig_p._replace(
         time=place(mig_p.time, nt),

@@ -63,14 +63,29 @@ def _psum_if_sharded(ctx: Ctx, *xs):
     return psum(ctx.shard, *xs)
 
 
+def locus_sum(x):
+    """``x`` [L, ...] summed over its leading (locus) axis by pairwise
+    adds of whole halves, in an order set by L alone.  A CUDA reduction
+    picks its order from the shape it is given: inside the batched step
+    (``vmap``, which hands it the K chains' rows together) a sum over
+    the loci of an [L, X] tensor rounds otherwise than the one-chain
+    step's, and a chain drifts from its one-chain run; elementwise adds
+    round alike either way."""
+    while x.shape[0] > 1:
+        h = x.shape[0] // 2
+        pair = x[:h] + x[h:2 * h]
+        x = pair if x.shape[0] == 2 * h else torch.cat([pair, x[2 * h:]])
+    return x[0]
+
+
 def _suff_stats(ctx: Ctx, c, t2, heredity):
     """Per-population coalescence counts and heredity-scaled waiting
     sums over the real loci: (ksum [H], csum [H])."""
     mask_l = ctx.locus_mask[:, None]
     ksum, csum = _psum_if_sharded(
         ctx, torch.where(mask_l, c, torch.zeros_like(c)).sum(0),
-        torch.where(mask_l, t2 / heredity[:, None],
-                    torch.zeros_like(t2)).sum(0))
+        locus_sum(torch.where(mask_l, t2 / heredity[:, None],
+                              torch.zeros_like(t2))))
     return ksum.to(t2.dtype), csum
 
 
@@ -274,8 +289,8 @@ def tau_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
             torch.where(below,
                         age + g_dt * (age - g_min) / (g_told - g_min), age))
         zg = torch.zeros_like(age)
-        jac = torch.sum(
-            torch.where(above, g_lmaxf, zg) + torch.where(below, g_lminf, zg))
+        jac = locus_sum((torch.where(above, g_lmaxf, zg)
+                         + torch.where(below, g_lminf, zg)).reshape(-1))
 
         gtn = gt._replace(age=age_new)
         logl_new = logl_fn(gtn, state.subst, sp_new, state.clock)

@@ -466,7 +466,8 @@ def walk_id(shape) -> str:
 
 
 def synthetic_walks(L: int, E: int, H: int = 7, ME: int = 8, seed: int = 0,
-                    dtype=torch.float64, device="cpu", every_pair=False):
+                    dtype=torch.float64, device="cpu", every_pair=False,
+                    locus_seed=None, scale: float = 1.0):
     """Random inputs of MSC-M's sim-SPR walk (kernel K5 and
     ``mig_moves.simspr_walk_ref``): L loci of E sub-edges each on a random
     species tree of H populations (H odd; the root is H - 1), routes both
@@ -485,7 +486,10 @@ def synthetic_walks(L: int, E: int, H: int = 7, ME: int = 8, seed: int = 0,
     at a rate that fills the ME event slots and fails) and "fills ME"
     (the same start and rate with live sub-edges).  Where L >= 33, loci
     1, 2 and 3 are of the last three kinds, and above 100 loci each of
-    them takes 5% more at random.
+    them takes 5% more at random.  ``locus_seed``: the loci (and thetas)
+    drawn from a generator of their own, the species tree and its routes
+    from ``seed``; ``scale``: every time and theta multiplied by it and
+    the route rates divided by it (the same walks in other units).
 
     Returns (the walk's arguments: the 19 tensors of
     ``simspr_walk_ref`` and ME, the kinds [L] as indices into
@@ -524,6 +528,8 @@ def synthetic_walks(L: int, E: int, H: int = 7, ME: int = 8, seed: int = 0,
     ti = np.array([x for a, b in pairs for x in (b, a)], np.int64)
     K = len(si)
     S = 2 * E + 2 * H + 2 * K + 8
+    if locus_seed is not None:
+        rng = np.random.default_rng(locus_seed)
 
     kind = np.zeros(L, np.int64)
     if L >= 33:
@@ -552,6 +558,14 @@ def synthetic_walks(L: int, E: int, H: int = 7, ME: int = 8, seed: int = 0,
         t0[trap] = start + rng.random(int(trap.sum())) * (top[b] - start)
         route_M[trap] = 1e8
     unif = rng.random((3, S, L))
+    theta = rng.uniform(0.002, 0.02, H)
+    if scale != 1.0:
+        finite = hi < BIG_AGE
+        lo, tau, top, t0, theta = (x * scale for x in (lo, tau, top, t0,
+                                                       theta))
+        hi = np.where(finite, hi * scale, hi)
+        partau = np.where(par >= 0, top, _FINITE_BIG)
+        route_M = route_M / scale
 
     def f(x):
         return torch.as_tensor(np.asarray(x, np.float64), dtype=dtype,
@@ -564,10 +578,27 @@ def synthetic_walks(L: int, E: int, H: int = 7, ME: int = 8, seed: int = 0,
         return torch.as_tensor(np.asarray(x, bool), device=device)
 
     args = (f(lo), f(hi), i(pop_lo), b(live), b(anc), f(tau), f(partau),
-            f(rng.uniform(0.002, 0.02, H)), i(par), i(si), i(ti),
-            f(tau[si]), f(partau[si]), f(route_M), f(heredity), f(t0), i(p0),
-            b(kind != 1), f(unif), ME)
+            f(theta), i(par), i(si), i(ti), f(tau[si]), f(partau[si]),
+            f(route_M), f(heredity), f(t0), i(p0), b(kind != 1), f(unif), ME)
     return args, kind
+
+
+def synthetic_walk_chains(C: int, L: int, E: int, H: int = 7, ME: int = 8,
+                          seed: int = 0, dtype=torch.float64, device="cpu",
+                          every_pair=False):
+    """C chains' :func:`synthetic_walks` on one species tree and route
+    table (``seed``), chain c's loci from a seed of its own and its times
+    in units 1 + c / 4 (so that the chains' species tables differ too):
+    the arguments of ``mig_moves.simspr_walk_chains`` over a chain axis
+    (every tensor but the route table ``si``, ``ti`` stacked ``[C, ...]``),
+    and each chain's one-chain arguments and kinds."""
+    ones = [synthetic_walks(L, E, H, ME, seed, dtype, device, every_pair,
+                            locus_seed=seed * 31 + c, scale=1.0 + c / 4)
+            for c in range(C)]
+    per = [a for a, _ in ones]
+    stacked = tuple(per[0][j] if j in (9, 10) else
+                    torch.stack([a[j] for a in per]) for j in range(19))
+    return stacked + (ME,), per, [k for _, k in ones]
 
 
 def gene_tree_faults(gt, n_seq) -> list:

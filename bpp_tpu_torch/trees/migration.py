@@ -245,7 +245,9 @@ def assign_populations_mig(gt: GTrees, sp: SpeciesArrays, tip_pop,
     L, N = gt.age.shape
     T = gt.n_tips
     lidx = torch.arange(L, device=gt.age.device)
-    pops = torch.zeros((L, N), dtype=torch.int64, device=gt.age.device)
+    # made from the ages, so that inside the batched step (vmap) it
+    # carries the chain axis the node writes below take
+    pops = torch.zeros_like(gt.age, dtype=torch.int64)
     pops[:, :T] = tip_pop
     order = inner_order(gt)
     for k in range(T - 1):

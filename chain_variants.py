@@ -141,7 +141,7 @@ def walk_libs(libs):
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     for lib in libs.values():
         lib.bpp_simwalk.restype = I
-        lib.bpp_simwalk.argtypes = [P] * 27 + [I] * 6 + [D, D, I, P]
+        lib.bpp_simwalk.argtypes = [P] * 27 + [I] * 7 + [D, D, I, P]
     return libs
 
 
@@ -158,7 +158,7 @@ def walk_launcher(lib, args, outs, stream):
     dt = xs[0].dtype
     ptrs = [x.data_ptr() for x in xs] + [x.data_ptr() for x in outs]
     return lambda: lib.bpp_simwalk(
-        *ptrs, L, E, H, K, ME, S, _FINITE_BIG, rng.tiny_floor(dt),
+        *ptrs, 1, L, E, H, K, ME, S, _FINITE_BIG, rng.tiny_floor(dt),
         int(dt == torch.float64), stream)
 
 

@@ -17,9 +17,10 @@ port's counterpart of ``bpp_tpu``'s ``_chunk_multi``.
 * (c) The plain K1 and K2 over ``[K, L, ...]`` arguments equal K calls on
   one chain's arguments exactly; one wrapper call a pass for all K.
 * (d) ``driver.chain_route``: batched for the A00 configurations, A10,
-  integrated thetas and every locus-rate prior; per-chain for A11, MSC-I,
-  MSC-M, GTR, relaxed clocks, tip dating, linked thetas, traits and
-  usedata = 2.
+  integrated thetas, every locus-rate prior and MSC-M (fixed and
+  variable-rate routes, geneflow, A10 x MSC-M); per-chain for A11, MSC-I,
+  GTR, relaxed clocks, tip dating, linked thetas, traits and usedata = 2,
+  with migration or without.
 * (e) No op of the batched step falls back to vmap's for-loop: the step
   runs with that warning turned into an error (and the warning is shown
   to fire on an op that has no batching rule).
@@ -334,8 +335,9 @@ def test_chain_route_by_configuration(ctls, tmp_path):
         assert chain_route(cfg.replace(model=type(cfg.model)[model]),
                            run)[0] == "batched"
     # A10 (the rj move on the guide tree), integrated thetas (K3 over the
-    # chains) and the Gamma-Dirichlet (K4) and Dirichlet locus-rate priors
-    # take the batched step too
+    # chains), the Gamma-Dirichlet (K4) and Dirichlet locus-rate priors and
+    # MSC-M (K5 over the chains: fixed routes, variable-rate routes,
+    # geneflow, A10 x MSC-M) take the batched step too
     batched = {
         "A10": cfg.replace(est_delimit=True),
         "integrated thetas": cfg.replace(theta_integrated=True),
@@ -343,24 +345,37 @@ def test_chain_route_by_configuration(ctls, tmp_path):
                                                    locusrate_prior=0),
         "Dirichlet locus rates": cfg.replace(est_locusrate=1,
                                              locusrate_prior=3),
+        "MSC-M": cfg.replace(migration=True),
+        "MSC-M geneflow": cfg.replace(migration=True, geneflow=True),
+        "A10 x MSC-M": cfg.replace(migration=True, est_delimit=True),
+        "diploid MSC-M": cfg.replace(migration=True,
+                                     model=type(cfg.model)["HKY"]),
     }
     for what, c in batched.items():
         assert chain_route(c, run)[0] == "batched", what
     per_chain = {
         "A11": cfg.replace(est_delimit=True, est_stree=True),
-        "MSC-M": cfg.replace(migration=True),
         "GTR": cfg.replace(model=type(cfg.model)["GTR"]),
         "relaxed clock": cfg.replace(clock=Clock.IID),
         "tip dating": cfg.replace(datefile="dates.txt"),
         "linked thetas": cfg.replace(linked_theta=1),
         "traits": cfg.replace(traitfile="traits.txt"),
         "usedata = 2": cfg.replace(usedata_fix_gtree=True),
+        # MSC-M with what the batched step does not take stays per-chain
+        "MSC-M x custom": cfg.replace(migration=True,
+                                      model=type(cfg.model)["CUSTOM"]),
+        "MSC-M x tip dating": cfg.replace(migration=True,
+                                          datefile="dates.txt"),
+        "MSC-M x traits": cfg.replace(migration=True,
+                                      traitfile="traits.txt"),
+        "MSC-M x usedata = 2": cfg.replace(migration=True,
+                                           usedata_fix_gtree=True),
     }
     for what, c in per_chain.items():
         route, why = chain_route(c, run)
         assert route == "per-chain", what
         assert why.endswith("one chain's step after another"), what
-    for name in ("net", "mig"):
+    for name in ("net", "mig", "gf"):
         (tmp_path / name).mkdir()
     net = write_simulated_run(tmp_path / "net", 2, n_sites=30,
                               sim_tree=NET_SIM_TREE, guide=NET_GUIDE,
@@ -369,7 +384,11 @@ def test_chain_route_by_configuration(ctls, tmp_path):
     mig = write_simulated_run(tmp_path / "mig", 2, n_sites=30,
                               sim_model="model = 0\n" + MIG_SIM,
                               priors=(MIG_RUN,))
-    assert _engine(mig).chains_route == "per-chain"
+    assert _engine(mig).chains_route == "batched"
+    gf = write_simulated_run(tmp_path / "gf", 2, n_sites=30,
+                             sim_model="model = 0\n" + MIG_SIM,
+                             priors=(MIG_RUN, "geneflow = 1"))
+    assert _engine(gf).chains_route == "batched"
 
 
 @pytest.mark.parametrize("kind", list(KINDS))

@@ -38,9 +38,12 @@ one launch of K1 / K2 over K chains (K in 1, 3, 8; float32 and float64;
 both stores) bit-equal per (chain, locus) to K one-chain launches and
 within the plain versions' gates; one launch of K3 and one of K4 over K
 chains (K in 2, 4, 8; every regime) bit-equal per (chain, locus) to
-one-chain launches and equal to the plain versions but at near ties; the batched step's graph (one replay
-for every chain) bit-equal to the eager batched step, and one batched
-iteration against the one-chain steps.  Needs a CUDA device and nvcc;
+one-chain launches and equal to the plain versions but at near ties; one
+launch of K5 over C chains (C in 2, 4, 8; float32 and float64; every
+synthetic walk shape) bit-equal per (chain, locus) to one-chain launches;
+the batched step's graph (one replay for every chain; JC69, diploid and
+MSC-M) bit-equal to the eager batched step, and one batched iteration
+against the one-chain steps.  Needs a CUDA device and nvcc;
 skips without them.
 
     python -m pytest tests/test_torch_kernel_gpu.py -q
@@ -51,7 +54,8 @@ import pytest
 import torch
 
 from bpp_tpu_torch.testing import (WALK_SHAPES, fixed_subst,
-                                   synthetic_walks, walk_id, walk_seed)
+                                   synthetic_walk_chains, synthetic_walks,
+                                   walk_id, walk_seed)
 
 MODELS = [("JC69", 1), ("HKY", 4), ("TN93", 1), ("GTR", 4)]
 
@@ -1480,6 +1484,36 @@ def test_simwalk_kernel_on_synthetic_walks(shape, dtype):
     assert bool((fail & (nn == args[19]))[trapped].all())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("C", [2, 4, 8])
+@pytest.mark.parametrize("shape", WALK_SHAPES,
+                         ids=[walk_id(s) for s in WALK_SHAPES])
+def test_simwalk_kernel_over_a_chain_axis(shape, C, dtype):
+    """One K5 launch over C chains (a grid row a chain) of the synthetic
+    walks (``testing.synthetic_walk_chains``: one route table, each
+    chain's species tables and loci its own) against C one-chain
+    launches: all eight outputs bit-equal per (chain, locus); and each
+    chain's walks held against ``simspr_walk_ref`` as the one-chain
+    launches are (:func:`_walks_agree`)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from bpp_tpu_torch.core import chains
+    from bpp_tpu_torch.mcmc import mig_moves
+    E, L, H, every_pair = shape
+    args, per, _ = synthetic_walk_chains(C, L, E, H, seed=walk_seed(shape),
+                                         dtype=dtype, device="cuda",
+                                         every_pair=every_pair)
+    before = chains.LAUNCHES_SIMWALK
+    got = mig_moves.simspr_walk_chains(*args)
+    torch.cuda.synchronize()
+    assert chains.LAUNCHES_SIMWALK == before + 1
+    assert got[0].shape == (C, L) and got[4].shape == (C, L, args[19])
+    for k in range(C):
+        one = _walks_agree(per[k])
+        for x, y in zip(got, one):
+            assert torch.equal(x[k], y), k
+
+
 @pytest.mark.parametrize("data", ["cuda_state", "cuda_diploid", "cuda_int",
                                   "cuda_snl", "cuda_mig", "cuda_gdir"])
 def test_replayed_graph_equals_the_eager_chain(request, data):
@@ -1670,13 +1704,14 @@ def test_accept_chains_over_a_chain_axis(K, regime):
         _masks_agree(got4[k], want, margin)
 
 
-@pytest.mark.parametrize("data", ["cuda_state", "cuda_diploid"])
+@pytest.mark.parametrize("data", ["cuda_state", "cuda_diploid", "cuda_mig"])
 def test_batched_graph_equals_the_eager_batched_step(request, data):
     """chains = 3 on the batched route: 10 replays of the captured batched
     step (one graph, the 3 generators registered) against 10 eager
     batched steps (``Engine._chunk_multi``) from the same states and
     generator states: states, statistics, trace rows and generators
-    bit-equal; the replay adds one K1/K2 launch a pass for all 3 chains."""
+    bit-equal; the replay adds one K1/K2 launch a pass for all 3 chains
+    (under MSC-M one K5 launch a sim-SPR round)."""
     from bpp_tpu_torch.core import fels, pack
     from bpp_tpu_torch.mcmc.driver import clone_state, stack_states
     from bpp_tpu_torch.mcmc.graph import StepGraph, flatten
@@ -1710,9 +1745,10 @@ def test_batched_graph_equals_the_eager_batched_step(request, data):
     passes = graph.per_replay[0] + graph.per_replay[2]
     acc_g, tr_g = graph.run(10)
     torch.cuda.synchronize()
-    # age 2 + SPR 3 + tau 2 + mixing 1 passes (JC69), one launch each for
-    # all 3 chains
+    # age 2 + SPR 3 + tau 2 + mixing 1 passes (JC69; MSC-M's sim-SPR
+    # rounds for SPR's), one launch each for all 3 chains
     assert passes == 8
+    assert graph.per_replay[6] == (3 if eng.cfg.migration else 0)
     assert all(torch.equal(a, b) for a, b in
                zip(flatten(st_e)[1], flatten(graph.state())[1]))
     assert torch.equal(acc_e, acc_g)
@@ -1723,7 +1759,7 @@ def test_batched_graph_equals_the_eager_batched_step(request, data):
         assert torch.equal(a.get_state(), b.get_state())
 
 
-@pytest.mark.parametrize("data", ["cuda_state", "cuda_diploid"])
+@pytest.mark.parametrize("data", ["cuda_state", "cuda_diploid", "cuda_mig"])
 def test_batched_step_against_one_chain_steps_on_the_card(request, data):
     """One batched iteration of 3 chains against each chain's one-chain
     eager step from the same generator state: equal move statistics and
