@@ -480,6 +480,26 @@ def _relabel_bdi(cfg, run, mcmc_path, gen, theta, tau, lnl, phi, quiet):
               file=sys.stderr)
 
 
+def write_chain_files(cfg, stree, logs, mcmc_path):
+    """The K chains' samples ``logs`` (``SampleLog``) as ``chains = K``
+    writes them: chain 1's into ``mcmc_path``, chain k's into
+    ``<jobname>.c<k>.mcmc.txt``; returns the K closed writers (their
+    columns and the nodes of the theta and tau columns)."""
+    from .output import McmcWriter
+    writers = []
+    for c, log in enumerate(logs):
+        path = mcmc_path if c == 0 else f"{cfg.jobname}.c{c + 1}.mcmc.txt"
+        w = McmcWriter(path, cfg, stree)
+        for i, g in enumerate(log.gen):
+            w.write_sample(g, log.theta[i], log.tau[i], log.lnL[i],
+                           phi=log.phi[i] if log.phi else None,
+                           migM=log.migM[i] if log.migM else None,
+                           mubar=log.mubar[i] if log.mubar else None)
+        w.close()
+        writers.append(w)
+    return writers
+
+
 def _run_multichain(args, cfg, run, eng, mcmc_path, cfg_text, ctl_dir,
                     meta=None, arrays=None, is_main=True) -> int:
     """``chains = K``: K replicate chains (port of ``bpp_tpu/cli.py``'s
@@ -493,7 +513,6 @@ def _run_multichain(args, cfg, run, eng, mcmc_path, cfg_text, ctl_dir,
     from . import checkpoint as ckpt
     from .config import Clock
     from .mcmc.driver import SampleLog
-    from .output import McmcWriter
     from .summary.allfixed import format_summary, split_rhat, summary_table
 
     K = cfg.n_chains
@@ -540,15 +559,8 @@ def _run_multichain(args, cfg, run, eng, mcmc_path, cfg_text, ctl_dir,
         # --multihost: the replicas run the same chains; rank 0 writes
         return 0
     series_per_chain = []
-    for c, log in enumerate(logs):
-        path = mcmc_path if c == 0 else f"{cfg.jobname}.c{c + 1}.mcmc.txt"
-        w = McmcWriter(path, cfg, run.stree)
-        for i, g in enumerate(log.gen):
-            w.write_sample(g, log.theta[i], log.tau[i], log.lnL[i],
-                           phi=log.phi[i] if log.phi else None,
-                           migM=log.migM[i] if log.migM else None,
-                           mubar=log.mubar[i] if log.mubar else None)
-        w.close()
+    for log, w in zip(logs, write_chain_files(cfg, run.stree, logs,
+                                              mcmc_path)):
         cols = {"lnL": np.asarray(log.lnL)}
         th = np.stack(log.theta)
         tu = np.stack(log.tau)

@@ -448,16 +448,12 @@ def chain_route(cfg: BppConfig, run: RunData) -> tuple[str, str]:
     why = None
     if cfg.est_stree:
         why = "species-tree moves (SPR, SNL)"
-    elif run.stree.n_hybrids > 0:
-        why = "an MSC-I network"
     elif cfg.datefile:
         why = "tip dating"
     elif cfg.model not in _BATCHED_MODELS:
         why = f"model = {cfg.model.name} (custom, amino acids and GTR)"
     elif cfg.clock != Clock.GLOBAL:
         why = "a relaxed clock"
-    elif cfg.linked_theta:
-        why = "linked thetas"
     elif cfg.traitfile:
         why = "morphological traits"
     elif cfg.usedata_fix_gtree:
@@ -1474,7 +1470,8 @@ class Engine:
         return states
 
     def run_mcmc_multi(self, n_chains: int, progress_every: int = 1000,
-                       log_fp=None, resume=None, on_checkpoint=None):
+                       log_fp=None, resume=None, on_checkpoint=None,
+                       gens=None):
         """Run K replicate chains; returns their K :class:`SampleLog`.
 
         ``bpp_tpu`` vmaps the chunk over the chains.  Here chain k draws
@@ -1498,11 +1495,15 @@ class Engine:
         the generations ``checkpoint = initial [step]`` schedules, each a
         chunk bound, so a resumed run draws what the uninterrupted one
         draws.  Under ``--multihost`` each process runs every chain on all
-        the loci (an unsharded engine)."""
+        the loci (an unsharded engine).  ``gens``: the K generators to
+        draw from (seeded here as new ones are), so that a run may take
+        a step graph already captured with them (:meth:`step_graph`)."""
         cfg = self.cfg
         if self.shard is not None:
             raise ValueError("replicate chains run on unsharded engines")
-        gens = [torch.Generator(device=self.device) for _ in range(n_chains)]
+        if gens is None:
+            gens = [torch.Generator(device=self.device)
+                    for _ in range(n_chains)]
         if resume is None:
             states = self.init_states(n_chains)
             for k, g in enumerate(gens):

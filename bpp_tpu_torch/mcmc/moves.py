@@ -32,6 +32,7 @@ import torch
 
 from ..config import BppConfig, Clock, PriorDist
 from ..parallel.mesh import psum, psum_counts
+from ..trees.coalescent import locus_sum
 from ..trees.gtree import (
     BIG_AGE, GTrees, assign_populations, edge_passes,
     lift_population, lift_population_net, mrca_and_leaves, mrca_species,
@@ -63,21 +64,6 @@ def _psum_if_sharded(ctx: Ctx, *xs):
     return psum(ctx.shard, *xs)
 
 
-def locus_sum(x):
-    """``x`` [L, ...] summed over its leading (locus) axis by pairwise
-    adds of whole halves, in an order set by L alone.  A CUDA reduction
-    picks its order from the shape it is given: inside the batched step
-    (``vmap``, which hands it the K chains' rows together) a sum over
-    the loci of an [L, X] tensor rounds otherwise than the one-chain
-    step's, and a chain drifts from its one-chain run; elementwise adds
-    round alike either way."""
-    while x.shape[0] > 1:
-        h = x.shape[0] // 2
-        pair = x[:h] + x[h:2 * h]
-        x = pair if x.shape[0] == 2 * h else torch.cat([pair, x[2 * h:]])
-    return x[0]
-
-
 def _suff_stats(ctx: Ctx, c, t2, heredity):
     """Per-population coalescence counts and heredity-scaled waiting
     sums over the real loci: (ksum [H], csum [H])."""
@@ -91,12 +77,20 @@ def _suff_stats(ctx: Ctx, c, t2, heredity):
 
 def _pool_linked(ctx: Ctx, ksum, csum):
     """Linked thetas (thetamodel; init_theta_linkage stree.c:2427): the
-    statistics of every owner group, summed, on each of its members."""
+    statistics of every owner group, summed, on each of its members.
+    The members are added in index order with elementwise adds, so that
+    the sum rounds alike batched or not (``index_add_`` adds with atomics
+    on CUDA, in no fixed order)."""
     link = ctx.theta_link
     if link is None:
         return ksum, csum
-    return (torch.zeros_like(ksum).index_add_(0, link, ksum)[link],
-            torch.zeros_like(csum).index_add_(0, link, csum)[link])
+    same = link[:, None] == link[None, :]            # [H, H] same owner
+    x = torch.stack([ksum, csum])                     # [2, H]
+    zero = torch.zeros_like(x)
+    acc = zero
+    for m in range(link.shape[0]):
+        acc = acc + torch.where(same[:, m], x[:, m:m + 1], zero)
+    return acc[0], acc[1]
 
 
 def _corr_ln(cfg: BppConfig, state: McmcState) -> bool:

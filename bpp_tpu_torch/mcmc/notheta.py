@@ -49,11 +49,13 @@ def total_integrated(cfg, coal, t2h, heredity, locus_mask, shard=None):
 
 
 def pop_sums(coal, t2h, heredity, locus_mask):
-    """Aggregated (K [H], C [H]) over the real loci."""
+    """Aggregated (K [H], C [H]) over the real loci, in
+    ``coalescent.locus_sum``'s fixed order."""
     mask = locus_mask[:, None]
     zero = torch.zeros_like(t2h)
-    K = torch.where(mask, coal.to(t2h.dtype), zero).sum(0)
-    C = torch.where(mask, t2h / heredity[:, None], zero).sum(0)
+    K, C = coalmod.locus_sum(torch.stack([
+        torch.where(mask, coal.to(t2h.dtype), zero),
+        torch.where(mask, t2h / heredity[:, None], zero)], 1))
     return K, C
 
 

@@ -179,6 +179,21 @@ def msc_logprob(gt: GTrees, sp: SpeciesArrays, pops, n_seq, heredity):
     return msc_contrib(coal, T2h, sp.theta, heredity).sum(dim=1)
 
 
+def locus_sum(x):
+    """``x`` [L, ...] summed over its leading (locus) axis by pairwise
+    adds of whole halves, in an order set by L alone.  A CUDA reduction
+    picks its order from the shape it is given: inside the batched step
+    (``vmap``, which hands it the K chains' rows together) a sum over
+    the loci of an [L, X] tensor rounds otherwise than the one-chain
+    step's, and a chain drifts from its one-chain run; elementwise adds
+    round alike either way."""
+    while x.shape[0] > 1:
+        h = x.shape[0] // 2
+        pair = x[:h] + x[h:2 * h]
+        x = pair if x.shape[0] == 2 * h else torch.cat([pair, x[2 * h:]])
+    return x[0]
+
+
 def msc_logprob_integrated(coal, T2h, heredity, a, b, locus_mask,
                            shard=None):
     """The theta-integrated-out total log density over all loci (scalar).
@@ -186,13 +201,15 @@ def msc_logprob_integrated(coal, T2h, heredity, a, b, locus_mask,
     Each population's theta is marginalized under InvGamma(a, b):
       2^K b^a Gamma(a+K) / (Gamma(a) (b+C)^(a+K)) * prod_l h_l^(-k_l)
     with K = sum_l k_l and C = sum_l T2_l / h_l over the real loci
-    (over every rank's loci under locus sharding, ``shard``)."""
+    (over every rank's loci under locus sharding, ``shard``), each sum in
+    :func:`locus_sum`'s fixed order."""
     mask = locus_mask[:, None]
     zero = torch.zeros_like(T2h)
-    K = torch.where(mask, coal.to(T2h.dtype), zero).sum(0)          # [H]
-    C = torch.where(mask, T2h / heredity[:, None], zero).sum(0)     # [H]
-    hterm = torch.where(
-        mask, coal * torch.log(2.0 / heredity[:, None]), zero).sum(0)
+    K, C, hterm = locus_sum(torch.stack([
+        torch.where(mask, coal.to(T2h.dtype), zero),
+        torch.where(mask, T2h / heredity[:, None], zero),
+        torch.where(mask, coal * torch.log(2.0 / heredity[:, None]), zero)],
+        1))                                                     # [3, H]
     if shard is not None:
         K, C, hterm = psum(shard, K, C, hterm)
     a_t = torch.full_like(C, a)

@@ -404,12 +404,13 @@ def assign_populations_net(gt: GTrees, sp: SpeciesArrays, tip_pop):
     An inner node's population is its left child's route read at the
     node's age; that the right child's route reaches the same population
     is checked apart, by :func:`route_consistent`."""
-    L, N = gt.left.shape
+    L = gt.left.shape[0]
     T = gt.n_tips
-    dev = gt.left.device
-    lidx = torch.arange(L, device=dev)
+    lidx = torch.arange(L, device=gt.left.device)
     order = inner_order(gt)
-    pops = torch.zeros((L, N), dtype=torch.int64, device=dev)
+    # made from the state, so that inside the batched step (vmap) it
+    # carries the chain axis the node writes below take
+    pops = torch.zeros_like(gt.left, dtype=torch.int64)
     pops[:, :T] = tip_pop
     for k in range(T - 1):
         node = order[:, k]

@@ -2,6 +2,7 @@
 """Does the batched ``chains = K`` step round as the one-chain step does?
 
     python3 chain_rounding.py [--device cpu] [--loci N] [--iters N]
+                              [--configs LABEL,...] [--package DIR]
 
 ``Engine._step_batched`` is ``torch.func.vmap`` of the one-chain step, so
 every op sees the K chains' rows at once; an op whose result depends on
@@ -9,20 +10,28 @@ the shape it is given (a CUDA reduction picks its summation order from
 it) rounds otherwise batched, and a chain drifts from its one-chain run.
 This script finds such ops and moves on one device (the card by default):
 
-* ``[ops]``: single reductions over the shapes an MSC-M step sums (1-D
-  and [L, X] sums, sums over either axis, cumsums), each ``vmap``-ped over
-  4 random rows against 4 calls one row at a time, bit for bit.
-* ``[moves]``: on four configurations of ``chip_smoke.py``'s MSC-M data
-  (1000 loci simulated with migration A <-> B, 4 chains: main 26's
-  routes, main 27's A10 x MSC-M, variable-rate routes, main 14's geneflow
-  file on 100 loci), after 3 batched iterations, each move of the MSC-M
-  schedule alone from the same states and generators, batched against
-  the 4 one-chain calls; then ``--iters`` whole iterations both ways.
-  Each line names the state leaves that differ: chains, elements, the
-  largest relative difference.
+* ``[ops]``: single reductions over the shapes the steps sum (1-D and
+  [L, X] sums, sums over either axis, cumsums, the batched product
+  ``per_pop_stats`` sums each locus's events with), each ``vmap``-ped
+  over 4 random rows against 4 calls one row at a time, bit for bit.
+* ``[moves]``: on configurations of ``chip_smoke.py`` with 4 chains
+  (``--loci`` loci each, 30 on the BDI fixture and 100 on main 14's
+  geneflow file): main 13's A00 JC69 run and main 25's integrated
+  thetas on main 1's tree; linked-inner thetas there; main 28's MSC-I
+  network (main 10's file) and main 11's BDI fixture with linked-msci
+  thetas; main 26's MSC-M routes, main 27's A10 x MSC-M, variable-rate
+  routes and main 14's geneflow file.  After 3 batched iterations, each
+  move of the configuration's schedule alone from the same states and
+  generators, batched against the 4 one-chain calls; then ``--iters``
+  whole iterations both ways.  Each line names the state leaves that
+  differ: chains, elements, the largest relative difference.
 
-Prints the card's name and power limit.  Exits non-zero without a CUDA
-device unless ``--device cpu``.
+``--configs`` takes a comma-separated subset of those labels.
+``--package DIR`` imports ``bpp_tpu_torch`` from DIR (a checkout of
+another commit, e.g. the parent's, whose batched route must take the
+configurations asked for), so that one call compares two trees.  Prints
+the card's name and power limit.  Exits non-zero without a CUDA device
+unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -59,6 +68,14 @@ def op_checks(dev, gen):
     for shape in ((1000,), (22,)):
         check("cumsum(0)", lambda x: torch.cumsum(x, 0), shape)
     check("cumsum(1)", lambda x: torch.cumsum(x, 1), (1000, 22))
+    # coalescent.per_pop_stats' sum of each locus's events into its
+    # populations (the waiting-time terms of T2h): 1000 or 30 loci, 15
+    # events, 10 or 13 populations, the event one-hot half of x
+    for loci, pops in ((1000, 10), (30, 13)):
+        check("einsum('leh,le->lh') of per_pop_stats",
+              lambda x, p=pops: torch.einsum(
+                  "leh,le->lh", (x[..., :p] > 0.35).to(x.dtype),
+                  x[..., p]), (loci, 15, pops + 1))
 
 
 def leaf_names(tree, prefix=""):
@@ -95,54 +112,95 @@ def compare(names, batched, ones):
             "; ".join(f"{n} {' '.join(v)}" for n, v in diffs.items()))
 
 
-def move_checks(dev, n_loci, iters):
-    """``[moves]`` lines for the four MSC-M configurations."""
-    import torch
+CONFIGS = ("main 13", "main 25", "linked-inner", "main 28", "main 11 x 4",
+           "main 26", "main 27", "am routes", "main 14 x 4")
 
+
+def write_configs(n_loci, labels):
+    """The control files of ``labels`` (their data simulated once each, in
+    the current directory): {label: (control file, loci)}."""
     import chip_smoke as cs
-    from bpp_tpu_torch.mcmc import mig_moves as mm
-    from bpp_tpu_torch.mcmc import rj_moves, rng
-    from bpp_tpu_torch.mcmc.driver import Engine, chain_views, stack_states
-    from bpp_tpu_torch.mcmc.graph import flatten, unflatten
-    from bpp_tpu_torch.testing import MIG_RUN
+    from bpp_tpu_torch.testing import MIG_RUN, NET_GUIDE
 
-    def clone(gens):
-        out = []
-        for g in gens:
-            c = torch.Generator(device=dev)
-            c.set_state(g.get_state())
-            out.append(c)
-        return out
+    def run_ctl(prefix, guide=None):
+        text = cs.RUN_CTL.replace("seqfile = sim.phy",
+                                  f"seqfile = {prefix}.phy").replace(
+            "Imapfile = sim.Imap.txt", f"Imapfile = {prefix}.Imap.txt")
+        return text if guide is None else text.replace(
+            "((A, B), (C, D));", guide + ";")
 
-    cs.write_mig_data("sim12", n_loci, "4 4 4 4", "model = 0\n")
-    run_ctl = cs.RUN_CTL.replace("seqfile = sim.phy", "seqfile = sim12.phy") \
-        .replace("Imapfile = sim.Imap.txt", "Imapfile = sim12.Imap.txt")
-    configs = {
-        "main 26": (n_loci, MIG_RUN + cs.MIG_WPRIOR),
-        "main 27": (n_loci, MIG_RUN + cs.MIG_WPRIOR + cs.A10_27),
-        "am routes": (n_loci, "migration = 2\nA B 20 40 3\nB A 20 40 3\n"
+    made = set()
+
+    def data(prefix):
+        if prefix in made:
+            return
+        made.add(prefix)
+        if prefix == "sim1":
+            with open("sim1.ctl", "w") as f:
+                f.write(cs.SIM10_CTL.format(
+                    prefix="sim1", seqs="4 4 4 4", tree=cs.MAIN1_TREE,
+                    nloci=n_loci, extra="model = 0"))
+            from bpp_tpu_torch.sim.simulate import run_simulation
+            run_simulation("sim1.ctl")
+        elif prefix == "sim10":
+            cs.write_net_data("sim10", n_loci, "4 4 4 4", "model = 0")
+        else:
+            cs.write_mig_data("sim12", n_loci, "4 4 4 4", "model = 0\n")
+
+    mig = MIG_RUN + cs.MIG_WPRIOR
+    table = {
+        "main 13": ("sim1", None, n_loci, ""),
+        "main 25": ("sim1", None, n_loci,
+                    cs.INT_25.format(k=K).replace(f"chains = {K}\n", "")),
+        "linked-inner": ("sim1", None, n_loci, "thetamodel = linked-inner\n"),
+        "main 28": ("sim10", NET_GUIDE, n_loci, "phiprior = 1 1\n"),
+        "main 11 x 4": ("bdi", None, 30, "thetamodel = linked-msci\n"),
+        "main 26": ("sim12", None, n_loci, mig),
+        "main 27": ("sim12", None, n_loci, mig + cs.A10_27),
+        "am routes": ("sim12", None, n_loci,
+                      "migration = 2\nA B 20 40 3\nB A 20 40 3\n"
                       + cs.MIG_WPRIOR),
-        "main 14 x 4": (min(n_loci, cs.N_LOCI_14B),
-                        MIG_RUN + cs.MIG_WPRIOR + cs.GENEFLOW),
+        "main 14 x 4": ("sim12", None, min(n_loci, cs.N_LOCI_14B),
+                        mig + cs.GENEFLOW),
     }
-    for label, (loci, extra) in configs.items():
+    out = {}
+    for label in labels:
+        prefix, guide, loci, extra = table[label]
         ctl = f"rounding_{label.replace(' ', '_')}.ctl"
+        extra += f"chains = {K}\n"
+        if prefix == "bdi":
+            fix = os.path.join(os.path.dirname(os.path.abspath(
+                cs.__file__)), "tests", "fixtures", "bdi")
+            text = cs.BDI_CTL.format(fix=fix, job="rounding", burnin=5,
+                                     nsample=20, extra=extra)
+        else:
+            data(prefix)
+            text = run_ctl(prefix, guide).format(
+                nloci=loci, burnin=5, nsample=20, job="rounding",
+                extra=extra)
         with open(ctl, "w") as f:
-            f.write(run_ctl.format(nloci=loci, burnin=5, nsample=20,
-                                   job="rounding",
-                                   extra=extra + f"chains = {K}\n"))
-        eng = Engine(cs.load_run(ctl), seed=1, device=dev)
-        eng.route = "eager"
-        cfg, ctx, routes = eng.cfg, eng.ctx, eng.mig_routes
-        gens = [torch.Generator(device=dev).manual_seed(eng.chain_seed(c))
-                for c in range(K)]
-        st = stack_states(eng.init_states(K))
-        for _ in range(3):
-            st, _ = eng._step_batched(st, gens)
-        spec, leaves = flatten(st)
-        names = leaf_names(st)
-        idx = torch.arange(K, device=dev)
-        ctx_k = dataclasses.replace(ctx, chains=K)
+            f.write(text)
+        out[label] = (ctl, loci)
+    return out
+
+
+def schedule(eng):
+    """(name, move(ctx, cfg, state, gen)) of each move of ``eng``'s
+    schedule, one SPR round for three."""
+    from bpp_tpu_torch.mcmc import mig_moves as mm
+    from bpp_tpu_torch.mcmc import moves as mv
+    from bpp_tpu_torch.mcmc import msci_moves as mi
+    from bpp_tpu_torch.mcmc import rj_moves
+    cfg, routes = eng.cfg, eng.mig_routes
+
+    def rj(ctx, cfg_, state, gen):
+        return rj_moves.rj_move(ctx, cfg_, state, gen, eng.root_age0,
+                                routes=routes)
+
+    if cfg.migration:
+        def with_routes(move):
+            return lambda ctx, cfg_, state, gen: move(ctx, cfg_, routes,
+                                                      state, gen)
         moves = [("age", mm.age_block_mig),
                  ("event ages", mm.migevent_age_move),
                  ("sim-SPR", mm.spr_sim_move), ("theta", mm.theta_move_mig),
@@ -154,24 +212,66 @@ def move_checks(dev, n_loci, iters):
         if cfg.geneflow:
             moves += [("flip", mm.geneflow_flip_move),
                       ("add/remove", mm.geneflow_rj_move)]
-        if cfg.est_delimit:
-            def rj(ctx_, cfg_, routes_, state, gen):
-                return rj_moves.rj_move(ctx_, cfg_, state, gen,
-                                        eng.root_age0, routes=routes_)
-            moves.append(("rj", rj))
-        print(f"[moves] {label}: {loci} loci, {K} chains, "
-              f"{int((st.mig.node >= 0).sum())} migration events after 3 "
+        moves = [(n, with_routes(m)) for n, m in moves]
+    else:
+        moves = [("age", mv.age_block_move), ("SPR", mv.spr_round_move)]
+        if not cfg.theta_integrated:
+            moves.append(("theta", mv.theta_move))
+        if eng.run.stree.n_hybrids:
+            moves += [("tau", mi.tau_move_net), ("repath", mi.repath_move),
+                      ("phi", mi.phi_gibbs_move)]
+        else:
+            moves.append(("tau", mv.tau_move))
+        moves.append(("mixing", mv.mixing_move))
+    if cfg.est_delimit:
+        moves.append(("rj", rj))
+    return moves
+
+
+def move_checks(dev, n_loci, iters, labels):
+    """``[moves]`` lines for the configurations ``labels``."""
+    import torch
+
+    import chip_smoke as cs
+    from bpp_tpu_torch.mcmc import rng
+    from bpp_tpu_torch.mcmc.driver import Engine, chain_views, stack_states
+    from bpp_tpu_torch.mcmc.graph import flatten, unflatten
+
+    def clone(gens):
+        out = []
+        for g in gens:
+            c = torch.Generator(device=dev)
+            c.set_state(g.get_state())
+            out.append(c)
+        return out
+
+    for label, (ctl, loci) in write_configs(n_loci, labels).items():
+        eng = Engine(cs.load_run(ctl), seed=1, device=dev)
+        eng.route = "eager"
+        cfg, ctx = eng.cfg, eng.ctx
+        gens = [torch.Generator(device=dev).manual_seed(eng.chain_seed(c))
+                for c in range(K)]
+        st = stack_states(eng.init_states(K))
+        for _ in range(3):
+            st, _ = eng._step_batched(st, gens)
+        spec, leaves = flatten(st)
+        names = leaf_names(st)
+        idx = torch.arange(K, device=dev)
+        ctx_k = dataclasses.replace(ctx, chains=K)
+        what = (f"{int((st.mig.node >= 0).sum())} migration events"
+                if cfg.migration else f"route {eng.ctx.route}")
+        print(f"[moves] {label}: {loci} loci, {K} chains, {what} after 3 "
               "batched iterations", flush=True)
-        for name, move in moves:
+        for name, move in schedule(eng):
             g1, g2 = clone(gens), clone(gens)
 
             def one(lv, i, move=move, g1=g1):
-                new, _ = move(ctx_k, cfg, routes, unflatten(spec, iter(lv)),
+                new, _ = move(ctx_k, cfg, unflatten(spec, iter(lv)),
                               rng.ChainGens(g1, i))
                 return flatten(new)[1]
 
             out = torch.func.vmap(one)(leaves, idx)
-            ones = [move(ctx, cfg, routes, view, g2[k])[0]
+            ones = [move(ctx, cfg, view, g2[k])[0]
                     for k, view in enumerate(chain_views(st, K))]
             print(f"[moves] {label} {name}: {compare(names, out, ones)}",
                   flush=True)
@@ -194,8 +294,16 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--loci", type=int, default=1000)
     ap.add_argument("--iters", type=int, default=4)
+    ap.add_argument("--configs", default=",".join(CONFIGS))
+    ap.add_argument("--package", default=None, metavar="DIR")
     args = ap.parse_args(argv)
+    labels = [c.strip() for c in args.configs.split(",") if c.strip()]
+    unknown = sorted(set(labels) - set(CONFIGS))
+    if unknown:
+        ap.error(f"unknown configurations {unknown}; known: {CONFIGS}")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if args.package:
+        sys.path.insert(0, os.path.abspath(args.package))
     import torch
     if args.device == "cuda" and not torch.cuda.is_available():
         print("chain_rounding: no CUDA device", file=sys.stderr)
@@ -203,14 +311,16 @@ def main(argv=None) -> int:
     import chip_smoke as cs
     smi = (cs.nvidia_smi_line() if args.device == "cuda"
            else "the CPU (--device cpu)")
-    print(f"[device] {smi}", flush=True)
+    import bpp_tpu_torch
+    print(f"[device] {smi} | bpp_tpu_torch from "
+          f"{os.path.dirname(bpp_tpu_torch.__file__)}", flush=True)
     t0 = time.perf_counter()
     op_checks(args.device, torch.Generator(device=args.device).manual_seed(3))
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory(prefix="bpp_rounding_") as work:
         os.chdir(work)
         try:
-            move_checks(args.device, args.loci, args.iters)
+            move_checks(args.device, args.loci, args.iters, labels)
         finally:
             os.chdir(cwd)
     print(f"[time] {time.perf_counter() - t0:.1f} s | {smi}")

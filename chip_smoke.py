@@ -175,7 +175,8 @@ them, then the others in order); any failure exits non-zero:
               ``tests/fixtures/msci/m.ctl`` with its data (strict and
               clock = 2) and for linked-all / linked-inner thetas on
               ((A, B), (C, D)) with 100 of main 10's loci, 4 samples
-              each.
+              each (linked-inner with ``chains = 4``, on the batched
+              route: 4 mcmc files).
 
 23. main 12 — A00 under MSC-M migration at the bench shape: main 1's data
               shape (1000 loci, 4 x 4 sequences, 500 sites, theta 0.01,
@@ -319,22 +320,25 @@ the chain's last state, and the ``[profile]`` of its step there:
               run, 19, 20), mains 5, 6, 7, 12, 14, 21 and 22 (whose
               accept chains, SNL and sim-SPR walks run on the device) and
               mains 24 and 25 (A10 and integrated thetas under chains =
-              4) and 26 and 27 (MSC-M and A10 x MSC-M under chains = 4):
+              4), 26 and 27 (MSC-M and A10 x MSC-M under chains = 4)
+              and 28 (MSC-I under chains = 4):
               the states, move statistics, traces and generator
               states bit-equal after 6 iterations (3 on mains 10, 12,
-              14, 18 and 24-27), and (mains 1, 5 and 13) the
+              14, 18 and 24-28), and (mains 1, 5 and 13) the
               control file through ``cli.main`` at burnin 8, nsample 4
               both ways with every mcmc file byte-equal; each route's
               wall ms an
               iteration (eager the median of 3 windows of the compared
               iterations, replayed of 3 more windows of 5 replays, 2 for
-              mains 10, 12, 14, 18 and 24-27), device kernels, busy ms
+              mains 10, 12, 14, 18 and 24-28), device kernels, busy ms
               and idle share an iteration (a profiler trace of 1
-              iteration; the eager trace's kernels within 25 of the
+              iteration of each route, both in one profiler session of
+              the one engine built for both routes; the eager trace's
+              kernels within 25 of the
               captured step's exact device nodes, counted with
               cudaGraphGetNodes), the capture's seconds and peak device
               memory, K1-K5 launched inside the graph (under ``chains =
-              K`` on the batched route, mains 13, 18 and 23-27, one
+              K`` on the batched route, mains 13, 18 and 23-28, one
               graph of the step over the stacked chains with its
               write-back, as ``run_mcmc_multi`` runs it); then
               ``[eigen]``: main 20's GTR step on the eager route with its
@@ -374,21 +378,29 @@ the chain's last state, and the ``[profile]`` of its step there:
               nan under ``chains = K``, as ``bpp_tpu`` writes it, and left
               out) and the split-R-hat table; K2 held on the last chain's
               last state;
-44. chains-batch — mains 13, 18, 23-27 and main 14's geneflow control
-              file with chains = 4 on its first 100 loci per-chain against
+44. chains-batch — mains 13, 18, 23-28, main 14's geneflow control
+              file with chains = 4 on its first 100 loci and main 11's
+              BDI fixture (linked-msci thetas) with chains = 4 ("main 11
+              x 4") per-chain against
               batched in this process from the same states and
-              generators (an MSC-M step's windows 2 replays, its trace 1
-              iteration; its K mcmc files must be byte-equal): each
+              generators, at the control file's seed (an MSC-M or MSC-I
+              step's windows 2 replays, its trace 1 iteration; its K
+              mcmc files must be byte-equal): each
               way's exact device nodes of the captured step, device
               kernels, busy and replayed wall ms an iteration, capture
               seconds and peak MiB, pruning launches a replay; after one
               iteration the
               move statistics, per-locus lnL and state leaves of the two
               ways compared; the batched step's draw sites (K launches
-              each); the control file through ``cli.main`` both ways at
-              burnin 8, nsample 4, the K mcmc files compared; main 18's
+              each); the control file's run at burnin 8, nsample 4 both
+              ways, the K mcmc files compared (each way
+              ``run_mcmc_multi`` on the graph already captured, the
+              files written by ``cli.write_chain_files`` as
+              ``cli.main`` writes them; both ways traced in one
+              profiler session); main 18's
               batched step under 6,000 device nodes.
-              Then K1 over main 13's 2 and main 18's 8 chains and K2 over
+              Then K1 over main 13's 2, main 18's 8, main 28's 4 and
+              main 11 x 4's 4 chains and K2 over
               main 23's 4, float32 and float64 builds: one launch (a grid
               row a chain) bit-equal per (chain, locus) to one-chain
               launches, within the plain versions' gates, and timed
@@ -436,6 +448,15 @@ the chain's last state, and the ``[profile]`` of its step there:
               and ``speciestree = 0``: K1 9 x 25 + 4 = 229 (the rj move's
               pass), K5 75; as main 26, and the pooled A10 report with
               each chain's P(#species).
+49. main 28 — main 10's control file (the MSC-I network, 1000 loci,
+              ``phiprior = 1 1``, burnin 5, nsample 20) with ``chains =
+              4`` through ``cli.main`` on the batched route: K1 11 x 25
+              + 4 = 279 (once a pass for the four chains, plus an
+              initial state a chain), K2-K5 never; routes consistent in
+              every state of every chain and ``validate_state`` on each
+              chain's last; four mcmc files of finite samples with
+              theta, tau and phi moving in each and the split-R-hat
+              table; K1 held on the last chain's last state.
 
 Every main path but ``[shard]``'s runs its chunks as replays of one
 captured CUDA graph; the launch counts a replay adds are the graph's
@@ -447,7 +468,7 @@ and of the ``launches`` in the kernels line, as the capture itself is.
 Then a ``[time]`` line (the whole script, and the seconds of each group
 of phases in the order they ran), one JSON line ``{"kernels": [...]}``
 (K1 at JC69, K2 at HKY+G4: the
-models of their chains; launches summed over main 1-15, 17-27 and [tools],
+models of their chains; launches summed over main 1-15, 17-28 and [tools],
 errors the largest of every hold; then the float64 builds, with main
 16's and both [shard] ranks' launches and the [x64] holds; then K3, K4
 and K5 with their mains' launches and ``[chains]``' times), the card's
@@ -597,6 +618,8 @@ loci&length = {nloci} 500
 NET_DIPLOID = ("diploid = 1 1 1 1\nmodel = 3\nkappa = 2\n"
                "basefreqs = 0.3 0.2 0.2 0.3\nlocusrate = 1 5\n")
 N_NET_DIPLOID = 200
+# [cli]'s linked-inner run takes chains = 4 (the batched route)
+CLI_LINKED_CHAINS = 4
 BDI_CTL = """\
 seed = 7
 seqfile = {fix}/bdi_seqs.txt
@@ -722,6 +745,11 @@ PASSES_PER_ITER_27 = PASSES_PER_ITER_12 + 1
 # [chains-batch]'s geneflow case: main 14's control file with chains = 4
 # on the first 100 loci
 CHAINS_14B, N_LOCI_14B = 4, 100
+# main 28: main 10's control file (the MSC-I network, 1000 loci, burnin 5,
+# nsample 20) with chains = 4 on the batched route: K1 once a pass for the
+# four chains (11 an iteration) + one initial state a chain; [chains-
+# batch]'s BDI case: main 11's control file (linked-msci) with chains = 4
+CHAINS_28 = CHAINS_11B = 4
 # mains 18-22: 20 iterations, burnin 8 (the fewest with finetune marks)
 NEW_BURNIN, NEW_NSAMPLE = 8, 12
 NEW_CHECKS = (NEW_BURNIN + NEW_NSAMPLE) // CHECK_EVERY
@@ -854,6 +882,14 @@ def device_kernels(fn):
     10,000 events.  Host and device activity are traced: with the device
     activity alone a trace of an eager step of 40,000 kernels ran twice as
     fast but now and then dropped dozens of its kernels."""
+    return device_kernels_each(fn)[0]
+
+
+def device_kernels_each(*fns):
+    """:func:`device_kernels` of each of ``fns``, run one after another
+    in one profiler session with ``TRACE_PAD`` spin kernels between them:
+    a list of each one's events (a session costs the host seconds to
+    open and read)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -861,17 +897,37 @@ def device_kernels(fn):
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(TRACE_PAD):
             torch.cuda._sleep(50)
-        fn()
-        for _ in range(TRACE_PAD):
-            torch.cuda._sleep(50)
+        for fn in fns:
+            fn()
+            for _ in range(TRACE_PAD):
+                torch.cuda._sleep(50)
         torch.cuda.synchronize()
-    events = sorted(
-        (e.start_ns(), e.name(), (e.end_ns() - e.start_ns()) / 1e3)
-        for e in prof.profiler.kineto_results.events()
-        if e.device_type() == torch.autograd.DeviceType.CUDA
-        and not getattr(e, "is_hidden_event", lambda: False)()
-        and TRACE_PAD_KERNEL not in e.name())
-    return [(name, us) for _, name, us in events]
+    raw = prof.profiler.kineto_results.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    hidden = bool(raw) and hasattr(raw[0], "is_hidden_event")
+    events = []
+    for e in raw:
+        if e.device_type() == cuda and not (hidden and e.is_hidden_event()):
+            t0 = e.start_ns()
+            events.append((t0, e.name(), (e.end_ns() - t0) / 1e3))
+    events.sort()
+    if len(fns) == 1:
+        return [[(name, us) for _, name, us in events
+                 if TRACE_PAD_KERNEL not in name]]
+    # each fn's events lie between two runs of spin kernels
+    parts, pad = [], True
+    for _, name, us in events:
+        if TRACE_PAD_KERNEL in name:
+            pad = True
+        else:
+            if pad:
+                parts.append([])
+                pad = False
+            parts[-1].append((name, us))
+    if len(parts) != len(fns):
+        raise AssertionError(f"a profiler session of {len(fns)} parts "
+                             f"read {len(parts)} between its spin kernels")
+    return parts
 
 
 def kernel_device_ms(launch, kernel_name, reps=30, windows=3, attempts=10):
@@ -2082,23 +2138,32 @@ def msci_phases(dev, smi, iters, n_loci=N_LOCI, n_diploid=N_NET_DIPLOID):
              + "\n" + RELAXED)]
     tree_run = RUN_CTL.replace("seqfile = sim.phy", "seqfile = sim10.phy") \
         .replace("Imapfile = sim.Imap.txt", "Imapfile = sim10.Imap.txt")
+    # linked-inner with chains = 4, on the batched route
+    chains = {"out-linked-all": 1, "out-linked-inner": CLI_LINKED_CHAINS}
     for model in ("linked-all", "linked-inner"):
-        runs.append((f"out-{model}", tree_run.format(
-            nloci=100, burnin=2, nsample=4, job=f"out-{model}",
-            extra=f"thetamodel = {model}\n")))
+        job = f"out-{model}"
+        runs.append((job, tree_run.format(
+            nloci=100, burnin=2, nsample=4, job=job,
+            extra=f"thetamodel = {model}\n" + (
+                f"chains = {chains[job]}\n" if chains[job] > 1 else ""))))
     done = []
     for job, text in runs:
         with open(f"{job}.ctl", "w") as f:
             f.write(text)
         if cli.main(["--cfile", f"{job}.ctl", "--quiet"]) != 0:
             raise AssertionError(f"[cli] {job}: cli.main failed")
-        with open(f"{job}.mcmc.txt") as f:
-            rows = f.read().splitlines()
-        n_theta = sum(c.startswith("theta") for c in rows[0].split())
-        if len(rows) != 5 or (job.startswith("out-") and n_theta >= 7):
-            raise AssertionError(f"[cli] {job}: {len(rows) - 1} samples, "
-                                 f"{n_theta} theta columns")
-        done.append(f"{job} ({n_theta} theta columns)")
+        k = chains.get(job, 1)
+        for fn in [f"{job}.mcmc.txt"] + [f"{job}.c{c}.mcmc.txt"
+                                         for c in range(2, k + 1)]:
+            with open(fn) as f:
+                rows = f.read().splitlines()
+            n_theta = sum(c.startswith("theta") for c in rows[0].split())
+            if len(rows) != 5 or (job.startswith("out-") and n_theta >= 7):
+                raise AssertionError(f"[cli] {fn}: {len(rows) - 1} "
+                                     f"samples, {n_theta} theta columns")
+        done.append(f"{job} ({n_theta} theta columns"
+                    + (f"; {k} chains, {k} mcmc files" if k > 1 else "")
+                    + ")")
     print(f"[cli] 4 samples each on the card: {', '.join(done)} | {smi}")
     return (launches10, launches11, max(net["a"], net["b"], net["c"]),
             net["d"])
@@ -2861,6 +2926,51 @@ def mig_chains_main(n, extra, passes, smi):
           f"equal where clear of a tie ({sum(r['near'])} near one), max "
           f"|dt| {r['err']:.3e} | {smi}")
     return launches, err, r["err"]
+
+
+def main28(smi):
+    """``[main 28]``: main 10's control file (the MSC-I network
+    ``testing.NET_GUIDE``, 1000 loci, ``phiprior = 1 1``, burnin 5,
+    nsample 20) with ``chains = 4`` through ``cli.main`` on the batched
+    route: K1 once a pass for the four chains (11 an iteration) plus one
+    initial state a chain, K2-K5 never; the routes consistent in every
+    state of every chain and ``validate_state`` on each chain's last;
+    four mcmc files of finite samples with theta, tau and phi moving in
+    each, the split-R-hat table; K1 held on the last chain's last state.
+    Returns (K1 launches, the hold's error)."""
+    import torch
+    K, label = CHAINS_28, "main 28"
+    cut_ctl("run10.ctl", "run28.ctl", job="out28")
+    with open("run28.ctl", "a") as f:
+        f.write(f"chains = {K}\n")
+    iters = SHORT_BURNIN + SHORT_NSAMPLE
+    moving = ("theta", "tau", "phi")
+    with StepWatch(keep=K) as watch:
+        launches, _ = run_chain(
+            ["--cfile", "run28.ctl"], "out28", iters,
+            (PASSES_PER_ITER_10 * iters + K, 0), moving, label, smi,
+            nsample=SHORT_NSAMPLE, figtree=False, every=False)
+    eng, _ = watch.last
+    if eng.chains_route != "batched":
+        raise AssertionError(f"{label}: chains route {eng.chains_route} "
+                             f"({eng.chains_route_reason})")
+    consistent = bool(torch.stack(watch.flags).all())
+    if len(watch.flags) != iters * K or not consistent:
+        raise AssertionError(f"{label}: {len(watch.flags)} chain states, "
+                             f"routes consistent in all: {consistent}")
+    for st in watch.kept:
+        eng.validate_state(st)
+    files, rhat = check_chains("out28", K, SHORT_NSAMPLE, label,
+                               moving=moving)
+    print(f"[{label}] MSC-I, {K} chains on {N_LOCI} loci: routes "
+          f"consistent in all {iters} x {K} chain states; validate_state "
+          f"passed on each chain's last; {len(files)} mcmc files of "
+          f"{SHORT_NSAMPLE} finite samples, theta, tau and phi moving in "
+          f"each; split-R-hat table ({rhat}, ...); K1 {launches} launches "
+          f"= {PASSES_PER_ITER_10} x {iters} + {K} | {smi}")
+    err, _ = hold_given(f"K1, {label}'s last chain's last state", eng,
+                        watch.kept[-1], smi, tag=label)
+    return launches, err
 
 
 def subst_main(n, model, passes, smi):
@@ -3702,22 +3812,6 @@ class ForcedEager:
         driver.step_route = self._orig
 
 
-class ForcedPerChain:
-    """While active, every new engine steps ``chains = K`` one chain after
-    another (``driver.chain_route`` patched): [chains-batch]'s runs to
-    compare with."""
-
-    def __enter__(self):
-        from bpp_tpu_torch.mcmc import driver
-        self._orig = driver.chain_route
-        driver.chain_route = lambda cfg, run: ("per-chain", "compared")
-        return self
-
-    def __exit__(self, *exc):
-        from bpp_tpu_torch.mcmc import driver
-        driver.chain_route = self._orig
-
-
 def cut_ctl(ctl, dst, nloci=None, burnin=None, nsample=None, job=None):
     """A copy of the control file ``ctl`` at ``dst`` with its nloci,
     burnin, nsample and jobname lines replaced where given."""
@@ -3830,18 +3924,20 @@ def graph_phase(label, ctl, smi, x64=False, cli_compare=True,
     run = load_run(ctl, "float64" if x64 else None)
     K = max(1, run.cfg.n_chains)
     res = {}
+    # one engine for both routes: the graph's captured step, then the
+    # eager step (eng.route "eager") from copies of the same states
+    eng = Engine(run, seed=1, device="cuda")
+    if eng.route != "graph":
+        raise AssertionError(f"[graph] {label}: the route table sends it "
+                             f"{eng.route} ({eng.route_reason})")
+    start = eng.init_states(K) if K > 1 else [eng.init_state()]
+    batched = K > 1 and eng.chains_route == "batched"
 
-    def start(route):
-        eng = Engine(run, seed=1, device="cuda")
-        if eng.route != "graph":
-            raise AssertionError(f"[graph] {label}: the route table sends "
-                                 f"it {eng.route} ({eng.route_reason})")
-        eng.route = route
+    def seeded():
         gens = [torch.Generator(device="cuda") for _ in range(K)]
         for c, g in enumerate(gens):
             g.manual_seed(eng.chain_seed(c))
-        states = eng.init_states(K) if K > 1 else [eng.init_state()]
-        return eng, gens, states
+        return gens
 
     def windows(advance):
         """``iters`` iterations in ``GRAPH_WINDOWS`` timed windows:
@@ -3861,11 +3957,13 @@ def graph_phase(label, ctl, smi, x64=False, cli_compare=True,
                   for c in range(K)]
         return statistics.median(times), sum(accs), traces
 
-    def traced(advance, passes, retraces, floor=0, attempts=10):
+    def traced(route, advance, passes, retraces, floor=0, attempts=10,
+               first=None):
         """(device kernels, busy ms, memcpy and memset events) an
-        iteration; a profiler trace that
-        misses some of the ``passes`` pruning launches an iteration has
-        missed other kernels too and is taken again (as in
+        iteration; ``first``, the first trace's kernels where a trace of
+        both routes in one profiler session took it.  A profiler trace
+        that misses some of the ``passes`` pruning launches an iteration
+        has missed other kernels too and is taken again (as in
         ``profile_step``; a step with none takes the first).  A trace can
         lose a few dozen other kernels while it holds every pruning
         launch (either route; main 22's replayed step once lost 764 of
@@ -3876,8 +3974,9 @@ def graph_phase(label, ctl, smi, x64=False, cli_compare=True,
         and the one kept."""
         n = trace_iters
         whole, seen = [], []
-        for _ in range(attempts):
-            kern = device_kernels(lambda: advance(n))
+        for i in range(attempts):
+            kern = (first if i == 0 and first is not None else
+                    device_kernels(lambda: advance(n)))
             held = sum(1 for name, _ in kern if "pack_logl_kernel" in name
                        or "fels_site_logl_kernel" in name)
             seen.append(f"{len(kern) / n:.0f}" + (
@@ -3903,13 +4002,14 @@ def graph_phase(label, ctl, smi, x64=False, cli_compare=True,
         return (len(kern) / n, sum(us for _, us in kern) / 1e3 / n,
                 copies)
 
+    advances = {}
     for route in ("graph", "eager"):
-        eng, gens, states = start(route)
+        gens = seeded()
+        states = [clone_state(st) for st in start]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()
         r = res[route] = {"pass": eng.ctx.route}
-        batched = K > 1 and eng.chains_route == "batched"
         if batched:
             # one step over the stacked chains, as run_mcmc_multi takes it
             stacked = [stack_states(states)]
@@ -3921,18 +4021,19 @@ def graph_phase(label, ctl, smi, x64=False, cli_compare=True,
             r["capture_s"] = graph.capture_s
             r["peak"] = (torch.cuda.max_memory_allocated() - held) / 2**20
             r["per_replay"] = graph.per_replay
+            eng.route = "eager"
 
-            def advance(n):
+            def advance(n, graph=graph):
                 acc, traces = graph.run(n)
                 return acc, [_nu_column(t) for t in traces]
         elif batched:
-            def advance(n):
+            def advance(n, stacked=stacked, gens=gens):
                 stacked[0], acc, traces = eng._chunk_multi(stacked[0], gens,
                                                            n)
                 return acc, [_nu_column(t) for t in traces]
             r["capture_s"], r["per_replay"] = 0.0, None
         else:
-            def advance(n):
+            def advance(n, states=states, gens=gens):
                 own, accs, traces = eng.gen, [], []
                 try:
                     for c in range(K):
@@ -3944,6 +4045,7 @@ def graph_phase(label, ctl, smi, x64=False, cli_compare=True,
                     eng.gen = own
                 return torch.stack(accs), traces
             r["capture_s"], r["per_replay"] = 0.0, None
+        advances[route] = advance
         counts = graph_mod.launch_counts()
         r["ms"], acc, traces = windows(advance)
         # K1 and K2 launches (each count includes its float64 build's)
@@ -3955,33 +4057,37 @@ def graph_phase(label, ctl, smi, x64=False, cli_compare=True,
         r["leaves"] = [flatten(clone_state(st))[1] for st in final]
         r["acc"], r["traces"] = acc.clone(), traces
         r["gens"] = [g.get_state() for g in gens]
-        if route == "graph":
-            times = []
-            for _ in range(GRAPH_WINDOWS):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                advance(window_iters)
-                torch.cuda.synchronize()
-                times.append((time.perf_counter() - t0) * 1e3
-                             / window_iters)
-            r["ms"] = statistics.median(times)
-            nodes = r["nodes"]
-            exact = sum(nodes.get(kind, 0) for kind in GRAPH_DEVICE_NODES)
-            r["kernels"], r["busy"], r["copies"] = traced(
-                advance, r["passes"], 1)
-        else:
-            # the eager step issues what the captured one does, but for
-            # the write-back: a trace further below is short
-            r["kernels"], r["busy"], r["copies"] = traced(
-                advance, r["passes"], GRAPH_RETRACES,
-                floor=exact - GRAPH_GATE)
+        if route == "eager":
             r["peak"] = (torch.cuda.max_memory_allocated() - held) / 2**20
-        del eng, states, gens
-        if batched:
-            del stacked
-        if route == "graph":
-            del graph
-        torch.cuda.empty_cache()
+    g = res["graph"]
+    times = []
+    for _ in range(GRAPH_WINDOWS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        advances["graph"](window_iters)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3 / window_iters)
+    g["ms"] = statistics.median(times)
+    nodes = g["nodes"]
+    exact = sum(nodes.get(kind, 0) for kind in GRAPH_DEVICE_NODES)
+    # both routes in one profiler session; the replayed step's trace is
+    # kept, the eager step's taken again where it may have dropped
+    # kernels (it issues what the captured one does, but for the
+    # write-back: a trace further below is short)
+    first = device_kernels_each(
+        *(lambda adv=advances[route]: adv(trace_iters)
+          for route in ("graph", "eager")))
+    for route, kern, retraces, floor in (
+            ("graph", first[0], 1, 0),
+            ("eager", first[1], GRAPH_RETRACES, exact - GRAPH_GATE)):
+        r = res[route]
+        r["kernels"], r["busy"], r["copies"] = traced(
+            route, advances[route], r["passes"], retraces, floor=floor,
+            first=kern)
+    del eng, states, gens, graph, advances, start
+    if batched:
+        del stacked
+    torch.cuda.empty_cache()
     e, g = res["eager"], res["graph"]
     same = (all(torch.equal(a, b) for la, lb in zip(e["leaves"], g["leaves"])
                 for a, b in zip(la, lb))
@@ -4101,7 +4207,9 @@ GRAPH_MAINS = (
     # chains = 4 on the batched route under MSC-M (K5 over the chains),
     # and A10 x MSC-M; their eager CLI runs are not compared
     ("main 26", "run26.ctl", False, False, _HEAVY),
-    ("main 27", "run27.ctl", False, False, _HEAVY))
+    ("main 27", "run27.ctl", False, False, _HEAVY),
+    # chains = 4 on the batched route on the MSC-I network
+    ("main 28", "run28.ctl", False, False, _HEAVY))
 
 
 # [chains-batch]: the mains of chains = K whose per-chain and batched
@@ -4110,7 +4218,8 @@ GRAPH_MAINS = (
 CB_MAINS = (("main 13", "run13.ctl"), ("main 18", "run18.ctl"),
             ("main 23", "run23.ctl"), ("main 24", "run24.ctl"),
             ("main 25", "run25.ctl"), ("main 26", "run26.ctl"),
-            ("main 27", "run27.ctl"), ("main 14 x 4", "run14b.ctl"))
+            ("main 27", "run27.ctl"), ("main 14 x 4", "run14b.ctl"),
+            ("main 28", "run28.ctl"), ("main 11 x 4", "run11b.ctl"))
 # the accept chain or walk each main holds over its chains (mains 13, 18
 # and 23 hold their pruning kernel)
 CB_CHAIN_KERNEL = {"main 24": "K4", "main 25": "K3", "main 26": "K5",
@@ -4118,8 +4227,8 @@ CB_CHAIN_KERNEL = {"main 24": "K4", "main 25": "K3", "main 26": "K5",
 CB_WINDOWS = 3
 CB_WINDOW_ITERS = 5
 CB_TRACE_ITERS = 2
-# an MSC-M step issues ~42,000 device nodes a chain: 2 replays a window
-# and a trace of 1 iteration
+# an MSC-M or MSC-I step issues ~38,000-56,000 device nodes a chain: 2
+# replays a window and a trace of 1 iteration
 CB_HEAVY_ITERS = 2
 CB_HEAVY_TRACE = 1
 CB_NODES_18 = 6000
@@ -4220,40 +4329,54 @@ def chains_ab(label, ctl, smi):
     write-back).  Each way: the captured step's exact device nodes
     (:func:`graph_nodes`), capture seconds and peak MiB, the replayed wall
     ms an iteration (the median of ``CB_WINDOWS`` windows of
-    ``CB_WINDOW_ITERS`` replays, ``CB_HEAVY_ITERS`` under MSC-M), device
-    kernels and busy ms an iteration (a profiler trace of
-    ``CB_TRACE_ITERS``, ``CB_HEAVY_TRACE`` under MSC-M); after the first
+    ``CB_WINDOW_ITERS`` replays, ``CB_HEAVY_ITERS`` under MSC-M and
+    MSC-I), device kernels and busy ms an iteration (a profiler trace of
+    ``CB_TRACE_ITERS``, ``CB_HEAVY_TRACE`` under MSC-M and MSC-I); after
+    the first
     iteration the two ways' move statistics, per-locus lnL and state
     leaves compared; the batched step's draw sites an iteration (each K
     launches, one a chain; counted over the capture's warm-up and
-    capture, each one step); the control file through ``cli.main`` both
-    ways (per-chain forced by :class:`ForcedPerChain`), its K mcmc files
-    compared (under MSC-M they must be byte-equal).  Returns (the chains' states after the
-    batched route's first iteration, the engine, the batched exact
+    capture, each one step); the control file's run at burnin
+    ``GRAPH_BURNIN``, nsample ``GRAPH_NSAMPLE`` both ways, its K mcmc
+    files compared (under MSC-M and MSC-I they must be byte-equal): each
+    way ``run_mcmc_multi`` on the graph captured here (as ``cli.main``
+    runs the control file, whose batched route every ``chains = K`` main
+    takes through ``cli.main``), its files written by
+    ``cli.write_chain_files``, as ``cli.main`` writes them.  The engine
+    takes the control file's seed, as ``cli.main`` does; both ways are
+    traced in one profiler session.  Returns (the chains' states after
+    the batched route's first iteration, the engine, the batched exact
     nodes)."""
     import torch
 
+    import numpy as np
+
+    from bpp_tpu_torch import cli
     from bpp_tpu_torch.mcmc import rng
-    from bpp_tpu_torch.mcmc.driver import Engine, clone_state
+    from bpp_tpu_torch.mcmc.driver import Engine, SampleLog, clone_state
     from bpp_tpu_torch.mcmc.graph import flatten
+    from bpp_tpu_torch.mcmc.state import N_MOVES
     run = load_run(ctl)
     K = run.cfg.n_chains
-    eng = Engine(run, seed=1, device="cuda")
+    # at the control file's seed, as cli.main runs it
+    eng = Engine(run, device="cuda")
     if eng.chains_route != "batched":
         raise AssertionError(f"[chains-batch] {label}: chains route "
                              f"{eng.chains_route} ({eng.chains_route_reason})")
     start = eng.init_states(K)
 
-    def seeded():
-        gens = [torch.Generator(device="cuda") for _ in range(K)]
+    def seeded(gens=None):
+        gens = gens or [torch.Generator(device="cuda") for _ in range(K)]
         for c, g in enumerate(gens):
             g.manual_seed(eng.chain_seed(c))
         return gens
 
-    heavy = eng.cfg.migration
+    heavy = eng.cfg.migration or run.stree.n_hybrids > 0
     w_iters = CB_HEAVY_ITERS if heavy else CB_WINDOW_ITERS
     t_iters = CB_HEAVY_TRACE if heavy else CB_TRACE_ITERS
-    res = {}
+    res, graphs = {}, {}
+    jobs = {mode: f"cb_{os.path.splitext(ctl)[0]}_{mode[0]}"
+            for mode in ("per-chain", "batched")}
     for mode in ("per-chain", "batched"):
         ch = Chains(eng, seeded(), batched=mode == "batched")
         torch.cuda.synchronize()
@@ -4270,6 +4393,29 @@ def chains_ab(label, ctl, smi):
         r["exact"] = sum(nodes.get(k, 0) for k in GRAPH_DEVICE_NODES)
         r["passes"] = graph.per_replay[0] + graph.per_replay[2]
         r["chains"] = sum(graph.per_replay[4:7])
+        # the control file's run (burnin GRAPH_BURNIN, nsample
+        # GRAPH_NSAMPLE) as cli.main takes it on this route, on this
+        # graph: run_mcmc_multi loads the initial states into it and
+        # resets its generators; the files written as cli.main writes
+        # them
+        job, own = jobs[mode], eng.cfg
+        eng.cfg = own.replace(burnin=GRAPH_BURNIN, nsample=GRAPH_NSAMPLE,
+                              jobname=job)
+        eng.chains_route = mode
+        # a fresh run from the initial states, as a "resume" at its first
+        # generation: the states are not made again
+        fresh = ([clone_state(st) for st in start],
+                 [g.get_state() for g in seeded(ch.gens)], -GRAPH_BURNIN,
+                 np.zeros((K, N_MOVES, 2)), [SampleLog() for _ in range(K)])
+        try:
+            logs = eng.run_mcmc_multi(K, progress_every=0, resume=fresh,
+                                      gens=ch.gens)
+            cli.write_chain_files(eng.cfg, run.stree, logs,
+                                  f"{job}.mcmc.txt")
+        finally:
+            eng.cfg, eng.chains_route = own, "batched"
+        seeded(ch.gens)
+        ch.graph([clone_state(st) for st in start])
         acc, traces = graph.run(1)
         r["acc"] = acc.clone()
         r["states"] = [clone_state(st) for st in graph.chain_states()]
@@ -4282,29 +4428,17 @@ def chains_ab(label, ctl, smi):
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3 / w_iters)
         r["ms"] = statistics.median(times)
-        kern = device_kernels(lambda: graph.run(t_iters))
-        r["kernels"] = len(kern) / t_iters
-        r["busy"] = sum(us for _, us in kern) / 1e3 / t_iters
-        del graph, ch
-        eng._graphs.clear()
-        torch.cuda.empty_cache()
-    # the control file through cli.main both ways: the K mcmc files
-    import numpy as np
-
-    from bpp_tpu_torch import cli
+        graphs[mode] = graph
+    # both ways' traces in one profiler session
+    for mode, kern in zip(graphs, device_kernels_each(
+            *(lambda g=g: g.run(t_iters) for g in graphs.values()))):
+        res[mode]["kernels"] = len(kern) / t_iters
+        res[mode]["busy"] = sum(us for _, us in kern) / 1e3 / t_iters
+    del graphs, graph, ch
+    eng._graphs.clear()
+    torch.cuda.empty_cache()
     runs = {}
-    for mode in ("per-chain", "batched"):
-        job = f"cb_{os.path.splitext(ctl)[0]}_{mode[0]}"
-        cut_ctl(ctl, f"{job}.ctl", burnin=GRAPH_BURNIN,
-                nsample=GRAPH_NSAMPLE, job=job)
-        if mode == "per-chain":
-            with ForcedPerChain():
-                rc = cli.main(["--cfile", f"{job}.ctl", "--quiet"])
-        else:
-            rc = cli.main(["--cfile", f"{job}.ctl", "--quiet"])
-        if rc != 0:
-            raise AssertionError(f"[chains-batch] {label}: cli.main returned "
-                                 f"{rc} on the {mode} route")
+    for mode, job in jobs.items():
         runs[mode] = []
         for fn in [f"{job}.mcmc.txt"] + [f"{job}.c{c}.mcmc.txt"
                                          for c in range(2, K + 1)]:
@@ -4359,8 +4493,9 @@ def chains_ab(label, ctl, smi):
           f"one iteration from the same states: move statistics equal on "
           f"{same_stats} of {K} chains, per-locus lnL bit-equal on "
           f"{loci_equal} of {n_loci} loci, largest relative leaf "
-          f"difference {rel:.3e} | cli.main both ways "
-          f"({GRAPH_BURNIN + GRAPH_NSAMPLE} iterations): {same_files} of {K} "
+          f"difference {rel:.3e} | the control file's run both ways "
+          f"({GRAPH_BURNIN + GRAPH_NSAMPLE} iterations, on the graphs "
+          f"above): {same_files} of {K} "
           f"mcmc files byte-equal, the largest difference of a value "
           f"{file_diff:.1e} | {smi}")
     if heavy and same_files != K:
@@ -4588,15 +4723,16 @@ def batch_walk(label, eng, states, smi):
 
 
 def chains_batch_phase(smi):
-    """``[chains-batch]``: mains 13, 18, 23-27 and main 14 with 4 chains on
-    100 loci per-chain against batched (:func:`chains_ab`), then the
-    batched launches of K1 (main 18's 8 chains, main 13's 2) and K2 (main
-    23's 4) on the chains' states against one-chain launches
+    """``[chains-batch]``: mains 13, 18, 23-28, main 14 with 4 chains on
+    100 loci and main 11 with 4 chains per-chain against batched
+    (:func:`chains_ab`), then the batched launches of K1 (main 18's 8
+    chains, main 13's 2, main 28's and main 11's 4) and K2 (main 23's 4)
+    on the chains' states against one-chain launches
     (:func:`batch_launches`), of K4 (main 24's 4) and K3 (main 25's 4) on
     the batched step's inputs (:func:`batch_accept_chain`), and of K5
     (mains 26, 27 and 14's 4; :func:`batch_walk`).  Main 18's batched step
-    must hold fewer than ``CB_NODES_18`` device nodes, and the MSC-M mains'
-    files must be byte-equal both ways.  Returns {label: (max |dlnL|,
+    must hold fewer than ``CB_NODES_18`` device nodes, and the MSC-M and
+    MSC-I mains' files must be byte-equal both ways.  Returns {label: (max |dlnL|,
     batched ms, one chain's ms)} of the pruning kernels and {label:
     :func:`batch_accept_chain`'s or :func:`batch_walk`'s row} of the
     accept chains and walks."""
@@ -4605,6 +4741,10 @@ def chains_batch_phase(smi):
     cut_ctl("run14.ctl", "run14b.ctl", nloci=N_LOCI_14B, job="out14b")
     with open("run14b.ctl", "a") as f:
         f.write(f"chains = {CHAINS_14B}\n")
+    # main 11's BDI fixture (linked-msci thetas) with chains = 4
+    cut_ctl("run11.ctl", "run11b.ctl", job="out11b")
+    with open("run11b.ctl", "a") as f:
+        f.write(f"chains = {CHAINS_11B}\n")
     for label, ctl in CB_MAINS:
         states, eng, exact = chains_ab(label, ctl, smi)
         if label == "main 18" and not exact < CB_NODES_18:
@@ -5934,6 +6074,9 @@ def main(argv=None) -> int:
             launches27, err27, err27w = mig_chains_main(
                 27, A10_27, PASSES_PER_ITER_27, smi)
             torch.cuda.empty_cache()
+            # 49. chains = 4 on the MSC-I network, batched
+            launches28, err28 = main28(smi)
+            torch.cuda.empty_cache()
 
             # 27. morphological traits on main 1's data: main 15
             launches15 = main15(smi, dev)
@@ -5941,7 +6084,7 @@ def main(argv=None) -> int:
             # 28. --bfdriver and --summary: [tools]
             launches_bf = tools_phase(smi)
 
-            lap("main 13, 23, 24, 25, 14, 26, 27, 15, [tools]")
+            lap("main 13, 23, 24, 25, 14, 26, 27, 28, 15, [tools]")
 
             # 33-38. the configurations no earlier run took to the card
             launches17, err17 = main17(smi)
@@ -6045,11 +6188,13 @@ def main(argv=None) -> int:
               + launches10 + launches11 + launches12 + launches13
               + launches14 + launches15 + launches_bf + launches17
               + launches18 + launches19 + launches20 + launches22
-              + launches24 + launches25 + launches26 + launches27,
+              + launches24 + launches25 + launches26 + launches27
+              + launches28,
               [*errs1.values(), err_k1_blen, err_k1_dated, err_topo1,
                err_k1_custom, err_net1, err_mig1, err17, err18, err19,
-               err20, err22, err24, err25, err26, err27,
-               batch_rows["main 13"][0], batch_rows["main 18"][0]],
+               err20, err22, err24, err25, err26, err27, err28,
+               batch_rows["main 13"][0], batch_rows["main 18"][0],
+               batch_rows["main 28"][0], batch_rows["main 11 x 4"][0]],
               rows1["JC69"]),
         entry("K2 pallas_fels._make_kernel -> fels_site_logl_kernel",
               "bpp_tpu_torch/csrc/fels_kernel.cu",

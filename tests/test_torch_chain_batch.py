@@ -17,10 +17,12 @@ port's counterpart of ``bpp_tpu``'s ``_chunk_multi``.
 * (c) The plain K1 and K2 over ``[K, L, ...]`` arguments equal K calls on
   one chain's arguments exactly; one wrapper call a pass for all K.
 * (d) ``driver.chain_route``: batched for the A00 configurations, A10,
-  integrated thetas, every locus-rate prior and MSC-M (fixed and
-  variable-rate routes, geneflow, A10 x MSC-M); per-chain for A11, MSC-I,
-  GTR, relaxed clocks, tip dating, linked thetas, traits and usedata = 2,
-  with migration or without.
+  integrated thetas, every locus-rate prior, MSC-M (fixed and
+  variable-rate routes, geneflow, A10 x MSC-M), MSC-I networks (BDI,
+  integrated thetas, diploid data) and linked thetas (all three models,
+  A10 x linked); per-chain for A11, GTR, relaxed clocks, tip dating,
+  traits and usedata = 2, with migration, a network or linked thetas or
+  without.
 * (e) No op of the batched step falls back to vmap's for-loop: the step
   runs with that warning turned into an error (and the warning is shown
   to fire on an op that has no batching rule).
@@ -322,7 +324,10 @@ def test_chain_draws_are_each_chains_own():
 
 
 def test_chain_route_by_configuration(ctls, tmp_path):
+    from test_torch_bdi import CTL as BDI_CTL
+
     from bpp_tpu_torch.config import Clock
+    from bpp_tpu_torch.loader import load_run_from_ctl
     from bpp_tpu_torch.mcmc.driver import chain_route
     from bpp_tpu_torch.testing import (
         MIG_RUN, MIG_SIM, NET_GUIDE, NET_SIM_TREE, write_simulated_run,
@@ -335,10 +340,14 @@ def test_chain_route_by_configuration(ctls, tmp_path):
         assert chain_route(cfg.replace(model=type(cfg.model)[model]),
                            run)[0] == "batched"
     # A10 (the rj move on the guide tree), integrated thetas (K3 over the
-    # chains), the Gamma-Dirichlet (K4) and Dirichlet locus-rate priors and
+    # chains), the Gamma-Dirichlet (K4) and Dirichlet locus-rate priors,
     # MSC-M (K5 over the chains: fixed routes, variable-rate routes,
-    # geneflow, A10 x MSC-M) take the batched step too
+    # geneflow, A10 x MSC-M) and linked thetas take the batched step too
     batched = {
+        "linked thetas": cfg.replace(linked_theta=1),
+        "linked-inner thetas": cfg.replace(linked_theta=2),
+        "A10 x linked thetas": cfg.replace(linked_theta=2,
+                                           est_delimit=True),
         "A10": cfg.replace(est_delimit=True),
         "integrated thetas": cfg.replace(theta_integrated=True),
         "Gamma-Dirichlet locus rates": cfg.replace(est_locusrate=1,
@@ -358,7 +367,6 @@ def test_chain_route_by_configuration(ctls, tmp_path):
         "GTR": cfg.replace(model=type(cfg.model)["GTR"]),
         "relaxed clock": cfg.replace(clock=Clock.IID),
         "tip dating": cfg.replace(datefile="dates.txt"),
-        "linked thetas": cfg.replace(linked_theta=1),
         "traits": cfg.replace(traitfile="traits.txt"),
         "usedata = 2": cfg.replace(usedata_fix_gtree=True),
         # MSC-M with what the batched step does not take stays per-chain
@@ -370,6 +378,11 @@ def test_chain_route_by_configuration(ctls, tmp_path):
                                       traitfile="traits.txt"),
         "MSC-M x usedata = 2": cfg.replace(migration=True,
                                            usedata_fix_gtree=True),
+        # linked thetas with what the batched step does not take
+        "linked thetas x tip dating": cfg.replace(linked_theta=1,
+                                                  datefile="dates.txt"),
+        "linked thetas x traits": cfg.replace(linked_theta=1,
+                                              traitfile="traits.txt"),
     }
     for what, c in per_chain.items():
         route, why = chain_route(c, run)
@@ -380,7 +393,27 @@ def test_chain_route_by_configuration(ctls, tmp_path):
     net = write_simulated_run(tmp_path / "net", 2, n_sites=30,
                               sim_tree=NET_SIM_TREE, guide=NET_GUIDE,
                               priors=("phiprior = 1 1",))
-    assert _engine(net).chains_route == "per-chain"
+    net_eng = _engine(net)
+    assert net_eng.chains_route == "batched"
+    # an MSC-I network with BDI, integrated thetas or diploid data, and
+    # linked-msci thetas, batched; with model = custom per-chain
+    bdi = tmp_path / "bdi.ctl"
+    bdi.write_text(BDI_CTL.format(job=tmp_path / "bdi", nloci=2,
+                                  nsample=2,
+                                  extra="thetamodel = linked-msci"))
+    bdi_run = load_run_from_ctl(str(bdi))
+    assert bdi_run.stree.n_hybrids > 0 and bdi_run.stree.bdi is not None
+    assert chain_route(bdi_run.cfg, bdi_run)[0] == "batched"
+    ncfg, nrun = net_eng.cfg, net_eng.run
+    for what, c in {
+            "network, integrated thetas": ncfg.replace(
+                theta_integrated=True),
+            "diploid network": ncfg.replace(model=type(ncfg.model)["HKY"]),
+            "network, linked-msci": ncfg.replace(linked_theta=3)}.items():
+        assert chain_route(c, nrun)[0] == "batched", what
+    route, why = chain_route(
+        ncfg.replace(model=type(ncfg.model)["CUSTOM"]), nrun)
+    assert route == "per-chain" and why.startswith("model = CUSTOM"), why
     mig = write_simulated_run(tmp_path / "mig", 2, n_sites=30,
                               sim_model="model = 0\n" + MIG_SIM,
                               priors=(MIG_RUN,))

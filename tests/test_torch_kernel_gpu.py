@@ -41,9 +41,9 @@ chains (K in 2, 4, 8; every regime) bit-equal per (chain, locus) to
 one-chain launches and equal to the plain versions but at near ties; one
 launch of K5 over C chains (C in 2, 4, 8; float32 and float64; every
 synthetic walk shape) bit-equal per (chain, locus) to one-chain launches;
-the batched step's graph (one replay for every chain; JC69, diploid and
-MSC-M) bit-equal to the eager batched step, and one batched iteration
-against the one-chain steps.  Needs a CUDA device and nvcc;
+the batched step's graph (one replay for every chain; JC69, diploid,
+MSC-M and MSC-I) bit-equal to the eager batched step, and one batched
+iteration against the one-chain steps.  Needs a CUDA device and nvcc;
 skips without them.
 
     python -m pytest tests/test_torch_kernel_gpu.py -q
@@ -1083,6 +1083,14 @@ def _card_engine(tmp, **kw):
 
 
 @pytest.fixture(scope="module")
+def cuda_msci(tmp_path_factory):
+    from bpp_tpu_torch.testing import NET_GUIDE, NET_SIM_TREE
+    return _card_engine(tmp_path_factory.mktemp("gpumsci"),
+                        sim_tree=NET_SIM_TREE, guide=NET_GUIDE,
+                        priors=("phiprior = 1 1",))
+
+
+@pytest.fixture(scope="module")
 def cuda_int(tmp_path_factory):
     return _card_engine(tmp_path_factory.mktemp("gpuint"),
                         thetaprior="invgamma 3 0.03 int")
@@ -1704,14 +1712,16 @@ def test_accept_chains_over_a_chain_axis(K, regime):
         _masks_agree(got4[k], want, margin)
 
 
-@pytest.mark.parametrize("data", ["cuda_state", "cuda_diploid", "cuda_mig"])
+@pytest.mark.parametrize("data", ["cuda_state", "cuda_diploid", "cuda_mig",
+                                  "cuda_msci"])
 def test_batched_graph_equals_the_eager_batched_step(request, data):
     """chains = 3 on the batched route: 10 replays of the captured batched
     step (one graph, the 3 generators registered) against 10 eager
     batched steps (``Engine._chunk_multi``) from the same states and
     generator states: states, statistics, trace rows and generators
     bit-equal; the replay adds one K1/K2 launch a pass for all 3 chains
-    (under MSC-M one K5 launch a sim-SPR round)."""
+    (under MSC-M one K5 launch a sim-SPR round; on an MSC-I network one
+    tau pass an inner node)."""
     from bpp_tpu_torch.core import fels, pack
     from bpp_tpu_torch.mcmc.driver import clone_state, stack_states
     from bpp_tpu_torch.mcmc.graph import StepGraph, flatten
@@ -1746,8 +1756,11 @@ def test_batched_graph_equals_the_eager_batched_step(request, data):
     acc_g, tr_g = graph.run(10)
     torch.cuda.synchronize()
     # age 2 + SPR 3 + tau 2 + mixing 1 passes (JC69; MSC-M's sim-SPR
-    # rounds for SPR's), one launch each for all 3 chains
-    assert passes == 8
+    # rounds for SPR's; a network's tau move a pass an inner node), one
+    # launch each for all 3 chains
+    sp = eng.run.stree
+    assert passes == 8 + (sp.n_nodes - sp.n_tips - sp.n_hybrids - 2
+                          if sp.n_hybrids else 0)
     assert graph.per_replay[6] == (3 if eng.cfg.migration else 0)
     assert all(torch.equal(a, b) for a, b in
                zip(flatten(st_e)[1], flatten(graph.state())[1]))
@@ -1759,7 +1772,8 @@ def test_batched_graph_equals_the_eager_batched_step(request, data):
         assert torch.equal(a.get_state(), b.get_state())
 
 
-@pytest.mark.parametrize("data", ["cuda_state", "cuda_diploid", "cuda_mig"])
+@pytest.mark.parametrize("data", ["cuda_state", "cuda_diploid", "cuda_mig",
+                                  "cuda_msci"])
 def test_batched_step_against_one_chain_steps_on_the_card(request, data):
     """One batched iteration of 3 chains against each chain's one-chain
     eager step from the same generator state: equal move statistics and
