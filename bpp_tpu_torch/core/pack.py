@@ -79,8 +79,9 @@ def chain_count(age):
 
 def flatten_chains(K, per_chain, shared):
     """A call over K chains as one call over K x L loci (the plain
-    versions, on the CPU): the per-chain tensors ``[K, L, ...]`` merged to
-    ``[K L, ...]``, the batch's repeated for every chain."""
+    versions: on the CPU, and the 20-state pass on either device): the
+    per-chain tensors ``[K, L, ...]`` merged to ``[K L, ...]``, the
+    batch's repeated for every chain."""
     return ([None if t is None else t.reshape((-1,) + tuple(t.shape[2:]))
              for t in per_chain],
             [None if t is None else

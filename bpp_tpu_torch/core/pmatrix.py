@@ -109,6 +109,17 @@ def _jacobi_masks(dtype, device):
     return tuple(out)
 
 
+@functools.lru_cache(maxsize=None)
+def _rate_slots(S, device):
+    """``[S, S]``: the exchangeability of each pair of states as an index
+    into (0, rates...): 1 + its upper-triangle position, 0 on the
+    diagonal."""
+    iu = torch.triu_indices(S, S, 1)
+    slots = torch.zeros((S, S), dtype=torch.int64)
+    slots[iu[0], iu[1]] = torch.arange(1, iu.shape[1] + 1)
+    return (slots + slots.T).to(device)
+
+
 def eigh_jacobi(B, sweeps=JACOBI_SWEEPS):
     """Eigenvalues ``[..., 4]`` (unordered) and orthonormal eigenvectors
     ``[..., 4, 4]`` (columns) of symmetric 4 x 4 matrices ``B``, by
@@ -152,11 +163,12 @@ def gtr_eigen(freqs, rates, jacobi=False):
     ``torch.linalg.eigh``, one call where the sweeps are some six hundred
     small ops."""
     S = freqs.shape[-1]
-    iu = torch.triu_indices(S, S, 1, device=freqs.device)
     shape = torch.broadcast_shapes(freqs.shape[:-1], rates.shape[:-1])
-    R = torch.zeros(shape + (S, S), dtype=freqs.dtype, device=freqs.device)
-    R[..., iu[0], iu[1]] = rates.expand(shape + rates.shape[-1:])
-    R = R + R.transpose(-1, -2)
+    rates = rates.expand(shape + rates.shape[-1:])
+    # gathered out of place (inside the batched step the rates carry the
+    # chain axis): slot 0 is the diagonal's zero
+    R = torch.cat([torch.zeros_like(rates[..., :1]), rates],
+                  -1)[..., _rate_slots(S, freqs.device)]
     Q = R * freqs[..., None, :]
     diag = -Q.sum(-1)
     Q = Q + diag[..., None] * torch.eye(S, dtype=Q.dtype, device=Q.device)

@@ -40,6 +40,7 @@ from ..core import chains
 from ..core import felsenstein as fe
 from ..core.pack import chain_pass
 from ..parallel.mesh import gather_loci, pany, psum, psum_counts
+from ..trees.coalescent import locus_sum
 from ..trees.gtree import assign_populations, topo_scan
 from . import notheta, rng
 from .rng import tiny_floor
@@ -542,9 +543,11 @@ def tipdate_mubar_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
                           torch.zeros_like(ctx.tip_dates))
     age_new = torch.cat([tip_new.to(dt), age_new[:, T:]], dim=1)
     mask = ctx.locus_mask[:, None]
-    jac = torch.sum(torch.where(squash & mask,
+    # sums over loci in locus_sum's fixed order, which the batched step
+    # (vmap over the chains) rounds as one chain's step does
+    jac = locus_sum(torch.where(squash & mask,
                                 torch.log(torch.clamp(h, min=floor)),
-                                torch.zeros_like(h)))
+                                torch.zeros_like(h)).reshape(-1))
 
     # ordering check (stree.c:9506): reject if any child got older than
     # its parent under the per-node squash factors
@@ -562,8 +565,9 @@ def tipdate_mubar_move(ctx: Ctx, cfg: BppConfig, state: McmcState, gen):
     gtn = gt._replace(age=age_new)
     logl_new = logl_fn(gtn, state.subst, sp, state.clock)
     logpr_new, c_new, t2_new = logpr_fn(gtn, sp, state.subst.heredity)
-    jac, dlogl, dlogpr = psum(ctx.shard, jac, torch.sum(logl_new - state.logl),
-                              torch.sum(logpr_new - state.logpr))
+    jac, dlogl, dlogpr = psum(ctx.shard, jac,
+                              locus_sum(logl_new - state.logl),
+                              locus_sum(logpr_new - state.logpr))
     lnacc = lnacc + jac + dlogl
     cand = state._replace(gt=gtn, logl=logl_new, logpr=logpr_new, mubar=new)
     if cfg.theta_integrated:

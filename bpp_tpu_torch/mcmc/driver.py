@@ -421,13 +421,6 @@ def step_route(cfg: BppConfig, shard=None) -> tuple[str, str]:
 ROUTE_BATCHED = "batched"
 ROUTE_PER_CHAIN = "per-chain"
 
-# the substitution models a batched step takes: 4 states without GTR's
-# eigensystem
-_BATCHED_MODELS = (SubstModel.JC69, SubstModel.K80, SubstModel.F81,
-                   SubstModel.HKY, SubstModel.T92, SubstModel.F84,
-                   SubstModel.TN93)
-
-
 def chain_route(cfg: BppConfig, run: RunData) -> tuple[str, str]:
     """How ``chains = K`` steps, chosen once from the configuration:
     ``("batched", why)``, one step over a leading chain axis of the K
@@ -435,29 +428,24 @@ def chain_route(cfg: BppConfig, run: RunData) -> tuple[str, str]:
     :meth:`Engine._step_batched`, K1 or K2 launched once a pass, K3, K4
     and K5 once a call, for all K chains), or ``("per-chain", what is not
     batched)``, the chains' steps one after another.  The batched step
-    covers A00 and A10 (the rj move on a fixed guide tree) on a species
-    tree with the strict clock and a 4-state model other than GTR and
-    ``model = custom``, haploid (K1) or diploid (K2 and ``reduce_root``),
-    with Gamma rates, heredity scalars, locus rates under any of their
-    priors (hierarchical, Gamma-Dirichlet (K4), Dirichlet) and estimated
-    or integrated thetas (K3); and MSC-M on that tree (the sim-SPR walk
-    K5), on fixed routes of constant or variable rate or under geneflow,
-    with A00 or (on fixed routes) A10.  This table alone decides: a
-    batched step that fails to capture or launch raises, and nothing
-    reruns the chains one by one."""
+    takes every configuration that ``bpp_tpu``'s ``_run_multichain``
+    takes: A00 and A10 (the rj move on a fixed guide tree) on a species
+    tree or an MSC-I network (BDI among them), any substitution model
+    (GTR and ``model = custom`` with a per-chain eigensystem, amino acids
+    through the plain 20-state pass), haploid (K1) or diploid (K2 and
+    ``reduce_root``) data, Gamma rates, heredity scalars, locus rates
+    under any of their priors (Gamma-Dirichlet K4), estimated, integrated
+    (K3) or linked thetas, tip dating, traits, ``usedata = 2``, and MSC-M
+    (the sim-SPR walk K5) on fixed routes of constant or variable rate or
+    under geneflow.  Only species-tree moves and relaxed clocks, which
+    both CLIs refuse under ``chains > 1``, step one chain after another.
+    This table alone decides: a batched step that fails to capture or
+    launch raises, and nothing reruns the chains one by one."""
     why = None
     if cfg.est_stree:
         why = "species-tree moves (SPR, SNL)"
-    elif cfg.datefile:
-        why = "tip dating"
-    elif cfg.model not in _BATCHED_MODELS:
-        why = f"model = {cfg.model.name} (custom, amino acids and GTR)"
     elif cfg.clock != Clock.GLOBAL:
         why = "a relaxed clock"
-    elif cfg.traitfile:
-        why = "morphological traits"
-    elif cfg.usedata_fix_gtree:
-        why = "usedata = 2"
     if why is not None:
         return ROUTE_PER_CHAIN, f"{why}: one chain's step after another"
     return ROUTE_BATCHED, ("one step over a chain axis: each kernel call "

@@ -17,6 +17,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..config import BppConfig, Clock, SubstModel
 from ..core import felsenstein as fe
@@ -216,14 +217,14 @@ def refresh_eigen(subst: SubstState, model: SubstModel,
         f4 = torch.where(d[:, None], subst.freqs[:, :4],
                          torch.full_like(subst.freqs[:, :4], 0.25))
         w4, T4, Ti4 = gtr_eigen(f4, exp, jacobi)
-        L, S = w4.shape[0], custom.n_states
-        w = torch.zeros((L, S), dtype=w4.dtype, device=w4.device)
-        w[:, :4] = w4
-        eye = torch.eye(S, dtype=w4.dtype, device=w4.device)
-        T = eye.expand(L, S, S).clone()
-        T[:, :4, :4] = T4
-        Tinv = eye.expand(L, S, S).clone()
-        Tinv[:, :4, :4] = Ti4
+        S = custom.n_states
+        # padded out of place (inside the batched step the 4 x 4 blocks
+        # carry the chain axis): the identity's other rows added to 0
+        rest = torch.eye(S, dtype=w4.dtype, device=w4.device)
+        rest[:4, :4] = 0.0
+        w = F.pad(w4, (0, S - 4))
+        T = F.pad(T4, (0, S - 4, 0, S - 4)) + rest
+        Tinv = F.pad(Ti4, (0, S - 4, 0, S - 4)) + rest
         w = torch.where(d[:, None], w, custom.aa_w)
         T = torch.where(d[:, None, None], T, custom.aa_T)
         Tinv = torch.where(d[:, None, None], Tinv, custom.aa_Ti)
@@ -424,8 +425,9 @@ def make_logl_fn(ctx: Ctx, cfg: BppConfig):
                                    model=model, n_cats=n_cats,
                                    n_pat=ctx.n_pat, units=ctx.units)
             else:
-                site = site_logl_fels_ref(*tree, model=model, n_cats=n_cats,
-                                          blen=blen, n_pat=ctx.n_pat)
+                site = kernel_pass(ctx, site_logl_fels_ref, tree, blen,
+                                   model=model, n_cats=n_cats,
+                                   n_pat=ctx.n_pat)
             ll = fe.reduce_root(site.to(ctx.weights.dtype), ctx.weights,
                                 ctx.res_map, ctx.res_count)
         if bfbeta != 1.0:
@@ -442,9 +444,11 @@ TREE_ARGS = ("order", "left", "right", "parent", "n_seq", "age", "mu",
 
 
 def kernel_pass(ctx: Ctx, fn, tree, blen, **kw):
-    """``fn`` (``site_logl_packed`` or ``site_logl_fels``) on ``tree``:
-    inside the batched step of K chains one call over all of them
-    (``pack.chain_pass``), so that K1 or K2 launches once a pass."""
+    """``fn`` (``site_logl_packed``, ``site_logl_fels`` or the 20-state
+    plain pass ``site_logl_fels_ref``) on ``tree``: inside the batched
+    step of K chains one call over all of them (``pack.chain_pass``), so
+    that K1 or K2 launches once a pass and the plain pass takes the K x L
+    loci as one batch."""
     if not ctx.chains:
         return fn(*tree, blen=blen, **kw)
     tensors = dict(zip(TREE_ARGS, tree), blen=blen)

@@ -95,7 +95,12 @@ def per_pop_stats(gt: GTrees, sp: SpeciesArrays, pops, n_seq):
     n_inf = n_in.to(ia.dtype)
     n_in_e = torch.einsum("leh,lh->le", ev_ohf, n_inf)
     contrib = 2.0 * (n_in_e - rank) * ia * inn.to(ia.dtype)
-    ev_sum = torch.einsum("leh,le->lh", ev_ohf, contrib)
+    # each population's events summed over the innermost axis of [L, H,
+    # E], in an order set by E alone: a batched matmul (einsum) picks its
+    # kernel, and so its order, from the batch shape, and inside the
+    # batched step (vmap over the chains) would round otherwise than one
+    # chain's step
+    ev_sum = torch.sum(ev_ohf.transpose(1, 2) * contrib[:, None, :], dim=2)
 
     k_f = coal.to(ia.dtype)
     nk = n_inf - k_f

@@ -11,16 +11,27 @@ it) rounds otherwise batched, and a chain drifts from its one-chain run.
 This script finds such ops and moves on one device (the card by default):
 
 * ``[ops]``: single reductions over the shapes the steps sum (1-D and
-  [L, X] sums, sums over either axis, cumsums, the batched product
-  ``per_pop_stats`` sums each locus's events with), each ``vmap``-ped
-  over 4 random rows against 4 calls one row at a time, bit for bit.
+  [L, X] sums, sums over either axis, cumsums), the sum of each locus's
+  events into its populations (``per_pop_stats``, over the innermost
+  axis) and of the pairwise coexistence times of dated tips
+  (``per_pop_stats_dated``, over two outer axes), the 4 x 4 products of
+  ``eigh_jacobi`` and the whole solver, and the 20-state plain pass's
+  products at main 9's
+  shapes (P(t) of WAG and of a per-locus eigensystem, a matmul each, and
+  the pruning's broadcast-sum), each ``vmap``-ped over 4 random rows (or,
+  where the batched step hands the K chains' loci over as one batch,
+  called once on the 4 rows' loci) against 4 calls one row at a time,
+  bit for bit.
 * ``[moves]``: on configurations of ``chip_smoke.py`` with 4 chains
   (``--loci`` loci each, 30 on the BDI fixture and 100 on main 14's
   geneflow file): main 13's A00 JC69 run and main 25's integrated
   thetas on main 1's tree; linked-inner thetas there; main 28's MSC-I
   network (main 10's file) and main 11's BDI fixture with linked-msci
   thetas; main 26's MSC-M routes, main 27's A10 x MSC-M, variable-rate
-  routes and main 14's geneflow file.  After 3 batched iterations, each
+  routes and main 14's geneflow file; main 29's GTR+G4 (main 20's file),
+  main 5's dated file with integrated thetas, main 9's WAG file (100
+  loci), main 8's five-model partition (100 loci, 20 a model) and main
+  15's traits (100 loci).  After 3 batched iterations, each
   move of the configuration's schedule alone from the same states and
   generators, batched against the 4 one-chain calls; then ``--iters``
   whole iterations both ways.  Each line names the state leaves that
@@ -51,9 +62,13 @@ def op_checks(dev, gen):
     time."""
     import torch
 
-    def check(name, fn, shape):
+    def check(name, fn, shape, flat=False):
         x = torch.rand((K,) + shape, generator=gen, device=dev) - 0.3
-        got = torch.func.vmap(fn)(x)
+        if flat:
+            got = fn(x.reshape((-1,) + shape[1:]))
+            got = got.reshape((K, -1) + tuple(got.shape[1:]))
+        else:
+            got = torch.func.vmap(fn)(x)
         ones = torch.stack([fn(x[k]) for k in range(K)])
         diff = (got.double() - ones.double()).abs().max().item()
         print(f"[ops] {name} over {shape} (float32): bit-equal "
@@ -72,10 +87,45 @@ def op_checks(dev, gen):
     # populations (the waiting-time terms of T2h): 1000 or 30 loci, 15
     # events, 10 or 13 populations, the event one-hot half of x
     for loci, pops in ((1000, 10), (30, 13)):
-        check("einsum('leh,le->lh') of per_pop_stats",
-              lambda x, p=pops: torch.einsum(
-                  "leh,le->lh", (x[..., :p] > 0.35).to(x.dtype),
-                  x[..., p]), (loci, 15, pops + 1))
+        check("sum over the innermost axis of [L, H, E] of per_pop_stats",
+              lambda x, p=pops: torch.sum(
+                  (x[..., :p] > 0.35).to(x.dtype).transpose(1, 2)
+                  * x[:, None, :, p], dim=2), (loci, 15, pops + 1))
+    # per_pop_stats_dated's pairwise coexistence times [L, N, N, H] of
+    # main 5's batch (16 tip slots, 7 populations), summed over both edge
+    # axes
+    check("sum((1, 2)) of per_pop_stats_dated",
+          lambda x: x.sum((1, 2)), (1000, 31, 31, 7))
+    # eigh_jacobi's 4 x 4 products (a batched matmul), on a locus's GTR
+    # system each (main 20's 1000 loci, main 8 x 4's 100), and the solver
+    from bpp_tpu_torch.core import pmatrix
+    for loci in (1000, 100):
+        check("4 x 4 matmul a @ b of eigh_jacobi",
+              lambda x: x[..., :4] @ x[..., 4:], (loci, 4, 8))
+        check("eigh_jacobi (eigenvalues and vectors)",
+              lambda x: torch.cat([t.reshape(x.shape[0], -1)
+                                   for t in pmatrix.eigh_jacobi(_sym(x))],
+                                  -1), (loci, 4, 4))
+    # the 20-state plain pass at main 9's shapes (500 loci, 31 nodes, 1
+    # category): the batched step hands fels.site_logl_fels_ref the K
+    # chains' loci as one batch (pack.chain_pass), so these run once on
+    # the 4 rows' loci against once a row
+    check("20-state P(t) of WAG (matmul [L, N, C, 20, 20] @ [20, 20])",
+          lambda x: pmatrix.pmatrix_aa(x, "WAG"), (500, 31, 1), flat=True)
+    check("20-state P(t) of a per-locus eigensystem (batched matmul)",
+          lambda x: torch.matmul(x[..., :20], x[:, :1, :1, :, 20:]),
+          (100, 31, 1, 20, 40), flat=True)
+    from bpp_tpu_torch.core import felsenstein as fe
+    check("20-state pruning product (einsum 'lcab,lscb->lsca')",
+          lambda x: fe._pclv(x[:, :20, :, :20].transpose(1, 2),
+                             x[:, :, :, 20:]), (500, 40, 1, 40), flat=True)
+
+
+def _sym(x):
+    """Symmetric 4 x 4 matrices from ``x`` (elementwise, so that they are
+    the same batched and one at a time): eigh_jacobi's inputs."""
+    import torch
+    return x + x.transpose(-1, -2) + 4.0 * torch.eye(4, device=x.device)
 
 
 def leaf_names(tree, prefix=""):
@@ -113,7 +163,10 @@ def compare(names, batched, ones):
 
 
 CONFIGS = ("main 13", "main 25", "linked-inner", "main 28", "main 11 x 4",
-           "main 26", "main 27", "am routes", "main 14 x 4")
+           "main 26", "main 27", "am routes", "main 14 x 4", "main 29",
+           "main 5 x 4", "main 9 x 4", "main 8 x 4", "main 15 x 4")
+# the loci of the configurations chip_smoke.py's [chains-batch] cuts
+CUT_LOCI = 100
 
 
 def write_configs(n_loci, labels):
@@ -144,6 +197,9 @@ def write_configs(n_loci, labels):
             run_simulation("sim1.ctl")
         elif prefix == "sim10":
             cs.write_net_data("sim10", n_loci, "4 4 4 4", "model = 0")
+        elif prefix == "aa":
+            from bpp_tpu_torch.testing import generate_aa_benchmark
+            generate_aa_benchmark(min(n_loci, CUT_LOCI), cs.AA_SITES, ".")
         else:
             cs.write_mig_data("sim12", n_loci, "4 4 4 4", "model = 0\n")
 
@@ -162,13 +218,33 @@ def write_configs(n_loci, labels):
                       + cs.MIG_WPRIOR),
         "main 14 x 4": ("sim12", None, min(n_loci, cs.N_LOCI_14B),
                         mig + cs.GENEFLOW),
+        "main 29": ("sim1", None, n_loci, "model = GTR\n" + cs.GAMMA4),
+        "main 5 x 4": ("sim1", None, n_loci, cs.DATED_RUN),
+        "main 9 x 4": ("aa", None, min(n_loci, CUT_LOCI), ""),
+        "main 8 x 4": ("sim1", None, min(n_loci, CUT_LOCI),
+                       "model = custom parts8b.txt\n"),
+        "main 15 x 4": ("sim1", None, min(n_loci, CUT_LOCI),
+                        "traitfile = traits.txt\n"),
     }
+    if "main 5 x 4" in labels:
+        cs.write_dates("dates.txt")
+    if "main 8 x 4" in labels:
+        from bpp_tpu_torch.testing import write_partition_file
+        write_partition_file("parts8b.txt", cs.CUSTOM_MODELS,
+                             min(n_loci, CUT_LOCI))
+    if "main 15 x 4" in labels:
+        from bpp_tpu_torch.testing import write_trait_file
+        write_trait_file("traits.txt", seed=137)
     out = {}
     for label in labels:
         prefix, guide, loci, extra = table[label]
         ctl = f"rounding_{label.replace(' ', '_')}.ctl"
         extra += f"chains = {K}\n"
-        if prefix == "bdi":
+        if prefix == "aa":
+            data(prefix)
+            text = cs.AA_CTL.format(nloci=loci, burnin=5,
+                                    nsample=20) + extra
+        elif prefix == "bdi":
             fix = os.path.join(os.path.dirname(os.path.abspath(
                 cs.__file__)), "tests", "fixtures", "bdi")
             text = cs.BDI_CTL.format(fix=fix, job="rounding", burnin=5,
@@ -187,10 +263,13 @@ def write_configs(n_loci, labels):
 def schedule(eng):
     """(name, move(ctx, cfg, state, gen)) of each move of ``eng``'s
     schedule, one SPR round for three."""
+    from bpp_tpu_torch.mcmc import clock_moves as cm
     from bpp_tpu_torch.mcmc import mig_moves as mm
     from bpp_tpu_torch.mcmc import moves as mv
     from bpp_tpu_torch.mcmc import msci_moves as mi
     from bpp_tpu_torch.mcmc import rj_moves
+    from bpp_tpu_torch.mcmc import subst_moves as sm
+    from bpp_tpu_torch.mcmc import trait_moves as tm
     cfg, routes = eng.cfg, eng.mig_routes
 
     def rj(ctx, cfg_, state, gen):
@@ -214,17 +293,38 @@ def schedule(eng):
                       ("add/remove", mm.geneflow_rj_move)]
         moves = [(n, with_routes(m)) for n, m in moves]
     else:
-        moves = [("age", mv.age_block_move), ("SPR", mv.spr_round_move)]
+        fixed = cfg.usedata_fix_gtree
+        moves = [] if fixed else [("age", mv.age_block_move),
+                                  ("SPR", mv.spr_round_move)]
         if not cfg.theta_integrated:
             moves.append(("theta", mv.theta_move))
         if eng.run.stree.n_hybrids:
             moves += [("tau", mi.tau_move_net), ("repath", mi.repath_move),
                       ("phi", mi.phi_gibbs_move)]
-        else:
+        elif not fixed:
             moves.append(("tau", mv.tau_move))
-        moves.append(("mixing", mv.mixing_move))
+        if not fixed:
+            moves.append(("mixing", mv.mixing_move)
+                         if eng.ctx.tip_dates is None else
+                         ("mubar (tip dating)", cm.tipdate_mubar_move))
     if cfg.est_delimit:
         moves.append(("rj", rj))
+    # the substitution, locus-rate and trait moves (Engine._step's order)
+    custom = eng.ctx.custom
+    if cfg.est_locusrate == 1 and cfg.locusrate_prior == 3:
+        moves.append(("locus rates", sm.locusrate_move))
+    if cfg.model in sm.FREQS_MODELS or (custom is not None
+                                        and custom.any_freqs):
+        moves.append(("freqs", sm.freqs_move))
+    if cfg.model in sm.QRATES_COUNT or (custom is not None
+                                        and custom.q_slots):
+        moves.append(("qrates", sm.qrates_move))
+    if cfg.alphaprior is not None:
+        moves.append(("alpha", sm.alpha_move))
+    if cfg.est_locusrate == 1 and cfg.locusrate_prior in (0, 1):
+        moves.append(("mu_i", cm.mui_move))
+    if eng.ctx.has_traits:
+        moves.append(("trait rates", tm.trait_brate_move))
     return moves
 
 

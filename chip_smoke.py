@@ -117,7 +117,7 @@ them, then the others in order); any failure exits non-zero:
               1``): K2 launched 12 + 3 = 15 times per iteration (rj 1 +
               species SPR 1 + SNL 1) plus 1, K1 never; 40 newick samples, a
               well formed A11 report whose probabilities sum to 1;
-16. topo    — 10 iterations each of main 6's and main 7's engines: K1 and K2
+16. topo    — 5 iterations each of main 6's and main 7's engines: K1 and K2
               held against their float64 plain versions on the four model
               families under both CLV stores on every gene-tree batch a
               species SPR, SNL or rj move proposed (the trees the kernel
@@ -194,7 +194,7 @@ them, then the others in order); any failure exits non-zero:
               a1b1 log has the rates' rows; the ``[profile]`` of its step;
 24. mig     — K1 and K2 against their float64 plain versions under both CLV
               stores: (a) every gene-tree batch ``spr_sim_move`` proposed
-              over 10 eager iterations of main 12's engine (loci of failed walks,
+              over 5 eager iterations of main 12's engine (loci of failed walks,
               pruned and not regrafted, left out and counted) and the state
               after them; (b) the sub-edge branch lengths
               (``relaxed_branch_lengths_mig``) of a clock = 2 MSC-M chain on
@@ -320,17 +320,20 @@ the chain's last state, and the ``[profile]`` of its step there:
               run, 19, 20), mains 5, 6, 7, 12, 14, 21 and 22 (whose
               accept chains, SNL and sim-SPR walks run on the device) and
               mains 24 and 25 (A10 and integrated thetas under chains =
-              4), 26 and 27 (MSC-M and A10 x MSC-M under chains = 4)
-              and 28 (MSC-I under chains = 4):
+              4), 26 and 27 (MSC-M and A10 x MSC-M under chains = 4),
+              28 (MSC-I under chains = 4) and 29 (GTR+G4 under chains =
+              4):
               the states, move statistics, traces and generator
-              states bit-equal after 6 iterations (3 on mains 10, 12,
-              14, 18 and 24-28), and (mains 1, 5 and 13) the
+              states bit-equal after 6 iterations on mains 1, 5 and 13,
+              2 on the MSC-I and MSC-M mains (10, 11, 12, 14, 26-28) and
+              3 on the others, and (mains 1, 5 and 13) the
               control file through ``cli.main`` at burnin 8, nsample 4
               both ways with every mcmc file byte-equal; each route's
               wall ms an
               iteration (eager the median of 3 windows of the compared
-              iterations, replayed of 3 more windows of 5 replays, 2 for
-              mains 10, 12, 14, 18 and 24-28), device kernels, busy ms
+              iterations, 2 windows where 2 are compared, replayed of 3
+              more windows of 3 replays, 1 for mains 10, 12, 14, 18 and
+              24-29), device kernels, busy ms
               and idle share an iteration (a profiler trace of 1
               iteration of each route, both in one profiler session of
               the one engine built for both routes; the eager trace's
@@ -338,7 +341,7 @@ the chain's last state, and the ``[profile]`` of its step there:
               captured step's exact device nodes, counted with
               cudaGraphGetNodes), the capture's seconds and peak device
               memory, K1-K5 launched inside the graph (under ``chains =
-              K`` on the batched route, mains 13, 18 and 23-28, one
+              K`` on the batched route, mains 13, 18 and 23-29, one
               graph of the step over the stacked chains with its
               write-back, as ``run_mcmc_multi`` runs it); then
               ``[eigen]``: main 20's GTR step on the eager route with its
@@ -378,35 +381,42 @@ the chain's last state, and the ``[profile]`` of its step there:
               nan under ``chains = K``, as ``bpp_tpu`` writes it, and left
               out) and the split-R-hat table; K2 held on the last chain's
               last state;
-44. chains-batch — mains 13, 18, 23-28, main 14's geneflow control
-              file with chains = 4 on its first 100 loci and main 11's
+44. chains-batch — mains 13, 18, 23-29, main 14's geneflow control
+              file with chains = 4 on its first 100 loci, main 11's
               BDI fixture (linked-msci thetas) with chains = 4 ("main 11
-              x 4") per-chain against
+              x 4"), main 9's WAG file, main 8's partition (20 loci a
+              model, no check) and main 15's traits (no check) on their
+              first 100 loci and main 5's dated file, each with chains =
+              4 ("main 9 x 4", "main 8 x 4", "main 15 x 4", "main 5 x
+              4"), per-chain against
               batched in this process from the same states and
-              generators, at the control file's seed (an MSC-M or MSC-I
-              step's windows 2 replays, its trace 1 iteration; its K
-              mcmc files must be byte-equal): each
+              generators, at the control file's seed (windows of 2
+              replays, 1 on an MSC-M or MSC-I step, a trace of 1
+              iteration; every row's K mcmc files must be byte-equal):
+              each
               way's exact device nodes of the captured step, device
               kernels, busy and replayed wall ms an iteration, capture
               seconds and peak MiB, pruning launches a replay; after one
               iteration the
               move statistics, per-locus lnL and state leaves of the two
               ways compared; the batched step's draw sites (K launches
-              each); the control file's run at burnin 8, nsample 4 both
+              each); the control file's run at burnin 8, nsample 1 both
               ways, the K mcmc files compared (each way
               ``run_mcmc_multi`` on the graph already captured, the
               files written by ``cli.write_chain_files`` as
               ``cli.main`` writes them; both ways traced in one
               profiler session); main 18's
               batched step under 6,000 device nodes.
-              Then K1 over main 13's 2, main 18's 8, main 28's 4 and
-              main 11 x 4's 4 chains and K2 over
+              Then K1 over main 13's 2, main 18's 8 and the 4 of mains
+              28, 29, 11 x 4, 8 x 4 and 15 x 4 (main 29 and main 8 x 4
+              with a per-chain eigensystem) and K2 over
               main 23's 4, float32 and float64 builds: one launch (a grid
               row a chain) bit-equal per (chain, locus) to one-chain
               launches, within the plain versions' gates, and timed
-              against one chain's launch.  Mains 24 and 25 likewise (K3 /
-              K4 launches a replay compared too), then K4 over main 24's
-              4 chains and K3 over main 25's 4 (the batched step's last
+              against one chain's launch.  Mains 24, 25 and 5 x 4
+              likewise (K3 / K4 launches a replay compared too), then K4
+              over main 24's 4 chains and K3 over main 25's and main 5 x
+              4's 4 (the batched step's last
               call's inputs, one eager batched iteration): one launch (a
               block a chain) bit-equal per (chain, locus) to one-chain
               launches, each chain's decisions against the plain version
@@ -418,7 +428,9 @@ the chain's last state, and the ``[profile]`` of its step there:
               outputs, to one-chain launches, each chain's walks against
               the plain version (ties as in ``[chains]``), timed (float32)
               against one chain's launch, with the bound over the 4 x L
-              loci.
+              loci.  Main 9 x 4's 20-state plain pass (no kernel) once
+              over the 4 chains' loci bit-equal per (chain, locus,
+              pattern) to one call a chain, both timed.
 45. main 24 — A10 (``speciesdelimitation = 1 0 2``, ``speciestree = 0``)
               on main 1's 1000 loci with Gamma-Dirichlet locus rates
               (``locusrate = 1 10 10 5``) and ``chains = 4`` through
@@ -457,6 +469,14 @@ the chain's last state, and the ``[profile]`` of its step there:
               chain's last; four mcmc files of finite samples with
               theta, tau and phi moving in each and the split-R-hat
               table; K1 held on the last chain's last state.
+50. main 29 — main 20's control file (GTR+G4, 1000 loci, burnin 8,
+              nsample 12) with ``chains = 4`` through ``cli.main`` on the
+              batched route, each chain with its own eigensystem: K1 15
+              x 20 + 4 = 304, K2-K5 never; four mcmc files of finite
+              samples with theta and tau moving in each and the
+              split-R-hat table; in every chain the frequencies,
+              exchangeabilities and alpha moved and no NaN eigensystem
+              accepted; K1 held on the last chain's last state.
 
 Every main path but ``[shard]``'s runs its chunks as replays of one
 captured CUDA graph; the launch counts a replay adds are the graph's
@@ -468,7 +488,7 @@ and of the ``launches`` in the kernels line, as the capture itself is.
 Then a ``[time]`` line (the whole script, and the seconds of each group
 of phases in the order they ran), one JSON line ``{"kernels": [...]}``
 (K1 at JC69, K2 at HKY+G4: the
-models of their chains; launches summed over main 1-15, 17-28 and [tools],
+models of their chains; launches summed over main 1-15, 17-29 and [tools],
 errors the largest of every hold; then the float64 builds, with main
 16's and both [shard] ranks' launches and the [x64] holds; then K3, K4
 and K5 with their mains' launches and ``[chains]``' times), the card's
@@ -565,13 +585,14 @@ nsample = {nsample}
 # the new configurations' lines (main 3, main 4, main 5)
 RELAXED = "locusrate = 1 10 10 5 iid\nclock = 2 10 100 5 iid G\n"
 SIMPLE = "clock = 4 2.0\n"
-DATED = ("thetaprior = invgamma 3 0.06 int\ndatefile = dates.txt\n"
-         "locusrate = 3 10 10000\ncheckpoint = {ck} 0\n")
+DATED_RUN = ("thetaprior = invgamma 3 0.06 int\ndatefile = dates.txt\n"
+             "locusrate = 3 10 10000\n")
+DATED = DATED_RUN + "checkpoint = {ck} 0\n"
 CHECKPOINT_AT = 25
 A01 = "speciestree = 1 0.5 0.33 0.1 0.2\n"
 A11 = ("speciesdelimitation = 1 0 2\nspeciestree = 1\n"
        "speciesmodelprior = 1\n")
-TOPO_ITERS = 10
+TOPO_ITERS = 5
 # main 8: the haploid data under a partition of five DNA models in blocks
 # of 200 loci, with the runtime check and two loci's gene-tree files
 CUSTOM_MODELS = ("JC69", "K80", "HKY", "TN93", "GTR")
@@ -689,7 +710,7 @@ MAIN1_TREE = ("((A #0.01, B #0.01) :0.01 #0.01, (C #0.01, D #0.01) :0.012 "
               "#0.01) :0.02 #0.01")
 MIG_WPRIOR = "wprior = 20 40\n"
 N_MIG_DIPLOID = 200
-MIG_ITERS = 10
+MIG_ITERS = 5
 CHAINS = 2
 # an MSC-M step under the strict clock: age 2 + sim-SPR 3 + tau 2 +
 # mixing 1 (the event-age move runs no pass); under clock = 2 the
@@ -750,6 +771,18 @@ CHAINS_14B, N_LOCI_14B = 4, 100
 # four chains (11 an iteration) + one initial state a chain; [chains-
 # batch]'s BDI case: main 11's control file (linked-msci) with chains = 4
 CHAINS_28 = CHAINS_11B = 4
+# main 29: main 20's control file (GTR+G4, 1000 loci, burnin 8, nsample
+# 12) with chains = 4 on the batched route, each chain its own
+# eigensystem: K1 once a pass for the four chains (15 an iteration) + one
+# initial state a chain
+CHAINS_29 = 4
+# [chains-batch]'s rows of the configurations that join the batched route
+# with main 29: main 9's WAG file (the 20-state plain pass), main 8's
+# five-model partition (20 loci a model, no check) and main 15's traits
+# (no check), each on its first 100 loci, and main 5's dated file with
+# integrated thetas (K3 over the chains), each with chains = 4
+CHAINS_B = 4
+N_LOCI_B = 100
 # mains 18-22: 20 iterations, burnin 8 (the fewest with finetune marks)
 NEW_BURNIN, NEW_NSAMPLE = 8, 12
 NEW_CHECKS = (NEW_BURNIN + NEW_NSAMPLE) // CHECK_EVERY
@@ -1916,16 +1949,17 @@ class StepWatch(ChainEnds):
     """While active, keeps the route-consistency flag of every state an
     MSC-I engine's step returns (with ``mig``: an MSC-M engine's, whose
     events must lie in their edges and populations too, and under the
-    geneflow rjMCMC its route mask ``on``; on the device: no host read)
-    and the last engine and state; with ``keep``, the last ``keep``
-    states seen (``kept``: under ``chains = K`` with ``keep = K``, each
-    chain's last state), copied on exit."""
+    geneflow rjMCMC its route mask ``on``; on the device: no host read;
+    on a plain species tree no flag) and the last engine and state; with
+    ``keep``, the first and the last ``keep`` states seen (``firsts``,
+    ``kept``: under ``chains = K`` with ``keep = K``, each chain's state
+    after its first iteration and its last state), copied."""
 
     def __init__(self, mig=False, keep=0):
         self.mig, self.keep = mig, keep
 
     def __enter__(self):
-        self.flags, self.ons, self.kept = [], [], []
+        self.flags, self.ons, self.kept, self.firsts = [], [], [], []
         return super().__enter__()
 
     def __exit__(self, *exc):
@@ -1934,6 +1968,7 @@ class StepWatch(ChainEnds):
         self.kept = [clone_state(st) for st in self.kept]
 
     def seen(self, eng, state):
+        from bpp_tpu_torch.mcmc.driver import clone_state
         from bpp_tpu_torch.trees import migration as mg
         from bpp_tpu_torch.trees.gtree import (
             assign_populations, route_consistent,
@@ -1945,18 +1980,32 @@ class StepWatch(ChainEnds):
             ok = mg.route_consistent_mig(state.gt, state.sp, state.mig,
                                          pops, ctx.n_seq)
             ok = ok | ~ctx.locus_mask
-        else:
+        elif state.sp.is_network:
             pops = assign_populations(state.gt, state.sp, ctx.tip_pop)
             ok = route_consistent(state.gt, state.sp, pops, ctx.n_seq)
-        self.flags.append(ok.all())
+        if self.mig or state.sp.is_network:
+            self.flags.append(ok.all())
         if self.keep:
             # on the graph route a view of the static state: the last K
             # seen hold the K chains' final states
             self.kept = (self.kept + [state])[-self.keep:]
+            if len(self.firsts) < self.keep:
+                self.firsts.append(clone_state(state))
         if self.mig and state.mig.on is not None:
             # a copy: on the graph route the state is the static buffer,
             # which the next replay overwrites
             self.ons.append(state.mig.on.clone())
+
+
+def write_dates(path):
+    """The sample dates of main 1's 16 individuals (numpy seed 137): one
+    line ``<individual> <date>`` each, dates in [0, 1)."""
+    import numpy as np
+    rng = np.random.default_rng(137)
+    with open(path, "w") as f:
+        for sp_name in "abcd":
+            for k in range(1, 5):
+                f.write(f"{sp_name}{k} {rng.uniform(0, 1):.3f}\n")
 
 
 def write_net_data(prefix, nloci, seqs, extra):
@@ -2973,6 +3022,55 @@ def main28(smi):
     return launches, err
 
 
+def main29(smi):
+    """``[main 29]``: main 20's control file (GTR+G4, 1000 loci, burnin
+    8, nsample 12) with ``chains = 4`` through ``cli.main`` on the
+    batched route, each chain with its own eigensystem (``eigh_jacobi``
+    over the four chains' loci in the captured step): K1 once a pass for
+    the four chains (15 an iteration) plus one initial state a chain,
+    K2-K5 never; four mcmc files of finite samples with theta and tau
+    moving in each, the split-R-hat table; in every chain the
+    frequencies, exchangeabilities and alpha moved between its first and
+    last iteration and no NaN eigensystem accepted; K1 held on the last
+    chain's last state against its float64 plain version.  Returns (K1
+    launches, the hold's error)."""
+    import torch
+    K, label = CHAINS_29, "main 29"
+    cut_ctl("run20.ctl", "run29.ctl", job="out29")
+    with open("run29.ctl", "a") as f:
+        f.write(f"chains = {K}\n")
+    iters = NEW_BURNIN + NEW_NSAMPLE
+    moving = ("theta", "tau")
+    with StepWatch(keep=K) as watch:
+        launches, _ = run_chain(
+            ["--cfile", "run29.ctl"], "out29", iters,
+            (PASSES_PER_ITER_20 * iters + K, 0), moving, label, smi,
+            nsample=NEW_NSAMPLE, figtree=False, every=False)
+    eng, _ = watch.last
+    if eng.chains_route != "batched":
+        raise AssertionError(f"{label}: chains route {eng.chains_route} "
+                             f"({eng.chains_route_reason})")
+    files, rhat = check_chains("out29", K, NEW_NSAMPLE, label,
+                               moving=moving)
+    mask = eng.ctx.locus_mask
+    moved = []
+    for first, last in zip(watch.firsts, watch.kept):
+        moved.append(moved_loci(first, last, mask, (
+            ("subst", "freqs"), ("subst", "qrates"), ("subst", "alpha"))))
+        if not bool(torch.isfinite(last.subst.eigw[mask]).all()):
+            raise AssertionError(f"{label}: a NaN eigensystem was accepted")
+    print(f"[{label}] GTR+G4, {K} chains on {N_LOCI} loci, batched: "
+          f"{len(files)} mcmc files of {NEW_NSAMPLE} finite samples, theta "
+          f"and tau moving in each; split-R-hat table ({rhat}, ...); loci "
+          f"whose parameters moved, a chain: {moved}; no NaN eigensystem "
+          f"accepted; K1 {launches} launches = {PASSES_PER_ITER_20} x "
+          f"{iters} + {K} | {smi}")
+    last = watch.kept[-1]
+    err, _ = hold_given(f"K1, {label}'s last chain's last state", eng, last,
+                        smi, cases=own_cases(eng, last), tag=label)
+    return launches, err
+
+
 def subst_main(n, model, passes, smi):
     """``[main 19]`` / ``[main 20]``: main 1's data under ``model`` + G4
     (``alphaprior = 1 1 4``) through the CLI, 20 iterations: K1 ``passes``
@@ -3692,8 +3790,9 @@ SYNC_MAINS = (
     ("main 18", "run18.ctl", False), ("main 19", "run19.ctl", False),
     ("main 20", "run20.ctl", False), ("main 21", "run21.ctl", False),
     ("main 22", "run22.ctl", False))
-# [graph]: states compared after GRAPH_ITERS iterations (GRAPH_HEAVY_ITERS
-# where an eager iteration takes about a second) from the initial
+# [graph]: states compared after GRAPH_ITERS iterations on the mains
+# whose CLI runs are compared too (main 1's eager wall, the host's
+# marker, among them), GRAPH_FEW_ITERS on the others, from the initial
 # state; the eager route's wall the median of GRAPH_WINDOWS timed windows
 # of those iterations, the replayed route's the median of GRAPH_WINDOWS
 # more windows of GRAPH_WINDOW_ITERS replays (GRAPH_HEAVY_WINDOW where an
@@ -3706,13 +3805,18 @@ SYNC_MAINS = (
 # compared at burnin 8 (the first with finetune marks), nsample 4;
 # [eigen]'s windows take GRAPH_WINDOW_ITERS iterations
 GRAPH_WINDOWS = 3
-GRAPH_WINDOW_ITERS = 5
-GRAPH_HEAVY_WINDOW = 2
+GRAPH_WINDOW_ITERS = 3
+GRAPH_HEAVY_WINDOW = 1
 GRAPH_TRACE_ITERS = 1
 GRAPH_RETRACES = 3
 GRAPH_GATE = 25
 GRAPH_ITERS = 6
-GRAPH_HEAVY_ITERS = 3
+GRAPH_FEW_ITERS = 3
+# the mains whose eager iteration takes about a second (MSC-I, MSC-M):
+# GRAPH_SLOW_ITERS compared iterations, a window each
+GRAPH_SLOW = ("main 10", "main 11", "main 12", "main 14", "main 26",
+              "main 27", "main 28")
+GRAPH_SLOW_ITERS = 2
 GRAPH_BURNIN, GRAPH_NSAMPLE = 8, 4
 
 
@@ -3932,6 +4036,7 @@ def graph_phase(label, ctl, smi, x64=False, cli_compare=True,
                              f"{eng.route} ({eng.route_reason})")
     start = eng.init_states(K) if K > 1 else [eng.init_state()]
     batched = K > 1 and eng.chains_route == "batched"
+    n_windows = min(GRAPH_WINDOWS, iters)
 
     def seeded():
         gens = [torch.Generator(device="cuda") for _ in range(K)]
@@ -3940,12 +4045,12 @@ def graph_phase(label, ctl, smi, x64=False, cli_compare=True,
         return gens
 
     def windows(advance):
-        """``iters`` iterations in ``GRAPH_WINDOWS`` timed windows:
-        (the median window's wall ms an iteration, the move statistics,
-        each chain's traces)."""
-        n = iters // GRAPH_WINDOWS
+        """``iters`` iterations in ``GRAPH_WINDOWS`` timed windows (one
+        an iteration where there are fewer): (the median window's wall ms
+        an iteration, the move statistics, each chain's traces)."""
+        n = iters // n_windows
         times, accs, parts = [], [], []
-        for _ in range(GRAPH_WINDOWS):
+        for _ in range(n_windows):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             acc, traces = advance(n)
@@ -4141,7 +4246,7 @@ def graph_phase(label, ctl, smi, x64=False, cli_compare=True,
           f"move statistics, traces and generators bit-equal after "
           f"{iters} iterations; {files} | wall ms/iter eager "
           f"{e['ms']:.2f} graph {g['ms']:.2f} (the median of "
-          f"{GRAPH_WINDOWS} windows: eager of {iters // GRAPH_WINDOWS}"
+          f"{n_windows} windows: eager of {iters // n_windows}"
           f", the compared iterations, replayed of {window_iters} more; "
           f"iters/s {1e3 / e['ms']:.2f} / "
           f"{1e3 / g['ms']:.2f}) | device kernels/iter {e['kernels']:.0f} / "
@@ -4209,7 +4314,10 @@ GRAPH_MAINS = (
     ("main 26", "run26.ctl", False, False, _HEAVY),
     ("main 27", "run27.ctl", False, False, _HEAVY),
     # chains = 4 on the batched route on the MSC-I network
-    ("main 28", "run28.ctl", False, False, _HEAVY))
+    ("main 28", "run28.ctl", False, False, _HEAVY),
+    # chains = 4 on the batched route under GTR+G4 (eager CLI not
+    # compared)
+    ("main 29", "run29.ctl", False, False, _HEAVY))
 
 
 # [chains-batch]: the mains of chains = K whose per-chain and batched
@@ -4219,18 +4327,25 @@ CB_MAINS = (("main 13", "run13.ctl"), ("main 18", "run18.ctl"),
             ("main 23", "run23.ctl"), ("main 24", "run24.ctl"),
             ("main 25", "run25.ctl"), ("main 26", "run26.ctl"),
             ("main 27", "run27.ctl"), ("main 14 x 4", "run14b.ctl"),
-            ("main 28", "run28.ctl"), ("main 11 x 4", "run11b.ctl"))
-# the accept chain or walk each main holds over its chains (mains 13, 18
-# and 23 hold their pruning kernel)
+            ("main 28", "run28.ctl"), ("main 11 x 4", "run11b.ctl"),
+            ("main 29", "run29.ctl"), ("main 9 x 4", "run9b.ctl"),
+            ("main 8 x 4", "run8b.ctl"), ("main 5 x 4", "run5b.ctl"),
+            ("main 15 x 4", "run15b.ctl"))
+# the accept chain or walk each main holds over its chains (the others
+# hold their pruning kernel; main 9 x 4's 20-state plain pass is held as
+# one call over the chains against one call a chain)
 CB_CHAIN_KERNEL = {"main 24": "K4", "main 25": "K3", "main 26": "K5",
-                   "main 27": "K5", "main 14 x 4": "K5"}
+                   "main 27": "K5", "main 14 x 4": "K5", "main 5 x 4": "K3",
+                   "main 9 x 4": "plain"}
 CB_WINDOWS = 3
-CB_WINDOW_ITERS = 5
-CB_TRACE_ITERS = 2
-# an MSC-M or MSC-I step issues ~38,000-56,000 device nodes a chain: 2
-# replays a window and a trace of 1 iteration
-CB_HEAVY_ITERS = 2
-CB_HEAVY_TRACE = 1
+CB_WINDOW_ITERS = 2
+CB_TRACE_ITERS = 1
+# the control file's run both ways: burnin 8 (the first with finetune
+# marks), one sample
+CB_BURNIN, CB_NSAMPLE = GRAPH_BURNIN, 1
+# an MSC-M or MSC-I step issues ~38,000-56,000 device nodes a chain: 1
+# replay a window
+CB_HEAVY_ITERS = 1
 CB_NODES_18 = 6000
 
 
@@ -4331,14 +4446,14 @@ def chains_ab(label, ctl, smi):
     ms an iteration (the median of ``CB_WINDOWS`` windows of
     ``CB_WINDOW_ITERS`` replays, ``CB_HEAVY_ITERS`` under MSC-M and
     MSC-I), device kernels and busy ms an iteration (a profiler trace of
-    ``CB_TRACE_ITERS``, ``CB_HEAVY_TRACE`` under MSC-M and MSC-I); after
+    ``CB_TRACE_ITERS``); after
     the first
     iteration the two ways' move statistics, per-locus lnL and state
     leaves compared; the batched step's draw sites an iteration (each K
     launches, one a chain; counted over the capture's warm-up and
     capture, each one step); the control file's run at burnin
-    ``GRAPH_BURNIN``, nsample ``GRAPH_NSAMPLE`` both ways, its K mcmc
-    files compared (under MSC-M and MSC-I they must be byte-equal): each
+    ``CB_BURNIN``, nsample ``CB_NSAMPLE`` both ways, its K mcmc
+    files compared (they must be byte-equal): each
     way ``run_mcmc_multi`` on the graph captured here (as ``cli.main``
     runs the control file, whose batched route every ``chains = K`` main
     takes through ``cli.main``), its files written by
@@ -4373,7 +4488,7 @@ def chains_ab(label, ctl, smi):
 
     heavy = eng.cfg.migration or run.stree.n_hybrids > 0
     w_iters = CB_HEAVY_ITERS if heavy else CB_WINDOW_ITERS
-    t_iters = CB_HEAVY_TRACE if heavy else CB_TRACE_ITERS
+    t_iters = CB_TRACE_ITERS
     res, graphs = {}, {}
     jobs = {mode: f"cb_{os.path.splitext(ctl)[0]}_{mode[0]}"
             for mode in ("per-chain", "batched")}
@@ -4393,19 +4508,19 @@ def chains_ab(label, ctl, smi):
         r["exact"] = sum(nodes.get(k, 0) for k in GRAPH_DEVICE_NODES)
         r["passes"] = graph.per_replay[0] + graph.per_replay[2]
         r["chains"] = sum(graph.per_replay[4:7])
-        # the control file's run (burnin GRAPH_BURNIN, nsample
-        # GRAPH_NSAMPLE) as cli.main takes it on this route, on this
+        # the control file's run (burnin CB_BURNIN, nsample CB_NSAMPLE)
+        # as cli.main takes it on this route, on this
         # graph: run_mcmc_multi loads the initial states into it and
         # resets its generators; the files written as cli.main writes
         # them
         job, own = jobs[mode], eng.cfg
-        eng.cfg = own.replace(burnin=GRAPH_BURNIN, nsample=GRAPH_NSAMPLE,
+        eng.cfg = own.replace(burnin=CB_BURNIN, nsample=CB_NSAMPLE,
                               jobname=job)
         eng.chains_route = mode
         # a fresh run from the initial states, as a "resume" at its first
         # generation: the states are not made again
         fresh = ([clone_state(st) for st in start],
-                 [g.get_state() for g in seeded(ch.gens)], -GRAPH_BURNIN,
+                 [g.get_state() for g in seeded(ch.gens)], -CB_BURNIN,
                  np.zeros((K, N_MOVES, 2)), [SampleLog() for _ in range(K)])
         try:
             logs = eng.run_mcmc_multi(K, progress_every=0, resume=fresh,
@@ -4494,11 +4609,11 @@ def chains_ab(label, ctl, smi):
           f"{same_stats} of {K} chains, per-locus lnL bit-equal on "
           f"{loci_equal} of {n_loci} loci, largest relative leaf "
           f"difference {rel:.3e} | the control file's run both ways "
-          f"({GRAPH_BURNIN + GRAPH_NSAMPLE} iterations, on the graphs "
+          f"({CB_BURNIN + CB_NSAMPLE} iterations, on the graphs "
           f"above): {same_files} of {K} "
           f"mcmc files byte-equal, the largest difference of a value "
           f"{file_diff:.1e} | {smi}")
-    if heavy and same_files != K:
+    if same_files != K:
         raise AssertionError(f"[chains-batch] {label}: {same_files} of {K} "
                              "mcmc files byte-equal both ways")
     return b["states"], eng, b["exact"]
@@ -4722,17 +4837,76 @@ def batch_walk(label, eng, states, smi):
     return err, ms, one, bms, by, plain_ms
 
 
+def write_batch_ctls():
+    """The control files of ``[chains-batch]``'s rows of main 9, 8, 5 and
+    15 with ``chains = 4``: main 9's WAG file, main 8's partition (with
+    20 loci a model, no check or print files) and main 15's traits (no
+    check) on their first ``N_LOCI_B`` loci, main 5's dated file with
+    integrated thetas (no checkpoint) on its 1000."""
+    from bpp_tpu_torch.testing import write_partition_file
+    chains = f"chains = {CHAINS_B}\n"
+    cut_ctl("run9.ctl", "run9b.ctl", nloci=N_LOCI_B, job="out9b")
+    with open("run9b.ctl", "a") as f:
+        f.write(chains)
+    write_partition_file("parts8b.txt", CUSTOM_MODELS, N_LOCI_B)
+    for ctl, job, nloci, extra in (
+            ("run8b.ctl", "out8b", N_LOCI_B, "model = custom parts8b.txt\n"),
+            ("run5b.ctl", "out5b", N_LOCI, DATED_RUN),
+            ("run15b.ctl", "out15b", N_LOCI_B, "traitfile = traits.txt\n")):
+        with open(ctl, "w") as f:
+            f.write(RUN_CTL.format(nloci=nloci, burnin=BURNIN,
+                                   nsample=NSAMPLE, job=job,
+                                   extra=extra + chains))
+
+
+def batch_plain(label, eng, states, smi):
+    """``[chains-batch]`` the 20-state plain pass over ``label``'s K
+    chains (no kernel takes 20 states): ``fels.site_logl_fels_ref`` once
+    on the K chains' states (their loci as one batch, as the batched step
+    calls it through ``pack.chain_pass``) against once a chain, bit-equal
+    per (chain, locus, pattern); ms of each (CUDA events)."""
+    import torch
+
+    from bpp_tpu_torch.core import fels
+    ctx = eng.ctx
+    K = len(states)
+    C = states[0].subst.rates.shape[1]
+    shared = {4, 12}            # n_seq, tips: the batch's
+    chains = [pass_args(st, st.subst, ctx, ctx.tip_partials.dtype)[:-1]
+              for st in states]
+    stacked = tuple(a if i in shared else torch.stack([c[i] for c in chains])
+                    for i, a in enumerate(chains[0]))
+    kw = dict(model=eng.cfg.model, n_cats=C, n_pat=ctx.n_pat)
+    got = fels.site_logl_fels_ref(*stacked, **kw)
+    ones = [fels.site_logl_fels_ref(*a, **kw) for a in chains]
+    same = sum(bool(torch.equal(got[k], one)) for k, one in enumerate(ones))
+    if same != K:
+        raise AssertionError(f"[chains-batch] {label}: the 20-state pass "
+                             f"over {K} chains equals the one-chain passes "
+                             f"on {same} chains")
+    ms = cuda_ms(lambda: fels.site_logl_fels_ref(*stacked, **kw), reps=5)
+    one_ms = cuda_ms(lambda: fels.site_logl_fels_ref(*chains[0], **kw),
+                     reps=5)
+    print(f"[chains-batch] {label}: the 20-state plain pass once over {K} "
+          f"chains x {ctx.n_pat.shape[0]} loci bit-equal per (chain, locus, "
+          f"pattern) to {K} one-chain passes | ms (CUDA events): batched "
+          f"{ms:.3f}, one chain {one_ms:.3f} ({K} passes {K * one_ms:.3f}) "
+          f"| {smi}")
+
+
 def chains_batch_phase(smi):
-    """``[chains-batch]``: mains 13, 18, 23-28, main 14 with 4 chains on
-    100 loci and main 11 with 4 chains per-chain against batched
+    """``[chains-batch]``: mains 13, 18, 23-29, main 14 with 4 chains on
+    100 loci, main 11 with 4 chains and mains 9, 8, 5 and 15 with 4
+    chains (:func:`write_batch_ctls`) per-chain against batched
     (:func:`chains_ab`), then the batched launches of K1 (main 18's 8
-    chains, main 13's 2, main 28's and main 11's 4) and K2 (main 23's 4)
-    on the chains' states against one-chain launches
-    (:func:`batch_launches`), of K4 (main 24's 4) and K3 (main 25's 4) on
-    the batched step's inputs (:func:`batch_accept_chain`), and of K5
-    (mains 26, 27 and 14's 4; :func:`batch_walk`).  Main 18's batched step
-    must hold fewer than ``CB_NODES_18`` device nodes, and the MSC-M and
-    MSC-I mains' files must be byte-equal both ways.  Returns {label: (max |dlnL|,
+    chains, main 13's 2, the 4 of mains 28, 29, 11, 8 and 15) and K2
+    (main 23's 4) on the chains' states against one-chain launches
+    (:func:`batch_launches`), of K4 (main 24's 4) and K3 (main 25's and
+    main 5's 4) on the batched step's inputs (:func:`batch_accept_chain`),
+    of K5 (mains 26, 27 and 14's 4; :func:`batch_walk`), and main 9's
+    20-state plain pass over its 4 chains (:func:`batch_plain`).  Main
+    18's batched step must hold fewer than ``CB_NODES_18`` device nodes,
+    and every row's files must be byte-equal both ways.  Returns {label: (max |dlnL|,
     batched ms, one chain's ms)} of the pruning kernels and {label:
     :func:`batch_accept_chain`'s or :func:`batch_walk`'s row} of the
     accept chains and walks."""
@@ -4745,6 +4919,7 @@ def chains_batch_phase(smi):
     cut_ctl("run11.ctl", "run11b.ctl", job="out11b")
     with open("run11b.ctl", "a") as f:
         f.write(f"chains = {CHAINS_11B}\n")
+    write_batch_ctls()
     for label, ctl in CB_MAINS:
         states, eng, exact = chains_ab(label, ctl, smi)
         if label == "main 18" and not exact < CB_NODES_18:
@@ -4754,6 +4929,8 @@ def chains_batch_phase(smi):
         kernel = CB_CHAIN_KERNEL.get(label)
         if kernel == "K5":
             chain_rows[label] = batch_walk(label, eng, states, smi)
+        elif kernel == "plain":
+            batch_plain(label, eng, states, smi)
         elif kernel is not None:
             chain_rows[label] = batch_accept_chain(label, kernel, eng,
                                                    states, smi)
@@ -4770,8 +4947,9 @@ def graph_phases(smi):
     for label, ctl, x64, whole, w in GRAPH_MAINS:
         e, g = graph_phase(label, ctl, smi, x64, cli_compare=whole,
                            window_iters=w,
-                           iters=GRAPH_HEAVY_ITERS if w == _HEAVY
-                           else GRAPH_ITERS)
+                           iters=(GRAPH_ITERS if whole else
+                                  GRAPH_SLOW_ITERS if label in GRAPH_SLOW
+                                  else GRAPH_FEW_ITERS))
         rows.append(f"{label} {e:.2f} -> {g:.2f}")
     print("[graph] wall ms/iter eager -> replayed: " + ", ".join(rows)
           + f" | {smi}")
@@ -5757,11 +5935,7 @@ def main(argv=None) -> int:
 
             # 3. data 1
             own, waited = finish_simulation(sims.pop("sim.ctl"))
-            rng = np.random.default_rng(137)
-            with open("dates.txt", "w") as f:
-                for sp_name in "abcd":
-                    for k in range(1, 5):
-                        f.write(f"{sp_name}{k} {rng.uniform(0, 1):.3f}\n")
+            write_dates("dates.txt")
             for ctl, job, extra in (
                     ("run.ctl", "out", ""), ("run3.ctl", "out3", RELAXED),
                     ("run5.ctl", "out5", DATED.format(ck=CHECKPOINT_AT)),
@@ -6092,11 +6266,14 @@ def main(argv=None) -> int:
             launches19, err19 = subst_main(19, "TN93", PASSES_PER_ITER_19,
                                            smi)
             launches20, err20 = subst_main(20, "GTR", PASSES_PER_ITER_20, smi)
+            # 50. chains = 4 under GTR+G4, batched: a per-chain
+            # eigensystem
+            launches29, err29 = main29(smi)
             launches21, err21 = main21(smi)
             launches22, err22 = main22(smi)
             torch.cuda.empty_cache()
 
-            lap("main 17-22")
+            lap("main 17-22, 29")
 
             # 42. K3, K4 and K5 against their plain versions on the main
             # paths' calls
@@ -6189,12 +6366,13 @@ def main(argv=None) -> int:
               + launches14 + launches15 + launches_bf + launches17
               + launches18 + launches19 + launches20 + launches22
               + launches24 + launches25 + launches26 + launches27
-              + launches28,
+              + launches28 + launches29,
               [*errs1.values(), err_k1_blen, err_k1_dated, err_topo1,
                err_k1_custom, err_net1, err_mig1, err17, err18, err19,
-               err20, err22, err24, err25, err26, err27, err28,
-               batch_rows["main 13"][0], batch_rows["main 18"][0],
-               batch_rows["main 28"][0], batch_rows["main 11 x 4"][0]],
+               err20, err22, err24, err25, err26, err27, err28, err29,
+               *(batch_rows[m][0] for m in (
+                   "main 13", "main 18", "main 28", "main 11 x 4",
+                   "main 29", "main 8 x 4", "main 15 x 4"))],
               rows1["JC69"]),
         entry("K2 pallas_fels._make_kernel -> fels_site_logl_kernel",
               "bpp_tpu_torch/csrc/fels_kernel.cu",
@@ -6214,7 +6392,8 @@ def main(argv=None) -> int:
         entry("K3 notheta.scan_accept lax.scan -> notheta_chain_kernel",
               "bpp_tpu_torch/csrc/chain_kernel.cu",
               "bpp_tpu/mcmc/notheta.py:86", chain_total[0],
-              [chain_rows["K3"][4], batch_chain_rows["main 25"][0]],
+              [chain_rows["K3"][4], batch_chain_rows["main 25"][0],
+               batch_chain_rows["main 5 x 4"][0]],
               chain_rows["K3"]),
         entry("K4 clock_moves Gamma-Dirichlet lax.scan -> "
               "gammadir_chain_kernel", "bpp_tpu_torch/csrc/chain_kernel.cu",

@@ -342,7 +342,9 @@ def test_chain_route_by_configuration(ctls, tmp_path):
     # A10 (the rj move on the guide tree), integrated thetas (K3 over the
     # chains), the Gamma-Dirichlet (K4) and Dirichlet locus-rate priors,
     # MSC-M (K5 over the chains: fixed routes, variable-rate routes,
-    # geneflow, A10 x MSC-M) and linked thetas take the batched step too
+    # geneflow, A10 x MSC-M), linked thetas, GTR, custom and amino-acid
+    # models (a per-chain eigensystem), tip dating, traits and usedata = 2
+    # take the batched step too
     batched = {
         "linked thetas": cfg.replace(linked_theta=1),
         "linked-inner thetas": cfg.replace(linked_theta=2),
@@ -359,17 +361,12 @@ def test_chain_route_by_configuration(ctls, tmp_path):
         "A10 x MSC-M": cfg.replace(migration=True, est_delimit=True),
         "diploid MSC-M": cfg.replace(migration=True,
                                      model=type(cfg.model)["HKY"]),
-    }
-    for what, c in batched.items():
-        assert chain_route(c, run)[0] == "batched", what
-    per_chain = {
-        "A11": cfg.replace(est_delimit=True, est_stree=True),
         "GTR": cfg.replace(model=type(cfg.model)["GTR"]),
-        "relaxed clock": cfg.replace(clock=Clock.IID),
+        "custom": cfg.replace(model=type(cfg.model)["CUSTOM"]),
+        "WAG": cfg.replace(model=type(cfg.model)["WAG"]),
         "tip dating": cfg.replace(datefile="dates.txt"),
         "traits": cfg.replace(traitfile="traits.txt"),
         "usedata = 2": cfg.replace(usedata_fix_gtree=True),
-        # MSC-M with what the batched step does not take stays per-chain
         "MSC-M x custom": cfg.replace(migration=True,
                                       model=type(cfg.model)["CUSTOM"]),
         "MSC-M x tip dating": cfg.replace(migration=True,
@@ -378,11 +375,20 @@ def test_chain_route_by_configuration(ctls, tmp_path):
                                       traitfile="traits.txt"),
         "MSC-M x usedata = 2": cfg.replace(migration=True,
                                            usedata_fix_gtree=True),
-        # linked thetas with what the batched step does not take
         "linked thetas x tip dating": cfg.replace(linked_theta=1,
                                                   datefile="dates.txt"),
         "linked thetas x traits": cfg.replace(linked_theta=1,
                                               traitfile="traits.txt"),
+    }
+    for what, c in batched.items():
+        assert chain_route(c, run)[0] == "batched", what
+    # what both CLIs refuse under chains > 1 steps one chain after another
+    per_chain = {
+        "A11": cfg.replace(est_delimit=True, est_stree=True),
+        "relaxed clock": cfg.replace(clock=Clock.IID),
+        "A01": cfg.replace(est_stree=True),
+        "MSC-M x relaxed clock": cfg.replace(migration=True,
+                                             clock=Clock.IID),
     }
     for what, c in per_chain.items():
         route, why = chain_route(c, run)
@@ -411,9 +417,10 @@ def test_chain_route_by_configuration(ctls, tmp_path):
             "diploid network": ncfg.replace(model=type(ncfg.model)["HKY"]),
             "network, linked-msci": ncfg.replace(linked_theta=3)}.items():
         assert chain_route(c, nrun)[0] == "batched", what
-    route, why = chain_route(
-        ncfg.replace(model=type(ncfg.model)["CUSTOM"]), nrun)
-    assert route == "per-chain" and why.startswith("model = CUSTOM"), why
+    assert chain_route(ncfg.replace(model=type(ncfg.model)["CUSTOM"]),
+                       nrun)[0] == "batched"
+    route, why = chain_route(ncfg.replace(clock=Clock.IID), nrun)
+    assert route == "per-chain" and why.startswith("a relaxed clock"), why
     mig = write_simulated_run(tmp_path / "mig", 2, n_sites=30,
                               sim_model="model = 0\n" + MIG_SIM,
                               priors=(MIG_RUN,))

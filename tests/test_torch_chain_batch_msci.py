@@ -384,3 +384,60 @@ def test_fixed_order_sums_match_bpp_tpu(L):
                                    atol=1e-15)
     # the pooling is a sum a group: owners with more than one member
     assert len(set(owners.tolist())) < H
+
+
+@pytest.mark.parametrize("dated", [False, True])
+@pytest.mark.parametrize("case", ["net", "linked_all"])
+def test_event_sums_match_bpp_tpu(ctls, case, dated):
+    """``per_pop_stats`` (each locus's events summed into its populations
+    over the innermost axis of [L, H, E]) and ``per_pop_stats_dated``
+    (the pairwise coexistence times) of K chains' gene trees, on a network and on a tree, with every tip at age
+    0 or (``dated``) each tip at a random age below its parent: under
+    ``vmap`` bit for bit the chain-by-chain values, and against
+    ``bpp_tpu``'s on the same trees and populations to float64 roundoff
+    (counts exact)."""
+    from test_torch_mig import _jax_state
+
+    from bpp_tpu.trees import coalescent as cj
+    from bpp_tpu_torch.trees import coalescent as cp
+    from bpp_tpu_torch.trees.gtree import assign_populations
+    eng = _engine(ctls[case])
+    ctx = eng.ctx
+    states = eng.init_states(K)
+    rng = np.random.default_rng(5)
+    stats = cp.per_pop_stats_dated if dated else cp.per_pop_stats
+    stats_j = cj.per_pop_stats_dated if dated else cj.per_pop_stats
+    trees, pops = [], []
+    for st in states:
+        gt = st.gt
+        if dated:
+            T = gt.n_tips
+            page = torch.gather(gt.age, 1, gt.parent[:, :T].clamp(min=0))
+            tip = torch.as_tensor(rng.uniform(0.0, 0.9, page.shape)) * page
+            gt = gt._replace(age=torch.cat([tip, gt.age[:, T:]], 1))
+        trees.append(gt)
+        pops.append(assign_populations(gt, st.sp, ctx.tip_pop))
+    stacked = [torch.stack(x) for x in zip(*[flatten(g)[1] for g in trees])]
+    spec = flatten(trees[0])[0]
+    sp_spec = flatten(states[0].sp)[0]
+    sps = [torch.stack(x) for x in zip(*[flatten(s.sp)[1] for s in states])]
+
+    def one(gl, sl, p):
+        return stats(unflatten(spec, iter(gl)), unflatten(sp_spec, iter(sl)),
+                     p, ctx.n_seq)
+
+    got = torch.func.vmap(one)(stacked, sps, torch.stack(pops))
+    for k, st in enumerate(states):
+        want = stats(trees[k], st.sp, pops[k], ctx.n_seq)
+        for x, y in zip(got, want):
+            assert torch.equal(x[k], y), (k, "vmap against chain by chain")
+        js = _jax_state(st._replace(gt=trees[k]))
+        ref = stats_j(js.gt, js.sp, jnp.asarray(pops[k].numpy()),
+                      jnp.asarray(ctx.n_seq.numpy()))
+        np.testing.assert_array_equal(got[0][k].numpy(), np.asarray(ref[0]))
+        np.testing.assert_allclose(got[1][k].numpy(), np.asarray(ref[1]),
+                                   rtol=1e-12, atol=1e-15)
+        np.testing.assert_array_equal(got[2][k].numpy(), np.asarray(ref[2]))
+    # K distinct chains, events in every one
+    assert not torch.equal(got[1][0], got[1][1])
+    assert int(got[0].sum()) > 0

@@ -1091,6 +1091,25 @@ def cuda_msci(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
+def cuda_gtr(tmp_path_factory):
+    """GTR+G4 (a per-chain eigensystem under chains = K) on haploid data
+    (K1)."""
+    return _card_engine(tmp_path_factory.mktemp("gpugtr"), model="GTR",
+                        priors=("alphaprior = 1 1 4",))
+
+
+@pytest.fixture(scope="module")
+def cuda_gtr_diploid(tmp_path_factory):
+    """GTR+G4 with unphased diploids in species A and B (K2)."""
+    eng, state = _card_engine(tmp_path_factory.mktemp("gpugtrd"),
+                              model="GTR", seqs=(1, 1, 2, 2),
+                              diploid=(1, 1, 0, 0),
+                              priors=("alphaprior = 1 1 4",))
+    assert eng.ctx.res_map is not None
+    return eng, state
+
+
+@pytest.fixture(scope="module")
 def cuda_int(tmp_path_factory):
     return _card_engine(tmp_path_factory.mktemp("gpuint"),
                         thetaprior="invgamma 3 0.03 int")
@@ -1602,19 +1621,25 @@ def test_launch_counters_add_up_under_replay(request, data):
 # --- chains = K: K1/K2 over a chain axis, the batched step ---------------
 
 
-def _chain_inputs(eng, state, K, dtype):
+def _chain_inputs(eng, state, K, dtype, model_name="HKY"):
     """K distinct chains' kernel arguments: the fixture state stepped 2
     iterations a chain further, each chain's locus rates scaled and its
-    frequencies rotated (so that a wrong chain stride shows); returns
-    (per-chain argument tuples, the stacked tuple, model, n_cats)."""
+    frequencies rotated (so that a wrong chain stride shows; under GTR
+    its exchangeabilities rotated too, and its own eigensystem computed
+    from them); returns (per-chain argument tuples, the stacked tuple,
+    model, n_cats)."""
     from bpp_tpu_torch.mcmc.driver import clone_state
+    from bpp_tpu_torch.mcmc.state import refresh_eigen
     L = state.gt.n_loci
-    model, subst = fixed_subst("HKY", 4, L, dtype, "cuda")
+    model, subst = fixed_subst(model_name, 4, L, torch.float64, "cuda")
     chains, st = [], clone_state(state)
     for k in range(K):
         st, _ = eng.chunk_step(st, 2)
-        sk = subst._replace(mu=subst.mu * (1.0 + 0.05 * k),
-                            freqs=torch.roll(subst.freqs, k, dims=1))
+        sk = refresh_eigen(subst._replace(
+            mu=subst.mu * (1.0 + 0.05 * k),
+            freqs=torch.roll(subst.freqs, k, dims=1),
+            qrates=torch.roll(subst.qrates, k, dims=1)), model)
+        sk = type(sk)(*(x.to(dtype).contiguous() for x in sk))
         chains.append(_args(st, eng.ctx, sk, dtype))
     # the batch's tensors (n_seq, tips, weights) stay one copy
     shared = {4, 12, 13}
@@ -1623,20 +1648,23 @@ def _chain_inputs(eng, state, K, dtype):
     return chains, stacked, model, 4
 
 
+@pytest.mark.parametrize("model_name", ["HKY", "GTR"])
 @pytest.mark.parametrize("store", STORES)
 @pytest.mark.parametrize("K", [1, 3, 8])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("data", ["cuda_state", "cuda_diploid"])
 def test_chain_axis_launch_equals_one_chain_launches(request, data, dtype, K,
-                                                     store):
+                                                     store, model_name):
     """One launch over K chains (a grid row a chain) against K one-chain
     launches: bit-equal per (chain, locus) for K1 (haploid data) and per
     (chain, locus, pattern) for K2 (diploid data), float32 and float64,
-    both CLV stores; and within the plain versions' gates (K1 0.02 lnL a
+    both CLV stores, under HKY and under GTR with each chain's own
+    eigensystem; and within the plain versions' gates (K1 0.02 lnL a
     locus in float32, 1e-6 in float64; K2 2e-3 / 1e-8 a pattern)."""
     from bpp_tpu_torch.core import fels, pack
     eng, state = request.getfixturevalue(data)
-    chains, stacked, model, C = _chain_inputs(eng, state, K, dtype)
+    chains, stacked, model, C = _chain_inputs(eng, state, K, dtype,
+                                              model_name)
     ctx = eng.ctx
     k2 = ctx.res_map is not None
     kw = dict(model=model, n_cats=C, units=ctx.units, clv_store=store)
@@ -1713,7 +1741,8 @@ def test_accept_chains_over_a_chain_axis(K, regime):
 
 
 @pytest.mark.parametrize("data", ["cuda_state", "cuda_diploid", "cuda_mig",
-                                  "cuda_msci"])
+                                  "cuda_msci", "cuda_gtr",
+                                  "cuda_gtr_diploid"])
 def test_batched_graph_equals_the_eager_batched_step(request, data):
     """chains = 3 on the batched route: 10 replays of the captured batched
     step (one graph, the 3 generators registered) against 10 eager
@@ -1721,7 +1750,8 @@ def test_batched_graph_equals_the_eager_batched_step(request, data):
     generator states: states, statistics, trace rows and generators
     bit-equal; the replay adds one K1/K2 launch a pass for all 3 chains
     (under MSC-M one K5 launch a sim-SPR round; on an MSC-I network one
-    tau pass an inner node)."""
+    tau pass an inner node; under GTR+G4 freqs 1, qrates 5 and alpha 1
+    more)."""
     from bpp_tpu_torch.core import fels, pack
     from bpp_tpu_torch.mcmc.driver import clone_state, stack_states
     from bpp_tpu_torch.mcmc.graph import StepGraph, flatten
@@ -1759,8 +1789,9 @@ def test_batched_graph_equals_the_eager_batched_step(request, data):
     # rounds for SPR's; a network's tau move a pass an inner node), one
     # launch each for all 3 chains
     sp = eng.run.stree
+    gtr = eng.cfg.model.name == "GTR"
     assert passes == 8 + (sp.n_nodes - sp.n_tips - sp.n_hybrids - 2
-                          if sp.n_hybrids else 0)
+                          if sp.n_hybrids else 0) + (1 + 5 + 1 if gtr else 0)
     assert graph.per_replay[6] == (3 if eng.cfg.migration else 0)
     assert all(torch.equal(a, b) for a, b in
                zip(flatten(st_e)[1], flatten(graph.state())[1]))
@@ -1773,7 +1804,8 @@ def test_batched_graph_equals_the_eager_batched_step(request, data):
 
 
 @pytest.mark.parametrize("data", ["cuda_state", "cuda_diploid", "cuda_mig",
-                                  "cuda_msci"])
+                                  "cuda_msci", "cuda_gtr",
+                                  "cuda_gtr_diploid"])
 def test_batched_step_against_one_chain_steps_on_the_card(request, data):
     """One batched iteration of 3 chains against each chain's one-chain
     eager step from the same generator state: equal move statistics and
